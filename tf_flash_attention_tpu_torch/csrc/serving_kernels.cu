@@ -1,0 +1,836 @@
+// Serving kernels of the PyTorch port, for Hopper (sm_90a).
+//
+// Four kernels carry one step of the continuous-batching engine:
+//   kv_chunk_write  chunked prefill: quantize + store a chunk's K/V rows
+//   paged_prefill   chunked prefill: the chunk attends to its paged cache
+//   kv_append       decode: quantize + store one K/V row per slot
+//   paged_decode    decode: one query token per slot attends to its pages
+//
+// Layouts are the JAX package's (serving/kv_cache.py):
+//   pages   (n_kv, n_pages, page_size, d_store)  int8 | float | bf16
+//   scales  (n_kv, n_pages, 1, page_size)         float (int8 payload only)
+//   tables  (max_seqs, max_pages) int32, lengths (max_seqs) int32
+//
+// Each extern "C" entry launches one kernel on the caller's stream,
+// allocates nothing, and returns cudaGetLastError().  Activations are float
+// or bf16; the cache payload is int8 (quantized) or the activations' type.  The
+// attention kernels round q and p to the "compute type" before the two
+// products, as the reference kernels do: bf16 for an int8 cache, else the
+// payload type.  Built without --use_fast_math: the quantizer's division and
+// round-half-to-even must match the reference bit for bit.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
+
+__device__ __forceinline__ float neg_inf() {
+  // the 0xFA byte pattern: a finite "-inf", so exp2(s - m) is 0, never NaN
+  return __int_as_float(static_cast<int>(0xFAFAFAFAu));
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch and XLA
+}
+
+// round a float to the compute type C and back
+template <typename C> __device__ __forceinline__ float round_to(float x);
+template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <> __device__ __forceinline__ float round_to<bf16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// mask_rules: left-to-right order always; a LocalRule adds its window
+__device__ __forceinline__ bool visible(int q_pos, int kv_pos, int window,
+                                        int log2_stride, int is_local) {
+  bool ok = kv_pos <= q_pos;
+  if (is_local) {
+    int diff = q_pos - kv_pos;
+    ok = ok && ((diff >> log2_stride) < window);
+    if (log2_stride) ok = ok && ((diff & ((1 << log2_stride) - 1)) == 0);
+  }
+  return ok;
+}
+
+// ---------------------------------------------------------------------------
+// Row store shared by kv_chunk_write and kv_append (one warp per row).
+//
+// int8 payload: per-token symmetric quantization, kv_cache.py:138-153:
+//   amax -> scale = amax == 0 ? 1 : amax / 127 -> clamp(rint(x / scale))
+// IEEE division and rintf (half to even) make it bit-identical to the
+// reference.  Other payloads are a cast.  Lanes past d store zeros (the
+// reference pads the feature dim with zeros before quantizing).
+template <typename T, typename P>
+__device__ __forceinline__ void store_row(const T* __restrict__ src, int d, int d_store,
+                                          P* __restrict__ dst, float* scale_dst,
+                                          int lane) {
+  if constexpr (std::is_same<P, int8_t>::value) {
+    float amax = 0.f;
+    for (int j = lane; j < d; j += 32) amax = fmaxf(amax, fabsf(to_f(src[j])));
+    amax = warp_max(amax);
+    const float scale = amax == 0.f ? 1.f : amax / 127.f;
+    for (int j = lane; j < d_store; j += 32) {
+      const float x = j < d ? to_f(src[j]) : 0.f;
+      const float q = fminf(fmaxf(rintf(x / scale), -127.f), 127.f);
+      dst[j] = static_cast<int8_t>(static_cast<int>(q));
+    }
+    if (lane == 0) *scale_dst = scale;
+  } else {
+    for (int j = lane; j < d_store; j += 32)
+      dst[j] = from_f<P>(j < d ? to_f(src[j]) : 0.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3 kv_chunk_write.  Replaces serving/kv_cache.py::_chunk_write_kernel
+// (and the quantization XLA ran before it).  One warp per (K or V, kv head,
+// token) row: quantize in registers, store the row and its scale at
+// (table[(pos / page) % max_pages], pos % page), or at the trash page for
+// rows past true_len.  Bound by bytes: it reads the chunk's activations
+// once and writes its payload once; rows are stored whole and coalesced,
+// so no page is read back (the TPU kernel's block-aligned copy is not
+// needed, nor its alignment precondition).
+template <typename T, typename P>
+__global__ void kv_chunk_write_kernel(const T* __restrict__ k, const T* __restrict__ v,
+                                      P* k_pages, P* v_pages, float* k_scales,
+                                      float* v_scales, const int* __restrict__ table_row,
+                                      int n_kv, int chunk, int d, int d_store, int page_size,
+                                      int n_pages, int max_pages, int start, int true_len,
+                                      int trash) {
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int rows = n_kv * chunk;
+  if (warp >= 2 * rows) return;  // warp-uniform
+  const bool is_v = warp >= rows;
+  const int r = is_v ? warp - rows : warp;
+  const int h = r / chunk, t = r % chunk;
+  const int pos = start + t;
+  const int phys = t < true_len ? table_row[(pos / page_size) % max_pages] : trash;
+  const size_t row = (static_cast<size_t>(h) * n_pages + phys) * page_size + pos % page_size;
+  float* sc = k_scales ? (is_v ? v_scales : k_scales) + row : nullptr;
+  store_row<T, P>((is_v ? v : k) + static_cast<size_t>(r) * d, d, d_store,
+                  (is_v ? v_pages : k_pages) + row * d_store, sc, lane);
+}
+
+// ---------------------------------------------------------------------------
+// K4 kv_append.  Replaces serving/kv_cache.py::_append_rmw_kernel.  One
+// warp per (K or V, slot, kv head): the row goes to
+// (table[s, (len / page) % max_pages], len % page), or to the trash page
+// for an inactive slot.  The TPU kernel read-modify-wrote a whole page per
+// slot; here only the row and its scale are written, so the kernel moves
+// 2 * S * n_kv rows of d_store bytes and is bound by launch latency.
+template <typename T, typename P>
+__global__ void kv_append_kernel(const T* __restrict__ k_new, const T* __restrict__ v_new,
+                                 P* k_pages, P* v_pages, float* k_scales, float* v_scales,
+                                 const int* __restrict__ tables,
+                                 const int* __restrict__ lengths,
+                                 const uint8_t* __restrict__ active, int S, int n_kv, int d,
+                                 int d_store, int page_size, int n_pages, int max_pages,
+                                 int trash) {
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int rows = S * n_kv;
+  if (warp >= 2 * rows) return;
+  const bool is_v = warp >= rows;
+  const int r = is_v ? warp - rows : warp;
+  const int s = r / n_kv, h = r % n_kv;
+  const int len = lengths[s];
+  const int phys = active[s] ? tables[s * max_pages + (len / page_size) % max_pages] : trash;
+  const size_t row = (static_cast<size_t>(h) * n_pages + phys) * page_size + len % page_size;
+  float* sc = k_scales ? (is_v ? v_scales : k_scales) + row : nullptr;
+  store_row<T, P>((is_v ? v_new : k_new) + static_cast<size_t>(r) * d, d, d_store,
+                  (is_v ? v_pages : k_pages) + row * d_store, sc, lane);
+}
+
+// ---------------------------------------------------------------------------
+// K1 paged_decode.  Replaces serving/decode.py::_decode_kernel at gamma 1.
+// One block per (slot, kv head); its g query heads stay unpadded (the TPU's
+// 8-row padding was a tiling artefact), and loops over them are unrolled to
+// GM, g rounded up to a power of two.  A loop over the slot's live pages
+// [first, count) takes the place of the TPU's sequential page grid axis and
+// its VMEM carry.
+//
+// Bound by KV bytes: every live page is read once per kv head, and at the
+// serving shape a block has only its own (slot, head) to work on, so the
+// kernel must keep many bytes in flight per block.  A page's rows are one
+// contiguous range: the kernel stages up to 32 KB of K and 32 KB of V at a
+// time into shared memory, all 16-byte loads issued before any is used,
+// and computes from there.  Per page:
+//   A  each group of 8 lanes takes a token row, each lane D/8 contiguous
+//      features, a 3-step shuffle reduction per query head; the K scale
+//      (staged with the V scale in shared memory) folds into the logits;
+//   B  one warp per query head: page max, exp2, V scale into p, round p;
+//   C  each thread takes 4 columns of every (256 / (D/4))-th token row;
+//      the token groups' partial outputs are summed at the end.
+constexpr int kDecThreads = 256;
+constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kStageBytes = 32 * 1024;   // per operand
+
+__device__ __forceinline__ void load4(const int8_t* p, float* o) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  o[0] = c.x; o[1] = c.y; o[2] = c.z; o[3] = c.w;
+}
+__device__ __forceinline__ void load4(const bf16* p, float* o) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const bf16* b = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) o[i] = __bfloat162float(b[i]);
+}
+__device__ __forceinline__ void load4(const float* p, float* o) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  o[0] = f.x; o[1] = f.y; o[2] = f.z; o[3] = f.w;
+}
+
+// block-wide copy of one or two contiguous, 16-byte aligned ranges of
+// `bytes` each into shared memory; 8 loads per range and thread in flight
+__device__ __forceinline__ void stage_copy(const void* __restrict__ src_a, void* dst_a,
+                                           const void* __restrict__ src_b, void* dst_b,
+                                           int bytes) {
+  const uint4* sa = static_cast<const uint4*>(src_a);
+  const uint4* sb = static_cast<const uint4*>(src_b);
+  uint4* da = static_cast<uint4*>(dst_a);
+  uint4* db = static_cast<uint4*>(dst_b);
+  const int n = bytes / 16;
+  for (int base = threadIdx.x; base < n; base += 8 * blockDim.x) {
+    uint4 ra[8], rb[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int i = base + k * blockDim.x;
+      if (i < n) {
+        ra[k] = sa[i];
+        if (sb) rb[k] = sb[i];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int i = base + k * blockDim.x;
+      if (i < n) {
+        da[i] = ra[k];
+        if (sb) db[i] = rb[k];
+      }
+    }
+  }
+}
+
+template <typename T, typename P, typename C, int GM>
+__global__ void __launch_bounds__(kDecThreads)
+paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
+                    const P* __restrict__ v_pages, const float* __restrict__ k_scales,
+                    const float* __restrict__ v_scales, const int* __restrict__ tables,
+                    const int* __restrict__ lengths, T* __restrict__ o, int n_q, int n_kv,
+                    int d, int D, int page_size, int n_pages, int max_pages,
+                    float scale_log2e, int window, int log2_stride, int is_local) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int g = n_q / n_kv;                  // <= GM
+  P* kbuf = reinterpret_cast<P*>(smem_raw);
+  P* vbuf = reinterpret_cast<P*>(smem_raw + kStageBytes);
+  float* q_sh = reinterpret_cast<float*>(smem_raw + 2 * kStageBytes);  // g * D
+  float* p_sh = q_sh + g * D;                // g * page_size: logits, then p
+  float* ks_sh = p_sh + g * page_size;       // page_size
+  float* vs_sh = ks_sh + page_size;          // page_size
+  float* m_sh = vs_sh + page_size;           // g
+  float* l_sh = m_sh + g;                    // g
+  float* a_sh = l_sh + g;                    // g
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool quantized = k_scales != nullptr;
+  const int stage_rows = min(page_size, kStageBytes / (D * static_cast<int>(sizeof(P))));
+  const bool whole_page = stage_rows == page_size;
+  // phase A: token t = tb + sub for lanes 8 sub .. 8 sub + 7
+  const int sub = lane >> 3, sl = lane & 7, epl = D / 8;
+  // phase C: columns c4 .. c4 + 3 of every `groups`-th token from grp
+  const int c4 = 4 * (tid % (D / 4)), groups = kDecThreads / (D / 4), grp = tid / (D / 4);
+
+  for (int i = tid; i < g * D; i += kDecThreads) {
+    const int r = i / D, j = i % D;
+    const float x = j < d ? to_f(q[(static_cast<size_t>(b) * n_q + h * g + r) * d + j]) : 0.f;
+    q_sh[i] = round_to<C>(x);
+  }
+  for (int r = tid; r < g; r += kDecThreads) {
+    m_sh[r] = neg_inf();
+    l_sh[r] = 0.f;
+  }
+  const int len = lengths[b];
+  const int q_pos = len - 1;
+  const int count = (len + page_size - 1) / page_size;
+  int first = 0;
+  if (is_local) first = max(0, len - 1 - ((window << log2_stride) - 1)) / page_size;
+
+  float acc[GM][4];
+#pragma unroll
+  for (int r = 0; r < GM; ++r)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[r][k] = 0.f;
+  __syncthreads();
+
+  for (int lp = first; lp < count; ++lp) {
+    const int phys = tables[b * max_pages + lp % max_pages];
+    const size_t page = static_cast<size_t>(h) * n_pages + phys;
+    const P* kp = k_pages + page * page_size * D;
+    const P* vp = v_pages + page * page_size * D;
+    if (quantized) {
+      for (int i = tid; i < page_size; i += kDecThreads) {
+        ks_sh[i] = k_scales[page * page_size + i];
+        vs_sh[i] = v_scales[page * page_size + i];
+      }
+    }
+
+    // A: logits of rows [t0, t0 + n) from kbuf
+    auto logits = [&](int t0, int n) {
+      for (int tb = warp * 4; tb < n; tb += kDecWarps * 4) {
+        const int t = tb + sub;
+        float part[GM];
+#pragma unroll
+        for (int r = 0; r < GM; ++r) part[r] = 0.f;
+        if (t < n) {
+          for (int j0 = sl * epl; j0 < (sl + 1) * epl; j0 += 4) {
+            float kv[4];
+            load4(kbuf + t * D + j0, kv);
+#pragma unroll
+            for (int r = 0; r < GM; ++r) {
+              if (r < g) {
+                const float4 qv = *reinterpret_cast<const float4*>(q_sh + r * D + j0);
+                part[r] += qv.x * kv[0] + qv.y * kv[1] + qv.z * kv[2] + qv.w * kv[3];
+              }
+            }
+          }
+        }
+        const bool ok = visible(q_pos, lp * page_size + t0 + t, window, log2_stride, is_local);
+        const float mul = quantized ? ks_sh[min(t0 + t, page_size - 1)] * scale_log2e
+                                    : scale_log2e;
+#pragma unroll
+        for (int r = 0; r < GM; ++r) {
+          float s = part[r];
+          s += __shfl_xor_sync(0xffffffffu, s, 4);
+          s += __shfl_xor_sync(0xffffffffu, s, 2);
+          s += __shfl_xor_sync(0xffffffffu, s, 1);
+          if (r < g && sl == 0 && t < n) p_sh[r * page_size + t0 + t] = ok ? s * mul : neg_inf();
+        }
+      }
+    };
+    // C: this thread's partial p @ V over rows [t0, t0 + n) from vbuf
+    float pv[GM][4];
+#pragma unroll
+    for (int r = 0; r < GM; ++r)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) pv[r][k] = 0.f;
+    auto values = [&](int t0, int n) {
+      for (int t = grp; t < n; t += groups) {
+        float vv[4];
+        load4(vbuf + t * D + c4, vv);
+#pragma unroll
+        for (int r = 0; r < GM; ++r) {
+          if (r < g) {
+            const float p = p_sh[r * page_size + t0 + t];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) pv[r][k] += p * vv[k];
+          }
+        }
+      }
+    };
+
+    const int row_bytes = D * static_cast<int>(sizeof(P));
+    if (whole_page) {   // K and V of the page in flight together
+      stage_copy(kp, kbuf, vp, vbuf, page_size * row_bytes);
+      __syncthreads();
+      logits(0, page_size);
+    } else {
+      for (int t0 = 0; t0 < page_size; t0 += stage_rows) {
+        const int n = min(stage_rows, page_size - t0);
+        stage_copy(kp + static_cast<size_t>(t0) * D, kbuf, nullptr, nullptr, n * row_bytes);
+        __syncthreads();
+        logits(t0, n);
+        __syncthreads();
+      }
+    }
+    __syncthreads();
+
+    // B: online-softmax statistics, one warp per query head
+    for (int r = warp; r < g; r += kDecWarps) {
+      float* row = p_sh + r * page_size;
+      float mx = neg_inf();
+      for (int t = lane; t < page_size; t += 32) mx = fmaxf(mx, row[t]);
+      mx = warp_max(mx);
+      const float m_prev = m_sh[r];
+      const float m_next = fmaxf(m_prev, mx);
+      const float alpha = exp2f(m_prev - m_next);
+      // a row with no visible key yet keeps m == NEG_INF: zero its p
+      const bool live = m_next > neg_inf() * 0.5f;
+      float lsum = 0.f;
+      for (int t = lane; t < page_size; t += 32) {
+        const float p = live ? exp2f(row[t] - m_next) : 0.f;
+        lsum += p;
+        row[t] = round_to<C>(quantized ? p * vs_sh[t] : p);
+      }
+      lsum = warp_sum(lsum);
+      if (lane == 0) {
+        m_sh[r] = m_next;
+        l_sh[r] = alpha * l_sh[r] + lsum;
+        a_sh[r] = alpha;
+      }
+    }
+    __syncthreads();
+
+    if (whole_page) {
+      values(0, page_size);
+    } else {
+      for (int t0 = 0; t0 < page_size; t0 += stage_rows) {
+        const int n = min(stage_rows, page_size - t0);
+        stage_copy(vp + static_cast<size_t>(t0) * D, vbuf, nullptr, nullptr, n * row_bytes);
+        __syncthreads();
+        values(t0, n);
+        __syncthreads();
+      }
+    }
+    // acc = acc * alpha + p @ V
+#pragma unroll
+    for (int r = 0; r < GM; ++r) {
+      if (r < g) {
+        const float alpha = a_sh[r];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[r][k] = acc[r][k] * alpha + pv[r][k];
+      }
+    }
+    // the next page's writes to the stages, p_sh and a_sh wait for these reads
+    __syncthreads();
+  }
+
+  // sum the token groups' partial outputs (the stages are free now); an
+  // empty slot has l == 0 and gives exact zeros
+  float* red = reinterpret_cast<float*>(smem_raw);   // groups * g * D <= 2 stages
+#pragma unroll
+  for (int r = 0; r < GM; ++r) {
+    if (r < g) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) red[(grp * g + r) * D + c4 + k] = acc[r][k];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < g * D; i += kDecThreads) {
+    const int r = i / D, col = i % D;
+    if (col >= d) continue;
+    float sum = 0.f;
+    for (int k = 0; k < groups; ++k) sum += red[(k * g + r) * D + col];
+    const float l = l_sh[r];
+    o[(static_cast<size_t>(b) * n_q + h * g + r) * d + col] = from_f<T>(sum / (l == 0.f ? 1.f : l));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2 paged_prefill.  Replaces serving/prefill.py::_prefill_kernel.  One
+// block per (q head, tile of kPfTQ chunk rows) loops over the sequence's
+// live pages [first_live, count).  Per page, in sub-tiles of kPfTK keys
+// staged in shared memory as float:
+//   S = Q K^T with a 2x4 register micro-tile per thread, K scale, and the
+//     mask kv_pos < total && visible(q_pos, kv_pos) on edge pages only
+//     (interior pages, entirely behind the chunk, skip it);
+//   then per-row online softmax over the whole page (as the reference does,
+//   so p is rounded against the same running max);
+//   then acc = acc * alpha + P V, each warp owning 8 rows, each lane the
+//   columns lane + 32 c.
+// Bound by compute: chunk x live context x d multiply-adds, here on the
+// scalar FP32 pipes (no tensor cores yet).  q arrives prescaled by
+// scale * log2(e), so the logits feed exp2 directly.
+constexpr int kPfThreads = 128;
+constexpr int kPfTQ = 32;
+constexpr int kPfTK = 32;
+
+template <typename T, typename P, typename C, int D>
+__global__ void __launch_bounds__(kPfThreads)
+paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
+                     const P* __restrict__ v_pages, const float* __restrict__ k_scales,
+                     const float* __restrict__ v_scales, const int* __restrict__ table_row,
+                     T* __restrict__ o, int chunk, int n_q, int n_kv, int d, int page_size,
+                     int n_pages, int max_pages, int start, int total, int first_live,
+                     int count, int window, int log2_stride, int is_local) {
+  constexpr int QS = D + 1;  // padded row strides: no bank conflicts in S
+  constexpr int NC = D / 32;
+  extern __shared__ float smem[];
+  const int SS = page_size + 1;
+  float* q_sh = smem;                  // kPfTQ * QS
+  float* kv_sh = q_sh + kPfTQ * QS;    // kPfTK * QS
+  float* s_sh = kv_sh + kPfTK * QS;    // kPfTQ * SS
+  float* ks_sh = s_sh + kPfTQ * SS;    // page_size
+  float* vs_sh = ks_sh + page_size;    // page_size
+  float* m_sh = vs_sh + page_size;     // kPfTQ
+  float* l_sh = m_sh + kPfTQ;
+  float* a_sh = l_sh + kPfTQ;
+  const int hq = blockIdx.x;
+  const int g = n_q / n_kv;
+  const int hk = hq / g;
+  const int row0 = blockIdx.y * kPfTQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool quantized = k_scales != nullptr;
+
+  for (int i = tid; i < kPfTQ * D; i += kPfThreads) {
+    const int r = i / D, j = i % D;
+    const int row = row0 + r;
+    const float x = (row < chunk && j < d)
+                        ? to_f(q[(static_cast<size_t>(row) * n_q + hq) * d + j]) : 0.f;
+    q_sh[r * QS + j] = round_to<C>(x);
+  }
+  for (int r = tid; r < kPfTQ; r += kPfThreads) {
+    m_sh[r] = neg_inf();
+    l_sh[r] = 0.f;
+  }
+  float acc[8][NC];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  // S micro-tile of this thread: rows rg + 16 i (i < 2), cols cg + 8 j (j < 4)
+  const int rg = tid / 8, cg = tid % 8;
+  const int sw = window << log2_stride;
+  // pages past the tile's last row are fully masked for it: skipping them
+  // leaves the online softmax exactly unchanged
+  const int tile_count = min(count, (start + min(row0 + kPfTQ, chunk) - 1) / page_size + 1);
+  __syncthreads();
+
+  for (int lp = first_live; lp < tile_count; ++lp) {
+    const int phys = table_row[lp % max_pages];
+    const size_t page = static_cast<size_t>(hk) * n_pages + phys;
+    const P* kp = k_pages + page * page_size * D;
+    const P* vp = v_pages + page * page_size * D;
+    if (quantized) {
+      for (int i = tid; i < page_size; i += kPfThreads) {
+        ks_sh[i] = k_scales[page * page_size + i];
+        vs_sh[i] = v_scales[page * page_size + i];
+      }
+    }
+    bool interior = (lp + 1) * page_size <= start;
+    if (is_local)
+      interior = interior && !log2_stride &&
+                 lp * page_size >= start + chunk - sw;
+
+    for (int t0 = 0; t0 < page_size; t0 += kPfTK) {
+      for (int i = tid; i < kPfTK * D; i += kPfThreads) {
+        const int t = i / D, j = i % D;
+        kv_sh[t * QS + j] = to_f(kp[static_cast<size_t>(t0 + t) * D + j]);
+      }
+      __syncthreads();
+      float s[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int kk = 0; kk < D; ++kk) {
+        const float q0 = q_sh[rg * QS + kk], q1 = q_sh[(rg + 16) * QS + kk];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float kv = kv_sh[(cg + 8 * j) * QS + kk];
+          s[0][j] += q0 * kv;
+          s[1][j] += q1 * kv;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = rg + 16 * i;
+        const int q_pos = start + row0 + r;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int t = t0 + cg + 8 * j;
+          float v = quantized ? s[i][j] * ks_sh[t] : s[i][j];
+          if (!interior) {
+            const int kv_pos = lp * page_size + t;
+            if (!(kv_pos < total && visible(q_pos, kv_pos, window, log2_stride, is_local)))
+              v = neg_inf();
+          }
+          s_sh[r * SS + t] = v;
+        }
+      }
+      __syncthreads();
+    }
+
+    // online-softmax statistics over the whole page, one warp per 8 rows
+    for (int i = 0; i < 8; ++i) {
+      const int r = warp * 8 + i;
+      float* row = s_sh + r * SS;
+      float mx = neg_inf();
+      for (int t = lane; t < page_size; t += 32) mx = fmaxf(mx, row[t]);
+      mx = warp_max(mx);
+      const float m_prev = m_sh[r];
+      const float m_next = fmaxf(m_prev, mx);
+      const float alpha = exp2f(m_prev - m_next);
+      const bool live = m_next > neg_inf() * 0.5f;
+      float lsum = 0.f;
+      for (int t = lane; t < page_size; t += 32) {
+        const float p = live ? exp2f(row[t] - m_next) : 0.f;
+        lsum += p;
+        row[t] = round_to<C>(quantized ? p * vs_sh[t] : p);
+      }
+      lsum = warp_sum(lsum);
+      if (lane == 0) {
+        m_sh[r] = m_next;
+        l_sh[r] = alpha * l_sh[r] + lsum;
+        a_sh[r] = alpha;
+      }
+    }
+    __syncthreads();
+
+    float pv[8][NC];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) pv[i][c] = 0.f;
+    for (int t0 = 0; t0 < page_size; t0 += kPfTK) {
+      for (int i = tid; i < kPfTK * D; i += kPfThreads) {
+        const int t = i / D, j = i % D;
+        kv_sh[t * QS + j] = to_f(vp[static_cast<size_t>(t0 + t) * D + j]);
+      }
+      __syncthreads();
+      for (int t = 0; t < kPfTK; ++t) {
+        float vv[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) vv[c] = kv_sh[t * QS + lane + 32 * c];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float p = s_sh[(warp * 8 + i) * SS + t0 + t];
+#pragma unroll
+          for (int c = 0; c < NC; ++c) pv[i][c] += p * vv[c];
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float alpha = a_sh[warp * 8 + i];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] = acc[i][c] * alpha + pv[i][c];
+    }
+    // the next page's S writes wait for every warp's reads of a_sh/s_sh
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = warp * 8 + i;
+    const int row = row0 + r;
+    if (row >= chunk) break;
+    const float l = l_sh[r];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = lane + 32 * c;
+      if (col < d)
+        o[(static_cast<size_t>(row) * n_q + hq) * d + col] =
+            from_f<T>(acc[i][c] / (l == 0.f ? 1.f : l));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host-side dispatch on (activation type, payload type).
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// calls F::template run<T, P, C>() for the (act, kv) pair; C is bf16 for an
+// int8 cache, else the payload type
+template <typename F>
+int dispatch(int act, int kv, F f) {
+  if (act == kF32 && kv == kI8) return f.template run<float, int8_t, bf16>();
+  if (act == kBF16 && kv == kI8) return f.template run<bf16, int8_t, bf16>();
+  if (act == kF32 && kv == kF32) return f.template run<float, float, float>();
+  if (act == kBF16 && kv == kBF16) return f.template run<bf16, bf16, bf16>();
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+struct ChunkWrite {
+  const void *k, *v;
+  void *k_pages, *v_pages;
+  float *k_scales, *v_scales;
+  const int* table_row;
+  int n_kv, chunk, d, d_store, page_size, n_pages, max_pages, start, true_len, trash;
+  cudaStream_t stream;
+  template <typename T, typename P, typename C>
+  int run() const {
+    const int warps = 2 * n_kv * chunk;
+    const int threads = 256;
+    const int blocks = (warps * 32 + threads - 1) / threads;
+    if (blocks == 0) return 0;
+    kv_chunk_write_kernel<T, P><<<blocks, threads, 0, stream>>>(
+        static_cast<const T*>(k), static_cast<const T*>(v), static_cast<P*>(k_pages),
+        static_cast<P*>(v_pages), k_scales, v_scales, table_row, n_kv, chunk, d, d_store,
+        page_size, n_pages, max_pages, start, true_len, trash);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct Append {
+  const void *k_new, *v_new;
+  void *k_pages, *v_pages;
+  float *k_scales, *v_scales;
+  const int *tables, *lengths;
+  const uint8_t* active;
+  int S, n_kv, d, d_store, page_size, n_pages, max_pages, trash;
+  cudaStream_t stream;
+  template <typename T, typename P, typename C>
+  int run() const {
+    const int warps = 2 * S * n_kv;
+    const int threads = 256;
+    const int blocks = (warps * 32 + threads - 1) / threads;
+    if (blocks == 0) return 0;
+    kv_append_kernel<T, P><<<blocks, threads, 0, stream>>>(
+        static_cast<const T*>(k_new), static_cast<const T*>(v_new), static_cast<P*>(k_pages),
+        static_cast<P*>(v_pages), k_scales, v_scales, tables, lengths, active, S, n_kv, d,
+        d_store, page_size, n_pages, max_pages, trash);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct Decode {
+  const void* q;
+  const void *k_pages, *v_pages;
+  const float *k_scales, *v_scales;
+  const int *tables, *lengths;
+  void* o;
+  int S, n_q, n_kv, d, d_store, page_size, n_pages, max_pages;
+  float scale_log2e;
+  int window, log2_stride, is_local;
+  cudaStream_t stream;
+  template <typename T, typename P, typename C, int GM>
+  int launch() const {
+    const int g = n_q / n_kv;
+    const size_t smem = 2 * kStageBytes +
+                        sizeof(float) * (static_cast<size_t>(g) * (d_store + page_size) +
+                                         2 * page_size + 3 * g);
+    auto kernel = paged_decode_kernel<T, P, C, GM>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3(S, n_kv), kDecThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const P*>(k_pages),
+        static_cast<const P*>(v_pages), k_scales, v_scales, tables, lengths,
+        static_cast<T*>(o), n_q, n_kv, d, d_store, page_size, n_pages, max_pages,
+        scale_log2e, window, log2_stride, is_local);
+    return static_cast<int>(cudaGetLastError());
+  }
+  template <typename T, typename P, typename C>
+  int run() const {
+    const int g = n_q / n_kv;
+    if (n_q % n_kv || (d_store != 128 && d_store != 256))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (S == 0) return 0;
+    if (g <= 1) return launch<T, P, C, 1>();
+    if (g <= 2) return launch<T, P, C, 2>();
+    if (g <= 4) return launch<T, P, C, 4>();
+    if (g <= 8) return launch<T, P, C, 8>();
+    if (g <= 16) return launch<T, P, C, 16>();
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+};
+
+struct Prefill {
+  const void* q;
+  const void *k_pages, *v_pages;
+  const float *k_scales, *v_scales;
+  const int* table_row;
+  void* o;
+  int chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages, start, total, first_live,
+      count, window, log2_stride, is_local;
+  cudaStream_t stream;
+  template <typename T, typename P, typename C, int D>
+  int launch() const {
+    const size_t smem = sizeof(float) * (static_cast<size_t>(2 * kPfTQ) * (D + 1) +
+                                         static_cast<size_t>(kPfTQ) * (page_size + 1) +
+                                         2 * page_size + 3 * kPfTQ);
+    auto kernel = paged_prefill_kernel<T, P, C, D>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(n_q, (chunk + kPfTQ - 1) / kPfTQ);
+    kernel<<<grid, kPfThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const P*>(k_pages),
+        static_cast<const P*>(v_pages), k_scales, v_scales, table_row, static_cast<T*>(o),
+        chunk, n_q, n_kv, d, page_size, n_pages, max_pages, start, total, first_live, count,
+        window, log2_stride, is_local);
+    return static_cast<int>(cudaGetLastError());
+  }
+  template <typename T, typename P, typename C>
+  int run() const {
+    if (page_size % kPfTK || n_q % n_kv) return static_cast<int>(cudaErrorInvalidValue);
+    if (chunk == 0) return 0;
+    if (d_store == 128) return launch<T, P, C, 128>();
+    if (d_store == 256) return launch<T, P, C, 256>();
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+int fa_kv_chunk_write(int act, int kv, const void* k, const void* v, void* k_pages,
+                      void* v_pages, void* k_scales, void* v_scales, const void* table_row,
+                      int n_kv, int chunk, int d, int d_store, int page_size, int n_pages,
+                      int max_pages, int start, int true_len, int trash, void* stream) {
+  const ChunkWrite f{k, v, k_pages, v_pages, static_cast<float*>(k_scales),
+                     static_cast<float*>(v_scales), static_cast<const int*>(table_row),
+                     n_kv, chunk, d, d_store, page_size, n_pages, max_pages, start, true_len,
+                     trash, static_cast<cudaStream_t>(stream)};
+  return dispatch(act, kv, f);
+}
+
+int fa_kv_append(int act, int kv, const void* k_new, const void* v_new, void* k_pages,
+                 void* v_pages, void* k_scales, void* v_scales, const void* tables,
+                 const void* lengths, const void* active, int S, int n_kv, int d, int d_store,
+                 int page_size, int n_pages, int max_pages, int trash, void* stream) {
+  const Append f{k_new, v_new, k_pages, v_pages, static_cast<float*>(k_scales),
+                 static_cast<float*>(v_scales), static_cast<const int*>(tables),
+                 static_cast<const int*>(lengths), static_cast<const uint8_t*>(active), S,
+                 n_kv, d, d_store, page_size, n_pages, max_pages, trash,
+                 static_cast<cudaStream_t>(stream)};
+  return dispatch(act, kv, f);
+}
+
+int fa_paged_decode(int act, int kv, const void* q, const void* k_pages, const void* v_pages,
+                    const void* k_scales, const void* v_scales, const void* tables,
+                    const void* lengths, void* o, int S, int n_q, int n_kv, int d, int d_store,
+                    int page_size, int n_pages, int max_pages, float scale_log2e, int window,
+                    int log2_stride, int is_local, void* stream) {
+  const Decode f{q, k_pages, v_pages, static_cast<const float*>(k_scales),
+                 static_cast<const float*>(v_scales), static_cast<const int*>(tables),
+                 static_cast<const int*>(lengths), o, S, n_q, n_kv, d, d_store, page_size,
+                 n_pages, max_pages, scale_log2e, window, log2_stride, is_local,
+                 static_cast<cudaStream_t>(stream)};
+  return dispatch(act, kv, f);
+}
+
+int fa_paged_prefill(int act, int kv, const void* q, const void* k_pages, const void* v_pages,
+                     const void* k_scales, const void* v_scales, const void* table_row,
+                     void* o, int chunk, int n_q, int n_kv, int d, int d_store, int page_size,
+                     int n_pages, int max_pages, int start, int total, int first_live,
+                     int count, int window, int log2_stride, int is_local, void* stream) {
+  const Prefill f{q, k_pages, v_pages, static_cast<const float*>(k_scales),
+                  static_cast<const float*>(v_scales), static_cast<const int*>(table_row), o,
+                  chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages, start, total,
+                  first_live, count, window, log2_stride, is_local,
+                  static_cast<cudaStream_t>(stream)};
+  return dispatch(act, kv, f);
+}
+
+}  // extern "C"

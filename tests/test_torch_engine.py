@@ -29,18 +29,24 @@ def params_np():
 
 def test_params_from_jax_round_trips(params_np):
     model = ttf.params_from_jax(TCFG, params_np)
-    np.testing.assert_array_equal(model.embed.numpy(), params_np["embed"])
-    np.testing.assert_array_equal(model.final_norm.numpy(), params_np["final_norm"])
+    np.testing.assert_array_equal(model.embed.detach().numpy(), params_np["embed"])
+    np.testing.assert_array_equal(model.final_norm.detach().numpy(), params_np["final_norm"])
     for block, layer in zip(model.layers, params_np["layers"]):
         for name, value in layer.items():
-            np.testing.assert_array_equal(getattr(block, name).numpy(), value, err_msg=name)
+            np.testing.assert_array_equal(getattr(block, name).detach().numpy(), value,
+                                          err_msg=name)
+    assert all(p.requires_grad and p.dtype == torch.float32 for p in model.parameters())
 
 
 def test_params_cast_once_norms_stay_float32(params_np):
+    # parameters stay float32 and trainable; the engine casts its own copy once
     cfg = dataclasses.replace(TCFG, dtype=torch.bfloat16)
-    model = ttf.params_from_jax(cfg, params_np)
+    params = ttf.params_from_jax(cfg, params_np)
+    model = teng.DecodeEngine(cfg, params, teng.EngineConfig(**ECFG)).model
+    assert params.embed.dtype == params.layers[0].wq.dtype == torch.float32
     assert model.embed.dtype == model.layers[0].wq.dtype == torch.bfloat16
     assert model.layers[0].ln1.dtype == model.final_norm.dtype == torch.float32
+    assert not any(p.requires_grad for p in model.parameters())
     np.testing.assert_array_equal(
         model.layers[1].w2.float().numpy(),
         np.asarray(jnp.asarray(params_np["layers"][1]["w2"]).astype(jnp.bfloat16)

@@ -11,9 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+import tf_flash_attention_tpu.flops as jflops
 import tf_flash_attention_tpu.mask_rules as jrules
+import tf_flash_attention_tpu.schedule as jsched
 import tf_flash_attention_tpu.sync_modes as jsync
+import tf_flash_attention_tpu_torch.flops as tflops
 import tf_flash_attention_tpu_torch.mask_rules as trules
+import tf_flash_attention_tpu_torch.schedule as tsched
 import tf_flash_attention_tpu_torch.sync_modes as tsync
 from tf_flash_attention_tpu.serving import prefix_cache as jpc
 from tf_flash_attention_tpu.serving import sampling as jsamp
@@ -31,10 +35,46 @@ def _code_without_docstring(module):
 
 # the port carries copies (importing the JAX package would import jax);
 # everything but the module docstring must stay identical
-@pytest.mark.parametrize("pair", [(jrules, trules), (jsync, tsync)],
-                         ids=["mask_rules", "sync_modes"])
+@pytest.mark.parametrize("pair", [(jrules, trules), (jsync, tsync), (jsched, tsched),
+                                  (jflops, tflops)],
+                         ids=["mask_rules", "sync_modes", "schedule", "flops"])
 def test_carried_copies_equal_the_originals(pair):
     assert _code_without_docstring(pair[0]) == _code_without_docstring(pair[1])
+
+
+def _port_rule(rule):
+    if isinstance(rule, jrules.LocalRule):
+        return trules.LocalRule(rule.window_size, rule.log2_stride_size, rule.is_causal)
+    return trules.CausalRule() if isinstance(rule, jrules.CausalRule) else trules.FullRule()
+
+
+@pytest.mark.parametrize("seq_dims", [1, 2], ids=["1d", "2d"])
+def test_schedules_equal_the_jax_packages(seq_dims):
+    """The port builds its schedules with the NumPy classifier
+    (use_native=False); they must equal the JAX package's default build
+    for the whole case matrix of tests/test_kernels.py, transposed too."""
+    from test_kernels import ATTENTION_CASES, CASE_MATRIX, SHAPES_1D, SHAPES_2D
+    shapes = SHAPES_1D if seq_dims == 1 else SHAPES_2D
+    for case, mode in CASE_MATRIX:
+        rule = ATTENTION_CASES[case]
+        jp = jsync.make_sync_pack(mode, shapes["q_seq"], shapes["k_seq"])
+        tp = tsync.make_sync_pack(mode, shapes["q_seq"], shapes["k_seq"])
+        want = jsched.build_schedule(jp, rule, 128, 128)
+        got = tsched.build_schedule(tp, _port_rule(rule), 128, 128, use_native=False)
+        for a, b in ((want, got), (want.transpose(), got.transpose())):
+            for field in ("kv_table", "kv_counts", "needs_mask"):
+                np.testing.assert_array_equal(getattr(a, field), getattr(b, field),
+                                              err_msg=f"{case} {mode} {field}")
+
+
+def test_carried_flops_price_like_the_jax_package():
+    """flops.py calls build_schedule with use_native left True; the port's
+    native.native_tile_classes returns None, so the NumPy spec prices it."""
+    want = jflops.matmul_flops_forward(jrules.CausalRule(), "none_front", (2048,), (2048,),
+                                       128, 128, 64)
+    got = tflops.matmul_flops_forward(trules.CausalRule(), "none_front", (2048,), (2048,),
+                                      128, 128, 64)
+    assert got == want == 2.0 * 128 * 128 * 256 * 136 * 64
 
 
 def test_carried_rules_behave_alike():

@@ -25,6 +25,10 @@ def _env():
 def test_engine_import_leaves_jax_out():
     code = ("import sys; import tf_flash_attention_tpu_torch.serving.engine; "
             "import tf_flash_attention_tpu_torch.native; "
+            "import tf_flash_attention_tpu_torch.api; "
+            "import tf_flash_attention_tpu_torch.flops; "
+            "import tf_flash_attention_tpu_torch.models.transformer; "
+            "import tf_flash_attention_tpu_torch.ops.reference; "
             "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('tf_flash_attention_tpu.')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

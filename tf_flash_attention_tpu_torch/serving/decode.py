@@ -138,5 +138,4 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     o = native.paged_decode(q.contiguous(), cache, cfg, scale * LOG2E, rule)
-    native.LAUNCHES["paged_decode"] += 1
     return o

@@ -17,7 +17,7 @@ host: the next tokens.
 
 Not ported yet (each raises ``NotImplementedError``; see ROADMAP):
 tensor/context parallelism (``mesh``), speculative decoding, the bucketed
-prefill (it needs the op path's forward kernel), sliding-window
+prefill (its forward kernel now exists; the engine route does not), sliding-window
 (``LocalRule``) models with their page eviction, and MoE.
 """
 
@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..mask_rules import LocalRule
-from ..models.transformer import ModelConfig, Transformer, _rms_norm
+from ..models.transformer import ModelConfig, Transformer, _rms_norm, inference_weights
 from .decode import paged_decode_attention
 from .kv_cache import (
     KVCacheConfig,
@@ -96,8 +96,8 @@ class DecodeEngine:
             raise NotImplementedError("speculative decoding is not ported yet (ROADMAP "
                                       "queue 2: gamma > 1 paged decode)")
         if engine_cfg.prefill_mode != "chunked":
-            raise NotImplementedError("bucketed prefill needs the op path's forward "
-                                      "kernel, not ported yet (ROADMAP queue 1)")
+            raise NotImplementedError("the bucketed prefill is not ported yet (ROADMAP "
+                                      "queue 1 item 12, first in the serving queue)")
         rule = model_cfg.rule
         if isinstance(rule, LocalRule):
             raise NotImplementedError("sliding-window serving (page eviction, rolling "
@@ -108,7 +108,8 @@ class DecodeEngine:
         self.mcfg = model_cfg
         self.ecfg = engine_cfg
         self.device = torch.device(device) if device is not None else params.embed.device
-        self.model = params.to(self.device)
+        # projections and embedding cast to the model dtype once, here
+        self.model = inference_weights(params, self.device)
         self.ccfg = KVCacheConfig(
             n_kv_heads=model_cfg.n_kv_heads, head_dim=model_cfg.d_head,
             page_size=engine_cfg.page_size, n_pages=engine_cfg.n_pages,

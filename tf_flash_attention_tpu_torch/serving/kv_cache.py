@@ -190,7 +190,6 @@ def write_tokens_at(cache: PagedKVCache, cfg: KVCacheConfig, slot: int,
         _check_device(cache, k, v)
         k, v = k.contiguous(), v.contiguous()
         native.kv_chunk_write(cache, cfg, slot, start, k, v, true_len, trash_page)
-        native.LAUNCHES["kv_chunk_write"] += 1
     else:
         raise ValueError(f"unsupported device {k.device}")
     cache.lengths[slot] = start + true_len
@@ -224,7 +223,6 @@ def append_tokens_batched(cache: PagedKVCache, cfg: KVCacheConfig,
         _check_device(cache, k_new, v_new, active)
         native.kv_append(cache, cfg, k_new.contiguous(), v_new.contiguous(),
                          active.contiguous(), trash_page)
-        native.LAUNCHES["kv_append"] += 1
     else:
         raise ValueError(f"unsupported device {k_new.device}")
     cache.lengths += active.to(torch.int32)

@@ -90,5 +90,4 @@ def paged_prefill_attention(q: torch.Tensor, cache: PagedKVCache,
     first = int(_first_live_page(rule, torch.tensor(start + 1), 1, cfg.page_size))
     o = native.paged_prefill(qs.contiguous(), cache, cfg, slot, start, total,
                              first, -(-total // cfg.page_size), rule)
-    native.LAUNCHES["paged_prefill"] += 1
     return o

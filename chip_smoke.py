@@ -8,17 +8,32 @@ Phases (any failure exits non-zero before the final line):
      power limit as nvidia-smi reports them;
   1. build: compiles every kernel source in csrc/ with nvcc, one process
      per source, all at once;
-  2. kernels: each of the four kernels against its plain PyTorch version
-     on the card, at the serving slice's shapes (int8 cache, 8 kv heads,
-     d 128, page 256, chunk 512, 16 slots), plus a GQA (8 q / 2 kv) case
-     and an unquantized bf16 case; the KV writes must match bit for bit
-     outside the trash page, the attention kernels within a stated
-     tolerance; prints errors and median times (CUDA events);
+  2. kernels: each of the four serving kernels against its plain PyTorch
+     version on the card, at the serving slice's shapes (int8 cache, 8 kv
+     heads, d 128, page 256, chunk 512, 16 slots), plus a GQA (8 q / 2 kv)
+     case and an unquantized bf16 case; the KV writes must match bit for
+     bit outside the trash page, the attention kernels within a stated
+     tolerance; prints errors, median times (CUDA events) and bounds;
+  2b. the same for fp8 e4m3, fp8 e5m2 and int4 caches (int4 also at page
+     512), and paged_multitoken_decode at gamma 4 on int8, bf16, fp8 e4m3
+     and int4 caches, at 8/8 heads and GQA 8 q / 2 kv;
   3. engine: the 168M decoder (vocab 32768, d_model 1024, 8 layers, 8/8
      heads, d_head 128, d_ff 4096, bf16) with random weights from the seed
      serves 18 requests (prompts of 300-1900 tokens, two sharing a
      page-aligned prefix, 32 greedy tokens each) on 16 slots; checks the
-     outputs, the prefix-cache hit and that all four kernels launched;
+     outputs, the prefix-cache hit and that its four kernels launched;
+  3b. the same engine with speculative_tokens=3 serves those 18 requests,
+     2 whose prompts repeat a 64-token pattern and 2 sampled ones
+     (temperature 0.8, top-k 50); paged_multitoken_decode and kv_append
+     must launch; prints spec_stats, tokens per step and the share of
+     greedy requests equal to phase 3's;
+  3c. the same model on an fp8 e4m3 cache (page 256) and on an int4 cache
+     (page 512, 81 pages, 8 a sequence) with and without speculation, 8
+     requests each; every run must launch its kernels on its payload;
+  3d. a lossless gate: 2 layers at the 168M width in float32, unquantized
+     cache, with and without speculation, with every draft right and with
+     every draft wrong: the greedy tokens must agree up to each request's
+     first top-2 logit tie (gap under 1e-3);
   4. the same weights on the CPU (plain versions) and on the card: the
      logits of a 512-token prompt's last token must agree;
   5. the op path's ten kernels (the table-driven forward, kv-outer and
@@ -46,15 +61,20 @@ Phases (any failure exits non-zero before the final line):
      versions) and on the card (kernels): the losses must agree.
 
 The kernels' JSON line gives each kernel's launches from the run of the
-path that takes it by default ("path": the engine, the training steps or
-the op path's public calls), its error and its times.  The last lines are
-that JSON object, the card's name and power limit, and
-{"ok": true, "device": {...}}.
+path that takes it by default ("path": the engine, the speculative engine,
+the training steps or the op path's public calls), its error, its times,
+its bound (the larger of its bytes over 3.35 TB/s and its products over
+the peak of their type) and the time of one PyTorch call computing the same
+function (null where there is none); the serving kernels add the payloads
+held against their plain versions, each payload's time, and their launches
+in phase 3c.  The last lines are that JSON object, the card's name and
+power limit, and {"ok": true, "device": {...}}.
 """
 
 import argparse
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -85,6 +105,10 @@ def op_tol(dtype, ref):
     ulp = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}[dtype]
     return 2 * ulp * max(1.0, float(ref.float().abs().max()))
 
+
+# lossless gate (phase 3d): a top-2 logit gap under this is a tie, where
+# two float32 runs that sum in other orders may pick either token
+GAP_TIE = 1e-3
 
 # training (phase 6): kernels and plain path both compute attention in
 # float32 and round o to bf16, so they part only where a rounding flips (one
@@ -117,18 +141,59 @@ def time_ms(fn, n=20):
     return statistics.median(times)
 
 
+# the card's published rates (H100 SXM, dense): what a bound is priced at
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+
+
+def bound(n_bytes, n_ops, ops_type):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate and
+    the operations over the peak of their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[ops_type] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# cache payloads by name: the quant_dtype, or None for an unquantized bf16 cache
+PAYLOADS = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2,
+            "int4": "int4", "bf16": None}
+
+
+def payload_cfg(payload, **kw):
+    from tf_flash_attention_tpu_torch.serving.kv_cache import KVCacheConfig
+    qd = PAYLOADS[payload]
+    return KVCacheConfig(quantized=qd is not None, quant_dtype=torch.int8 if qd is None else qd,
+                         dtype=torch.bfloat16, **kw)
+
+
+def token_bytes(cfg):
+    """Stored bytes of one token of one kv head: payload and scale."""
+    if not cfg.quantized:
+        return cfg.head_dim_store * cfg.payload_dtype.itemsize
+    return cfg.head_dim_store / cfg.tok_pack + 4
+
+
 def make_cache(cfg, dev, gen, lengths):
-    """A cache with random contents: 8 mapped pages per slot, given lengths."""
-    from tf_flash_attention_tpu_torch.serving.kv_cache import PagedKVCache
+    """A cache with random contents: 8 mapped pages per slot, given lengths.
+    Quantized payloads span their type's range; scales bring every payload
+    to values of the same size as int8's."""
+    from tf_flash_attention_tpu_torch.serving.kv_cache import PagedKVCache, _quant_max
     cache = PagedKVCache.create(cfg, dev)
     for pages in (cache.k_pages, cache.v_pages):
-        if cfg.quantized:
+        if cfg.is_int4:
+            pages.copy_(torch.randint(-128, 128, pages.shape, generator=gen, device=dev))
+        elif cfg.quantized and cfg.quant_dtype == torch.int8:
             pages.copy_(torch.randint(-127, 128, pages.shape, generator=gen, device=dev))
+        elif cfg.quantized:
+            qmax = _quant_max(cfg.quant_dtype)
+            x = torch.randn(pages.shape, generator=gen, device=dev) * (qmax / 8)
+            pages.copy_(x.clamp(-qmax, qmax))
         else:
             pages.copy_(torch.randn(pages.shape, generator=gen, device=dev))
     if cfg.quantized:
+        unit = 127.0 / _quant_max(cfg.quant_dtype)
         for sc in (cache.k_scales, cache.v_scales):
-            sc.copy_(0.005 + 0.02 * torch.rand(sc.shape, generator=gen, device=dev))
+            sc.copy_((0.005 + 0.02 * torch.rand(sc.shape, generator=gen, device=dev)) * unit)
     S = cfg.max_seqs
     perm = torch.randperm(cfg.n_pages - 1, generator=gen, device=dev)[:S * 8]
     cache.page_tables[:, :8] = perm.reshape(S, 8).to(torch.int32)
@@ -137,10 +202,14 @@ def make_cache(cfg, dev, gen, lengths):
 
 
 def clone_cache(c):
-    import dataclasses
     return dataclasses.replace(c, **{f.name: (None if getattr(c, f.name) is None
                                               else getattr(c, f.name).clone())
                                      for f in dataclasses.fields(c)})
+
+
+def _raw(x):
+    """One-byte payloads as their bytes: fp8 compares bit for bit."""
+    return x.view(torch.uint8) if x.element_size() == 1 else x
 
 
 def diff_outside_trash(a, b, trash):
@@ -148,98 +217,130 @@ def diff_outside_trash(a, b, trash):
     diffs = []
     for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
         x, y = getattr(a, name), getattr(b, name)
-        if x is not None and not torch.equal(x[:, :trash], y[:, :trash]):
-            diffs.append(f"{name}: {int((x[:, :trash] != y[:, :trash]).sum())} elements")
+        if x is not None and not torch.equal(_raw(x[:, :trash]), _raw(y[:, :trash])):
+            diffs.append(f"{name}: {int((_raw(x[:, :trash]) != _raw(y[:, :trash])).sum())} "
+                         f"elements")
     return diffs
 
 
-def kernel_case(name, n_q, n_kv, quantized, dev, gen):
-    """Phase 2 for one configuration; returns {kernel: (err, ms, plain_ms)}."""
+def kernel_case(name, n_q, n_kv, payload, dev, gen, page_size=256, gamma=None):
+    """Phase 2 for one configuration, at the serving slice's shapes (d 128, 16
+    slots, chunk 512): the four kernels, or with ``gamma`` only
+    paged_multitoken_decode.  Returns {kernel: {err, ms, plain_ms, bound_ms,
+    bound_by}}; bounds count this case's data (live tokens, visible pairs)."""
     from tf_flash_attention_tpu_torch import native
     from tf_flash_attention_tpu_torch.mask_rules import CausalRule
     from tf_flash_attention_tpu_torch.ops.kernel_common import LOG2E
     from tf_flash_attention_tpu_torch.serving import decode, kv_cache, prefill
 
     d, S, chunk = 128, 16, 512
-    cfg = kv_cache.KVCacheConfig(n_kv_heads=n_kv, head_dim=d, page_size=256,
-                                 n_pages=S * 8 + S + 1, max_seqs=S, max_pages_per_seq=16,
-                                 quantized=quantized, dtype=torch.bfloat16)
+    cfg = payload_cfg(payload, n_kv_heads=n_kv, head_dim=d, page_size=page_size,
+                      n_pages=S * 8 + S + 1, max_seqs=S, max_pages_per_seq=16)
     trash = cfg.n_pages - 1
     lengths = torch.randint(1, 2048, (S,), generator=gen, device=dev).tolist()
     lengths[3] = 0          # an empty slot: decode gives exact zeros
     lengths[5] = 512        # a length on a page boundary
     cache = make_cache(cfg, dev, gen, lengths)
     bf = torch.bfloat16
-    out = {}
-
-    # K3 kv_chunk_write: a chunk crossing pages, with padding rows
-    start, true_len = 1100, 450
-    k = torch.randn((n_kv, chunk, d), generator=gen, device=dev).to(bf)
-    v = torch.randn((n_kv, chunk, d), generator=gen, device=dev).to(bf)
-    ck, cp = clone_cache(cache), clone_cache(cache)
-    kv_cache.write_tokens_at(ck, cfg, 0, start, k, v, true_len, trash)
-    kv_cache._write_tokens_plain(cp, cfg, 0, start, k, v, true_len, trash)
-    torch.cuda.synchronize()
-    diffs = diff_outside_trash(ck, cp, trash)
-    if diffs:
-        fail(f"{name}: kv_chunk_write differs from its plain version: {diffs}")
-    out["kv_chunk_write"] = (0.0,
-                             time_ms(lambda: native.kv_chunk_write(ck, cfg, 0, start, k, v,
-                                                                   true_len, trash)),
-                             time_ms(lambda: kv_cache._write_tokens_plain(
-                                 cp, cfg, 0, start, k, v, true_len, trash)))
-
-    # K4 kv_append: two inactive slots
-    kn = torch.randn((S, n_kv, d), generator=gen, device=dev).to(bf)
-    vn = torch.randn((S, n_kv, d), generator=gen, device=dev).to(bf)
-    active = torch.ones(S, dtype=torch.bool, device=dev)
-    active[3] = active[7] = False
-    ck, cp = clone_cache(cache), clone_cache(cache)
-    kv_cache.append_tokens_batched(ck, cfg, kn, vn, active, trash)
-    kv_cache._append_plain(cp, cfg, kn, vn, active, trash)
-    cp.lengths += active.to(torch.int32)
-    torch.cuda.synchronize()
-    diffs = diff_outside_trash(ck, cp, trash)
-    if diffs or not torch.equal(ck.lengths, cp.lengths):
-        fail(f"{name}: kv_append differs from its plain version: {diffs}")
-    out["kv_append"] = (0.0,
-                        time_ms(lambda: native.kv_append(ck, cfg, kn, vn, active, trash)),
-                        time_ms(lambda: kv_cache._append_plain(cp, cfg, kn, vn, active, trash)))
-
-    # K1 paged_decode
-    q = torch.randn((S, n_q, d), generator=gen, device=dev).to(bf)
+    tok = token_bytes(cfg)
+    act = 2                 # bf16 activations
     scale = 1.0 / d ** 0.5
     rule = CausalRule()
-    o = decode.paged_decode_attention(q, cache, cfg)
-    ref = decode._paged_decode_plain(q, cache, cfg, scale, rule)
-    torch.cuda.synchronize()
-    err = float((o.float() - ref.float()).abs().max())
-    if not torch.isfinite(o).all() or err > attn_tol(ref):
-        fail(f"{name}: paged_decode max error {err} > {attn_tol(ref)}")
-    if not torch.equal(o[3], torch.zeros_like(o[3])):
-        fail(f"{name}: paged_decode empty slot is not zero")
-    out["paged_decode"] = (err,
-                           time_ms(lambda: native.paged_decode(q, cache, cfg, scale * LOG2E, rule)),
-                           time_ms(lambda: decode._paged_decode_plain(q, cache, cfg, scale, rule)))
+    out = {}
 
-    # K2 paged_prefill: a chunk at position 1024 of slot 0 (a cached prefix)
-    start, true_len = 1024, 512
-    qp = torch.randn((chunk, n_q, d), generator=gen, device=dev).to(bf)
-    o = prefill.paged_prefill_attention(qp, cache, cfg, 0, start, true_len)
-    qs = (qp.float() * torch.tensor(scale * LOG2E, dtype=torch.float32)).to(bf)
-    ref = prefill._paged_prefill_plain(qs, cache, cfg, 0, start, true_len, rule)
-    torch.cuda.synchronize()
-    err = float((o[:true_len].float() - ref[:true_len].float()).abs().max())
-    if not torch.isfinite(o).all() or err > attn_tol(ref):
-        fail(f"{name}: paged_prefill max error {err} > {attn_tol(ref)}")
-    total = start + true_len
-    out["paged_prefill"] = (err,
-                            time_ms(lambda: native.paged_prefill(qs, cache, cfg, 0, start, total,
-                                                                 0, -(-total // 256), rule)),
-                            time_ms(lambda: prefill._paged_prefill_plain(
-                                qs, cache, cfg, 0, start, true_len, rule)))
-    for kname, (e, ms, pms) in out.items():
-        print(f"kernel {name} {kname}: max_abs_err={e} ms={ms} plain_ms={pms}", flush=True)
+    def record(kernel, err, kern, plain, n_bytes, n_ops):
+        b_ms, b_by = bound(n_bytes, n_ops, "bf16")
+        out[kernel] = dict(err=err, ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=b_ms,
+                           bound_by=b_by)
+
+    def check_attn(kernel, o, ref):
+        torch.cuda.synchronize()
+        err = float((o.float() - ref.float()).abs().max())
+        if not torch.isfinite(o).all() or err > attn_tol(ref):
+            fail(f"{name}: {kernel} max error {err} > {attn_tol(ref)}")
+        return err
+
+    if gamma is not None:
+        # K5 paged_multitoken_decode: every live slot's lengths count gamma drafts
+        q = torch.randn((S, gamma, n_q, d), generator=gen, device=dev).to(bf)
+        o = decode.paged_multitoken_decode(q, cache, cfg)
+        ref = decode._paged_multitoken_decode_plain(q, cache, cfg, scale, rule)
+        err = check_attn("paged_multitoken_decode", o, ref)
+        if not torch.equal(o[3], torch.zeros_like(o[3])):
+            fail(f"{name}: paged_multitoken_decode empty slot is not zero")
+        live = sum(lengths)
+        pairs = sum(n - gamma + i + 1 for n in lengths if n for i in range(gamma))
+        record("paged_multitoken_decode", err,
+               lambda: native.paged_multitoken_decode(q, cache, cfg, scale * LOG2E, rule),
+               lambda: decode._paged_multitoken_decode_plain(q, cache, cfg, scale, rule),
+               2 * n_kv * live * tok + 2 * q.numel() * act, 4 * n_q * d * pairs)
+    else:
+        # K3 kv_chunk_write: a chunk crossing pages, with padding rows (an odd
+        # true_len: an int4 byte row half padding)
+        start, true_len = 1100, 451
+        k = torch.randn((n_kv, chunk, d), generator=gen, device=dev).to(bf)
+        v = torch.randn((n_kv, chunk, d), generator=gen, device=dev).to(bf)
+        ck, cp = clone_cache(cache), clone_cache(cache)
+        kv_cache.write_tokens_at(ck, cfg, 0, start, k, v, true_len, trash)
+        kv_cache._write_tokens_plain(cp, cfg, 0, start, k, v, true_len, trash)
+        torch.cuda.synchronize()
+        diffs = diff_outside_trash(ck, cp, trash)
+        if diffs:
+            fail(f"{name}: kv_chunk_write differs from its plain version: {diffs}")
+        record("kv_chunk_write", 0.0,
+               lambda: native.kv_chunk_write(ck, cfg, 0, start, k, v, true_len, trash),
+               lambda: kv_cache._write_tokens_plain(cp, cfg, 0, start, k, v, true_len, trash),
+               2 * k.numel() * act + 2 * n_kv * true_len * tok, 0)
+
+        # K4 kv_append: two inactive slots; int4 lengths land on both nibbles
+        kn = torch.randn((S, n_kv, d), generator=gen, device=dev).to(bf)
+        vn = torch.randn((S, n_kv, d), generator=gen, device=dev).to(bf)
+        active = torch.ones(S, dtype=torch.bool, device=dev)
+        active[3] = active[7] = False
+        ck, cp = clone_cache(cache), clone_cache(cache)
+        for _ in range(2):
+            kv_cache.append_tokens_batched(ck, cfg, kn, vn, active, trash)
+            kv_cache._append_plain(cp, cfg, kn, vn, active, trash)
+            cp.lengths += active.to(torch.int32)
+        torch.cuda.synchronize()
+        diffs = diff_outside_trash(ck, cp, trash)
+        if diffs or not torch.equal(ck.lengths, cp.lengths):
+            fail(f"{name}: kv_append differs from its plain version: {diffs}")
+        record("kv_append", 0.0, lambda: native.kv_append(ck, cfg, kn, vn, active, trash),
+               lambda: kv_cache._append_plain(cp, cfg, kn, vn, active, trash),
+               2 * kn.numel() * act + 2 * int(active.sum()) * n_kv * tok, 0)
+
+        # K1 paged_decode
+        q = torch.randn((S, n_q, d), generator=gen, device=dev).to(bf)
+        o = decode.paged_decode_attention(q, cache, cfg)
+        ref = decode._paged_decode_plain(q, cache, cfg, scale, rule)
+        err = check_attn("paged_decode", o, ref)
+        if not torch.equal(o[3], torch.zeros_like(o[3])):
+            fail(f"{name}: paged_decode empty slot is not zero")
+        live = sum(lengths)
+        record("paged_decode", err,
+               lambda: native.paged_decode(q, cache, cfg, scale * LOG2E, rule),
+               lambda: decode._paged_decode_plain(q, cache, cfg, scale, rule),
+               2 * n_kv * live * tok + 2 * q.numel() * act, 4 * n_q * d * live)
+
+        # K2 paged_prefill: a chunk at position 1024 of slot 0 (a cached prefix)
+        start, true_len = 1024, 512
+        qp = torch.randn((chunk, n_q, d), generator=gen, device=dev).to(bf)
+        o = prefill.paged_prefill_attention(qp, cache, cfg, 0, start, true_len)
+        qs = (qp.float() * torch.tensor(scale * LOG2E, dtype=torch.float32)).to(bf)
+        ref = prefill._paged_prefill_plain(qs, cache, cfg, 0, start, true_len, rule)
+        err = check_attn("paged_prefill", o[:true_len], ref[:true_len])
+        total = start + true_len
+        pairs = sum(start + i + 1 for i in range(true_len))
+        record("paged_prefill", err,
+               lambda: native.paged_prefill(qs, cache, cfg, 0, start, total, 0,
+                                            -(-total // page_size), rule),
+               lambda: prefill._paged_prefill_plain(qs, cache, cfg, 0, start, true_len, rule),
+               2 * n_kv * total * tok + 2 * qp.numel() * act, 4 * n_q * d * pairs)
+    for kname, r in out.items():
+        print(f"kernel {name} {kname}: max_abs_err={r['err']} ms={r['ms']} "
+              f"plain_ms={r['plain_ms']} bound_ms={r['bound_ms']} ({r['bound_by']})",
+              flush=True)
     return out
 
 
@@ -261,6 +362,7 @@ def main():
     from tf_flash_attention_tpu_torch import native
     from tf_flash_attention_tpu_torch.models.transformer import ModelConfig, init_params
     from tf_flash_attention_tpu_torch.serving.engine import DecodeEngine, EngineConfig
+    from tf_flash_attention_tpu_torch.serving.sampling import SamplingParams
 
     # ---- 1: build (one nvcc per source, all at once) ----
     t0 = time.perf_counter()
@@ -273,9 +375,21 @@ def main():
     # ---- 2: kernels against their plain versions ----
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    main_case = kernel_case("int8_8q8kv", 8, 8, True, dev, gen)
-    kernel_case("int8_gqa_8q2kv", 8, 2, True, dev, gen)
-    kernel_case("bf16_8q8kv", 8, 8, False, dev, gen)
+    cases = {"int8": kernel_case("int8_8q8kv", 8, 8, "int8", dev, gen)}
+    kernel_case("int8_gqa_8q2kv", 8, 2, "int8", dev, gen)
+    cases["bf16"] = kernel_case("bf16_8q8kv", 8, 8, "bf16", dev, gen)
+    # ---- 2b: the fp8 and int4 payloads, and the gamma 4 multi-token decode ----
+    for payload in ("e4m3", "e5m2", "int4"):
+        cases[payload] = kernel_case(f"{payload}_8q8kv", 8, 8, payload, dev, gen)
+    cases["int4_page512"] = kernel_case("int4_8q8kv_page512", 8, 8, "int4", dev, gen,
+                                        page_size=512)
+    for payload in ("int8", "bf16", "e4m3", "int4"):
+        mt = kernel_case(f"{payload}_8q8kv_gamma4", 8, 8, payload, dev, gen, gamma=4)
+        cases[payload].update(mt)
+    # 16 query rows a block; int4 at page 512 is the largest shared memory
+    kernel_case("int8_gqa_8q2kv_gamma4", 8, 2, "int8", dev, gen, gamma=4)
+    kernel_case("int4_gqa_8q2kv_gamma4_page512", 8, 2, "int4", dev, gen, page_size=512,
+                gamma=4)
 
     # ---- 3: the engine at the 168M configuration ----
     mcfg = ModelConfig(vocab=32768, d_model=1024, n_layers=8, n_heads=8, n_kv_heads=8,
@@ -284,10 +398,9 @@ def main():
                         max_pages_per_seq=16, quantized_kv=True, prefill_chunk=512)
     cpu_gen = torch.Generator().manual_seed(args.seed)
     t0 = time.perf_counter()
-    cpu_model = init_params(mcfg, cpu_gen)
+    cpu_model = init_params(mcfg, cpu_gen, device="cpu")
     n_params = sum(p.numel() for p in cpu_model.parameters())
     print(f"model: {n_params} params, init {time.perf_counter() - t0:.3f} s", flush=True)
-    eng = DecodeEngine(mcfg, cpu_model, ecfg, device=dev)   # casts its own copy
     prompt_gen = torch.Generator().manual_seed(args.seed + 1)
 
     def prompt(n):
@@ -300,44 +413,41 @@ def main():
     prompts[5] = shared + prompt(700)
     n_new = 32
 
-    prefill_s = [0.0]
-    inner = eng._prefill_chunked
-
-    def timed_prefill(p, slot):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        r = inner(p, slot)
-        torch.cuda.synchronize()
-        prefill_s[0] += time.perf_counter() - t
-        return r
-
-    eng._prefill_chunked = timed_prefill
-    rids = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
-    native.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    results = eng.run(max_steps=10_000)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: native.LAUNCHES[k] for k in native.SERVING_KERNELS}
-    for rid, p in zip(rids, prompts):
-        got = results.get(rid, [])
-        if len(got) != len(p) + n_new or got[:len(p)] != p:
-            fail(f"request {rid} returned {len(got)} tokens, expected {len(p) + n_new}")
-        if not all(0 <= t < mcfg.vocab for t in got[len(p):]):
-            fail(f"request {rid} produced a token outside the vocabulary")
+    eng = DecodeEngine(mcfg, cpu_model, ecfg, device=dev)   # casts its own copy
+    results, launches = serve("engine", eng, [(p, None) for p in prompts], n_new, mcfg.vocab)
     if eng.prefix_cache.hits < 1:
         fail("the prefix cache never hit")
-    if min(launches.values()) < 1:
+    kernels_3 = ("paged_decode", "paged_prefill", "kv_chunk_write", "kv_append")
+    if min(launches[k] for k in kernels_3) < 1:
         fail(f"a kernel of the path never launched: {launches}")
-    decode_s = wall - prefill_s[0]
-    st = eng.stats
-    print(f"engine: {len(rids)} requests, stats {json.dumps(st)}, "
-          f"prefix hits {eng.prefix_cache.hits}, launches {json.dumps(launches)}", flush=True)
-    print(f"engine: wall {wall:.3f} s; prefill {st['prefill_tokens']} tokens in "
-          f"{prefill_s[0]:.3f} s = {st['prefill_tokens'] / prefill_s[0]:.1f} tokens/s; "
-          f"decode {st['decode_tokens']} tokens in {decode_s:.3f} s over {st['steps']} steps "
-          f"= {st['decode_tokens'] / decode_s:.1f} tokens/s", flush=True)
+    greedy_3 = [results[r] for r in range(len(prompts))]
+    del eng
+    torch.cuda.empty_cache()
+
+    # ---- 3b: speculative serving at full width ----
+    pattern = prompt(64)
+    reqs = [(p, None) for p in prompts] + [(pattern * 8, None), (pattern * 12, None)]
+    sampled = SamplingParams(temperature=0.8, top_k=50)
+    reqs += [(prompt(700), sampled), (prompt(1200), sampled)]
+    eng = DecodeEngine(mcfg, cpu_model, dataclasses.replace(ecfg, speculative_tokens=3),
+                       device=dev)
+    results, spec_launches = serve("speculative", eng, reqs, n_new, mcfg.vocab)
+    if spec_launches["paged_multitoken_decode"] < 1 or spec_launches["kv_append"] < 1:
+        fail(f"speculative serving did not run its kernels: {spec_launches}")
+    same = sum(results[r] == greedy_3[r] for r in range(len(prompts)))
+    print(f"speculative: spec_stats {json.dumps(eng.spec_stats)}; "
+          f"{eng.stats['decode_tokens'] / eng.stats['steps']:.3f} tokens per step; greedy "
+          f"requests equal to phase 3's: {same} of {len(prompts)} = {same / len(prompts)}",
+          flush=True)
+    launches["paged_multitoken_decode"] = spec_launches["paged_multitoken_decode"]
+    del eng
+    torch.cuda.empty_cache()
+
+    # ---- 3c: fp8 and int4 caches at full width ----
+    payload_launches = quantized_engines(mcfg, cpu_model, ecfg, prompts[:8], n_new, dev)
+
+    # ---- 3d: the speculative engine is lossless on the card ----
+    lossless_gate(mcfg, args.seed, prompts[:8] + [pattern * 8], n_new, dev)
 
     # ---- 4: logits on the CPU (plain versions) against the card ----
     small = EngineConfig(max_seqs=1, page_size=256, n_pages=18, max_pages_per_seq=16,
@@ -382,6 +492,8 @@ def main():
     csrc = "tf_flash_attention_tpu_torch/csrc/"
     replaces = {
         "paged_decode": "tf_flash_attention_tpu/serving/decode.py:113",
+        "paged_multitoken_decode": "tf_flash_attention_tpu/serving/decode.py:113 "
+                                   "(gamma > 1, call :477)",
         "paged_prefill": "tf_flash_attention_tpu/serving/prefill.py:49",
         "kv_chunk_write": "tf_flash_attention_tpu/serving/kv_cache.py:286",
         "kv_append": "tf_flash_attention_tpu/serving/kv_cache.py:548",
@@ -396,16 +508,179 @@ def main():
         "resident_fwd": "tf_flash_attention_tpu/ops/forward_banded.py:326",
         "flash_bwd_qouter": "tf_flash_attention_tpu/ops/backward.py:541",
     }
-    measured = dict(main_case, **op)
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": csrc + native.KERNEL_SOURCES[k],
-         "replaces": replaces[k], "launches": launches[k], "path": path_of[k],
-         "max_abs_err": measured[k][0], "ms": measured[k][1], "plain_ms": measured[k][2]}
-        for k in replaces]}))
+    path_of["paged_multitoken_decode"] = "speculative engine (phase 3b)"
+    # serving kernels: time and bound of the int8 slice case (phase 2), each
+    # payload's beside it; none has a single PyTorch call of the same function
+    measured = {k: dict(cases["int8"][k], library_ms=None) for k in native.SERVING_KERNELS}
+    measured.update(op)
+    lines = []
+    for k in replaces:
+        m = measured[k]
+        entry = {"name": k, "route": "cuda", "source": csrc + native.KERNEL_SOURCES[k],
+                 "replaces": replaces[k], "launches": launches[k], "path": path_of[k],
+                 "max_abs_err": m["err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
+                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                 "library_ms": m["library_ms"]}
+        if k in native.SERVING_KERNELS:
+            entry["payloads_held"] = [pl for pl, c in cases.items() if k in c]
+            entry["ms_by_payload"] = {pl: c[k]["ms"] for pl, c in cases.items() if k in c}
+            entry["launches_by_payload"] = {pl: n[k] for pl, n in payload_launches.items()}
+        lines.append(entry)
+    print(json.dumps({"kernels": lines}))
     print(f"card: {smi.stdout.strip().splitlines()[0]}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+
+
+def serve(label, eng, reqs, n_new, vocab):
+    """Run ``reqs`` [(prompt, SamplingParams or None)] through ``eng`` with the
+    launch counts reset just before; checks every request returns its prompt
+    and ``n_new`` tokens of the vocabulary, prints the stats and the rates
+    (wall clock; prefill timed around each admission's chunks).  Returns
+    ({rid: tokens}, {kernel: launches in this run})."""
+    from tf_flash_attention_tpu_torch import native
+
+    prefill_s = [0.0]
+    inner = eng._prefill_chunked
+
+    def timed_prefill(p, slot):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = inner(p, slot)
+        torch.cuda.synchronize()
+        prefill_s[0] += time.perf_counter() - t
+        return r
+
+    eng._prefill_chunked = timed_prefill
+    rids = [eng.submit(p, max_new_tokens=n_new, **({} if sp is None else {"sampling": sp}))
+            for p, sp in reqs]
+    native.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run(max_steps=10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: native.LAUNCHES[k] for k in native.SERVING_KERNELS}
+    for rid, (p, _) in zip(rids, reqs):
+        got = results.get(rid, [])
+        if len(got) != len(p) + n_new or got[:len(p)] != p:
+            fail(f"{label}: request {rid} returned {len(got)} tokens, expected "
+                 f"{len(p) + n_new}")
+        if not all(0 <= t < vocab for t in got[len(p):]):
+            fail(f"{label}: request {rid} produced a token outside the vocabulary")
+    decode_s = wall - prefill_s[0]
+    st = eng.stats
+    print(f"{label}: {len(rids)} requests, stats {json.dumps(st)}, prefix hits "
+          f"{eng.prefix_cache.hits if eng.prefix_cache else None}, launches "
+          f"{json.dumps(launches)}", flush=True)
+    print(f"{label}: wall {wall:.3f} s; prefill {st['prefill_tokens']} tokens in "
+          f"{prefill_s[0]:.3f} s = {st['prefill_tokens'] / prefill_s[0]:.1f} tokens/s; "
+          f"decode {st['decode_tokens']} tokens in {decode_s:.3f} s over {st['steps']} steps "
+          f"= {st['decode_tokens'] / decode_s:.1f} tokens/s", flush=True)
+    return results, launches
+
+
+def quantized_engines(mcfg, cpu_model, ecfg, prompts, n_new, dev):
+    """Phase 3c: the 168M engine on an fp8 e4m3 cache (page 256) and on an
+    int4 cache (page 512, 81 pages, 8 a sequence) with speculation, each
+    serving 8 requests; an int4 run without speculation adds paged_decode.
+    Each run must launch its kernels on its payload.  Returns {payload:
+    {kernel: launches}}."""
+    from tf_flash_attention_tpu_torch.serving.engine import DecodeEngine
+
+    int4 = dataclasses.replace(ecfg, kv_quant_dtype="int4", page_size=512, n_pages=81,
+                               max_pages_per_seq=8)
+    runs = [("e4m3", dataclasses.replace(ecfg, kv_quant_dtype=torch.float8_e4m3fn),
+             ("paged_decode", "paged_prefill", "kv_chunk_write", "kv_append")),
+            ("int4 speculative", dataclasses.replace(int4, speculative_tokens=3),
+             ("paged_multitoken_decode", "paged_prefill", "kv_chunk_write", "kv_append")),
+            ("int4", int4, ("paged_decode", "paged_prefill", "kv_chunk_write", "kv_append"))]
+    counts, outs = {}, {}
+    reqs = [(p, None) for p in prompts]
+    for label, cfg, kernels in runs:
+        eng = DecodeEngine(mcfg, cpu_model, cfg, device=dev)
+        results, launches = serve(label, eng, reqs, n_new, mcfg.vocab)
+        if min(launches[k] for k in kernels) < 1:
+            fail(f"{label}: a kernel of the path never launched: {launches}")
+        counts[label] = launches
+        outs[label] = [results[r] for r in range(len(prompts))]
+        if label == "int4 speculative":
+            print(f"int4 speculative: spec_stats {json.dumps(eng.spec_stats)}", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    same = sum(a == b for a, b in zip(outs["int4 speculative"], outs["int4"]))
+    print(f"int4: requests equal with and without speculation: {same} of {len(prompts)}",
+          flush=True)
+    return counts
+
+
+def lossless_gate(mcfg, seed, prompts, n_new, dev):
+    """Phase 3d: 2 layers at the 168M width in float32 (TF32 off), unquantized
+    cache.  Speculative greedy tokens must equal the non-speculative ones up
+    to the first position where the non-speculative continuation's top-2
+    logit gap is under GAP_TIE (a tie, not a fault), with the n-gram
+    proposer, with drafts that are the continuation itself (all accepted),
+    and with drafts that are all wrong (none accepted)."""
+    from tf_flash_attention_tpu_torch.models import transformer as tf
+    from tf_flash_attention_tpu_torch.serving.engine import DecodeEngine, EngineConfig
+
+    cfg = dataclasses.replace(mcfg, n_layers=2, dtype=torch.float32)
+    model = tf.init_params(cfg, torch.Generator().manual_seed(seed + 4), device="cpu")
+    ecfg = EngineConfig(max_seqs=16, page_size=256, n_pages=16 * 8 + 16 + 1,
+                        max_pages_per_seq=16, quantized_kv=False, prefill_chunk=512)
+
+    def run(spec, propose=None):
+        eng = DecodeEngine(cfg, model, dataclasses.replace(ecfg, speculative_tokens=spec),
+                           device=dev)
+        if propose is not None:
+            eng._propose = propose
+        rids = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
+        res = eng.run(max_steps=10_000)
+        return [res[r] for r in rids], eng.stats, eng.spec_stats
+
+    base, _, _ = run(0)
+    torch.cuda.empty_cache()
+    # the top-2 gap of each generated token's logits: a teacher-forced
+    # forward of the model over the non-speculative sequence
+    card_model = copy.deepcopy(model).to(dev)
+    gaps = []
+    with torch.no_grad():
+        for p, full in zip(prompts, base):
+            logits = tf.forward(cfg, card_model, torch.tensor([full[:-1]], device=dev))[0]
+            top2 = logits[len(p) - 1:].topk(2, dim=-1).values
+            gaps.append((top2[:, 0] - top2[:, 1]).cpu().tolist())
+    del card_model
+    torch.cuda.empty_cache()
+
+    def oracle(shift):
+        def propose(hist, n_draft):
+            for full in base:
+                if hist == full[:len(hist)] and len(full) > len(hist):
+                    cont = [(t + shift) % cfg.vocab for t in full[len(hist):len(hist) + n_draft]]
+                    return cont + [cont[-1]] * (n_draft - len(cont))
+            return [(hist[-1] + shift) % cfg.vocab] * n_draft
+        return propose
+
+    for label, propose in (("n-gram drafts", None), ("every draft right", oracle(0)),
+                           ("every draft wrong", oracle(1))):
+        out, stats, spec = run(3, propose)
+        for i, (p, want, got, gap) in enumerate(zip(prompts, base, out, gaps)):
+            tie = next((j for j, x in enumerate(gap) if x < GAP_TIE), n_new)
+            gen_want, gen_got = want[len(p):], got[len(p):]
+            if gen_got[:tie] != gen_want[:tie]:
+                fail(f"lossless gate ({label}): request {i} differs before its first tie "
+                     f"(position {tie}, gap {min(gap)}): {gen_got} vs {gen_want}")
+        ties = [(i, j, x) for i, gap in enumerate(gaps) for j, x in enumerate(gap) if x < GAP_TIE]
+        same = sum(a == b for a, b in zip(out, base))
+        print(f"lossless gate ({label}): {same} of {len(prompts)} requests equal in full; "
+              f"spec_stats {json.dumps(spec)}; {stats['decode_tokens'] / stats['steps']:.3f} "
+              f"tokens per step; ties (request, position, gap) {ties}; smallest gap "
+              f"{min(min(g) for g in gaps)}", flush=True)
+        if propose is not None and label.endswith("right") and spec["accepted"] < 1:
+            fail(f"lossless gate: no right draft was accepted: {spec}")
+        if label.endswith("wrong") and spec["accepted"] > spec["proposed"] // 20:
+            fail(f"lossless gate: wrong drafts were accepted: {spec}")
 
 
 @contextlib.contextmanager
@@ -489,8 +764,8 @@ def drive(fn, inputs, cotangent, env=None):
 
 
 def op_phase(dev):
-    """Phase 5.  Returns ({kernel: (max_abs_err, ms, plain_ms)}, {kernel:
-    launches in the op path's run})."""
+    """Phase 5.  Returns ({kernel: {err, ms, plain_ms, library_ms, bound_ms,
+    bound_by}}, {kernel: launches in the op path's run})."""
     from tf_flash_attention_tpu_torch import api, native
     from tf_flash_attention_tpu_torch.block_sizes import choose_block_config
     from tf_flash_attention_tpu_torch.flops import matmul_flops_forward
@@ -586,8 +861,23 @@ def op_phase(dev):
     if missing:
         fail(f"op path: kernels never launched: {missing} ({op_launches})")
 
-    # kernel and plain times (these launches are not counted in any path)
+    # kernel, plain and library times (these launches are not counted in any
+    # path), and each kernel's bound: the bytes of its inputs and outputs, and
+    # its products over the visible (query, key) pairs of the rule
+    import torch.nn.functional as F
+    from tf_flash_attention_tpu_torch.ops.reference import build_mask
     times = {}
+
+    def sdpa(q4, k4, v4, do4=None, **kw):
+        """One scaled_dot_product_attention call (forward, or with ``do4``
+        forward and backward) on (1, B, S, d) views."""
+        if do4 is None:
+            return lambda: F.scaled_dot_product_attention(q4, k4, v4, **kw)
+
+        def fwd_bwd():
+            xs = [x.detach().requires_grad_() for x in (q4, k4, v4)]
+            torch.autograd.grad(F.scaled_dot_product_attention(*xs, **kw), xs, do4)
+        return fwd_bwd
 
     def slice_routes(env):
         with switches(env):
@@ -615,37 +905,54 @@ def op_phase(dev):
     plain_split = lambda: backward._flash_backward_plain(q, k, v, do, lse2, delta, pack, rule,
                                                          scale, False)
     area2 = matmul_flops_forward(rule, "none_front", (S,), (S,), d, d, BH) / (2 * d)
+    pairs = BH * int(build_mask(pack, rule).sum())
+    q4, k4, v4, do4 = (x.unsqueeze(0) for x in (q, k, v, do))
+    lib_fwd = sdpa(q4, k4, v4, is_causal=True)
+    lib_bwd = sdpa(q4, k4, v4, do4, is_causal=True)
+    tensor = q.numel() * q.element_size()             # q, k, v, do, o, dq, dk, dv alike
+    stats = BH * S * 4                                 # l, m, lse2, delta (float32)
+    # forward: q, k, v in, o, l, m out; backward: q, k, v, do, lse2, delta in
+    fwd_bytes = bwd_bytes = 4 * tensor + 2 * stats
     # products per kernel (each 2 * area * width): forward S, PV; fused
-    # backward S, dP, dV, dK, dQ; split dQ S, dP, dQ; split dK/dV S, dP, dV, dK
+    # backward S, dP, dV, dK, dQ; split dQ S, dP, dQ; split dK/dV S, dP, dV, dK;
+    # and the bytes each reads and writes
     launch = {
         "flash_fwd": (lambda: native.flash_fwd(q_s, k, v, rule_c, tabs(ft), 128, 128),
-                      plain_fwd, 2),
+                      plain_fwd, 2, fwd_bytes, lib_fwd),
         "banded_fwd": (lambda: native.banded_fwd(q_s, k, v, rule_c, tabs(fb)[0], 128, 128),
-                       plain_fwd, 2),
+                       plain_fwd, 2, fwd_bytes, lib_fwd),
         "resident_fwd": (lambda: native.resident_fwd(q_s, k, v, rule_c, tabs(fr)[0], 128, 128),
-                         plain_fwd, 2),
+                         plain_fwd, 2, fwd_bytes, lib_fwd),
         "flash_bwd_fused": (
             lambda: native.flash_bwd_fused(q_s, k, v, do, lse2, delta, rule_c, tabs(bt), 128,
-                                           128, 1.0 / math.log2(math.e)), plain_fused, 5),
+                                           128, 1.0 / math.log2(math.e)), plain_fused, 5,
+            bwd_bytes + 3 * tensor, lib_bwd),
         "banded_bwd": (
             lambda: native.banded_bwd(q_s, k, v, do, lse2, delta, rule_c, tabs(bb)[0], 128,
-                                      128, 1.0 / math.log2(math.e)), plain_fused, 5),
+                                      128, 1.0 / math.log2(math.e)), plain_fused, 5,
+            bwd_bytes + 3 * tensor, lib_bwd),
         "flash_bwd_qouter": (
             lambda: native.flash_bwd_qouter(q_s, k, v, do, lse2, delta, rule_c, tabs(bq), 128,
-                                            128, scale), plain_fused, 5),
+                                            128, scale), plain_fused, 5,
+            bwd_bytes + 3 * tensor, lib_bwd),
         "flash_bwd_dq": (
             lambda: native.flash_bwd_dq(q_s, k, v, do, lse2, delta, rule_c, tabs(rdq), 128, 128,
-                                        scale), plain_split, 3),
+                                        scale), plain_split, 3, bwd_bytes + tensor, None),
         "flash_bwd_dkv": (
             lambda: native.flash_bwd_dkv(q, k_s, v, do, lse2, delta, rule_c, tabs(rdkv), 128,
-                                         128, scale), plain_split, 4),
+                                         128, scale), plain_split, 4,
+            bwd_bytes + 2 * tensor, None),
     }
-    for kn, (kern, plain, products) in launch.items():
+    for kn, (kern, plain, products, n_bytes, lib) in launch.items():
         ms, plain_ms = time_ms(kern, n=10), time_ms(plain, n=5)
-        times[kn] = (ms, plain_ms)
-        print(f"kernel {kn} (slice): ms={ms} plain_ms={plain_ms} useful TFLOP/s="
+        lib_ms = None if lib is None else time_ms(lib, n=10)
+        b_ms, b_by = bound(n_bytes, products * 2 * pairs * d, "bf16")
+        times[kn] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by)
+        print(f"kernel {kn} (slice): ms={ms} plain_ms={plain_ms} library_ms={lib_ms} "
+              f"bound_ms={b_ms} ({b_by}) useful TFLOP/s="
               f"{products * area2 * d / ms / 1e9:.3f}", flush=True)
-    split_ms = times["flash_bwd_dq"][0] + times["flash_bwd_dkv"][0]
+    split_ms = times["flash_bwd_dq"]["ms"] + times["flash_bwd_dkv"]["ms"]
     print(f"kernel split pair (slice): {split_ms} ms for one backward = "
           f"{5 * area2 * d / split_ms / 1e9:.3f} useful TFLOP/s; the plain_ms of each of the "
           f"pair is the whole plain split backward", flush=True)
@@ -668,25 +975,34 @@ def op_phase(dev):
     area2_d = matmul_flops_forward(local_rule, "scale_front", (1500,), (2000,), 64, 64, 4) / 128
     (starts_q,), (starts_k,) = fw.tables(pack_d, local_rule, dev), bw.tables(pack_d, local_rule,
                                                                             dev)
+    mask_d = torch.from_numpy(build_mask(pack_d, local_rule).reshape(1500, 2000).copy()).to(dev)
+    pairs_d = 4 * int(mask_d.sum())
+    qd4, kd4, vd4, dod4 = (x.unsqueeze(0) for x in (qd, kd, vd, dod))
+    q_bytes, k_bytes, stats_d = qd.numel() * 4, kd.numel() * 4, 4 * 1500 * 4
     window = {
         "window_fwd": (lambda: native.window_fwd(qd_s, kd, vd, rc_d, starts_q, fw.band, fw.sub,
                                                  fw.masked),
                        lambda: forward._flash_forward_plain(qd_s, kd, vd, pack_d, local_rule),
-                       2),
+                       2, 2 * q_bytes + 2 * k_bytes + 2 * stats_d,
+                       sdpa(qd4, kd4, vd4, attn_mask=mask_d)),
         "window_bwd": (lambda: native.window_bwd(qd_s, kd, vd, dod, lse2_d, delta_d, rc_d,
                                                  starts_k, bw.band, bw.sub,
                                                  1.0 / math.log2(math.e)),
                        lambda: backward._flash_backward_plain(qd, kd, vd, dod, lse2_d, delta_d,
                                                               pack_d, local_rule, scale_d, "kv"),
-                       5),
+                       5, 3 * q_bytes + 4 * k_bytes + 2 * stats_d,
+                       sdpa(qd4, kd4, vd4, dod4, attn_mask=mask_d)),
     }
-    for kn, (kern, plain, products) in window.items():
-        ms, plain_ms = time_ms(kern, n=10), time_ms(plain, n=5)
-        times[kn] = (ms, plain_ms)
+    for kn, (kern, plain, products, n_bytes, lib) in window.items():
+        ms, plain_ms, lib_ms = time_ms(kern, n=10), time_ms(plain, n=5), time_ms(lib, n=10)
+        b_ms, b_by = bound(n_bytes, products * 2 * pairs_d * 64, "f32")
+        times[kn] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by)
         print(f"kernel {kn} (case d, band {fw.band if kn == 'window_fwd' else bw.band}): "
-              f"ms={ms} plain_ms={plain_ms} useful TFLOP/s (128-tile schedule)="
-              f"{products * area2_d * 64 / ms / 1e9:.3f}", flush=True)
-    return {kn: (err[kn],) + times[kn] for kn in native.ATTENTION_KERNELS}, op_launches
+              f"ms={ms} plain_ms={plain_ms} library_ms={lib_ms} bound_ms={b_ms} ({b_by}) "
+              f"useful TFLOP/s (128-tile schedule)={products * area2_d * 64 / ms / 1e9:.3f}",
+              flush=True)
+    return {kn: dict(times[kn], err=err[kn]) for kn in native.ATTENTION_KERNELS}, op_launches
 
 
 def train_phase(mcfg, cpu_model, dev, seed):

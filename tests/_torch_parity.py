@@ -1,7 +1,9 @@
 """Shared set-up for the PyTorch port's parity tests (``test_torch_*.py``).
 
 One numpy state of a paged KV cache is loaded into both packages'
-caches, so a JAX function and its port see the same inputs.
+caches, so a JAX function and its port see the same inputs.  numpy has no
+fp8 type of its own: fp8 payloads travel as raw bytes (``uint8``) and are
+viewed as fp8 on each side.
 """
 
 import dataclasses
@@ -15,32 +17,61 @@ from tf_flash_attention_tpu_torch.serving import kv_cache as tkv
 
 _TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
+#: quantized payloads by name: (JAX quant_dtype, port quant_dtype)
+PAYLOADS = {"int8": (jnp.int8, torch.int8),
+            "e4m3": (jnp.float8_e4m3fn, torch.float8_e4m3fn),
+            "e5m2": (jnp.float8_e5m2, torch.float8_e5m2),
+            "int4": ("int4", "int4")}
+#: every cache kind: None is unquantized (the model dtype)
+KINDS = [None, "int8", "e4m3", "e5m2", "int4"]
 
-def cache_cfgs(quantized, n_kv=2, head_dim=32, page_size=64, n_pages=16,
+
+def _payload(kind):
+    """True means int8, as in the tests written before fp8 and int4."""
+    return "int8" if kind is True else (kind or None)
+
+
+def cache_cfgs(kind, n_kv=2, head_dim=32, page_size=64, n_pages=16,
                max_seqs=3, max_pages_per_seq=4, dtype=jnp.float32):
-    """Matching (JAX, port) KVCacheConfigs."""
+    """Matching (JAX, port) KVCacheConfigs; ``kind`` is a ``PAYLOADS`` name,
+    True (int8), or None/False (unquantized)."""
+    kind = _payload(kind)
     kw = dict(n_kv_heads=n_kv, head_dim=head_dim, page_size=page_size,
               n_pages=n_pages, max_seqs=max_seqs,
-              max_pages_per_seq=max_pages_per_seq, quantized=quantized)
-    return (jkv.KVCacheConfig(**kw, dtype=dtype),
-            tkv.KVCacheConfig(**kw, dtype=_TORCH_DTYPE[dtype]))
+              max_pages_per_seq=max_pages_per_seq, quantized=kind is not None)
+    jq, tq = PAYLOADS[kind] if kind else (jnp.int8, torch.int8)
+    return (jkv.KVCacheConfig(**kw, quant_dtype=jq, dtype=dtype),
+            tkv.KVCacheConfig(**kw, quant_dtype=tq, dtype=_TORCH_DTYPE[dtype]))
+
+
+def _fp8_bytes(tdtype, rng, shape):
+    """Random fp8 payload bytes: values across the type's range, no NaN."""
+    qmax = tkv._quant_max(tdtype)
+    x = rng.uniform(-1, 1, shape).astype(np.float32) ** 3 * qmax
+    return torch.from_numpy(x).to(tdtype).view(torch.uint8).numpy()
 
 
 def random_state(tcfg, rng, lengths):
     """Random cache contents; slot s maps pages s*mp .. s*mp+mp-1 shuffled."""
-    shape = (tcfg.n_kv_heads, tcfg.n_pages, tcfg.page_size, tcfg.head_dim_store)
+    shape = (tcfg.n_kv_heads, tcfg.n_pages, tcfg.page_rows, tcfg.head_dim_store)
     state = {}
     for name in ("k", "v"):
-        if tcfg.quantized:
+        if tcfg.is_int4:
+            state[name + "_pages"] = rng.integers(-128, 128, shape).astype(np.int8)
+        elif tcfg.quantized and tcfg.quant_dtype == torch.int8:
             state[name + "_pages"] = rng.integers(-127, 128, shape).astype(np.int8)
-            state[name + "_scales"] = rng.uniform(
-                0.005, 0.02, (tcfg.n_kv_heads, tcfg.n_pages, 1, tcfg.page_size)
-            ).astype(np.float32)
+        elif tcfg.quantized:
+            state[name + "_pages"] = _fp8_bytes(tcfg.quant_dtype, rng, shape)
         else:
             pages = rng.uniform(-1, 1, shape).astype(np.float32)
             pages[..., tcfg.head_dim:] = 0.0   # the padded feature lanes
             state[name + "_pages"] = pages
-            state[name + "_scales"] = None
+        state[name + "_scales"] = rng.uniform(
+            0.005, 0.02, (tcfg.n_kv_heads, tcfg.n_pages, tcfg.tok_pack, tcfg.page_rows)
+        ).astype(np.float32) if tcfg.quantized else None
+        if tcfg.quantized and tcfg.quant_dtype != torch.int8 and not tcfg.is_int4:
+            # fp8 payloads of up to 448 / 57344 carry scales near 1 / qmax
+            state[name + "_scales"] *= 127.0 / tkv._quant_max(tcfg.quant_dtype)
     S, mp = tcfg.max_seqs, tcfg.max_pages_per_seq
     perm = rng.permutation(tcfg.n_pages - 1)[:S * mp]
     state["page_tables"] = perm.reshape(S, mp).astype(np.int32)
@@ -52,15 +83,29 @@ def caches_from(state, jcfg, tcfg):
     """(JAX cache, port cache) holding ``state``."""
     j = jkv.PagedKVCache(**{k: None if v is None else jnp.asarray(v)
                             for k, v in state.items()})
+    t = tkv.PagedKVCache(**{k: None if v is None else torch.from_numpy(v.copy())
+                            for k, v in state.items()})
     if not jcfg.quantized:
         j = dataclasses.replace(j, k_pages=j.k_pages.astype(jcfg.dtype),
                                 v_pages=j.v_pages.astype(jcfg.dtype))
-    t = tkv.PagedKVCache(**{k: None if v is None else torch.from_numpy(v.copy())
-                            for k, v in state.items()})
-    if not tcfg.quantized:
         t.k_pages = t.k_pages.to(tcfg.dtype)
         t.v_pages = t.v_pages.to(tcfg.dtype)
+    elif tcfg.payload_dtype not in (torch.int8,):
+        j = dataclasses.replace(
+            j, k_pages=jnp.asarray(state["k_pages"].view(jcfg.quant_dtype)),
+            v_pages=jnp.asarray(state["v_pages"].view(jcfg.quant_dtype)))
+        t.k_pages = t.k_pages.view(tcfg.quant_dtype)
+        t.v_pages = t.v_pages.view(tcfg.quant_dtype)
     return j, t
+
+
+def raw(x):
+    """A cache tensor of either package as numpy, one-byte payloads as their
+    raw bytes (fp8 bit patterns compare exactly, -0 and all)."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.uint8).numpy() if x.element_size() == 1 else x.float().numpy()
+    x = np.asarray(x)
+    return x.view(np.uint8) if x.dtype.itemsize == 1 else x.astype(np.float32)
 
 
 def assert_same_cache(jc, tc, trash_page):
@@ -71,8 +116,7 @@ def assert_same_cache(jc, tc, trash_page):
         assert (a is None) == (b is None), name
         if a is None:
             continue
-        a = np.asarray(a.astype(jnp.float32))[:, :trash_page]
-        b = b.float().numpy()[:, :trash_page]
-        np.testing.assert_array_equal(a, b, err_msg=name)
+        np.testing.assert_array_equal(raw(a)[:, :trash_page], raw(b)[:, :trash_page],
+                                      err_msg=name)
     np.testing.assert_array_equal(np.asarray(jc.page_tables), tc.page_tables.numpy())
     np.testing.assert_array_equal(np.asarray(jc.lengths), tc.lengths.numpy())

@@ -35,22 +35,37 @@ def dev():
     return torch.device("cuda")
 
 
+# quantized caches by name (True is int8)
+QDTYPES = {True: torch.int8, "int8": torch.int8, "e4m3": torch.float8_e4m3fn,
+           "e5m2": torch.float8_e5m2, "int4": "int4"}
+
+
 def _cache(quantized, dtype, dev, lengths, n_kv=2, head_dim=32, seed=0):
+    """A cache of random contents; ``quantized`` is False, True (int8) or a
+    payload name of ``QDTYPES``."""
+    qd = QDTYPES.get(quantized)
     cfg = kv_cache.KVCacheConfig(n_kv_heads=n_kv, head_dim=head_dim, page_size=64,
                                  n_pages=4 * len(lengths) + 2, max_seqs=len(lengths), max_pages_per_seq=4,
-                                 quantized=quantized, dtype=dtype)
+                                 quantized=qd is not None,
+                                 quant_dtype=torch.int8 if qd is None else qd, dtype=dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
     c = kv_cache.PagedKVCache.create(cfg, dev)
     for p in (c.k_pages, c.v_pages):
-        if quantized:
+        if cfg.is_int4:
+            p.copy_(torch.randint(-128, 128, p.shape, generator=gen, device=dev))
+        elif qd == torch.int8:
             p.copy_(torch.randint(-127, 128, p.shape, generator=gen, device=dev))
+        elif qd is not None:
+            qmax = kv_cache._quant_max(qd)
+            p.copy_((torch.randn(p.shape, generator=gen, device=dev) * qmax / 8).clamp(-qmax, qmax))
         else:
             x = torch.rand(p.shape, generator=gen, device=dev) * 2 - 1
             x[..., head_dim:] = 0
             p.copy_(x)
-    if quantized:
+    if qd is not None:
+        unit = 127.0 / kv_cache._quant_max(qd)
         for s in (c.k_scales, c.v_scales):
-            s.copy_(0.005 + 0.015 * torch.rand(s.shape, generator=gen, device=dev))
+            s.copy_((0.005 + 0.015 * torch.rand(s.shape, generator=gen, device=dev)) * unit)
     perm = torch.randperm(cfg.n_pages - 1, generator=gen, device=dev)
     c.page_tables.copy_(perm[:len(lengths) * 4].reshape(len(lengths), 4))
     c.lengths.copy_(torch.tensor(lengths, dtype=torch.int32))
@@ -67,13 +82,18 @@ def _same(a, b, trash):
     for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
         x, y = getattr(a, name), getattr(b, name)
         if x is not None:
+            if x.element_size() == 1:      # fp8 and int4 bit for bit
+                x, y = x.view(torch.uint8), y.view(torch.uint8)
             assert torch.equal(x[:, :trash], y[:, :trash]), name
     assert torch.equal(a.lengths, b.lengths)
 
 
 CASES = [(True, torch.float32, torch.float32), (True, torch.bfloat16, torch.bfloat16),
-         (False, torch.float32, torch.float32), (False, torch.bfloat16, torch.bfloat16)]
-CASE_IDS = ["int8-f32", "int8-bf16", "f32", "bf16"]
+         (False, torch.float32, torch.float32), (False, torch.bfloat16, torch.bfloat16),
+         ("e4m3", torch.bfloat16, torch.bfloat16), ("e5m2", torch.float32, torch.float32),
+         ("int4", torch.bfloat16, torch.bfloat16), ("int4", torch.float32, torch.float32)]
+CASE_IDS = ["int8-f32", "int8-bf16", "f32", "bf16", "e4m3-bf16", "e5m2-f32", "int4-bf16",
+            "int4-f32"]
 
 
 @pytest.mark.parametrize("quantized,act,kvdt", CASES, ids=CASE_IDS)
@@ -115,6 +135,63 @@ def test_decode_and_prefill_match_plain(dev, quantized, act, kvdt, n_q):
     torch.testing.assert_close(o[:33].float(), ref[:33].float(), rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("quantized,act,kvdt", CASES, ids=CASE_IDS)
+@pytest.mark.parametrize("n_q,gamma", [(2, 1), (2, 3), (4, 4), (8, 2)])
+def test_multitoken_decode_matches_plain(dev, quantized, act, kvdt, n_q, gamma):
+    cfg, c = _cache(quantized, kvdt, dev, [150, 0, 64, 255])
+    gen = torch.Generator(device=dev).manual_seed(4)
+    tol = TOL_F32 if act == kvdt == torch.float32 and not quantized else TOL_LOW
+    q = torch.randn((4, gamma, n_q, 32), generator=gen, device=dev).to(act)
+    native.reset_launch_counts()
+    o = decode.paged_multitoken_decode(q, c, cfg)
+    assert native.LAUNCHES["paged_multitoken_decode"] == 1
+    ref = decode._paged_multitoken_decode_plain(q, c, cfg, 32 ** -0.5, CausalRule())
+    torch.testing.assert_close(o.float(), ref.float(), rtol=0, atol=tol)
+    assert torch.equal(o[1], torch.zeros_like(o[1]))
+    if gamma == 1:
+        torch.testing.assert_close(o[:, 0], decode.paged_decode_attention(q[:, 0], c, cfg),
+                                   rtol=0, atol=0)
+
+
+def test_int4_odd_lengths_bit_identical(dev):
+    """An odd true_len leaves a half-padding byte row; the appends after it
+    read-modify-write both nibbles in turn."""
+    cfg, c = _cache("int4", torch.bfloat16, dev, [70, 0, 130])
+    trash = cfg.n_pages - 1
+    gen = torch.Generator(device=dev).manual_seed(5)
+    k = torch.randn((2, 64, 32), generator=gen, device=dev).to(torch.bfloat16)
+    a, b = _clone(c), _clone(c)
+    kv_cache.write_tokens_at(a, cfg, 0, 0, k, -k, 37, trash)
+    kv_cache._write_tokens_plain(b, cfg, 0, 0, k, -k, 37, trash)
+    b.lengths[0] = 37
+    _same(a, b, trash)
+    active = torch.tensor([True, False, True], device=dev)
+    for _ in range(3):
+        kn = torch.randn((3, 2, 32), generator=gen, device=dev).to(torch.bfloat16)
+        kv_cache.append_tokens_batched(a, cfg, kn, -kn, active, trash)
+        kv_cache._append_plain(b, cfg, kn, -kn, active, trash)
+        b.lengths += active.to(torch.int32)
+        _same(a, b, trash)
+
+
+@pytest.mark.parametrize("payload", ["e4m3", "int4"])
+def test_large_pages_match_plain(dev, payload):
+    """The serving shapes: d 128 and pages of 256 (int4 512) tokens, staged
+    whole; GQA 8/2 with gamma 4 fills the 16 query rows of a block (int4 at
+    page 512: the largest shared memory)."""
+    cfg = kv_cache.KVCacheConfig(n_kv_heads=2, head_dim=128, n_pages=20, max_seqs=2,
+                                 page_size=512 if payload == "int4" else 256,
+                                 max_pages_per_seq=8, quant_dtype=QDTYPES[payload])
+    gen = torch.Generator(device=dev).manual_seed(6)
+    c = kv_cache.PagedKVCache.create(cfg, dev)
+    k = torch.randn((2, 1200, 128), generator=gen, device=dev).to(torch.bfloat16)
+    kv_cache.write_prompt(c, cfg, 0, list(range(8)), k, k.flip(1))
+    q = torch.randn((2, 4, 8, 128), generator=gen, device=dev).to(torch.bfloat16)
+    o = decode.paged_multitoken_decode(q, c, cfg)
+    ref = decode._paged_multitoken_decode_plain(q, c, cfg, 128 ** -0.5, CausalRule())
+    torch.testing.assert_close(o.float(), ref.float(), rtol=0, atol=TOL_LOW)
+
+
 @pytest.mark.parametrize("w,s", [(16, 0), (8, 2)])
 def test_local_rule_kernels_match_plain(dev, w, s):
     cfg, c = _cache(False, torch.float32, dev, [200, 90, 0])
@@ -129,33 +206,65 @@ def test_local_rule_kernels_match_plain(dev, w, s):
     qs = qp * torch.tensor(32 ** -0.5 * 1.4426950408889634)
     ref = prefill._paged_prefill_plain(qs, c, cfg, 0, 150, 40, rule)
     torch.testing.assert_close(o[:40], ref[:40], rtol=0, atol=TOL_F32)
+    qm = torch.randn((3, 4, 4, 32), generator=gen, device=dev)
+    o = decode.paged_multitoken_decode(qm, c, cfg, rule=rule)
+    ref = decode._paged_multitoken_decode_plain(qm, c, cfg, 32 ** -0.5, rule)
+    torch.testing.assert_close(o, ref, rtol=0, atol=TOL_F32)
 
 
-@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("quantized", [False, True, "e4m3", "int4"])
 def test_engine_on_gpu_matches_cpu(dev, quantized):
     cfg = ttf.ModelConfig(vocab=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
                           d_head=16, d_ff=128, dtype=torch.float32)
+    kv = dict(quantized_kv=bool(quantized))
+    if quantized:
+        kv["kv_quant_dtype"] = QDTYPES[quantized]
     ecfg = engine.EngineConfig(max_seqs=3, page_size=64, n_pages=32, max_pages_per_seq=4,
-                               prefill_chunk=64, quantized_kv=quantized)
+                               prefill_chunk=64, **kv)
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(1, 64, n)] for n in (100, 5, 70)]
     outs = []
     for where in ("cpu", dev):
-        e = engine.DecodeEngine(cfg, ttf.init_params(cfg, torch.Generator().manual_seed(0)),
-                                ecfg, device=where)
+        e = engine.DecodeEngine(cfg, ttf.init_params(cfg, torch.Generator().manual_seed(0),
+                                                     "cpu"), ecfg, device=where)
         rids = [e.submit(p, max_new_tokens=8) for p in prompts]
         native.reset_launch_counts()
         res = e.run()
         outs.append([res[r] for r in rids])
     assert outs[0] == outs[1]
-    assert min(native.LAUNCHES[k] for k in native.SERVING_KERNELS) > 0
+    assert min(native.LAUNCHES[k] for k in native.SERVING_KERNELS
+               if k != "paged_multitoken_decode") > 0
+
+
+@pytest.mark.parametrize("quantized", [False, True, "int4"])
+def test_engine_speculative_on_gpu_matches_cpu(dev, quantized):
+    """Speculative greedy on the card gives the CPU engine's tokens, spec
+    stats and page counts; the verify step runs paged_multitoken_decode."""
+    cfg = ttf.ModelConfig(vocab=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                          d_head=16, d_ff=128, dtype=torch.float32)
+    kv = dict(quantized_kv=bool(quantized))
+    if quantized:
+        kv["kv_quant_dtype"] = QDTYPES[quantized]
+    ecfg = engine.EngineConfig(max_seqs=3, page_size=64, n_pages=32, max_pages_per_seq=4,
+                               prefill_chunk=8, speculative_tokens=3, **kv)
+    prompts = [[5, 9] * 4 + [5], [1, 2, 3, 4, 5], list(range(1, 62))]
+    outs = []
+    for where in ("cpu", dev):
+        e = engine.DecodeEngine(cfg, ttf.init_params(cfg, torch.Generator().manual_seed(0),
+                                                     "cpu"), ecfg, device=where)
+        rids = [e.submit(p, max_new_tokens=10) for p in prompts]
+        native.reset_launch_counts()
+        res = e.run()
+        outs.append(([res[r] for r in rids], e.stats, e.spec_stats, e.allocator.free_pages))
+    assert outs[0] == outs[1]
+    assert native.LAUNCHES["paged_multitoken_decode"] > 0 and native.LAUNCHES["kv_append"] > 0
 
 
 def test_engine_sampling_on_gpu(dev):
     from tf_flash_attention_tpu_torch.serving.sampling import SamplingParams
     cfg = ttf.ModelConfig(vocab=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
                           d_head=16, d_ff=128, dtype=torch.bfloat16)
-    e = engine.DecodeEngine(cfg, ttf.init_params(cfg, torch.Generator().manual_seed(0)),
+    e = engine.DecodeEngine(cfg, ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
                             engine.EngineConfig(max_seqs=2, page_size=64, n_pages=8,
                                                 max_pages_per_seq=4, prefill_chunk=64,
                                                 seed=5), device=dev)

@@ -15,6 +15,8 @@ from tf_flash_attention_tpu_torch.mask_rules import LocalRule
 from tf_flash_attention_tpu_torch.models import transformer as ttf
 from tf_flash_attention_tpu_torch.serving import engine as teng
 
+from _torch_parity import PAYLOADS
+
 MCFG = jtf.ModelConfig(vocab=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
                        d_head=16, d_ff=128, max_seq=256, dtype=jnp.float32)
 TCFG = ttf.ModelConfig(vocab=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -28,7 +30,7 @@ def params_np():
 
 
 def test_params_from_jax_round_trips(params_np):
-    model = ttf.params_from_jax(TCFG, params_np)
+    model = ttf.params_from_jax(TCFG, params_np, "cpu")
     np.testing.assert_array_equal(model.embed.detach().numpy(), params_np["embed"])
     np.testing.assert_array_equal(model.final_norm.detach().numpy(), params_np["final_norm"])
     for block, layer in zip(model.layers, params_np["layers"]):
@@ -41,8 +43,8 @@ def test_params_from_jax_round_trips(params_np):
 def test_params_cast_once_norms_stay_float32(params_np):
     # parameters stay float32 and trainable; the engine casts its own copy once
     cfg = dataclasses.replace(TCFG, dtype=torch.bfloat16)
-    params = ttf.params_from_jax(cfg, params_np)
-    model = teng.DecodeEngine(cfg, params, teng.EngineConfig(**ECFG)).model
+    params = ttf.params_from_jax(cfg, params_np, "cpu")
+    model = teng.DecodeEngine(cfg, params, teng.EngineConfig(**ECFG), device="cpu").model
     assert params.embed.dtype == params.layers[0].wq.dtype == torch.float32
     assert model.embed.dtype == model.layers[0].wq.dtype == torch.bfloat16
     assert model.layers[0].ln1.dtype == model.final_norm.dtype == torch.float32
@@ -55,7 +57,7 @@ def test_params_cast_once_norms_stay_float32(params_np):
 
 def test_init_params_scales():
     cfg = dataclasses.replace(TCFG, vocab=512, d_model=256, d_ff=512)
-    model = ttf.init_params(cfg, torch.Generator().manual_seed(0))
+    model = ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     assert abs(float(model.embed.std()) - 0.02) < 1e-3
     assert abs(float(model.layers[0].wq.std()) - 256 ** -0.5) < 3e-3
     assert abs(float(model.layers[0].w2.std()) - 512 ** -0.5) < 3e-3
@@ -76,6 +78,17 @@ def test_rms_norm_and_rope_match_jax():
         np.asarray(jtf._rms_norm(jnp.asarray(x), jnp.asarray(scale))), rtol=1e-6, atol=1e-6)
 
 
+def test_rope_at_batch_matches_jax():
+    """Token grids (S, T) as the speculative step rotates them."""
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(3, 4, 2, 16)).astype(np.float32)
+    pos = (np.array([0, 70, 300])[:, None] + np.arange(4)).astype(np.int32)
+    np.testing.assert_allclose(
+        teng._rope_at(torch.from_numpy(x), torch.from_numpy(pos), 10000.0).numpy(),
+        np.asarray(jeng._rope_at_batch(jnp.asarray(x), jnp.asarray(pos), 10000.0)),
+        rtol=0, atol=2e-5)
+
+
 def _prompts():
     rng = np.random.default_rng(0)
     shared = [int(t) for t in rng.integers(1, 64, 64)]       # one full page
@@ -83,17 +96,32 @@ def _prompts():
             shared + [5, 6, 7], shared + [9]]
 
 
+def _engine(params_np, cfg=TCFG, **ecfg):
+    """A port engine on the CPU from the JAX parameters."""
+    return teng.DecodeEngine(cfg, ttf.params_from_jax(cfg, params_np, "cpu"),
+                             teng.EngineConfig(**dict(ECFG, **ecfg)), device="cpu")
+
+
+def _kv_options(quantized):
+    """(JAX, port) EngineConfig KV options: False, True (int8) or a payload."""
+    if not quantized:
+        return dict(quantized_kv=False), dict(quantized_kv=False)
+    jq, tq = PAYLOADS["int8" if quantized is True else quantized]
+    return dict(kv_quant_dtype=jq), dict(kv_quant_dtype=tq)
+
+
 # greedy parity with the JAX engine: same weights, same prompts, same
-# schedule; the two requests sharing a page hit the prefix cache
-@pytest.mark.parametrize("quantized", [False, True])
+# schedule; the two requests sharing a page hit the prefix cache.  The int4
+# engine's odd prompt lengths leave half-filled byte rows for the appends
+@pytest.mark.parametrize("quantized", [False, True, "e4m3", "int4"])
 def test_engine_matches_jax_engine(params_np, quantized):
     prompts = _prompts()
+    jkv, tkv = _kv_options(quantized)
     jparams = jax.tree.map(jnp.asarray, params_np)
-    je = jeng.DecodeEngine(MCFG, jparams, jeng.EngineConfig(**ECFG, quantized_kv=quantized))
+    je = jeng.DecodeEngine(MCFG, jparams, jeng.EngineConfig(**ECFG, **jkv))
     jr = [je.submit(p, max_new_tokens=8) for p in prompts]
     want = je.run()
-    te = teng.DecodeEngine(TCFG, ttf.params_from_jax(TCFG, params_np),
-                           teng.EngineConfig(**ECFG, quantized_kv=quantized))
+    te = _engine(params_np, **tkv)
     tr = [te.submit(p, max_new_tokens=8) for p in prompts]
     got = te.run()
     for a, b in zip(jr, tr):
@@ -103,18 +131,133 @@ def test_engine_matches_jax_engine(params_np, quantized):
     assert te.allocator.free_pages == je.allocator.free_pages
 
 
+PATTERN = [5, 9, 5, 9, 5, 9, 5, 9, 5]   # material for the n-gram proposer
+
+
+SPEC = dict(speculative_tokens=3, prefill_chunk=8, prefix_caching=False)
+
+
+# speculative greedy against the JAX engine: the pattern prompt gets drafts
+# accepted; the second request stops at its budget inside a step
+@pytest.mark.parametrize("quantized", [False, True])
+def test_engine_speculative_matches_jax_engine(params_np, quantized):
+    jkv, tkv = _kv_options(quantized)
+    jparams = jax.tree.map(jnp.asarray, params_np)
+    je = jeng.DecodeEngine(MCFG, jparams, jeng.EngineConfig(**dict(ECFG, **jkv, **SPEC)))
+    te = _engine(params_np, **tkv, **SPEC)
+    reqs = [(PATTERN, 12), ([1, 2, 3, 4, 5], 7)]
+    jr = [je.submit(p, max_new_tokens=n) for p, n in reqs]
+    tr = [te.submit(p, max_new_tokens=n) for p, n in reqs]
+    want, got = je.run(max_steps=50), te.run(max_steps=50)
+    for a, b in zip(jr, tr):
+        assert got[b] == want[a], (got[b], want[a])
+    assert te.stats == je.stats and te.spec_stats == je.spec_stats
+    assert te.spec_stats["accepted"] > 0
+    assert te.stats["steps"] < te.stats["decode_tokens"]   # drafts saved steps
+    assert te.allocator.free_pages == je.allocator.free_pages
+
+
+def _oracle_proposer(continuations):
+    """A proposer that drafts the known greedy continuation of each request
+    (every draft is accepted): ``continuations`` maps prompt to tokens."""
+    def propose(hist, n_draft):
+        for full in continuations:
+            if hist == full[:len(hist)] and len(full) > len(hist):
+                cont = full[len(hist):len(hist) + n_draft]
+                return cont + [cont[-1]] * (n_draft - len(cont))
+        return [hist[-1]] * n_draft
+    return propose
+
+
+# an EOS that is an accepted draft with drafts after it: the step keeps
+# the run up to the EOS and the request retires there, as in JAX
+@pytest.mark.parametrize("quantized", [False, True])
+def test_engine_speculative_eos_inside_accepted_run(params_np, quantized):
+    jkv, tkv = _kv_options(quantized)
+    dry = _engine(params_np, **tkv, **SPEC)
+    r = dry.submit(PATTERN, max_new_tokens=12)
+    full = dry.run()[r]
+    gen = full[len(PATTERN):]
+    # with every draft accepted, the first step emits gen[1:5]: gen[2] is an
+    # accepted draft with two tokens after it
+    i = next(i for i in (2, 3, 1) if gen[i] not in gen[:i])
+    jparams = jax.tree.map(jnp.asarray, params_np)
+    je = jeng.DecodeEngine(MCFG, jparams, jeng.EngineConfig(**dict(ECFG, **jkv, **SPEC)))
+    te = _engine(params_np, **tkv, **SPEC)
+    je._propose = te._propose = _oracle_proposer([full])
+    jr = je.submit(PATTERN, max_new_tokens=12, eos_id=gen[i])
+    tr = te.submit(PATTERN, max_new_tokens=12, eos_id=gen[i])
+    want, got = je.run(max_steps=50), te.run(max_steps=50)
+    assert got[tr] == want[jr] == full[:len(PATTERN) + i + 1]
+    assert te.stats == je.stats and te.spec_stats == je.spec_stats
+    assert te.stats["steps"] == 1 and te.spec_stats == {"proposed": 3, "accepted": 3}
+    assert te.allocator.free_pages == je.allocator.free_pages
+
+
+def test_engine_speculative_int4(params_np):
+    """Speculation over an int4 cache: the appends of one step fill both
+    nibbles of byte rows; the JAX engine gives the same tokens."""
+    jkv, tkv = _kv_options("int4")
+    jparams = jax.tree.map(jnp.asarray, params_np)
+    je = jeng.DecodeEngine(MCFG, jparams, jeng.EngineConfig(**dict(ECFG, **jkv, **SPEC)))
+    te = _engine(params_np, **tkv, **SPEC)
+    jr, tr = je.submit(PATTERN, max_new_tokens=10), te.submit(PATTERN, max_new_tokens=10)
+    assert te.run(max_steps=50)[tr] == je.run(max_steps=50)[jr]
+    assert te.stats == je.stats and te.spec_stats == je.spec_stats
+
+
+def test_engine_speculative_sampled_slot(params_np):
+    """A sampled slot emits one token per step; the greedy slot beside it
+    keeps the tokens it has alone."""
+    from tf_flash_attention_tpu_torch.serving.sampling import SamplingParams
+    spec = dict(speculative_tokens=3, seed=3)
+    te = _engine(params_np, **spec)
+    g = te.submit(PATTERN, max_new_tokens=10)
+    s = te.submit([1, 2, 3], max_new_tokens=6,
+                  sampling=SamplingParams(temperature=1.0, top_k=10))
+    te.step()                              # admits both: one token each from prefill
+    while te.num_active:
+        before = len(te._results[s])
+        active = te._slots[1] is not None
+        te.step()
+        if active:
+            assert len(te._results[s]) == before + 1
+    out = te._results
+    assert len(out[s]) == 3 + 6 and all(0 <= t < 64 for t in out[s])
+    alone = _engine(params_np, **spec)
+    r = alone.submit(PATTERN, max_new_tokens=10)
+    assert out[g] == alone.run()[r]
+    assert te.spec_stats["proposed"] == alone.spec_stats["proposed"]
+
+
+def test_engine_speculative_capacity_matches_jax(params_np):
+    """Drafts cross into the page past the prompt's: the engine maps it
+    before the appends, as the JAX engine does, page for page (a step that
+    starts on a page boundary maps that page again; the slot hands every
+    page back at retirement)."""
+    spec = dict(speculative_tokens=3, prefix_caching=False)
+    prompt = list(range(1, 63))                 # 62 tokens: drafts reach page 1
+    jparams = jax.tree.map(jnp.asarray, params_np)
+    je = jeng.DecodeEngine(MCFG, jparams, jeng.EngineConfig(**dict(ECFG, **spec)))
+    te = _engine(params_np, **spec)
+    jr, tr = je.submit(prompt, max_new_tokens=6), te.submit(prompt, max_new_tokens=6)
+    want, got = je.run(), te.run()
+    assert got[tr] == want[jr] and len(got[tr]) == 62 + 6
+    assert te.stats == je.stats and te.spec_stats == je.spec_stats
+    assert te.stats["pages_in_use_peak"] >= 2
+    assert te.allocator.free_pages == je.allocator.free_pages == ECFG["n_pages"] - 1
+
+
 def test_engine_eos_and_queueing(params_np):
     """More requests than slots queue; an EOS stops a request early."""
-    te = teng.DecodeEngine(TCFG, ttf.params_from_jax(TCFG, params_np),
-                           teng.EngineConfig(**dict(ECFG, max_seqs=2)))
+    te = _engine(params_np, max_seqs=2)
     first = te.submit([1, 2, 3], max_new_tokens=4)
     rest = [te.submit([i + 1, i + 2], max_new_tokens=3) for i in range(3)]
     out = te.run()
     assert len(out[first]) == 3 + 4 and all(len(out[r]) == 2 + 3 for r in rest)
     eos = out[first][4]
     stop = 3 + out[first][3:].index(eos) + 1
-    te2 = teng.DecodeEngine(TCFG, ttf.params_from_jax(TCFG, params_np),
-                            teng.EngineConfig(**ECFG))
+    te2 = _engine(params_np)
     rid = te2.submit([1, 2, 3], max_new_tokens=8, eos_id=eos)
     assert te2.run()[rid] == out[first][:stop]
     assert te2.allocator.free_pages + len(te2.prefix_cache) == ECFG["n_pages"] - 1
@@ -122,31 +265,41 @@ def test_engine_eos_and_queueing(params_np):
 
 def test_engine_sampled_request_runs(params_np):
     from tf_flash_attention_tpu_torch.serving.sampling import SamplingParams
-    te = teng.DecodeEngine(TCFG, ttf.params_from_jax(TCFG, params_np),
-                           teng.EngineConfig(**ECFG, seed=3))
+    te = _engine(params_np, seed=3)
     g = te.submit([1, 2, 3], max_new_tokens=5)
     s = te.submit([1, 2, 3], max_new_tokens=5,
                   sampling=SamplingParams(temperature=1.0, top_k=10))
     out = te.run()
     assert len(out[s]) == 8 and all(0 <= t < 64 for t in out[s])
-    greedy_alone = teng.DecodeEngine(TCFG, ttf.params_from_jax(TCFG, params_np),
-                                     teng.EngineConfig(**ECFG))
+    greedy_alone = _engine(params_np)
     r = greedy_alone.submit([1, 2, 3], max_new_tokens=5)
     assert out[g] == greedy_alone.run()[r]   # co-batching leaves greedy alone
 
 
+def test_engine_defaults_to_the_card(params_np):
+    """Without ``device`` the engine runs on the CUDA card; here, with no
+    card, building one fails loudly instead of falling back to the CPU."""
+    params = ttf.params_from_jax(TCFG, params_np, "cpu")
+    if torch.cuda.is_available():
+        assert teng.DecodeEngine(TCFG, params, teng.EngineConfig(**ECFG)).device.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        teng.DecodeEngine(TCFG, params, teng.EngineConfig(**ECFG))
+    with pytest.raises((AssertionError, RuntimeError)):
+        ttf.init_params(TCFG)
+
+
 @pytest.mark.parametrize("change", [
-    dict(engine=dict(speculative_tokens=2)),
     dict(engine=dict(prefill_mode="bucketed")),
     dict(model=dict(rule=LocalRule(window_size=8, is_causal=True))),
     dict(mesh=object()),
-], ids=["speculative", "bucketed", "local_rule", "mesh"])
+], ids=["bucketed", "local_rule", "mesh"])
 def test_engine_unported_options_raise(params_np, change):
     cfg = dataclasses.replace(TCFG, **change.get("model", {}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.DecodeEngine(cfg, ttf.params_from_jax(cfg, params_np),
+        teng.DecodeEngine(cfg, ttf.params_from_jax(cfg, params_np, "cpu"),
                           teng.EngineConfig(**ECFG, **change.get("engine", {})),
-                          mesh=change.get("mesh"))
+                          mesh=change.get("mesh"), device="cpu")
 
 
 def test_moe_config_raises():

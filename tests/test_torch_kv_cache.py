@@ -1,8 +1,11 @@
 """The port's paged KV cache against the JAX package's, on the CPU.
 
-Cache writes hold the bit-for-bit contract: the same inputs give identical
-pages, scales and lengths (the trash page excepted).  The JAX side runs
-its XLA scatter specification, as on any non-TPU backend.
+Cache writes hold the bit-for-bit contract on every payload (int8, fp8
+e4m3 and e5m2, int4, unquantized): the same inputs give identical pages
+(fp8 compared as raw bytes), scales and lengths (the trash page excepted).
+The JAX side runs its XLA scatter specification, as on any non-TPU
+backend.  ``quantized`` is False (unquantized), True (int8) or a payload
+name of ``_torch_parity.PAYLOADS``.
 """
 
 import jax.numpy as jnp
@@ -13,7 +16,10 @@ import torch
 from tf_flash_attention_tpu.serving import kv_cache as jkv
 from tf_flash_attention_tpu_torch.serving import kv_cache as tkv
 
-from _torch_parity import assert_same_cache, cache_cfgs, caches_from, random_state
+from _torch_parity import (PAYLOADS, assert_same_cache, cache_cfgs, caches_from,
+                           random_state, raw)
+
+QUANTIZED = [False, True, "e4m3", "e5m2", "int4"]
 
 
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
@@ -32,8 +38,36 @@ def test_quantize_tokens_bit_identical(dtype):
     np.testing.assert_array_equal(np.asarray(sj), st.numpy())
 
 
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("payload", ["e4m3", "e5m2", "int4"])
+def test_quantize_payloads_bit_identical(payload, dtype):
+    """fp8 round to nearest even from the IEEE quotient x / scale; int4
+    rounds half to even and clamps to +-7.  The amax token lands on +-qmax
+    (or one rounding of the quotient off it, which the cast takes back)."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 64, 40)).astype(np.float32) * rng.uniform(1e-3, 50, (2, 64, 1))
+    x[0, 3] = 0.0
+    x[1, 9, :3] = [-0.0, 2.5, -3.5]
+    xj = jnp.asarray(x, jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    xt = torch.from_numpy(x)
+    if dtype == "bfloat16":
+        xt = xt.to(torch.bfloat16)
+    jq, tq = PAYLOADS[payload]
+    qj, sj = jkv._quantize_tokens(xj, jq)
+    qt, st = tkv._quantize_tokens(xt, tq)
+    np.testing.assert_array_equal(raw(qj), raw(qt))
+    np.testing.assert_array_equal(np.asarray(sj), st.numpy())
+    amax = np.abs(qt.float().numpy()).max(axis=-1)
+    np.testing.assert_array_equal(amax[amax > 0], tkv._quant_max(tq))
+    if payload == "int4":
+        np.testing.assert_array_equal(raw(jkv._pack_nibbles(qj)), raw(tkv._pack_nibbles(qt)))
+        even, odd = tkv._unpack_nibbles(tkv._pack_nibbles(qt))
+        np.testing.assert_array_equal(even.numpy(), qt[..., 0::2, :].numpy())
+        np.testing.assert_array_equal(odd.numpy(), qt[..., 1::2, :].numpy())
+
+
 # chunk smaller than, equal to and larger than the 64-token page
-@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("quantized", QUANTIZED)
 @pytest.mark.parametrize("chunk", [32, 64, 96])
 def test_write_tokens_at_matches_jax(quantized, chunk):
     rng = np.random.default_rng(1)
@@ -54,7 +88,8 @@ def test_write_tokens_at_matches_jax(quantized, chunk):
     assert_same_cache(jc, tc, trash)
 
 
-@pytest.mark.parametrize("quantized", [False, True])
+# int4: the appends land on both nibbles of a byte row
+@pytest.mark.parametrize("quantized", QUANTIZED)
 def test_append_tokens_batched_matches_jax(quantized):
     rng = np.random.default_rng(2)
     jcfg, tcfg = cache_cfgs(quantized)
@@ -73,11 +108,11 @@ def test_append_tokens_batched_matches_jax(quantized):
     assert_same_cache(jc, tc, trash)
 
 
-@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("quantized", QUANTIZED)
 def test_write_prompt_and_gather_match_jax(quantized):
     rng = np.random.default_rng(3)
     jcfg, tcfg = cache_cfgs(quantized)
-    jc, tc = jkv.PagedKVCache.create(jcfg), tkv.PagedKVCache.create(tcfg)
+    jc, tc = jkv.PagedKVCache.create(jcfg), tkv.PagedKVCache.create(tcfg, "cpu")
     k = rng.uniform(-1, 1, (2, 150, 32)).astype(np.float32)
     v = rng.uniform(-1, 1, (2, 150, 32)).astype(np.float32)
     pages = np.array([5, 2, 9])
@@ -101,7 +136,72 @@ def test_page_allocator_matches_jax():
         assert ja.free_pages == ta.free_pages
 
 
-@pytest.mark.parametrize("qdtype", ["int4", torch.float8_e4m3fn])
-def test_unported_payloads_raise(qdtype):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkv.KVCacheConfig(n_kv_heads=2, head_dim=32, quant_dtype=qdtype)
+@pytest.mark.parametrize("true_len", [37, 40])
+def test_int4_odd_lengths_match_jax(true_len):
+    """An odd true_len leaves the last byte row's high nibble to the
+    padding token; the appends that follow overwrite it nibble by nibble,
+    and a byte row goes to the trash page only if both tokens are padding."""
+    rng = np.random.default_rng(6)
+    jcfg, tcfg = cache_cfgs("int4")
+    trash = tcfg.n_pages - 1
+    jc, tc = caches_from(random_state(tcfg, rng, [0, 0, 0]), jcfg, tcfg)
+    start = 0
+    for n in (64, true_len):
+        k = rng.uniform(-2, 2, (2, 64, 32)).astype(np.float32)
+        v = rng.uniform(-2, 2, (2, 64, 32)).astype(np.float32)
+        jc = jkv.write_tokens_at(jc, jcfg, 1, start, jnp.asarray(k), jnp.asarray(v), n, trash)
+        tkv.write_tokens_at(tc, tcfg, 1, start, torch.from_numpy(k), torch.from_numpy(v),
+                            n, trash)
+        start += n
+    assert_same_cache(jc, tc, trash)
+    active = np.array([False, True, False])
+    for _ in range(3):
+        k = rng.uniform(-2, 2, (3, 2, 32)).astype(np.float32)
+        v = rng.uniform(-2, 2, (3, 2, 32)).astype(np.float32)
+        jc = jkv.append_tokens_batched(jc, jcfg, jnp.asarray(k), jnp.asarray(v),
+                                       jnp.asarray(active), trash)
+        tkv.append_tokens_batched(tc, tcfg, torch.from_numpy(k), torch.from_numpy(v),
+                                  torch.from_numpy(active), trash)
+        assert_same_cache(jc, tc, trash)
+    for got, want in zip(tkv.gather_sequence_kv(tc, tcfg, 1),
+                         jkv.gather_sequence_kv(jc, jcfg, 1)):
+        assert got.shape == (2, 64 + true_len + 3, 32)
+        np.testing.assert_array_equal(got, want)
+    # a prompt of odd length through write_prompt
+    jc, tc = jkv.PagedKVCache.create(jcfg), tkv.PagedKVCache.create(tcfg, "cpu")
+    k = rng.uniform(-1, 1, (2, 101, 32)).astype(np.float32)
+    jc = jkv.write_prompt(jc, jcfg, 0, np.array([4, 7]), jnp.asarray(k), jnp.asarray(-k))
+    tkv.write_prompt(tc, tcfg, 0, np.array([4, 7]), torch.from_numpy(k), torch.from_numpy(-k))
+    assert_same_cache(jc, tc, trash)
+
+
+@pytest.mark.parametrize("quantized", QUANTIZED)
+def test_cache_layout_matches_jax(quantized):
+    jcfg, tcfg = cache_cfgs(quantized)
+    jc, tc = jkv.PagedKVCache.create(jcfg), tkv.PagedKVCache.create(tcfg, "cpu")
+    for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
+        a, b = getattr(jc, name), getattr(tc, name)
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert tuple(a.shape) == tuple(b.shape), name
+            np.testing.assert_array_equal(raw(a), raw(b))
+    assert tcfg.tok_pack == jcfg.tok_pack and tcfg.page_rows == jcfg.page_rows
+
+
+def test_int4_rejects_odd_chunks():
+    _, tcfg = cache_cfgs("int4")
+    tc = tkv.PagedKVCache.create(tcfg, "cpu")
+    k = torch.zeros((2, 33, 32))
+    with pytest.raises(ValueError, match="even"):
+        tkv.write_tokens_at(tc, tcfg, 0, 0, k, k, 33, tcfg.n_pages - 1)
+    with pytest.raises(ValueError, match="even"):
+        tkv.write_tokens_at(tc, tcfg, 0, 3, k[:, :32], k[:, :32], 32, tcfg.n_pages - 1)
+
+
+def test_cache_defaults_to_the_card():
+    _, tcfg = cache_cfgs(True)
+    if torch.cuda.is_available():
+        assert tkv.PagedKVCache.create(tcfg).k_pages.is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            tkv.PagedKVCache.create(tcfg)

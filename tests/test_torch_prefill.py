@@ -2,7 +2,8 @@
 
 The JAX side runs its Pallas prefill kernel in interpret mode; the port
 runs its plain PyTorch version.  Rows past ``true_len`` are padding and
-are compared by neither side's contract.
+are compared by neither side's contract.  ``quantized`` is False
+(unquantized), True (int8) or a payload name (fp8 e4m3, e5m2, int4).
 """
 
 import numpy as np
@@ -18,6 +19,8 @@ from _torch_parity import cache_cfgs, caches_from, random_state
 
 TOL_F32 = 2e-5   # float32, unquantized cache: summation order only
 TOL_INT8 = 1e-3  # int8 cache: a bf16-rounded p element may round the other way
+TOL_Q = 2e-3     # fp8/int4: the same, at outputs up to ~2.5 (fp8 spans its range)
+QUANTIZED = [False, True, "e4m3", "e5m2", "int4"]
 
 
 def _run(quantized, start, chunk, true_len, n_q=4, rules=(None, None), seed=0):
@@ -35,16 +38,23 @@ def _run(quantized, start, chunk, true_len, n_q=4, rules=(None, None), seed=0):
 
 
 # start > 0 is a cached prefix; true_len < chunk leaves padding rows
-@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("quantized", QUANTIZED)
 @pytest.mark.parametrize("start,chunk,true_len", [(0, 64, 64), (70, 48, 40), (128, 96, 77)])
 def test_paged_prefill_matches_jax(quantized, start, chunk, true_len):
     got, want = _run(quantized, start, chunk, true_len)
-    np.testing.assert_allclose(got, want, rtol=0, atol=TOL_INT8 if quantized else TOL_F32)
+    tol = TOL_F32 if not quantized else TOL_INT8 if quantized is True else TOL_Q
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
 
 
 def test_paged_prefill_gqa_8_to_2():
     got, want = _run(False, 100, 32, 32, n_q=8, seed=1)
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL_F32)
+
+
+@pytest.mark.parametrize("quantized", ["e4m3", "int4"])
+def test_paged_prefill_gqa_8_to_2_quantized(quantized):
+    got, want = _run(quantized, 100, 32, 31, n_q=8, seed=3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL_Q)
 
 
 @pytest.mark.parametrize("w,s", [(32, 0), (8, 2)])

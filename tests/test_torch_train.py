@@ -64,7 +64,7 @@ def _assert_close(got, want, name, atol=ATOL):
 
 def test_forward_and_loss_match_jax(setup):
     params, params_np, tokens = setup
-    model = ttf.params_from_jax(TCFG, params_np)
+    model = ttf.params_from_jax(TCFG, params_np, "cpu")
     want = jtf.forward(JCFG, params, jnp.asarray(tokens[:, :-1]))
     got = ttf.forward(TCFG, model, torch.from_numpy(tokens[:, :-1]).long())
     assert got.shape == want.shape and got.dtype == torch.float32
@@ -77,7 +77,7 @@ def test_gradients_and_adamw_step_match_jax(setup):
     params, params_np, tokens = setup
     loss_j, grads_j = jax.value_and_grad(
         lambda p: jtf.loss_fn(JCFG, p, jnp.asarray(tokens)))(params)
-    model = ttf.params_from_jax(TCFG, params_np)
+    model = ttf.params_from_jax(TCFG, params_np, "cpu")
     # optax.adamw's defaults (torch's AdamW decays by 1e-2 unless told)
     opt = torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=1e-4)
@@ -96,7 +96,7 @@ def test_gradients_and_adamw_step_match_jax(setup):
     optimizer = optax.adamw(1e-3)
     updates, _ = optimizer.update(grads_j, optimizer.init(params), params)
     stepped = _flat_jax(optax.apply_updates(params, updates))
-    model = ttf.params_from_jax(TCFG, params_np)
+    model = ttf.params_from_jax(TCFG, params_np, "cpu")
     opt = torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=1e-4)
     params_t = {"embed": model.embed, "final_norm": model.final_norm}
@@ -110,7 +110,7 @@ def test_gradients_and_adamw_step_match_jax(setup):
 
 
 def test_train_step_decreases_loss():
-    model = ttf.init_params(TCFG, torch.Generator().manual_seed(0))
+    model = ttf.init_params(TCFG, torch.Generator().manual_seed(0), "cpu")
     opt = torch.optim.AdamW(model.parameters(), lr=1e-2, weight_decay=1e-4)
     tokens = torch.randint(0, TCFG.vocab, (4, 65), generator=torch.Generator().manual_seed(1))
     losses = [float(ttf.train_step(TCFG, model, tokens, optimizer=opt)) for _ in range(3)]
@@ -122,7 +122,7 @@ def test_train_step_decreases_loss():
                          ids=["causal", "local"])
 def test_bf16_forward_finite(rule):
     cfg = dataclasses.replace(TCFG, dtype=torch.bfloat16, rule=rule)
-    model = ttf.init_params(cfg, torch.Generator().manual_seed(0))
+    model = ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     logits = ttf.forward(cfg, model, torch.zeros((2, 64), dtype=torch.long))
     assert logits.shape == (2, 64, cfg.vocab) and torch.isfinite(logits).all()
 
@@ -139,7 +139,7 @@ def test_mha_gqa_matches_jax():
 
 
 def test_unported_options_raise():
-    model = ttf.init_params(TCFG)
+    model = ttf.init_params(TCFG, device="cpu")
     tokens = torch.zeros((1, 9), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttf.train_step(TCFG, model, tokens, optimizer=torch.optim.SGD(model.parameters(), 0.1),

@@ -1,25 +1,36 @@
 // Serving kernels of the PyTorch port, for Hopper (sm_90a).
 //
-// Four kernels carry one step of the continuous-batching engine:
-//   kv_chunk_write  chunked prefill: quantize + store a chunk's K/V rows
-//   paged_prefill   chunked prefill: the chunk attends to its paged cache
-//   kv_append       decode: quantize + store one K/V row per slot
-//   paged_decode    decode: one query token per slot attends to its pages
+// Five kernels carry the steps of the continuous-batching engine:
+//   kv_chunk_write          chunked prefill: quantize + store a chunk's K/V
+//   paged_prefill           chunked prefill: the chunk attends to its cache
+//   kv_append               decode: quantize + store one K/V row per slot
+//   paged_decode            decode: one query token per slot attends to its
+//                           pages
+//   paged_multitoken_decode speculative decode: gamma draft tokens per slot,
+//                           each up to its own position (the same kernel)
 //
-// Layouts are the JAX package's (serving/kv_cache.py):
-//   pages   (n_kv, n_pages, page_size, d_store)  int8 | float | bf16
-//   scales  (n_kv, n_pages, 1, page_size)         float (int8 payload only)
+// Layouts are the JAX package's (serving/kv_cache.py); pack = tokens per
+// stored row, 2 for int4, else 1; page_rows = page_size / pack:
+//   pages   (n_kv, n_pages, page_rows, d_store)  int8 | fp8 | int4 pairs |
+//                                                float | bf16
+//   scales  (n_kv, n_pages, pack, page_rows)      float (quantized only)
 //   tables  (max_seqs, max_pages) int32, lengths (max_seqs) int32
+// int4 byte row r holds token 2r in its low nibble and token 2r+1 in its
+// high nibble; scale sublane 0 the even tokens', sublane 1 the odd ones'.
 //
 // Each extern "C" entry launches one kernel on the caller's stream,
 // allocates nothing, and returns cudaGetLastError().  Activations are float
-// or bf16; the cache payload is int8 (quantized) or the activations' type.  The
-// attention kernels round q and p to the "compute type" before the two
-// products, as the reference kernels do: bf16 for an int8 cache, else the
-// payload type.  Built without --use_fast_math: the quantizer's division and
-// round-half-to-even must match the reference bit for bit.
+// or bf16; the cache payload is int8, fp8 (e4m3, e5m2) or int4 (quantized,
+// one float scale per token) or the activations' type.  The attention
+// kernels round q and p to the "compute type" before the two products, as
+// the reference kernels do: bf16 for a quantized cache (every payload value
+// is exact in bf16), else the payload type.  Built without --use_fast_math:
+// the quantizer's division, round-half-to-even and fp8 rounding must match
+// the reference bit for bit.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -29,16 +40,79 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
+enum DType { kF32 = 0, kBF16 = 1, kI8 = 2, kF16 = 3, kE4M3 = 4, kE5M2 = 5, kI4 = 6 };
+
+// one-byte payloads besides int8: fp8 bit patterns, and int4 pairs (one
+// byte of a byte row: the nibbles of two tokens' same feature)
+struct fp8e4m3 { uint8_t x; };
+struct fp8e5m2 { uint8_t x; };
+struct int4x2 { int8_t x; };
+
+// per payload: tokens per stored row, whether it carries scales, and the
+// value the largest magnitude of a token maps to (kv_cache.py:126-135)
+template <typename P> struct Payload {
+  static constexpr int kPack = 1;
+  static constexpr bool kQuant = false;
+};
+template <> struct Payload<int8_t> {
+  static constexpr int kPack = 1;
+  static constexpr bool kQuant = true;
+  static constexpr float kQmax = 127.f;
+};
+template <> struct Payload<fp8e4m3> {
+  static constexpr int kPack = 1;
+  static constexpr bool kQuant = true;
+  static constexpr float kQmax = 448.f;
+};
+template <> struct Payload<fp8e5m2> {
+  static constexpr int kPack = 1;
+  static constexpr bool kQuant = true;
+  static constexpr float kQmax = 57344.f;
+};
+template <> struct Payload<int4x2> {
+  static constexpr int kPack = 2;
+  static constexpr bool kQuant = true;
+  static constexpr float kQmax = 7.f;
+};
 
 __device__ __forceinline__ float neg_inf() {
   // the 0xFA byte pattern: a finite "-inf", so exp2(s - m) is 0, never NaN
   return __int_as_float(static_cast<int>(0xFAFAFAFAu));
 }
 
+// fp8 -> half is exact (both fp8 formats are subsets of fp16), half -> float
+__device__ __forceinline__ float fp8_to_f(uint8_t x, __nv_fp8_interpretation_t kind) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x, kind)));
+}
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f(fp8e4m3 x) { return fp8_to_f(x.x, __NV_E4M3); }
+__device__ __forceinline__ float to_f(fp8e5m2 x) { return fp8_to_f(x.x, __NV_E5M2); }
+
+// the nibble of int4 byte b that holds token t's value, sign-extended with
+// shifts as kv_cache.py:171-177 does: the low nibble for even t
+__device__ __forceinline__ int nibble(int b, int t) {
+  const int shift = (t & 1) ? 24 : 28;
+  return static_cast<int>(static_cast<uint32_t>(b) << shift) >> 28;
+}
+
+// token t's value of feature j in a stored page (or stage) of rows of D
+template <typename P>
+__device__ __forceinline__ float tok_val(const P* page, int t, int D, int j) {
+  return to_f(page[static_cast<size_t>(t) * D + j]);
+}
+template <>
+__device__ __forceinline__ float tok_val<int4x2>(const int4x2* page, int t, int D, int j) {
+  return static_cast<float>(nibble(page[static_cast<size_t>(t >> 1) * D + j].x, t));
+}
+
+// index of token t's scale in its page's (pack, page_rows) scale block
+template <int PACK>
+__device__ __forceinline__ int scale_idx(int t, int page_rows) {
+  return PACK == 1 ? t : (t & 1) * page_rows + (t >> 1);
+}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -76,27 +150,50 @@ __device__ __forceinline__ bool visible(int q_pos, int kv_pos, int window,
 }
 
 // ---------------------------------------------------------------------------
-// Row store shared by kv_chunk_write and kv_append (one warp per row).
+// Row stores shared by kv_chunk_write and kv_append (one warp per row).
 //
-// int8 payload: per-token symmetric quantization, kv_cache.py:138-153:
-//   amax -> scale = amax == 0 ? 1 : amax / 127 -> clamp(rint(x / scale))
-// IEEE division and rintf (half to even) make it bit-identical to the
-// reference.  Other payloads are a cast.  Lanes past d store zeros (the
+// Per-token symmetric quantization, kv_cache.py:138-153:
+//   amax -> scale = amax == 0 ? 1 : amax / qmax -> y = x / scale
+//   int8, int4: clamp(rint(y), -qmax, qmax); fp8: round y to nearest even
+// IEEE division (not a multiply by the reciprocal), rintf (half to even)
+// and the cvt.rn fp8 conversion make it bit-identical to the reference.
+// Unquantized payloads are a cast.  Lanes past d store zeros (the
 // reference pads the feature dim with zeros before quantizing).
+
+// the token's scale (warp-uniform)
+template <typename T>
+__device__ __forceinline__ float token_scale(const T* __restrict__ src, int d, float qmax,
+                                             int lane) {
+  float amax = 0.f;
+  for (int j = lane; j < d; j += 32) amax = fmaxf(amax, fabsf(to_f(src[j])));
+  amax = warp_max(amax);
+  return amax == 0.f ? 1.f : amax / qmax;
+}
+
+template <typename P> __device__ __forceinline__ P quantize(float y);
+template <> __device__ __forceinline__ int8_t quantize<int8_t>(float y) {
+  return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(rintf(y), -127.f), 127.f)));
+}
+template <> __device__ __forceinline__ fp8e4m3 quantize<fp8e4m3>(float y) {
+  return fp8e4m3{__nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E4M3)};
+}
+template <> __device__ __forceinline__ fp8e5m2 quantize<fp8e5m2>(float y) {
+  return fp8e5m2{__nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E5M2)};
+}
+
+// an int4 value in [-7, 7], as the low 4 bits of an int
+__device__ __forceinline__ int quantize_nibble(float y) {
+  return static_cast<int>(fminf(fmaxf(rintf(y), -7.f), 7.f)) & 0xF;
+}
+
 template <typename T, typename P>
 __device__ __forceinline__ void store_row(const T* __restrict__ src, int d, int d_store,
                                           P* __restrict__ dst, float* scale_dst,
                                           int lane) {
-  if constexpr (std::is_same<P, int8_t>::value) {
-    float amax = 0.f;
-    for (int j = lane; j < d; j += 32) amax = fmaxf(amax, fabsf(to_f(src[j])));
-    amax = warp_max(amax);
-    const float scale = amax == 0.f ? 1.f : amax / 127.f;
-    for (int j = lane; j < d_store; j += 32) {
-      const float x = j < d ? to_f(src[j]) : 0.f;
-      const float q = fminf(fmaxf(rintf(x / scale), -127.f), 127.f);
-      dst[j] = static_cast<int8_t>(static_cast<int>(q));
-    }
+  if constexpr (Payload<P>::kQuant) {
+    const float scale = token_scale(src, d, Payload<P>::kQmax, lane);
+    for (int j = lane; j < d_store; j += 32)
+      dst[j] = quantize<P>((j < d ? to_f(src[j]) : 0.f) / scale);
     if (lane == 0) *scale_dst = scale;
   } else {
     for (int j = lane; j < d_store; j += 32)
@@ -104,15 +201,51 @@ __device__ __forceinline__ void store_row(const T* __restrict__ src, int d, int 
   }
 }
 
+// int4: tokens 2r (src0) and 2r + 1 (src1) into byte row dst, their
+// scales into sublanes 0 and 1 (kv_cache.py:156-168)
+template <typename T>
+__device__ __forceinline__ void store_byte_row(const T* __restrict__ src0,
+                                               const T* __restrict__ src1, int d, int d_store,
+                                               int4x2* __restrict__ dst, float* scale0,
+                                               float* scale1, int lane) {
+  const float s0 = token_scale(src0, d, 7.f, lane), s1 = token_scale(src1, d, 7.f, lane);
+  for (int j = lane; j < d_store; j += 32) {
+    const int lo = quantize_nibble((j < d ? to_f(src0[j]) : 0.f) / s0);
+    const int hi = quantize_nibble((j < d ? to_f(src1[j]) : 0.f) / s1);
+    dst[j].x = static_cast<int8_t>(lo | (hi << 4));
+  }
+  if (lane == 0) {
+    *scale0 = s0;
+    *scale1 = s1;
+  }
+}
+
+// int4 append: the token's nibble of every feature, read-modify-write
+// (kv_cache.py:548-600): an even token owns the byte (its odd partner does
+// not exist yet), an odd token keeps the even one's low nibble
+template <typename T>
+__device__ __forceinline__ void store_nibble(const T* __restrict__ src, int d, int d_store,
+                                             int odd, int4x2* dst, float* scale_dst,
+                                             int lane) {
+  const float scale = token_scale(src, d, 7.f, lane);
+  for (int j = lane; j < d_store; j += 32) {
+    const int q = quantize_nibble((j < d ? to_f(src[j]) : 0.f) / scale);
+    dst[j].x = static_cast<int8_t>(odd ? (dst[j].x & 0xF) | (q << 4) : q);
+  }
+  if (lane == 0) *scale_dst = scale;
+}
+
 // ---------------------------------------------------------------------------
 // K3 kv_chunk_write.  Replaces serving/kv_cache.py::_chunk_write_kernel
 // (and the quantization XLA ran before it).  One warp per (K or V, kv head,
-// token) row: quantize in registers, store the row and its scale at
-// (table[(pos / page) % max_pages], pos % page), or at the trash page for
-// rows past true_len.  Bound by bytes: it reads the chunk's activations
-// once and writes its payload once; rows are stored whole and coalesced,
-// so no page is read back (the TPU kernel's block-aligned copy is not
-// needed, nor its alignment precondition).
+// stored row): a token row, or for int4 a byte row of two tokens (the chunk
+// starts at an even position and is even, so byte rows are whole).  It
+// quantizes in registers and stores the row and its scales at (table[(pos
+// / page) % max_pages], pos % page), or at the trash page for a row whose
+// (first) token is past true_len.  Bound by bytes: it reads the chunk's
+// activations once and writes its payload once; rows are stored whole and
+// coalesced, so no page is read back (the TPU kernel's block-aligned copy
+// is not needed, nor its alignment precondition).
 template <typename T, typename P>
 __global__ void kv_chunk_write_kernel(const T* __restrict__ k, const T* __restrict__ v,
                                       P* k_pages, P* v_pages, float* k_scales,
@@ -120,28 +253,40 @@ __global__ void kv_chunk_write_kernel(const T* __restrict__ k, const T* __restri
                                       int n_kv, int chunk, int d, int d_store, int page_size,
                                       int n_pages, int max_pages, int start, int true_len,
                                       int trash) {
+  constexpr int PACK = Payload<P>::kPack;
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  const int rows = n_kv * chunk;
+  const int chunk_rows = chunk / PACK, page_rows = page_size / PACK;
+  const int rows = n_kv * chunk_rows;
   if (warp >= 2 * rows) return;  // warp-uniform
   const bool is_v = warp >= rows;
   const int r = is_v ? warp - rows : warp;
-  const int h = r / chunk, t = r % chunk;
+  const int h = r / chunk_rows, t = PACK * (r % chunk_rows);
   const int pos = start + t;
   const int phys = t < true_len ? table_row[(pos / page_size) % max_pages] : trash;
-  const size_t row = (static_cast<size_t>(h) * n_pages + phys) * page_size + pos % page_size;
-  float* sc = k_scales ? (is_v ? v_scales : k_scales) + row : nullptr;
-  store_row<T, P>((is_v ? v : k) + static_cast<size_t>(r) * d, d, d_store,
-                  (is_v ? v_pages : k_pages) + row * d_store, sc, lane);
+  const size_t page = static_cast<size_t>(h) * n_pages + phys;
+  const size_t row = page * page_rows + (pos % page_size) / PACK;
+  const T* src = (is_v ? v : k) + (static_cast<size_t>(h) * chunk + t) * d;
+  P* dst = (is_v ? v_pages : k_pages) + row * d_store;
+  float* sc = is_v ? v_scales : k_scales;
+  if constexpr (PACK == 2) {
+    sc += page * page_size + (pos % page_size) / 2;
+    store_byte_row<T>(src, src + d, d, d_store, dst, sc, sc + page_rows, lane);
+  } else {
+    store_row<T, P>(src, d, d_store, dst, sc ? sc + row : nullptr, lane);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // K4 kv_append.  Replaces serving/kv_cache.py::_append_rmw_kernel.  One
 // warp per (K or V, slot, kv head): the row goes to
 // (table[s, (len / page) % max_pages], len % page), or to the trash page
-// for an inactive slot.  The TPU kernel read-modify-wrote a whole page per
-// slot; here only the row and its scale are written, so the kernel moves
-// 2 * S * n_kv rows of d_store bytes and is bound by launch latency.
+// for an inactive slot; for int4 the token read-modify-writes its nibble of
+// byte row (len % page) / 2 and writes its scale sublane.  The TPU kernel
+// read-modify-wrote a whole page per slot; here only the row and its scale
+// are touched, so the kernel moves 2 * S * n_kv rows of d_store bytes and
+// is bound by launch latency.  Two appends to one int4 byte row must be
+// separate launches, in order: each reads the byte the other writes.
 template <typename T, typename P>
 __global__ void kv_append_kernel(const T* __restrict__ k_new, const T* __restrict__ v_new,
                                  P* k_pages, P* v_pages, float* k_scales, float* v_scales,
@@ -150,6 +295,7 @@ __global__ void kv_append_kernel(const T* __restrict__ k_new, const T* __restric
                                  const uint8_t* __restrict__ active, int S, int n_kv, int d,
                                  int d_store, int page_size, int n_pages, int max_pages,
                                  int trash) {
+  constexpr int PACK = Payload<P>::kPack;
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   const int rows = S * n_kv;
@@ -159,48 +305,97 @@ __global__ void kv_append_kernel(const T* __restrict__ k_new, const T* __restric
   const int s = r / n_kv, h = r % n_kv;
   const int len = lengths[s];
   const int phys = active[s] ? tables[s * max_pages + (len / page_size) % max_pages] : trash;
-  const size_t row = (static_cast<size_t>(h) * n_pages + phys) * page_size + len % page_size;
-  float* sc = k_scales ? (is_v ? v_scales : k_scales) + row : nullptr;
-  store_row<T, P>((is_v ? v_new : k_new) + static_cast<size_t>(r) * d, d, d_store,
-                  (is_v ? v_pages : k_pages) + row * d_store, sc, lane);
+  const int off = len % page_size, page_rows = page_size / PACK;
+  const size_t page = static_cast<size_t>(h) * n_pages + phys;
+  const size_t row = page * page_rows + off / PACK;
+  const T* src = (is_v ? v_new : k_new) + static_cast<size_t>(r) * d;
+  P* dst = (is_v ? v_pages : k_pages) + row * d_store;
+  float* sc = is_v ? v_scales : k_scales;
+  if constexpr (PACK == 2) {
+    store_nibble<T>(src, d, d_store, off & 1, dst,
+                    sc + page * page_size + scale_idx<2>(off, page_rows), lane);
+  } else {
+    store_row<T, P>(src, d, d_store, dst, sc ? sc + row : nullptr, lane);
+  }
 }
 
 // ---------------------------------------------------------------------------
-// K1 paged_decode.  Replaces serving/decode.py::_decode_kernel at gamma 1.
-// One block per (slot, kv head); its g query heads stay unpadded (the TPU's
-// 8-row padding was a tiling artefact), and loops over them are unrolled to
-// GM, g rounded up to a power of two.  A loop over the slot's live pages
-// [first, count) takes the place of the TPU's sequential page grid axis and
-// its VMEM carry.
+// K1 paged_decode and K5 paged_multitoken_decode.  Replace
+// serving/decode.py::_decode_kernel at gamma 1 (paged_decode_attention) and
+// at gamma > 1 (paged_multitoken_decode).  One block per (slot, kv head)
+// takes its g query heads times gamma draft positions as rows = g * gamma
+// query rows (gamma-minor: row r is head r / gamma of the group at draft r %
+// gamma), unpadded (the TPU's 8-row padding was a tiling artefact); loops
+// over them are unrolled to GM, rows rounded up to a power of two (<= 16).
+// Row r sits at position length - gamma + r % gamma and sees keys up to and
+// including itself: the same page stream serves every row, with a per-row
+// bound on the logits, so verifying gamma drafts costs one pass over the
+// pages.  A loop over the slot's live pages [first, count) takes the place
+// of the TPU's sequential page grid axis and its VMEM carry.
 //
 // Bound by KV bytes: every live page is read once per kv head, and at the
 // serving shape a block has only its own (slot, head) to work on, so the
-// kernel must keep many bytes in flight per block.  A page's rows are one
-// contiguous range: the kernel stages up to 32 KB of K and 32 KB of V at a
-// time into shared memory, all 16-byte loads issued before any is used,
-// and computes from there.  Per page:
-//   A  each group of 8 lanes takes a token row, each lane D/8 contiguous
-//      features, a 3-step shuffle reduction per query head; the K scale
+// kernel must keep many bytes in flight per block.  A page's stored rows
+// are one contiguous range: the kernel stages up to 32 KB of K and 32 KB of
+// V at a time into shared memory, all 16-byte loads issued before any is
+// used, and computes from there.  Quantized payloads are only cast (int8,
+// fp8) or sign-extended by shifts (int4) after staging; the stage holds the
+// payload's own bytes, so int4 and fp8 halve and keep the bytes of int8.
+// Per page:
+//   A  each group of 8 lanes takes a token, each lane D/8 contiguous
+//      features, a 3-step shuffle reduction per query row; the K scale
 //      (staged with the V scale in shared memory) folds into the logits;
-//   B  one warp per query head: page max, exp2, V scale into p, round p;
-//   C  each thread takes 4 columns of every (256 / (D/4))-th token row;
+//   B  one warp per query row: page max, exp2, V scale into p, round p;
+//   C  each thread takes 4 columns of every (256 / (D/4))-th token;
 //      the token groups' partial outputs are summed at the end.
+// An int4 token t reads byte row t / 2 of the stage and its nibble t % 2,
+// so A and C keep one token per lane group, as for the other payloads.
 constexpr int kDecThreads = 256;
 constexpr int kDecWarps = kDecThreads / 32;
 constexpr int kStageBytes = 32 * 1024;   // per operand
+constexpr int kDecMaxRows = 16;
 
-__device__ __forceinline__ void load4(const int8_t* p, float* o) {
-  const char4 c = *reinterpret_cast<const char4*>(p);
+// features j .. j + 3 of token t in a stage of stored rows of D elements
+template <typename P>
+__device__ __forceinline__ void load4(const unsigned char* buf, int t, int D, int j, float* o);
+template <>
+__device__ __forceinline__ void load4<int8_t>(const unsigned char* buf, int t, int D, int j,
+                                              float* o) {
+  const char4 c = *reinterpret_cast<const char4*>(buf + static_cast<size_t>(t) * D + j);
   o[0] = c.x; o[1] = c.y; o[2] = c.z; o[3] = c.w;
 }
-__device__ __forceinline__ void load4(const bf16* p, float* o) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
+template <>
+__device__ __forceinline__ void load4<int4x2>(const unsigned char* buf, int t, int D, int j,
+                                              float* o) {
+  const char4 c = *reinterpret_cast<const char4*>(buf + static_cast<size_t>(t >> 1) * D + j);
+  o[0] = nibble(c.x, t); o[1] = nibble(c.y, t); o[2] = nibble(c.z, t); o[3] = nibble(c.w, t);
+}
+template <>
+__device__ __forceinline__ void load4<fp8e4m3>(const unsigned char* buf, int t, int D, int j,
+                                               float* o) {
+  const uchar4 c = *reinterpret_cast<const uchar4*>(buf + static_cast<size_t>(t) * D + j);
+  o[0] = fp8_to_f(c.x, __NV_E4M3); o[1] = fp8_to_f(c.y, __NV_E4M3);
+  o[2] = fp8_to_f(c.z, __NV_E4M3); o[3] = fp8_to_f(c.w, __NV_E4M3);
+}
+template <>
+__device__ __forceinline__ void load4<fp8e5m2>(const unsigned char* buf, int t, int D, int j,
+                                               float* o) {
+  const uchar4 c = *reinterpret_cast<const uchar4*>(buf + static_cast<size_t>(t) * D + j);
+  o[0] = fp8_to_f(c.x, __NV_E5M2); o[1] = fp8_to_f(c.y, __NV_E5M2);
+  o[2] = fp8_to_f(c.z, __NV_E5M2); o[3] = fp8_to_f(c.w, __NV_E5M2);
+}
+template <>
+__device__ __forceinline__ void load4<bf16>(const unsigned char* buf, int t, int D, int j,
+                                            float* o) {
+  const uint2 u = *reinterpret_cast<const uint2*>(buf + (static_cast<size_t>(t) * D + j) * 2);
   const bf16* b = reinterpret_cast<const bf16*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) o[i] = __bfloat162float(b[i]);
 }
-__device__ __forceinline__ void load4(const float* p, float* o) {
-  const float4 f = *reinterpret_cast<const float4*>(p);
+template <>
+__device__ __forceinline__ void load4<float>(const unsigned char* buf, int t, int D, int j,
+                                             float* o) {
+  const float4 f = *reinterpret_cast<const float4*>(buf + (static_cast<size_t>(t) * D + j) * 4);
   o[0] = f.x; o[1] = f.y; o[2] = f.z; o[3] = f.w;
 }
 
@@ -241,43 +436,50 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
                     const P* __restrict__ v_pages, const float* __restrict__ k_scales,
                     const float* __restrict__ v_scales, const int* __restrict__ tables,
                     const int* __restrict__ lengths, T* __restrict__ o, int n_q, int n_kv,
-                    int d, int D, int page_size, int n_pages, int max_pages,
+                    int d, int D, int page_size, int n_pages, int max_pages, int gamma,
                     float scale_log2e, int window, int log2_stride, int is_local) {
+  constexpr int PACK = Payload<P>::kPack;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int g = n_q / n_kv;                  // <= GM
-  P* kbuf = reinterpret_cast<P*>(smem_raw);
-  P* vbuf = reinterpret_cast<P*>(smem_raw + kStageBytes);
-  float* q_sh = reinterpret_cast<float*>(smem_raw + 2 * kStageBytes);  // g * D
-  float* p_sh = q_sh + g * D;                // g * page_size: logits, then p
-  float* ks_sh = p_sh + g * page_size;       // page_size
+  const int g = n_q / n_kv;
+  const int rows = g * gamma;                // <= GM
+  unsigned char* kbuf = smem_raw;
+  unsigned char* vbuf = smem_raw + kStageBytes;
+  float* q_sh = reinterpret_cast<float*>(smem_raw + 2 * kStageBytes);  // rows * D
+  float* p_sh = q_sh + rows * D;             // rows * page_size: logits, then p
+  float* ks_sh = p_sh + rows * page_size;    // page_size
   float* vs_sh = ks_sh + page_size;          // page_size
-  float* m_sh = vs_sh + page_size;           // g
-  float* l_sh = m_sh + g;                    // g
-  float* a_sh = l_sh + g;                    // g
+  float* m_sh = vs_sh + page_size;           // rows
+  float* l_sh = m_sh + rows;                 // rows
+  float* a_sh = l_sh + rows;                 // rows
   const int b = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool quantized = k_scales != nullptr;
-  const int stage_rows = min(page_size, kStageBytes / (D * static_cast<int>(sizeof(P))));
+  const int page_rows = page_size / PACK;
+  const int row_bytes = D * static_cast<int>(sizeof(P));   // one stored row
+  const int stage_rows = min(page_size, kStageBytes / row_bytes * PACK);   // tokens
   const bool whole_page = stage_rows == page_size;
   // phase A: token t = tb + sub for lanes 8 sub .. 8 sub + 7
   const int sub = lane >> 3, sl = lane & 7, epl = D / 8;
   // phase C: columns c4 .. c4 + 3 of every `groups`-th token from grp
   const int c4 = 4 * (tid % (D / 4)), groups = kDecThreads / (D / 4), grp = tid / (D / 4);
+  // q (S, gamma, n_q, d): row r is draft r % gamma of head h g + r / gamma
+  auto q_index = [&](int r) {
+    return ((static_cast<size_t>(b) * gamma + r % gamma) * n_q + h * g + r / gamma) * d;
+  };
 
-  for (int i = tid; i < g * D; i += kDecThreads) {
+  for (int i = tid; i < rows * D; i += kDecThreads) {
     const int r = i / D, j = i % D;
-    const float x = j < d ? to_f(q[(static_cast<size_t>(b) * n_q + h * g + r) * d + j]) : 0.f;
-    q_sh[i] = round_to<C>(x);
+    q_sh[i] = round_to<C>(j < d ? to_f(q[q_index(r) + j]) : 0.f);
   }
-  for (int r = tid; r < g; r += kDecThreads) {
+  for (int r = tid; r < rows; r += kDecThreads) {
     m_sh[r] = neg_inf();
     l_sh[r] = 0.f;
   }
   const int len = lengths[b];
-  const int q_pos = len - 1;
+  const int q_pos0 = len - gamma;            // row r's position: q_pos0 + r % gamma
   const int count = (len + page_size - 1) / page_size;
   int first = 0;
-  if (is_local) first = max(0, len - 1 - ((window << log2_stride) - 1)) / page_size;
+  if (is_local) first = max(0, len - gamma - ((window << log2_stride) - 1)) / page_size;
 
   float acc[GM][4];
 #pragma unroll
@@ -289,16 +491,16 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
   for (int lp = first; lp < count; ++lp) {
     const int phys = tables[b * max_pages + lp % max_pages];
     const size_t page = static_cast<size_t>(h) * n_pages + phys;
-    const P* kp = k_pages + page * page_size * D;
-    const P* vp = v_pages + page * page_size * D;
+    const P* kp = k_pages + page * page_rows * D;
+    const P* vp = v_pages + page * page_rows * D;
     if (quantized) {
       for (int i = tid; i < page_size; i += kDecThreads) {
-        ks_sh[i] = k_scales[page * page_size + i];
-        vs_sh[i] = v_scales[page * page_size + i];
+        ks_sh[i] = k_scales[page * page_size + scale_idx<PACK>(i, page_rows)];
+        vs_sh[i] = v_scales[page * page_size + scale_idx<PACK>(i, page_rows)];
       }
     }
 
-    // A: logits of rows [t0, t0 + n) from kbuf
+    // A: logits of tokens [t0, t0 + n) from kbuf
     auto logits = [&](int t0, int n) {
       for (int tb = warp * 4; tb < n; tb += kDecWarps * 4) {
         const int t = tb + sub;
@@ -308,17 +510,17 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
         if (t < n) {
           for (int j0 = sl * epl; j0 < (sl + 1) * epl; j0 += 4) {
             float kv[4];
-            load4(kbuf + t * D + j0, kv);
+            load4<P>(kbuf, t, D, j0, kv);
 #pragma unroll
             for (int r = 0; r < GM; ++r) {
-              if (r < g) {
+              if (r < rows) {
                 const float4 qv = *reinterpret_cast<const float4*>(q_sh + r * D + j0);
                 part[r] += qv.x * kv[0] + qv.y * kv[1] + qv.z * kv[2] + qv.w * kv[3];
               }
             }
           }
         }
-        const bool ok = visible(q_pos, lp * page_size + t0 + t, window, log2_stride, is_local);
+        const int kv_pos = lp * page_size + t0 + t;
         const float mul = quantized ? ks_sh[min(t0 + t, page_size - 1)] * scale_log2e
                                     : scale_log2e;
 #pragma unroll
@@ -327,11 +529,14 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
           s += __shfl_xor_sync(0xffffffffu, s, 4);
           s += __shfl_xor_sync(0xffffffffu, s, 2);
           s += __shfl_xor_sync(0xffffffffu, s, 1);
-          if (r < g && sl == 0 && t < n) p_sh[r * page_size + t0 + t] = ok ? s * mul : neg_inf();
+          if (r < rows && sl == 0 && t < n) {
+            const bool ok = visible(q_pos0 + r % gamma, kv_pos, window, log2_stride, is_local);
+            p_sh[r * page_size + t0 + t] = ok ? s * mul : neg_inf();
+          }
         }
       }
     };
-    // C: this thread's partial p @ V over rows [t0, t0 + n) from vbuf
+    // C: this thread's partial p @ V over tokens [t0, t0 + n) from vbuf
     float pv[GM][4];
 #pragma unroll
     for (int r = 0; r < GM; ++r)
@@ -340,10 +545,10 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     auto values = [&](int t0, int n) {
       for (int t = grp; t < n; t += groups) {
         float vv[4];
-        load4(vbuf + t * D + c4, vv);
+        load4<P>(vbuf, t, D, c4, vv);
 #pragma unroll
         for (int r = 0; r < GM; ++r) {
-          if (r < g) {
+          if (r < rows) {
             const float p = p_sh[r * page_size + t0 + t];
 #pragma unroll
             for (int k = 0; k < 4; ++k) pv[r][k] += p * vv[k];
@@ -352,15 +557,15 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
       }
     };
 
-    const int row_bytes = D * static_cast<int>(sizeof(P));
     if (whole_page) {   // K and V of the page in flight together
-      stage_copy(kp, kbuf, vp, vbuf, page_size * row_bytes);
+      stage_copy(kp, kbuf, vp, vbuf, page_rows * row_bytes);
       __syncthreads();
       logits(0, page_size);
     } else {
       for (int t0 = 0; t0 < page_size; t0 += stage_rows) {
         const int n = min(stage_rows, page_size - t0);
-        stage_copy(kp + static_cast<size_t>(t0) * D, kbuf, nullptr, nullptr, n * row_bytes);
+        stage_copy(kp + static_cast<size_t>(t0 / PACK) * D, kbuf, nullptr, nullptr,
+                   n / PACK * row_bytes);
         __syncthreads();
         logits(t0, n);
         __syncthreads();
@@ -368,8 +573,8 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     }
     __syncthreads();
 
-    // B: online-softmax statistics, one warp per query head
-    for (int r = warp; r < g; r += kDecWarps) {
+    // B: online-softmax statistics, one warp per query row
+    for (int r = warp; r < rows; r += kDecWarps) {
       float* row = p_sh + r * page_size;
       float mx = neg_inf();
       for (int t = lane; t < page_size; t += 32) mx = fmaxf(mx, row[t]);
@@ -399,7 +604,8 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     } else {
       for (int t0 = 0; t0 < page_size; t0 += stage_rows) {
         const int n = min(stage_rows, page_size - t0);
-        stage_copy(vp + static_cast<size_t>(t0) * D, vbuf, nullptr, nullptr, n * row_bytes);
+        stage_copy(vp + static_cast<size_t>(t0 / PACK) * D, vbuf, nullptr, nullptr,
+                   n / PACK * row_bytes);
         __syncthreads();
         values(t0, n);
         __syncthreads();
@@ -408,7 +614,7 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     // acc = acc * alpha + p @ V
 #pragma unroll
     for (int r = 0; r < GM; ++r) {
-      if (r < g) {
+      if (r < rows) {
         const float alpha = a_sh[r];
 #pragma unroll
         for (int k = 0; k < 4; ++k) acc[r][k] = acc[r][k] * alpha + pv[r][k];
@@ -418,24 +624,25 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     __syncthreads();
   }
 
-  // sum the token groups' partial outputs (the stages are free now); an
-  // empty slot has l == 0 and gives exact zeros
-  float* red = reinterpret_cast<float*>(smem_raw);   // groups * g * D <= 2 stages
+  // sum the token groups' partial outputs (the stages are free now:
+  // groups * rows * D floats = 4096 rows bytes <= 2 stages); an empty slot
+  // has l == 0 and gives exact zeros
+  float* red = reinterpret_cast<float*>(smem_raw);
 #pragma unroll
   for (int r = 0; r < GM; ++r) {
-    if (r < g) {
+    if (r < rows) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) red[(grp * g + r) * D + c4 + k] = acc[r][k];
+      for (int k = 0; k < 4; ++k) red[(grp * rows + r) * D + c4 + k] = acc[r][k];
     }
   }
   __syncthreads();
-  for (int i = tid; i < g * D; i += kDecThreads) {
+  for (int i = tid; i < rows * D; i += kDecThreads) {
     const int r = i / D, col = i % D;
     if (col >= d) continue;
     float sum = 0.f;
-    for (int k = 0; k < groups; ++k) sum += red[(k * g + r) * D + col];
+    for (int k = 0; k < groups; ++k) sum += red[(k * rows + r) * D + col];
     const float l = l_sh[r];
-    o[(static_cast<size_t>(b) * n_q + h * g + r) * d + col] = from_f<T>(sum / (l == 0.f ? 1.f : l));
+    o[q_index(r) + col] = from_f<T>(sum / (l == 0.f ? 1.f : l));
   }
 }
 
@@ -443,7 +650,9 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
 // K2 paged_prefill.  Replaces serving/prefill.py::_prefill_kernel.  One
 // block per (q head, tile of kPfTQ chunk rows) loops over the sequence's
 // live pages [first_live, count).  Per page, in sub-tiles of kPfTK keys
-// staged in shared memory as float:
+// staged in shared memory as float (int8 and fp8 cast, int4 sign-extended
+// from its nibble: token t of a page is nibble t % 2 of byte row t / 2, so
+// the even and odd halves share one online softmax, as in the reference):
 //   S = Q K^T with a 2x4 register micro-tile per thread, K scale, and the
 //     mask kv_pos < total && visible(q_pos, kv_pos) on edge pages only
 //     (interior pages, entirely behind the chunk, skip it);
@@ -509,15 +718,17 @@ paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
   const int tile_count = min(count, (start + min(row0 + kPfTQ, chunk) - 1) / page_size + 1);
   __syncthreads();
 
+  constexpr int PACK = Payload<P>::kPack;
+  const int page_rows = page_size / PACK;
   for (int lp = first_live; lp < tile_count; ++lp) {
     const int phys = table_row[lp % max_pages];
     const size_t page = static_cast<size_t>(hk) * n_pages + phys;
-    const P* kp = k_pages + page * page_size * D;
-    const P* vp = v_pages + page * page_size * D;
+    const P* kp = k_pages + page * page_rows * D;
+    const P* vp = v_pages + page * page_rows * D;
     if (quantized) {
       for (int i = tid; i < page_size; i += kPfThreads) {
-        ks_sh[i] = k_scales[page * page_size + i];
-        vs_sh[i] = v_scales[page * page_size + i];
+        ks_sh[i] = k_scales[page * page_size + scale_idx<PACK>(i, page_rows)];
+        vs_sh[i] = v_scales[page * page_size + scale_idx<PACK>(i, page_rows)];
       }
     }
     bool interior = (lp + 1) * page_size <= start;
@@ -528,7 +739,7 @@ paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     for (int t0 = 0; t0 < page_size; t0 += kPfTK) {
       for (int i = tid; i < kPfTK * D; i += kPfThreads) {
         const int t = i / D, j = i % D;
-        kv_sh[t * QS + j] = to_f(kp[static_cast<size_t>(t0 + t) * D + j]);
+        kv_sh[t * QS + j] = tok_val<P>(kp, t0 + t, D, j);
       }
       __syncthreads();
       float s[2][4];
@@ -598,7 +809,7 @@ paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     for (int t0 = 0; t0 < page_size; t0 += kPfTK) {
       for (int i = tid; i < kPfTK * D; i += kPfThreads) {
         const int t = i / D, j = i % D;
-        kv_sh[t * QS + j] = to_f(vp[static_cast<size_t>(t0 + t) * D + j]);
+        kv_sh[t * QS + j] = tok_val<P>(vp, t0 + t, D, j);
       }
       __syncthreads();
       for (int t = 0; t < kPfTK; ++t) {
@@ -650,14 +861,30 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// calls F::template run<T, P, C>() for the (act, kv) pair; C is bf16 for an
-// int8 cache, else the payload type
+// calls F::template run<T, P, C>() for the activation type T and the payload
+// type P; C is bf16 for a quantized cache, else the payload type
+template <typename T, typename F>
+int dispatch_kv(int kv, F f) {
+  switch (kv) {
+    case kI8: return f.template run<T, int8_t, bf16>();
+    case kE4M3: return f.template run<T, fp8e4m3, bf16>();
+    case kE5M2: return f.template run<T, fp8e5m2, bf16>();
+    case kI4: return f.template run<T, int4x2, bf16>();
+    default: break;
+  }
+  // an unquantized cache holds the activations' type
+  if constexpr (std::is_same<T, float>::value) {
+    if (kv == kF32) return f.template run<T, float, float>();
+  } else {
+    if (kv == kBF16) return f.template run<T, bf16, bf16>();
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename F>
 int dispatch(int act, int kv, F f) {
-  if (act == kF32 && kv == kI8) return f.template run<float, int8_t, bf16>();
-  if (act == kBF16 && kv == kI8) return f.template run<bf16, int8_t, bf16>();
-  if (act == kF32 && kv == kF32) return f.template run<float, float, float>();
-  if (act == kBF16 && kv == kBF16) return f.template run<bf16, bf16, bf16>();
+  if (act == kF32) return dispatch_kv<float>(kv, f);
+  if (act == kBF16) return dispatch_kv<bf16>(kv, f);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -670,7 +897,9 @@ struct ChunkWrite {
   cudaStream_t stream;
   template <typename T, typename P, typename C>
   int run() const {
-    const int warps = 2 * n_kv * chunk;
+    if (chunk % Payload<P>::kPack || start % Payload<P>::kPack)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int warps = 2 * n_kv * chunk / Payload<P>::kPack;
     const int threads = 256;
     const int blocks = (warps * 32 + threads - 1) / threads;
     if (blocks == 0) return 0;
@@ -710,37 +939,38 @@ struct Decode {
   const float *k_scales, *v_scales;
   const int *tables, *lengths;
   void* o;
-  int S, n_q, n_kv, d, d_store, page_size, n_pages, max_pages;
+  int S, gamma, n_q, n_kv, d, d_store, page_size, n_pages, max_pages;
   float scale_log2e;
   int window, log2_stride, is_local;
   cudaStream_t stream;
   template <typename T, typename P, typename C, int GM>
   int launch() const {
-    const int g = n_q / n_kv;
+    const int rows = n_q / n_kv * gamma;
     const size_t smem = 2 * kStageBytes +
-                        sizeof(float) * (static_cast<size_t>(g) * (d_store + page_size) +
-                                         2 * page_size + 3 * g);
+                        sizeof(float) * (static_cast<size_t>(rows) * (d_store + page_size) +
+                                         2 * page_size + 3 * rows);
     auto kernel = paged_decode_kernel<T, P, C, GM>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<dim3(S, n_kv), kDecThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const P*>(k_pages),
         static_cast<const P*>(v_pages), k_scales, v_scales, tables, lengths,
-        static_cast<T*>(o), n_q, n_kv, d, d_store, page_size, n_pages, max_pages,
+        static_cast<T*>(o), n_q, n_kv, d, d_store, page_size, n_pages, max_pages, gamma,
         scale_log2e, window, log2_stride, is_local);
     return static_cast<int>(cudaGetLastError());
   }
   template <typename T, typename P, typename C>
   int run() const {
-    const int g = n_q / n_kv;
-    if (n_q % n_kv || (d_store != 128 && d_store != 256))
+    const int rows = n_q / n_kv * gamma;
+    if (n_q % n_kv || gamma < 1 || page_size % Payload<P>::kPack ||
+        (d_store != 128 && d_store != 256))
       return static_cast<int>(cudaErrorInvalidValue);
     if (S == 0) return 0;
-    if (g <= 1) return launch<T, P, C, 1>();
-    if (g <= 2) return launch<T, P, C, 2>();
-    if (g <= 4) return launch<T, P, C, 4>();
-    if (g <= 8) return launch<T, P, C, 8>();
-    if (g <= 16) return launch<T, P, C, 16>();
+    if (rows <= 1) return launch<T, P, C, 1>();
+    if (rows <= 2) return launch<T, P, C, 2>();
+    if (rows <= 4) return launch<T, P, C, 4>();
+    if (rows <= 8) return launch<T, P, C, 8>();
+    if (rows <= kDecMaxRows) return launch<T, P, C, kDecMaxRows>();
     return static_cast<int>(cudaErrorInvalidValue);
   }
 };
@@ -814,8 +1044,22 @@ int fa_paged_decode(int act, int kv, const void* q, const void* k_pages, const v
                     int log2_stride, int is_local, void* stream) {
   const Decode f{q, k_pages, v_pages, static_cast<const float*>(k_scales),
                  static_cast<const float*>(v_scales), static_cast<const int*>(tables),
-                 static_cast<const int*>(lengths), o, S, n_q, n_kv, d, d_store, page_size,
+                 static_cast<const int*>(lengths), o, S, 1, n_q, n_kv, d, d_store, page_size,
                  n_pages, max_pages, scale_log2e, window, log2_stride, is_local,
+                 static_cast<cudaStream_t>(stream)};
+  return dispatch(act, kv, f);
+}
+
+int fa_paged_multitoken_decode(int act, int kv, const void* q, const void* k_pages,
+                               const void* v_pages, const void* k_scales, const void* v_scales,
+                               const void* tables, const void* lengths, void* o, int S,
+                               int gamma, int n_q, int n_kv, int d, int d_store, int page_size,
+                               int n_pages, int max_pages, float scale_log2e, int window,
+                               int log2_stride, int is_local, void* stream) {
+  const Decode f{q, k_pages, v_pages, static_cast<const float*>(k_scales),
+                 static_cast<const float*>(v_scales), static_cast<const int*>(tables),
+                 static_cast<const int*>(lengths), o, S, gamma, n_q, n_kv, d, d_store,
+                 page_size, n_pages, max_pages, scale_log2e, window, log2_stride, is_local,
                  static_cast<cudaStream_t>(stream)};
   return dispatch(act, kv, f);
 }

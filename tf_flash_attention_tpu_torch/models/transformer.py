@@ -73,11 +73,19 @@ class ModelConfig:
                 "w2": (self.d_ff, self.d_model)}
 
 
+def _device(device) -> torch.device:
+    """``device``, or the CUDA card when it is None: the port runs on the
+    card unless the caller asks for the CPU."""
+    return torch.device("cuda") if device is None else torch.device(device)
+
+
 class Block(nn.Module):
-    """One decoder layer's parameters."""
+    """One decoder layer's parameters (on the card unless ``device`` says
+    otherwise)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
+        device = _device(device)
         self.ln1 = nn.Parameter(torch.ones(cfg.d_model, device=device))
         self.ln2 = nn.Parameter(torch.ones(cfg.d_model, device=device))
         for name, shape in cfg.proj_shapes().items():
@@ -86,10 +94,12 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """Parameters of the decoder: ``embed`` (vocab, d_model), ``final_norm``
-    and per-layer ``ln1, ln2, wq, wk, wv, wo, w1, w3, w2``, all float32."""
+    and per-layer ``ln1, ln2, wq, wk, wv, wo, w1, w3, w2``, all float32, on
+    the card unless ``device`` says otherwise."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
+        device = _device(device)
         self.cfg = cfg
         self.embed = nn.Parameter(torch.zeros((cfg.vocab, cfg.d_model), device=device))
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model, device=device))
@@ -106,7 +116,9 @@ def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None) -> Transformer:
     """Random parameters with the reference's scales: embed N(0, 0.02^2),
-    projections N(0, 1/fan_in), norms 1."""
+    projections N(0, 1/fan_in), norms 1, on ``device`` (the card when None).
+    A ``generator`` must live on that device."""
+    device = _device(device)
     model = Transformer(cfg, device)
 
     def normal(shape, scale):
@@ -122,7 +134,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 @torch.no_grad()
 def params_from_jax(cfg: ModelConfig, params_np: Dict[str, Any], device=None) -> Transformer:
     """Load the JAX param pytree (``{"embed", "final_norm", "layers": [...]}``
-    with numpy leaves) into a ``Transformer``."""
+    with numpy leaves) into a ``Transformer`` on ``device`` (the card when
+    None)."""
     model = Transformer(cfg, device)
 
     def load(dst: nn.Parameter, src):

@@ -45,13 +45,18 @@ _BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
 
-SERVING_KERNELS = ("paged_decode", "paged_prefill", "kv_chunk_write", "kv_append")
+SERVING_KERNELS = ("paged_decode", "paged_multitoken_decode", "paged_prefill",
+                   "kv_chunk_write", "kv_append")
 ATTENTION_KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
                      "flash_bwd_qouter", "banded_fwd", "banded_bwd", "window_fwd",
                      "window_bwd", "resident_fwd")
 LAUNCHES = {name: 0 for name in SERVING_KERNELS + ATTENTION_KERNELS}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float16: 3}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float16: 3,
+               torch.float8_e4m3fn: 4, torch.float8_e5m2: 5}
+# an int4 cache stores nibble pairs in int8 bytes: its payload has a code of
+# its own
+_INT4_CODE = 6
 
 _libs = {}
 
@@ -142,6 +147,8 @@ _SIGNATURES = {
         # S, n_q, n_kv, d, d_store, page_size, n_pages, max_pages,
         # scale_log2e, window, log2_stride, is_local
         "fa_paged_decode": [_I, _I] + [_P] * 8 + [_I] * 8 + [_F] + [_I] * 3,
+        # as fa_paged_decode, with gamma after S
+        "fa_paged_multitoken_decode": [_I, _I] + [_P] * 8 + [_I] * 9 + [_F] + [_I] * 3,
         # act, kv, q, k_pages, v_pages, k_scales, v_scales, table_row, o,
         # chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages, start,
         # total, first_live, count, window, log2_stride, is_local
@@ -215,14 +222,17 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _codes(act: torch.dtype, cache) -> tuple:
+def _codes(act: torch.dtype, cache, cfg) -> tuple:
+    """(activation, payload) codes of the kernels' dispatch."""
     if act not in (torch.float32, torch.bfloat16):
         raise TypeError(f"activations must be float32 or bfloat16, got {act}")
     kv = cache.k_pages.dtype
-    if kv != torch.int8 and kv != act:
+    if kv != cfg.payload_dtype:
+        raise TypeError(f"cache payload {kv}, config says {cfg.payload_dtype}")
+    if not cfg.quantized and kv != act:
         raise TypeError(f"an unquantized cache holds the activations' dtype: "
                         f"{kv} cache, {act} activations")
-    return _DTYPE_CODE[act], _DTYPE_CODE[kv]
+    return _DTYPE_CODE[act], _INT4_CODE if cfg.is_int4 else _DTYPE_CODE[kv]
 
 
 def _cache_dims(cache, cfg) -> list:
@@ -244,7 +254,7 @@ def _rule_args(rule) -> list:
 def kv_chunk_write(cache, cfg, slot, start, k, v, true_len, trash_page) -> None:
     """Launch ``kv_chunk_write``: quantize and store k, v (n_kv, chunk, d)."""
     n_kv, chunk, d = k.shape
-    act, kv = _codes(k.dtype, cache)
+    act, kv = _codes(k.dtype, cache, cfg)
     dims = _cache_dims(cache, cfg)
     table_row = cache.page_tables[slot]
     _call("fa_kv_chunk_write", act, kv, k.data_ptr(), v.data_ptr(),
@@ -256,7 +266,7 @@ def kv_chunk_write(cache, cfg, slot, start, k, v, true_len, trash_page) -> None:
 def kv_append(cache, cfg, k_new, v_new, active, trash_page) -> None:
     """Launch ``kv_append``: one token row per (slot, kv head)."""
     S, n_kv, d = k_new.shape
-    act, kv = _codes(k_new.dtype, cache)
+    act, kv = _codes(k_new.dtype, cache, cfg)
     dims = _cache_dims(cache, cfg)
     if active.dtype != torch.bool or active.shape != (S,):
         raise ValueError("active must be a bool vector of max_seqs entries")
@@ -267,20 +277,36 @@ def kv_append(cache, cfg, k_new, v_new, active, trash_page) -> None:
           S, n_kv, d, cfg.head_dim_store, *dims, trash_page)
 
 
+def _decode_args(q, cache, cfg, gamma) -> tuple:
+    """Checks and the leading arguments shared by the two decode entries."""
+    S, n_q, d = q.shape[0], q.shape[-2], q.shape[-1]
+    act, kv = _codes(q.dtype, cache, cfg)
+    dims = _cache_dims(cache, cfg)
+    if cfg.head_dim_store not in (128, 256) or (n_q // cfg.n_kv_heads) * gamma > 16:
+        raise ValueError(f"the decode kernels take head_dim_store 128 or 256 and at most 16 "
+                         f"query rows (q heads per kv head x gamma) per kv head, got "
+                         f"{cfg.head_dim_store}, {n_q}/{cfg.n_kv_heads} x {gamma}")
+    o = torch.empty_like(q)
+    return o, (act, kv, q.data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
+               _ptr(cache.k_scales), _ptr(cache.v_scales), cache.page_tables.data_ptr(),
+               cache.lengths.data_ptr(), o.data_ptr()), (n_q, cfg.n_kv_heads, d,
+                                                         cfg.head_dim_store, *dims)
+
+
 def paged_decode(q, cache, cfg, scale_log2e, rule) -> torch.Tensor:
     """Launch ``paged_decode``: q (S, n_q, d) -> o of the same shape."""
-    S, n_q, d = q.shape
-    act, kv = _codes(q.dtype, cache)
-    dims = _cache_dims(cache, cfg)
-    if cfg.head_dim_store not in (128, 256) or n_q // cfg.n_kv_heads > 16:
-        raise ValueError(f"paged_decode takes head_dim_store 128 or 256 and at most 16 "
-                         f"q heads per kv head, got {cfg.head_dim_store}, {n_q}/{cfg.n_kv_heads}")
-    o = torch.empty_like(q)
-    _call("fa_paged_decode", act, kv, q.data_ptr(), cache.k_pages.data_ptr(),
-          cache.v_pages.data_ptr(), _ptr(cache.k_scales), _ptr(cache.v_scales),
-          cache.page_tables.data_ptr(), cache.lengths.data_ptr(), o.data_ptr(),
-          S, n_q, cfg.n_kv_heads, d, cfg.head_dim_store, *dims,
-          float(scale_log2e), *_rule_args(rule))
+    o, lead, dims = _decode_args(q, cache, cfg, 1)
+    _call("fa_paged_decode", *lead, q.shape[0], *dims, float(scale_log2e), *_rule_args(rule))
+    return o
+
+
+def paged_multitoken_decode(q, cache, cfg, scale_log2e, rule) -> torch.Tensor:
+    """Launch ``paged_multitoken_decode``: q (S, gamma, n_q, d) -> o of the
+    same shape; draft i of a slot sits at position ``length - gamma + i``."""
+    S, gamma = q.shape[:2]
+    o, lead, dims = _decode_args(q, cache, cfg, gamma)
+    _call("fa_paged_multitoken_decode", *lead, S, gamma, *dims, float(scale_log2e),
+          *_rule_args(rule))
     return o
 
 
@@ -288,7 +314,7 @@ def paged_prefill(qs, cache, cfg, slot, start, total, first_live, count,
                   rule) -> torch.Tensor:
     """Launch ``paged_prefill``: prescaled q (chunk, n_q, d) -> o."""
     chunk, n_q, d = qs.shape
-    act, kv = _codes(qs.dtype, cache)
+    act, kv = _codes(qs.dtype, cache, cfg)
     dims = _cache_dims(cache, cfg)
     if cfg.page_size % 32:
         raise ValueError(f"paged_prefill needs page_size % 32 == 0, got {cfg.page_size}")

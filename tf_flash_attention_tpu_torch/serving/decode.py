@@ -1,16 +1,21 @@
-"""Paged decode attention (one query token per slot, int8 or unquantized KV, GQA).
+"""Paged decode attention (int8/fp8/int4 or unquantized KV, GQA).
 
-Counterpart of ``paged_decode_attention`` in the JAX package's
-``serving/decode.py`` at gamma = 1.  On a CUDA tensor it launches the
-``paged_decode`` kernel (``csrc/serving_kernels.cu``); on the CPU it runs
-``_paged_decode_plain``, a dense gather over the page table that keeps the
-reference kernel's arithmetic: a log2-domain online softmax page by page,
-K scales folded into the logits and V scales into the probabilities
-(post-scaling), and, for an int8 cache, bf16 rounding of q, K, V and p
-before the two products.
+Counterpart of ``paged_decode_attention`` (one query token per slot) and
+``paged_multitoken_decode`` (``gamma`` draft tokens per slot, speculative
+verification) in the JAX package's ``serving/decode.py``.  On a CUDA tensor
+they launch the ``paged_decode`` and ``paged_multitoken_decode`` kernels
+(``csrc/serving_kernels.cu``); on the CPU they run ``_paged_decode_plain``
+and ``_paged_multitoken_decode_plain``, a dense gather over the page table
+that keeps the reference kernel's arithmetic: a log2-domain online softmax page by page, K scales folded into
+the logits and V scales into the probabilities (post-scaling), and, for a
+quantized cache, bf16 rounding of q, K, V and p before the two products
+(every int8, fp8 and int4 payload is exact in bf16).  An int4 page holds
+token ``2r + nibble`` in byte row ``r``; the plain version unpacks it into
+token order, which is the reference's even and odd halves under one
+softmax.
 
-Not ported yet (ROADMAP queue 2): gamma > 1 (``paged_multitoken_decode``),
-the ``(l, m)`` outputs and sequence sharding.
+Not ported yet (ROADMAP queue 2): the ``(l, m)`` outputs and sequence
+sharding.
 """
 
 from __future__ import annotations
@@ -24,9 +29,9 @@ import torch.nn.functional as F
 from .. import native
 from ..mask_rules import CausalRule, LocalRule, MaskRule
 from ..ops.kernel_common import LOG2E, NEG_INF_F32
-from .kv_cache import KVCacheConfig, PagedKVCache
+from .kv_cache import KVCacheConfig, PagedKVCache, _page_tokens
 
-__all__ = ["paged_decode_attention"]
+__all__ = ["paged_decode_attention", "paged_multitoken_decode"]
 
 
 def _rule_visible(rule, q_pos, kv_pos):
@@ -52,7 +57,7 @@ def _first_live_page(rule, lengths, gamma, page_size):
 
 
 def _compute_dtype(cache: PagedKVCache, cfg: KVCacheConfig) -> torch.dtype:
-    # the JAX kernels cast int8 pages to bf16 and q to the pages' dtype
+    # the JAX kernels cast quantized pages to bf16 and q to the pages' dtype
     return torch.bfloat16 if cfg.quantized else cache.k_pages.dtype
 
 
@@ -78,43 +83,64 @@ def _softmax_page(state, s, v, vs, cdt, live=None):
     return m_new, l_new, acc_new
 
 
-def _paged_decode_plain(q, cache, cfg, scale, rule):
-    S, n_q, d = q.shape
+def _paged_multitoken_decode_plain(q, cache, cfg, scale, rule):
+    """q (S, gamma, n_q, d): row (i, head) of slot s sits at position
+    ``length - gamma + i`` and sees keys up to and including itself."""
+    S, gamma, n_q, d = q.shape
     n_kv, D, ps, mp = cfg.n_kv_heads, cfg.head_dim_store, cfg.page_size, cfg.max_pages_per_seq
     g = n_q // n_kv
+    rows = g * gamma
     cdt = _compute_dtype(cache, cfg)
-    qg = F.pad(q.reshape(S, n_kv, g, d), (0, D - d)).to(cdt).float()
+    # gamma-minor rows, as the reference: row r = head_in_group * gamma + draft
+    qg = q.reshape(S, gamma, n_kv, g, d).permute(0, 2, 3, 1, 4).reshape(S, n_kv, rows, d)
+    qg = F.pad(qg, (0, D - d)).to(cdt).float()
     lengths = cache.lengths.long()
     counts = (lengths + ps - 1) // ps
-    starts = _first_live_page(rule, lengths, 1, ps)
-    q_pos = (lengths - 1)[:, None]
+    starts = _first_live_page(rule, lengths, gamma, ps)
+    q_pos = (lengths - gamma)[:, None] + torch.arange(rows, device=q.device) % gamma
     c = torch.tensor(scale * LOG2E, dtype=torch.float32)
-    state = (torch.full((S, n_kv, g, 1), NEG_INF_F32, device=q.device),
-             torch.zeros((S, n_kv, g, 1), device=q.device),
-             torch.zeros((S, n_kv, g, D), device=q.device))
+    state = (torch.full((S, n_kv, rows, 1), NEG_INF_F32, device=q.device),
+             torch.zeros((S, n_kv, rows, 1), device=q.device),
+             torch.zeros((S, n_kv, rows, D), device=q.device))
     n_steps = int((counts - starts).max()) if S else 0
     for p in range(n_steps):
         lp = starts + p
         live = (lp < counts)[:, None, None, None]
         lpc = torch.clamp(torch.minimum(lp, counts - 1), min=0)
         phys = cache.page_tables.long().gather(1, (lpc % mp)[:, None])[:, 0]
-        k = cache.k_pages[:, phys].transpose(0, 1).to(cdt).float()   # (S, n_kv, ps, D)
-        v = cache.v_pages[:, phys].transpose(0, 1).to(cdt).float()
-        s = qg @ k.transpose(-1, -2)                                   # (S, n_kv, g, ps)
+        kv = []
+        for pages, scales in ((cache.k_pages, cache.k_scales), (cache.v_pages, cache.v_scales)):
+            x, sc = _page_tokens(pages[:, phys].transpose(0, 1),
+                                 None if scales is None else scales[:, phys].transpose(0, 1),
+                                 cfg)                          # (S, n_kv, ps, D), (S, n_kv, ps)
+            kv.append((x.to(cdt).float(), sc))
+        (k, ks), (v, vs) = kv
+        s = qg @ k.transpose(-1, -2)                           # (S, n_kv, rows, ps)
         if cfg.quantized:
-            ks = cache.k_scales[:, phys, 0].transpose(0, 1)[:, :, None, :]
-            vs = cache.v_scales[:, phys, 0].transpose(0, 1)[:, :, None, :]
-            s = s * (ks * c)
+            s = s * (ks[:, :, None, :] * c)
+            vs = vs[:, :, None, :]
         else:
-            vs = None
             s = s * c
         kv_pos = lp[:, None] * ps + torch.arange(ps, device=q.device)
-        vis = _rule_visible(rule, q_pos, kv_pos)[:, None, None, :]
+        vis = _rule_visible(rule, q_pos[:, :, None], kv_pos[:, None, :])[:, None]
         s = s.masked_fill(~vis, NEG_INF_F32)
         state = _softmax_page(state, s, v, vs, cdt, live)
     _, l, acc = state
     o = acc / torch.where(l == 0.0, torch.ones_like(l), l)
-    return o[..., :d].reshape(S, n_q, d).to(q.dtype)
+    o = o[..., :d].reshape(S, n_kv, g, gamma, d).permute(0, 3, 1, 2, 4)
+    return o.reshape(S, gamma, n_q, d).to(q.dtype)
+
+
+def _paged_decode_plain(q, cache, cfg, scale, rule):
+    """q (S, n_q, d): gamma 1 of the multi-token version."""
+    return _paged_multitoken_decode_plain(q[:, None], cache, cfg, scale, rule)[:, 0]
+
+
+def _check(q_heads: int, d: int, cfg: KVCacheConfig) -> None:
+    if q_heads % cfg.n_kv_heads:
+        raise ValueError(f"q heads {q_heads} not a multiple of kv heads {cfg.n_kv_heads}")
+    if d != cfg.head_dim:
+        raise ValueError(f"q head_dim {d}, cache head_dim {cfg.head_dim}")
 
 
 def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
@@ -127,15 +153,34 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
     shape and dtype; a slot of length 0 gives exact zeros.
     """
     S, n_q, d = q.shape
-    if n_q % cfg.n_kv_heads:
-        raise ValueError(f"q heads {n_q} not a multiple of kv heads {cfg.n_kv_heads}")
-    if d != cfg.head_dim:
-        raise ValueError(f"q head_dim {d}, cache head_dim {cfg.head_dim}")
+    _check(n_q, d, cfg)
     if scale is None:
         scale = 1.0 / float(np.sqrt(d))
     if q.device.type == "cpu":
         return _paged_decode_plain(q, cache, cfg, scale, rule)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    o = native.paged_decode(q.contiguous(), cache, cfg, scale * LOG2E, rule)
-    return o
+    return native.paged_decode(q.contiguous(), cache, cfg, scale * LOG2E, rule)
+
+
+def paged_multitoken_decode(q: torch.Tensor, cache: PagedKVCache,
+                            cfg: KVCacheConfig, *, scale: Optional[float] = None,
+                            rule: MaskRule = CausalRule()) -> torch.Tensor:
+    """Speculative verification attention: ``gamma`` tokens per slot.
+
+    ``q``: (max_seqs, gamma, n_q_heads, head_dim), the queries of the
+    tokens at positions ``length - gamma .. length - 1`` of each slot,
+    whose K/V are already appended (``cache.lengths`` counts them).  Draft
+    ``i`` sees keys up to and including its own position, under the rule.
+    Returns (max_seqs, gamma, n_q_heads, head_dim); gamma 1 is
+    ``paged_decode_attention``.
+    """
+    S, gamma, n_q, d = q.shape
+    _check(n_q, d, cfg)
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(d))
+    if q.device.type == "cpu":
+        return _paged_multitoken_decode_plain(q, cache, cfg, scale, rule)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return native.paged_multitoken_decode(q.contiguous(), cache, cfg, scale * LOG2E, rule)

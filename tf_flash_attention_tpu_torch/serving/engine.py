@@ -6,18 +6,27 @@ then paged prefill attention, then the MLP, per layer), reusing any cached
 page-aligned prefix; then every active slot advances one token per
 ``step()`` (KV append, then paged decode attention).  New requests are
 admitted into free slots between steps and finished ones retire and
-release their pages.
+release their pages.  The KV cache holds int8, fp8 (e4m3, e5m2) or int4
+payloads (``kv_quant_dtype``), or the model dtype (``quantized_kv=False``).
+
+Speculative decoding (``speculative_tokens`` > 0) is the JAX engine's
+prompt-lookup self-speculation: the host proposes drafts from the
+request's own history (``_propose``), one step appends the last token and
+the drafts and verifies them with one ``paged_multitoken_decode`` per
+layer, and the host keeps the drafts the model's greedy tokens confirm,
+plus one model token, then rolls every layer's lengths back to what it
+kept.  Greedy slots are lossless; sampled slots emit one token per step.
 
 PyTorch runs eagerly, so there is no compiled step: the engine calls the
-model's layers and the four serving kernels directly.  The KV caches are
+model's layers and the five serving kernels directly.  The KV caches are
 updated in place by the kernels (the JAX engine donates them instead).
 The host keeps a mirror of the page tables, uploaded when it changes, and
 of the slots' lengths, so a decode step copies one tensor back to the
 host: the next tokens.
 
 Not ported yet (each raises ``NotImplementedError``; see ROADMAP):
-tensor/context parallelism (``mesh``), speculative decoding, the bucketed
-prefill (its forward kernel now exists; the engine route does not), sliding-window
+tensor/context parallelism (``mesh``), the bucketed prefill (its forward
+kernel now exists; the engine route does not), sliding-window
 (``LocalRule``) models with their page eviction, and MoE.
 """
 
@@ -32,7 +41,7 @@ import torch.nn.functional as F
 
 from ..mask_rules import LocalRule
 from ..models.transformer import ModelConfig, Transformer, _rms_norm, inference_weights
-from .decode import paged_decode_attention
+from .decode import paged_decode_attention, paged_multitoken_decode
 from .kv_cache import (
     KVCacheConfig,
     PagedKVCache,
@@ -54,20 +63,26 @@ class EngineConfig:
     n_pages: int = 64           # includes 1 reserved trash page
     max_pages_per_seq: int = 16
     quantized_kv: bool = True
+    # torch.int8, torch.float8_e4m3fn, torch.float8_e5m2, or "int4"
+    # (nibble-packed; needs an even prefill_chunk)
     kv_quant_dtype: object = torch.int8
     seed: int = 0               # seed of the sampling generator
     prefill_mode: str = "chunked"
     prefill_chunk: int = 128
     prefix_caching: bool = True
+    # draft tokens per step proposed by prompt lookup (n-gram
+    # self-speculation); 0 disables.  Greedy slots verify losslessly;
+    # sampled slots emit one token per step in the same batch.
     speculative_tokens: int = 0
+    spec_lookup_window: int = 512   # n-gram search window (host)
 
 
 def _rope_cos_sin(pos: torch.Tensor, d: int, theta: float, dtype: torch.dtype):
-    """cos/sin tables (n, 1, d/2) for rotary embedding at positions ``pos``."""
+    """cos/sin tables (*pos.shape, 1, d/2) for rotary embedding at ``pos``."""
     half = d // 2
     freqs = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
-    angles = pos.float()[:, None] * torch.from_numpy(freqs).to(pos.device)[None, :]
-    return torch.cos(angles)[:, None, :].to(dtype), torch.sin(angles)[:, None, :].to(dtype)
+    angles = pos.float()[..., None] * torch.from_numpy(freqs).to(pos.device)
+    return torch.cos(angles)[..., None, :].to(dtype), torch.sin(angles)[..., None, :].to(dtype)
 
 
 def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -77,24 +92,24 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tens
 
 
 def _rope_at(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding (half-split rotation) for single tokens: x (S, h, d),
-    pos (S,)."""
+    """Rotary embedding (half-split rotation) at token positions: x (..., h,
+    d), pos (...): single tokens (S,) as the JAX ``_rope_at``, token grids
+    (S, T) as its ``_rope_at_batch``."""
     cos, sin = _rope_cos_sin(pos, x.shape[-1], theta, x.dtype)
     return _rotate(x, cos, sin)
 
 
 class DecodeEngine:
-    """Continuous-batching engine on one device (a CUDA card, or the CPU,
-    where the kernels' plain PyTorch versions run)."""
+    """Continuous-batching engine on one device: the CUDA card, or the CPU
+    when ``device="cpu"``, where the kernels' plain PyTorch versions run.
+    ``params`` may live anywhere; the engine casts its own copy onto its
+    device."""
 
     def __init__(self, model_cfg: ModelConfig, params: Transformer,
                  engine_cfg: EngineConfig = EngineConfig(), device=None, mesh=None):
         if mesh is not None:
             raise NotImplementedError("tensor/context-parallel serving is not ported yet "
                                       "(ROADMAP queue 1: serving, sharded decode)")
-        if engine_cfg.speculative_tokens:
-            raise NotImplementedError("speculative decoding is not ported yet (ROADMAP "
-                                      "queue 2: gamma > 1 paged decode)")
         if engine_cfg.prefill_mode != "chunked":
             raise NotImplementedError("the bucketed prefill is not ported yet (ROADMAP "
                                       "queue 1 item 12, first in the serving queue)")
@@ -107,7 +122,7 @@ class DecodeEngine:
                              "must be CausalRule")
         self.mcfg = model_cfg
         self.ecfg = engine_cfg
-        self.device = torch.device(device) if device is not None else params.embed.device
+        self.device = torch.device("cuda") if device is None else torch.device(device)
         # projections and embedding cast to the model dtype once, here
         self.model = inference_weights(params, self.device)
         self.ccfg = KVCacheConfig(
@@ -137,6 +152,8 @@ class DecodeEngine:
         self.stats = {"steps": 0, "decode_tokens": 0, "prefill_chunks": 0,
                       "prefill_tokens": 0, "admitted": 0, "retired": 0,
                       "pages_in_use_peak": 0, "pages_evicted": 0}
+        # drafts proposed to and accepted by greedy slots
+        self.spec_stats = {"proposed": 0, "accepted": 0}
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(engine_cfg.seed)
         # logits of the last prompt token of the most recently admitted request
@@ -152,12 +169,14 @@ class DecodeEngine:
         return x + o.to(x.dtype) @ layer.wo
 
     def _qkv(self, layer, x, cos, sin):
+        """x (..., d_model) -> q (..., n_heads, d_head), k, v (...,
+        n_kv_heads, d_head), q and k rotated by cos/sin (..., 1, d_head/2)."""
         cfg = self.mcfg
-        n = x.shape[0]
+        lead = x.shape[:-1]
         h = _rms_norm(x, layer.ln1)
-        q = (h @ layer.wq).reshape(n, cfg.n_heads, cfg.d_head)
-        k = (h @ layer.wk).reshape(n, cfg.n_kv_heads, cfg.d_head)
-        v = (h @ layer.wv).reshape(n, cfg.n_kv_heads, cfg.d_head)
+        q = (h @ layer.wq).reshape(*lead, cfg.n_heads, cfg.d_head)
+        k = (h @ layer.wk).reshape(*lead, cfg.n_kv_heads, cfg.d_head)
+        v = (h @ layer.wv).reshape(*lead, cfg.n_kv_heads, cfg.d_head)
         return _rotate(q, cos, sin), _rotate(k, cos, sin), v
 
     def _logits(self, x):
@@ -202,6 +221,35 @@ class DecodeEngine:
         if all(sp.temperature == 0 for sp in sps):
             return torch.argmax(logits.float(), dim=-1)
         return self._sample(logits, sps)
+
+    @torch.no_grad()
+    def _spec_step(self, tokens, active, sps: List[SamplingParams]):
+        """Speculative step: ``tokens`` (S, gamma) = [last, draft_1..] per
+        slot.  Appends the gamma tokens' K/V one position at a time (an int4
+        byte row holds two positions: the appends stay ordered launches),
+        verifies them with one multi-token decode per layer, and returns the
+        greedy token after each position (S, gamma) and, if any slot
+        samples, a token sampled from position 0 (S,), else None."""
+        cfg = self.mcfg
+        S, gamma = tokens.shape
+        # positions of the gamma tokens, from the lengths before layer 0's
+        # appends advance them in place
+        pos = self.caches[0].lengths.long()[:, None] + torch.arange(gamma, device=self.device)
+        cos, sin = _rope_cos_sin(pos, cfg.d_head, cfg.rope_theta, cfg.dtype)
+        x = self.model.embed[tokens]                         # (S, gamma, d_model)
+        for layer, cache in zip(self.model.layers, self.caches):
+            q, k, v = self._qkv(layer, x, cos, sin)
+            for i in range(gamma):
+                append_tokens_batched(cache, self.ccfg, k[:, i], v[:, i], active,
+                                      self.trash_page)
+            o = paged_multitoken_decode(q, cache, self.ccfg, rule=cfg.rule)
+            x = self._attn_out(layer, x, o.reshape(S, gamma, -1))
+            x = self._mlp(layer, x)
+        logits = self._logits(x)                             # (S, gamma, vocab)
+        greedy = torch.argmax(logits.float(), dim=-1)
+        sampled0 = (self._sample(logits[:, 0], sps)
+                    if any(sp.temperature > 0 for sp in sps) else None)
+        return greedy, sampled0
 
     def _sample(self, logits, sps: List[SamplingParams]):
         dev = self.device
@@ -301,17 +349,21 @@ class DecodeEngine:
             if eos_id is not None and first_tok == eos_id:
                 self._slots[slot]["remaining"] = 0
 
-    def _ensure_capacity(self):
-        """Map a page for every active slot's next append."""
+    def _ensure_capacity(self, n_tokens: int = 1):
+        """Map pages for the next ``n_tokens`` appends of every active slot
+        (positions ``length .. length + n_tokens - 1``).  Speculation may
+        map a page past the request's reservation, as in the JAX engine."""
         ps, mp = self.ecfg.page_size, self.ecfg.max_pages_per_seq
         for slot, st in enumerate(self._slots):
-            if st is None or st["length"] % ps:
+            if st is None:
                 continue
-            logical = st["length"] // ps
-            if logical >= mp:
-                raise RuntimeError(f"sequence needs logical page {logical} but "
+            length = st["length"]
+            last_needed = (length + n_tokens - 1) // ps
+            if last_needed >= mp:
+                raise RuntimeError(f"sequence needs logical page {last_needed} but "
                                    f"max_pages_per_seq={mp}")
-            self._set_table(slot, logical, self._alloc_pages(slot, 1)[0])
+            for logical in range(-(-length // ps), last_needed + 1):
+                self._set_table(slot, logical, self._alloc_pages(slot, 1)[0])
 
     def _retire(self):
         for slot, st in enumerate(self._slots):
@@ -328,9 +380,90 @@ class DecodeEngine:
     def num_active(self) -> int:
         return sum(st is not None for st in self._slots)
 
+    def _propose(self, hist: List[int], n_draft: int) -> List[int]:
+        """Prompt-lookup drafts: the continuation of the most recent earlier
+        occurrence of the history's last n-gram (n = 3, 2, 1)."""
+        w = self.ecfg.spec_lookup_window
+        h = hist[-w:] if len(hist) > w else hist
+        for n in (3, 2, 1):
+            if len(h) <= n:
+                continue
+            pat = h[-n:]
+            for j in range(len(h) - n - 1, -1, -1):
+                if h[j:j + n] == pat:
+                    cont = h[j + n:j + n + n_draft]
+                    if cont:
+                        return list(cont) + [cont[-1]] * (n_draft - len(cont))
+        return [h[-1]] * n_draft
+
+    def _step_speculative(self) -> int:
+        """One speculative step: propose drafts, verify them in one
+        multi-token pass, commit the accepted prefix and one model token per
+        slot, and roll every layer's lengths back to what was committed
+        (later appends overwrite the rejected rows in place)."""
+        gamma = self.ecfg.speculative_tokens + 1
+        self._admit()
+        self._retire()
+        if self.num_active == 0:
+            return 0
+        self._ensure_capacity(gamma)
+        self._sync_tables()
+        self.stats["steps"] += 1
+        self.stats["pages_in_use_peak"] = max(
+            self.stats["pages_in_use_peak"],
+            (self.ecfg.n_pages - 1) - self.allocator.free_pages)
+        tok_mat = np.zeros((self.ecfg.max_seqs, gamma), np.int64)
+        for slot, st in enumerate(self._slots):
+            if st is not None:
+                tok_mat[slot, 0] = st["last"]
+                tok_mat[slot, 1:] = self._propose(self._results[st["rid"]], gamma - 1)
+        active = torch.tensor([st is not None for st in self._slots], device=self.device)
+        sps = [st["sampling"] if st else SamplingParams() for st in self._slots]
+        greedy, sampled0 = self._spec_step(torch.from_numpy(tok_mat).to(self.device),
+                                           active, sps)
+        greedy = greedy.cpu().numpy()
+        sampled0 = None if sampled0 is None else sampled0.cpu().numpy()
+        produced = 0
+        for slot, st in enumerate(self._slots):
+            if st is None:
+                continue
+            if st["sampling"].temperature > 0:
+                new_toks = [int(sampled0[slot])]
+            else:
+                n_acc = 0
+                while n_acc < gamma - 1 and tok_mat[slot, n_acc + 1] == greedy[slot, n_acc]:
+                    n_acc += 1
+                new_toks = ([int(t) for t in tok_mat[slot, 1:1 + n_acc]]
+                            + [int(greedy[slot, n_acc])])
+                self.spec_stats["proposed"] += gamma - 1
+                self.spec_stats["accepted"] += n_acc
+            new_toks = new_toks[:st["remaining"]]
+            if st["eos_id"] is not None and st["eos_id"] in new_toks:
+                new_toks = new_toks[:new_toks.index(st["eos_id"]) + 1]
+                st["remaining"] = len(new_toks)
+            # committed K/V: 'last' and the kept drafts; the last emitted
+            # token's K/V is appended by the next step
+            self._results[st["rid"]].extend(new_toks)
+            st["last"] = new_toks[-1]
+            st["length"] += len(new_toks)
+            st["remaining"] -= len(new_toks)
+            produced += len(new_toks)
+        self.stats["decode_tokens"] += produced
+        # each layer's appends advanced its own lengths by gamma
+        lengths = torch.tensor([st["length"] if st else 0 for st in self._slots],
+                               dtype=torch.int32, device=self.device)
+        for cache in self.caches:
+            cache.lengths.copy_(lengths)
+        self._retire()
+        return produced
+
     def step(self) -> int:
-        """Admit, decode one token for all active slots, retire.  Returns
-        the number of tokens produced this step."""
+        """Admit, decode one token for all active slots (or, with
+        ``speculative_tokens``, verify drafts and commit up to
+        ``speculative_tokens + 1``), retire.  Returns the number of tokens
+        produced this step."""
+        if self.ecfg.speculative_tokens > 0:
+            return self._step_speculative()
         self._admit()
         # requests finished at prefill (EOS first, or max_new_tokens == 1)
         # retire before consuming a decode step

@@ -1,25 +1,30 @@
-"""Paged, optionally int8-quantized KV cache (PyTorch port).
+"""Paged, optionally int8/fp8/int4-quantized KV cache (PyTorch port).
 
 Counterpart of ``tf_flash_attention_tpu/serving/kv_cache.py`` with the same
-layouts, so cache states compare element for element:
+layouts, so cache states compare element for element (``pack`` = tokens
+per stored byte row: 2 for int4, else 1):
 
-  k_pages, v_pages:   (n_kv_heads, n_pages, page_size, head_dim_store)
-  k_scales, v_scales: (n_kv_heads, n_pages, 1, page_size) float32
+  k_pages, v_pages:   (n_kv_heads, n_pages, page_size // pack, head_dim_store)
+  k_scales, v_scales: (n_kv_heads, n_pages, pack, page_size // pack) float32
   page_tables:        (max_seqs, max_pages_per_seq) int32
   lengths:            (max_seqs,) int32
 
-Payloads are int8 with one float32 scale per token, or unquantized in the
-model dtype.  Unlike the JAX pytree, ``PagedKVCache`` is a mutable holder:
-the writes below update its page tensors in place (the JAX engine donates
-the caches to get the same effect).
+Payloads are int8, fp8 (e4m3 or e5m2) or int4 with one float32 scale per
+token, or unquantized in the model dtype.  int4 packs token pairs along the
+token axis: byte row r of a page holds token 2r in its low nibble and
+token 2r + 1 in its high nibble; scale sublane 0 holds the even tokens'
+scales, sublane 1 the odd ones'.  Unlike the JAX pytree, ``PagedKVCache``
+is a mutable holder: the writes below update its page tensors in place
+(the JAX engine donates the caches to get the same effect).
 
 Two writes have CUDA kernels (``csrc/serving_kernels.cu``):
 ``write_tokens_at`` (chunked prefill, kernel ``kv_chunk_write``) and
-``append_tokens_batched`` (decode step, kernel ``kv_append``).  Each has a
-plain PyTorch version beside it, which the wrapper takes only for tensors
-on the CPU.  Several padding rows or inactive slots may write the reserved
-trash page at once; its contents are garbage by design, and nothing reads
-it.
+``append_tokens_batched`` (decode step, kernel ``kv_append``; for int4 a
+read-modify-write of one nibble).  Each has a plain PyTorch version beside
+it, the JAX package's XLA-scatter specification, which the wrapper takes
+only for tensors on the CPU.  Several padding rows or inactive slots may
+write the reserved trash page at once; its contents are garbage by design,
+and nothing reads it.
 """
 
 from __future__ import annotations
@@ -27,7 +32,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -38,8 +42,20 @@ __all__ = ["KVCacheConfig", "PagedKVCache", "PageAllocator", "write_tokens_at",
            "append_tokens_batched", "write_prompt", "assign_page",
            "gather_sequence_kv"]
 
-_NOT_PORTED = ("fp8 and int4 KV caches are not ported yet (ROADMAP queue 2: "
-               "fp8/int4 variants of the serving kernels)")
+# per-token symmetric quantization: the largest magnitude maps to this value
+_QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0, torch.float8_e5m2: 57344.0}
+
+
+def _is_int4(qdtype) -> bool:
+    return isinstance(qdtype, str) and qdtype == "int4"
+
+
+def _quant_max(qdtype) -> float:
+    if _is_int4(qdtype):
+        return 7.0
+    if isinstance(qdtype, torch.dtype) and qdtype in _QMAX:
+        return _QMAX[qdtype]
+    raise ValueError(f"unsupported quant dtype {qdtype}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,12 +67,16 @@ class KVCacheConfig:
     max_seqs: int = 8
     max_pages_per_seq: int = 16
     quantized: bool = True
+    # torch.int8, torch.float8_e4m3fn, torch.float8_e5m2, or the string
+    # "int4" (nibble-packed int8 bytes)
     quant_dtype: object = torch.int8
     dtype: torch.dtype = torch.bfloat16   # payload dtype when not quantized
 
     def __post_init__(self):
-        if self.quantized and self.quant_dtype != torch.int8:
-            raise NotImplementedError(_NOT_PORTED)
+        if self.quantized:
+            _quant_max(self.quant_dtype)
+            if self.is_int4 and self.page_size % 2:
+                raise ValueError(f"int4 KV needs an even page size, got {self.page_size}")
 
     @property
     def head_dim_store(self) -> int:
@@ -64,8 +84,24 @@ class KVCacheConfig:
         return pad_to(self.head_dim, LANE)
 
     @property
+    def is_int4(self) -> bool:
+        return self.quantized and _is_int4(self.quant_dtype)
+
+    @property
+    def tok_pack(self) -> int:
+        """Tokens per stored byte row (2 for int4, else 1)."""
+        return 2 if self.is_int4 else 1
+
+    @property
+    def page_rows(self) -> int:
+        """Payload rows per page (= page_size / tok_pack)."""
+        return self.page_size // self.tok_pack
+
+    @property
     def payload_dtype(self) -> torch.dtype:
-        return torch.int8 if self.quantized else self.dtype
+        if not self.quantized:
+            return self.dtype
+        return torch.int8 if self.is_int4 else self.quant_dtype
 
 
 @dataclasses.dataclass
@@ -81,8 +117,11 @@ class PagedKVCache:
 
     @staticmethod
     def create(cfg: KVCacheConfig, device=None) -> "PagedKVCache":
-        shape = (cfg.n_kv_heads, cfg.n_pages, cfg.page_size, cfg.head_dim_store)
-        scales_shape = (cfg.n_kv_heads, cfg.n_pages, 1, cfg.page_size)
+        """An empty cache on ``device`` (the CUDA card unless ``"cpu"`` is
+        given)."""
+        device = torch.device("cuda") if device is None else torch.device(device)
+        shape = (cfg.n_kv_heads, cfg.n_pages, cfg.page_rows, cfg.head_dim_store)
+        scales_shape = (cfg.n_kv_heads, cfg.n_pages, cfg.tok_pack, cfg.page_rows)
         scales = (lambda: torch.ones(scales_shape, dtype=torch.float32, device=device)
                   ) if cfg.quantized else (lambda: None)
         return PagedKVCache(
@@ -102,48 +141,92 @@ def _pad_feature(x: torch.Tensor, d_store: int) -> torch.Tensor:
 
 
 def _quantize_tokens(x: torch.Tensor, qdtype=torch.int8):
-    """Per-token symmetric int8 quantization: x (..., t, d) ->
-    (int8 payload, float32 scales (..., t, 1)).  ``torch.round`` rounds half
-    to even, as ``jnp.round`` does, so payloads match the JAX package bit
-    for bit."""
-    if qdtype != torch.int8:
-        raise NotImplementedError(_NOT_PORTED)
+    """Per-token symmetric quantization to ``qdtype``: x (..., t, d) ->
+    (payload, float32 scales (..., t, 1)).  int4 values come back unpacked,
+    one int8 in [-7, 7] per token (pack pairs with ``_pack_nibbles``).
+    ``torch.round`` rounds half to even, as ``jnp.round`` does, and the
+    fp8 casts round to nearest even, as XLA's do, so payloads match the
+    JAX package bit for bit."""
+    qmax = _quant_max(qdtype)
     x32 = x.float()
     amax = x32.abs().amax(dim=-1, keepdim=True)
     # a tensor divisor: on CUDA, division by a Python scalar is a multiply by
     # its reciprocal, which is not the IEEE quotient the reference takes
     scale = torch.where(amax == 0.0, torch.ones_like(amax),
-                        amax / torch.full_like(amax, 127.0))
-    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+                        amax / torch.full_like(amax, qmax))
+    scaled = x32 / scale
+    if _is_int4(qdtype) or qdtype == torch.int8:
+        q = torch.clamp(torch.round(scaled), -qmax, qmax).to(torch.int8)
+    else:
+        q = scaled.to(qdtype)
     return q, scale
 
 
+def _pack_nibbles(q: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-7, 7] (..., t, d) -> int8 bytes (..., t//2, d):
+    token 2r in the low nibble of byte row r, token 2r+1 in the high one."""
+    lo = q[..., 0::2, :].to(torch.int32) & 0xF
+    hi = q[..., 1::2, :].to(torch.int32) & 0xF
+    return (lo | (hi << 4)).to(torch.int8)
+
+
+def _pack_scales(sc: torch.Tensor) -> torch.Tensor:
+    """Per-token scales (..., t) -> (..., 2, t//2): sublane 0 the even
+    tokens', sublane 1 the odd tokens'."""
+    return torch.stack([sc[..., 0::2], sc[..., 1::2]], dim=-2)
+
+
+def _unpack_nibbles(x: torch.Tensor):
+    """Sign-extend packed int4 bytes with shifts: (..., rows, d) int8 ->
+    (even, odd) int32 pair, each (..., rows, d)."""
+    xi = x.to(torch.int32)
+    return (xi << 28) >> 28, (xi << 24) >> 28
+
+
 def _store_rows(cache: PagedKVCache, cfg: KVCacheConfig, phys, offset, k, v):
-    """Scatter token rows k, v (n_kv, t, d) to (phys[i], offset[i])."""
+    """Scatter whole token rows k, v (n_kv, t, d) to (phys[i], offset[i])
+    (int8, fp8 or unquantized payloads)."""
     phys, offset = phys.long(), offset.long()
     for pages, scales, new in ((cache.k_pages, cache.k_scales, k),
                                (cache.v_pages, cache.v_scales, v)):
         vals = _pad_feature(new, cfg.head_dim_store)
         if cfg.quantized:
-            qv, sc = _quantize_tokens(vals)
+            qv, sc = _quantize_tokens(vals, cfg.quant_dtype)
             pages[:, phys, offset, :] = qv
             scales[:, phys, 0, offset] = sc[..., 0]
         else:
             pages[:, phys, offset, :] = vals.to(pages.dtype)
 
 
+def _store_byte_rows(cache: PagedKVCache, cfg: KVCacheConfig, phys, offset, k, v):
+    """int4: quantize token pairs (2r, 2r+1) of k, v (n_kv, t, d), t even,
+    and store each pair's byte row at (phys[2r], offset[2r] // 2)."""
+    phys_b, off_b = phys[0::2].long(), offset[0::2].long() // 2
+    for pages, scales, new in ((cache.k_pages, cache.k_scales, k),
+                               (cache.v_pages, cache.v_scales, v)):
+        qv, sc = _quantize_tokens(_pad_feature(new, cfg.head_dim_store), cfg.quant_dtype)
+        scp = _pack_scales(sc[..., 0])                    # (n_kv, 2, t/2)
+        pages[:, phys_b, off_b, :] = _pack_nibbles(qv)
+        scales[:, phys_b, 0, off_b] = scp[:, 0]
+        scales[:, phys_b, 1, off_b] = scp[:, 1]
+
+
 def write_prompt(cache: PagedKVCache, cfg: KVCacheConfig, slot: int,
                  pages, k: torch.Tensor, v: torch.Tensor) -> PagedKVCache:
     """Bulk-write a prompt's K/V (n_kv, t, head_dim) into pre-allocated
     physical ``pages`` (host ints, ``ceil(t / page_size)`` of them) and
-    map them in the slot's page table.  Test and set-up utility."""
+    map them in the slot's page table.  The prompt is zero-padded to whole
+    pages, as in the JAX package.  Test and set-up utility."""
     t = k.shape[1]
     n_used = -(-t // cfg.page_size)
     if len(pages) < n_used:
         raise ValueError(f"{len(pages)} pages cannot hold {t} tokens")
-    pos = torch.arange(t, device=k.device)
+    pad = n_used * cfg.page_size - t
+    k, v = F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad))
+    pos = torch.arange(n_used * cfg.page_size, device=k.device)
     page_idx = torch.as_tensor([int(p) for p in pages[:n_used]], device=k.device)
-    _store_rows(cache, cfg, page_idx[pos // cfg.page_size], pos % cfg.page_size, k, v)
+    store = _store_byte_rows if cfg.is_int4 else _store_rows
+    store(cache, cfg, page_idx[pos // cfg.page_size], pos % cfg.page_size, k, v)
     cache.page_tables[slot, :n_used] = page_idx.to(torch.int32)
     cache.lengths[slot] = t
     return cache
@@ -162,8 +245,11 @@ def _write_tokens_plain(cache, cfg, slot, start, k, v, true_len, trash_page):
     pos = start + idx
     logical = (pos // cfg.page_size) % cfg.max_pages_per_seq
     phys = cache.page_tables[slot].long()[logical]
+    # int4: a byte row goes to the trash page only if its even token, and so
+    # both of its tokens, are padding
     phys = torch.where(idx < true_len, phys, torch.full_like(phys, trash_page))
-    _store_rows(cache, cfg, phys, pos % cfg.page_size, k, v)
+    store = _store_byte_rows if cfg.is_int4 else _store_rows
+    store(cache, cfg, phys, pos % cfg.page_size, k, v)
 
 
 def _check_device(cache, *tensors):
@@ -179,11 +265,16 @@ def write_tokens_at(cache: PagedKVCache, cfg: KVCacheConfig, slot: int,
 
     ``k, v``: (n_kv_heads, chunk, head_dim).  Rows past ``true_len`` (chunk
     padding) go to the reserved ``trash_page``.  The slot's length becomes
-    ``start + true_len``.  On a CUDA cache this launches ``kv_chunk_write``
-    (quantization fused in); on the CPU it runs the plain version.
+    ``start + true_len``.  An int4 cache needs an even ``start`` and an
+    even chunk (whole byte rows).  On a CUDA cache this launches
+    ``kv_chunk_write`` (quantization fused in); on the CPU it runs the
+    plain version.
     """
     if k.shape != v.shape or k.shape[0] != cfg.n_kv_heads or k.shape[2] != cfg.head_dim:
         raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)}")
+    if cfg.is_int4 and (start % 2 or k.shape[1] % 2):
+        raise ValueError(f"int4 chunked writes need an even start and chunk, got "
+                         f"start {start}, chunk {k.shape[1]}")
     if k.device.type == "cpu":
         _write_tokens_plain(cache, cfg, slot, start, k, v, true_len, trash_page)
     elif k.device.type == "cuda":
@@ -201,8 +292,22 @@ def _append_plain(cache, cfg, k_new, v_new, active, trash_page):
     logical = (lengths // cfg.page_size) % cfg.max_pages_per_seq
     phys = cache.page_tables.long().gather(1, logical[:, None])[:, 0]
     phys = torch.where(active, phys, torch.full_like(phys, trash_page))
-    _store_rows(cache, cfg, phys, lengths % cfg.page_size,
-                k_new.transpose(0, 1), v_new.transpose(0, 1))
+    offset = lengths % cfg.page_size
+    if not cfg.is_int4:
+        _store_rows(cache, cfg, phys, offset, k_new.transpose(0, 1), v_new.transpose(0, 1))
+        return
+    brow, nib = offset // 2, offset % 2
+    for pages, scales, new in ((cache.k_pages, cache.k_scales, k_new),
+                               (cache.v_pages, cache.v_scales, v_new)):
+        vals = _pad_feature(new, cfg.head_dim_store).transpose(0, 1)   # (n_kv, S, d)
+        qv, sc = _quantize_tokens(vals, cfg.quant_dtype)
+        old = pages[:, phys, brow, :].to(torch.int32)
+        q32 = qv.to(torch.int32) & 0xF
+        # an even token owns the byte (its odd partner does not exist yet);
+        # an odd token keeps the even one in the low nibble
+        byte = torch.where(nib[None, :, None] == 0, q32, (old & 0xF) | (q32 << 4))
+        pages[:, phys, brow, :] = byte.to(torch.int8)
+        scales[:, phys, nib, brow] = sc[..., 0]
 
 
 def append_tokens_batched(cache: PagedKVCache, cfg: KVCacheConfig,
@@ -212,7 +317,8 @@ def append_tokens_batched(cache: PagedKVCache, cfg: KVCacheConfig,
     n_kv_heads, head_dim) land at (page of ``length``, ``length % page``);
     inactive slots write the trash page and do not advance.  On a CUDA
     cache this launches ``kv_append``; on the CPU it runs the plain
-    version."""
+    version.  Two appends to one int4 byte row must be separate calls, in
+    order (each reads the byte the other writes)."""
     if (k_new.shape != v_new.shape or k_new.shape[1] != cfg.n_kv_heads
             or k_new.shape[2] != cfg.head_dim):
         raise ValueError(f"k/v shapes {tuple(k_new.shape)}, {tuple(v_new.shape)}")
@@ -229,6 +335,20 @@ def append_tokens_batched(cache: PagedKVCache, cfg: KVCacheConfig,
     return cache
 
 
+def _page_tokens(pages: torch.Tensor, scales: Optional[torch.Tensor],
+                 cfg: KVCacheConfig):
+    """Pages (..., page_rows, D) and their scales (..., pack, page_rows) ->
+    float32 token values (..., page_size, D), not yet scaled, and token
+    scales (..., page_size) or None.  Exact: every payload is representable
+    in float32 (and in bf16, the quantized caches' compute type)."""
+    if cfg.is_int4:
+        even, odd = _unpack_nibbles(pages)
+        x = torch.stack([even, odd], dim=-2).flatten(-3, -2).float()
+        sc = scales.transpose(-1, -2).flatten(-2)       # t = 2r + nibble
+        return x, sc
+    return pages.float(), (scales[..., 0, :] if cfg.quantized else None)
+
+
 def gather_sequence_kv(cache: PagedKVCache, cfg: KVCacheConfig, slot: int,
                        length: Optional[int] = None):
     """Host-side: gather and dequantize one sequence's K/V -> float32 numpy
@@ -241,9 +361,9 @@ def gather_sequence_kv(cache: PagedKVCache, cfg: KVCacheConfig, slot: int,
     pages = [int(table[i % mp]) for i in range(n_used)]
 
     def tokens(p, s):
-        x = p[:, pages].float()                       # (n_kv, n_used, page, d)
-        if cfg.quantized:
-            x = x * s[:, pages, 0][..., None]
+        x, sc = _page_tokens(p[:, pages], None if s is None else s[:, pages], cfg)
+        if sc is not None:
+            x = x * sc[..., None]
         return x.reshape(cfg.n_kv_heads, -1, x.shape[-1])[:, :L, :cfg.head_dim]
 
     k = tokens(cache.k_pages, cache.k_scales)

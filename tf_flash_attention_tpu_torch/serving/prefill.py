@@ -1,9 +1,11 @@
 """Paged prefill attention (one prompt chunk of one sequence, causal).
 
 Counterpart of ``paged_prefill_attention`` in the JAX package's
-``serving/prefill.py``.  On a CUDA tensor it launches the
-``paged_prefill`` kernel; on the CPU it runs ``_paged_prefill_plain``,
-which keeps the reference kernel's arithmetic (see ``decode.py``).  The
+``serving/prefill.py``, on every payload (int8, fp8, int4, unquantized).
+On a CUDA tensor it launches the ``paged_prefill`` kernel; on the CPU it
+runs ``_paged_prefill_plain``, which keeps the reference kernel's
+arithmetic (see ``decode.py``; int4 pages are unpacked into token order,
+the reference's even and odd halves under one online softmax).  The
 wrapper prescales q by ``scale * LOG2E`` and rounds it back to q's dtype,
 as the reference does; that rounding is part of the reference's result.
 
@@ -23,7 +25,7 @@ from .. import native
 from ..mask_rules import CausalRule, MaskRule
 from ..ops.kernel_common import LOG2E, NEG_INF_F32
 from .decode import _compute_dtype, _first_live_page, _rule_visible, _softmax_page
-from .kv_cache import KVCacheConfig, PagedKVCache
+from .kv_cache import KVCacheConfig, PagedKVCache, _page_tokens
 
 __all__ = ["paged_prefill_attention"]
 
@@ -46,13 +48,16 @@ def _paged_prefill_plain(qs, cache, cfg, slot, start, true_len, rule):
     table = cache.page_tables[slot].long()
     for lp in range(first, count):
         phys = table[lp % mp]
-        k = cache.k_pages[:, phys].to(cdt).float()[:, None]            # (n_kv, 1, ps, D)
-        v = cache.v_pages[:, phys].to(cdt).float()[:, None]
+        kv = []
+        for pages, scales in ((cache.k_pages, cache.k_scales), (cache.v_pages, cache.v_scales)):
+            x, sc = _page_tokens(pages[:, phys], None if scales is None else scales[:, phys],
+                                 cfg)                                   # (n_kv, ps, D), (n_kv, ps)
+            kv.append((x.to(cdt).float()[:, None], sc))
+        (k, ks), (v, vs) = kv                                           # k, v (n_kv, 1, ps, D)
         s = qg @ k.transpose(-1, -2)                                    # (n_kv, g, chunk, ps)
-        vs = None
         if cfg.quantized:
-            s = s * cache.k_scales[:, phys, 0][:, None, None, :]
-            vs = cache.v_scales[:, phys, 0][:, None, None, :]
+            s = s * ks[:, None, None, :]
+            vs = vs[:, None, None, :]
         kv_pos = lp * ps + torch.arange(ps, device=qs.device)
         vis = (kv_pos < total) & _rule_visible(rule, q_pos, kv_pos)     # (chunk, ps)
         s = s.masked_fill(~vis, NEG_INF_F32)

@@ -34,6 +34,23 @@ Phases (any failure exits non-zero before the final line):
      cache, with and without speculation, with every draft right and with
      every draft wrong: the greedy tokens must agree up to each request's
      first top-2 logit tie (gap under 1e-3);
+  3e. context-parallel serving, 4 shards on the card (a mesh of cuda:0
+     repeated): (a) the sequence-sharded variants (paged_decode causal and
+     in a window of 1024, paged_multitoken_decode at gamma 4, paged_prefill
+     on a 512-token chunk at 12,288, each with its (l, m) outputs, page
+     stride and offset; kv_chunk_write on int8 and int4) on every shard
+     against their plain versions, at 16 slots, int8, page 256, global
+     lengths 1,000-16,000, 8/8 heads and GQA 8 q / 2 kv; the merge of the
+     4 shards against the flat kernel on the same tokens; (b) the 168M
+     engine with cp = 4 (int8, page 256, 8 slots, 16 local pages a
+     sequence, 129 pages a shard) on 8 requests of 4,000-15,000 prompt
+     tokens, and with speculation on 4 pattern prompts, against the flat
+     engine on the same requests (the last prompt token's logits within
+     the bf16 tolerance of phase 4); it must launch every variant; (c) a
+     float32 gate: all 8 layers, unquantized cache, 4 prompts of
+     4,000-15,000 tokens, cp = 4 with and without speculation against the
+     flat engine: the last prompt token's logits within half the tie gap,
+     equal greedy tokens up to each request's first top-2 logit tie;
   4. the same weights on the CPU (plain versions) and on the card: the
      logits of a 512-token prompt's last token must agree;
   5. the op path's ten kernels (the table-driven forward, kv-outer and
@@ -67,8 +84,10 @@ its bound (the larger of its bytes over 3.35 TB/s and its products over
 the peak of their type) and the time of one PyTorch call computing the same
 function (null where there is none); the serving kernels add the payloads
 held against their plain versions, each payload's time, and their launches
-in phase 3c.  The last lines are that JSON object, the card's name and
-power limit, and {"ok": true, "device": {...}}.
+in phase 3c.  The four sequence-sharded variants follow as kernels of their
+own ("paged_decode[cp]", ...; launches from the cp engine of phase 3e, times
+from 3e(a) on shard 0).  The last lines are that JSON object, the card's
+name and power limit, and {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -109,6 +128,17 @@ def op_tol(dtype, ref):
 # lossless gate (phase 3d): a top-2 logit gap under this is a tie, where
 # two float32 runs that sum in other orders may pick either token
 GAP_TIE = 1e-3
+# sequence-sharded variants (phase 3e): l sums the same float32 p, and m is
+# the maximum of the same float32 logits, as their plain versions; they part
+# by summation order only: l within this relative error, m within it times
+# max(1, |m|)
+LM_RTOL = 1e-5
+# context-parallel float32 gate (phase 3e(c)): cp and flat compute the same
+# float32 attention and part by the merge's summation order only (~1e-6 of
+# a logit through 8 layers); a logit error under half the tie gap cannot
+# flip a greedy token that is not a tie, while a lost or mis-weighted shard
+# moves the logits by far more
+CP_F32_LOGIT_ATOL = GAP_TIE / 2
 
 # training (phase 6): kernels and plain path both compute attention in
 # float32 and round o to bf16, so they part only where a rounding flips (one
@@ -174,11 +204,21 @@ def token_bytes(cfg):
 
 
 def make_cache(cfg, dev, gen, lengths):
-    """A cache with random contents: 8 mapped pages per slot, given lengths.
-    Quantized payloads span their type's range; scales bring every payload
-    to values of the same size as int8's."""
-    from tf_flash_attention_tpu_torch.serving.kv_cache import PagedKVCache, _quant_max
+    """A cache with random contents: 8 mapped pages per slot, given lengths."""
+    from tf_flash_attention_tpu_torch.serving.kv_cache import PagedKVCache
     cache = PagedKVCache.create(cfg, dev)
+    fill_random(cache, cfg, dev, gen)
+    S = cfg.max_seqs
+    perm = torch.randperm(cfg.n_pages - 1, generator=gen, device=dev)[:S * 8]
+    cache.page_tables[:, :8] = perm.reshape(S, 8).to(torch.int32)
+    cache.lengths.copy_(torch.tensor(lengths, dtype=torch.int32, device=dev))
+    return cache
+
+
+def fill_random(cache, cfg, dev, gen):
+    """Random pages and scales: quantized payloads span their type's range;
+    scales bring every payload to values of the same size as int8's."""
+    from tf_flash_attention_tpu_torch.serving.kv_cache import _quant_max
     for pages in (cache.k_pages, cache.v_pages):
         if cfg.is_int4:
             pages.copy_(torch.randint(-128, 128, pages.shape, generator=gen, device=dev))
@@ -194,11 +234,6 @@ def make_cache(cfg, dev, gen, lengths):
         unit = 127.0 / _quant_max(cfg.quant_dtype)
         for sc in (cache.k_scales, cache.v_scales):
             sc.copy_((0.005 + 0.02 * torch.rand(sc.shape, generator=gen, device=dev)) * unit)
-    S = cfg.max_seqs
-    perm = torch.randperm(cfg.n_pages - 1, generator=gen, device=dev)[:S * 8]
-    cache.page_tables[:, :8] = perm.reshape(S, 8).to(torch.int32)
-    cache.lengths.copy_(torch.tensor(lengths, dtype=torch.int32, device=dev))
-    return cache
 
 
 def clone_cache(c):
@@ -290,7 +325,7 @@ def kernel_case(name, n_q, n_kv, payload, dev, gen, page_size=256, gamma=None):
         record("kv_chunk_write", 0.0,
                lambda: native.kv_chunk_write(ck, cfg, 0, start, k, v, true_len, trash),
                lambda: kv_cache._write_tokens_plain(cp, cfg, 0, start, k, v, true_len, trash),
-               2 * k.numel() * act + 2 * n_kv * true_len * tok, 0)
+               2 * n_kv * true_len * (d * act + tok), 0)
 
         # K4 kv_append: two inactive slots; int4 lengths land on both nibbles
         kn = torch.randn((S, n_kv, d), generator=gen, device=dev).to(bf)
@@ -449,6 +484,9 @@ def main():
     # ---- 3d: the speculative engine is lossless on the card ----
     lossless_gate(mcfg, args.seed, prompts[:8] + [pattern * 8], n_new, dev)
 
+    # ---- 3e: context-parallel serving, 4 shards on the card ----
+    cp_measured, cp_launches = cp_phase(mcfg, cpu_model, args.seed, n_new, dev)
+
     # ---- 4: logits on the CPU (plain versions) against the card ----
     small = EngineConfig(max_seqs=1, page_size=256, n_pages=18, max_pages_per_seq=16,
                          quantized_kv=True, prefill_chunk=512)
@@ -526,6 +564,27 @@ def main():
             entry["ms_by_payload"] = {pl: c[k]["ms"] for pl, c in cases.items() if k in c}
             entry["launches_by_payload"] = {pl: n[k] for pl, n in payload_launches.items()}
         lines.append(entry)
+    # the sequence-sharded variants: times and bounds of phase 3e(a) on shard
+    # 0 (8 q / 8 kv heads), launches of the cp engine (phase 3e(b))
+    cp_replaces = {
+        "paged_decode[cp]": replaces["paged_decode"] + " (returning_l_m, page_stride, "
+                                                       "global_lengths; call :341)",
+        "paged_multitoken_decode[cp]": replaces["paged_multitoken_decode"]
+        + " (returning_l_m, page_stride, global_lengths)",
+        "paged_prefill[cp]": replaces["paged_prefill"] + " (returning_l_m, page_stride; "
+                                                         "call :304)",
+        "kv_chunk_write[cp]": replaces["kv_chunk_write"] + " (page_stride, _phys :356-365; "
+                                                           "call :395)",
+    }
+    for k in native.CP_VARIANTS:
+        m = cp_measured[k]
+        lines.append({"name": k, "route": "cuda", "source": csrc + native.KERNEL_SOURCES[k],
+                      "replaces": cp_replaces[k], "launches": cp_launches[k],
+                      "path": "cp engine (phase 3e)", "max_abs_err": m["err"], "ms": m["ms"],
+                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                      "bound_by": m["bound_by"], "library_ms": None,
+                      **{x: m[x] for x in ("l_err", "m_err", "merge_err", "cp_step_ms",
+                                           "flat_ms") if x in m}})
     print(json.dumps({"kernels": lines}))
     print(f"card: {smi.stdout.strip().splitlines()[0]}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -561,7 +620,7 @@ def serve(label, eng, reqs, n_new, vocab):
     results = eng.run(max_steps=10_000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: native.LAUNCHES[k] for k in native.SERVING_KERNELS}
+    launches = {k: native.LAUNCHES[k] for k in native.SERVING_KERNELS + native.CP_VARIANTS}
     for rid, (p, _) in zip(rids, reqs):
         got = results.get(rid, [])
         if len(got) != len(p) + n_new or got[:len(p)] != p:
@@ -615,6 +674,33 @@ def quantized_engines(mcfg, cpu_model, ecfg, prompts, n_new, dev):
     return counts
 
 
+def top2_gaps(cfg, model, prompts, outs, dev):
+    """The top-2 gap of each generated token's logits: a teacher-forced
+    forward of the model over each output sequence, on the card."""
+    from tf_flash_attention_tpu_torch.models import transformer as tf
+
+    card_model = copy.deepcopy(model).to(dev)
+    gaps = []
+    with torch.no_grad():
+        for p, full in zip(prompts, outs):
+            logits = tf.forward(cfg, card_model, torch.tensor([full[:-1]], device=dev))[0]
+            top2 = logits[len(p) - 1:].topk(2, dim=-1).values
+            gaps.append((top2[:, 0] - top2[:, 1]).cpu().tolist())
+    del card_model
+    torch.cuda.empty_cache()
+    return gaps
+
+
+def check_to_tie(label, prompts, want, got, gaps):
+    """Fail unless each request's generated tokens equal ``want``'s up to its
+    first top-2 logit gap under GAP_TIE (a tie, not a fault)."""
+    for i, (p, w, g, gap) in enumerate(zip(prompts, want, got, gaps)):
+        tie = next((j for j, x in enumerate(gap) if x < GAP_TIE), len(gap))
+        if g[len(p):][:tie] != w[len(p):][:tie]:
+            fail(f"{label}: request {i} differs before its first tie (position {tie}, gap "
+                 f"{min(gap)}): {g[len(p):]} vs {w[len(p):]}")
+
+
 def lossless_gate(mcfg, seed, prompts, n_new, dev):
     """Phase 3d: 2 layers at the 168M width in float32 (TF32 off), unquantized
     cache.  Speculative greedy tokens must equal the non-speculative ones up
@@ -641,17 +727,7 @@ def lossless_gate(mcfg, seed, prompts, n_new, dev):
 
     base, _, _ = run(0)
     torch.cuda.empty_cache()
-    # the top-2 gap of each generated token's logits: a teacher-forced
-    # forward of the model over the non-speculative sequence
-    card_model = copy.deepcopy(model).to(dev)
-    gaps = []
-    with torch.no_grad():
-        for p, full in zip(prompts, base):
-            logits = tf.forward(cfg, card_model, torch.tensor([full[:-1]], device=dev))[0]
-            top2 = logits[len(p) - 1:].topk(2, dim=-1).values
-            gaps.append((top2[:, 0] - top2[:, 1]).cpu().tolist())
-    del card_model
-    torch.cuda.empty_cache()
+    gaps = top2_gaps(cfg, model, prompts, base, dev)
 
     def oracle(shift):
         def propose(hist, n_draft):
@@ -665,12 +741,7 @@ def lossless_gate(mcfg, seed, prompts, n_new, dev):
     for label, propose in (("n-gram drafts", None), ("every draft right", oracle(0)),
                            ("every draft wrong", oracle(1))):
         out, stats, spec = run(3, propose)
-        for i, (p, want, got, gap) in enumerate(zip(prompts, base, out, gaps)):
-            tie = next((j for j, x in enumerate(gap) if x < GAP_TIE), n_new)
-            gen_want, gen_got = want[len(p):], got[len(p):]
-            if gen_got[:tie] != gen_want[:tie]:
-                fail(f"lossless gate ({label}): request {i} differs before its first tie "
-                     f"(position {tie}, gap {min(gap)}): {gen_got} vs {gen_want}")
+        check_to_tie(f"lossless gate ({label})", prompts, base, out, gaps)
         ties = [(i, j, x) for i, gap in enumerate(gaps) for j, x in enumerate(gap) if x < GAP_TIE]
         same = sum(a == b for a, b in zip(out, base))
         print(f"lossless gate ({label}): {same} of {len(prompts)} requests equal in full; "
@@ -681,6 +752,367 @@ def lossless_gate(mcfg, seed, prompts, n_new, dev):
             fail(f"lossless gate: no right draft was accepted: {spec}")
         if label.endswith("wrong") and spec["accepted"] > spec["proposed"] // 20:
             fail(f"lossless gate: wrong drafts were accepted: {spec}")
+
+
+N_SHARDS = 4
+
+
+def lm_errors(got, want):
+    """(max relative error of l, max error of m over max(1, |m|)) of the
+    sharded variants' statistics against their plain versions."""
+    (_, gl, gm), (_, wl, wm) = got, want
+    l_err = float(((gl - wl).abs() / wl.abs().clamp_min(1e-30)).max())
+    if bool(((wl == 0) & (gl != 0)).any()):
+        l_err = math.inf
+    m_err = float(((gm - wm).abs() / wm.abs().clamp_min(1.0)).max())
+    return l_err, m_err
+
+
+def cp_kernel_case(label, n_q, n_kv, dev, gen, timed):
+    """Phase 3e(a) for one head layout: 4 shards on the card, 16 slots, int8
+    cache, page 256, global lengths 1,000-16,000 (slot 0 16,000).  Every
+    shard's variant against its plain version, and the merge of the 4
+    shards against the flat kernel on the same tokens in one flat cache.
+    Returns {variant: {err, l_err, m_err, and with ``timed`` ms, plain_ms,
+    bound_ms, bound_by}} (times on shard 0)."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.mask_rules import CausalRule, LocalRule
+    from tf_flash_attention_tpu_torch.ops.kernel_common import LOG2E
+    from tf_flash_attention_tpu_torch.serving import decode, kv_cache, prefill
+    from tf_flash_attention_tpu_torch.serving.seq_sharded_decode import (
+        _merge_partials, decode_merged)
+
+    n, S, d, ps = N_SHARDS, 16, 128, 256
+    owned = lambda total, r: kv_cache._owned_token_count(total, ps, n, r)
+    flat_cfg = payload_cfg("int8", n_kv_heads=n_kv, head_dim=d, page_size=ps,
+                           n_pages=S * 64 + 1, max_seqs=S, max_pages_per_seq=64)
+    cfg = dataclasses.replace(flat_cfg, n_pages=S * 16 + 1, max_pages_per_seq=16)
+    lengths = torch.randint(1000, 16001, (S,), generator=gen, device=dev).tolist()
+    lengths[0] = 16000
+    glob = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    flat = kv_cache.PagedKVCache.create(flat_cfg, dev)
+    fill_random(flat, flat_cfg, dev, gen)
+    perm = torch.randperm(S * 64, generator=gen, device=dev).reshape(S, 64).to(torch.int32)
+    flat.page_tables.copy_(perm)
+    flat.lengths.copy_(glob)
+    # shard r holds global pages r, r + 4, ... of every slot: the flat pages
+    # copied to its pages 16 s .. 16 s + 15
+    shards = []
+    for r in range(n):
+        sc = kv_cache.PagedKVCache.create(cfg, dev)
+        idx = perm[:, r::n].reshape(-1).long()
+        for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
+            getattr(sc, name)[:, :S * 16] = getattr(flat, name)[:, idx]
+        sc.page_tables.copy_(torch.arange(S * 16, device=dev, dtype=torch.int32).reshape(S, 16))
+        sc.lengths.copy_(torch.tensor([owned(x, r) for x in lengths], dtype=torch.int32,
+                                      device=dev))
+        shards.append(sc)
+    bf, scale, tok, act = torch.bfloat16, d ** -0.5, token_bytes(cfg), 2
+    shard = lambda r: dict(returning_l_m=True, page_stride=n, page_offset=r)
+    out = {}
+
+    def check(variant, got, want, ref_o):
+        torch.cuda.synchronize()
+        err = float((got[0].float() - want[0].float()).abs().max())
+        l_err, m_err = lm_errors(got, want)
+        if (not torch.isfinite(got[0]).all() or err > attn_tol(ref_o) or l_err > LM_RTOL
+                or m_err > LM_RTOL):
+            fail(f"{label}: {variant} o error {err} (tol {attn_tol(ref_o)}), l relative "
+                 f"error {l_err}, m error {m_err} (tol {LM_RTOL})")
+        r = out.setdefault(variant, dict(err=0.0, l_err=0.0, m_err=0.0))
+        r.update(err=max(r["err"], err), l_err=max(r["l_err"], l_err),
+                 m_err=max(r["m_err"], m_err))
+
+    def check_merge(variant, parts, flat_o):
+        merged = _merge_partials(parts, dev).to(flat_o.dtype)
+        torch.cuda.synchronize()
+        err = float((merged.float() - flat_o.float()).abs().max())
+        if not torch.isfinite(merged).all() or err > attn_tol(flat_o):
+            fail(f"{label}: merged {variant} differs from the flat kernel by {err} > "
+                 f"{attn_tol(flat_o)}")
+        out[variant]["merge_err"] = max(out[variant].get("merge_err", 0.0), err)
+
+    # paged_decode[cp], causal and in a window of 1024; paged_multitoken_decode[cp]
+    q = torch.randn((S, n_q, d), generator=gen, device=dev).to(bf)
+    qm = torch.randn((S, 4, n_q, d), generator=gen, device=dev).to(bf)
+    for variant, qq, rules in (("paged_decode[cp]", q, (CausalRule(), LocalRule(1024, 0, True))),
+                               ("paged_multitoken_decode[cp]", qm, (CausalRule(),))):
+        fn = decode.paged_decode_attention if qq.dim() == 3 else decode.paged_multitoken_decode
+        plain = (decode._paged_decode_plain if qq.dim() == 3
+                 else decode._paged_multitoken_decode_plain)
+        for rule in rules:
+            parts = []
+            for r, sc in enumerate(shards):
+                got = fn(qq, sc, cfg, rule=rule, global_lengths=glob, **shard(r))
+                want = plain(qq, sc, cfg, scale, rule, True, n, r, glob)
+                check(variant, got, want, want[0])
+                parts.append(got)
+            check_merge(variant, parts, fn(qq, flat, flat_cfg, rule=rule))
+    # paged_prefill[cp]: a 512-token chunk at 12,288 of slot 0
+    start, chunk = 12288, 512
+    qp = torch.randn((chunk, n_q, d), generator=gen, device=dev).to(bf)
+    qs = (qp.float() * torch.tensor(scale * LOG2E, dtype=torch.float32)).to(bf)
+    parts = []
+    for r, sc in enumerate(shards):
+        got = prefill.paged_prefill_attention(qp, sc, cfg, 0, start, chunk, **shard(r))
+        want = prefill._paged_prefill_plain(qs, sc, cfg, 0, start, chunk, CausalRule(), True, n,
+                                            r)
+        check("paged_prefill[cp]", got, want, want[0])
+        parts.append(got)
+    check_merge("paged_prefill[cp]", parts,
+                prefill.paged_prefill_attention(qp, flat, flat_cfg, 0, start, chunk))
+    # kv_chunk_write[cp] on int8 and int4: a chunk crossing pages 4-6 (shards
+    # 0-2), an odd true_len (an int4 byte row half padding)
+    w_start, w_len = 1100, 451
+    k = torch.randn((n_kv, chunk, d), generator=gen, device=dev).to(bf)
+    v = torch.randn((n_kv, chunk, d), generator=gen, device=dev).to(bf)
+    cfg4 = payload_cfg("int4", n_kv_heads=n_kv, head_dim=d, page_size=ps, n_pages=S * 16 + 1,
+                       max_seqs=S, max_pages_per_seq=16)
+    int4 = kv_cache.PagedKVCache.create(cfg4, dev)
+    fill_random(int4, cfg4, dev, gen)
+    int4.page_tables.copy_(shards[0].page_tables)
+    for c, ccfg in ((shards, cfg), ([int4] * n, cfg4)):
+        for r in range(n):
+            ck, cpl = clone_cache(c[r]), clone_cache(c[r])
+            kv_cache.write_tokens_at(ck, ccfg, 1, w_start, k, v, w_len, ccfg.n_pages - 1,
+                                     n, r)
+            kv_cache._write_tokens_plain(cpl, ccfg, 1, w_start, k, v, w_len, ccfg.n_pages - 1,
+                                         n, r)
+            cpl.lengths[1] = owned(w_start + w_len, r)
+            torch.cuda.synchronize()
+            diffs = diff_outside_trash(ck, cpl, ccfg.n_pages - 1)
+            if diffs or not torch.equal(ck.lengths, cpl.lengths):
+                fail(f"{label}: kv_chunk_write[cp] ({ccfg.quant_dtype}, shard {r}) differs "
+                     f"from its plain version: {diffs}")
+            del ck, cpl
+    out["kv_chunk_write[cp]"] = dict(err=0.0)
+    if not timed:
+        return out
+
+    # times on shard 0 (the other shards' launches are alike), bounds from
+    # shard 0's data: its live tokens, and the (query, key) pairs it holds
+    sc = shards[0]
+    live = sum(owned(x, 0) for x in lengths)
+    lm = lambda rows: 2 * rows * 4                     # l and m, float32
+    pairs0 = sum(owned(start + i + 1, 0) for i in range(chunk))
+    own_rows = sum(1 for t in range(w_len) if ((w_start + t) // ps) % n == 0)   # 180
+    runs = {
+        "paged_decode[cp]": (
+            lambda: native.paged_decode(q, sc, cfg, scale * LOG2E, CausalRule(), True, n, 0,
+                                        glob),
+            lambda: decode._paged_decode_plain(q, sc, cfg, scale, CausalRule(), True, n, 0, glob),
+            2 * n_kv * live * tok + 2 * q.numel() * act + lm(S * n_q), 4 * n_q * d * live),
+        "paged_multitoken_decode[cp]": (
+            lambda: native.paged_multitoken_decode(qm, sc, cfg, scale * LOG2E, CausalRule(), True,
+                                                   n, 0, glob),
+            lambda: decode._paged_multitoken_decode_plain(qm, sc, cfg, scale, CausalRule(), True,
+                                                          n, 0, glob),
+            2 * n_kv * live * tok + 2 * qm.numel() * act + lm(S * 4 * n_q),
+            4 * n_q * d * 4 * live),
+        "paged_prefill[cp]": (
+            lambda: native.paged_prefill(qs, sc, cfg, 0, start, start + chunk,
+                                         *prefill._page_range(cfg, start, chunk, CausalRule(), n,
+                                                              0), CausalRule(), True, n, 0),
+            lambda: prefill._paged_prefill_plain(qs, sc, cfg, 0, start, chunk, CausalRule(), True,
+                                                 n, 0),
+            2 * n_kv * owned(start + chunk, 0) * tok + 2 * qp.numel() * act + lm(chunk * n_q),
+            4 * n_q * d * pairs0),
+        "kv_chunk_write[cp]": (
+            lambda: native.kv_chunk_write(sc, cfg, 1, w_start, k, v, w_len, cfg.n_pages - 1, n, 0),
+            lambda: kv_cache._write_tokens_plain(sc, cfg, 1, w_start, k, v, w_len,
+                                                 cfg.n_pages - 1, n, 0),
+            2 * n_kv * own_rows * (d * act + tok), 0),
+    }
+    for variant, (kern, plain, n_bytes, n_ops) in runs.items():
+        b_ms, b_by = bound(n_bytes, n_ops, "bf16")
+        out[variant].update(ms=time_ms(kern), plain_ms=time_ms(plain, n=5), bound_ms=b_ms,
+                            bound_by=b_by)
+    # the whole context-parallel decode (4 launches and the merge) against
+    # the flat kernel over the same tokens
+    out["paged_decode[cp]"]["cp_step_ms"] = time_ms(
+        lambda: decode_merged(q, shards, cfg, glob))
+    out["paged_decode[cp]"]["flat_ms"] = time_ms(
+        lambda: native.paged_decode(q, flat, flat_cfg, scale * LOG2E, CausalRule()))
+    for variant, r in out.items():
+        print(f"kernel cp {label} {variant}: {json.dumps(r)}", flush=True)
+    return out
+
+
+def cp_phase(mcfg, cpu_model, seed, n_new, dev):
+    """Phase 3e: context-parallel serving on the card.  (a) the four
+    sequence-sharded variants against their plain versions and the merge
+    against the flat kernels; (b) the 168M engine with cp = 4 on the card
+    (the shards share it) against the flat engine; (c) a float32 gate.
+    Returns ({variant: measurements}, {variant: launches in (b)})."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+    from tf_flash_attention_tpu_torch.serving.engine import DecodeEngine, EngineConfig
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    measured = cp_kernel_case("int8_8q8kv", 8, 8, dev, gen, timed=True)
+    for variant, r in cp_kernel_case("int8_gqa_8q2kv", 8, 2, dev, gen, timed=False).items():
+        measured[variant]["err"] = max(measured[variant]["err"], r["err"])
+    torch.cuda.empty_cache()
+
+    # (b) the engine at full width: 8 requests of 4,000-15,000 prompt tokens,
+    # then speculation on 4 requests whose prompts repeat a 64-token pattern
+    mesh = make_mesh((N_SHARDS,), ("seq",), [dev] * N_SHARDS)
+    # no prefix caching (the cp engine has none): both engines prefill alike
+    cp_cfg = EngineConfig(max_seqs=8, page_size=256, n_pages=129, max_pages_per_seq=16,
+                          quantized_kv=True, prefill_chunk=512, prefix_caching=False)
+    flat_cfg = dataclasses.replace(cp_cfg, n_pages=513, max_pages_per_seq=64)
+    pgen = torch.Generator().manual_seed(seed + 5)
+    lens = torch.randint(4000, 15001, (8,), generator=pgen).tolist()
+    prompts = [torch.randint(1, mcfg.vocab, (n,), generator=pgen).tolist() for n in lens]
+    pattern = torch.randint(1, mcfg.vocab, (64,), generator=pgen).tolist()
+    spec_prompts = [pattern * (n // 64) for n in lens[:4]]
+    runs, logits = {}, {}
+    for label, cfg, kw in (("cp engine", cp_cfg, dict(mesh=mesh)),
+                           ("flat engine", flat_cfg, dict(device=dev))):
+        for spec, reqs in ((0, prompts), (3, spec_prompts)):
+            eng = DecodeEngine(mcfg, cpu_model,
+                               dataclasses.replace(cfg, speculative_tokens=spec), **kw)
+            name = label + (" speculative" if spec else "")
+            logits[name] = record_prompt_logits(eng)
+            results, launches = serve(name, eng, [(p, None) for p in reqs], n_new, mcfg.vocab)
+            runs[name] = ([results[r] for r in range(len(reqs))], launches)
+            del eng
+            torch.cuda.empty_cache()
+    cp_launches = {v: runs["cp engine"][1][v] + runs["cp engine speculative"][1][v]
+                   for v in native.CP_VARIANTS}
+    if min(cp_launches.values()) < 1:
+        fail(f"the cp engine did not launch every sequence-sharded variant: {cp_launches}")
+    for name in ("", " speculative"):
+        cp_out, flat_out = runs["cp engine" + name][0], runs["flat engine" + name][0]
+        same = sum(a == b for a, b in zip(cp_out, flat_out))
+        err = logits_err(f"cp engine{name}", logits["cp engine" + name],
+                         logits["flat engine" + name], LOGIT_ATOL)
+        print(f"cp engine{name}: requests equal to the flat engine's: {same} of {len(cp_out)}; "
+              f"last prompt token's logits against the flat engine's: max_abs_err {err} (tol "
+              f"{LOGIT_ATOL})", flush=True)
+    # where a decode step's time goes, cp against flat
+    for label, cfg, kw in (("cp engine", cp_cfg, dict(mesh=mesh)),
+                           ("flat engine", flat_cfg, dict(device=dev))):
+        step_profile(label, DecodeEngine(mcfg, cpu_model, cfg, **kw), prompts)
+        torch.cuda.empty_cache()
+
+    # (c) float32 gate: 8 layers, unquantized cache, cp = 4 against flat
+    cp_gate(mcfg, seed, mesh, dev)
+    print(f"phase 3e: {time.perf_counter() - t0:.3f} s", flush=True)
+    return measured, cp_launches
+
+
+def step_profile(label, eng, prompts, n_steps=3):
+    """Decode steps of ``eng`` with ``prompts`` admitted: the wall time of
+    ``n_steps`` steps, then the device time of ``n_steps`` more by kernel
+    class from torch.profiler, and the device's busy share of the step's
+    wall time (and of the profiled wall, which the profiler stretches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts:
+        eng.submit(p, max_new_tokens=2 * n_steps + 2)
+    eng.step()                                   # prefill, and one token each
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n_steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) / n_steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t) / n_steps * 1e3
+    classes = {}
+    for e in prof.events():             # the kernels themselves, each once
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = next((k for k in ("paged_decode", "kv_append") if f"{k}_kernel" in e.name),
+                    "matmul" if any(s in e.name.lower() for s in ("gemm", "nvjet", "cutlass"))
+                    else "other")
+        classes[name] = classes.get(name, 0.0) + e.device_time_total / 1e3 / n_steps
+    busy = sum(classes.values())
+    if busy == 0:
+        print(f"step profile {label}: step {wall:.3f} ms; device time not measured (the "
+              f"profiler saw no device events)", flush=True)
+        return
+    print(f"step profile {label}: step {wall:.3f} ms wall ({prof_wall:.3f} ms profiled); "
+          f"device busy {busy:.3f} ms a step ({busy / wall:.3f} of the step's wall, "
+          f"{busy / prof_wall:.3f} of the profiled wall); "
+          f"device ms a step by class {json.dumps({k: round(v, 4) for k, v in classes.items()})}",
+          flush=True)
+
+
+def record_prompt_logits(eng):
+    """{prompt as a tuple: float32 logits of its last token}, filled as
+    ``eng`` admits its requests."""
+    out, inner = {}, eng._prefill_chunked
+
+    def prefill(p, slot):
+        r = inner(p, slot)
+        out[tuple(p)] = r.float()
+        return r
+
+    eng._prefill_chunked = prefill
+    return out
+
+
+def logits_err(label, got, want, tol):
+    """Max abs difference of two engines' last-prompt-token logits over the
+    same requests; fails past ``tol``."""
+    if got.keys() != want.keys():
+        fail(f"{label}: the engines admitted different prompts")
+    err = max(float((got[p] - want[p]).abs().max()) for p in want)
+    if not all(torch.isfinite(x).all() for x in got.values()) or err > tol:
+        fail(f"{label}: last prompt token's logits differ from the flat engine's by {err} > "
+             f"{tol}")
+    return err
+
+
+def cp_gate(mcfg, seed, mesh, dev):
+    """Phase 3e(c): the 168M decoder (all 8 layers) in float32, unquantized
+    cache, on 4 prompts of 4,000-15,000 tokens, as many local pages a shard
+    as (b): cp = 4 with and without speculation against the flat engine.
+    The last prompt token's logits must agree within CP_F32_LOGIT_ATOL, and
+    the greedy tokens up to each request's first top-2 logit tie
+    (GAP_TIE)."""
+    from tf_flash_attention_tpu_torch.models import transformer as tf
+    from tf_flash_attention_tpu_torch.serving.engine import DecodeEngine, EngineConfig
+
+    cfg = dataclasses.replace(mcfg, dtype=torch.float32)
+    model = tf.init_params(cfg, torch.Generator().manual_seed(seed + 6), device="cpu")
+    pgen = torch.Generator().manual_seed(seed + 7)
+    prompts = [torch.randint(1, cfg.vocab, (n,), generator=pgen).tolist()
+               for n in torch.randint(4000, 15001, (4,), generator=pgen).tolist()]
+    n_new = 16
+    cp_cfg = EngineConfig(max_seqs=4, page_size=256, n_pages=4 * 16 + 1, max_pages_per_seq=16,
+                          quantized_kv=False, prefill_chunk=512, prefix_caching=False)
+    flat_cfg = dataclasses.replace(cp_cfg, n_pages=4 * 64 + 1, max_pages_per_seq=64)
+
+    def run(ecfg, spec, **kw):
+        eng = DecodeEngine(cfg, model, dataclasses.replace(ecfg, speculative_tokens=spec), **kw)
+        logits = record_prompt_logits(eng)
+        rids = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
+        res = eng.run(max_steps=10_000)
+        del eng
+        torch.cuda.empty_cache()
+        return [res[r] for r in rids], logits
+
+    base, base_logits = run(flat_cfg, 0, device=dev)
+    gaps = top2_gaps(cfg, model, prompts, base, dev)
+    for spec in (0, 3):
+        out, out_logits = run(cp_cfg, spec, mesh=mesh)
+        label = f"cp gate (speculative_tokens={spec}, against the flat engine)"
+        err = logits_err(label, out_logits, base_logits, CP_F32_LOGIT_ATOL)
+        check_to_tie(label, prompts, base, out, gaps)
+        same = sum(a == b for a, b in zip(out, base))
+        print(f"cp gate (float32, speculative_tokens={spec}): {same} of {len(prompts)} "
+              f"requests equal to the flat engine's in full; last prompt token's logits "
+              f"max_abs_err {err} (tol {CP_F32_LOGIT_ATOL}); prompt lengths "
+              f"{[len(p) for p in prompts]}; smallest top-2 gap {min(min(g) for g in gaps)}",
+              flush=True)
 
 
 @contextlib.contextmanager

@@ -260,6 +260,96 @@ def test_engine_speculative_on_gpu_matches_cpu(dev, quantized):
     assert native.LAUNCHES["paged_multitoken_decode"] > 0 and native.LAUNCHES["kv_append"] > 0
 
 
+# ---- the sequence-sharded variants: (l, m) outputs, page stride and offset,
+# global lengths, on each shard of a 4-shard layout ----
+
+def _owned(total, r, ps=64):
+    return kv_cache._owned_token_count(total, ps, 4, r)
+
+
+def _close_lm(got, want):
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rule", [CausalRule(), LocalRule(100, 0, True), LocalRule(8, 2, True)],
+                         ids=["causal", "local_100", "local_8_stride_4"])
+@pytest.mark.parametrize("quantized,act,kvdt", CASES, ids=CASE_IDS)
+def test_seq_sharded_variants_match_plain(dev, quantized, act, kvdt, rule):
+    glob = [700, 130, 0, 255]      # slot 1 has no page on shard 3; slot 2 is empty
+    tol = TOL_F32 if act == kvdt == torch.float32 and not quantized else TOL_LOW
+    s = 32 ** -0.5
+    for r in range(4):
+        cfg, c = _cache(quantized, kvdt, dev, [_owned(n, r) for n in glob], seed=r)
+        gen = torch.Generator(device=dev).manual_seed(10 + r)
+        shard = dict(page_stride=4, page_offset=r)
+        g = torch.tensor(glob, dtype=torch.int32, device=dev)
+        native.reset_launch_counts()
+        q = torch.randn((4, 4, 32), generator=gen, device=dev).to(act)
+        got = decode.paged_decode_attention(q, c, cfg, rule=rule, returning_l_m=True,
+                                            global_lengths=g, **shard)
+        want = decode._paged_decode_plain(q, c, cfg, s, rule, True, global_lengths=g, **shard)
+        torch.testing.assert_close(got[0].float(), want[0].float(), rtol=0, atol=tol)
+        _close_lm(got, want)
+        assert torch.equal(got[0][2], torch.zeros_like(got[0][2])) and float(got[1][2].abs().max()) == 0
+        if r == 3:
+            assert float(got[0][1].abs().max()) == 0 and float(got[1][1].abs().max()) == 0
+        qm = torch.randn((4, 3, 4, 32), generator=gen, device=dev).to(act)
+        got = decode.paged_multitoken_decode(qm, c, cfg, rule=rule, returning_l_m=True,
+                                             global_lengths=g, **shard)
+        want = decode._paged_multitoken_decode_plain(qm, c, cfg, s, rule, True,
+                                                     global_lengths=g, **shard)
+        torch.testing.assert_close(got[0].float(), want[0].float(), rtol=0, atol=tol)
+        _close_lm(got, want)
+        qp = torch.randn((48, 4, 32), generator=gen, device=dev).to(act)
+        got = prefill.paged_prefill_attention(qp, c, cfg, 0, 600, 40, rule=rule,
+                                              returning_l_m=True, **shard)
+        qs = (qp.float() * torch.tensor(s * 1.4426950408889634)).to(act)
+        want = prefill._paged_prefill_plain(qs, c, cfg, 0, 600, 40, rule, True, **shard)
+        torch.testing.assert_close(got[0][:40].float(), want[0][:40].float(), rtol=0, atol=tol)
+        _close_lm([x[:40] for x in got], [x[:40] for x in want])
+        trash = cfg.n_pages - 1
+        k = torch.randn((2, 96, 32), generator=gen, device=dev).to(act)
+        a, b = _clone(c), _clone(c)
+        kv_cache.write_tokens_at(a, cfg, 3, 40, k, -k, 81, trash, **shard)
+        kv_cache._write_tokens_plain(b, cfg, 3, 40, k, -k, 81, trash, **shard)
+        b.lengths[3] = _owned(121, r)
+        _same(a, b, trash)
+        torch.cuda.synchronize()
+        assert all(native.LAUNCHES[v] == 1 for v in native.CP_VARIANTS), native.LAUNCHES
+        assert not any(native.LAUNCHES[k] for k in native.SERVING_KERNELS)
+
+
+@pytest.mark.parametrize("spec", [0, 3])
+@pytest.mark.parametrize("quantized", [False, True, "int4"])
+def test_engine_context_parallel_on_gpu_matches_cpu(dev, quantized, spec):
+    """cp = 4 on cuda:0 (the shards share the card) gives the tokens, stats
+    and free pages of cp = 4 on the CPU, and launches every CP variant."""
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+    cfg = ttf.ModelConfig(vocab=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                          d_head=16, d_ff=128, dtype=torch.float32)
+    kv = dict(quantized_kv=bool(quantized))
+    if quantized:
+        kv["kv_quant_dtype"] = QDTYPES[quantized]
+    ecfg = engine.EngineConfig(max_seqs=3, page_size=64, n_pages=8, max_pages_per_seq=4,
+                               prefill_chunk=64, speculative_tokens=spec, **kv)
+    prompts = [[5, 9] * 4 + [5], list(range(1, 62)), [int(t) % 64 for t in range(300)]]
+    outs = []
+    for where in ("cpu", dev):
+        e = engine.DecodeEngine(cfg, ttf.init_params(cfg, torch.Generator().manual_seed(0),
+                                                     "cpu"), ecfg,
+                                mesh=make_mesh((4,), ("seq",), [where] * 4))
+        rids = [e.submit(p, max_new_tokens=20) for p in prompts]
+        native.reset_launch_counts()
+        res = e.run()
+        outs.append(([res[r] for r in rids], e.stats, e.spec_stats,
+                     [a.free_pages for a in e.allocators]))
+    assert outs[0] == outs[1]
+    want = {"paged_multitoken_decode[cp]" if spec else "paged_decode[cp]", "paged_prefill[cp]",
+            "kv_chunk_write[cp]", "kv_append"}
+    assert {k for k, n in native.LAUNCHES.items() if n} == want, native.LAUNCHES
+
+
 def test_engine_sampling_on_gpu(dev):
     from tf_flash_attention_tpu_torch.serving.sampling import SamplingParams
     cfg = ttf.ModelConfig(vocab=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,

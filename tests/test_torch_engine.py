@@ -13,6 +13,7 @@ from tf_flash_attention_tpu.models import transformer as jtf
 from tf_flash_attention_tpu.serving import engine as jeng
 from tf_flash_attention_tpu_torch.mask_rules import LocalRule
 from tf_flash_attention_tpu_torch.models import transformer as ttf
+from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
 from tf_flash_attention_tpu_torch.serving import engine as teng
 
 from _torch_parity import PAYLOADS
@@ -248,6 +249,76 @@ def test_engine_speculative_capacity_matches_jax(params_np):
     assert te.allocator.free_pages == je.allocator.free_pages == ECFG["n_pages"] - 1
 
 
+# context parallelism: 4 shards on the CPU, pages of 16 tokens (a 40-token
+# prompt spans shards 0-2; generations cross into shard 3's page and back
+# to shard 0's), 8 pages a shard
+CP_ECFG = dict(max_seqs=2, page_size=16, n_pages=8, max_pages_per_seq=4, prefill_chunk=16,
+               prefix_caching=False)
+CP_REQS = [([(i * 7 + 1) % 64 for i in range(40)], 10), ([7, 8, 9], 10)]
+
+
+def _cp_engine(params_np, **ecfg):
+    mesh = make_mesh((4,), ("seq",), ["cpu"] * 4)
+    return teng.DecodeEngine(TCFG, ttf.params_from_jax(TCFG, params_np, "cpu"),
+                             teng.EngineConfig(**dict(CP_ECFG, **ecfg)), mesh=mesh)
+
+
+def _serve(engine, reqs, max_steps=80):
+    rids = [engine.submit(p, max_new_tokens=n) for p, n in reqs]
+    out = engine.run(max_steps=max_steps)
+    return [out[r] for r in rids]
+
+
+# the JAX engine's contract is that context parallelism gives the greedy
+# tokens of one device: the port's CP engine against the JAX engine on one
+# device (the same pages of 16, 16 a sequence), with and without
+# speculation (the pattern prompt gets drafts accepted)
+@pytest.mark.parametrize("spec", [0, 3], ids=["greedy", "speculative"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+def test_engine_context_parallel_matches_jax_flat(params_np, quantized, spec):
+    jkv, tkv = _kv_options(quantized)
+    flat = dict(CP_ECFG, n_pages=32, max_pages_per_seq=16, speculative_tokens=spec)
+    je = jeng.DecodeEngine(MCFG, jax.tree.map(jnp.asarray, params_np),
+                           jeng.EngineConfig(**flat, **jkv))
+    te = _cp_engine(params_np, speculative_tokens=spec, **tkv)
+    assert te.cp == 4 and te.prefix_cache is None
+    reqs = CP_REQS + ([(PATTERN, 12)] if spec else [])
+    assert _serve(te, reqs) == _serve(je, reqs)
+    assert ({k: v for k, v in te.stats.items() if k != "pages_in_use_peak"}
+            == {k: v for k, v in je.stats.items() if k != "pages_in_use_peak"})
+    assert te.spec_stats == je.spec_stats
+    if spec:
+        assert te.spec_stats["accepted"] > 0
+    assert [a.free_pages for a in te.allocators] == [CP_ECFG["n_pages"] - 1] * 4
+    assert all(int(c.lengths.abs().sum()) == 0 for shard in te.shards for c in shard)
+
+
+def test_engine_context_parallel_int4_deterministic(params_np):
+    """int4 under page striding: the noise of 4-bit keys may flip a greedy
+    choice against another engine, so the contract is the JAX test's:
+    deterministic, full-length outputs, with and without speculation."""
+    _, tkv = _kv_options("int4")
+    for spec in (0, 3):
+        reqs = CP_REQS + [(PATTERN, 12)]
+        a = _serve(_cp_engine(params_np, speculative_tokens=spec, **tkv), reqs)
+        b = _serve(_cp_engine(params_np, speculative_tokens=spec, **tkv), reqs)
+        assert a == b
+        assert [len(x) for x in a] == [len(p) + n for p, n in reqs]
+
+
+def test_engine_cp_admission_respects_binding_shard(params_np):
+    """Every sequence's first page is on shard 0, so admission budgets the
+    binding shard: six 1-page requests against 3 usable pages a shard queue
+    (3 at a time) and all finish, with the tokens of one device."""
+    reqs = [([i + 1, i + 2, i + 3], 4) for i in range(6)]
+    te = _cp_engine(params_np, max_seqs=6, n_pages=4)
+    got = _serve(te, reqs)
+    assert [len(x) for x in got] == [7] * 6
+    assert te.stats["pages_in_use_peak"] == 3 and te.stats["admitted"] == 6
+    assert got == _serve(_engine(params_np, max_seqs=6, page_size=16, n_pages=32,
+                                 max_pages_per_seq=16, prefix_caching=False), reqs)
+
+
 def test_engine_eos_and_queueing(params_np):
     """More requests than slots queue; an EOS stops a request early."""
     te = _engine(params_np, max_seqs=2)
@@ -292,7 +363,8 @@ def test_engine_defaults_to_the_card(params_np):
 @pytest.mark.parametrize("change", [
     dict(engine=dict(prefill_mode="bucketed")),
     dict(model=dict(rule=LocalRule(window_size=8, is_causal=True))),
-    dict(mesh=object()),
+    # tensor parallelism: a mesh whose model axis is larger than 1
+    dict(mesh=make_mesh((2,), ("model",), ["cpu", "cpu"])),
 ], ids=["bucketed", "local_rule", "mesh"])
 def test_engine_unported_options_raise(params_np, change):
     cfg = dataclasses.replace(TCFG, **change.get("model", {}))

@@ -9,6 +9,16 @@
 //   paged_multitoken_decode speculative decode: gamma draft tokens per slot,
 //                           each up to its own position (the same kernel)
 //
+// Sequence sharding (context-parallel serving, the JAX package's
+// serving/seq_sharded_decode.py): a shard's cache holds every
+// page_stride-th global page of a sequence starting at page_offset, global
+// page g at local logical page (g - offset) / stride.  kv_chunk_write skips
+// the rows of other shards' pages; the attention kernels
+// take key positions from the global page (lp * stride + offset) and
+// optionally write each row's online-softmax l and m (base 2), which the
+// host merges across shards.  Stride 1, offset 0, no global lengths and no
+// l/m is the single-shard kernel.
+//
 // Layouts are the JAX package's (serving/kv_cache.py); pack = tokens per
 // stored row, 2 for int4, else 1; page_rows = page_size / pack:
 //   pages   (n_kv, n_pages, page_rows, d_store)  int8 | fp8 | int4 pairs |
@@ -241,9 +251,14 @@ __device__ __forceinline__ void store_nibble(const T* __restrict__ src, int d, i
 // stored row): a token row, or for int4 a byte row of two tokens (the chunk
 // starts at an even position and is even, so byte rows are whole).  It
 // quantizes in registers and stores the row and its scales at (table[(pos
-// / page) % max_pages], pos % page), or at the trash page for a row whose
-// (first) token is past true_len.  Bound by bytes: it reads the chunk's
-// activations once and writes its payload once; rows are stored whole and
+// / page) % max_pages], pos % page).  A row whose (first) token is past
+// true_len is not this slot's: the TPU kernel stores it to the trash page,
+// which nothing reads, so this one skips it.  Sharded (stride > 1): a row
+// whose global page g = pos / page is not this shard's (g % stride !=
+// offset) is skipped too, and an owned one goes to table[((g - offset) /
+// stride) % max_pages]; an int4 byte row follows its even token (pages hold
+// an even number of tokens).  Bound by bytes: it reads the owned rows'
+// activations once and writes their payload once; rows are stored whole and
 // coalesced, so no page is read back (the TPU kernel's block-aligned copy
 // is not needed, nor its alignment precondition).
 template <typename T, typename P>
@@ -252,7 +267,7 @@ __global__ void kv_chunk_write_kernel(const T* __restrict__ k, const T* __restri
                                       float* v_scales, const int* __restrict__ table_row,
                                       int n_kv, int chunk, int d, int d_store, int page_size,
                                       int n_pages, int max_pages, int start, int true_len,
-                                      int trash) {
+                                      int page_stride, int page_offset) {
   constexpr int PACK = Payload<P>::kPack;
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -263,7 +278,9 @@ __global__ void kv_chunk_write_kernel(const T* __restrict__ k, const T* __restri
   const int r = is_v ? warp - rows : warp;
   const int h = r / chunk_rows, t = PACK * (r % chunk_rows);
   const int pos = start + t;
-  const int phys = t < true_len ? table_row[(pos / page_size) % max_pages] : trash;
+  const int gp = pos / page_size;
+  if (t >= true_len || gp % page_stride != page_offset) return;  // warp-uniform
+  const int phys = table_row[((gp - page_offset) / page_stride) % max_pages];
   const size_t page = static_cast<size_t>(h) * n_pages + phys;
   const size_t row = page * page_rows + (pos % page_size) / PACK;
   const T* src = (is_v ? v : k) + (static_cast<size_t>(h) * chunk + t) * d;
@@ -435,9 +452,11 @@ __global__ void __launch_bounds__(kDecThreads)
 paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
                     const P* __restrict__ v_pages, const float* __restrict__ k_scales,
                     const float* __restrict__ v_scales, const int* __restrict__ tables,
-                    const int* __restrict__ lengths, T* __restrict__ o, int n_q, int n_kv,
-                    int d, int D, int page_size, int n_pages, int max_pages, int gamma,
-                    float scale_log2e, int window, int log2_stride, int is_local) {
+                    const int* __restrict__ lengths, const int* __restrict__ glob_lengths,
+                    T* __restrict__ o, float* __restrict__ l_out, float* __restrict__ m_out,
+                    int n_q, int n_kv, int d, int D, int page_size, int n_pages, int max_pages,
+                    int gamma, int page_stride, int page_offset, float scale_log2e, int window,
+                    int log2_stride, int is_local) {
   constexpr int PACK = Payload<P>::kPack;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int g = n_q / n_kv;
@@ -475,11 +494,18 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     m_sh[r] = neg_inf();
     l_sh[r] = 0.f;
   }
+  // the page count from the local length; positions from the global one
   const int len = lengths[b];
-  const int q_pos0 = len - gamma;            // row r's position: q_pos0 + r % gamma
+  const int glen = glob_lengths ? glob_lengths[b] : len;
+  const int q_pos0 = glen - gamma;           // row r's position: q_pos0 + r % gamma
   const int count = (len + page_size - 1) / page_size;
   int first = 0;
-  if (is_local) first = max(0, len - gamma - ((window << log2_stride) - 1)) / page_size;
+  if (is_local) {
+    // the local index of the first live global page (decode.py:90-108)
+    const int gfp = max(0, glen - gamma - ((window << log2_stride) - 1)) / page_size;
+    first = page_stride == 1 ? gfp
+            : (gfp > page_offset ? (gfp - page_offset + page_stride - 1) / page_stride : 0);
+  }
 
   float acc[GM][4];
 #pragma unroll
@@ -520,7 +546,7 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
             }
           }
         }
-        const int kv_pos = lp * page_size + t0 + t;
+        const int kv_pos = (lp * page_stride + page_offset) * page_size + t0 + t;
         const float mul = quantized ? ks_sh[min(t0 + t, page_size - 1)] * scale_log2e
                                     : scale_log2e;
 #pragma unroll
@@ -624,6 +650,15 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     __syncthreads();
   }
 
+  // each row's statistics, before acc is normalised; a (slot, kv head)
+  // with no local page writes l = 0 and m = NEG_INF (and o = 0 below)
+  if (l_out) {
+    for (int r = tid; r < rows; r += kDecThreads) {
+      const size_t i = q_index(r) / d;
+      l_out[i] = l_sh[r];
+      m_out[i] = m_sh[r];
+    }
+  }
   // sum the token groups' partial outputs (the stages are free now:
   // groups * rows * D floats = 4096 rows bytes <= 2 stages); an empty slot
   // has l == 0 and gives exact zeros
@@ -662,7 +697,9 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
 //   columns lane + 32 c.
 // Bound by compute: chunk x live context x d multiply-adds, here on the
 // scalar FP32 pipes (no tensor cores yet).  q arrives prescaled by
-// scale * log2(e), so the logits feed exp2 directly.
+// scale * log2(e), so the logits feed exp2 directly.  Sharded: first_live
+// and count are local (the host computes them, prefill.py:241-253); key
+// positions and the interior test use the global page lp * stride + offset.
 constexpr int kPfThreads = 128;
 constexpr int kPfTQ = 32;
 constexpr int kPfTK = 32;
@@ -672,9 +709,10 @@ __global__ void __launch_bounds__(kPfThreads)
 paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
                      const P* __restrict__ v_pages, const float* __restrict__ k_scales,
                      const float* __restrict__ v_scales, const int* __restrict__ table_row,
-                     T* __restrict__ o, int chunk, int n_q, int n_kv, int d, int page_size,
-                     int n_pages, int max_pages, int start, int total, int first_live,
-                     int count, int window, int log2_stride, int is_local) {
+                     T* __restrict__ o, float* __restrict__ l_out, float* __restrict__ m_out,
+                     int chunk, int n_q, int n_kv, int d, int page_size, int n_pages,
+                     int max_pages, int page_stride, int page_offset, int start, int total,
+                     int first_live, int count, int window, int log2_stride, int is_local) {
   constexpr int QS = D + 1;  // padded row strides: no bank conflicts in S
   constexpr int NC = D / 32;
   extern __shared__ float smem[];
@@ -714,8 +752,11 @@ paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
   const int rg = tid / 8, cg = tid % 8;
   const int sw = window << log2_stride;
   // pages past the tile's last row are fully masked for it: skipping them
-  // leaves the online softmax exactly unchanged
-  const int tile_count = min(count, (start + min(row0 + kPfTQ, chunk) - 1) / page_size + 1);
+  // leaves the online softmax exactly unchanged (the local pages whose
+  // global page is at most the last row's)
+  const int last_gp = (start + min(row0 + kPfTQ, chunk) - 1) / page_size;
+  const int tile_count = min(count, last_gp >= page_offset
+                                        ? (last_gp - page_offset) / page_stride + 1 : 0);
   __syncthreads();
 
   constexpr int PACK = Payload<P>::kPack;
@@ -731,10 +772,11 @@ paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
         vs_sh[i] = v_scales[page * page_size + scale_idx<PACK>(i, page_rows)];
       }
     }
-    bool interior = (lp + 1) * page_size <= start;
+    const int gp = lp * page_stride + page_offset;
+    bool interior = (gp + 1) * page_size <= start;
     if (is_local)
       interior = interior && !log2_stride &&
-                 lp * page_size >= start + chunk - sw;
+                 gp * page_size >= start + chunk - sw;
 
     for (int t0 = 0; t0 < page_size; t0 += kPfTK) {
       for (int i = tid; i < kPfTK * D; i += kPfThreads) {
@@ -765,7 +807,7 @@ paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
           const int t = t0 + cg + 8 * j;
           float v = quantized ? s[i][j] * ks_sh[t] : s[i][j];
           if (!interior) {
-            const int kv_pos = lp * page_size + t;
+            const int kv_pos = gp * page_size + t;
             if (!(kv_pos < total && visible(q_pos, kv_pos, window, log2_stride, is_local)))
               v = neg_inf();
           }
@@ -841,6 +883,10 @@ paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     const int row = row0 + r;
     if (row >= chunk) break;
     const float l = l_sh[r];
+    if (l_out && lane == 0) {
+      l_out[static_cast<size_t>(row) * n_q + hq] = l;
+      m_out[static_cast<size_t>(row) * n_q + hq] = m_sh[r];
+    }
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = lane + 32 * c;
@@ -893,11 +939,15 @@ struct ChunkWrite {
   void *k_pages, *v_pages;
   float *k_scales, *v_scales;
   const int* table_row;
-  int n_kv, chunk, d, d_store, page_size, n_pages, max_pages, start, true_len, trash;
+  // trash: the plain version's target for the skipped rows; the kernel
+  // stores nothing there
+  int n_kv, chunk, d, d_store, page_size, n_pages, max_pages, start, true_len, trash,
+      page_stride, page_offset;
   cudaStream_t stream;
   template <typename T, typename P, typename C>
   int run() const {
-    if (chunk % Payload<P>::kPack || start % Payload<P>::kPack)
+    if (chunk % Payload<P>::kPack || start % Payload<P>::kPack || page_stride < 1 ||
+        page_offset < 0 || page_offset >= page_stride)
       return static_cast<int>(cudaErrorInvalidValue);
     const int warps = 2 * n_kv * chunk / Payload<P>::kPack;
     const int threads = 256;
@@ -906,7 +956,7 @@ struct ChunkWrite {
     kv_chunk_write_kernel<T, P><<<blocks, threads, 0, stream>>>(
         static_cast<const T*>(k), static_cast<const T*>(v), static_cast<P*>(k_pages),
         static_cast<P*>(v_pages), k_scales, v_scales, table_row, n_kv, chunk, d, d_store,
-        page_size, n_pages, max_pages, start, true_len, trash);
+        page_size, n_pages, max_pages, start, true_len, page_stride, page_offset);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -937,9 +987,10 @@ struct Decode {
   const void* q;
   const void *k_pages, *v_pages;
   const float *k_scales, *v_scales;
-  const int *tables, *lengths;
+  const int *tables, *lengths, *glob_lengths;
   void* o;
-  int S, gamma, n_q, n_kv, d, d_store, page_size, n_pages, max_pages;
+  float *l, *m;
+  int S, gamma, n_q, n_kv, d, d_store, page_size, n_pages, max_pages, page_stride, page_offset;
   float scale_log2e;
   int window, log2_stride, is_local;
   cudaStream_t stream;
@@ -954,16 +1005,17 @@ struct Decode {
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<dim3(S, n_kv), kDecThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const P*>(k_pages),
-        static_cast<const P*>(v_pages), k_scales, v_scales, tables, lengths,
-        static_cast<T*>(o), n_q, n_kv, d, d_store, page_size, n_pages, max_pages, gamma,
-        scale_log2e, window, log2_stride, is_local);
+        static_cast<const P*>(v_pages), k_scales, v_scales, tables, lengths, glob_lengths,
+        static_cast<T*>(o), l, m, n_q, n_kv, d, d_store, page_size, n_pages, max_pages, gamma,
+        page_stride, page_offset, scale_log2e, window, log2_stride, is_local);
     return static_cast<int>(cudaGetLastError());
   }
   template <typename T, typename P, typename C>
   int run() const {
     const int rows = n_q / n_kv * gamma;
     if (n_q % n_kv || gamma < 1 || page_size % Payload<P>::kPack ||
-        (d_store != 128 && d_store != 256))
+        (d_store != 128 && d_store != 256) || page_stride < 1 || page_offset < 0 ||
+        page_offset >= page_stride || (l == nullptr) != (m == nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
     if (S == 0) return 0;
     if (rows <= 1) return launch<T, P, C, 1>();
@@ -981,8 +1033,9 @@ struct Prefill {
   const float *k_scales, *v_scales;
   const int* table_row;
   void* o;
-  int chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages, start, total, first_live,
-      count, window, log2_stride, is_local;
+  float *l, *m;
+  int chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages, page_stride, page_offset,
+      start, total, first_live, count, window, log2_stride, is_local;
   cudaStream_t stream;
   template <typename T, typename P, typename C, int D>
   int launch() const {
@@ -995,14 +1048,16 @@ struct Prefill {
     const dim3 grid(n_q, (chunk + kPfTQ - 1) / kPfTQ);
     kernel<<<grid, kPfThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const P*>(k_pages),
-        static_cast<const P*>(v_pages), k_scales, v_scales, table_row, static_cast<T*>(o),
-        chunk, n_q, n_kv, d, page_size, n_pages, max_pages, start, total, first_live, count,
-        window, log2_stride, is_local);
+        static_cast<const P*>(v_pages), k_scales, v_scales, table_row, static_cast<T*>(o), l, m,
+        chunk, n_q, n_kv, d, page_size, n_pages, max_pages, page_stride, page_offset, start,
+        total, first_live, count, window, log2_stride, is_local);
     return static_cast<int>(cudaGetLastError());
   }
   template <typename T, typename P, typename C>
   int run() const {
-    if (page_size % kPfTK || n_q % n_kv) return static_cast<int>(cudaErrorInvalidValue);
+    if (page_size % kPfTK || n_q % n_kv || page_stride < 1 || page_offset < 0 ||
+        page_offset >= page_stride || (l == nullptr) != (m == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
     if (chunk == 0) return 0;
     if (d_store == 128) return launch<T, P, C, 128>();
     if (d_store == 256) return launch<T, P, C, 256>();
@@ -1017,11 +1072,12 @@ extern "C" {
 int fa_kv_chunk_write(int act, int kv, const void* k, const void* v, void* k_pages,
                       void* v_pages, void* k_scales, void* v_scales, const void* table_row,
                       int n_kv, int chunk, int d, int d_store, int page_size, int n_pages,
-                      int max_pages, int start, int true_len, int trash, void* stream) {
+                      int max_pages, int start, int true_len, int trash, int page_stride,
+                      int page_offset, void* stream) {
   const ChunkWrite f{k, v, k_pages, v_pages, static_cast<float*>(k_scales),
                      static_cast<float*>(v_scales), static_cast<const int*>(table_row),
                      n_kv, chunk, d, d_store, page_size, n_pages, max_pages, start, true_len,
-                     trash, static_cast<cudaStream_t>(stream)};
+                     trash, page_stride, page_offset, static_cast<cudaStream_t>(stream)};
   return dispatch(act, kv, f);
 }
 
@@ -1039,40 +1095,47 @@ int fa_kv_append(int act, int kv, const void* k_new, const void* v_new, void* k_
 
 int fa_paged_decode(int act, int kv, const void* q, const void* k_pages, const void* v_pages,
                     const void* k_scales, const void* v_scales, const void* tables,
-                    const void* lengths, void* o, int S, int n_q, int n_kv, int d, int d_store,
-                    int page_size, int n_pages, int max_pages, float scale_log2e, int window,
-                    int log2_stride, int is_local, void* stream) {
+                    const void* lengths, const void* glob_lengths, void* o, void* l, void* m,
+                    int S, int n_q, int n_kv, int d, int d_store, int page_size, int n_pages,
+                    int max_pages, int page_stride, int page_offset, float scale_log2e,
+                    int window, int log2_stride, int is_local, void* stream) {
   const Decode f{q, k_pages, v_pages, static_cast<const float*>(k_scales),
                  static_cast<const float*>(v_scales), static_cast<const int*>(tables),
-                 static_cast<const int*>(lengths), o, S, 1, n_q, n_kv, d, d_store, page_size,
-                 n_pages, max_pages, scale_log2e, window, log2_stride, is_local,
-                 static_cast<cudaStream_t>(stream)};
+                 static_cast<const int*>(lengths), static_cast<const int*>(glob_lengths), o,
+                 static_cast<float*>(l), static_cast<float*>(m), S, 1, n_q, n_kv, d, d_store,
+                 page_size, n_pages, max_pages, page_stride, page_offset, scale_log2e, window,
+                 log2_stride, is_local, static_cast<cudaStream_t>(stream)};
   return dispatch(act, kv, f);
 }
 
 int fa_paged_multitoken_decode(int act, int kv, const void* q, const void* k_pages,
                                const void* v_pages, const void* k_scales, const void* v_scales,
-                               const void* tables, const void* lengths, void* o, int S,
+                               const void* tables, const void* lengths,
+                               const void* glob_lengths, void* o, void* l, void* m, int S,
                                int gamma, int n_q, int n_kv, int d, int d_store, int page_size,
-                               int n_pages, int max_pages, float scale_log2e, int window,
-                               int log2_stride, int is_local, void* stream) {
+                               int n_pages, int max_pages, int page_stride, int page_offset,
+                               float scale_log2e, int window, int log2_stride, int is_local,
+                               void* stream) {
   const Decode f{q, k_pages, v_pages, static_cast<const float*>(k_scales),
                  static_cast<const float*>(v_scales), static_cast<const int*>(tables),
-                 static_cast<const int*>(lengths), o, S, gamma, n_q, n_kv, d, d_store,
-                 page_size, n_pages, max_pages, scale_log2e, window, log2_stride, is_local,
-                 static_cast<cudaStream_t>(stream)};
+                 static_cast<const int*>(lengths), static_cast<const int*>(glob_lengths), o,
+                 static_cast<float*>(l), static_cast<float*>(m), S, gamma, n_q, n_kv, d,
+                 d_store, page_size, n_pages, max_pages, page_stride, page_offset, scale_log2e,
+                 window, log2_stride, is_local, static_cast<cudaStream_t>(stream)};
   return dispatch(act, kv, f);
 }
 
 int fa_paged_prefill(int act, int kv, const void* q, const void* k_pages, const void* v_pages,
                      const void* k_scales, const void* v_scales, const void* table_row,
-                     void* o, int chunk, int n_q, int n_kv, int d, int d_store, int page_size,
-                     int n_pages, int max_pages, int start, int total, int first_live,
-                     int count, int window, int log2_stride, int is_local, void* stream) {
+                     void* o, void* l, void* m, int chunk, int n_q, int n_kv, int d,
+                     int d_store, int page_size, int n_pages, int max_pages, int page_stride,
+                     int page_offset, int start, int total, int first_live, int count,
+                     int window, int log2_stride, int is_local, void* stream) {
   const Prefill f{q, k_pages, v_pages, static_cast<const float*>(k_scales),
                   static_cast<const float*>(v_scales), static_cast<const int*>(table_row), o,
-                  chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages, start, total,
-                  first_live, count, window, log2_stride, is_local,
+                  static_cast<float*>(l), static_cast<float*>(m), chunk, n_q, n_kv, d,
+                  d_store, page_size, n_pages, max_pages, page_stride, page_offset, start,
+                  total, first_live, count, window, log2_stride, is_local,
                   static_cast<cudaStream_t>(stream)};
   return dispatch(act, kv, f);
 }

@@ -11,7 +11,11 @@ Each C entry launches one kernel on the given stream (PyTorch's current
 stream), allocates nothing and returns ``cudaGetLastError()``; the Python
 functions below allocate the outputs, and raise if that code is not 0.
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made: ``_call``
-adds one where the C entry has launched, and nowhere else.
+adds one where the C entry has launched, and nowhere else.  A serving
+kernel launched with its sequence-sharding arguments on (the ``(l, m)``
+outputs, a page stride, global lengths) counts under its variant's name,
+``<kernel>[cp]`` (``CP_VARIANTS``), so a context-parallel run shows its own
+launches.
 
 ``native_tile_classes`` is the JAX package's hook for its C++ schedule
 classifier (``csrc/fa_native.cc``), which is not ported: it returns
@@ -35,7 +39,7 @@ from .block_sizes import LANE, MAX_HEAD_DIM
 from .mask_rules import CausalRule, FullRule, LocalRule
 from .sync_modes import ref_log2
 
-__all__ = ["LAUNCHES", "SERVING_KERNELS", "ATTENTION_KERNELS", "KERNEL_SOURCES",
+__all__ = ["LAUNCHES", "SERVING_KERNELS", "CP_VARIANTS", "ATTENTION_KERNELS", "KERNEL_SOURCES",
            "reset_launch_counts", "build", "library", "native_tile_classes"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -47,10 +51,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 SERVING_KERNELS = ("paged_decode", "paged_multitoken_decode", "paged_prefill",
                    "kv_chunk_write", "kv_append")
+# the sequence-sharded variants of four of them (kv_append shards by its
+# ``active`` mask and has none)
+CP_VARIANTS = tuple(f"{k}[cp]" for k in SERVING_KERNELS if k != "kv_append")
 ATTENTION_KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
                      "flash_bwd_qouter", "banded_fwd", "banded_bwd", "window_fwd",
                      "window_bwd", "resident_fwd")
-LAUNCHES = {name: 0 for name in SERVING_KERNELS + ATTENTION_KERNELS}
+LAUNCHES = {name: 0 for name in SERVING_KERNELS + CP_VARIANTS + ATTENTION_KERNELS}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float16: 3,
                torch.float8_e4m3fn: 4, torch.float8_e5m2: 5}
@@ -137,22 +144,24 @@ _SIGNATURES = {
     "serving_kernels.cu": {
         # act, kv, k, v, k_pages, v_pages, k_scales, v_scales, table_row,
         # n_kv, chunk, d, d_store, page_size, n_pages, max_pages, start,
-        # true_len, trash
-        "fa_kv_chunk_write": [_I, _I] + [_P] * 7 + [_I] * 10,
+        # true_len, trash, page_stride, page_offset
+        "fa_kv_chunk_write": [_I, _I] + [_P] * 7 + [_I] * 12,
         # act, kv, k_new, v_new, k_pages, v_pages, k_scales, v_scales, tables,
         # lengths, active, S, n_kv, d, d_store, page_size, n_pages, max_pages,
         # trash
         "fa_kv_append": [_I, _I] + [_P] * 9 + [_I] * 8,
-        # act, kv, q, k_pages, v_pages, k_scales, v_scales, tables, lengths, o,
-        # S, n_q, n_kv, d, d_store, page_size, n_pages, max_pages,
-        # scale_log2e, window, log2_stride, is_local
-        "fa_paged_decode": [_I, _I] + [_P] * 8 + [_I] * 8 + [_F] + [_I] * 3,
+        # act, kv, q, k_pages, v_pages, k_scales, v_scales, tables, lengths,
+        # glob_lengths, o, l, m, S, n_q, n_kv, d, d_store, page_size, n_pages,
+        # max_pages, page_stride, page_offset, scale_log2e, window,
+        # log2_stride, is_local (glob_lengths, l, m nullable)
+        "fa_paged_decode": [_I, _I] + [_P] * 11 + [_I] * 10 + [_F] + [_I] * 3,
         # as fa_paged_decode, with gamma after S
-        "fa_paged_multitoken_decode": [_I, _I] + [_P] * 8 + [_I] * 9 + [_F] + [_I] * 3,
-        # act, kv, q, k_pages, v_pages, k_scales, v_scales, table_row, o,
-        # chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages, start,
-        # total, first_live, count, window, log2_stride, is_local
-        "fa_paged_prefill": [_I, _I] + [_P] * 7 + [_I] * 15,
+        "fa_paged_multitoken_decode": [_I, _I] + [_P] * 11 + [_I] * 11 + [_F] + [_I] * 3,
+        # act, kv, q, k_pages, v_pages, k_scales, v_scales, table_row, o, l,
+        # m, chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages,
+        # page_stride, page_offset, start, total, first_live, count, window,
+        # log2_stride, is_local (l, m nullable)
+        "fa_paged_prefill": [_I, _I] + [_P] * 9 + [_I] * 17,
     },
     "attention_kernels.cu": {
         # dtype, q, k, v, o, l, m, table, counts, needs, num_steps, block_q,
@@ -189,6 +198,7 @@ _SIGNATURES = {
 
 #: the source file of each kernel, by its ``LAUNCHES`` name
 KERNEL_SOURCES = {entry[3:]: src for src, entries in _SIGNATURES.items() for entry in entries}
+KERNEL_SOURCES.update({v: KERNEL_SOURCES[v[:-4]] for v in CP_VARIANTS})
 
 
 def library(source: str = "serving_kernels.cu") -> ctypes.CDLL:
@@ -207,15 +217,15 @@ def library(source: str = "serving_kernels.cu") -> ctypes.CDLL:
     return _libs[source]
 
 
-def _call(name: str, *args) -> None:
+def _call(name: str, *args, cp: bool = False) -> None:
     """Launch the C entry ``name`` (``fa_<kernel>``) on the current stream and
-    count the launch."""
+    count the launch (under ``<kernel>[cp]`` when ``cp``)."""
     kernel = name[3:]
     lib = library(KERNEL_SOURCES[kernel])
     err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} failed to launch: CUDA error {err}")
-    LAUNCHES[kernel] += 1
+    LAUNCHES[f"{kernel}[cp]" if cp else kernel] += 1
 
 
 def _ptr(t):
@@ -251,8 +261,10 @@ def _rule_args(rule) -> list:
     return [0, 0, 0]
 
 
-def kv_chunk_write(cache, cfg, slot, start, k, v, true_len, trash_page) -> None:
-    """Launch ``kv_chunk_write``: quantize and store k, v (n_kv, chunk, d)."""
+def kv_chunk_write(cache, cfg, slot, start, k, v, true_len, trash_page, page_stride=1,
+                   page_offset=0) -> None:
+    """Launch ``kv_chunk_write``: quantize and store k, v (n_kv, chunk, d);
+    with a page stride, only the rows of this shard's pages."""
     n_kv, chunk, d = k.shape
     act, kv = _codes(k.dtype, cache, cfg)
     dims = _cache_dims(cache, cfg)
@@ -260,7 +272,8 @@ def kv_chunk_write(cache, cfg, slot, start, k, v, true_len, trash_page) -> None:
     _call("fa_kv_chunk_write", act, kv, k.data_ptr(), v.data_ptr(),
           cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
           _ptr(cache.k_scales), _ptr(cache.v_scales), table_row.data_ptr(),
-          n_kv, chunk, d, cfg.head_dim_store, *dims, start, true_len, trash_page)
+          n_kv, chunk, d, cfg.head_dim_store, *dims, start, true_len, trash_page,
+          page_stride, page_offset, cp=page_stride != 1)
 
 
 def kv_append(cache, cfg, k_new, v_new, active, trash_page) -> None:
@@ -277,8 +290,17 @@ def kv_append(cache, cfg, k_new, v_new, active, trash_page) -> None:
           S, n_kv, d, cfg.head_dim_store, *dims, trash_page)
 
 
-def _decode_args(q, cache, cfg, gamma) -> tuple:
-    """Checks and the leading arguments shared by the two decode entries."""
+def _lm(q, rows_shape, returning_l_m) -> tuple:
+    """float32 (l, m) outputs of ``rows_shape``, or (None, None)."""
+    if not returning_l_m:
+        return None, None
+    return (torch.empty(rows_shape, dtype=torch.float32, device=q.device),
+            torch.empty(rows_shape, dtype=torch.float32, device=q.device))
+
+
+def _decode_args(q, cache, cfg, gamma, returning_l_m, global_lengths) -> tuple:
+    """Checks, outputs and the leading arguments shared by the two decode
+    entries."""
     S, n_q, d = q.shape[0], q.shape[-2], q.shape[-1]
     act, kv = _codes(q.dtype, cache, cfg)
     dims = _cache_dims(cache, cfg)
@@ -286,33 +308,47 @@ def _decode_args(q, cache, cfg, gamma) -> tuple:
         raise ValueError(f"the decode kernels take head_dim_store 128 or 256 and at most 16 "
                          f"query rows (q heads per kv head x gamma) per kv head, got "
                          f"{cfg.head_dim_store}, {n_q}/{cfg.n_kv_heads} x {gamma}")
+    if global_lengths is not None and (global_lengths.dtype != torch.int32
+                                       or not global_lengths.is_contiguous()):
+        raise TypeError("global_lengths must be a contiguous int32 vector")
     o = torch.empty_like(q)
-    return o, (act, kv, q.data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
-               _ptr(cache.k_scales), _ptr(cache.v_scales), cache.page_tables.data_ptr(),
-               cache.lengths.data_ptr(), o.data_ptr()), (n_q, cfg.n_kv_heads, d,
-                                                         cfg.head_dim_store, *dims)
+    l, m = _lm(q, q.shape[:-1], returning_l_m)
+    outs = (o, l, m) if returning_l_m else o
+    return outs, (act, kv, q.data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
+                  _ptr(cache.k_scales), _ptr(cache.v_scales), cache.page_tables.data_ptr(),
+                  cache.lengths.data_ptr(), _ptr(global_lengths), o.data_ptr(), _ptr(l),
+                  _ptr(m)), (n_q, cfg.n_kv_heads, d, cfg.head_dim_store, *dims)
 
 
-def paged_decode(q, cache, cfg, scale_log2e, rule) -> torch.Tensor:
-    """Launch ``paged_decode``: q (S, n_q, d) -> o of the same shape."""
-    o, lead, dims = _decode_args(q, cache, cfg, 1)
-    _call("fa_paged_decode", *lead, q.shape[0], *dims, float(scale_log2e), *_rule_args(rule))
-    return o
+def paged_decode(q, cache, cfg, scale_log2e, rule, returning_l_m=False, page_stride=1,
+                 page_offset=0, global_lengths=None):
+    """Launch ``paged_decode``: q (S, n_q, d) -> o of the same shape, or
+    (o, l, m) with l, m float32 (S, n_q)."""
+    outs, lead, dims = _decode_args(q, cache, cfg, 1, returning_l_m, global_lengths)
+    _call("fa_paged_decode", *lead, q.shape[0], *dims, page_stride, page_offset,
+          float(scale_log2e), *_rule_args(rule),
+          cp=returning_l_m or page_stride != 1 or global_lengths is not None)
+    return outs
 
 
-def paged_multitoken_decode(q, cache, cfg, scale_log2e, rule) -> torch.Tensor:
+def paged_multitoken_decode(q, cache, cfg, scale_log2e, rule, returning_l_m=False,
+                            page_stride=1, page_offset=0, global_lengths=None):
     """Launch ``paged_multitoken_decode``: q (S, gamma, n_q, d) -> o of the
-    same shape; draft i of a slot sits at position ``length - gamma + i``."""
+    same shape (and l, m (S, gamma, n_q)); draft i of a slot sits at
+    position ``length - gamma + i`` (the global length, where given)."""
     S, gamma = q.shape[:2]
-    o, lead, dims = _decode_args(q, cache, cfg, gamma)
-    _call("fa_paged_multitoken_decode", *lead, S, gamma, *dims, float(scale_log2e),
-          *_rule_args(rule))
-    return o
+    outs, lead, dims = _decode_args(q, cache, cfg, gamma, returning_l_m, global_lengths)
+    _call("fa_paged_multitoken_decode", *lead, S, gamma, *dims, page_stride, page_offset,
+          float(scale_log2e), *_rule_args(rule),
+          cp=returning_l_m or page_stride != 1 or global_lengths is not None)
+    return outs
 
 
-def paged_prefill(qs, cache, cfg, slot, start, total, first_live, count,
-                  rule) -> torch.Tensor:
-    """Launch ``paged_prefill``: prescaled q (chunk, n_q, d) -> o."""
+def paged_prefill(qs, cache, cfg, slot, start, total, first_live, count, rule,
+                  returning_l_m=False, page_stride=1, page_offset=0):
+    """Launch ``paged_prefill``: prescaled q (chunk, n_q, d) -> o, or (o, l,
+    m) with l, m float32 (chunk, n_q); ``first_live`` and ``count`` are the
+    local page range."""
     chunk, n_q, d = qs.shape
     act, kv = _codes(qs.dtype, cache, cfg)
     dims = _cache_dims(cache, cfg)
@@ -322,13 +358,14 @@ def paged_prefill(qs, cache, cfg, slot, start, total, first_live, count,
         raise ValueError(f"paged_prefill takes head_dim_store 128 or 256, "
                          f"got {cfg.head_dim_store}")
     o = torch.empty_like(qs)
+    l, m = _lm(qs, (chunk, n_q), returning_l_m)
     table_row = cache.page_tables[slot]
     _call("fa_paged_prefill", act, kv, qs.data_ptr(), cache.k_pages.data_ptr(),
           cache.v_pages.data_ptr(), _ptr(cache.k_scales), _ptr(cache.v_scales),
-          table_row.data_ptr(), o.data_ptr(), chunk, n_q, cfg.n_kv_heads, d,
-          cfg.head_dim_store, *dims, start, total, first_live, count,
-          *_rule_args(rule))
-    return o
+          table_row.data_ptr(), o.data_ptr(), _ptr(l), _ptr(m), chunk, n_q, cfg.n_kv_heads, d,
+          cfg.head_dim_store, *dims, page_stride, page_offset, start, total, first_live, count,
+          *_rule_args(rule), cp=returning_l_m or page_stride != 1)
+    return (o, l, m) if returning_l_m else o
 
 
 # ---- the op path's attention kernels ----

@@ -1,0 +1,66 @@
+"""Device meshes (PyTorch port of the JAX package's ``parallel/mesh.py``).
+
+A ``Mesh`` names the axes of an array of devices, as ``jax.sharding.Mesh``
+does.  The serving engine is single-controller, like the JAX one: one
+process drives every device of the mesh, so a mesh is only placement, not
+a process group.  Devices may repeat: a ``seq`` axis of four shards on one
+card (``cuda:0`` four times) or on the CPU (``"cpu"`` four times) runs the
+same code as four cards.
+
+Not ported: ``maybe_init_distributed`` (multi-host start-up).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["Mesh", "make_mesh", "AXIS_DATA", "AXIS_MODEL", "AXIS_CONTEXT"]
+
+AXIS_DATA = "data"
+AXIS_MODEL = "model"
+AXIS_CONTEXT = "context"
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """``devices``: a numpy object array of ``torch.device``, one axis per
+    name in ``axis_names``."""
+
+    devices: np.ndarray
+    axis_names: Tuple[str, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    def axis_devices(self, axis: str):
+        """The devices along ``axis``, at index 0 of every other axis."""
+        arr = np.moveaxis(self.devices, self.axis_names.index(axis), 0)
+        return [arr[(i,) + (0,) * (arr.ndim - 1)] for i in range(arr.shape[0])]
+
+
+def make_mesh(shape: Optional[Sequence[int]] = None,
+              axis_names: Tuple[str, ...] = (AXIS_DATA, AXIS_MODEL),
+              devices=None) -> Mesh:
+    """Build a mesh over ``devices`` (every CUDA card when None).
+
+    ``shape=None`` puts all devices on the first axis.  Axis sizes must
+    multiply to the device count.
+    """
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    n = len(devices)
+    if shape is None:
+        shape = (n,) + (1,) * (len(axis_names) - 1)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {tuple(shape)} and axes {tuple(axis_names)} differ in rank")
+    if int(np.prod(shape)) != n:
+        raise ValueError(f"mesh shape {tuple(shape)} does not cover {n} devices")
+    arr = np.empty(n, dtype=object)
+    arr[:] = devices
+    return Mesh(arr.reshape(tuple(shape)), tuple(axis_names))

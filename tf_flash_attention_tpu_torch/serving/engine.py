@@ -17,6 +17,23 @@ layer, and the host keeps the drafts the model's greedy tokens confirm,
 plus one model token, then rolls every layer's lengths back to what it
 kept.  Greedy slots are lossless; sampled slots emit one token per step.
 
+Context parallelism (``mesh`` with a ``seq`` axis of ``cp`` shards, from
+``parallel.mesh.make_mesh``) is the JAX engine's: KV pages go round-robin
+over the shards (global page g on shard g % cp, ``n_pages`` per shard),
+each shard has its own caches, page allocator and page tables, and every
+shard scans only its own pages with the kernels' sequence-sharded variants
+(``seq_sharded_decode.py``), whose ``(o, l, m)`` partials merge exactly.
+Chunk writes keep the rows of each shard's own pages, appends go to the
+owner shard of the position.  Placement is single-controller, as JAX's
+``shard_map``: the model runs once on the first device of the mesh, q, k
+and v are copied to each shard's device (no copy when the devices are the
+same, as for four shards on one card), and the partials come back for the
+merge.  Admission reserves the binding shard's share of the pages (shard
+0 holds a sequence's first page); prefix caching is off, as in JAX.  The
+single-device engine is the same code with one shard (cp = 1): every page
+is shard 0's, and the sharded calls reduce to the plain kernels (no
+``(l, m)``, no merge).
+
 PyTorch runs eagerly, so there is no compiled step: the engine calls the
 model's layers and the five serving kernels directly.  The KV caches are
 updated in place by the kernels (the JAX engine donates them instead).
@@ -24,9 +41,9 @@ The host keeps a mirror of the page tables, uploaded when it changes, and
 of the slots' lengths, so a decode step copies one tensor back to the
 host: the next tokens.
 
-Not ported yet (each raises ``NotImplementedError``; see ROADMAP):
-tensor/context parallelism (``mesh``), the bucketed prefill (its forward
-kernel now exists; the engine route does not), sliding-window
+Not ported yet (each raises ``NotImplementedError``; see ROADMAP): tensor
+parallelism (a mesh ``model`` axis larger than 1), the bucketed prefill
+(its forward kernel now exists; the engine route does not), sliding-window
 (``LocalRule``) models with their page eviction, and MoE.
 """
 
@@ -41,17 +58,12 @@ import torch.nn.functional as F
 
 from ..mask_rules import LocalRule
 from ..models.transformer import ModelConfig, Transformer, _rms_norm, inference_weights
-from .decode import paged_decode_attention, paged_multitoken_decode
-from .kv_cache import (
-    KVCacheConfig,
-    PagedKVCache,
-    append_tokens_batched,
-    write_tokens_at,
-)
-from .prefill import paged_prefill_attention
+from .kv_cache import KVCacheConfig, PagedKVCache, _owned_token_count
 from .prefix_cache import PrefixCache, SharedPageAllocator
 from .sampling import SamplingParams, sample_tokens
 from .scheduler import Request, Scheduler
+from .seq_sharded_decode import (append_owned, decode_merged, global_lengths, prefill_merged,
+                                 write_tokens_sharded)
 
 __all__ = ["EngineConfig", "DecodeEngine"]
 
@@ -101,15 +113,29 @@ def _rope_at(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
 
 class DecodeEngine:
     """Continuous-batching engine on one device: the CUDA card, or the CPU
-    when ``device="cpu"``, where the kernels' plain PyTorch versions run.
-    ``params`` may live anywhere; the engine casts its own copy onto its
-    device."""
+    when ``device="cpu"``, where the kernels' plain PyTorch versions run;
+    or context-parallel over the ``seq_axis`` of ``mesh`` (then the devices
+    are the mesh's and ``device`` stays None).  ``params`` may live
+    anywhere; the engine casts its own copy onto its (first) device."""
 
     def __init__(self, model_cfg: ModelConfig, params: Transformer,
-                 engine_cfg: EngineConfig = EngineConfig(), device=None, mesh=None):
+                 engine_cfg: EngineConfig = EngineConfig(), device=None, mesh=None,
+                 model_axis: str = "model", seq_axis: str = "seq"):
+        shard_devices = None
         if mesh is not None:
-            raise NotImplementedError("tensor/context-parallel serving is not ported yet "
-                                      "(ROADMAP queue 1: serving, sharded decode)")
+            axes = mesh.shape
+            if axes.get(model_axis, 1) > 1:
+                raise NotImplementedError(
+                    "tensor-parallel serving (a mesh model axis > 1, the JAX "
+                    "sharded_decode.py) is not ported yet (ROADMAP: Next, tensor parallelism)")
+            if any(n > 1 for a, n in axes.items() if a not in (model_axis, seq_axis)):
+                raise ValueError(f"the engine's mesh takes a {seq_axis!r} axis and a "
+                                 f"{model_axis!r} axis of 1, got {axes}")
+            if device is not None:
+                raise ValueError("with a mesh, the devices are the mesh's: leave device None")
+            shard_devices = (mesh.axis_devices(seq_axis) if seq_axis in axes
+                             else [mesh.devices.flat[0]])
+            device = shard_devices[0]
         if engine_cfg.prefill_mode != "chunked":
             raise NotImplementedError("the bucketed prefill is not ported yet (ROADMAP "
                                       "queue 1 item 12, first in the serving queue)")
@@ -123,6 +149,11 @@ class DecodeEngine:
         self.mcfg = model_cfg
         self.ecfg = engine_cfg
         self.device = torch.device("cuda") if device is None else torch.device(device)
+        shard_devices = shard_devices or [self.device]
+        self.cp = len(shard_devices)
+        if self.cp > 1 and engine_cfg.speculative_tokens and (
+                engine_cfg.page_size <= engine_cfg.speculative_tokens):
+            raise ValueError("page_size must exceed speculative_tokens")
         # projections and embedding cast to the model dtype once, here
         self.model = inference_weights(params, self.device)
         self.ccfg = KVCacheConfig(
@@ -133,15 +164,24 @@ class DecodeEngine:
             quantized=engine_cfg.quantized_kv, quant_dtype=engine_cfg.kv_quant_dtype,
             dtype=model_cfg.dtype)
         self.trash_page = engine_cfg.n_pages - 1
-        self.caches: List[PagedKVCache] = [
-            PagedKVCache.create(self.ccfg, self.device) for _ in range(model_cfg.n_layers)]
-        # every layer maps the same pages: one device table, mirrored on the host
-        for c in self.caches[1:]:
-            c.page_tables = self.caches[0].page_tables
-        self._tables = np.zeros((engine_cfg.max_seqs, engine_cfg.max_pages_per_seq), np.int32)
+        # shards[r][layer]: shard r's caches (``n_pages`` is per shard); every
+        # layer of a shard maps the same pages: one device table per shard,
+        # mirrored on the host
+        self.shards: List[List[PagedKVCache]] = [
+            [PagedKVCache.create(self.ccfg, dev) for _ in range(model_cfg.n_layers)]
+            for dev in shard_devices]
+        for shard in self.shards:
+            for c in shard[1:]:
+                c.page_tables = shard[0].page_tables
+        self._layer_shards = [list(cs) for cs in zip(*self.shards)]   # [layer][shard]
+        self._tables = np.zeros((self.cp, engine_cfg.max_seqs, engine_cfg.max_pages_per_seq),
+                                np.int32)
         self._tables_dirty = False
-        self.allocator = SharedPageAllocator(engine_cfg.n_pages - 1)  # exclude trash
-        self.prefix_cache = PrefixCache(engine_cfg.page_size) if engine_cfg.prefix_caching else None
+        # one allocator per shard (each excludes its trash page)
+        self.allocators = [SharedPageAllocator(engine_cfg.n_pages - 1) for _ in range(self.cp)]
+        self.allocator = self.allocators[0]
+        self.prefix_cache = (PrefixCache(engine_cfg.page_size)
+                             if engine_cfg.prefix_caching and self.cp == 1 else None)
         self.scheduler = Scheduler(engine_cfg.max_seqs, engine_cfg.n_pages - 1,
                                    engine_cfg.page_size)
         self._slots: List[Optional[dict]] = [None] * engine_cfg.max_seqs
@@ -192,12 +232,12 @@ class DecodeEngine:
         pos = start + torch.arange(chunk, device=self.device)
         cos, sin = _rope_cos_sin(pos, cfg.d_head, cfg.rope_theta, cfg.dtype)
         x = self.model.embed[tokens]
-        for layer, cache in zip(self.model.layers, self.caches):
+        for layer, shards in zip(self.model.layers, self._layer_shards):
             q, k, v = self._qkv(layer, x, cos, sin)
-            write_tokens_at(cache, self.ccfg, slot, start, k.transpose(0, 1),
-                            v.transpose(0, 1), true_len, self.trash_page)
-            o = paged_prefill_attention(q, cache, self.ccfg, slot, start, true_len,
-                                        rule=cfg.rule)
+            # each shard keeps the rows of its own pages; partials merge
+            write_tokens_sharded(shards, self.ccfg, slot, start, k.transpose(0, 1),
+                                 v.transpose(0, 1), true_len, self.trash_page)
+            o = prefill_merged(q, shards, self.ccfg, slot, start, true_len, rule=cfg.rule)
             x = self._attn_out(layer, x, o.reshape(chunk, -1))
             x = self._mlp(layer, x)
         return self._logits(x[true_len - 1])
@@ -207,14 +247,17 @@ class DecodeEngine:
         """One token for every slot: tokens (S,), active (S,) bool."""
         cfg = self.mcfg
         S = tokens.shape[0]
-        # positions of the new tokens; computed before layer 0's append
-        # advances its lengths in place
-        cos, sin = _rope_cos_sin(self.caches[0].lengths, cfg.d_head, cfg.rope_theta, cfg.dtype)
+        # positions of the new tokens (global: the sum of the shards' local
+        # lengths); computed before layer 0's append advances its lengths
+        pos = global_lengths(self._layer_shards[0], self.device)
+        glob = pos + active.to(torch.int32)
+        cos, sin = _rope_cos_sin(pos, cfg.d_head, cfg.rope_theta, cfg.dtype)
         x = self.model.embed[tokens]
-        for layer, cache in zip(self.model.layers, self.caches):
+        for layer, shards in zip(self.model.layers, self._layer_shards):
             q, k, v = self._qkv(layer, x, cos, sin)
-            append_tokens_batched(cache, self.ccfg, k, v, active, self.trash_page)
-            o = paged_decode_attention(q, cache, self.ccfg, rule=cfg.rule)
+            # the append lands on the owner shard of the position
+            append_owned(shards, self.ccfg, k, v, active, pos, self.trash_page)
+            o = decode_merged(q, shards, self.ccfg, glob, rule=cfg.rule)
             x = self._attn_out(layer, x, o.reshape(S, -1))
             x = self._mlp(layer, x)
         logits = self._logits(x)
@@ -232,17 +275,20 @@ class DecodeEngine:
         samples, a token sampled from position 0 (S,), else None."""
         cfg = self.mcfg
         S, gamma = tokens.shape
-        # positions of the gamma tokens, from the lengths before layer 0's
-        # appends advance them in place
-        pos = self.caches[0].lengths.long()[:, None] + torch.arange(gamma, device=self.device)
+        # positions of the gamma tokens, from the (global) lengths before
+        # layer 0's appends advance them in place
+        pos0 = global_lengths(self._layer_shards[0], self.device)
+        glob = pos0 + gamma * active.to(torch.int32)
+        pos = pos0.long()[:, None] + torch.arange(gamma, device=self.device)
         cos, sin = _rope_cos_sin(pos, cfg.d_head, cfg.rope_theta, cfg.dtype)
         x = self.model.embed[tokens]                         # (S, gamma, d_model)
-        for layer, cache in zip(self.model.layers, self.caches):
+        for layer, shards in zip(self.model.layers, self._layer_shards):
             q, k, v = self._qkv(layer, x, cos, sin)
+            # each append goes to the owner shard of its position
             for i in range(gamma):
-                append_tokens_batched(cache, self.ccfg, k[:, i], v[:, i], active,
-                                      self.trash_page)
-            o = paged_multitoken_decode(q, cache, self.ccfg, rule=cfg.rule)
+                append_owned(shards, self.ccfg, k[:, i], v[:, i], active, pos0 + i,
+                             self.trash_page)
+            o = decode_merged(q, shards, self.ccfg, glob, rule=cfg.rule)
             x = self._attn_out(layer, x, o.reshape(S, gamma, -1))
             x = self._mlp(layer, x)
         logits = self._logits(x)                             # (S, gamma, vocab)
@@ -268,37 +314,48 @@ class DecodeEngine:
             raise ValueError("empty prompt")
         rid = self._next_rid
         self._next_rid += 1
-        self.scheduler.enqueue(Request(rid, len(prompt), max_new_tokens))
+        # reserve the binding (first) shard's share of the pages
+        g = -(-(len(prompt) + max_new_tokens) // self.ecfg.page_size)
+        self.scheduler.enqueue(Request(rid, len(prompt), max_new_tokens,
+                                       pages_cap=-(-g // self.cp)))
         self._results[rid] = list(prompt)
         self._prompts[rid] = list(prompt)
         self._sampling[rid] = (sampling, eos_id)
         return rid
 
-    def _set_table(self, slot: int, logical: int, page: int) -> None:
-        self._tables[slot, logical] = page
+    def _set_table(self, slot: int, logical: int, page: int, shard: int = 0) -> None:
+        self._tables[shard, slot, logical] = page
         self._tables_dirty = True
 
     def _sync_tables(self) -> None:
-        """Upload the host page tables if they changed (one small copy)."""
+        """Upload the host page tables if they changed (one small copy a
+        shard)."""
         if self._tables_dirty:
-            self.caches[0].page_tables.copy_(torch.from_numpy(self._tables))
+            for table, shard in zip(self._tables, self.shards):
+                shard[0].page_tables.copy_(torch.from_numpy(table))
             self._tables_dirty = False
 
-    def _alloc_pages(self, slot: int, n: int):
-        """Allocate fresh pages, evicting LRU prefix-cache entries if dry."""
-        if n > self.allocator.free_pages and self.prefix_cache is not None:
-            self.prefix_cache.evict(self.allocator, n)
-        return self.allocator.alloc(slot, n)
+    def _alloc_pages(self, slot: int, n: int, shard: int = 0):
+        """Allocate fresh pages on ``shard``, evicting LRU prefix-cache
+        entries if dry."""
+        alloc = self.allocators[shard]
+        if n > alloc.free_pages and self.prefix_cache is not None:
+            self.prefix_cache.evict(alloc, n)
+        return alloc.alloc(slot, n)
 
     def _prefill_chunked(self, prompt: List[int], slot: int):
-        """Chunked prefill against the paged cache, reusing any cached
-        page-aligned prefix (shared refcounted pages).  Returns the logits
-        of the last prompt token."""
-        ps = self.ecfg.page_size
-        n_prompt_pages = -(-len(prompt) // ps)
-        if n_prompt_pages > self.ecfg.max_pages_per_seq:
-            raise RuntimeError(f"prompt needs {n_prompt_pages} pages but "
-                               f"max_pages_per_seq={self.ecfg.max_pages_per_seq}")
+        """Chunked prefill against the paged cache: each shard maps its
+        round-robin share of the prompt's pages up front (shard 0 reusing any
+        cached page-aligned prefix as shared refcounted pages), then every
+        chunk writes each shard's own rows and merges the shards' attention
+        partials.  Returns the logits of the last prompt token."""
+        ps, mp = self.ecfg.page_size, self.ecfg.max_pages_per_seq
+        G = -(-len(prompt) // ps)
+        counts = [len(range(r, G, self.cp)) for r in range(self.cp)]
+        for r, cnt in enumerate(counts):
+            if cnt > mp:
+                raise RuntimeError(f"prompt needs {cnt} local pages on shard {r} but "
+                                   f"max_pages_per_seq={mp}")
         cached_tokens, cached_pages = 0, []
         if self.prefix_cache is not None:
             # always leave >= 1 token to prefill so there are logits to sample
@@ -306,12 +363,21 @@ class DecodeEngine:
                 prompt, max_tokens=len(prompt) - 1)
         if cached_pages:
             self.allocator.share(slot, cached_pages)
-        pages = list(cached_pages) + self._alloc_pages(slot, n_prompt_pages - len(cached_pages))
-        for logical, page in enumerate(pages):
-            self._set_table(slot, logical, page)
+        shard_pages = [list(cached_pages) + self._alloc_pages(slot, counts[0] - len(cached_pages))]
+        shard_pages += [self._alloc_pages(slot, cnt, r) for r, cnt in enumerate(counts) if r]
+        for r, pages in enumerate(shard_pages):
+            for local, page in enumerate(pages):
+                self._set_table(slot, local, page, r)
         self._sync_tables()
+        last_logits = self._run_chunks(prompt, slot, cached_tokens)
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(prompt, shard_pages[0], self.allocator)
+        return last_logits
+
+    def _run_chunks(self, prompt: List[int], slot: int, start: int):
+        """Prefill ``prompt[start:]`` chunk by chunk; the last token's logits."""
         chunk = self.ecfg.prefill_chunk
-        start, last_logits = cached_tokens, None
+        last_logits = None
         while start < len(prompt):
             n = min(chunk, len(prompt) - start)
             self.stats["prefill_chunks"] += 1
@@ -320,8 +386,6 @@ class DecodeEngine:
             last_logits = self._chunk_prefill(
                 torch.tensor(toks, dtype=torch.long, device=self.device), slot, start, n)
             start += n
-        if self.prefix_cache is not None:
-            self.prefix_cache.insert(prompt, pages, self.allocator)
         return last_logits
 
     def _admit(self):
@@ -358,23 +422,31 @@ class DecodeEngine:
             if st is None:
                 continue
             length = st["length"]
-            last_needed = (length + n_tokens - 1) // ps
-            if last_needed >= mp:
-                raise RuntimeError(f"sequence needs logical page {last_needed} but "
-                                   f"max_pages_per_seq={mp}")
-            for logical in range(-(-length // ps), last_needed + 1):
-                self._set_table(slot, logical, self._alloc_pages(slot, 1)[0])
+            # global page g maps on shard g % cp at local page g // cp
+            for g in range(-(-length // ps), (length + n_tokens - 1) // ps + 1):
+                owner, loc = g % self.cp, g // self.cp
+                if loc >= mp:
+                    raise RuntimeError(f"sequence needs local page {loc} on shard {owner} "
+                                       f"but max_pages_per_seq={mp}")
+                self._set_table(slot, loc, self._alloc_pages(slot, 1, owner)[0], owner)
 
     def _retire(self):
         for slot, st in enumerate(self._slots):
             if st is not None and st["remaining"] <= 0:
                 self.stats["retired"] += 1
-                self.allocator.free(slot)
+                for alloc in self.allocators:
+                    alloc.free(slot)
                 self.scheduler.release(slot, st["reserved"])
                 # zero the slot length so the dead slot reads no pages
-                for cache in self.caches:
-                    cache.lengths[slot] = 0
+                for shard in self.shards:
+                    for cache in shard:
+                        cache.lengths[slot] = 0
                 self._slots[slot] = None
+
+    def _note_pages_in_use(self) -> None:
+        self.stats["pages_in_use_peak"] = max(
+            self.stats["pages_in_use_peak"],
+            sum((self.ecfg.n_pages - 1) - a.free_pages for a in self.allocators))
 
     @property
     def num_active(self) -> int:
@@ -409,9 +481,7 @@ class DecodeEngine:
         self._ensure_capacity(gamma)
         self._sync_tables()
         self.stats["steps"] += 1
-        self.stats["pages_in_use_peak"] = max(
-            self.stats["pages_in_use_peak"],
-            (self.ecfg.n_pages - 1) - self.allocator.free_pages)
+        self._note_pages_in_use()
         tok_mat = np.zeros((self.ecfg.max_seqs, gamma), np.int64)
         for slot, st in enumerate(self._slots):
             if st is not None:
@@ -449,11 +519,15 @@ class DecodeEngine:
             st["remaining"] -= len(new_toks)
             produced += len(new_toks)
         self.stats["decode_tokens"] += produced
-        # each layer's appends advanced its own lengths by gamma
-        lengths = torch.tensor([st["length"] if st else 0 for st in self._slots],
-                               dtype=torch.int32, device=self.device)
-        for cache in self.caches:
-            cache.lengths.copy_(lengths)
+        # each layer's appends advanced its own lengths by gamma: roll back
+        # to the committed lengths (a shard's local length is its owned-token
+        # count of the committed global length)
+        for r, shard in enumerate(self.shards):
+            lengths = torch.tensor(
+                [_owned_token_count(st["length"], self.ecfg.page_size, self.cp, r) if st else 0
+                 for st in self._slots], dtype=torch.int32).to(shard[0].lengths.device)
+            for cache in shard:
+                cache.lengths.copy_(lengths)
         self._retire()
         return produced
 
@@ -473,9 +547,7 @@ class DecodeEngine:
         self._ensure_capacity()
         self._sync_tables()
         self.stats["steps"] += 1
-        self.stats["pages_in_use_peak"] = max(
-            self.stats["pages_in_use_peak"],
-            (self.ecfg.n_pages - 1) - self.allocator.free_pages)
+        self._note_pages_in_use()
         tokens = torch.tensor([st["last"] if st else 0 for st in self._slots],
                               dtype=torch.long, device=self.device)
         active = torch.tensor([st is not None for st in self._slots], device=self.device)

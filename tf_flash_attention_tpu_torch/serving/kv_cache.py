@@ -24,7 +24,11 @@ read-modify-write of one nibble).  Each has a plain PyTorch version beside
 it, the JAX package's XLA-scatter specification, which the wrapper takes
 only for tensors on the CPU.  Several padding rows or inactive slots may
 write the reserved trash page at once; its contents are garbage by design,
-and nothing reads it.
+and nothing reads it.  Under sequence sharding (``seq_sharded_decode.py``)
+a chunk write with ``page_stride``/``page_offset`` keeps only the rows of
+its shard's pages (the plain version sends the rest to the trash page, the
+kernel skips them), and its length becomes the shard's owned-token count
+(``_owned_token_count``).
 """
 
 from __future__ import annotations
@@ -239,15 +243,30 @@ def assign_page(cache: PagedKVCache, slot: int, logical_page: int,
     return cache
 
 
-def _write_tokens_plain(cache, cfg, slot, start, k, v, true_len, trash_page):
+def _owned_token_count(total: int, page_size: int, stride: int, offset: int) -> int:
+    """Tokens in [0, total) on the shard owning every ``stride``-th page
+    starting at ``offset`` (sequence sharding; stride 1 owns everything)."""
+    if stride == 1:
+        return total
+    n_g = total // page_size
+    full = (n_g - offset + stride - 1) // stride if n_g > offset else 0
+    tail = total % page_size if n_g % stride == offset else 0
+    return full * page_size + tail
+
+
+def _write_tokens_plain(cache, cfg, slot, start, k, v, true_len, trash_page,
+                        page_stride=1, page_offset=0):
     chunk = k.shape[1]
     idx = torch.arange(chunk, device=k.device)
     pos = start + idx
-    logical = (pos // cfg.page_size) % cfg.max_pages_per_seq
+    g = pos // cfg.page_size
+    logical = ((g - page_offset) // page_stride) % cfg.max_pages_per_seq
     phys = cache.page_tables[slot].long()[logical]
-    # int4: a byte row goes to the trash page only if its even token, and so
-    # both of its tokens, are padding
-    phys = torch.where(idx < true_len, phys, torch.full_like(phys, trash_page))
+    # rows of another shard's pages and padding rows go to the trash page;
+    # int4: a byte row follows its even token (pages hold whole byte rows),
+    # so it goes to the trash page only if both of its tokens are padding
+    own = (idx < true_len) & (g % page_stride == page_offset)
+    phys = torch.where(own, phys, torch.full_like(phys, trash_page))
     store = _store_byte_rows if cfg.is_int4 else _store_rows
     store(cache, cfg, phys, pos % cfg.page_size, k, v)
 
@@ -260,30 +279,43 @@ def _check_device(cache, *tensors):
 
 def write_tokens_at(cache: PagedKVCache, cfg: KVCacheConfig, slot: int,
                     start: int, k: torch.Tensor, v: torch.Tensor,
-                    true_len: int, trash_page: int) -> PagedKVCache:
+                    true_len: int, trash_page: int, page_stride: int = 1,
+                    page_offset: int = 0) -> PagedKVCache:
     """Write a prompt chunk's K/V at absolute position ``start``, in place.
 
     ``k, v``: (n_kv_heads, chunk, head_dim).  Rows past ``true_len`` (chunk
-    padding) go to the reserved ``trash_page``.  The slot's length becomes
+    padding) go to the reserved ``trash_page`` (the kernel skips them: its
+    contents are garbage either way).  The slot's length becomes
     ``start + true_len``.  An int4 cache needs an even ``start`` and an
     even chunk (whole byte rows).  On a CUDA cache this launches
     ``kv_chunk_write`` (quantization fused in); on the CPU it runs the
     plain version.
+
+    Sequence sharding: with ``page_stride``/``page_offset`` this cache holds
+    every ``page_stride``-th global page starting at ``page_offset`` (global
+    page g at local logical page ``(g - offset) // stride``); rows of other
+    shards' pages are padding too and the slot's (local) length
+    becomes its owned-token count.
     """
     if k.shape != v.shape or k.shape[0] != cfg.n_kv_heads or k.shape[2] != cfg.head_dim:
         raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)}")
     if cfg.is_int4 and (start % 2 or k.shape[1] % 2):
         raise ValueError(f"int4 chunked writes need an even start and chunk, got "
                          f"start {start}, chunk {k.shape[1]}")
+    if not 0 <= page_offset < page_stride:
+        raise ValueError(f"page offset {page_offset} outside stride {page_stride}")
     if k.device.type == "cpu":
-        _write_tokens_plain(cache, cfg, slot, start, k, v, true_len, trash_page)
+        _write_tokens_plain(cache, cfg, slot, start, k, v, true_len, trash_page,
+                            page_stride, page_offset)
     elif k.device.type == "cuda":
         _check_device(cache, k, v)
         k, v = k.contiguous(), v.contiguous()
-        native.kv_chunk_write(cache, cfg, slot, start, k, v, true_len, trash_page)
+        native.kv_chunk_write(cache, cfg, slot, start, k, v, true_len, trash_page,
+                              page_stride, page_offset)
     else:
         raise ValueError(f"unsupported device {k.device}")
-    cache.lengths[slot] = start + true_len
+    cache.lengths[slot] = _owned_token_count(start + true_len, cfg.page_size, page_stride,
+                                             page_offset)
     return cache
 
 

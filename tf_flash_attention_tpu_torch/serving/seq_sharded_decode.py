@@ -1,0 +1,209 @@
+"""Sequence-sharded (context-parallel) paged attention (PyTorch port).
+
+Counterpart of the JAX package's ``serving/seq_sharded_decode.py``.  The KV
+cache of a sequence is sharded along the sequence over a mesh axis: global
+logical page ``g`` lives on shard ``g % n`` at local logical index
+``g // n``.  Every shard scans only its own pages with the ordinary paged
+kernels, which return partial ``(o, l, m)`` online-softmax statistics
+(``returning_l_m``, with ``page_stride = n`` and ``page_offset`` = the
+shard's index so that masking and window skipping see global positions);
+one exact merge (``_merge_partials``) combines them.
+
+Placement is single-controller, as the JAX ``shard_map`` is: one process
+drives every shard.  A sharded cache is a list of ``PagedKVCache``, one per
+shard, each on its shard's device (devices may repeat: four shards on one
+card or on the CPU run the same code).  Queries arrive on the first
+device, are copied to each shard's device (no copy when the devices are
+the same), and the partials come back to the first device for the merge.
+The merge is plain PyTorch, as the JAX merge is ``psum``/``pmax``, not a
+kernel.  Appends route to each position's owner shard through the
+``active`` mask of ``append_tokens_batched``; the owner is read from the
+global length, the sum of the shards' local lengths.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from ..mask_rules import CausalRule, MaskRule
+from ..parallel.mesh import Mesh
+from .decode import paged_decode_attention, paged_multitoken_decode
+from .kv_cache import (KVCacheConfig, PagedKVCache, append_tokens_batched, write_prompt,
+                       write_tokens_at)
+from .prefill import paged_prefill_attention
+
+__all__ = ["create_seq_sharded_cache", "write_prompt_seq_sharded",
+           "seq_sharded_paged_decode", "seq_sharded_paged_prefill",
+           "seq_sharded_append", "global_lengths", "decode_merged", "prefill_merged",
+           "write_tokens_sharded", "append_owned"]
+
+
+def create_seq_sharded_cache(cfg: KVCacheConfig, mesh: Mesh, axis: str,
+                             head_axis=None) -> List[PagedKVCache]:
+    """One empty ``PagedKVCache`` per shard of ``axis``, on its device.
+    ``cfg`` describes ONE shard (``n_pages`` and ``max_pages_per_seq`` are
+    per-shard capacities)."""
+    if head_axis is not None:
+        raise NotImplementedError("sharding the KV heads too (tensor x context parallel) "
+                                  "is not ported yet (ROADMAP: tensor-parallel serving)")
+    return [PagedKVCache.create(cfg, dev) for dev in mesh.axis_devices(axis)]
+
+
+def write_prompt_seq_sharded(caches: List[PagedKVCache], cfg: KVCacheConfig, mesh: Mesh,
+                             axis: str, slot: int, per_shard_pages, k: torch.Tensor,
+                             v: torch.Tensor) -> List[PagedKVCache]:
+    """Write a prompt's K/V (n_kv_heads, t, head_dim) round-robin across the
+    shards, in place (set-up utility).  ``per_shard_pages[r]`` lists shard
+    ``r``'s free physical pages to use (host ints)."""
+    n, ps = len(caches), cfg.page_size
+    n_global = -(-k.shape[1] // ps)
+    for r, cache in enumerate(caches):
+        g_pages = range(r, n_global, n)                # global pages on shard r
+        if not g_pages:
+            continue
+        dev = cache.k_pages.device
+        k_loc = torch.cat([k[:, g * ps:(g + 1) * ps] for g in g_pages], dim=1).to(dev)
+        v_loc = torch.cat([v[:, g * ps:(g + 1) * ps] for g in g_pages], dim=1).to(dev)
+        write_prompt(cache, cfg, slot, list(per_shard_pages[r])[:len(g_pages)], k_loc, v_loc)
+    return caches
+
+
+def _merge_partials(parts, device) -> torch.Tensor:
+    """Exact cross-shard online-softmax merge (base-2 domain, as in the
+    kernels): the partials ``[(o, l, m)]`` of every shard -> float32 o on
+    ``device``.  ``o`` arrives rounded to the activation dtype, as the JAX
+    kernels write it before their merge."""
+    parts = [tuple(x.to(device) for x in p) for p in parts]
+    m_star = torch.stack([m for _, _, m in parts]).amax(dim=0)
+    num = den = None
+    for o, l, m in parts:
+        w = l * torch.exp2(m - m_star)                 # 0 for shards with no keys
+        contrib = o.float() * w[..., None]
+        num = contrib if num is None else num + contrib
+        den = w if den is None else den + w
+    return num / torch.where(den == 0.0, torch.ones_like(den), den)[..., None]
+
+
+def global_lengths(caches: List[PagedKVCache], device) -> torch.Tensor:
+    """The sequences' global lengths: the sum of the shards' local ones."""
+    return torch.stack([c.lengths.to(device) for c in caches]).sum(dim=0).to(torch.int32)
+
+
+def decode_merged(q: torch.Tensor, caches: List[PagedKVCache], cfg: KVCacheConfig,
+                  glob: torch.Tensor, *, scale: Optional[float] = None,
+                  rule: MaskRule = CausalRule()) -> torch.Tensor:
+    """Context-parallel decode of ``q`` (S, n_q, d), or (S, gamma, n_q, d)
+    for the multi-token verify, against every shard; ``glob`` (S,) int32
+    holds the global lengths the queries' K/V are counted in.  Returns o in
+    ``q``'s dtype on ``q``'s device.  One shard is the plain decode."""
+    fn = paged_decode_attention if q.dim() == 3 else paged_multitoken_decode
+    n = len(caches)
+    if n == 1:
+        return fn(q, caches[0], cfg, scale=scale, rule=rule)
+    parts = []
+    for r, cache in enumerate(caches):
+        dev = cache.k_pages.device
+        parts.append(fn(q.to(dev), cache, cfg, scale=scale, rule=rule, returning_l_m=True,
+                        page_stride=n, page_offset=r, global_lengths=glob.to(dev)))
+    return _merge_partials(parts, q.device).to(q.dtype)
+
+
+def prefill_merged(q: torch.Tensor, caches: List[PagedKVCache], cfg: KVCacheConfig,
+                   slot: int, start: int, true_len: int, *, scale: Optional[float] = None,
+                   rule: MaskRule = CausalRule()) -> torch.Tensor:
+    """Context-parallel chunked prefill: every shard scans its own pages for
+    the whole chunk, and the partials merge.  One shard is the plain
+    prefill."""
+    n = len(caches)
+    if n == 1:
+        return paged_prefill_attention(q, caches[0], cfg, slot, start, true_len, scale=scale,
+                                       rule=rule)
+    parts = []
+    for r, cache in enumerate(caches):
+        parts.append(paged_prefill_attention(
+            q.to(cache.k_pages.device), cache, cfg, slot, start, true_len, scale=scale,
+            rule=rule, returning_l_m=True, page_stride=n, page_offset=r))
+    return _merge_partials(parts, q.device).to(q.dtype)
+
+
+def write_tokens_sharded(caches: List[PagedKVCache], cfg: KVCacheConfig, slot: int,
+                         start: int, k: torch.Tensor, v: torch.Tensor, true_len: int,
+                         trash_page: int) -> None:
+    """A prompt chunk's K/V (n_kv_heads, chunk, head_dim) into every shard:
+    each keeps the rows of its own pages (``write_tokens_at`` with the page
+    stride) and its local length becomes its owned-token count."""
+    n = len(caches)
+    for r, cache in enumerate(caches):
+        dev = cache.k_pages.device
+        write_tokens_at(cache, cfg, slot, start, k.to(dev), v.to(dev), true_len, trash_page,
+                        page_stride=n, page_offset=r)
+
+
+def append_owned(caches: List[PagedKVCache], cfg: KVCacheConfig, k_new: torch.Tensor,
+                 v_new: torch.Tensor, active: torch.Tensor, glob: torch.Tensor,
+                 trash_page: int) -> None:
+    """One append per active slot at global position ``glob`` (S,), routed
+    to the position's owner shard; the other shards write their trash page
+    and do not advance.  One shard is the plain append."""
+    n = len(caches)
+    if n == 1:
+        append_tokens_batched(caches[0], cfg, k_new, v_new, active, trash_page)
+        return
+    owner = (glob.long() // cfg.page_size) % n
+    for r, cache in enumerate(caches):
+        dev = cache.k_pages.device
+        mine = (active.to(torch.bool) & (owner == r)).to(dev)
+        append_tokens_batched(cache, cfg, k_new.to(dev), v_new.to(dev), mine, trash_page)
+
+
+def _check_shards(caches, n):
+    if len(caches) != n:
+        raise ValueError(f"{len(caches)} shard caches for a mesh axis of {n}")
+
+
+def seq_sharded_paged_decode(mesh: Mesh, cfg: KVCacheConfig, axis: str, *,
+                             scale: Optional[float] = None, rule: MaskRule = CausalRule()):
+    """Build ``fn(q, caches) -> o``: context-parallel decode over ``axis``.
+
+    ``q`` (max_seqs, n_q_heads, d) on the mesh's first device; ``caches``
+    from ``create_seq_sharded_cache``/``write_prompt_seq_sharded``.  Window
+    rules work: the kernels mask on global positions and each shard skips
+    its pages below the window before any load.
+    """
+    n = mesh.shape[axis]
+
+    def fn(q, caches):
+        _check_shards(caches, n)
+        return decode_merged(q, caches, cfg, global_lengths(caches, q.device), scale=scale,
+                             rule=rule)
+    return fn
+
+
+def seq_sharded_paged_prefill(mesh: Mesh, cfg: KVCacheConfig, axis: str, *,
+                              scale: Optional[float] = None, rule: MaskRule = CausalRule()):
+    """Build ``fn(q, caches, slot, start, true_len) -> o``: context-parallel
+    chunked prefill.  The chunk's K/V must already be written (round-robin,
+    like the rest of the cache)."""
+    n = mesh.shape[axis]
+
+    def fn(q, caches, slot, start, true_len):
+        _check_shards(caches, n)
+        return prefill_merged(q, caches, cfg, int(slot), int(start), int(true_len), scale=scale,
+                              rule=rule)
+    return fn
+
+
+def seq_sharded_append(mesh: Mesh, cfg: KVCacheConfig, axis: str, trash_page: int):
+    """Build ``fn(caches, k_new, v_new, active) -> caches``: one decode-step
+    append routed to each position's owner shard, in place.  The target page
+    of every slot must already be mapped in the owner shard's table."""
+    n = mesh.shape[axis]
+
+    def fn(caches, k_new, v_new, active):
+        _check_shards(caches, n)
+        append_owned(caches, cfg, k_new, v_new, active,
+                     global_lengths(caches, k_new.device), trash_page)
+        return caches
+    return fn

@@ -75,7 +75,18 @@ Phases (any failure exits non-zero before the final line):
      the card, the loss must fall, and the five steps must launch the
      banded kernels; prints step ms and tokens/s;
   7. one step of the same model at 1 x 512 tokens on the CPU (plain
-     versions) and on the card (kernels): the losses must agree.
+     versions) and on the card (kernels): the losses must agree;
+  8. the experiment tools' kernels (experiments/), every instantiation the
+     tools run at the tools' own shapes, driven once through the modules'
+     wrappers with the launch counts reset just before: exp_resident's
+     seven (block_q, block_kv) pairs, exp_vpu_attrib's six rungs,
+     exp_kv_unroll's four variants ((8, 4096, 128) bf16), exp_int4_unpack's
+     six kernels (16 rows x 8 kv heads x 8 queries over 8192 shared tokens)
+     and exp_decode's five variants (16 slots x 8192 tokens, int8, page
+     512); each held against its plain version (2 bf16 ulps at the output's
+     scale, bitcast 3; int8mm's codes and integer scores bit for bit) and
+     timed beside its plain version, its bound and, for the forwards, one
+     scaled_dot_product_attention call.
 
 The kernels' JSON line gives each kernel's launches from the run of the
 path that takes it by default ("path": the engine, the speculative engine,
@@ -86,8 +97,10 @@ function (null where there is none); the serving kernels add the payloads
 held against their plain versions, each payload's time, and their launches
 in phase 3c.  The four sequence-sharded variants follow as kernels of their
 own ("paged_decode[cp]", ...; launches from the cp engine of phase 3e, times
-from 3e(a) on shard 0).  The last lines are that JSON object, the card's
-name and power limit, and {"ok": true, "device": {...}}.
+from 3e(a) on shard 0), then the ten experiment kernels (phase 8; the
+numbers of each tool's first variant, every variant's under "variants").
+The last lines are that JSON object, the card's name and power limit, and
+{"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -157,30 +170,22 @@ def fail(msg):
 
 
 def time_ms(fn, n=20):
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-# the card's published rates (H100 SXM, dense): what a bound is priced at
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+    """Median device time of ``fn()`` in ms: CUDA events around 5 windows of
+    ``n // 5`` back-to-back calls after a warm-up (the port's
+    ``utils/profiling.device_time``)."""
+    from tf_flash_attention_tpu_torch.utils.profiling import device_time
+    return device_time(fn, (), n=max(1, n // 5), reps=5) * 1e3
 
 
 def bound(n_bytes, n_ops, ops_type):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate and
-    the operations over the peak of their type."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S[ops_type] * 1e3
+    the operations over the peak of their type, at the H100 SXM's published
+    rates (``utils/profiling.H100_SXM``)."""
+    from tf_flash_attention_tpu_torch.utils.profiling import H100_SXM
+    peak = {"bf16": H100_SXM.mxu_bf16_flops, "f32": H100_SXM.mxu_fp32_flops,
+            "int8": H100_SXM.mxu_int8_ops}[ops_type]
+    t_bytes = n_bytes / H100_SXM.hbm_bytes * 1e3
+    t_ops = n_ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -527,6 +532,9 @@ def main():
     # ---- 7: one training step on the CPU (plain versions) and on the card ----
     cpu_card_phase(mcfg, cpu_model, dev, args.seed)
 
+    # ---- 8: the experiment tools' kernels at the tools' shapes ----
+    exp_entries, exp_launches = experiment_phase(dev, args.seed)
+
     csrc = "tf_flash_attention_tpu_torch/csrc/"
     replaces = {
         "paged_decode": "tf_flash_attention_tpu/serving/decode.py:113",
@@ -585,6 +593,16 @@ def main():
                       "bound_by": m["bound_by"], "library_ms": None,
                       **{x: m[x] for x in ("l_err", "m_err", "merge_err", "cp_step_ms",
                                            "flat_ms") if x in m}})
+    # the experiment tools' kernels: the numbers of each tool's first
+    # variant, every variant's under "variants" (phase 8)
+    for k in native.EXPERIMENT_KERNELS:
+        m = exp_entries[k]
+        lines.append({"name": k, "route": "cuda", "source": csrc + native.KERNEL_SOURCES[k],
+                      "replaces": EXP_REPLACES[k], "launches": exp_launches[k],
+                      "path": "experiment tools (phase 8)", "max_abs_err": m["err"],
+                      "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                      "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+                      "variants": m["variants"]})
     print(json.dumps({"kernels": lines}))
     print(f"card: {smi.stdout.strip().splitlines()[0]}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1507,6 +1525,193 @@ def cpu_card_phase(mcfg, cpu_model, dev, seed):
         fail(f"CPU-vs-card training loss differs: {a} vs {b} (tol {CPU_LOSS_ATOL})")
     print(f"train CPU vs card: loss {a} vs {b}, diff {abs(a - b)} (tol {CPU_LOSS_ATOL})",
           flush=True)
+
+
+# experiment kernels (phase 8): kernel and plain version round p and o at
+# the same points and sum in other orders, so an output element parts by a
+# rounding flip, one bf16 ulp of its own magnitude.  A bf16 ulp of x is at
+# most 2**-7 |x|, so 2 * 2**-8 of the largest output magnitude is at least
+# one ulp of any element (``ulps`` = 2).  No floor: the decode sites'
+# outputs are ~0.005 (at most ~0.03), and a floor of 1 would let a limit
+# exceed the values it compares.  bitcast rounds each half of o to bf16 and
+# sums the halves in bf16, three roundings against the others' one: 3
+def exp_tol(ref, ulps=2):
+    return ulps * 2.0 ** -8 * float(ref.float().abs().max())
+
+
+def bitcast_tol(ref):
+    return exp_tol(ref, 3)
+
+
+EXP_REPLACES = {
+    "exp_resident_fwd": "tools/exp_resident.py:96",
+    "exp_int4_int8ref": "tools/exp_int4_unpack.py:254",
+    "exp_int4_s32": "tools/exp_int4_unpack.py:264",
+    "exp_int4_twopage": "tools/exp_int4_unpack.py:274",
+    "exp_int4_fourpage": "tools/exp_int4_unpack.py:284",
+    "exp_int4_int8_2pg": "tools/exp_int4_unpack.py:294",
+    "exp_int4_bitcast": "tools/exp_int4_unpack.py:314",
+    "exp_vpu_ladder": "tools/exp_vpu_attrib.py:96",
+    "exp_paged_decode": "tools/exp_decode.py:159",
+    "exp_kv_unroll": "tools/exp_kv_unroll.py:115",
+}
+
+
+def experiment_phase(dev, seed):
+    """Phase 8: the experiment tools' kernels at the tools' own shapes.  Every
+    instantiation the tools run is driven once through its module's wrapper
+    with the launch counts reset just before (the counts are read just
+    after), then held against its plain version on the card and timed with
+    its plain version, its bound and, for the forwards, one
+    scaled_dot_product_attention call.  Returns ({kernel: entry}, {kernel:
+    launches}); an entry's numbers are those of the tool's first variant,
+    every variant's beside them under "variants"."""
+    import torch.nn.functional as F
+
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.experiments import (exp_decode, exp_int4_unpack,
+                                                          exp_kv_unroll, exp_resident,
+                                                          exp_vpu_attrib)
+    from tf_flash_attention_tpu_torch.serving.kv_cache import (KVCacheConfig, PageAllocator,
+                                                               PagedKVCache, write_prompt)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    uni = lambda shape: torch.rand(shape, generator=gen, device=dev) * 2 - 1
+    bf = torch.bfloat16
+    # (kernel, variant, fn, plain, n_bytes, n_ops, ops_type, library call or
+    # None, tolerance, the int8mm arguments whose codes must match or None)
+    runs = []
+
+    # sites 1, 8, 10: the forwards, (8, 4096, 128) bf16
+    B, S, D = 8, 4096, 128
+    q, k, v = uni((B, S, D)).to(bf), uni((B, S, D)).to(bf), uni((B, S, D)).to(bf)
+    q4, k4, v4 = q.unsqueeze(0), k.unsqueeze(0), v.unsqueeze(0)
+    fwd_bytes = 4 * q.numel() * 2                                     # q, k, v in, o out
+    for bq, bkv in exp_resident.PAIRS:
+        runs.append(("exp_resident_fwd", f"{bq}x{bkv}",
+                     lambda bq=bq, bkv=bkv: exp_resident.resident_forward(
+                         q, k, v, block_q=bq, block_kv=bkv),
+                     lambda bq=bq, bkv=bkv: exp_resident.resident_forward_plain(
+                         q, k, v, block_q=bq, block_kv=bkv),
+                     fwd_bytes, 4 * B * D * S * (S + 1) // 2, "bf16",
+                     lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+                     exp_tol, None))
+    qv = uni((B, S, D)).to(bf) * torch.tensor(1.0 / math.sqrt(D) * 1.4426950408889634,
+                                             dtype=bf, device=dev)
+    kv_, vv = uni((B, S, D)).to(bf), uni((B, S, D)).to(bf)
+    blk = exp_vpu_attrib.BQ
+    block_causal = (torch.arange(S, device=dev)[None, :] // blk
+                    <= torch.arange(S, device=dev)[:, None] // blk)
+    for rung in exp_vpu_attrib.RUNGS:
+        runs.append(("exp_vpu_ladder", rung,
+                     lambda rung=rung: exp_vpu_attrib.ladder(rung, qv, kv_, vv),
+                     lambda rung=rung: exp_vpu_attrib.ladder_plain(rung, qv, kv_, vv),
+                     fwd_bytes, 4 * B * blk * blk * D * exp_vpu_attrib.live_tiles(), "bf16",
+                     (lambda: F.scaled_dot_product_attention(
+                         qv.unsqueeze(0), kv_.unsqueeze(0), vv.unsqueeze(0),
+                         attn_mask=block_causal, scale=1.0)) if rung == "prod" else None,
+                     exp_tol, None))
+    qu, kkv = uni((B, S, D)).to(bf), uni((B, S, D)).to(bf)
+    for name, nkv, fused in exp_kv_unroll.VARIANTS:
+        runs.append(("exp_kv_unroll", name,
+                     lambda nkv=nkv, fused=fused: exp_kv_unroll.kv_unroll(
+                         qu, kkv, kkv, nkv=nkv, fused=fused),
+                     lambda nkv=nkv, fused=fused: exp_kv_unroll.kv_unroll_plain(
+                         qu, kkv, kkv, nkv=nkv, fused=fused),
+                     3 * qu.numel() * 2, 4 * B * S * S * D, "bf16",
+                     lambda: F.scaled_dot_product_attention(qu.unsqueeze(0), kkv.unsqueeze(0),
+                                                            kkv.unsqueeze(0)),
+                     exp_tol, None))
+
+    # sites 2-7: exp_int4_unpack at its shapes (the shared K/V read once)
+    iq, (k4_, ks4, v4_, vs4, _, _, k8, ks8, v8, vs8) = exp_int4_unpack.build(gen, dev)
+    rows = iq.numel() // D                                           # 1024 query rows
+    ib, ctx = exp_int4_unpack.B, exp_int4_unpack.CTX
+    for name, kernel in exp_int4_unpack.KERNELS.items():
+        args = ((iq, k8, ks8, v8, vs8) if kernel.startswith("exp_int4_int8")
+                else (iq, k4_, ks4, v4_, vs4))
+        n_bytes = sum(t.numel() * t.element_size() for t in args) + iq.numel() * 2
+        runs.append((kernel, name,
+                     lambda kernel=kernel, args=args: exp_int4_unpack.int4_decode(kernel, *args),
+                     lambda kernel=kernel, args=args: exp_int4_unpack.int4_decode_plain(
+                         kernel, *args),
+                     n_bytes, 4 * rows * ctx * D, "bf16", None,
+                     bitcast_tol if name == "bitcast" else exp_tol, None))
+
+    # site 9: exp_decode's paged int8 cache, written by the port's cache code
+    max_seqs, seq_len, n_kv, page = 16, 8192, 8, 512
+    pps = seq_len // page
+    cfg = KVCacheConfig(n_kv_heads=n_kv, head_dim=D, page_size=page,
+                        n_pages=max_seqs * pps + 1, max_seqs=max_seqs, max_pages_per_seq=pps,
+                        quantized=True)
+    cache = PagedKVCache.create(cfg, dev)
+    alloc = PageAllocator(cfg.n_pages - 1)
+    for slot in range(max_seqs):
+        write_prompt(cache, cfg, slot, alloc.alloc(slot, pps), uni((n_kv, seq_len, D)).to(bf),
+                     uni((n_kv, seq_len, D)).to(bf))
+    dq = uni((max_seqs, n_kv, D)).to(bf)
+    live = int(cache.lengths.sum())
+    page_major = (exp_decode.page_major(cache.k_scales), exp_decode.page_major(cache.v_scales))
+    for variant in ("postscale_t", "int8mm_t", "current", "postscale", "int8mm"):
+        scales = (cache.k_scales, cache.v_scales) if variant.endswith("_t") else page_major
+        args = (variant, dq, cache.k_pages, cache.v_pages, *scales, cache.page_tables,
+                cache.lengths)
+        runs.append(("exp_paged_decode", variant,
+                     lambda args=args: exp_decode.paged_decode(*args),
+                     lambda args=args: exp_decode.paged_decode_plain(*args),
+                     live * n_kv * (2 * D + 2 * 4) + 2 * dq.numel() * 2,
+                     4 * dq.shape[1] * D * live, "int8" if "int8mm" in variant else "bf16", None,
+                     exp_tol, args if variant.startswith("int8mm") else None))
+
+    # the tools' entry points, each instantiation once, counted
+    native.reset_launch_counts()
+    torch.cuda.synchronize()
+    outs = [fn() for _, _, fn, *_ in runs]
+    torch.cuda.synchronize()
+    launches = {kn: native.LAUNCHES[kn] for kn in native.EXPERIMENT_KERNELS}
+    if min(launches.values()) < 1:
+        fail(f"phase 8: an experiment kernel never launched: {launches}")
+
+    entries = {}
+    for (kernel, variant, fn, plain, n_bytes, n_ops, ops_type, lib, tol, codes), o in zip(runs,
+                                                                                      outs):
+        ref = plain()
+        torch.cuda.synchronize()
+        err, limit = float((o.float() - ref.float()).abs().max()), tol(ref)
+        if not torch.isfinite(o).all() or o.shape != ref.shape or err > limit:
+            fail(f"phase 8: {kernel} {variant} max error {err} > {limit}")
+        extra = {}
+        if codes is not None:   # int8mm: q codes, integer scores and p codes bit for bit
+            got = exp_decode.paged_decode(*codes, codes=True)
+            want = exp_decode.paged_decode_plain(*codes, codes=True)
+            for cname, a, b in zip(("q_codes", "scores", "p_codes"), got[1:], want[1:]):
+                if not torch.equal(a, b):
+                    fail(f"phase 8: {kernel} {variant} {cname} differ in {int((a != b).sum())} "
+                         f"places")
+            extra["codes_equal"] = True
+        ms, plain_ms = time_ms(fn, n=10), time_ms(plain, n=5)
+        lib_ms = None if lib is None else time_ms(lib, n=10)
+        b_ms, b_by = bound(n_bytes, n_ops, ops_type)
+        r = dict(err=err, tol=limit, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=lib_ms, **extra)
+        if kernel in ("exp_resident_fwd", "exp_vpu_ladder", "exp_kv_unroll"):
+            rate = f"{n_ops / ms / 1e9:.3f} useful TFLOP/s"
+        elif kernel == "exp_paged_decode":
+            rate = f"{max_seqs / ms * 1e3:,.0f} tok/s"
+        else:   # exp_int4_unpack.py:335 counts the shared K/V once per row
+            kvb = ib * ctx * exp_int4_unpack.N_KV * (D * (2.0 if "int8" in variant else 1.0) / 2
+                                                      + 8)
+            rate = (f"{kvb / ms / 1e6:.0f} GB/s as the tool counts (the shared K/V once per "
+                    f"row: {ib}x the bytes of the bound)")
+        print(f"kernel {kernel} {variant}: max_abs_err={err} (tol {limit}) ms={ms} "
+              f"plain_ms={plain_ms} bound_ms={b_ms} ({b_by}) library_ms={lib_ms}; {rate}",
+              flush=True)
+        entry = entries.setdefault(kernel, dict(r, variants={}))
+        entry["err"] = max(entry["err"], err)
+        entry["variants"][variant] = r
+    print(f"phase 8: {time.perf_counter() - t0:.3f} s", flush=True)
+    return entries, launches
 
 
 if __name__ == "__main__":

@@ -492,3 +492,125 @@ def test_attention_launch_counts(dev, monkeypatch, routes, rule, kernels):
     _run_op_case(dev, rule, "scale_front", (300,), (410,), 32, 32, 1, 1, torch.float32)
     assert {k for k in native.ATTENTION_KERNELS if native.LAUNCHES[k]} == kernels | {
         "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_qouter"}
+
+
+# ---- the experiment tools' kernels (experiments/) against their plain versions ----
+
+def _exp_tol(ref, ulps=2):
+    """``ulps`` bf16 ulps at the output's scale, with no floor: kernel and
+    plain version round p and o at the same points and sum in other orders,
+    so an element parts by a rounding flip (one ulp of its magnitude, at most
+    2**-7 of the largest), and the decode outputs are far below 1."""
+    return ulps * 2.0 ** -8 * float(ref.float().abs().max())
+
+
+def _uniform(gen, shape, dev, dtype=torch.bfloat16):
+    return (torch.rand(shape, generator=gen, device=dev) * 2 - 1).to(dtype)
+
+
+def _exp_launch(name, fn):
+    native.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    assert native.LAUNCHES[name] == 1, native.LAUNCHES
+    return out
+
+
+@pytest.mark.parametrize("bq,bkv", [(256, 256), (256, 128), (128, 64), (512, 128), (1024, 1024)])
+def test_exp_resident_kernel_matches_plain(dev, bq, bkv):
+    from tf_flash_attention_tpu_torch.experiments import exp_resident as x
+    gen = torch.Generator(device=dev).manual_seed(bq + bkv)
+    q, k, v = (_uniform(gen, (2, 2048, 128), dev) for _ in range(3))
+    got = _exp_launch("exp_resident_fwd",
+                      lambda: x.resident_forward(q, k, v, block_q=bq, block_kv=bkv))
+    want = x.resident_forward_plain(q, k, v, block_q=bq, block_kv=bkv)
+    assert float((got.float() - want.float()).abs().max()) <= _exp_tol(want)
+    assert float((got.float() - x.causal_oracle(q, k, v).float()).abs().max()) < 1e-2
+
+
+@pytest.mark.parametrize("block", [512, 2048])
+@pytest.mark.parametrize("rung", native.LADDER_RUNGS)
+def test_exp_vpu_ladder_kernel_matches_plain(dev, rung, block):
+    from tf_flash_attention_tpu_torch.experiments import exp_vpu_attrib as x
+    gen = torch.Generator(device=dev).manual_seed(block)
+    q, k, v = (_uniform(gen, (2, 2 * block, 128), dev) for _ in range(3))
+    q = q * torch.tensor(0.1275, dtype=torch.bfloat16, device=dev)
+    got = _exp_launch("exp_vpu_ladder",
+                      lambda: x.ladder(rung, q, k, v, block_q=block, block_kv=block))
+    want = x.ladder_plain(rung, q, k, v, block_q=block, block_kv=block)
+    assert torch.isfinite(got).all()
+    assert float((got.float() - want.float()).abs().max()) <= _exp_tol(want)
+
+
+@pytest.mark.parametrize("name,nkv,fused", [("base", 1, False), ("unroll2", 2, False),
+                                            ("unroll2f", 2, True), ("unroll4", 4, False)])
+def test_exp_kv_unroll_kernel_matches_plain(dev, name, nkv, fused):
+    from tf_flash_attention_tpu_torch.experiments import exp_kv_unroll as x
+    gen = torch.Generator(device=dev).manual_seed(nkv)
+    q, kv = _uniform(gen, (2, 2048, 128), dev), _uniform(gen, (2, 2048, 128), dev)
+    got = _exp_launch("exp_kv_unroll",
+                      lambda: x.kv_unroll(q, kv, kv, nkv=nkv, fused=fused, block_kv=256))
+    want = x.kv_unroll_plain(q, kv, kv, nkv=nkv, fused=fused, block_kv=256)
+    assert float((got.float() - want.float()).abs().max()) <= _exp_tol(want)
+
+
+@pytest.mark.parametrize("G", [8, 2])
+@pytest.mark.parametrize("name", ["int8ref", "s32", "twopage", "fourpage", "int8_2pg", "bitcast"])
+def test_exp_int4_unpack_kernels_match_plain(dev, name, G):
+    from tf_flash_attention_tpu_torch.experiments import exp_int4_unpack as x
+    gen = torch.Generator(device=dev).manual_seed(G)
+    kv = torch.rand((2, 2, 2048, 128), generator=gen, device=dev) * 2 - 1
+    kernel = x.KERNELS[name]
+    if kernel.startswith("exp_int4_int8"):
+        (k, ks), (v, vs) = x.quantize_int8(kv[0]), x.quantize_int8(kv[1])
+    else:
+        (k, ks, _), (v, vs, _) = x.quantize_int4(kv[0]), x.quantize_int4(kv[1])
+    q = _uniform(gen, (4, 2, G, 128), dev)
+    got = _exp_launch(kernel, lambda: x.int4_decode(kernel, q, k, ks, v, vs))
+    want = x.int4_decode_plain(kernel, q, k, ks, v, vs)
+    assert float((got.float() - want.float()).abs().max()) <= _exp_tol(
+        want, 3 if name == "bitcast" else 2)
+
+
+def _exp_decode_cache(dev, n_q=4):
+    """An int8 cache, page 128, 3 slots (lengths 300, 512, 0), 4 pages a
+    slot, 2 kv heads, d 128, and q (3, n_q, 128)."""
+    cfg = kv_cache.KVCacheConfig(n_kv_heads=2, head_dim=128, page_size=128, n_pages=14,
+                                 max_seqs=3, max_pages_per_seq=4, quantized=True,
+                                 dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    c = kv_cache.PagedKVCache.create(cfg, dev)
+    for p in (c.k_pages, c.v_pages):
+        p.copy_(torch.randint(-127, 128, p.shape, generator=gen, device=dev))
+    for s in (c.k_scales, c.v_scales):
+        s.copy_(0.005 + 0.015 * torch.rand(s.shape, generator=gen, device=dev))
+    c.page_tables.copy_(torch.randperm(13, generator=gen, device=dev)[:12].reshape(3, 4))
+    c.lengths.copy_(torch.tensor([300, 512, 0], dtype=torch.int32))
+    return c, _uniform(gen, (3, n_q, 128), dev)
+
+
+@pytest.mark.parametrize("n_q", [2, 4, 16])
+@pytest.mark.parametrize("variant", ["current", "postscale", "postscale_t", "int8mm", "int8mm_t"])
+def test_exp_paged_decode_kernel_matches_plain(dev, variant, n_q):
+    from tf_flash_attention_tpu_torch.experiments import exp_decode as x
+    c, q = _exp_decode_cache(dev, n_q)
+    scales = ((c.k_scales, c.v_scales) if variant.endswith("_t")
+              else (x.page_major(c.k_scales), x.page_major(c.v_scales)))
+    args = (variant, q, c.k_pages, c.v_pages, *scales, c.page_tables, c.lengths)
+    got = _exp_launch("exp_paged_decode", lambda: x.paged_decode(*args))
+    want = x.paged_decode_plain(*args)
+    assert torch.isfinite(got).all() and not got[2].any()
+    assert float((got.float() - want.float()).abs().max()) <= _exp_tol(want)
+
+
+def test_exp_paged_decode_int8mm_codes_equal(dev):
+    """int8mm's q codes, integer scores and p codes equal the plain
+    version's bit for bit."""
+    from tf_flash_attention_tpu_torch.experiments import exp_decode as x
+    c, q = _exp_decode_cache(dev)
+    args = ("int8mm_t", q, c.k_pages, c.v_pages, c.k_scales, c.v_scales, c.page_tables,
+            c.lengths)
+    got = x.paged_decode(*args, codes=True)
+    want = x.paged_decode_plain(*args, codes=True)
+    for name, a, b in zip(("q codes", "scores", "p codes"), got[1:], want[1:]):
+        assert torch.equal(a, b), (name, int((a != b).sum()))

@@ -1,0 +1,160 @@
+"""The experiment tools' forward kernels, ported, against the tools on the CPU.
+
+``tools/exp_resident.py``, ``tools/exp_vpu_attrib.py`` and
+``tools/exp_kv_unroll.py`` run their Pallas kernels in interpret mode at
+S 512, B 2, d 128 (blocks cut with the sequence, the modules' sizes set by
+``monkeypatch``).  The port's plain versions take the same numpy inputs;
+its CUDA kernels are held against those plain versions on the card
+(``chip_smoke.py`` phase 8, ``test_torch_cuda.py``).
+"""
+
+import functools
+import importlib.util
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from tf_flash_attention_tpu_torch.experiments import exp_kv_unroll as tunroll
+from tf_flash_attention_tpu_torch.experiments import exp_resident as tres
+from tf_flash_attention_tpu_torch.experiments import exp_vpu_attrib as tvpu
+from tf_flash_attention_tpu_torch.ops.kernel_common import LOG2E
+
+TOOLS = pathlib.Path(__file__).resolve().parent.parent / "tools"
+B, S, D = 2, 512, 128
+
+# Both sides take the same float32 steps and round p and o to bf16 at the
+# same points; XLA's and PyTorch's float32 products sum in other orders,
+# which moves a score by a float32 ulp and may flip the bf16 rounding of a p
+# element (2**-8 relative) or of an output (one ulp).  Bound: two bf16 ulps
+# at the output's scale (2 * 2**-8 of its largest magnitude).
+ULPS = 2
+# bf16exp (exp_resident and the ladder's rung): JAX lowers a bf16 exp2 to
+# exp(bf16(0.69140625 * x)), ln 2 rounded to bf16, where the port takes
+# exp2 of x rounded once; a weight that matters (x > -4) moves by up to
+# 4 * (ln 2 - 0.69140625) + a bf16 rounding of the product, about 1%, and o
+# by that share of the spread of v: four ulps at the output's scale
+ULPS_BF16EXP = 4
+# Against the dense float32 causal oracle, exp_resident's p is an exp2 of a
+# bf16 input rounded to bf16 (up to 3 bf16 roundings of a p near s - m ~ -3,
+# ~1% of a weight) and o is rounded once: the tool's own parity bound, 1e-2
+ORACLE_ATOL = 1e-2
+# the tool's (block_q, block_kv) pairs cut from S 4096 to S 512
+PAIRS = tuple((bq // 8, bkv // 8) for bq, bkv in tres.PAIRS)
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(f"_tool_{name}", TOOLS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+
+
+def _inputs(seed, n=3):
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(-1, 1, (B, S, D)).astype(np.float32) for _ in range(n)]
+
+
+def _bf16(x):
+    """numpy float32 rounded to bf16, as (JAX array, torch tensor)."""
+    j = jnp.asarray(x, jnp.bfloat16)
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(torch.bfloat16)
+
+
+def _close(got, want, ulps=ULPS):
+    """Within ``ulps`` bf16 ulps at the scale of ``want``."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, atol=ulps * 2.0 ** -8 * np.abs(want).max(), rtol=0)
+
+
+def _np(x):
+    """A JAX array or a torch tensor as float32 numpy."""
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x.astype(jnp.float32))
+
+
+# ---- exp_resident ----
+
+@pytest.fixture(scope="module")
+def resident_inputs():
+    return [_bf16(x) for x in _inputs(0)]
+
+
+@pytest.mark.parametrize("bq,bkv", [p for p in PAIRS if p[0] == p[1]])
+def test_resident_matches_tool_where_the_tool_is_exact(interpret, resident_inputs, bq, bkv):
+    """At block_q == block_kv the tool's mask (last sub-tile only) is exact."""
+    (jq, tq), (jk, tk), (jv, tv) = resident_inputs
+    want = _np(_load("exp_resident").resident_forward(jq, jk, jv, block_q=bq, block_kv=bkv))
+    got = _np(tres.resident_forward(tq, tk, tv, block_q=bq, block_kv=bkv))
+    _close(got, want, ULPS_BF16EXP)
+
+
+@pytest.mark.parametrize("bq,bkv", PAIRS)
+def test_resident_matches_dense_causal_oracle(resident_inputs, bq, bkv):
+    (_, tq), (_, tk), (_, tv) = resident_inputs
+    got = tres.resident_forward(tq, tk, tv, block_q=bq, block_kv=bkv).float()
+    want = tres.causal_oracle(tq.float(), tk.float(), tv.float())
+    assert float((got - want).abs().max()) < ORACLE_ATOL
+
+
+def test_tool_resident_is_wrong_when_block_q_exceeds_block_kv(interpret, resident_inputs):
+    """The reference's fault the port does not copy: at (128, 64) the tool
+    runs the first sub-tile crossing the diagonal unmasked."""
+    (jq, tq), (jk, tk), (jv, tv) = resident_inputs
+    tool = _np(_load("exp_resident").resident_forward(jq, jk, jv, block_q=128, block_kv=64))
+    oracle = tres.causal_oracle(tq.float(), tk.float(), tv.float()).numpy()
+    assert np.abs(tool - oracle).max() > 0.1
+
+
+# ---- exp_vpu_attrib: the ladder, block-causal at BQ = BK = S / 2 ----
+
+@pytest.fixture(scope="module")
+def ladder_inputs():
+    q, k, v = _inputs(1)
+    c = jnp.bfloat16(1.0 / np.sqrt(D) * LOG2E)
+    jq = jnp.asarray(q, jnp.bfloat16) * c               # the tool's bf16 prescale
+    tq = torch.from_numpy(np.array(jq.astype(jnp.float32))).to(torch.bfloat16)
+    return (jq, tq), _bf16(k), _bf16(v)
+
+
+@pytest.mark.parametrize("rung", tvpu.RUNGS)
+def test_ladder_rung_matches_tool(interpret, monkeypatch, ladder_inputs, rung):
+    tool = _load("exp_vpu_attrib")
+    for name, value in dict(B=B, S=S, D=D, BQ=S // 2, BK=S // 2).items():
+        monkeypatch.setattr(tool, name, value)
+    (jq, tq), (jk, tk), (jv, tv) = ladder_inputs
+    want = _np(tool.build(rung)(jq, jk, jv))
+    got = _np(tvpu.ladder(rung, tq, tk, tv, block_q=S // 2, block_kv=S // 2))
+    assert np.isfinite(got).all()
+    _close(got, want, ULPS_BF16EXP if rung == "bf16exp" else ULPS)
+
+
+def test_ladder_live_tiles():
+    assert tvpu.live_tiles() == 3 and tvpu.live_tiles(512, 128, 128) == 10
+
+
+# ---- exp_kv_unroll: full attention, nkv blocks a step ----
+
+@pytest.fixture(scope="module")
+def unroll_inputs():
+    q, kv = _inputs(2, 2)
+    return _bf16(q), _bf16(kv)
+
+
+@pytest.mark.parametrize("name,nkv,fused", tunroll.VARIANTS)
+def test_kv_unroll_matches_tool(interpret, monkeypatch, unroll_inputs, name, nkv, fused):
+    tool = _load("exp_kv_unroll")
+    for attr, value in dict(B=B, S=S, D=D, BQ=S // 4, BK=S // 4).items():
+        monkeypatch.setattr(tool, attr, value)
+    (jq, tq), (jkv, tkv) = unroll_inputs
+    jkkv = jkv.reshape(B, 4, S // 4, D)        # K = V, blocked as the tool's
+    want = _np(tool.build(nkv, fused)(jq, jkkv, jkkv))
+    got = _np(tunroll.kv_unroll(tq, tkv, tkv, nkv=nkv, fused=fused, block_kv=S // 4))
+    _close(got, want)

@@ -31,6 +31,12 @@ def test_engine_import_leaves_jax_out():
             "import tf_flash_attention_tpu_torch.flops; "
             "import tf_flash_attention_tpu_torch.models.transformer; "
             "import tf_flash_attention_tpu_torch.ops.reference; "
+            "import tf_flash_attention_tpu_torch.utils.profiling; "
+            "import tf_flash_attention_tpu_torch.experiments.exp_decode; "
+            "import tf_flash_attention_tpu_torch.experiments.exp_int4_unpack; "
+            "import tf_flash_attention_tpu_torch.experiments.exp_resident; "
+            "import tf_flash_attention_tpu_torch.experiments.exp_kv_unroll; "
+            "import tf_flash_attention_tpu_torch.experiments.exp_vpu_attrib; "
             "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('tf_flash_attention_tpu.')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -59,6 +65,16 @@ def test_chip_smoke_fails_without_a_gpu():
     res = _run_smoke(REPO)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+@pytest.mark.parametrize("tool", ["exp_decode", "exp_int4_unpack", "exp_resident",
+                                  "exp_kv_unroll", "exp_vpu_attrib"])
+def test_experiment_main_fails_without_a_gpu(tool):
+    env = _env()
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    res = subprocess.run([sys.executable, "-m", f"tf_flash_attention_tpu_torch.experiments.{tool}"],
+                         capture_output=True, text=True, cwd=REPO, env=env, timeout=120)
+    assert res.returncode != 0 and "no CUDA device" in res.stderr, res.stderr
 
 
 def test_chip_smoke_fails_alone(tmp_path):

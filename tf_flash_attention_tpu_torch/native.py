@@ -39,8 +39,9 @@ from .block_sizes import LANE, MAX_HEAD_DIM
 from .mask_rules import CausalRule, FullRule, LocalRule
 from .sync_modes import ref_log2
 
-__all__ = ["LAUNCHES", "SERVING_KERNELS", "CP_VARIANTS", "ATTENTION_KERNELS", "KERNEL_SOURCES",
-           "reset_launch_counts", "build", "library", "native_tile_classes"]
+__all__ = ["LAUNCHES", "SERVING_KERNELS", "CP_VARIANTS", "ATTENTION_KERNELS",
+           "EXPERIMENT_KERNELS", "KERNEL_SOURCES", "reset_launch_counts", "build", "library",
+           "native_tile_classes"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -57,7 +58,12 @@ CP_VARIANTS = tuple(f"{k}[cp]" for k in SERVING_KERNELS if k != "kv_append")
 ATTENTION_KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
                      "flash_bwd_qouter", "banded_fwd", "banded_bwd", "window_fwd",
                      "window_bwd", "resident_fwd")
-LAUNCHES = {name: 0 for name in SERVING_KERNELS + CP_VARIANTS + ATTENTION_KERNELS}
+# the experiment tools' kernels (``experiments/``), one name per Pallas site
+EXPERIMENT_KERNELS = ("exp_resident_fwd", "exp_int4_int8ref", "exp_int4_s32", "exp_int4_twopage",
+                      "exp_int4_fourpage", "exp_int4_int8_2pg", "exp_int4_bitcast",
+                      "exp_vpu_ladder", "exp_paged_decode", "exp_kv_unroll")
+LAUNCHES = {name: 0 for name in
+            SERVING_KERNELS + CP_VARIANTS + ATTENTION_KERNELS + EXPERIMENT_KERNELS}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float16: 3,
                torch.float8_e4m3fn: 4, torch.float8_e5m2: 5}
@@ -193,6 +199,24 @@ _SIGNATURES = {
         # dtype, q, k, v, dout, lse2, delta, dq_acc, dk, dv, starts, band,
         # sub_kv, B, g, d, v_d, dk_scale, rule
         "fa_window_bwd": [_I] + [_P] * 10 + [_I] * 6 + [_F, _R],
+    },
+    "exp_decode_kernels.cu": {
+        # q, k, ks, v, vs, o, B, n_kv, G, pages, rows, scale_log2e
+        **{f"fa_{name}": [_P] * 6 + [_I] * 5 + [_F]
+           for name in ("exp_int4_int8ref", "exp_int4_s32", "exp_int4_twopage",
+                        "exp_int4_fourpage", "exp_int4_int8_2pg", "exp_int4_bitcast")},
+        # variant, q, k_pages, v_pages, k_scales, v_scales, tables, lengths, o,
+        # q_codes, s_int, p_codes, S, n_kv, G, n_pages, page, max_pages,
+        # scale_log2e (the codes nullable)
+        "fa_exp_paged_decode": [_I] + [_P] * 11 + [_I] * 6 + [_F],
+    },
+    "exp_forward_kernels.cu": {
+        # q, k, v, o, B, S, d, block_q, block_kv
+        "fa_exp_resident_fwd": [_P] * 4 + [_I] * 5,
+        # rung, q, k, v, o, B, S, d, block_q, block_kv
+        "fa_exp_vpu_ladder": [_I] + [_P] * 4 + [_I] * 5,
+        # nkv, fused, q, k, v, o, B, S, d, block_kv, scale_log2e
+        "fa_exp_kv_unroll": [_I, _I] + [_P] * 4 + [_I] * 4 + [_F],
     },
 }
 
@@ -610,3 +634,118 @@ def flash_bwd_qouter(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, tables, bl
           dv_acc.data_ptr(), *_sched_args(tables, block_q, block_kv), B, B // k.shape[0], d,
           v.shape[2], float(scale), ctypes.byref(rule_c))
     return dq, dk_acc, dv_acc
+
+
+# ---- the experiment tools' kernels (experiments/) ----
+
+#: the ladder's rungs in the order of exp_vpu_attrib's main (the kernel's codes)
+LADDER_RUNGS = ("prod", "nomax", "noexp", "nosum", "bf16exp", "mm")
+#: exp_decode's strategies (the kernel's codes); a ``_t`` suffix names the
+#: scale layout only
+DECODE_VARIANTS = ("current", "postscale", "int8mm")
+#: the pages per step of each exp_int4_unpack kernel
+INT4_NPG = {"exp_int4_int8ref": 1, "exp_int4_int8_2pg": 2, "exp_int4_s32": 1,
+            "exp_int4_twopage": 2, "exp_int4_fourpage": 4, "exp_int4_bitcast": 1}
+
+
+def _check_exp(*tensors, dtype=None) -> None:
+    for t in tensors:
+        if not t.is_cuda or not t.is_contiguous() or (dtype is not None and t.dtype != dtype):
+            raise ValueError(f"the experiment kernels take contiguous CUDA tensors"
+                             f"{'' if dtype is None else f' of {dtype}'}, got {t.dtype} "
+                             f"on {t.device}")
+
+
+def _check_fwd(q, k, v) -> tuple:
+    _check_exp(q, k, v, dtype=torch.bfloat16)
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape or q.shape[2] > 128:
+        raise ValueError(f"q, k, v must be (B, S, d <= 128) of one shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    return tuple(q.shape)
+
+
+def exp_resident_fwd(q_scaled, k, v, block_q: int, block_kv: int):
+    """Launch ``exp_resident_fwd``: exact causal attention of prescaled bf16
+    q (B, S, d) in steps of ``block_kv`` keys per ``block_q`` q block."""
+    B, S, d = _check_fwd(q_scaled, k, v)
+    o = torch.empty_like(q_scaled)
+    _call("fa_exp_resident_fwd", q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+          B, S, d, block_q, block_kv)
+    return o
+
+
+def exp_vpu_ladder(rung: str, q_scaled, k, v, block_q: int, block_kv: int):
+    """Launch ``exp_vpu_ladder`` on one rung (``LADDER_RUNGS``): the
+    block-causal forward of prescaled bf16 q (B, S, d)."""
+    B, S, d = _check_fwd(q_scaled, k, v)
+    o = torch.empty_like(q_scaled)
+    _call("fa_exp_vpu_ladder", LADDER_RUNGS.index(rung), q_scaled.data_ptr(), k.data_ptr(),
+          v.data_ptr(), o.data_ptr(), B, S, d, block_q, block_kv)
+    return o
+
+
+def exp_kv_unroll(q, k, v, nkv: int, fused: bool, block_kv: int, scale_log2e: float):
+    """Launch ``exp_kv_unroll``: full attention of bf16 (B, S, d), ``nkv``
+    kv blocks a step, merged one by one or (``fused``) at once."""
+    B, S, d = _check_fwd(q, k, v)
+    o = torch.empty_like(q)
+    _call("fa_exp_kv_unroll", nkv, int(bool(fused)), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+          o.data_ptr(), B, S, d, block_kv, float(scale_log2e))
+    return o
+
+
+def exp_int4_decode(kernel: str, q, k, ks, v, vs, scale_log2e: float):
+    """Launch one of exp_int4_unpack's kernels (``INT4_NPG``): q (B, n_kv,
+    G, 128) bf16 over the K/V every row shares, k, v (n_kv, pages, rows,
+    128) int8 (int4: nibble pairs), scales (n_kv, pages, pack, rows)."""
+    _check_exp(q, dtype=torch.bfloat16)
+    _check_exp(k, v, dtype=torch.int8)
+    _check_exp(ks, vs, dtype=torch.float32)
+    B, n_kv, G, d = q.shape
+    _, pages, rows, _ = k.shape
+    pack = 1 if kernel.startswith("exp_int4_int8") else 2
+    if (d != 128 or k.shape != (n_kv, pages, rows, d) or v.shape != k.shape
+            or ks.shape != (n_kv, pages, pack, rows) or vs.shape != ks.shape
+            or pages % INT4_NPG[kernel]):
+        raise ValueError(f"{kernel}: inconsistent shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, scales {tuple(ks.shape)} (d 128, pages a "
+                         f"multiple of {INT4_NPG[kernel]})")
+    o = torch.empty_like(q)
+    _call(f"fa_{kernel}", q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(), vs.data_ptr(),
+          o.data_ptr(), B, n_kv, G, pages, rows, float(scale_log2e))
+    return o
+
+
+def exp_paged_decode(variant: str, q, k_pages, v_pages, k_scales, v_scales, tables, lengths,
+                     scale_log2e: float, codes: bool = False):
+    """Launch ``exp_paged_decode`` (``DECODE_VARIANTS``): q (S, n_q, 128)
+    bf16 over an int8 paged cache, scales (n_kv, n_pages, 1, page) or
+    (n_kv, n_pages, page, 1).  Returns o, or with ``codes`` (int8mm) (o, q
+    codes (S, n_q, 128) int8, integer scores (S, n_q, max_pages * page)
+    int32, p codes (S, n_q, max_pages * page) int8), zero past each slot's
+    live pages."""
+    _check_exp(q, dtype=torch.bfloat16)
+    _check_exp(k_pages, v_pages, dtype=torch.int8)
+    _check_exp(k_scales, v_scales, dtype=torch.float32)
+    _check_exp(tables, lengths, dtype=torch.int32)
+    S, n_q, d = q.shape
+    n_kv, n_pages, page, _ = k_pages.shape
+    max_pages = tables.shape[1]
+    if (d != 128 or n_q % n_kv or v_pages.shape != k_pages.shape
+            or k_scales.numel() != n_kv * n_pages * page or v_scales.shape != k_scales.shape
+            or tables.shape[0] != S or lengths.shape != (S,)):
+        raise ValueError(f"exp_paged_decode: inconsistent shapes q {tuple(q.shape)}, pages "
+                         f"{tuple(k_pages.shape)}, scales {tuple(k_scales.shape)}, tables "
+                         f"{tuple(tables.shape)}")
+    if codes and variant != "int8mm":
+        raise ValueError("only the int8mm variant has codes")
+    o = torch.empty_like(q)
+    extra = (torch.zeros((S, n_q, d), dtype=torch.int8, device=q.device),
+             torch.zeros((S, n_q, max_pages * page), dtype=torch.int32, device=q.device),
+             torch.zeros((S, n_q, max_pages * page), dtype=torch.int8, device=q.device)
+             ) if codes else (None, None, None)
+    _call("fa_exp_paged_decode", DECODE_VARIANTS.index(variant), q.data_ptr(),
+          k_pages.data_ptr(), v_pages.data_ptr(), k_scales.data_ptr(), v_scales.data_ptr(),
+          tables.data_ptr(), lengths.data_ptr(), o.data_ptr(), *(_ptr(t) for t in extra), S, n_kv,
+          n_q // n_kv, n_pages, page, max_pages, float(scale_log2e))
+    return (o, *extra) if codes else o

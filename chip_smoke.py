@@ -12,11 +12,15 @@ Phases (any failure exits non-zero before the final line):
      version on the card, at the serving slice's shapes (int8 cache, 8 kv
      heads, d 128, page 256, chunk 512, 16 slots), plus a GQA (8 q / 2 kv)
      case and an unquantized bf16 case; the KV writes must match bit for
-     bit outside the trash page, the attention kernels within a stated
-     tolerance; prints errors, median times (CUDA events) and bounds;
+     bit outside the trash page, the attention kernels within 2 bf16 ulps
+     at the output's scale, no floor; prints errors, median times (CUDA
+     events) and bounds;
   2b. the same for fp8 e4m3, fp8 e5m2 and int4 caches (int4 also at page
      512), and paged_multitoken_decode at gamma 4 on int8, bf16, fp8 e4m3
-     and int4 caches, at 8/8 heads and GQA 8 q / 2 kv;
+     and int4 caches, at 8/8 heads and GQA 8 q / 2 kv; then shapes the JAX
+     package takes that the kernels once refused: GQA 16/2 at gamma 4 (32 query
+     rows a kv head), head_dim 384 (all four kernels; and the bf16 gamma 4
+     decode), page 16;
   3. engine: the 168M decoder (vocab 32768, d_model 1024, 8 layers, 8/8
      heads, d_head 128, d_ff 4096, bf16) with random weights from the seed
      serves 18 requests (prompts of 300-1900 tokens, two sharing a
@@ -65,10 +69,14 @@ Phases (any failure exits non-zero before the final line):
      stride 2, causal, scale_front) with q != k lengths (window); (e) fp16
      local_2d (scale_end) with d != v_d; (f) the slice with the band routes
      switched off (the table kernels); (g) the slice with FA_RESIDENT=1;
-     (h) the q-outer backward, which only a direct call with fused="q"
-     reaches, as in the JAX package; then each kernel's median CUDA-event
-     time against its plain version, with useful TFLOP/s priced from
-     flops.py's schedule by the products each kernel computes;
+     (i) d = v_d = 384, (16, 1024) bf16 causal (the tensor-core forward's
+     widest class below 512, the backward's third tile class); (j), (k)
+     fp16 causal at (16, 1024, 128), banded and table; (h) the
+     q-outer backward, which only a direct call with fused="q" reaches, as
+     in the JAX package; then each kernel's median CUDA-event time against
+     its plain version, with useful TFLOP/s priced from flops.py's
+     schedule by the products each kernel computes (flash_fwd and
+     banded_fwd on bf16 run the tensor-core body);
   6. training at full width: the same 168M decoder (fp32 parameters, bf16
      compute) takes 5 AdamW steps on one seeded batch of 8 x 2048 tokens;
      the first step's loss and gradient norm must match the plain path on
@@ -122,10 +130,13 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 # bf16 activations: a logit differs by a few bf16 ulps between two matmul
 # orders; 8 layers of bf16 residual rounding bound the CPU-vs-card drift
 LOGIT_ATOL = 0.1
-# attention outputs are rounded to bf16 once by kernel and plain version
-# alike: allow 2 ulps at the output's magnitude
+# serving attention (phases 2-3e): kernel and plain version round q and p
+# to bf16 at the same points and sum in other orders, so an output element
+# parts by a rounding flip, one bf16 ulp of its own magnitude (at most 2**-7
+# of the largest): allow 2 ulps at the output's magnitude, with no floor
+# (the random caches give outputs well below 1)
 def attn_tol(ref):
-    return 2 * 2.0 ** -8 * max(1.0, float(ref.abs().max()))
+    return 2 * 2.0 ** -8 * float(ref.abs().max())
 
 
 # op kernels (phase 5): float32 differs from its plain version by summation
@@ -208,14 +219,14 @@ def token_bytes(cfg):
     return cfg.head_dim_store / cfg.tok_pack + 4
 
 
-def make_cache(cfg, dev, gen, lengths):
-    """A cache with random contents: 8 mapped pages per slot, given lengths."""
+def make_cache(cfg, dev, gen, lengths, mapped=8):
+    """A cache with random contents: ``mapped`` pages per slot, given lengths."""
     from tf_flash_attention_tpu_torch.serving.kv_cache import PagedKVCache
     cache = PagedKVCache.create(cfg, dev)
     fill_random(cache, cfg, dev, gen)
     S = cfg.max_seqs
-    perm = torch.randperm(cfg.n_pages - 1, generator=gen, device=dev)[:S * 8]
-    cache.page_tables[:, :8] = perm.reshape(S, 8).to(torch.int32)
+    perm = torch.randperm(cfg.n_pages - 1, generator=gen, device=dev)[:S * mapped]
+    cache.page_tables[:, :mapped] = perm.reshape(S, mapped).to(torch.int32)
     cache.lengths.copy_(torch.tensor(lengths, dtype=torch.int32, device=dev))
     return cache
 
@@ -263,24 +274,25 @@ def diff_outside_trash(a, b, trash):
     return diffs
 
 
-def kernel_case(name, n_q, n_kv, payload, dev, gen, page_size=256, gamma=None):
+def kernel_case(name, n_q, n_kv, payload, dev, gen, page_size=256, gamma=None, d=128):
     """Phase 2 for one configuration, at the serving slice's shapes (d 128, 16
-    slots, chunk 512): the four kernels, or with ``gamma`` only
-    paged_multitoken_decode.  Returns {kernel: {err, ms, plain_ms, bound_ms,
-    bound_by}}; bounds count this case's data (live tokens, visible pairs)."""
+    slots of up to 2048 tokens, chunk 512): the four kernels, or with
+    ``gamma`` only paged_multitoken_decode.  Returns {kernel: {err, ms,
+    plain_ms, bound_ms, bound_by}}; bounds count this case's data (live
+    tokens, visible pairs)."""
     from tf_flash_attention_tpu_torch import native
     from tf_flash_attention_tpu_torch.mask_rules import CausalRule
     from tf_flash_attention_tpu_torch.ops.kernel_common import LOG2E
     from tf_flash_attention_tpu_torch.serving import decode, kv_cache, prefill
 
-    d, S, chunk = 128, 16, 512
+    S, chunk, mapped = 16, 512, 2048 // page_size
     cfg = payload_cfg(payload, n_kv_heads=n_kv, head_dim=d, page_size=page_size,
-                      n_pages=S * 8 + S + 1, max_seqs=S, max_pages_per_seq=16)
+                      n_pages=S * mapped + S + 1, max_seqs=S, max_pages_per_seq=2 * mapped)
     trash = cfg.n_pages - 1
     lengths = torch.randint(1, 2048, (S,), generator=gen, device=dev).tolist()
     lengths[3] = 0          # an empty slot: decode gives exact zeros
     lengths[5] = 512        # a length on a page boundary
-    cache = make_cache(cfg, dev, gen, lengths)
+    cache = make_cache(cfg, dev, gen, lengths, mapped)
     bf = torch.bfloat16
     tok = token_bytes(cfg)
     act = 2                 # bf16 activations
@@ -430,6 +442,13 @@ def main():
     kernel_case("int8_gqa_8q2kv_gamma4", 8, 2, "int8", dev, gen, gamma=4)
     kernel_case("int4_gqa_8q2kv_gamma4_page512", 8, 2, "int4", dev, gen, page_size=512,
                 gamma=4)
+    # shapes the JAX package takes that the kernels refused before: GQA 8 at
+    # gamma 4 (32 query rows a kv head: two row groups), head_dim_store 384,
+    # and pages of 16 tokens (below the prefill's 32-key sub-tile)
+    kernel_case("int8_gqa_16q2kv_gamma4", 16, 2, "int8", dev, gen, gamma=4)
+    kernel_case("int8_8q8kv_d384", 8, 8, "int8", dev, gen, d=384)
+    kernel_case("bf16_8q8kv_d384_gamma4", 8, 8, "bf16", dev, gen, gamma=4, d=384)
+    kernel_case("int8_8q8kv_page16", 8, 8, "int8", dev, gen, page_size=16)
 
     # ---- 3: the engine at the 168M configuration ----
     mcfg = ModelConfig(vocab=32768, d_model=1024, n_layers=8, n_heads=8, n_kv_heads=8,
@@ -1284,6 +1303,17 @@ def op_phase(dev):
     # (g) the slice with the opt-in resident forward (FA_RESIDENT=1)
     case("(g) causal bf16 resident", causal, (cf(q), cf(k), cf(v)), cf(do), slice_types,
          RESIDENT)
+    # (i) wide heads, d = v_d = 384 (the tensor-core forward's 32-key
+    # stages, the backward's third tile class), bf16 causal, 16 rows of 1024
+    qw, kw, vw, dow = (randn((16, 1024, 384), bf) for _ in range(4))
+    case("(i) causal bf16 d 384", causal, (cf(qw), cf(kw), cf(vw)), cf(dow), slice_types)
+    # (j), (k) fp16 on the tensor-core forward's two routes: banded, and the
+    # table with the band routes off (16 rows of 1024, d 128)
+    q16, k16, v16, do16 = (randn((16, 1024, 128), h) for _ in range(4))
+    f16_types = (h, f32, h, h, h, h)
+    case("(j) causal f16", causal, (cf(q16), cf(k16), cf(v16)), cf(do16), f16_types)
+    case("(k) causal f16 table", causal, (cf(q16), cf(k16), cf(v16)), cf(do16), f16_types,
+         TABLE_ONLY)
     op_launches = {}
     for launches in per_case.values():
         for kn, n in launches.items():

@@ -188,6 +188,85 @@ def test_matches_jax_kernels(monkeypatch, case, fused):
                                    err_msg=f"{case} {name}")
 
 
+@pytest.mark.parametrize("route", ["banded", "table"])
+def test_half_forward_rounds_p_as_jax_kernels(monkeypatch, route):
+    """bf16, causal (2, 512, 64): the port's plain forward against JAX's
+    ``_banded_kernel`` / ``_fwd_kernel`` (``fast_softmax=False``, interpret
+    mode).  Both round p to bf16 before PV while l sums the float32 p, so
+    they part only where the online and the dense softmax round p against
+    different maxima: within one bf16 ulp at the output's scale (2**-8 ·
+    max |o|), on fewer than half the elements and with less than half the
+    mean error of the forward that keeps p in float32 (which parts by up to
+    2**-7 on a third of them)."""
+    if route == "table":
+        for var in ("FA_BANDED", "FA_WINDOW"):
+            monkeypatch.setenv(var, "0")
+    B, S, d = 2, 512, 64
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.uniform(-2, 2, (B, S, d)).astype(np.float32) for _ in range(3))
+    jp, tp, tr = jpack("none_front", (S,), (S,)), tpack("none_front", (S,), (S,)), \
+        trules.CausalRule()
+    bodies, out = _jax_bodies(monkeypatch, lambda: jfwd.flash_forward(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), pack=jp, rule=fa.CausalRule(),
+        config=SMALL_BLOCKS, interpret=True, fast_softmax=False), stop=False)
+    assert bodies == [{"banded": "_banded_kernel", "table": "_fwd_kernel"}[route]]
+    want = _np(out[0])
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got = _np(tfwd.flash_forward(tq, tk, tv, pack=tp, rule=tr, config=BLOCKS)[0])
+    unrounded = _np(tfwd._flash_forward_plain(tfwd.prescale(tq, d ** -0.5).float(), tk.float(),
+                                              tv.float(), tp, tr)[0].to(torch.bfloat16))
+    err, err_f32 = np.abs(got - want), np.abs(unrounded - want)
+    assert err.max() <= 2.0 ** -8 * np.abs(want).max()
+    assert (err > 0).sum() < 0.5 * (err_f32 > 0).sum()
+    assert err.mean() < 0.5 * err_f32.mean()
+
+
+# head dims past the old 256 cap: the CUDA kernels take them (a third tile
+# class, output columns past 512 over grid z); on the CPU the op path and
+# the block solver must take them too
+@pytest.mark.parametrize("d,v_d", [(384, 384), (64, 576)])
+def test_wide_head_dims_match_jax_reference(d, v_d):
+    rng = np.random.default_rng(d + v_d)
+    t = lambda shape: rng.uniform(-2.0, 2.0, shape).astype(np.float32)
+    Q, K, V, dO = t((2, d, 80)), t((2, d, 96)), t((2, v_d, 96)), t((2, v_d, 80))
+    rule = fa.CausalRule()
+    (o1, l1, m1), vjp = jax.vjp(
+        lambda q, k, v: reference_attention(q, k, v, rule=rule, sync_mode="scale_end",
+                                            returning_l_m=True),
+        jnp.asarray(Q), jnp.asarray(K), jnp.asarray(V))
+    g1 = vjp((jnp.asarray(dO), jnp.zeros_like(l1), jnp.zeros_like(m1)))
+    Qt, Kt, Vt = (torch.tensor(x, requires_grad=True) for x in (Q, K, V))
+    o2, l2, m2 = ta.flash_attention(Qt, Kt, Vt, rule=trules.CausalRule(), sync_mode="scale_end",
+                                    returning_l_m=True)   # the block solver picks the config
+    g2 = torch.autograd.grad(o2, (Qt, Kt, Vt), torch.from_numpy(dO))
+    for name, a, b, n in zip(("O", "l", "m", "dQ", "dK", "dV"), (o1, l1, m1) + tuple(g1),
+                             (o2, l2, m2) + tuple(g2), (96, 96, 96, 96, 80, 80)):
+        np.testing.assert_allclose(_np(b), _np(a), err_msg=name, **_tol(torch.float32, n))
+
+
+def test_choose_block_config_takes_any_head_dims():
+    from tf_flash_attention_tpu_torch.block_sizes import choose_block_config
+    for d, v_d in ((128, 128), (384, 384), (64, 576), (1024, 96)):
+        assert choose_block_config(d, v_d) == BLOCKS
+
+
+def test_kernel_shared_memory_guards():
+    """The wrappers' memory guards mirror the kernels' shared memory: every
+    class fits at its widest head dims, and what does not fit raises a
+    ValueError naming shared memory instead of reaching the kernel."""
+    for d, v_d in ((128, 128), (256, 256), (512, 512), (64, 576), (1024, 1024)):
+        assert native.fwd_smem(d, v_d) <= native.MAX_SMEM
+    for d, v_d in ((128, 128), (256, 256), (512, 512), (64, 576), (384, 1024)):
+        assert native.bwd_smem(d, v_d, 2) <= native.MAX_SMEM
+    for d, v_d in ((128, 128), (256, 256), (512, 512), (512, 2048), (64, 576)):
+        assert native.tc_fwd_smem(d, v_d) <= native.MAX_SMEM
+    native._check_fwd_smem("flash_fwd", torch.float32, 1024, 1024)
+    with pytest.raises(ValueError, match="d <= 512"):
+        native._check_fwd_smem("flash_fwd", torch.bfloat16, 576, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        native._check_smem("flash_bwd_fused", native.bwd_smem(1024, 1024, 2))
+
+
 # the port's kernel for each Pallas kernel body of the JAX package
 _PORT_KERNEL = {"_fwd_kernel": "flash_fwd", "_banded_kernel": "banded_fwd",
                 "_window_kernel": "window_fwd", "_resident_kernel": "resident_fwd",

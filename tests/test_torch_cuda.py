@@ -24,7 +24,19 @@ from tf_flash_attention_tpu_torch.sync_modes import make_sync_pack
 pytestmark = pytest.mark.cuda
 
 TOL_F32 = 1e-5   # float32 throughout: summation order only
-TOL_LOW = 1e-2   # bf16 outputs or bf16-rounded p: a bf16 ulp at |o| ~ 1
+
+
+def tol_low(ref):
+    """bf16 outputs or bf16-rounded p: kernel and plain version round at the
+    same points and sum in other orders, so an element parts by a rounding
+    flip, one bf16 ulp of its own magnitude (at most 2**-7 of the largest):
+    2 ulps at the output's scale, with no floor."""
+    return 2 * 2.0 ** -8 * float(ref.float().abs().max())
+
+
+def _serving_close(got, want, f32):
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL_F32 if f32 else tol_low(want))
 
 
 @pytest.fixture
@@ -122,17 +134,17 @@ def test_kv_writes_bit_identical(dev, quantized, act, kvdt):
 def test_decode_and_prefill_match_plain(dev, quantized, act, kvdt, n_q):
     cfg, c = _cache(quantized, kvdt, dev, [150, 0, 64, 255])
     gen = torch.Generator(device=dev).manual_seed(2)
-    tol = TOL_F32 if act == kvdt == torch.float32 and not quantized else TOL_LOW
+    f32 = act == kvdt == torch.float32 and not quantized
     q = torch.randn((4, n_q, 32), generator=gen, device=dev).to(act)
     o = decode.paged_decode_attention(q, c, cfg)
     ref = decode._paged_decode_plain(q, c, cfg, 32 ** -0.5, CausalRule())
-    torch.testing.assert_close(o.float(), ref.float(), rtol=0, atol=tol)
+    _serving_close(o, ref, f32)
     assert torch.equal(o[1], torch.zeros_like(o[1]))
     qp = torch.randn((40, n_q, 32), generator=gen, device=dev).to(act)
     o = prefill.paged_prefill_attention(qp, c, cfg, 0, 110, 33)
     qs = (qp.float() * torch.tensor(32 ** -0.5 * 1.4426950408889634)).to(act)
     ref = prefill._paged_prefill_plain(qs, c, cfg, 0, 110, 33, CausalRule())
-    torch.testing.assert_close(o[:33].float(), ref[:33].float(), rtol=0, atol=tol)
+    _serving_close(o[:33], ref[:33], f32)
 
 
 @pytest.mark.parametrize("quantized,act,kvdt", CASES, ids=CASE_IDS)
@@ -140,13 +152,13 @@ def test_decode_and_prefill_match_plain(dev, quantized, act, kvdt, n_q):
 def test_multitoken_decode_matches_plain(dev, quantized, act, kvdt, n_q, gamma):
     cfg, c = _cache(quantized, kvdt, dev, [150, 0, 64, 255])
     gen = torch.Generator(device=dev).manual_seed(4)
-    tol = TOL_F32 if act == kvdt == torch.float32 and not quantized else TOL_LOW
+    f32 = act == kvdt == torch.float32 and not quantized
     q = torch.randn((4, gamma, n_q, 32), generator=gen, device=dev).to(act)
     native.reset_launch_counts()
     o = decode.paged_multitoken_decode(q, c, cfg)
     assert native.LAUNCHES["paged_multitoken_decode"] == 1
     ref = decode._paged_multitoken_decode_plain(q, c, cfg, 32 ** -0.5, CausalRule())
-    torch.testing.assert_close(o.float(), ref.float(), rtol=0, atol=tol)
+    _serving_close(o, ref, f32)
     assert torch.equal(o[1], torch.zeros_like(o[1]))
     if gamma == 1:
         torch.testing.assert_close(o[:, 0], decode.paged_decode_attention(q[:, 0], c, cfg),
@@ -189,7 +201,61 @@ def test_large_pages_match_plain(dev, payload):
     q = torch.randn((2, 4, 8, 128), generator=gen, device=dev).to(torch.bfloat16)
     o = decode.paged_multitoken_decode(q, c, cfg)
     ref = decode._paged_multitoken_decode_plain(q, c, cfg, 128 ** -0.5, CausalRule())
-    torch.testing.assert_close(o.float(), ref.float(), rtol=0, atol=TOL_LOW)
+    _serving_close(o, ref, False)
+
+
+def _wide_cache(dev, quantized, n_kv, head_dim, page_size, lengths, seed):
+    """A cache holding ``lengths`` tokens of random K/V, written by the
+    kernels (every slot's pages mapped)."""
+    pages = -(-max(lengths) // page_size)
+    cfg = kv_cache.KVCacheConfig(n_kv_heads=n_kv, head_dim=head_dim, page_size=page_size,
+                                 n_pages=len(lengths) * pages + 2, max_seqs=len(lengths),
+                                 max_pages_per_seq=pages, quantized=quantized is not None,
+                                 quant_dtype=QDTYPES.get(quantized, torch.int8),
+                                 dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = kv_cache.PagedKVCache.create(cfg, dev)
+    for slot, n in enumerate(lengths):
+        if n:
+            k = torch.randn((n_kv, n, head_dim), generator=gen, device=dev).to(torch.bfloat16)
+            kv_cache.write_prompt(c, cfg, slot, list(range(slot * pages, (slot + 1) * pages)),
+                                  k, -k.flip(1))
+    return cfg, c, gen
+
+
+@pytest.mark.parametrize("n_q,n_kv,gamma,quantized", [(16, 2, 4, "int8"), (32, 1, 1, None),
+                                                      (32, 1, 1, "int4"), (16, 2, 4, None)])
+def test_decode_many_rows_wide_heads_match_plain(dev, n_q, n_kv, gamma, quantized):
+    """More than 16 query rows a kv head (GQA 8 at gamma 4, MQA 32/1) at
+    head_dim_store 384: the decode kernels take them in row groups."""
+    cfg, c, gen = _wide_cache(dev, quantized, n_kv, 384, 64, [300, 0, 129], seed=n_q + gamma)
+    assert cfg.head_dim_store == 384
+    q = torch.randn((3, gamma, n_q, 384), generator=gen, device=dev).to(torch.bfloat16)
+    native.reset_launch_counts()
+    o = decode.paged_multitoken_decode(q, c, cfg)
+    ref = decode._paged_multitoken_decode_plain(q, c, cfg, 384 ** -0.5, CausalRule())
+    _serving_close(o, ref, False)
+    assert torch.equal(o[1], torch.zeros_like(o[1]))
+    assert native.LAUNCHES["paged_multitoken_decode"] == 1
+    if gamma == 1:
+        o = decode.paged_decode_attention(q[:, 0], c, cfg)
+        _serving_close(o, decode._paged_decode_plain(q[:, 0], c, cfg, 384 ** -0.5, CausalRule()),
+                       False)
+
+
+@pytest.mark.parametrize("quantized", [None, "int8", "int4"])
+@pytest.mark.parametrize("page_size", [8, 16, 64])
+def test_prefill_small_pages_match_plain(dev, page_size, quantized):
+    """Pages below the prefill kernel's 32-key sub-tile (8, 16) and a
+    multiple of it (64), with a cached prefix."""
+    cfg, c, gen = _wide_cache(dev, quantized, 2, 128, page_size, [0, 150], seed=page_size)
+    qp = torch.randn((48, 4, 128), generator=gen, device=dev).to(torch.bfloat16)
+    native.reset_launch_counts()
+    o = prefill.paged_prefill_attention(qp, c, cfg, 1, 110, 40)
+    assert native.LAUNCHES["paged_prefill"] == 1
+    qs = (qp.float() * torch.tensor(128 ** -0.5 * 1.4426950408889634)).to(torch.bfloat16)
+    ref = prefill._paged_prefill_plain(qs, c, cfg, 1, 110, 40, CausalRule())
+    _serving_close(o[:40], ref[:40], False)
 
 
 @pytest.mark.parametrize("w,s", [(16, 0), (8, 2)])
@@ -236,6 +302,29 @@ def test_engine_on_gpu_matches_cpu(dev, quantized):
                if k != "paged_multitoken_decode") > 0
 
 
+@pytest.mark.parametrize("quantized", [False, True])
+def test_engine_page_16_on_gpu_matches_cpu(dev, quantized):
+    """The engine at page 16 (the CPU engine tests' page size) gives the CPU
+    engine's tokens, with and without speculation."""
+    cfg = ttf.ModelConfig(vocab=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                          d_head=16, d_ff=128, dtype=torch.float32)
+    prompts = [[5, 9] * 4 + [5], [1, 2, 3, 4, 5], list(range(1, 62))]
+    for spec in (0, 3):
+        ecfg = engine.EngineConfig(max_seqs=3, page_size=16, n_pages=40, max_pages_per_seq=8,
+                                   prefill_chunk=32, speculative_tokens=spec,
+                                   quantized_kv=bool(quantized))
+        outs = []
+        for where in ("cpu", dev):
+            e = engine.DecodeEngine(cfg, ttf.init_params(cfg, torch.Generator().manual_seed(0),
+                                                         "cpu"), ecfg, device=where)
+            rids = [e.submit(p, max_new_tokens=10) for p in prompts]
+            native.reset_launch_counts()
+            res = e.run()
+            outs.append(([res[r] for r in rids], e.stats, e.allocator.free_pages))
+        assert outs[0] == outs[1]
+        assert native.LAUNCHES["paged_prefill"] > 0
+
+
 @pytest.mark.parametrize("quantized", [False, True, "int4"])
 def test_engine_speculative_on_gpu_matches_cpu(dev, quantized):
     """Speculative greedy on the card gives the CPU engine's tokens, spec
@@ -277,7 +366,7 @@ def _close_lm(got, want):
 @pytest.mark.parametrize("quantized,act,kvdt", CASES, ids=CASE_IDS)
 def test_seq_sharded_variants_match_plain(dev, quantized, act, kvdt, rule):
     glob = [700, 130, 0, 255]      # slot 1 has no page on shard 3; slot 2 is empty
-    tol = TOL_F32 if act == kvdt == torch.float32 and not quantized else TOL_LOW
+    f32 = act == kvdt == torch.float32 and not quantized
     s = 32 ** -0.5
     for r in range(4):
         cfg, c = _cache(quantized, kvdt, dev, [_owned(n, r) for n in glob], seed=r)
@@ -289,7 +378,7 @@ def test_seq_sharded_variants_match_plain(dev, quantized, act, kvdt, rule):
         got = decode.paged_decode_attention(q, c, cfg, rule=rule, returning_l_m=True,
                                             global_lengths=g, **shard)
         want = decode._paged_decode_plain(q, c, cfg, s, rule, True, global_lengths=g, **shard)
-        torch.testing.assert_close(got[0].float(), want[0].float(), rtol=0, atol=tol)
+        _serving_close(got[0], want[0], f32)
         _close_lm(got, want)
         assert torch.equal(got[0][2], torch.zeros_like(got[0][2])) and float(got[1][2].abs().max()) == 0
         if r == 3:
@@ -299,14 +388,14 @@ def test_seq_sharded_variants_match_plain(dev, quantized, act, kvdt, rule):
                                              global_lengths=g, **shard)
         want = decode._paged_multitoken_decode_plain(qm, c, cfg, s, rule, True,
                                                      global_lengths=g, **shard)
-        torch.testing.assert_close(got[0].float(), want[0].float(), rtol=0, atol=tol)
+        _serving_close(got[0], want[0], f32)
         _close_lm(got, want)
         qp = torch.randn((48, 4, 32), generator=gen, device=dev).to(act)
         got = prefill.paged_prefill_attention(qp, c, cfg, 0, 600, 40, rule=rule,
                                               returning_l_m=True, **shard)
         qs = (qp.float() * torch.tensor(s * 1.4426950408889634)).to(act)
         want = prefill._paged_prefill_plain(qs, c, cfg, 0, 600, 40, rule, True, **shard)
-        torch.testing.assert_close(got[0][:40].float(), want[0][:40].float(), rtol=0, atol=tol)
+        _serving_close(got[0][:40], want[0][:40], f32)
         _close_lm([x[:40] for x in got], [x[:40] for x in want])
         trash = cfg.n_pages - 1
         k = torch.randn((2, 96, 32), generator=gen, device=dev).to(act)
@@ -432,6 +521,11 @@ OP_CASES = {
     "local_2d": (LocalRule(7, 0, False), "scale_end", (10, 22), (20, 11), 24, 12, 2, 1),
     "wide_heads": (CausalRule(), "none_front", (260,), (260,), 200, 256, 1, 2),
     "wide_heads_local": (LocalRule(5, 0, False), "none_front", (260,), (300,), 256, 200, 1, 2),
+    # the third tile class (and the tensor-core forward's 32-key stages)
+    "wide_384": (CausalRule(), "none_front", (260,), (300,), 384, 384, 1, 2),
+    "wide_384_local": (LocalRule(5, 0, False), "none_front", (260,), (300,), 384, 384, 1, 2),
+    # output columns past 512 over grid z
+    "wide_v_576": (CausalRule(), "scale_front", (200,), (330,), 64, 576, 1, 1),
 }
 
 
@@ -469,11 +563,15 @@ def test_attention_dead_rows(dev):
 @pytest.mark.parametrize("routes", list(ROUTES))
 def test_attention_kernels_slice_shape(dev, monkeypatch, routes):
     """The training slice: (B·H, S, d) = (64, 2048, 128), bf16, causal, and
-    a GQA group of 4 at the same width."""
+    a GQA group of 4 at the same width; each route launches its forward once
+    (bf16: flash_fwd and banded_fwd on the tensor-core body)."""
     for var, val in ROUTES[routes].items():
         monkeypatch.setenv(var, val)
+    native.reset_launch_counts()
     _run_op_case(dev, CausalRule(), "none_front", (2048,), (2048,), 128, 128, 64, 1,
                  torch.bfloat16)
+    fwd = {"auto": "banded_fwd", "table": "flash_fwd", "resident": "resident_fwd"}[routes]
+    assert native.LAUNCHES[fwd] == 1
     _run_op_case(dev, CausalRule(), "none_front", (2048,), (2048,), 128, 128, 16, 4,
                  torch.bfloat16)
 
@@ -492,6 +590,74 @@ def test_attention_launch_counts(dev, monkeypatch, routes, rule, kernels):
     _run_op_case(dev, rule, "scale_front", (300,), (410,), 32, 32, 1, 1, torch.float32)
     assert {k for k in native.ATTENTION_KERNELS if native.LAUNCHES[k]} == kernels | {
         "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_qouter"}
+
+
+# ---- the tensor-core forward (attention_fwd_tc.cuh) ----
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_tc_tile_matches_matmul(dev, dtype):
+    """One 64 x 64 tile through the building blocks: the S product (both
+    operands K-major in swizzled shared memory) against a k^T, and the PV
+    product (P from the accumulator fragments, V through the transpose bit)
+    against T(s) v, both in float32."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    a, k = (torch.rand((64, 64), generator=gen, device=dev) * 4 - 2).to(dtype), \
+        (torch.rand((64, 64), generator=gen, device=dev) * 4 - 2).to(dtype)
+    v = (torch.rand((64, 128), generator=gen, device=dev) * 4 - 2).to(dtype)
+    s, o = native.tc_tile_check(a, k, v)
+    s_ref = torch.matmul(a.float(), k.float().T)
+    o_ref = torch.matmul(s_ref.to(dtype).float(), v.float())
+    # float32 sums of exact products: the order only
+    torch.testing.assert_close(s, s_ref, rtol=0, atol=1e-4 * float(s_ref.abs().max()))
+    torch.testing.assert_close(o, o_ref, rtol=0, atol=1e-5 * float(o_ref.abs().max()))
+
+
+# (rule, sync, q_seq, k_seq, d, v_d, b_kv, g): the tensor-core forward's
+# classes, widths below the MMA step and odd (the staging without TMA), d !=
+# v_d, GQA, ragged tails with q_len != k_len, dead rows, a strided 2-d rule
+TC_CASES = {
+    "d24": (CausalRule(), "none_front", (300,), (300,), 24, 24, 2, 1),
+    "d64": (CausalRule(), "none_front", (384,), (384,), 64, 64, 2, 1),
+    "d128": (CausalRule(), "none_front", (520,), (520,), 128, 128, 1, 1),
+    "d256": (CausalRule(), "none_front", (260,), (260,), 256, 256, 1, 2),
+    "d384": (CausalRule(), "none_front", (260,), (300,), 384, 384, 1, 2),
+    "d_ne_vd": (CausalRule(), "scale_front", (300,), (520,), 96, 40, 2, 1),
+    "odd_widths": (FullRule(), "none_front", (200,), (130,), 27, 13, 1, 1),
+    "gqa_8_2": (CausalRule(), "none_front", (384,), (384,), 128, 128, 2, 4),
+    "ragged": (FullRule(), "none_front", (333,), (199,), 64, 64, 1, 1),
+    "dead_rows": (CausalRule(), "scale_end", (300,), (40,), 32, 32, 1, 1),
+    "local_2d_strided": (LocalRule(3, 1, True), "scale_front", (16, 24), (24, 16), 64, 64, 1, 1),
+}
+
+
+@pytest.mark.parametrize("routes", ["auto", "table"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("case", list(TC_CASES))
+def test_tc_forward_matches_plain(dev, monkeypatch, case, dtype, routes):
+    """The tensor-core body of flash_fwd and banded_fwd against the plain
+    forward, which rounds p to the input type before PV as the kernel does:
+    2 ulps of the output type at the output's scale, l and m 2e-5 at theirs."""
+    for var, val in ROUTES[routes].items():
+        monkeypatch.setenv(var, val)
+    rule, sync, q_seq, k_seq, d, v_d, b_kv, g = TC_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(d + v_d)
+    pack = make_sync_pack(sync, q_seq, k_seq)
+    q_len, k_len = int(np.prod(q_seq)), int(np.prod(k_seq))
+    t = lambda *shape: (torch.rand(shape, generator=gen, device=dev) * 4 - 2).to(dtype)
+    q, k, v = t(b_kv * g, q_len, d), t(b_kv, k_len, d), t(b_kv, k_len, v_d)
+    native.reset_launch_counts()
+    o, l, m = forward.flash_forward(q, k, v, pack=pack, rule=rule, config=BLOCKS)
+    torch.cuda.synchronize()
+    launched = {kn for kn in native.ATTENTION_KERNELS if native.LAUNCHES[kn]}
+    assert launched <= {"flash_fwd", "banded_fwd", "window_fwd"}, launched
+    if routes == "table":
+        assert launched == {"flash_fwd"}
+    o2, l2, m2 = forward._flash_forward_plain(forward.prescale(q, d ** -0.5), k, v, pack, rule)
+    _close("o", o, o2, dtype)
+    _close("l", l, l2, torch.float32)
+    _close("m", m, m2, torch.float32)
+    if case == "dead_rows":
+        assert float(o[:, 0].float().abs().max()) == 0.0 and float(l[:, 0].abs().max()) == 0.0
 
 
 # ---- the experiment tools' kernels (experiments/) against their plain versions ----

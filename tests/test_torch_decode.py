@@ -134,3 +134,20 @@ def test_cpu_tensors_take_the_plain_version():
     _run(False, 4, [10, 0, 0])
     _run("int4", 4, [10, 0, 0], gamma=2)
     assert native.LAUNCHES == before
+
+
+# more than 16 query rows per kv head (GQA 8 at gamma 4, MQA 32/1) and a
+# stored width above 256 (head_dim 320 stores 384): the CUDA kernel takes
+# them in groups of rows; the plain version and JAX take them whole
+@pytest.mark.parametrize("n_q,n_kv,gamma,head_dim,quantized",
+                         [(16, 2, 4, 320, True), (32, 1, 1, 384, False), (32, 1, 2, 128, "int4")])
+def test_decode_many_rows_and_wide_heads_match_jax(n_q, n_kv, gamma, head_dim, quantized):
+    rng = np.random.default_rng(n_q + gamma)
+    jcfg, tcfg = cache_cfgs(quantized, n_kv=n_kv, head_dim=head_dim, max_pages_per_seq=4)
+    assert tcfg.head_dim_store == -(-head_dim // 128) * 128
+    jc, tc = caches_from(random_state(tcfg, rng, [151, 70, 0]), jcfg, tcfg)
+    q = rng.uniform(-1, 1, (3, gamma, n_q, head_dim)).astype(np.float32)
+    want = np.asarray(jdec.paged_multitoken_decode(q, jc, jcfg, interpret=True))
+    got = tdec.paged_multitoken_decode(torch.from_numpy(q), tc, tcfg).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=_tol(quantized))
+    np.testing.assert_array_equal(got[2], 0.0)

@@ -23,9 +23,11 @@ TOL_Q = 2e-3     # fp8/int4: the same, at outputs up to ~2.5 (fp8 spans its rang
 QUANTIZED = [False, True, "e4m3", "e5m2", "int4"]
 
 
-def _run(quantized, start, chunk, true_len, n_q=4, rules=(None, None), seed=0):
+def _run(quantized, start, chunk, true_len, n_q=4, rules=(None, None), seed=0, page_size=64,
+         max_pages=4):
     rng = np.random.default_rng(seed)
-    jcfg, tcfg = cache_cfgs(quantized)
+    jcfg, tcfg = cache_cfgs(quantized, page_size=page_size, max_pages_per_seq=max_pages,
+                            n_pages=3 * max_pages + 4)
     jc, tc = caches_from(random_state(tcfg, rng, [0, start + true_len, 0]), jcfg, tcfg)
     q = rng.uniform(-1, 1, (chunk, n_q, 32)).astype(np.float32)
     jkw = {} if rules[0] is None else {"rule": rules[0]}
@@ -63,3 +65,14 @@ def test_paged_prefill_local_rule(w, s):
              LocalRule(window_size=w, log2_stride_size=s, is_causal=True))
     got, want = _run(False, 150, 48, 40, rules=rules, seed=2)
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL_F32)
+
+
+# pages smaller than the kernel's 32-key sub-tile, and a ragged last
+# sub-tile: every page size the JAX engine takes
+@pytest.mark.parametrize("quantized", [False, True, "int4"])
+@pytest.mark.parametrize("page_size", [8, 16, 48])
+def test_paged_prefill_small_pages_match_jax(quantized, page_size):
+    got, want = _run(quantized, 70, 48, 40, seed=4, page_size=page_size,
+                     max_pages=-(-110 // page_size))
+    tol = TOL_F32 if not quantized else TOL_INT8 if quantized is True else TOL_Q
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)

@@ -11,39 +11,48 @@ package); none of that carries over.  On the H100 each SM has 228 KB of
 shared memory, of which one block may use up to 227 KB (232,448 bytes)
 with the opt-in attribute.  The CUDA kernels (``csrc/*.cu``) therefore
 walk a schedule block in smaller CTA tiles of their own (BM query rows x
-BN key rows), fixed at compile time per head-dim class and held in
-float32 in shared memory:
+BN key rows), fixed at compile time per head-dim class.  The scalar
+bodies hold their tiles in float32 (shared memory at the class's largest
+d = v_d):
 
-=============================  ===================  ===================
-kernel                         d, v_d <= 128        d, v_d <= 256
-=============================  ===================  ===================
-table / banded / resident fwd  64 x 64, 116 KB      64 x 32, 141 KB
-fused (kv-outer, q-outer),     64 x 64, 166 KB      32 x 32, 140 KB
+=============================  ================  ================  ==============
+kernel                         max(d, v_d)       <= 256            wider: 512
+                               <= 128                              columns a CTA
+=============================  ================  ================  ==============
+table / banded fwd (float32),  64 x 64, 116 KB   64 x 32, 141 KB   16 x 16
+resident fwd
+fused (kv-outer, q-outer),     64 x 64, 166 KB   32 x 32, 140 KB   16 x 16
 banded, window, dK-dV bwd
-dQ backward                    64 x 64, 149 KB      32 x 32, 136 KB
-window forward                 32 x 64, 50 KB       32 x 32, 66 KB
-                               + 128 B per key      + 128 B per key
-                               of the band          of the band
-=============================  ===================  ===================
+dQ backward                    64 x 64, 149 KB   32 x 32, 136 KB   16 x 16
+window forward                 32 x 64, 50 KB    32 x 32, 66 KB    32 x 16
+                               + 128 B a key     + 128 B a key
+                               of the band       of the band
+=============================  ================  ================  ==============
 
-All fit the 227 KB budget (the window forward up to bands of 1408 and
-1280 keys; ``ops/forward.py`` routes wider bands to the banded kernel); a
-CTA tile divides every allowed block.  Work is proportional to the live
-area, so the solver picks the finest schedule the fields allow: 128
-everywhere.
+The wide class splits output columns past 512 over grid z (each CTA
+recomputes the scores for its chunk) and stages q, k and v whole, so its
+limit is shared memory alone: about d = v_d = 1200 for the forward and d
++ v_d = 1790 for the backward; ``native.py`` raises past it.  The bf16 and
+fp16 table and banded forwards run on the tensor-core body
+(``csrc/attention_fwd_tc.cuh``): 128 query rows a CTA, operands in their
+input type, 128-key stages at d, v_d <= 128 (161 KB), 64-key stages up to
+d 256, 32-key stages up to its limit of d 512, v_d in chunks of 256.
+
+Every class fits the 227 KB budget (the window forward up to bands of
+1408 and 1280 keys at the first two; ``ops/forward.py`` routes wider bands
+to the banded kernel); a CTA tile divides every allowed block.  Work is
+proportional to the live area, so the solver picks the finest schedule the
+fields allow: 128 everywhere.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["BlockConfig", "choose_block_config", "pad_to", "LANE", "MIN_BLOCK",
-           "MAX_HEAD_DIM"]
+__all__ = ["BlockConfig", "choose_block_config", "pad_to", "LANE", "MIN_BLOCK"]
 
 LANE = 128
 MIN_BLOCK = 128
-#: widest d / v_d the CUDA kernels' register tiles hold
-MAX_HEAD_DIM = 256
 
 
 def pad_to(n: int, m: int) -> int:
@@ -88,12 +97,10 @@ class BlockConfig:
 
 
 def choose_block_config(d: int, v_d: int) -> BlockConfig:
-    """The finest schedule (128 everywhere), after checking that the head
-    dims fit the kernels' register tiles.  The JAX solver also takes the
-    sequence lengths, dtype, rule and GQA group, to size blocks for VMEM;
-    here a block sets only the skip granularity (the CTA tiles are fixed),
-    so none of them changes the choice."""
-    if max(d, v_d) > MAX_HEAD_DIM:
-        raise ValueError(f"head dims up to {MAX_HEAD_DIM} are supported, got d {d}, "
-                         f"v_d {v_d}")
+    """The finest schedule (128 everywhere), for any head dims.  The JAX
+    solver also takes the sequence lengths, dtype, rule and GQA group, to
+    size blocks for VMEM; here a block sets only the skip granularity (the
+    CTA tiles are fixed per head-dim class), so none of them changes the
+    choice."""
+    del d, v_d
     return BlockConfig(MIN_BLOCK, MIN_BLOCK, MIN_BLOCK, MIN_BLOCK, MIN_BLOCK, MIN_BLOCK)

@@ -11,18 +11,27 @@
 // Numerics follow the JAX kernels: the online softmax runs in the log2
 // domain on a prescaled operand (q * scale * log2e, or k for the dK/dV
 // kernel), in float32; masked logits take the finite 0xFA value, never
-// -inf; dead rows (no visible key) get O = 0, l = 0, m = NEG_INF.  Inputs are
-// float32, bf16 or fp16; every product is a float32 FMA on values staged in
-// float32 (no TF32, no tensor cores yet), so float32 inputs are computed at
-// full float32 precision.  Built without --use_fast_math (exp2f stays
-// accurate).
+// -inf; dead rows (no visible key) get O = 0, l = 0, m = NEG_INF; the
+// forwards round p to the input type before PV while l sums the float32 p,
+// as the JAX kernels do.  Inputs are float32, bf16 or fp16.  This file's
+// bodies compute every product as a float32 FMA on values staged in float32
+// (no TF32), so float32 inputs are computed at full float32 precision; the
+// bf16 / fp16 forward of the table and banded walks runs on the tensor-core
+// body of attention_fwd_tc.cuh instead.  Built without --use_fast_math
+// (exp2f stays accurate).
 //
-// What bounds these kernels today: the scalar FMA rate and shared-memory
-// bandwidth.  Each thread holds a 4 x 4 (or 2 x 2) register tile of the
-// score product and reads two operands from shared memory per four FMAs, so
-// the kernels run far below the tensor cores' rate; the design keeps every
+// What bounds the scalar bodies: the scalar FMA rate and shared-memory
+// bandwidth.  Each thread holds a 4 x 4 (or 2 x 2, or 1 x 1) register tile
+// of the score product and reads two operands from shared memory per FMA
+// row, so they run far below the tensor cores' rate; the design keeps every
 // operand of a tile in shared memory once (odd row strides, no bank
-// conflicts) and skips dead tiles entirely.  wgmma/TMA tiles are later work.
+// conflicts) and skips dead tiles entirely.
+//
+// Head dims: three tile classes by max(d, v_d) (<= 128, <= 256, wider; see
+// the launch helpers).  The widest class holds 512 output columns in
+// registers; wider heads split the output columns over grid z, each CTA of
+// a row recomputing the scores for its chunk, with q, k and v staged whole
+// (the staged widths are bounded by shared memory only).
 //
 // The kernels differ in how a CTA finds its work (the Walk):
 //   kTable  - the schedule's kv_table / kv_counts / needs_mask rows;
@@ -63,7 +72,6 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int NT = 256;  // threads per CTA: a 16 x 16 grid (ty, tx)
-constexpr int MAX_DIM = 256;
 constexpr int MAX_SMEM = 232448;  // opt-in shared memory per block (227 KB)
 constexpr float INV_LOG2E = 0.6931471805599453f;
 constexpr float DEAD_LSE2 = 3e38f;  // lse2 of a row outside q_len: P = 0
@@ -109,6 +117,12 @@ template <> __device__ __forceinline__ float from_f<float>(float x) { return x; 
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
 template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half(x); }
 
+// x rounded to T and back (p before the PV product of the forwards)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
 // kernel_common.kernel_orders: order coordinates and flattened order of a
 // flattened sequence position
 __device__ __forceinline__ int seq_orders(const FaRule& r, const int* shape, const int* stride,
@@ -124,26 +138,48 @@ __device__ __forceinline__ int seq_orders(const FaRule& r, const int* shape, con
   return (c[0] << r.shift0) + c[1];
 }
 
+// A sequence position as the rule predicate reads it: in bounds, its order
+// coordinates and flattened order (computed once per row or column).
+struct SeqPos {
+  bool in;
+  int f, c[2];
+};
+
+__device__ __forceinline__ SeqPos q_pos_of(const FaRule& r, int pos) {
+  SeqPos p;
+  p.in = pos < r.q_len;
+  p.f = seq_orders(r, r.q_shape, r.q_stride, r.q_offset, pos, p.c);
+  return p;
+}
+
+__device__ __forceinline__ SeqPos k_pos_of(const FaRule& r, int pos) {
+  SeqPos p;
+  p.in = pos < r.k_len;
+  p.f = seq_orders(r, r.k_shape, r.k_stride, r.k_offset, pos, p.c);
+  return p;
+}
+
 // The rule predicate: kernel_common.build_tile_mask with mask_rules.py's
 // check (causal :127-128, local :168-178) and the sequence bounds.
-__device__ __forceinline__ bool visible(const FaRule& r, int q_pos, int k_pos) {
-  if (q_pos >= r.q_len || k_pos >= r.k_len) return false;
+__device__ __forceinline__ bool visible(const FaRule& r, const SeqPos& q, const SeqPos& k) {
+  if (!q.in || !k.in) return false;
   if (r.kind == kFull) return true;
-  int qc[2], kc[2];
-  const int qf = seq_orders(r, r.q_shape, r.q_stride, r.q_offset, q_pos, qc);
-  const int kf = seq_orders(r, r.k_shape, r.k_stride, r.k_offset, k_pos, kc);
-  if (r.kind == kCausal) return qf >= kf;
+  if (r.kind == kCausal) return q.f >= k.f;
   bool ok = true;
 #pragma unroll
   for (int dim = 0; dim < 2; ++dim) {
     if (dim < r.ndim) {
-      const int diff = abs(qc[dim] - kc[dim]);
+      const int diff = abs(q.c[dim] - k.c[dim]);
       ok = ok && (diff >> r.log2_stride) < r.window;
       if (r.log2_stride) ok = ok && (diff & ((1 << r.log2_stride) - 1)) == 0;
     }
   }
-  if (r.is_causal) ok = ok && qf >= kf;
+  if (r.is_causal) ok = ok && q.f >= k.f;
   return ok;
+}
+
+__device__ __forceinline__ bool visible(const FaRule& r, int q_pos, int k_pos) {
+  return visible(r, q_pos_of(r, q_pos), k_pos_of(r, k_pos));
 }
 
 // dst[r * ld + c] = src row (row0 + r), column c, as float; rows past n_rows
@@ -208,12 +244,13 @@ __device__ __forceinline__ void acc_pv(float (&acc)[RI][XJ], const float* P, int
 }
 
 // The forward finalize (forward.py:225-243): dead rows get O = 0, l = 0,
-// m = NEG_INF; m is published in the natural-log domain.  m_s is log2.
+// m = NEG_INF; m is published in the natural-log domain.  m_s is log2.  acc
+// holds the output columns [vc0, vc0 + 16 VJ); chunk 0 writes l and m.
 template <typename T, int RI, int VJ>
 __device__ __forceinline__ void fwd_finalize(const AttnArgs& a, int b, int row0,
                                              const float (&acc)[RI][VJ], const float* m_s,
                                              const float* l_s, int ty, int tx) {
-  const int q_len = a.rule.q_len, v_d = a.v_d;
+  const int q_len = a.rule.q_len, v_d = a.v_d, vc0 = blockIdx.z * 16 * VJ;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int r = ty + 16 * i, row = row0 + r;
@@ -226,10 +263,10 @@ __device__ __forceinline__ void fwd_finalize(const AttnArgs& a, int b, int row0,
     T* o = static_cast<T*>(a.o) + orow * v_d;
 #pragma unroll
     for (int j = 0; j < VJ; ++j) {
-      const int c = tx + 16 * j;
+      const int c = vc0 + tx + 16 * j;
       if (c < v_d) o[c] = from_f<T>(dead ? 0.f : acc[i][j] / l_safe);
     }
-    if (tx == 0) {
+    if (tx == 0 && blockIdx.z == 0) {
       a.l[orow] = l;
       a.m[orow] = dead ? neg_inf() : m * INV_LOG2E;
     }
@@ -288,7 +325,7 @@ __device__ __forceinline__ void fwd_block(const AttnArgs& a, const FwdSmem& sm, 
       float sum = 0.f;
       for (int c = part; c < BN; c += TPR) {
         const float p = exp2f(sm.Ss[r * LDS + c] - m_next);
-        sm.Ss[r * LDS + c] = p;
+        sm.Ss[r * LDS + c] = round_to<T>(p);
         sum += p;
       }
 #pragma unroll
@@ -307,7 +344,8 @@ __device__ __forceinline__ void fwd_block(const AttnArgs& a, const FwdSmem& sm, 
 #pragma unroll
       for (int j = 0; j < VJ; ++j) acc[i][j] *= alpha;
     }
-    acc_pv<RI, VJ, BN>(acc, sm.Ss, LDS, 0, sm.Vs, ldv, v_d, ty, tx);
+    const int vc0 = blockIdx.z * DMAX;  // this CTA's output columns
+    acc_pv<RI, VJ, BN>(acc, sm.Ss, LDS, 0, sm.Vs + vc0, ldv, v_d - vc0, ty, tx);
   }
 }
 
@@ -412,6 +450,7 @@ __device__ __forceinline__ void bwd_kv_rows(const AttnArgs& a, const BwdSmem& sm
   constexpr int RI = BM / 16, CJ = BN / 16, NI = BN / 16, DJ = DMAX / 16, LDS = BN + 1;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int d = a.d, v_d = a.v_d, ldq = d | 1, ldv = v_d | 1, q_len = a.rule.q_len;
+  const int cc0 = blockIdx.z * DMAX;  // this CTA's columns of dK, dV and dQ
   for (int mem = 0; mem < a.g; ++mem) {
     const int b = bkv * a.g + mem;
     __syncthreads();
@@ -448,7 +487,7 @@ __device__ __forceinline__ void bwd_kv_rows(const AttnArgs& a, const BwdSmem& sm
       }
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
-        const int c = tx + 16 * j;
+        const int c = cc0 + tx + 16 * j;
         dov[j] = c < v_d ? sm.dOs[rr * ldv + c] : 0.f;
         qv[j] = c < d ? sm.Qs[rr * ldq + c] : 0.f;
       }
@@ -466,7 +505,7 @@ __device__ __forceinline__ void bwd_kv_rows(const AttnArgs& a, const BwdSmem& sm
       for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < DJ; ++j) t[i][j] = 0.f;
-      acc_pv<RI, DJ, BN>(t, sm.dSs, LDS, 0, sm.Ks, ldq, d, ty, tx);
+      acc_pv<RI, DJ, BN>(t, sm.dSs, LDS, 0, sm.Ks + cc0, ldq, d - cc0, ty, tx);
       float* dq = a.dq_acc + static_cast<size_t>(b) * q_len * d;
 #pragma unroll
       for (int i = 0; i < RI; ++i) {
@@ -474,7 +513,7 @@ __device__ __forceinline__ void bwd_kv_rows(const AttnArgs& a, const BwdSmem& sm
         if (row >= q_len) continue;
 #pragma unroll
         for (int j = 0; j < DJ; ++j) {
-          const int c = tx + 16 * j;
+          const int c = cc0 + tx + 16 * j;
           if (c < d) atomicAdd(dq + static_cast<size_t>(row) * d + c, t[i][j]);
         }
       }
@@ -559,7 +598,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_kv_kernel(AttnArgs a) {
     const size_t row = static_cast<size_t>(bkv) * k_len + col;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      const int c = tx + 16 * j;
+      const int c = blockIdx.z * DMAX + tx + 16 * j;
       if (c < d) dk[row * d + c] = from_f<T>(dk_acc[i][j] * a.out_scale);
       if (c < v_d) dv[row * v_d + c] = from_f<T>(dv_acc[i][j]);
     }
@@ -571,6 +610,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_kv_kernel(AttnArgs a) {
 
 template <typename K>
 int launch(K kernel, dim3 grid, size_t smem, const AttnArgs& a, cudaStream_t stream) {
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
   if (smem > static_cast<size_t>(MAX_SMEM)) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -590,8 +630,8 @@ size_t bwd_smem(int bm, int bn, int d, int v_d, int score_tiles) {
 }
 
 bool dims_ok(const AttnArgs& a) {
-  return a.d >= 1 && a.v_d >= 1 && a.d <= MAX_DIM && a.v_d <= MAX_DIM && a.g >= 1 &&
-         a.B % a.g == 0 && a.B / a.g <= 65535 && a.B <= 65535;
+  return a.d >= 1 && a.v_d >= 1 && a.g >= 1 && a.B % a.g == 0 && a.B / a.g <= 65535 &&
+         a.B <= 65535;
 }
 
 // the schedule's blocks are multiples of 128 and of the CTA tiles
@@ -601,6 +641,11 @@ bool blocks_ok(const AttnArgs& a, int bm, int bn) {
 }
 
 int blocks(int n, int b) { return (n + b - 1) / b; }
+
+// output-column chunks of a backward CTA row: dK, dQ (d) and dV (v_d)
+int col_chunks(const AttnArgs& a, int cols) {
+  return blocks(a.d > a.v_d ? a.d : a.v_d, cols);
+}
 
 template <typename F>
 int dispatch(int dtype, F f) {
@@ -612,12 +657,20 @@ int dispatch(int dtype, F f) {
   }
 }
 
-bool wide(const AttnArgs& a) { return a.d > 128 || a.v_d > 128; }
+// the head-dim class of the scalar bodies: 0 for max(d, v_d) <= 128, 1 for
+// <= 256, 2 above (16-row tiles, 512 output columns a CTA, more on grid z)
+int dim_class(const AttnArgs& a) {
+  const int w = a.d > a.v_d ? a.d : a.v_d;
+  return w <= 128 ? 0 : w <= 256 ? 1 : 2;
+}
+constexpr int WIDE_COLS = 512;
 
 template <typename T, int BM, int BN, int DMAX, int WALK>
 int fwd(const AttnArgs& a, cudaStream_t stream) {
   if (!blocks_ok(a, BM, BN)) return cudaErrorInvalidValue;
-  const dim3 grid = WALK == kResident ? dim3(a.B) : dim3(blocks(a.rule.q_len, BM), a.B);
+  const int chunks = blocks(a.v_d, DMAX);
+  const dim3 grid = WALK == kResident ? dim3(a.B, 1, chunks)
+                                      : dim3(blocks(a.rule.q_len, BM), a.B, chunks);
   return launch(flash_fwd_kernel<T, BM, BN, DMAX, WALK>, grid, fwd_smem(BM, BN, a.d, a.v_d), a,
                 stream);
 }
@@ -629,20 +682,27 @@ int bwd_kv(const AttnArgs& a, cudaStream_t stream) {
                       : blocks_ok(a, BM, BN);
   if (!ok) return cudaErrorInvalidValue;
   return launch(flash_bwd_kv_kernel<T, BM, BN, DMAX, FUSED, WALK>,
-                dim3(blocks(a.rule.k_len, BN), a.B / a.g), bwd_smem(BM, BN, a.d, a.v_d, 2), a,
-                stream);
+                dim3(blocks(a.rule.k_len, BN), a.B / a.g, col_chunks(a, DMAX)),
+                bwd_smem(BM, BN, a.d, a.v_d, 2), a, stream);
 }
 
-// the forward's and the fused backward's CTA tiles per head-dim class
+// the scalar forward's and the fused backward's CTA tiles per head-dim class
 template <typename T, int WALK>
-int fwd_any(const AttnArgs& a, cudaStream_t s) {
-  return wide(a) ? fwd<T, 64, 32, 256, WALK>(a, s) : fwd<T, 64, 64, 128, WALK>(a, s);
+int fwd_scalar_any(const AttnArgs& a, cudaStream_t s) {
+  switch (dim_class(a)) {
+    case 0: return fwd<T, 64, 64, 128, WALK>(a, s);
+    case 1: return fwd<T, 64, 32, 256, WALK>(a, s);
+    default: return fwd<T, 16, 16, WIDE_COLS, WALK>(a, s);
+  }
 }
 
 template <typename T, bool FUSED, int WALK>
 int bwd_kv_any(const AttnArgs& a, cudaStream_t s) {
-  return wide(a) ? bwd_kv<T, 32, 32, 256, FUSED, WALK>(a, s)
-                 : bwd_kv<T, 64, 64, 128, FUSED, WALK>(a, s);
+  switch (dim_class(a)) {
+    case 0: return bwd_kv<T, 64, 64, 128, FUSED, WALK>(a, s);
+    case 1: return bwd_kv<T, 32, 32, 256, FUSED, WALK>(a, s);
+    default: return bwd_kv<T, 16, 16, WIDE_COLS, FUSED, WALK>(a, s);
+  }
 }
 
 AttnArgs make_args(const void* q, const void* k, const void* v, int B, int g, int d, int v_d,

@@ -1,7 +1,8 @@
 // The table-driven attention kernels of the PyTorch port's op path, for
 // Hopper (sm_90a).  Shared device code: attention_common.cuh.
 //
-//   fa_flash_fwd        <- ops/forward.py::_fwd_kernel   (table-driven forward)
+//   fa_flash_fwd        <- ops/forward.py::_fwd_kernel   (table-driven forward; bf16 and
+//                          fp16 on the tensor-core body of attention_fwd_tc.cuh)
 //   fa_flash_bwd_fused  <- ops/backward.py::_fused_kernel (kv-outer 5-product backward)
 //   fa_flash_bwd_dq     <- ops/backward.py::_dq_kernel    (split pair: dQ, q-outer)
 //   fa_flash_bwd_dkv    <- ops/backward.py::_dkv_kernel   (split pair: dK/dV, kv-outer)
@@ -13,8 +14,28 @@
 // row, and evaluates the rule predicate only on tiles with needs_mask != 0.
 
 #include "attention_common.cuh"
+#include "attention_fwd_tc.cuh"
 
 namespace {
+
+// dq rows [row0, row0 + 16 RI), columns [cc0, cc0 + 16 DJ) = acc * out_scale
+template <typename T, int RI, int DJ>
+__device__ __forceinline__ void store_dq(const AttnArgs& a, const float (&acc)[RI][DJ], int b,
+                                         int row0, int cc0, int ty, int tx) {
+  const int q_len = a.rule.q_len, d = a.d;
+  T* dq = static_cast<T*>(a.dq);
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = row0 + ty + 16 * i;
+    if (row >= q_len) continue;
+    const size_t base = (static_cast<size_t>(b) * q_len + row) * d;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      const int c = cc0 + tx + 16 * j;
+      if (c < d) dq[base + c] = from_f<T>(acc[i][j] * a.out_scale);
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // fa_flash_bwd_dq.  Replaces ops/backward.py::_dq_kernel.  One CTA per
@@ -35,7 +56,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_kernel(AttnArgs a) {
   float* d_s = lse_s + BM;
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int b = blockIdx.y, row0 = blockIdx.x * BM;
+  const int b = blockIdx.y, row0 = blockIdx.x * BM, cc0 = blockIdx.z * DMAX;
   const int q_len = a.rule.q_len, k_len = a.rule.k_len;
   const T* kb = static_cast<const T*>(a.k) + static_cast<size_t>(b / a.g) * k_len * d;
   const T* vb = static_cast<const T*>(a.v) + static_cast<size_t>(b / a.g) * k_len * v_d;
@@ -78,21 +99,10 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_kernel(AttnArgs a) {
           dSs[r * LDS + c] = p * (dp[i][j] - d_s[r]);
         }
       __syncthreads();
-      acc_pv<RI, DJ, BN>(acc, dSs, LDS, 0, Ks, ldq, d, ty, tx);
+      acc_pv<RI, DJ, BN>(acc, dSs, LDS, 0, Ks + cc0, ldq, d - cc0, ty, tx);
     }
   }
-  T* dq = static_cast<T*>(a.dq);
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row >= q_len) continue;
-    const size_t base = (static_cast<size_t>(b) * q_len + row) * d;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < d) dq[base + c] = from_f<T>(acc[i][j] * a.out_scale);
-    }
-  }
+  store_dq<T>(a, acc, b, row0, cc0, ty, tx);
 }
 
 // ---------------------------------------------------------------------------
@@ -120,7 +130,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_qouter_kernel(AttnArgs a) {
   float* d_s = lse_s + BM;
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int b = blockIdx.y, row0 = blockIdx.x * BM, bkv = b / a.g;
+  const int b = blockIdx.y, row0 = blockIdx.x * BM, bkv = b / a.g, cc0 = blockIdx.z * DMAX;
   const int q_len = a.rule.q_len, k_len = a.rule.k_len;
   const T* kb = static_cast<const T*>(a.k) + static_cast<size_t>(bkv) * k_len * d;
   const T* vb = static_cast<const T*>(a.v) + static_cast<size_t>(bkv) * k_len * v_d;
@@ -138,6 +148,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_qouter_kernel(AttnArgs a) {
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
   // out[n][c] += sum_r X[r][n] * Y[r][c] over the BM rows, added to dst
+  // (rows of `cols` floats), the columns c of this CTA's chunk
   auto add_transposed = [&](const float* X, const float* Y, int ldy, int cols, float* dst,
                             int c0) {
     float t[NI][DJ];
@@ -151,7 +162,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_qouter_kernel(AttnArgs a) {
       for (int i = 0; i < NI; ++i) xn[i] = X[rr * LDS + ty + 16 * i];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
-        const int c = tx + 16 * j;
+        const int c = cc0 + tx + 16 * j;
         yv[j] = c < cols ? Y[rr * ldy + c] : 0.f;
       }
 #pragma unroll
@@ -165,7 +176,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_qouter_kernel(AttnArgs a) {
       if (col >= k_len) continue;
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
-        const int c = tx + 16 * j;
+        const int c = cc0 + tx + 16 * j;
         if (c < cols) atomicAdd(dst + static_cast<size_t>(col) * cols + c, t[i][j]);
       }
     }
@@ -200,36 +211,27 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_qouter_kernel(AttnArgs a) {
           dSs[r * LDS + c] = p * (dp[i][j] - d_s[r]);
         }
       __syncthreads();
-      acc_pv<RI, DJ, BN>(acc, dSs, LDS, 0, Ks, ldq, d, ty, tx);  // dQ += dS K
-      add_transposed(Ps, dOs, ldv, v_d, dv_acc, c0);              // dV += P^T dO
-      add_transposed(dSs, Qs, ldq, d, dk_acc, c0);                // dK += dS^T q
+      acc_pv<RI, DJ, BN>(acc, dSs, LDS, 0, Ks + cc0, ldq, d - cc0, ty, tx);  // dQ += dS K
+      add_transposed(Ps, dOs, ldv, v_d, dv_acc, c0);                          // dV += P^T dO
+      add_transposed(dSs, Qs, ldq, d, dk_acc, c0);                            // dK += dS^T q
     }
   }
-  T* dq = static_cast<T*>(a.dq);
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row >= q_len) continue;
-    const size_t base = (static_cast<size_t>(b) * q_len + row) * d;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < d) dq[base + c] = from_f<T>(acc[i][j] * a.out_scale);
-    }
-  }
+  store_dq<T>(a, acc, b, row0, cc0, ty, tx);
 }
 
 template <typename T, int BM, int BN, int DMAX>
 int bwd_qouter(const AttnArgs& a, cudaStream_t stream) {
   if (!blocks_ok(a, BM, BN)) return cudaErrorInvalidValue;
-  return launch(flash_bwd_qouter_kernel<T, BM, BN, DMAX>, dim3(blocks(a.rule.q_len, BM), a.B),
+  return launch(flash_bwd_qouter_kernel<T, BM, BN, DMAX>,
+                dim3(blocks(a.rule.q_len, BM), a.B, col_chunks(a, DMAX)),
                 bwd_smem(BM, BN, a.d, a.v_d, 2), a, stream);
 }
 
 template <typename T, int BM, int BN, int DMAX>
 int bwd_dq(const AttnArgs& a, cudaStream_t stream) {
   if (!blocks_ok(a, BM, BN)) return cudaErrorInvalidValue;
-  return launch(flash_bwd_dq_kernel<T, BM, BN, DMAX>, dim3(blocks(a.rule.q_len, BM), a.B),
+  return launch(flash_bwd_dq_kernel<T, BM, BN, DMAX>,
+                dim3(blocks(a.rule.q_len, BM), a.B, blocks(a.d, DMAX)),
                 bwd_smem(BM, BN, a.d, a.v_d, 1), a, stream);
 }
 
@@ -294,7 +296,11 @@ int fa_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v, cons
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, [&](auto tag) {
     using T = decltype(tag);
-    return wide(a) ? bwd_dq<T, 32, 32, 256>(a, s) : bwd_dq<T, 64, 64, 128>(a, s);
+    switch (dim_class(a)) {
+      case 0: return bwd_dq<T, 64, 64, 128>(a, s);
+      case 1: return bwd_dq<T, 32, 32, 256>(a, s);
+      default: return bwd_dq<T, 16, 16, WIDE_COLS>(a, s);
+    }
   });
 }
 
@@ -332,8 +338,23 @@ int fa_flash_bwd_qouter(int dtype, const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, [&](auto tag) {
     using T = decltype(tag);
-    return wide(a) ? bwd_qouter<T, 32, 32, 256>(a, s) : bwd_qouter<T, 64, 64, 128>(a, s);
+    switch (dim_class(a)) {
+      case 0: return bwd_qouter<T, 64, 64, 128>(a, s);
+      case 1: return bwd_qouter<T, 32, 32, 256>(a, s);
+      default: return bwd_qouter<T, 16, 16, WIDE_COLS>(a, s);
+    }
   });
+}
+
+// the tensor-core building blocks on one tile (tc::tile_check): a, k (64,
+// 64) and v (64, 128) of bf16 or fp16 -> s = a k^T (64, 64) and o = s v
+// (64, 128), s rounded to the input type before the second product
+int fa_tc_tile_check(int dtype, const void* a, const void* k, const void* v, float* s, float* o,
+                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) return tc::tile_check<bf16>(a, k, v, s, o, st);
+  if (dtype == kF16) return tc::tile_check<__half>(a, k, v, s, o, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

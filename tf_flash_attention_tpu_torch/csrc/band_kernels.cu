@@ -1,7 +1,8 @@
 // The banded and single-window attention kernels of the PyTorch port's op
 // path, for Hopper (sm_90a).  Shared device code: attention_common.cuh.
 //
-//   fa_banded_fwd  <- ops/forward_banded.py::_banded_kernel (forward over one band per q block)
+//   fa_banded_fwd  <- ops/forward_banded.py::_banded_kernel (forward over one band per q block;
+//                     bf16 and fp16 on the tensor-core body of attention_fwd_tc.cuh)
 //   fa_banded_bwd  <- ops/backward.py::_fused_banded_kernel (fused backward, one band per kv block)
 //   fa_window_fwd  <- ops/forward_banded.py::_window_kernel (closed-form single-window forward)
 //   fa_window_bwd  <- ops/backward.py::_fused_window_kernel (fused backward over one q band)
@@ -22,6 +23,7 @@
 // width (window_fwd_smem below; native.py routes wider bands elsewhere).
 
 #include "attention_common.cuh"
+#include "attention_fwd_tc.cuh"
 
 namespace {
 
@@ -83,7 +85,7 @@ __global__ void __launch_bounds__(NT, 1) window_fwd_kernel(AttnArgs a) {
     float sum = 0.f;
     for (int c = part; c < W; c += TPR) {
       const float p = exp2f(Ps[r * ldw + c] - m_safe);
-      Ps[r * ldw + c] = p;
+      Ps[r * ldw + c] = round_to<T>(p);
       sum += p;
     }
 #pragma unroll
@@ -98,11 +100,12 @@ __global__ void __launch_bounds__(NT, 1) window_fwd_kernel(AttnArgs a) {
   for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < VJ; ++j) acc[i][j] = 0.f;
+  const int vc0 = blockIdx.z * DMAX;      // this CTA's output columns
   for (int c0 = 0; c0 < W; c0 += BN) {  // pass 2: O = P V
     __syncthreads();
     load_tile(KVs, ldv, vb, start + c0, BN, k_len, v_d);
     __syncthreads();
-    acc_pv<RI, VJ, BN>(acc, Ps, ldw, c0, KVs, ldv, v_d, ty, tx);
+    acc_pv<RI, VJ, BN>(acc, Ps, ldw, c0, KVs + vc0, ldv, v_d - vc0, ty, tx);
   }
   fwd_finalize<T>(a, b, row0, acc, m_s, l_s, ty, tx);
 }
@@ -116,13 +119,18 @@ template <typename T, int BN, int DMAX, bool MASKED>
 int window_fwd(const AttnArgs& a, cudaStream_t stream) {
   if (!dims_ok(a) || a.sub % WBM || a.sub % 128 || a.band % BN || a.band < BN)
     return cudaErrorInvalidValue;
-  return launch(window_fwd_kernel<T, BN, DMAX, MASKED>, dim3(blocks(a.rule.q_len, WBM), a.B),
+  return launch(window_fwd_kernel<T, BN, DMAX, MASKED>,
+                dim3(blocks(a.rule.q_len, WBM), a.B, blocks(a.v_d, DMAX)),
                 window_fwd_smem(BN, a.d, a.v_d, a.band), a, stream);
 }
 
 template <typename T, bool MASKED>
 int window_fwd_any(const AttnArgs& a, cudaStream_t s) {
-  return wide(a) ? window_fwd<T, 32, 256, MASKED>(a, s) : window_fwd<T, 64, 128, MASKED>(a, s);
+  switch (dim_class(a)) {
+    case 0: return window_fwd<T, 64, 128, MASKED>(a, s);
+    case 1: return window_fwd<T, 32, 256, MASKED>(a, s);
+    default: return window_fwd<T, 16, WIDE_COLS, MASKED>(a, s);
+  }
 }
 
 void set_fwd_out(AttnArgs& a, void* o, float* l, float* m) {
@@ -165,7 +173,7 @@ int fa_resident_fwd(int dtype, const void* q, const void* k, const void* v, void
   a.block_kv = block_kv;
   set_fwd_out(a, o, l, m);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, [&](auto tag) { return fwd_any<decltype(tag), kResident>(a, s); });
+  return dispatch(dtype, [&](auto tag) { return fwd_scalar_any<decltype(tag), kResident>(a, s); });
 }
 
 // q prescaled; starts (q_pad / sub_q,) int32 key-band starts, band width W

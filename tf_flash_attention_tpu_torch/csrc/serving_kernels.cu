@@ -339,11 +339,16 @@ __global__ void kv_append_kernel(const T* __restrict__ k_new, const T* __restric
 // ---------------------------------------------------------------------------
 // K1 paged_decode and K5 paged_multitoken_decode.  Replace
 // serving/decode.py::_decode_kernel at gamma 1 (paged_decode_attention) and
-// at gamma > 1 (paged_multitoken_decode).  One block per (slot, kv head)
-// takes its g query heads times gamma draft positions as rows = g * gamma
-// query rows (gamma-minor: row r is head r / gamma of the group at draft r %
-// gamma), unpadded (the TPU's 8-row padding was a tiling artefact); loops
-// over them are unrolled to GM, rows rounded up to a power of two (<= 16).
+// at gamma > 1 (paged_multitoken_decode).  The g query heads of a kv head
+// times gamma draft positions make g * gamma query rows (gamma-minor: row r
+// is head r / gamma of the group at draft r % gamma), unpadded (the TPU's
+// 8-row padding was a tiling artefact).  One block per (slot, kv head, group
+// of at most 16 of those rows, chunk of at most 1024 output columns) takes
+// its rows; loops over them are unrolled to GM, the group's rows rounded up
+// to a power of two.  Any number of rows and any stored width D (a multiple
+// of 128) run: more rows or columns add blocks on grid z, each reading the
+// slot's pages again (through L2) and, for a column chunk, recomputing the
+// logits.
 // Row r sits at position length - gamma + r % gamma and sees keys up to and
 // including itself: the same page stream serves every row, with a per-row
 // bound on the logits, so verifying gamma drafts costs one pass over the
@@ -370,7 +375,8 @@ __global__ void kv_append_kernel(const T* __restrict__ k_new, const T* __restric
 constexpr int kDecThreads = 256;
 constexpr int kDecWarps = kDecThreads / 32;
 constexpr int kStageBytes = 32 * 1024;   // per operand
-constexpr int kDecMaxRows = 16;
+constexpr int kDecMaxRows = 16;          // query rows a block
+constexpr int kDecCols = 1024;           // output columns a block
 
 // features j .. j + 3 of token t in a stage of stored rows of D elements
 template <typename P>
@@ -460,7 +466,13 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
   constexpr int PACK = Payload<P>::kPack;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int g = n_q / n_kv;
-  const int rows = g * gamma;                // <= GM
+  // this block's rows [r_first, r_first + rows) of the g * gamma, and
+  // output columns [cc0, cc0 + W) of the D
+  const int n_cc = (D + kDecCols - 1) / kDecCols;
+  const int r_first = static_cast<int>(blockIdx.z) / n_cc * kDecMaxRows;
+  const int cc0 = static_cast<int>(blockIdx.z) % n_cc * kDecCols;
+  const int rows = min(g * gamma - r_first, kDecMaxRows);   // <= GM
+  const int W = min(D - cc0, kDecCols);
   unsigned char* kbuf = smem_raw;
   unsigned char* vbuf = smem_raw + kStageBytes;
   float* q_sh = reinterpret_cast<float*>(smem_raw + 2 * kStageBytes);  // rows * D
@@ -479,11 +491,15 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
   const bool whole_page = stage_rows == page_size;
   // phase A: token t = tb + sub for lanes 8 sub .. 8 sub + 7
   const int sub = lane >> 3, sl = lane & 7, epl = D / 8;
-  // phase C: columns c4 .. c4 + 3 of every `groups`-th token from grp
-  const int c4 = 4 * (tid % (D / 4)), groups = kDecThreads / (D / 4), grp = tid / (D / 4);
-  // q (S, gamma, n_q, d): row r is draft r % gamma of head h g + r / gamma
+  // phase C: columns cc0 + c4 .. + 3 of every `groups`-th token from grp;
+  // threads past the last group idle there
+  const int quads = W / 4;
+  const int c4 = 4 * (tid % quads), groups = kDecThreads / quads, grp = tid / quads;
+  // q (S, gamma, n_q, d): the block's row r is row r_first + r of the
+  // group, draft (r_first + r) % gamma of head h g + (r_first + r) / gamma
   auto q_index = [&](int r) {
-    return ((static_cast<size_t>(b) * gamma + r % gamma) * n_q + h * g + r / gamma) * d;
+    const int gr = r_first + r;
+    return ((static_cast<size_t>(b) * gamma + gr % gamma) * n_q + h * g + gr / gamma) * d;
   };
 
   for (int i = tid; i < rows * D; i += kDecThreads) {
@@ -556,7 +572,8 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
           s += __shfl_xor_sync(0xffffffffu, s, 2);
           s += __shfl_xor_sync(0xffffffffu, s, 1);
           if (r < rows && sl == 0 && t < n) {
-            const bool ok = visible(q_pos0 + r % gamma, kv_pos, window, log2_stride, is_local);
+            const bool ok =
+                visible(q_pos0 + (r_first + r) % gamma, kv_pos, window, log2_stride, is_local);
             p_sh[r * page_size + t0 + t] = ok ? s * mul : neg_inf();
           }
         }
@@ -569,9 +586,10 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
 #pragma unroll
       for (int k = 0; k < 4; ++k) pv[r][k] = 0.f;
     auto values = [&](int t0, int n) {
+      if (grp >= groups) return;
       for (int t = grp; t < n; t += groups) {
         float vv[4];
-        load4<P>(vbuf, t, D, c4, vv);
+        load4<P>(vbuf, t, D, cc0 + c4, vv);
 #pragma unroll
         for (int r = 0; r < GM; ++r) {
           if (r < rows) {
@@ -652,7 +670,7 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
 
   // each row's statistics, before acc is normalised; a (slot, kv head)
   // with no local page writes l = 0 and m = NEG_INF (and o = 0 below)
-  if (l_out) {
+  if (l_out && cc0 == 0) {
     for (int r = tid; r < rows; r += kDecThreads) {
       const size_t i = q_index(r) / d;
       l_out[i] = l_sh[r];
@@ -660,22 +678,22 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     }
   }
   // sum the token groups' partial outputs (the stages are free now:
-  // groups * rows * D floats = 4096 rows bytes <= 2 stages); an empty slot
+  // groups * rows * W floats <= 4096 rows bytes <= 2 stages); an empty slot
   // has l == 0 and gives exact zeros
   float* red = reinterpret_cast<float*>(smem_raw);
 #pragma unroll
   for (int r = 0; r < GM; ++r) {
-    if (r < rows) {
+    if (r < rows && grp < groups) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) red[(grp * rows + r) * D + c4 + k] = acc[r][k];
+      for (int k = 0; k < 4; ++k) red[(grp * rows + r) * W + c4 + k] = acc[r][k];
     }
   }
   __syncthreads();
-  for (int i = tid; i < rows * D; i += kDecThreads) {
-    const int r = i / D, col = i % D;
+  for (int i = tid; i < rows * W; i += kDecThreads) {
+    const int r = i / W, col = cc0 + i % W;
     if (col >= d) continue;
     float sum = 0.f;
-    for (int k = 0; k < groups; ++k) sum += red[(k * rows + r) * D + col];
+    for (int k = 0; k < groups; ++k) sum += red[(k * rows + r) * W + col - cc0];
     const float l = l_sh[r];
     o[q_index(r) + col] = from_f<T>(sum / (l == 0.f ? 1.f : l));
   }
@@ -683,9 +701,11 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
 
 // ---------------------------------------------------------------------------
 // K2 paged_prefill.  Replaces serving/prefill.py::_prefill_kernel.  One
-// block per (q head, tile of kPfTQ chunk rows) loops over the sequence's
-// live pages [first_live, count).  Per page, in sub-tiles of kPfTK keys
-// staged in shared memory as float (int8 and fp8 cast, int4 sign-extended
+// block per (q head, tile of kPfTQ chunk rows, DC of the D output columns)
+// loops over the sequence's live pages [first_live, count).  Per page, in
+// sub-tiles of kPfTK keys (a page of fewer keys, or its ragged last
+// sub-tile, stages zeros past its end and leaves those columns alone) staged
+// in shared memory as float (int8 and fp8 cast, int4 sign-extended
 // from its nibble: token t of a page is nibble t % 2 of byte row t / 2, so
 // the even and odd halves share one online softmax, as in the reference):
 //   S = Q K^T with a 2x4 register micro-tile per thread, K scale, and the
@@ -704,17 +724,21 @@ constexpr int kPfThreads = 128;
 constexpr int kPfTQ = 32;
 constexpr int kPfTK = 32;
 
-template <typename T, typename P, typename C, int D>
+// DK: the stored width D at compile time (the common 128 and 256: the
+// staging loops' divisions become shifts), or 0 to read it from d_store
+template <typename T, typename P, typename C, int DC, int DK>
 __global__ void __launch_bounds__(kPfThreads)
 paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
                      const P* __restrict__ v_pages, const float* __restrict__ k_scales,
                      const float* __restrict__ v_scales, const int* __restrict__ table_row,
                      T* __restrict__ o, float* __restrict__ l_out, float* __restrict__ m_out,
-                     int chunk, int n_q, int n_kv, int d, int page_size, int n_pages,
+                     int chunk, int n_q, int n_kv, int d, int d_store, int page_size, int n_pages,
                      int max_pages, int page_stride, int page_offset, int start, int total,
                      int first_live, int count, int window, int log2_stride, int is_local) {
-  constexpr int QS = D + 1;  // padded row strides: no bank conflicts in S
-  constexpr int NC = D / 32;
+  const int D = DK ? DK : d_store;
+  const int QS = D + 1;  // padded row strides: no bank conflicts in S
+  constexpr int NC = DC / 32;
+  const int cc0 = blockIdx.z * DC;  // this block's output columns
   extern __shared__ float smem[];
   const int SS = page_size + 1;
   float* q_sh = smem;                  // kPfTQ * QS
@@ -779,9 +803,10 @@ paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
                  gp * page_size >= start + chunk - sw;
 
     for (int t0 = 0; t0 < page_size; t0 += kPfTK) {
+      const int n = min(kPfTK, page_size - t0);
       for (int i = tid; i < kPfTK * D; i += kPfThreads) {
         const int t = i / D, j = i % D;
-        kv_sh[t * QS + j] = tok_val<P>(kp, t0 + t, D, j);
+        kv_sh[t * QS + j] = t < n ? tok_val<P>(kp, t0 + t, D, j) : 0.f;
       }
       __syncthreads();
       float s[2][4];
@@ -804,6 +829,7 @@ paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
         const int q_pos = start + row0 + r;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
+          if (cg + 8 * j >= n) continue;
           const int t = t0 + cg + 8 * j;
           float v = quantized ? s[i][j] * ks_sh[t] : s[i][j];
           if (!interior) {
@@ -849,12 +875,13 @@ paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
 #pragma unroll
       for (int c = 0; c < NC; ++c) pv[i][c] = 0.f;
     for (int t0 = 0; t0 < page_size; t0 += kPfTK) {
-      for (int i = tid; i < kPfTK * D; i += kPfThreads) {
-        const int t = i / D, j = i % D;
-        kv_sh[t * QS + j] = tok_val<P>(vp, t0 + t, D, j);
+      const int n = min(kPfTK, page_size - t0);
+      for (int i = tid; i < n * DC; i += kPfThreads) {
+        const int t = i / DC, j = i % DC;
+        kv_sh[t * QS + j] = tok_val<P>(vp, t0 + t, D, cc0 + j);
       }
       __syncthreads();
-      for (int t = 0; t < kPfTK; ++t) {
+      for (int t = 0; t < n; ++t) {
         float vv[NC];
 #pragma unroll
         for (int c = 0; c < NC; ++c) vv[c] = kv_sh[t * QS + lane + 32 * c];
@@ -883,13 +910,13 @@ paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     const int row = row0 + r;
     if (row >= chunk) break;
     const float l = l_sh[r];
-    if (l_out && lane == 0) {
+    if (l_out && lane == 0 && cc0 == 0) {
       l_out[static_cast<size_t>(row) * n_q + hq] = l;
       m_out[static_cast<size_t>(row) * n_q + hq] = m_sh[r];
     }
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      const int col = lane + 32 * c;
+      const int col = cc0 + lane + 32 * c;
       if (col < d)
         o[(static_cast<size_t>(row) * n_q + hq) * d + col] =
             from_f<T>(acc[i][c] / (l == 0.f ? 1.f : l));
@@ -996,14 +1023,16 @@ struct Decode {
   cudaStream_t stream;
   template <typename T, typename P, typename C, int GM>
   int launch() const {
-    const int rows = n_q / n_kv * gamma;
+    const int rows = n_q / n_kv * gamma, block_rows = min(rows, kDecMaxRows);
     const size_t smem = 2 * kStageBytes +
-                        sizeof(float) * (static_cast<size_t>(rows) * (d_store + page_size) +
-                                         2 * page_size + 3 * rows);
+                        sizeof(float) * (static_cast<size_t>(block_rows) * (d_store + page_size) +
+                                         2 * page_size + 3 * block_rows);
+    const int z = (rows + kDecMaxRows - 1) / kDecMaxRows * ((d_store + kDecCols - 1) / kDecCols);
+    if (smem > 232448 || z > 65535) return static_cast<int>(cudaErrorInvalidValue);
     auto kernel = paged_decode_kernel<T, P, C, GM>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<dim3(S, n_kv), kDecThreads, smem, stream>>>(
+    kernel<<<dim3(S, n_kv, z), kDecThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const P*>(k_pages),
         static_cast<const P*>(v_pages), k_scales, v_scales, tables, lengths, glob_lengths,
         static_cast<T*>(o), l, m, n_q, n_kv, d, d_store, page_size, n_pages, max_pages, gamma,
@@ -1013,17 +1042,18 @@ struct Decode {
   template <typename T, typename P, typename C>
   int run() const {
     const int rows = n_q / n_kv * gamma;
-    if (n_q % n_kv || gamma < 1 || page_size % Payload<P>::kPack ||
-        (d_store != 128 && d_store != 256) || page_stride < 1 || page_offset < 0 ||
-        page_offset >= page_stride || (l == nullptr) != (m == nullptr))
+    // a stored row must fit one stage (the memory guard of the staging)
+    if (n_q % n_kv || gamma < 1 || page_size % Payload<P>::kPack || d_store < 128 ||
+        d_store % 128 || d_store * static_cast<int>(sizeof(P)) > kStageBytes ||
+        page_stride < 1 || page_offset < 0 || page_offset >= page_stride ||
+        (l == nullptr) != (m == nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
     if (S == 0) return 0;
     if (rows <= 1) return launch<T, P, C, 1>();
     if (rows <= 2) return launch<T, P, C, 2>();
     if (rows <= 4) return launch<T, P, C, 4>();
     if (rows <= 8) return launch<T, P, C, 8>();
-    if (rows <= kDecMaxRows) return launch<T, P, C, kDecMaxRows>();
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch<T, P, C, kDecMaxRows>();
   }
 };
 
@@ -1037,31 +1067,36 @@ struct Prefill {
   int chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages, page_stride, page_offset,
       start, total, first_live, count, window, log2_stride, is_local;
   cudaStream_t stream;
-  template <typename T, typename P, typename C, int D>
+  template <typename T, typename P, typename C, int DC, int DK>
   int launch() const {
-    const size_t smem = sizeof(float) * (static_cast<size_t>(2 * kPfTQ) * (D + 1) +
+    const size_t smem = sizeof(float) * (static_cast<size_t>(2 * kPfTQ) * (d_store + 1) +
                                          static_cast<size_t>(kPfTQ) * (page_size + 1) +
                                          2 * page_size + 3 * kPfTQ);
-    auto kernel = paged_prefill_kernel<T, P, C, D>;
+    if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+    auto kernel = paged_prefill_kernel<T, P, C, DC, DK>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(n_q, (chunk + kPfTQ - 1) / kPfTQ);
+    const dim3 grid(n_q, (chunk + kPfTQ - 1) / kPfTQ, d_store / DC);
     kernel<<<grid, kPfThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const P*>(k_pages),
         static_cast<const P*>(v_pages), k_scales, v_scales, table_row, static_cast<T*>(o), l, m,
-        chunk, n_q, n_kv, d, page_size, n_pages, max_pages, page_stride, page_offset, start,
-        total, first_live, count, window, log2_stride, is_local);
+        chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages, page_stride, page_offset,
+        start, total, first_live, count, window, log2_stride, is_local);
     return static_cast<int>(cudaGetLastError());
   }
   template <typename T, typename P, typename C>
   int run() const {
-    if (page_size % kPfTK || n_q % n_kv || page_stride < 1 || page_offset < 0 ||
-        page_offset >= page_stride || (l == nullptr) != (m == nullptr))
+    if (page_size % Payload<P>::kPack || n_q % n_kv || d_store < 128 || d_store % 128 ||
+        page_stride < 1 || page_offset < 0 || page_offset >= page_stride ||
+        (l == nullptr) != (m == nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
     if (chunk == 0) return 0;
-    if (d_store == 128) return launch<T, P, C, 128>();
-    if (d_store == 256) return launch<T, P, C, 256>();
-    return static_cast<int>(cudaErrorInvalidValue);
+    if (d_store == 128) return launch<T, P, C, 128, 128>();
+    if (d_store == 256) return launch<T, P, C, 256, 256>();
+    // wider: output columns in chunks of 256 where they divide the width,
+    // else 128
+    if (d_store % 256 == 0) return launch<T, P, C, 256, 0>();
+    return launch<T, P, C, 128, 0>();
   }
 };
 

@@ -35,7 +35,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .block_sizes import LANE, MAX_HEAD_DIM
+from .block_sizes import LANE
 from .mask_rules import CausalRule, FullRule, LocalRule
 from .sync_modes import ref_log2
 
@@ -185,6 +185,8 @@ _SIGNATURES = {
         # dtype, q, k, v, dout, lse2, delta, dq, dk_acc, dv_acc, table,
         # counts, needs, num_steps, block_q, block_kv, B, g, d, v_d, scale, rule
         "fa_flash_bwd_qouter": [_I] + [_P] * 12 + [_I] * 7 + [_F, _R],
+        # dtype, a, k, v, s, o: the tensor-core building blocks on one tile
+        "fa_tc_tile_check": [_I] + [_P] * 5,
     },
     "band_kernels.cu": {
         # dtype, q, k, v, o, l, m, seg, block_q, block_kv, B, g, d, v_d, rule
@@ -221,7 +223,8 @@ _SIGNATURES = {
 }
 
 #: the source file of each kernel, by its ``LAUNCHES`` name
-KERNEL_SOURCES = {entry[3:]: src for src, entries in _SIGNATURES.items() for entry in entries}
+KERNEL_SOURCES = {entry[3:]: src for src, entries in _SIGNATURES.items() for entry in entries
+                  if entry[3:] in LAUNCHES}
 KERNEL_SOURCES.update({v: KERNEL_SOURCES[v[:-4]] for v in CP_VARIANTS})
 
 
@@ -241,14 +244,19 @@ def library(source: str = "serving_kernels.cu") -> ctypes.CDLL:
     return _libs[source]
 
 
+def _launch(source: str, name: str, *args) -> None:
+    """Launch the C entry ``name`` of ``source`` on the current stream;
+    raises if it did not launch."""
+    err = getattr(library(source), name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed to launch: CUDA error {err}")
+
+
 def _call(name: str, *args, cp: bool = False) -> None:
     """Launch the C entry ``name`` (``fa_<kernel>``) on the current stream and
     count the launch (under ``<kernel>[cp]`` when ``cp``)."""
     kernel = name[3:]
-    lib = library(KERNEL_SOURCES[kernel])
-    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} failed to launch: CUDA error {err}")
+    _launch(KERNEL_SOURCES[kernel], name, *args)
     LAUNCHES[f"{kernel}[cp]" if cp else kernel] += 1
 
 
@@ -322,16 +330,30 @@ def _lm(q, rows_shape, returning_l_m) -> tuple:
             torch.empty(rows_shape, dtype=torch.float32, device=q.device))
 
 
+#: the decode kernel's staging buffers (two of 32 KB) and rows a block
+_DEC_STAGE, _DEC_ROWS = 32 * 1024, 16
+
+
+def _check_smem(what: str, n_bytes: int) -> None:
+    """The memory guard of a launch: ``n_bytes`` of shared memory a block."""
+    if n_bytes > MAX_SMEM:
+        raise ValueError(f"{what} needs {n_bytes} bytes of shared memory a block, more "
+                         f"than the {MAX_SMEM} the H100 has")
+
+
 def _decode_args(q, cache, cfg, gamma, returning_l_m, global_lengths) -> tuple:
     """Checks, outputs and the leading arguments shared by the two decode
     entries."""
     S, n_q, d = q.shape[0], q.shape[-2], q.shape[-1]
     act, kv = _codes(q.dtype, cache, cfg)
     dims = _cache_dims(cache, cfg)
-    if cfg.head_dim_store not in (128, 256) or (n_q // cfg.n_kv_heads) * gamma > 16:
-        raise ValueError(f"the decode kernels take head_dim_store 128 or 256 and at most 16 "
-                         f"query rows (q heads per kv head x gamma) per kv head, got "
-                         f"{cfg.head_dim_store}, {n_q}/{cfg.n_kv_heads} x {gamma}")
+    D, page = cfg.head_dim_store, cfg.page_size
+    if D % LANE or D * (1 if cfg.quantized else cfg.payload_dtype.itemsize) > _DEC_STAGE:
+        raise ValueError(f"the decode kernels take a head_dim_store that is a multiple of "
+                         f"{LANE} whose stored row fits a {_DEC_STAGE}-byte stage, got {D}")
+    rows = min(n_q // cfg.n_kv_heads * gamma, _DEC_ROWS)
+    _check_smem(f"decode at head_dim_store {D}, page {page}",
+                2 * _DEC_STAGE + 4 * (rows * (D + page) + 2 * page + 3 * rows))
     if global_lengths is not None and (global_lengths.dtype != torch.int32
                                        or not global_lengths.is_contiguous()):
         raise TypeError("global_lengths must be a contiguous int32 vector")
@@ -376,11 +398,12 @@ def paged_prefill(qs, cache, cfg, slot, start, total, first_live, count, rule,
     chunk, n_q, d = qs.shape
     act, kv = _codes(qs.dtype, cache, cfg)
     dims = _cache_dims(cache, cfg)
-    if cfg.page_size % 32:
-        raise ValueError(f"paged_prefill needs page_size % 32 == 0, got {cfg.page_size}")
-    if cfg.head_dim_store not in (128, 256):
-        raise ValueError(f"paged_prefill takes head_dim_store 128 or 256, "
-                         f"got {cfg.head_dim_store}")
+    D, page = cfg.head_dim_store, cfg.page_size
+    if D % LANE:
+        raise ValueError(f"paged_prefill takes a head_dim_store that is a multiple of {LANE}, "
+                         f"got {D}")
+    _check_smem(f"paged_prefill at head_dim_store {D}, page {page}",
+                4 * (64 * (D + 1) + 32 * (page + 1) + 2 * page + 96))
     o = torch.empty_like(qs)
     l, m = _lm(qs, (chunk, n_q), returning_l_m)
     table_row = cache.page_tables[slot]
@@ -442,12 +465,82 @@ def device_tables(key, arrays, device) -> tuple:
 MAX_SMEM = 232448
 
 
+# ---- shared memory of the op kernels (mirrors csrc/attention_common.cuh,
+# band_kernels.cu and attention_fwd_tc.cuh) ----
+
+def _dim_class(d: int, v_d: int) -> int:
+    """The scalar bodies' head-dim class: max(d, v_d) <= 128, <= 256, wider."""
+    w = max(d, v_d)
+    return 0 if w <= 128 else 1 if w <= 256 else 2
+
+
+#: (BM, BN) CTA tiles of the scalar forward and backward bodies per class
+_FWD_TILES = ((64, 64), (64, 32), (16, 16))
+_BWD_TILES = ((64, 64), (32, 32), (16, 16))
+
+
 def window_fwd_smem(band: int, d: int, v_d: int) -> int:
     """Shared memory of ``window_fwd`` (``band_kernels.cu``): the query tile
-    (32 rows), one K or V tile (64 rows, 32 past d 128) and the whole
-    band's float32 scores."""
-    bn = 32 if max(d, v_d) > 128 else 64
+    (32 rows), one K or V tile (64, 32 or 16 rows by the head-dim class) and
+    the whole band's float32 scores."""
+    bn = (64, 32, 16)[_dim_class(d, v_d)]
     return 4 * (32 * (d | 1) + bn * max(d | 1, v_d | 1) + 32 * (band + 1) + 64)
+
+
+def fwd_smem(d: int, v_d: int) -> int:
+    """Shared memory of the scalar forward body (``flash_fwd_kernel``)."""
+    bm, bn = _FWD_TILES[_dim_class(d, v_d)]
+    return 4 * ((bm + bn) * (d | 1) + bn * (v_d | 1) + bm * (bn + 1) + 3 * bm)
+
+
+def bwd_smem(d: int, v_d: int, score_tiles: int) -> int:
+    """Shared memory of a scalar backward body (two score tiles, one for the
+    split dQ kernel)."""
+    bm, bn = _BWD_TILES[_dim_class(d, v_d)]
+    return 4 * ((bm + bn) * ((d | 1) + (v_d | 1)) + score_tiles * bm * (bn + 1) + 2 * bm)
+
+
+#: the tensor-core forward keeps its 128-row Q tile in shared memory
+TC_MAX_D = 512
+
+
+def tc_fwd_smem(d: int, v_d: int) -> int:
+    """Shared memory of the tensor-core forward (``attention_fwd_tc.cuh``):
+    Q (128 rows) and two K/V stages in 128-byte swizzled slabs of 64
+    columns (Q and K padded to the class's width: 128, 256 or 512), 1 KB of
+    alignment and the barriers."""
+    bn, vn = (128, 128) if d <= 128 and v_d <= 128 else (64, 256) if d <= 256 else (32, 256)
+    ds = {128: 2, 64: 4, 32: 8}[bn]
+    return 1024 + ds * 128 * 128 + 2 * (ds + vn // 64) * bn * 128 + 40
+
+
+def _check_fwd_smem(name: str, dtype: torch.dtype, d: int, v_d: int) -> None:
+    """The table and banded forwards: bf16 / fp16 on the tensor-core body,
+    float32 on the scalar one."""
+    if dtype == torch.float32:
+        _check_smem(f"{name} at d {d}, v_d {v_d}", fwd_smem(d, v_d))
+    elif d > TC_MAX_D:
+        raise ValueError(f"{name}: the tensor-core forward keeps the 128-row Q tile in shared "
+                         f"memory and takes d <= {TC_MAX_D}, got {d}")
+    else:
+        _check_smem(f"{name} at d {d}, v_d {v_d}", tc_fwd_smem(d, v_d))
+
+
+def tc_tile_check(a, k, v):
+    """The tensor-core forward's building blocks on one tile, for the card
+    tests: a, k (64, 64) and v (64, 128) of bf16 or fp16 give ``s = a k^T``
+    and ``o = T(s) v`` as float32 (64, 64) and (64, 128).  Not a kernel of
+    any path: not counted in ``LAUNCHES``."""
+    if (a.dtype not in (torch.bfloat16, torch.float16) or any(
+            t.dtype != a.dtype or not t.is_cuda or not t.is_contiguous() for t in (a, k, v))
+            or a.shape != (64, 64) or k.shape != (64, 64) or v.shape != (64, 128)):
+        raise ValueError("tc_tile_check takes contiguous bf16 or fp16 CUDA tensors a, k "
+                         "(64, 64) and v (64, 128)")
+    s = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    o = torch.empty((64, 128), dtype=torch.float32, device=a.device)
+    _launch("attention_kernels.cu", "fa_tc_tile_check", _DTYPE_CODE[a.dtype], a.data_ptr(),
+            k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr())
+    return s, o
 
 
 def _check_attn(q, k, v, rule_c: FaRule, do=None, stats=()) -> int:
@@ -463,11 +556,10 @@ def _check_attn(q, k, v, rule_c: FaRule, do=None, stats=()) -> int:
     B_kv, k_len, v_d = v.shape
     if (tuple(k.shape) != (B_kv, k_len, d) or B % B_kv
             or (q_len, k_len) != (rule_c.q_len, rule_c.k_len)
-            or max(d, v_d) > MAX_HEAD_DIM
             or (do is not None and tuple(do.shape) != (B, q_len, v_d))):
         raise ValueError(f"inconsistent attention shapes: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, rule lengths "
-                         f"({rule_c.q_len}, {rule_c.k_len}), head dims <= {MAX_HEAD_DIM}")
+                         f"({rule_c.q_len}, {rule_c.k_len})")
     for t in stats:
         if (t.dtype != torch.float32 or not t.is_cuda or not t.is_contiguous()
                 or tuple(t.shape) != (B, q_len)):
@@ -488,6 +580,7 @@ def flash_fwd(q_scaled, k, v, rule_c: FaRule, tables, block_q, block_kv):
     code = _check_attn(q_scaled, k, v, rule_c)
     B, q_len, d = q_scaled.shape
     v_d = v.shape[2]
+    _check_fwd_smem("flash_fwd", q_scaled.dtype, d, v_d)
     o = torch.empty((B, q_len, v_d), dtype=q_scaled.dtype, device=q_scaled.device)
     l = torch.empty((B, q_len), dtype=torch.float32, device=q_scaled.device)
     m = torch.empty_like(l)
@@ -503,6 +596,7 @@ def flash_bwd_fused(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, tables_t, b
     unscaled float32 dQ accumulator (B, q_len, d), dk and dv."""
     code = _check_attn(q_scaled, k, v, rule_c, do, (lse2, delta))
     B, q_len, d = q_scaled.shape
+    _check_smem(f"flash_bwd_fused at d {d}, v_d {v.shape[2]}", bwd_smem(d, v.shape[2], 2))
     dq_acc = torch.zeros((B, q_len, d), dtype=torch.float32, device=q_scaled.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _call("fa_flash_bwd_fused", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -517,6 +611,7 @@ def flash_bwd_dq(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, tables, block_
     """Launch ``flash_bwd_dq`` (q-outer schedule); returns dq (B, q_len, d)."""
     code = _check_attn(q_scaled, k, v, rule_c, do, (lse2, delta))
     B, q_len, d = q_scaled.shape
+    _check_smem(f"flash_bwd_dq at d {d}, v_d {v.shape[2]}", bwd_smem(d, v.shape[2], 1))
     dq = torch.empty_like(q_scaled)
     _call("fa_flash_bwd_dq", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
           do.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -531,6 +626,7 @@ def flash_bwd_dkv(q, k_scaled, v, do, lse2, delta, rule_c: FaRule, tables_t, blo
     k; returns dk (B_kv, k_len, d) and dv."""
     code = _check_attn(q, k_scaled, v, rule_c, do, (lse2, delta))
     B, q_len, d = q.shape
+    _check_smem(f"flash_bwd_dkv at d {d}, v_d {v.shape[2]}", bwd_smem(d, v.shape[2], 2))
     dk, dv = torch.empty_like(k_scaled), torch.empty_like(v)
     _call("fa_flash_bwd_dkv", code, q.data_ptr(), k_scaled.data_ptr(), v.data_ptr(),
           do.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -545,6 +641,7 @@ def banded_fwd(q_scaled, k, v, rule_c: FaRule, seg, block_q, block_kv):
     code = _check_attn(q_scaled, k, v, rule_c)
     B, q_len, d = q_scaled.shape
     v_d = v.shape[2]
+    _check_fwd_smem("banded_fwd", q_scaled.dtype, d, v_d)
     o = torch.empty((B, q_len, v_d), dtype=q_scaled.dtype, device=q_scaled.device)
     l = torch.empty((B, q_len), dtype=torch.float32, device=q_scaled.device)
     m = torch.empty_like(l)
@@ -579,6 +676,7 @@ def banded_bwd(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, seg_t, block_q, 
     transposed schedule's band segments on the card)."""
     code = _check_attn(q_scaled, k, v, rule_c, do, (lse2, delta))
     B, q_len, d = q_scaled.shape
+    _check_smem(f"banded_bwd at d {d}, v_d {v.shape[2]}", bwd_smem(d, v.shape[2], 2))
     dq_acc = torch.zeros((B, q_len, d), dtype=torch.float32, device=q_scaled.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _call("fa_banded_bwd", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -594,6 +692,7 @@ def window_bwd(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, starts_t, band, 
     ``sub_kv`` key rows; returns the unscaled float32 dQ accumulator, dk, dv."""
     code = _check_attn(q_scaled, k, v, rule_c, do, (lse2, delta))
     B, q_len, d = q_scaled.shape
+    _check_smem(f"window_bwd at d {d}, v_d {v.shape[2]}", bwd_smem(d, v.shape[2], 2))
     if band % LANE or sub_kv % LANE:
         raise ValueError(f"window_bwd takes lane-aligned bands, got band {band}, "
                          f"sub_kv {sub_kv}")
@@ -611,6 +710,7 @@ def resident_fwd(q_scaled, k, v, rule_c: FaRule, seg, block_q, block_kv):
     code = _check_attn(q_scaled, k, v, rule_c)
     B, q_len, d = q_scaled.shape
     v_d = v.shape[2]
+    _check_smem(f"resident_fwd at d {d}, v_d {v_d}", fwd_smem(d, v_d))
     o = torch.empty((B, q_len, v_d), dtype=q_scaled.dtype, device=q_scaled.device)
     l = torch.empty((B, q_len), dtype=torch.float32, device=q_scaled.device)
     m = torch.empty_like(l)
@@ -626,6 +726,7 @@ def flash_bwd_qouter(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, tables, bl
     d) and the unscaled float32 dK and dV accumulators (B_kv, k_len, ·)."""
     code = _check_attn(q_scaled, k, v, rule_c, do, (lse2, delta))
     B, q_len, d = q_scaled.shape
+    _check_smem(f"flash_bwd_qouter at d {d}, v_d {v.shape[2]}", bwd_smem(d, v.shape[2], 2))
     dq = torch.empty_like(q_scaled)
     dk_acc = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv_acc = torch.zeros(v.shape, dtype=torch.float32, device=v.device)

@@ -148,8 +148,11 @@ def dense_mask(pack: SyncPack, rule: MaskRule, device) -> Optional[torch.Tensor]
 
 def _flash_forward_plain(q_scaled, k, v, pack: SyncPack, rule: MaskRule):
     """Plain version of ``flash_fwd``, ``banded_fwd``, ``resident_fwd`` and
-    ``window_fwd``: the same log2-domain softmax, dense, in float32.
-    Returns ``(o, l, m)`` as the kernels do."""
+    ``window_fwd``: the same log2-domain softmax, dense, in float32.  For
+    half inputs p is rounded to the input type before PV while ``l`` sums
+    the float32 p, where the JAX kernels and the port's round it
+    (``ops/forward.py:166`` of the JAX package).  Returns ``(o, l, m)`` as
+    the kernels do."""
     g = q_scaled.shape[0] // k.shape[0]
     kf = k.float().repeat_interleave(g, dim=0)
     vf = v.float().repeat_interleave(g, dim=0)
@@ -164,6 +167,8 @@ def _flash_forward_plain(q_scaled, k, v, pack: SyncPack, rule: MaskRule):
     dead = m2 <= NEG_INF_F32
     l = torch.where(dead, torch.zeros_like(l), l)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    if q_scaled.dtype != torch.float32:
+        p = p.to(q_scaled.dtype).float()
     o = torch.matmul(p, vf) / l_safe[..., None]
     o = torch.where(dead[..., None], torch.zeros_like(o), o)
     m = torch.where(dead, torch.full_like(m2, NEG_INF_F32), m2 * INV_LOG2E)

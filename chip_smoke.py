@@ -76,7 +76,11 @@ Phases (any failure exits non-zero before the final line):
      in the JAX package; then each kernel's median CUDA-event time against
      its plain version, with useful TFLOP/s priced from flops.py's
      schedule by the products each kernel computes (flash_fwd and
-     banded_fwd on bf16 run the tensor-core body);
+     banded_fwd on bf16 run the tensor-core forward, flash_bwd_fused and
+     banded_bwd the tensor-core backward: each backward row names its
+     body), banded_bwd once more without dQ (what dQ's product and its
+     reduction into the float32 accumulator cost), and the accumulator's
+     zero fill and scale-and-cast passes;
   6. training at full width: the same 168M decoder (fp32 parameters, bf16
      compute) takes 5 AdamW steps on one seeded batch of 8 x 2048 tokens;
      the first step's loss and gradient norm must match the plain path on
@@ -585,7 +589,8 @@ def main():
                  "replaces": replaces[k], "launches": launches[k], "path": path_of[k],
                  "max_abs_err": m["err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
                  "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-                 "library_ms": m["library_ms"]}
+                 "library_ms": m["library_ms"],
+                 **{x: m[x] for x in ("body", "ms_without_dq") if x in m}}
         if k in native.SERVING_KERNELS:
             entry["payloads_held"] = [pl for pl, c in cases.items() if k in c]
             entry["ms_by_payload"] = {pl: c[k]["ms"] for pl, c in cases.items() if k in c}
@@ -1429,9 +1434,30 @@ def op_phase(dev):
         b_ms, b_by = bound(n_bytes, products * 2 * pairs * d, "bf16")
         times[kn] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                          bound_by=b_by)
-        print(f"kernel {kn} (slice): ms={ms} plain_ms={plain_ms} library_ms={lib_ms} "
+        body = ""
+        if kn in ("flash_bwd_fused", "banded_bwd"):
+            times[kn]["body"] = native.bwd_body(bf, d, d)
+            body = f" body={times[kn]['body']}"
+        print(f"kernel {kn} (slice):{body} ms={ms} plain_ms={plain_ms} library_ms={lib_ms} "
               f"bound_ms={b_ms} ({b_by}) useful TFLOP/s="
               f"{products * area2 * d / ms / 1e9:.3f}", flush=True)
+    # what dQ costs the tensor-core backward: banded_bwd without the dS^T
+    # tile, the dQ product and its reduction (not counted in any path)
+    no_dq_ms = time_ms(lambda: native.banded_bwd(q_s, k, v, do, lse2, delta, rule_c, tabs(bb)[0],
+                                                 128, 128, 1.0 / math.log2(math.e),
+                                                 with_dq=False), n=10)
+    times["banded_bwd"]["ms_without_dq"] = no_dq_ms
+    print(f"kernel banded_bwd without dQ (slice): ms={no_dq_ms}; dQ's product and reduction "
+          f"{times['banded_bwd']['ms'] - no_dq_ms:.4f} ms of {times['banded_bwd']['ms']}",
+          flush=True)
+    # the two torch passes around a fused backward's launch (ops/backward.py,
+    # native.py): the zero fill of the float32 dQ accumulator and dQ's
+    # scale-and-cast
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    zero_ms = time_ms(lambda: torch.zeros(q.shape, dtype=torch.float32, device=dev), n=10)
+    cast_ms = time_ms(lambda: (dq_acc * scale).to(bf), n=10)
+    print(f"dq_acc passes (slice): zero fill ms={zero_ms} scale-and-cast ms={cast_ms}",
+          flush=True)
     split_ms = times["flash_bwd_dq"]["ms"] + times["flash_bwd_dkv"]["ms"]
     print(f"kernel split pair (slice): {split_ms} ms for one backward = "
           f"{5 * area2 * d / split_ms / 1e9:.3f} useful TFLOP/s; the plain_ms of each of the "

@@ -221,6 +221,45 @@ def test_half_forward_rounds_p_as_jax_kernels(monkeypatch, route):
     assert err.mean() < 0.5 * err_f32.mean()
 
 
+# the JAX backward bodies of each route, and the switches and ``fused``
+# argument that select them
+_HALF_BWD_ROUTES = {"banded": ({"FA_WINDOW_BWD": "0"}, None, ["_fused_banded_kernel"]),
+                    "table": ({"FA_BANDED_BWD": "0", "FA_WINDOW_BWD": "0"}, None,
+                              ["_fused_kernel"]),
+                    "split": ({}, False, ["_dq_kernel", "_dkv_kernel"])}
+
+
+@pytest.mark.parametrize("route", list(_HALF_BWD_ROUTES))
+def test_half_backward_rounds_as_jax_kernels(monkeypatch, route):
+    """bf16, causal (2, 256, 64): the port's plain backward against JAX's
+    ``_fused_banded_kernel``, ``_fused_kernel`` and the split pair
+    (``fast_softmax=False``, interpret mode) on the same o, l, m.  Both round
+    p to bf16 before dV and dS before dK and dQ, so they part only where a
+    float32 sum taken in another order flips a rounding: on fewer than 1% of
+    each gradient's elements, with a mean error under 1e-5 (a backward that
+    keeps p and dS in float32 parts on about 40%, mean about 3e-4)."""
+    env, fused, want_bodies = _HALF_BWD_ROUTES[route]
+    for var, val in env.items():
+        monkeypatch.setenv(var, val)
+    B, S, d = 2, 256, 64
+    rng = np.random.default_rng(5)
+    q, k, v, do = (torch.from_numpy(rng.uniform(-2, 2, (B, S, d)).astype(np.float32))
+                   .to(torch.bfloat16) for _ in range(4))
+    tp, tr = tpack("none_front", (S,), (S,)), trules.CausalRule()
+    o, l, m = tfwd.flash_forward(q, k, v, pack=tp, rule=tr, config=BLOCKS)
+    j = lambda x: jnp.asarray(_np(x), jnp.bfloat16 if x.dtype == torch.bfloat16 else jnp.float32)
+    bodies, jg = _jax_bodies(monkeypatch, lambda: jbwd.flash_backward(
+        j(q), j(k), j(v), j(o), j(l), j(m), j(do), pack=jpack("none_front", (S,), (S,)),
+        rule=fa.CausalRule(), config=SMALL_BLOCKS, interpret=True, fast_softmax=False,
+        fused=fused), stop=False)
+    assert bodies == want_bodies
+    got = tbwd.flash_backward(q, k, v, o, l, m, do, pack=tp, rule=tr, config=BLOCKS, fused=fused)
+    for name, a, b in zip(("dq", "dk", "dv"), jg, got):
+        err = np.abs(_np(b) - _np(a))
+        assert (err > 0).mean() < 0.01, (name, (err > 0).mean())
+        assert err.mean() < 1e-5, (name, err.mean())
+
+
 # head dims past the old 256 cap: the CUDA kernels take them (a third tile
 # class, output columns past 512 over grid z); on the CPU the op path and
 # the block solver must take them too
@@ -265,6 +304,20 @@ def test_kernel_shared_memory_guards():
         native._check_fwd_smem("flash_fwd", torch.bfloat16, 576, 64)
     with pytest.raises(ValueError, match="shared memory"):
         native._check_smem("flash_bwd_fused", native.bwd_smem(1024, 1024, 2))
+
+
+@pytest.mark.parametrize("dtype,d,v_d,body", [
+    (torch.bfloat16, 128, 128, "tensor-core"), (torch.float16, 27, 13, "tensor-core"),
+    (torch.bfloat16, 64, 96, "tensor-core"), (torch.bfloat16, 128, 256, "scalar"),
+    (torch.float16, 384, 384, "scalar"), (torch.float32, 64, 64, "scalar")])
+def test_fused_backward_body(dtype, d, v_d, body):
+    """``flash_bwd_fused`` and ``banded_bwd`` run the tensor-core backward on
+    bf16 and fp16 at max(d, v_d) <= 128 and the scalar body elsewhere
+    (float32: TF32 would not hold its limit); the memory guard follows the
+    body, and both bodies fit the H100's shared memory."""
+    assert native.bwd_body(dtype, d, v_d) == body
+    assert native.TC_BWD_SMEM <= native.MAX_SMEM
+    native._check_bwd_smem("banded_bwd", dtype, d, v_d)
 
 
 # the port's kernel for each Pallas kernel body of the JAX package

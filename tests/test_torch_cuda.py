@@ -660,6 +660,67 @@ def test_tc_forward_matches_plain(dev, monkeypatch, case, dtype, routes):
         assert float(o[:, 0].float().abs().max()) == 0.0 and float(l[:, 0].abs().max()) == 0.0
 
 
+# ---- the tensor-core backward (attention_bwd_tc.cuh) ----
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_tc_bwd_tile_matches_matmul(dev, dtype):
+    """The backward's products on one tile: S^T = x y^T (both K-major), the
+    dV / dK product T(S^T) z (A from the accumulator fragments, z a 64-row
+    stage through the transpose bit) and the dQ product dst^T kt over 128
+    kv rows (A, the dS^T tile, and B, K, both MN-major through the transpose
+    bits), against float32 matmuls."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x, y, z, dst, kt = ((torch.rand(s, generator=gen, device=dev) * 4 - 2).to(dtype)
+                        for s in ((64, 64), (64, 64), (64, 128), (128, 64), (128, 128)))
+    st, o, dq = native.tc_bwd_tile_check(x, y, z, dst, kt)
+    st_ref = torch.matmul(x.float(), y.float().T)
+    # the kernel's own st, rounded as the kernel rounds it (a sum in another
+    # order may round to the neighbouring half value)
+    o_ref = torch.matmul(st.to(dtype).float(), z.float())
+    dq_ref = torch.matmul(dst.float().T, kt.float())
+    # float32 sums of exact products: the order only
+    for got, want in ((st, st_ref), (o, o_ref), (dq, dq_ref)):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("routes", ["auto", "table"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("case", list(TC_CASES))
+def test_tc_backward_matches_plain(dev, monkeypatch, case, dtype, routes):
+    """The fused backward on bf16 / fp16 (the tensor-core body of banded_bwd
+    and flash_bwd_fused where max(d, v_d) <= 128, the scalar body above)
+    against the plain backward, which rounds p and dS to the input type where
+    the kernels round them: dQ, dK and dV within 2 ulps of the output type at
+    each tensor's scale.  The auto route launches banded_bwd (window_bwd for
+    the two cases whose transposed schedule is one band per sub-block), the
+    table route flash_bwd_fused."""
+    for var, val in ROUTES[routes].items():
+        monkeypatch.setenv(var, val)
+    rule, sync, q_seq, k_seq, d, v_d, b_kv, g = TC_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(d + 3 * v_d)
+    pack = make_sync_pack(sync, q_seq, k_seq)
+    q_len, k_len = int(np.prod(q_seq)), int(np.prod(k_seq))
+    t = lambda *shape: (torch.rand(shape, generator=gen, device=dev) * 4 - 2).to(dtype)
+    q, k, v = t(b_kv * g, q_len, d), t(b_kv, k_len, d), t(b_kv, k_len, v_d)
+    do = t(b_kv * g, q_len, v_d)
+    o, l, m = forward.flash_forward(q, k, v, pack=pack, rule=rule, config=BLOCKS)
+    lse2, delta = backward.backward_stats(o, l, m, do)
+    native.reset_launch_counts()
+    got = backward.flash_backward(q, k, v, o, l, m, do, pack=pack, rule=rule, config=BLOCKS,
+                                  fused="kv")
+    torch.cuda.synchronize()
+    launched = {kn for kn in native.ATTENTION_KERNELS if native.LAUNCHES[kn]}
+    want_kernel = {"auto": "window_bwd" if case in ("dead_rows", "local_2d_strided")
+                   else "banded_bwd", "table": "flash_bwd_fused"}[routes]
+    assert launched == {want_kernel}, launched
+    assert native.bwd_body(dtype, d, v_d) == ("tensor-core" if max(d, v_d) <= 128 else "scalar")
+    want = backward._flash_backward_plain(q, k, v, do, lse2, delta, pack, rule, d ** -0.5, True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close(name, a, b, dtype)
+    if case == "dead_rows":
+        assert float(got[0][:, 0].float().abs().max()) == 0.0
+
+
 # ---- the experiment tools' kernels (experiments/) against their plain versions ----
 
 def _exp_tol(ref, ulps=2):

@@ -17,8 +17,10 @@
 // bodies compute every product as a float32 FMA on values staged in float32
 // (no TF32), so float32 inputs are computed at full float32 precision; the
 // bf16 / fp16 forward of the table and banded walks runs on the tensor-core
-// body of attention_fwd_tc.cuh instead.  Built without --use_fast_math
-// (exp2f stays accurate).
+// body of attention_fwd_tc.cuh instead, and their fused backward at
+// max(d, v_d) <= 128 on that of attention_bwd_tc.cuh.  The backwards round p
+// to the input type before dV, and dS before dK and dQ, as the JAX kernels
+// do.  Built without --use_fast_math (exp2f stays accurate).
 //
 // What bounds the scalar bodies: the scalar FMA rate and shared-memory
 // bandwidth.  Each thread holds a 4 x 4 (or 2 x 2, or 1 x 1) register tile
@@ -117,7 +119,8 @@ template <> __device__ __forceinline__ float from_f<float>(float x) { return x; 
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
 template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half(x); }
 
-// x rounded to T and back (p before the PV product of the forwards)
+// x rounded to T and back (p before PV in the forwards; p before dV, dS
+// before dK and dQ in the backwards)
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
@@ -474,8 +477,9 @@ __device__ __forceinline__ void bwd_kv_rows(const AttnArgs& a, const BwdSmem& sm
         const int r = ty + 16 * i, c = tx + 16 * j;
         const bool vis = !MASKED || visible(a.rule, r0 + r, col0 + c);
         const float p = vis ? exp2f(s[i][j] - sm.lse_s[r]) : 0.f;
-        sm.Ps[r * LDS + c] = p;
-        sm.dSs[r * LDS + c] = p * (dp[i][j] - sm.d_s[r]);
+        // p before dV, dS before dK and dQ, rounded to T as the JAX kernels
+        sm.Ps[r * LDS + c] = round_to<T>(p);
+        sm.dSs[r * LDS + c] = round_to<T>(p * (dp[i][j] - sm.d_s[r]));
       }
     __syncthreads();
     for (int rr = 0; rr < BM; ++rr) {

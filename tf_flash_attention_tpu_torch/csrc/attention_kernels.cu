@@ -3,7 +3,9 @@
 //
 //   fa_flash_fwd        <- ops/forward.py::_fwd_kernel   (table-driven forward; bf16 and
 //                          fp16 on the tensor-core body of attention_fwd_tc.cuh)
-//   fa_flash_bwd_fused  <- ops/backward.py::_fused_kernel (kv-outer 5-product backward)
+//   fa_flash_bwd_fused  <- ops/backward.py::_fused_kernel (kv-outer 5-product backward; bf16
+//                          and fp16 at max(d, v_d) <= 128 on the tensor-core body of
+//                          attention_bwd_tc.cuh)
 //   fa_flash_bwd_dq     <- ops/backward.py::_dq_kernel    (split pair: dQ, q-outer)
 //   fa_flash_bwd_dkv    <- ops/backward.py::_dkv_kernel   (split pair: dK/dV, kv-outer)
 //   fa_flash_bwd_qouter <- ops/backward.py::_fused_qouter_kernel (q-outer 5-product backward)
@@ -13,6 +15,7 @@
 // transposed schedule): a CTA visits only the live blocks of its schedule
 // row, and evaluates the rule predicate only on tiles with needs_mask != 0.
 
+#include "attention_bwd_tc.cuh"
 #include "attention_common.cuh"
 #include "attention_fwd_tc.cuh"
 
@@ -96,7 +99,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_kernel(AttnArgs a) {
           const int r = ty + 16 * i, c = tx + 16 * j;
           const bool vis = !masked || visible(a.rule, row0 + r, c0 + c);
           const float p = vis ? exp2f(s[i][j] - lse_s[r]) : 0.f;
-          dSs[r * LDS + c] = p * (dp[i][j] - d_s[r]);
+          dSs[r * LDS + c] = round_to<T>(p * (dp[i][j] - d_s[r]));  // as _dq_kernel
         }
       __syncthreads();
       acc_pv<RI, DJ, BN>(acc, dSs, LDS, 0, Ks + cc0, ldq, d - cc0, ty, tx);
@@ -207,8 +210,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_qouter_kernel(AttnArgs a) {
           const int r = ty + 16 * i, c = tx + 16 * j;
           const bool vis = !masked || visible(a.rule, row0 + r, c0 + c);
           const float p = vis ? exp2f(s[i][j] - lse_s[r]) : 0.f;
-          Ps[r * LDS + c] = p;
-          dSs[r * LDS + c] = p * (dp[i][j] - d_s[r]);
+          Ps[r * LDS + c] = round_to<T>(p);  // as _fused_qouter_kernel
+          dSs[r * LDS + c] = round_to<T>(p * (dp[i][j] - d_s[r]));
         }
       __syncthreads();
       acc_pv<RI, DJ, BN>(acc, dSs, LDS, 0, Ks + cc0, ldq, d - cc0, ty, tx);  // dQ += dS K
@@ -278,8 +281,7 @@ int fa_flash_bwd_fused(int dtype, const void* q, const void* k, const void* v,
   a.dv = dv;
   a.out_scale = dk_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype,
-                  [&](auto tag) { return bwd_kv_any<decltype(tag), true, kTable>(a, s); });
+  return dispatch(dtype, [&](auto tag) { return bwd_fused_any<decltype(tag), kTable>(a, s); });
 }
 
 // q prescaled; q-outer schedule; dq (B, q_len, d) = acc * scale
@@ -354,6 +356,18 @@ int fa_tc_tile_check(int dtype, const void* a, const void* k, const void* v, flo
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) return tc::tile_check<bf16>(a, k, v, s, o, st);
   if (dtype == kF16) return tc::tile_check<__half>(a, k, v, s, o, st);
+  return cudaErrorInvalidValue;
+}
+
+// the tensor-core backward's products on one tile (tc::bwd_tile_check): x,
+// y (64, 64), z (64, 128), dst (128, 64) and kt (128, 128) of bf16 or fp16
+// -> st = x y^T (64, 64), o = st z (64, 128) with st rounded to the input
+// type, and dq = dst^T kt (64, 128)
+int fa_tc_bwd_tile_check(int dtype, const void* x, const void* y, const void* z, const void* dst,
+                         const void* kt, float* st, float* o, float* dq, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) return tc::bwd_tile_check<bf16>(x, y, z, dst, kt, st, o, dq, s);
+  if (dtype == kF16) return tc::bwd_tile_check<__half>(x, y, z, dst, kt, st, o, dq, s);
   return cudaErrorInvalidValue;
 }
 

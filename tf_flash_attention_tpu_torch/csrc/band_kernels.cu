@@ -3,7 +3,9 @@
 //
 //   fa_banded_fwd  <- ops/forward_banded.py::_banded_kernel (forward over one band per q block;
 //                     bf16 and fp16 on the tensor-core body of attention_fwd_tc.cuh)
-//   fa_banded_bwd  <- ops/backward.py::_fused_banded_kernel (fused backward, one band per kv block)
+//   fa_banded_bwd  <- ops/backward.py::_fused_banded_kernel (fused backward, one band per kv
+//                     block; bf16 and fp16 at max(d, v_d) <= 128 on the tensor-core body of
+//                     attention_bwd_tc.cuh)
 //   fa_window_fwd  <- ops/forward_banded.py::_window_kernel (closed-form single-window forward)
 //   fa_window_bwd  <- ops/backward.py::_fused_window_kernel (fused backward over one q band)
 //   fa_resident_fwd <- ops/forward_banded.py::_resident_kernel (the banded forward, a CTA per row)
@@ -22,6 +24,7 @@
 // shared memory, so there is no online rescaling; that bounds the band
 // width (window_fwd_smem below; native.py routes wider bands elsewhere).
 
+#include "attention_bwd_tc.cuh"
 #include "attention_common.cuh"
 #include "attention_fwd_tc.cuh"
 
@@ -205,8 +208,7 @@ int fa_banded_bwd(int dtype, const void* q, const void* k, const void* v, const 
   set_bwd(a, dout, lse2, delta);
   set_fused_out(a, dq_acc, dk, dv, dk_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype,
-                  [&](auto tag) { return bwd_kv_any<decltype(tag), true, kBanded>(a, s); });
+  return dispatch(dtype, [&](auto tag) { return bwd_fused_any<decltype(tag), kBanded>(a, s); });
 }
 
 // q prescaled; starts (k_pad / sub_kv,) int32 query-band starts, band width

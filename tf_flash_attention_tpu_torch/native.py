@@ -187,6 +187,9 @@ _SIGNATURES = {
         "fa_flash_bwd_qouter": [_I] + [_P] * 12 + [_I] * 7 + [_F, _R],
         # dtype, a, k, v, s, o: the tensor-core building blocks on one tile
         "fa_tc_tile_check": [_I] + [_P] * 5,
+        # dtype, x, y, z, dst, kt, st, o, dq: the tensor-core backward's
+        # products on one tile
+        "fa_tc_bwd_tile_check": [_I] + [_P] * 8,
     },
     "band_kernels.cu": {
         # dtype, q, k, v, o, l, m, seg, block_q, block_kv, B, g, d, v_d, rule
@@ -514,6 +517,29 @@ def tc_fwd_smem(d: int, v_d: int) -> int:
     return 1024 + ds * 128 * 128 + 2 * (ds + vn // 64) * bn * 128 + 40
 
 
+#: the tensor-core backward (``attention_bwd_tc.cuh``): 128 kv rows a CTA,
+#: K and V whole, a ring of two 64-row Q / dO stages and two dS^T tiles, all
+#: in 128-byte swizzled slabs of 64 columns (d and v_d padded to 128), a
+#: float (64, 64) dQ box per consumer warpgroup, the stages' lse2 and delta
+#: rows, 1 KB of alignment and the barriers
+TC_BWD_SMEM = (1024 + 2 * 2 * 128 * 128 + 2 * 2 * 2 * 64 * 128 + 2 * 128 * 128 + 2 * 64 * 64 * 4
+               + 2 * 2 * 64 * 4 + 40)
+
+
+def bwd_body(dtype: torch.dtype, d: int, v_d: int) -> str:
+    """The body ``flash_bwd_fused`` and ``banded_bwd`` run (the C dispatch
+    ``bwd_fused_any``): bf16 and fp16 with max(d, v_d) <= 128 on the tensor
+    cores, everything else on the scalar body."""
+    tc = dtype in (torch.bfloat16, torch.float16) and max(d, v_d) <= 128
+    return "tensor-core" if tc else "scalar"
+
+
+def _check_bwd_smem(name: str, dtype: torch.dtype, d: int, v_d: int) -> None:
+    """The fused table and banded backwards, on the body they run."""
+    _check_smem(f"{name} at d {d}, v_d {v_d}",
+                TC_BWD_SMEM if bwd_body(dtype, d, v_d) == "tensor-core" else bwd_smem(d, v_d, 2))
+
+
 def _check_fwd_smem(name: str, dtype: torch.dtype, d: int, v_d: int) -> None:
     """The table and banded forwards: bf16 / fp16 on the tensor-core body,
     float32 on the scalar one."""
@@ -541,6 +567,27 @@ def tc_tile_check(a, k, v):
     _launch("attention_kernels.cu", "fa_tc_tile_check", _DTYPE_CODE[a.dtype], a.data_ptr(),
             k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr())
     return s, o
+
+
+def tc_bwd_tile_check(x, y, z, dst, kt):
+    """The tensor-core backward's products on one tile, for the card tests:
+    x, y (64, 64), z (64, 128), dst (128, 64) and kt (128, 128) of bf16 or
+    fp16 give ``st = x y^T`` (the S^T and dP^T product), ``o = T(st) z``
+    (dV and dK: A from the fragments, z through the transpose bit) and ``dq =
+    dst^T kt`` (dQ: A and B through the transpose bits) as float32 (64, 64),
+    (64, 128) and (64, 128).  Not a kernel of any path: not counted in
+    ``LAUNCHES``."""
+    shapes = ((x, (64, 64)), (y, (64, 64)), (z, (64, 128)), (dst, (128, 64)), (kt, (128, 128)))
+    if x.dtype not in (torch.bfloat16, torch.float16) or any(
+            t.dtype != x.dtype or not t.is_cuda or not t.is_contiguous() or t.shape != shape
+            for t, shape in shapes):
+        raise ValueError("tc_bwd_tile_check takes contiguous bf16 or fp16 CUDA tensors x, y "
+                         "(64, 64), z (64, 128), dst (128, 64) and kt (128, 128)")
+    outs = [torch.empty(shape, dtype=torch.float32, device=x.device)
+            for shape in ((64, 64), (64, 128), (64, 128))]
+    _launch("attention_kernels.cu", "fa_tc_bwd_tile_check", _DTYPE_CODE[x.dtype],
+            *(t.data_ptr() for t, _ in shapes), *(t.data_ptr() for t in outs))
+    return tuple(outs)
 
 
 def _check_attn(q, k, v, rule_c: FaRule, do=None, stats=()) -> int:
@@ -596,7 +643,7 @@ def flash_bwd_fused(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, tables_t, b
     unscaled float32 dQ accumulator (B, q_len, d), dk and dv."""
     code = _check_attn(q_scaled, k, v, rule_c, do, (lse2, delta))
     B, q_len, d = q_scaled.shape
-    _check_smem(f"flash_bwd_fused at d {d}, v_d {v.shape[2]}", bwd_smem(d, v.shape[2], 2))
+    _check_bwd_smem("flash_bwd_fused", q_scaled.dtype, d, v.shape[2])
     dq_acc = torch.zeros((B, q_len, d), dtype=torch.float32, device=q_scaled.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _call("fa_flash_bwd_fused", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -671,16 +718,21 @@ def window_fwd(q_scaled, k, v, rule_c: FaRule, starts, band, sub_q, masked):
 
 
 def banded_bwd(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, seg_t, block_q, block_kv,
-               dk_scale):
+               dk_scale, with_dq=True):
     """Launch ``banded_bwd``: as ``flash_bwd_fused``, walking ``seg_t`` (the
-    transposed schedule's band segments on the card)."""
+    transposed schedule's band segments on the card).  ``with_dq=False``
+    measures what dQ costs: the tensor-core body then skips the dS^T tile,
+    the dQ product and its reduction, and the dQ accumulator is ``None``."""
     code = _check_attn(q_scaled, k, v, rule_c, do, (lse2, delta))
     B, q_len, d = q_scaled.shape
-    _check_smem(f"banded_bwd at d {d}, v_d {v.shape[2]}", bwd_smem(d, v.shape[2], 2))
-    dq_acc = torch.zeros((B, q_len, d), dtype=torch.float32, device=q_scaled.device)
+    _check_bwd_smem("banded_bwd", q_scaled.dtype, d, v.shape[2])
+    if not with_dq and bwd_body(q_scaled.dtype, d, v.shape[2]) != "tensor-core":
+        raise ValueError("only the tensor-core body of banded_bwd runs without dQ")
+    dq_acc = torch.zeros((B, q_len, d), dtype=torch.float32,
+                         device=q_scaled.device) if with_dq else None
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _call("fa_banded_bwd", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
-          do.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
+          do.data_ptr(), lse2.data_ptr(), delta.data_ptr(), _ptr(dq_acc), dk.data_ptr(),
           dv.data_ptr(), seg_t.data_ptr(), block_q, block_kv, B, B // k.shape[0], d,
           v.shape[2], float(dk_scale), ctypes.byref(rule_c))
     return dq_acc, dk, dv

@@ -9,8 +9,9 @@ one XLA pass in the JAX package (``backward.py:686-703``):
 Routes (the ``fused`` argument, as in the JAX package):
 
 * ``"kv"`` — a fused kv-outer kernel (5 products per tile, dQ accumulated
-  with atomics into a float32 global buffer, then scaled and cast in one
-  elementwise pass; its dQ varies in the last bits from run to run).  As
+  with atomics or TMA reduce-adds into a float32 global buffer, then scaled
+  and cast in one elementwise pass; its dQ varies in the last bits from run
+  to run; ``native.bwd_body`` names the body it runs).  As
   in the JAX package (``backward.py:809-978``) the schedule picks which:
   ``window_bwd`` (``FA_WINDOW_BWD``) for one lane-aligned query band per
   key sub-block, else ``banded_bwd`` (``FA_BANDED_BWD``) where the
@@ -70,7 +71,10 @@ def _flash_backward_plain(q, k, v, do, lse2, delta, pack: SyncPack, rule: MaskRu
     """Plain version of the backward kernels: dense, in float32.  The fused
     kernels and the dQ kernel recompute ``P`` from prescaled q; the dK/dV
     kernel from prescaled k, so for half inputs the split route rounds a
-    different operand, and its plain version does the same."""
+    different operand, and its plain version does the same.  As the JAX
+    kernels do (``_fused_kernel``, ``_dq_kernel``, ``_dkv_kernel``), p is
+    rounded to the input type before dV, and dS (from the float32 p) before
+    dK and dQ; for float32 inputs the rounding is the identity."""
     g = q.shape[0] // k.shape[0]
     mask = dense_mask(pack, rule, q.device)
 
@@ -80,6 +84,9 @@ def _flash_backward_plain(q, k, v, do, lse2, delta, pack: SyncPack, rule: MaskRu
             s = s.masked_fill(~mask, NEG_INF_F32)
         return torch.exp2(s - lse2[..., None])
 
+    def rounded(x):
+        return x.to(q.dtype).float()
+
     def group_sum(x):
         return x.reshape(k.shape[0], g, *x.shape[1:]).sum(dim=1)
 
@@ -88,15 +95,15 @@ def _flash_backward_plain(q, k, v, do, lse2, delta, pack: SyncPack, rule: MaskRu
     dof = do.float()
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     p = probs(q_scaled, k.float())
-    ds = p * (dp - delta[..., None])
+    ds = rounded(p * (dp - delta[..., None]))
     dq = torch.matmul(ds, k.float().repeat_interleave(g, dim=0)) * scale
     if fused:
         dk = torch.matmul(ds.transpose(-1, -2), q_scaled) * INV_LOG2E
     else:
         p = probs(q.float(), prescale(k, scale).float())
-        ds = p * (dp - delta[..., None])
+        ds = rounded(p * (dp - delta[..., None]))
         dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
-    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dv = torch.matmul(rounded(p).transpose(-1, -2), dof)
     return dq.to(q.dtype), group_sum(dk).to(k.dtype), group_sum(dv).to(v.dtype)
 
 

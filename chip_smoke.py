@@ -71,16 +71,22 @@ Phases (any failure exits non-zero before the final line):
      switched off (the table kernels); (g) the slice with FA_RESIDENT=1;
      (i) d = v_d = 384, (16, 1024) bf16 causal (the tensor-core forward's
      widest class below 512, the backward's third tile class); (j), (k)
-     fp16 causal at (16, 1024, 128), banded and table; (h) the
+     fp16 causal at (16, 1024, 128), banded and table; (l) bf16 causal at
+     d = 576, v_d = 64, (8, 1024), banded and resident (d past the
+     tensor-core classes: the scalar forward); (m) the resident route on
+     fp16 at (16, 1024, 128); (h) the
      q-outer backward, which only a direct call with fused="q" reaches, as
      in the JAX package; then each kernel's median CUDA-event time against
      its plain version, with useful TFLOP/s priced from flops.py's
-     schedule by the products each kernel computes (flash_fwd and
-     banded_fwd on bf16 run the tensor-core forward, flash_bwd_fused and
-     banded_bwd the tensor-core backward: each backward row names its
-     body), banded_bwd once more without dQ (what dQ's product and its
-     reduction into the float32 accumulator cost), and the accumulator's
-     zero fill and scale-and-cast passes;
+     schedule by the products each kernel computes (flash_fwd, banded_fwd
+     and resident_fwd on bf16 run the tensor-core forward, resident_fwd as
+     persistent CTAs walking the rows in order by groups: its row prints
+     the grid, the work items and the rows a group, is set beside
+     banded_fwd and is timed once more in strict row order;
+     flash_bwd_fused and banded_bwd the tensor-core backward: each row
+     names its body), banded_bwd once more without dQ (what dQ's product
+     and its reduction into the float32 accumulator cost), and the
+     accumulator's zero fill and scale-and-cast passes;
   6. training at full width: the same 168M decoder (fp32 parameters, bf16
      compute) takes 5 AdamW steps on one seeded batch of 8 x 2048 tokens;
      the first step's loss and gradient norm must match the plain path on
@@ -98,7 +104,10 @@ Phases (any failure exits non-zero before the final line):
      512); each held against its plain version (2 bf16 ulps at the output's
      scale, bitcast 3; int8mm's codes and integer scores bit for bit) and
      timed beside its plain version, its bound and, for the forwards, one
-     scaled_dot_product_attention call.
+     scaled_dot_product_attention call; the forwards name their body
+     (exp_resident on the resident tensor-core forward, its kernel timed
+     on the prescaled q, its pairs also against the dense causal oracle
+     within 1e-2).
 
 The kernels' JSON line gives each kernel's launches from the run of the
 path that takes it by default ("path": the engine, the speculative engine,
@@ -590,7 +599,8 @@ def main():
                  "max_abs_err": m["err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
                  "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                  "library_ms": m["library_ms"],
-                 **{x: m[x] for x in ("body", "ms_without_dq") if x in m}}
+                 **{x: m[x] for x in ("body", "ms_without_dq", "grid", "items",
+                                      "group_rows", "ms_row_order") if x in m}}
         if k in native.SERVING_KERNELS:
             entry["payloads_held"] = [pl for pl, c in cases.items() if k in c]
             entry["ms_by_payload"] = {pl: c[k]["ms"] for pl, c in cases.items() if k in c}
@@ -1319,6 +1329,19 @@ def op_phase(dev):
     case("(j) causal f16", causal, (cf(q16), cf(k16), cf(v16)), cf(do16), f16_types)
     case("(k) causal f16 table", causal, (cf(q16), cf(k16), cf(v16)), cf(do16), f16_types,
          TABLE_ONLY)
+    # (l) d = 576, v_d = 64 (an MLA head width) bf16 causal, 8 rows of 1024:
+    # past the tensor-core forward's classes, the scalar forward on the
+    # banded and the resident route
+    q5, k5 = randn((8, 1024, 576), bf), randn((8, 1024, 576), bf)
+    v5, do5 = randn((8, 1024, 64), bf), randn((8, 1024, 64), bf)
+    for label, env, want_fwd in (("(l) causal bf16 d 576", None, "banded_fwd"),
+                                 ("(l) causal bf16 d 576 resident", RESIDENT, "resident_fwd")):
+        case(label, causal, (cf(q5), cf(k5), cf(v5)), cf(do5), slice_types, env)
+        if not per_case[label].get(want_fwd):
+            fail(f"{label}: {want_fwd} did not launch: {per_case[label]}")
+    # (m) the resident route on fp16 (the tensor-core body's fp16 walk)
+    case("(m) causal f16 resident", causal, (cf(q16), cf(k16), cf(v16)), cf(do16), f16_types,
+         RESIDENT)
     op_launches = {}
     for launches in per_case.values():
         for kn, n in launches.items():
@@ -1434,13 +1457,28 @@ def op_phase(dev):
         b_ms, b_by = bound(n_bytes, products * 2 * pairs * d, "bf16")
         times[kn] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                          bound_by=b_by)
-        body = ""
-        if kn in ("flash_bwd_fused", "banded_bwd"):
-            times[kn]["body"] = native.bwd_body(bf, d, d)
-            body = f" body={times[kn]['body']}"
-        print(f"kernel {kn} (slice):{body} ms={ms} plain_ms={plain_ms} library_ms={lib_ms} "
-              f"bound_ms={b_ms} ({b_by}) useful TFLOP/s="
+        # the split pair and the q-outer backward have the scalar body only
+        times[kn]["body"] = (native.fwd_body(bf, d, d) if kn.endswith("_fwd") else
+                             native.bwd_body(bf, d, d) if kn in ("flash_bwd_fused", "banded_bwd")
+                             else "scalar")
+        extra = ""
+        if kn == "resident_fwd":   # the persistent walk's launch
+            plan = native.resident_plan(bf, BH, S, d, d)
+            times[kn].update({x: plan[x] for x in ("grid", "items", "group_rows")})
+            extra = (f" grid={plan['grid']} items={plan['items']} rows in flight: one or two "
+                     f"groups of {plan['group_rows']}")
+        print(f"kernel {kn} (slice): body={times[kn]['body']}{extra} ms={ms} plain_ms={plain_ms} "
+              f"library_ms={lib_ms} bound_ms={b_ms} ({b_by}) useful TFLOP/s="
               f"{products * area2 * d / ms / 1e9:.3f}", flush=True)
+    # the resident walk in strict row order (groups of one row), against
+    # its groups of one wave's rows
+    res, band = times["resident_fwd"], times["banded_fwd"]
+    res["ms_row_order"] = time_ms(lambda: native.resident_fwd(q_s, k, v, rule_c, tabs(fr)[0], 128,
+                                                              128, group_rows=1), n=10)
+    print(f"resident_fwd beside banded_fwd (slice): {res['ms']} vs {band['ms']} ms = "
+          f"{res['ms'] / band['ms']:.3f}x; library {res['library_ms']} ms = "
+          f"{res['ms'] / res['library_ms']:.3f}x; bound share {res['bound_ms'] / res['ms']:.4f}; "
+          f"in strict row order (groups of 1 row) {res['ms_row_order']} ms", flush=True)
     # what dQ costs the tensor-core backward: banded_bwd without the dS^T
     # tile, the dQ product and its reduction (not counted in any path)
     no_dq_ms = time_ms(lambda: native.banded_bwd(q_s, k, v, do, lse2, delta, rule_c, tabs(bb)[0],
@@ -1644,7 +1682,13 @@ def experiment_phase(dev, seed):
     q, k, v = uni((B, S, D)).to(bf), uni((B, S, D)).to(bf), uni((B, S, D)).to(bf)
     q4, k4, v4 = q.unsqueeze(0), k.unsqueeze(0), v.unsqueeze(0)
     fwd_bytes = 4 * q.numel() * 2                                     # q, k, v in, o out
+    # exp_resident's kernel is timed on the prescaled q, without the tool's
+    # prescale pass around it
+    q_res = exp_resident._prescale(q, None)
+    kernel_only = {}
     for bq, bkv in exp_resident.PAIRS:
+        kernel_only["exp_resident_fwd", f"{bq}x{bkv}"] = (
+            lambda bq=bq, bkv=bkv: native.exp_resident_fwd(q_res, k, v, bq, bkv))
         runs.append(("exp_resident_fwd", f"{bq}x{bkv}",
                      lambda bq=bq, bkv=bkv: exp_resident.resident_forward(
                          q, k, v, block_q=bq, block_kv=bkv),
@@ -1729,7 +1773,7 @@ def experiment_phase(dev, seed):
     if min(launches.values()) < 1:
         fail(f"phase 8: an experiment kernel never launched: {launches}")
 
-    entries = {}
+    entries, oracle = {}, None
     for (kernel, variant, fn, plain, n_bytes, n_ops, ops_type, lib, tol, codes), o in zip(runs,
                                                                                       outs):
         ref = plain()
@@ -1737,7 +1781,15 @@ def experiment_phase(dev, seed):
         err, limit = float((o.float() - ref.float()).abs().max()), tol(ref)
         if not torch.isfinite(o).all() or o.shape != ref.shape or err > limit:
             fail(f"phase 8: {kernel} {variant} max error {err} > {limit}")
-        extra = {}
+        extra = {"body": native.EXP_FWD_BODY[kernel]} if kernel in native.EXP_FWD_BODY else {}
+        if kernel == "exp_resident_fwd":   # exact causal attention (the tool's own check)
+            if oracle is None:
+                oracle = exp_resident.causal_oracle(q, k, v).float()
+            oracle_err = float((o.float() - oracle).abs().max())
+            if oracle_err >= 1e-2:
+                fail(f"phase 8: {kernel} {variant} differs from the dense causal oracle by "
+                     f"{oracle_err}")
+            extra["oracle_err"] = oracle_err
         if codes is not None:   # int8mm: q codes, integer scores and p codes bit for bit
             got = exp_decode.paged_decode(*codes, codes=True)
             want = exp_decode.paged_decode_plain(*codes, codes=True)
@@ -1746,7 +1798,8 @@ def experiment_phase(dev, seed):
                     fail(f"phase 8: {kernel} {variant} {cname} differ in {int((a != b).sum())} "
                          f"places")
             extra["codes_equal"] = True
-        ms, plain_ms = time_ms(fn, n=10), time_ms(plain, n=5)
+        ms = time_ms(kernel_only.get((kernel, variant), fn), n=10)
+        plain_ms = time_ms(plain, n=5)
         lib_ms = None if lib is None else time_ms(lib, n=10)
         b_ms, b_by = bound(n_bytes, n_ops, ops_type)
         r = dict(err=err, tol=limit, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1760,7 +1813,8 @@ def experiment_phase(dev, seed):
                                                       + 8)
             rate = (f"{kvb / ms / 1e6:.0f} GB/s as the tool counts (the shared K/V once per "
                     f"row: {ib}x the bytes of the bound)")
-        print(f"kernel {kernel} {variant}: max_abs_err={err} (tol {limit}) ms={ms} "
+        body = f" body={extra['body']}" if "body" in extra else ""
+        print(f"kernel {kernel} {variant}:{body} max_abs_err={err} (tol {limit}) ms={ms} "
               f"plain_ms={plain_ms} bound_ms={b_ms} ({b_by}) library_ms={lib_ms}; {rate}",
               flush=True)
         entry = entries.setdefault(kernel, dict(r, variants={}))

@@ -263,7 +263,7 @@ def test_half_backward_rounds_as_jax_kernels(monkeypatch, route):
 # head dims past the old 256 cap: the CUDA kernels take them (a third tile
 # class, output columns past 512 over grid z); on the CPU the op path and
 # the block solver must take them too
-@pytest.mark.parametrize("d,v_d", [(384, 384), (64, 576)])
+@pytest.mark.parametrize("d,v_d", [(384, 384), (64, 576), (576, 64)])
 def test_wide_head_dims_match_jax_reference(d, v_d):
     rng = np.random.default_rng(d + v_d)
     t = lambda shape: rng.uniform(-2.0, 2.0, shape).astype(np.float32)
@@ -300,8 +300,9 @@ def test_kernel_shared_memory_guards():
     for d, v_d in ((128, 128), (256, 256), (512, 512), (512, 2048), (64, 576)):
         assert native.tc_fwd_smem(d, v_d) <= native.MAX_SMEM
     native._check_fwd_smem("flash_fwd", torch.float32, 1024, 1024)
-    with pytest.raises(ValueError, match="d <= 512"):
-        native._check_fwd_smem("flash_fwd", torch.bfloat16, 576, 64)
+    # half heads past the tensor-core classes run the scalar body
+    native._check_fwd_smem("flash_fwd", torch.bfloat16, 576, 64)
+    assert native.fwd_body(torch.bfloat16, 576, 64) == "scalar"
     with pytest.raises(ValueError, match="shared memory"):
         native._check_smem("flash_bwd_fused", native.bwd_smem(1024, 1024, 2))
 
@@ -318,6 +319,93 @@ def test_fused_backward_body(dtype, d, v_d, body):
     assert native.bwd_body(dtype, d, v_d) == body
     assert native.TC_BWD_SMEM <= native.MAX_SMEM
     native._check_bwd_smem("banded_bwd", dtype, d, v_d)
+
+
+@pytest.mark.parametrize("dtype,d,v_d,body", [
+    (torch.bfloat16, 128, 128, "tensor-core"), (torch.float16, 128, 128, "tensor-core"),
+    (torch.bfloat16, 256, 256, "tensor-core"), (torch.float16, 256, 64, "tensor-core"),
+    (torch.bfloat16, 512, 512, "tensor-core"), (torch.float16, 512, 64, "tensor-core"),
+    (torch.bfloat16, 576, 64, "scalar"), (torch.float16, 576, 576, "scalar"),
+    (torch.float32, 128, 128, "scalar"), (torch.float32, 576, 64, "scalar")])
+def test_forward_body(dtype, d, v_d, body):
+    """``flash_fwd``, ``banded_fwd`` and ``resident_fwd`` run the
+    tensor-core forward on bf16 and fp16 at d <= 512 and the scalar body
+    elsewhere (float32: TF32 would not hold its limit); the memory guard
+    follows the body and passes on both."""
+    assert native.fwd_body(dtype, d, v_d) == body
+    for name in ("flash_fwd", "banded_fwd", "resident_fwd"):
+        native._check_fwd_smem(name, dtype, d, v_d)
+
+
+@pytest.mark.parametrize("d,v_d,smem", [(128, 128, 164912), (256, 256, 197680),
+                                        (512, 64, 230448), (64, 576, 197680)])
+def test_resident_tc_shared_memory(d, v_d, smem):
+    """The resident forward's tensor-core classes (128-, 64- and 32-key
+    stages) fit one block of the H100 (one CTA an SM: the persistent grid is
+    the 132 SMs), with the six barriers of the persistent walk (Q full and
+    empty, two full and two empty stages)."""
+    assert native.tc_fwd_smem(d, v_d) == smem <= native.MAX_SMEM
+    assert 2 * smem > native.MAX_SMEM
+    native._check_fwd_smem("resident_fwd", torch.bfloat16, d, v_d)
+
+
+def _resident_items(B, tiles, chunks, group):
+    """The tensor-core resident forward's work items in the order its
+    counter hands them out (``item_at`` in ``csrc/attention_fwd_tc.cuh``):
+    (row, query tile, v_d chunk)."""
+    out = []
+    for item in range(B * tiles * chunks):
+        g0 = item // (group * tiles * chunks) * group
+        rows, j = min(group, B - g0), item - g0 * tiles * chunks
+        p, rem = divmod(j, rows * chunks)
+        out.append((g0 + rem // chunks, tiles - 1 - p, rem % chunks))
+    return out
+
+
+def _longest_cta(costs, grid, counter):
+    """The busiest CTA's work in stages, an item's epilogue priced at half a
+    stage: with the counter each item goes to the CTA that frees first,
+    without it item i to CTA i % grid (a static stride)."""
+    load = [0.0] * grid
+    for i, c in enumerate(costs):
+        cta = load.index(min(load)) if counter else i % grid
+        load[cta] += c + 0.5
+    return max(load)
+
+
+@pytest.mark.parametrize("B,tiles,chunks,group", [(64, 16, 1, 8), (8, 32, 1, 4), (37, 4, 1, 33),
+                                                  (2, 3, 2, 2), (5, 3, 3, 2), (7, 2, 1, 1)])
+def test_resident_walk_order(B, tiles, chunks, group):
+    """Every item once; groups of ``group`` rows in row order; inside a group
+    the last query tile of every row first."""
+    items = _resident_items(B, tiles, chunks, group)
+    assert sorted(items) == sorted((b, t, c) for b in range(B) for t in range(tiles)
+                                   for c in range(chunks))
+    groups = [b // group for b, _, _ in items]
+    assert groups == sorted(groups)
+    for g in set(groups):
+        tile_order = [t for (b, t, _), gg in zip(items, groups) if gg == g]
+        assert tile_order == sorted(tile_order, reverse=True)
+
+
+@pytest.mark.parametrize("B,tiles,static,rows,groups", [(64, 16, 84.0, 79.5, 72.0),
+                                                        (8, 32, 61.0, 52.0, 33.0)])
+def test_resident_walk_balance(B, tiles, static, rows, groups):
+    """The model behind the walk's design (the kernel's header): causal
+    items of tile t take t + 1 stages; on 132 CTAs a static stride over the
+    rows in order, the counter over the rows in order, and the counter over
+    groups of the rows one wave covers (the kernel's), at the training
+    slice (64 rows of 16 tiles) and the experiment tool's shape (8 of 32).
+    The groups come within 3% of the average at the tool's shape."""
+    grid = 132
+    cost = lambda walk: [t + 1 for _, t, _ in walk]
+    row_major = _resident_items(B, tiles, 1, 1)
+    wave = _resident_items(B, tiles, 1, grid // tiles)
+    assert _longest_cta(cost(row_major), grid, False) == static
+    assert _longest_cta(cost(row_major), grid, True) == rows
+    assert _longest_cta(cost(wave), grid, True) == groups
+    mean = (sum(cost(wave)) + 0.5 * len(wave)) / grid
+    assert groups < rows < static and (tiles < 32 or groups <= 1.03 * mean)
 
 
 # the port's kernel for each Pallas kernel body of the JAX package

@@ -526,6 +526,8 @@ OP_CASES = {
     "wide_384_local": (LocalRule(5, 0, False), "none_front", (260,), (300,), 384, 384, 1, 2),
     # output columns past 512 over grid z
     "wide_v_576": (CausalRule(), "scale_front", (200,), (330,), 64, 576, 1, 1),
+    # d past the tensor-core classes: bf16 / fp16 forwards on the scalar body
+    "wide_q_576": (CausalRule(), "none_front", (200,), (330,), 576, 64, 1, 1),
 }
 
 
@@ -658,6 +660,63 @@ def test_tc_forward_matches_plain(dev, monkeypatch, case, dtype, routes):
     _close("m", m, m2, torch.float32)
     if case == "dead_rows":
         assert float(o[:, 0].float().abs().max()) == 0.0 and float(l[:, 0].abs().max()) == 0.0
+
+
+# (rule, sync, q_seq, k_seq, d, v_d, b_kv, g): the resident forward's
+# persistent walk at fewer items than SMs (2 rows of 3 ragged tiles), many
+# more (200 rows of 8), an item count no multiple of the grid (37 x 4 =
+# 148), GQA 4, dead rows (scale_end, q longer than k), every tensor-core
+# class and the scalar body past d 512
+RESIDENT_CASES = {
+    "few_items_ragged": (CausalRule(), "none_front", (300,), (300,), 128, 128, 2, 1),
+    "many_items": (CausalRule(), "none_front", (1024,), (1024,), 64, 64, 200, 1),
+    "items_past_grid": (CausalRule(), "none_front", (512,), (512,), 128, 128, 37, 1),
+    "gqa_4": (CausalRule(), "none_front", (640,), (640,), 128, 128, 3, 4),
+    "dead_rows": (CausalRule(), "scale_end", (300,), (40,), 128, 128, 2, 1),
+    "d256": (CausalRule(), "none_front", (384,), (384,), 256, 256, 2, 1),
+    "d384": (CausalRule(), "none_front", (260,), (300,), 384, 384, 1, 2),
+    "d512": (CausalRule(), "none_front", (384,), (384,), 512, 64, 2, 1),
+    "d576_scalar": (CausalRule(), "none_front", (200,), (330,), 576, 64, 1, 1),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("case", list(RESIDENT_CASES))
+def test_resident_tc_walk(dev, monkeypatch, case, dtype):
+    """The resident forward (FA_RESIDENT=1, the window route off) launches
+    once on the body native.fwd_body names and matches the plain forward:
+    o within 2 ulps of the output type, l and m within 2e-5 at their scale."""
+    monkeypatch.setenv("FA_RESIDENT", "1")
+    monkeypatch.setenv("FA_WINDOW", "0")
+    rule, sync, q_seq, k_seq, d, v_d, b_kv, g = RESIDENT_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(d + 7 * b_kv)
+    pack = make_sync_pack(sync, q_seq, k_seq)
+    q_len, k_len = int(np.prod(q_seq)), int(np.prod(k_seq))
+    t = lambda *shape: (torch.rand(shape, generator=gen, device=dev) * 4 - 2).to(dtype)
+    q, k, v = t(b_kv * g, q_len, d), t(b_kv, k_len, d), t(b_kv, k_len, v_d)
+    plan = native.resident_plan(dtype, b_kv * g, q_len, d, v_d)
+    assert plan["body"] == native.fwd_body(dtype, d, v_d)
+    if plan["body"] == "tensor-core":
+        per_row = -(-q_len // 128) * -(-v_d // 256)
+        assert plan["items"] == b_kv * g * per_row
+        assert plan["grid"] == min(plan["items"], torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        assert plan["group_rows"] == min(b_kv * g, max(1, plan["grid"] // per_row))
+    native.reset_launch_counts()
+    o, l, m = forward.flash_forward(q, k, v, pack=pack, rule=rule, config=BLOCKS)
+    torch.cuda.synchronize()
+    assert {kn: n for kn, n in native.LAUNCHES.items() if n} == {"resident_fwd": 1}
+    o2, l2, m2 = forward._flash_forward_plain(forward.prescale(q, d ** -0.5), k, v, pack, rule)
+    _close("o", o, o2, dtype)
+    _close("l", l, l2, torch.float32)
+    _close("m", m, m2, torch.float32)
+    if case == "dead_rows":
+        assert float(o[:, 0].float().abs().max()) == 0.0 and float(l[:, 0].abs().max()) == 0.0
+    if plan["body"] == "tensor-core":   # strict row order: the same items, the same sums
+        (seg,) = forward.forward_route(pack, rule, BLOCKS, d, v_d).tables(pack, rule, dev)
+        o3, l3, m3 = native.resident_fwd(forward.prescale(q, d ** -0.5), k, v,
+                                         native.fa_rule(pack, rule), seg, 128, 128, group_rows=1)
+        assert torch.equal(o3, o) and torch.equal(l3, l) and torch.equal(m3, m)
 
 
 # ---- the tensor-core backward (attention_bwd_tc.cuh) ----

@@ -19,6 +19,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from tf_flash_attention_tpu_torch.experiments import exp_kv_unroll as tunroll
+from tf_flash_attention_tpu_torch.experiments._steps import forward_steps
 from tf_flash_attention_tpu_torch.experiments import exp_resident as tres
 from tf_flash_attention_tpu_torch.experiments import exp_vpu_attrib as tvpu
 from tf_flash_attention_tpu_torch.ops.kernel_common import LOG2E
@@ -111,6 +112,33 @@ def test_tool_resident_is_wrong_when_block_q_exceeds_block_kv(interpret, residen
     tool = _np(_load("exp_resident").resident_forward(jq, jk, jv, block_q=128, block_kv=64))
     oracle = tres.causal_oracle(tq.float(), tk.float(), tv.float()).numpy()
     assert np.abs(tool - oracle).max() > 0.1
+
+
+@pytest.fixture(scope="module")
+def stage_inputs():
+    rng = np.random.default_rng(3)
+    return [torch.from_numpy(rng.uniform(-1, 1, (1, 2048, D)).astype(np.float32)).to(
+        torch.bfloat16) for _ in range(3)]
+
+
+@pytest.fixture(scope="module")
+def stage_merge(stage_inputs):
+    """The card kernel's merge in PyTorch: 128-row items, one merge a
+    128-key stage (``csrc/exp_forward_kernels.cu``)."""
+    q, k, v = stage_inputs
+    return forward_steps(tres._prescale(q, None), k, v, step=128, group=128, block_q=128,
+                         causal=True, elem_mask=True, policy="bf16exp")
+
+
+@pytest.mark.parametrize("bq,bkv", tres.PAIRS)
+def test_resident_stage_merge_within_card_gate(stage_inputs, stage_merge, bq, bkv):
+    """The card's kernel merges once a 128-key stage where the plain
+    version merges once a ``block_kv`` step, so p rounds against other
+    running maxima; at S 2048 that stays within the card comparison's bound
+    (``ULPS`` bf16 ulps at the output's scale) for every pair of the tool."""
+    q, k, v = stage_inputs
+    want = tres.resident_forward_plain(q, k, v, block_q=bq, block_kv=bkv)
+    _close(_np(stage_merge), _np(want))
 
 
 # ---- exp_vpu_attrib: the ladder, block-causal at BQ = BK = S / 2 ----

@@ -16,9 +16,9 @@
 // as the JAX kernels do.  Inputs are float32, bf16 or fp16.  This file's
 // bodies compute every product as a float32 FMA on values staged in float32
 // (no TF32), so float32 inputs are computed at full float32 precision; the
-// bf16 / fp16 forward of the table and banded walks runs on the tensor-core
-// body of attention_fwd_tc.cuh instead, and their fused backward at
-// max(d, v_d) <= 128 on that of attention_bwd_tc.cuh.  The backwards round p
+// bf16 / fp16 forward of the table, banded and resident walks at d <= 512
+// runs on the tensor-core body of attention_fwd_tc.cuh instead, and the
+// fused backward at max(d, v_d) <= 128 on that of attention_bwd_tc.cuh.  The backwards round p
 // to the input type before dV, and dS before dK and dQ, as the JAX kernels
 // do.  Built without --use_fast_math (exp2f stays accurate).
 //
@@ -44,7 +44,9 @@
 //   kWindow - one lane-aligned band [starts[row / sub], + band) of the
 //             other sequence per sub-block (schedule.window_band_table*),
 //             every tile masked.
-//   kResident - the banded walk for every query tile of a row, in one CTA.
+//   kResident - the banded walk for every query tile of a row, in one CTA
+//               (the tensor-core body: persistent CTAs over the rows' tiles
+//               in row order).
 //
 // Each extern "C" entry launches one kernel on the caller's stream,
 // allocates nothing, and returns cudaGetLastError() (or
@@ -102,6 +104,8 @@ struct AttnArgs {
   const int* needs;
   int num_steps, block_q, block_kv, B, g, d, v_d;
   int band, sub;    // kWindow: band width and sub-block rows
+  int* next_item;   // the tensor-core kResident: a zeroed work counter
+  int group_rows;   // ... and its rows a group (0: one wave's)
   float out_scale;  // dQ: scale; fused dK: 1/log2e; dK-dV: scale
   FaRule rule;
 };
@@ -400,9 +404,10 @@ __device__ __forceinline__ void fwd_rows(const AttnArgs& a, const FwdSmem& sm, i
 }
 
 // kTable and kBanded: one CTA per (query row b, BM query rows).  kResident
-// (fa_resident_fwd, <- ops/forward_banded.py::_resident_kernel): one CTA
-// per query row b, walking all of the row's query tiles in order with the
-// banded walk, so one SM reads the row's K/V (through L2) for the whole row.
+// (fa_resident_fwd on float32 and d > 512, <- ops/forward_banded.py::
+// _resident_kernel): one CTA per query row b, walking all of the row's
+// query tiles in order with the banded walk, so one SM reads the row's K/V
+// (through L2) for the whole row.
 template <typename T, int BM, int BN, int DMAX, int WALK>
 __global__ void __launch_bounds__(NT, 1) flash_fwd_kernel(AttnArgs a) {
   constexpr int LDS = BN + 1;

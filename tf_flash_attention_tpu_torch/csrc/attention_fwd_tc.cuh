@@ -1,21 +1,27 @@
 // The tensor-core forward of the op path for Hopper (sm_90a): the tile body
-// of fa_flash_fwd (kTable, <- ops/forward.py::_fwd_kernel) and fa_banded_fwd
-// (kBanded, <- ops/forward_banded.py::_banded_kernel) on bf16 and fp16
-// inputs.  Included by attention_kernels.cu and band_kernels.cu after
-// attention_common.cuh; float32 inputs stay on the scalar body there (full
-// float32 products: TF32 would not hold the float32 limit).
+// of fa_flash_fwd (kTable, <- ops/forward.py::_fwd_kernel), fa_banded_fwd
+// (kBanded, <- ops/forward_banded.py::_banded_kernel) and fa_resident_fwd
+// (kResident, <- ops/forward_banded.py::_resident_kernel) on bf16 and fp16
+// inputs at d <= 512, and of fa_exp_resident_fwd (kResident with the tool's
+// bf16 merge, <- tools/exp_resident.py::resident_forward).  Included by
+// attention_kernels.cu, band_kernels.cu and exp_forward_kernels.cu after
+// attention_common.cuh; float32 inputs (full float32 products: TF32 would
+// not hold the float32 limit) and half inputs at d > 512 (fwd_any) run the
+// scalar body there.
 //
 // What bounds the forward on this card is the tensor cores' rate (989
 // TFLOP/s bf16): at d 128 a query row does 4 d = 512 flops per visible key
 // against 2 d bytes of K/V read per key per 128-row CTA.  The design keeps
 // the tensor cores fed:
-//   CTA      one per (query row b, 128 query rows, 256-column chunk of v_d):
-//            two consumer warpgroups of 64 rows and one producer warp.  The
-//            CTA walks its schedule row as the scalar body does (kTable: the
-//            kv_table / kv_counts / needs_mask row; kBanded: the four band
-//            ints) in stages of BN keys.  Query tiles launch last-first, so
-//            a causal row's long tiles start first and the short ones fill
-//            the tail.
+//   work     items of (query row b, 128 query rows, 256-column chunk of
+//            v_d): two consumer warpgroups of 64 rows and one producer warp
+//            a CTA.  An item walks its schedule row as the scalar body does
+//            (kTable: the kv_table / kv_counts / needs_mask row; kBanded,
+//            kResident: the four band ints) in stages of BN keys.
+//   kTable, kBanded: one CTA an item, grid (B, q tiles, v chunks); query
+//            tiles launch last-first, so a causal row's long tiles start
+//            first and the short ones fill the tail.
+//   kResident: persistent CTAs walking the items in row-major order (below).
 //   operands stay in the input type in shared memory, in slabs of 64
 //            columns (128 bytes a row) in the 128-byte swizzle that wgmma's
 //            descriptors read: Q once, K and V in a ring of two stages.
@@ -25,7 +31,8 @@
 //            pitch is not a multiple of 16 bytes (d or v_d not a multiple of
 //            8) the producer warp stages the same layout with plain loads.
 //            Consumers release a stage on its empty barrier once their
-//            products have read it.
+//            products have read it, and Q on q_empty after their item's last
+//            S product.
 //   products S = Q K^T: wgmma m64nBNk16, both operands in shared memory,
 //            unrolled over the class's width (d padded with zeros to 128,
 //            256 or 512: 128-, 64- or 32-key stages) so the products
@@ -38,12 +45,52 @@
 //            as the scalar body: row max and sum across each quad by
 //            shuffles, m and l in registers, no score tile in shared memory
 //            and no barrier per tile.  p is rounded to T for PV while l sums
-//            the float32 p, as the JAX kernels do.  Masked stages run a body
-//            compiled with visible() per element (the orders of the thread's
-//            rows and columns computed once a stage); interior stages run one
-//            compiled without it: a single body with a run-time test paid the
-//            predicate on every stage.  Masked logits take the finite 0xFA
-//            value; dead rows get O = 0, l = 0, m = NEG_INF.
+//            the float32 p, as the JAX kernels do (BF16EXP, the tool's merge:
+//            p = bf16(exp2(bf16(s - m))) and l sums the rounded p; no l or m
+//            out).  Masked stages run a body compiled with visible() per
+//            element (the orders of the thread's rows and columns computed
+//            once a stage); interior stages run one compiled without it: a
+//            single body with a run-time test paid the predicate on every
+//            stage.  Masked logits take the finite 0xFA value; dead rows get
+//            O = 0, l = 0, m = NEG_INF.
+//
+// The resident walk.  The TPU kernel keeps a batch row's whole K/V in VMEM
+// (one DMA per operand per row) and loops over the row's q blocks inside
+// one grid step.  A CTA here has at most 227 KB of shared memory, less than
+// one row's K/V (2048 x 128 bf16 keys and values: 1 MB), so what carries
+// over is what the residency buys: each row's K/V read from HBM about once.
+// On Hopper that is L2 (50 MB), provided the CTAs in flight cover few rows.
+// So the grid is persistent, min(SMs x CTAs an SM holds, items) (132 x 1
+// at d 128: 161 KB of shared memory a CTA), and the items go out row-major
+// by groups of rows: group g holds rows [gR, gR + R), R the whole rows one
+// wave of the grid covers, floor(grid / items a row) (at least 1), so a
+// group's items take at most one wave; all of group g's items go
+// before group g + 1's, and inside a group the last query tile of every
+// row first, then the one before it (for a causal rule the longest band
+// first, the short tail last).  At the training slice, (B.H, S, d) = (64,
+// 2048, 128), a row has 16 items of 1 MB of K/V: R = 8 rows, one or two
+// groups, 8-16 MB, in flight, inside the 50 MB; the one-CTA-an-item grid of
+// kBanded instead starts a tile of every one of the 64 rows at once: all
+// 64 MB of the slice's K/V live, more than L2 holds.  At the experiment
+// tool's shape, (8, 4096, 128), a row has 32 items of 2 MB: R = 4, 8-16 MB.
+// The CTAs take their items from a global counter (atomicAdd; the wrapper
+// zeroes it), so a CTA that drew short items takes more: with the longest
+// items of a group first, that is list scheduling close to longest-first,
+// and the rows' order keeps the groups in flight few.  A static stride
+// (item blockIdx.x + i gridDim.x) needs no counter, but at 1.9 items a CTA
+// (the tool's 256 items on 132 CTAs) it gives one CTA 61 stages against an
+// average of 33, and at the slice 84 against 70 (a count of stages, an
+// item's epilogue priced at half a stage: test_resident_walk_balance in
+// tests/test_torch_attention.py; PERF.md has the times), where the counter
+// over these groups gives 33 and 72; strict row order (R = 1, group_rows)
+// leaves a row's longest items to the CTAs that come late (52 and 79.5).
+// Across items the producer runs ahead: once the consumers have issued the
+// item's last S product it takes the next item, writes it beside the
+// barriers and loads its Q, and the K/V ring carries on into the next
+// item's first stages while the consumers run the last PV and the
+// epilogue; every mbarrier's phase carries across items.  An item past the
+// count is the end: the producer arrives on Q's barrier without a load.
+//
 // The building blocks (barriers, TMA, swizzle, descriptors, wgmma) are
 // tc_common.cuh's, shared with the backward of attention_bwd_tc.cuh.
 
@@ -61,7 +108,7 @@ constexpr int kThreads = kConsumers + 32;    // two consumer warpgroups, a produ
 __host__ __device__ constexpr int slabs_of(int bn) { return bn == 128 ? 2 : bn == 64 ? 4 : 8; }
 constexpr int kStages = 2;  // the K/V ring (a third stage measured no faster)
 
-// calls f(c0, masked) for every BN-key stage of the CTA's walk, in order
+// calls f(c0, masked) for every BN-key stage of the item's walk, in order
 template <int WALK, int BN, typename F>
 __device__ __forceinline__ void for_each_stage(const AttnArgs& a, int qi, F&& f) {
   const int bkv = a.block_kv, k_len = a.rule.k_len;
@@ -71,7 +118,42 @@ __device__ __forceinline__ void for_each_stage(const AttnArgs& a, int qi, F&& f)
   });
 }
 
-template <typename T, int WALK, int BN, int VN>
+// The work items: (row, 128 query rows, VN-column chunk of v_d).  kResident
+// walks them all, by groups of group_rows rows (see the header); the other
+// walks take the one item of blockIdx.
+struct Items {
+  int tiles, chunks, count, group;
+};
+
+template <int WALK, int VN>
+__device__ __forceinline__ Items items_of(const AttnArgs& a) {
+  Items w;
+  w.tiles = (a.rule.q_len + kBM - 1) / kBM;
+  w.chunks = (a.v_d + VN - 1) / VN;
+  w.count = WALK == kResident ? a.B * w.tiles * w.chunks : 1;
+  w.group = a.group_rows;
+  return w;
+}
+
+// item -> (query row b, first query row, first output column)
+template <int WALK, int VN>
+__device__ __forceinline__ void item_at(const AttnArgs& a, const Items& w, int item, int& b,
+                                        int& row0, int& vc0) {
+  if constexpr (WALK == kResident) {
+    const int g0 = item / (w.group * w.tiles * w.chunks) * w.group;  // the group's first row
+    const int rows = min(w.group, a.B - g0), j = item - g0 * w.tiles * w.chunks;
+    const int p = j / (rows * w.chunks), rem = j - p * rows * w.chunks;
+    b = g0 + rem / w.chunks;
+    row0 = (w.tiles - 1 - p) * kBM;
+    vc0 = (rem % w.chunks) * VN;
+  } else {
+    b = blockIdx.x;
+    row0 = (gridDim.y - 1 - blockIdx.y) * kBM;
+    vc0 = blockIdx.z * VN;
+  }
+}
+
+template <typename T, int WALK, int BN, int VN, bool BF16EXP>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_tc_kernel(const __grid_constant__ AttnArgs a, const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap kmap,
@@ -85,14 +167,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   unsigned char* stages = Qs + ds * kBM * kRowBytes;
   uint64_t* bars = reinterpret_cast<uint64_t*>(stages + kStages * stage_bytes);
   uint64_t* q_full = bars;
-  uint64_t* full = bars + 1;
-  uint64_t* empty = bars + 1 + kStages;
+  uint64_t* q_empty = bars + 1;
+  uint64_t* full = bars + 2;
+  uint64_t* empty = bars + 2 + kStages;
+  int* item_slot = reinterpret_cast<int*>(bars + 2 + 2 * kStages);  // kResident
+  constexpr bool kPersistent = WALK == kResident;
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.x, row0 = (gridDim.y - 1 - blockIdx.y) * kBM, vc0 = blockIdx.z * VN;
-  const int qi = row0 / a.block_q, bkv_row = b / a.g;
+  const Items w = items_of<WALK, VN>(a);
   if (tid == 0) {
     mbar_init(q_full, tma ? 1 : 32);
+    mbar_init(q_empty, kConsumers);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full + s, tma ? 1 : 32);
       mbar_init(empty + s, kConsumers);
@@ -103,168 +188,204 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (tid >= kConsumers) {  // ---- the producer warp ----
     const int lane = tid - kConsumers;
-    const T* kb = static_cast<const T*>(a.k) + static_cast<size_t>(bkv_row) * k_len * d;
-    const T* vb = static_cast<const T*>(a.v) + static_cast<size_t>(bkv_row) * k_len * v_d;
-    if (tma) {
-      if (lane != 0) return;
-      mbar_expect_tx(q_full, ds * kBM * kRowBytes);
-      for (int s = 0; s < ds; ++s)
-        tma_load(Qs + s * kBM * kRowBytes, &qmap, q_full, s * kSlabCols, row0, b);
-    } else {
-      stage_plain(Qs, static_cast<const T*>(a.q) + static_cast<size_t>(b) * q_len * d, row0, kBM,
-                  q_len, 0, ds, d, lane);
-      fence_proxy_async();
-      mbar_arrive(q_full);
-    }
-    int it = 0;
-    for_each_stage<WALK, BN>(a, qi, [&](int c0, bool) {
-      const int st = it % kStages;
-      if (it >= kStages) mbar_wait(empty + st, ((it / kStages) & 1) ^ 1);
-      unsigned char* ks = stages + st * stage_bytes;
-      if (tma) {
-        mbar_expect_tx(full + st, stage_bytes);
-        for (int s = 0; s < ds; ++s)
-          tma_load(ks + s * BN * kRowBytes, &kmap, full + st, s * kSlabCols, c0, bkv_row);
-        for (int s = 0; s < VS; ++s)
-          tma_load(ks + k_bytes + s * BN * kRowBytes, &vmap, full + st, vc0 + s * kSlabCols, c0,
-                   bkv_row);
-      } else {
-        stage_plain(ks, kb, c0, BN, k_len, 0, ds, d, lane);
-        stage_plain(ks + k_bytes, vb, c0, BN, k_len, vc0, VS, v_d, lane);
-        fence_proxy_async();
-        mbar_arrive(full + st);
+    if (tma && lane != 0) return;
+    int it = 0;  // stages so far: the ring's phases
+    for (int n = 0; kPersistent || n == 0; ++n) {  // n: items so far, Q's phases
+      int item = 0;
+      if constexpr (kPersistent) {
+        if (lane == 0) item = atomicAdd(a.next_item, 1);
+        item = __shfl_sync(__activemask(), item, 0);
       }
-      ++it;
-    });
+      if (n > 0) mbar_wait(q_empty, (n - 1) & 1);  // the last item's S products are done
+      if constexpr (kPersistent) {
+        if (lane == 0) *item_slot = item;
+        if (item >= w.count) {  // the end: Q's phase completes without a load
+          mbar_arrive(q_full);
+          break;
+        }
+      }
+      int b, row0, vc0;
+      item_at<WALK, VN>(a, w, item, b, row0, vc0);
+      const int qi = row0 / a.block_q, bkv_row = b / a.g;
+      const T* kb = static_cast<const T*>(a.k) + static_cast<size_t>(bkv_row) * k_len * d;
+      const T* vb = static_cast<const T*>(a.v) + static_cast<size_t>(bkv_row) * k_len * v_d;
+      if (tma) {
+        mbar_expect_tx(q_full, ds * kBM * kRowBytes);
+        for (int s = 0; s < ds; ++s)
+          tma_load(Qs + s * kBM * kRowBytes, &qmap, q_full, s * kSlabCols, row0, b);
+      } else {
+        stage_plain(Qs, static_cast<const T*>(a.q) + static_cast<size_t>(b) * q_len * d, row0,
+                    kBM, q_len, 0, ds, d, lane);
+        fence_proxy_async();
+        mbar_arrive(q_full);
+      }
+      for_each_stage<WALK, BN>(a, qi, [&](int c0, bool) {
+        const int st = it % kStages;
+        if (it >= kStages) mbar_wait(empty + st, ((it / kStages) & 1) ^ 1);
+        unsigned char* ks = stages + st * stage_bytes;
+        if (tma) {
+          mbar_expect_tx(full + st, stage_bytes);
+          for (int s = 0; s < ds; ++s)
+            tma_load(ks + s * BN * kRowBytes, &kmap, full + st, s * kSlabCols, c0, bkv_row);
+          for (int s = 0; s < VS; ++s)
+            tma_load(ks + k_bytes + s * BN * kRowBytes, &vmap, full + st, vc0 + s * kSlabCols,
+                     c0, bkv_row);
+        } else {
+          stage_plain(ks, kb, c0, BN, k_len, 0, ds, d, lane);
+          stage_plain(ks + k_bytes, vb, c0, BN, k_len, vc0, VS, v_d, lane);
+          fence_proxy_async();
+          mbar_arrive(full + st);
+        }
+        ++it;
+      });
+    }
     return;
   }
 
-  // ---- the consumer warpgroups: rows row0 + 64 wg + [0, 64) ----
-  const int wg = tid / 128, w = (tid / 32) & 3, lane = tid & 31;
-  const int r_base = row0 + 64 * wg + 16 * w + (lane >> 2);  // and r_base + 8
-  float o_acc[VN / 2];
-#pragma unroll
-  for (int i = 0; i < VN / 2; ++i) o_acc[i] = 0.f;
-  float m_run[2] = {neg_inf(), neg_inf()}, l_part[2] = {0.f, 0.f};
+  // ---- the consumer warpgroups: rows row0 + 64 wg + [0, 64) of each item ----
+  const int wg = tid / 128, wp = (tid / 32) & 3, lane = tid & 31;
   const uint64_t q_desc = make_desc(Qs + 64 * wg * kRowBytes, 16, 1024);
-  mbar_wait(q_full, 0);
-
-  // one stage; MASKED (a compile-time tag) applies the rule predicate, the
-  // interior stages compile without it
   int it = 0;
-  auto body = [&](int c0, auto masked_tag) {
-    constexpr bool MASKED = decltype(masked_tag)::value;
-    const int st = it % kStages;
-    unsigned char* ks = stages + st * stage_bytes;
-    mbar_wait(full + st, (it / kStages) & 1);
-
-    // S = Q K^T (log2-domain logits: q arrives prescaled): every k-step of
-    // the class, unrolled so the products pipeline (Q and K past d are zero)
-    float s[BN / 2];
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
-    const uint64_t k_desc = make_desc(ks, 16, 1024);
-    fence_regs(s);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4 * ds; ++kk) {
-      const int slab = kk >> 2, off = (kk & 3) * 32;
-      mma_qk<BN, T>(s, q_desc + ((slab * kBM * kRowBytes + off) >> 4),
-                    k_desc + ((slab * BN * kRowBytes + off) >> 4));
+  for (int n = 0; kPersistent || n == 0; ++n) {
+    mbar_wait(q_full, n & 1);
+    int item = 0;
+    if constexpr (kPersistent) {
+      item = *static_cast<volatile int*>(item_slot);
+      if (item >= w.count) break;
     }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(s);
+    int b, row0, vc0;
+    item_at<WALK, VN>(a, w, item, b, row0, vc0);
+    const int qi = row0 / a.block_q;
+    const int r_base = row0 + 64 * wg + 16 * wp + (lane >> 2);  // and r_base + 8
+    int n_stages = 0;
+    for_each_stage<WALK, BN>(a, qi, [&](int, bool) { ++n_stages; });
+    if (n_stages == 0) mbar_arrive(q_empty);
+    float o_acc[VN / 2];
+#pragma unroll
+    for (int i = 0; i < VN / 2; ++i) o_acc[i] = 0.f;
+    float m_run[2] = {neg_inf(), neg_inf()}, l_part[2] = {0.f, 0.f};
 
-    // element i of the fragment: row r_base + 8 ((i >> 1) & 1), column
-    // c0 + 8 (i >> 2) + 2 (lane & 3) + (i & 1); the orders of the thread's
-    // two rows and BN / 4 columns come once a stage
-    if constexpr (MASKED) {
-      const SeqPos rows[2] = {q_pos_of(a.rule, r_base), q_pos_of(a.rule, r_base + 8)};
+    // one stage; MASKED (a compile-time tag) applies the rule predicate, the
+    // interior stages compile without it
+    int j = 0;  // the item's stages so far
+    auto body = [&](int c0, auto masked_tag) {
+      constexpr bool MASKED = decltype(masked_tag)::value;
+      const int st = it % kStages;
+      unsigned char* ks = stages + st * stage_bytes;
+      mbar_wait(full + st, (it / kStages) & 1);
+
+      // S = Q K^T (log2-domain logits: q arrives prescaled): every k-step of
+      // the class, unrolled so the products pipeline (Q and K past d are zero)
+      float s[BN / 2];
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
+      for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+      const uint64_t k_desc = make_desc(ks, 16, 1024);
+      fence_regs(s);
+      wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const SeqPos col = k_pos_of(a.rule, c0 + 8 * j + 2 * (lane & 3) + e);
+      for (int kk = 0; kk < 4 * ds; ++kk) {
+        const int slab = kk >> 2, off = (kk & 3) * 32;
+        mma_qk<BN, T>(s, q_desc + ((slab * kBM * kRowBytes + off) >> 4),
+                      k_desc + ((slab * BN * kRowBytes + off) >> 4));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      if (++j == n_stages) mbar_arrive(q_empty);  // the producer may load the next Q
+
+      // element i of the fragment: row r_base + 8 ((i >> 1) & 1), column
+      // c0 + 8 (i >> 2) + 2 (lane & 3) + (i & 1); the orders of the thread's
+      // two rows and BN / 4 columns come once a stage
+      if constexpr (MASKED) {
+        const SeqPos rows[2] = {q_pos_of(a.rule, r_base), q_pos_of(a.rule, r_base + 8)};
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
-            if (!visible(a.rule, rows[h], col)) s[4 * j + 2 * h + e] = neg_inf();
+        for (int jj = 0; jj < BN / 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const SeqPos col = k_pos_of(a.rule, c0 + 8 * jj + 2 * (lane & 3) + e);
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              if (!visible(a.rule, rows[h], col)) s[4 * jj + 2 * h + e] = neg_inf();
+          }
         }
       }
-    }
-    float mx[2] = {m_run[0], m_run[1]};
+      float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-    float alpha[2], rs[2] = {0.f, 0.f};
+      for (int i = 0; i < BN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        alpha[h] = exp2f(m_run[h] - mx[h]);
+        m_run[h] = mx[h];
+      }
+      // masked logits hold NEG_INF: exp2(NEG_INF - m) == 0 for a live row; a
+      // row with no visible key yet is repaired at the end
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int h = (i >> 1) & 1;
+        if constexpr (BF16EXP)
+          s[i] = __bfloat162float(hexp2(__float2bfloat16_rn(s[i] - m_run[h])));
+        else
+          s[i] = exp2f(s[i] - m_run[h]);
+        rs[h] += s[i];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l_part[h] = alpha[h] * l_part[h] + rs[h];
+#pragma unroll
+      for (int i = 0; i < VN / 2; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
+      // P as the A fragments of BN / 16 k-slices, rounded to T
+      uint32_t p[BN / 4];
+#pragma unroll
+      for (int i = 0; i < BN / 4; ++i) p[i] = pack2<T>(s[2 * i], s[2 * i + 1]);
+
+      // O += P V
+      const uint64_t v_desc = make_desc(ks + k_bytes, BN * kRowBytes, 1024);
+      fence_regs(o_acc);
+      fence_regs(p);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        mma_pv<VN, T>(o_acc, p + 4 * kk, v_desc + ((kk * 16 * kRowBytes) >> 4));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o_acc);
+      mbar_arrive(empty + st);
+      ++it;
+    };
+    for_each_stage<WALK, BN>(a, qi, [&](int c0, bool masked) {
+      if (masked)
+        body(c0, std::true_type{});
+      else
+        body(c0, std::false_type{});
+    });
+
+    // the forward finalize (forward.py:225-243), as fwd_finalize
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      alpha[h] = exp2f(m_run[h] - mx[h]);
-      m_run[h] = mx[h];
-    }
-    // masked logits hold NEG_INF: exp2(NEG_INF - m) == 0 for a live row; a
-    // row with no visible key yet is repaired at the end
+      float l = l_part[h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int row = r_base + 8 * h;
+      if (row >= q_len) continue;
+      const bool dead = m_run[h] <= neg_inf();
+      if (dead) l = 0.f;
+      const float inv = 1.f / (l == 0.f ? 1.f : l);
+      const size_t orow = static_cast<size_t>(b) * q_len + row;
+      T* o = static_cast<T*>(a.o) + orow * v_d;
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) {
-      const int h = (i >> 1) & 1;
-      s[i] = exp2f(s[i] - m_run[h]);
-      rs[h] += s[i];
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l_part[h] = alpha[h] * l_part[h] + rs[h];
-#pragma unroll
-    for (int i = 0; i < VN / 2; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
-    // P as the A fragments of BN / 16 k-slices, rounded to T
-    uint32_t p[BN / 4];
-#pragma unroll
-    for (int i = 0; i < BN / 4; ++i) p[i] = pack2<T>(s[2 * i], s[2 * i + 1]);
-
-    // O += P V
-    const uint64_t v_desc = make_desc(ks + k_bytes, BN * kRowBytes, 1024);
-    fence_regs(o_acc);
-    fence_regs(p);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk)
-      mma_pv<VN, T>(o_acc, p + 4 * kk, v_desc + ((kk * 16 * kRowBytes) >> 4));
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(o_acc);
-    mbar_arrive(empty + st);
-    ++it;
-  };
-  for_each_stage<WALK, BN>(a, qi, [&](int c0, bool masked) {
-    if (masked)
-      body(c0, std::true_type{});
-    else
-      body(c0, std::false_type{});
-  });
-
-  // the forward finalize (forward.py:225-243), as fwd_finalize
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float l = l_part[h];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int row = r_base + 8 * h;
-    if (row >= q_len) continue;
-    const bool dead = m_run[h] <= neg_inf();
-    if (dead) l = 0.f;
-    const float inv = 1.f / (l == 0.f ? 1.f : l);
-    const size_t orow = static_cast<size_t>(b) * q_len + row;
-    T* o = static_cast<T*>(a.o) + orow * v_d;
-#pragma unroll
-    for (int j = 0; j < VN / 8; ++j) {
-      const int c = vc0 + 8 * j + 2 * (lane & 3);
-      const float x = dead ? 0.f : o_acc[4 * j + 2 * h] * inv;
-      const float y = dead ? 0.f : o_acc[4 * j + 2 * h + 1] * inv;
-      if (c < v_d) o[c] = from_f<T>(x);
-      if (c + 1 < v_d) o[c + 1] = from_f<T>(y);
-    }
-    if (blockIdx.z == 0 && (lane & 3) == 0) {
-      a.l[orow] = l;
-      a.m[orow] = dead ? neg_inf() : m_run[h] * INV_LOG2E;
+      for (int jj = 0; jj < VN / 8; ++jj) {
+        const int c = vc0 + 8 * jj + 2 * (lane & 3);
+        const float x = dead ? 0.f : o_acc[4 * jj + 2 * h] * inv;
+        const float y = dead ? 0.f : o_acc[4 * jj + 2 * h + 1] * inv;
+        if (c < v_d) o[c] = from_f<T>(x);
+        if (c + 1 < v_d) o[c + 1] = from_f<T>(y);
+      }
+      if (!BF16EXP && vc0 == 0 && (lane & 3) == 0) {
+        a.l[orow] = l;
+        a.m[orow] = dead ? neg_inf() : m_run[h] * INV_LOG2E;
+      }
     }
   }
 }
@@ -334,16 +455,59 @@ size_t fwd_tc_smem(int bn, int vn) {
   const int ds = slabs_of(bn);
   return 1024 + static_cast<size_t>(ds) * kBM * kRowBytes +
          static_cast<size_t>(kStages) * (ds + vn / kSlabCols) * bn * kRowBytes +
-         8 * (1 + 2 * kStages);
+         8 * (2 + 2 * kStages) + 8;  // the barriers, kResident's item
 }
 
-template <typename T, int WALK, int BN, int VN>
-int fwd_tc(const AttnArgs& a, cudaStream_t stream) {
-  if (a.d < 1 || a.v_d < 1 || a.d > kSlabCols * slabs_of(BN) || a.g < 1 || a.B % a.g ||
-      a.block_q % kBM || a.block_kv % BN || a.block_kv % 128 || a.rule.q_len < 1)
-    return cudaErrorInvalidValue;
+// The launch of fwd_tc_kernel (with its shared memory set): kTable and
+// kBanded one CTA an item, (B, q tiles, v chunks); kResident one persistent
+// CTA for each that the SMs hold at once, at most one an item, and its
+// rows a group (a.group_rows, or those one wave of the grid covers).
+struct TcLaunch {
+  dim3 grid;
+  int items, group_rows;
+};
+
+template <typename T, int WALK, int BN, int VN, bool BF16EXP>
+int fwd_tc_launch(const AttnArgs& a, TcLaunch* l) {
+  auto kernel = fwd_tc_kernel<T, WALK, BN, VN, BF16EXP>;
   const size_t smem = fwd_tc_smem(BN, VN);
   if (smem > static_cast<size_t>(MAX_SMEM)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int tiles = blocks(a.rule.q_len, kBM), chunks = blocks(a.v_d, VN);
+  l->items = a.B * tiles * chunks;
+  l->group_rows = 1;
+  if (WALK != kResident) {
+    l->grid = dim3(a.B, tiles, chunks);
+    return cudaSuccess;
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+          cudaSuccess)
+    return err;
+  const int resident = sms * per_sm > 1 ? sms * per_sm : 1;
+  const int grid = resident < l->items ? resident : l->items;
+  l->grid = dim3(grid);
+  const int wave_rows = grid / (tiles * chunks);
+  l->group_rows = a.group_rows > 0 ? a.group_rows : wave_rows > 1 ? wave_rows : 1;
+  if (l->group_rows > a.B) l->group_rows = a.B;
+  return cudaSuccess;
+}
+
+template <typename T, int WALK, int BN, int VN, bool BF16EXP = false>
+int fwd_tc(const AttnArgs& a, cudaStream_t stream) {
+  if (a.d < 1 || a.v_d < 1 || a.d > kSlabCols * slabs_of(BN) || a.g < 1 || a.B % a.g ||
+      a.block_q % kBM || a.block_kv % BN || a.block_kv % 128 || a.rule.q_len < 1 ||
+      (WALK == kResident && (a.next_item == nullptr || a.group_rows < 0)))
+    return cudaErrorInvalidValue;
+  TcLaunch l;
+  const int err = fwd_tc_launch<T, WALK, BN, VN, BF16EXP>(a, &l);
+  if (err != cudaSuccess) return err;
+  AttnArgs args = a;
+  args.group_rows = l.group_rows;
   const int B_kv = a.B / a.g, q_len = a.rule.q_len, k_len = a.rule.k_len;
   CUtensorMap qm, km, vm;
   memset(&qm, 0, sizeof(qm));
@@ -355,28 +519,67 @@ int fwd_tc(const AttnArgs& a, cudaStream_t stream) {
                tensor_map<T>(&km, a.k, a.d, k_len, B_kv, BN) &&
                tensor_map<T>(&vm, a.v, a.v_d, k_len, B_kv, BN)))
     return cudaErrorInvalidValue;
-  auto kernel = fwd_tc_kernel<T, WALK, BN, VN>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.B, blocks(q_len, kBM), blocks(a.v_d, VN));
-  kernel<<<grid, kThreads, smem, stream>>>(a, qm, km, vm, tma ? 1 : 0);
+  fwd_tc_kernel<T, WALK, BN, VN, BF16EXP>
+      <<<l.grid, kThreads, fwd_tc_smem(BN, VN), stream>>>(args, qm, km, vm, tma ? 1 : 0);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
-// the forward of kTable and kBanded: bf16 and fp16 on the tensor-core body
-// (its class by d and v_d), float32 on the scalar body
+// the widest class of the tensor-core forward: Q and K in 8 slabs of 64
+constexpr int kTcMaxD = 512;
+
+// The body of a forward (native.fwd_body): bf16 and fp16 at d <= kTcMaxD on
+// the tensor cores, float32 and wider heads on the scalar body.
+template <typename T>
+bool fwd_on_tc(const AttnArgs& a) {
+  return !std::is_same<T, float>::value && a.d <= kTcMaxD;
+}
+
+// the forward of kTable, kBanded and kResident on its body (the
+// tensor-core class by d and v_d): wider heads go to the scalar body as
+// bwd_fused_any sends the backward's wide classes there.  A dispatch by
+// shape, not a fallback: a refused launch still returns its error.
 template <typename T, int WALK>
 int fwd_any(const AttnArgs& a, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value) {
     return fwd_scalar_any<T, WALK>(a, s);
   } else {
+    if (!fwd_on_tc<T>(a)) return fwd_scalar_any<T, WALK>(a, s);
     if (a.d <= 128 && a.v_d <= 128) return tc::fwd_tc<T, WALK, 128, 128>(a, s);
     if (a.d <= 256) return tc::fwd_tc<T, WALK, 64, 256>(a, s);
     return tc::fwd_tc<T, WALK, 32, 256>(a, s);
   }
+}
+
+// The resident forward's launch: out[0] the grid's CTAs, out[1] the work
+// items (each CTA of the scalar body one query row: both B x v_d chunks),
+// out[2] 1 on the tensor-core body, out[3] its rows a group.  Launches
+// nothing.
+template <typename T>
+int resident_plan(const AttnArgs& a, int* out) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (fwd_on_tc<T>(a)) {
+      tc::TcLaunch l;
+      int err;
+      if (a.d <= 128 && a.v_d <= 128)
+        err = tc::fwd_tc_launch<T, kResident, 128, 128, false>(a, &l);
+      else if (a.d <= 256)
+        err = tc::fwd_tc_launch<T, kResident, 64, 256, false>(a, &l);
+      else
+        err = tc::fwd_tc_launch<T, kResident, 32, 256, false>(a, &l);
+      out[0] = static_cast<int>(l.grid.x);
+      out[1] = l.items;
+      out[2] = 1;
+      out[3] = l.group_rows;
+      return err;
+    }
+  }
+  const int cls = dim_class(a);
+  out[0] = out[1] = a.B * blocks(a.v_d, cls == 0 ? 128 : cls == 1 ? 256 : WIDE_COLS);
+  out[2] = 0;
+  out[3] = 1;
+  return cudaSuccess;
 }
 
 }  // namespace

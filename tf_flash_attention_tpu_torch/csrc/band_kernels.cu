@@ -8,7 +8,9 @@
 //                     attention_bwd_tc.cuh)
 //   fa_window_fwd  <- ops/forward_banded.py::_window_kernel (closed-form single-window forward)
 //   fa_window_bwd  <- ops/backward.py::_fused_window_kernel (fused backward over one q band)
-//   fa_resident_fwd <- ops/forward_banded.py::_resident_kernel (the banded forward, a CTA per row)
+//   fa_resident_fwd <- ops/forward_banded.py::_resident_kernel (the banded walk; bf16 and fp16
+//                     on the tensor-core body of attention_fwd_tc.cuh, persistent CTAs walking
+//                     the rows in order; float32 on the scalar body, a CTA per row)
 //
 // The TPU kernels exist to keep K/V (forward) or q/dO/stats (backward)
 // resident in VMEM and to replace the grid's kv axis by in-kernel loops
@@ -19,7 +21,8 @@
 // walk: the banded kernels read four ints per row instead of a table row
 // and run the band's interior on the body compiled without the rule
 // predicate; the window kernels visit one lane-aligned band per
-// sub-block.  The window forward
+// sub-block; the resident forward walks the rows in order, so few rows'
+// K/V are live in L2 at once (attention_fwd_tc.cuh).  The window forward
 // keeps the TPU kernel's closed form: the whole band's scores sit in
 // shared memory, so there is no online rescaling; that bounds the band
 // width (window_fwd_smem below; native.py routes wider bands elsewhere).
@@ -166,17 +169,36 @@ int fa_banded_fwd(int dtype, const void* q, const void* k, const void* v, void* 
   return dispatch(dtype, [&](auto tag) { return fwd_any<decltype(tag), kBanded>(a, s); });
 }
 
-// as fa_banded_fwd, one CTA per query row walking all of its query tiles
+// as fa_banded_fwd, the rows' query tiles walked in row order: bf16 and
+// fp16 by persistent CTAs on the tensor-core body, float32 and d > 512 one
+// CTA a row on the scalar body
+// (next_item a zeroed int32 counter; group_rows 0 for one wave's rows)
 int fa_resident_fwd(int dtype, const void* q, const void* k, const void* v, void* o, float* l,
-                    float* m, const int* seg, int block_q, int block_kv, int B, int g, int d,
-                    int v_d, const FaRule* rule, void* stream) {
+                    float* m, const int* seg, int* next_item, int block_q, int block_kv, int B,
+                    int g, int d, int v_d, int group_rows, const FaRule* rule, void* stream) {
   AttnArgs a = make_args(q, k, v, B, g, d, v_d, rule);
   a.table = seg;
+  a.next_item = next_item;
+  a.group_rows = group_rows;
   a.block_q = block_q;
   a.block_kv = block_kv;
   set_fwd_out(a, o, l, m);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, [&](auto tag) { return fwd_scalar_any<decltype(tag), kResident>(a, s); });
+  return dispatch(dtype, [&](auto tag) { return fwd_any<decltype(tag), kResident>(a, s); });
+}
+
+// fa_resident_fwd's launch at these shapes, without launching: out[0] the
+// grid's CTAs, out[1] the work items, out[2] 1 on the tensor-core body,
+// out[3] the rows a group
+int fa_resident_plan(int dtype, int B, int q_len, int d, int v_d, int* out, void* stream) {
+  (void)stream;
+  AttnArgs a = {};
+  a.B = B;
+  a.g = 1;
+  a.d = d;
+  a.v_d = v_d;
+  a.rule.q_len = q_len;
+  return dispatch(dtype, [&](auto tag) { return resident_plan<decltype(tag)>(a, out); });
 }
 
 // q prescaled; starts (q_pad / sub_q,) int32 key-band starts, band width W

@@ -1,12 +1,35 @@
-// The forward kernels of the experiment tools, for Hopper (sm_90a), on the
-// tile helpers of attention_common.cuh (load_tile, rows_dot, acc_pv).
+// The forward kernels of the experiment tools, for Hopper (sm_90a).
 //
 //   fa_exp_resident_fwd <- tools/exp_resident.py::resident_forward (kernel :47, call :96)
 //   fa_exp_vpu_ladder   <- tools/exp_vpu_attrib.py::kern (:39, call :96)
 //   fa_exp_kv_unroll    <- tools/exp_kv_unroll.py::kern / kern_fused (:41, :78, call :115)
 //
-// All three are one kernel, exp_fwd_kernel: a bf16 forward over (B, S, d)
-// sequences (d <= 128) that walks its keys in steps.  Each step's scores
+// exp_resident runs on the op path's resident tensor-core forward
+// (attention_fwd_tc.cuh, kResident with BF16EXP): causal bf16 attention at
+// d <= 128, q prescaled, the tool's merge p = bf16(exp2(bf16(s - m))) with
+// l summing the rounded p, no l or m out.  Its items are 128-row query
+// tiles, walked by persistent CTAs in the op path's resident order (row
+// groups, a work counter): tile t runs the keys [0, 128 t) unmasked and
+// [128 t, 128 t + 128) masked per element (the band segments (0, 0, t,
+// t + 1) of 128-key blocks, which the wrapper uploads), one merge a 128-key
+// stage.  What the tool's (block_q, block_kv) pair sets is kept as the
+// plain version computes it, exact causal attention, and on this card the
+// pair changes neither the work nor the walk: items of block_q rows would
+// leave most SMs idle at the tool's shape (32 items of 1024 rows for 132
+// SMs), and the whole step's scores before its merge (the TPU kernel's
+// block_kv keys) do not fit the registers past 128 keys.  So p rounds
+// against the running maximum of the 128-key stages where the plain
+// version (and the tool) take the maximum of block_kv keys at once: an
+// output element moves by a rounding flip, and the 2-ulp gate of its plain
+// comparison holds for every pair (test_torch_exp_forward.py models it on
+// the CPU; PERF.md has the card's errors).  The pair is checked as the
+// tool checks it (S a multiple of both) and block_q must be a multiple of
+// 128.
+//
+// The ladder and kv unroll are one kernel, exp_fwd_kernel: a bf16 forward
+// over (B, S, d) sequences (d <= 128) on the tile helpers of
+// attention_common.cuh (load_tile, rows_dot, acc_pv) that walks its keys in
+// steps.  Each step's scores
 // are computed in full before any softmax (the TPU kernels' one grid step,
 // or the hoisted matmuls of exp_kv_unroll), kept in shared memory, then
 // merged into the running (m, l, acc) one group of keys at a time: the
@@ -14,16 +37,7 @@
 // nkv blocks in turn.  The merge therefore sees the same row maximum as the
 // TPU kernel, so p rounds to bf16 at the same values, which the ladder's
 // rungs (noexp above all: p = s - m) depend on.  What differs between the
-// sites is a policy of the merge (the ladder's rungs; the resident
-// kernel's exp2 on bf16 inputs) and the walk:
-//   resident    - causal: q block qi (block_q rows) runs ceil((qi + 1) *
-//                 block_q / block_kv) steps of block_kv keys, and every step
-//                 that crosses the q block's diagonal is masked per element.
-//                 The tool masks only its last step, which is wrong when
-//                 block_q > block_kv; this kernel is exact causal attention
-//                 at every pair.  Whole-sequence K/V does not fit a block's
-//                 227 KB, so "resident" becomes one CTA per (row b, BM rows
-//                 of a q block) walking the q block's live steps through L2.
+// two sites is a policy of the merge (the ladder's rungs) and the walk:
 //   vpu ladder  - block-causal: q block i sees kv blocks 0..i whole, no
 //                 element mask (BQ = BK = 2048 in the tool);
 //   kv unroll   - full attention in steps of nkv * block_kv keys.
@@ -41,11 +55,12 @@
 // cudaErrorInvalidValue for a shape it does not take).
 
 #include "attention_common.cuh"
+#include "attention_fwd_tc.cuh"
 
 namespace {
 
 // the merge policy: the ladder's rungs (exp_vpu_attrib.py:57-80), kProd also
-// exp_kv_unroll's merge, kBf16Exp also exp_resident's
+// exp_kv_unroll's merge
 enum Policy { kProd = 0, kNoMax = 1, kNoExp = 2, kNoSum = 3, kBf16Exp = 4, kMM = 5 };
 
 constexpr int XBN = 64;  // keys per staged K or V chunk
@@ -212,7 +227,7 @@ int exp_fwd(const ExpFwdArgs& a, cudaStream_t stream) {
 }
 
 // Only what the tools run is instantiated: kProd (exp_kv_unroll, the
-// ladder) and kBf16Exp (exp_resident, the ladder) take 32-row CTAs up to
+// ladder) and kBf16Exp (the ladder) take 32-row CTAs up to
 // 1024-key steps and 16 rows at 2048, where 32 rows' scores would not fit;
 // the other rungs run only at the ladder's 2048-key steps, on 16 rows at
 // every step.
@@ -246,14 +261,27 @@ ExpFwdArgs exp_args(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// q prescaled (bf16 of q * scale * log2e); o (B, S, d) bf16
-int fa_exp_resident_fwd(const void* q, const void* k, const void* v, void* o, int B, int S, int d,
-                        int block_q, int block_kv, void* stream) {
-  ExpFwdArgs a = exp_args(q, k, v, o, B, S, d);
-  a.step = a.group = block_kv;
-  a.block_q = block_q;
-  a.causal = a.elem_mask = 1;
-  return exp_fwd_any<kBf16Exp>(a, static_cast<cudaStream_t>(stream));
+// q prescaled (bf16 of q * scale * log2e); o (B, S, d) bf16; seg (S / 128,
+// 4) int32, row t the band segments (0, 0, t, t + 1) of 128-key blocks;
+// next_item a zeroed int32 counter
+int fa_exp_resident_fwd(const void* q, const void* k, const void* v, void* o, const int* seg,
+                        int* next_item, int B, int S, int d, int block_q, int block_kv,
+                        void* stream) {
+  if (B < 1 || S < 1 || d < 1 || d > 128 || block_q < 128 || block_q % 128 || block_kv < 1 ||
+      S % block_q || S % block_kv)
+    return cudaErrorInvalidValue;
+  FaRule r = {};
+  r.ndim = 1;
+  r.q_shape[0] = r.k_shape[0] = S;
+  r.q_stride[0] = r.k_stride[0] = 1;
+  r.kind = kCausal;
+  r.q_len = r.k_len = S;
+  AttnArgs a = make_args(q, k, v, B, 1, d, d, &r);
+  a.table = seg;
+  a.next_item = next_item;
+  a.block_q = a.block_kv = 128;
+  a.o = o;
+  return tc::fwd_tc<bf16, kResident, 128, 128, true>(a, static_cast<cudaStream_t>(stream));
 }
 
 // rung: 0 prod, 1 nomax, 2 noexp, 3 nosum, 4 bf16exp, 5 mm; q prescaled

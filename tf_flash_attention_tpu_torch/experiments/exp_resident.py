@@ -7,8 +7,12 @@ of a q block, which is exact only when ``block_q == block_kv``; the port
 masks every sub-tile that crosses the q block's diagonal, so every
 (block_q, block_kv) pair computes exact causal attention.  On the card the
 K/V of a row does not fit a block's shared memory: the kernel
-(``csrc/exp_forward_kernels.cu``) takes one CTA per (row, 32 query rows of a
-q block) and walks the q block's live sub-tiles through L2.
+(``csrc/exp_forward_kernels.cu``) is the op path's resident tensor-core
+forward with the tool's bf16 merge, persistent CTAs walking 128-row query
+tiles in row order so that few rows' K/V are live in L2 at once.  It merges
+once a 128-key stage where the plain version merges once a ``block_kv``
+step, so p rounds against other running maxima (within the comparison's 2
+bf16 ulps).
 
     python -m tf_flash_attention_tpu_torch.experiments.exp_resident
 
@@ -35,7 +39,9 @@ PAIRS = ((1024, 1024), (1024, 512), (512, 512), (256, 256), (512, 256), (1024, 2
 def _prescale(q, scale):
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
-    c = torch.tensor(scale * LOG2E, dtype=torch.float32, device=q.device)
+    # a float32 scalar on the host: no copy to the card, which would stall
+    # the caller until the stream drains
+    c = torch.tensor(scale * LOG2E, dtype=torch.float32)
     return (q.float() * c).to(q.dtype)
 
 

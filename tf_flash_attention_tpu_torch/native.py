@@ -194,7 +194,12 @@ _SIGNATURES = {
     "band_kernels.cu": {
         # dtype, q, k, v, o, l, m, seg, block_q, block_kv, B, g, d, v_d, rule
         "fa_banded_fwd": [_I] + [_P] * 7 + [_I] * 6 + [_R],
-        "fa_resident_fwd": [_I] + [_P] * 7 + [_I] * 6 + [_R],
+        # dtype, q, k, v, o, l, m, seg, next_item, block_q, block_kv, B, g,
+        # d, v_d, group_rows, rule
+        "fa_resident_fwd": [_I] + [_P] * 8 + [_I] * 7 + [_R],
+        # dtype, B, q_len, d, v_d, out (4 ints): the resident forward's
+        # launch, launching nothing
+        "fa_resident_plan": [_I] * 5 + [_P],
         # dtype, q, k, v, o, l, m, starts, band, sub_q, masked, B, g, d, v_d,
         # rule
         "fa_window_fwd": [_I] + [_P] * 7 + [_I] * 7 + [_R],
@@ -216,8 +221,8 @@ _SIGNATURES = {
         "fa_exp_paged_decode": [_I] + [_P] * 11 + [_I] * 6 + [_F],
     },
     "exp_forward_kernels.cu": {
-        # q, k, v, o, B, S, d, block_q, block_kv
-        "fa_exp_resident_fwd": [_P] * 4 + [_I] * 5,
+        # q, k, v, o, seg, next_item, B, S, d, block_q, block_kv
+        "fa_exp_resident_fwd": [_P] * 6 + [_I] * 5,
         # rung, q, k, v, o, B, S, d, block_q, block_kv
         "fa_exp_vpu_ladder": [_I] + [_P] * 4 + [_I] * 5,
         # nkv, fused, q, k, v, o, B, S, d, block_kv, scale_log2e
@@ -503,7 +508,8 @@ def bwd_smem(d: int, v_d: int, score_tiles: int) -> int:
     return 4 * ((bm + bn) * ((d | 1) + (v_d | 1)) + score_tiles * bm * (bn + 1) + 2 * bm)
 
 
-#: the tensor-core forward keeps its 128-row Q tile in shared memory
+#: the widest class of the tensor-core forward: its 128-row Q tile in
+#: shared memory, padded to 512 columns; wider heads run the scalar body
 TC_MAX_D = 512
 
 
@@ -511,10 +517,19 @@ def tc_fwd_smem(d: int, v_d: int) -> int:
     """Shared memory of the tensor-core forward (``attention_fwd_tc.cuh``):
     Q (128 rows) and two K/V stages in 128-byte swizzled slabs of 64
     columns (Q and K padded to the class's width: 128, 256 or 512), 1 KB of
-    alignment and the barriers."""
+    alignment and the six barriers."""
     bn, vn = (128, 128) if d <= 128 and v_d <= 128 else (64, 256) if d <= 256 else (32, 256)
     ds = {128: 2, 64: 4, 32: 8}[bn]
-    return 1024 + ds * 128 * 128 + 2 * (ds + vn // 64) * bn * 128 + 40
+    return 1024 + ds * 128 * 128 + 2 * (ds + vn // 64) * bn * 128 + 48
+
+
+def fwd_body(dtype: torch.dtype, d: int, v_d: int) -> str:
+    """The body ``flash_fwd``, ``banded_fwd`` and ``resident_fwd`` run (the C
+    dispatch ``fwd_any``): bf16 and fp16 at d <= ``TC_MAX_D`` on the tensor
+    cores, float32 (TF32 would not hold its limit) and wider heads on the
+    scalar body."""
+    tc = dtype in (torch.bfloat16, torch.float16) and d <= TC_MAX_D
+    return "tensor-core" if tc else "scalar"
 
 
 #: the tensor-core backward (``attention_bwd_tc.cuh``): 128 kv rows a CTA,
@@ -541,15 +556,10 @@ def _check_bwd_smem(name: str, dtype: torch.dtype, d: int, v_d: int) -> None:
 
 
 def _check_fwd_smem(name: str, dtype: torch.dtype, d: int, v_d: int) -> None:
-    """The table and banded forwards: bf16 / fp16 on the tensor-core body,
-    float32 on the scalar one."""
-    if dtype == torch.float32:
-        _check_smem(f"{name} at d {d}, v_d {v_d}", fwd_smem(d, v_d))
-    elif d > TC_MAX_D:
-        raise ValueError(f"{name}: the tensor-core forward keeps the 128-row Q tile in shared "
-                         f"memory and takes d <= {TC_MAX_D}, got {d}")
-    else:
-        _check_smem(f"{name} at d {d}, v_d {v_d}", tc_fwd_smem(d, v_d))
+    """The table, banded and resident forwards, on the body they run."""
+    _check_smem(f"{name} at d {d}, v_d {v_d}",
+                tc_fwd_smem(d, v_d) if fwd_body(dtype, d, v_d) == "tensor-core"
+                else fwd_smem(d, v_d))
 
 
 def tc_tile_check(a, k, v):
@@ -757,19 +767,36 @@ def window_bwd(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, starts_t, band, 
     return dq_acc, dk, dv
 
 
-def resident_fwd(q_scaled, k, v, rule_c: FaRule, seg, block_q, block_kv):
-    """Launch ``resident_fwd``: as ``banded_fwd``, one CTA per query row."""
+def resident_fwd(q_scaled, k, v, rule_c: FaRule, seg, block_q, block_kv, group_rows=0):
+    """Launch ``resident_fwd``: as ``banded_fwd``, the rows' query tiles
+    walked in row order (bf16 / fp16: persistent CTAs on the tensor-core
+    body, taking (row, query tile) items from a work counter by groups of
+    ``group_rows`` rows, 0 for the rows one wave of the grid covers; float32
+    and d > ``TC_MAX_D``: a CTA a row on the scalar body)."""
     code = _check_attn(q_scaled, k, v, rule_c)
     B, q_len, d = q_scaled.shape
     v_d = v.shape[2]
-    _check_smem(f"resident_fwd at d {d}, v_d {v_d}", fwd_smem(d, v_d))
+    _check_fwd_smem("resident_fwd", q_scaled.dtype, d, v_d)
     o = torch.empty((B, q_len, v_d), dtype=q_scaled.dtype, device=q_scaled.device)
     l = torch.empty((B, q_len), dtype=torch.float32, device=q_scaled.device)
     m = torch.empty_like(l)
+    next_item = torch.zeros(1, dtype=torch.int32, device=q_scaled.device)
     _call("fa_resident_fwd", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
-          o.data_ptr(), l.data_ptr(), m.data_ptr(), seg.data_ptr(), block_q, block_kv,
-          B, B // k.shape[0], d, v_d, ctypes.byref(rule_c))
+          o.data_ptr(), l.data_ptr(), m.data_ptr(), seg.data_ptr(), next_item.data_ptr(),
+          block_q, block_kv, B, B // k.shape[0], d, v_d, group_rows, ctypes.byref(rule_c))
     return o, l, m
+
+
+def resident_plan(dtype: torch.dtype, B: int, q_len: int, d: int, v_d: int) -> dict:
+    """How ``resident_fwd`` launches at these shapes on the current card,
+    launching nothing: ``grid`` (CTAs), ``items`` (work items: (row, 128
+    query rows, v_d chunk) on the tensor-core body, a whole row on the
+    scalar one), ``group_rows`` (the rows a group of the walk: one or two
+    groups are in flight) and ``body``."""
+    out = (ctypes.c_int * 4)()
+    _launch("band_kernels.cu", "fa_resident_plan", _DTYPE_CODE[dtype], B, q_len, d, v_d, out)
+    return dict(grid=out[0], items=out[1], group_rows=out[3],
+                body="tensor-core" if out[2] else "scalar")
 
 
 def flash_bwd_qouter(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, tables, block_q,
@@ -817,13 +844,29 @@ def _check_fwd(q, k, v) -> tuple:
     return tuple(q.shape)
 
 
+#: the body of each experiment forward (``exp_forward_kernels.cu``)
+EXP_FWD_BODY = {"exp_resident_fwd": "tensor-core", "exp_vpu_ladder": "scalar",
+                "exp_kv_unroll": "scalar"}
+
+
 def exp_resident_fwd(q_scaled, k, v, block_q: int, block_kv: int):
     """Launch ``exp_resident_fwd``: exact causal attention of prescaled bf16
-    q (B, S, d) in steps of ``block_kv`` keys per ``block_q`` q block."""
+    q (B, S, d) on the resident tensor-core forward, 128-row items with the
+    tool's bf16 merge (``block_q`` a multiple of 128, S of both)."""
     B, S, d = _check_fwd(q_scaled, k, v)
+    if block_q % LANE or S % block_q or S % block_kv:
+        raise ValueError(f"exp_resident_fwd takes block_q a multiple of {LANE} and S a multiple "
+                         f"of block_q and block_kv, got S {S}, block_q {block_q}, block_kv "
+                         f"{block_kv}")
+    tiles = S // LANE
+    seg = np.zeros((tiles, 4), np.int32)
+    seg[:, 2] = np.arange(tiles)
+    seg[:, 3] = seg[:, 2] + 1
+    (seg_d,) = device_tables(("exp_resident_fwd", S), (seg,), q_scaled.device)
     o = torch.empty_like(q_scaled)
+    next_item = torch.zeros(1, dtype=torch.int32, device=q_scaled.device)
     _call("fa_exp_resident_fwd", q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-          B, S, d, block_q, block_kv)
+          seg_d.data_ptr(), next_item.data_ptr(), B, S, d, block_q, block_kv)
     return o
 
 

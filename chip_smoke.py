@@ -81,8 +81,8 @@ Phases (any failure exits non-zero before the final line):
      schedule by the products each kernel computes (flash_fwd, banded_fwd
      and resident_fwd on bf16 run the tensor-core forward, resident_fwd as
      persistent CTAs walking the rows in order by groups: its row prints
-     the grid, the work items and the rows a group, is set beside
-     banded_fwd and is timed once more in strict row order;
+     the grid, the work items and the rows a group its launch reports and
+     is set beside banded_fwd;
      flash_bwd_fused and banded_bwd the tensor-core backward: each row
      names its body), banded_bwd once more without dQ (what dQ's product
      and its reduction into the float32 accumulator cost), and the
@@ -105,9 +105,12 @@ Phases (any failure exits non-zero before the final line):
      scale, bitcast 3; int8mm's codes and integer scores bit for bit) and
      timed beside its plain version, its bound and, for the forwards, one
      scaled_dot_product_attention call; the forwards name their body
-     (exp_resident on the resident tensor-core forward, its kernel timed
-     on the prescaled q, its pairs also against the dense causal oracle
-     within 1e-2).
+     (exp_resident on the resident tensor-core forward: each pair timed
+     through the tool's entry, its prescale included, and its kernel alone
+     on the prescaled q, with the items and CTAs its launch reports, and
+     held against the dense causal oracle within 1e-2 as well); then, at
+     the tool's shape, resident_fwd and exp_resident_fwd at 128-row items
+     and 128-key merges, each timed in windows of 2 and of 20 calls.
 
 The kernels' JSON line gives each kernel's launches from the run of the
 path that takes it by default ("path": the engine, the speculative engine,
@@ -600,7 +603,7 @@ def main():
                  "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                  "library_ms": m["library_ms"],
                  **{x: m[x] for x in ("body", "ms_without_dq", "grid", "items",
-                                      "group_rows", "ms_row_order") if x in m}}
+                                      "group_rows", "kernel_ms") if x in m}}
         if k in native.SERVING_KERNELS:
             entry["payloads_held"] = [pl for pl, c in cases.items() if k in c]
             entry["ms_by_payload"] = {pl: c[k]["ms"] for pl, c in cases.items() if k in c}
@@ -1462,23 +1465,22 @@ def op_phase(dev):
                              native.bwd_body(bf, d, d) if kn in ("flash_bwd_fused", "banded_bwd")
                              else "scalar")
         extra = ""
-        if kn == "resident_fwd":   # the persistent walk's launch
-            plan = native.resident_plan(bf, BH, S, d, d)
-            times[kn].update({x: plan[x] for x in ("grid", "items", "group_rows")})
-            extra = (f" grid={plan['grid']} items={plan['items']} rows in flight: one or two "
-                     f"groups of {plan['group_rows']}")
+        if kn == "resident_fwd":   # the persistent walk, as its last launch reports it
+            walk = native.WALKS[kn]
+            if walk["body"] != times[kn]["body"]:
+                fail(f"phase 5: resident_fwd ran the {walk['body']} body, fwd_body names "
+                     f"{times[kn]['body']}")
+            times[kn].update({x: walk[x] for x in ("grid", "items", "group_rows")})
+            extra = (f" grid={walk['grid']} items={walk['items']} rows in flight: one or two "
+                     f"groups of {walk['group_rows']}")
         print(f"kernel {kn} (slice): body={times[kn]['body']}{extra} ms={ms} plain_ms={plain_ms} "
               f"library_ms={lib_ms} bound_ms={b_ms} ({b_by}) useful TFLOP/s="
               f"{products * area2 * d / ms / 1e9:.3f}", flush=True)
-    # the resident walk in strict row order (groups of one row), against
-    # its groups of one wave's rows
     res, band = times["resident_fwd"], times["banded_fwd"]
-    res["ms_row_order"] = time_ms(lambda: native.resident_fwd(q_s, k, v, rule_c, tabs(fr)[0], 128,
-                                                              128, group_rows=1), n=10)
     print(f"resident_fwd beside banded_fwd (slice): {res['ms']} vs {band['ms']} ms = "
           f"{res['ms'] / band['ms']:.3f}x; library {res['library_ms']} ms = "
-          f"{res['ms'] / res['library_ms']:.3f}x; bound share {res['bound_ms'] / res['ms']:.4f}; "
-          f"in strict row order (groups of 1 row) {res['ms_row_order']} ms", flush=True)
+          f"{res['ms'] / res['library_ms']:.3f}x; bound share {res['bound_ms'] / res['ms']:.4f}",
+          flush=True)
     # what dQ costs the tensor-core backward: banded_bwd without the dS^T
     # tile, the dQ product and its reduction (not counted in any path)
     no_dq_ms = time_ms(lambda: native.banded_bwd(q_s, k, v, do, lse2, delta, rule_c, tabs(bb)[0],
@@ -1682,8 +1684,9 @@ def experiment_phase(dev, seed):
     q, k, v = uni((B, S, D)).to(bf), uni((B, S, D)).to(bf), uni((B, S, D)).to(bf)
     q4, k4, v4 = q.unsqueeze(0), k.unsqueeze(0), v.unsqueeze(0)
     fwd_bytes = 4 * q.numel() * 2                                     # q, k, v in, o out
-    # exp_resident's kernel is timed on the prescaled q, without the tool's
-    # prescale pass around it
+    # exp_resident is timed through the tool's entry (its prescale pass
+    # included: the span of earlier runs) and, beside it, its kernel alone on
+    # the prescaled q
     q_res = exp_resident._prescale(q, None)
     kernel_only = {}
     for bq, bkv in exp_resident.PAIRS:
@@ -1798,7 +1801,13 @@ def experiment_phase(dev, seed):
                     fail(f"phase 8: {kernel} {variant} {cname} differ in {int((a != b).sum())} "
                          f"places")
             extra["codes_equal"] = True
-        ms = time_ms(kernel_only.get((kernel, variant), fn), n=10)
+        ms = time_ms(fn, n=10)
+        if (kernel, variant) in kernel_only:   # the pair's walk, as its launch reports it
+            walk = native.WALKS[kernel]
+            if walk["body"] != extra["body"]:
+                fail(f"phase 8: {kernel} {variant} ran the {walk['body']} body")
+            extra.update(kernel_ms=time_ms(kernel_only[kernel, variant], n=10),
+                         items=walk["items"], grid=walk["grid"])
         plain_ms = time_ms(plain, n=5)
         lib_ms = None if lib is None else time_ms(lib, n=10)
         b_ms, b_by = bound(n_bytes, n_ops, ops_type)
@@ -1814,14 +1823,44 @@ def experiment_phase(dev, seed):
             rate = (f"{kvb / ms / 1e6:.0f} GB/s as the tool counts (the shared K/V once per "
                     f"row: {ib}x the bytes of the bound)")
         body = f" body={extra['body']}" if "body" in extra else ""
+        if "kernel_ms" in extra:
+            body += (f" items={extra['items']} grid={extra['grid']} kernel_ms (prescaled q)="
+                     f"{extra['kernel_ms']}")
         print(f"kernel {kernel} {variant}:{body} max_abs_err={err} (tol {limit}) ms={ms} "
               f"plain_ms={plain_ms} bound_ms={b_ms} ({b_by}) library_ms={lib_ms}; {rate}",
               flush=True)
         entry = entries.setdefault(kernel, dict(r, variants={}))
         entry["err"] = max(entry["err"], err)
         entry["variants"][variant] = r
+    resident_timer_check(q_res, k, v)
     print(f"phase 8: {time.perf_counter() - t0:.3f} s", flush=True)
     return entries, launches
+
+
+def resident_timer_check(q_res, k, v):
+    """One body, two merges and two timer windows at the tool's shape: the
+    op path's resident_fwd and exp_resident_fwd at 128-row items and
+    128-key merges (not a pair of the tool) on the same prescaled q, each
+    timed in windows of 2 calls (phase 8's) and of 20 (uncounted)."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.block_sizes import choose_block_config
+    from tf_flash_attention_tpu_torch.mask_rules import CausalRule
+    from tf_flash_attention_tpu_torch.ops import forward
+    from tf_flash_attention_tpu_torch.sync_modes import make_sync_pack
+
+    S, d = q_res.shape[1], q_res.shape[2]
+    pack, rule = make_sync_pack("none_front", (S,), (S,)), CausalRule()
+    with switches(RESIDENT):
+        route = forward.forward_route(pack, rule, choose_block_config(d, d), d, d)
+    if route.kernel != "resident_fwd":
+        fail(f"phase 8: the resident route at the tool's shape is {route.kernel}")
+    (seg,) = route.tables(pack, rule, q_res.device)
+    rule_c = native.fa_rule(pack, rule)
+    fns = {"resident_fwd": lambda: native.resident_fwd(q_res, k, v, rule_c, seg, 128, 128),
+           "exp_resident_fwd 128x128": lambda: native.exp_resident_fwd(q_res, k, v, 128, 128)}
+    out = {name: {f"ms_{n // 5}_call_windows": time_ms(fn, n=n) for n in (10, 100)}
+           for name, fn in fns.items()}
+    print(f"resident timer check (8, {S}, {d}) bf16 causal: {json.dumps(out)}", flush=True)
 
 
 if __name__ == "__main__":

@@ -337,75 +337,16 @@ def test_forward_body(dtype, d, v_d, body):
         native._check_fwd_smem(name, dtype, d, v_d)
 
 
-@pytest.mark.parametrize("d,v_d,smem", [(128, 128, 164912), (256, 256, 197680),
-                                        (512, 64, 230448), (64, 576, 197680)])
+@pytest.mark.parametrize("d,v_d,smem", [(128, 128, 164920), (256, 256, 197688),
+                                        (512, 64, 230456), (64, 576, 197688)])
 def test_resident_tc_shared_memory(d, v_d, smem):
     """The resident forward's tensor-core classes (128-, 64- and 32-key
     stages) fit one block of the H100 (one CTA an SM: the persistent grid is
     the 132 SMs), with the six barriers of the persistent walk (Q full and
-    empty, two full and two empty stages)."""
+    empty, two full and two empty stages) and its item slot."""
     assert native.tc_fwd_smem(d, v_d) == smem <= native.MAX_SMEM
     assert 2 * smem > native.MAX_SMEM
     native._check_fwd_smem("resident_fwd", torch.bfloat16, d, v_d)
-
-
-def _resident_items(B, tiles, chunks, group):
-    """The tensor-core resident forward's work items in the order its
-    counter hands them out (``item_at`` in ``csrc/attention_fwd_tc.cuh``):
-    (row, query tile, v_d chunk)."""
-    out = []
-    for item in range(B * tiles * chunks):
-        g0 = item // (group * tiles * chunks) * group
-        rows, j = min(group, B - g0), item - g0 * tiles * chunks
-        p, rem = divmod(j, rows * chunks)
-        out.append((g0 + rem // chunks, tiles - 1 - p, rem % chunks))
-    return out
-
-
-def _longest_cta(costs, grid, counter):
-    """The busiest CTA's work in stages, an item's epilogue priced at half a
-    stage: with the counter each item goes to the CTA that frees first,
-    without it item i to CTA i % grid (a static stride)."""
-    load = [0.0] * grid
-    for i, c in enumerate(costs):
-        cta = load.index(min(load)) if counter else i % grid
-        load[cta] += c + 0.5
-    return max(load)
-
-
-@pytest.mark.parametrize("B,tiles,chunks,group", [(64, 16, 1, 8), (8, 32, 1, 4), (37, 4, 1, 33),
-                                                  (2, 3, 2, 2), (5, 3, 3, 2), (7, 2, 1, 1)])
-def test_resident_walk_order(B, tiles, chunks, group):
-    """Every item once; groups of ``group`` rows in row order; inside a group
-    the last query tile of every row first."""
-    items = _resident_items(B, tiles, chunks, group)
-    assert sorted(items) == sorted((b, t, c) for b in range(B) for t in range(tiles)
-                                   for c in range(chunks))
-    groups = [b // group for b, _, _ in items]
-    assert groups == sorted(groups)
-    for g in set(groups):
-        tile_order = [t for (b, t, _), gg in zip(items, groups) if gg == g]
-        assert tile_order == sorted(tile_order, reverse=True)
-
-
-@pytest.mark.parametrize("B,tiles,static,rows,groups", [(64, 16, 84.0, 79.5, 72.0),
-                                                        (8, 32, 61.0, 52.0, 33.0)])
-def test_resident_walk_balance(B, tiles, static, rows, groups):
-    """The model behind the walk's design (the kernel's header): causal
-    items of tile t take t + 1 stages; on 132 CTAs a static stride over the
-    rows in order, the counter over the rows in order, and the counter over
-    groups of the rows one wave covers (the kernel's), at the training
-    slice (64 rows of 16 tiles) and the experiment tool's shape (8 of 32).
-    The groups come within 3% of the average at the tool's shape."""
-    grid = 132
-    cost = lambda walk: [t + 1 for _, t, _ in walk]
-    row_major = _resident_items(B, tiles, 1, 1)
-    wave = _resident_items(B, tiles, 1, grid // tiles)
-    assert _longest_cta(cost(row_major), grid, False) == static
-    assert _longest_cta(cost(row_major), grid, True) == rows
-    assert _longest_cta(cost(wave), grid, True) == groups
-    mean = (sum(cost(wave)) + 0.5 * len(wave)) / grid
-    assert groups < rows < static and (tiles < 32 or groups <= 1.03 * mean)
 
 
 # the port's kernel for each Pallas kernel body of the JAX package

@@ -694,29 +694,24 @@ def test_resident_tc_walk(dev, monkeypatch, case, dtype):
     q_len, k_len = int(np.prod(q_seq)), int(np.prod(k_seq))
     t = lambda *shape: (torch.rand(shape, generator=gen, device=dev) * 4 - 2).to(dtype)
     q, k, v = t(b_kv * g, q_len, d), t(b_kv, k_len, d), t(b_kv, k_len, v_d)
-    plan = native.resident_plan(dtype, b_kv * g, q_len, d, v_d)
-    assert plan["body"] == native.fwd_body(dtype, d, v_d)
-    if plan["body"] == "tensor-core":
-        per_row = -(-q_len // 128) * -(-v_d // 256)
-        assert plan["items"] == b_kv * g * per_row
-        assert plan["grid"] == min(plan["items"], torch.cuda.get_device_properties(
-            dev).multi_processor_count)
-        assert plan["group_rows"] == min(b_kv * g, max(1, plan["grid"] // per_row))
     native.reset_launch_counts()
     o, l, m = forward.flash_forward(q, k, v, pack=pack, rule=rule, config=BLOCKS)
     torch.cuda.synchronize()
     assert {kn: n for kn, n in native.LAUNCHES.items() if n} == {"resident_fwd": 1}
+    walk = native.WALKS["resident_fwd"]   # what the launch used
+    assert walk["body"] == native.fwd_body(dtype, d, v_d)
+    if walk["body"] == "tensor-core":
+        per_row = -(-q_len // 128) * -(-v_d // 256)
+        assert walk["items"] == b_kv * g * per_row
+        assert walk["grid"] == min(walk["items"], torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        assert walk["group_rows"] == min(b_kv * g, max(1, walk["grid"] // per_row))
     o2, l2, m2 = forward._flash_forward_plain(forward.prescale(q, d ** -0.5), k, v, pack, rule)
     _close("o", o, o2, dtype)
     _close("l", l, l2, torch.float32)
     _close("m", m, m2, torch.float32)
     if case == "dead_rows":
         assert float(o[:, 0].float().abs().max()) == 0.0 and float(l[:, 0].abs().max()) == 0.0
-    if plan["body"] == "tensor-core":   # strict row order: the same items, the same sums
-        (seg,) = forward.forward_route(pack, rule, BLOCKS, d, v_d).tables(pack, rule, dev)
-        o3, l3, m3 = native.resident_fwd(forward.prescale(q, d ** -0.5), k, v,
-                                         native.fa_rule(pack, rule), seg, 128, 128, group_rows=1)
-        assert torch.equal(o3, o) and torch.equal(l3, l) and torch.equal(m3, m)
 
 
 # ---- the tensor-core backward (attention_bwd_tc.cuh) ----
@@ -809,6 +804,8 @@ def test_exp_resident_kernel_matches_plain(dev, bq, bkv):
     q, k, v = (_uniform(gen, (2, 2048, 128), dev) for _ in range(3))
     got = _exp_launch("exp_resident_fwd",
                       lambda: x.resident_forward(q, k, v, block_q=bq, block_kv=bkv))
+    # an item of block_q rows: 2 rows of 2048 / bq items
+    assert native.WALKS["exp_resident_fwd"]["items"] == 2 * 2048 // bq
     want = x.resident_forward_plain(q, k, v, block_q=bq, block_kv=bkv)
     assert float((got.float() - want.float()).abs().max()) <= _exp_tol(want)
     assert float((got.float() - x.causal_oracle(q, k, v).float()).abs().max()) < 1e-2

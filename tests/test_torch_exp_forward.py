@@ -121,24 +121,21 @@ def stage_inputs():
         torch.bfloat16) for _ in range(3)]
 
 
-@pytest.fixture(scope="module")
-def stage_merge(stage_inputs):
-    """The card kernel's merge in PyTorch: 128-row items, one merge a
-    128-key stage (``csrc/exp_forward_kernels.cu``)."""
-    q, k, v = stage_inputs
-    return forward_steps(tres._prescale(q, None), k, v, step=128, group=128, block_q=128,
-                         causal=True, elem_mask=True, policy="bf16exp")
-
-
 @pytest.mark.parametrize("bq,bkv", tres.PAIRS)
-def test_resident_stage_merge_within_card_gate(stage_inputs, stage_merge, bq, bkv):
-    """The card's kernel merges once a 128-key stage where the plain
-    version merges once a ``block_kv`` step, so p rounds against other
-    running maxima; at S 2048 that stays within the card comparison's bound
-    (``ULPS`` bf16 ulps at the output's scale) for every pair of the tool."""
+def test_resident_stage_merge_within_card_gate(stage_inputs, bq, bkv):
+    """The card's kernel (``csrc/exp_forward_kernels.cu``) walks a q block
+    of ``block_q`` rows as 128-row tiles, one CTA an item, each tile merging
+    every ``block_kv`` keys against that step's row maximum and skipping
+    the steps past its own diagonal: the plain version at block_q 128 and
+    the pair's block_kv.  That is the pair's plain version (the steps a
+    q block walks past a row's diagonal change none of its sums), within
+    the card comparison's bound (``ULPS`` bf16 ulps at the output's scale)
+    at S 2048 for every pair of the tool."""
     q, k, v = stage_inputs
+    tiles = forward_steps(tres._prescale(q, None), k, v, step=bkv, group=bkv, block_q=128,
+                          causal=True, elem_mask=True, policy="bf16exp")
     want = tres.resident_forward_plain(q, k, v, block_q=bq, block_kv=bkv)
-    _close(_np(stage_merge), _np(want))
+    _close(_np(tiles), _np(want))
 
 
 # ---- exp_vpu_attrib: the ladder, block-causal at BQ = BK = S / 2 ----

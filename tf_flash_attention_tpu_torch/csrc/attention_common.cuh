@@ -105,7 +105,6 @@ struct AttnArgs {
   int num_steps, block_q, block_kv, B, g, d, v_d;
   int band, sub;    // kWindow: band width and sub-block rows
   int* next_item;   // the tensor-core kResident: a zeroed work counter
-  int group_rows;   // ... and its rows a group (0: one wave's)
   float out_scale;  // dQ: scale; fused dK: 1/log2e; dK-dV: scale
   FaRule rule;
 };

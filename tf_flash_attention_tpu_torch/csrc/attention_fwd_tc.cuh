@@ -63,33 +63,45 @@
 // So the grid is persistent, min(SMs x CTAs an SM holds, items) (132 x 1
 // at d 128: 161 KB of shared memory a CTA), and the items go out row-major
 // by groups of rows: group g holds rows [gR, gR + R), R the whole rows one
-// wave of the grid covers, floor(grid / items a row) (at least 1), so a
-// group's items take at most one wave; all of group g's items go
-// before group g + 1's, and inside a group the last query tile of every
-// row first, then the one before it (for a causal rule the longest band
-// first, the short tail last).  At the training slice, (B.H, S, d) = (64,
-// 2048, 128), a row has 16 items of 1 MB of K/V: R = 8 rows, one or two
-// groups, 8-16 MB, in flight, inside the 50 MB; the one-CTA-an-item grid of
-// kBanded instead starts a tile of every one of the 64 rows at once: all
-// 64 MB of the slice's K/V live, more than L2 holds.  At the experiment
-// tool's shape, (8, 4096, 128), a row has 32 items of 2 MB: R = 4, 8-16 MB.
+// wave of the grid covers, floor(grid / items a row) (at least 1, worked
+// out from gridDim.x), so a group's items take at most one wave; all of
+// group g's items go before group g + 1's, and inside a group the last
+// query tile of every row first, then the one before it (for a causal
+// rule the longest band first, the short tail last).  At the training
+// slice, (B.H, S, d) = (64, 2048, 128), a row has 16 items of 1 MB of K/V:
+// R = 8 rows, one or two groups, 8-16 MB, in flight, inside the 50 MB; the
+// one-CTA-an-item grid of kBanded instead starts a tile of every one of
+// the 64 rows at once: all 64 MB of the slice's K/V live, more than L2
+// holds.  At the experiment tool's shape, (8, 4096, 128), a row has 32
+// items of 2 MB: R = 4, 8-16 MB.
 // The CTAs take their items from a global counter (atomicAdd; the wrapper
 // zeroes it), so a CTA that drew short items takes more: with the longest
-// items of a group first, that is list scheduling close to longest-first,
-// and the rows' order keeps the groups in flight few.  A static stride
-// (item blockIdx.x + i gridDim.x) needs no counter, but at 1.9 items a CTA
-// (the tool's 256 items on 132 CTAs) it gives one CTA 61 stages against an
-// average of 33, and at the slice 84 against 70 (a count of stages, an
-// item's epilogue priced at half a stage: test_resident_walk_balance in
-// tests/test_torch_attention.py; PERF.md has the times), where the counter
-// over these groups gives 33 and 72; strict row order (R = 1, group_rows)
-// leaves a row's longest items to the CTAs that come late (52 and 79.5).
+// items of a group first, that is list scheduling close to longest-first.
+// A static stride (item blockIdx.x + i gridDim.x) needs no counter, but
+// counting stages (causal tile t takes t + 1, an epilogue half of one), it
+// gives the busiest of 132 CTAs 61 stages against an average of 33 at the
+// tool's 1.9 items a CTA, and 84 against 70 at the slice; the counter over
+// these groups gives 33 and 72, the counter in strict row order (R = 1) 52
+// and 79.5, as it leaves a row's longest items to the CTAs that come late.
+// On the card strict row order took 5% longer at the slice and 27% at the
+// tool's shape (PERF.md).
 // Across items the producer runs ahead: once the consumers have issued the
 // item's last S product it takes the next item, writes it beside the
 // barriers and loads its Q, and the K/V ring carries on into the next
 // item's first stages while the consumers run the last PV and the
 // epilogue; every mbarrier's phase carries across items.  An item past the
 // count is the end: the producer arrives on Q's barrier without a load.
+//
+// The experiment tool's pairs (fa_exp_resident_fwd, Merge): block_q sets
+// the item, block_q / 128 consecutive query tiles of one row that one CTA
+// walks last tile first (the TPU kernel's grid step of a q block), so at
+// the tool's shape (1024, .) leaves 32 items for 132 SMs and (256, .) 128;
+// block_kv sets the merge step, as the tool's plain version merges: at 64
+// keys each 128-key stage merges as two halves, each with its own PV
+// product; at 128 once a stage; past 128 the step's stages are walked
+// twice, first K alone for the step's row maximum (S products only), then
+// K and V with that maximum, so p rounds against the maximum of the whole
+// step as in the tool (a second S product on each key: 1.5x the products).
 //
 // The building blocks (barriers, TMA, swizzle, descriptors, wgmma) are
 // tc_common.cuh's, shared with the backward of attention_bwd_tc.cuh.
@@ -108,43 +120,72 @@ constexpr int kThreads = kConsumers + 32;    // two consumer warpgroups, a produ
 __host__ __device__ constexpr int slabs_of(int bn) { return bn == 128 ? 2 : bn == 64 ? 4 : 8; }
 constexpr int kStages = 2;  // the K/V ring (a third stage measured no faster)
 
-// calls f(c0, masked) for every BN-key stage of the item's walk, in order
-template <int WALK, int BN, typename F>
-__device__ __forceinline__ void for_each_stage(const AttnArgs& a, int qi, F&& f) {
-  const int bkv = a.block_kv, k_len = a.rule.k_len;
-  for_each_block<WALK>(a, qi, [&](int blk, bool masked) {
-    const int end = min((blk + 1) * bkv, k_len);
-    for (int c0 = blk * bkv; c0 < end; c0 += BN) f(c0, masked);
-  });
+// The merge of a stage's scores: the op path's (p = exp2(s - m) rounded to
+// T for PV, l over the float32 p), or the tool's bf16 merge (BF16EXP: p =
+// bf16(exp2(bf16(s - m))), l over the rounded p, no l or m out) once a
+// BN-key stage (block_kv 128), twice (64: each half its own maximum and PV
+// product), or once a step of block_kv > BN keys, whose stages are walked
+// twice: K alone for the step's row maximum, then K and V.  One compiled
+// body each: with the choice made at run time ptxas spilled the 128-key
+// body's accumulators to local memory.  The halves' body still spills
+// (ptxas -v); no pair of the tool runs it, only the card test's (128, 64).
+enum Merge { kOpMerge = 0, kExpStage = 1, kExpHalves = 2, kExpStep = 3 };
+
+// calls f(c0, masked, max_only) for every load of a BN-key stage in the
+// tile's walk, in order: K and V (max_only false) for each stage of the
+// schedule row of query block qi; the tool's merges (the causal walk of keys
+// [0, row0 + 128), the last stage masked) with kExpStep walk each step's
+// stages twice, first K alone (max_only) for the step's maximum
+template <int WALK, int BN, int MERGE, typename F>
+__device__ __forceinline__ void for_each_load(const AttnArgs& a, int qi, int row0, F&& f) {
+  if constexpr (MERGE != kOpMerge) {
+    constexpr int passes = MERGE == kExpStep ? 2 : 1;
+    const int end = row0 + kBM, step = passes == 2 ? a.block_kv : end;
+    for (int k0 = 0; k0 < end; k0 += step) {
+      const int e = min(k0 + step, end);
+      for (int pass = 0; pass < passes; ++pass)
+        for (int c0 = k0; c0 < e; c0 += BN) f(c0, c0 + BN > row0, pass + 1 < passes);
+    }
+  } else {
+    const int bkv = a.block_kv, k_len = a.rule.k_len;
+    for_each_block<WALK>(a, qi, [&](int blk, bool masked) {
+      const int end = min((blk + 1) * bkv, k_len);
+      for (int c0 = blk * bkv; c0 < end; c0 += BN) f(c0, masked, false);
+    });
+  }
 }
 
-// The work items: (row, 128 query rows, VN-column chunk of v_d).  kResident
-// walks them all, by groups of group_rows rows (see the header); the other
-// walks take the one item of blockIdx.
+// The work items: (row, `per` query tiles of 128 rows, VN-column chunk of
+// v_d), per = 1 but for the tool's block_q.  kResident walks them
+// all, by groups of `group` rows (see the header); the other walks take the
+// one item of blockIdx.
 struct Items {
-  int tiles, chunks, count, group;
+  int blocks, per, chunks, count, group;
 };
 
-template <int WALK, int VN>
+template <int WALK, int VN, int MERGE>
 __device__ __forceinline__ Items items_of(const AttnArgs& a) {
   Items w;
-  w.tiles = (a.rule.q_len + kBM - 1) / kBM;
+  w.per = MERGE != kOpMerge ? a.block_q / kBM : 1;
+  w.blocks = (a.rule.q_len + kBM * w.per - 1) / (kBM * w.per);
   w.chunks = (a.v_d + VN - 1) / VN;
-  w.count = WALK == kResident ? a.B * w.tiles * w.chunks : 1;
-  w.group = a.group_rows;
+  w.count = WALK == kResident ? a.B * w.blocks * w.chunks : 1;
+  w.group = min(a.B, max(1, static_cast<int>(gridDim.x) / (w.blocks * w.chunks)));
   return w;
 }
 
-// item -> (query row b, first query row, first output column)
+// tile (item x per + the item's tile so far) -> (query row b, first query
+// row, first output column)
 template <int WALK, int VN>
-__device__ __forceinline__ void item_at(const AttnArgs& a, const Items& w, int item, int& b,
+__device__ __forceinline__ void item_at(const AttnArgs& a, const Items& w, int tile, int& b,
                                         int& row0, int& vc0) {
   if constexpr (WALK == kResident) {
-    const int g0 = item / (w.group * w.tiles * w.chunks) * w.group;  // the group's first row
-    const int rows = min(w.group, a.B - g0), j = item - g0 * w.tiles * w.chunks;
+    const int item = tile / w.per, sub = tile - item * w.per;
+    const int g0 = item / (w.group * w.blocks * w.chunks) * w.group;  // the group's first row
+    const int rows = min(w.group, a.B - g0), j = item - g0 * w.blocks * w.chunks;
     const int p = j / (rows * w.chunks), rem = j - p * rows * w.chunks;
     b = g0 + rem / w.chunks;
-    row0 = (w.tiles - 1 - p) * kBM;
+    row0 = ((w.blocks - 1 - p) * w.per + w.per - 1 - sub) * kBM;
     vc0 = (rem % w.chunks) * VN;
   } else {
     b = blockIdx.x;
@@ -153,11 +194,12 @@ __device__ __forceinline__ void item_at(const AttnArgs& a, const Items& w, int i
   }
 }
 
-template <typename T, int WALK, int BN, int VN, bool BF16EXP>
+template <typename T, int WALK, int BN, int VN, int MERGE>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_tc_kernel(const __grid_constant__ AttnArgs a, const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap, int tma) {
+  constexpr bool BF16EXP = MERGE != kOpMerge;  // the tool's bf16 merge
   constexpr int VS = VN / kSlabCols;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* Qs = align1024(smem_raw);
@@ -174,7 +216,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr bool kPersistent = WALK == kResident;
 
   const int tid = threadIdx.x;
-  const Items w = items_of<WALK, VN>(a);
+  const Items w = items_of<WALK, VN, MERGE>(a);
+  const int end_tile = w.count * w.per;  // kResident: the slot's value past the last tile
   if (tid == 0) {
     mbar_init(q_full, tma ? 1 : 32);
     mbar_init(q_empty, kConsumers);
@@ -189,23 +232,27 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid >= kConsumers) {  // ---- the producer warp ----
     const int lane = tid - kConsumers;
     if (tma && lane != 0) return;
-    int it = 0;  // stages so far: the ring's phases
-    for (int n = 0; kPersistent || n == 0; ++n) {  // n: items so far, Q's phases
-      int item = 0;
+    int it = 0;    // stage loads so far: the ring's phases
+    int item = 0;  // kResident: the item drawn last
+    for (int n = 0; kPersistent || n == 0; ++n) {  // n: tiles so far, Q's phases
+      const int sub = n % w.per;  // the item's tiles so far
       if constexpr (kPersistent) {
-        if (lane == 0) item = atomicAdd(a.next_item, 1);
-        item = __shfl_sync(__activemask(), item, 0);
+        if (sub == 0) {
+          if (lane == 0) item = atomicAdd(a.next_item, 1);
+          item = __shfl_sync(__activemask(), item, 0);
+        }
       }
-      if (n > 0) mbar_wait(q_empty, (n - 1) & 1);  // the last item's S products are done
+      if (n > 0) mbar_wait(q_empty, (n - 1) & 1);  // the last tile's S products are done
+      const int tile = item >= w.count ? end_tile : item * w.per + sub;
       if constexpr (kPersistent) {
-        if (lane == 0) *item_slot = item;
-        if (item >= w.count) {  // the end: Q's phase completes without a load
+        if (lane == 0) *item_slot = tile;
+        if (tile == end_tile) {  // the end: Q's phase completes without a load
           mbar_arrive(q_full);
           break;
         }
       }
       int b, row0, vc0;
-      item_at<WALK, VN>(a, w, item, b, row0, vc0);
+      item_at<WALK, VN>(a, w, tile, b, row0, vc0);
       const int qi = row0 / a.block_q, bkv_row = b / a.g;
       const T* kb = static_cast<const T*>(a.k) + static_cast<size_t>(bkv_row) * k_len * d;
       const T* vb = static_cast<const T*>(a.v) + static_cast<size_t>(bkv_row) * k_len * v_d;
@@ -219,20 +266,20 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_proxy_async();
         mbar_arrive(q_full);
       }
-      for_each_stage<WALK, BN>(a, qi, [&](int c0, bool) {
+      for_each_load<WALK, BN, MERGE>(a, qi, row0, [&](int c0, bool, bool max_only) {
         const int st = it % kStages;
         if (it >= kStages) mbar_wait(empty + st, ((it / kStages) & 1) ^ 1);
         unsigned char* ks = stages + st * stage_bytes;
         if (tma) {
-          mbar_expect_tx(full + st, stage_bytes);
+          mbar_expect_tx(full + st, max_only ? k_bytes : stage_bytes);
           for (int s = 0; s < ds; ++s)
             tma_load(ks + s * BN * kRowBytes, &kmap, full + st, s * kSlabCols, c0, bkv_row);
-          for (int s = 0; s < VS; ++s)
+          for (int s = 0; s < VS && !max_only; ++s)
             tma_load(ks + k_bytes + s * BN * kRowBytes, &vmap, full + st, vc0 + s * kSlabCols,
                      c0, bkv_row);
         } else {
           stage_plain(ks, kb, c0, BN, k_len, 0, ds, d, lane);
-          stage_plain(ks + k_bytes, vb, c0, BN, k_len, vc0, VS, v_d, lane);
+          if (!max_only) stage_plain(ks + k_bytes, vb, c0, BN, k_len, vc0, VS, v_d, lane);
           fence_proxy_async();
           mbar_arrive(full + st);
         }
@@ -242,33 +289,34 @@ __global__ void __launch_bounds__(kThreads, 1)
     return;
   }
 
-  // ---- the consumer warpgroups: rows row0 + 64 wg + [0, 64) of each item ----
+  // ---- the consumer warpgroups: rows row0 + 64 wg + [0, 64) of each tile ----
   const int wg = tid / 128, wp = (tid / 32) & 3, lane = tid & 31;
   const uint64_t q_desc = make_desc(Qs + 64 * wg * kRowBytes, 16, 1024);
   int it = 0;
   for (int n = 0; kPersistent || n == 0; ++n) {
     mbar_wait(q_full, n & 1);
-    int item = 0;
+    int tile = 0;
     if constexpr (kPersistent) {
-      item = *static_cast<volatile int*>(item_slot);
-      if (item >= w.count) break;
+      tile = *static_cast<volatile int*>(item_slot);
+      if (tile == end_tile) break;
     }
     int b, row0, vc0;
-    item_at<WALK, VN>(a, w, item, b, row0, vc0);
+    item_at<WALK, VN>(a, w, tile, b, row0, vc0);
     const int qi = row0 / a.block_q;
     const int r_base = row0 + 64 * wg + 16 * wp + (lane >> 2);  // and r_base + 8
-    int n_stages = 0;
-    for_each_stage<WALK, BN>(a, qi, [&](int, bool) { ++n_stages; });
-    if (n_stages == 0) mbar_arrive(q_empty);
+    int n_loads = 0;
+    for_each_load<WALK, BN, MERGE>(a, qi, row0, [&](int, bool, bool) { ++n_loads; });
+    if (n_loads == 0) mbar_arrive(q_empty);
     float o_acc[VN / 2];
 #pragma unroll
     for (int i = 0; i < VN / 2; ++i) o_acc[i] = 0.f;
     float m_run[2] = {neg_inf(), neg_inf()}, l_part[2] = {0.f, 0.f};
+    float m_step[2] = {neg_inf(), neg_inf()};  // kExpStep: the maximum of the steps so far
 
-    // one stage; MASKED (a compile-time tag) applies the rule predicate, the
-    // interior stages compile without it
-    int j = 0;  // the item's stages so far
-    auto body = [&](int c0, auto masked_tag) {
+    // one load; MASKED (a compile-time tag) applies the rule predicate, the
+    // interior stages compile without it; max_only: the step's first pass
+    int j = 0;  // the tile's loads so far
+    auto body = [&](int c0, auto masked_tag, bool max_only) {
       constexpr bool MASKED = decltype(masked_tag)::value;
       const int st = it % kStages;
       unsigned char* ks = stages + st * stage_bytes;
@@ -291,7 +339,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
-      if (++j == n_stages) mbar_arrive(q_empty);  // the producer may load the next Q
+      if (++j == n_loads) mbar_arrive(q_empty);  // the producer may load the next Q
 
       // element i of the fragment: row r_base + 8 ((i >> 1) & 1), column
       // c0 + 8 (i >> 2) + 2 (lane & 3) + (i & 1); the orders of the thread's
@@ -309,56 +357,87 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         }
       }
-      float mx[2] = {m_run[0], m_run[1]};
+      if constexpr (MERGE == kExpStep) {
+        if (max_only) {  // the step's first pass: its row maximum, nothing merged
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-      float alpha[2], rs[2] = {0.f, 0.f};
+          for (int i = 0; i < BN / 2; ++i)
+            m_step[(i >> 1) & 1] = fmaxf(m_step[(i >> 1) & 1], s[i]);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        alpha[h] = exp2f(m_run[h] - mx[h]);
-        m_run[h] = mx[h];
+          for (int h = 0; h < 2; ++h) {
+            m_step[h] = fmaxf(m_step[h], __shfl_xor_sync(0xffffffffu, m_step[h], 1));
+            m_step[h] = fmaxf(m_step[h], __shfl_xor_sync(0xffffffffu, m_step[h], 2));
+          }
+          mbar_arrive(empty + st);
+          ++it;
+          return;
+        }
       }
-      // masked logits hold NEG_INF: exp2(NEG_INF - m) == 0 for a live row; a
-      // row with no visible key yet is repaired at the end
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) {
-        const int h = (i >> 1) & 1;
-        if constexpr (BF16EXP)
-          s[i] = __bfloat162float(hexp2(__float2bfloat16_rn(s[i] - m_run[h])));
-        else
-          s[i] = exp2f(s[i] - m_run[h]);
-        rs[h] += s[i];
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) l_part[h] = alpha[h] * l_part[h] + rs[h];
-#pragma unroll
-      for (int i = 0; i < VN / 2; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
-      // P as the A fragments of BN / 16 k-slices, rounded to T
-      uint32_t p[BN / 4];
-#pragma unroll
-      for (int i = 0; i < BN / 4; ++i) p[i] = pack2<T>(s[2 * i], s[2 * i + 1]);
-
-      // O += P V
       const uint64_t v_desc = make_desc(ks + k_bytes, BN * kRowBytes, 1024);
-      fence_regs(o_acc);
-      fence_regs(p);
-      wgmma_fence();
+      // the online merge of the fragment's elements [LO, HI) (keys c0 + 2 LO
+      // to c0 + 2 HI, 8 elements a 16-key slice), then O += P V over them
+      auto merge = [&](auto lo_tag, auto hi_tag) {
+        constexpr int LO = decltype(lo_tag)::value, HI = decltype(hi_tag)::value;
+        float mx[2] = {m_run[0], m_run[1]};
+        if constexpr (MERGE == kExpStep) {  // the step's maximum, from its first pass
+          mx[0] = fmaxf(mx[0], m_step[0]);
+          mx[1] = fmaxf(mx[1], m_step[1]);
+        }
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-        mma_pv<VN, T>(o_acc, p + 4 * kk, v_desc + ((kk * 16 * kRowBytes) >> 4));
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(o_acc);
+        for (int i = LO; i < HI; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+        float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          alpha[h] = exp2f(m_run[h] - mx[h]);
+          m_run[h] = mx[h];
+        }
+        // masked logits hold NEG_INF: exp2(NEG_INF - m) == 0 for a live row; a
+        // row with no visible key yet is repaired at the end
+#pragma unroll
+        for (int i = LO; i < HI; ++i) {
+          const int h = (i >> 1) & 1;
+          if constexpr (BF16EXP)
+            s[i] = __bfloat162float(hexp2(__float2bfloat16_rn(s[i] - m_run[h])));
+          else
+            s[i] = exp2f(s[i] - m_run[h]);
+          rs[h] += s[i];
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) l_part[h] = alpha[h] * l_part[h] + rs[h];
+#pragma unroll
+        for (int i = 0; i < VN / 2; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
+        // P as the A fragments of (HI - LO) / 8 k-slices, rounded to T
+        uint32_t p[(HI - LO) / 2];
+#pragma unroll
+        for (int i = 0; i < (HI - LO) / 2; ++i) p[i] = pack2<T>(s[LO + 2 * i], s[LO + 2 * i + 1]);
+        fence_regs(o_acc);
+        fence_regs(p);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < (HI - LO) / 8; ++kk)
+          mma_pv<VN, T>(o_acc, p + 4 * kk, v_desc + (((LO / 8 + kk) * 16 * kRowBytes) >> 4));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(o_acc);
+      };
+      using lo = std::integral_constant<int, 0>;
+      using mid = std::integral_constant<int, BN / 4>;
+      using hi = std::integral_constant<int, BN / 2>;
+      if constexpr (MERGE == kExpHalves) {  // the tool's 64-key merges: two halves
+        merge(lo{}, mid{});
+        merge(mid{}, hi{});
+      } else {
+        merge(lo{}, hi{});
+      }
       mbar_arrive(empty + st);
       ++it;
     };
-    for_each_stage<WALK, BN>(a, qi, [&](int c0, bool masked) {
+    for_each_load<WALK, BN, MERGE>(a, qi, row0, [&](int c0, bool masked, bool max_only) {
       if (masked)
-        body(c0, std::true_type{});
+        body(c0, std::true_type{}, max_only);
       else
-        body(c0, std::false_type{});
+        body(c0, std::false_type{}, max_only);
     });
 
     // the forward finalize (forward.py:225-243), as fwd_finalize
@@ -458,56 +537,52 @@ size_t fwd_tc_smem(int bn, int vn) {
          8 * (2 + 2 * kStages) + 8;  // the barriers, kResident's item
 }
 
-// The launch of fwd_tc_kernel (with its shared memory set): kTable and
-// kBanded one CTA an item, (B, q tiles, v chunks); kResident one persistent
-// CTA for each that the SMs hold at once, at most one an item, and its
-// rows a group (a.group_rows, or those one wave of the grid covers).
-struct TcLaunch {
-  dim3 grid;
-  int items, group_rows;
-};
-
-template <typename T, int WALK, int BN, int VN, bool BF16EXP>
-int fwd_tc_launch(const AttnArgs& a, TcLaunch* l) {
-  auto kernel = fwd_tc_kernel<T, WALK, BN, VN, BF16EXP>;
+// The launch of fwd_tc_kernel: kTable and kBanded one CTA an item, (B, q
+// tiles, v chunks); kResident one persistent CTA for each that the SMs
+// hold at once, at most one an item.  walk (nullable, host): the launch's
+// grid of CTAs, its work items, its rows a group (as the kernel works them
+// out from the grid) and 1 for the tensor-core body.
+template <typename T, int WALK, int BN, int VN, int MERGE = kOpMerge>
+int fwd_tc(const AttnArgs& a, cudaStream_t stream, int* walk = nullptr) {
+  // the tool's pairs: block_q rows an item, merges of block_kv keys (the
+  // merge's own), causal over q_len == k_len
+  const int merge_keys = MERGE == kExpHalves ? BN / 2 : MERGE == kExpStage ? BN : a.block_kv;
+  const bool pair_ok = MERGE != kOpMerge
+                           ? a.block_q % kBM == 0 && a.rule.q_len % a.block_q == 0 &&
+                                 a.rule.q_len == a.rule.k_len && a.block_kv == merge_keys &&
+                                 (MERGE != kExpStep || (a.block_kv > BN && a.block_kv % BN == 0))
+                           : a.block_q % kBM == 0 && a.block_kv % BN == 0 &&
+                                 a.block_kv % 128 == 0;
+  if (a.d < 1 || a.v_d < 1 || a.d > kSlabCols * slabs_of(BN) || a.g < 1 || a.B % a.g ||
+      !pair_ok || a.rule.q_len < 1 || (WALK == kResident && a.next_item == nullptr))
+    return cudaErrorInvalidValue;
+  auto kernel = fwd_tc_kernel<T, WALK, BN, VN, MERGE>;
   const size_t smem = fwd_tc_smem(BN, VN);
   if (smem > static_cast<size_t>(MAX_SMEM)) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int tiles = blocks(a.rule.q_len, kBM), chunks = blocks(a.v_d, VN);
-  l->items = a.B * tiles * chunks;
-  l->group_rows = 1;
-  if (WALK != kResident) {
-    l->grid = dim3(a.B, tiles, chunks);
-    return cudaSuccess;
+  const int per = MERGE != kOpMerge ? a.block_q / kBM : 1;
+  const int q_blocks = blocks(a.rule.q_len, kBM * per), chunks = blocks(a.v_d, VN);
+  const int items = a.B * q_blocks * chunks;
+  dim3 grid(a.B, q_blocks, chunks);
+  if (WALK == kResident) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+            cudaSuccess)
+      return err;
+    const int resident = sms * per_sm > 1 ? sms * per_sm : 1;
+    grid = dim3(resident < items ? resident : items);
   }
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
-          cudaSuccess)
-    return err;
-  const int resident = sms * per_sm > 1 ? sms * per_sm : 1;
-  const int grid = resident < l->items ? resident : l->items;
-  l->grid = dim3(grid);
-  const int wave_rows = grid / (tiles * chunks);
-  l->group_rows = a.group_rows > 0 ? a.group_rows : wave_rows > 1 ? wave_rows : 1;
-  if (l->group_rows > a.B) l->group_rows = a.B;
-  return cudaSuccess;
-}
-
-template <typename T, int WALK, int BN, int VN, bool BF16EXP = false>
-int fwd_tc(const AttnArgs& a, cudaStream_t stream) {
-  if (a.d < 1 || a.v_d < 1 || a.d > kSlabCols * slabs_of(BN) || a.g < 1 || a.B % a.g ||
-      a.block_q % kBM || a.block_kv % BN || a.block_kv % 128 || a.rule.q_len < 1 ||
-      (WALK == kResident && (a.next_item == nullptr || a.group_rows < 0)))
-    return cudaErrorInvalidValue;
-  TcLaunch l;
-  const int err = fwd_tc_launch<T, WALK, BN, VN, BF16EXP>(a, &l);
-  if (err != cudaSuccess) return err;
-  AttnArgs args = a;
-  args.group_rows = l.group_rows;
+  if (walk) {
+    walk[0] = static_cast<int>(grid.x * grid.y * grid.z);
+    walk[1] = items;
+    const int wave_rows = static_cast<int>(grid.x) / (q_blocks * chunks);  // as items_of
+    walk[2] = WALK != kResident || wave_rows < 1 ? 1 : wave_rows < a.B ? wave_rows : a.B;
+    walk[3] = 1;
+  }
   const int B_kv = a.B / a.g, q_len = a.rule.q_len, k_len = a.rule.k_len;
   CUtensorMap qm, km, vm;
   memset(&qm, 0, sizeof(qm));
@@ -519,8 +594,7 @@ int fwd_tc(const AttnArgs& a, cudaStream_t stream) {
                tensor_map<T>(&km, a.k, a.d, k_len, B_kv, BN) &&
                tensor_map<T>(&vm, a.v, a.v_d, k_len, B_kv, BN)))
     return cudaErrorInvalidValue;
-  fwd_tc_kernel<T, WALK, BN, VN, BF16EXP>
-      <<<l.grid, kThreads, fwd_tc_smem(BN, VN), stream>>>(args, qm, km, vm, tma ? 1 : 0);
+  kernel<<<grid, kThreads, smem, stream>>>(a, qm, km, vm, tma ? 1 : 0);
   return cudaGetLastError();
 }
 
@@ -539,47 +613,25 @@ bool fwd_on_tc(const AttnArgs& a) {
 // the forward of kTable, kBanded and kResident on its body (the
 // tensor-core class by d and v_d): wider heads go to the scalar body as
 // bwd_fused_any sends the backward's wide classes there.  A dispatch by
-// shape, not a fallback: a refused launch still returns its error.
+// shape, not a fallback: a refused launch still returns its error.  walk
+// (nullable): what the launch used, as tc::fwd_tc reports it; the scalar
+// body's kResident grid is a CTA for each (row, v_d chunk), its item.
 template <typename T, int WALK>
-int fwd_any(const AttnArgs& a, cudaStream_t s) {
-  if constexpr (std::is_same<T, float>::value) {
-    return fwd_scalar_any<T, WALK>(a, s);
-  } else {
-    if (!fwd_on_tc<T>(a)) return fwd_scalar_any<T, WALK>(a, s);
-    if (a.d <= 128 && a.v_d <= 128) return tc::fwd_tc<T, WALK, 128, 128>(a, s);
-    if (a.d <= 256) return tc::fwd_tc<T, WALK, 64, 256>(a, s);
-    return tc::fwd_tc<T, WALK, 32, 256>(a, s);
-  }
-}
-
-// The resident forward's launch: out[0] the grid's CTAs, out[1] the work
-// items (each CTA of the scalar body one query row: both B x v_d chunks),
-// out[2] 1 on the tensor-core body, out[3] its rows a group.  Launches
-// nothing.
-template <typename T>
-int resident_plan(const AttnArgs& a, int* out) {
+int fwd_any(const AttnArgs& a, cudaStream_t s, int* walk = nullptr) {
   if constexpr (!std::is_same<T, float>::value) {
     if (fwd_on_tc<T>(a)) {
-      tc::TcLaunch l;
-      int err;
-      if (a.d <= 128 && a.v_d <= 128)
-        err = tc::fwd_tc_launch<T, kResident, 128, 128, false>(a, &l);
-      else if (a.d <= 256)
-        err = tc::fwd_tc_launch<T, kResident, 64, 256, false>(a, &l);
-      else
-        err = tc::fwd_tc_launch<T, kResident, 32, 256, false>(a, &l);
-      out[0] = static_cast<int>(l.grid.x);
-      out[1] = l.items;
-      out[2] = 1;
-      out[3] = l.group_rows;
-      return err;
+      if (a.d <= 128 && a.v_d <= 128) return tc::fwd_tc<T, WALK, 128, 128>(a, s, walk);
+      if (a.d <= 256) return tc::fwd_tc<T, WALK, 64, 256>(a, s, walk);
+      return tc::fwd_tc<T, WALK, 32, 256>(a, s, walk);
     }
   }
-  const int cls = dim_class(a);
-  out[0] = out[1] = a.B * blocks(a.v_d, cls == 0 ? 128 : cls == 1 ? 256 : WIDE_COLS);
-  out[2] = 0;
-  out[3] = 1;
-  return cudaSuccess;
+  if (walk) {
+    const int cls = dim_class(a);
+    walk[0] = walk[1] = a.B * blocks(a.v_d, cls == 0 ? 128 : cls == 1 ? 256 : WIDE_COLS);
+    walk[2] = 1;
+    walk[3] = 0;
+  }
+  return fwd_scalar_any<T, WALK>(a, s);
 }
 
 }  // namespace

@@ -171,34 +171,20 @@ int fa_banded_fwd(int dtype, const void* q, const void* k, const void* v, void* 
 
 // as fa_banded_fwd, the rows' query tiles walked in row order: bf16 and
 // fp16 by persistent CTAs on the tensor-core body, float32 and d > 512 one
-// CTA a row on the scalar body
-// (next_item a zeroed int32 counter; group_rows 0 for one wave's rows)
+// CTA a row on the scalar body (next_item a zeroed int32 counter; walk
+// nullable, 4 host ints: the launch's CTAs, work items, rows a group and 1
+// on the tensor-core body)
 int fa_resident_fwd(int dtype, const void* q, const void* k, const void* v, void* o, float* l,
                     float* m, const int* seg, int* next_item, int block_q, int block_kv, int B,
-                    int g, int d, int v_d, int group_rows, const FaRule* rule, void* stream) {
+                    int g, int d, int v_d, int* walk, const FaRule* rule, void* stream) {
   AttnArgs a = make_args(q, k, v, B, g, d, v_d, rule);
   a.table = seg;
   a.next_item = next_item;
-  a.group_rows = group_rows;
   a.block_q = block_q;
   a.block_kv = block_kv;
   set_fwd_out(a, o, l, m);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, [&](auto tag) { return fwd_any<decltype(tag), kResident>(a, s); });
-}
-
-// fa_resident_fwd's launch at these shapes, without launching: out[0] the
-// grid's CTAs, out[1] the work items, out[2] 1 on the tensor-core body,
-// out[3] the rows a group
-int fa_resident_plan(int dtype, int B, int q_len, int d, int v_d, int* out, void* stream) {
-  (void)stream;
-  AttnArgs a = {};
-  a.B = B;
-  a.g = 1;
-  a.d = d;
-  a.v_d = v_d;
-  a.rule.q_len = q_len;
-  return dispatch(dtype, [&](auto tag) { return resident_plan<decltype(tag)>(a, out); });
+  return dispatch(dtype, [&](auto tag) { return fwd_any<decltype(tag), kResident>(a, s, walk); });
 }
 
 // q prescaled; starts (q_pad / sub_q,) int32 key-band starts, band width W

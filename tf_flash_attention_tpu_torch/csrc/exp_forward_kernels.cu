@@ -5,26 +5,21 @@
 //   fa_exp_kv_unroll    <- tools/exp_kv_unroll.py::kern / kern_fused (:41, :78, call :115)
 //
 // exp_resident runs on the op path's resident tensor-core forward
-// (attention_fwd_tc.cuh, kResident with BF16EXP): causal bf16 attention at
+// (attention_fwd_tc.cuh, kResident with the tool's Merge): causal bf16 attention at
 // d <= 128, q prescaled, the tool's merge p = bf16(exp2(bf16(s - m))) with
-// l summing the rounded p, no l or m out.  Its items are 128-row query
-// tiles, walked by persistent CTAs in the op path's resident order (row
-// groups, a work counter): tile t runs the keys [0, 128 t) unmasked and
-// [128 t, 128 t + 128) masked per element (the band segments (0, 0, t,
-// t + 1) of 128-key blocks, which the wrapper uploads), one merge a 128-key
-// stage.  What the tool's (block_q, block_kv) pair sets is kept as the
-// plain version computes it, exact causal attention, and on this card the
-// pair changes neither the work nor the walk: items of block_q rows would
-// leave most SMs idle at the tool's shape (32 items of 1024 rows for 132
-// SMs), and the whole step's scores before its merge (the TPU kernel's
-// block_kv keys) do not fit the registers past 128 keys.  So p rounds
-// against the running maximum of the 128-key stages where the plain
-// version (and the tool) take the maximum of block_kv keys at once: an
-// output element moves by a rounding flip, and the 2-ulp gate of its plain
-// comparison holds for every pair (test_torch_exp_forward.py models it on
-// the CPU; PERF.md has the card's errors).  The pair is checked as the
-// tool checks it (S a multiple of both) and block_q must be a multiple of
-// 128.
+// l summing the rounded p, no l or m out, walked by persistent CTAs in the
+// op path's resident order (row groups, a work counter).  The tool's
+// (block_q, block_kv) pair sets what it sets on the TPU: an item is a q
+// block of block_q rows (block_q / 128 query tiles that one CTA walks, the
+// TPU kernel's grid step), and p rounds against the running maximum of
+// block_kv keys, as the tool and its plain version merge: 64-key halves of
+// a 128-key stage, one merge a stage at 128, and past 128 a first pass of
+// the step's S products for its row maximum.  A tile walks keys [0, 128 t
+// + 128), the last stage masked per element: exact causal attention at
+// every pair (the tool masks only a q block's last step, wrong when
+// block_q > block_kv).  On this card a larger block_q gives fewer and
+// longer items (32 at (1024, .) on the tool's (8, 4096), for 132 SMs), and
+// block_kv > 128 costs a second S product on each key.
 //
 // The ladder and kv unroll are one kernel, exp_fwd_kernel: a bf16 forward
 // over (B, S, d) sequences (d <= 128) on the tile helpers of
@@ -261,14 +256,12 @@ ExpFwdArgs exp_args(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// q prescaled (bf16 of q * scale * log2e); o (B, S, d) bf16; seg (S / 128,
-// 4) int32, row t the band segments (0, 0, t, t + 1) of 128-key blocks;
-// next_item a zeroed int32 counter
-int fa_exp_resident_fwd(const void* q, const void* k, const void* v, void* o, const int* seg,
-                        int* next_item, int B, int S, int d, int block_q, int block_kv,
+// q prescaled (bf16 of q * scale * log2e); o (B, S, d) bf16; next_item a
+// zeroed int32 counter; walk nullable, 4 host ints as fa_resident_fwd's
+int fa_exp_resident_fwd(const void* q, const void* k, const void* v, void* o, int* next_item,
+                        int B, int S, int d, int block_q, int block_kv, int* walk,
                         void* stream) {
-  if (B < 1 || S < 1 || d < 1 || d > 128 || block_q < 128 || block_q % 128 || block_kv < 1 ||
-      S % block_q || S % block_kv)
+  if (B < 1 || S < 1 || d < 1 || d > 128 || S % block_kv)
     return cudaErrorInvalidValue;
   FaRule r = {};
   r.ndim = 1;
@@ -277,11 +270,14 @@ int fa_exp_resident_fwd(const void* q, const void* k, const void* v, void* o, co
   r.kind = kCausal;
   r.q_len = r.k_len = S;
   AttnArgs a = make_args(q, k, v, B, 1, d, d, &r);
-  a.table = seg;
   a.next_item = next_item;
-  a.block_q = a.block_kv = 128;
+  a.block_q = block_q;
+  a.block_kv = block_kv;
   a.o = o;
-  return tc::fwd_tc<bf16, kResident, 128, 128, true>(a, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (block_kv == 64) return tc::fwd_tc<bf16, kResident, 128, 128, tc::kExpHalves>(a, s, walk);
+  if (block_kv == 128) return tc::fwd_tc<bf16, kResident, 128, 128, tc::kExpStage>(a, s, walk);
+  return tc::fwd_tc<bf16, kResident, 128, 128, tc::kExpStep>(a, s, walk);
 }
 
 // rung: 0 prod, 1 nomax, 2 noexp, 3 nosum, 4 bf16exp, 5 mm; q prescaled

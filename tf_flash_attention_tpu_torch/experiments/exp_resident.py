@@ -8,11 +8,12 @@ masks every sub-tile that crosses the q block's diagonal, so every
 (block_q, block_kv) pair computes exact causal attention.  On the card the
 K/V of a row does not fit a block's shared memory: the kernel
 (``csrc/exp_forward_kernels.cu``) is the op path's resident tensor-core
-forward with the tool's bf16 merge, persistent CTAs walking 128-row query
-tiles in row order so that few rows' K/V are live in L2 at once.  It merges
-once a 128-key stage where the plain version merges once a ``block_kv``
-step, so p rounds against other running maxima (within the comparison's 2
-bf16 ulps).
+forward with the tool's bf16 merge, persistent CTAs walking the rows in
+order so that few rows' K/V are live in L2 at once.  The pair sets what it
+sets on the TPU: an item of ``block_q`` query rows for one CTA, and a merge
+every ``block_kv`` keys against that step's row maximum, as the plain
+version merges (past 128 keys the kernel takes a step's maximum in a first
+pass of its S products).
 
     python -m tf_flash_attention_tpu_torch.experiments.exp_resident
 

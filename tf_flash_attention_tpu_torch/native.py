@@ -79,6 +79,18 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+#: the last launch of each persistent walk (``resident_fwd``,
+#: ``exp_resident_fwd``), as the launch reports it: ``grid`` (CTAs),
+#: ``items`` (work items), ``group_rows`` (the rows a group of the walk) and
+#: ``body``
+WALKS = {}
+
+
+def _walk(kernel: str, out) -> None:
+    WALKS[kernel] = dict(grid=out[0], items=out[1], group_rows=out[2],
+                         body="tensor-core" if out[3] else "scalar")
+
+
 def native_tile_classes(pack, rule, block_q: int, block_kv: int):
     """The C++ schedule classifier is not ported: ``None`` (NumPy spec)."""
     return None
@@ -195,11 +207,8 @@ _SIGNATURES = {
         # dtype, q, k, v, o, l, m, seg, block_q, block_kv, B, g, d, v_d, rule
         "fa_banded_fwd": [_I] + [_P] * 7 + [_I] * 6 + [_R],
         # dtype, q, k, v, o, l, m, seg, next_item, block_q, block_kv, B, g,
-        # d, v_d, group_rows, rule
-        "fa_resident_fwd": [_I] + [_P] * 8 + [_I] * 7 + [_R],
-        # dtype, B, q_len, d, v_d, out (4 ints): the resident forward's
-        # launch, launching nothing
-        "fa_resident_plan": [_I] * 5 + [_P],
+        # d, v_d, walk (4 ints out), rule
+        "fa_resident_fwd": [_I] + [_P] * 8 + [_I] * 6 + [_P, _R],
         # dtype, q, k, v, o, l, m, starts, band, sub_q, masked, B, g, d, v_d,
         # rule
         "fa_window_fwd": [_I] + [_P] * 7 + [_I] * 7 + [_R],
@@ -221,8 +230,8 @@ _SIGNATURES = {
         "fa_exp_paged_decode": [_I] + [_P] * 11 + [_I] * 6 + [_F],
     },
     "exp_forward_kernels.cu": {
-        # q, k, v, o, seg, next_item, B, S, d, block_q, block_kv
-        "fa_exp_resident_fwd": [_P] * 6 + [_I] * 5,
+        # q, k, v, o, next_item, B, S, d, block_q, block_kv, walk (4 ints out)
+        "fa_exp_resident_fwd": [_P] * 5 + [_I] * 5 + [_P],
         # rung, q, k, v, o, B, S, d, block_q, block_kv
         "fa_exp_vpu_ladder": [_I] + [_P] * 4 + [_I] * 5,
         # nkv, fused, q, k, v, o, B, S, d, block_kv, scale_log2e
@@ -517,10 +526,11 @@ def tc_fwd_smem(d: int, v_d: int) -> int:
     """Shared memory of the tensor-core forward (``attention_fwd_tc.cuh``):
     Q (128 rows) and two K/V stages in 128-byte swizzled slabs of 64
     columns (Q and K padded to the class's width: 128, 256 or 512), 1 KB of
-    alignment and the six barriers."""
+    alignment, the six barriers and the resident walk's item slot (C
+    ``fwd_tc_smem``)."""
     bn, vn = (128, 128) if d <= 128 and v_d <= 128 else (64, 256) if d <= 256 else (32, 256)
     ds = {128: 2, 64: 4, 32: 8}[bn]
-    return 1024 + ds * 128 * 128 + 2 * (ds + vn // 64) * bn * 128 + 48
+    return 1024 + ds * 128 * 128 + 2 * (ds + vn // 64) * bn * 128 + 8 * 6 + 8
 
 
 def fwd_body(dtype: torch.dtype, d: int, v_d: int) -> str:
@@ -767,12 +777,12 @@ def window_bwd(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, starts_t, band, 
     return dq_acc, dk, dv
 
 
-def resident_fwd(q_scaled, k, v, rule_c: FaRule, seg, block_q, block_kv, group_rows=0):
+def resident_fwd(q_scaled, k, v, rule_c: FaRule, seg, block_q, block_kv):
     """Launch ``resident_fwd``: as ``banded_fwd``, the rows' query tiles
     walked in row order (bf16 / fp16: persistent CTAs on the tensor-core
     body, taking (row, query tile) items from a work counter by groups of
-    ``group_rows`` rows, 0 for the rows one wave of the grid covers; float32
-    and d > ``TC_MAX_D``: a CTA a row on the scalar body)."""
+    the rows one wave of the grid covers; float32 and d > ``TC_MAX_D``: a
+    CTA a row on the scalar body).  The launch is in ``WALKS``."""
     code = _check_attn(q_scaled, k, v, rule_c)
     B, q_len, d = q_scaled.shape
     v_d = v.shape[2]
@@ -781,22 +791,12 @@ def resident_fwd(q_scaled, k, v, rule_c: FaRule, seg, block_q, block_kv, group_r
     l = torch.empty((B, q_len), dtype=torch.float32, device=q_scaled.device)
     m = torch.empty_like(l)
     next_item = torch.zeros(1, dtype=torch.int32, device=q_scaled.device)
+    walk = (ctypes.c_int * 4)()
     _call("fa_resident_fwd", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
           o.data_ptr(), l.data_ptr(), m.data_ptr(), seg.data_ptr(), next_item.data_ptr(),
-          block_q, block_kv, B, B // k.shape[0], d, v_d, group_rows, ctypes.byref(rule_c))
+          block_q, block_kv, B, B // k.shape[0], d, v_d, walk, ctypes.byref(rule_c))
+    _walk("resident_fwd", walk)
     return o, l, m
-
-
-def resident_plan(dtype: torch.dtype, B: int, q_len: int, d: int, v_d: int) -> dict:
-    """How ``resident_fwd`` launches at these shapes on the current card,
-    launching nothing: ``grid`` (CTAs), ``items`` (work items: (row, 128
-    query rows, v_d chunk) on the tensor-core body, a whole row on the
-    scalar one), ``group_rows`` (the rows a group of the walk: one or two
-    groups are in flight) and ``body``."""
-    out = (ctypes.c_int * 4)()
-    _launch("band_kernels.cu", "fa_resident_plan", _DTYPE_CODE[dtype], B, q_len, d, v_d, out)
-    return dict(grid=out[0], items=out[1], group_rows=out[3],
-                body="tensor-core" if out[2] else "scalar")
 
 
 def flash_bwd_qouter(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, tables, block_q,
@@ -851,22 +851,22 @@ EXP_FWD_BODY = {"exp_resident_fwd": "tensor-core", "exp_vpu_ladder": "scalar",
 
 def exp_resident_fwd(q_scaled, k, v, block_q: int, block_kv: int):
     """Launch ``exp_resident_fwd``: exact causal attention of prescaled bf16
-    q (B, S, d) on the resident tensor-core forward, 128-row items with the
-    tool's bf16 merge (``block_q`` a multiple of 128, S of both)."""
+    q (B, S, d) on the resident tensor-core forward with the tool's bf16
+    merge, items of ``block_q`` rows (a multiple of 128) and merges of
+    ``block_kv`` keys (64 or a multiple of 128), S a multiple of both.  The
+    launch is in ``WALKS``."""
     B, S, d = _check_fwd(q_scaled, k, v)
-    if block_q % LANE or S % block_q or S % block_kv:
-        raise ValueError(f"exp_resident_fwd takes block_q a multiple of {LANE} and S a multiple "
-                         f"of block_q and block_kv, got S {S}, block_q {block_q}, block_kv "
-                         f"{block_kv}")
-    tiles = S // LANE
-    seg = np.zeros((tiles, 4), np.int32)
-    seg[:, 2] = np.arange(tiles)
-    seg[:, 3] = seg[:, 2] + 1
-    (seg_d,) = device_tables(("exp_resident_fwd", S), (seg,), q_scaled.device)
+    if block_q % LANE or S % block_q or S % block_kv or (block_kv != LANE // 2
+                                                          and block_kv % LANE):
+        raise ValueError(f"exp_resident_fwd takes block_q a multiple of {LANE}, block_kv "
+                         f"{LANE // 2} or a multiple of {LANE}, and S a multiple of both, got "
+                         f"S {S}, block_q {block_q}, block_kv {block_kv}")
     o = torch.empty_like(q_scaled)
     next_item = torch.zeros(1, dtype=torch.int32, device=q_scaled.device)
+    walk = (ctypes.c_int * 4)()
     _call("fa_exp_resident_fwd", q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-          seg_d.data_ptr(), next_item.data_ptr(), B, S, d, block_q, block_kv)
+          next_item.data_ptr(), B, S, d, block_q, block_kv, walk)
+    _walk("exp_resident_fwd", walk)
     return o
 
 

@@ -186,6 +186,10 @@ CP_F32_LOGIT_ATOL = GAP_TIE / 2
 # less than 2e-3, and the gradient norm by less than 1%
 TRAIN_LOSS_ATOL = 2e-3
 TRAIN_GNORM_RTOL = 1e-2
+# the step's median before the experiment forwards moved to the tensor
+# cores (H100 80GB HBM3 at 700 W; PERF.md section 5), which the step should
+# not move: printed beside this run's
+STEP_MS_BEFORE = 88.142
 # CPU vs card (phase 7): bf16 matmuls accumulate in other orders on the two
 # devices; the mean of 512 token losses agrees to well under 1e-2
 CPU_LOSS_ATOL = 1e-2
@@ -412,6 +416,21 @@ def kernel_case(name, n_q, n_kv, payload, dev, gen, page_size=256, gamma=None, d
     return out
 
 
+def build_report(native):
+    """Each source's nvcc seconds and ptxas's report: every kernel of the
+    experiment forwards, and any other that spills or whose wgmma ptxas
+    serializes."""
+    for src, log in sorted(native.BUILD_LOG.items(), key=lambda kv: -kv[1]["seconds"]):
+        kernels = native.ptxas_summary(src)
+        print(f"build {src}: {log['seconds']:.3f} s, {len(kernels)} kernels, at most "
+              f"{max((k['registers'] for k in kernels), default=0)} registers", flush=True)
+        for k in kernels:
+            if src == "exp_forward_kernels.cu" or k["spill_stores"] or k["warnings"]:
+                print(f"  ptxas {k['name']}: {k['registers']} registers, spill stores "
+                      f"{k['spill_stores']} B, loads {k['spill_loads']} B; "
+                      f"{'; '.join(k['warnings']) or 'no warnings'}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -439,6 +458,7 @@ def main():
         native.library(src)
     print(f"build: {sorted(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
+    build_report(native)
 
     # ---- 2: kernels against their plain versions ----
     gen = torch.Generator(device=dev)
@@ -1597,8 +1617,9 @@ def train_phase(mcfg, cpu_model, dev, seed):
     print(f"train: losses {losses}; first step loss {losses[0]} vs plain {loss_plain} "
           f"(tol {TRAIN_LOSS_ATOL}), grad norm {gnorm} vs plain {gnorm_plain} (rtol "
           f"{TRAIN_GNORM_RTOL}); step ms {[round(s * 1e3, 3) for s in step_s]}, median of "
-          f"steps 2-5 {ms:.3f} ms = {8 * 2048 / ms * 1e3:.1f} tokens/s; launches in the 5 "
-          f"steps {json.dumps(launches)}", flush=True)
+          f"steps 2-5 {ms:.3f} ms = {8 * 2048 / ms * 1e3:.1f} tokens/s ({ms / STEP_MS_BEFORE:.4f}"
+          f"x the {STEP_MS_BEFORE} ms before); launches in the 5 steps {json.dumps(launches)}",
+          flush=True)
     del model, opt
     torch.cuda.empty_cache()
     return launches
@@ -1802,12 +1823,13 @@ def experiment_phase(dev, seed):
                          f"places")
             extra["codes_equal"] = True
         ms = time_ms(fn, n=10)
-        if (kernel, variant) in kernel_only:   # the pair's walk, as its launch reports it
+        if kernel in native.EXP_FWD_BODY:   # the variant's walk, as its launches report it
             walk = native.WALKS[kernel]
             if walk["body"] != extra["body"]:
                 fail(f"phase 8: {kernel} {variant} ran the {walk['body']} body")
-            extra.update(kernel_ms=time_ms(kernel_only[kernel, variant], n=10),
-                         items=walk["items"], grid=walk["grid"])
+            extra.update(items=walk["items"], grid=walk["grid"])
+        if (kernel, variant) in kernel_only:
+            extra["kernel_ms"] = time_ms(kernel_only[kernel, variant], n=10)
         plain_ms = time_ms(plain, n=5)
         lib_ms = None if lib is None else time_ms(lib, n=10)
         b_ms, b_by = bound(n_bytes, n_ops, ops_type)
@@ -1822,16 +1844,19 @@ def experiment_phase(dev, seed):
                                                       + 8)
             rate = (f"{kvb / ms / 1e6:.0f} GB/s as the tool counts (the shared K/V once per "
                     f"row: {ib}x the bytes of the bound)")
-        body = f" body={extra['body']}" if "body" in extra else ""
+        body = (f" body={extra['body']} items={extra['items']} grid={extra['grid']}"
+                if "body" in extra else "")
         if "kernel_ms" in extra:
-            body += (f" items={extra['items']} grid={extra['grid']} kernel_ms (prescaled q)="
-                     f"{extra['kernel_ms']}")
+            body += f" kernel_ms (prescaled q)={extra['kernel_ms']}"
         print(f"kernel {kernel} {variant}:{body} max_abs_err={err} (tol {limit}) ms={ms} "
               f"plain_ms={plain_ms} bound_ms={b_ms} ({b_by}) library_ms={lib_ms}; {rate}",
               flush=True)
         entry = entries.setdefault(kernel, dict(r, variants={}))
         entry["err"] = max(entry["err"], err)
         entry["variants"][variant] = r
+    rungs = entries["exp_vpu_ladder"]["variants"]
+    print(f"exp_vpu_ladder: prod - nomax (the first pass for each group's maximum) = "
+          f"{rungs['prod']['ms'] - rungs['nomax']['ms']} ms", flush=True)
     resident_timer_check(q_res, k, v)
     print(f"phase 8: {time.perf_counter() - t0:.3f} s", flush=True)
     return entries, launches

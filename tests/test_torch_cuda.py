@@ -811,29 +811,58 @@ def test_exp_resident_kernel_matches_plain(dev, bq, bkv):
     assert float((got.float() - x.causal_oracle(q, k, v).float()).abs().max()) < 1e-2
 
 
-@pytest.mark.parametrize("block", [512, 2048])
+def _exp_walk(name, dev, B, S):
+    """The launch's walk: the tensor-core body, items of 128 query rows,
+    a CTA an SM at most."""
+    walk = native.WALKS[name]
+    assert walk["body"] == native.EXP_FWD_BODY[name] == "tensor-core", walk
+    assert walk["items"] == B * S // 128, walk
+    assert walk["grid"] == min(walk["items"], torch.cuda.get_device_properties(
+        dev).multi_processor_count), walk
+
+
+# (block, d): the tool's blocks at d 128, whose cases keep their ids, then
+# d 64 (TMA, Q and K padded to 128 columns) and d 60 (not a multiple of 8:
+# the producer's plain loads)
+EXP_BLOCK_D = [pytest.param(b, d, id=f"{b}" if d == 128 else f"{b}-d{d}")
+               for b, d in ((512, 128), (2048, 128), (128, 128), (256, 128), (256, 64),
+                            (256, 60))]
+
+
+@pytest.mark.parametrize("block,d", EXP_BLOCK_D)
 @pytest.mark.parametrize("rung", native.LADDER_RUNGS)
-def test_exp_vpu_ladder_kernel_matches_plain(dev, rung, block):
+def test_exp_vpu_ladder_kernel_matches_plain(dev, rung, block, d):
     from tf_flash_attention_tpu_torch.experiments import exp_vpu_attrib as x
     gen = torch.Generator(device=dev).manual_seed(block)
-    q, k, v = (_uniform(gen, (2, 2 * block, 128), dev) for _ in range(3))
+    q, k, v = (_uniform(gen, (2, 2 * block, d), dev) for _ in range(3))
     q = q * torch.tensor(0.1275, dtype=torch.bfloat16, device=dev)
     got = _exp_launch("exp_vpu_ladder",
                       lambda: x.ladder(rung, q, k, v, block_q=block, block_kv=block))
+    _exp_walk("exp_vpu_ladder", dev, 2, 2 * block)
     want = x.ladder_plain(rung, q, k, v, block_q=block, block_kv=block)
     assert torch.isfinite(got).all()
     assert float((got.float() - want.float()).abs().max()) <= _exp_tol(want)
 
 
-@pytest.mark.parametrize("name,nkv,fused", [("base", 1, False), ("unroll2", 2, False),
-                                            ("unroll2f", 2, True), ("unroll4", 4, False)])
-def test_exp_kv_unroll_kernel_matches_plain(dev, name, nkv, fused):
+# (block_kv, d): the tool's cut 256 at d 128, whose cases keep their ids,
+# then 128 and 512 keys and d 64, d 60
+EXP_UNROLL_CASES = [
+    pytest.param(name, nkv, fused, bkv, d,
+                 id=f"{name}-{nkv}-{fused}" + ("" if (bkv, d) == (256, 128) else f"-{bkv}-d{d}"))
+    for bkv, d in ((256, 128), (128, 128), (512, 128), (256, 64), (256, 60))
+    for name, nkv, fused in (("base", 1, False), ("unroll2", 2, False), ("unroll2f", 2, True),
+                             ("unroll4", 4, False))]
+
+
+@pytest.mark.parametrize("name,nkv,fused,bkv,d", EXP_UNROLL_CASES)
+def test_exp_kv_unroll_kernel_matches_plain(dev, name, nkv, fused, bkv, d):
     from tf_flash_attention_tpu_torch.experiments import exp_kv_unroll as x
     gen = torch.Generator(device=dev).manual_seed(nkv)
-    q, kv = _uniform(gen, (2, 2048, 128), dev), _uniform(gen, (2, 2048, 128), dev)
+    q, kv = _uniform(gen, (2, 2048, d), dev), _uniform(gen, (2, 2048, d), dev)
     got = _exp_launch("exp_kv_unroll",
-                      lambda: x.kv_unroll(q, kv, kv, nkv=nkv, fused=fused, block_kv=256))
-    want = x.kv_unroll_plain(q, kv, kv, nkv=nkv, fused=fused, block_kv=256)
+                      lambda: x.kv_unroll(q, kv, kv, nkv=nkv, fused=fused, block_kv=bkv))
+    _exp_walk("exp_kv_unroll", dev, 2, 2048)
+    want = x.kv_unroll_plain(q, kv, kv, nkv=nkv, fused=fused, block_kv=bkv)
     assert float((got.float() - want.float()).abs().max()) <= _exp_tol(want)
 
 

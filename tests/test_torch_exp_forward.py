@@ -18,6 +18,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from tf_flash_attention_tpu_torch import native
 from tf_flash_attention_tpu_torch.experiments import exp_kv_unroll as tunroll
 from tf_flash_attention_tpu_torch.experiments._steps import forward_steps
 from tf_flash_attention_tpu_torch.experiments import exp_resident as tres
@@ -161,6 +162,25 @@ def test_ladder_rung_matches_tool(interpret, monkeypatch, ladder_inputs, rung):
     _close(got, want, ULPS_BF16EXP if rung == "bf16exp" else ULPS)
 
 
+@pytest.mark.parametrize("block", [256, 512, 2048])
+@pytest.mark.parametrize("rung", ["nomax", "mm"])
+def test_ladder_stage_merge_within_card_gate(rung, block):
+    """The card's ladder (``csrc/exp_forward_kernels.cu``) merges the rungs
+    that take no maximum every 128-key stage, where the tool merges each
+    block_kv group at once: the plain version at group 128 against the
+    rung's own, within the card comparison's bound (``ULPS`` bf16 ulps at
+    the output's scale) at the card test's sizes, (2, 2 block, 128) with
+    block_q = block_kv = block."""
+    rng = np.random.default_rng(block)
+    q, k, v = (torch.from_numpy(rng.uniform(-1, 1, (2, 2 * block, D)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    q = q * torch.tensor(0.1275, dtype=torch.bfloat16)
+    stages = forward_steps(q, k, v, step=block, group=128, block_q=block, causal=True,
+                           elem_mask=False, policy=rung)
+    want = tvpu.ladder_plain(rung, q, k, v, block_q=block, block_kv=block)
+    _close(_np(stages), _np(want))
+
+
 def test_ladder_live_tiles():
     assert tvpu.live_tiles() == 3 and tvpu.live_tiles(512, 128, 128) == 10
 
@@ -183,3 +203,36 @@ def test_kv_unroll_matches_tool(interpret, monkeypatch, unroll_inputs, name, nkv
     want = _np(tool.build(nkv, fused)(jq, jkkv, jkkv))
     got = _np(tunroll.kv_unroll(tq, tkv, tkv, nkv=nkv, fused=fused, block_kv=S // 4))
     _close(got, want)
+
+
+# ---- the card's bodies and build report ----
+
+def test_experiment_forwards_run_the_tensor_core_body():
+    assert native.EXP_FWD_BODY == {name: "tensor-core" for name in
+                                   ("exp_resident_fwd", "exp_vpu_ladder", "exp_kv_unroll")}
+
+
+def test_ptxas_summary_reads_registers_spills_and_serialization(monkeypatch):
+    """``chip_smoke.py`` prints each experiment forward's registers and
+    spills, and any kernel's serialized ``wgmma``, from nvcc's ``-Xptxas
+    -v`` report of the build."""
+    monkeypatch.setitem(native.BUILD_LOG, "x.cu", dict(seconds=1.0, ptxas="""\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z1ai' for 'sm_90a'
+ptxas info    : Function properties for _Z1ai
+    0 bytes stack frame, 56 bytes spill stores, 96 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1bi' for 'sm_90a'
+ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are \
+serialized in the function '_Z1bi'
+ptxas info    : Function properties for _Z1bi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 164 registers, used 1 barriers
+"""))
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    a, b = native.ptxas_summary("x.cu")
+    assert (a["name"], a["registers"], a["spill_stores"], a["spill_loads"], a["warnings"]) == (
+        "_Z1ai", 168, 56, 96, [])
+    assert (b["name"], b["registers"], b["spill_stores"]) == ("_Z1bi", 164, 0)
+    assert len(b["warnings"]) == 1 and b["warnings"][0].startswith("(C7515)")

@@ -106,6 +106,7 @@ struct AttnArgs {
   int band, sub;    // kWindow: band width and sub-block rows
   int* next_item;   // the tensor-core kResident: a zeroed work counter
   float out_scale;  // dQ: scale; fused dK: 1/log2e; dK-dV: scale
+  float s_scale;    // the tool forwards' kExpGroups: the scores' scale (kv_unroll's)
   FaRule rule;
 };
 

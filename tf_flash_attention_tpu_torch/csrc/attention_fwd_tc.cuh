@@ -2,8 +2,11 @@
 // of fa_flash_fwd (kTable, <- ops/forward.py::_fwd_kernel), fa_banded_fwd
 // (kBanded, <- ops/forward_banded.py::_banded_kernel) and fa_resident_fwd
 // (kResident, <- ops/forward_banded.py::_resident_kernel) on bf16 and fp16
-// inputs at d <= 512, and of fa_exp_resident_fwd (kResident with the tool's
-// bf16 merge, <- tools/exp_resident.py::resident_forward).  Included by
+// inputs at d <= 512, and of the experiment tools' forwards: fa_exp_resident_fwd
+// (kResident with the tool's bf16 merge, <- tools/exp_resident.py::
+// resident_forward), fa_exp_vpu_ladder and fa_exp_kv_unroll (kResident on
+// the block-causal walk with a compiled policy a rung, <-
+// tools/exp_vpu_attrib.py::kern, tools/exp_kv_unroll.py::kern).  Included by
 // attention_kernels.cu, band_kernels.cu and exp_forward_kernels.cu after
 // attention_common.cuh; float32 inputs (full float32 products: TF32 would
 // not hold the float32 limit) and half inputs at d > 512 (fwd_any) run the
@@ -45,9 +48,10 @@
 //            as the scalar body: row max and sum across each quad by
 //            shuffles, m and l in registers, no score tile in shared memory
 //            and no barrier per tile.  p is rounded to T for PV while l sums
-//            the float32 p, as the JAX kernels do (BF16EXP, the tool's merge:
-//            p = bf16(exp2(bf16(s - m))) and l sums the rounded p; no l or m
-//            out).  Masked stages run a body compiled with visible() per
+//            the float32 p, as the JAX kernels do (the tools' merges are
+//            policies of it, Policy: exp_resident's p = bf16(exp2(bf16(s -
+//            m))) with l summing the rounded p, the ladder's rungs; no l or
+//            m out).  Masked stages run a body compiled with visible() per
 //            element (the orders of the thread's rows and columns computed
 //            once a stage); interior stages run one compiled without it: a
 //            single body with a run-time test paid the predicate on every
@@ -103,6 +107,19 @@
 // K and V with that maximum, so p rounds against the maximum of the whole
 // step as in the tool (a second S product on each key: 1.5x the products).
 //
+// The ladder and kv_unroll (kExpGroups): items of one 128-row query tile,
+// whatever block_q (the ladder's 2048 would leave 16 items for 132 SMs, as
+// exp_resident's 2048 x 512 pair does), so the tools' (8, 4096) gives 256;
+// block_q only sets the keys a tile sees, the block-causal [0, ceil((qi +
+// 1) block_q / block_kv) block_kv), or every key at block_q = k_len.  The
+// merge groups block_kv keys, with a first pass for the group's maximum
+// where the policy takes one and the group spans more than a stage; the
+// policies without one (nomax, mm) merge every stage, the same function.
+// What bounds them is the busiest CTA's stages: at the ladder's shape 64
+// long items (the second query block: 32 stages and 12.8 of first pass)
+// ahead of 64 short ones a group of rows; at kv_unroll's 256 equal items
+// (32 + 12.8 at 512-key groups) two for some CTAs.
+//
 // The building blocks (barriers, TMA, swizzle, descriptors, wgmma) are
 // tc_common.cuh's, shared with the backward of attention_bwd_tc.cuh.
 
@@ -120,25 +137,60 @@ constexpr int kThreads = kConsumers + 32;    // two consumer warpgroups, a produ
 __host__ __device__ constexpr int slabs_of(int bn) { return bn == 128 ? 2 : bn == 64 ? 4 : 8; }
 constexpr int kStages = 2;  // the K/V ring (a third stage measured no faster)
 
-// The merge of a stage's scores: the op path's (p = exp2(s - m) rounded to
-// T for PV, l over the float32 p), or the tool's bf16 merge (BF16EXP: p =
-// bf16(exp2(bf16(s - m))), l over the rounded p, no l or m out) once a
-// BN-key stage (block_kv 128), twice (64: each half its own maximum and PV
-// product), or once a step of block_kv > BN keys, whose stages are walked
-// twice: K alone for the step's row maximum, then K and V.  One compiled
-// body each: with the choice made at run time ptxas spilled the 128-key
-// body's accumulators to local memory.  The halves' body still spills
-// (ptxas -v); no pair of the tool runs it, only the card test's (128, 64).
-enum Merge { kOpMerge = 0, kExpStage = 1, kExpHalves = 2, kExpStep = 3 };
+// The walk and grouping of a tile's merges: the op path's (its schedule
+// row, one merge a BN-key stage, l and m out, dead rows repaired), or a
+// tool's (no l or m out; o = acc / l with l == 0 read as 1, the tools'
+// finalize).  exp_resident's pairs (exact causal keys [0, row0 + 128),
+// items of block_q rows) merge once a BN-key stage (block_kv 128), twice
+// (64: each half its own maximum and PV product), or once a step of
+// block_kv > BN keys, whose stages are walked twice: K alone for the
+// step's row maximum, then K and V.  kExpGroups (the ladder, kv_unroll:
+// items of 128 rows) walks the block-causal keys [0, ceil((qi + 1) block_q
+// / block_kv) block_kv) of query block qi, no element mask, with block_q
+// = k_len for full attention, in groups of block_kv keys: where the policy
+// takes a maximum and block_kv > BN, first K alone for the group's
+// maximum, then K and V; the policies without one merge once a stage.
+// One compiled body each: with the choice made at run time ptxas spilled
+// the 128-key body's accumulators to local memory.  The halves' body still
+// spills (ptxas -v); no pair of the tool runs it, only the card test's
+// (128, 64).
+enum Merge { kOpMerge = 0, kExpStage = 1, kExpHalves = 2, kExpStep = 3, kExpGroups = 4 };
+
+// The arithmetic of a merge (exp_vpu_attrib.py:57-85, _steps.py::merge_step):
+//   kProd    m the maximum, p = exp2(s - m) rounded to T, l sums the float32
+//            p (the op merge, kv_unroll's)
+//   kNoMax   m the constant 8 (alpha 0 at the first merge, 1 after)
+//   kNoExp   p = s - m, l sums it
+//   kNoSum   as kProd, l never updated
+//   kBf16Exp p = bf16(exp2(bf16(s - m))), l sums the rounded p (exp_resident's)
+//   kMM      p = bf16(s), no m, no l, alpha 1
+// The codes are the ladder's rungs (native.LADDER_RUNGS).
+enum Policy { kProd = 0, kNoMax = 1, kNoExp = 2, kNoSum = 3, kBf16Exp = 4, kMM = 5 };
+
+__host__ __device__ constexpr bool takes_max(int pol) { return pol != kNoMax && pol != kMM; }
+
+// exp_resident's pairs: items of block_q rows, exact causal walk
+__host__ __device__ constexpr bool is_pair(int merge) {
+  return merge == kExpStage || merge == kExpHalves || merge == kExpStep;
+}
 
 // calls f(c0, masked, max_only) for every load of a BN-key stage in the
 // tile's walk, in order: K and V (max_only false) for each stage of the
-// schedule row of query block qi; the tool's merges (the causal walk of keys
-// [0, row0 + 128), the last stage masked) with kExpStep walk each step's
-// stages twice, first K alone (max_only) for the step's maximum
-template <int WALK, int BN, int MERGE, typename F>
+// schedule row of query block qi; exp_resident's pairs (the causal walk of
+// keys [0, row0 + 128), the last stage masked) with kExpStep walk each
+// step's stages twice, first K alone (max_only) for the step's maximum;
+// kExpGroups the block-causal groups (see Merge), each twice where POL
+// takes a maximum and block_kv > BN
+template <int WALK, int BN, int MERGE, int POL, typename F>
 __device__ __forceinline__ void for_each_load(const AttnArgs& a, int qi, int row0, F&& f) {
-  if constexpr (MERGE != kOpMerge) {
+  if constexpr (MERGE == kExpGroups) {
+    const int bkv = a.block_kv;
+    const int end = min(((qi + 1) * a.block_q + bkv - 1) / bkv * bkv, a.rule.k_len);
+    const int passes = takes_max(POL) && bkv > BN ? 2 : 1;
+    for (int k0 = 0; k0 < end; k0 += bkv)
+      for (int pass = 0; pass < passes; ++pass)
+        for (int c0 = k0; c0 < k0 + bkv; c0 += BN) f(c0, false, pass + 1 < passes);
+  } else if constexpr (MERGE != kOpMerge) {
     constexpr int passes = MERGE == kExpStep ? 2 : 1;
     const int end = row0 + kBM, step = passes == 2 ? a.block_kv : end;
     for (int k0 = 0; k0 < end; k0 += step) {
@@ -156,7 +208,7 @@ __device__ __forceinline__ void for_each_load(const AttnArgs& a, int qi, int row
 }
 
 // The work items: (row, `per` query tiles of 128 rows, VN-column chunk of
-// v_d), per = 1 but for the tool's block_q.  kResident walks them
+// v_d), per = 1 but for exp_resident's block_q.  kResident walks them
 // all, by groups of `group` rows (see the header); the other walks take the
 // one item of blockIdx.
 struct Items {
@@ -166,7 +218,7 @@ struct Items {
 template <int WALK, int VN, int MERGE>
 __device__ __forceinline__ Items items_of(const AttnArgs& a) {
   Items w;
-  w.per = MERGE != kOpMerge ? a.block_q / kBM : 1;
+  w.per = is_pair(MERGE) ? a.block_q / kBM : 1;
   w.blocks = (a.rule.q_len + kBM * w.per - 1) / (kBM * w.per);
   w.chunks = (a.v_d + VN - 1) / VN;
   w.count = WALK == kResident ? a.B * w.blocks * w.chunks : 1;
@@ -194,12 +246,14 @@ __device__ __forceinline__ void item_at(const AttnArgs& a, const Items& w, int t
   }
 }
 
-template <typename T, int WALK, int BN, int VN, int MERGE>
+template <typename T, int WALK, int BN, int VN, int MERGE, int POL>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_tc_kernel(const __grid_constant__ AttnArgs a, const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap, int tma) {
-  constexpr bool BF16EXP = MERGE != kOpMerge;  // the tool's bf16 merge
+  constexpr bool TOOL = MERGE != kOpMerge;  // no l or m out, no dead-row repair
+  // a first pass of K alone for the maximum of a step (kExpStep) or a group
+  constexpr bool FIRST_PASS = MERGE == kExpStep || (MERGE == kExpGroups && takes_max(POL));
   constexpr int VS = VN / kSlabCols;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* Qs = align1024(smem_raw);
@@ -266,7 +320,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_proxy_async();
         mbar_arrive(q_full);
       }
-      for_each_load<WALK, BN, MERGE>(a, qi, row0, [&](int c0, bool, bool max_only) {
+      for_each_load<WALK, BN, MERGE, POL>(a, qi, row0, [&](int c0, bool, bool max_only) {
         const int st = it % kStages;
         if (it >= kStages) mbar_wait(empty + st, ((it / kStages) & 1) ^ 1);
         unsigned char* ks = stages + st * stage_bytes;
@@ -305,13 +359,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int qi = row0 / a.block_q;
     const int r_base = row0 + 64 * wg + 16 * wp + (lane >> 2);  // and r_base + 8
     int n_loads = 0;
-    for_each_load<WALK, BN, MERGE>(a, qi, row0, [&](int, bool, bool) { ++n_loads; });
+    for_each_load<WALK, BN, MERGE, POL>(a, qi, row0, [&](int, bool, bool) { ++n_loads; });
     if (n_loads == 0) mbar_arrive(q_empty);
     float o_acc[VN / 2];
 #pragma unroll
     for (int i = 0; i < VN / 2; ++i) o_acc[i] = 0.f;
     float m_run[2] = {neg_inf(), neg_inf()}, l_part[2] = {0.f, 0.f};
-    float m_step[2] = {neg_inf(), neg_inf()};  // kExpStep: the maximum of the steps so far
+    // FIRST_PASS: the maximum of the steps (groups) so far
+    float m_step[2] = {neg_inf(), neg_inf()};
 
     // one load; MASKED (a compile-time tag) applies the rule predicate, the
     // interior stages compile without it; max_only: the step's first pass
@@ -322,8 +377,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       unsigned char* ks = stages + st * stage_bytes;
       mbar_wait(full + st, (it / kStages) & 1);
 
-      // S = Q K^T (log2-domain logits: q arrives prescaled): every k-step of
-      // the class, unrolled so the products pipeline (Q and K past d are zero)
+      // S = Q K^T (log2-domain logits: q arrives prescaled, but for
+      // kv_unroll's scale below): every k-step of the class, unrolled so the
+      // products pipeline (Q and K past d are zero)
       float s[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
@@ -340,6 +396,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_wait_all();
       fence_regs(s);
       if (++j == n_loads) mbar_arrive(q_empty);  // the producer may load the next Q
+      if constexpr (MERGE == kExpGroups) {  // kv_unroll's unscaled q: 1 for the ladder
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) s[i] *= a.s_scale;
+      }
 
       // element i of the fragment: row r_base + 8 ((i >> 1) & 1), column
       // c0 + 8 (i >> 2) + 2 (lane & 3) + (i & 1); the orders of the thread's
@@ -357,8 +417,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         }
       }
-      if constexpr (MERGE == kExpStep) {
-        if (max_only) {  // the step's first pass: its row maximum, nothing merged
+      if constexpr (FIRST_PASS) {
+        if (max_only) {  // the first pass: the step's row maximum, nothing merged
 #pragma unroll
           for (int i = 0; i < BN / 2; ++i)
             m_step[(i >> 1) & 1] = fmaxf(m_step[(i >> 1) & 1], s[i]);
@@ -377,36 +437,49 @@ __global__ void __launch_bounds__(kThreads, 1)
       // to c0 + 2 HI, 8 elements a 16-key slice), then O += P V over them
       auto merge = [&](auto lo_tag, auto hi_tag) {
         constexpr int LO = decltype(lo_tag)::value, HI = decltype(hi_tag)::value;
-        float mx[2] = {m_run[0], m_run[1]};
-        if constexpr (MERGE == kExpStep) {  // the step's maximum, from its first pass
-          mx[0] = fmaxf(mx[0], m_step[0]);
-          mx[1] = fmaxf(mx[1], m_step[1]);
+        if constexpr (POL != kMM) {  // kMM: p = s, alpha 1, no m or l
+          float mx[2] = {8.f, 8.f};  // kNoMax: the constant in place of the maximum
+          if constexpr (takes_max(POL)) {
+            mx[0] = m_run[0];
+            mx[1] = m_run[1];
+            if constexpr (FIRST_PASS) {  // the step's maximum, from its first pass
+              mx[0] = fmaxf(mx[0], m_step[0]);
+              mx[1] = fmaxf(mx[1], m_step[1]);
+            }
+#pragma unroll
+            for (int i = LO; i < HI; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+              mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+            }
+          }
+          float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            alpha[h] = exp2f(m_run[h] - mx[h]);
+            m_run[h] = mx[h];
+          }
+          // masked logits hold NEG_INF: exp2(NEG_INF - m) == 0 for a live row; a
+          // row with no visible key yet is repaired at the end
+#pragma unroll
+          for (int i = LO; i < HI; ++i) {
+            const int h = (i >> 1) & 1;
+            if constexpr (POL == kBf16Exp)
+              s[i] = __bfloat162float(hexp2(__float2bfloat16_rn(s[i] - m_run[h])));
+            else if constexpr (POL == kNoExp)
+              s[i] = s[i] - m_run[h];
+            else
+              s[i] = exp2f(s[i] - m_run[h]);
+            rs[h] += s[i];
+          }
+          if constexpr (POL != kNoSum) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) l_part[h] = alpha[h] * l_part[h] + rs[h];
+          }
+#pragma unroll
+          for (int i = 0; i < VN / 2; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
         }
-#pragma unroll
-        for (int i = LO; i < HI; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-        float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-          alpha[h] = exp2f(m_run[h] - mx[h]);
-          m_run[h] = mx[h];
-        }
-        // masked logits hold NEG_INF: exp2(NEG_INF - m) == 0 for a live row; a
-        // row with no visible key yet is repaired at the end
-#pragma unroll
-        for (int i = LO; i < HI; ++i) {
-          const int h = (i >> 1) & 1;
-          if constexpr (BF16EXP)
-            s[i] = __bfloat162float(hexp2(__float2bfloat16_rn(s[i] - m_run[h])));
-          else
-            s[i] = exp2f(s[i] - m_run[h]);
-          rs[h] += s[i];
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) l_part[h] = alpha[h] * l_part[h] + rs[h];
-#pragma unroll
-        for (int i = 0; i < VN / 2; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
         // P as the A fragments of (HI - LO) / 8 k-slices, rounded to T
         uint32_t p[(HI - LO) / 2];
 #pragma unroll
@@ -433,14 +506,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_arrive(empty + st);
       ++it;
     };
-    for_each_load<WALK, BN, MERGE>(a, qi, row0, [&](int c0, bool masked, bool max_only) {
-      if (masked)
-        body(c0, std::true_type{}, max_only);
-      else
+    for_each_load<WALK, BN, MERGE, POL>(a, qi, row0, [&](int c0, bool masked, bool max_only) {
+      if constexpr (MERGE == kExpGroups) {  // no element mask: one body
         body(c0, std::false_type{}, max_only);
+      } else {
+        if (masked)
+          body(c0, std::true_type{}, max_only);
+        else
+          body(c0, std::false_type{}, max_only);
+      }
     });
 
-    // the forward finalize (forward.py:225-243), as fwd_finalize
+    // the forward finalize (forward.py:225-243), as fwd_finalize; a tool's
+    // (exp_vpu_attrib.py:89-91) only reads l == 0 as 1: kNoSum and kMM leave
+    // o = acc, and kMM's m stays NEG_INF
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float l = l_part[h];
@@ -448,7 +527,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const int row = r_base + 8 * h;
       if (row >= q_len) continue;
-      const bool dead = m_run[h] <= neg_inf();
+      const bool dead = !TOOL && m_run[h] <= neg_inf();
       if (dead) l = 0.f;
       const float inv = 1.f / (l == 0.f ? 1.f : l);
       const size_t orow = static_cast<size_t>(b) * q_len + row;
@@ -461,7 +540,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (c < v_d) o[c] = from_f<T>(x);
         if (c + 1 < v_d) o[c + 1] = from_f<T>(y);
       }
-      if (!BF16EXP && vc0 == 0 && (lane & 3) == 0) {
+      if (!TOOL && vc0 == 0 && (lane & 3) == 0) {
         a.l[orow] = l;
         a.m[orow] = dead ? neg_inf() : m_run[h] * INV_LOG2E;
       }
@@ -542,27 +621,28 @@ size_t fwd_tc_smem(int bn, int vn) {
 // hold at once, at most one an item.  walk (nullable, host): the launch's
 // grid of CTAs, its work items, its rows a group (as the kernel works them
 // out from the grid) and 1 for the tensor-core body.
-template <typename T, int WALK, int BN, int VN, int MERGE = kOpMerge>
+template <typename T, int WALK, int BN, int VN, int MERGE = kOpMerge, int POL = kProd>
 int fwd_tc(const AttnArgs& a, cudaStream_t stream, int* walk = nullptr) {
-  // the tool's pairs: block_q rows an item, merges of block_kv keys (the
-  // merge's own), causal over q_len == k_len
+  // the tools: query blocks of block_q rows (exp_resident's items), merges
+  // of block_kv keys (the merge's own), over q_len == k_len
   const int merge_keys = MERGE == kExpHalves ? BN / 2 : MERGE == kExpStage ? BN : a.block_kv;
-  const bool pair_ok = MERGE != kOpMerge
-                           ? a.block_q % kBM == 0 && a.rule.q_len % a.block_q == 0 &&
-                                 a.rule.q_len == a.rule.k_len && a.block_kv == merge_keys &&
-                                 (MERGE != kExpStep || (a.block_kv > BN && a.block_kv % BN == 0))
-                           : a.block_q % kBM == 0 && a.block_kv % BN == 0 &&
-                                 a.block_kv % 128 == 0;
+  const bool pair_ok =
+      MERGE != kOpMerge
+          ? a.block_q % kBM == 0 && a.rule.q_len % a.block_q == 0 &&
+                a.rule.q_len == a.rule.k_len && a.block_kv == merge_keys &&
+                (MERGE != kExpStep || (a.block_kv > BN && a.block_kv % BN == 0)) &&
+                (MERGE != kExpGroups || (a.block_kv % BN == 0 && a.rule.k_len % a.block_kv == 0))
+          : a.block_q % kBM == 0 && a.block_kv % BN == 0 && a.block_kv % 128 == 0;
   if (a.d < 1 || a.v_d < 1 || a.d > kSlabCols * slabs_of(BN) || a.g < 1 || a.B % a.g ||
       !pair_ok || a.rule.q_len < 1 || (WALK == kResident && a.next_item == nullptr))
     return cudaErrorInvalidValue;
-  auto kernel = fwd_tc_kernel<T, WALK, BN, VN, MERGE>;
+  auto kernel = fwd_tc_kernel<T, WALK, BN, VN, MERGE, POL>;
   const size_t smem = fwd_tc_smem(BN, VN);
   if (smem > static_cast<size_t>(MAX_SMEM)) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int per = MERGE != kOpMerge ? a.block_q / kBM : 1;
+  const int per = is_pair(MERGE) ? a.block_q / kBM : 1;
   const int q_blocks = blocks(a.rule.q_len, kBM * per), chunks = blocks(a.v_d, VN);
   const int items = a.B * q_blocks * chunks;
   dim3 grid(a.B, q_blocks, chunks);

@@ -9,9 +9,14 @@ blocks a step, every block's scores computed before any softmax:
   unroll4   four blocks a step, merged one after the other
 
 The kernel is the ``exp_kv_unroll`` entry of
-``csrc/exp_forward_kernels.cu``: ``nkv`` and ``fused`` set, at run time, the
-step (``nkv * BK`` keys, whose scores sit in shared memory) and the width of
-each merge over them (``BK``, or the whole step).
+``csrc/exp_forward_kernels.cu``: the persistent tensor-core forward
+(``wgmma`` fed by TMA, items of 128 query rows) with the ``prod`` merge.
+Only the width of each merge is the variant's on the card (``BK`` keys,
+or ``nkv * BK`` when ``fused``): each group's row maximum comes from a
+first pass of S products, then the group merges, so ``base``, ``unroll2``
+and ``unroll4`` run one schedule and ``unroll2f`` merges 1024 keys at a
+time.  The tool's step (every block's products before any softmax) sets
+nothing here.
 
     python -m tf_flash_attention_tpu_torch.experiments.exp_kv_unroll
 """
@@ -73,9 +78,11 @@ def main():
             err = float((o.float() - ref).abs().max())
         err_plain = float((o.float() - kv_unroll_plain(q, kkv, kkv, nkv=nkv, fused=fused).float())
                           .abs().max())
+        walk = native.WALKS["exp_kv_unroll"]
         t = device_time(lambda: kv_unroll(q, kkv, kkv, nkv=nkv, fused=fused), (), n=3, reps=4)
         print(f"{name:9s}: {t * 1e3:.3f} ms, {flops / t / 1e12:.1f} TFLOP/s, err={err:.2e} "
-              f"(vs plain {err_plain:.2e})", flush=True)
+              f"(vs plain {err_plain:.2e}; {walk['body']}, {walk['items']} items, grid "
+              f"{walk['grid']})", flush=True)
 
 
 if __name__ == "__main__":

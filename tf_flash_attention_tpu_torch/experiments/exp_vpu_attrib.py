@@ -12,9 +12,12 @@ d 128, B 8, 2048 x 2048 blocks, block-causal: q block i sees kv blocks
   mm       products only: p = bf16(s), no softmax
 
 Each rung is the function it computes; the kernel is the ``exp_vpu_ladder``
-entry of ``csrc/exp_forward_kernels.cu``.  On the card its products are
-scalar float32 FMAs, so the ladder measures what the softmax chain costs
-next to a scalar kernel's products.
+entry of ``csrc/exp_forward_kernels.cu``: the persistent tensor-core
+forward (``wgmma`` fed by TMA) with each rung a compiled merge policy, items
+of 128 query rows.  ``prod``, ``noexp``, ``nosum`` and ``bf16exp`` take
+each 2048-key group's row maximum in a first pass of S products before
+any exponential; ``nomax`` and ``mm`` need none and merge every 128-key
+stage, so on the card ``prod - nomax`` is the price of that pass.
 
     python -m tf_flash_attention_tpu_torch.experiments.exp_vpu_attrib
 """
@@ -70,19 +73,19 @@ def main():
     flops = 4 * D * scores
     print(f"device={torch.cuda.get_device_name(0)}", flush=True)
     # what each piece of the ladder could cost at the card's peaks: the
-    # products on the tensor cores and as this kernel's float32 FMAs, the
-    # softmax chain's elementwise operations, q, k, v read and o written once
+    # products on the tensor cores, the softmax chain's elementwise
+    # operations, q, k, v read and o written once
     t_mm, t_elem, t_mem = H100_SXM.attention_time(flops, scores, 4 * q.numel() * 2)
-    t_fma = H100_SXM.attention_time(flops, scores, 0.0, dtype=torch.float32)[0]
     print(f"floors at {H100_SXM.name} peaks: products {t_mm * 1e3:.4f} ms (bf16 tensor "
-          f"cores), {t_fma * 1e3:.4f} ms (float32 FMA); softmax {t_elem * 1e3:.4f} ms; "
-          f"memory {t_mem * 1e3:.4f} ms", flush=True)
+          f"cores); softmax {t_elem * 1e3:.4f} ms; memory {t_mem * 1e3:.4f} ms", flush=True)
     for rung in RUNGS:
         o = ladder(rung, q, k, v)
         err = float((o.float() - ladder_plain(rung, q, k, v).float()).abs().max())
+        walk = native.WALKS["exp_vpu_ladder"]
         dt = device_time(ladder, (rung, q, k, v), n=3, reps=4)
         print(f"{rung:8s}: {dt * 1e3:7.3f} ms  {flops / dt / 1e12:6.1f} TFLOP/s  "
-              f"max|err| vs plain {err:.3e}", flush=True)
+              f"max|err| vs plain {err:.3e}  ({walk['body']}, {walk['items']} items, "
+              f"grid {walk['grid']})", flush=True)
 
 
 if __name__ == "__main__":

@@ -27,9 +27,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -46,9 +49,10 @@ __all__ = ["LAUNCHES", "SERVING_KERNELS", "CP_VARIANTS", "ATTENTION_KERNELS",
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 # no --use_fast_math: the int8 quantization must divide and round exactly
-# as the reference does, and exp2f must stay accurate
+# as the reference does, and exp2f must stay accurate; -Xptxas -v reports
+# each kernel's registers and spills (``BUILD_LOG``, ``ptxas_summary``)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 SERVING_KERNELS = ("paged_decode", "paged_multitoken_decode", "paged_prefill",
                    "kv_chunk_write", "kv_append")
@@ -79,8 +83,8 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-#: the last launch of each persistent walk (``resident_fwd``,
-#: ``exp_resident_fwd``), as the launch reports it: ``grid`` (CTAs),
+#: the last launch of each persistent walk (``resident_fwd`` and the three
+#: experiment forwards), as the launch reports it: ``grid`` (CTAs),
 #: ``items`` (work items), ``group_rows`` (the rows a group of the walk) and
 #: ``body``
 WALKS = {}
@@ -112,6 +116,11 @@ def _lib_path(source: str) -> Path:
     return _BUILD_DIR / f"lib{Path(source).stem}_{digest.hexdigest()[:16]}.so"
 
 
+#: each source this process built: ``seconds`` from the start of the build
+#: to its nvcc's end, and ptxas's report (``ptxas``, its stderr)
+BUILD_LOG = {}
+
+
 def build() -> dict:
     """Compile every source whose library is missing, all nvcc processes
     started together; returns ``{source: library path}``."""
@@ -128,17 +137,57 @@ def build() -> dict:
         proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, str(_CSRC / src)],
                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         jobs.append((src, tmp, proc))
+    t0 = time.perf_counter()
+
+    def finish(job):
+        _, err = job[2].communicate()
+        return err, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        ends = list(pool.map(finish, jobs))
     errors = []
-    for src, tmp, proc in jobs:
-        _, err = proc.communicate()
+    for (src, tmp, proc), (err, seconds) in zip(jobs, ends):
         if proc.returncode != 0:
             os.unlink(tmp)
             errors.append(f"{src}: nvcc failed ({proc.returncode}):\n{err}")
         else:
             os.replace(tmp, paths[src])
+            BUILD_LOG[src] = dict(seconds=seconds, ptxas=err)
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths
+
+
+def ptxas_summary(source: str) -> list:
+    """The kernels of a source this process built, from ptxas's report: one
+    dict each with the (demangled, where ``cu++filt`` is at hand) name,
+    ``registers``, ``spill_stores`` and ``spill_loads`` in bytes, and
+    ``warnings``, ptxas's performance notes on it (C7510-C7520: ``wgmma``
+    serialized)."""
+    kernels, cur = [], None
+    for line in BUILD_LOG[source]["ptxas"].splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            cur = dict(name=m.group(1), registers=0, spill_stores=0, spill_loads=0, warnings=[])
+            kernels.append(cur)
+        elif cur is None:
+            continue
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif m := re.search(r"Used (\d+) registers", line):
+            cur["registers"] = int(m.group(1))
+        elif re.search(r"\(C75\d\d\)", line):   # names its function
+            owner = max((k for k in kernels if k["name"] in line), key=lambda k: len(k["name"]),
+                        default=cur)
+            owner["warnings"].append(line.split(":", 1)[-1].strip())
+    filt = shutil.which("cu++filt") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cu++filt")
+    if kernels and os.path.exists(filt):
+        names = subprocess.run([filt], input="\n".join(k["name"] for k in kernels),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(kernels):
+            for k, name in zip(kernels, names):
+                k["name"] = name
+    return kernels
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -232,10 +281,10 @@ _SIGNATURES = {
     "exp_forward_kernels.cu": {
         # q, k, v, o, next_item, B, S, d, block_q, block_kv, walk (4 ints out)
         "fa_exp_resident_fwd": [_P] * 5 + [_I] * 5 + [_P],
-        # rung, q, k, v, o, B, S, d, block_q, block_kv
-        "fa_exp_vpu_ladder": [_I] + [_P] * 4 + [_I] * 5,
-        # nkv, fused, q, k, v, o, B, S, d, block_kv, scale_log2e
-        "fa_exp_kv_unroll": [_I, _I] + [_P] * 4 + [_I] * 4 + [_F],
+        # rung, q, k, v, o, next_item, B, S, d, block_q, block_kv, walk
+        "fa_exp_vpu_ladder": [_I] + [_P] * 5 + [_I] * 5 + [_P],
+        # nkv, fused, q, k, v, o, next_item, B, S, d, block_kv, scale_log2e, walk
+        "fa_exp_kv_unroll": [_I, _I] + [_P] * 5 + [_I] * 4 + [_F, _P],
     },
 }
 
@@ -845,8 +894,26 @@ def _check_fwd(q, k, v) -> tuple:
 
 
 #: the body of each experiment forward (``exp_forward_kernels.cu``)
-EXP_FWD_BODY = {"exp_resident_fwd": "tensor-core", "exp_vpu_ladder": "scalar",
-                "exp_kv_unroll": "scalar"}
+EXP_FWD_BODY = {"exp_resident_fwd": "tensor-core", "exp_vpu_ladder": "tensor-core",
+                "exp_kv_unroll": "tensor-core"}
+
+
+def _exp_groups(name: str, *head, q, k, v, block_kv: int, tail=()):
+    """Launch the ladder or kv_unroll (``name``) on the persistent
+    tensor-core body: items of 128 query rows from a zeroed counter, merges
+    of ``block_kv`` keys (a multiple of 128 dividing S).  The launch is in
+    ``WALKS``."""
+    B, S, d = _check_fwd(q, k, v)
+    if block_kv % LANE or S % block_kv:
+        raise ValueError(f"{name} takes merges of a multiple of {LANE} keys dividing S, got "
+                         f"S {S}, {block_kv} keys")
+    o = torch.empty_like(q)
+    next_item = torch.zeros(1, dtype=torch.int32, device=q.device)
+    walk = (ctypes.c_int * 4)()
+    _call(f"fa_{name}", *head, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+          next_item.data_ptr(), B, S, d, *tail, walk)
+    _walk(name, walk)
+    return o
 
 
 def exp_resident_fwd(q_scaled, k, v, block_q: int, block_kv: int):
@@ -871,23 +938,24 @@ def exp_resident_fwd(q_scaled, k, v, block_q: int, block_kv: int):
 
 
 def exp_vpu_ladder(rung: str, q_scaled, k, v, block_q: int, block_kv: int):
-    """Launch ``exp_vpu_ladder`` on one rung (``LADDER_RUNGS``): the
-    block-causal forward of prescaled bf16 q (B, S, d)."""
-    B, S, d = _check_fwd(q_scaled, k, v)
-    o = torch.empty_like(q_scaled)
-    _call("fa_exp_vpu_ladder", LADDER_RUNGS.index(rung), q_scaled.data_ptr(), k.data_ptr(),
-          v.data_ptr(), o.data_ptr(), B, S, d, block_q, block_kv)
-    return o
+    """Launch ``exp_vpu_ladder`` on one rung (``LADDER_RUNGS``, each a
+    compiled merge policy): the block-causal forward of prescaled bf16 q
+    (B, S, d), query blocks of ``block_q`` rows (a multiple of 128 dividing
+    S), merges of ``block_kv`` keys.  The launch is in ``WALKS``."""
+    if block_q % LANE or q_scaled.shape[1] % block_q:
+        raise ValueError(f"exp_vpu_ladder takes block_q a multiple of {LANE} dividing S, got "
+                         f"S {q_scaled.shape[1]}, block_q {block_q}")
+    return _exp_groups("exp_vpu_ladder", LADDER_RUNGS.index(rung), q=q_scaled, k=k, v=v,
+                       block_kv=block_kv, tail=(block_q, block_kv))
 
 
 def exp_kv_unroll(q, k, v, nkv: int, fused: bool, block_kv: int, scale_log2e: float):
-    """Launch ``exp_kv_unroll``: full attention of bf16 (B, S, d), ``nkv``
-    kv blocks a step, merged one by one or (``fused``) at once."""
-    B, S, d = _check_fwd(q, k, v)
-    o = torch.empty_like(q)
-    _call("fa_exp_kv_unroll", nkv, int(bool(fused)), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-          o.data_ptr(), B, S, d, block_kv, float(scale_log2e))
-    return o
+    """Launch ``exp_kv_unroll``: full attention of bf16 (B, S, d), merges of
+    ``block_kv`` keys or (``fused``) of ``nkv * block_kv``.  The launch is in
+    ``WALKS``."""
+    return _exp_groups("exp_kv_unroll", nkv, int(bool(fused)), q=q, k=k, v=v,
+                       block_kv=nkv * block_kv if fused else block_kv,
+                       tail=(block_kv, float(scale_log2e)))
 
 
 def exp_int4_decode(kernel: str, q, k, ks, v, vs, scale_log2e: float):

@@ -7,14 +7,22 @@ Phases (any failure exits non-zero before the final line):
   0. device: requires CUDA (no CPU fallback); prints the card's name and
      power limit as nvidia-smi reports them;
   1. build: compiles every kernel source in csrc/ with nvcc, one process
-     per source, all at once;
+     per source, all at once; prints each source's seconds and ptxas's
+     registers, spills and serialized wgmma of the experiment forwards, the
+     tensor-core q-outer backward and prefill, and any kernel that spills;
   2. kernels: each of the four serving kernels against its plain PyTorch
      version on the card, at the serving slice's shapes (int8 cache, 8 kv
      heads, d 128, page 256, chunk 512, 16 slots), plus a GQA (8 q / 2 kv)
      case and an unquantized bf16 case; the KV writes must match bit for
      bit outside the trash page, the attention kernels within 2 bf16 ulps
      at the output's scale, no floor; prints errors, median times (CUDA
-     events) and bounds;
+     events) and bounds, and the body each paged_prefill launch ran (it
+     must be the one native.prefill_body names: the tensor cores for bf16
+     activations at head_dim_store 128 on pages of a multiple of 64); on the
+     tensor-core body, the int8 case also times one
+     scaled_dot_product_attention on the chunk's K/V gathered and widened to
+     bf16 beforehand, with the causal offset mask (row 13's library
+     yardstick);
   2b. the same for fp8 e4m3, fp8 e5m2 and int4 caches (int4 also at page
      512), and paged_multitoken_decode at gamma 4 on int8, bf16, fp8 e4m3
      and int4 caches, at 8/8 heads and GQA 8 q / 2 kv; then shapes the JAX
@@ -25,7 +33,9 @@ Phases (any failure exits non-zero before the final line):
      heads, d_head 128, d_ff 4096, bf16) with random weights from the seed
      serves 18 requests (prompts of 300-1900 tokens, two sharing a
      page-aligned prefix, 32 greedy tokens each) on 16 slots; checks the
-     outputs, the prefix-cache hit and that its four kernels launched;
+     outputs, the prefix-cache hit and that its four kernels launched; every
+     engine run (3-3e) names its prefill's body and prints its prefill
+     tokens/s beside the rate on the scalar prefill;
   3b. the same engine with speculative_tokens=3 serves those 18 requests,
      2 whose prompts repeat a 64-token pattern and 2 sampled ones
      (temperature 0.8, top-k 50); paged_multitoken_decode and kv_append
@@ -76,15 +86,19 @@ Phases (any failure exits non-zero before the final line):
      tensor-core classes: the scalar forward); (m) the resident route on
      fp16 at (16, 1024, 128); (h) the
      q-outer backward, which only a direct call with fused="q" reaches, as
-     in the JAX package; then each kernel's median CUDA-event time against
+     in the JAX package (bf16 at d 128: the tensor-core q-outer body, as
+     its launch reports it), timed at (h)'s shape beside flash_bwd_fused and
+     scaled_dot_product_attention(enable_gqa=True) forward + backward; then
+     each kernel's median CUDA-event time against
      its plain version, with useful TFLOP/s priced from flops.py's
      schedule by the products each kernel computes (flash_fwd, banded_fwd
      and resident_fwd on bf16 run the tensor-core forward, resident_fwd as
      persistent CTAs walking the rows in order by groups: its row prints
      the grid, the work items and the rows a group its launch reports and
      is set beside banded_fwd;
-     flash_bwd_fused and banded_bwd the tensor-core backward: each row
-     names its body), banded_bwd once more without dQ (what dQ's product
+     flash_bwd_fused, banded_bwd and flash_bwd_qouter the tensor-core
+     backwards: each row names its body), banded_bwd once more without dQ
+     (what dQ's product
      and its reduction into the float32 accumulator cost), and the
      accumulator's zero fill and scale-and-cast passes;
   6. training at full width: the same 168M decoder (fp32 parameters, bf16
@@ -140,6 +154,7 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -190,6 +205,13 @@ TRAIN_GNORM_RTOL = 1e-2
 # cores (H100 80GB HBM3 at 700 W; PERF.md section 5), which the step should
 # not move: printed beside this run's
 STEP_MS_BEFORE = 88.142
+# the engines' prefill rates before paged_prefill moved to the tensor cores
+# (tokens/s, wall clock, which moves by tens of percent from run to run; H100
+# 80GB HBM3 at 700 W; PERF.md section 5): printed beside this run's
+PREFILL_TOKS_BEFORE = {"engine": 43432.9, "speculative": 43340.6, "e4m3": 44052.6,
+                       "int4 speculative": 47078.3, "int4": 40867.0, "cp engine": 18781.4,
+                       "cp engine speculative": 17767.2, "flat engine": 22850.6,
+                       "flat engine speculative": 21290.3}
 # CPU vs card (phase 7): bf16 matmuls accumulate in other orders on the two
 # devices; the mean of 512 token losses agrees to well under 1e-2
 CPU_LOSS_ATOL = 1e-2
@@ -399,33 +421,79 @@ def kernel_case(name, n_q, n_kv, payload, dev, gen, page_size=256, gamma=None, d
         start, true_len = 1024, 512
         qp = torch.randn((chunk, n_q, d), generator=gen, device=dev).to(bf)
         o = prefill.paged_prefill_attention(qp, cache, cfg, 0, start, true_len)
+        ran = prefill_ran("paged_prefill", cfg, name)
         qs = (qp.float() * torch.tensor(scale * LOG2E, dtype=torch.float32)).to(bf)
         ref = prefill._paged_prefill_plain(qs, cache, cfg, 0, start, true_len, rule)
         err = check_attn("paged_prefill", o[:true_len], ref[:true_len])
         total = start + true_len
         pairs = sum(start + i + 1 for i in range(true_len))
+        count = -(-total // page_size)
         record("paged_prefill", err,
-               lambda: native.paged_prefill(qs, cache, cfg, 0, start, total, 0,
-                                            -(-total // page_size), rule),
+               lambda: native.paged_prefill(qs, cache, cfg, 0, start, total, 0, count, rule),
                lambda: prefill._paged_prefill_plain(qs, cache, cfg, 0, start, true_len, rule),
                2 * n_kv * total * tok + 2 * qp.numel() * act, 4 * n_q * d * pairs)
+        out["paged_prefill"].update(ran)
+        if ran["body"] == "tensor-core":
+            # the library yardstick: one scaled_dot_product_attention on the
+            # chunk's K/V gathered and widened to bf16 beforehand, with the
+            # causal offset mask (the lowest time a library route could reach)
+            k_all, v_all = gathered_kv(cache, cfg, 0, total)
+            q4 = qp.permute(1, 0, 2).unsqueeze(0)
+            mask = (torch.arange(total, device=dev)[None, :]
+                    <= start + torch.arange(chunk, device=dev)[:, None])
+            gqa = dict(enable_gqa=True) if n_q != n_kv else {}
+            lib = lambda: F.scaled_dot_product_attention(q4, k_all[None], v_all[None],
+                                                         attn_mask=mask, **gqa)
+            lib_o = lib()[0].permute(1, 0, 2)
+            out["paged_prefill"].update(library_ms=time_ms(lib),
+                                        library_err=float((lib_o.float() - ref.float())
+                                                          .abs().max()))
     for kname, r in out.items():
+        extra = "".join(f" {x}={json.dumps(r[x])}" for x in ("body", "library_ms") if x in r)
         print(f"kernel {name} {kname}: max_abs_err={r['err']} ms={r['ms']} "
-              f"plain_ms={r['plain_ms']} bound_ms={r['bound_ms']} ({r['bound_by']})",
+              f"plain_ms={r['plain_ms']} bound_ms={r['bound_ms']} ({r['bound_by']}){extra}",
               flush=True)
+    return out
+
+
+def prefill_ran(kernel, cfg, label, act=torch.bfloat16):
+    """The body the last launch of ``kernel`` (paged_prefill or its [cp]
+    variant) ran, as the launch reports it; fails unless it is the one
+    ``native.prefill_body`` names for these activations and cache."""
+    from tf_flash_attention_tpu_torch import native
+    ran = dict(native.WALKS[kernel])
+    if ran["body"] != native.prefill_body(act, cfg):
+        fail(f"{label}: {kernel} ran the {ran['body']} body, prefill_body names "
+             f"{native.prefill_body(act, cfg)}")
+    return ran
+
+
+def gathered_kv(cache, cfg, slot, total):
+    """K and V of a slot's first ``total`` tokens on the card, dequantized and
+    widened to bf16, (n_kv, total, head_dim): the library yardstick's input."""
+    from tf_flash_attention_tpu_torch.serving.kv_cache import _page_tokens
+    phys = cache.page_tables[slot, :-(-total // cfg.page_size)].long()
+    out = []
+    for pages, scales in ((cache.k_pages, cache.k_scales), (cache.v_pages, cache.v_scales)):
+        x, sc = _page_tokens(pages[:, phys], None if scales is None else scales[:, phys], cfg)
+        if sc is not None:
+            x = x * sc[..., None]
+        out.append(x.reshape(cfg.n_kv_heads, -1, x.shape[-1])[:, :total, :cfg.head_dim]
+                   .to(torch.bfloat16).contiguous())
     return out
 
 
 def build_report(native):
     """Each source's nvcc seconds and ptxas's report: every kernel of the
-    experiment forwards, and any other that spills or whose wgmma ptxas
-    serializes."""
+    experiment forwards, the tensor-core q-outer backward and prefill, and
+    any other that spills or whose wgmma ptxas serializes."""
     for src, log in sorted(native.BUILD_LOG.items(), key=lambda kv: -kv[1]["seconds"]):
         kernels = native.ptxas_summary(src)
         print(f"build {src}: {log['seconds']:.3f} s, {len(kernels)} kernels, at most "
               f"{max((k['registers'] for k in kernels), default=0)} registers", flush=True)
         for k in kernels:
-            if src == "exp_forward_kernels.cu" or k["spill_stores"] or k["warnings"]:
+            if (src == "exp_forward_kernels.cu" or k["spill_stores"] or k["warnings"]
+                    or any(b in k["name"] for b in ("qouter_tc", "prefill_tc"))):
                 print(f"  ptxas {k['name']}: {k['registers']} registers, spill stores "
                       f"{k['spill_stores']} B, loads {k['spill_loads']} B; "
                       f"{'; '.join(k['warnings']) or 'no warnings'}", flush=True)
@@ -611,8 +679,10 @@ def main():
     }
     path_of["paged_multitoken_decode"] = "speculative engine (phase 3b)"
     # serving kernels: time and bound of the int8 slice case (phase 2), each
-    # payload's beside it; none has a single PyTorch call of the same function
-    measured = {k: dict(cases["int8"][k], library_ms=None) for k in native.SERVING_KERNELS}
+    # payload's beside it; of them only paged_prefill has a single PyTorch
+    # call of the same function (phase 2's scaled_dot_product_attention on the
+    # gathered K/V)
+    measured = {k: {"library_ms": None, **cases["int8"][k]} for k in native.SERVING_KERNELS}
     measured.update(op)
     lines = []
     for k in replaces:
@@ -622,8 +692,8 @@ def main():
                  "max_abs_err": m["err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
                  "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                  "library_ms": m["library_ms"],
-                 **{x: m[x] for x in ("body", "ms_without_dq", "grid", "items",
-                                      "group_rows", "kernel_ms") if x in m}}
+                 **{x: m[x] for x in ("body", "library_err", "ms_without_dq", "grid", "items",
+                                      "group_rows", "kernel_ms", "gqa") if x in m}}
         if k in native.SERVING_KERNELS:
             entry["payloads_held"] = [pl for pl, c in cases.items() if k in c]
             entry["ms_by_payload"] = {pl: c[k]["ms"] for pl, c in cases.items() if k in c}
@@ -648,7 +718,7 @@ def main():
                       "path": "cp engine (phase 3e)", "max_abs_err": m["err"], "ms": m["ms"],
                       "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                       "bound_by": m["bound_by"], "library_ms": None,
-                      **{x: m[x] for x in ("l_err", "m_err", "merge_err", "cp_step_ms",
+                      **{x: m[x] for x in ("body", "l_err", "m_err", "merge_err", "cp_step_ms",
                                            "flat_ms") if x in m}})
     # the experiment tools' kernels: the numbers of each tool's first
     # variant, every variant's under "variants" (phase 8)
@@ -705,11 +775,18 @@ def serve(label, eng, reqs, n_new, vocab):
             fail(f"{label}: request {rid} produced a token outside the vocabulary")
     decode_s = wall - prefill_s[0]
     st = eng.stats
+    # the body of the run's prefill launches (one shape rule for them all:
+    # the last launch's report stands for the run's)
+    bodies = {k: prefill_ran(k, eng.ccfg, label, eng.mcfg.dtype)
+              for k in ("paged_prefill", "paged_prefill[cp]") if launches[k]}
     print(f"{label}: {len(rids)} requests, stats {json.dumps(st)}, prefix hits "
           f"{eng.prefix_cache.hits if eng.prefix_cache else None}, launches "
-          f"{json.dumps(launches)}", flush=True)
+          f"{json.dumps(launches)}, prefill bodies {json.dumps(bodies)}", flush=True)
+    rate = st['prefill_tokens'] / prefill_s[0]
+    before = PREFILL_TOKS_BEFORE.get(label)
+    beside = "" if before is None else f" (on the scalar prefill: {before}, {rate / before:.3f}x)"
     print(f"{label}: wall {wall:.3f} s; prefill {st['prefill_tokens']} tokens in "
-          f"{prefill_s[0]:.3f} s = {st['prefill_tokens'] / prefill_s[0]:.1f} tokens/s; "
+          f"{prefill_s[0]:.3f} s = {rate:.1f} tokens/s{beside}; "
           f"decode {st['decode_tokens']} tokens in {decode_s:.3f} s over {st['steps']} steps "
           f"= {st['decode_tokens'] / decode_s:.1f} tokens/s", flush=True)
     return results, launches
@@ -930,9 +1007,11 @@ def cp_kernel_case(label, n_q, n_kv, dev, gen, timed):
     parts = []
     for r, sc in enumerate(shards):
         got = prefill.paged_prefill_attention(qp, sc, cfg, 0, start, chunk, **shard(r))
+        ran = prefill_ran("paged_prefill[cp]", cfg, label)
         want = prefill._paged_prefill_plain(qs, sc, cfg, 0, start, chunk, CausalRule(), True, n,
                                             r)
         check("paged_prefill[cp]", got, want, want[0])
+        out["paged_prefill[cp]"].update(ran)
         parts.append(got)
     check_merge("paged_prefill[cp]", parts,
                 prefill.paged_prefill_attention(qp, flat, flat_cfg, 0, start, chunk))
@@ -1385,8 +1464,12 @@ def op_phase(dev):
                                           True)
     err["flash_bwd_qouter"] = compare("(h) gqa 8/2 bf16 q-outer", ("dq", "dk", "dv"), got, want,
                                       (bf,) * 3)
+    qouter_body = native.WALKS["flash_bwd_qouter"]["body"]
+    if qouter_body != native.bwd_body(bf, d, d):
+        fail(f"(h): flash_bwd_qouter ran the {qouter_body} body, bwd_body names "
+             f"{native.bwd_body(bf, d, d)}")
     print(f"op (h) gqa 8/2 bf16 q-outer (direct call): launches {json.dumps(qouter_launches)}; "
-          f"max_abs_err bwd {err['flash_bwd_qouter']}", flush=True)
+          f"body {qouter_body}; max_abs_err bwd {err['flash_bwd_qouter']}", flush=True)
     op_launches["flash_bwd_qouter"] = qouter_launches.get("flash_bwd_qouter", 0)
     missing = [kn for kn in native.ATTENTION_KERNELS if not op_launches.get(kn)]
     if missing:
@@ -1395,7 +1478,6 @@ def op_phase(dev):
     # kernel, plain and library times (these launches are not counted in any
     # path), and each kernel's bound: the bytes of its inputs and outputs, and
     # its products over the visible (query, key) pairs of the rule
-    import torch.nn.functional as F
     from tf_flash_attention_tpu_torch.ops.reference import build_mask
     times = {}
 
@@ -1480,10 +1562,10 @@ def op_phase(dev):
         b_ms, b_by = bound(n_bytes, products * 2 * pairs * d, "bf16")
         times[kn] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                          bound_by=b_by)
-        # the split pair and the q-outer backward have the scalar body only
+        # the split pair has the scalar body only
         times[kn]["body"] = (native.fwd_body(bf, d, d) if kn.endswith("_fwd") else
-                             native.bwd_body(bf, d, d) if kn in ("flash_bwd_fused", "banded_bwd")
-                             else "scalar")
+                             "scalar" if kn in ("flash_bwd_dq", "flash_bwd_dkv")
+                             else native.bwd_body(bf, d, d))
         extra = ""
         if kn == "resident_fwd":   # the persistent walk, as its last launch reports it
             walk = native.WALKS[kn]
@@ -1501,6 +1583,26 @@ def op_phase(dev):
           f"{res['ms'] / band['ms']:.3f}x; library {res['library_ms']} ms = "
           f"{res['ms'] / res['library_ms']:.3f}x; bound share {res['bound_ms'] / res['ms']:.4f}",
           flush=True)
+    # the q-outer backward at (h)'s GQA 8/2 shape beside the kv-outer table
+    # kernel and the library's GQA forward + backward, each kernel alone
+    # (its wrapper's accumulator zero fills included, the casts not)
+    qh_s = forward.prescale(qh, scale)
+    g_pairs = 64 * int(build_mask(pack, rule).sum())
+    g_bytes = 3 * qh.numel() * 2 + 4 * kh.numel() * 2 + 2 * 64 * S * 4
+    gqa = dict(ms=time_ms(lambda: native.flash_bwd_qouter(qh_s, kh, vh, doh, lse2h, deltah,
+                                                           rule_c, tabs(bq), 128, 128, scale),
+                          n=10),
+               flash_bwd_fused_ms=time_ms(lambda: native.flash_bwd_fused(
+                   qh_s, kh, vh, doh, lse2h, deltah, rule_c, tabs(bt), 128, 128,
+                   1.0 / math.log2(math.e)), n=10),
+               library_ms=time_ms(sdpa(qg, kg, vg, doh.reshape(qg.shape), is_causal=True,
+                                       enable_gqa=True), n=10))
+    gqa["bound_ms"], gqa["bound_by"] = bound(g_bytes, 5 * 2 * g_pairs * d, "bf16")
+    times["flash_bwd_qouter"]["gqa"] = gqa
+    print(f"kernel flash_bwd_qouter ((h) gqa 8/2, 64 q / 16 kv heads): body={qouter_body} "
+          f"ms={gqa['ms']} flash_bwd_fused ms={gqa['flash_bwd_fused_ms']} "
+          f"({gqa['ms'] / gqa['flash_bwd_fused_ms']:.3f}x) library_ms={gqa['library_ms']} "
+          f"bound_ms={gqa['bound_ms']} ({gqa['bound_by']})", flush=True)
     # what dQ costs the tensor-core backward: banded_bwd without the dS^T
     # tile, the dQ product and its reduction (not counted in any path)
     no_dq_ms = time_ms(lambda: native.banded_bwd(q_s, k, v, do, lse2, delta, rule_c, tabs(bb)[0],
@@ -1683,7 +1785,6 @@ def experiment_phase(dev, seed):
     scaled_dot_product_attention call.  Returns ({kernel: entry}, {kernel:
     launches}); an entry's numbers are those of the tool's first variant,
     every variant's beside them under "variants"."""
-    import torch.nn.functional as F
 
     from tf_flash_attention_tpu_torch import native
     from tf_flash_attention_tpu_torch.experiments import (exp_decode, exp_int4_unpack,

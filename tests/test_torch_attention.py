@@ -226,14 +226,16 @@ def test_half_forward_rounds_p_as_jax_kernels(monkeypatch, route):
 _HALF_BWD_ROUTES = {"banded": ({"FA_WINDOW_BWD": "0"}, None, ["_fused_banded_kernel"]),
                     "table": ({"FA_BANDED_BWD": "0", "FA_WINDOW_BWD": "0"}, None,
                               ["_fused_kernel"]),
-                    "split": ({}, False, ["_dq_kernel", "_dkv_kernel"])}
+                    "split": ({}, False, ["_dq_kernel", "_dkv_kernel"]),
+                    "qouter": ({}, "q", ["_fused_qouter_kernel"])}
 
 
 @pytest.mark.parametrize("route", list(_HALF_BWD_ROUTES))
 def test_half_backward_rounds_as_jax_kernels(monkeypatch, route):
     """bf16, causal (2, 256, 64): the port's plain backward against JAX's
-    ``_fused_banded_kernel``, ``_fused_kernel`` and the split pair
-    (``fast_softmax=False``, interpret mode) on the same o, l, m.  Both round
+    ``_fused_banded_kernel``, ``_fused_kernel``, the split pair and
+    ``_fused_qouter_kernel`` (``fast_softmax=False``, interpret mode) on the
+    same o, l, m.  Both round
     p to bf16 before dV and dS before dK and dQ, so they part only where a
     float32 sum taken in another order flips a rounding: on fewer than 1% of
     each gradient's elements, with a mean error under 1e-5 (a backward that
@@ -319,6 +321,40 @@ def test_fused_backward_body(dtype, d, v_d, body):
     assert native.bwd_body(dtype, d, v_d) == body
     assert native.TC_BWD_SMEM <= native.MAX_SMEM
     native._check_bwd_smem("banded_bwd", dtype, d, v_d)
+
+
+@pytest.mark.parametrize("dtype,d,v_d,body", [
+    (torch.bfloat16, 128, 128, "tensor-core"), (torch.float16, 64, 64, "tensor-core"),
+    (torch.bfloat16, 60, 40, "tensor-core"), (torch.float16, 128, 64, "tensor-core"),
+    (torch.bfloat16, 128, 256, "scalar"), (torch.bfloat16, 384, 384, "scalar"),
+    (torch.float32, 128, 128, "scalar"), (torch.float32, 64, 64, "scalar")])
+def test_qouter_backward_body(dtype, d, v_d, body):
+    """``flash_bwd_qouter`` runs the tensor-core q-outer body on bf16 and fp16
+    at max(d, v_d) <= 128 (any width there: d 60 takes the plain-load
+    staging) and the scalar body on float32 and wider heads, the rule of the
+    kv-outer backward; its memory guard follows the body it runs."""
+    assert native.bwd_body(dtype, d, v_d) == body
+    native._check_bwd_smem("flash_bwd_qouter", dtype, d, v_d)
+
+
+@pytest.mark.parametrize("q_len,k_len", [(0, 64), (64, 0), (0, 0)])
+def test_backward_body_empty_inputs(q_len, k_len):
+    """An empty q or k takes the scalar body in the C dispatches of the
+    fused and q-outer backwards (``bwd_fused_any``, ``bwd_qouter_any``), and
+    ``bwd_body`` says so."""
+    for dtype in (torch.bfloat16, torch.float16):
+        assert native.bwd_body(dtype, 128, 128, q_len, k_len) == "scalar"
+        assert native.bwd_body(dtype, 128, 128, 64, 64) == "tensor-core"
+
+
+def test_qouter_tc_shared_memory():
+    """The tensor-core q-outer backward's shared memory, pinned to the C
+    ``kQoSmem``: Q and dO (128 rows, 32 KB each), two 64-key K / V stages (32
+    KB each), the T(P) and T(dS) tiles (16 KB each), a 32 KB float partial
+    per consumer warpgroup, the rows' lse2 and delta, five barriers and 1 KB
+    of alignment: one CTA an SM, within 1 KB of the H100's block limit."""
+    assert native.QOUTER_TC_SMEM == 231464
+    assert native.QOUTER_TC_SMEM <= native.MAX_SMEM < native.QOUTER_TC_SMEM + 1024
 
 
 @pytest.mark.parametrize("dtype,d,v_d,body", [

@@ -926,3 +926,184 @@ def test_exp_paged_decode_int8mm_codes_equal(dev):
     want = x.paged_decode_plain(*args, codes=True)
     for name, a, b in zip(("q codes", "scores", "p codes"), got[1:], want[1:]):
         assert torch.equal(a, b), (name, int((a != b).sum()))
+
+
+# ---- the tensor-core q-outer backward (attention_qouter_tc.cuh) ----
+
+# (rule, sync, q_seq, k_seq, d, v_d, b_kv, g): d and v_d 64 and 128, GQA 1
+# and 4, causal, local and full rules, q_len != k_len with rows past q_len
+# (ragged tiles), dead rows, widths whose row pitch is no multiple of 16
+# bytes (the plain-load staging and the scalar atomics), and a long causal
+# walk (32 stages) at the slice's width
+QOUTER_CASES = {
+    "d64_causal": (CausalRule(), "none_front", (384,), (384,), 64, 64, 2, 1),
+    "d128_causal_gqa4": (CausalRule(), "none_front", (300,), (300,), 128, 128, 2, 4),
+    "full_q_ne_k": (FullRule(), "none_front", (333,), (199,), 128, 64, 1, 1),
+    "full_gqa4_k_longer": (FullRule(), "none_front", (150,), (420,), 64, 128, 1, 4),
+    "local_stride": (LocalRule(5, 1, True), "scale_front", (220,), (310,), 64, 128, 2, 1),
+    "local_2d_gqa4": (LocalRule(7, 0, False), "scale_end", (10, 22), (20, 11), 128, 64, 1, 4),
+    "dead_rows": (CausalRule(), "scale_end", (300,), (40,), 64, 64, 1, 1),
+    "pitch_60": (CausalRule(), "none_front", (260,), (260,), 60, 60, 1, 4),
+    "pitch_q_only": (FullRule(), "none_front", (200,), (130,), 27, 13, 1, 1),
+    "long_causal": (CausalRule(), "none_front", (2048,), (2048,), 128, 128, 2, 2),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("case", list(QOUTER_CASES))
+def test_qouter_tc_matches_plain(dev, case, dtype):
+    """The q-outer backward (fused="q") on bf16 / fp16 at max(d, v_d) <= 128
+    launches once, on the tensor-core body (as the launch reports it and
+    native.bwd_body names it), and matches the plain backward, which rounds
+    p and dS where _fused_qouter_kernel does: dQ, dK and dV within 2 ulps of
+    the output type at each tensor's scale."""
+    rule, sync, q_seq, k_seq, d, v_d, b_kv, g = QOUTER_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(d + 5 * v_d + g)
+    pack = make_sync_pack(sync, q_seq, k_seq)
+    q_len, k_len = int(np.prod(q_seq)), int(np.prod(k_seq))
+    t = lambda *shape: (torch.rand(shape, generator=gen, device=dev) * 4 - 2).to(dtype)
+    q, k, v = t(b_kv * g, q_len, d), t(b_kv, k_len, d), t(b_kv, k_len, v_d)
+    do = t(b_kv * g, q_len, v_d)
+    o, l, m = forward.flash_forward(q, k, v, pack=pack, rule=rule, config=BLOCKS)
+    lse2, delta = backward.backward_stats(o, l, m, do)
+    native.reset_launch_counts()
+    got = backward.flash_backward(q, k, v, o, l, m, do, pack=pack, rule=rule, config=BLOCKS,
+                                  fused="q")
+    torch.cuda.synchronize()
+    assert {kn: n for kn, n in native.LAUNCHES.items() if n} == {"flash_bwd_qouter": 1}
+    assert native.WALKS["flash_bwd_qouter"]["body"] == native.bwd_body(dtype, d, v_d) \
+        == "tensor-core"
+    want = backward._flash_backward_plain(q, k, v, do, lse2, delta, pack, rule, d ** -0.5, True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close(name, a, b, dtype)
+    if case == "dead_rows":
+        assert float(got[0][:, 0].float().abs().max()) == 0.0
+
+
+def test_qouter_scalar_body_where_the_rule_says(dev):
+    """float32 and max(d, v_d) > 128 keep the scalar q-outer body, as the
+    launch reports it."""
+    for dtype, d, v_d in ((torch.float32, 64, 64), (torch.bfloat16, 200, 256)):
+        gen = torch.Generator(device=dev).manual_seed(d)
+        pack = make_sync_pack("none_front", (260,), (260,))
+        t = lambda *shape: (torch.rand(shape, generator=gen, device=dev) * 4 - 2).to(dtype)
+        q, k, v, do = t(2, 260, d), t(1, 260, d), t(1, 260, v_d), t(2, 260, v_d)
+        o, l, m = forward.flash_forward(q, k, v, pack=pack, rule=CausalRule(), config=BLOCKS)
+        got = backward.flash_backward(q, k, v, o, l, m, do, pack=pack, rule=CausalRule(),
+                                      config=BLOCKS, fused="q")
+        torch.cuda.synchronize()
+        assert native.WALKS["flash_bwd_qouter"]["body"] == native.bwd_body(dtype, d, v_d) \
+            == "scalar"
+        lse2, delta = backward.backward_stats(o, l, m, do)
+        want = backward._flash_backward_plain(q, k, v, do, lse2, delta, pack, CausalRule(),
+                                              d ** -0.5, True)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            _close(name, a, b, dtype)
+
+
+# ---- the tensor-core prefill (prefill_tc.cuh) ----
+
+def _pf_cache(dev, payload, page_size, n_kv, mapped, seed):
+    """A bf16-activation cache filled as chip_smoke.py fills the card's:
+    quantized payloads over their type's range, scales that bring each to
+    int8's size, the unquantized cache N(0, 1); slot 0 maps ``mapped``
+    random pages."""
+    qd = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2,
+          "int4": "int4", "bf16": None}[payload]
+    cfg = kv_cache.KVCacheConfig(n_kv_heads=n_kv, head_dim=128, page_size=page_size,
+                                 n_pages=mapped + 3, max_seqs=2, max_pages_per_seq=mapped,
+                                 quantized=qd is not None,
+                                 quant_dtype=torch.int8 if qd is None else qd,
+                                 dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = kv_cache.PagedKVCache.create(cfg, dev)
+    for p in (c.k_pages, c.v_pages):
+        if cfg.is_int4:
+            p.copy_(torch.randint(-128, 128, p.shape, generator=gen, device=dev))
+        elif qd == torch.int8:
+            p.copy_(torch.randint(-127, 128, p.shape, generator=gen, device=dev))
+        elif qd is not None:
+            qmax = kv_cache._quant_max(qd)
+            p.copy_((torch.randn(p.shape, generator=gen, device=dev) * qmax / 8).clamp(-qmax, qmax))
+        else:
+            p.copy_(torch.randn(p.shape, generator=gen, device=dev))
+    if qd is not None:
+        unit = 127.0 / kv_cache._quant_max(qd)
+        for s in (c.k_scales, c.v_scales):
+            s.copy_((0.005 + 0.02 * torch.rand(s.shape, generator=gen, device=dev)) * unit)
+    c.page_tables[0] = torch.randperm(cfg.n_pages - 1, generator=gen, device=dev)[:mapped].int()
+    return cfg, c, gen
+
+
+def _pf_run(dev, payload, page_size, n_q, n_kv, start, chunk, true_len, rule=CausalRule(),
+            stride=1, offset=0, seed=0):
+    """One paged_prefill launch on the tensor-core body against the plain
+    version: o within 2 bf16 ulps at the output's scale, with the [cp]
+    form's l and m within 1e-5."""
+    mapped = -(-(start + true_len) // (page_size * stride)) + 1
+    cfg, c, gen = _pf_cache(dev, payload, page_size, n_kv, mapped, seed)
+    assert native.prefill_body(torch.bfloat16, cfg) == "tensor-core"
+    qp = torch.randn((chunk, n_q, 128), generator=gen, device=dev).to(torch.bfloat16)
+    qs = (qp.float() * torch.tensor(128 ** -0.5 * 1.4426950408889634)).to(torch.bfloat16)
+    cp = stride != 1 or offset != 0
+    shard = dict(page_stride=stride, page_offset=offset, returning_l_m=cp)
+    native.reset_launch_counts()
+    got = prefill.paged_prefill_attention(qp, c, cfg, 0, start, true_len, rule=rule, **shard)
+    torch.cuda.synchronize()
+    name = "paged_prefill[cp]" if cp else "paged_prefill"
+    assert {k: n for k, n in native.LAUNCHES.items() if n} == {name: 1}
+    assert native.WALKS[name] == dict(body="tensor-core")
+    want = prefill._paged_prefill_plain(qs, c, cfg, 0, start, true_len, rule, cp, stride, offset)
+    got, want = (got, want) if cp else ((got,), (want,))
+    _serving_close(got[0][:true_len], want[0][:true_len], False)
+    if cp:
+        _close_lm([x[:true_len] for x in got], [x[:true_len] for x in want])
+    return got
+
+
+@pytest.mark.parametrize("page_size", [64, 256, 512])
+@pytest.mark.parametrize("payload", ["int8", "e4m3", "e5m2", "int4", "bf16"])
+def test_prefill_tc_matches_plain(dev, payload, page_size):
+    """Every payload at pages of 64, 256 and 512 tokens: GQA 8/2, a cached
+    prefix of 640 tokens and a 200-row chunk (no multiple of the 64-row
+    items) with 190 real rows; and 8/8 heads, a 300-row chunk at 1000."""
+    _pf_run(dev, payload, page_size, 8, 2, 640, 200, 190, seed=page_size)
+    _pf_run(dev, payload, page_size, 8, 8, 1000, 300, 300, seed=page_size + 1)
+
+
+@pytest.mark.parametrize("act", [torch.bfloat16, torch.float32])
+def test_prefill_empty_chunk_reports_its_body(dev, act):
+    """An empty chunk launches nothing on either body, and reports the body
+    ``prefill_body`` names."""
+    cfg, c, gen = _pf_cache(dev, "int8", 256, 2, 4, 0)
+    qs = torch.zeros((0, 8, 128), dtype=act, device=dev)
+    native.WALKS.pop("paged_prefill", None)
+    o = native.paged_prefill(qs, c, cfg, 0, 640, 640, 0, 3, CausalRule())
+    torch.cuda.synchronize()
+    assert o.shape == (0, 8, 128)
+    assert native.WALKS["paged_prefill"]["body"] == native.prefill_body(act, cfg)
+
+
+@pytest.mark.parametrize("payload", ["int8", "e5m2", "bf16"])
+def test_prefill_tc_start_0(dev, payload):
+    """A first chunk (start 0): row 0 sees one key, and the pages past a
+    tile's last row are skipped."""
+    _pf_run(dev, payload, 64, 4, 4, 0, 300, 257)
+
+
+@pytest.mark.parametrize("rule", [LocalRule(300, 0, True), LocalRule(40, 2, True)],
+                         ids=["window_300", "window_40_stride_4"])
+@pytest.mark.parametrize("payload", ["int8", "int4"])
+def test_prefill_tc_local_window(dev, payload, rule):
+    """A local window whose first pages fall below the slot's oldest chunk
+    row (first_live > 0), at pages of 64 and 256."""
+    for page_size in (64, 256):
+        _pf_run(dev, payload, page_size, 8, 2, 1500, 128, 128, rule=rule)
+
+
+@pytest.mark.parametrize("stride,offset", [(4, 0), (4, 3), (2, 1)])
+@pytest.mark.parametrize("payload", ["int8", "e4m3", "int4", "bf16"])
+def test_prefill_tc_cp_matches_plain(dev, payload, stride, offset):
+    """The sequence-sharded form: a shard's pages of a stride from an
+    offset, global key positions, l and m out."""
+    _pf_run(dev, payload, 256, 8, 2, 3000, 512, 512, stride=stride, offset=offset)

@@ -53,6 +53,7 @@
 
 #pragma once
 
+#include "attention_common.cuh"
 #include "tc_common.cuh"
 
 namespace {
@@ -487,8 +488,8 @@ int bwd_tc(const AttnArgs& a, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   // dq_acc's float (64 columns x 64 rows) boxes, unswizzled
   if (tma && a.dq_acc != nullptr &&
-      !encode_map(&dqm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.dq_acc, a.d, q_len, a.B, 64, kBQ,
-                  CU_TENSOR_MAP_SWIZZLE_NONE))
+      !encode_map(&dqm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.dq_acc, {a.d, q_len, a.B}, 64,
+                  kBQ, CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
   auto kernel = bwd_tc_kernel<T, WALK>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

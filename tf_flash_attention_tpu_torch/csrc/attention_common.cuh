@@ -734,4 +734,20 @@ void set_bwd(AttnArgs& a, const void* dout, const float* lse2, const float* delt
   a.delta = delta;
 }
 
+// calls f(blk, masked) for every schedule block of row `row` of the walk,
+// in order: kTable the kv_table / kv_counts / needs_mask row, kBanded the
+// four band ints (masked prefix [seg0, i0), interior [i0, i1), masked
+// suffix)
+template <int WALK, typename F>
+__device__ __forceinline__ void for_each_block(const AttnArgs& a, int row, F&& f) {
+  if constexpr (WALK == kTable) {
+    const int n_steps = a.counts[row];
+    for (int step = 0; step < n_steps; ++step)
+      f(a.table[row * a.num_steps + step], a.needs[row * a.num_steps + step] != 0);
+  } else {
+    const int* seg = a.table + 4 * row;
+    for (int blk = seg[0]; blk < seg[3]; ++blk) f(blk, blk < seg[1] || blk >= seg[2]);
+  }
+}
+
 }  // namespace

@@ -125,6 +125,7 @@
 
 #pragma once
 
+#include "attention_common.cuh"
 #include "tc_common.cuh"
 
 namespace {

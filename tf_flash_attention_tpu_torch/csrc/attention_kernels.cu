@@ -8,7 +8,9 @@
 //                          attention_bwd_tc.cuh)
 //   fa_flash_bwd_dq     <- ops/backward.py::_dq_kernel    (split pair: dQ, q-outer)
 //   fa_flash_bwd_dkv    <- ops/backward.py::_dkv_kernel   (split pair: dK/dV, kv-outer)
-//   fa_flash_bwd_qouter <- ops/backward.py::_fused_qouter_kernel (q-outer 5-product backward)
+//   fa_flash_bwd_qouter <- ops/backward.py::_fused_qouter_kernel (q-outer 5-product backward;
+//                          bf16 and fp16 at max(d, v_d) <= 128 on the tensor-core body of
+//                          attention_qouter_tc.cuh)
 //
 // The block-skip schedule of schedule.py arrives as three int32 device
 // tables (kv_table, kv_counts, needs_mask; the kv-outer kernels get the
@@ -18,6 +20,7 @@
 #include "attention_bwd_tc.cuh"
 #include "attention_common.cuh"
 #include "attention_fwd_tc.cuh"
+#include "attention_qouter_tc.cuh"
 
 namespace {
 
@@ -110,7 +113,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_kernel(AttnArgs a) {
 
 // ---------------------------------------------------------------------------
 // fa_flash_bwd_qouter.  Replaces ops/backward.py::_fused_qouter_kernel, the
-// fused backward in the q-outer orientation.  One CTA per (query row b, BM
+// fused backward in the q-outer orientation: the scalar body of float32 and
+// of max(d, v_d) > 128 (bwd_qouter_any).  One CTA per (query row b, BM
 // query rows) walking the q-outer schedule, as the dQ kernel: q (prescaled),
 // dO and the stats stay in shared memory and dQ accumulates in registers
 // (deterministic, scaled at the end).  The TPU kernel accumulates dK and dV
@@ -230,6 +234,26 @@ int bwd_qouter(const AttnArgs& a, cudaStream_t stream) {
                 bwd_smem(BM, BN, a.d, a.v_d, 2), a, stream);
 }
 
+// the fused q-outer backward: bf16 and fp16 with max(d, v_d) <= 128 on the
+// tensor-core body, everything else on the scalar body (native.bwd_body
+// mirrors this rule, as for bwd_fused_any).  body (nullable, host): 1 where
+// the launch took the tensor-core body, else 0.
+template <typename T>
+int bwd_qouter_any(const AttnArgs& a, cudaStream_t s, int* body) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (a.d <= 128 && a.v_d <= 128 && a.rule.q_len > 0 && a.rule.k_len > 0) {
+      if (body) *body = 1;
+      return tc::qouter_tc<T>(a, s);
+    }
+  }
+  if (body) *body = 0;
+  switch (dim_class(a)) {
+    case 0: return bwd_qouter<T, 64, 64, 128>(a, s);
+    case 1: return bwd_qouter<T, 32, 32, 256>(a, s);
+    default: return bwd_qouter<T, 16, 16, WIDE_COLS>(a, s);
+  }
+}
+
 template <typename T, int BM, int BN, int DMAX>
 int bwd_dq(const AttnArgs& a, cudaStream_t stream) {
   if (!blocks_ok(a, BM, BN)) return cudaErrorInvalidValue;
@@ -324,12 +348,14 @@ int fa_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v, con
 }
 
 // q prescaled; q-outer schedule; dq (B, q_len, d) = acc * scale; dk_acc
-// (B_kv, k_len, d) and dv_acc (B_kv, k_len, v_d) zeroed float32, unscaled
+// (B_kv, k_len, d) and dv_acc (B_kv, k_len, v_d) zeroed float32, unscaled;
+// body (nullable, one int out): 1 for the tensor-core body, 0 the scalar
 int fa_flash_bwd_qouter(int dtype, const void* q, const void* k, const void* v,
                         const void* dout, const float* lse2, const float* delta, void* dq,
                         float* dk_acc, float* dv_acc, const int* table, const int* counts,
                         const int* needs, int num_steps, int block_q, int block_kv, int B,
-                        int g, int d, int v_d, float scale, const FaRule* rule, void* stream) {
+                        int g, int d, int v_d, float scale, int* body, const FaRule* rule,
+                        void* stream) {
   AttnArgs a = make_args(q, k, v, B, g, d, v_d, rule);
   set_table(a, table, counts, needs, num_steps, block_q, block_kv);
   set_bwd(a, dout, lse2, delta);
@@ -338,14 +364,7 @@ int fa_flash_bwd_qouter(int dtype, const void* q, const void* k, const void* v,
   a.dv = dv_acc;
   a.out_scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, [&](auto tag) {
-    using T = decltype(tag);
-    switch (dim_class(a)) {
-      case 0: return bwd_qouter<T, 64, 64, 128>(a, s);
-      case 1: return bwd_qouter<T, 32, 32, 256>(a, s);
-      default: return bwd_qouter<T, 16, 16, WIDE_COLS>(a, s);
-    }
-  });
+  return dispatch(dtype, [&](auto tag) { return bwd_qouter_any<decltype(tag)>(a, s, body); });
 }
 
 // the tensor-core building blocks on one tile (tc::tile_check): a, k (64,

@@ -46,6 +46,8 @@
 
 #include <type_traits>
 
+#include "tc_common.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -700,8 +702,11 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
 }
 
 // ---------------------------------------------------------------------------
-// K2 paged_prefill.  Replaces serving/prefill.py::_prefill_kernel.  One
-// block per (q head, tile of kPfTQ chunk rows, DC of the D output columns)
+// K2 paged_prefill.  Replaces serving/prefill.py::_prefill_kernel.  Its
+// tensor-core body (prefill_tc.cuh) takes bf16 activations at
+// head_dim_store 128 on pages of a multiple of 64 tokens; this scalar body
+// takes the rest (float32 activations, other stored widths, pages of 8-32
+// tokens).  One block per (q head, tile of kPfTQ chunk rows, DC of the D output columns)
 // loops over the sequence's live pages [first_live, count).  Per page, in
 // sub-tiles of kPfTK keys (a page of fewer keys, or its ragged last
 // sub-tile, stages zeros past its end and leaves those columns alone) staged
@@ -924,6 +929,12 @@ paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
   }
 }
 
+}  // namespace
+
+#include "prefill_tc.cuh"
+
+namespace {
+
 // ---------------------------------------------------------------------------
 // Host-side dispatch on (activation type, payload type).
 
@@ -1066,6 +1077,7 @@ struct Prefill {
   float *l, *m;
   int chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages, page_stride, page_offset,
       start, total, first_live, count, window, log2_stride, is_local;
+  int* body;
   cudaStream_t stream;
   template <typename T, typename P, typename C, int DC, int DK>
   int launch() const {
@@ -1084,12 +1096,26 @@ struct Prefill {
         start, total, first_live, count, window, log2_stride, is_local);
     return static_cast<int>(cudaGetLastError());
   }
+  // the body: bf16 activations at head_dim_store 128 on pages of a multiple
+  // of 64 tokens on the tensor cores (native.prefill_body mirrors this
+  // rule), the rest on the scalar body; *body (nullable) says which the
+  // rule chose (1: the tensor cores), set before the launch, empty or not
   template <typename T, typename P, typename C>
   int run() const {
     if (page_size % Payload<P>::kPack || n_q % n_kv || d_store < 128 || d_store % 128 ||
         page_stride < 1 || page_offset < 0 || page_offset >= page_stride ||
         (l == nullptr) != (m == nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
+    if constexpr (std::is_same<T, bf16>::value) {
+      if (d_store == 128 && page_size % tc::kPfKeys == 0) {
+        const tc::PfArgs a{static_cast<const bf16*>(q), k_pages, v_pages, k_scales, v_scales,
+                           table_row, static_cast<bf16*>(o), l, m, chunk, n_q, n_kv, d,
+                           page_size, n_pages, max_pages, page_stride, page_offset, start, total,
+                           first_live, count, window, log2_stride, is_local};
+        return tc::prefill_tc<P>(a, d_store, body, stream);
+      }
+    }
+    if (body) *body = 0;
     if (chunk == 0) return 0;
     if (d_store == 128) return launch<T, P, C, 128, 128>();
     if (d_store == 256) return launch<T, P, C, 256, 256>();
@@ -1165,12 +1191,12 @@ int fa_paged_prefill(int act, int kv, const void* q, const void* k_pages, const 
                      void* o, void* l, void* m, int chunk, int n_q, int n_kv, int d,
                      int d_store, int page_size, int n_pages, int max_pages, int page_stride,
                      int page_offset, int start, int total, int first_live, int count,
-                     int window, int log2_stride, int is_local, void* stream) {
+                     int window, int log2_stride, int is_local, int* body, void* stream) {
   const Prefill f{q, k_pages, v_pages, static_cast<const float*>(k_scales),
                   static_cast<const float*>(v_scales), static_cast<const int*>(table_row), o,
                   static_cast<float*>(l), static_cast<float*>(m), chunk, n_q, n_kv, d,
                   d_store, page_size, n_pages, max_pages, page_stride, page_offset, start,
-                  total, first_live, count, window, log2_stride, is_local,
+                  total, first_live, count, window, log2_stride, is_local, body,
                   static_cast<cudaStream_t>(stream)};
   return dispatch(act, kv, f);
 }

@@ -1,8 +1,12 @@
-// The building blocks of the op path's tensor-core bodies for Hopper
-// (sm_90a), shared by the forward (attention_fwd_tc.cuh) and the backward
-// (attention_bwd_tc.cuh): mbarriers, TMA loads of 64-column boxes, the
-// 128-byte swizzle and its descriptors, the wgmma products the two bodies
-// take on bf16 and fp16, and the tensor-map encoder.
+// The building blocks of the port's tensor-core bodies for Hopper (sm_90a),
+// shared by the op path's forward (attention_fwd_tc.cuh) and backwards
+// (attention_bwd_tc.cuh, attention_qouter_tc.cuh) and the serving path's
+// prefill (prefill_tc.cuh): mbarriers, TMA loads of 64-column boxes (3-d
+// maps) and of paged rows (4-d maps), TMA reduce-adds, the 128-byte swizzle
+// and its descriptors, the wgmma products the bodies take on bf16 and fp16,
+// and the tensor-map encoder.  It needs no other header of the port, so the
+// serving source, whose helpers share names with attention_common.cuh's,
+// includes it too.
 //
 // Operands live in shared memory in the input type, in slabs of 64 columns
 // (128 bytes a row) in the 128-byte swizzle that wgmma's descriptors read;
@@ -15,14 +19,18 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 #include <string.h>
 
 #include <type_traits>
 
-#include "attention_common.cuh"
-
 namespace {
 namespace tc {
+
+typedef __nv_bfloat16 bf16;
 
 constexpr int kConsumers = 256;              // two consumer warpgroups
 constexpr int kSlabCols = 64;                // columns per 128-byte swizzled row
@@ -69,6 +77,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// one TMA box of a 4-d map at (c0, c1, c2, c3): the serving caches' paged
+// rows, (D, page rows, n_pages, n_kv), a physical page a coordinate
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
@@ -199,8 +219,9 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
   }
 }
 
-// D (64 x 128, float) += A B^T, A and B K-major in shared memory
-template <typename T>
+// D (64 x 128, float) += A B^T, A and B in shared memory: K-major, or
+// MN-major through the transpose bits TA (A) and TB (B)
+template <typename T, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db) {
   if constexpr (std::is_same<T, bf16>::value) {
     asm volatile(
@@ -212,7 +233,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
         "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
         "%60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0; }"
+        "%64, %65, p, 1, 1, %67, %68; }"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -224,7 +245,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
   } else {
     asm volatile(
         "{ .reg .pred p; setp.ne.b32 p, %66, 0; "
@@ -235,7 +256,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
         "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
         "%60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0; }"
+        "%64, %65, p, 1, 1, %67, %68; }"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -247,7 +268,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
   }
 }
 
@@ -433,23 +454,7 @@ __device__ __forceinline__ void stage_plain(unsigned char* dst, const T* src, in
   for (int i = id; i < rows * width; i += n) {
     const int r = i / width, c = i - r * width, gr = row0 + r, gc = col0 + c;
     *reinterpret_cast<T*>(dst + swz(r, c, rows)) =
-        gr < n_rows && gc < cols ? src[static_cast<size_t>(gr) * cols + gc] : from_f<T>(0.f);
-  }
-}
-
-// calls f(blk, masked) for every schedule block of row `row` of the walk,
-// in order: kTable the kv_table / kv_counts / needs_mask row, kBanded the
-// four band ints (masked prefix [seg0, i0), interior [i0, i1), masked
-// suffix)
-template <int WALK, typename F>
-__device__ __forceinline__ void for_each_block(const AttnArgs& a, int row, F&& f) {
-  if constexpr (WALK == kTable) {
-    const int n_steps = a.counts[row];
-    for (int step = 0; step < n_steps; ++step)
-      f(a.table[row * a.num_steps + step], a.needs[row * a.num_steps + step] != 0);
-  } else {
-    const int* seg = a.table + 4 * row;
-    for (int blk = seg[0]; blk < seg[3]; ++blk) f(blk, blk < seg[1] || blk >= seg[2]);
+        gr < n_rows && gc < cols ? src[static_cast<size_t>(gr) * cols + gc] : T(0.f);
   }
 }
 
@@ -483,20 +488,25 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a (cols, rows, batch) map of a contiguous (batch, rows, cols) tensor of
-// `elem` bytes a value, boxes of box_cols x box_rows, zeros out of bounds
-bool encode_map(CUtensorMap* map, CUtensorMapDataType ty, int elem, const void* ptr, int cols,
-                int rows, int batch, int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+// a map of a contiguous tensor of `elem` bytes a value, its RANK dims given
+// innermost first (cols, rows, then the outer dims: a batch, or a cache's
+// pages and heads), boxes of box_cols x box_rows (x 1 in the outer dims),
+// zeros out of bounds
+template <int RANK>
+bool encode_map(CUtensorMap* map, CUtensorMapDataType ty, int elem, const void* ptr,
+                const int (&dims)[RANK], int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * elem,
-                                 static_cast<cuuint64_t>(cols) * rows * elem};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return fn(map, ty, 3, const_cast<void*>(ptr), dims, strides, box, step,
+  cuuint64_t extent[RANK], strides[RANK - 1], stride = static_cast<cuuint64_t>(elem);
+  cuuint32_t box[RANK], step[RANK];
+  for (int i = 0; i < RANK; ++i) {
+    extent[i] = static_cast<cuuint64_t>(dims[i]);
+    if (i > 0) strides[i - 1] = stride;
+    stride *= extent[i];
+    box[i] = static_cast<cuuint32_t>(i == 0 ? box_cols : i == 1 ? box_rows : 1);
+    step[i] = 1;
+  }
+  return fn(map, ty, RANK, const_cast<void*>(ptr), extent, strides, box, step,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -506,7 +516,7 @@ template <typename T>
 bool tensor_map(CUtensorMap* map, const void* ptr, int cols, int rows, int batch, int box_rows) {
   const CUtensorMapDataType ty = std::is_same<T, bf16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                                               : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-  return encode_map(map, ty, 2, ptr, cols, rows, batch, kSlabCols, box_rows,
+  return encode_map(map, ty, 2, ptr, {cols, rows, batch}, kSlabCols, box_rows,
                     CU_TENSOR_MAP_SWIZZLE_128B);
 }
 

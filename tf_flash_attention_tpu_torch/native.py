@@ -83,16 +83,21 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-#: the last launch of each persistent walk (``resident_fwd`` and the three
-#: experiment forwards), as the launch reports it: ``grid`` (CTAs),
-#: ``items`` (work items), ``group_rows`` (the rows a group of the walk) and
-#: ``body``
+#: what the last launch of a kernel reported, by kernel: ``body``
+#: ("tensor-core" or "scalar") for ``flash_bwd_qouter``, ``paged_prefill``
+#: and ``paged_prefill[cp]``; for each persistent walk (``resident_fwd`` and
+#: the three experiment forwards) also ``grid`` (CTAs), ``items`` (work
+#: items) and ``group_rows`` (the rows a group of the walk)
 WALKS = {}
 
 
 def _walk(kernel: str, out) -> None:
     WALKS[kernel] = dict(grid=out[0], items=out[1], group_rows=out[2],
                          body="tensor-core" if out[3] else "scalar")
+
+
+def _body(kernel: str, body) -> None:
+    WALKS[kernel] = dict(body="tensor-core" if body.value else "scalar")
 
 
 def native_tile_classes(pack, rule, block_q: int, block_kv: int):
@@ -227,8 +232,8 @@ _SIGNATURES = {
         # act, kv, q, k_pages, v_pages, k_scales, v_scales, table_row, o, l,
         # m, chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages,
         # page_stride, page_offset, start, total, first_live, count, window,
-        # log2_stride, is_local (l, m nullable)
-        "fa_paged_prefill": [_I, _I] + [_P] * 9 + [_I] * 17,
+        # log2_stride, is_local, body (1 int out) (l, m nullable)
+        "fa_paged_prefill": [_I, _I] + [_P] * 9 + [_I] * 17 + [_P],
     },
     "attention_kernels.cu": {
         # dtype, q, k, v, o, l, m, table, counts, needs, num_steps, block_q,
@@ -244,8 +249,9 @@ _SIGNATURES = {
         # num_steps, block_q, block_kv, B, g, d, v_d, scale, rule
         "fa_flash_bwd_dkv": [_I] + [_P] * 11 + [_I] * 7 + [_F, _R],
         # dtype, q, k, v, dout, lse2, delta, dq, dk_acc, dv_acc, table,
-        # counts, needs, num_steps, block_q, block_kv, B, g, d, v_d, scale, rule
-        "fa_flash_bwd_qouter": [_I] + [_P] * 12 + [_I] * 7 + [_F, _R],
+        # counts, needs, num_steps, block_q, block_kv, B, g, d, v_d, scale,
+        # body (1 int out), rule
+        "fa_flash_bwd_qouter": [_I] + [_P] * 12 + [_I] * 7 + [_F, _P, _R],
         # dtype, a, k, v, s, o: the tensor-core building blocks on one tile
         "fa_tc_tile_check": [_I] + [_P] * 5,
         # dtype, x, y, z, dst, kt, st, o, dq: the tensor-core backward's
@@ -460,7 +466,8 @@ def paged_prefill(qs, cache, cfg, slot, start, total, first_live, count, rule,
                   returning_l_m=False, page_stride=1, page_offset=0):
     """Launch ``paged_prefill``: prescaled q (chunk, n_q, d) -> o, or (o, l,
     m) with l, m float32 (chunk, n_q); ``first_live`` and ``count`` are the
-    local page range."""
+    local page range.  ``prefill_body`` names the body; the launch's own
+    report is in ``WALKS``."""
     chunk, n_q, d = qs.shape
     act, kv = _codes(qs.dtype, cache, cfg)
     dims = _cache_dims(cache, cfg)
@@ -469,16 +476,49 @@ def paged_prefill(qs, cache, cfg, slot, start, total, first_live, count, rule,
         raise ValueError(f"paged_prefill takes a head_dim_store that is a multiple of {LANE}, "
                          f"got {D}")
     _check_smem(f"paged_prefill at head_dim_store {D}, page {page}",
-                4 * (64 * (D + 1) + 32 * (page + 1) + 2 * page + 96))
+                PREFILL_TC_SMEM if prefill_body(qs.dtype, cfg) == "tensor-core"
+                else prefill_smem(D, page))
     o = torch.empty_like(qs)
     l, m = _lm(qs, (chunk, n_q), returning_l_m)
     table_row = cache.page_tables[slot]
+    body = ctypes.c_int(0)
+    cp = returning_l_m or page_stride != 1
     _call("fa_paged_prefill", act, kv, qs.data_ptr(), cache.k_pages.data_ptr(),
           cache.v_pages.data_ptr(), _ptr(cache.k_scales), _ptr(cache.v_scales),
           table_row.data_ptr(), o.data_ptr(), _ptr(l), _ptr(m), chunk, n_q, cfg.n_kv_heads, d,
           cfg.head_dim_store, *dims, page_stride, page_offset, start, total, first_live, count,
-          *_rule_args(rule), cp=returning_l_m or page_stride != 1)
+          *_rule_args(rule), ctypes.byref(body), cp=cp)
+    _body("paged_prefill[cp]" if cp else "paged_prefill", body)
     return (o, l, m) if returning_l_m else o
+
+
+#: the keys of the tensor-core prefill's stages (a page holds whole stages)
+PREFILL_STAGE_KEYS = 64
+
+
+def prefill_body(act_dtype: torch.dtype, cfg) -> str:
+    """The body ``paged_prefill`` runs (the C dispatch ``Prefill::run``):
+    bf16 activations at ``head_dim_store`` 128 on pages of a multiple of 64
+    tokens on the tensor cores (every payload, flat and ``[cp]``); float32
+    activations (the lossless gate's), other stored widths and pages of 8,
+    16 or 32 tokens on the scalar body."""
+    tc = (act_dtype == torch.bfloat16 and cfg.head_dim_store == 128
+          and cfg.page_size % PREFILL_STAGE_KEYS == 0)
+    return "tensor-core" if tc else "scalar"
+
+
+def prefill_smem(D: int, page: int) -> int:
+    """Shared memory of the scalar prefill body: the float32 Q and K/V
+    sub-tiles (32 rows, stored width D), the 32 rows' scores over a page,
+    the page's scales and the row statistics (C ``Prefill::launch``)."""
+    return 4 * (64 * (D + 1) + 32 * (page + 1) + 2 * page + 96)
+
+
+#: the tensor-core prefill (C ``tc::kPfSmem``): 1 KB of alignment, Q (64
+#: rows of 128 bf16 columns), a ring of two 64-key stages, each its bf16 K
+#: and V tiles, the raw payload rows and the 64 K and V scales, and six
+#: barriers
+PREFILL_TC_SMEM = 1024 + 64 * 256 + 2 * (2 * 64 * 256 + 2 * 64 * 128 + 2 * 64 * 4) + 48
 
 
 # ---- the op path's attention kernels ----
@@ -600,18 +640,33 @@ TC_BWD_SMEM = (1024 + 2 * 2 * 128 * 128 + 2 * 2 * 2 * 64 * 128 + 2 * 128 * 128 +
                + 2 * 2 * 64 * 4 + 40)
 
 
-def bwd_body(dtype: torch.dtype, d: int, v_d: int) -> str:
-    """The body ``flash_bwd_fused`` and ``banded_bwd`` run (the C dispatch
-    ``bwd_fused_any``): bf16 and fp16 with max(d, v_d) <= 128 on the tensor
-    cores, everything else on the scalar body."""
-    tc = dtype in (torch.bfloat16, torch.float16) and max(d, v_d) <= 128
+def bwd_body(dtype: torch.dtype, d: int, v_d: int, q_len: int = 1, k_len: int = 1) -> str:
+    """The body ``flash_bwd_fused``, ``banded_bwd`` and ``flash_bwd_qouter``
+    run (the C dispatches ``bwd_fused_any`` and ``bwd_qouter_any``): bf16 and
+    fp16 with max(d, v_d) <= 128 on the tensor cores, everything else, and
+    an empty q or k, on the scalar body."""
+    tc = (dtype in (torch.bfloat16, torch.float16) and max(d, v_d) <= 128
+          and q_len > 0 and k_len > 0)
     return "tensor-core" if tc else "scalar"
 
 
-def _check_bwd_smem(name: str, dtype: torch.dtype, d: int, v_d: int) -> None:
-    """The fused table and banded backwards, on the body they run."""
+#: the tensor-core q-outer backward (``attention_qouter_tc.cuh``): 128 query
+#: rows a CTA, Q and dO whole and a ring of two 64-key K / V stages, all in
+#: 128-byte swizzled slabs of 64 columns (d and v_d padded to 128), the
+#: T(P) and T(dS) tiles (128 rows x 64 keys), a float (64, 128) partial per
+#: consumer warpgroup, the rows' lse2 and delta, 1 KB of alignment and the
+#: barriers (C ``kQoSmem``)
+QOUTER_TC_SMEM = (1024 + 2 * 2 * 128 * 128 + 2 * 2 * 2 * 64 * 128 + 2 * 128 * 128
+                  + 2 * 64 * 128 * 4 + 2 * 128 * 4 + 40)
+
+
+def _check_bwd_smem(name: str, dtype: torch.dtype, d: int, v_d: int, q_len: int = 1,
+                    k_len: int = 1) -> None:
+    """The fused table, banded and q-outer backwards, on the body they run."""
+    tc = QOUTER_TC_SMEM if name == "flash_bwd_qouter" else TC_BWD_SMEM
     _check_smem(f"{name} at d {d}, v_d {v_d}",
-                TC_BWD_SMEM if bwd_body(dtype, d, v_d) == "tensor-core" else bwd_smem(d, v_d, 2))
+                tc if bwd_body(dtype, d, v_d, q_len, k_len) == "tensor-core"
+                else bwd_smem(d, v_d, 2))
 
 
 def _check_fwd_smem(name: str, dtype: torch.dtype, d: int, v_d: int) -> None:
@@ -712,7 +767,7 @@ def flash_bwd_fused(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, tables_t, b
     unscaled float32 dQ accumulator (B, q_len, d), dk and dv."""
     code = _check_attn(q_scaled, k, v, rule_c, do, (lse2, delta))
     B, q_len, d = q_scaled.shape
-    _check_bwd_smem("flash_bwd_fused", q_scaled.dtype, d, v.shape[2])
+    _check_bwd_smem("flash_bwd_fused", q_scaled.dtype, d, v.shape[2], q_len, k.shape[1])
     dq_acc = torch.zeros((B, q_len, d), dtype=torch.float32, device=q_scaled.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _call("fa_flash_bwd_fused", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -794,7 +849,7 @@ def banded_bwd(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, seg_t, block_q, 
     the dQ product and its reduction, and the dQ accumulator is ``None``."""
     code = _check_attn(q_scaled, k, v, rule_c, do, (lse2, delta))
     B, q_len, d = q_scaled.shape
-    _check_bwd_smem("banded_bwd", q_scaled.dtype, d, v.shape[2])
+    _check_bwd_smem("banded_bwd", q_scaled.dtype, d, v.shape[2], q_len, k.shape[1])
     if not with_dq and bwd_body(q_scaled.dtype, d, v.shape[2]) != "tensor-core":
         raise ValueError("only the tensor-core body of banded_bwd runs without dQ")
     dq_acc = torch.zeros((B, q_len, d), dtype=torch.float32,
@@ -851,17 +906,21 @@ def resident_fwd(q_scaled, k, v, rule_c: FaRule, seg, block_q, block_kv):
 def flash_bwd_qouter(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, tables, block_q,
                      block_kv, scale):
     """Launch ``flash_bwd_qouter`` (q-outer schedule); returns dq (B, q_len,
-    d) and the unscaled float32 dK and dV accumulators (B_kv, k_len, ·)."""
+    d) and the unscaled float32 dK and dV accumulators (B_kv, k_len, ·).
+    ``bwd_body`` names the body; the launch's own report is in ``WALKS``."""
     code = _check_attn(q_scaled, k, v, rule_c, do, (lse2, delta))
     B, q_len, d = q_scaled.shape
-    _check_smem(f"flash_bwd_qouter at d {d}, v_d {v.shape[2]}", bwd_smem(d, v.shape[2], 2))
+    v_d = v.shape[2]
+    _check_bwd_smem("flash_bwd_qouter", q_scaled.dtype, d, v_d, q_len, k.shape[1])
     dq = torch.empty_like(q_scaled)
     dk_acc = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv_acc = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    body = ctypes.c_int(0)
     _call("fa_flash_bwd_qouter", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
           do.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk_acc.data_ptr(),
           dv_acc.data_ptr(), *_sched_args(tables, block_q, block_kv), B, B // k.shape[0], d,
-          v.shape[2], float(scale), ctypes.byref(rule_c))
+          v_d, float(scale), ctypes.byref(body), ctypes.byref(rule_c))
+    _body("flash_bwd_qouter", body)
     return dq, dk_acc, dv_acc
 
 

@@ -9,20 +9,26 @@ Phases (any failure exits non-zero before the final line):
   1. build: compiles every kernel source in csrc/ with nvcc, one process
      per source, all at once; prints each source's seconds and ptxas's
      registers, spills and serialized wgmma of the experiment forwards, the
-     tensor-core q-outer backward and prefill, and any kernel that spills;
+     tensor-core q-outer backward, prefill and decode, and any kernel that
+     spills (a spill of the tensor-core decode body fails);
   2. kernels: each of the four serving kernels against its plain PyTorch
      version on the card, at the serving slice's shapes (int8 cache, 8 kv
      heads, d 128, page 256, chunk 512, 16 slots), plus a GQA (8 q / 2 kv)
      case and an unquantized bf16 case; the KV writes must match bit for
      bit outside the trash page, the attention kernels within 2 bf16 ulps
      at the output's scale, no floor; prints errors, median times (CUDA
-     events) and bounds, and the body each paged_prefill launch ran (it
-     must be the one native.prefill_body names: the tensor cores for bf16
-     activations at head_dim_store 128 on pages of a multiple of 64); on the
-     tensor-core body, the int8 case also times one
-     scaled_dot_product_attention on the chunk's K/V gathered and widened to
-     bf16 beforehand, with the causal offset mask (row 13's library
-     yardstick);
+     events), each kernel's own device time from torch.profiler
+     (kernel_ms: no host launch cost in it) and bounds, and the body each
+     paged_prefill and decode launch ran (it must be the one
+     native.prefill_body / native.decode_body names: the tensor cores for
+     bf16 activations at head_dim_store 128 on pages of a multiple of 64,
+     and for the decodes also pages of 16 or 32), with the decodes' splits
+     and CTAs; two calls of each decode must give bit-equal outputs; the
+     attention kernels' library yardstick is one
+     scaled_dot_product_attention on the K/V gathered and widened to bf16
+     beforehand, with the causal offset mask (the prefill's on the tensor-core
+     body; the decodes' on every slot, padded to the longest, a causal bound
+     a query row);
   2b. the same for fp8 e4m3, fp8 e5m2 and int4 caches (int4 also at page
      512), and paged_multitoken_decode at gamma 4 on int8, bf16, fp8 e4m3
      and int4 caches, at 8/8 heads and GQA 8 q / 2 kv; then shapes the JAX
@@ -55,7 +61,9 @@ Phases (any failure exits non-zero before the final line):
      stride and offset; kv_chunk_write on int8 and int4) on every shard
      against their plain versions, at 16 slots, int8, page 256, global
      lengths 1,000-16,000, 8/8 heads and GQA 8 q / 2 kv; the merge of the
-     4 shards against the flat kernel on the same tokens; (b) the 168M
+     4 shards against the flat kernel on the same tokens; two calls of each
+     decode variant bit-equal on every shard, its body the one
+     native.decode_body names; shard 0's times with kernel_ms; (b) the 168M
      engine with cp = 4 (int8, page 256, 8 slots, 16 local pages a
      sequence, 129 pages a shard) on 8 requests of 4,000-15,000 prompt
      tokens, and with speculation on 4 pattern prompts, against the flat
@@ -84,7 +92,11 @@ Phases (any failure exits non-zero before the final line):
      fp16 causal at (16, 1024, 128), banded and table; (l) bf16 causal at
      d = 576, v_d = 64, (8, 1024), banded and resident (d past the
      tensor-core classes: the scalar forward); (m) the resident route on
-     fp16 at (16, 1024, 128); (h) the
+     fp16 at (16, 1024, 128); (n) a custom mask rule (causal on a
+     checkerboard of 32-position squares, every tile live and none fully
+     visible: the kernels read its granule mask, kind 3) on every route it
+     takes, bf16 at (8, 1024, 128) auto, table, split and resident, float32
+     at (4, 1024, 64) auto and table, and the bf16 q-outer backward; (h) the
      q-outer backward, which only a direct call with fused="q" reaches, as
      in the JAX package (bf16 at d 128: the tensor-core q-outer body, as
      its launch reports it), timed at (h)'s shape beside flash_bwd_fused and
@@ -230,6 +242,33 @@ def time_ms(fn, n=20):
     return device_time(fn, (), n=max(1, n // 5), reps=5) * 1e3
 
 
+def kernel_ms(fn, names, n=20):
+    """The kernels' own device time per ``fn()`` in ms: torch.profiler's
+    device time of the kernels whose names contain one of ``names``, summed
+    over ``n`` calls after a warm-up, over ``n``.  None where the profiler
+    saw none of them (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(k in e.name for k in names))
+    return total / 1e3 / n if total else None
+
+
+#: the CUDA kernels of each serving wrapper, by name, as the profiler lists them
+SERVING_KERNEL_NAMES = {"paged_decode": ("decode_tc_kernel", "paged_decode_kernel"),
+                        "paged_prefill": ("prefill_tc_kernel", "paged_prefill_kernel"),
+                        "kv_chunk_write": ("kv_chunk_write_kernel",),
+                        "kv_append": ("kv_append_kernel",)}
+SERVING_KERNEL_NAMES["paged_multitoken_decode"] = SERVING_KERNEL_NAMES["paged_decode"]
+
+
 def bound(n_bytes, n_ops, ops_type):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate and
     the operations over the peak of their type, at the H100 SXM's published
@@ -344,8 +383,29 @@ def kernel_case(name, n_q, n_kv, payload, dev, gen, page_size=256, gamma=None, d
 
     def record(kernel, err, kern, plain, n_bytes, n_ops):
         b_ms, b_by = bound(n_bytes, n_ops, "bf16")
-        out[kernel] = dict(err=err, ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=b_ms,
-                           bound_by=b_by)
+        out[kernel] = dict(err=err, ms=time_ms(kern),
+                           kernel_ms=kernel_ms(kern, SERVING_KERNEL_NAMES[kernel]),
+                           plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by)
+
+    def check_decode(kernel, fn, ref, q_rows):
+        """A decode case on the card: within attn_tol of its plain version,
+        the empty slot exact zeros, two calls bit-equal, the body
+        native.decode_body names; then the library yardstick, one
+        scaled_dot_product_attention on every slot's K/V gathered and
+        widened to bf16 beforehand with the per-row causal offset mask."""
+        o = fn()
+        err = check_attn(kernel, o, ref)
+        if not torch.equal(o[3], torch.zeros_like(o[3])):
+            fail(f"{name}: {kernel} empty slot is not zero")
+        if not torch.equal(fn(), o):
+            fail(f"{name}: two calls of {kernel} differ")
+        ran = decode_ran(kernel, cfg, name)
+        lib, lib_o = decode_library(q_rows, cache, cfg, lengths)
+        lib_o = lib_o.reshape(ref.shape)
+        live = torch.tensor([n > 0 for n in lengths], device=dev)
+        ran.update(deterministic=True, library_ms=time_ms(lib),
+                   library_err=float((lib_o[live].float() - ref[live].float()).abs().max()))
+        return err, ran
 
     def check_attn(kernel, o, ref):
         torch.cuda.synchronize()
@@ -357,17 +417,16 @@ def kernel_case(name, n_q, n_kv, payload, dev, gen, page_size=256, gamma=None, d
     if gamma is not None:
         # K5 paged_multitoken_decode: every live slot's lengths count gamma drafts
         q = torch.randn((S, gamma, n_q, d), generator=gen, device=dev).to(bf)
-        o = decode.paged_multitoken_decode(q, cache, cfg)
         ref = decode._paged_multitoken_decode_plain(q, cache, cfg, scale, rule)
-        err = check_attn("paged_multitoken_decode", o, ref)
-        if not torch.equal(o[3], torch.zeros_like(o[3])):
-            fail(f"{name}: paged_multitoken_decode empty slot is not zero")
+        err, ran = check_decode("paged_multitoken_decode",
+                                lambda: decode.paged_multitoken_decode(q, cache, cfg), ref, q)
         live = sum(lengths)
         pairs = sum(n - gamma + i + 1 for n in lengths if n for i in range(gamma))
         record("paged_multitoken_decode", err,
                lambda: native.paged_multitoken_decode(q, cache, cfg, scale * LOG2E, rule),
                lambda: decode._paged_multitoken_decode_plain(q, cache, cfg, scale, rule),
                2 * n_kv * live * tok + 2 * q.numel() * act, 4 * n_q * d * pairs)
+        out["paged_multitoken_decode"].update(ran)
     else:
         # K3 kv_chunk_write: a chunk crossing pages, with padding rows (an odd
         # true_len: an int4 byte row half padding)
@@ -406,16 +465,16 @@ def kernel_case(name, n_q, n_kv, payload, dev, gen, page_size=256, gamma=None, d
 
         # K1 paged_decode
         q = torch.randn((S, n_q, d), generator=gen, device=dev).to(bf)
-        o = decode.paged_decode_attention(q, cache, cfg)
         ref = decode._paged_decode_plain(q, cache, cfg, scale, rule)
-        err = check_attn("paged_decode", o, ref)
-        if not torch.equal(o[3], torch.zeros_like(o[3])):
-            fail(f"{name}: paged_decode empty slot is not zero")
+        err, ran = check_decode("paged_decode",
+                                lambda: decode.paged_decode_attention(q, cache, cfg), ref,
+                                q[:, None])
         live = sum(lengths)
         record("paged_decode", err,
                lambda: native.paged_decode(q, cache, cfg, scale * LOG2E, rule),
                lambda: decode._paged_decode_plain(q, cache, cfg, scale, rule),
                2 * n_kv * live * tok + 2 * q.numel() * act, 4 * n_q * d * live)
+        out["paged_decode"].update(ran)
 
         # K2 paged_prefill: a chunk at position 1024 of slot 0 (a cached prefix)
         start, true_len = 1024, 512
@@ -449,10 +508,12 @@ def kernel_case(name, n_q, n_kv, payload, dev, gen, page_size=256, gamma=None, d
                                         library_err=float((lib_o.float() - ref.float())
                                                           .abs().max()))
     for kname, r in out.items():
-        extra = "".join(f" {x}={json.dumps(r[x])}" for x in ("body", "library_ms") if x in r)
+        extra = "".join(f" {x}={json.dumps(r[x])}" for x in ("body", "splits", "ctas",
+                                                             "library_ms", "library_err")
+                        if x in r)
         print(f"kernel {name} {kname}: max_abs_err={r['err']} ms={r['ms']} "
-              f"plain_ms={r['plain_ms']} bound_ms={r['bound_ms']} ({r['bound_by']}){extra}",
-              flush=True)
+              f"kernel_ms={json.dumps(r['kernel_ms'])} plain_ms={r['plain_ms']} "
+              f"bound_ms={r['bound_ms']} ({r['bound_by']}){extra}", flush=True)
     return out
 
 
@@ -466,6 +527,41 @@ def prefill_ran(kernel, cfg, label, act=torch.bfloat16):
         fail(f"{label}: {kernel} ran the {ran['body']} body, prefill_body names "
              f"{native.prefill_body(act, cfg)}")
     return ran
+
+
+def decode_ran(kernel, cfg, label, act=torch.bfloat16):
+    """What the last launch of a decode kernel (or its [cp] variant)
+    reported: its body, splits and CTAs; fails unless the body is the one
+    ``native.decode_body`` names for these activations and cache."""
+    from tf_flash_attention_tpu_torch import native
+    ran = dict(native.WALKS[kernel])
+    if ran["body"] != native.decode_body(act, cfg):
+        fail(f"{label}: {kernel} ran the {ran['body']} body, decode_body names "
+             f"{native.decode_body(act, cfg)}")
+    return ran
+
+
+def decode_library(q, cache, cfg, lengths):
+    """The decode's library yardstick: one scaled_dot_product_attention on
+    every slot's K/V gathered and widened to bf16 beforehand (padded to the
+    longest slot), query row i of a slot of length n seeing keys up to n -
+    gamma + i.  q (S, gamma, n_q, d).  Returns (the call, its output as (S,
+    gamma, n_q, d)); an empty slot's rows are NaN there."""
+    S, gamma, n_q, d = q.shape
+    top = max(lengths)
+    k_all = torch.zeros((S, cfg.n_kv_heads, top, d), dtype=torch.bfloat16, device=q.device)
+    v_all = torch.zeros_like(k_all)
+    for b, n in enumerate(lengths):
+        if n:
+            k_all[b, :, :n], v_all[b, :, :n] = gathered_kv(cache, cfg, b, n)
+    n_t = torch.tensor(lengths, device=q.device)
+    mask = (torch.arange(top, device=q.device)[None, None, :]
+            <= (n_t[:, None, None] - gamma + torch.arange(gamma, device=q.device)[None, :, None]))
+    q4 = q.permute(0, 2, 1, 3)                        # (S, n_q, gamma, d)
+    gqa = dict(enable_gqa=True) if n_q != cfg.n_kv_heads else {}
+    lib = lambda: F.scaled_dot_product_attention(q4, k_all, v_all, attn_mask=mask[:, None],
+                                                 **gqa)
+    return lib, lib().permute(0, 2, 1, 3)
 
 
 def gathered_kv(cache, cfg, slot, total):
@@ -493,10 +589,14 @@ def build_report(native):
               f"{max((k['registers'] for k in kernels), default=0)} registers", flush=True)
         for k in kernels:
             if (src == "exp_forward_kernels.cu" or k["spill_stores"] or k["warnings"]
-                    or any(b in k["name"] for b in ("qouter_tc", "prefill_tc"))):
+                    or any(b in k["name"] for b in ("qouter_tc", "prefill_tc", "decode_tc"))):
                 print(f"  ptxas {k['name']}: {k['registers']} registers, spill stores "
                       f"{k['spill_stores']} B, loads {k['spill_loads']} B; "
                       f"{'; '.join(k['warnings']) or 'no warnings'}", flush=True)
+        spilled = [k["name"] for k in kernels if "decode_tc" in k["name"]
+                   and (k["spill_stores"] or k["spill_loads"])]
+        if spilled:
+            fail(f"the tensor-core decode body spills: {spilled}")
 
 
 def main():
@@ -679,9 +779,8 @@ def main():
     }
     path_of["paged_multitoken_decode"] = "speculative engine (phase 3b)"
     # serving kernels: time and bound of the int8 slice case (phase 2), each
-    # payload's beside it; of them only paged_prefill has a single PyTorch
-    # call of the same function (phase 2's scaled_dot_product_attention on the
-    # gathered K/V)
+    # payload's beside it; the attention kernels' library time is phase 2's
+    # scaled_dot_product_attention on the gathered K/V (the writes have none)
     measured = {k: {"library_ms": None, **cases["int8"][k]} for k in native.SERVING_KERNELS}
     measured.update(op)
     lines = []
@@ -692,8 +791,9 @@ def main():
                  "max_abs_err": m["err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
                  "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                  "library_ms": m["library_ms"],
-                 **{x: m[x] for x in ("body", "library_err", "ms_without_dq", "grid", "items",
-                                      "group_rows", "kernel_ms", "gqa") if x in m}}
+                 **{x: m[x] for x in ("body", "splits", "ctas", "deterministic", "library_err",
+                                      "ms_without_dq", "grid", "items", "group_rows",
+                                      "kernel_ms", "gqa") if x in m}}
         if k in native.SERVING_KERNELS:
             entry["payloads_held"] = [pl for pl, c in cases.items() if k in c]
             entry["ms_by_payload"] = {pl: c[k]["ms"] for pl, c in cases.items() if k in c}
@@ -718,8 +818,9 @@ def main():
                       "path": "cp engine (phase 3e)", "max_abs_err": m["err"], "ms": m["ms"],
                       "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                       "bound_by": m["bound_by"], "library_ms": None,
-                      **{x: m[x] for x in ("body", "l_err", "m_err", "merge_err", "cp_step_ms",
-                                           "flat_ms") if x in m}})
+                      **{x: m[x] for x in ("body", "splits", "ctas", "deterministic",
+                                           "kernel_ms", "l_err", "m_err", "merge_err",
+                                           "cp_step_ms", "flat_ms") if x in m}})
     # the experiment tools' kernels: the numbers of each tool's first
     # variant, every variant's under "variants" (phase 8)
     for k in native.EXPERIMENT_KERNELS:
@@ -779,9 +880,12 @@ def serve(label, eng, reqs, n_new, vocab):
     # the last launch's report stands for the run's)
     bodies = {k: prefill_ran(k, eng.ccfg, label, eng.mcfg.dtype)
               for k in ("paged_prefill", "paged_prefill[cp]") if launches[k]}
+    bodies.update({k: decode_ran(k, eng.ccfg, label, eng.mcfg.dtype)
+                   for k in ("paged_decode", "paged_decode[cp]", "paged_multitoken_decode",
+                             "paged_multitoken_decode[cp]") if launches[k]})
     print(f"{label}: {len(rids)} requests, stats {json.dumps(st)}, prefix hits "
           f"{eng.prefix_cache.hits if eng.prefix_cache else None}, launches "
-          f"{json.dumps(launches)}, prefill bodies {json.dumps(bodies)}", flush=True)
+          f"{json.dumps(launches)}, attention bodies {json.dumps(bodies)}", flush=True)
     rate = st['prefill_tokens'] / prefill_s[0]
     before = PREFILL_TOKS_BEFORE.get(label)
     beside = "" if before is None else f" (on the scalar prefill: {before}, {rate / before:.3f}x)"
@@ -996,8 +1100,13 @@ def cp_kernel_case(label, n_q, n_kv, dev, gen, timed):
             parts = []
             for r, sc in enumerate(shards):
                 got = fn(qq, sc, cfg, rule=rule, global_lengths=glob, **shard(r))
+                ran = decode_ran(variant, cfg, label)
+                again = fn(qq, sc, cfg, rule=rule, global_lengths=glob, **shard(r))
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"{label}: two calls of {variant} (shard {r}) differ")
                 want = plain(qq, sc, cfg, scale, rule, True, n, r, glob)
                 check(variant, got, want, want[0])
+                out[variant].update(ran, deterministic=True)
                 parts.append(got)
             check_merge(variant, parts, fn(qq, flat, flat_cfg, rule=rule))
     # paged_prefill[cp]: a 512-token chunk at 12,288 of slot 0
@@ -1079,8 +1188,11 @@ def cp_kernel_case(label, n_q, n_kv, dev, gen, timed):
     }
     for variant, (kern, plain, n_bytes, n_ops) in runs.items():
         b_ms, b_by = bound(n_bytes, n_ops, "bf16")
-        out[variant].update(ms=time_ms(kern), plain_ms=time_ms(plain, n=5), bound_ms=b_ms,
-                            bound_by=b_by)
+        out[variant].update(ms=time_ms(kern),
+                            kernel_ms=kernel_ms(kern, SERVING_KERNEL_NAMES[variant[:-4]]),
+                            plain_ms=time_ms(plain, n=5), bound_ms=b_ms, bound_by=b_by)
+        if variant.startswith("paged_"):    # the timed launch's report (shard 0, causal)
+            out[variant].update(native.WALKS[variant])
     # the whole context-parallel decode (4 launches and the merge) against
     # the flat kernel over the same tokens
     out["paged_decode[cp]"]["cp_step_ms"] = time_ms(
@@ -1183,7 +1295,8 @@ def step_profile(label, eng, prompts, n_steps=3):
     for e in prof.events():             # the kernels themselves, each once
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        name = next((k for k in ("paged_decode", "kv_append") if f"{k}_kernel" in e.name),
+        name = next((k for k in ("paged_decode", "kv_append")
+                     if any(n in e.name for n in SERVING_KERNEL_NAMES[k])),
                     "matmul" if any(s in e.name.lower() for s in ("gemm", "nvjet", "cutlass"))
                     else "other")
         classes[name] = classes.get(name, 0.0) + e.device_time_total / 1e3 / n_steps
@@ -1355,7 +1468,7 @@ def op_phase(dev):
     from tf_flash_attention_tpu_torch import api, native
     from tf_flash_attention_tpu_torch.block_sizes import choose_block_config
     from tf_flash_attention_tpu_torch.flops import matmul_flops_forward
-    from tf_flash_attention_tpu_torch.mask_rules import CausalRule, LocalRule
+    from tf_flash_attention_tpu_torch.mask_rules import CausalRule, LocalRule, MaskRule
     from tf_flash_attention_tpu_torch.ops import backward, forward
     from tf_flash_attention_tpu_torch.parallel.sharded import mha
     from tf_flash_attention_tpu_torch.sync_modes import make_sync_pack
@@ -1444,6 +1557,52 @@ def op_phase(dev):
     # (m) the resident route on fp16 (the tensor-core body's fp16 walk)
     case("(m) causal f16 resident", causal, (cf(q16), cf(k16), cf(v16)), cf(do16), f16_types,
          RESIDENT)
+
+    # (n) a custom mask rule, causal on a checkerboard of 32-position squares
+    # with conservative tile tests (every tile live, none fully visible): its
+    # check reaches the op bodies through its granule mask (kind 3) on every
+    # route it takes (auto, the table kernels, the split pair, the resident
+    # forward, and below the q-outer backward), bf16 at d 128 (the
+    # tensor-core bodies) and float32 (the scalar bodies)
+    class Checker(MaskRule):
+        def check(self, pack, q_coords, k_coords, q_flat, k_flat):
+            return (q_flat >= k_flat) & ((q_flat // 32 + k_flat // 32) % 2 == 0)
+
+        def tile_live(self, pack, *bounds):
+            return bounds[-1] == bounds[-1]
+
+        def tile_fully_visible(self, pack, *bounds):
+            return bounds[-1] != bounds[-1]
+
+    checker = Checker()
+    if native.fa_rule(make_sync_pack("none_front", (64,), (64,)), checker,
+                      dev).kind != native.CUSTOM_KIND:
+        fail("(n): a custom rule is not the kernels' custom kind")
+    custom = lambda Q, K, V: api.flash_attention(Q, K, V, rule=checker, returning_l_m=True)
+    qn, kn, vn, don = (randn((8, 1024, 128), bf) for _ in range(4))
+    for env_name, env in (("auto", None), ("table", TABLE_ONLY), ("split", SPLIT),
+                          ("resident", RESIDENT)):
+        case(f"(n) custom bf16 {env_name}", custom, (cf(qn), cf(kn), cf(vn)), cf(don),
+             slice_types, env)
+    qc, kc, vc, doc = (randn((4, 1024, 64), f32) for _ in range(4))
+    for env_name, env in (("auto", None), ("table", TABLE_ONLY)):
+        case(f"(n) custom f32 {env_name}", custom, (cf(qc), cf(kc), cf(vc)), cf(doc),
+             (f32,) * 6, env)
+    pack_n = make_sync_pack("none_front", (1024,), (1024,))
+    cfg_n = choose_block_config(128, 128)
+    on, ln, mn = forward.flash_forward(qn, kn, vn, pack=pack_n, rule=checker, config=cfg_n)
+    native.reset_launch_counts()
+    got = backward.flash_backward(qn, kn, vn, on, ln, mn, don, pack=pack_n, rule=checker,
+                                  config=cfg_n, fused="q")
+    torch.cuda.synchronize()
+    if not native.LAUNCHES["flash_bwd_qouter"]:
+        fail("(n) custom q-outer: flash_bwd_qouter did not launch")
+    lse2n, deltan = backward.backward_stats(on, ln, mn, don)
+    want = backward._flash_backward_plain(qn, kn, vn, don, lse2n, deltan, pack_n, checker,
+                                          128 ** -0.5, True)
+    e_n = compare("(n) custom bf16 q-outer", ("dq", "dk", "dv"), got, want, (bf,) * 3)
+    print(f"op (n) custom bf16 q-outer (direct call): body "
+          f"{native.WALKS['flash_bwd_qouter']['body']}; max_abs_err bwd {e_n}", flush=True)
     op_launches = {}
     for launches in per_case.values():
         for kn, n in launches.items():

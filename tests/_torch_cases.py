@@ -23,3 +23,24 @@ def fuzz_case(run):
         k_seq = tuple(int(x) for x in rng.integers(3, 20, 2))
     d, v_d = (int(x) for x in rng.integers(8, 65, 2))
     return kind, kw, sync, q_seq, k_seq, d, v_d, int(rng.integers(1, 3))
+
+
+class CheckerCausal:
+    """A custom mask rule, mixed into either package's ``MaskRule``: causal,
+    and visible only where ``(q_flat // 32 + k_flat // 32) % 2 == 0`` (a
+    checkerboard of 32-position squares), with conservative tile tests
+    (every tile live, none fully visible).  Written with operators only, so
+    one ``check`` runs on numpy, torch and jnp."""
+
+    is_full = False
+
+    def check(self, pack, q_coords, k_coords, q_flat, k_flat):
+        return (q_flat >= k_flat) & ((q_flat // 32 + k_flat // 32) % 2 == 0)
+
+    def tile_live(self, pack, q_coord_lo, q_coord_hi, k_coord_lo, k_coord_hi,
+                  q_flat_lo, q_flat_hi, k_flat_lo, k_flat_hi):
+        return k_flat_lo == k_flat_lo  # all-True
+
+    def tile_fully_visible(self, pack, q_coord_lo, q_coord_hi, k_coord_lo, k_coord_hi,
+                           q_flat_lo, q_flat_hi, k_flat_lo, k_flat_hi):
+        return k_flat_lo != k_flat_lo  # all-False

@@ -31,15 +31,26 @@ from tf_flash_attention_tpu_torch.ops import reference as tref
 from tf_flash_attention_tpu_torch.sync_modes import make_sync_pack as tpack
 from tf_flash_attention_tpu_torch.utils import dtypes as tdtypes
 
-from _torch_cases import fuzz_case
+from _torch_cases import CheckerCausal, fuzz_case
 from test_kernels import ATTENTION_CASES, CASE_MATRIX, SHAPES_1D, SHAPES_2D, SMALL_BLOCKS
 
 BLOCKS = BlockConfig(128, 128, 128, 128, 128, 128)
 _JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
 
 
+class _JaxChecker(CheckerCausal, fa.mask_rules.MaskRule):
+    pass
+
+
+class _PortChecker(CheckerCausal, trules.MaskRule):
+    pass
+
+
 def _port_rule(rule):
-    """The port's rule equal to a JAX package rule (the carried copies)."""
+    """The port's rule equal to a JAX package rule (the carried copies, or
+    the shared custom rule)."""
+    if isinstance(rule, _JaxChecker):
+        return _PortChecker()
     return trules.make_rule(
         {"FullRule": "full", "CausalRule": "causal", "LocalRule": "local"}[type(rule).__name__],
         **({} if not hasattr(rule, "window_size") else dict(
@@ -434,6 +445,12 @@ ROUTE_CASES = {
                      {"FA_FUSED_BWD": "0"}),
     "causal_resident": (ATTENTION_CASES["causal"], "none_front", (1024,), (1024,), 1,
                         {"FA_RESIDENT": "1"}),
+    # a custom rule routes by its tile tests, as a built-in one does
+    "custom_1d": (_JaxChecker(), "scale_front", (1024,), (1024,), 1, {}),
+    "custom_2d": (_JaxChecker(), "scale_end", (32, 48), (48, 32), 1, {}),
+    "custom_gqa4": (_JaxChecker(), "none_front", (512,), (512,), 4, {}),
+    "custom_switches_off": (_JaxChecker(), "none_front", (512,), (512,), 1,
+                            {v: "0" for v in _SWITCHES}),
 }
 
 
@@ -563,12 +580,78 @@ def test_kernel_wrappers_refuse_what_they_cannot_launch():
         def check(self, pack, q_coords, k_coords, q_flat, k_flat):
             return (q_flat + k_flat) % 2 == 0
 
-    with pytest.raises(NotImplementedError):
-        native.fa_rule(pack, EveryOther())
+        def tile_live(self, pack, *bounds):
+            return bounds[-1] == bounds[-1]
+
+        def tile_fully_visible(self, pack, *bounds):
+            return bounds[-1] != bounds[-1]
+
+    # a custom rule is kind 3: its check through a granule mask on the device
+    r = native.fa_rule(pack, EveryOther(), "cpu")
+    assert (r.kind, r.mask_cols) == (native.CUSTOM_KIND, 1)
+    assert r.mask_index and r.mask_bits
+    # the schedule needs the tile tests too: a rule with only check raises
+    class CheckOnly(trules.MaskRule):
+        check = EveryOther.check
+
+    with pytest.raises(NotImplementedError, match="tile_live"):
+        native.fa_rule(pack, CheckOnly(), "cpu")
     # the plain versions take any rule
     o = ta.flash_attention(x.transpose(1, 2), x.transpose(1, 2), x.transpose(1, 2),
                            rule=EveryOther(), block_config=BLOCKS)
     assert o.shape == (2, 16, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("seq_dims", [1, 2], ids=["1d", "2d"])
+def test_custom_rule_matches_jax_kernels(seq_dims, dtype):
+    """A custom rule (``CheckerCausal``: causal on a checkerboard of
+    32-position squares, every tile live and none fully visible) through
+    JAX's ``flash_attention`` in interpret mode, whose Pallas kernels run
+    its ``check`` in every tile, and through the port's plain path: O, l, m
+    and the three gradients within the reference's tolerance."""
+    shapes = SHAPES_1D if seq_dims == 1 else SHAPES_2D
+    Q, K, V, dO = _data(shapes, seed=11)
+    kw = dict(sync_mode="scale_front", seq_dims=seq_dims, returning_l_m=True)
+    jx = [jnp.asarray(x, _JNP[dtype]) for x in (Q, K, V, dO)]
+    (o1, l1, m1), vjp = jax.vjp(
+        lambda q, k, v: fa.flash_attention(q, k, v, rule=_JaxChecker(), interpret=True, **kw),
+        *jx[:3])
+    g1 = vjp((jx[3], jnp.zeros_like(l1), jnp.zeros_like(m1)))
+    tx = [torch.tensor(x).to(dtype).requires_grad_(True) for x in (Q, K, V)]
+    o2, l2, m2 = ta.flash_attention(*tx, rule=_PortChecker(), block_config=BLOCKS, **kw)
+    g2 = torch.autograd.grad(o2, tx, torch.tensor(dO).to(dtype))
+    n_q, n_k = int(np.prod(shapes["q_seq"])), int(np.prod(shapes["k_seq"]))
+    for name, a, b, n in zip(("O", "l", "m", "dQ", "dK", "dV"), (o1, l1, m1) + tuple(g1),
+                             (o2, l2, m2) + tuple(g2), (n_k, n_k, n_k, n_k, n_q, n_q)):
+        np.testing.assert_allclose(_np(b), _np(a), err_msg=name, **_tol(dtype, n))
+
+
+@pytest.mark.parametrize("sync,q_seq,k_seq,rule", [
+    ("none_front", (300,), (520,), _PortChecker()),
+    ("scale_end", (40, 22), (20, 51), _PortChecker()),
+    ("scale_front", (700,), (650,), type("LocalSub", (trules.LocalRule,), {})(100, 1, True)),
+    ("none_front", (20, 40), (30, 30), type("LocalSub", (trules.LocalRule,), {})(7, 0, False))],
+    ids=["checker_1d", "checker_2d", "local_sub_1d", "local_sub_2d"])
+def test_custom_mask_decodes_to_rule_check(sync, q_seq, k_seq, rule):
+    """The host-built granule mask of a custom rule (a subclass of a
+    built-in family counts as one: its tile tests class the granules)
+    decodes, granule by granule as the kernels read it, to the dense
+    ``rule.check`` on every in-bounds (q, k) pair."""
+    pack = tpack(sync, q_seq, k_seq)
+    index, bits = native.custom_mask(pack, rule)
+    G = native.MASK_GRANULE
+    q_len, k_len = int(np.prod(q_seq)), int(np.prod(k_seq))
+    assert index.shape == (-(-q_len // G), -(-k_len // G)) and bits.shape[1:] == (G,)
+    tiles = np.unpackbits(bits.view(np.uint8).reshape(-1, G, 8), axis=2,
+                          bitorder="little").astype(bool)
+    dense = np.zeros((index.shape[0] * G, index.shape[1] * G), dtype=bool)
+    for (qi, ki), e in np.ndenumerate(index):
+        dense[qi * G:qi * G + G, ki * G:ki * G + G] = (
+            e == native.MASK_ALL if e < 0 else tiles[e])
+    want = tfwd.dense_mask(pack, rule, "cpu").numpy()
+    np.testing.assert_array_equal(dense[:q_len, :k_len], want)
+    assert 0 < len(bits) < index.size  # the partial granules only
 
 
 def test_backward_routes():

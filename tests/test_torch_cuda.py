@@ -12,10 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import fuzz_case
+from _torch_cases import CheckerCausal, fuzz_case
 from tf_flash_attention_tpu_torch import native
 from tf_flash_attention_tpu_torch.block_sizes import BlockConfig
-from tf_flash_attention_tpu_torch.mask_rules import CausalRule, FullRule, LocalRule
+from tf_flash_attention_tpu_torch.mask_rules import CausalRule, FullRule, LocalRule, MaskRule
 from tf_flash_attention_tpu_torch.models import transformer as ttf
 from tf_flash_attention_tpu_torch.ops import backward, forward
 from tf_flash_attention_tpu_torch.serving import decode, engine, kv_cache, prefill
@@ -539,6 +539,36 @@ def test_attention_kernels_match_plain(dev, monkeypatch, case, dtype, routes):
     for var, val in ROUTES[routes].items():
         monkeypatch.setenv(var, val)
     _run_op_case(dev, *OP_CASES[case], dtype=dtype)
+
+
+class Checker(CheckerCausal, MaskRule):
+    pass
+
+
+# a custom rule on each route it takes: auto (the window kernels at these
+# lengths), table, resident (banded forward), the q-outer and split
+# backwards in every case; d 128 reaches the tensor-core bodies on half
+# inputs
+CUSTOM_CASES = {
+    "1d_ragged": ("scale_front", (300,), (520,), 32, 24, 2, 1),
+    "2d": ("scale_end", (10, 22), (20, 11), 24, 12, 2, 1),
+    "1d_gqa_d128": ("none_front", (384,), (512,), 128, 128, 2, 2),
+}
+
+
+@pytest.mark.parametrize("routes", list(ROUTES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("case", list(CUSTOM_CASES))
+def test_custom_rule_kernels_match_plain(dev, monkeypatch, case, dtype, routes):
+    """A custom rule's check reaches every op body through its granule mask
+    (kind 3): forward and the three backward families, kernel against plain
+    version, on every route."""
+    for var, val in ROUTES[routes].items():
+        monkeypatch.setenv(var, val)
+    assert native.fa_rule(make_sync_pack("none_front", (64,), (64,)), Checker(),
+                          dev).kind == native.CUSTOM_KIND
+    _run_op_case(dev, Checker(), *CUSTOM_CASES[case], dtype=dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],

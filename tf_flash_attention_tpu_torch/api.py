@@ -50,8 +50,9 @@ def flash_attention(Q: torch.Tensor, K: torch.Tensor, V: torch.Tensor, *, rule: 
                     block_config: Optional[BlockConfig] = None,
                     scale: Optional[float] = None):
     """Rule-masked flash attention on channel-first tensors; the general
-    entry point behind the six wrappers (any ``MaskRule`` on the CPU; the
-    CUDA kernels evaluate the full, causal and local rules)."""
+    entry point behind the six wrappers (any ``MaskRule``: the CUDA kernels
+    evaluate a custom rule's ``check`` through a mask built on the host,
+    ``native.custom_mask``)."""
     if seq_dims not in (1, 2):
         raise ValueError(f"seq_dims must be 1 or 2, got {seq_dims}")
     q_seq = tuple(int(s) for s in Q.shape[-seq_dims:])

@@ -91,7 +91,7 @@ constexpr int kQTile = kBwdSlabs * kBQ * kRowBytes;    // a stage's Q or dO
 constexpr int kDsTile = kBKV * kRowBytes;              // dS^T: kv rows x 64 queries
 constexpr int kDqTile = kBQ * 64 * 4;                  // a warpgroup's float dQ box
 
-template <typename T, int WALK>
+template <typename T, int WALK, bool CUSTOM>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     bwd_tc_kernel(const __grid_constant__ AttnArgs a, const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap omap,
@@ -240,10 +240,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         const float l2 = lse[c], dl = lse[kBQ + c];
         bool vis[2] = {true, true};
         if constexpr (MASKED) {
-          const SeqPos qp = q_pos_of(a.rule, r0 + c);
+          const SeqPos qp = q_pos_t<CUSTOM>(a.rule, r0 + c);
 #pragma unroll
           for (int h = 0; h < 2; ++h)
-            vis[h] = visible(a.rule, qp, k_pos_of(a.rule, col0 + kr + 8 * h));
+            vis[h] = visible_t<CUSTOM>(a.rule, qp, k_pos_t<CUSTOM>(a.rule, col0 + kr + 8 * h));
         }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -491,7 +491,8 @@ int bwd_tc(const AttnArgs& a, cudaStream_t stream) {
       !encode_map(&dqm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.dq_acc, {a.d, q_len, a.B}, 64,
                   kBQ, CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
-  auto kernel = bwd_tc_kernel<T, WALK>;
+  // a custom rule's masked tiles on a body of their own
+  auto kernel = a.rule.kind == kCustom ? bwd_tc_kernel<T, WALK, true> : bwd_tc_kernel<T, WALK, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kBwdSmem));
   if (err != cudaSuccess) return err;

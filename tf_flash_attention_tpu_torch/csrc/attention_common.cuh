@@ -69,6 +69,14 @@ struct FaRule {
   int shift0;  // flattening shift of dim 0: log2 of reference dim 1 (2d only)
   int kind, window, log2_stride, is_causal;
   int q_len, k_len;
+  // kCustom: a rule outside the three families, as a mask of 64 x 64
+  // granules built on the host from its check (native.custom_mask): one int
+  // a granule, (q_pos / 64) * mask_cols + k_pos / 64, kMaskAll, kMaskNone
+  // or the granule's number in mask_bits, 64 words of 64 bits (one a query
+  // row, bit k_pos % 64)
+  int mask_cols;
+  const int* mask_index;
+  const unsigned long long* mask_bits;
 };
 
 namespace {
@@ -81,7 +89,8 @@ constexpr float INV_LOG2E = 0.6931471805599453f;
 constexpr float DEAD_LSE2 = 3e38f;  // lse2 of a row outside q_len: P = 0
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 3 };
-enum RuleKind { kFull = 0, kCausal = 1, kLocal = 2 };
+enum RuleKind { kFull = 0, kCausal = 1, kLocal = 2, kCustom = 3 };
+constexpr int kMaskGranule = 64, kMaskAll = -1, kMaskNone = -2;
 enum Walk { kTable = 0, kBanded = 1, kWindow = 2, kResident = 3 };
 
 struct AttnArgs {
@@ -146,30 +155,55 @@ __device__ __forceinline__ int seq_orders(const FaRule& r, const int* shape, con
 }
 
 // A sequence position as the rule predicate reads it: in bounds, its order
-// coordinates and flattened order (computed once per row or column).
+// coordinates and flattened order (computed once per row or column); a
+// custom rule's mask is by position, so its f is the position itself.
 struct SeqPos {
   bool in;
   int f, c[2];
 };
 
-__device__ __forceinline__ SeqPos q_pos_of(const FaRule& r, int pos) {
+// The positions and the predicate with the rule's family fixed at compile
+// time: CUSTOM, a custom rule's granule mask; else the three built-in
+// kinds, with no mask loads (the tensor-core bodies compile one of each, so
+// the built-in kinds keep their registers).
+template <bool CUSTOM>
+__device__ __forceinline__ SeqPos q_pos_t(const FaRule& r, int pos) {
   SeqPos p;
   p.in = pos < r.q_len;
-  p.f = seq_orders(r, r.q_shape, r.q_stride, r.q_offset, pos, p.c);
+  if constexpr (CUSTOM)
+    p.f = pos;
+  else
+    p.f = seq_orders(r, r.q_shape, r.q_stride, r.q_offset, pos, p.c);
   return p;
 }
 
-__device__ __forceinline__ SeqPos k_pos_of(const FaRule& r, int pos) {
+template <bool CUSTOM>
+__device__ __forceinline__ SeqPos k_pos_t(const FaRule& r, int pos) {
   SeqPos p;
   p.in = pos < r.k_len;
-  p.f = seq_orders(r, r.k_shape, r.k_stride, r.k_offset, pos, p.c);
+  if constexpr (CUSTOM)
+    p.f = pos;
+  else
+    p.f = seq_orders(r, r.k_shape, r.k_stride, r.k_offset, pos, p.c);
   return p;
+}
+
+// A custom rule's bit for global positions (q, k), from its granule mask.
+__device__ __forceinline__ bool custom_visible(const FaRule& r, int q, int k) {
+  const int e = __ldg(r.mask_index + (q / kMaskGranule) * r.mask_cols + k / kMaskGranule);
+  if (e < 0) return e == kMaskAll;
+  const unsigned long long row =
+      __ldg(r.mask_bits + static_cast<size_t>(e) * kMaskGranule + q % kMaskGranule);
+  return (row >> (k % kMaskGranule)) & 1ull;
 }
 
 // The rule predicate: kernel_common.build_tile_mask with mask_rules.py's
-// check (causal :127-128, local :168-178) and the sequence bounds.
-__device__ __forceinline__ bool visible(const FaRule& r, const SeqPos& q, const SeqPos& k) {
+// check (causal :127-128, local :168-178; a custom rule's check through its
+// granule mask) and the sequence bounds.
+template <bool CUSTOM>
+__device__ __forceinline__ bool visible_t(const FaRule& r, const SeqPos& q, const SeqPos& k) {
   if (!q.in || !k.in) return false;
+  if constexpr (CUSTOM) return custom_visible(r, q.f, k.f);
   if (r.kind == kFull) return true;
   if (r.kind == kCausal) return q.f >= k.f;
   bool ok = true;
@@ -185,8 +219,12 @@ __device__ __forceinline__ bool visible(const FaRule& r, const SeqPos& q, const 
   return ok;
 }
 
+// the predicate on positions with the family read at run time (the scalar
+// bodies)
 __device__ __forceinline__ bool visible(const FaRule& r, int q_pos, int k_pos) {
-  return visible(r, q_pos_of(r, q_pos), k_pos_of(r, k_pos));
+  if (r.kind == kCustom)
+    return q_pos < r.q_len && k_pos < r.k_len && custom_visible(r, q_pos, k_pos);
+  return visible_t<false>(r, q_pos_t<false>(r, q_pos), k_pos_t<false>(r, k_pos));
 }
 
 // dst[r * ld + c] = src row (row0 + r), column c, as float; rows past n_rows

@@ -247,7 +247,7 @@ __device__ __forceinline__ void item_at(const AttnArgs& a, const Items& w, int t
   }
 }
 
-template <typename T, int WALK, int BN, int VN, int MERGE, int POL>
+template <typename T, int WALK, int BN, int VN, int MERGE, int POL, bool CUSTOM>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_tc_kernel(const __grid_constant__ AttnArgs a, const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap kmap,
@@ -406,15 +406,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       // c0 + 8 (i >> 2) + 2 (lane & 3) + (i & 1); the orders of the thread's
       // two rows and BN / 4 columns come once a stage
       if constexpr (MASKED) {
-        const SeqPos rows[2] = {q_pos_of(a.rule, r_base), q_pos_of(a.rule, r_base + 8)};
+        const SeqPos rows[2] = {q_pos_t<CUSTOM>(a.rule, r_base),
+                                q_pos_t<CUSTOM>(a.rule, r_base + 8)};
 #pragma unroll
         for (int jj = 0; jj < BN / 8; ++jj) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const SeqPos col = k_pos_of(a.rule, c0 + 8 * jj + 2 * (lane & 3) + e);
+            const SeqPos col = k_pos_t<CUSTOM>(a.rule, c0 + 8 * jj + 2 * (lane & 3) + e);
 #pragma unroll
             for (int h = 0; h < 2; ++h)
-              if (!visible(a.rule, rows[h], col)) s[4 * jj + 2 * h + e] = neg_inf();
+              if (!visible_t<CUSTOM>(a.rule, rows[h], col)) s[4 * jj + 2 * h + e] = neg_inf();
           }
         }
       }
@@ -637,7 +638,11 @@ int fwd_tc(const AttnArgs& a, cudaStream_t stream, int* walk = nullptr) {
   if (a.d < 1 || a.v_d < 1 || a.d > kSlabCols * slabs_of(BN) || a.g < 1 || a.B % a.g ||
       !pair_ok || a.rule.q_len < 1 || (WALK == kResident && a.next_item == nullptr))
     return cudaErrorInvalidValue;
-  auto kernel = fwd_tc_kernel<T, WALK, BN, VN, MERGE, POL>;
+  // a custom rule's masked stages on a body of their own (the tools' rules
+  // are built-in)
+  auto kernel = fwd_tc_kernel<T, WALK, BN, VN, MERGE, POL, false>;
+  if constexpr (MERGE == kOpMerge)
+    if (a.rule.kind == kCustom) kernel = fwd_tc_kernel<T, WALK, BN, VN, MERGE, POL, true>;
   const size_t smem = fwd_tc_smem(BN, VN);
   if (smem > static_cast<size_t>(MAX_SMEM)) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -79,7 +79,7 @@ __device__ __forceinline__ void for_each_kv_stage(const AttnArgs& a, int qi, F&&
   });
 }
 
-template <typename T>
+template <typename T, bool CUSTOM>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     qouter_tc_kernel(const __grid_constant__ AttnArgs a, const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap omap,
@@ -194,7 +194,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   for (int h = 0; h < 2; ++h) {
     l2[h] = stats[qr + 8 * h];
     dl[h] = stats[kQoBM + qr + 8 * h];
-    qpos[h] = q_pos_of(a.rule, row0 + qr + 8 * h);
+    qpos[h] = q_pos_t<CUSTOM>(a.rule, row0 + qr + 8 * h);
   }
 
   int it = 0;
@@ -238,9 +238,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       for (int e = 0; e < 2; ++e) {
         bool vis[2] = {true, true};
         if constexpr (MASKED) {
-          const SeqPos kp = k_pos_of(a.rule, c0 + 8 * j + 2 * (lane & 3) + e);
+          const SeqPos kp = k_pos_t<CUSTOM>(a.rule, c0 + 8 * j + 2 * (lane & 3) + e);
 #pragma unroll
-          for (int h = 0; h < 2; ++h) vis[h] = visible(a.rule, qpos[h], kp);
+          for (int h = 0; h < 2; ++h) vis[h] = visible_t<CUSTOM>(a.rule, qpos[h], kp);
         }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -396,7 +396,8 @@ int qouter_tc(const AttnArgs& a, cudaStream_t stream) {
                encode_map(&dvm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.dv, {a.v_d, k_len, B_kv},
                           64, kQoBN, CU_TENSOR_MAP_SWIZZLE_NONE)))
     return cudaErrorInvalidValue;
-  auto kernel = qouter_tc_kernel<T>;
+  // a custom rule's masked tiles on a body of their own
+  auto kernel = a.rule.kind == kCustom ? qouter_tc_kernel<T, true> : qouter_tc_kernel<T, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kQoSmem));
   if (err != cudaSuccess) return err;

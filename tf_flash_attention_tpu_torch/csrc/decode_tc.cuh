@@ -1,0 +1,643 @@
+// The tensor-core body of paged_decode and paged_multitoken_decode for
+// Hopper (sm_90a): bf16 activations, head_dim_store 128, pages of 16 or 32
+// tokens or of a multiple of 64, every payload (int8, fp8 e4m3 / e5m2, int4
+// pairs, the unquantized bf16 cache), gamma 1 and gamma > 1, causal and
+// LocalRule windows, and the sequence-sharded form (page stride and offset,
+// global lengths, l and m out).  Replaces serving/decode.py::_decode_kernel
+// with the scalar body of serving_kernels.cu, which keeps float32
+// activations and other stored widths (Decode::run; native.decode_body names
+// the body).  Included by serving_kernels.cu after prefill_tc.cuh (Payload,
+// the fp8 types, neg_inf, visible, nibble).
+//
+// What bounds it on this card is memory: a slot's K and V rows are read
+// once, D + 4 bytes a key and kv head for a one-byte payload, against 4 D
+// flops a key and query row (64 rows at most).  The design:
+//   split    a slot's live pages (from its length on the device: no host
+//            sync) are cut into `splits` equal runs of whole merge units, one
+//            CTA each; grid (splits, kv heads x row groups, slots).  The host
+//            fixes `splits` from the grid size alone (two waves of 132 SMs at
+//            the CTAs an SM holds, so that slots of unequal lengths even
+//            out); a CTA whose run is empty exits at once.
+//   rows     every one of the g x gamma query rows of a (slot, kv head), up
+//            to 64, in one CTA, padded to row tiles of 16: the pages are read
+//            once for all of them.
+//   loads    one producer thread copies each 64-key stage with 1-d bulk
+//            copies (cp.async.bulk) into a ring of kDcRing items completing
+//            on mbarriers: a stage's raw K rows with its K and V scales, then
+//            (after the merge's K) its raw V rows.  A page of 16 or 32 keys takes several
+//            copies a stage; a stage past the slot's last page copies that
+//            page again and is masked.
+//   products eight consumer warps.  S = Q K^T by mma.sync m16n8k16 on bf16,
+//            each warp 8 keys of a stage for all rows: K fragments come
+//            straight from the raw rows, widened in registers (exact: every
+//            payload value is a bf16 value; integers by a byte permute into a
+//            float's bits, not the conversion unit), the reduction dimension
+//            permuted so that a thread reads 16 contiguous bytes and a
+//            quarter warp no bank twice; Q is staged in the same order.  O +=
+//            P V, each warp 16 output columns: the raw V stage is first
+//            widened into a row-major bf16 tile (two, alternating), whose
+//            fragments ldmatrix.trans reads.
+//   merge    once a page, as the reference, where the rows' scores of a
+//            page fit kDcScoreBudget (page <= 512): the page's scores are
+//            held in shared memory, then m, l and P = bf16(p x V scale) per
+//            row, P in place of the scores, a warp a row; else (64 rows at
+//            page 512, pages past 512) and on pages of 16 or 32, once a
+//            64-key stage.
+//   finish   each CTA writes its float32 (acc, m, l) to a workspace and takes
+//            a ticket from its (slot, kv head, row group) counter; the last of
+//            the non-empty runs merges all of them in run order (the result
+//            is the same bits whatever order the CTAs end in), writes o and
+//            l, m where asked, and zeroes the counter.  A single non-empty
+//            run writes o itself (the same bits as the merge).
+// Measured on the card (PERF.md): the consumers' work on a stage, not the
+// bytes, sets the time; the copies alone take a CTA's stages at about
+// twice the rate the consumers do.
+
+#pragma once
+
+namespace {
+namespace tc {
+
+constexpr int kDcKeys = 64;                    // keys a stage
+constexpr int kDcRing = 4;                     // items in flight (a stage's K or V)
+constexpr int kDcWarps = 8;                    // consumer warps
+constexpr int kDcConsumers = 32 * kDcWarps;
+constexpr int kDcThreads = kDcConsumers + 32;  // and one producer warp
+constexpr int kDcD = 128;                      // head_dim_store
+constexpr int kDcRows = 64;                    // query rows a CTA at most
+constexpr int kDcQStride = 132;                // bf16 a Q row
+constexpr int kDcVStride = 136;                // bf16 a row of the widened V tile
+constexpr int kDcMaxMerge = 512;               // keys of a page merge at most
+constexpr int kDcScoreBudget = 72 * 1024;      // the rows' scores of a merge
+constexpr int kDcPartial = kDcRows * (kDcD + 2);  // floats of a CTA's partial
+constexpr int kDcKW = kDcKeys / kDcWarps;      // a warp's keys of a stage's scores
+constexpr int kDcKT = kDcKW / 8;               // their n-tiles
+constexpr int kDcCW = kDcD / kDcWarps;         // a warp's output columns
+constexpr int kDcVT = kDcCW / 8;               // their n-tiles
+static_assert(kDcKT >= 1 && kDcVT >= 1, "a warp takes whole n-tiles");
+
+struct DcArgs {
+  const bf16* q;
+  const void *k_pages, *v_pages;
+  const float *k_scales, *v_scales;
+  const int *tables, *lengths, *glob_lengths;
+  bf16* o;
+  float *l, *m;
+  float* ws;     // (slots, kv heads x row groups, splits) partials of kDcPartial
+  int* tickets;  // (slots, kv heads x row groups), zero between launches
+  int n_q, n_kv, d, page_size, n_pages, max_pages, gamma, page_stride, page_offset;
+  float scale_log2e;
+  int window, log2_stride, is_local, splits, row_groups, merge_keys;
+};
+
+// the payload bytes of one item (64 keys), and an item's slot in the ring
+// (payload, then the stage's 64 K and 64 V scales)
+template <typename P>
+__host__ __device__ constexpr int dc_payload() {
+  return kDcKeys / Payload<P>::kPack * kDcD * static_cast<int>(sizeof(P));
+}
+template <typename P>
+__host__ __device__ constexpr int dc_slot() {
+  return dc_payload<P>() + 2 * kDcKeys * 4;
+}
+
+// keys a merge of `rows` query rows (native.decode_merge_keys mirrors this
+// rule)
+__host__ __device__ inline int dc_merge_keys(int page_size, int rows) {
+  const bool page_merge = page_size >= kDcKeys && page_size <= kDcMaxMerge &&
+                          rows * (page_size + 4) * 4 <= kDcScoreBudget;
+  return page_merge ? page_size : kDcKeys;
+}
+
+// shared memory of a CTA of `rows` query rows (native.decode_tc_smem mirrors
+// it): the ring, Q (rows padded to 16), two widened V tiles, the rows'
+// scores (stride merge + 4 floats), the V scales of a merge, m, l and alpha
+// a padded row, the barriers and the ticket flag
+template <typename P>
+inline int dc_smem(int rows, int merge) {
+  const int padded = (rows + 15) / 16 * 16;
+  return kDcRing * dc_slot<P>() + padded * kDcQStride * 2 + 2 * kDcKeys * kDcVStride * 2 +
+         rows * (merge + 4) * 4 + kDcMaxMerge * 4 + 3 * padded * 4 + 2 * kDcRing * 8 + 16;
+}
+
+// the physical dimension of logical k 2t (k-step ks, thread t = lane % 4):
+// k 2t, 2t + 1, 2t + 8, 2t + 9 are the four contiguous dimensions from here
+__device__ __forceinline__ int dc_dim(int ks, int t) {
+  return (ks >> 2) * 64 + 16 * t + 4 * (ks & 3);
+}
+
+// a one-byte payload word's four values (bytes 0-3) as two bf16 pairs,
+// (0, 1) in lo and (2, 3) in hi, exact (every payload value is a bf16
+// value); int4: the nibbles of key parity `odd`.  Integers go without the
+// conversion unit: byte u (0-255, the value offset to be unsigned) under
+// the bits of 1.5 x 2^23 (one byte permute), the offset then subtracted.
+template <typename P>
+__device__ __forceinline__ void dc_word(uint32_t wd, int odd, uint32_t& lo, uint32_t& hi) {
+  if constexpr (std::is_same<P, int8_t>::value || Payload<P>::kPack == 2) {
+    uint32_t u;
+    float off;
+    if constexpr (Payload<P>::kPack == 2) {  // nibbles: 4-bit two's complement
+      u = ((odd ? wd >> 4 : wd) & 0x0F0F0F0Fu) ^ 0x08080808u;
+      off = 12582912.f + 8.f;
+    } else {
+      u = wd ^ 0x80808080u;
+      off = 12582912.f + 128.f;
+    }
+    float f[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      f[k] = __uint_as_float(__byte_perm(u, 0x4B400000u, 0x7640 | k)) - off;
+    lo = pack2<bf16>(f[0], f[1]);
+    hi = pack2<bf16>(f[2], f[3]);
+  } else {
+    constexpr __nv_fp8_interpretation_t kind =
+        std::is_same<P, fp8e4m3>::value ? __NV_E4M3 : __NV_E5M2;
+    const float2 a = __half22float2(__half2(
+        __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(wd & 0xFFFF), kind)));
+    const float2 b = __half22float2(__half2(
+        __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(wd >> 16), kind)));
+    lo = pack2<bf16>(a.x, a.y);
+    hi = pack2<bf16>(b.x, b.y);
+  }
+}
+
+// four 8 x 8 bf16 matrices from shared memory, transposed (ldmatrix): lane
+// l gives a row address of matrix l / 8 and gets rows 2 (l % 4), + 1 of
+// column l / 4 of each, the B fragments of a row-major k x n tile
+__device__ __forceinline__ void ldsm_x4_trans(const void* p, uint32_t& r0, uint32_t& r1,
+                                              uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_u32(p)));
+}
+
+// one row tile of a one-byte payload: two CTAs an SM (288 threads of at
+// most 112 registers); the bf16 cache (whose body a cap spills) or more
+// rows: one
+template <typename P, int RT>
+__global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
+    decode_tc_kernel(const __grid_constant__ DcArgs a) {
+  constexpr int PACK = Payload<P>::kPack;
+  constexpr bool QUANT = Payload<P>::kQuant;
+  constexpr bool WIDE = sizeof(P) == 2;  // the bf16 cache: 256-byte rows
+  constexpr int RP = 16 * RT;
+  constexpr int PAYLOAD = dc_payload<P>(), SLOT = dc_slot<P>();
+  constexpr int ROW = kDcD * static_cast<int>(sizeof(P));  // bytes a stored row
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int U = a.merge_keys, SST = U + 4;
+  const int g = a.n_q / a.n_kv, SR = min(g * a.gamma, kDcRows);  // rows of stored scores
+  unsigned char* ring = smem;
+  bf16* Qs = reinterpret_cast<bf16*>(ring + kDcRing * SLOT);
+  bf16* Vt = Qs + RP * kDcQStride;  // two tiles of kDcKeys rows of kDcVStride
+  float* Ss = reinterpret_cast<float*>(Vt + 2 * kDcKeys * kDcVStride);
+  float* vs_sh = Ss + SR * SST;
+  float* m_sh = vs_sh + kDcMaxMerge;
+  float* l_sh = m_sh + RP;
+  float* al_sh = l_sh + RP;
+  uint64_t* full = reinterpret_cast<uint64_t*>(al_sh + RP);
+  uint64_t* empty = full + kDcRing;
+  int* flag = reinterpret_cast<int*>(empty + kDcRing);
+
+  const int split = blockIdx.x, hk = blockIdx.y / a.row_groups, b = blockIdx.z;
+  const int r0 = blockIdx.y % a.row_groups * kDcRows;
+  const int R = min(g * a.gamma - r0, kDcRows);
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  // q, o (S, gamma, n_q, d): CTA row r is row r0 + r of the group, draft
+  // (r0 + r) % gamma of q head hk g + (r0 + r) / gamma
+  auto q_index = [&](int r) {
+    const int gr = r0 + r;
+    return ((static_cast<size_t>(b) * a.gamma + gr % a.gamma) * a.n_q + hk * g + gr / a.gamma) *
+           a.d;
+  };
+
+  // the slot's live pages [first, count) from its local length; positions
+  // from the global one (decode.py:_first_live_page)
+  const int ps = a.page_size, len = a.lengths[b];
+  const int glen = a.glob_lengths ? a.glob_lengths[b] : len;
+  const int count = (len + ps - 1) / ps;
+  int first = 0;
+  if (a.is_local) {
+    const int gfp = max(0, glen - a.gamma - ((a.window << a.log2_stride) - 1)) / ps;
+    first = a.page_stride == 1 ? gfp
+            : (gfp > a.page_offset ? (gfp - a.page_offset + a.page_stride - 1) / a.page_stride
+                                   : 0);
+  }
+  // stages: a page of >= 64 keys is spp stages and a unit of the split; a
+  // stage of pages of 16 or 32 is ppst pages and a unit
+  const int spp = ps >= kDcKeys ? ps / kDcKeys : 1, ppst = ps >= kDcKeys ? 1 : kDcKeys / ps;
+  const int live = max(0, count - first);
+  const int units = ps >= kDcKeys ? live : (live + ppst - 1) / ppst;
+  const int per = (units + a.splits - 1) / a.splits;
+  const int runs = per ? (units + per - 1) / per : 0;  // non-empty runs
+  if (split >= max(runs, 1)) return;
+  if (runs == 0) {  // no local page: o = 0, l = 0, m = NEG_INF
+    for (int i = tid; i < R * a.d; i += kDcThreads) a.o[q_index(i / a.d) + i % a.d] = __float2bfloat16(0.f);
+    if (a.l != nullptr)
+      for (int r = tid; r < R; r += kDcThreads) {
+        a.l[q_index(r) / a.d] = 0.f;
+        a.m[q_index(r) / a.d] = neg_inf();
+      }
+    return;
+  }
+  const int s0 = split * per * spp, s1 = min(split * per + per, units) * spp;
+  const int mg = U / kDcKeys;  // stages a merge (divides the run)
+
+  if (tid == 0) {
+    for (int s = 0; s < kDcRing; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kDcWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // stage s, piece i (of ppst): its local page and first key in the page
+  auto page_of = [&](int s, int i) { return ps >= kDcKeys ? first + s / spp : first + s * ppst + i; };
+  auto key0_of = [&](int s) { return ps >= kDcKeys ? (s % spp) * kDcKeys : 0; };
+
+  if (w == kDcWarps) {  // ---- the producer ----
+    if (lane != 0) return;
+    const int pt = min(ps, kDcKeys);  // keys a piece
+    const uint32_t piece_bytes = pt / PACK * ROW;
+    int it = 0;
+    for (int sg = s0; sg < s1; sg += mg) {
+      for (int kv = 0; kv < 2; ++kv) {
+        for (int j = 0; j < mg; ++j, ++it) {
+          const int st = it % kDcRing, s = sg + j;
+          if (it >= kDcRing) mbar_wait(empty + st, ((it / kDcRing) & 1) ^ 1);
+          unsigned char* dst = ring + st * SLOT;
+          mbar_expect_tx(full + st, PAYLOAD + (QUANT && kv == 0 ? 2 * kDcKeys * 4 : 0));
+          const unsigned char* pages =
+              static_cast<const unsigned char*>(kv ? a.v_pages : a.k_pages);
+          for (int i = 0; i < ppst; ++i) {
+            const int lp = min(page_of(s, i), count - 1), t0 = key0_of(s);
+            const int phys = a.tables[b * a.max_pages + lp % a.max_pages];
+            const size_t page = static_cast<size_t>(hk) * a.n_pages + phys;
+            bulk_load(dst + i * piece_bytes,
+                      pages + (page * (ps / PACK) + t0 / PACK) * ROW, piece_bytes, full + st);
+            if (QUANT && kv == 0) {
+              float* sc = reinterpret_cast<float*>(dst + PAYLOAD) + i * pt;
+              for (int u = 0; u < 2; ++u) {
+                const float* src = (u ? a.v_scales : a.k_scales) + page * ps;
+                if (PACK == 1) {
+                  bulk_load(sc + u * kDcKeys, src + t0, pt * 4, full + st);
+                } else {  // even tokens' scales, then odd ones'
+                  bulk_load(sc + u * kDcKeys, src + t0 / 2, pt * 2, full + st);
+                  bulk_load(sc + u * kDcKeys + pt / 2, src + ps / 2 + t0 / 2, pt * 2, full + st);
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warps ----
+  const int gq = lane >> 2, t = lane & 3, par = gq & 1;
+  for (int i = tid; i < RP * kDcD; i += kDcConsumers) {
+    const int r = i / kDcD, c = i % kDcD;
+    Qs[r * kDcQStride + c] = r < R && c < a.d ? a.q[q_index(r) + c] : __float2bfloat16(0.f);
+  }
+  for (int r = tid; r < RP; r += kDcConsumers) {
+    m_sh[r] = neg_inf();
+    l_sh[r] = 0.f;
+    al_sh[r] = 1.f;
+  }
+  named_sync(1, kDcConsumers);
+  // a scale per key and the rows' positions
+  const int pt = min(ps, kDcKeys), lpt = 31 - __clz(pt);  // keys a piece: 16, 32 or 64
+  int q_pos[RT][2];
+#pragma unroll
+  for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) q_pos[rt][h] = glen - a.gamma + (r0 + 16 * rt + gq + 8 * h) % a.gamma;
+
+  float acc[RT][kDcVT][4];
+#pragma unroll
+  for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+    for (int nt = 0; nt < kDcVT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[rt][nt][e] = 0.f;
+
+  int it = 0, vt = 0;
+  for (int sg = s0; sg < s1; sg += mg) {
+    // -- scores of the merge's stages: this warp's kDcKW keys of each --
+    for (int j = 0; j < mg; ++j, ++it) {
+      const int st = it % kDcRing, s = sg + j;
+      mbar_wait(full + st, (it / kDcRing) & 1);
+      const unsigned char* kb = ring + st * SLOT;
+      const float* ksc = reinterpret_cast<const float*>(kb + PAYLOAD);
+      // key k's scale in the item: int4 pieces hold the even tokens' first
+      auto scale_at = [&](int k) {
+        const int ki = k & (pt - 1);
+        return PACK == 2 ? k - ki + (ki & 1) * (pt >> 1) + (ki >> 1) : k;
+      };
+      const int k0 = kDcKW * w;  // this warp's first key of the stage
+      if (QUANT && lane < kDcKW)  // the V scales of this warp's keys, for the merge
+        vs_sh[j * kDcKeys + k0 + lane] = ksc[kDcKeys + scale_at(k0 + lane)];
+      // this warp's keys lie in one piece (pt >= 16): the position of its
+      // first; this thread's are 8 nt + 2 t + e on from it
+      const int kv0 = (page_of(s, k0 >> lpt) * a.page_stride + a.page_offset) * ps +
+                      key0_of(s) + (k0 & (pt - 1));
+      float mul[kDcKT][2];
+#pragma unroll
+      for (int nt = 0; nt < kDcKT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          mul[nt][e] = QUANT ? ksc[scale_at(k0 + 8 * nt + 2 * t + e)] * a.scale_log2e
+                             : a.scale_log2e;
+      uint32_t bf[kDcKT][8][2];  // K fragments: n-tile, k-step, register
+#pragma unroll
+      for (int nt = 0; nt < kDcKT; ++nt) {
+        const int key = k0 + 8 * nt + gq;
+        const unsigned char* row = kb + (PACK == 2 ? key >> 1 : key) * ROW;
+        if constexpr (WIDE) {
+          // the halves in another order on odd keys: a quarter warp's two
+          // rows (256 bytes apart) on other banks
+          uint4 x[2][2];
+#pragma unroll
+          for (int grp = 0; grp < 2; ++grp) {
+            const unsigned char* at = row + grp * 128 + 32 * t;
+            const uint4 u0 = *reinterpret_cast<const uint4*>(at + 16 * par);
+            const uint4 u1 = *reinterpret_cast<const uint4*>(at + 16 * (par ^ 1));
+            x[grp][0] = par ? u1 : u0;
+            x[grp][1] = par ? u0 : u1;
+          }
+#pragma unroll
+          for (int ks = 0; ks < 8; ++ks) {
+            const uint4 v = x[ks >> 2][(ks >> 1) & 1];
+            bf[nt][ks][0] = (ks & 1) ? v.z : v.x;
+            bf[nt][ks][1] = (ks & 1) ? v.w : v.y;
+          }
+        } else {
+          // the groups in another order on odd keys: a quarter warp's two
+          // rows (128 bytes apart) on other banks
+          const uint4 u0 = *reinterpret_cast<const uint4*>(row + 64 * par + 16 * t);
+          const uint4 u1 = *reinterpret_cast<const uint4*>(row + 64 * (par ^ 1) + 16 * t);
+          const uint4 x[2] = {par ? u1 : u0, par ? u0 : u1};
+#pragma unroll
+          for (int ks = 0; ks < 8; ++ks) {
+            const uint4 v = x[ks >> 2];
+            const uint32_t wd = (ks & 3) == 0 ? v.x : (ks & 3) == 1 ? v.y : (ks & 3) == 2 ? v.z : v.w;
+            dc_word<P>(wd, par, bf[nt][ks][0], bf[nt][ks][1]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);  // K rows and scales are in registers
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt) {
+        float sc[kDcKT][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks) {
+          const bf16* qa = Qs + (16 * rt + gq) * kDcQStride + dc_dim(ks, t);
+          const uint2 lo = *reinterpret_cast<const uint2*>(qa);
+          const uint2 hi = *reinterpret_cast<const uint2*>(qa + 8 * kDcQStride);
+#pragma unroll
+          for (int nt = 0; nt < kDcKT; ++nt)
+            mma_16816(sc[nt], lo.x, hi.x, lo.y, hi.y, bf[nt][ks][0], bf[nt][ks][1]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * rt + gq + 8 * h;
+          if (r >= R) continue;
+#pragma unroll
+          for (int nt = 0; nt < kDcKT; ++nt) {
+            float2 v;
+            const int kp = kv0 + 8 * nt + 2 * t;
+            v.x = visible(q_pos[rt][h], kp, a.window, a.log2_stride, a.is_local)
+                      ? sc[nt][2 * h] * mul[nt][0] : neg_inf();
+            v.y = visible(q_pos[rt][h], kp + 1, a.window, a.log2_stride, a.is_local)
+                      ? sc[nt][2 * h + 1] * mul[nt][1] : neg_inf();
+            *reinterpret_cast<float2*>(Ss + r * SST + j * kDcKeys + k0 + 8 * nt + 2 * t) = v;
+          }
+        }
+      }
+    }
+    named_sync(1, kDcConsumers);
+    // -- the merge: m, l and P = bf16(p x V scale) in place, a warp a row
+    // (every float of a row is read before its bf16 P is written over the
+    // row's first half) --
+    for (int r = w; r < R; r += kDcWarps) {
+      float* row = Ss + r * SST;
+      float x[kDcMaxMerge / 32];
+      float mx = neg_inf();
+#pragma unroll
+      for (int i = 0; i < kDcMaxMerge / 32; ++i)
+        if (32 * i < U) {
+          x[i] = row[lane + 32 * i];
+          mx = fmaxf(mx, x[i]);
+        }
+      mx = warp_max(mx);
+      const float m_prev = m_sh[r], m_next = fmaxf(m_prev, mx);
+      const float alpha = exp2f(m_prev - m_next);
+      const bool alive = m_next > neg_inf() * 0.5f;  // a row with no visible key yet
+      float lsum = 0.f;
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < kDcMaxMerge / 32; ++i)
+        if (32 * i < U) {
+          const int k = lane + 32 * i;
+          const float p = alive ? exp2f(x[i] - m_next) : 0.f;
+          lsum += p;
+          reinterpret_cast<bf16*>(row)[k] = __float2bfloat16(QUANT ? p * vs_sh[k] : p);
+        }
+      lsum = warp_sum(lsum);
+      if (lane == 0) {
+        m_sh[r] = m_next;
+        l_sh[r] = alpha * l_sh[r] + lsum;
+        al_sh[r] = alpha;
+      }
+    }
+    named_sync(1, kDcConsumers);
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float alpha = al_sh[16 * rt + gq + 8 * h];
+#pragma unroll
+        for (int nt = 0; nt < kDcVT; ++nt) {
+          acc[rt][nt][2 * h] *= alpha;
+          acc[rt][nt][2 * h + 1] *= alpha;
+        }
+      }
+    // -- O += P V over the merge's stages --
+    for (int j = 0; j < mg; ++j, ++it, ++vt) {
+      const int st = it % kDcRing;
+      mbar_wait(full + st, (it / kDcRing) & 1);
+      const unsigned char* vb = ring + st * SLOT;
+      bf16* vtile = Vt + (vt & 1) * kDcKeys * kDcVStride;
+      // widen the stage's V rows to a row-major bf16 tile: a unit is a key
+      // and 16 columns (16 raw bytes: a quarter warp reads 128 in a row)
+#pragma unroll
+      for (int u2 = 0; u2 < kDcKeys * 8 / kDcConsumers; ++u2) {
+        const int u = tid + kDcConsumers * u2, c16 = u & 7, key = u >> 3;
+        uint32_t words[8];
+        if constexpr (WIDE) {
+          const uint4 x0 = *reinterpret_cast<const uint4*>(vb + key * ROW + 32 * c16);
+          const uint4 x1 = *reinterpret_cast<const uint4*>(vb + key * ROW + 32 * c16 + 16);
+          words[0] = x0.x; words[1] = x0.y; words[2] = x0.z; words[3] = x0.w;
+          words[4] = x1.x; words[5] = x1.y; words[6] = x1.z; words[7] = x1.w;
+        } else {
+          const uint4 x = *reinterpret_cast<const uint4*>(vb + (PACK == 2 ? key >> 1 : key) * ROW +
+                                                          16 * c16);
+          const uint32_t wd[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            dc_word<P>(wd[i], key & 1, words[2 * i], words[2 * i + 1]);
+          }
+        }
+        uint4* dst = reinterpret_cast<uint4*>(vtile + key * kDcVStride + 16 * c16);
+        dst[0] = make_uint4(words[0], words[1], words[2], words[3]);
+        dst[1] = make_uint4(words[4], words[5], words[6], words[7]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);
+      named_sync(1, kDcConsumers);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int kq = j * kDcKeys + 16 * kk + 2 * t;  // this thread's key in the merge
+        // V fragments by ldmatrix.trans: matrix lane / 8 is keys 16 kk + 8
+        // (lane / 8 % 2), columns of the warp's n-tile lane / 16
+        uint32_t vf[kDcVT][2];
+#pragma unroll
+        for (int np = 0; np < kDcVT; np += 2) {
+          const int mi = lane >> 3;
+          const bf16* at = vtile + (16 * kk + 8 * (mi & 1) + (lane & 7)) * kDcVStride +
+                           kDcCW * w + 8 * (np + (mi >> 1));
+          ldsm_x4_trans(at, vf[np][0], vf[np][1], vf[np + 1][0], vf[np + 1][1]);
+        }
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) {
+          // P of rows past the CTA's is 0 (their scores are not stored)
+          const int r = 16 * rt + gq;
+          const uint32_t* p0 = reinterpret_cast<const uint32_t*>(Ss + r * SST) + kq / 2;
+          const uint32_t* p1 = p0 + 8 * SST;
+          const uint32_t a0 = r < R ? p0[0] : 0u, a2 = r < R ? p0[4] : 0u;
+          const uint32_t a1 = r + 8 < R ? p1[0] : 0u, a3 = r + 8 < R ? p1[4] : 0u;
+#pragma unroll
+          for (int nt = 0; nt < kDcVT; ++nt)
+            mma_16816(acc[rt][nt], a0, a1, a2, a3, vf[nt][0], vf[nt][1]);
+        }
+      }
+    }
+    named_sync(1, kDcConsumers);  // every warp is done with P before the next merge's scores
+  }
+
+  // ---- the finish: a single run writes o; else partials, a ticket, the merge ----
+  const int cta_rows = blockIdx.y;
+  if (runs == 1) {
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * rt + gq + 8 * h;
+        if (r >= R) continue;
+        const float l = l_sh[r], div = l == 0.f ? 1.f : l;
+        const size_t oi = q_index(r);
+#pragma unroll
+        for (int nt = 0; nt < kDcVT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = kDcCW * w + 8 * nt + 2 * t + e;
+            if (c < a.d) a.o[oi + c] = __float2bfloat16(acc[rt][nt][2 * h + e] / div);
+          }
+      }
+    if (a.l != nullptr)
+      for (int r = tid; r < R; r += kDcConsumers) {
+        a.l[q_index(r) / a.d] = l_sh[r];
+        a.m[q_index(r) / a.d] = m_sh[r];
+      }
+    return;
+  }
+  const size_t cell = static_cast<size_t>(b) * gridDim.y + cta_rows;
+  float* mine = a.ws + (cell * a.splits + split) * kDcPartial;
+#pragma unroll
+  for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * rt + gq + 8 * h;
+      if (r >= R) continue;
+#pragma unroll
+      for (int nt = 0; nt < kDcVT; ++nt)
+        *reinterpret_cast<float2*>(mine + r * kDcD + kDcCW * w + 8 * nt + 2 * t) =
+            make_float2(acc[rt][nt][2 * h], acc[rt][nt][2 * h + 1]);
+    }
+  for (int r = tid; r < R; r += kDcConsumers) {
+    mine[kDcRows * kDcD + r] = m_sh[r];
+    mine[kDcRows * kDcD + kDcRows + r] = l_sh[r];
+  }
+  __threadfence();
+  named_sync(1, kDcConsumers);
+  if (tid == 0) {
+    const int ticket = atomicAdd(a.tickets + cell, 1);
+    *flag = ticket == runs - 1;
+    if (*flag) a.tickets[cell] = 0;  // every run has arrived: ready for the next launch
+  }
+  named_sync(1, kDcConsumers);
+  if (!*flag) return;
+  __threadfence();
+  const float* parts = a.ws + cell * a.splits * kDcPartial;
+  for (int i = tid; i < R * kDcD; i += kDcConsumers) {
+    const int r = i / kDcD, c = i % kDcD;
+    float M = neg_inf();
+    for (int sp = 0; sp < runs; ++sp) M = fmaxf(M, __ldcg(parts + sp * kDcPartial + kDcRows * kDcD + r));
+    float L = 0.f, O = 0.f;
+    for (int sp = 0; sp < runs; ++sp) {
+      const float* part = parts + sp * kDcPartial;
+      const float f = exp2f(__ldcg(part + kDcRows * kDcD + r) - M);
+      L += __ldcg(part + kDcRows * kDcD + kDcRows + r) * f;
+      O += __ldcg(part + r * kDcD + c) * f;
+    }
+    if (c < a.d) a.o[q_index(r) + c] = __float2bfloat16(O / (L == 0.f ? 1.f : L));
+    if (c == 0 && a.l != nullptr) {
+      a.l[q_index(r) / a.d] = L;
+      a.m[q_index(r) / a.d] = M;
+    }
+  }
+}
+
+// The launch: grid (splits, kv heads x row groups, slots), 160 threads.
+// walk (nullable, host) gets {1 (the tensor-core body), splits, CTAs}
+// before anything can fail.
+template <typename P, int RT>
+int decode_tc_launch(const DcArgs& a, int S, cudaStream_t stream) {
+  const int rows = min(a.n_q / a.n_kv * a.gamma, kDcRows);
+  const int merge = dc_merge_keys(a.page_size, rows);
+  const int smem = dc_smem<P>(rows, merge);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  DcArgs args = a;
+  args.merge_keys = merge;
+  auto kernel = decode_tc_kernel<P, RT>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(a.splits, a.n_kv * a.row_groups, S), kDcThreads, smem, stream>>>(args);
+  return cudaGetLastError();
+}
+
+template <typename P>
+int decode_tc(const DcArgs& a, int S, int d_store, int* walk, cudaStream_t stream) {
+  const int rows = a.n_q / a.n_kv * a.gamma;
+  if (walk) {
+    walk[0] = 1;
+    walk[1] = a.splits;
+    walk[2] = a.splits * a.n_kv * a.row_groups * S;
+  }
+  const int ps = a.page_size;
+  if (d_store != kDcD || a.d < 1 || a.d > kDcD || a.splits < 1 || a.ws == nullptr ||
+      a.tickets == nullptr || a.row_groups != (rows + kDcRows - 1) / kDcRows ||
+      !(ps % kDcKeys == 0 || ps == 16 || ps == 32) ||
+      a.n_kv * a.row_groups > 65535 || S > 65535)
+    return cudaErrorInvalidValue;
+  if (S == 0) return cudaSuccess;
+  const int rp = min(rows, kDcRows);
+  if (rp <= 16) return decode_tc_launch<P, 1>(a, S, stream);
+  if (rp <= 32) return decode_tc_launch<P, 2>(a, S, stream);
+  return decode_tc_launch<P, 4>(a, S, stream);
+}
+
+}  // namespace tc
+}  // namespace

@@ -341,7 +341,10 @@ __global__ void kv_append_kernel(const T* __restrict__ k_new, const T* __restric
 // ---------------------------------------------------------------------------
 // K1 paged_decode and K5 paged_multitoken_decode.  Replace
 // serving/decode.py::_decode_kernel at gamma 1 (paged_decode_attention) and
-// at gamma > 1 (paged_multitoken_decode).  The g query heads of a kv head
+// at gamma > 1 (paged_multitoken_decode).  bf16 activations at
+// head_dim_store 128 run the tensor-core body of decode_tc.cuh (pages split
+// over CTAs, a bulk-copy ring, mma.sync); this scalar body takes float32
+// activations and other stored widths.  The g query heads of a kv head
 // times gamma draft positions make g * gamma query rows (gamma-minor: row r
 // is head r / gamma of the group at draft r % gamma), unpadded (the TPU's
 // 8-row padding was a tiling artefact).  One block per (slot, kv head, group
@@ -932,6 +935,7 @@ paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
 }  // namespace
 
 #include "prefill_tc.cuh"
+#include "decode_tc.cuh"
 
 namespace {
 
@@ -1031,6 +1035,10 @@ struct Decode {
   int S, gamma, n_q, n_kv, d, d_store, page_size, n_pages, max_pages, page_stride, page_offset;
   float scale_log2e;
   int window, log2_stride, is_local;
+  float* ws;     // the tensor-core body's partials and tickets (decode_tc.cuh)
+  int* tickets;
+  int splits;
+  int* walk;     // nullable, host: {body (1: the tensor cores), splits, CTAs}
   cudaStream_t stream;
   template <typename T, typename P, typename C, int GM>
   int launch() const {
@@ -1059,6 +1067,26 @@ struct Decode {
         page_stride < 1 || page_offset < 0 || page_offset >= page_stride ||
         (l == nullptr) != (m == nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
+    // the body: bf16 activations at head_dim_store 128 on pages of 16, 32 or
+    // a multiple of 64 tokens on the tensor cores (native.decode_body mirrors
+    // this rule), the rest on the scalar body
+    if constexpr (std::is_same<T, bf16>::value) {
+      if (d_store == tc::kDcD &&
+          (page_size % tc::kDcKeys == 0 || page_size == 16 || page_size == 32)) {
+        const tc::DcArgs a{static_cast<const bf16*>(q), k_pages, v_pages, k_scales, v_scales,
+                           tables, lengths, glob_lengths, static_cast<bf16*>(o), l, m, ws,
+                           tickets, n_q, n_kv, d, page_size, n_pages, max_pages, gamma,
+                           page_stride, page_offset, scale_log2e, window, log2_stride, is_local,
+                           splits, (rows + tc::kDcRows - 1) / tc::kDcRows, 0};
+        return tc::decode_tc<P>(a, S, d_store, walk, stream);
+      }
+    }
+    if (walk) {
+      walk[0] = 0;
+      walk[1] = 1;
+      walk[2] = S * n_kv * ((rows + kDecMaxRows - 1) / kDecMaxRows) *
+                ((d_store + kDecCols - 1) / kDecCols);
+    }
     if (S == 0) return 0;
     if (rows <= 1) return launch<T, P, C, 1>();
     if (rows <= 2) return launch<T, P, C, 2>();
@@ -1159,13 +1187,15 @@ int fa_paged_decode(int act, int kv, const void* q, const void* k_pages, const v
                     const void* lengths, const void* glob_lengths, void* o, void* l, void* m,
                     int S, int n_q, int n_kv, int d, int d_store, int page_size, int n_pages,
                     int max_pages, int page_stride, int page_offset, float scale_log2e,
-                    int window, int log2_stride, int is_local, void* stream) {
+                    int window, int log2_stride, int is_local, void* ws, void* tickets,
+                    int splits, int* walk, void* stream) {
   const Decode f{q, k_pages, v_pages, static_cast<const float*>(k_scales),
                  static_cast<const float*>(v_scales), static_cast<const int*>(tables),
                  static_cast<const int*>(lengths), static_cast<const int*>(glob_lengths), o,
                  static_cast<float*>(l), static_cast<float*>(m), S, 1, n_q, n_kv, d, d_store,
                  page_size, n_pages, max_pages, page_stride, page_offset, scale_log2e, window,
-                 log2_stride, is_local, static_cast<cudaStream_t>(stream)};
+                 log2_stride, is_local, static_cast<float*>(ws), static_cast<int*>(tickets),
+                 splits, walk, static_cast<cudaStream_t>(stream)};
   return dispatch(act, kv, f);
 }
 
@@ -1176,13 +1206,14 @@ int fa_paged_multitoken_decode(int act, int kv, const void* q, const void* k_pag
                                int gamma, int n_q, int n_kv, int d, int d_store, int page_size,
                                int n_pages, int max_pages, int page_stride, int page_offset,
                                float scale_log2e, int window, int log2_stride, int is_local,
-                               void* stream) {
+                               void* ws, void* tickets, int splits, int* walk, void* stream) {
   const Decode f{q, k_pages, v_pages, static_cast<const float*>(k_scales),
                  static_cast<const float*>(v_scales), static_cast<const int*>(tables),
                  static_cast<const int*>(lengths), static_cast<const int*>(glob_lengths), o,
                  static_cast<float*>(l), static_cast<float*>(m), S, gamma, n_q, n_kv, d,
                  d_store, page_size, n_pages, max_pages, page_stride, page_offset, scale_log2e,
-                 window, log2_stride, is_local, static_cast<cudaStream_t>(stream)};
+                 window, log2_stride, is_local, static_cast<float*>(ws),
+                 static_cast<int*>(tickets), splits, walk, static_cast<cudaStream_t>(stream)};
   return dispatch(act, kv, f);
 }
 

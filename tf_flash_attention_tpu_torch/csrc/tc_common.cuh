@@ -1,8 +1,9 @@
 // The building blocks of the port's tensor-core bodies for Hopper (sm_90a),
 // shared by the op path's forward (attention_fwd_tc.cuh) and backwards
 // (attention_bwd_tc.cuh, attention_qouter_tc.cuh) and the serving path's
-// prefill (prefill_tc.cuh): mbarriers, TMA loads of 64-column boxes (3-d
-// maps) and of paged rows (4-d maps), TMA reduce-adds, the 128-byte swizzle
+// prefill and decode (prefill_tc.cuh, decode_tc.cuh): mbarriers, TMA loads
+// of 64-column boxes (3-d maps) and of paged rows (4-d maps), 1-d bulk
+// copies, TMA reduce-adds, the 128-byte swizzle
 // and its descriptors, the wgmma products the bodies take on bf16 and fp16,
 // and the tensor-map encoder.  It needs no other header of the port, so the
 // serving source, whose helpers share names with attention_common.cuh's,
@@ -89,6 +90,16 @@ __device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map, uin
       "[%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// a contiguous range of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) into shared memory by the bulk-copy engine, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -420,6 +431,19 @@ template <int N, typename T>
 __device__ __forceinline__ void mma_pv(float (&d)[N / 2], const uint32_t* a, uint64_t db) {
   if constexpr (N == 128) wgmma_rs_n128<T>(d, a, db);
   else wgmma_rs_n256<T>(d, a, db);
+}
+
+// one warp's D += A B on bf16 (mma.sync m16n8k16, float32 sums): lane l
+// holds a0 (row l/4, k 2(l%4) + {0, 1}), a1 (row l/4 + 8, the same k), a2
+// and a3 (k + 8); b0 (k 2(l%4) + {0, 1}, column l/4) and b1 (k + 8); d0, d1
+// (row l/4, columns 2(l%4) + {0, 1}) and d2, d3 (row l/4 + 8)
+__device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // two floats as one register of T pairs (the lower column in the low half)

@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from .block_sizes import LANE
-from .mask_rules import CausalRule, FullRule, LocalRule
+from .mask_rules import CausalRule, FullRule, LocalRule, MaskRule
+from .schedule import build_schedule, sequence_orders
 from .sync_modes import ref_log2
 
 __all__ = ["LAUNCHES", "SERVING_KERNELS", "CP_VARIANTS", "ATTENTION_KERNELS",
@@ -85,7 +86,9 @@ def reset_launch_counts() -> None:
 
 #: what the last launch of a kernel reported, by kernel: ``body``
 #: ("tensor-core" or "scalar") for ``flash_bwd_qouter``, ``paged_prefill``
-#: and ``paged_prefill[cp]``; for each persistent walk (``resident_fwd`` and
+#: and ``paged_prefill[cp]``; for the decodes (``paged_decode``,
+#: ``paged_multitoken_decode`` and their ``[cp]`` forms) also ``splits`` and
+#: ``ctas``; for each persistent walk (``resident_fwd`` and
 #: the three experiment forwards) also ``grid`` (CTAs), ``items`` (work
 #: items) and ``group_rows`` (the rows a group of the walk)
 WALKS = {}
@@ -206,7 +209,8 @@ class FaRule(ctypes.Structure):
                 ("q_shape", _I * 2), ("q_stride", _I * 2), ("q_offset", _I * 2),
                 ("k_shape", _I * 2), ("k_stride", _I * 2), ("k_offset", _I * 2),
                 ("shift0", _I), ("kind", _I), ("window", _I), ("log2_stride", _I),
-                ("is_causal", _I), ("q_len", _I), ("k_len", _I)]
+                ("is_causal", _I), ("q_len", _I), ("k_len", _I),
+                ("mask_cols", _I), ("mask_index", _P), ("mask_bits", _P)]
 
 
 _R = ctypes.POINTER(FaRule)
@@ -225,10 +229,12 @@ _SIGNATURES = {
         # act, kv, q, k_pages, v_pages, k_scales, v_scales, tables, lengths,
         # glob_lengths, o, l, m, S, n_q, n_kv, d, d_store, page_size, n_pages,
         # max_pages, page_stride, page_offset, scale_log2e, window,
-        # log2_stride, is_local (glob_lengths, l, m nullable)
-        "fa_paged_decode": [_I, _I] + [_P] * 11 + [_I] * 10 + [_F] + [_I] * 3,
+        # log2_stride, is_local, ws, tickets, splits, walk (3 ints out)
+        # (glob_lengths, l, m nullable)
+        "fa_paged_decode": [_I, _I] + [_P] * 11 + [_I] * 10 + [_F] + [_I] * 3 + [_P, _P, _I, _P],
         # as fa_paged_decode, with gamma after S
-        "fa_paged_multitoken_decode": [_I, _I] + [_P] * 11 + [_I] * 11 + [_F] + [_I] * 3,
+        "fa_paged_multitoken_decode": [_I, _I] + [_P] * 11 + [_I] * 11 + [_F] + [_I] * 3
+                                      + [_P, _P, _I, _P],
         # act, kv, q, k_pages, v_pages, k_scales, v_scales, table_row, o, l,
         # m, chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages,
         # page_stride, page_offset, start, total, first_live, count, window,
@@ -402,7 +408,7 @@ def _lm(q, rows_shape, returning_l_m) -> tuple:
             torch.empty(rows_shape, dtype=torch.float32, device=q.device))
 
 
-#: the decode kernel's staging buffers (two of 32 KB) and rows a block
+#: the scalar decode body's staging buffers (two of 32 KB) and rows a block
 _DEC_STAGE, _DEC_ROWS = 32 * 1024, 16
 
 
@@ -413,40 +419,146 @@ def _check_smem(what: str, n_bytes: int) -> None:
                          f"than the {MAX_SMEM} the H100 has")
 
 
-def _decode_args(q, cache, cfg, gamma, returning_l_m, global_lengths) -> tuple:
-    """Checks, outputs and the leading arguments shared by the two decode
-    entries."""
-    S, n_q, d = q.shape[0], q.shape[-2], q.shape[-1]
+#: the tensor-core decode body (C ``tc::kDc*``, ``decode_tc.cuh``): keys a
+#: stage, ring items, query rows a CTA, Q and widened V row strides (bf16),
+#: the largest page merged at once, the rows' scores budget; the H100's SMs
+#: and shared memory an SM, whose two waves the split count aims at
+DECODE_STAGE_KEYS, _DC_RING, DECODE_CTA_ROWS = 64, 4, 64
+_DC_Q_STRIDE, _DC_V_STRIDE, _DC_MAX_MERGE, _DC_SCORE_BUDGET = 132, 136, 512, 72 * 1024
+_H100_SMS, _SM_SMEM = 132, 228 * 1024
+
+
+def decode_body(act_dtype: torch.dtype, cfg) -> str:
+    """The body ``paged_decode`` and ``paged_multitoken_decode`` run (the C
+    dispatch ``Decode::run``): bf16 activations at ``head_dim_store`` 128 on
+    pages of 16, 32 or a multiple of 64 tokens on the tensor cores (every
+    payload, any gamma, flat and ``[cp]``); float32 activations (the lossless
+    gates'), other stored widths and other page sizes on the scalar body."""
+    page = cfg.page_size
+    tc = (act_dtype == torch.bfloat16 and cfg.head_dim_store == 128
+          and (page % DECODE_STAGE_KEYS == 0 or page in (16, 32)))
+    return "tensor-core" if tc else "scalar"
+
+
+def decode_merge_keys(page: int, rows: int) -> int:
+    """Keys the tensor-core decode merges at once for a CTA of ``rows``
+    query rows (C ``dc_merge_keys``): a page, as the reference, where the
+    rows' float32 scores of a page fit the budget (pages of 64-512); else a
+    64-key stage."""
+    page_merge = (DECODE_STAGE_KEYS <= page <= _DC_MAX_MERGE
+                  and rows * (page + 4) * 4 <= _DC_SCORE_BUDGET)
+    return page if page_merge else DECODE_STAGE_KEYS
+
+
+def decode_tc_smem(cfg, rows: int) -> int:
+    """Shared memory of a tensor-core decode CTA of ``rows`` query rows (C
+    ``dc_smem``): a ring of four 64-key items (raw payload rows, then 64 K
+    and 64 V scales), Q (rows padded to 16), two widened bf16 V tiles, the
+    rows' scores of a merge, its V scales, m, l and alpha a padded row, the
+    barriers and the ticket flag."""
+    item = DECODE_STAGE_KEYS // (2 if cfg.is_int4 else 1) * 128 * (
+        1 if cfg.quantized else cfg.payload_dtype.itemsize)
+    padded = -(-rows // 16) * 16
+    merge = decode_merge_keys(cfg.page_size, rows)
+    return (_DC_RING * (item + 2 * DECODE_STAGE_KEYS * 4) + padded * _DC_Q_STRIDE * 2
+            + 2 * DECODE_STAGE_KEYS * _DC_V_STRIDE * 2 + rows * (merge + 4) * 4 + _DC_MAX_MERGE * 4
+            + 3 * padded * 4 + 2 * _DC_RING * 8 + 16)
+
+
+def decode_plan(S: int, n_q: int, gamma: int, cfg, act_dtype=torch.bfloat16) -> dict:
+    """The decode launch for ``S`` slots of ``n_q`` heads and ``gamma`` rows,
+    from the shapes and the cache's configuration alone (no length is read
+    from the device: the kernel finds each slot's pages itself).  ``body``;
+    ``splits``, the CTAs a (slot, kv head, row group) cuts its live pages
+    into (two waves of the H100's SMs at the CTAs an SM holds, so that
+    slots of unequal lengths even out; at most a merge unit each);
+    ``ctas``; ``row_groups`` of at most 64 rows; ``smem`` a CTA; the float32
+    ``workspace`` of the partials and the ``tickets`` of the in-launch merge
+    (tensor-core body)."""
+    n_kv, page = cfg.n_kv_heads, cfg.page_size
+    rows = n_q // n_kv * gamma
+    body = decode_body(act_dtype, cfg)
+    if body == "scalar":
+        D = cfg.head_dim_store
+        groups = -(-rows // _DEC_ROWS)
+        block_rows = min(rows, _DEC_ROWS)
+        return dict(body=body, splits=1, row_groups=groups, workspace=0, tickets=0,
+                    ctas=S * n_kv * groups * -(-D // 1024),
+                    smem=2 * _DEC_STAGE + 4 * (block_rows * (D + page) + 2 * page
+                                               + 3 * block_rows))
+    groups = -(-rows // DECODE_CTA_ROWS)
+    units = (cfg.max_pages_per_seq if page >= DECODE_STAGE_KEYS
+             else -(-cfg.max_pages_per_seq // (DECODE_STAGE_KEYS // page)))
+    cells = S * n_kv * groups
+    smem = decode_tc_smem(cfg, min(rows, DECODE_CTA_ROWS))
+    # CTAs an SM holds: by shared memory (1 KB of it the system's a CTA), and
+    # by registers (288 threads: two CTAs for one row tile of a one-byte
+    # payload, whose body is capped at 112 registers; one past)
+    per_sm = max(1, min(_SM_SMEM // (smem + 1024), 2 if rows <= 16 and cfg.quantized else 1))
+    splits = max(1, min(units, 2 * _H100_SMS * per_sm // max(cells, 1)))
+    return dict(body=body, splits=splits, row_groups=groups, ctas=cells * splits, smem=smem,
+                tickets=cells,
+                workspace=cells * splits * DECODE_CTA_ROWS * (128 + 2) if splits > 1 else 0)
+
+
+_SCRATCH = {}
+
+
+def _decode_scratch(device, workspace: int, tickets: int) -> tuple:
+    """The tensor-core decode's float32 workspace and int32 tickets on
+    ``device``, kept between launches (the tickets must stay zero there: the
+    merging CTA zeroes its own) and grown as a launch needs."""
+    key = str(device)
+    ws, tk = _SCRATCH.get(key, (None, None))
+    if ws is None or ws.numel() < max(workspace, 1):
+        ws = torch.empty(max(workspace, 1), dtype=torch.float32, device=device)
+    if tk is None or tk.numel() < max(tickets, 1):
+        tk = torch.zeros(max(tickets, 1), dtype=torch.int32, device=device)
+    _SCRATCH[key] = ws, tk
+    return ws, tk
+
+
+def _decode(entry, q, cache, cfg, S, gamma, scale_log2e, rule, returning_l_m, page_stride,
+            page_offset, global_lengths):
+    """Checks, outputs, scratch and the launch shared by the two decode
+    entries; records the body, splits and CTAs the launch reports in
+    ``WALKS``."""
+    n_q, d = q.shape[-2], q.shape[-1]
     act, kv = _codes(q.dtype, cache, cfg)
     dims = _cache_dims(cache, cfg)
     D, page = cfg.head_dim_store, cfg.page_size
     if D % LANE or D * (1 if cfg.quantized else cfg.payload_dtype.itemsize) > _DEC_STAGE:
         raise ValueError(f"the decode kernels take a head_dim_store that is a multiple of "
                          f"{LANE} whose stored row fits a {_DEC_STAGE}-byte stage, got {D}")
-    rows = min(n_q // cfg.n_kv_heads * gamma, _DEC_ROWS)
-    _check_smem(f"decode at head_dim_store {D}, page {page}",
-                2 * _DEC_STAGE + 4 * (rows * (D + page) + 2 * page + 3 * rows))
+    plan = decode_plan(S, n_q, gamma, cfg, q.dtype)
+    _check_smem(f"decode at head_dim_store {D}, page {page}", plan["smem"])
     if global_lengths is not None and (global_lengths.dtype != torch.int32
                                        or not global_lengths.is_contiguous()):
         raise TypeError("global_lengths must be a contiguous int32 vector")
     o = torch.empty_like(q)
     l, m = _lm(q, q.shape[:-1], returning_l_m)
-    outs = (o, l, m) if returning_l_m else o
-    return outs, (act, kv, q.data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
-                  _ptr(cache.k_scales), _ptr(cache.v_scales), cache.page_tables.data_ptr(),
-                  cache.lengths.data_ptr(), _ptr(global_lengths), o.data_ptr(), _ptr(l),
-                  _ptr(m)), (n_q, cfg.n_kv_heads, d, cfg.head_dim_store, *dims)
+    ws, tickets = _decode_scratch(q.device, plan["workspace"], plan["tickets"])
+    walk = (ctypes.c_int * 3)()
+    cp = returning_l_m or page_stride != 1 or global_lengths is not None
+    _call(entry, act, kv, q.data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
+          _ptr(cache.k_scales), _ptr(cache.v_scales), cache.page_tables.data_ptr(),
+          cache.lengths.data_ptr(), _ptr(global_lengths), o.data_ptr(), _ptr(l), _ptr(m),
+          S, *(() if entry == "fa_paged_decode" else (gamma,)), n_q, cfg.n_kv_heads, d, D, *dims,
+          page_stride, page_offset, float(scale_log2e), *_rule_args(rule), ws.data_ptr(),
+          tickets.data_ptr(), plan["splits"], walk, cp=cp)
+    kernel = entry[3:] + ("[cp]" if cp else "")
+    WALKS[kernel] = dict(body="tensor-core" if walk[0] else "scalar", splits=walk[1],
+                         ctas=walk[2])
+    return (o, l, m) if returning_l_m else o
 
 
 def paged_decode(q, cache, cfg, scale_log2e, rule, returning_l_m=False, page_stride=1,
                  page_offset=0, global_lengths=None):
     """Launch ``paged_decode``: q (S, n_q, d) -> o of the same shape, or
-    (o, l, m) with l, m float32 (S, n_q)."""
-    outs, lead, dims = _decode_args(q, cache, cfg, 1, returning_l_m, global_lengths)
-    _call("fa_paged_decode", *lead, q.shape[0], *dims, page_stride, page_offset,
-          float(scale_log2e), *_rule_args(rule),
-          cp=returning_l_m or page_stride != 1 or global_lengths is not None)
-    return outs
+    (o, l, m) with l, m float32 (S, n_q).  ``decode_body`` names the body;
+    the launch's report (body, splits, CTAs) is in ``WALKS``."""
+    return _decode("fa_paged_decode", q, cache, cfg, q.shape[0], 1, scale_log2e, rule,
+                   returning_l_m, page_stride, page_offset, global_lengths)
 
 
 def paged_multitoken_decode(q, cache, cfg, scale_log2e, rule, returning_l_m=False,
@@ -454,12 +566,8 @@ def paged_multitoken_decode(q, cache, cfg, scale_log2e, rule, returning_l_m=Fals
     """Launch ``paged_multitoken_decode``: q (S, gamma, n_q, d) -> o of the
     same shape (and l, m (S, gamma, n_q)); draft i of a slot sits at
     position ``length - gamma + i`` (the global length, where given)."""
-    S, gamma = q.shape[:2]
-    outs, lead, dims = _decode_args(q, cache, cfg, gamma, returning_l_m, global_lengths)
-    _call("fa_paged_multitoken_decode", *lead, S, gamma, *dims, page_stride, page_offset,
-          float(scale_log2e), *_rule_args(rule),
-          cp=returning_l_m or page_stride != 1 or global_lengths is not None)
-    return outs
+    return _decode("fa_paged_multitoken_decode", q, cache, cfg, q.shape[0], q.shape[1],
+                   scale_log2e, rule, returning_l_m, page_stride, page_offset, global_lengths)
 
 
 def paged_prefill(qs, cache, cfg, slot, start, total, first_live, count, rule,
@@ -524,15 +632,61 @@ PREFILL_TC_SMEM = 1024 + 64 * 256 + 2 * (2 * 64 * 256 + 2 * 64 * 128 + 2 * 64 * 
 # ---- the op path's attention kernels ----
 
 _RULE_KIND = {FullRule: 0, CausalRule: 1, LocalRule: 2}
+#: any other rule: its check through a granule mask (C ``kCustom``)
+CUSTOM_KIND = 3
+#: the custom mask's granules (C ``kMaskGranule``) and their index codes
+MASK_GRANULE, MASK_ALL, MASK_NONE = 64, -1, -2
 
 
-def fa_rule(pack, rule) -> FaRule:
-    """The kernels' view of a sync pack and mask rule; a rule outside the
-    three built-in families has no device predicate and raises."""
-    kind = _RULE_KIND.get(type(rule))
-    if kind is None:
-        raise NotImplementedError(f"the CUDA kernels evaluate FullRule, CausalRule and "
-                                  f"LocalRule only, got {type(rule).__name__}")
+def custom_mask(pack, rule) -> tuple:
+    """A custom rule's visibility on the kernels' terms (C ``custom_visible``):
+    ``index`` int32 (q granules, k granules) of 64 x 64 positions, each
+    ``MASK_ALL``, ``MASK_NONE`` or the granule's number in ``bits``, and
+    ``bits`` uint64 (granules, 64), one word a query row with bit ``k % 64``.
+    The rule's ``tile_live`` / ``tile_fully_visible`` class the granules as
+    the schedule does (dead: none, fully visible: all); only the partial
+    ones call ``check``, with numpy order coordinates and flattened orders as
+    ``build_tile_mask`` gives them, so memory grows with the partial
+    granules.  Positions past a sequence's length are left to the kernels'
+    bounds test."""
+    G = MASK_GRANULE
+    q_coords, q_flat = sequence_orders(pack.q, pack.reference_shape)
+    k_coords, k_flat = sequence_orders(pack.k, pack.reference_shape)
+    q_len, k_len = q_flat.size, k_flat.size
+    sched = build_schedule(pack, rule, G, G, use_native=False)
+    index = np.where(sched.live & ~sched.partial, MASK_ALL, MASK_NONE).astype(np.int32)
+    words = []
+    for qi in np.flatnonzero(sched.partial.any(axis=1)):
+        qs = slice(qi * G, min(qi * G + G, q_len))
+        vis = np.broadcast_to(np.asarray(rule.check(
+            pack, [c[qs, None] for c in q_coords], [c[None, :] for c in k_coords],
+            q_flat[qs, None], k_flat[None, :]), dtype=bool), (qs.stop - qs.start, k_len))
+        for ki in np.flatnonzero(sched.partial[qi]):
+            tile = vis[:, ki * G:ki * G + G]
+            if tile.all():
+                index[qi, ki] = MASK_ALL
+            elif not tile.any():
+                index[qi, ki] = MASK_NONE
+            else:
+                full = np.zeros((G, G), dtype=bool)
+                full[:tile.shape[0], :tile.shape[1]] = tile
+                index[qi, ki] = len(words)
+                words.append(np.packbits(full, axis=1, bitorder="little").view("<u8")[:, 0])
+    bits = np.stack(words) if words else np.zeros((0, G), dtype="<u8")
+    return index, bits
+
+
+def fa_rule(pack, rule, device=None) -> FaRule:
+    """The kernels' view of a sync pack and mask rule.  Full, causal and
+    local rules are kinds 0-2; any other rule that defines ``check``,
+    ``tile_live`` and ``tile_fully_visible`` is kind 3, whose granule mask
+    (``custom_mask``) is uploaded to ``device`` once per (pack, rule,
+    device) and held by the returned struct's pointers."""
+    kind = _RULE_KIND.get(type(rule), CUSTOM_KIND)
+    if kind == CUSTOM_KIND and any(getattr(type(rule), name) is getattr(MaskRule, name)
+                                   for name in ("check", "tile_live", "tile_fully_visible")):
+        raise NotImplementedError(f"{type(rule).__name__} must define check, tile_live and "
+                                  f"tile_fully_visible for the kernels' schedule and mask")
     if pack.ndim not in (1, 2):
         raise ValueError(f"1 or 2 sequence dims, got {pack.ndim}")
     r = FaRule()
@@ -548,6 +702,14 @@ def fa_rule(pack, rule) -> FaRule:
                                                 int(rule.is_causal))
     r.q_len = int(np.prod(pack.q.shape))
     r.k_len = int(np.prod(pack.k.shape))
+    if kind == CUSTOM_KIND:
+        if device is None:
+            raise ValueError("a custom rule's mask needs the device it is uploaded to")
+        index, bits = device_tables(
+            ("custom_mask", pack, rule),
+            lambda: [a.view(np.int32) for a in custom_mask(pack, rule)], device)
+        r.mask_cols = index.shape[1]
+        r.mask_index, r.mask_bits = index.data_ptr(), bits.data_ptr()
     return r
 
 
@@ -555,14 +717,15 @@ _TABLES = {}
 
 
 def device_tables(key, arrays, device) -> tuple:
-    """The int32 ``arrays`` (a schedule's tables, band segments or starts) as
-    tensors on ``device``, uploaded once per ``key`` (pack, rule, blocks,
-    route)."""
+    """The int32 ``arrays`` (a schedule's tables, band segments or starts, a
+    custom rule's mask) as tensors on ``device``, uploaded once per ``key``
+    (pack, rule, blocks, route); ``arrays`` may be a function that returns
+    them, called on the first use of a key only."""
     key = (key, str(device))
     tabs = _TABLES.get(key)
     if tabs is None:
         tabs = tuple(torch.from_numpy(np.ascontiguousarray(t, np.int32)).to(device)
-                     for t in arrays)
+                     for t in (arrays() if callable(arrays) else arrays))
         _TABLES[key] = tabs
     return tabs
 

@@ -179,7 +179,7 @@ def flash_backward(q, k, v, o, l, m, do, *, pack: SyncPack, rule: MaskRule,
                                      len(routes) == 1)
 
     q, k, v, do = (x.contiguous() for x in (q, k, v, do))
-    rule_c = native.fa_rule(pack, rule)
+    rule_c = native.fa_rule(pack, rule, q.device)
     if len(routes) == 2:
         r_dq, r_dkv = routes
         dq = native.flash_bwd_dq(prescale(q, scale), k, v, do, lse2, delta, rule_c,

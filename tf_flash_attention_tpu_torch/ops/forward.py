@@ -200,7 +200,8 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, pack: Sy
         return _flash_forward_plain(q_scaled, k, v, pack, rule)
     route = forward_route(pack, rule, config, d, v_d)
     tabs = route.tables(pack, rule, q.device)
-    args = (q_scaled.contiguous(), k.contiguous(), v.contiguous(), native.fa_rule(pack, rule))
+    args = (q_scaled.contiguous(), k.contiguous(), v.contiguous(),
+            native.fa_rule(pack, rule, q.device))
     if route.kernel == "window_fwd":
         return native.window_fwd(*args, tabs[0], route.band, route.sub, route.masked)
     if route.kernel == "banded_fwd":

@@ -9,8 +9,9 @@ Phases (any failure exits non-zero before the final line):
   1. build: compiles every kernel source in csrc/ with nvcc, one process
      per source, all at once; prints each source's seconds and ptxas's
      registers, spills and serialized wgmma of the experiment forwards, the
-     tensor-core q-outer backward, prefill and decode, and any kernel that
-     spills (a spill of the tensor-core decode body fails);
+     tensor-core backwards (kv-outer and q-outer, each also in the split
+     pair's form), prefill and decode, and any kernel that spills (a spill
+     of the tensor-core decode body fails);
   2. kernels: each of the four serving kernels against its plain PyTorch
      version on the card, at the serving slice's shapes (int8 cache, 8 kv
      heads, d 128, page 256, chunk 512, 16 slots), plus a GQA (8 q / 2 kv)
@@ -109,10 +110,15 @@ Phases (any failure exits non-zero before the final line):
      the grid, the work items and the rows a group its launch reports and
      is set beside banded_fwd;
      flash_bwd_fused, banded_bwd and flash_bwd_qouter the tensor-core
-     backwards: each row names its body), banded_bwd once more without dQ
-     (what dQ's product
-     and its reduction into the float32 accumulator cost), and the
-     accumulator's zero fill and scale-and-cast passes;
+     backwards: each row names its body; the split pair flash_bwd_dq and
+     flash_bwd_dkv the q-outer body without dK and dV and the kv-outer body
+     without dQ, each launched on its own at the slice first: within
+     op_tol of the plain split backward, two launches bit-equal, on the
+     body bwd_body names as the launch reports it; the pair's sum beside
+     the library's forward + backward and its factor), banded_bwd once
+     more without dQ (what dQ's product and its reduction into the float32
+     accumulator cost), and the accumulator's zero fill and scale-and-cast
+     passes;
   6. training at full width: the same 168M decoder (fp32 parameters, bf16
      compute) takes 5 AdamW steps on one seeded batch of 8 x 2048 tokens;
      the first step's loss and gradient norm must match the plain path on
@@ -581,15 +587,17 @@ def gathered_kv(cache, cfg, slot, total):
 
 def build_report(native):
     """Each source's nvcc seconds and ptxas's report: every kernel of the
-    experiment forwards, the tensor-core q-outer backward and prefill, and
-    any other that spills or whose wgmma ptxas serializes."""
+    experiment forwards, the tensor-core backwards (kv-outer and q-outer,
+    with and without the split pair's halves), prefill and decode, and any
+    other that spills or whose wgmma ptxas serializes."""
     for src, log in sorted(native.BUILD_LOG.items(), key=lambda kv: -kv[1]["seconds"]):
         kernels = native.ptxas_summary(src)
         print(f"build {src}: {log['seconds']:.3f} s, {len(kernels)} kernels, at most "
               f"{max((k['registers'] for k in kernels), default=0)} registers", flush=True)
         for k in kernels:
             if (src == "exp_forward_kernels.cu" or k["spill_stores"] or k["warnings"]
-                    or any(b in k["name"] for b in ("qouter_tc", "prefill_tc", "decode_tc"))):
+                    or any(b in k["name"] for b in ("qouter_tc", "bwd_tc_kernel", "prefill_tc",
+                                                    "decode_tc"))):
                 print(f"  ptxas {k['name']}: {k['registers']} registers, spill stores "
                       f"{k['spill_stores']} B, loads {k['spill_loads']} B; "
                       f"{'; '.join(k['warnings']) or 'no warnings'}", flush=True)
@@ -793,7 +801,7 @@ def main():
                  "library_ms": m["library_ms"],
                  **{x: m[x] for x in ("body", "splits", "ctas", "deterministic", "library_err",
                                       "ms_without_dq", "grid", "items", "group_rows",
-                                      "kernel_ms", "gqa") if x in m}}
+                                      "kernel_ms", "gqa", "pair") if x in m}}
         if k in native.SERVING_KERNELS:
             entry["payloads_held"] = [pl for pl, c in cases.items() if k in c]
             entry["ms_by_payload"] = {pl: c[k]["ms"] for pl, c in cases.items() if k in c}
@@ -1715,17 +1723,37 @@ def op_phase(dev):
                                          128, scale), plain_split, 4,
             bwd_bytes + 2 * tensor, None),
     }
+    # the split pair at the slice, each kernel launched on its own: within
+    # op_tol of the plain split backward, two launches bit-equal (the route
+    # is deterministic), on the body bwd_body names, as each launch reports it
+    want_split = plain_split()
+    split = {}
+    for kn, outs in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkv", ("dk", "dv"))):
+        runs = []
+        for _ in range(2):
+            got = launch[kn][0]()
+            runs.append(got if isinstance(got, tuple) else (got,))
+        torch.cuda.synchronize()
+        want = [want_split[("dq", "dk", "dv").index(o)] for o in outs]
+        err[kn] = max(err.get(kn, 0.0), compare(f"{kn} (slice)", outs, runs[0], want,
+                                                (bf,) * len(outs)))
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            fail(f"{kn} (slice): two launches on the same inputs differ")
+        body = native.WALKS[kn]["body"]
+        if body != native.bwd_body(bf, d, d):
+            fail(f"{kn} (slice): the launch ran the {body} body, bwd_body names "
+                 f"{native.bwd_body(bf, d, d)}")
+        split[kn] = dict(body=body, deterministic=True)
     for kn, (kern, plain, products, n_bytes, lib) in launch.items():
         ms, plain_ms = time_ms(kern, n=10), time_ms(plain, n=5)
         lib_ms = None if lib is None else time_ms(lib, n=10)
         b_ms, b_by = bound(n_bytes, products * 2 * pairs * d, "bf16")
         times[kn] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                          bound_by=b_by)
-        # the split pair has the scalar body only
-        times[kn]["body"] = (native.fwd_body(bf, d, d) if kn.endswith("_fwd") else
-                             "scalar" if kn in ("flash_bwd_dq", "flash_bwd_dkv")
+        times[kn]["body"] = (native.fwd_body(bf, d, d) if kn.endswith("_fwd")
                              else native.bwd_body(bf, d, d))
-        extra = ""
+        times[kn].update(split.get(kn, {}))
+        extra = " deterministic=True" if kn in split else ""
         if kn == "resident_fwd":   # the persistent walk, as its last launch reports it
             walk = native.WALKS[kn]
             if walk["body"] != times[kn]["body"]:
@@ -1779,10 +1807,18 @@ def op_phase(dev):
     cast_ms = time_ms(lambda: (dq_acc * scale).to(bf), n=10)
     print(f"dq_acc passes (slice): zero fill ms={zero_ms} scale-and-cast ms={cast_ms}",
           flush=True)
+    # the pair computes what one scaled_dot_product_attention backward does:
+    # its yardstick is the library's forward + backward (lib_bwd), as for
+    # the fused rows
     split_ms = times["flash_bwd_dq"]["ms"] + times["flash_bwd_dkv"]["ms"]
+    pair_lib_ms = time_ms(lib_bwd, n=10)
+    pair = dict(ms=split_ms, library_ms=pair_lib_ms, factor=split_ms / pair_lib_ms)
+    for kn in ("flash_bwd_dq", "flash_bwd_dkv"):
+        times[kn]["pair"] = pair
     print(f"kernel split pair (slice): {split_ms} ms for one backward = "
-          f"{5 * area2 * d / split_ms / 1e9:.3f} useful TFLOP/s; the plain_ms of each of the "
-          f"pair is the whole plain split backward", flush=True)
+          f"{5 * area2 * d / split_ms / 1e9:.3f} useful TFLOP/s; library (SDPA forward + "
+          f"backward) {pair_lib_ms} ms: the pair {pair['factor']:.3f}x; the plain_ms of each "
+          f"of the pair is the whole plain split backward", flush=True)
 
     # the window kernels at case (d)'s shape (fp32, d = v_d = 64)
     local_rule = LocalRule(5, 1, True)

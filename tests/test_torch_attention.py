@@ -9,6 +9,8 @@ with the package's own environment switches, so the kernels the port
 mirrors run).
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -273,6 +275,38 @@ def test_half_backward_rounds_as_jax_kernels(monkeypatch, route):
         assert err.mean() < 1e-5, (name, err.mean())
 
 
+@pytest.mark.parametrize("g", [2, 4])
+def test_half_split_gqa_rounds_as_jax_kernels(g):
+    """bf16, causal, GQA (2 kv heads, ``g`` query heads each, 256 positions,
+    d 64): the port's split backward (``fused=False``: ``flash_bwd_dq`` and
+    ``flash_bwd_dkv``, here their plain version) against JAX's ``_dq_kernel``
+    and ``_dkv_kernel`` (``fast_softmax=False``, interpret mode) on the same
+    o, l, m.  Each member's dK and dV sum into its kv head in float32 on
+    both sides, so they part as the ungrouped pair does: on fewer than 1% of
+    each gradient's elements, with a mean error under 1e-5."""
+    S, d = 256, 64
+    rng = np.random.default_rng(11 + g)
+    q, do = (torch.from_numpy(rng.uniform(-2, 2, (2 * g, S, d)).astype(np.float32))
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(rng.uniform(-2, 2, (2, S, d)).astype(np.float32))
+            .to(torch.bfloat16) for _ in range(2))
+    tp, tr = tpack("none_front", (S,), (S,)), trules.CausalRule()
+    assert [r.kernel for r in tbwd.backward_route(tp, tr, BLOCKS, g, False)] == [
+        "flash_bwd_dq", "flash_bwd_dkv"]
+    o, l, m = tfwd.flash_forward(q, k, v, pack=tp, rule=tr, config=BLOCKS)
+    j = lambda x: jnp.asarray(_np(x), jnp.bfloat16 if x.dtype == torch.bfloat16 else jnp.float32)
+    jg = jbwd.flash_backward(j(q), j(k), j(v), j(o), j(l), j(m), j(do),
+                             pack=jpack("none_front", (S,), (S,)), rule=fa.CausalRule(),
+                             config=SMALL_BLOCKS, interpret=True, fast_softmax=False,
+                             fused=False)
+    got = tbwd.flash_backward(q, k, v, o, l, m, do, pack=tp, rule=tr, config=BLOCKS, fused=False)
+    for name, a, b in zip(("dq", "dk", "dv"), jg, got):
+        assert b.shape == a.shape, name
+        err = np.abs(_np(b) - _np(a))
+        assert (err > 0).mean() < 0.01, (name, (err > 0).mean())
+        assert err.mean() < 1e-5, (name, err.mean())
+
+
 # head dims past the old 256 cap: the CUDA kernels take them (a third tile
 # class, output columns past 512 over grid z); on the CPU the op path and
 # the block solver must take them too
@@ -356,6 +390,74 @@ def test_backward_body_empty_inputs(q_len, k_len):
     for dtype in (torch.bfloat16, torch.float16):
         assert native.bwd_body(dtype, 128, 128, q_len, k_len) == "scalar"
         assert native.bwd_body(dtype, 128, 128, 64, 64) == "tensor-core"
+
+
+# the split pair's body by dtype, widths and lengths: the rule of every
+# backward (d 72 takes TMA with a part-filled second slab, d 60 the
+# producer's plain-load staging: both tensor-core)
+@pytest.mark.parametrize("dtype,d,v_d,q_len,k_len,body", [
+    (torch.bfloat16, 128, 128, 2048, 2048, "tensor-core"),
+    (torch.float16, 128, 128, 300, 520, "tensor-core"),
+    (torch.bfloat16, 64, 128, 333, 199, "tensor-core"),
+    (torch.float16, 72, 72, 260, 300, "tensor-core"),
+    (torch.bfloat16, 60, 60, 1, 1, "tensor-core"),
+    (torch.bfloat16, 128, 136, 64, 64, "scalar"),
+    (torch.float16, 256, 256, 64, 64, "scalar"),
+    (torch.float32, 128, 128, 64, 64, "scalar"),
+    (torch.float32, 64, 64, 64, 64, "scalar"),
+    (torch.bfloat16, 128, 128, 0, 64, "scalar"),
+    (torch.float16, 128, 128, 64, 0, "scalar"),
+    (torch.bfloat16, 64, 64, 0, 0, "scalar")])
+def test_split_pair_body(dtype, d, v_d, q_len, k_len, body):
+    """``flash_bwd_dq`` and ``flash_bwd_dkv`` run the tensor-core bodies
+    (the q-outer body without dK and dV, the kv-outer body without dQ) on
+    bf16 and fp16 at max(d, v_d) <= 128 with q and k not empty, and the
+    scalar bodies elsewhere: ``bwd_body``'s rule; the memory guard follows
+    the body each runs."""
+    assert native.bwd_body(dtype, d, v_d, q_len, k_len) == body
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        native._check_bwd_smem(name, dtype, d, v_d, q_len, k_len)
+
+
+def _c_function(source: str, signature: str) -> str:
+    """The text of the C function of ``csrc/source`` that starts with
+    ``signature``, to its closing brace at column 0."""
+    text = (Path(native.__file__).parent / "csrc" / source).read_text()
+    start = text.index(signature)
+    return text[start:text.index("\n}\n", start)]
+
+
+def test_backward_body_rule_is_the_c_dispatch():
+    """``bwd_body`` mirrors the C dispatch: every backward's ``*_any``
+    takes its tensor-core body for half types under ``tc_bwd_takes``, whose
+    rule is max(d, v_d) <= 128 with q and k not empty, and the split pair's
+    bodies are the q-outer body without dK and dV and the kv-outer body
+    without dQ."""
+    rule = _c_function("attention_bwd_tc.cuh", "bool tc_bwd_takes(")
+    assert ("a.d <= 128 && a.v_d <= 128 && a.rule.q_len > 0 && a.rule.k_len > 0"
+            in " ".join(rule.split()))
+    for source, fn, tc_call in (
+            ("attention_bwd_tc.cuh", "int bwd_fused_any(", "tc::bwd_tc<T, WALK>(a, s)"),
+            ("attention_kernels.cu", "int bwd_qouter_any(", "tc::qouter_tc<T>(a, s)"),
+            ("attention_kernels.cu", "int bwd_dq_any(", "tc::qouter_tc<T, false>(a, s)"),
+            ("attention_kernels.cu", "int bwd_dkv_any(", "tc::bwd_tc<T, kTable, false>(a, s)")):
+        body = _c_function(source, fn)
+        assert "if constexpr (!std::is_same<T, float>::value)" in body, fn
+        assert "if (tc_bwd_takes(a))" in body and tc_call in body, fn
+    kernels = (Path(native.__file__).parent / "csrc" / "attention_kernels.cu").read_text()
+    assert "return bwd_dq_any<decltype(tag)>(a, s, body);" in kernels
+    assert "return bwd_dkv_any<decltype(tag)>(a, s, body);" in kernels
+
+
+def test_split_tc_shared_memory():
+    """The tensor-core ``flash_bwd_dq`` is the q-outer body without the
+    T(P) and T(dS) tiles and the two float partials: Q and dO (32 KB each),
+    two 64-key K / V stages (32 KB each), the rows' lse2 and delta, five
+    barriers and 1 KB of alignment (C ``kQoDqSmem``); the tensor-core
+    ``flash_bwd_dkv`` keeps the kv-outer body's layout."""
+    assert native.QOUTER_DQ_TC_SMEM == 133160 <= native.MAX_SMEM
+    assert native.TC_BWD_SMEM <= native.MAX_SMEM
+    assert native.QOUTER_TC_SMEM - native.QOUTER_DQ_TC_SMEM == 2 * 16384 + 2 * 32768
 
 
 def test_qouter_tc_shared_memory():

@@ -767,18 +767,20 @@ def test_tc_bwd_tile_matches_matmul(dev, dtype):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("routes", ["auto", "table"])
+@pytest.mark.parametrize("routes", ["auto", "table", "split"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
 @pytest.mark.parametrize("case", list(TC_CASES))
 def test_tc_backward_matches_plain(dev, monkeypatch, case, dtype, routes):
-    """The fused backward on bf16 / fp16 (the tensor-core body of banded_bwd
-    and flash_bwd_fused where max(d, v_d) <= 128, the scalar body above)
-    against the plain backward, which rounds p and dS to the input type where
-    the kernels round them: dQ, dK and dV within 2 ulps of the output type at
-    each tensor's scale.  The auto route launches banded_bwd (window_bwd for
-    the two cases whose transposed schedule is one band per sub-block), the
-    table route flash_bwd_fused."""
-    for var, val in ROUTES[routes].items():
+    """The backward on bf16 / fp16 (the tensor-core bodies of banded_bwd,
+    flash_bwd_fused and the split pair where max(d, v_d) <= 128, the scalar
+    bodies above) against the plain backward, which rounds p and dS to the
+    input type where the kernels round them: dQ, dK and dV within 2 ulps of
+    the output type at each tensor's scale.  The auto route launches
+    banded_bwd (window_bwd for the two cases whose transposed schedule is
+    one band per sub-block), the table route flash_bwd_fused, the split route
+    (FA_FUSED_BWD=0, the auto backward) flash_bwd_dq and flash_bwd_dkv."""
+    env = {"FA_FUSED_BWD": "0"} if routes == "split" else ROUTES[routes]
+    for var, val in env.items():
         monkeypatch.setenv(var, val)
     rule, sync, q_seq, k_seq, d, v_d, b_kv, g = TC_CASES[case]
     gen = torch.Generator(device=dev).manual_seed(d + 3 * v_d)
@@ -791,14 +793,20 @@ def test_tc_backward_matches_plain(dev, monkeypatch, case, dtype, routes):
     lse2, delta = backward.backward_stats(o, l, m, do)
     native.reset_launch_counts()
     got = backward.flash_backward(q, k, v, o, l, m, do, pack=pack, rule=rule, config=BLOCKS,
-                                  fused="kv")
+                                  fused=None if routes == "split" else "kv")
     torch.cuda.synchronize()
     launched = {kn for kn in native.ATTENTION_KERNELS if native.LAUNCHES[kn]}
-    want_kernel = {"auto": "window_bwd" if case in ("dead_rows", "local_2d_strided")
-                   else "banded_bwd", "table": "flash_bwd_fused"}[routes]
-    assert launched == {want_kernel}, launched
-    assert native.bwd_body(dtype, d, v_d) == ("tensor-core" if max(d, v_d) <= 128 else "scalar")
-    want = backward._flash_backward_plain(q, k, v, do, lse2, delta, pack, rule, d ** -0.5, True)
+    want_kernels = {"auto": {"window_bwd" if case in ("dead_rows", "local_2d_strided")
+                             else "banded_bwd"}, "table": {"flash_bwd_fused"},
+                    "split": {"flash_bwd_dq", "flash_bwd_dkv"}}[routes]
+    assert launched == want_kernels, launched
+    body = "tensor-core" if max(d, v_d) <= 128 else "scalar"
+    assert native.bwd_body(dtype, d, v_d) == body
+    if routes == "split":
+        assert native.WALKS["flash_bwd_dq"]["body"] == native.WALKS["flash_bwd_dkv"]["body"] \
+            == body
+    want = backward._flash_backward_plain(q, k, v, do, lse2, delta, pack, rule, d ** -0.5,
+                                          routes != "split")
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         _close(name, a, b, dtype)
     if case == "dead_rows":
@@ -1027,6 +1035,98 @@ def test_qouter_scalar_body_where_the_rule_says(dev):
         lse2, delta = backward.backward_stats(o, l, m, do)
         want = backward._flash_backward_plain(q, k, v, do, lse2, delta, pack, CausalRule(),
                                               d ** -0.5, True)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            _close(name, a, b, dtype)
+
+
+# ---- the split pair on the tensor-core bodies (flash_bwd_dq, flash_bwd_dkv) ----
+
+# (rule, sync, q_seq, k_seq, d, v_d, b_kv, g): causal, full, strided local
+# and a custom rule; GQA 8/2 (2 kv rows of 4 query heads); q_len != k_len
+# and lengths that are no multiple of 64; d = v_d = 128, d 64 / v_d 128, d
+# 72 (TMA with a part-filled second slab) and d 60 (a pitch no multiple of
+# 16 bytes: the producer's plain-load staging)
+SPLIT_CASES = {
+    "causal_d128": (CausalRule(), "none_front", (384,), (384,), 128, 128, 2, 1),
+    "causal_gqa_8_2": (CausalRule(), "none_front", (300,), (300,), 128, 128, 2, 4),
+    "full_q_ne_k": (FullRule(), "none_front", (333,), (199,), 64, 128, 1, 1),
+    "full_k_longer_gqa": (FullRule(), "none_front", (150,), (420,), 128, 64, 1, 4),
+    "local_stride": (LocalRule(5, 1, True), "scale_front", (220,), (310,), 64, 128, 2, 1),
+    "local_2d_gqa": (LocalRule(7, 0, False), "scale_end", (10, 22), (20, 11), 128, 64, 1, 4),
+    "custom": (Checker(), "none_front", (384,), (512,), 128, 128, 2, 2),
+    "d72": (CausalRule(), "none_front", (260,), (300,), 72, 72, 1, 2),
+    "pitch_60": (CausalRule(), "none_front", (260,), (260,), 60, 60, 1, 4),
+    "dead_rows": (CausalRule(), "scale_end", (300,), (40,), 64, 64, 1, 1),
+    "long_causal": (CausalRule(), "none_front", (2048,), (2048,), 128, 128, 2, 2),
+}
+
+
+def _split_inputs(dev, case, dtype):
+    rule, sync, q_seq, k_seq, d, v_d, b_kv, g = SPLIT_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(d + 7 * v_d + g)
+    pack = make_sync_pack(sync, q_seq, k_seq)
+    q_len, k_len = int(np.prod(q_seq)), int(np.prod(k_seq))
+    t = lambda *shape: (torch.rand(shape, generator=gen, device=dev) * 4 - 2).to(dtype)
+    # q and k at different scales: the dQ kernel takes prescaled q, the dK/dV
+    # kernel prescaled k, and a swap of the two stays hidden at equal scales
+    q, k = t(b_kv * g, q_len, d) * 0.5, t(b_kv, k_len, d) * 2
+    v, do = t(b_kv, k_len, v_d), t(b_kv * g, q_len, v_d)
+    o, l, m = forward.flash_forward(q, k, v, pack=pack, rule=rule, config=BLOCKS)
+    return rule, pack, (q, k, v, o, l, m, do)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_tc_matches_plain(dev, case, dtype):
+    """The split pair (fused=False) on bf16 / fp16 at max(d, v_d) <= 128
+    launches each kernel once, on the tensor-core body (as each launch
+    reports it and native.bwd_body names it), matches the plain split
+    backward, which rounds p and dS where _dq_kernel and _dkv_kernel do
+    (dQ, dK and dV within 2 ulps of the output type at each tensor's
+    scale), and gives bit-equal gradients on a second call: the route is
+    deterministic."""
+    rule, pack, (q, k, v, o, l, m, do) = _split_inputs(dev, case, dtype)
+    d, v_d = q.shape[2], v.shape[2]
+    native.reset_launch_counts()
+    got = backward.flash_backward(q, k, v, o, l, m, do, pack=pack, rule=rule, config=BLOCKS,
+                                  fused=False)
+    torch.cuda.synchronize()
+    assert {kn: n for kn, n in native.LAUNCHES.items() if n} == {"flash_bwd_dq": 1,
+                                                                 "flash_bwd_dkv": 1}
+    for kn in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert native.WALKS[kn]["body"] == native.bwd_body(dtype, d, v_d) == "tensor-core"
+    lse2, delta = backward.backward_stats(o, l, m, do)
+    want = backward._flash_backward_plain(q, k, v, do, lse2, delta, pack, rule, d ** -0.5,
+                                          False)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close(name, a, b, dtype)
+    again = backward.flash_backward(q, k, v, o, l, m, do, pack=pack, rule=rule, config=BLOCKS,
+                                    fused=False)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, again):
+        assert torch.equal(a, b), name
+    if case == "dead_rows":
+        assert float(got[0][:, 0].float().abs().max()) == 0.0
+
+
+def test_split_scalar_body_where_the_rule_says(dev):
+    """float32 and max(d, v_d) > 128 keep the scalar split pair, as each
+    launch reports it, and match the plain split backward."""
+    for dtype, d, v_d in ((torch.float32, 64, 64), (torch.float32, 128, 128),
+                          (torch.bfloat16, 256, 256), (torch.float16, 128, 200)):
+        gen = torch.Generator(device=dev).manual_seed(d + v_d)
+        pack = make_sync_pack("none_front", (260,), (300,))
+        t = lambda *shape: (torch.rand(shape, generator=gen, device=dev) * 4 - 2).to(dtype)
+        q, k, v, do = t(2, 260, d), t(1, 300, d), t(1, 300, v_d), t(2, 260, v_d)
+        o, l, m = forward.flash_forward(q, k, v, pack=pack, rule=CausalRule(), config=BLOCKS)
+        got = backward.flash_backward(q, k, v, o, l, m, do, pack=pack, rule=CausalRule(),
+                                      config=BLOCKS, fused=False)
+        torch.cuda.synchronize()
+        for kn in ("flash_bwd_dq", "flash_bwd_dkv"):
+            assert native.WALKS[kn]["body"] == native.bwd_body(dtype, d, v_d) == "scalar"
+        lse2, delta = backward.backward_stats(o, l, m, do)
+        want = backward._flash_backward_plain(q, k, v, do, lse2, delta, pack, CausalRule(),
+                                              d ** -0.5, False)
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             _close(name, a, b, dtype)
 

@@ -236,3 +236,47 @@ ptxas info    : Used 164 registers, used 1 barriers
         "_Z1ai", 168, 56, 96, [])
     assert (b["name"], b["registers"], b["spill_stores"]) == ("_Z1bi", 164, 0)
     assert len(b["warnings"]) == 1 and b["warnings"][0].startswith("(C7515)")
+
+
+def test_ptxas_report_prints_the_matching_kernels(monkeypatch, capsys):
+    """``utils/ptxas_report.py`` compiles the named sources of a tree (here
+    a stand-in that records a ptxas report, since there is no nvcc) and
+    prints one JSON line per kernel whose name contains a ``--match``
+    string; without nvcc it exits non-zero and prints nothing."""
+    import json
+
+    from tf_flash_attention_tpu_torch.utils import ptxas_report
+
+    ptxas = """\
+ptxas info    : Compiling entry function '_Z13bwd_tc_kerneli' for 'sm_90a'
+    0 bytes stack frame, 104 bytes spill stores, 176 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z8other_ki' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers
+"""
+    seen = {}
+
+    def fake_compile(csrc, outputs):
+        seen.update(csrc=csrc, sources=sorted(outputs))
+        for src in outputs:
+            native.BUILD_LOG[src] = dict(seconds=1.0, ptxas=ptxas)
+
+    monkeypatch.setattr(native, "BUILD_LOG", {})
+    monkeypatch.setattr(native, "compile_sources", fake_compile)
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    ptxas_report.main(["attention_kernels.cu", "band_kernels.cu", "--csrc", "/elsewhere",
+                       "--match", "bwd_tc_kernel"])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert seen["sources"] == ["attention_kernels.cu", "band_kernels.cu"]
+    assert str(seen["csrc"]) == "/elsewhere"
+    assert [(x["source"], x["name"], x["registers"], x["spill_stores"], x["spill_loads"])
+            for x in lines] == [("attention_kernels.cu", "_Z13bwd_tc_kerneli", 168, 104, 176),
+                                ("band_kernels.cu", "_Z13bwd_tc_kerneli", 168, 104, 176)]
+    monkeypatch.undo()
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    with pytest.raises(SystemExit) as e:
+        ptxas_report.main(["attention_kernels.cu"])
+    assert "nvcc not found" in str(e.value.code) and capsys.readouterr().out == ""

@@ -1,9 +1,11 @@
 // The tensor-core backward of the op path for Hopper (sm_90a): the tile body
-// of fa_flash_bwd_fused (kTable, <- ops/backward.py::_fused_kernel) and
-// fa_banded_bwd (kBanded, <- ops/backward.py::_fused_banded_kernel) on bf16
-// and fp16 inputs with max(d, v_d) <= 128.  Included by attention_kernels.cu
-// and band_kernels.cu; float32 inputs, wider heads, the window walk and the
-// split dK/dV kernel stay on the scalar body of attention_common.cuh.
+// of fa_flash_bwd_fused (kTable, <- ops/backward.py::_fused_kernel),
+// fa_banded_bwd (kBanded, <- ops/backward.py::_fused_banded_kernel) and,
+// compiled without dQ, of the split pair's fa_flash_bwd_dkv (kTable, <-
+// ops/backward.py::_dkv_kernel) on bf16 and fp16 inputs with max(d, v_d) <=
+// 128.  Included by attention_kernels.cu and band_kernels.cu; float32
+// inputs, wider heads and the window walk stay on the scalar body of
+// attention_common.cuh.
 //
 // What bounds the backward on this card is the tensor cores' rate (989
 // TFLOP/s bf16): five products of 2 d flops per visible (query, key) pair
@@ -49,6 +51,12 @@
 //            warp instruction, took most of the kernel's time on the H100.
 //            dQ's last bits vary from run to run.  A null dq_acc skips this
 //            part (a measurement of what it costs).
+//   no dQ    the DQ = false form compiles dQ out: the dS^T tile, its
+//            product and its reduction.  It is the split pair's dK/dV
+//            kernel, _dkv_kernel's function: k arrives prescaled and q
+//            unscaled (S^T = K' Q^T is the same product), dK = T(dS^T) Q
+//            times out_scale = scale; no atomics, so dK and dV are
+//            deterministic.
 //   finish   dK * out_scale and dV cast to T, rows past k_len not stored.
 
 #pragma once
@@ -91,7 +99,7 @@ constexpr int kQTile = kBwdSlabs * kBQ * kRowBytes;    // a stage's Q or dO
 constexpr int kDsTile = kBKV * kRowBytes;              // dS^T: kv rows x 64 queries
 constexpr int kDqTile = kBQ * 64 * 4;                  // a warpgroup's float dQ box
 
-template <typename T, int WALK, bool CUSTOM>
+template <typename T, int WALK, bool CUSTOM, bool DQ>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     bwd_tc_kernel(const __grid_constant__ AttnArgs a, const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap omap,
@@ -280,7 +288,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 
     // this warpgroup's rows of T(dS^T) into the stage's dS^T tile
     unsigned char* dst = Dst + (it & 1) * kDsTile;
-    if (a.dq_acc != nullptr) {
+    if (DQ && a.dq_acc != nullptr) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -295,7 +303,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     fence_regs(dk);
     mbar_arrive(empty + st);
 
-    if (a.dq_acc != nullptr) {
+    if (DQ && a.dq_acc != nullptr) {
       // dQ[:, 64 wg + [0, 64)] = T(dS) K over the CTA's 128 kv rows
       consumers_sync();
       float dq[32];
@@ -353,7 +361,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     else
       body(r0, mem, std::false_type{});
   });
-  if (tid % 128 == 0) bulk_wait();  // the dQ reductions are done with shared memory
+  if (DQ && tid % 128 == 0) bulk_wait();  // the dQ reductions are done with shared memory
 
   // dK * out_scale and dV, cast to T
   T* dkp = static_cast<T*>(a.dk);
@@ -466,7 +474,8 @@ constexpr size_t kBwdSmem = 1024 + 2 * kKVTile + 2 * kBwdStages * kQTile + 2 * k
                             2 * kDqTile + kBwdStages * 2 * kBQ * sizeof(float) +
                             8 * (1 + 2 * kBwdStages);
 
-template <typename T, int WALK>
+// DQ false: the body compiled without dQ (dq_acc is not read)
+template <typename T, int WALK, bool DQ = true>
 int bwd_tc(const AttnArgs& a, cudaStream_t stream) {
   const int q_len = a.rule.q_len, k_len = a.rule.k_len;
   if (a.d < 1 || a.v_d < 1 || a.d > kBwdSlabs * kSlabCols || a.v_d > kBwdSlabs * kSlabCols ||
@@ -487,12 +496,13 @@ int bwd_tc(const AttnArgs& a, cudaStream_t stream) {
                tensor_map<T>(&vm, a.v, a.v_d, k_len, B_kv, kBKV)))
     return cudaErrorInvalidValue;
   // dq_acc's float (64 columns x 64 rows) boxes, unswizzled
-  if (tma && a.dq_acc != nullptr &&
+  if (tma && DQ && a.dq_acc != nullptr &&
       !encode_map(&dqm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.dq_acc, {a.d, q_len, a.B}, 64,
                   kBQ, CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
   // a custom rule's masked tiles on a body of their own
-  auto kernel = a.rule.kind == kCustom ? bwd_tc_kernel<T, WALK, true> : bwd_tc_kernel<T, WALK, false>;
+  auto kernel = a.rule.kind == kCustom ? bwd_tc_kernel<T, WALK, true, DQ>
+                                       : bwd_tc_kernel<T, WALK, false, DQ>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kBwdSmem));
   if (err != cudaSuccess) return err;
@@ -503,14 +513,18 @@ int bwd_tc(const AttnArgs& a, cudaStream_t stream) {
 
 }  // namespace tc
 
-// the fused kv-outer backward of kTable and kBanded: bf16 and fp16 with
-// max(d, v_d) <= 128 on the tensor-core body, everything else on the scalar
-// body (native.py's bwd_body mirrors this rule)
+// the rule of every backward's tensor-core body, for bf16 and fp16 inputs:
+// max(d, v_d) <= 128 and neither q nor k empty (native.bwd_body mirrors it)
+bool tc_bwd_takes(const AttnArgs& a) {
+  return a.d <= 128 && a.v_d <= 128 && a.rule.q_len > 0 && a.rule.k_len > 0;
+}
+
+// the fused kv-outer backward of kTable and kBanded: bf16 and fp16 under
+// tc_bwd_takes on the tensor-core body, everything else on the scalar body
 template <typename T, int WALK>
 int bwd_fused_any(const AttnArgs& a, cudaStream_t s) {
   if constexpr (!std::is_same<T, float>::value) {
-    if (a.d <= 128 && a.v_d <= 128 && a.rule.q_len > 0 && a.rule.k_len > 0)
-      return tc::bwd_tc<T, WALK>(a, s);
+    if (tc_bwd_takes(a)) return tc::bwd_tc<T, WALK>(a, s);
   }
   return bwd_kv_any<T, true, WALK>(a, s);
 }

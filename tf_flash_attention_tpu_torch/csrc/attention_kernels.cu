@@ -6,8 +6,12 @@
 //   fa_flash_bwd_fused  <- ops/backward.py::_fused_kernel (kv-outer 5-product backward; bf16
 //                          and fp16 at max(d, v_d) <= 128 on the tensor-core body of
 //                          attention_bwd_tc.cuh)
-//   fa_flash_bwd_dq     <- ops/backward.py::_dq_kernel    (split pair: dQ, q-outer)
-//   fa_flash_bwd_dkv    <- ops/backward.py::_dkv_kernel   (split pair: dK/dV, kv-outer)
+//   fa_flash_bwd_dq     <- ops/backward.py::_dq_kernel    (split pair: dQ, q-outer; bf16 and
+//                          fp16 at max(d, v_d) <= 128 on the q-outer tensor-core body
+//                          compiled without dK and dV)
+//   fa_flash_bwd_dkv    <- ops/backward.py::_dkv_kernel   (split pair: dK/dV, kv-outer; bf16
+//                          and fp16 at max(d, v_d) <= 128 on the kv-outer tensor-core body
+//                          compiled without dQ)
 //   fa_flash_bwd_qouter <- ops/backward.py::_fused_qouter_kernel (q-outer 5-product backward;
 //                          bf16 and fp16 at max(d, v_d) <= 128 on the tensor-core body of
 //                          attention_qouter_tc.cuh)
@@ -44,8 +48,9 @@ __device__ __forceinline__ void store_dq(const AttnArgs& a, const float (&acc)[R
 }
 
 // ---------------------------------------------------------------------------
-// fa_flash_bwd_dq.  Replaces ops/backward.py::_dq_kernel.  One CTA per
-// (query row b, BM query rows), q-outer over the schedule like the forward:
+// fa_flash_bwd_dq.  Replaces ops/backward.py::_dq_kernel: the scalar body of
+// float32 and of max(d, v_d) > 128 (bwd_dq_any).  One CTA per (query row b,
+// BM query rows), q-outer over the schedule like the forward:
 // q (prescaled), dO and the stats stay in shared memory, dQ accumulates in
 // registers and is multiplied by scale once at the end.  Deterministic.
 template <typename T, int BM, int BN, int DMAX>
@@ -234,14 +239,14 @@ int bwd_qouter(const AttnArgs& a, cudaStream_t stream) {
                 bwd_smem(BM, BN, a.d, a.v_d, 2), a, stream);
 }
 
-// the fused q-outer backward: bf16 and fp16 with max(d, v_d) <= 128 on the
+// the fused q-outer backward: bf16 and fp16 under tc_bwd_takes on the
 // tensor-core body, everything else on the scalar body (native.bwd_body
 // mirrors this rule, as for bwd_fused_any).  body (nullable, host): 1 where
 // the launch took the tensor-core body, else 0.
 template <typename T>
 int bwd_qouter_any(const AttnArgs& a, cudaStream_t s, int* body) {
   if constexpr (!std::is_same<T, float>::value) {
-    if (a.d <= 128 && a.v_d <= 128 && a.rule.q_len > 0 && a.rule.k_len > 0) {
+    if (tc_bwd_takes(a)) {
       if (body) *body = 1;
       return tc::qouter_tc<T>(a, s);
     }
@@ -260,6 +265,38 @@ int bwd_dq(const AttnArgs& a, cudaStream_t stream) {
   return launch(flash_bwd_dq_kernel<T, BM, BN, DMAX>,
                 dim3(blocks(a.rule.q_len, BM), a.B, blocks(a.d, DMAX)),
                 bwd_smem(BM, BN, a.d, a.v_d, 1), a, stream);
+}
+
+// the split pair under the same rule: bf16 and fp16 under tc_bwd_takes on
+// the tensor-core bodies compiled without half of the work (dQ: the q-outer
+// body without dK and dV; dK/dV: the kv-outer body without dQ), everything
+// else on the scalar bodies.  body (nullable, host) as for bwd_qouter_any.
+template <typename T>
+int bwd_dq_any(const AttnArgs& a, cudaStream_t s, int* body) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (tc_bwd_takes(a)) {
+      if (body) *body = 1;
+      return tc::qouter_tc<T, false>(a, s);
+    }
+  }
+  if (body) *body = 0;
+  switch (dim_class(a)) {
+    case 0: return bwd_dq<T, 64, 64, 128>(a, s);
+    case 1: return bwd_dq<T, 32, 32, 256>(a, s);
+    default: return bwd_dq<T, 16, 16, WIDE_COLS>(a, s);
+  }
+}
+
+template <typename T>
+int bwd_dkv_any(const AttnArgs& a, cudaStream_t s, int* body) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (tc_bwd_takes(a)) {
+      if (body) *body = 1;
+      return tc::bwd_tc<T, kTable, false>(a, s);
+    }
+  }
+  if (body) *body = 0;
+  return bwd_kv_any<T, false, kTable>(a, s);
 }
 
 void set_table(AttnArgs& a, const int* table, const int* counts, const int* needs,
@@ -308,11 +345,12 @@ int fa_flash_bwd_fused(int dtype, const void* q, const void* k, const void* v,
   return dispatch(dtype, [&](auto tag) { return bwd_fused_any<decltype(tag), kTable>(a, s); });
 }
 
-// q prescaled; q-outer schedule; dq (B, q_len, d) = acc * scale
+// q prescaled; q-outer schedule; dq (B, q_len, d) = acc * scale; body
+// (nullable, one int out): 1 for the tensor-core body, 0 the scalar
 int fa_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v, const void* dout,
                     const float* lse2, const float* delta, void* dq, const int* table,
                     const int* counts, const int* needs, int num_steps, int block_q,
-                    int block_kv, int B, int g, int d, int v_d, float scale,
+                    int block_kv, int B, int g, int d, int v_d, float scale, int* body,
                     const FaRule* rule, void* stream) {
   AttnArgs a = make_args(q, k, v, B, g, d, v_d, rule);
   set_table(a, table, counts, needs, num_steps, block_q, block_kv);
@@ -320,22 +358,16 @@ int fa_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v, cons
   a.dq = dq;
   a.out_scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, [&](auto tag) {
-    using T = decltype(tag);
-    switch (dim_class(a)) {
-      case 0: return bwd_dq<T, 64, 64, 128>(a, s);
-      case 1: return bwd_dq<T, 32, 32, 256>(a, s);
-      default: return bwd_dq<T, 16, 16, WIDE_COLS>(a, s);
-    }
-  });
+  return dispatch(dtype, [&](auto tag) { return bwd_dq_any<decltype(tag)>(a, s, body); });
 }
 
-// k prescaled, q unscaled; transposed schedule; dk = acc * scale
+// k prescaled, q unscaled; transposed schedule; dk = acc * scale; body as
+// for fa_flash_bwd_dq
 int fa_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v, const void* dout,
                      const float* lse2, const float* delta, void* dk, void* dv,
                      const int* table, const int* counts, const int* needs, int num_steps,
                      int block_q, int block_kv, int B, int g, int d, int v_d, float scale,
-                     const FaRule* rule, void* stream) {
+                     int* body, const FaRule* rule, void* stream) {
   AttnArgs a = make_args(q, k, v, B, g, d, v_d, rule);
   set_table(a, table, counts, needs, num_steps, block_q, block_kv);
   set_bwd(a, dout, lse2, delta);
@@ -343,8 +375,7 @@ int fa_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v, con
   a.dv = dv;
   a.out_scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype,
-                  [&](auto tag) { return bwd_kv_any<decltype(tag), false, kTable>(a, s); });
+  return dispatch(dtype, [&](auto tag) { return bwd_dkv_any<decltype(tag)>(a, s, body); });
 }
 
 // q prescaled; q-outer schedule; dq (B, q_len, d) = acc * scale; dk_acc

@@ -1,9 +1,10 @@
 // The tensor-core q-outer backward of the op path for Hopper (sm_90a): the
 // tile body of fa_flash_bwd_qouter (<- ops/backward.py::_fused_qouter_kernel,
-// the GQA orientation of the 5-product backward) on bf16 and fp16 inputs
-// with max(d, v_d) <= 128.  Included by attention_kernels.cu; float32
-// inputs and wider heads stay on the scalar body there (bwd_qouter_any,
-// native.bwd_body names the body).
+// the GQA orientation of the 5-product backward) and, compiled without dK
+// and dV, of the split pair's fa_flash_bwd_dq (<- ops/backward.py::
+// _dq_kernel) on bf16 and fp16 inputs with max(d, v_d) <= 128.  Included by
+// attention_kernels.cu; float32 inputs and wider heads stay on the scalar
+// bodies there (bwd_qouter_any, bwd_dq_any; native.bwd_body names the body).
 //
 // What bounds it on this card is the tensor cores' rate, as for the
 // kv-outer body (attention_bwd_tc.cuh), whose mirror it is: the roles of
@@ -53,6 +54,10 @@
 //            warpgroup passes only once its partial has read them.
 //   finish   dQ * out_scale cast to T, rows past q_len not stored; dK's
 //            1/log2e and the casts of dK and dV stay the wrapper's.
+//   dQ only  the DKV = false form compiles out the T(P) and T(dS) tiles,
+//            the two partials, their boxes, barriers and reductions: three
+//            products a stage (S, dP, dQ += T(dS) K), _dq_kernel's function,
+//            deterministic, no atomics; 130 KB of shared memory.
 
 #pragma once
 
@@ -79,7 +84,7 @@ __device__ __forceinline__ void for_each_kv_stage(const AttnArgs& a, int qi, F&&
   });
 }
 
-template <typename T, bool CUSTOM>
+template <typename T, bool CUSTOM, bool DKV>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     qouter_tc_kernel(const __grid_constant__ AttnArgs a, const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap omap,
@@ -91,10 +96,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   unsigned char* Qs = align1024(smem_raw);
   unsigned char* Os = Qs + kQoQTile;                      // dO
   unsigned char* KVst = Os + kQoQTile;                    // kQoStages x (K, V)
-  unsigned char* Ps = KVst + kQoStages * 2 * kQoKTile;    // T(P)
+  unsigned char* Ps = KVst + kQoStages * 2 * kQoKTile;    // T(P) (DKV only)
   unsigned char* Ds = Ps + kQoPTile;                      // T(dS)
   unsigned char* Boxes = Ds + kQoPTile;                   // a float partial per warpgroup
-  float* stats = reinterpret_cast<float*>(Boxes + 2 * kQoBox);  // lse2, delta
+  float* stats = reinterpret_cast<float*>(DKV ? Boxes + 2 * kQoBox : Ps);  // lse2, delta
   uint64_t* bars = reinterpret_cast<uint64_t*>(stats + 2 * kQoBM);
   uint64_t* q_full = bars;
   uint64_t* full = bars + 1;
@@ -269,71 +274,75 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       wgmma_rs_n128<T>(dq, da + 4 * kk, kt_desc + ((kk * 16 * kRowBytes) >> 4));
     wgmma_commit();
 
-    // this warpgroup's rows of T(P) and T(dS) into the tiles, once the other
-    // warpgroup's partial of the last stage has read them
-    consumers_sync();
+    if constexpr (DKV) {
+      // this warpgroup's rows of T(P) and T(dS) into the tiles, once the
+      // other warpgroup's partial of the last stage has read them
+      consumers_sync();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int off = swz(qr + 8 * (j & 1), 16 * kk + 8 * (j >> 1) + 2 * (lane & 3), kQoBM);
-        *reinterpret_cast<uint32_t*>(Ps + off) = pa[4 * kk + j];
-        *reinterpret_cast<uint32_t*>(Ds + off) = da[4 * kk + j];
-      }
-    fence_proxy_async();
+        for (int j = 0; j < 4; ++j) {
+          const int off = swz(qr + 8 * (j & 1), 16 * kk + 8 * (j >> 1) + 2 * (lane & 3), kQoBM);
+          *reinterpret_cast<uint32_t*>(Ps + off) = pa[4 * kk + j];
+          *reinterpret_cast<uint32_t*>(Ds + off) = da[4 * kk + j];
+        }
+      fence_proxy_async();
+    }
     wgmma_wait_all();
     fence_regs(dq);
     mbar_arrive(empty + st);  // K and V have been read
-    consumers_sync();         // both warpgroups' rows are in the tiles
+    if constexpr (DKV) {
+      consumers_sync();  // both warpgroups' rows are in the tiles
 
-    // the stage's partial over the 128 rows: warpgroup 0 dV = T(P)^T dO,
-    // warpgroup 1 dK = T(dS)^T Q (64 keys x 128 columns)
-    float part[64];
+      // the stage's partial over the 128 rows: warpgroup 0 dV = T(P)^T dO,
+      // warpgroup 1 dK = T(dS)^T Q (64 keys x 128 columns)
+      float part[64];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) part[i] = 0.f;
-    fence_regs(part);
-    wgmma_fence();
+      for (int i = 0; i < 64; ++i) part[i] = 0.f;
+      fence_regs(part);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kQoBM / 16; ++kk)
-      wgmma_ss_n128<T, 1, 1>(part, pa_desc + ((kk * 16 * kRowBytes) >> 4),
-                             pb_desc + ((kk * 16 * kRowBytes) >> 4));
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(part);
-    // element i: key c0 + 16 w + (lane >> 2) + 8 ((i >> 1) & 1), column
-    // 8 (i >> 2) + 2 (lane & 3) + (i & 1)
-    if (tma) {
-      float* box = reinterpret_cast<float*>(Boxes + wg * kQoBox);  // two 64 x 64 halves
-      if (tid % 128 == 0) bulk_wait_read();  // the last stage's box has been read
-      warpgroup_sync(wg);
+      for (int kk = 0; kk < kQoBM / 16; ++kk)
+        wgmma_ss_n128<T, 1, 1>(part, pa_desc + ((kk * 16 * kRowBytes) >> 4),
+                               pb_desc + ((kk * 16 * kRowBytes) >> 4));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(part);
+      // element i: key c0 + 16 w + (lane >> 2) + 8 ((i >> 1) & 1), column
+      // 8 (i >> 2) + 2 (lane & 3) + (i & 1)
+      if (tma) {
+        float* box = reinterpret_cast<float*>(Boxes + wg * kQoBox);  // two 64 x 64 halves
+        if (tid % 128 == 0) bulk_wait_read();  // the last stage's box has been read
+        warpgroup_sync(wg);
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
-          *reinterpret_cast<float2*>(box + (j >> 3) * 64 * 64 +
-                                     (16 * w + (lane >> 2) + 8 * h) * 64 + 8 * (j & 7) +
-                                     2 * (lane & 3)) =
-              make_float2(part[4 * j + 2 * h], part[4 * j + 2 * h + 1]);
-      fence_proxy_async();
-      warpgroup_sync(wg);
-      if (tid % 128 == 0)
-        for (int half = 0; half < 2 && 64 * half < part_cols; ++half)
-          tma_reduce_add(wg == 0 ? &dvmap : &dkmap, box + half * 64 * 64, 64 * half, c0, bkv);
-    } else {
-      float* acc = (wg == 0 ? static_cast<float*>(a.dv) : static_cast<float*>(a.dk)) +
-                   static_cast<size_t>(bkv) * k_len * part_cols;
+          for (int j = 0; j < 16; ++j)
+            *reinterpret_cast<float2*>(box + (j >> 3) * 64 * 64 +
+                                       (16 * w + (lane >> 2) + 8 * h) * 64 + 8 * (j & 7) +
+                                       2 * (lane & 3)) =
+                make_float2(part[4 * j + 2 * h], part[4 * j + 2 * h + 1]);
+        fence_proxy_async();
+        warpgroup_sync(wg);
+        if (tid % 128 == 0)
+          for (int half = 0; half < 2 && 64 * half < part_cols; ++half)
+            tma_reduce_add(wg == 0 ? &dvmap : &dkmap, box + half * 64 * 64, 64 * half, c0, bkv);
+      } else {
+        float* acc = (wg == 0 ? static_cast<float*>(a.dv) : static_cast<float*>(a.dk)) +
+                     static_cast<size_t>(bkv) * k_len * part_cols;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int key = c0 + 16 * w + (lane >> 2) + 8 * h;
-        if (key >= k_len) continue;
+        for (int h = 0; h < 2; ++h) {
+          const int key = c0 + 16 * w + (lane >> 2) + 8 * h;
+          if (key >= k_len) continue;
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
+          for (int j = 0; j < 16; ++j)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = 8 * j + 2 * (lane & 3) + e;
-            if (c < part_cols)
-              atomicAdd(acc + static_cast<size_t>(key) * part_cols + c, part[4 * j + 2 * h + e]);
-          }
+            for (int e = 0; e < 2; ++e) {
+              const int c = 8 * j + 2 * (lane & 3) + e;
+              if (c < part_cols)
+                atomicAdd(acc + static_cast<size_t>(key) * part_cols + c, part[4 * j + 2 * h + e]);
+            }
+        }
       }
     }
     ++it;
@@ -344,7 +353,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     else
       body(c0, std::false_type{});
   });
-  if (tid % 128 == 0) bulk_wait();  // the reductions are done with shared memory
+  if (DKV && tid % 128 == 0) bulk_wait();  // the reductions are done with shared memory
 
   // dQ * out_scale, cast to T
   T* dqp = static_cast<T*>(a.dq);
@@ -365,11 +374,16 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 
 // ---- host side ----
 
-constexpr size_t kQoSmem = 1024 + 2 * kQoQTile + kQoStages * 2 * kQoKTile + 2 * kQoPTile +
-                           2 * kQoBox + 2 * kQoBM * sizeof(float) + 8 * (1 + 2 * kQoStages);
+// the shared memory of the body with (DKV) and without dK and dV
+constexpr size_t qo_smem(bool dkv) {
+  return 1024 + 2 * kQoQTile + kQoStages * 2 * kQoKTile + (dkv ? 2 * kQoPTile + 2 * kQoBox : 0) +
+         2 * kQoBM * sizeof(float) + 8 * (1 + 2 * kQoStages);
+}
+constexpr size_t kQoSmem = qo_smem(true), kQoDqSmem = qo_smem(false);
 static_assert(kQoSmem <= MAX_SMEM, "the q-outer body's tiles exceed a block's shared memory");
 
-template <typename T>
+// DKV false: the dQ-only form (a.dk and a.dv are not read)
+template <typename T, bool DKV = true>
 int qouter_tc(const AttnArgs& a, cudaStream_t stream) {
   const int q_len = a.rule.q_len, k_len = a.rule.k_len;
   const int tiles = blocks(q_len, kQoBM);
@@ -385,24 +399,29 @@ int qouter_tc(const AttnArgs& a, cudaStream_t stream) {
   memset(&dkm, 0, sizeof(dkm));
   memset(&dvm, 0, sizeof(dvm));
   const bool tma = a.d % 8 == 0 && a.v_d % 8 == 0 && aligned16(a.q) && aligned16(a.k) &&
-                   aligned16(a.v) && aligned16(a.dout) && aligned16(a.dk) && aligned16(a.dv);
-  // dk_acc's and dv_acc's float (64 columns x 64 rows) boxes, unswizzled
+                   aligned16(a.v) && aligned16(a.dout) &&
+                   (!DKV || (aligned16(a.dk) && aligned16(a.dv)));
   if (tma && !(tensor_map<T>(&qm, a.q, a.d, q_len, a.B, kQoBM) &&
                tensor_map<T>(&om, a.dout, a.v_d, q_len, a.B, kQoBM) &&
                tensor_map<T>(&km, a.k, a.d, k_len, B_kv, kQoBN) &&
-               tensor_map<T>(&vm, a.v, a.v_d, k_len, B_kv, kQoBN) &&
-               encode_map(&dkm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.dk, {a.d, k_len, B_kv}, 64,
-                          kQoBN, CU_TENSOR_MAP_SWIZZLE_NONE) &&
-               encode_map(&dvm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.dv, {a.v_d, k_len, B_kv},
-                          64, kQoBN, CU_TENSOR_MAP_SWIZZLE_NONE)))
+               tensor_map<T>(&vm, a.v, a.v_d, k_len, B_kv, kQoBN)))
+    return cudaErrorInvalidValue;
+  // dk_acc's and dv_acc's float (64 columns x 64 rows) boxes, unswizzled
+  if (tma && DKV &&
+      !(encode_map(&dkm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.dk, {a.d, k_len, B_kv}, 64, kQoBN,
+                   CU_TENSOR_MAP_SWIZZLE_NONE) &&
+        encode_map(&dvm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.dv, {a.v_d, k_len, B_kv}, 64,
+                   kQoBN, CU_TENSOR_MAP_SWIZZLE_NONE)))
     return cudaErrorInvalidValue;
   // a custom rule's masked tiles on a body of their own
-  auto kernel = a.rule.kind == kCustom ? qouter_tc_kernel<T, true> : qouter_tc_kernel<T, false>;
+  auto kernel = a.rule.kind == kCustom ? qouter_tc_kernel<T, true, DKV>
+                                       : qouter_tc_kernel<T, false, DKV>;
+  constexpr size_t smem = qo_smem(DKV);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kQoSmem));
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.B, tiles), kBwdThreads, kQoSmem, stream>>>(a, qm, om, km, vm, dkm, dvm,
-                                                             tma ? 1 : 0);
+  kernel<<<dim3(a.B, tiles), kBwdThreads, smem, stream>>>(a, qm, om, km, vm, dkm, dvm,
+                                                          tma ? 1 : 0);
   return cudaGetLastError();
 }
 

@@ -44,8 +44,8 @@ from .schedule import build_schedule, sequence_orders
 from .sync_modes import ref_log2
 
 __all__ = ["LAUNCHES", "SERVING_KERNELS", "CP_VARIANTS", "ATTENTION_KERNELS",
-           "EXPERIMENT_KERNELS", "KERNEL_SOURCES", "reset_launch_counts", "build", "library",
-           "native_tile_classes"]
+           "EXPERIMENT_KERNELS", "KERNEL_SOURCES", "reset_launch_counts", "build",
+           "compile_sources", "library", "native_tile_classes"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -85,8 +85,9 @@ def reset_launch_counts() -> None:
 
 
 #: what the last launch of a kernel reported, by kernel: ``body``
-#: ("tensor-core" or "scalar") for ``flash_bwd_qouter``, ``paged_prefill``
-#: and ``paged_prefill[cp]``; for the decodes (``paged_decode``,
+#: ("tensor-core" or "scalar") for ``flash_bwd_qouter``, the split pair
+#: (``flash_bwd_dq``, ``flash_bwd_dkv``), ``paged_prefill`` and
+#: ``paged_prefill[cp]``; for the decodes (``paged_decode``,
 #: ``paged_multitoken_decode`` and their ``[cp]`` forms) also ``splits`` and
 #: ``ctas``; for each persistent walk (``resident_fwd`` and
 #: the three experiment forwards) also ``grid`` (CTAs), ``items`` (work
@@ -129,20 +130,16 @@ def _lib_path(source: str) -> Path:
 BUILD_LOG = {}
 
 
-def build() -> dict:
-    """Compile every source whose library is missing, all nvcc processes
-    started together; returns ``{source: library path}``."""
-    paths = {src: _lib_path(src) for src in _SIGNATURES}
-    todo = [src for src, path in paths.items() if not path.exists()]
-    if not todo:
-        return paths
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_sources(csrc: Path, outputs: dict) -> None:
+    """Compile each ``csrc / source`` into ``outputs[source]``, all nvcc
+    processes started together; each one's seconds and ptxas report go to
+    ``BUILD_LOG``.  Raises if any fails."""
     nvcc = _nvcc()
     jobs = []
-    for src in todo:
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    for src, out in outputs.items():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
         os.close(fd)
-        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, str(_CSRC / src)],
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, str(csrc / src)],
                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         jobs.append((src, tmp, proc))
     t0 = time.perf_counter()
@@ -159,10 +156,20 @@ def build() -> dict:
             os.unlink(tmp)
             errors.append(f"{src}: nvcc failed ({proc.returncode}):\n{err}")
         else:
-            os.replace(tmp, paths[src])
+            os.replace(tmp, outputs[src])
             BUILD_LOG[src] = dict(seconds=seconds, ptxas=err)
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def build() -> dict:
+    """Compile every source whose library is missing, all nvcc processes
+    started together; returns ``{source: library path}``."""
+    paths = {src: _lib_path(src) for src in _SIGNATURES}
+    todo = {src: path for src, path in paths.items() if not path.exists()}
+    if todo:
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        compile_sources(_CSRC, todo)
     return paths
 
 
@@ -249,11 +256,13 @@ _SIGNATURES = {
         # needs, num_steps, block_q, block_kv, B, g, d, v_d, dk_scale, rule
         "fa_flash_bwd_fused": [_I] + [_P] * 12 + [_I] * 7 + [_F, _R],
         # dtype, q, k, v, dout, lse2, delta, dq, table, counts, needs,
-        # num_steps, block_q, block_kv, B, g, d, v_d, scale, rule
-        "fa_flash_bwd_dq": [_I] + [_P] * 10 + [_I] * 7 + [_F, _R],
+        # num_steps, block_q, block_kv, B, g, d, v_d, scale, body (1 int
+        # out), rule
+        "fa_flash_bwd_dq": [_I] + [_P] * 10 + [_I] * 7 + [_F, _P, _R],
         # dtype, q, k, v, dout, lse2, delta, dk, dv, table, counts, needs,
-        # num_steps, block_q, block_kv, B, g, d, v_d, scale, rule
-        "fa_flash_bwd_dkv": [_I] + [_P] * 11 + [_I] * 7 + [_F, _R],
+        # num_steps, block_q, block_kv, B, g, d, v_d, scale, body (1 int
+        # out), rule
+        "fa_flash_bwd_dkv": [_I] + [_P] * 11 + [_I] * 7 + [_F, _P, _R],
         # dtype, q, k, v, dout, lse2, delta, dq, dk_acc, dv_acc, table,
         # counts, needs, num_steps, block_q, block_kv, B, g, d, v_d, scale,
         # body (1 int out), rule
@@ -804,10 +813,14 @@ TC_BWD_SMEM = (1024 + 2 * 2 * 128 * 128 + 2 * 2 * 2 * 64 * 128 + 2 * 128 * 128 +
 
 
 def bwd_body(dtype: torch.dtype, d: int, v_d: int, q_len: int = 1, k_len: int = 1) -> str:
-    """The body ``flash_bwd_fused``, ``banded_bwd`` and ``flash_bwd_qouter``
-    run (the C dispatches ``bwd_fused_any`` and ``bwd_qouter_any``): bf16 and
-    fp16 with max(d, v_d) <= 128 on the tensor cores, everything else, and
-    an empty q or k, on the scalar body."""
+    """The body every backward runs: ``flash_bwd_fused``, ``banded_bwd``,
+    ``flash_bwd_qouter`` and the split pair ``flash_bwd_dq`` and
+    ``flash_bwd_dkv`` (the C dispatches ``bwd_fused_any``,
+    ``bwd_qouter_any``, ``bwd_dq_any`` and ``bwd_dkv_any``, all under
+    ``tc_bwd_takes``): bf16 and fp16 with max(d, v_d) <= 128 on the tensor
+    cores, everything else, and an empty q or k, on the scalar body.  The
+    split pair's tensor-core bodies are the q-outer body without dK and dV
+    and the kv-outer body without dQ."""
     tc = (dtype in (torch.bfloat16, torch.float16) and max(d, v_d) <= 128
           and q_len > 0 and k_len > 0)
     return "tensor-core" if tc else "scalar"
@@ -821,15 +834,22 @@ def bwd_body(dtype: torch.dtype, d: int, v_d: int, q_len: int = 1, k_len: int = 
 #: barriers (C ``kQoSmem``)
 QOUTER_TC_SMEM = (1024 + 2 * 2 * 128 * 128 + 2 * 2 * 2 * 64 * 128 + 2 * 128 * 128
                   + 2 * 64 * 128 * 4 + 2 * 128 * 4 + 40)
+#: its dQ-only form, the tensor-core ``flash_bwd_dq``: no T(P) and T(dS)
+#: tiles, no partials (C ``kQoDqSmem``)
+QOUTER_DQ_TC_SMEM = QOUTER_TC_SMEM - 2 * 128 * 128 - 2 * 64 * 128 * 4
 
 
 def _check_bwd_smem(name: str, dtype: torch.dtype, d: int, v_d: int, q_len: int = 1,
                     k_len: int = 1) -> None:
-    """The fused table, banded and q-outer backwards, on the body they run."""
-    tc = QOUTER_TC_SMEM if name == "flash_bwd_qouter" else TC_BWD_SMEM
-    _check_smem(f"{name} at d {d}, v_d {v_d}",
-                tc if bwd_body(dtype, d, v_d, q_len, k_len) == "tensor-core"
-                else bwd_smem(d, v_d, 2))
+    """Every backward, on the body it runs (the kv-outer ``flash_bwd_dkv``
+    on ``TC_BWD_SMEM``'s layout; the scalar ``flash_bwd_dq`` keeps one
+    score tile)."""
+    if bwd_body(dtype, d, v_d, q_len, k_len) == "tensor-core":
+        n_bytes = {"flash_bwd_qouter": QOUTER_TC_SMEM,
+                   "flash_bwd_dq": QOUTER_DQ_TC_SMEM}.get(name, TC_BWD_SMEM)
+    else:
+        n_bytes = bwd_smem(d, v_d, 1 if name == "flash_bwd_dq" else 2)
+    _check_smem(f"{name} at d {d}, v_d {v_d}", n_bytes)
 
 
 def _check_fwd_smem(name: str, dtype: torch.dtype, d: int, v_d: int) -> None:
@@ -942,30 +962,36 @@ def flash_bwd_fused(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, tables_t, b
 
 def flash_bwd_dq(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, tables, block_q, block_kv,
                  scale):
-    """Launch ``flash_bwd_dq`` (q-outer schedule); returns dq (B, q_len, d)."""
+    """Launch ``flash_bwd_dq`` (q-outer schedule); returns dq (B, q_len, d).
+    ``bwd_body`` names the body; the launch's own report is in ``WALKS``."""
     code = _check_attn(q_scaled, k, v, rule_c, do, (lse2, delta))
     B, q_len, d = q_scaled.shape
-    _check_smem(f"flash_bwd_dq at d {d}, v_d {v.shape[2]}", bwd_smem(d, v.shape[2], 1))
+    _check_bwd_smem("flash_bwd_dq", q_scaled.dtype, d, v.shape[2], q_len, k.shape[1])
     dq = torch.empty_like(q_scaled)
+    body = ctypes.c_int(0)
     _call("fa_flash_bwd_dq", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
           do.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(),
           *_sched_args(tables, block_q, block_kv), B, B // k.shape[0], d, v.shape[2],
-          float(scale), ctypes.byref(rule_c))
+          float(scale), ctypes.byref(body), ctypes.byref(rule_c))
+    _body("flash_bwd_dq", body)
     return dq
 
 
 def flash_bwd_dkv(q, k_scaled, v, do, lse2, delta, rule_c: FaRule, tables_t, block_q,
                   block_kv, scale):
     """Launch ``flash_bwd_dkv`` (transposed schedule): unscaled q, prescaled
-    k; returns dk (B_kv, k_len, d) and dv."""
+    k; returns dk (B_kv, k_len, d) and dv.  ``bwd_body`` names the body; the
+    launch's own report is in ``WALKS``."""
     code = _check_attn(q, k_scaled, v, rule_c, do, (lse2, delta))
     B, q_len, d = q.shape
-    _check_smem(f"flash_bwd_dkv at d {d}, v_d {v.shape[2]}", bwd_smem(d, v.shape[2], 2))
+    _check_bwd_smem("flash_bwd_dkv", q.dtype, d, v.shape[2], q_len, k_scaled.shape[1])
     dk, dv = torch.empty_like(k_scaled), torch.empty_like(v)
+    body = ctypes.c_int(0)
     _call("fa_flash_bwd_dkv", code, q.data_ptr(), k_scaled.data_ptr(), v.data_ptr(),
           do.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
           *_sched_args(tables_t, block_q, block_kv), B, B // k_scaled.shape[0], d,
-          v.shape[2], float(scale), ctypes.byref(rule_c))
+          v.shape[2], float(scale), ctypes.byref(body), ctypes.byref(rule_c))
+    _body("flash_bwd_dkv", body)
     return dk, dv
 
 

@@ -19,15 +19,22 @@ Routes (the ``fused`` argument, as in the JAX package):
   ``flash_bwd_fused``.  The TPU routes also require q/dO to fit a VMEM
   residency budget, which has no counterpart on the card;
 * ``False`` — the split pair ``flash_bwd_dq`` + ``flash_bwd_dkv``
-  (deterministic; the dK/dV kernel takes a prescaled **k**);
+  (deterministic: no float32 accumulator in device memory, so two runs
+  give bit-equal gradients; the dK/dV kernel takes a prescaled **k**; on
+  bf16/fp16 at max(d, v_d) <= 128 the q-outer tensor-core body without dK
+  and dV and the kv-outer one without dQ, ``native.bwd_body`` names the
+  body);
 * ``None`` — auto: ``"kv"``, or ``False`` where ``FA_FUSED_BWD=0`` (the
   JAX package's switch).  The TPU policy leaves the fused route when the
   whole-sequence dQ accumulator outgrows 24 MiB of VMEM, or for grouped
   runs with wide kv blocks (a TPU pipeline measurement).  On the card the
   accumulator is device memory the size of q in float32, beside tensors
   the caller already holds, so no size forces the split pair; and at the
-  training slice on an H100 the fused route measured faster than the pair
-  (``PERF.md``).  So auto stays fused;
+  training slice (64, 2048, 128) bf16 causal on an H100 the fused route
+  still measured faster: ``banded_bwd`` 0.7777 ms and ``flash_bwd_fused``
+  0.7911 against the pair's 0.3554 + 0.4814 = 0.8368 (``chip_smoke.py``
+  phase 5, ``PERF.md``).  So auto stays fused, and ``FA_FUSED_BWD=0``
+  buys reproducible gradients for about 1.1x the time;
 * ``"q"`` (or ``True`` with ``g > 2``) — the q-outer fused kernel
   ``flash_bwd_qouter``: dQ in registers (deterministic), dK and dV added
   with atomics into float32 buffers, then scaled and cast.  As in the JAX

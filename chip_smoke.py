@@ -15,9 +15,14 @@ Phases (any failure exits non-zero before the final line):
   2. kernels: each of the four serving kernels against its plain PyTorch
      version on the card, at the serving slice's shapes (int8 cache, 8 kv
      heads, d 128, page 256, chunk 512, 16 slots), plus a GQA (8 q / 2 kv)
-     case and an unquantized bf16 case; the KV writes must match bit for
-     bit outside the trash page, the attention kernels within 2 bf16 ulps
-     at the output's scale, no floor; prints errors, median times (CUDA
+     case and an unquantized bf16 case; the KV writes (the chunk write on
+     the projection's transposed K/V; the append at one token a slot and at
+     gamma 4 in one launch) must match bit for bit outside the trash page,
+     lengths included, on the body native.kv_write_body names as the launch
+     reports it (each line also prints entry_ms, the public entry's CUDA-event
+     time, and the bf16 case one Tensor.index_put_ of the same rows into the
+     K and V pages as the writes' library time), the attention kernels within
+     2 bf16 ulps at the output's scale, no floor; prints errors, median times (CUDA
      events), each kernel's own device time from torch.profiler
      (kernel_ms: no host launch cost in it) and bounds, and the body each
      paged_prefill and decode launch ran (it must be the one
@@ -42,7 +47,10 @@ Phases (any failure exits non-zero before the final line):
      page-aligned prefix, 32 greedy tokens each) on 16 slots; checks the
      outputs, the prefix-cache hit and that its four kernels launched; every
      engine run (3-3e) names its prefill's body and prints its prefill
-     tokens/s beside the rate on the scalar prefill;
+     tokens/s beside the rate on the scalar prefill; then the CUDA kernels
+     its second and third prefill chunk and decode step launch
+     (utils/serving_census.py, "census engine"; 3b and 3e(b)'s cp engines
+     print theirs, the speculative ones for the speculative step), no claim;
   3b. the same engine with speculative_tokens=3 serves those 18 requests,
      2 whose prompts repeat a 64-token pattern and 2 sampled ones
      (temperature 0.8, top-k 50); paged_multitoken_decode and kv_append
@@ -59,7 +67,8 @@ Phases (any failure exits non-zero before the final line):
      repeated): (a) the sequence-sharded variants (paged_decode causal and
      in a window of 1024, paged_multitoken_decode at gamma 4, paged_prefill
      on a 512-token chunk at 12,288, each with its (l, m) outputs, page
-     stride and offset; kv_chunk_write on int8 and int4) on every shard
+     stride and offset; kv_chunk_write on int8 and int4, and kv_append with
+     its owner test at one token and at gamma 4) on every shard
      against their plain versions, at 16 slots, int8, page 256, global
      lengths 1,000-16,000, 8/8 heads and GQA 8 q / 2 kv; the merge of the
      4 shards against the flat kernel on the same tokens; two calls of each
@@ -434,40 +443,86 @@ def kernel_case(name, n_q, n_kv, payload, dev, gen, page_size=256, gamma=None, d
                2 * n_kv * live * tok + 2 * q.numel() * act, 4 * n_q * d * pairs)
         out["paged_multitoken_decode"].update(ran)
     else:
-        # K3 kv_chunk_write: a chunk crossing pages, with padding rows (an odd
-        # true_len: an int4 byte row half padding)
+        # K3 kv_chunk_write: the projection's (chunk, n_kv, d) K/V transposed
+        # (strided, as the engine passes it), a chunk crossing pages, with
+        # padding rows (an odd true_len: an int4 byte row half padding)
         start, true_len = 1100, 451
-        k = torch.randn((n_kv, chunk, d), generator=gen, device=dev).to(bf)
-        v = torch.randn((n_kv, chunk, d), generator=gen, device=dev).to(bf)
+        k = torch.randn((chunk, n_kv, d), generator=gen, device=dev).to(bf).transpose(0, 1)
+        v = torch.randn((chunk, n_kv, d), generator=gen, device=dev).to(bf).transpose(0, 1)
         ck, cp = clone_cache(cache), clone_cache(cache)
         kv_cache.write_tokens_at(ck, cfg, 0, start, k, v, true_len, trash)
+        ran = kv_ran("kv_chunk_write", k, v, cfg, name)
         kv_cache._write_tokens_plain(cp, cfg, 0, start, k, v, true_len, trash)
-        torch.cuda.synchronize()
-        diffs = diff_outside_trash(ck, cp, trash)
-        if diffs:
-            fail(f"{name}: kv_chunk_write differs from its plain version: {diffs}")
-        record("kv_chunk_write", 0.0,
-               lambda: native.kv_chunk_write(ck, cfg, 0, start, k, v, true_len, trash),
-               lambda: kv_cache._write_tokens_plain(cp, cfg, 0, start, k, v, true_len, trash),
-               2 * n_kv * true_len * (d * act + tok), 0)
-
-        # K4 kv_append: two inactive slots; int4 lengths land on both nibbles
-        kn = torch.randn((S, n_kv, d), generator=gen, device=dev).to(bf)
-        vn = torch.randn((S, n_kv, d), generator=gen, device=dev).to(bf)
-        active = torch.ones(S, dtype=torch.bool, device=dev)
-        active[3] = active[7] = False
-        ck, cp = clone_cache(cache), clone_cache(cache)
-        for _ in range(2):
-            kv_cache.append_tokens_batched(ck, cfg, kn, vn, active, trash)
-            kv_cache._append_plain(cp, cfg, kn, vn, active, trash)
-            cp.lengths += active.to(torch.int32)
+        cp.lengths[0] = start + true_len
         torch.cuda.synchronize()
         diffs = diff_outside_trash(ck, cp, trash)
         if diffs or not torch.equal(ck.lengths, cp.lengths):
-            fail(f"{name}: kv_append differs from its plain version: {diffs}")
-        record("kv_append", 0.0, lambda: native.kv_append(ck, cfg, kn, vn, active, trash),
-               lambda: kv_cache._append_plain(cp, cfg, kn, vn, active, trash),
-               2 * kn.numel() * act + 2 * int(active.sum()) * n_kv * tok, 0)
+            fail(f"{name}: kv_chunk_write differs from its plain version: {diffs}")
+        rows = kv_cache._owned_rows(cfg, start, true_len)
+        record("kv_chunk_write", 0.0,
+               lambda: native.kv_chunk_write(ck, cfg, 0, start, k, v, *rows),
+               lambda: kv_cache._write_tokens_plain(cp, cfg, 0, start, k, v, true_len, trash),
+               2 * n_kv * true_len * (d * act + tok), 0)
+        out["kv_chunk_write"].update(ran, entry_ms=time_ms(
+            lambda: kv_cache.write_tokens_at(ck, cfg, 0, start, k, v, true_len, trash)))
+        if not cfg.quantized and d == cfg.head_dim_store:
+            # the library yardstick: index_put_ of the same rows into the K
+            # and V pages (one call each), at the bf16 cache the rows are
+            pos = start + torch.arange(true_len, device=dev)
+            at = (torch.arange(n_kv, device=dev)[:, None],
+                  cache.page_tables[0].long()[(pos // page_size) % cfg.max_pages_per_seq][None],
+                  (pos % page_size)[None])
+            cl = clone_cache(cache)
+            lib = lambda: (cl.k_pages.index_put_(at, k[:, :true_len]),
+                           cl.v_pages.index_put_(at, v[:, :true_len]))
+            lib()
+            out["kv_chunk_write"].update(library_ms=time_ms(lib),
+                                         library_same=not diff_outside_trash(cl, ck, trash))
+
+        # K4 kv_append: one token a slot, twice (int4 lengths land on both
+        # nibbles), then gamma 4 tokens a slot in one launch (the speculative
+        # step's); two inactive slots
+        kn = torch.randn((S, n_kv, d), generator=gen, device=dev).to(bf)
+        vn = torch.randn((S, n_kv, d), generator=gen, device=dev).to(bf)
+        kg = torch.randn((S, 4, n_kv, d), generator=gen, device=dev).to(bf)
+        vg = torch.randn((S, 4, n_kv, d), generator=gen, device=dev).to(bf)
+        active = torch.ones(S, dtype=torch.bool, device=dev)
+        active[3] = active[7] = False
+        ck, cp = clone_cache(cache), clone_cache(cache)
+        bodies = []
+        for kk, vv in ((kn, vn), (kn, vn), (kg, vg)):
+            kv_cache.append_tokens_batched(ck, cfg, kk, vv, active, trash)
+            bodies.append(kv_ran("kv_append", kk, vv, cfg, name)["body"])
+            kv_cache._append_tokens_plain(cp, cfg, kk if kk.dim() == 4 else kk[:, None],
+                                          vv if vv.dim() == 4 else vv[:, None], active, trash)
+            torch.cuda.synchronize()
+            diffs = diff_outside_trash(ck, cp, trash)
+            if diffs or not torch.equal(ck.lengths, cp.lengths):
+                fail(f"{name}: kv_append (T {kk.shape[1] if kk.dim() == 4 else 1}) differs "
+                     f"from its plain version: {diffs}")
+        # bytes the kernel must move: the active slots' K/V rows read, their
+        # payload and scales written (an inactive slot loads nothing)
+        n_act = int(active.sum())
+        row_bytes = 2 * n_act * n_kv * (d * act + tok)
+        record("kv_append", 0.0, lambda: native.kv_append(ck, cfg, kn, vn, active),
+               lambda: kv_cache._append_plain(cp, cfg, kn, vn, active, trash), row_bytes, 0)
+        out["kv_append"].update(
+            body=bodies[0], body_gamma4=bodies[2], entry_ms=time_ms(
+                lambda: kv_cache.append_tokens_batched(ck, cfg, kn, vn, active, trash)),
+            kernel_ms_gamma4=kernel_ms(lambda: native.kv_append(ck, cfg, kg, vg, active),
+                                       SERVING_KERNEL_NAMES["kv_append"]),
+            bound_ms_gamma4=bound(4 * row_bytes, 0, "bf16")[0])
+        if not cfg.quantized and d == cfg.head_dim_store:
+            # the library yardstick: index_put_ of the active slots' rows at
+            # their lengths (positions taken once, beforehand)
+            live = active.nonzero()[:, 0]
+            lens = ck.lengths.long()[live]
+            at = (torch.arange(n_kv, device=dev)[None],
+                  ck.page_tables.long()[live, (lens // page_size) % cfg.max_pages_per_seq][:, None],
+                  (lens % page_size)[:, None])
+            k_live, v_live = kn[live], vn[live]
+            lib = lambda: (ck.k_pages.index_put_(at, k_live), ck.v_pages.index_put_(at, v_live))
+            out["kv_append"].update(library_ms=time_ms(lib))
 
         # K1 paged_decode
         q = torch.randn((S, n_q, d), generator=gen, device=dev).to(bf)
@@ -514,13 +569,27 @@ def kernel_case(name, n_q, n_kv, payload, dev, gen, page_size=256, gamma=None, d
                                         library_err=float((lib_o.float() - ref.float())
                                                           .abs().max()))
     for kname, r in out.items():
-        extra = "".join(f" {x}={json.dumps(r[x])}" for x in ("body", "splits", "ctas",
-                                                             "library_ms", "library_err")
-                        if x in r)
+        extra = "".join(f" {x}={json.dumps(r[x])}" for x in KERNEL_EXTRAS if x in r)
         print(f"kernel {name} {kname}: max_abs_err={r['err']} ms={r['ms']} "
               f"kernel_ms={json.dumps(r['kernel_ms'])} plain_ms={r['plain_ms']} "
               f"bound_ms={r['bound_ms']} ({r['bound_by']}){extra}", flush=True)
     return out
+
+
+#: the measurements a phase 2 kernel line prints beside its times and bound
+KERNEL_EXTRAS = ("body", "splits", "ctas", "library_ms", "library_err", "library_same",
+                 "entry_ms", "body_gamma4", "kernel_ms_gamma4", "bound_ms_gamma4")
+
+
+def kv_ran(kernel, k, v, cfg, label):
+    """The body the last launch of a KV write (``kv_chunk_write``, its
+    ``[cp]`` variant or ``kv_append``) ran, as the launch reports it; fails
+    unless it is the one ``native.kv_write_body`` names for these K/V."""
+    from tf_flash_attention_tpu_torch import native
+    body, want = native.WALKS[kernel]["body"], native.kv_write_body(k, v, cfg)
+    if body != want:
+        fail(f"{label}: {kernel} ran the {body} body, kv_write_body names {want}")
+    return dict(body=body)
 
 
 def prefill_ran(kernel, cfg, label, act=torch.bfloat16):
@@ -601,6 +670,12 @@ def build_report(native):
                 print(f"  ptxas {k['name']}: {k['registers']} registers, spill stores "
                       f"{k['spill_stores']} B, loads {k['spill_loads']} B; "
                       f"{'; '.join(k['warnings']) or 'no warnings'}", flush=True)
+        kv = [k for k in kernels if any(w in k["name"] for w in ("kv_chunk_write", "kv_append"))]
+        if kv:
+            print(f"  ptxas KV writes: {len(kv)} kernels, at most "
+                  f"{max(k['registers'] for k in kv)} registers, spill stores "
+                  f"{sum(k['spill_stores'] for k in kv)} B, loads "
+                  f"{sum(k['spill_loads'] for k in kv)} B", flush=True)
         spilled = [k["name"] for k in kernels if "decode_tc" in k["name"]
                    and (k["spill_stores"] or k["spill_loads"])]
         if spilled:
@@ -692,6 +767,7 @@ def main():
     if min(launches[k] for k in kernels_3) < 1:
         fail(f"a kernel of the path never launched: {launches}")
     greedy_3 = [results[r] for r in range(len(prompts))]
+    census("engine", eng, args.seed)
     del eng
     torch.cuda.empty_cache()
 
@@ -711,6 +787,7 @@ def main():
           f"requests equal to phase 3's: {same} of {len(prompts)} = {same / len(prompts)}",
           flush=True)
     launches["paged_multitoken_decode"] = spec_launches["paged_multitoken_decode"]
+    census("speculative", eng, args.seed)
     del eng
     torch.cuda.empty_cache()
 
@@ -790,6 +867,10 @@ def main():
     # payload's beside it; the attention kernels' library time is phase 2's
     # scaled_dot_product_attention on the gathered K/V (the writes have none)
     measured = {k: {"library_ms": None, **cases["int8"][k]} for k in native.SERVING_KERNELS}
+    # the KV writes' library time: index_put_ of the same rows at the bf16
+    # cache (phase 2's bf16 case), where a write is a cast and a scatter
+    for k in ("kv_chunk_write", "kv_append"):
+        measured[k].update(library_ms=cases["bf16"][k]["library_ms"], library_payload="bf16")
     measured.update(op)
     lines = []
     for k in replaces:
@@ -801,7 +882,9 @@ def main():
                  "library_ms": m["library_ms"],
                  **{x: m[x] for x in ("body", "splits", "ctas", "deterministic", "library_err",
                                       "ms_without_dq", "grid", "items", "group_rows",
-                                      "kernel_ms", "gqa", "pair") if x in m}}
+                                      "kernel_ms", "gqa", "pair", "entry_ms",
+                                      "kernel_ms_gamma4", "bound_ms_gamma4",
+                                      "library_payload") if x in m}}
         if k in native.SERVING_KERNELS:
             entry["payloads_held"] = [pl for pl, c in cases.items() if k in c]
             entry["ms_by_payload"] = {pl: c[k]["ms"] for pl, c in cases.items() if k in c}
@@ -828,7 +911,7 @@ def main():
                       "bound_by": m["bound_by"], "library_ms": None,
                       **{x: m[x] for x in ("body", "splits", "ctas", "deterministic",
                                            "kernel_ms", "l_err", "m_err", "merge_err",
-                                           "cp_step_ms", "flat_ms") if x in m}})
+                                           "cp_step_ms", "flat_ms", "entry_ms") if x in m}})
     # the experiment tools' kernels: the numbers of each tool's first
     # variant, every variant's under "variants" (phase 8)
     for k in native.EXPERIMENT_KERNELS:
@@ -902,6 +985,18 @@ def serve(label, eng, reqs, n_new, vocab):
           f"decode {st['decode_tokens']} tokens in {decode_s:.3f} s over {st['steps']} steps "
           f"= {st['decode_tokens'] / decode_s:.1f} tokens/s", flush=True)
     return results, launches
+
+
+def census(label, eng, seed):
+    """Prints the CUDA kernels that ``eng``'s second and third prefill chunks
+    and decode (or speculative) steps launch while it serves 4 prompts of
+    1,100 tokens (3 chunks) from the seed (``utils/serving_census.py``; no
+    claim: the parent's counts come from that script's own runs)."""
+    from tf_flash_attention_tpu_torch.utils.serving_census import step_census
+    gen = torch.Generator().manual_seed(seed + 13)
+    prompts = [torch.randint(1, eng.mcfg.vocab, (1100,), generator=gen).tolist()
+               for _ in range(4)]
+    print(f"census {label}: {json.dumps(step_census(eng, prompts))}", flush=True)
 
 
 def quantized_engines(mcfg, cpu_model, ecfg, prompts, n_new, dev):
@@ -1132,11 +1227,12 @@ def cp_kernel_case(label, n_q, n_kv, dev, gen, timed):
         parts.append(got)
     check_merge("paged_prefill[cp]", parts,
                 prefill.paged_prefill_attention(qp, flat, flat_cfg, 0, start, chunk))
-    # kv_chunk_write[cp] on int8 and int4: a chunk crossing pages 4-6 (shards
-    # 0-2), an odd true_len (an int4 byte row half padding)
+    # kv_chunk_write[cp] on int8 and int4: the projection's K/V transposed, a
+    # chunk crossing pages 4-6 (shards 0-2), an odd true_len (an int4 byte
+    # row half padding)
     w_start, w_len = 1100, 451
-    k = torch.randn((n_kv, chunk, d), generator=gen, device=dev).to(bf)
-    v = torch.randn((n_kv, chunk, d), generator=gen, device=dev).to(bf)
+    k = torch.randn((chunk, n_kv, d), generator=gen, device=dev).to(bf).transpose(0, 1)
+    v = torch.randn((chunk, n_kv, d), generator=gen, device=dev).to(bf).transpose(0, 1)
     cfg4 = payload_cfg("int4", n_kv_heads=n_kv, head_dim=d, page_size=ps, n_pages=S * 16 + 1,
                        max_seqs=S, max_pages_per_seq=16)
     int4 = kv_cache.PagedKVCache.create(cfg4, dev)
@@ -1147,6 +1243,8 @@ def cp_kernel_case(label, n_q, n_kv, dev, gen, timed):
             ck, cpl = clone_cache(c[r]), clone_cache(c[r])
             kv_cache.write_tokens_at(ck, ccfg, 1, w_start, k, v, w_len, ccfg.n_pages - 1,
                                      n, r)
+            out.setdefault("kv_chunk_write[cp]", dict(err=0.0)).update(
+                kv_ran("kv_chunk_write[cp]", k, v, ccfg, label))
             kv_cache._write_tokens_plain(cpl, ccfg, 1, w_start, k, v, w_len, ccfg.n_pages - 1,
                                          n, r)
             cpl.lengths[1] = owned(w_start + w_len, r)
@@ -1156,7 +1254,33 @@ def cp_kernel_case(label, n_q, n_kv, dev, gen, timed):
                 fail(f"{label}: kv_chunk_write[cp] ({ccfg.quant_dtype}, shard {r}) differs "
                      f"from its plain version: {diffs}")
             del ck, cpl
-    out["kv_chunk_write[cp]"] = dict(err=0.0)
+    # kv_append with the owner test on int8 and int4: one token a slot, then
+    # gamma 4 (the speculative step's), slot 5 inactive, on every shard
+    # against T ordered plain appends with the owner masks
+    kn = torch.randn((S, 4, n_kv, d), generator=gen, device=dev).to(bf)
+    vn = torch.randn((S, 4, n_kv, d), generator=gen, device=dev).to(bf)
+    live = torch.ones(S, dtype=torch.bool, device=dev)
+    live[5] = False
+    for c, ccfg in ((shards, cfg), ([int4] * n, cfg4)):
+        for r in range(n):
+            ck, cpl = clone_cache(c[r]), clone_cache(c[r])
+            for x in (ck, cpl):
+                x.lengths.copy_(torch.tensor([owned(g, r) for g in lengths], dtype=torch.int32))
+            g = glob.clone()
+            for T in (1, 4):
+                kv_cache.append_tokens_batched(ck, ccfg, kn[:, :T], vn[:, :T], live,
+                                               ccfg.n_pages - 1, global_lengths=g,
+                                               page_stride=n, page_offset=r)
+                kv_ran("kv_append", kn[:, :T], vn[:, :T], ccfg, label)
+                kv_cache._append_tokens_plain(cpl, ccfg, kn[:, :T], vn[:, :T], live,
+                                              ccfg.n_pages - 1, g, n, r)
+                torch.cuda.synchronize()
+                diffs = diff_outside_trash(ck, cpl, ccfg.n_pages - 1)
+                if diffs or not torch.equal(ck.lengths, cpl.lengths):
+                    fail(f"{label}: sharded kv_append ({ccfg.quant_dtype}, shard {r}, T {T}) "
+                         f"differs from its plain version: {diffs}")
+                g += T * live.to(torch.int32)
+            del ck, cpl
     if not timed:
         return out
 
@@ -1189,7 +1313,8 @@ def cp_kernel_case(label, n_q, n_kv, dev, gen, timed):
             2 * n_kv * owned(start + chunk, 0) * tok + 2 * qp.numel() * act + lm(chunk * n_q),
             4 * n_q * d * pairs0),
         "kv_chunk_write[cp]": (
-            lambda: native.kv_chunk_write(sc, cfg, 1, w_start, k, v, w_len, cfg.n_pages - 1, n, 0),
+            lambda: native.kv_chunk_write(sc, cfg, 1, w_start, k, v,
+                                          *kv_cache._owned_rows(cfg, w_start, w_len, n, 0), n, 0),
             lambda: kv_cache._write_tokens_plain(sc, cfg, 1, w_start, k, v, w_len,
                                                  cfg.n_pages - 1, n, 0),
             2 * n_kv * own_rows * (d * act + tok), 0),
@@ -1199,8 +1324,9 @@ def cp_kernel_case(label, n_q, n_kv, dev, gen, timed):
         out[variant].update(ms=time_ms(kern),
                             kernel_ms=kernel_ms(kern, SERVING_KERNEL_NAMES[variant[:-4]]),
                             plain_ms=time_ms(plain, n=5), bound_ms=b_ms, bound_by=b_by)
-        if variant.startswith("paged_"):    # the timed launch's report (shard 0, causal)
-            out[variant].update(native.WALKS[variant])
+        out[variant].update(native.WALKS[variant])   # the timed launch's (shard 0, causal)
+    out["kv_chunk_write[cp]"]["entry_ms"] = time_ms(
+        lambda: kv_cache.write_tokens_at(sc, cfg, 1, w_start, k, v, w_len, cfg.n_pages - 1, n, 0))
     # the whole context-parallel decode (4 launches and the merge) against
     # the flat kernel over the same tokens
     out["paged_decode[cp]"]["cp_step_ms"] = time_ms(
@@ -1251,6 +1377,9 @@ def cp_phase(mcfg, cpu_model, seed, n_new, dev):
             logits[name] = record_prompt_logits(eng)
             results, launches = serve(name, eng, [(p, None) for p in reqs], n_new, mcfg.vocab)
             runs[name] = ([results[r] for r in range(len(reqs))], launches)
+            if label == "cp engine":
+                logits[name] = dict(logits[name])     # the census prompts stay out
+                census(name, eng, seed)
             del eng
             torch.cuda.empty_cache()
     cp_launches = {v: runs["cp engine"][1][v] + runs["cp engine speculative"][1][v]

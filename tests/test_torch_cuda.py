@@ -52,12 +52,14 @@ QDTYPES = {True: torch.int8, "int8": torch.int8, "e4m3": torch.float8_e4m3fn,
            "e5m2": torch.float8_e5m2, "int4": "int4"}
 
 
-def _cache(quantized, dtype, dev, lengths, n_kv=2, head_dim=32, seed=0):
+def _cache(quantized, dtype, dev, lengths, n_kv=2, head_dim=32, seed=0, page_size=64,
+           max_pages=4):
     """A cache of random contents; ``quantized`` is False, True (int8) or a
     payload name of ``QDTYPES``."""
     qd = QDTYPES.get(quantized)
-    cfg = kv_cache.KVCacheConfig(n_kv_heads=n_kv, head_dim=head_dim, page_size=64,
-                                 n_pages=4 * len(lengths) + 2, max_seqs=len(lengths), max_pages_per_seq=4,
+    cfg = kv_cache.KVCacheConfig(n_kv_heads=n_kv, head_dim=head_dim, page_size=page_size,
+                                 n_pages=max_pages * len(lengths) + 2, max_seqs=len(lengths),
+                                 max_pages_per_seq=max_pages,
                                  quantized=qd is not None,
                                  quant_dtype=torch.int8 if qd is None else qd, dtype=dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -79,7 +81,7 @@ def _cache(quantized, dtype, dev, lengths, n_kv=2, head_dim=32, seed=0):
         for s in (c.k_scales, c.v_scales):
             s.copy_((0.005 + 0.015 * torch.rand(s.shape, generator=gen, device=dev)) * unit)
     perm = torch.randperm(cfg.n_pages - 1, generator=gen, device=dev)
-    c.page_tables.copy_(perm[:len(lengths) * 4].reshape(len(lengths), 4))
+    c.page_tables.copy_(perm[:len(lengths) * max_pages].reshape(len(lengths), max_pages))
     c.lengths.copy_(torch.tensor(lengths, dtype=torch.int32))
     return cfg, c
 
@@ -184,6 +186,129 @@ def test_int4_odd_lengths_bit_identical(dev):
         kv_cache._append_plain(b, cfg, kn, -kn, active, trash)
         b.lengths += active.to(torch.int32)
         _same(a, b, trash)
+
+
+# ---- the KV writes' vector body: bit for bit with the plain versions ----
+
+KV_PAYLOADS = [False, "int8", "e4m3", "e5m2", "int4"]
+
+
+def _kv_body_ran(kernel, k, v, cfg):
+    """The body the last launch of ``kernel`` reported, which must be the one
+    native.kv_write_body names."""
+    body = native.WALKS[kernel]["body"]
+    assert body == native.kv_write_body(k, v, cfg), (kernel, body)
+    return body
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("quantized", KV_PAYLOADS,
+                         ids=["unquantized", "int8", "e4m3", "e5m2", "int4"])
+def test_kv_writes_vector_body_bit_identical(dev, quantized, act, d):
+    """kv_chunk_write on the projection's transposed (strided) K/V, a chunk
+    crossing pages with an odd true_len, then appends of one token and of
+    four (inactive slot 1), from even and odd lengths: pages, scales and
+    lengths bit for bit with the plain versions, on the vector body (d 64
+    pads the stored width 128 with zeros)."""
+    cfg, c = _cache(quantized, act, dev, [70, 0, 33, 130], head_dim=d, page_size=16,
+                    max_pages=16, seed=d)
+    trash = cfg.n_pages - 1
+    gen = torch.Generator(device=dev).manual_seed(d + 1)
+    k = torch.randn((96, 2, d), generator=gen, device=dev).to(act).transpose(0, 1)
+    v = torch.randn((96, 2, d), generator=gen, device=dev).to(act).transpose(0, 1)
+    a, b = _clone(c), _clone(c)
+    native.reset_launch_counts()
+    kv_cache.write_tokens_at(a, cfg, 2, 40, k, v, 81, trash)
+    kv_cache._write_tokens_plain(b, cfg, 2, 40, k, v, 81, trash)
+    b.lengths[2] = 121
+    _same(a, b, trash)
+    assert _kv_body_ran("kv_chunk_write", k, v, cfg) == "vector"
+    active = torch.tensor([True, False, True, True], device=dev)
+    for T in (1, 4):
+        kn = torch.randn((4, T, 2, d), generator=gen, device=dev).to(act)
+        vn = torch.randn((4, T, 2, d), generator=gen, device=dev).to(act)
+        kv_cache.append_tokens_batched(a, cfg, kn, vn, active, trash)
+        kv_cache._append_tokens_plain(b, cfg, kn, vn, active, trash)
+        _same(a, b, trash)
+        assert _kv_body_ran("kv_append", kn, vn, cfg) == "vector"
+    torch.cuda.synchronize()
+    assert {n: x for n, x in native.LAUNCHES.items() if x} == {"kv_chunk_write": 1,
+                                                               "kv_append": 2}
+
+
+@pytest.mark.parametrize("stride", [1, 2, 4])
+@pytest.mark.parametrize("quantized", KV_PAYLOADS,
+                         ids=["unquantized", "int8", "e4m3", "e5m2", "int4"])
+def test_kv_writes_sharded_bit_identical(dev, quantized, stride):
+    """Every shard of a stride: a chunk write crossing pages with an odd
+    true_len (only the shard's rows, its length the owned-token count), then
+    appends of T = 1, 2, 4 and 5 tokens a slot at global lengths odd and
+    even, with an inactive slot and tokens other shards own: bit for bit
+    with the plain versions (T ordered appends with the owner masks)."""
+    glob = [13, 30, 47, 58]
+    for r in range(stride):
+        local = [kv_cache._owned_token_count(g, 16, stride, r) for g in glob]
+        cfg, c = _cache(quantized, torch.bfloat16, dev, local, head_dim=128, page_size=16,
+                        max_pages=16, seed=stride + r)
+        trash = cfg.n_pages - 1
+        gen = torch.Generator(device=dev).manual_seed(10 * stride + r)
+        shard = dict(page_stride=stride, page_offset=r)
+        k = torch.randn((2, 64, 128), generator=gen, device=dev).to(torch.bfloat16)
+        a, b = _clone(c), _clone(c)
+        kv_cache.write_tokens_at(a, cfg, 1, 18, k, -k, 45, trash, **shard)
+        kv_cache._write_tokens_plain(b, cfg, 1, 18, k, -k, 45, trash, **shard)
+        b.lengths[1] = kv_cache._owned_token_count(63, 16, stride, r)
+        _same(a, b, trash)
+        g = torch.tensor(glob, dtype=torch.int32, device=dev)
+        g[1] = 63
+        active = torch.tensor([True, True, False, True], device=dev)
+        for T in (1, 2, 4, 5):
+            kn = torch.randn((4, T, 2, 128), generator=gen, device=dev).to(torch.bfloat16)
+            vn = torch.randn((4, T, 2, 128), generator=gen, device=dev).to(torch.bfloat16)
+            glob_before = g.clone()
+            kv_cache.append_tokens_batched(a, cfg, kn, vn, active, trash, global_lengths=g,
+                                           **shard)
+            kv_cache._append_tokens_plain(b, cfg, kn, vn, active, trash, g, **shard)
+            _same(a, b, trash)
+            g += T * active.to(torch.int32)
+            want = [kv_cache._owned_token_count(int(x), 16, stride, r) for x in g.tolist()]
+            assert a.lengths.tolist() == want, (T, glob_before.tolist())
+        assert native.WALKS["kv_append"]["body"] == "vector"
+
+
+@pytest.mark.parametrize("case", ["d_store_384", "d_30", "misaligned"])
+@pytest.mark.parametrize("quantized", ["int8", "int4", False],
+                         ids=["int8", "int4", "unquantized"])
+def test_kv_writes_scalar_body_bit_identical(dev, quantized, case):
+    """Shapes the vector body does not take run the scalar body, as the
+    launch reports and kv_write_body names: a stored width of 384, a head
+    dim not a multiple of 4, a source one element off its alignment."""
+    d = {"d_store_384": 384, "d_30": 30, "misaligned": 128}[case]
+    cfg, c = _cache(quantized, torch.bfloat16, dev, [70, 0, 33], head_dim=d, page_size=16,
+                    max_pages=16, seed=7)
+    trash = cfg.n_pages - 1
+    gen = torch.Generator(device=dev).manual_seed(8)
+    extra = 1 if case == "misaligned" else 0
+
+    def src(*shape):
+        x = torch.randn((*shape[:-1], shape[-1] + extra), generator=gen, device=dev)
+        return x.to(torch.bfloat16)[..., extra:]
+
+    k, v = src(2, 64, d), src(2, 64, d)
+    a, b = _clone(c), _clone(c)
+    kv_cache.write_tokens_at(a, cfg, 1, 20, k, v, 37, trash)
+    kv_cache._write_tokens_plain(b, cfg, 1, 20, k, v, 37, trash)
+    b.lengths[1] = 57
+    _same(a, b, trash)
+    assert _kv_body_ran("kv_chunk_write", k, v, cfg) == "scalar"
+    active = torch.tensor([True, False, True], device=dev)
+    for T in (1, 3):
+        kn, vn = src(3, T, 2, d), src(3, T, 2, d)
+        kv_cache.append_tokens_batched(a, cfg, kn, vn, active, trash)
+        kv_cache._append_tokens_plain(b, cfg, kn, vn, active, trash)
+        _same(a, b, trash)
+        assert _kv_body_ran("kv_append", kn, vn, cfg) == "scalar"
 
 
 @pytest.mark.parametrize("payload", ["e4m3", "int4"])
@@ -328,7 +453,8 @@ def test_engine_page_16_on_gpu_matches_cpu(dev, quantized):
 @pytest.mark.parametrize("quantized", [False, True, "int4"])
 def test_engine_speculative_on_gpu_matches_cpu(dev, quantized):
     """Speculative greedy on the card gives the CPU engine's tokens, spec
-    stats and page counts; the verify step runs paged_multitoken_decode."""
+    stats and page counts; the verify step runs paged_multitoken_decode,
+    and a step's gamma tokens take one kv_append a layer."""
     cfg = ttf.ModelConfig(vocab=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
                           d_head=16, d_ff=128, dtype=torch.float32)
     kv = dict(quantized_kv=bool(quantized))
@@ -346,7 +472,8 @@ def test_engine_speculative_on_gpu_matches_cpu(dev, quantized):
         res = e.run()
         outs.append(([res[r] for r in rids], e.stats, e.spec_stats, e.allocator.free_pages))
     assert outs[0] == outs[1]
-    assert native.LAUNCHES["paged_multitoken_decode"] > 0 and native.LAUNCHES["kv_append"] > 0
+    assert native.LAUNCHES["paged_multitoken_decode"] > 0
+    assert native.LAUNCHES["kv_append"] == cfg.n_layers * e.stats["steps"], native.LAUNCHES
 
 
 # ---- the sequence-sharded variants: (l, m) outputs, page stride and offset,
@@ -413,7 +540,8 @@ def test_seq_sharded_variants_match_plain(dev, quantized, act, kvdt, rule):
 @pytest.mark.parametrize("quantized", [False, True, "int4"])
 def test_engine_context_parallel_on_gpu_matches_cpu(dev, quantized, spec):
     """cp = 4 on cuda:0 (the shards share the card) gives the tokens, stats
-    and free pages of cp = 4 on the CPU, and launches every CP variant."""
+    and free pages of cp = 4 on the CPU, and launches every CP variant; a
+    step takes one kv_append a layer a shard (with speculation too)."""
     from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
     cfg = ttf.ModelConfig(vocab=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
                           d_head=16, d_ff=128, dtype=torch.float32)
@@ -437,6 +565,7 @@ def test_engine_context_parallel_on_gpu_matches_cpu(dev, quantized, spec):
     want = {"paged_multitoken_decode[cp]" if spec else "paged_decode[cp]", "paged_prefill[cp]",
             "kv_chunk_write[cp]", "kv_append"}
     assert {k for k, n in native.LAUNCHES.items() if n} == want, native.LAUNCHES
+    assert native.LAUNCHES["kv_append"] == 4 * cfg.n_layers * e.stats["steps"]
 
 
 def test_engine_sampling_on_gpu(dev):

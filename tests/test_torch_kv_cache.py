@@ -88,6 +88,28 @@ def test_write_tokens_at_matches_jax(quantized, chunk):
     assert_same_cache(jc, tc, trash)
 
 
+# the engine's chunk write: K/V as the projection leaves them, (chunk, n_kv,
+# d), transposed to (n_kv, chunk, d) without a copy
+@pytest.mark.parametrize("quantized", QUANTIZED)
+def test_write_tokens_at_transposed_view_matches_jax(quantized):
+    rng = np.random.default_rng(7)
+    jcfg, tcfg = cache_cfgs(quantized)
+    trash = tcfg.n_pages - 1
+    jc, tc = caches_from(random_state(tcfg, rng, [0, 0, 0]), jcfg, tcfg)
+    start = 0
+    for n in (64, 64, 37):              # the last chunk padded, odd
+        k = rng.uniform(-2, 2, (64, 2, 32)).astype(np.float32)
+        v = rng.uniform(-2, 2, (64, 2, 32)).astype(np.float32)
+        jc = jkv.write_tokens_at(jc, jcfg, 2, start, jnp.asarray(k.transpose(1, 0, 2)),
+                                 jnp.asarray(v.transpose(1, 0, 2)), n, trash)
+        kt, vt = torch.from_numpy(k).transpose(0, 1), torch.from_numpy(v).transpose(0, 1)
+        assert not kt.is_contiguous()
+        tkv.write_tokens_at(tc, tcfg, 2, start, kt, vt, n, trash)
+        start += n
+    assert int(tc.lengths[2]) == start
+    assert_same_cache(jc, tc, trash)
+
+
 # int4: the appends land on both nibbles of a byte row
 @pytest.mark.parametrize("quantized", QUANTIZED)
 def test_append_tokens_batched_matches_jax(quantized):
@@ -205,3 +227,29 @@ def test_cache_defaults_to_the_card():
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             tkv.PagedKVCache.create(tcfg)
+
+
+@pytest.mark.parametrize("head_dim,dtype,view,body", [
+    (128, torch.bfloat16, "rows", "vector"),
+    (256, torch.float32, "rows", "vector"),
+    (128, torch.bfloat16, "transposed", "vector"),
+    (96, torch.float32, "transposed", "vector"),      # stored at 128: 4 features a lane
+    (30, torch.bfloat16, "rows", "scalar"),           # not a multiple of 4 features
+    (384, torch.bfloat16, "rows", "scalar"),          # a stored width of no vector body
+    (128, torch.bfloat16, "offset", "scalar"),        # rows not aligned to a lane's load
+])
+def test_kv_write_body_rule(head_dim, dtype, view, body):
+    """The body the KV writes' C rule (``kv_vec``) takes for these K/V, as
+    ``native.kv_write_body`` names it: the vector body at a stored width of
+    128 or 256 when each lane's ``head_dim_store / 32`` features load
+    aligned from every source row; else the scalar body."""
+    from tf_flash_attention_tpu_torch import native
+    cfg = tkv.KVCacheConfig(n_kv_heads=4, head_dim=head_dim, page_size=16, n_pages=9,
+                            max_seqs=2, max_pages_per_seq=4)
+    if view == "transposed":          # the projection's (chunk, n_kv, d), as the engine passes it
+        k = torch.zeros((8, 4, head_dim), dtype=dtype).transpose(0, 1)
+    elif view == "offset":            # a 4-byte offset into rows of d + 2
+        k = torch.zeros((2, 4, head_dim + 2), dtype=dtype)[..., 2:]
+    else:
+        k = torch.zeros((2, 4, head_dim), dtype=dtype)
+    assert native.kv_write_body(k, k.clone() if view == "rows" else k, cfg) == body

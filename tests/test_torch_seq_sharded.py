@@ -189,6 +189,84 @@ def test_write_tokens_at_strided_matches_jax(quantized):
         assert_same_cache(jc, tc, trash)
 
 
+# global lengths: odd and even (int4 byte rows half full or empty), slot 1
+# two tokens short of a page, slot 2 inactive; pages of 16 tokens
+APPEND_GLOBAL = [13, 30, 47, 58]
+APPEND_ACTIVE = [True, True, False, True]
+
+
+@pytest.mark.parametrize("T", [1, 2, 4, 5])
+@pytest.mark.parametrize("quantized", [False, True, "e4m3", "e5m2", "int4"])
+def test_owner_masked_appends_match_jax(quantized, T):
+    """One append of T tokens a slot (the speculative step's gamma), flat
+    and on every shard of strides 2 and 4, against JAX's T ordered
+    append_tokens_batched calls with the engine's masks ``mine = active &
+    (owner == me)``: the same pages, scales and local lengths."""
+    jcfg, tcfg = cache_cfgs(quantized, page_size=16, n_pages=20, max_seqs=4,
+                            max_pages_per_seq=4)
+    trash = tcfg.n_pages - 1
+    glob = np.asarray(APPEND_GLOBAL, np.int32)
+    active = np.asarray(APPEND_ACTIVE)
+    for stride in (1, 2, 4):
+        for r in range(stride):
+            rng = np.random.default_rng(100 * stride + 10 * r + T)
+            local = [tkv._owned_token_count(int(g), 16, stride, r) for g in glob]
+            jc, tc = caches_from(random_state(tcfg, rng, local), jcfg, tcfg)
+            k = rng.uniform(-2, 2, (4, T, 2, 32)).astype(np.float32)
+            v = rng.uniform(-2, 2, (4, T, 2, 32)).astype(np.float32)
+            for i in range(T):
+                mine = active & ((glob + i) // 16 % stride == r)
+                jc = jkv.append_tokens_batched(jc, jcfg, jnp.asarray(k[:, i]),
+                                               jnp.asarray(v[:, i]), jnp.asarray(mine), trash)
+            tkv.append_tokens_batched(tc, tcfg, torch.from_numpy(k), torch.from_numpy(v),
+                                      torch.from_numpy(active), trash,
+                                      global_lengths=torch.from_numpy(glob),
+                                      page_stride=stride, page_offset=r)
+            assert_same_cache(jc, tc, trash)
+            want = [tkv._owned_token_count(int(g) + T * a, 16, stride, r)
+                    for g, a in zip(glob, active)]
+            np.testing.assert_array_equal(tc.lengths.numpy(), want)
+
+
+def _plain_stored_tokens(tcfg, start, true_len, chunk, stride, offset):
+    """The chunk tokens ``_write_tokens_plain`` stores outside the trash
+    page: token t's rows carry t + 1 (unquantized) or a scale of (t + 1) / 7
+    (int4, read from its byte row's even token)."""
+    cache = tkv.PagedKVCache.create(tcfg, "cpu")
+    if cache.k_scales is not None:
+        cache.k_scales.zero_()
+    cache.page_tables.copy_(torch.arange(8, dtype=torch.int32)[None])
+    k = (torch.arange(chunk, dtype=torch.float32) + 1)[None, :, None].expand(2, chunk, 32)
+    tkv._write_tokens_plain(cache, tcfg, 0, start, k, k, true_len, tcfg.n_pages - 1,
+                            stride, offset)
+    kept = cache.k_pages[0, :-1] if tcfg.tok_pack == 1 else cache.k_scales[0, :-1, 0] * 7
+    vals = kept[..., 0] if tcfg.tok_pack == 1 else kept
+    return sorted(int(x) - 1 for x in torch.round(vals).flatten() if x > 0)
+
+
+@pytest.mark.parametrize("quantized", [False, "int4"], ids=["token_rows", "int4_byte_rows"])
+def test_owned_rows_match_the_plain_mask(quantized):
+    """The run of local positions a chunk write keeps (``_owned_rows``, the
+    kernel's grid), mapped back to global positions as the kernel maps them,
+    lists exactly the rows ``_write_tokens_plain`` stores outside the trash
+    page, over a grid of start, true_len, stride and offset; its length is
+    JAX's owned-token count."""
+    _, tcfg = cache_cfgs(quantized, page_size=16, n_pages=10, max_seqs=1, max_pages_per_seq=8)
+    pack, chunk = tcfg.tok_pack, 32
+    for start in (0, 6, 16, 30, 48):
+        for true_len in (0, 1, 7, 16, 17, 31, 32):
+            for stride in (1, 2, 4):
+                for offset in range(stride):
+                    local0, rows, length = tkv._owned_rows(tcfg, start, true_len, stride,
+                                                           offset)
+                    got = [((lp // 16) * stride + offset) * 16 + lp % 16 - start
+                           for lp in range(local0, local0 + pack * rows, pack)]
+                    want = _plain_stored_tokens(tcfg, start, true_len, chunk, stride, offset)
+                    assert got == want, (start, true_len, stride, offset)
+                    assert length == int(jkv._owned_token_count(start + true_len, 16, stride,
+                                                                offset))
+
+
 def _mesh_pair():
     from tf_flash_attention_tpu.parallel.mesh import make_mesh as jmake_mesh
     return (jmake_mesh((N,), ("seq",), jax.devices()[:N]),

@@ -3,7 +3,9 @@
 // Five kernels carry the steps of the continuous-batching engine:
 //   kv_chunk_write          chunked prefill: quantize + store a chunk's K/V
 //   paged_prefill           chunked prefill: the chunk attends to its cache
-//   kv_append               decode: quantize + store one K/V row per slot
+//   kv_append               decode: quantize + store a slot's K/V rows (one
+//                           token, or speculation's gamma) and advance its
+//                           length
 //   paged_decode            decode: one query token per slot attends to its
 //                           pages
 //   paged_multitoken_decode speculative decode: gamma draft tokens per slot,
@@ -13,7 +15,8 @@
 // serving/seq_sharded_decode.py): a shard's cache holds every
 // page_stride-th global page of a sequence starting at page_offset, global
 // page g at local logical page (g - offset) / stride.  kv_chunk_write skips
-// the rows of other shards' pages; the attention kernels
+// the rows of other shards' pages, kv_append the tokens whose global
+// position is on them; the attention kernels
 // take key positions from the global page (lp * stride + offset) and
 // optionally write each row's online-softmax l and m (base 2), which the
 // host merges across shards.  Stride 1, offset 0, no global lengths and no
@@ -44,6 +47,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 #include "tc_common.cuh"
@@ -162,15 +166,41 @@ __device__ __forceinline__ bool visible(int q_pos, int kv_pos, int window,
 }
 
 // ---------------------------------------------------------------------------
-// Row stores shared by kv_chunk_write and kv_append (one warp per row).
+// Row stores shared by kv_chunk_write and kv_append.
 //
 // Per-token symmetric quantization, kv_cache.py:138-153:
 //   amax -> scale = amax == 0 ? 1 : amax / qmax -> y = x / scale
 //   int8, int4: clamp(rint(y), -qmax, qmax); fp8: round y to nearest even
 // IEEE division (not a multiply by the reciprocal), rintf (half to even)
 // and the cvt.rn fp8 conversion make it bit-identical to the reference.
-// Unquantized payloads are a cast.  Lanes past d store zeros (the
+// Unquantized payloads are a cast.  Features past d store zeros (the
 // reference pads the feature dim with zeros before quantizing).
+//
+// A job is a stored row: a token row, or for int4 a byte row of two
+// tokens.  Two bodies do the jobs, each a warp a row.  The vector body:
+// each lane takes VEC = d_store / 32 contiguous features loaded with the
+// widest aligned loads (VEC 4 at d_store 128: 8 bytes of bf16, 16 of
+// float32; at 256, 8 features); the amax comes from registers by one
+// shuffle reduction, the quantization from the same registers, and the
+// payload is stored packed (four one-byte values a word: a 128-byte row is
+// one coalesced store a warp).  The writes are latency-bound (a few
+// microseconds for a few megabytes), so what counts is the chain each warp
+// waits through (no integer division on it: page_of, table_slot) and how
+// many warps hide it.  The scalar body (features strided over lanes, the
+// source read twice) takes the shapes the vector one cannot: other stored
+// widths, d not a multiple of VEC, or source rows not aligned to a lane's
+// load (kv_vec, mirrored by native.kv_write_body).
+
+// one stored row: the sources of its tokens (an int4 byte row's even and
+// odd token; nullptr where the launch writes no token there: an append's
+// first token at an odd position, or its last at an even one), its payload
+// row, and its tokens' scale slots (nullptr for an unquantized cache)
+template <typename T, typename P>
+struct RowJob {
+  const T* src[Payload<P>::kPack];
+  P* dst;
+  float* scale[Payload<P>::kPack];
+};
 
 // the token's scale (warp-uniform)
 template <typename T>
@@ -193,10 +223,17 @@ template <> __device__ __forceinline__ fp8e5m2 quantize<fp8e5m2>(float y) {
   return fp8e5m2{__nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E5M2)};
 }
 
+// a one-byte payload value's bits
+__device__ __forceinline__ uint32_t bits(int8_t x) { return static_cast<uint8_t>(x); }
+__device__ __forceinline__ uint32_t bits(fp8e4m3 x) { return x.x; }
+__device__ __forceinline__ uint32_t bits(fp8e5m2 x) { return x.x; }
+
 // an int4 value in [-7, 7], as the low 4 bits of an int
 __device__ __forceinline__ int quantize_nibble(float y) {
   return static_cast<int>(fminf(fmaxf(rintf(y), -7.f), 7.f)) & 0xF;
 }
+
+// ---- the scalar body ----
 
 template <typename T, typename P>
 __device__ __forceinline__ void store_row(const T* __restrict__ src, int d, int d_store,
@@ -232,7 +269,7 @@ __device__ __forceinline__ void store_byte_row(const T* __restrict__ src0,
   }
 }
 
-// int4 append: the token's nibble of every feature, read-modify-write
+// int4 append of one token alone in its byte row, read-modify-write
 // (kv_cache.py:548-600): an even token owns the byte (its odd partner does
 // not exist yet), an odd token keeps the even one's low nibble
 template <typename T>
@@ -247,95 +284,361 @@ __device__ __forceinline__ void store_nibble(const T* __restrict__ src, int d, i
   if (lane == 0) *scale_dst = scale;
 }
 
-// ---------------------------------------------------------------------------
-// K3 kv_chunk_write.  Replaces serving/kv_cache.py::_chunk_write_kernel
-// (and the quantization XLA ran before it).  One warp per (K or V, kv head,
-// stored row): a token row, or for int4 a byte row of two tokens (the chunk
-// starts at an even position and is even, so byte rows are whole).  It
-// quantizes in registers and stores the row and its scales at (table[(pos
-// / page) % max_pages], pos % page).  A row whose (first) token is past
-// true_len is not this slot's: the TPU kernel stores it to the trash page,
-// which nothing reads, so this one skips it.  Sharded (stride > 1): a row
-// whose global page g = pos / page is not this shard's (g % stride !=
-// offset) is skipped too, and an owned one goes to table[((g - offset) /
-// stride) % max_pages]; an int4 byte row follows its even token (pages hold
-// an even number of tokens).  Bound by bytes: it reads the owned rows'
-// activations once and writes their payload once; rows are stored whole and
-// coalesced, so no page is read back (the TPU kernel's block-aligned copy
-// is not needed, nor its alignment precondition).
 template <typename T, typename P>
-__global__ void kv_chunk_write_kernel(const T* __restrict__ k, const T* __restrict__ v,
-                                      P* k_pages, P* v_pages, float* k_scales,
-                                      float* v_scales, const int* __restrict__ table_row,
-                                      int n_kv, int chunk, int d, int d_store, int page_size,
-                                      int n_pages, int max_pages, int start, int true_len,
-                                      int page_stride, int page_offset) {
-  constexpr int PACK = Payload<P>::kPack;
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  const int chunk_rows = chunk / PACK, page_rows = page_size / PACK;
-  const int rows = n_kv * chunk_rows;
-  if (warp >= 2 * rows) return;  // warp-uniform
-  const bool is_v = warp >= rows;
-  const int r = is_v ? warp - rows : warp;
-  const int h = r / chunk_rows, t = PACK * (r % chunk_rows);
-  const int pos = start + t;
-  const int gp = pos / page_size;
-  if (t >= true_len || gp % page_stride != page_offset) return;  // warp-uniform
-  const int phys = table_row[((gp - page_offset) / page_stride) % max_pages];
-  const size_t page = static_cast<size_t>(h) * n_pages + phys;
-  const size_t row = page * page_rows + (pos % page_size) / PACK;
-  const T* src = (is_v ? v : k) + (static_cast<size_t>(h) * chunk + t) * d;
-  P* dst = (is_v ? v_pages : k_pages) + row * d_store;
-  float* sc = is_v ? v_scales : k_scales;
-  if constexpr (PACK == 2) {
-    sc += page * page_size + (pos % page_size) / 2;
-    store_byte_row<T>(src, src + d, d, d_store, dst, sc, sc + page_rows, lane);
+__device__ __forceinline__ void store_scalar(const RowJob<T, P>& job, int d, int d_store,
+                                             int lane) {
+  if constexpr (Payload<P>::kPack == 2) {
+    if (job.src[0] && job.src[1])
+      store_byte_row<T>(job.src[0], job.src[1], d, d_store, job.dst, job.scale[0],
+                        job.scale[1], lane);
+    else if (job.src[0])
+      store_nibble<T>(job.src[0], d, d_store, 0, job.dst, job.scale[0], lane);
+    else
+      store_nibble<T>(job.src[1], d, d_store, 1, job.dst, job.scale[1], lane);
   } else {
-    store_row<T, P>(src, d, d_store, dst, sc ? sc + row : nullptr, lane);
+    store_row<T, P>(job.src[0], d, d_store, job.dst, job.scale[0], lane);
   }
 }
 
-// ---------------------------------------------------------------------------
-// K4 kv_append.  Replaces serving/kv_cache.py::_append_rmw_kernel.  One
-// warp per (K or V, slot, kv head): the row goes to
-// (table[s, (len / page) % max_pages], len % page), or to the trash page
-// for an inactive slot; for int4 the token read-modify-writes its nibble of
-// byte row (len % page) / 2 and writes its scale sublane.  The TPU kernel
-// read-modify-wrote a whole page per slot; here only the row and its scale
-// are touched, so the kernel moves 2 * S * n_kv rows of d_store bytes and
-// is bound by launch latency.  Two appends to one int4 byte row must be
-// separate launches, in order: each reads the byte the other writes.
-template <typename T, typename P>
-__global__ void kv_append_kernel(const T* __restrict__ k_new, const T* __restrict__ v_new,
-                                 P* k_pages, P* v_pages, float* k_scales, float* v_scales,
-                                 const int* __restrict__ tables,
-                                 const int* __restrict__ lengths,
-                                 const uint8_t* __restrict__ active, int S, int n_kv, int d,
-                                 int d_store, int page_size, int n_pages, int max_pages,
-                                 int trash) {
-  constexpr int PACK = Payload<P>::kPack;
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  const int rows = S * n_kv;
-  if (warp >= 2 * rows) return;
-  const bool is_v = warp >= rows;
-  const int r = is_v ? warp - rows : warp;
-  const int s = r / n_kv, h = r % n_kv;
-  const int len = lengths[s];
-  const int phys = active[s] ? tables[s * max_pages + (len / page_size) % max_pages] : trash;
-  const int off = len % page_size, page_rows = page_size / PACK;
-  const size_t page = static_cast<size_t>(h) * n_pages + phys;
-  const size_t row = page * page_rows + off / PACK;
-  const T* src = (is_v ? v_new : k_new) + static_cast<size_t>(r) * d;
-  P* dst = (is_v ? v_pages : k_pages) + row * d_store;
-  float* sc = is_v ? v_scales : k_scales;
-  if constexpr (PACK == 2) {
-    store_nibble<T>(src, d, d_store, off & 1, dst,
-                    sc + page * page_size + scale_idx<2>(off, page_rows), lane);
+// ---- the vector body ----
+
+// W 32-bit words from W * 4 aligned bytes (W 1, 2 or a multiple of 4)
+template <int W>
+__device__ __forceinline__ void load_words(const void* p, uint32_t (&w)[W]) {
+  if constexpr (W == 1) {
+    w[0] = *static_cast<const uint32_t*>(p);
+  } else if constexpr (W == 2) {
+    const uint2 a = *static_cast<const uint2*>(p);
+    w[0] = a.x;
+    w[1] = a.y;
   } else {
-    store_row<T, P>(src, d, d_store, dst, sc ? sc + row : nullptr, lane);
+#pragma unroll
+    for (int c = 0; c < W / 4; ++c) {
+      const uint4 a = static_cast<const uint4*>(p)[c];
+      w[4 * c] = a.x;
+      w[4 * c + 1] = a.y;
+      w[4 * c + 2] = a.z;
+      w[4 * c + 3] = a.w;
+    }
   }
+}
+
+template <int W>
+__device__ __forceinline__ void store_words(void* p, const uint32_t (&w)[W]) {
+  if constexpr (W == 1) {
+    *static_cast<uint32_t*>(p) = w[0];
+  } else if constexpr (W == 2) {
+    *static_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < W / 4; ++c)
+      static_cast<uint4*>(p)[c] = make_uint4(w[4 * c], w[4 * c + 1], w[4 * c + 2], w[4 * c + 3]);
+  }
+}
+
+// VEC activations (float or bf16) widened to float; bf16 -> float is exact
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* src, float (&x)[VEC]) {
+  constexpr int W = VEC * static_cast<int>(sizeof(T)) / 4;
+  uint32_t w[W];
+  load_words<W>(src, w);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    if constexpr (std::is_same<T, float>::value)
+      x[i] = __uint_as_float(w[i]);
+    else
+      x[i] = __uint_as_float((i & 1) ? (w[i >> 1] & 0xFFFF0000u) : (w[i >> 1] << 16));
+  }
+}
+
+// one job from registers: x[p] holds token p's VEC features of this lane
+// (zeros past d, or where the job has no such token).  Every lane of the
+// warp calls it (the shuffles)
+template <typename T, typename P, int VEC>
+__device__ __forceinline__ void store_vec(const RowJob<T, P>& job,
+                                          const float (&x)[Payload<P>::kPack][VEC], int lane) {
+  constexpr int PACK = Payload<P>::kPack;
+  P* dst = job.dst + lane * VEC;
+  if constexpr (!Payload<P>::kQuant) {
+    constexpr int W = VEC * static_cast<int>(sizeof(P)) / 4;
+    uint32_t w[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      if constexpr (std::is_same<P, float>::value)
+        w[i] = __float_as_uint(x[0][i]);
+      else  // round to nearest even, as torch and XLA
+        w[i] = static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(x[0][2 * i]))) |
+               (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(x[0][2 * i + 1])))
+                << 16);
+    }
+    store_words<W>(dst, w);
+  } else {
+    constexpr int W = VEC / 4;  // one byte a value, four a word
+    float s[PACK];
+#pragma unroll
+    for (int p = 0; p < PACK; ++p) {
+      float amax = 0.f;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) amax = fmaxf(amax, fabsf(x[p][i]));
+      amax = warp_max(amax);
+      s[p] = amax == 0.f ? 1.f : amax / Payload<P>::kQmax;
+    }
+    uint32_t w[W];
+    if constexpr (PACK == 1) {
+#pragma unroll
+      for (int c = 0; c < W; ++c) {
+        w[c] = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) w[c] |= bits(quantize<P>(x[0][4 * c + b] / s[0])) << (8 * b);
+      }
+    } else {
+      // an odd token alone keeps the even one's low nibble; an even token
+      // alone owns the byte
+      uint32_t old[W];
+      if (!job.src[0]) load_words<W>(dst, old);
+#pragma unroll
+      for (int c = 0; c < W; ++c) {
+        w[c] = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int i = 4 * c + b;
+          const uint32_t lo = job.src[0] ? quantize_nibble(x[0][i] / s[0])
+                                         : (old[c] >> (8 * b)) & 0xFu;
+          const uint32_t hi = job.src[1] ? quantize_nibble(x[1][i] / s[1]) : 0u;
+          w[c] |= (lo | (hi << 4)) << (8 * b);
+        }
+      }
+    }
+    store_words<W>(dst, w);
+    if (lane == 0) {
+#pragma unroll
+      for (int p = 0; p < PACK; ++p)
+        if (job.src[p]) *job.scale[p] = s[p];
+    }
+  }
+}
+
+// one job on a warp, its loads issued before the reduction
+template <typename T, typename P, int VEC>
+__device__ __forceinline__ void run_vec(const RowJob<T, P>& job, int d, int lane) {
+  constexpr int PACK = Payload<P>::kPack;
+  float x[PACK][VEC];
+  const bool live = lane * VEC < d;  // d is a multiple of VEC
+#pragma unroll
+  for (int p = 0; p < PACK; ++p) {
+    if (live && job.src[p]) {
+      load_vec<T, VEC>(job.src[p] + lane * VEC, x[p]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) x[p][i] = 0.f;
+    }
+  }
+  store_vec<T, P, VEC>(job, x, lane);
+}
+
+// jobs [0, n) of a CTA or a grid, a warp a job: VEC 0 is the scalar body,
+// else the vector body
+template <typename T, typename P, int VEC, typename JobAt>
+__device__ __forceinline__ void run_jobs(const JobAt& job_at, int n, int warp, int warps, int d,
+                                         int d_store, int lane) {
+  for (int j = warp; j < n; j += warps) {
+    if constexpr (VEC == 0)
+      store_scalar<T, P>(job_at(j), d, d_store, lane);
+    else
+      run_vec<T, P, VEC>(job_at(j), d, lane);
+  }
+}
+
+// the page of local position loc: a shift where the page size is a power of
+// two (page_shift >= 0), and the logical page's table slot (the table
+// wraps, as the reference's modulo): no integer division on the common path
+__device__ __forceinline__ int page_of(int loc, int page_size, int page_shift) {
+  return page_shift >= 0 ? loc >> page_shift : loc / page_size;
+}
+__device__ __forceinline__ int table_slot(int lp, int max_pages) {
+  return lp < max_pages ? lp : lp % max_pages;
+}
+
+// the payload row and scale slots of local position `off` of page `page`
+// (h * n_pages + phys) for a stored width d_store
+template <typename T, typename P>
+__device__ __forceinline__ void locate(RowJob<T, P>& job, P* pages, float* scales, size_t page,
+                                       int off, int page_size, int d_store) {
+  constexpr int PACK = Payload<P>::kPack;
+  const int page_rows = page_size / PACK;
+  const size_t row = page * page_rows + off / PACK;
+  job.dst = pages + row * d_store;
+  float* sc = scales ? scales + page * page_size + off / PACK : nullptr;
+#pragma unroll
+  for (int p = 0; p < PACK; ++p) job.scale[p] = sc ? sc + p * page_rows : nullptr;
+}
+
+// ---------------------------------------------------------------------------
+// K3 kv_chunk_write.  Replaces serving/kv_cache.py::_chunk_write_kernel
+// (and the quantization XLA ran before it).  A job per (K or V, kv head,
+// stored row this shard keeps): the chunk's tokens [start, start +
+// true_len), rounded up to whole stored rows (an int4 byte row follows its
+// even token; the chunk starts at an even position and is even), on this
+// shard's pages.  The host lists them as a run of the shard's local
+// positions, [local0, local0 + PACK * units): local position l is global
+// position ((l / page) * stride + offset) * page + l % page (stride 1,
+// offset 0: the positions themselves), stored at (table[(l / page) %
+// max_pages], l % page).  So the grid covers only the kept rows: the
+// padding rows and other shards' rows, which the TPU kernel stored to the
+// trash page (nothing reads it), start no warp.  The source is K and V as
+// the projection leaves them: any head and row strides, unit feature
+// stride.  One thread also sets the slot's length to the owned-token count
+// (the whole sequence's on this shard), so the wrapper runs no torch op.
+// Bound by bytes: the kept rows' activations read once, their payload and
+// scales written once; rows are stored whole and coalesced, so no page is
+// read back (the TPU kernel's block-aligned copy is not needed, nor its
+// alignment precondition).
+template <typename T, typename P>
+struct ChunkRows {
+  const T *k, *v;
+  P *k_pages, *v_pages;
+  float *k_scales, *v_scales;
+  const int* table_row;
+  int* length;  // the slot's
+  long long head_stride, row_stride;
+  int n_kv, d, d_store, page_size, page_shift, n_pages, max_pages, start, local0, units, owned,
+      page_stride, page_offset;
+};
+
+// the jobs of one (K or V, kv head): the kept rows u = 0 .. units - 1
+template <typename T, typename P>
+struct HeadRows {
+  const ChunkRows<T, P> a;
+  bool is_v;
+  int h;
+
+  __device__ __forceinline__ RowJob<T, P> operator()(int u) const {
+    constexpr int PACK = Payload<P>::kPack;
+    const int loc = a.local0 + PACK * u;
+    const int lp = page_of(loc, a.page_size, a.page_shift), off = loc - lp * a.page_size;
+    const int t = (lp * a.page_stride + a.page_offset) * a.page_size + off - a.start;
+    RowJob<T, P> job;
+    const T* src = (is_v ? a.v : a.k) + h * a.head_stride + t * a.row_stride;
+#pragma unroll
+    for (int p = 0; p < PACK; ++p) job.src[p] = src + p * a.row_stride;
+    const size_t page =
+        static_cast<size_t>(h) * a.n_pages + a.table_row[table_slot(lp, a.max_pages)];
+    locate(job, is_v ? a.v_pages : a.k_pages, is_v ? a.v_scales : a.k_scales, page, off,
+           a.page_size, a.d_store);
+    return job;
+  }
+};
+
+constexpr int kChunkThreads = 256;
+
+// grid: (blocks of kept rows, K and V of each kv head)
+template <typename T, typename P, int VEC>
+__global__ void __launch_bounds__(kChunkThreads)
+kv_chunk_write_kernel(const ChunkRows<T, P> a) {
+  const int lane = threadIdx.x & 31;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int warps = (gridDim.x * blockDim.x) >> 5;
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) *a.length = a.owned;
+  const bool is_v = static_cast<int>(blockIdx.y) >= a.n_kv;
+  const HeadRows<T, P> rows{a, is_v, static_cast<int>(blockIdx.y) - (is_v ? a.n_kv : 0)};
+  run_jobs<T, P, VEC>(rows, a.units, warp, warps, a.d, a.d_store, lane);
+}
+
+// ---------------------------------------------------------------------------
+// K4 kv_append.  Replaces serving/kv_cache.py::_append_rmw_kernel.  A CTA
+// per slot appends T >= 1 tokens a slot, (S, T, n_kv, d) at any slot,
+// token and head strides, in order: the tokens this cache owns land at its
+// length and after, and one thread advances the length by their count
+// after the CTA's barrier (so no warp reads a length another advanced).
+// A token is owned when the slot is active and, sequence sharded (stride
+// > 1), its global position glob[s] + i lies on one of this shard's pages:
+// (glob[s] + i) / page % stride == offset, the JAX engine's `mine = active
+// & (owner == me)` (tf_flash_attention_tpu/serving/engine.py:515-520); an
+// inactive or non-owned token stores nothing (the TPU kernel wrote the
+// trash page).  Jobs are (K or V, kv head, stored row): for int4 the byte
+// rows the owned tokens touch, each with one or both of its tokens from
+// this launch, so the two tokens of a byte row are paired in registers and
+// a row with one token read-modify-writes its byte as T ordered launches
+// of one token would.  The TPU kernel read-modify-wrote a whole page a
+// slot; this one touches only the rows and their scales, 2 * S * T * n_kv
+// rows of d_store bytes: bound by launch latency.
+template <typename T, typename P>
+struct AppendRows {
+  const T *k, *v;
+  P *k_pages, *v_pages;
+  float *k_scales, *v_scales;
+  const int* tables;
+  int* lengths;
+  const uint8_t* active;
+  const int* glob;  // nullptr when not sharded
+  long long slot_stride, tok_stride, head_stride;
+  int T_, n_kv, d, d_store, page_size, page_shift, n_pages, max_pages, page_stride,
+      page_offset;
+
+  __device__ __forceinline__ bool owns(int s, int i) const {
+    return page_stride == 1 ||
+           page_of(glob[s] + i, page_size, page_shift) % page_stride == page_offset;
+  }
+  // the token of the q-th owned one
+  __device__ __forceinline__ int owned_token(int s, int q) const {
+    if (page_stride == 1) return q;
+    int i = 0;
+    for (int seen = -1;; ++i)
+      if (owns(s, i) && ++seen == q) return i;
+  }
+};
+
+// the jobs of slot s: stored rows from local position first (len, or for
+// int4 its byte row's even position) on, units of them
+template <typename T, typename P>
+struct SlotRows {
+  const AppendRows<T, P> a;
+  int s, len, n_own, first, units;
+
+  __device__ __forceinline__ RowJob<T, P> operator()(int j) const {
+    constexpr int PACK = Payload<P>::kPack;
+    const int per = a.n_kv * units;
+    const bool is_v = j >= per;
+    const int r = is_v ? j - per : j;
+    const int h = r / units;
+    const int loc = first + PACK * (r - h * units);
+    const int lp = page_of(loc, a.page_size, a.page_shift), off = loc - lp * a.page_size;
+    const T* base = (is_v ? a.v : a.k) + s * a.slot_stride + h * a.head_stride;
+    RowJob<T, P> job;
+#pragma unroll
+    for (int p = 0; p < PACK; ++p) {
+      const int q = loc + p - len;  // this position's owned token, if in the launch
+      job.src[p] = q >= 0 && q < n_own ? base + a.owned_token(s, q) * a.tok_stride : nullptr;
+    }
+    const size_t page = static_cast<size_t>(h) * a.n_pages +
+                        a.tables[static_cast<size_t>(s) * a.max_pages +
+                                 table_slot(lp, a.max_pages)];
+    locate(job, is_v ? a.v_pages : a.k_pages, is_v ? a.v_scales : a.k_scales, page, off,
+           a.page_size, a.d_store);
+    return job;
+  }
+};
+
+// warps of an append CTA at most, by body (more warps leave the scalar
+// body too few registers); the launch sizes the CTA to the slot's jobs
+__host__ __device__ constexpr int append_warps(int vec) { return vec ? 32 : 4; }
+
+template <typename T, typename P, int VEC>
+__global__ void __launch_bounds__(32 * append_warps(VEC), 1)
+kv_append_kernel(const AppendRows<T, P> a) {
+  constexpr int PACK = Payload<P>::kPack;
+  const int s = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int len = a.lengths[s];
+  int n_own = 0;
+  if (a.active[s])
+    for (int i = 0; i < a.T_; ++i) n_own += a.owns(s, i);
+  const int first = len - len % PACK;
+  const int units = n_own ? (len + n_own - 1 - first) / PACK + 1 : 0;
+  const SlotRows<T, P> rows{a, s, len, n_own, first, units};
+  run_jobs<T, P, VEC>(rows, 2 * a.n_kv * units, warp, blockDim.x >> 5, a.d, a.d_store, lane);
+  __syncthreads();
+  if (threadIdx.x == 0 && n_own) a.lengths[s] = len + n_own;
 }
 
 // ---------------------------------------------------------------------------
@@ -976,52 +1279,113 @@ int dispatch(int act, int kv, F f) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// the body of a KV write (native.kv_write_body mirrors this rule): the
+// vector body's VEC = d_store / 32 at a stored width of 128 or 256 when d
+// is a multiple of VEC and every source row starts aligned to a lane's
+// load (VEC values, at most 16 bytes: the bases and every stride), else 0,
+// the scalar body; *body (nullable) reports it (1: the vector body)
+template <typename T>
+int kv_vec(int d, int d_store, const void* k, const void* v,
+           std::initializer_list<long long> strides, int* body) {
+  int vec = d_store == 128 || d_store == 256 ? d_store / 32 : 0;
+  const long long align = min(16, vec * static_cast<int>(sizeof(T)));
+  if (vec && (d % vec || reinterpret_cast<uintptr_t>(k) % align ||
+              reinterpret_cast<uintptr_t>(v) % align))
+    vec = 0;
+  for (long long st : strides)
+    if (vec && (st * static_cast<long long>(sizeof(T))) % align) vec = 0;
+  if (body) *body = vec != 0;
+  return vec;
+}
+
+// log2 of a power of two, else -1 (page_of)
+inline int shift_of(int n) {
+  if (n <= 0 || (n & (n - 1))) return -1;
+  int s = 0;
+  while ((1 << s) < n) ++s;
+  return s;
+}
+
+// launches F::launch<T, P, VEC>(a) for the body kv_vec chose
+template <typename T, typename P, typename F, typename A>
+int launch_kv(const F& f, const A& a, int vec) {
+  if (vec == 0) return f.template launch<T, P, 0>(a);
+  if (vec == 4) return f.template launch<T, P, 4>(a);
+  return f.template launch<T, P, 8>(a);
+}
+
 struct ChunkWrite {
   const void *k, *v;
   void *k_pages, *v_pages;
   float *k_scales, *v_scales;
-  const int* table_row;
-  // trash: the plain version's target for the skipped rows; the kernel
-  // stores nothing there
-  int n_kv, chunk, d, d_store, page_size, n_pages, max_pages, start, true_len, trash,
-      page_stride, page_offset;
+  const int* tables;
+  int* lengths;
+  int slot, n_kv;
+  long long head_stride, row_stride;
+  int d, d_store, page_size, n_pages, max_pages, start, local0, units, owned, page_stride,
+      page_offset;
+  int* body;
   cudaStream_t stream;
+  template <typename T, typename P, int VEC>
+  int launch(const ChunkRows<T, P>& a) const {
+    constexpr int per_block = kChunkThreads / 32;
+    // one block at least: it sets the slot's length
+    const dim3 grid(max(1, (units + per_block - 1) / per_block), 2 * n_kv);
+    kv_chunk_write_kernel<T, P, VEC><<<grid, kChunkThreads, 0, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
   template <typename T, typename P, typename C>
   int run() const {
-    if (chunk % Payload<P>::kPack || start % Payload<P>::kPack || page_stride < 1 ||
-        page_offset < 0 || page_offset >= page_stride)
+    constexpr int PACK = Payload<P>::kPack;
+    if (start % PACK || local0 % PACK || units < 0 || page_size % PACK || page_stride < 1 ||
+        page_offset < 0 || page_offset >= page_stride || d > d_store)
       return static_cast<int>(cudaErrorInvalidValue);
-    const int warps = 2 * n_kv * chunk / Payload<P>::kPack;
-    const int threads = 256;
-    const int blocks = (warps * 32 + threads - 1) / threads;
-    if (blocks == 0) return 0;
-    kv_chunk_write_kernel<T, P><<<blocks, threads, 0, stream>>>(
-        static_cast<const T*>(k), static_cast<const T*>(v), static_cast<P*>(k_pages),
-        static_cast<P*>(v_pages), k_scales, v_scales, table_row, n_kv, chunk, d, d_store,
-        page_size, n_pages, max_pages, start, true_len, page_stride, page_offset);
-    return static_cast<int>(cudaGetLastError());
+    const ChunkRows<T, P> a{static_cast<const T*>(k), static_cast<const T*>(v),
+                            static_cast<P*>(k_pages), static_cast<P*>(v_pages), k_scales,
+                            v_scales, tables + static_cast<size_t>(slot) * max_pages,
+                            lengths + slot, head_stride, row_stride, n_kv, d, d_store,
+                            page_size, shift_of(page_size), n_pages, max_pages, start, local0,
+                            units, owned, page_stride, page_offset};
+    return launch_kv<T, P>(*this, a, kv_vec<T>(d, d_store, k, v, {head_stride, row_stride}, body));
   }
 };
 
 struct Append {
-  const void *k_new, *v_new;
+  const void *k, *v;
   void *k_pages, *v_pages;
   float *k_scales, *v_scales;
-  const int *tables, *lengths;
+  const int* tables;
+  int* lengths;
   const uint8_t* active;
-  int S, n_kv, d, d_store, page_size, n_pages, max_pages, trash;
+  const int* glob;
+  int S, T_, n_kv;
+  long long slot_stride, tok_stride, head_stride;
+  int d, d_store, page_size, n_pages, max_pages, page_stride, page_offset;
+  int* body;
   cudaStream_t stream;
+  template <typename T, typename P, int VEC>
+  int launch(const AppendRows<T, P>& a) const {
+    // a slot's jobs at most, a warp each: K and V of each kv head for each
+    // stored row its T tokens touch
+    constexpr int PACK = Payload<P>::kPack;
+    const int jobs = 2 * n_kv * (PACK == 1 ? T_ : T_ / 2 + 1);
+    const int warps = min(append_warps(VEC), jobs);
+    kv_append_kernel<T, P, VEC><<<S, 32 * warps, 0, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
   template <typename T, typename P, typename C>
   int run() const {
-    const int warps = 2 * S * n_kv;
-    const int threads = 256;
-    const int blocks = (warps * 32 + threads - 1) / threads;
-    if (blocks == 0) return 0;
-    kv_append_kernel<T, P><<<blocks, threads, 0, stream>>>(
-        static_cast<const T*>(k_new), static_cast<const T*>(v_new), static_cast<P*>(k_pages),
-        static_cast<P*>(v_pages), k_scales, v_scales, tables, lengths, active, S, n_kv, d,
-        d_store, page_size, n_pages, max_pages, trash);
-    return static_cast<int>(cudaGetLastError());
+    if (T_ < 1 || page_size % Payload<P>::kPack || page_stride < 1 || page_offset < 0 ||
+        page_offset >= page_stride || (page_stride > 1 && glob == nullptr) || d > d_store)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const AppendRows<T, P> a{static_cast<const T*>(k), static_cast<const T*>(v),
+                             static_cast<P*>(k_pages), static_cast<P*>(v_pages), k_scales,
+                             v_scales, tables, lengths, active, glob, slot_stride, tok_stride,
+                             head_stride, T_, n_kv, d, d_store, page_size, shift_of(page_size),
+                             n_pages, max_pages, page_stride, page_offset};
+    const int vec = kv_vec<T>(d, d_store, k, v, {slot_stride, tok_stride, head_stride}, body);
+    if (S == 0) return 0;
+    return launch_kv<T, P>(*this, a, vec);
   }
 };
 
@@ -1159,26 +1523,31 @@ struct Prefill {
 extern "C" {
 
 int fa_kv_chunk_write(int act, int kv, const void* k, const void* v, void* k_pages,
-                      void* v_pages, void* k_scales, void* v_scales, const void* table_row,
-                      int n_kv, int chunk, int d, int d_store, int page_size, int n_pages,
-                      int max_pages, int start, int true_len, int trash, int page_stride,
-                      int page_offset, void* stream) {
+                      void* v_pages, void* k_scales, void* v_scales, const void* tables,
+                      void* lengths, int slot, int n_kv, long long head_stride,
+                      long long row_stride, int d, int d_store, int page_size, int n_pages,
+                      int max_pages, int start, int local0, int units, int owned,
+                      int page_stride, int page_offset, int* body, void* stream) {
   const ChunkWrite f{k, v, k_pages, v_pages, static_cast<float*>(k_scales),
-                     static_cast<float*>(v_scales), static_cast<const int*>(table_row),
-                     n_kv, chunk, d, d_store, page_size, n_pages, max_pages, start, true_len,
-                     trash, page_stride, page_offset, static_cast<cudaStream_t>(stream)};
+                     static_cast<float*>(v_scales), static_cast<const int*>(tables),
+                     static_cast<int*>(lengths), slot, n_kv, head_stride, row_stride, d,
+                     d_store, page_size, n_pages, max_pages, start, local0, units, owned,
+                     page_stride, page_offset, body, static_cast<cudaStream_t>(stream)};
   return dispatch(act, kv, f);
 }
 
-int fa_kv_append(int act, int kv, const void* k_new, const void* v_new, void* k_pages,
-                 void* v_pages, void* k_scales, void* v_scales, const void* tables,
-                 const void* lengths, const void* active, int S, int n_kv, int d, int d_store,
-                 int page_size, int n_pages, int max_pages, int trash, void* stream) {
-  const Append f{k_new, v_new, k_pages, v_pages, static_cast<float*>(k_scales),
+int fa_kv_append(int act, int kv, const void* k, const void* v, void* k_pages, void* v_pages,
+                 void* k_scales, void* v_scales, const void* tables, void* lengths,
+                 const void* active, const void* glob, int S, int T, int n_kv,
+                 long long slot_stride, long long tok_stride, long long head_stride, int d,
+                 int d_store, int page_size, int n_pages, int max_pages, int page_stride,
+                 int page_offset, int* body, void* stream) {
+  const Append f{k, v, k_pages, v_pages, static_cast<float*>(k_scales),
                  static_cast<float*>(v_scales), static_cast<const int*>(tables),
-                 static_cast<const int*>(lengths), static_cast<const uint8_t*>(active), S,
-                 n_kv, d, d_store, page_size, n_pages, max_pages, trash,
-                 static_cast<cudaStream_t>(stream)};
+                 static_cast<int*>(lengths), static_cast<const uint8_t*>(active),
+                 static_cast<const int*>(glob), S, T, n_kv, slot_stride, tok_stride,
+                 head_stride, d, d_store, page_size, n_pages, max_pages, page_stride,
+                 page_offset, body, static_cast<cudaStream_t>(stream)};
   return dispatch(act, kv, f);
 }
 

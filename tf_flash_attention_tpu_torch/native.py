@@ -32,6 +32,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from collections.abc import Mapping
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -57,8 +58,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 SERVING_KERNELS = ("paged_decode", "paged_multitoken_decode", "paged_prefill",
                    "kv_chunk_write", "kv_append")
-# the sequence-sharded variants of four of them (kv_append shards by its
-# ``active`` mask and has none)
+# the sequence-sharded variants of four of them (kv_append's owner test is
+# one more test in its one kernel: it has none)
 CP_VARIANTS = tuple(f"{k}[cp]" for k in SERVING_KERNELS if k != "kv_append")
 ATTENTION_KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
                      "flash_bwd_qouter", "banded_fwd", "banded_bwd", "window_fwd",
@@ -87,7 +88,8 @@ def reset_launch_counts() -> None:
 #: what the last launch of a kernel reported, by kernel: ``body``
 #: ("tensor-core" or "scalar") for ``flash_bwd_qouter``, the split pair
 #: (``flash_bwd_dq``, ``flash_bwd_dkv``), ``paged_prefill`` and
-#: ``paged_prefill[cp]``; for the decodes (``paged_decode``,
+#: ``paged_prefill[cp]``; ("vector" or "scalar") for ``kv_chunk_write``,
+#: ``kv_chunk_write[cp]`` and ``kv_append``; for the decodes (``paged_decode``,
 #: ``paged_multitoken_decode`` and their ``[cp]`` forms) also ``splits`` and
 #: ``ctas``; for each persistent walk (``resident_fwd`` and
 #: the three experiment forwards) also ``grid`` (CTAs), ``items`` (work
@@ -205,7 +207,7 @@ def ptxas_summary(source: str) -> list:
     return kernels
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
 class FaRule(ctypes.Structure):
@@ -225,14 +227,16 @@ _R = ctypes.POINTER(FaRule)
 # per source: C entry -> argument types (the stream, last, is added below)
 _SIGNATURES = {
     "serving_kernels.cu": {
-        # act, kv, k, v, k_pages, v_pages, k_scales, v_scales, table_row,
-        # n_kv, chunk, d, d_store, page_size, n_pages, max_pages, start,
-        # true_len, trash, page_stride, page_offset
-        "fa_kv_chunk_write": [_I, _I] + [_P] * 7 + [_I] * 12,
-        # act, kv, k_new, v_new, k_pages, v_pages, k_scales, v_scales, tables,
-        # lengths, active, S, n_kv, d, d_store, page_size, n_pages, max_pages,
-        # trash
-        "fa_kv_append": [_I, _I] + [_P] * 9 + [_I] * 8,
+        # act, kv, k, v, k_pages, v_pages, k_scales, v_scales, tables,
+        # lengths, slot, n_kv, head_stride, row_stride, d, d_store,
+        # page_size, n_pages, max_pages, start, local0, units, owned,
+        # page_stride, page_offset, body (1 int out)
+        "fa_kv_chunk_write": [_I, _I] + [_P] * 8 + [_I, _I, _L, _L] + [_I] * 11 + [_P],
+        # act, kv, k, v, k_pages, v_pages, k_scales, v_scales, tables,
+        # lengths, active, glob, S, T, n_kv, slot_stride, tok_stride,
+        # head_stride, d, d_store, page_size, n_pages, max_pages, page_stride,
+        # page_offset, body (1 int out) (glob nullable)
+        "fa_kv_append": [_I, _I] + [_P] * 10 + [_I] * 3 + [_L] * 3 + [_I] * 7 + [_P],
         # act, kv, q, k_pages, v_pages, k_scales, v_scales, tables, lengths,
         # glob_lengths, o, l, m, S, n_q, n_kv, d, d_store, page_size, n_pages,
         # max_pages, page_stride, page_offset, scale_log2e, window,
@@ -380,33 +384,108 @@ def _rule_args(rule) -> list:
     return [0, 0, 0]
 
 
-def kv_chunk_write(cache, cfg, slot, start, k, v, true_len, trash_page, page_stride=1,
+class _BodyReport(Mapping):
+    """A KV write's ``WALKS`` entry, ``{"body": "vector" or "scalar"}`` of
+    its last launch: the launch writes an int at ``ptr``, which is read only
+    when the entry is."""
+
+    def __init__(self):
+        self._out = ctypes.c_int(-1)
+        self.ptr = ctypes.addressof(self._out)
+
+    def __getitem__(self, key):
+        if key != "body" or self._out.value < 0:
+            raise KeyError(key)
+        return "vector" if self._out.value else "scalar"
+
+    def __iter__(self):
+        return iter(("body",) if self._out.value >= 0 else ())
+
+    def __len__(self):
+        return int(self._out.value >= 0)
+
+
+WALKS.update((k, _BodyReport()) for k in ("kv_chunk_write", "kv_chunk_write[cp]", "kv_append"))
+
+
+def kv_write_body(x: torch.Tensor, y: torch.Tensor, cfg) -> str:
+    """The body ``kv_chunk_write`` and ``kv_append`` run on K and V ``x``,
+    ``y`` (the C rule ``kv_vec``): the vector body at a ``head_dim_store``
+    of 128 or 256 (``head_dim_store / 32`` features a lane) when the head
+    dim is a multiple of that and every source row starts aligned to a
+    lane's load (its features, at most 16 bytes: both bases and every
+    stride); else the scalar body."""
+    D, size = cfg.head_dim_store, x.element_size()
+    vec = D // 32 if D in (128, 256) else 0
+    align = min(16, vec * size)
+    ok = (vec and x.shape[-1] % vec == 0
+          and x.data_ptr() % align == 0 and y.data_ptr() % align == 0
+          and all(st * size % align == 0 for st in x.stride()[:-1]))
+    return "vector" if ok else "scalar"
+
+
+def _check_kv(k, v, cfg, dims: int, head_axis: int) -> None:
+    if k.dim() != dims or k.shape != v.shape or k.stride() != v.stride() or k.stride(-1) != 1:
+        raise ValueError(f"k, v must be {dims}-d views of one shape and strides with unit "
+                         f"feature stride, got {tuple(k.shape)} {k.stride()}, "
+                         f"{tuple(v.shape)} {v.stride()}")
+    if k.shape[head_axis] != cfg.n_kv_heads or k.shape[-1] != cfg.head_dim:
+        raise ValueError(f"k/v shape {tuple(k.shape)} for {cfg.n_kv_heads} kv heads of "
+                         f"{cfg.head_dim}")
+
+
+def kv_chunk_write(cache, cfg, slot, start, k, v, local0, rows, length, page_stride=1,
                    page_offset=0) -> None:
-    """Launch ``kv_chunk_write``: quantize and store k, v (n_kv, chunk, d);
-    with a page stride, only the rows of this shard's pages."""
-    n_kv, chunk, d = k.shape
+    """Launch ``kv_chunk_write``: quantize and store the stored rows of k, v
+    (n_kv, chunk, d; any head and row strides, unit feature stride, the same
+    for both) at the shard's local positions ``local0 .. local0 + pack *
+    rows`` (``kv_cache._owned_rows``), and set the slot's length to
+    ``length``.  ``kv_write_body`` names the body; the launch's own report
+    is in ``WALKS``."""
+    _check_kv(k, v, cfg, 3, 0)
     act, kv = _codes(k.dtype, cache, cfg)
     dims = _cache_dims(cache, cfg)
-    table_row = cache.page_tables[slot]
+    cp = page_stride != 1
+    head_stride, row_stride, _ = k.stride()
     _call("fa_kv_chunk_write", act, kv, k.data_ptr(), v.data_ptr(),
           cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
-          _ptr(cache.k_scales), _ptr(cache.v_scales), table_row.data_ptr(),
-          n_kv, chunk, d, cfg.head_dim_store, *dims, start, true_len, trash_page,
-          page_stride, page_offset, cp=page_stride != 1)
+          _ptr(cache.k_scales), _ptr(cache.v_scales), cache.page_tables.data_ptr(),
+          cache.lengths.data_ptr(), slot, cfg.n_kv_heads, head_stride, row_stride,
+          cfg.head_dim, cfg.head_dim_store, *dims, start, local0, rows, length, page_stride,
+          page_offset, WALKS["kv_chunk_write[cp]" if cp else "kv_chunk_write"].ptr, cp=cp)
 
 
-def kv_append(cache, cfg, k_new, v_new, active, trash_page) -> None:
-    """Launch ``kv_append``: one token row per (slot, kv head)."""
-    S, n_kv, d = k_new.shape
+def kv_append(cache, cfg, k_new, v_new, active, glob=None, page_stride=1,
+              page_offset=0) -> None:
+    """Launch ``kv_append``: the tokens k_new, v_new (S, n_kv, d), or (S, T,
+    n_kv, d) for T of them in order (any slot, token and head strides,
+    unit feature stride, the same for both), of the active slots whose
+    global position ``glob[s] + i`` lies on this shard's pages (every
+    position when ``page_stride`` is 1, where ``glob`` may be None), land at
+    the slot's length and after; the kernel advances the lengths."""
+    if k_new.dim() == 4:
+        _check_kv(k_new, v_new, cfg, 4, 2)
+        S, T = k_new.shape[:2]
+        slot_stride, tok_stride, head_stride, _ = k_new.stride()
+    else:
+        _check_kv(k_new, v_new, cfg, 3, 1)
+        S, T = k_new.shape[0], 1
+        slot_stride, head_stride, _ = k_new.stride()
+        tok_stride = 0
     act, kv = _codes(k_new.dtype, cache, cfg)
     dims = _cache_dims(cache, cfg)
-    if active.dtype != torch.bool or active.shape != (S,):
-        raise ValueError("active must be a bool vector of max_seqs entries")
+    if active.dtype != torch.bool or active.shape != (S,) or not active.is_contiguous():
+        raise ValueError("active must be a contiguous bool vector of max_seqs entries")
+    if page_stride != 1 and (glob is None or glob.dtype != torch.int32 or glob.shape != (S,)
+                             or not glob.is_contiguous()):
+        raise ValueError("a sharded append needs glob, a contiguous int32 vector of "
+                         "max_seqs entries")
     _call("fa_kv_append", act, kv, k_new.data_ptr(), v_new.data_ptr(),
           cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
-          _ptr(cache.k_scales), _ptr(cache.v_scales),
-          cache.page_tables.data_ptr(), cache.lengths.data_ptr(), active.data_ptr(),
-          S, n_kv, d, cfg.head_dim_store, *dims, trash_page)
+          _ptr(cache.k_scales), _ptr(cache.v_scales), cache.page_tables.data_ptr(),
+          cache.lengths.data_ptr(), active.data_ptr(), _ptr(glob), S, T, cfg.n_kv_heads,
+          slot_stride, tok_stride, head_stride, cfg.head_dim, cfg.head_dim_store, *dims,
+          page_stride, page_offset, WALKS["kv_append"].ptr)
 
 
 def _lm(q, rows_shape, returning_l_m) -> tuple:

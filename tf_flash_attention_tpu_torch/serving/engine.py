@@ -268,8 +268,8 @@ class DecodeEngine:
     @torch.no_grad()
     def _spec_step(self, tokens, active, sps: List[SamplingParams]):
         """Speculative step: ``tokens`` (S, gamma) = [last, draft_1..] per
-        slot.  Appends the gamma tokens' K/V one position at a time (an int4
-        byte row holds two positions: the appends stay ordered launches),
+        slot.  Appends the gamma tokens' K/V with one append a layer (per
+        shard: the tokens in order, each on its position's owner shard),
         verifies them with one multi-token decode per layer, and returns the
         greedy token after each position (S, gamma) and, if any slot
         samples, a token sampled from position 0 (S,), else None."""
@@ -284,10 +284,8 @@ class DecodeEngine:
         x = self.model.embed[tokens]                         # (S, gamma, d_model)
         for layer, shards in zip(self.model.layers, self._layer_shards):
             q, k, v = self._qkv(layer, x, cos, sin)
-            # each append goes to the owner shard of its position
-            for i in range(gamma):
-                append_owned(shards, self.ccfg, k[:, i], v[:, i], active, pos0 + i,
-                             self.trash_page)
+            # each token goes to the owner shard of its position
+            append_owned(shards, self.ccfg, k, v, active, pos0, self.trash_page)
             o = decode_merged(q, shards, self.ccfg, glob, rule=cfg.rule)
             x = self._attn_out(layer, x, o.reshape(S, gamma, -1))
             x = self._mlp(layer, x)

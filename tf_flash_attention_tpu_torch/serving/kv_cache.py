@@ -19,16 +19,21 @@ is a mutable holder: the writes below update its page tensors in place
 
 Two writes have CUDA kernels (``csrc/serving_kernels.cu``):
 ``write_tokens_at`` (chunked prefill, kernel ``kv_chunk_write``) and
-``append_tokens_batched`` (decode step, kernel ``kv_append``; for int4 a
-read-modify-write of one nibble).  Each has a plain PyTorch version beside
-it, the JAX package's XLA-scatter specification, which the wrapper takes
-only for tensors on the CPU.  Several padding rows or inactive slots may
-write the reserved trash page at once; its contents are garbage by design,
-and nothing reads it.  Under sequence sharding (``seq_sharded_decode.py``)
-a chunk write with ``page_stride``/``page_offset`` keeps only the rows of
-its shard's pages (the plain version sends the rest to the trash page, the
-kernel skips them), and its length becomes the shard's owned-token count
-(``_owned_token_count``).
+``append_tokens_batched`` (decode step, kernel ``kv_append``: one token a
+slot, or speculation's T in order; for int4 a read-modify-write of a
+nibble where a byte row's other token is not in the launch).  Each has a
+plain PyTorch version beside it, the JAX package's XLA-scatter
+specification, which the wrapper takes only for tensors on the CPU.  The
+kernels read K/V where the projection leaves them (strided views, no
+copy) and set the lengths themselves, so on the card a write is one launch
+and no torch op.  Several padding rows or inactive slots may write the
+reserved trash page at once; its contents are garbage by design, and
+nothing reads it (the kernels skip those rows).  Under sequence sharding
+(``seq_sharded_decode.py``) a chunk write with ``page_stride``/
+``page_offset`` keeps only the rows of its shard's pages
+(``_owned_rows``), and its length becomes the shard's owned-token count
+(``_owned_token_count``); an append with them stores only the tokens whose
+global position (``global_lengths`` + i) is on the shard's pages.
 """
 
 from __future__ import annotations
@@ -254,6 +259,23 @@ def _owned_token_count(total: int, page_size: int, stride: int, offset: int) -> 
     return full * page_size + tail
 
 
+def _owned_rows(cfg: KVCacheConfig, start: int, true_len: int, page_stride: int = 1,
+                page_offset: int = 0) -> tuple:
+    """The stored rows a chunk write at ``start`` keeps on the shard of
+    ``page_stride``/``page_offset``: the chunk's tokens ``[start, start +
+    true_len)`` rounded up to whole stored rows (int4: byte rows of two
+    tokens) on its pages, as ``(local0, rows, length)``.  They are the
+    shard's local positions ``local0 .. local0 + pack * rows - 1``; local
+    position l is global position ``((l // page) * stride + offset) * page
+    + l % page``, and ``length`` is the slot's owned-token count after the
+    write."""
+    ps, pack = cfg.page_size, cfg.tok_pack
+    local0 = _owned_token_count(start, ps, page_stride, page_offset)
+    end = _owned_token_count(start + -(-true_len // pack) * pack, ps, page_stride, page_offset)
+    return (local0, (end - local0) // pack,
+            _owned_token_count(start + true_len, ps, page_stride, page_offset))
+
+
 def _write_tokens_plain(cache, cfg, slot, start, k, v, true_len, trash_page,
                         page_stride=1, page_offset=0):
     chunk = k.shape[1]
@@ -283,13 +305,15 @@ def write_tokens_at(cache: PagedKVCache, cfg: KVCacheConfig, slot: int,
                     page_offset: int = 0) -> PagedKVCache:
     """Write a prompt chunk's K/V at absolute position ``start``, in place.
 
-    ``k, v``: (n_kv_heads, chunk, head_dim).  Rows past ``true_len`` (chunk
+    ``k, v``: (n_kv_heads, chunk, head_dim), for example the transposed
+    (chunk, n_kv_heads, head_dim) projection (the kernel reads any head and
+    row strides; other views are copied).  Rows past ``true_len`` (chunk
     padding) go to the reserved ``trash_page`` (the kernel skips them: its
     contents are garbage either way).  The slot's length becomes
     ``start + true_len``.  An int4 cache needs an even ``start`` and an
     even chunk (whole byte rows).  On a CUDA cache this launches
-    ``kv_chunk_write`` (quantization fused in); on the CPU it runs the
-    plain version.
+    ``kv_chunk_write`` (quantization and the length fused in); on the CPU
+    it runs the plain version.
 
     Sequence sharding: with ``page_stride``/``page_offset`` this cache holds
     every ``page_stride``-th global page starting at ``page_offset`` (global
@@ -307,15 +331,17 @@ def write_tokens_at(cache: PagedKVCache, cfg: KVCacheConfig, slot: int,
     if k.device.type == "cpu":
         _write_tokens_plain(cache, cfg, slot, start, k, v, true_len, trash_page,
                             page_stride, page_offset)
+        cache.lengths[slot] = _owned_token_count(start + true_len, cfg.page_size, page_stride,
+                                                 page_offset)
     elif k.device.type == "cuda":
         _check_device(cache, k, v)
-        k, v = k.contiguous(), v.contiguous()
-        native.kv_chunk_write(cache, cfg, slot, start, k, v, true_len, trash_page,
+        if k.stride() != v.stride() or k.stride(-1) != 1:
+            k, v = k.contiguous(), v.contiguous()
+        native.kv_chunk_write(cache, cfg, slot, start, k, v,
+                              *_owned_rows(cfg, start, true_len, page_stride, page_offset),
                               page_stride, page_offset)
     else:
         raise ValueError(f"unsupported device {k.device}")
-    cache.lengths[slot] = _owned_token_count(start + true_len, cfg.page_size, page_stride,
-                                             page_offset)
     return cache
 
 
@@ -342,28 +368,64 @@ def _append_plain(cache, cfg, k_new, v_new, active, trash_page):
         scales[:, phys, nib, brow] = sc[..., 0]
 
 
+def _owner_mask(active, glob, i, cfg, page_stride, page_offset):
+    """The slots whose token i this shard stores: active, and (sharded) at
+    global position ``glob + i`` on one of its pages (the JAX engine's
+    ``mine = active & (owner == me)``)."""
+    if page_stride == 1:
+        return active
+    return active & ((glob.long() + i) // cfg.page_size % page_stride == page_offset)
+
+
+def _append_tokens_plain(cache, cfg, k_new, v_new, active, trash_page, glob=None,
+                         page_stride=1, page_offset=0):
+    """T tokens a slot, (S, T, n_kv, d), as T ordered appends of one token
+    with their owner masks, each advancing the lengths of the slots it
+    stores (the kernel's specification)."""
+    for i in range(k_new.shape[1]):
+        mine = _owner_mask(active, glob, i, cfg, page_stride, page_offset)
+        _append_plain(cache, cfg, k_new[:, i], v_new[:, i], mine, trash_page)
+        cache.lengths += mine.to(torch.int32)
+
+
 def append_tokens_batched(cache: PagedKVCache, cfg: KVCacheConfig,
                           k_new: torch.Tensor, v_new: torch.Tensor,
-                          active: torch.Tensor, trash_page: int) -> PagedKVCache:
-    """Append one token per slot, in place: ``k_new, v_new`` (max_seqs,
-    n_kv_heads, head_dim) land at (page of ``length``, ``length % page``);
-    inactive slots write the trash page and do not advance.  On a CUDA
-    cache this launches ``kv_append``; on the CPU it runs the plain
-    version.  Two appends to one int4 byte row must be separate calls, in
-    order (each reads the byte the other writes)."""
-    if (k_new.shape != v_new.shape or k_new.shape[1] != cfg.n_kv_heads
-            or k_new.shape[2] != cfg.head_dim):
+                          active: torch.Tensor, trash_page: int,
+                          global_lengths: Optional[torch.Tensor] = None,
+                          page_stride: int = 1, page_offset: int = 0) -> PagedKVCache:
+    """Append tokens, in place: ``k_new, v_new`` (max_seqs, n_kv_heads,
+    head_dim), one token a slot, land at (page of ``length``, ``length %
+    page``); inactive slots write the trash page and do not advance.
+    (max_seqs, T, n_kv_heads, head_dim) appends T tokens a slot in order,
+    as T calls of one token would (speculation's gamma; for int4 the two
+    tokens of a byte row pair up).  Sequence sharding: with
+    ``page_stride``/``page_offset`` this cache stores only the tokens whose
+    global position ``global_lengths[s] + i`` (int32, max_seqs) is on its
+    pages, each at its local length, which advances by the tokens stored.
+    On a CUDA cache this launches ``kv_append`` (the owner test and the
+    lengths in the kernel); on the CPU it runs the plain version."""
+    t_axis = k_new.dim() == 4
+    if (k_new.shape != v_new.shape or k_new.dim() not in (3, 4)
+            or k_new.shape[1 + t_axis] != cfg.n_kv_heads or k_new.shape[-1] != cfg.head_dim):
         raise ValueError(f"k/v shapes {tuple(k_new.shape)}, {tuple(v_new.shape)}")
+    if not 0 <= page_offset < page_stride or (page_stride > 1 and global_lengths is None):
+        raise ValueError(f"a sharded append (offset {page_offset}, stride {page_stride}) "
+                         f"needs global lengths")
     active = active.to(torch.bool)
     if k_new.device.type == "cpu":
-        _append_plain(cache, cfg, k_new, v_new, active, trash_page)
+        if not t_axis:
+            k_new, v_new = k_new[:, None], v_new[:, None]
+        _append_tokens_plain(cache, cfg, k_new, v_new, active, trash_page, global_lengths,
+                             page_stride, page_offset)
     elif k_new.device.type == "cuda":
-        _check_device(cache, k_new, v_new, active)
-        native.kv_append(cache, cfg, k_new.contiguous(), v_new.contiguous(),
-                         active.contiguous(), trash_page)
+        _check_device(cache, k_new, v_new, active,
+                      *(() if global_lengths is None else (global_lengths,)))
+        if k_new.stride() != v_new.stride() or k_new.stride(-1) != 1:
+            k_new, v_new = k_new.contiguous(), v_new.contiguous()
+        native.kv_append(cache, cfg, k_new, v_new, active,
+                         None if page_stride == 1 else global_lengths, page_stride, page_offset)
     else:
         raise ValueError(f"unsupported device {k_new.device}")
-    cache.lengths += active.to(torch.int32)
     return cache
 
 

@@ -16,9 +16,10 @@ card or on the CPU run the same code).  Queries arrive on the first
 device, are copied to each shard's device (no copy when the devices are
 the same), and the partials come back to the first device for the merge.
 The merge is plain PyTorch, as the JAX merge is ``psum``/``pmax``, not a
-kernel.  Appends route to each position's owner shard through the
-``active`` mask of ``append_tokens_batched``; the owner is read from the
-global length, the sum of the shards' local lengths.
+kernel.  Appends route to each position's owner shard: every shard's
+``append_tokens_batched`` takes the global lengths (the sum of the shards'
+local ones) with its page stride and offset and stores only the tokens on
+its own pages (on the card the owner test runs in the kernel).
 """
 
 from __future__ import annotations
@@ -144,18 +145,20 @@ def write_tokens_sharded(caches: List[PagedKVCache], cfg: KVCacheConfig, slot: i
 def append_owned(caches: List[PagedKVCache], cfg: KVCacheConfig, k_new: torch.Tensor,
                  v_new: torch.Tensor, active: torch.Tensor, glob: torch.Tensor,
                  trash_page: int) -> None:
-    """One append per active slot at global position ``glob`` (S,), routed
-    to the position's owner shard; the other shards write their trash page
-    and do not advance.  One shard is the plain append."""
+    """Appends of every active slot from global position ``glob`` (S,)
+    int32 on: ``k_new, v_new`` (S, n_kv, d), one token, or (S, T, n_kv, d),
+    T tokens at ``glob .. glob + T - 1``, each stored by the owner shard of
+    its position; the other shards store nothing and do not advance.  One
+    launch a shard; one shard is the plain append."""
     n = len(caches)
     if n == 1:
         append_tokens_batched(caches[0], cfg, k_new, v_new, active, trash_page)
         return
-    owner = (glob.long() // cfg.page_size) % n
     for r, cache in enumerate(caches):
         dev = cache.k_pages.device
-        mine = (active.to(torch.bool) & (owner == r)).to(dev)
-        append_tokens_batched(cache, cfg, k_new.to(dev), v_new.to(dev), mine, trash_page)
+        append_tokens_batched(cache, cfg, k_new.to(dev), v_new.to(dev), active.to(dev),
+                              trash_page, global_lengths=glob.to(dev), page_stride=n,
+                              page_offset=r)
 
 
 def _check_shards(caches, n):

@@ -10,8 +10,9 @@ Phases (any failure exits non-zero before the final line):
      per source, all at once; prints each source's seconds and ptxas's
      registers, spills and serialized wgmma of the experiment forwards, the
      tensor-core backwards (kv-outer and q-outer, each also in the split
-     pair's form), prefill and decode, and any kernel that spills (a spill
-     of the tensor-core decode body fails);
+     pair's form), the banded walks of the tensor-core forward (banded_fwd
+     and window_fwd), prefill and decode, and any kernel that spills (a spill of the tensor-core decode
+     body fails);
   2. kernels: each of the four serving kernels against its plain PyTorch
      version on the card, at the serving slice's shapes (int8 cache, 8 kv
      heads, d 128, page 256, chunk 512, 16 slots), plus a GQA (8 q / 2 kv)
@@ -95,8 +96,13 @@ Phases (any failure exits non-zero before the final line):
      causal (banded); (b) the same with FA_FUSED_BWD=0 (the split pair);
      (c) GQA 8 q / 2 kv heads through mha; (d) fp32 local_1d (window 5,
      stride 2, causal, scale_front) with q != k lengths (window); (e) fp16
-     local_2d (scale_end) with d != v_d; (f) the slice with the band routes
-     switched off (the table kernels); (g) the slice with FA_RESIDENT=1;
+     local_2d (scale_end) with d != v_d (window forward); (o), (p) the
+     JAX package's window sweep (tools/exp_window_sweep.py, bf16, B 8,
+     D 128): local_1d at 8,192 tokens, a causal window of 512, and local_2d
+     on a 64 x 64 image, a causal window of 8 (window forward and backward,
+     both on the tensor-core bodies; each window launch of (e), (o) and
+     (p), as that case's own run records it, must report that body); (f)
+     the slice with the band routes switched off (the table kernels); (g) the slice with FA_RESIDENT=1;
      (i) d = v_d = 384, (16, 1024) bf16 causal (the tensor-core forward's
      widest class below 512, the backward's third tile class); (j), (k)
      fp16 causal at (16, 1024, 128), banded and table; (l) bf16 causal at
@@ -127,7 +133,15 @@ Phases (any failure exits non-zero before the final line):
      the library's forward + backward and its factor), banded_bwd once
      more without dQ (what dQ's product and its reduction into the float32
      accumulator cost), and the accumulator's zero fill and scale-and-cast
-     passes;
+     passes; the window kernels at case (d)'s float32 shape (the scalar
+     bodies), and at (o) and (p)'s shapes each binding alone: against its
+     plain version, two launches' dK and dV bit-equal, on the tensor-core
+     body as the launch reports it, timed by events and kernel_ms
+     (torch.profiler) beside its bound, plain version, one
+     scaled_dot_product_attention with the dense boolean mask (forward +
+     backward for the backward) and the route FA_WINDOW=0 / FA_WINDOW_BWD=0
+     takes at the same shape (local1d_w512's numbers head the kernels
+     line; each shape's under "shapes");
   6. training at full width: the same 168M decoder (fp32 parameters, bf16
      compute) takes 5 AdamW steps on one seeded batch of 8 x 2048 tokens;
      the first step's loss and gradient norm must match the plain path on
@@ -175,6 +189,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -654,17 +669,27 @@ def gathered_kv(cache, cfg, slot, total):
     return out
 
 
+def banded_tc_fwd(name):
+    """Whether a kernel (demangled, or mangled where no cu++filt is at
+    hand) is the banded walk of the tensor-core forward, WALK kBanded (1):
+    the body of banded_fwd and window_fwd."""
+    return re.search(r"fwd_tc_kernel(<[^,>]+, (\(int\))?1,|I(13__nv_bfloat16|6__half)Li1E)",
+                     name) is not None
+
+
 def build_report(native):
     """Each source's nvcc seconds and ptxas's report: every kernel of the
     experiment forwards, the tensor-core backwards (kv-outer and q-outer,
-    with and without the split pair's halves), prefill and decode, and any
-    other that spills or whose wgmma ptxas serializes."""
+    with and without the split pair's halves), the banded walks of the
+    tensor-core forward (banded_fwd and window_fwd), prefill and decode, and any other that spills or
+    whose wgmma ptxas serializes."""
     for src, log in sorted(native.BUILD_LOG.items(), key=lambda kv: -kv[1]["seconds"]):
         kernels = native.ptxas_summary(src)
         print(f"build {src}: {log['seconds']:.3f} s, {len(kernels)} kernels, at most "
               f"{max((k['registers'] for k in kernels), default=0)} registers", flush=True)
         for k in kernels:
             if (src == "exp_forward_kernels.cu" or k["spill_stores"] or k["warnings"]
+                    or banded_tc_fwd(k["name"])
                     or any(b in k["name"] for b in ("qouter_tc", "bwd_tc_kernel", "prefill_tc",
                                                     "decode_tc"))):
                 print(f"  ptxas {k['name']}: {k['registers']} registers, spill stores "
@@ -884,7 +909,7 @@ def main():
                                       "ms_without_dq", "grid", "items", "group_rows",
                                       "kernel_ms", "gqa", "pair", "entry_ms",
                                       "kernel_ms_gamma4", "bound_ms_gamma4",
-                                      "library_payload") if x in m}}
+                                      "library_payload", "shapes") if x in m}}
         if k in native.SERVING_KERNELS:
             entry["payloads_held"] = [pl for pl, c in cases.items() if k in c]
             entry["ms_by_payload"] = {pl: c[k]["ms"] for pl, c in cases.items() if k in c}
@@ -1576,8 +1601,9 @@ def compare(label, names, got, want, dtypes):
 def drive(fn, inputs, cotangent, env=None):
     """Outputs and input gradients of a public function under the route
     switches ``env``: kernels, then the plain path.  Returns (kernel_outs,
-    plain_outs, launches), each outs list outputs + grads; launches counts
-    the kernels' run only."""
+    plain_outs, launches, bodies), each outs list outputs + grads; launches
+    counts the kernels' run only, bodies the body each kernel of that run
+    that reports one (``native.WALKS``) ran at its last launch there."""
     from tf_flash_attention_tpu_torch import native
     env = env or {}
     res = []
@@ -1595,8 +1621,10 @@ def drive(fn, inputs, cotangent, env=None):
             if kernels:
                 torch.cuda.synchronize()
                 launches = {k: v for k, v in native.LAUNCHES.items() if v}
+                bodies = {k: native.WALKS[k]["body"] for k in launches
+                          if "body" in native.WALKS.get(k, {})}
     torch.cuda.synchronize()
-    return res[0], res[1], launches
+    return res[0], res[1], launches, bodies
 
 
 def op_phase(dev):
@@ -1620,10 +1648,10 @@ def op_phase(dev):
     BH, S, d = 64, 2048, 128
     q, k, v, do = (randn((BH, S, d), bf) for _ in range(4))
     causal = lambda Q, K, V: api.causal_1d(Q, K, V, sync_mode="none_front", returning_l_m=True)
-    err, per_case = {}, {}
+    err, per_case, case_bodies = {}, {}, {}
 
     def case(label, fn, inputs, cotangent, types, env=None):
-        got, want, launches = drive(fn, inputs, cotangent, env)
+        got, want, launches, case_bodies[label] = drive(fn, inputs, cotangent, env)
         per_case[label] = launches
         n_out = len(got) - 3
         names = ("o", "l", "m")[:n_out] + ("dq", "dk", "dv")
@@ -1664,6 +1692,28 @@ def op_phase(dev):
     case("(e) local_2d f16", lambda Q, K, V: api.local_2d(Q, K, V, 7, 0, False, "scale_end",
                                                           returning_l_m=True),
          (Q, K, V), randn((2, 4, 96, 32, 48), h), (h, f32, h, h, h, h))
+    # (o), (p) the window sweep's bf16 shapes (tools/exp_window_sweep.py:33-50,
+    # B 8, D 128): 8,192 tokens at a causal window of 512, and a 64 x 64
+    # image at a causal 2-d window of 8, on the tensor-core window walks
+    win_types = (bf, f32, bf, bf, bf, bf)
+    Qo, Ko, Vo, dOo = (randn((8, 128, 8192), bf) for _ in range(4))
+    case("(o) local_1d bf16 w512", lambda Q, K, V: api.local_1d(Q, K, V, 512, 0, True,
+                                                                 "none_front", returning_l_m=True),
+         (Qo, Ko, Vo), dOo, win_types)
+    Qp, Kp, Vp, dOp = (randn((8, 128, 64, 64), bf) for _ in range(4))
+    case("(p) local_2d bf16 w8", lambda Q, K, V: api.local_2d(Q, K, V, 8, 0, True, "none_front",
+                                                               returning_l_m=True),
+         (Qp, Kp, Vp), dOp, win_types)
+    for label in ("(e) local_2d f16", "(o) local_1d bf16 w512", "(p) local_2d bf16 w8"):
+        if not per_case[label].get("window_fwd"):
+            fail(f"{label}: window_fwd did not launch: {per_case[label]}")
+        if case_bodies[label].get("window_fwd") != "tensor-core":
+            fail(f"{label}: window_fwd ran the {case_bodies[label].get('window_fwd')} body")
+    for label in ("(o) local_1d bf16 w512", "(p) local_2d bf16 w8"):
+        if not per_case[label].get("window_bwd"):
+            fail(f"{label}: window_bwd did not launch: {per_case[label]}")
+        if case_bodies[label].get("window_bwd") != "tensor-core":
+            fail(f"{label}: window_bwd ran the {case_bodies[label].get('window_bwd')} body")
     # (f) the slice with the band routes switched off: the table kernels
     case("(f) causal bf16 table", causal, (cf(q), cf(k), cf(v)), cf(do), slice_types,
          TABLE_ONLY)
@@ -1965,36 +2015,161 @@ def op_phase(dev):
     od, ld, md = forward.flash_forward(qd, kd, vd, pack=pack_d, rule=local_rule, config=cfg_d)
     lse2_d, delta_d = backward.backward_stats(od, ld, md, dod)
     area2_d = matmul_flops_forward(local_rule, "scale_front", (1500,), (2000,), 64, 64, 4) / 128
-    (starts_q,), (starts_k,) = fw.tables(pack_d, local_rule, dev), bw.tables(pack_d, local_rule,
-                                                                            dev)
+    tabs_q, tabs_k = fw.tables(pack_d, local_rule, dev), bw.tables(pack_d, local_rule, dev)
     mask_d = torch.from_numpy(build_mask(pack_d, local_rule).reshape(1500, 2000).copy()).to(dev)
     pairs_d = 4 * int(mask_d.sum())
     qd4, kd4, vd4, dod4 = (x.unsqueeze(0) for x in (qd, kd, vd, dod))
     q_bytes, k_bytes, stats_d = qd.numel() * 4, kd.numel() * 4, 4 * 1500 * 4
     window = {
-        "window_fwd": (lambda: native.window_fwd(qd_s, kd, vd, rc_d, starts_q, fw.band, fw.sub,
+        "window_fwd": (lambda: native.window_fwd(qd_s, kd, vd, rc_d, *tabs_q, fw.band, fw.sub,
                                                  fw.masked),
                        lambda: forward._flash_forward_plain(qd_s, kd, vd, pack_d, local_rule),
                        2, 2 * q_bytes + 2 * k_bytes + 2 * stats_d,
                        sdpa(qd4, kd4, vd4, attn_mask=mask_d)),
         "window_bwd": (lambda: native.window_bwd(qd_s, kd, vd, dod, lse2_d, delta_d, rc_d,
-                                                 starts_k, bw.band, bw.sub,
+                                                 *tabs_k, bw.band, bw.sub,
                                                  1.0 / math.log2(math.e)),
                        lambda: backward._flash_backward_plain(qd, kd, vd, dod, lse2_d, delta_d,
                                                               pack_d, local_rule, scale_d, "kv"),
                        5, 3 * q_bytes + 4 * k_bytes + 2 * stats_d,
                        sdpa(qd4, kd4, vd4, dod4, attn_mask=mask_d)),
     }
+    case_d = {}
     for kn, (kern, plain, products, n_bytes, lib) in window.items():
         ms, plain_ms, lib_ms = time_ms(kern, n=10), time_ms(plain, n=5), time_ms(lib, n=10)
+        body = native.WALKS[kn]["body"]
         b_ms, b_by = bound(n_bytes, products * 2 * pairs_d * 64, "f32")
-        times[kn] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                         bound_by=b_by)
+        case_d[kn] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                          bound_by=b_by, body=body)
         print(f"kernel {kn} (case d, band {fw.band if kn == 'window_fwd' else bw.band}): "
-              f"ms={ms} plain_ms={plain_ms} library_ms={lib_ms} bound_ms={b_ms} ({b_by}) "
-              f"useful TFLOP/s (128-tile schedule)={products * area2_d * 64 / ms / 1e9:.3f}",
-              flush=True)
+              f"body={body} ms={ms} plain_ms={plain_ms} library_ms={lib_ms} bound_ms={b_ms} "
+              f"({b_by}) useful TFLOP/s (128-tile schedule)="
+              f"{products * area2_d * 64 / ms / 1e9:.3f}", flush=True)
+    # the window kernels at the sweep's bf16 shapes, (o) and (p): the main
+    # numbers of their rows are local1d_w512's
+    shapes = {"local1d_w512": window_shape(dev, err, "local1d_w512", Qo, Ko, Vo, dOo),
+              "local2d_w8": window_shape(dev, err, "local2d_w8", Qp, Kp, Vp, dOp)}
+    for kn in window:
+        times[kn] = dict(shapes["local1d_w512"][kn], shapes={
+            "local1d_w512": shapes["local1d_w512"][kn], "local2d_w8": shapes["local2d_w8"][kn],
+            "case_d_f32": case_d[kn]})
     return {kn: dict(times[kn], err=err[kn]) for kn in native.ATTENTION_KERNELS}, op_launches
+
+
+#: (rule arguments, sequence shape) of the window sweep's shapes
+WINDOW_SHAPES = {"local1d_w512": ((512, 0, True), (8192,)), "local2d_w8": ((8, 0, True), (64, 64))}
+#: each op kernel's CUDA kernels by body, as the profiler lists them
+OP_KERNEL_NAMES = {"fwd": {"tensor-core": ("fwd_tc_kernel",),
+                           "scalar": ("window_fwd_kernel", "flash_fwd_kernel")},
+                   "bwd": {"tensor-core": ("bwd_tc_kernel",), "scalar": ("flash_bwd_kv_kernel",)}}
+
+
+def window_shape(dev, err, shape, Q, K, V, dO):
+    """The window kernels at one of the sweep's bf16 shapes (channel-first
+    Q, K, V, dO of the op case that drove them): each binding against its
+    plain version (op_tol; dK and dV of two launches bit-equal), on the body
+    fwd_body / bwd_body names as its launch reports it, then its CUDA-event
+    ms, kernel_ms, plain_ms, library_ms (scaled_dot_product_attention with
+    the dense boolean mask; forward + backward for the backward), bound
+    (the forward's bytes: q, k, v, o and the stats; the backward's: q, k, v,
+    dO, the stats, dK, dV and the float32 dQ accumulator written once;
+    the products over the visible pairs) and the route FA_WINDOW=0 /
+    FA_WINDOW_BWD=0 takes at the same shape, timed the same way.  Returns
+    {kernel: numbers}."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.block_sizes import choose_block_config
+    from tf_flash_attention_tpu_torch.mask_rules import LocalRule
+    from tf_flash_attention_tpu_torch.ops import backward, forward
+    from tf_flash_attention_tpu_torch.ops.reference import build_mask
+    from tf_flash_attention_tpu_torch.sync_modes import make_sync_pack
+
+    bf = torch.bfloat16
+    (window, stride, causal), seq = WINDOW_SHAPES[shape]
+    rule, pack = LocalRule(window, stride, causal), make_sync_pack("none_front", seq, seq)
+    B, D, S = Q.shape[0], Q.shape[1], math.prod(seq)
+    sm = lambda x: x.reshape(B, D, S).transpose(1, 2).contiguous()   # sequence-major
+    q, k, v, do = (sm(x) for x in (Q, K, V, dO))
+    cfg, scale = choose_block_config(D, D), D ** -0.5
+    routes = {}
+    for env_name, env in (("window", {}), ("off", {"FA_WINDOW": "0", "FA_WINDOW_BWD": "0"})):
+        with switches(env):
+            routes[env_name] = (forward.forward_route(pack, rule, cfg, D, D),
+                                backward.backward_route(pack, rule, cfg, 1, "kv")[0])
+    fw, bw = routes["window"]
+    if (fw.kernel, bw.kernel) != ("window_fwd", "window_bwd"):
+        fail(f"{shape}: routes to {fw.kernel}, {bw.kernel}, not the window kernels")
+    q_s, rule_c = forward.prescale(q, scale), native.fa_rule(pack, rule, dev)
+    o, l, m = forward.flash_forward(q, k, v, pack=pack, rule=rule, config=cfg)
+    lse2, delta = backward.backward_stats(o, l, m, do)
+    dk_scale = 1.0 / math.log2(math.e)
+
+    def bind(route):
+        tabs = route.tables(pack, rule, dev)
+        if route.kernel == "window_fwd":
+            return lambda: native.window_fwd(q_s, k, v, rule_c, *tabs, route.band, route.sub,
+                                             route.masked)
+        if route.kernel == "window_bwd":
+            return lambda: native.window_bwd(q_s, k, v, do, lse2, delta, rule_c, *tabs,
+                                             route.band, route.sub, dk_scale)
+        if route.kernel == "banded_fwd":
+            return lambda: native.banded_fwd(q_s, k, v, rule_c, tabs[0], route.block_q,
+                                             route.block_kv)
+        if route.kernel == "banded_bwd":
+            return lambda: native.banded_bwd(q_s, k, v, do, lse2, delta, rule_c, tabs[0],
+                                             route.block_q, route.block_kv, dk_scale)
+        fail(f"{shape}: the FA_WINDOW=0 route is {route.kernel}, which this phase does not time")
+
+    mask = torch.from_numpy(build_mask(pack, rule).reshape(S, S).copy()).to(dev)
+    pairs = B * int(mask.sum())
+    q4, k4, v4, do4 = (x.unsqueeze(0) for x in (q, k, v, do))
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+    def lib_fwd_bwd():
+        xs = [x.detach().requires_grad_() for x in (q4, k4, v4)]
+        torch.autograd.grad(F.scaled_dot_product_attention(*xs, attn_mask=mask), xs, do4)
+
+    tensor, stats = q.numel() * q.element_size(), 2 * B * S * 4
+    plain_fwd = lambda: forward._flash_forward_plain(q_s, k, v, pack, rule)
+    plain_bwd = lambda: backward._flash_backward_plain(q, k, v, do, lse2, delta, pack, rule,
+                                                       scale, True)
+    out = {}
+    for kn, alt, plain, lib, products, n_bytes, side in (
+            ("window_fwd", routes["off"][0], plain_fwd, lib_fwd, 2, 4 * tensor + stats, "fwd"),
+            ("window_bwd", routes["off"][1], plain_bwd, lib_fwd_bwd, 5,
+             6 * tensor + stats + 2 * tensor, "bwd")):
+        kern = bind(fw if kn == "window_fwd" else bw)
+        runs = [kern(), kern()]
+        want = plain()
+        torch.cuda.synchronize()
+        if kn == "window_fwd":
+            names, types, got = ("o", "l", "m"), (bf, torch.float32, torch.float32), runs[0]
+        else:
+            names, types = ("dq", "dk", "dv"), (bf, bf, bf)
+            got = ((runs[0][0] * scale).to(bf),) + runs[0][1:]
+            if not (torch.equal(runs[0][1], runs[1][1]) and torch.equal(runs[0][2], runs[1][2])):
+                fail(f"{kn} ({shape}): dK or dV of two launches differ")
+        e = compare(f"{kn} ({shape})", names, got, want, types)
+        err[kn] = max(err.get(kn, 0.0), e)
+        body = native.WALKS[kn]["body"]
+        want_body = native.fwd_body(bf, D, D) if side == "fwd" else native.bwd_body(bf, D, D)
+        if body != want_body or body != "tensor-core":
+            fail(f"{kn} ({shape}): the launch ran the {body} body, the rule names {want_body}")
+        b_ms, b_by = bound(n_bytes, products * 2 * pairs * D, "bf16")
+        alt_fn = bind(alt)
+        m_ = dict(ms=time_ms(kern, n=10), kernel_ms=kernel_ms(kern, OP_KERNEL_NAMES[side][body]),
+                  plain_ms=time_ms(plain, n=5), library_ms=time_ms(lib, n=10), bound_ms=b_ms,
+                  bound_by=b_by, body=body, max_abs_err=e, band=(fw if side == "fwd" else bw).band,
+                  window_off=dict(kernel=alt.kernel, body=want_body, ms=time_ms(alt_fn, n=10),
+                                  kernel_ms=kernel_ms(alt_fn, OP_KERNEL_NAMES[side][want_body])))
+        out[kn] = m_
+        print(f"kernel {kn} ({shape} bf16, B {B}, D {D}, band {m_['band']}): body={body} "
+              f"ms={m_['ms']} kernel_ms={m_['kernel_ms']} plain_ms={m_['plain_ms']} "
+              f"library_ms={m_['library_ms']} bound_ms={b_ms} ({b_by}); FA_WINDOW=0 route "
+              f"{alt.kernel} ({want_body}) ms={m_['window_off']['ms']} kernel_ms="
+              f"{m_['window_off']['kernel_ms']}; max_abs_err {e}", flush=True)
+    return out
 
 
 def train_phase(mcfg, cpu_model, dev, seed):

@@ -553,6 +553,10 @@ ROUTE_CASES = {
     "custom_gqa4": (_JaxChecker(), "none_front", (512,), (512,), 4, {}),
     "custom_switches_off": (_JaxChecker(), "none_front", (512,), (512,), 1,
                             {v: "0" for v in _SWITCHES}),
+    # the window sweep's two shapes (tools/exp_window_sweep.py), cut to size:
+    # the window kernels' measured shapes keep their route
+    "local2d_w8_32x32": (fa.LocalRule(8, 0, True), "none_front", (32, 32), (32, 32), 1, {}),
+    "local1d_w512_2048": (fa.LocalRule(512, 0, True), "none_front", (2048,), (2048,), 1, {}),
 }
 
 

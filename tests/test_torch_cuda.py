@@ -942,6 +942,68 @@ def test_tc_backward_matches_plain(dev, monkeypatch, case, dtype, routes):
         assert float(got[0][:, 0].float().abs().max()) == 0.0
 
 
+# ---- the window walks of the tensor-core bodies (window_fwd, window_bwd) ----
+
+# (rule, sync, q_seq, k_seq, d, v_d, b_kv, g): the JAX package's window
+# sweep's two shapes cut to size (a 32 x 32 image at window 8, 2,048 tokens
+# at window 512), GQA 8 q / 2 kv heads, a band with no masked element (the
+# forward's masked=False walk), ragged q_len and k_len, and chip_smoke.py
+# phase 5 case (e)'s fp16 d 64 / v_d 96 (a window forward, a banded
+# backward)
+WINDOW_TC_CASES = {
+    "local2d_w8": (LocalRule(8, 0, True), "none_front", (32, 32), (32, 32), 128, 128, 2, 1),
+    "local1d_w512": (LocalRule(512, 0, True), "none_front", (2048,), (2048,), 128, 128, 2, 1),
+    "gqa_8_2": (LocalRule(64, 0, True), "none_front", (640,), (640,), 128, 128, 2, 4),
+    "unmasked": (LocalRule(1000, 0, False), "none_front", (512,), (512,), 128, 128, 2, 1),
+    "ragged": (LocalRule(64, 0, True), "scale_end", (300,), (520,), 128, 128, 2, 1),
+    "case_e": (LocalRule(7, 0, False), "scale_end", (32, 48), (48, 32), 64, 96, 2, 1),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=["bf16", "f16", "f32"])
+@pytest.mark.parametrize("case", list(WINDOW_TC_CASES))
+def test_window_tc_matches_plain(dev, case, dtype):
+    """window_fwd and window_bwd through the op path against their plain
+    versions within 2 ulps of the output type at each tensor's scale (l and
+    m 2e-5 at theirs), each launch reporting the body fwd_body / bwd_body
+    names (bf16 and fp16: the tensor-core walks; float32: the scalar
+    bodies); two backward launches give bit-equal dK and dV (dQ's
+    reduce-add may vary in its last bits)."""
+    rule, sync, q_seq, k_seq, d, v_d, b_kv, g = WINDOW_TC_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(d + 5 * g)
+    pack = make_sync_pack(sync, q_seq, k_seq)
+    q_len, k_len = int(np.prod(q_seq)), int(np.prod(k_seq))
+    t = lambda *shape: (torch.rand(shape, generator=gen, device=dev) * 4 - 2).to(dtype)
+    q, k, v = t(b_kv * g, q_len, d), t(b_kv, k_len, d), t(b_kv, k_len, v_d)
+    do = t(b_kv * g, q_len, v_d)
+    fw = forward.forward_route(pack, rule, BLOCKS, d, v_d)
+    (bw,) = backward.backward_route(pack, rule, BLOCKS, g, "kv")
+    assert fw.kernel == "window_fwd" and fw.masked == (case != "unmasked")
+    assert bw.kernel == ("banded_bwd" if case == "case_e" else "window_bwd")
+    native.reset_launch_counts()
+    o, l, m = forward.flash_forward(q, k, v, pack=pack, rule=rule, config=BLOCKS)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["window_fwd"] == 1
+    want_fwd = "tensor-core" if dtype != torch.float32 else "scalar"
+    assert native.WALKS["window_fwd"]["body"] == native.fwd_body(dtype, d, v_d) == want_fwd
+    o2, l2, m2 = forward._flash_forward_plain(forward.prescale(q, d ** -0.5), k, v, pack, rule)
+    _close("o", o, o2, dtype)
+    _close("l", l, l2, torch.float32)
+    _close("m", m, m2, torch.float32)
+    runs = [backward.flash_backward(q, k, v, o, l, m, do, pack=pack, rule=rule, config=BLOCKS,
+                                    fused="kv") for _ in range(2)]
+    torch.cuda.synchronize()
+    if bw.kernel == "window_bwd":
+        assert native.LAUNCHES["window_bwd"] == 2
+        assert native.WALKS["window_bwd"]["body"] == native.bwd_body(dtype, d, v_d) == want_fwd
+    lse2, delta = backward.backward_stats(o, l, m, do)
+    want = backward._flash_backward_plain(q, k, v, do, lse2, delta, pack, rule, d ** -0.5, True)
+    for name, a, b in zip(("dq", "dk", "dv"), runs[0], want):
+        _close(name, a, b, dtype)
+    assert torch.equal(runs[0][1], runs[1][1]) and torch.equal(runs[0][2], runs[1][2])
+
+
 # ---- the experiment tools' kernels (experiments/) against their plain versions ----
 
 def _exp_tol(ref, ulps=2):

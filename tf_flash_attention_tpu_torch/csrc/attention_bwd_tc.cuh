@@ -1,11 +1,12 @@
 // The tensor-core backward of the op path for Hopper (sm_90a): the tile body
 // of fa_flash_bwd_fused (kTable, <- ops/backward.py::_fused_kernel),
-// fa_banded_bwd (kBanded, <- ops/backward.py::_fused_banded_kernel) and,
-// compiled without dQ, of the split pair's fa_flash_bwd_dkv (kTable, <-
-// ops/backward.py::_dkv_kernel) on bf16 and fp16 inputs with max(d, v_d) <=
-// 128.  Included by attention_kernels.cu and band_kernels.cu; float32
-// inputs, wider heads and the window walk stay on the scalar body of
-// attention_common.cuh.
+// fa_banded_bwd (kBanded, <- ops/backward.py::_fused_banded_kernel),
+// fa_window_bwd (kBanded over its bands' segments, <- ops/backward.py::
+// _fused_window_kernel) and, compiled without dQ, of the split pair's
+// fa_flash_bwd_dkv (kTable, <- ops/backward.py::_dkv_kernel) on bf16 and
+// fp16 inputs with max(d, v_d) <= 128.  Included by attention_kernels.cu
+// and band_kernels.cu; float32 inputs and wider heads stay on the scalar
+// body of attention_common.cuh.
 //
 // What bounds the backward on this card is the tensor cores' rate (989
 // TFLOP/s bf16): five products of 2 d flops per visible (query, key) pair

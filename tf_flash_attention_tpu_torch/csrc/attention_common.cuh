@@ -43,7 +43,9 @@
 //             the predicate, the masked prefix and suffix on the other;
 //   kWindow - one lane-aligned band [starts[row / sub], + band) of the
 //             other sequence per sub-block (schedule.window_band_table*),
-//             every tile masked.
+//             every tile masked (the scalar bodies; the tensor-core bodies
+//             walk a window as kBanded, over four ints a 128-row tile from
+//             the host: ops/forward.py::window_segments).
 //   kResident - the banded walk for every query tile of a row, in one CTA
 //               (the tensor-core body: persistent CTAs over the rows' tiles
 //               in row order).

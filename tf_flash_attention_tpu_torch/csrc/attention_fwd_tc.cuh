@@ -1,6 +1,8 @@
 // The tensor-core forward of the op path for Hopper (sm_90a): the tile body
 // of fa_flash_fwd (kTable, <- ops/forward.py::_fwd_kernel), fa_banded_fwd
-// (kBanded, <- ops/forward_banded.py::_banded_kernel) and fa_resident_fwd
+// (kBanded, <- ops/forward_banded.py::_banded_kernel), fa_window_fwd
+// (kBanded over its bands' segments, <- ops/forward_banded.py::
+// _window_kernel) and fa_resident_fwd
 // (kResident, <- ops/forward_banded.py::_resident_kernel) on bf16 and fp16
 // inputs at d <= 512, and of the experiment tools' forwards: fa_exp_resident_fwd
 // (kResident with the tool's bf16 merge, <- tools/exp_resident.py::
@@ -690,10 +692,20 @@ int fwd_tc(const AttnArgs& a, cudaStream_t stream, int* walk = nullptr) {
 constexpr int kTcMaxD = 512;
 
 // The body of a forward (native.fwd_body): bf16 and fp16 at d <= kTcMaxD on
-// the tensor cores, float32 and wider heads on the scalar body.
+// the tensor cores, float32 and wider heads on the scalar body (the window
+// forward's too: window_fwd_any in band_kernels.cu).
 template <typename T>
 bool fwd_on_tc(const AttnArgs& a) {
   return !std::is_same<T, float>::value && a.d <= kTcMaxD;
+}
+
+// the tensor-core forward's class by d and v_d: 128-key stages with 128
+// output columns, 64-key stages with 256, 32-key stages with 256
+template <typename T, int WALK>
+int fwd_tc_any(const AttnArgs& a, cudaStream_t s, int* walk = nullptr) {
+  if (a.d <= 128 && a.v_d <= 128) return tc::fwd_tc<T, WALK, 128, 128>(a, s, walk);
+  if (a.d <= 256) return tc::fwd_tc<T, WALK, 64, 256>(a, s, walk);
+  return tc::fwd_tc<T, WALK, 32, 256>(a, s, walk);
 }
 
 // the forward of kTable, kBanded and kResident on its body (the
@@ -705,11 +717,7 @@ bool fwd_on_tc(const AttnArgs& a) {
 template <typename T, int WALK>
 int fwd_any(const AttnArgs& a, cudaStream_t s, int* walk = nullptr) {
   if constexpr (!std::is_same<T, float>::value) {
-    if (fwd_on_tc<T>(a)) {
-      if (a.d <= 128 && a.v_d <= 128) return tc::fwd_tc<T, WALK, 128, 128>(a, s, walk);
-      if (a.d <= 256) return tc::fwd_tc<T, WALK, 64, 256>(a, s, walk);
-      return tc::fwd_tc<T, WALK, 32, 256>(a, s, walk);
-    }
+    if (fwd_on_tc<T>(a)) return fwd_tc_any<T, WALK>(a, s, walk);
   }
   if (walk) {
     const int cls = dim_class(a);

@@ -6,8 +6,12 @@
 //   fa_banded_bwd  <- ops/backward.py::_fused_banded_kernel (fused backward, one band per kv
 //                     block; bf16 and fp16 at max(d, v_d) <= 128 on the tensor-core body of
 //                     attention_bwd_tc.cuh)
-//   fa_window_fwd  <- ops/forward_banded.py::_window_kernel (closed-form single-window forward)
-//   fa_window_bwd  <- ops/backward.py::_fused_window_kernel (fused backward over one q band)
+//   fa_window_fwd  <- ops/forward_banded.py::_window_kernel (single-window forward; bf16 and
+//                     fp16 at d <= 512 on the tensor-core body of attention_fwd_tc.cuh,
+//                     float32 and wider heads on the closed-form scalar body below)
+//   fa_window_bwd  <- ops/backward.py::_fused_window_kernel (fused backward over one q band;
+//                     bf16 and fp16 at max(d, v_d) <= 128 on the tensor-core body of
+//                     attention_bwd_tc.cuh)
 //   fa_resident_fwd <- ops/forward_banded.py::_resident_kernel (the banded walk; bf16 and fp16
 //                     on the tensor-core body of attention_fwd_tc.cuh, persistent CTAs walking
 //                     the rows in order; float32 on the scalar body, a CTA per row)
@@ -22,10 +26,29 @@
 // and run the band's interior on the body compiled without the rule
 // predicate; the window kernels visit one lane-aligned band per
 // sub-block; the resident forward walks the rows in order, so few rows'
-// K/V are live in L2 at once (attention_fwd_tc.cuh).  The window forward
-// keeps the TPU kernel's closed form: the whole band's scores sit in
-// shared memory, so there is no online rescaling; that bounds the band
-// width (window_fwd_smem below; native.py routes wider bands elsewhere).
+// K/V are live in L2 at once (attention_fwd_tc.cuh).
+//
+// The window kernels.  What bounds them on this card is the tensor cores'
+// rate over the band's scheduled pairs (a 128-row tile's live blocks of
+// 128, masked elements included: 40.6M pairs for 32.5M visible at B 8, an
+// 8192-token window of 512): the bytes are one read of q, k, v (dO) a band.
+// On bf16 and fp16 each kernel is the banded walk (kBanded) of the
+// tensor-core bodies over blocks of 128, the host's four ints a 128-row
+// tile ([start, i0, i1, end): the live blocks of the sub-block's band and
+// their interior, from the 128 x 128 fine schedule,
+// ops/forward.py::window_segments): the forward's 128-row items walk their
+// key band in stages of 128, 64 or 32 keys through the TMA ring with the
+// online softmax in registers; the backward's 128 kv rows walk their query
+// band in 64-row stages, dQ by TMA reduce-add; the interior's stages run
+// the body compiled without the predicate.  The TPU
+// kernel's closed form (the whole band's scores at once, no merge chain)
+// was the remedy for the TPU's per-step merge cost; here a merge is a
+// rescale of registers, and a band-wide score tile in shared memory is
+// what bounded the band.  float32 (TF32 would not hold the float32 limit)
+// and wider heads keep the scalar bodies: the forward below in the TPU
+// kernel's closed form, the whole band's scores in shared memory (that
+// bounds the band width: window_fwd_smem; native.py routes wider bands
+// elsewhere), and the kv-outer scalar backward with every tile masked.
 
 #include "attention_bwd_tc.cuh"
 #include "attention_common.cuh"
@@ -131,12 +154,55 @@ int window_fwd(const AttnArgs& a, cudaStream_t stream) {
 }
 
 template <typename T, bool MASKED>
-int window_fwd_any(const AttnArgs& a, cudaStream_t s) {
+int window_fwd_scalar(const AttnArgs& a, cudaStream_t s) {
   switch (dim_class(a)) {
     case 0: return window_fwd<T, 64, 128, MASKED>(a, s);
     case 1: return window_fwd<T, 32, 256, MASKED>(a, s);
     default: return window_fwd<T, 16, WIDE_COLS, MASKED>(a, s);
   }
+}
+
+// a window launch as the tensor-core bodies walk it: kBanded over blocks of
+// 128, seg the band's four ints a 128-row tile
+AttnArgs banded_window(AttnArgs a, const int* seg) {
+  a.table = seg;
+  a.block_q = a.block_kv = 128;
+  return a;
+}
+
+// the window kernels on their bodies: bf16 and fp16 on the tensor-core
+// body (the forward under fwd_on_tc, the backward under tc_bwd_takes),
+// everything else on the scalar body (kWindow over the band starts).  A
+// dispatch by shape, not a fallback: a refused launch returns its error.
+// body (nullable, host): 1 for the tensor-core body, 0 for the scalar.
+template <typename T>
+int window_fwd_any(const AttnArgs& a, const int* seg, bool masked, cudaStream_t s, int* body) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (fwd_on_tc<T>(a)) {
+      if (body) *body = 1;
+      return fwd_tc_any<T, kBanded>(banded_window(a, seg), s);
+    }
+  }
+  if (body) *body = 0;
+  return masked ? window_fwd_scalar<T, true>(a, s) : window_fwd_scalar<T, false>(a, s);
+}
+
+template <typename T>
+int window_bwd_any(const AttnArgs& a, const int* seg, cudaStream_t s, int* body) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (tc_bwd_takes(a)) {
+      if (body) *body = 1;
+      return tc::bwd_tc<T, kBanded>(banded_window(a, seg), s);
+    }
+  }
+  if (body) *body = 0;
+  return bwd_kv_any<T, true, kWindow>(a, s);
+}
+
+void set_window(AttnArgs& a, const int* starts, int band, int sub) {
+  a.table = starts;
+  a.band = band;
+  a.sub = sub;
 }
 
 void set_fwd_out(AttnArgs& a, void* o, float* l, float* m) {
@@ -188,19 +254,18 @@ int fa_resident_fwd(int dtype, const void* q, const void* k, const void* v, void
 }
 
 // q prescaled; starts (q_pad / sub_q,) int32 key-band starts, band width W
+// (the scalar body); seg (ceil(q_len / 128), 4) int32 the band's segments a
+// 128-row tile in blocks of 128 (the tensor-core body); body (nullable): 1
+// int out, the body the launch ran (1 tensor-core, 0 scalar)
 int fa_window_fwd(int dtype, const void* q, const void* k, const void* v, void* o, float* l,
-                  float* m, const int* starts, int band, int sub_q, int masked, int B, int g,
-                  int d, int v_d, const FaRule* rule, void* stream) {
+                  float* m, const int* starts, const int* seg, int band, int sub_q, int masked,
+                  int B, int g, int d, int v_d, int* body, const FaRule* rule, void* stream) {
   AttnArgs a = make_args(q, k, v, B, g, d, v_d, rule);
-  a.table = starts;
-  a.band = band;
-  a.sub = sub_q;
+  set_window(a, starts, band, sub_q);
   set_fwd_out(a, o, l, m);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, [&](auto tag) {
-    using T = decltype(tag);
-    return masked ? window_fwd_any<T, true>(a, s) : window_fwd_any<T, false>(a, s);
-  });
+  return dispatch(dtype,
+                  [&](auto tag) { return window_fwd_any<decltype(tag)>(a, seg, masked, s, body); });
 }
 
 // q prescaled; seg (ceil(k_len / block_kv), 4) segments of the transposed
@@ -220,20 +285,21 @@ int fa_banded_bwd(int dtype, const void* q, const void* k, const void* v, const 
 }
 
 // q prescaled; starts (k_pad / sub_kv,) int32 query-band starts, band width
-// W; dq_acc zeroed float32 (B, q_len, d)
+// W (the scalar body); seg (ceil(k_len / 128), 4) int32 the transposed
+// band's segments a 128-row kv tile in blocks of 128 (the tensor-core body);
+// dq_acc zeroed float32 (B, q_len, d); body (nullable): 1 int out, as
+// fa_window_fwd's
 int fa_window_bwd(int dtype, const void* q, const void* k, const void* v, const void* dout,
                   const float* lse2, const float* delta, float* dq_acc, void* dk, void* dv,
-                  const int* starts, int band, int sub_kv, int B, int g, int d, int v_d,
-                  float dk_scale, const FaRule* rule, void* stream) {
+                  const int* starts, const int* seg, int band, int sub_kv, int B, int g, int d,
+                  int v_d, float dk_scale, int* body, const FaRule* rule, void* stream) {
   AttnArgs a = make_args(q, k, v, B, g, d, v_d, rule);
-  a.table = starts;
-  a.band = band;
-  a.sub = sub_kv;
+  set_window(a, starts, band, sub_kv);
   set_bwd(a, dout, lse2, delta);
   set_fused_out(a, dq_acc, dk, dv, dk_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(dtype,
-                  [&](auto tag) { return bwd_kv_any<decltype(tag), true, kWindow>(a, s); });
+                  [&](auto tag) { return window_bwd_any<decltype(tag)>(a, seg, s, body); });
 }
 
 }  // extern "C"

@@ -87,7 +87,8 @@ def reset_launch_counts() -> None:
 
 #: what the last launch of a kernel reported, by kernel: ``body``
 #: ("tensor-core" or "scalar") for ``flash_bwd_qouter``, the split pair
-#: (``flash_bwd_dq``, ``flash_bwd_dkv``), ``paged_prefill`` and
+#: (``flash_bwd_dq``, ``flash_bwd_dkv``), the window kernels (``window_fwd``,
+#: ``window_bwd``), ``paged_prefill`` and
 #: ``paged_prefill[cp]``; ("vector" or "scalar") for ``kv_chunk_write``,
 #: ``kv_chunk_write[cp]`` and ``kv_append``; for the decodes (``paged_decode``,
 #: ``paged_multitoken_decode`` and their ``[cp]`` forms) also ``splits`` and
@@ -283,15 +284,15 @@ _SIGNATURES = {
         # dtype, q, k, v, o, l, m, seg, next_item, block_q, block_kv, B, g,
         # d, v_d, walk (4 ints out), rule
         "fa_resident_fwd": [_I] + [_P] * 8 + [_I] * 6 + [_P, _R],
-        # dtype, q, k, v, o, l, m, starts, band, sub_q, masked, B, g, d, v_d,
-        # rule
-        "fa_window_fwd": [_I] + [_P] * 7 + [_I] * 7 + [_R],
+        # dtype, q, k, v, o, l, m, starts, seg, band, sub_q, masked, B, g, d,
+        # v_d, body (1 int out), rule
+        "fa_window_fwd": [_I] + [_P] * 8 + [_I] * 7 + [_P, _R],
         # dtype, q, k, v, dout, lse2, delta, dq_acc, dk, dv, seg, block_q,
         # block_kv, B, g, d, v_d, dk_scale, rule
         "fa_banded_bwd": [_I] + [_P] * 10 + [_I] * 6 + [_F, _R],
-        # dtype, q, k, v, dout, lse2, delta, dq_acc, dk, dv, starts, band,
-        # sub_kv, B, g, d, v_d, dk_scale, rule
-        "fa_window_bwd": [_I] + [_P] * 10 + [_I] * 6 + [_F, _R],
+        # dtype, q, k, v, dout, lse2, delta, dq_acc, dk, dv, starts, seg, band,
+        # sub_kv, B, g, d, v_d, dk_scale, body (1 int out), rule
+        "fa_window_bwd": [_I] + [_P] * 11 + [_I] * 6 + [_F, _P, _R],
     },
     "exp_decode_kernels.cu": {
         # q, k, ks, v, vs, o, B, n_kv, G, pages, rows, scale_log2e
@@ -837,9 +838,11 @@ _BWD_TILES = ((64, 64), (32, 32), (16, 16))
 
 
 def window_fwd_smem(band: int, d: int, v_d: int) -> int:
-    """Shared memory of ``window_fwd`` (``band_kernels.cu``): the query tile
-    (32 rows), one K or V tile (64, 32 or 16 rows by the head-dim class) and
-    the whole band's float32 scores."""
+    """Shared memory of ``window_fwd``'s scalar body (``band_kernels.cu``):
+    the query tile (32 rows), one K or V tile (64, 32 or 16 rows by the
+    head-dim class) and the whole band's float32 scores.  The route gates on
+    it for every dtype, as the JAX package gates on its VMEM budget; the
+    tensor-core body takes ``tc_fwd_smem``, whatever the band."""
     bn = (64, 32, 16)[_dim_class(d, v_d)]
     return 4 * (32 * (d | 1) + bn * max(d | 1, v_d | 1) + 32 * (band + 1) + 64)
 
@@ -874,10 +877,11 @@ def tc_fwd_smem(d: int, v_d: int) -> int:
 
 
 def fwd_body(dtype: torch.dtype, d: int, v_d: int) -> str:
-    """The body ``flash_fwd``, ``banded_fwd`` and ``resident_fwd`` run (the C
-    dispatch ``fwd_any``): bf16 and fp16 at d <= ``TC_MAX_D`` on the tensor
-    cores, float32 (TF32 would not hold its limit) and wider heads on the
-    scalar body."""
+    """The body ``flash_fwd``, ``banded_fwd``, ``resident_fwd`` and
+    ``window_fwd`` run (the C dispatches ``fwd_any`` and ``window_fwd_any``,
+    both under ``fwd_on_tc``): bf16 and fp16 at d <= ``TC_MAX_D`` on the
+    tensor cores, float32 (TF32 would not hold its limit) and wider heads on
+    the scalar body."""
     tc = dtype in (torch.bfloat16, torch.float16) and d <= TC_MAX_D
     return "tensor-core" if tc else "scalar"
 
@@ -893,11 +897,12 @@ TC_BWD_SMEM = (1024 + 2 * 2 * 128 * 128 + 2 * 2 * 2 * 64 * 128 + 2 * 128 * 128 +
 
 def bwd_body(dtype: torch.dtype, d: int, v_d: int, q_len: int = 1, k_len: int = 1) -> str:
     """The body every backward runs: ``flash_bwd_fused``, ``banded_bwd``,
-    ``flash_bwd_qouter`` and the split pair ``flash_bwd_dq`` and
-    ``flash_bwd_dkv`` (the C dispatches ``bwd_fused_any``,
-    ``bwd_qouter_any``, ``bwd_dq_any`` and ``bwd_dkv_any``, all under
-    ``tc_bwd_takes``): bf16 and fp16 with max(d, v_d) <= 128 on the tensor
-    cores, everything else, and an empty q or k, on the scalar body.  The
+    ``window_bwd``, ``flash_bwd_qouter`` and the split pair ``flash_bwd_dq``
+    and ``flash_bwd_dkv`` (the C dispatches ``bwd_fused_any``,
+    ``window_bwd_any``, ``bwd_qouter_any``, ``bwd_dq_any`` and
+    ``bwd_dkv_any``, all under ``tc_bwd_takes``): bf16 and fp16 with
+    max(d, v_d) <= 128 on the tensor cores, everything else, and an empty q
+    or k, on the scalar body.  The
     split pair's tensor-core bodies are the q-outer body without dK and dV
     and the kv-outer body without dQ."""
     tc = (dtype in (torch.bfloat16, torch.float16) and max(d, v_d) <= 128
@@ -1090,22 +1095,39 @@ def banded_fwd(q_scaled, k, v, rule_c: FaRule, seg, block_q, block_kv):
     return o, l, m
 
 
-def window_fwd(q_scaled, k, v, rule_c: FaRule, starts, band, sub_q, masked):
+def _check_window(name: str, band: int, sub: int, seg, n_tiles: int) -> None:
+    if band % LANE or sub % LANE or band < LANE or sub < LANE:
+        raise ValueError(f"{name} takes lane-aligned bands and sub-blocks, got band {band}, "
+                         f"sub {sub}")
+    if seg.dtype != torch.int32 or not seg.is_contiguous() or tuple(seg.shape) != (n_tiles, 4):
+        raise ValueError(f"{name}: seg must be contiguous int32 ({n_tiles}, 4), got "
+                         f"{seg.dtype} {tuple(seg.shape)}")
+
+
+def window_fwd(q_scaled, k, v, rule_c: FaRule, starts, seg, band, sub_q, masked):
     """Launch ``window_fwd``: one key band ``[starts[i], + band)`` per
-    ``sub_q`` query rows (``starts`` int32 on the card); ``masked`` false
-    only where every element of every band is visible."""
+    ``sub_q`` query rows (``starts`` int32 on the card; the scalar body's
+    walk), ``seg`` the bands' live blocks as the banded walk's four ints a
+    128-row tile (``ops/forward.py::window_segments``; the tensor-core
+    body's);
+    ``masked`` false only where every element of every band is visible.
+    ``fwd_body`` names the body; the launch's own report is in ``WALKS``."""
     code = _check_attn(q_scaled, k, v, rule_c)
     B, q_len, d = q_scaled.shape
     v_d = v.shape[2]
-    if band % LANE or sub_q % LANE or window_fwd_smem(band, d, v_d) > MAX_SMEM:
-        raise ValueError(f"window_fwd takes lane-aligned bands whose scores fit shared "
-                         f"memory, got band {band}, sub_q {sub_q}, d {d}, v_d {v_d}")
+    _check_window("window_fwd", band, sub_q, seg, -(-q_len // LANE))
+    _check_smem(f"window_fwd at band {band}, d {d}, v_d {v_d}",
+                tc_fwd_smem(d, v_d) if fwd_body(q_scaled.dtype, d, v_d) == "tensor-core"
+                else window_fwd_smem(band, d, v_d))
     o = torch.empty((B, q_len, v_d), dtype=q_scaled.dtype, device=q_scaled.device)
     l = torch.empty((B, q_len), dtype=torch.float32, device=q_scaled.device)
     m = torch.empty_like(l)
+    body = ctypes.c_int(0)
     _call("fa_window_fwd", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
-          o.data_ptr(), l.data_ptr(), m.data_ptr(), starts.data_ptr(), band, sub_q,
-          int(bool(masked)), B, B // k.shape[0], d, v_d, ctypes.byref(rule_c))
+          o.data_ptr(), l.data_ptr(), m.data_ptr(), starts.data_ptr(), seg.data_ptr(),
+          band, sub_q, int(bool(masked)), B, B // k.shape[0], d, v_d, ctypes.byref(body),
+          ctypes.byref(rule_c))
+    _body("window_fwd", body)
     return o, l, m
 
 
@@ -1130,22 +1152,27 @@ def banded_bwd(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, seg_t, block_q, 
     return dq_acc, dk, dv
 
 
-def window_bwd(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, starts_t, band, sub_kv,
-               dk_scale):
+def window_bwd(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, starts_t, seg_t, band,
+               sub_kv, dk_scale):
     """Launch ``window_bwd``: one query band ``[starts_t[i], + band)`` per
-    ``sub_kv`` key rows; returns the unscaled float32 dQ accumulator, dk, dv."""
+    ``sub_kv`` key rows, ``seg_t`` the bands' live blocks as the banded
+    walk's four ints a 128-row kv tile; returns the unscaled float32 dQ
+    accumulator, dk, dv.  ``bwd_body`` names the body; the launch's own
+    report is in ``WALKS``."""
     code = _check_attn(q_scaled, k, v, rule_c, do, (lse2, delta))
     B, q_len, d = q_scaled.shape
-    _check_smem(f"window_bwd at d {d}, v_d {v.shape[2]}", bwd_smem(d, v.shape[2], 2))
-    if band % LANE or sub_kv % LANE:
-        raise ValueError(f"window_bwd takes lane-aligned bands, got band {band}, "
-                         f"sub_kv {sub_kv}")
+    k_len = k.shape[1]
+    _check_window("window_bwd", band, sub_kv, seg_t, -(-k_len // LANE))
+    _check_bwd_smem("window_bwd", q_scaled.dtype, d, v.shape[2], q_len, k_len)
     dq_acc = torch.zeros((B, q_len, d), dtype=torch.float32, device=q_scaled.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    body = ctypes.c_int(0)
     _call("fa_window_bwd", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
           do.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
-          dv.data_ptr(), starts_t.data_ptr(), band, sub_kv, B, B // k.shape[0], d,
-          v.shape[2], float(dk_scale), ctypes.byref(rule_c))
+          dv.data_ptr(), starts_t.data_ptr(), seg_t.data_ptr(), band, sub_kv, B,
+          B // k.shape[0], d, v.shape[2], float(dk_scale), ctypes.byref(body),
+          ctypes.byref(rule_c))
+    _body("window_bwd", body)
     return dq_acc, dk, dv
 
 

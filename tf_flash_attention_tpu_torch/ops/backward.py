@@ -57,7 +57,7 @@ from ..block_sizes import LANE, BlockConfig, pad_to
 from ..mask_rules import MaskRule
 from ..schedule import build_schedule, window_band_table_t
 from ..sync_modes import SyncPack
-from .forward import Route, dense_mask, env_on, pick_window, prescale
+from .forward import Route, dense_mask, env_on, pick_window, prescale, window_segments
 from .kernel_common import INV_LOG2E, LOG2E, NEG_INF_F32
 
 __all__ = ["flash_backward", "backward_route"]
@@ -140,7 +140,9 @@ def _backward_route(pack: SyncPack, rule: MaskRule, config: BlockConfig, fused,
             (512, 256, 128), block_kvf, k_pad)
         if picked is not None:
             sub_kv, (starts, band, _, _) = picked
-            return (Route("window_bwd", block_qf, block_kvf, (starts,), band, sub_kv),)
+            return (Route("window_bwd", block_qf, block_kvf,
+                          (starts, window_segments(pack, rule, starts, band, sub_kv,
+                                                   transposed=True)), band, sub_kv),)
     sched_t = build_schedule(pack, rule, block_qf, block_kvf, use_native=False).transpose()
     if banded_on:
         seg_t = sched_t.banded_segments()
@@ -204,7 +206,7 @@ def flash_backward(q, k, v, o, l, m, do, *, pack: SyncPack, rule: MaskRule,
                                                      route.block_kv, scale)
         return dq, (dk_acc * INV_LOG2E).to(in_dtype), dv_acc.to(in_dtype)
     if route.kernel == "window_bwd":
-        dq_acc, dk, dv = native.window_bwd(*args, tabs[0], route.band, route.sub, INV_LOG2E)
+        dq_acc, dk, dv = native.window_bwd(*args, *tabs, route.band, route.sub, INV_LOG2E)
     elif route.kernel == "banded_bwd":
         dq_acc, dk, dv = native.banded_bwd(*args, tabs[0], route.block_q, route.block_kv,
                                            INV_LOG2E)

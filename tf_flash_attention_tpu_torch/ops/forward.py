@@ -13,7 +13,9 @@ package's own environment switch:
 
 * ``window_fwd`` (``FA_WINDOW``) — narrow-band rules whose live keys per
   query sub-block are one lane-aligned band (``window_band_table``); here
-  also the band's float32 scores must fit shared memory;
+  also the band's float32 scores must fit shared memory (the scalar body's
+  closed form holds them; the bf16/fp16 tensor-core walk, which merges
+  online, would not need it, but the route stays the package's);
 * ``banded_fwd`` (``FA_BANDED``) — every schedule row one contiguous band
   with one interior run (``Schedule.banded_segments``): causal, unstrided
   local, full; with ``FA_RESIDENT=1`` (opt-in, as in the package) its
@@ -36,6 +38,7 @@ import math
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import native
@@ -45,7 +48,7 @@ from ..schedule import build_schedule, window_band_table
 from ..sync_modes import SyncPack
 from .kernel_common import INV_LOG2E, LOG2E, NEG_INF_F32, build_tile_mask
 
-__all__ = ["flash_forward", "forward_route", "Route"]
+__all__ = ["flash_forward", "forward_route", "Route", "window_segments"]
 
 
 def env_on(name: str) -> bool:
@@ -56,8 +59,9 @@ def env_on(name: str) -> bool:
 @dataclasses.dataclass(frozen=True, eq=False)
 class Route:
     """One kernel launch of a schedule: the kernel's ``LAUNCHES`` name, its
-    blocks, the int32 tables it walks (numpy), and for the window kernels
-    the band width, the sub-block and whether any element is masked."""
+    blocks, the int32 tables it walks (numpy; the window kernels' band starts
+    and ``window_segments``), and for the window kernels the band width, the
+    sub-block and whether any element is masked."""
 
     kernel: str
     block_q: int
@@ -91,6 +95,42 @@ def pick_window(table_fn, subs, block: int, pad: int):
     return sub, wt
 
 
+def window_segments(pack: SyncPack, rule: MaskRule, starts, band: int, sub: int,
+                    transposed: bool = False) -> np.ndarray:
+    """A window walk as the tensor-core bodies take it, the banded walk over
+    blocks of 128: for each 128-row tile of the walking sequence (queries;
+    keys where ``transposed``), ``[start, i0, i1, end)`` in blocks of 128 of
+    the other sequence: the live blocks of its sub-block's band
+    ``[starts[tile * 128 // sub], + band)`` (the 128 x 128 fine schedule's;
+    a block with no visible element adds nothing, and walking it would
+    lengthen the tile's item), and inside them the longest run of interior
+    blocks (every element visible and in bounds: run on the body compiled
+    without the rule predicate), or an empty ``[start, start)``.
+    ``(tiles, 4)`` int32."""
+    fine = build_schedule(pack, rule, LANE, LANE, use_native=False)
+    live, full = fine.live, fine.live & ~fine.partial   # (q tiles, k tiles)
+    if transposed:
+        live, full = live.T, full.T
+    out = np.zeros((full.shape[0], 4), np.int32)
+    for t in range(full.shape[0]):
+        s = int(starts[t * LANE // sub]) // LANE
+        idx = s + np.flatnonzero(live[t, s:s + band // LANE])
+        if idx.size == 0:
+            out[t] = s
+            continue
+        s, e = int(idx[0]), int(idx[-1]) + 1
+        best, run0 = (s, s), None
+        for b in range(s, e):
+            if not full[t, b]:
+                run0 = None
+                continue
+            run0 = b if run0 is None else run0
+            if b + 1 - run0 > best[1] - best[0]:
+                best = (run0, b + 1)
+        out[t] = (s, *best, e)
+    return out
+
+
 def explicit_sub(config: BlockConfig, block_q: int, block_kv: int) -> bool:
     return (min(config.block_q_compute or block_q, block_q) != block_q
             or min(config.block_kv_compute or block_kv, block_kv) != block_kv)
@@ -111,8 +151,9 @@ def _forward_route(pack: SyncPack, rule: MaskRule, config: BlockConfig, d: int, 
         if picked is not None:
             sub_q, (starts, band, slots, _) = picked
             if native.window_fwd_smem(band, d, v_d) <= native.MAX_SMEM:
-                return Route("window_fwd", block_q, block_kv, (starts,), band, sub_q,
-                             slots is not None)
+                return Route("window_fwd", block_q, block_kv,
+                             (starts, window_segments(pack, rule, starts, band, sub_q)),
+                             band, sub_q, slots is not None)
     sched = build_schedule(pack, rule, block_q, block_kv, use_native=False)
     if banded_on and tiled:
         seg = sched.banded_segments()
@@ -203,7 +244,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, pack: Sy
     args = (q_scaled.contiguous(), k.contiguous(), v.contiguous(),
             native.fa_rule(pack, rule, q.device))
     if route.kernel == "window_fwd":
-        return native.window_fwd(*args, tabs[0], route.band, route.sub, route.masked)
+        return native.window_fwd(*args, *tabs, route.band, route.sub, route.masked)
     if route.kernel == "banded_fwd":
         return native.banded_fwd(*args, tabs[0], route.block_q, route.block_kv)
     if route.kernel == "resident_fwd":

@@ -159,7 +159,13 @@ Phases (any failure exits non-zero before the final line):
      512); each held against its plain version (2 bf16 ulps at the output's
      scale, bitcast 3; int8mm's codes and integer scores bit for bit) and
      timed beside its plain version, its bound and, for the forwards, one
-     scaled_dot_product_attention call; the forwards name their body
+     scaled_dot_product_attention call; exp_int4_unpack's kernels also by
+     their own device time (torch.profiler), its four int4 sites must run
+     the decode's tensor-core body and print their splits and CTAs, and
+     beside them paged_decode (the serving body) is timed on the same int4
+     and int8 K/V as a 16-slot cache whose slots share the pages (a
+     yardstick, not a port; held against s32's and int8ref's plain
+     versions); the forwards name their body
      (exp_resident on the resident tensor-core forward: each pair timed
      through the tool's entry, its prescale included, and its kernel alone
      on the prescaled q, with the items and CTAs its launch reports, and
@@ -946,6 +952,8 @@ def main():
                       "path": "experiment tools (phase 8)", "max_abs_err": m["err"],
                       "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                       "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+                      **{x: m[x] for x in ("body", "splits", "ctas", "kernel_ms", "yardstick")
+                         if x in m},
                       "variants": m["variants"]})
     print(json.dumps({"kernels": lines}))
     print(f"card: {smi.stdout.strip().splitlines()[0]}", flush=True)
@@ -2289,6 +2297,7 @@ def experiment_phase(dev, seed):
     from tf_flash_attention_tpu_torch.experiments import (exp_decode, exp_int4_unpack,
                                                           exp_kv_unroll, exp_resident,
                                                           exp_vpu_attrib)
+    from tf_flash_attention_tpu_torch.serving import decode
     from tf_flash_attention_tpu_torch.serving.kv_cache import (KVCacheConfig, PageAllocator,
                                                                PagedKVCache, write_prompt)
 
@@ -2388,14 +2397,22 @@ def experiment_phase(dev, seed):
                      4 * dq.shape[1] * D * live, "int8" if "int8mm" in variant else "bf16", None,
                      exp_tol, args if variant.startswith("int8mm") else None))
 
-    # the tools' entry points, each instantiation once, counted
+    # the tools' entry points, each instantiation once, counted; the int4
+    # sites' reports of the body they ran, with their splits and CTAs
     native.reset_launch_counts()
     torch.cuda.synchronize()
-    outs = [fn() for _, _, fn, *_ in runs]
+    outs, int4_walks = [], {}
+    for kernel, _, fn, *_ in runs:
+        outs.append(fn())
+        if kernel in native.INT4_TC_UNPACK:
+            int4_walks[kernel] = dict(native.WALKS[kernel])
     torch.cuda.synchronize()
     launches = {kn: native.LAUNCHES[kn] for kn in native.EXPERIMENT_KERNELS}
     if min(launches.values()) < 1:
         fail(f"phase 8: an experiment kernel never launched: {launches}")
+    for kernel, walk in int4_walks.items():
+        if walk["body"] != "tensor-core":
+            fail(f"phase 8: {kernel} ran the {walk['body']} body")
 
     entries, oracle = {}, None
     for (kernel, variant, fn, plain, n_bytes, n_ops, ops_type, lib, tol, codes), o in zip(runs,
@@ -2423,6 +2440,10 @@ def experiment_phase(dev, seed):
                          f"places")
             extra["codes_equal"] = True
         ms = time_ms(fn, n=10)
+        if kernel.startswith("exp_int4"):   # its own device time, and the int4 sites' body
+            extra["kernel_ms"] = kernel_ms(fn, ("decode_tc_kernel",) if kernel in int4_walks
+                                           else ("decode_kernel",))
+            extra.update(int4_walks.get(kernel, {}))
         if kernel in native.EXP_FWD_BODY:   # the variant's walk, as its launches report it
             walk = native.WALKS[kernel]
             if walk["body"] != extra["body"]:
@@ -2444,16 +2465,44 @@ def experiment_phase(dev, seed):
                                                       + 8)
             rate = (f"{kvb / ms / 1e6:.0f} GB/s as the tool counts (the shared K/V once per "
                     f"row: {ib}x the bytes of the bound)")
-        body = (f" body={extra['body']} items={extra['items']} grid={extra['grid']}"
-                if "body" in extra else "")
+        body = "".join(f" {x}={extra[x]}" for x in ("body", "items", "grid", "splits", "ctas")
+                       if x in extra)
         if "kernel_ms" in extra:
-            body += f" kernel_ms (prescaled q)={extra['kernel_ms']}"
+            body += (f" kernel_ms (prescaled q)={extra['kernel_ms']}"
+                     if kernel == "exp_resident_fwd" else f" kernel_ms={extra['kernel_ms']}")
         print(f"kernel {kernel} {variant}:{body} max_abs_err={err} (tol {limit}) ms={ms} "
               f"plain_ms={plain_ms} bound_ms={b_ms} ({b_by}) library_ms={lib_ms}; {rate}",
               flush=True)
         entry = entries.setdefault(kernel, dict(r, variants={}))
         entry["err"] = max(entry["err"], err)
         entry["variants"][variant] = r
+    # the yardstick beside the int4 unpack tool's sites: paged_decode, the
+    # serving decode's body and unpack, on the same K/V laid out as a
+    # 16-slot cache whose slots share pages 0-31 (int4: s32's function;
+    # int8: int8ref's, the card body's int8 control), timed as they are
+    for label, ref_kernel, kv in (("int4", "exp_int4_s32", (k4_, ks4, v4_, vs4)),
+                                  ("int8", "exp_int4_int8ref", (k8, ks8, v8, vs8))):
+        ycache, ycfg = exp_int4_unpack.shared_cache(*kv, ib)
+        yq = iq.reshape(ib, -1, D)
+        yfn = lambda ycache=ycache, ycfg=ycfg: decode.paged_decode_attention(yq, ycache, ycfg)
+        yo = yfn().reshape(iq.shape)
+        ref = exp_int4_unpack.int4_decode_plain(ref_kernel, iq, *kv)
+        torch.cuda.synchronize()
+        err, limit = float((yo.float() - ref.float()).abs().max()), exp_tol(ref)
+        if not torch.isfinite(yo).all() or err > limit:
+            fail(f"phase 8: paged_decode on the tool's {label} pages: max error {err} > {limit}")
+        yard = dict(err=err, tol=limit, ms=time_ms(yfn, n=10),
+                    kernel_ms=kernel_ms(yfn, SERVING_KERNEL_NAMES["paged_decode"]),
+                    body=native.WALKS["paged_decode"]["body"],
+                    splits=native.WALKS["paged_decode"]["splits"],
+                    ctas=native.WALKS["paged_decode"]["ctas"])
+        print(f"yardstick paged_decode on the tool's {label} pages (16 slots sharing them): "
+              f"{json.dumps(yard)}", flush=True)
+        for kernel, entry in entries.items():
+            if kernel.startswith("exp_int4") and ("int8" in kernel) == (label == "int8"):
+                entry["yardstick"] = yard
+                for r in entry["variants"].values():
+                    r["yardstick"] = yard
     rungs = entries["exp_vpu_ladder"]["variants"]
     print(f"exp_vpu_ladder: prod - nomax (the first pass for each group's maximum) = "
           f"{rungs['prod']['ms'] - rungs['nomax']['ms']} ms", flush=True)

@@ -1095,22 +1095,61 @@ def test_exp_kv_unroll_kernel_matches_plain(dev, name, nkv, fused, bkv, d):
     assert float((got.float() - want.float()).abs().max()) <= _exp_tol(want)
 
 
-@pytest.mark.parametrize("G", [8, 2])
-@pytest.mark.parametrize("name", ["int8ref", "s32", "twopage", "fourpage", "int8_2pg", "bitcast"])
-def test_exp_int4_unpack_kernels_match_plain(dev, name, G):
+# (G, pages of 256, rows B): 4 rows of 8 pages at G 8 and 2 (the first
+# cases, whose ids stay), then G 1 and 4 and page counts of 4, 12 and 32 at
+# row counts whose split counts do not always divide the merge units (24
+# rows x 2 kv heads: 11 splits; 64 rows: 4 splits of 12 pages' 6 two-page
+# units, one CTA empty)
+INT4_CASES = [(8, 8, 4), (2, 8, 4), (1, 4, 4), (4, 12, 24), (8, 32, 24), (2, 12, 64)]
+
+
+@pytest.mark.parametrize("name,G,pages,B", [
+    pytest.param(name, G, pages, B, id=f"{name}-{G}" + ("" if pages == 8 else f"-p{pages}-b{B}"))
+    for G, pages, B in INT4_CASES
+    for name in ("int8ref", "s32", "twopage", "fourpage", "int8_2pg", "bitcast")])
+def test_exp_int4_unpack_kernels_match_plain(dev, name, G, pages, B):
+    """Each of the tool's kernels against its plain version (2 bf16 ulps at
+    the output's scale, bitcast 3); the int4 sites report the tensor-core
+    body with ``native.exp_int4_plan``'s splits and CTAs."""
     from tf_flash_attention_tpu_torch.experiments import exp_int4_unpack as x
     gen = torch.Generator(device=dev).manual_seed(G)
-    kv = torch.rand((2, 2, 2048, 128), generator=gen, device=dev) * 2 - 1
+    kv = torch.rand((2, 2, 256 * pages, 128), generator=gen, device=dev) * 2 - 1
     kernel = x.KERNELS[name]
     if kernel.startswith("exp_int4_int8"):
         (k, ks), (v, vs) = x.quantize_int8(kv[0]), x.quantize_int8(kv[1])
     else:
         (k, ks, _), (v, vs, _) = x.quantize_int4(kv[0]), x.quantize_int4(kv[1])
-    q = _uniform(gen, (4, 2, G, 128), dev)
+    q = _uniform(gen, (B, 2, G, 128), dev)
     got = _exp_launch(kernel, lambda: x.int4_decode(kernel, q, k, ks, v, vs))
     want = x.int4_decode_plain(kernel, q, k, ks, v, vs)
+    assert torch.isfinite(got).all()
     assert float((got.float() - want.float()).abs().max()) <= _exp_tol(
         want, 3 if name == "bitcast" else 2)
+    if kernel in native.INT4_TC_UNPACK:
+        plan = native.exp_int4_plan(kernel, B, 2, G, pages, k.shape[2])
+        assert native.WALKS[kernel] == dict(body="tensor-core", splits=plan["splits"],
+                                            ctas=plan["ctas"]), native.WALKS[kernel]
+        assert torch.equal(x.int4_decode(kernel, q, k, ks, v, vs), got)   # run order: the same bits
+
+
+@pytest.mark.parametrize("int4", [True, False])
+def test_serving_decode_on_the_tools_pages(dev, int4):
+    """The yardstick of the int4 sites: the serving decode (its tensor-core
+    body, the serving unpack) on the tool's K/V laid out as a cache whose
+    16 slots share its pages computes s32's function (int8: int8ref's),
+    within the gate of that plain version."""
+    from tf_flash_attention_tpu_torch.experiments import exp_int4_unpack as x
+    gen = torch.Generator(device=dev).manual_seed(11)
+    kv = torch.rand((2, 2, 8192, 128), generator=gen, device=dev) * 2 - 1
+    if int4:
+        (k, ks, _), (v, vs, _) = x.quantize_int4(kv[0]), x.quantize_int4(kv[1])
+    else:
+        (k, ks), (v, vs) = x.quantize_int8(kv[0]), x.quantize_int8(kv[1])
+    q = _uniform(gen, (16, 2, 8, 128), dev)
+    got = _exp_launch("paged_decode", lambda: x.serving_decode(q, k, ks, v, vs))
+    assert native.WALKS["paged_decode"]["body"] == "tensor-core"
+    want = x.int4_decode_plain("exp_int4_s32" if int4 else "exp_int4_int8ref", q, k, ks, v, vs)
+    assert float((got.float() - want.float()).abs().max()) <= _exp_tol(want)
 
 
 def _exp_decode_cache(dev, n_q=4):

@@ -116,6 +116,180 @@ def test_int4_quantizers_match_tool():
     np.testing.assert_array_equal(kd.numpy(), (q4 * sc4).astype(np.float32))
 
 
+# ---- the int4 sites on the decode's tensor-core body (decode_tc.cuh) ----
+
+def _int4_state(kernel, q, k, ks, v, vs):
+    """The plain version's running state over the pages of k, v, in its
+    order (``int4_decode_plain``'s loop, a merge each npg pages): (acc,
+    acc_odd, m, l), float32; acc_odd is bitcast's odd keys' (else zero)."""
+    npg = tint4.native.INT4_NPG[kernel]
+    n_kv, pages, rows, d = k.shape
+    c = 1.0 / np.sqrt(d) * tint4.LOG2E
+    (kt, kst), (vt, vst) = tint4._tokens(k, ks, 2), tint4._tokens(v, vs, 2)
+    T = npg * 2 * rows
+    kt, vt = kt.reshape(n_kv, pages // npg, T, d), vt.reshape(n_kv, pages // npg, T, d)
+    kst, vst = kst.reshape(n_kv, pages // npg, T), vst.reshape(n_kv, pages // npg, T)
+    qf = q.float()
+    m = torch.full((*q.shape[:3], 1), tint4.NEG_INF_F32)
+    l = torch.zeros_like(m)
+    acc, acc_odd = torch.zeros(q.shape), torch.zeros(q.shape)
+    odd = (torch.arange(T) // rows) % 2 == 1
+    split = kernel == "exp_int4_bitcast"
+    for st in range(pages // npg):
+        s = torch.einsum("bhgd,htd->bhgt", qf, kt[:, st]) * (kst[:, st] * c)[None, :, None, :]
+        m_next = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_next)
+        pw = torch.exp2(s - m_next)
+        l = alpha * l + pw.sum(-1, keepdim=True)
+        p = tint4.bf16r(pw * vst[:, st][None, :, None, :])
+        if split:
+            acc = acc * alpha + torch.einsum("bhgt,htd->bhgd", p * ~odd, vt[:, st])
+            acc_odd = acc_odd * alpha + torch.einsum("bhgt,htd->bhgd", p * odd, vt[:, st])
+        else:
+            acc = acc * alpha + torch.einsum("bhgt,htd->bhgd", p, vt[:, st])
+        m = m_next
+    return acc, acc_odd, m, l
+
+
+def int4_split_model(kernel, q, k, ks, v, vs, splits):
+    """The tensor-core body's arithmetic for an int4 site: each
+    (row, kv head)'s merges of npg pages cut into ``splits`` runs
+    (``decode_tc_kernel``: ceil(units / splits) a run, the empty ones
+    dropped), each run's state from a fresh start, the partials merged as
+    the last CTA merges them (in run order: M the largest m, each scaled by
+    exp2(m - M)), then the finish (bitcast: each half over l rounded to
+    bf16, the halves summed) -> o bf16."""
+    npg = tint4.native.INT4_NPG[kernel]
+    units = k.shape[1] // npg
+    per = -(-units // splits)
+    parts = [_int4_state(kernel, q, *(x[:, r * per * npg:(r + 1) * per * npg] for x in (k, ks)),
+                         *(x[:, r * per * npg:(r + 1) * per * npg] for x in (v, vs)))
+             for r in range(-(-units // per))]
+    M = torch.stack([p[2] for p in parts]).amax(0)
+    O, O_odd, L = torch.zeros(q.shape), torch.zeros(q.shape), torch.zeros_like(M)
+    for acc, acc_odd, m, l in parts:
+        f = torch.exp2(m - M)
+        O, O_odd, L = O + acc * f, O_odd + acc_odd * f, L + l * f
+    div = torch.where(L == 0, torch.ones_like(L), L)
+    if kernel == "exp_int4_bitcast":
+        return (tint4.bf16r(O / div) + tint4.bf16r(O_odd / div)).to(torch.bfloat16)
+    return (O / div).to(torch.bfloat16)
+
+
+INT4_TC = list(tint4.native.INT4_TC_UNPACK)
+# (B, ctx, n_kv): the tool's shape (16 rows of 8 kv heads over 8,192 keys:
+# 4 splits) and int4_runs' small one (2 rows, 2 kv heads, 1,024 keys: a run
+# a merge unit)
+INT4_SHAPES = {"tool": (16, 8192, 8), "small": (2, 1024, 2)}
+
+
+@pytest.mark.parametrize("shape", list(INT4_SHAPES))
+@pytest.mark.parametrize("kernel", INT4_TC)
+def test_int4_split_merge_within_card_gate(kernel, shape):
+    """The int4 sites cut a (row, kv head)'s merges over CTAs
+    (``native.exp_int4_plan``) and merge the runs' partials in the launch:
+    that model stays within phase 8's gate of the unsplit plain version (2
+    bf16 ulps at the output's scale, bitcast 3 with both halves merged), on
+    several seeds; with one run it is the plain version bit for bit."""
+    B, ctx, n_kv = INT4_SHAPES[shape]
+    ulps = ULPS_CODES if kernel == "exp_int4_bitcast" else ULPS
+    for seed in range(2 if shape == "tool" else 4):
+        gen = torch.Generator().manual_seed(seed)
+        kv = torch.rand((2, n_kv, ctx, 128), generator=gen) * 2 - 1
+        (k, ks, _), (v, vs, _) = tint4.quantize_int4(kv[0]), tint4.quantize_int4(kv[1])
+        q = (torch.rand((B, n_kv, 8, 128), generator=gen) * 2 - 1).to(torch.bfloat16)
+        want = tint4.int4_decode_plain(kernel, q, k, ks, v, vs)
+        splits = tint4.native.exp_int4_plan(kernel, B, n_kv, 8, k.shape[1], k.shape[2])["splits"]
+        assert splits == (4 if shape == "tool" else k.shape[1] // tint4.native.INT4_NPG[kernel])
+        got = int4_split_model(kernel, q, k, ks, v, vs, splits)
+        _close(got.float().numpy(), want.float().numpy(), ulps)
+        if seed == 0:
+            assert torch.equal(int4_split_model(kernel, q, k, ks, v, vs, 1), want)
+
+
+def test_bitcast_even_odd_tile_order():
+    """bitcast's stage layout (``decode_tc.cuh``, SPLIT): column c of a
+    64-key stage is key 2 (c % 32) + c / 32, nibble c / 32 of the stage's
+    byte row c % 32, scaled by the ring's c-th K and V scale (a piece's even
+    tokens' scales first); the widened V tile holds column c's values in row
+    c, so k-steps 0-1 (rows 0-31) sum the even keys and 2-3 (rows 32-63) the
+    odd ones.  Column by column the model reads the token the key names, and
+    its two half-sums equal the plain version's masked ones (float64)."""
+    gen = torch.Generator().manual_seed(7)
+    kv = torch.rand((2, 2, 512, 128), generator=gen) * 2 - 1
+    (k, ks, _), (v, vs, _) = tint4.quantize_int4(kv[0]), tint4.quantize_int4(kv[1])
+    n_kv, pages, rows, d = v.shape
+    lo, hi = tint4._unpack_nibbles(v)                     # (n_kv, pages, rows, d) each
+    natural = torch.stack([lo, hi], 3).reshape(n_kv, pages, 2 * rows, d).double()
+    p_nat = torch.rand((n_kv, pages, 2 * rows), generator=gen, dtype=torch.float64)
+    even_m = odd_m = 0
+    for page in range(pages):
+        for t0 in range(0, 2 * rows, 64):
+            c = torch.arange(64)
+            key = t0 + 2 * (c % 32) + c // 32
+            brow, nib = t0 // 2 + c % 32, c // 32
+            ring = [torch.cat([sc[:, page, 0, t0 // 2:t0 // 2 + 32],
+                               sc[:, page, 1, t0 // 2:t0 // 2 + 32]], 1) for sc in (ks, vs)]
+            tile = torch.where(nib[None, :, None] == 0, lo[:, page, brow], hi[:, page, brow])
+            assert torch.equal(tile.double(), natural[:, page, key])
+            for r, sc in zip(ring, (ks, vs)):
+                assert torch.equal(r, sc[:, page].permute(0, 2, 1).reshape(n_kv, -1)[:, key])
+            pv = p_nat[:, page, key, None] * tile.double()
+            even_m, odd_m = even_m + pv[:, :32].sum(1), odd_m + pv[:, 32:].sum(1)
+    # the plain version's order and masks (int4_decode_plain): nibble-major
+    # tokens a page, the odd ones where (t // rows) is odd
+    vt, _ = tint4._tokens(v, vs, 2)
+    p_nm = torch.cat([p_nat[..., 0::2], p_nat[..., 1::2]], 2)
+    odd = (torch.arange(2 * rows) // rows) % 2 == 1
+    even_p = (p_nm * ~odd)[..., None] * vt.double()
+    odd_p = (p_nm * odd)[..., None] * vt.double()
+    torch.testing.assert_close(even_m, even_p.sum((1, 2)), rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(odd_m, odd_p.sum((1, 2)), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("kernel,B,n_kv,G,pages,want", [
+    # the tool's shape: 128 cells, two CTAs an SM (67-95 KB), 4 splits
+    ("exp_int4_s32", 16, 8, 8, 32, dict(merge_keys=256, splits=4, ctas=512, smem=67088,
+                                        workspace=128 * 4 * 64 * 130)),
+    ("exp_int4_twopage", 16, 8, 8, 32, dict(merge_keys=512, splits=4, ctas=512, smem=76304,
+                                            workspace=128 * 4 * 64 * 130)),
+    ("exp_int4_fourpage", 16, 8, 8, 32, dict(merge_keys=1024, splits=4, ctas=512, smem=94736,
+                                             workspace=128 * 4 * 64 * 130)),
+    ("exp_int4_bitcast", 16, 8, 8, 32, dict(merge_keys=256, splits=4, ctas=512, smem=67088,
+                                            workspace=128 * 4 * 64 * 258)),
+    # 48 cells: 11 splits of 32 units (3 a run, the last 2); 16 rows
+    ("exp_int4_s32", 6, 8, 16, 32, dict(merge_keys=256, splits=11, ctas=528, smem=75408,
+                                        workspace=48 * 11 * 64 * 130)),
+    # one unit: one run, no workspace
+    ("exp_int4_fourpage", 1, 1, 1, 4, dict(merge_keys=1024, splits=1, ctas=1, smem=65952,
+                                           workspace=0)),
+])
+def test_int4_plan_mirrors_c(kernel, B, n_kv, G, pages, want):
+    """``native.exp_int4_plan`` mirrors the C rule (``decode_tc_tool``,
+    ``dc_smem`` with the policy's cap of npg x 256 keys, ``dc_partial``
+    with both accumulators for bitcast): merge, splits, CTAs, shared memory
+    within a block of the H100, workspace and tickets."""
+    plan = tint4.native.exp_int4_plan(kernel, B, n_kv, G, pages, 128)
+    assert plan == dict(body="tensor-core", tickets=B * n_kv, **want)
+    assert plan["smem"] <= tint4.native.MAX_SMEM
+
+
+def test_serving_decode_on_the_tools_pages_matches_s32():
+    """The yardstick: the serving decode on the tool's int4 K/V laid out as
+    a cache whose slots share its pages computes s32's function (one page a
+    merge, scales on s and p); on the CPU its plain version gives the s32
+    plain version's bits, and the int8 inputs int8ref's."""
+    gen = torch.Generator().manual_seed(5)
+    kv = torch.rand((2, 2, 1024, 128), generator=gen) * 2 - 1
+    q = (torch.rand((3, 2, 4, 128), generator=gen) * 2 - 1).to(torch.bfloat16)
+    (k, ks, _), (v, vs, _) = tint4.quantize_int4(kv[0]), tint4.quantize_int4(kv[1])
+    assert torch.equal(tint4.serving_decode(q, k, ks, v, vs),
+                       tint4.int4_decode_plain("exp_int4_s32", q, k, ks, v, vs))
+    (k, ks), (v, vs) = tint4.quantize_int8(kv[0]), tint4.quantize_int8(kv[1])
+    assert torch.equal(tint4.serving_decode(q, k, ks, v, vs),
+                       tint4.int4_decode_plain("exp_int4_int8ref", q, k, ks, v, vs))
+
+
 # ---- exp_decode: the paged int8 decode, five variants ----
 
 @pytest.fixture(scope="module")

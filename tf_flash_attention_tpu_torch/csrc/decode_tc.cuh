@@ -52,6 +52,29 @@
 // Measured on the card (PERF.md): the consumers' work on a stage, not the
 // bytes, sets the time; the copies alone take a CTA's stages at about
 // twice the rate the consumers do.
+//
+// The int4 unpack tool's sites (tools/exp_int4_unpack.py) run the same body
+// as compiled policies (DcPolicy), never as run-time flags:
+//   fa_exp_int4_s32      <- kern_s32, npg 1 (:92, call :264)  kDcShift, merges of 256 keys
+//   fa_exp_int4_twopage  <- kern_s32, npg 2 (call :274)       kDcShift, 512
+//   fa_exp_int4_fourpage <- kern_s32, npg 4 (call :284)       kDcShift, 1,024
+//   fa_exp_int4_bitcast  <- kern_bitcast (:149, call :314)    kDcMagic, 256, split
+// The unpack is what the tool measures: kDcPermute (the serving decode's,
+// above), kDcShift (kern_s32's: sign-extend the byte, (b << 28) >> 28 or
+// b >> 4, the conversion unit) or kDcMagic (the TPU's s4 -> bf16 convert has
+// no Hopper counterpart: bias by 8, lop3 a nibble pair into the low
+// mantissa of the bf16 pair 128.0, 128.0, one bf16x2 subtraction of 136).
+// Every nibble is a bf16 value, so the three are exact and differ in time
+// only.  A merge is npg whole pages (the tool's grid step) and a unit of
+// the split.  With split, even and odd keys accumulate apart and finish as
+// the tool's runner does (each half divided by l and rounded to bf16, the
+// halves summed in bf16): a stage's columns hold its 32 even keys, then its
+// 32 odd ones (as its scales lie in the ring), so the widened V tile's rows
+// 0-31 feed the even accumulator and rows 32-63 the odd one, and a byte row
+// is read once for both.  The tool's 16 rows share one K/V: what bounds
+// these sites is the per-stage consumer work of the 128 (row, kv head)
+// cells' 16,384 stages (8.9 MB of unique K/V, 142 MB through L2), not the
+// bytes.
 
 #pragma once
 
@@ -67,14 +90,36 @@ constexpr int kDcD = 128;                      // head_dim_store
 constexpr int kDcRows = 64;                    // query rows a CTA at most
 constexpr int kDcQStride = 132;                // bf16 a Q row
 constexpr int kDcVStride = 136;                // bf16 a row of the widened V tile
-constexpr int kDcMaxMerge = 512;               // keys of a page merge at most
+constexpr int kDcMaxMerge = 512;               // keys of a page merge at most (serving)
 constexpr int kDcScoreBudget = 72 * 1024;      // the rows' scores of a merge
-constexpr int kDcPartial = kDcRows * (kDcD + 2);  // floats of a CTA's partial
 constexpr int kDcKW = kDcKeys / kDcWarps;      // a warp's keys of a stage's scores
 constexpr int kDcKT = kDcKW / 8;               // their n-tiles
 constexpr int kDcCW = kDcD / kDcWarps;         // a warp's output columns
 constexpr int kDcVT = kDcCW / 8;               // their n-tiles
 static_assert(kDcKT >= 1 && kDcVT >= 1, "a warp takes whole n-tiles");
+
+// how a payload word becomes bf16 (dc_word)
+enum DcUnpack { kDcPermute = 0, kDcShift = 1, kDcMagic = 2 };
+
+// the compiled policies of an instantiation: the unpack, the keys a merge
+// at most (the size of the merge's register row and V scales) and whether
+// even and odd keys accumulate apart.  The tool's (unpack other than
+// kDcPermute) merge npg whole pages, a unit of the split each; the serving
+// decode's follow dc_merge_keys, a page a unit.
+template <int UNPACK, int MAX_MERGE, bool SPLIT>
+struct DcPolicy {
+  static constexpr int kUnpack = UNPACK, kMaxMerge = MAX_MERGE;
+  static constexpr bool kSplit = SPLIT, kTool = UNPACK != kDcPermute;
+  static constexpr int kAcc = SPLIT ? 2 : 1;  // accumulators
+  static_assert(!SPLIT || kTool, "the split accumulators are the tool's");
+};
+using DcServing = DcPolicy<kDcPermute, kDcMaxMerge, false>;
+
+// floats of a CTA's partial: its accumulators, m and l
+template <typename Pol>
+__host__ __device__ constexpr int dc_partial() {
+  return kDcRows * (Pol::kAcc * kDcD + 2);
+}
 
 struct DcArgs {
   const bf16* q;
@@ -83,7 +128,7 @@ struct DcArgs {
   const int *tables, *lengths, *glob_lengths;
   bf16* o;
   float *l, *m;
-  float* ws;     // (slots, kv heads x row groups, splits) partials of kDcPartial
+  float* ws;     // (slots, kv heads x row groups, splits) partials (dc_partial)
   int* tickets;  // (slots, kv heads x row groups), zero between launches
   int n_q, n_kv, d, page_size, n_pages, max_pages, gamma, page_stride, page_offset;
   float scale_log2e;
@@ -109,15 +154,15 @@ __host__ __device__ inline int dc_merge_keys(int page_size, int rows) {
   return page_merge ? page_size : kDcKeys;
 }
 
-// shared memory of a CTA of `rows` query rows (native.decode_tc_smem mirrors
-// it): the ring, Q (rows padded to 16), two widened V tiles, the rows'
-// scores (stride merge + 4 floats), the V scales of a merge, m, l and alpha
-// a padded row, the barriers and the ticket flag
-template <typename P>
+// shared memory of a CTA of `rows` query rows (native.decode_tc_smem and
+// native._dc_smem mirror it): the ring, Q (rows padded to 16), two widened V
+// tiles, the rows' scores (stride merge + 4 floats), the V scales of a
+// merge, m, l and alpha a padded row, the barriers and the ticket flag
+template <typename P, typename Pol = DcServing>
 inline int dc_smem(int rows, int merge) {
   const int padded = (rows + 15) / 16 * 16;
   return kDcRing * dc_slot<P>() + padded * kDcQStride * 2 + 2 * kDcKeys * kDcVStride * 2 +
-         rows * (merge + 4) * 4 + kDcMaxMerge * 4 + 3 * padded * 4 + 2 * kDcRing * 8 + 16;
+         rows * (merge + 4) * 4 + Pol::kMaxMerge * 4 + 3 * padded * 4 + 2 * kDcRing * 8 + 16;
 }
 
 // the physical dimension of logical k 2t (k-step ks, thread t = lane % 4):
@@ -126,14 +171,40 @@ __device__ __forceinline__ int dc_dim(int ks, int t) {
   return (ks >> 2) * 64 + 16 * t + 4 * (ks & 3);
 }
 
+// kDcMagic's pair: the nibbles (biased by 8) in the low bits of each half
+// of x into the low mantissa of bf16 128.0 (one lop3: (x & 0xF) | 128.0),
+// then 136 off both halves (one bf16x2 subtraction): the signed values
+__device__ __forceinline__ uint32_t dc_magic_pair(uint32_t x) {
+  uint32_t r;
+  asm("lop3.b32 %0, %1, %2, %3, 0xea;" : "=r"(r) : "r"(x), "r"(0x000F000Fu), "r"(0x43004300u));
+  const __nv_bfloat162 v =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&r), __floats2bfloat162_rn(136.f, 136.f));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // a one-byte payload word's four values (bytes 0-3) as two bf16 pairs,
 // (0, 1) in lo and (2, 3) in hi, exact (every payload value is a bf16
-// value); int4: the nibbles of key parity `odd`.  Integers go without the
-// conversion unit: byte u (0-255, the value offset to be unsigned) under
-// the bits of 1.5 x 2^23 (one byte permute), the offset then subtracted.
-template <typename P>
+// value); int4: the nibbles of key parity `odd`.  kDcPermute: integers go
+// without the conversion unit: byte u (0-255, the value offset to be
+// unsigned) under the bits of 1.5 x 2^23 (one byte permute), the offset
+// then subtracted.  kDcShift and kDcMagic: the tool's int4 methods.
+template <typename P, int UNPACK = kDcPermute>
 __device__ __forceinline__ void dc_word(uint32_t wd, int odd, uint32_t& lo, uint32_t& hi) {
-  if constexpr (std::is_same<P, int8_t>::value || Payload<P>::kPack == 2) {
+  static_assert(UNPACK == kDcPermute || Payload<P>::kPack == 2, "the tool's methods are int4's");
+  if constexpr (UNPACK == kDcShift) {
+    float f[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int b = static_cast<int>(wd << (24 - 8 * k)) >> 24;
+      f[k] = static_cast<float>(odd ? b >> 4 : (b << 28) >> 28);
+    }
+    lo = pack2<bf16>(f[0], f[1]);
+    hi = pack2<bf16>(f[2], f[3]);
+  } else if constexpr (UNPACK == kDcMagic) {
+    const uint32_t y = (odd ? wd >> 4 : wd) ^ 0x08080808u;
+    lo = dc_magic_pair(__byte_perm(y, 0, 0x4140));  // bytes 0, 1 in the halves' low bytes
+    hi = dc_magic_pair(__byte_perm(y, 0, 0x4342));  // bytes 2, 3
+  } else if constexpr (std::is_same<P, int8_t>::value || Payload<P>::kPack == 2) {
     uint32_t u;
     float off;
     if constexpr (Payload<P>::kPack == 2) {  // nibbles: 4-bit two's complement
@@ -171,17 +242,27 @@ __device__ __forceinline__ void ldsm_x4_trans(const void* p, uint32_t& r0, uint3
                : "r"(smem_u32(p)));
 }
 
+// the split finish (the tool's de-interleave): each half over l rounded to
+// bf16, the halves summed and rounded
+__device__ __forceinline__ bf16 dc_halves(float even, float odd, float div) {
+  return __float2bfloat16(__bfloat162float(__float2bfloat16(even / div)) +
+                          __bfloat162float(__float2bfloat16(odd / div)));
+}
+
 // one row tile of a one-byte payload: two CTAs an SM (288 threads of at
 // most 112 registers); the bf16 cache (whose body a cap spills) or more
 // rows: one
-template <typename P, int RT>
+template <typename P, int RT, typename Pol = DcServing>
 __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
     decode_tc_kernel(const __grid_constant__ DcArgs a) {
   constexpr int PACK = Payload<P>::kPack;
   constexpr bool QUANT = Payload<P>::kQuant;
   constexpr bool WIDE = sizeof(P) == 2;  // the bf16 cache: 256-byte rows
+  constexpr bool SPLIT = Pol::kSplit;    // a stage's columns: its even keys, then its odd ones
   constexpr int RP = 16 * RT;
-  constexpr int PAYLOAD = dc_payload<P>(), SLOT = dc_slot<P>();
+  constexpr int PAYLOAD = dc_payload<P>(), SLOT = dc_slot<P>(), PART = dc_partial<Pol>();
+  constexpr int ML = Pol::kAcc * kDcRows * kDcD;  // m and l in a partial
+  static_assert(!SPLIT || (PACK == 2 && RT == 1), "the split accumulators: int4, one row tile");
   constexpr int ROW = kDcD * static_cast<int>(sizeof(P));  // bytes a stored row
   extern __shared__ __align__(128) unsigned char smem[];
   const int U = a.merge_keys, SST = U + 4;
@@ -191,7 +272,7 @@ __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
   bf16* Vt = Qs + RP * kDcQStride;  // two tiles of kDcKeys rows of kDcVStride
   float* Ss = reinterpret_cast<float*>(Vt + 2 * kDcKeys * kDcVStride);
   float* vs_sh = Ss + SR * SST;
-  float* m_sh = vs_sh + kDcMaxMerge;
+  float* m_sh = vs_sh + Pol::kMaxMerge;
   float* l_sh = m_sh + RP;
   float* al_sh = l_sh + RP;
   uint64_t* full = reinterpret_cast<uint64_t*>(al_sh + RP);
@@ -223,10 +304,17 @@ __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
                                    : 0);
   }
   // stages: a page of >= 64 keys is spp stages and a unit of the split; a
-  // stage of pages of 16 or 32 is ppst pages and a unit
+  // stage of pages of 16 or 32 is ppst pages and a unit; the tool's unit is
+  // a merge of U / ps whole pages, spu stages
   const int spp = ps >= kDcKeys ? ps / kDcKeys : 1, ppst = ps >= kDcKeys ? 1 : kDcKeys / ps;
   const int live = max(0, count - first);
-  const int units = ps >= kDcKeys ? live : (live + ppst - 1) / ppst;
+  int units, spu = spp;
+  if constexpr (Pol::kTool) {
+    units = (live + U / ps - 1) / (U / ps);
+    spu = U / kDcKeys;
+  } else {
+    units = ps >= kDcKeys ? live : (live + ppst - 1) / ppst;
+  }
   const int per = (units + a.splits - 1) / a.splits;
   const int runs = per ? (units + per - 1) / per : 0;  // non-empty runs
   if (split >= max(runs, 1)) return;
@@ -239,7 +327,7 @@ __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
       }
     return;
   }
-  const int s0 = split * per * spp, s1 = min(split * per + per, units) * spp;
+  const int s0 = split * per * spu, s1 = min(split * per + per, units) * spu;
   const int mg = U / kDcKeys;  // stages a merge (divides the run)
 
   if (tid == 0) {
@@ -315,12 +403,16 @@ __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
     for (int h = 0; h < 2; ++h) q_pos[rt][h] = glen - a.gamma + (r0 + 16 * rt + gq + 8 * h) % a.gamma;
 
   float acc[RT][kDcVT][4];
+  float acc_odd[SPLIT ? RT : 1][kDcVT][4];  // SPLIT: the odd keys'
 #pragma unroll
   for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
     for (int nt = 0; nt < kDcVT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[rt][nt][e] = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        acc[rt][nt][e] = 0.f;
+        if constexpr (SPLIT) acc_odd[rt][nt][e] = 0.f;
+      }
 
   int it = 0, vt = 0;
   for (int sg = s0; sg < s1; sg += mg) {
@@ -331,17 +423,26 @@ __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
       const unsigned char* kb = ring + st * SLOT;
       const float* ksc = reinterpret_cast<const float*>(kb + PAYLOAD);
       // key k's scale in the item: int4 pieces hold the even tokens' first
+      // (SPLIT: column k's is the item's k-th, the columns lie so)
       auto scale_at = [&](int k) {
+        if constexpr (SPLIT) return k;
         const int ki = k & (pt - 1);
         return PACK == 2 ? k - ki + (ki & 1) * (pt >> 1) + (ki >> 1) : k;
       };
-      const int k0 = kDcKW * w;  // this warp's first key of the stage
+      const int k0 = kDcKW * w;  // this warp's first key (SPLIT: column) of the stage
       if (QUANT && lane < kDcKW)  // the V scales of this warp's keys, for the merge
         vs_sh[j * kDcKeys + k0 + lane] = ksc[kDcKeys + scale_at(k0 + lane)];
       // this warp's keys lie in one piece (pt >= 16): the position of its
-      // first; this thread's are 8 nt + 2 t + e on from it
-      const int kv0 = (page_of(s, k0 >> lpt) * a.page_stride + a.page_offset) * ps +
-                      key0_of(s) + (k0 & (pt - 1));
+      // first; this thread's are KS (8 nt + 2 t + e) on from it.  SPLIT
+      // (pages of >= 64 keys): column c is key 2 (c % 32) + c / 32
+      constexpr int KS = SPLIT ? 2 : 1;
+      int kv0;
+      if constexpr (SPLIT)
+        kv0 = (page_of(s, 0) * a.page_stride + a.page_offset) * ps + key0_of(s) +
+              2 * (k0 & 31) + (k0 >> 5);
+      else
+        kv0 = (page_of(s, k0 >> lpt) * a.page_stride + a.page_offset) * ps + key0_of(s) +
+              (k0 & (pt - 1));
       float mul[kDcKT][2];
 #pragma unroll
       for (int nt = 0; nt < kDcKT; ++nt)
@@ -353,7 +454,9 @@ __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
 #pragma unroll
       for (int nt = 0; nt < kDcKT; ++nt) {
         const int key = k0 + 8 * nt + gq;
-        const unsigned char* row = kb + (PACK == 2 ? key >> 1 : key) * ROW;
+        // SPLIT: column key is byte row key % 32's nibble key / 32
+        const unsigned char* row = kb + (SPLIT ? key & 31 : PACK == 2 ? key >> 1 : key) * ROW;
+        const int nib = SPLIT ? k0 >> 5 : par;
         if constexpr (WIDE) {
           // the halves in another order on odd keys: a quarter warp's two
           // rows (256 bytes apart) on other banks
@@ -382,7 +485,7 @@ __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
           for (int ks = 0; ks < 8; ++ks) {
             const uint4 v = x[ks >> 2];
             const uint32_t wd = (ks & 3) == 0 ? v.x : (ks & 3) == 1 ? v.y : (ks & 3) == 2 ? v.z : v.w;
-            dc_word<P>(wd, par, bf[nt][ks][0], bf[nt][ks][1]);
+            dc_word<P, Pol::kUnpack>(wd, nib, bf[nt][ks][0], bf[nt][ks][1]);
           }
         }
       }
@@ -407,10 +510,10 @@ __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
 #pragma unroll
           for (int nt = 0; nt < kDcKT; ++nt) {
             float2 v;
-            const int kp = kv0 + 8 * nt + 2 * t;
+            const int kp = kv0 + KS * (8 * nt + 2 * t);
             v.x = visible(q_pos[rt][h], kp, a.window, a.log2_stride, a.is_local)
                       ? sc[nt][2 * h] * mul[nt][0] : neg_inf();
-            v.y = visible(q_pos[rt][h], kp + 1, a.window, a.log2_stride, a.is_local)
+            v.y = visible(q_pos[rt][h], kp + KS, a.window, a.log2_stride, a.is_local)
                       ? sc[nt][2 * h + 1] * mul[nt][1] : neg_inf();
             *reinterpret_cast<float2*>(Ss + r * SST + j * kDcKeys + k0 + 8 * nt + 2 * t) = v;
           }
@@ -420,16 +523,21 @@ __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
     named_sync(1, kDcConsumers);
     // -- the merge: m, l and P = bf16(p x V scale) in place, a warp a row
     // (every float of a row is read before its bf16 P is written over the
-    // row's first half) --
+    // row's first half: P of keys 32 i.. lies on floats 16 i.., which the
+    // warp read at step i / 2).  Up to 512 keys the row is held in
+    // registers; past that (the tool's 1,024) it is read twice, so that the
+    // body keeps its registers --
+    constexpr bool HOLD = Pol::kMaxMerge <= kDcMaxMerge;
     for (int r = w; r < R; r += kDcWarps) {
       float* row = Ss + r * SST;
-      float x[kDcMaxMerge / 32];
+      float x[HOLD ? Pol::kMaxMerge / 32 : 1];
       float mx = neg_inf();
 #pragma unroll
-      for (int i = 0; i < kDcMaxMerge / 32; ++i)
+      for (int i = 0; i < Pol::kMaxMerge / 32; ++i)
         if (32 * i < U) {
-          x[i] = row[lane + 32 * i];
-          mx = fmaxf(mx, x[i]);
+          const float xi = row[lane + 32 * i];
+          if constexpr (HOLD) x[i] = xi;
+          mx = fmaxf(mx, xi);
         }
       mx = warp_max(mx);
       const float m_prev = m_sh[r], m_next = fmaxf(m_prev, mx);
@@ -438,10 +546,17 @@ __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
       float lsum = 0.f;
       __syncwarp();
 #pragma unroll
-      for (int i = 0; i < kDcMaxMerge / 32; ++i)
+      for (int i = 0; i < Pol::kMaxMerge / 32; ++i)
         if (32 * i < U) {
           const int k = lane + 32 * i;
-          const float p = alive ? exp2f(x[i] - m_next) : 0.f;
+          float xi;
+          if constexpr (HOLD) {
+            xi = x[i];
+          } else {
+            xi = row[k];
+            __syncwarp();  // the warp's step-i floats are read before any P lands on them
+          }
+          const float p = alive ? exp2f(xi - m_next) : 0.f;
           lsum += p;
           reinterpret_cast<bf16*>(row)[k] = __float2bfloat16(QUANT ? p * vs_sh[k] : p);
         }
@@ -462,6 +577,10 @@ __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
         for (int nt = 0; nt < kDcVT; ++nt) {
           acc[rt][nt][2 * h] *= alpha;
           acc[rt][nt][2 * h + 1] *= alpha;
+          if constexpr (SPLIT) {
+            acc_odd[rt][nt][2 * h] *= alpha;
+            acc_odd[rt][nt][2 * h + 1] *= alpha;
+          }
         }
       }
     // -- O += P V over the merge's stages --
@@ -471,9 +590,29 @@ __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
       const unsigned char* vb = ring + st * SLOT;
       bf16* vtile = Vt + (vt & 1) * kDcKeys * kDcVStride;
       // widen the stage's V rows to a row-major bf16 tile: a unit is a key
-      // and 16 columns (16 raw bytes: a quarter warp reads 128 in a row)
+      // and 16 columns (16 raw bytes: a quarter warp reads 128 in a row).
+      // SPLIT: a unit is a byte row c and 16 columns, its low nibbles tile
+      // row c (an even key), its high ones row 32 + c
+      if constexpr (SPLIT) {
+        static_assert(kDcKeys / 2 * 8 == kDcConsumers, "a unit a consumer thread");
+        const int c16 = tid & 7, brow = tid >> 3;
+        const uint4 x = *reinterpret_cast<const uint4*>(vb + brow * ROW + 16 * c16);
+        const uint32_t wd[4] = {x.x, x.y, x.z, x.w};
+        uint32_t ev[8], od[8];
 #pragma unroll
-      for (int u2 = 0; u2 < kDcKeys * 8 / kDcConsumers; ++u2) {
+        for (int i = 0; i < 4; ++i) {
+          dc_word<P, Pol::kUnpack>(wd[i], 0, ev[2 * i], ev[2 * i + 1]);
+          dc_word<P, Pol::kUnpack>(wd[i], 1, od[2 * i], od[2 * i + 1]);
+        }
+        uint4* de = reinterpret_cast<uint4*>(vtile + brow * kDcVStride + 16 * c16);
+        uint4* dd = reinterpret_cast<uint4*>(vtile + (32 + brow) * kDcVStride + 16 * c16);
+        de[0] = make_uint4(ev[0], ev[1], ev[2], ev[3]);
+        de[1] = make_uint4(ev[4], ev[5], ev[6], ev[7]);
+        dd[0] = make_uint4(od[0], od[1], od[2], od[3]);
+        dd[1] = make_uint4(od[4], od[5], od[6], od[7]);
+      }
+#pragma unroll
+      for (int u2 = 0; u2 < (SPLIT ? 0 : kDcKeys * 8 / kDcConsumers); ++u2) {
         const int u = tid + kDcConsumers * u2, c16 = u & 7, key = u >> 3;
         uint32_t words[8];
         if constexpr (WIDE) {
@@ -487,7 +626,7 @@ __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
           const uint32_t wd[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            dc_word<P>(wd[i], key & 1, words[2 * i], words[2 * i + 1]);
+            dc_word<P, Pol::kUnpack>(wd[i], key & 1, words[2 * i], words[2 * i + 1]);
           }
         }
         uint4* dst = reinterpret_cast<uint4*>(vtile + key * kDcVStride + 16 * c16);
@@ -519,8 +658,13 @@ __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
           const uint32_t a0 = r < R ? p0[0] : 0u, a2 = r < R ? p0[4] : 0u;
           const uint32_t a1 = r + 8 < R ? p1[0] : 0u, a3 = r + 8 < R ? p1[4] : 0u;
 #pragma unroll
-          for (int nt = 0; nt < kDcVT; ++nt)
-            mma_16816(acc[rt][nt], a0, a1, a2, a3, vf[nt][0], vf[nt][1]);
+          for (int nt = 0; nt < kDcVT; ++nt) {
+            // SPLIT: k-steps 0-1 are the even keys (tile rows 0-31), 2-3 the odd
+            if (SPLIT && kk >= 2)
+              mma_16816(acc_odd[SPLIT ? rt : 0][nt], a0, a1, a2, a3, vf[nt][0], vf[nt][1]);
+            else
+              mma_16816(acc[rt][nt], a0, a1, a2, a3, vf[nt][0], vf[nt][1]);
+          }
         }
       }
     }
@@ -543,7 +687,12 @@ __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int c = kDcCW * w + 8 * nt + 2 * t + e;
-            if (c < a.d) a.o[oi + c] = __float2bfloat16(acc[rt][nt][2 * h + e] / div);
+            if constexpr (SPLIT) {
+              if (c < a.d) a.o[oi + c] = dc_halves(acc[rt][nt][2 * h + e],
+                                                   acc_odd[rt][nt][2 * h + e], div);
+            } else {
+              if (c < a.d) a.o[oi + c] = __float2bfloat16(acc[rt][nt][2 * h + e] / div);
+            }
           }
       }
     if (a.l != nullptr)
@@ -554,7 +703,7 @@ __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
     return;
   }
   const size_t cell = static_cast<size_t>(b) * gridDim.y + cta_rows;
-  float* mine = a.ws + (cell * a.splits + split) * kDcPartial;
+  float* mine = a.ws + (cell * a.splits + split) * PART;
 #pragma unroll
   for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
@@ -562,13 +711,17 @@ __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
       const int r = 16 * rt + gq + 8 * h;
       if (r >= R) continue;
 #pragma unroll
-      for (int nt = 0; nt < kDcVT; ++nt)
+      for (int nt = 0; nt < kDcVT; ++nt) {
         *reinterpret_cast<float2*>(mine + r * kDcD + kDcCW * w + 8 * nt + 2 * t) =
             make_float2(acc[rt][nt][2 * h], acc[rt][nt][2 * h + 1]);
+        if constexpr (SPLIT)  // the odd keys' accumulator after the even one's
+          *reinterpret_cast<float2*>(mine + (kDcRows + r) * kDcD + kDcCW * w + 8 * nt + 2 * t) =
+              make_float2(acc_odd[rt][nt][2 * h], acc_odd[rt][nt][2 * h + 1]);
+      }
     }
   for (int r = tid; r < R; r += kDcConsumers) {
-    mine[kDcRows * kDcD + r] = m_sh[r];
-    mine[kDcRows * kDcD + kDcRows + r] = l_sh[r];
+    mine[ML + r] = m_sh[r];
+    mine[ML + kDcRows + r] = l_sh[r];
   }
   __threadfence();
   named_sync(1, kDcConsumers);
@@ -580,19 +733,21 @@ __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
   named_sync(1, kDcConsumers);
   if (!*flag) return;
   __threadfence();
-  const float* parts = a.ws + cell * a.splits * kDcPartial;
+  const float* parts = a.ws + cell * a.splits * PART;
   for (int i = tid; i < R * kDcD; i += kDcConsumers) {
     const int r = i / kDcD, c = i % kDcD;
     float M = neg_inf();
-    for (int sp = 0; sp < runs; ++sp) M = fmaxf(M, __ldcg(parts + sp * kDcPartial + kDcRows * kDcD + r));
-    float L = 0.f, O = 0.f;
+    for (int sp = 0; sp < runs; ++sp) M = fmaxf(M, __ldcg(parts + sp * PART + ML + r));
+    float L = 0.f, O = 0.f, O_odd = 0.f;
     for (int sp = 0; sp < runs; ++sp) {
-      const float* part = parts + sp * kDcPartial;
-      const float f = exp2f(__ldcg(part + kDcRows * kDcD + r) - M);
-      L += __ldcg(part + kDcRows * kDcD + kDcRows + r) * f;
+      const float* part = parts + sp * PART;
+      const float f = exp2f(__ldcg(part + ML + r) - M);
+      L += __ldcg(part + ML + kDcRows + r) * f;
       O += __ldcg(part + r * kDcD + c) * f;
+      if constexpr (SPLIT) O_odd += __ldcg(part + (kDcRows + r) * kDcD + c) * f;
     }
-    if (c < a.d) a.o[q_index(r) + c] = __float2bfloat16(O / (L == 0.f ? 1.f : L));
+    const float div = L == 0.f ? 1.f : L;
+    if (c < a.d) a.o[q_index(r) + c] = SPLIT ? dc_halves(O, O_odd, div) : __float2bfloat16(O / div);
     if (c == 0 && a.l != nullptr) {
       a.l[q_index(r) / a.d] = L;
       a.m[q_index(r) / a.d] = M;
@@ -600,21 +755,19 @@ __global__ void __launch_bounds__(kDcThreads, RT == 1 && sizeof(P) == 1 ? 2 : 1)
   }
 }
 
-// The launch: grid (splits, kv heads x row groups, slots), 160 threads.
-// walk (nullable, host) gets {1 (the tensor-core body), splits, CTAs}
-// before anything can fail.
-template <typename P, int RT>
+// The launch: grid (splits, kv heads x row groups, slots), 288 threads, and
+// a.merge_keys keys a merge (dc_merge_keys; the tool's: npg pages).  walk
+// (nullable, host) gets {1 (the tensor-core body), splits, CTAs} before
+// anything can fail.
+template <typename P, int RT, typename Pol = DcServing>
 int decode_tc_launch(const DcArgs& a, int S, cudaStream_t stream) {
   const int rows = min(a.n_q / a.n_kv * a.gamma, kDcRows);
-  const int merge = dc_merge_keys(a.page_size, rows);
-  const int smem = dc_smem<P>(rows, merge);
+  const int smem = dc_smem<P, Pol>(rows, a.merge_keys);
   if (smem > 232448) return cudaErrorInvalidValue;
-  DcArgs args = a;
-  args.merge_keys = merge;
-  auto kernel = decode_tc_kernel<P, RT>;
+  auto kernel = decode_tc_kernel<P, RT, Pol>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(a.splits, a.n_kv * a.row_groups, S), kDcThreads, smem, stream>>>(args);
+  kernel<<<dim3(a.splits, a.n_kv * a.row_groups, S), kDcThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -634,9 +787,34 @@ int decode_tc(const DcArgs& a, int S, int d_store, int* walk, cudaStream_t strea
     return cudaErrorInvalidValue;
   if (S == 0) return cudaSuccess;
   const int rp = min(rows, kDcRows);
-  if (rp <= 16) return decode_tc_launch<P, 1>(a, S, stream);
-  if (rp <= 32) return decode_tc_launch<P, 2>(a, S, stream);
-  return decode_tc_launch<P, 4>(a, S, stream);
+  DcArgs args = a;
+  args.merge_keys = dc_merge_keys(ps, rp);
+  if (rp <= 16) return decode_tc_launch<P, 1>(args, S, stream);
+  if (rp <= 32) return decode_tc_launch<P, 2>(args, S, stream);
+  return decode_tc_launch<P, 4>(args, S, stream);
+}
+
+// One of the int4 unpack tool's sites: S rows of g <= 16 query rows a kv
+// head (one row tile), gamma 1, head dim 128, over pages of a multiple of
+// 64 keys in merges of npg pages (a.merge_keys, at most the policy's cap);
+// the caller gives the tables, lengths, workspace, tickets and splits
+// (native.exp_int4_plan).  walk as decode_tc's.
+template <typename Pol>
+int decode_tc_tool(const DcArgs& a, int S, int* walk, cudaStream_t stream) {
+  static_assert(Pol::kTool, "the tool's policies");
+  if (walk) {
+    walk[0] = 1;
+    walk[1] = a.splits;
+    walk[2] = a.splits * a.n_kv * S;
+  }
+  const int ps = a.page_size, U = a.merge_keys;
+  if (a.n_kv < 1 || a.n_q % a.n_kv || a.n_q / a.n_kv > 16 || a.gamma != 1 || a.d != kDcD ||
+      a.splits < 1 || a.ws == nullptr || a.tickets == nullptr || a.row_groups != 1 ||
+      ps < kDcKeys || ps % kDcKeys || U < ps || U % ps || U > Pol::kMaxMerge ||
+      a.n_kv > 65535 || S > 65535)
+    return cudaErrorInvalidValue;
+  if (S == 0) return cudaSuccess;
+  return decode_tc_launch<int4x2, 1, Pol>(a, S, stream);
 }
 
 }  // namespace tc

@@ -1,39 +1,28 @@
-// The decode kernels of the experiment tools, for Hopper (sm_90a).
+// The decode kernels of the experiment tools still on a scalar body, for
+// Hopper (sm_90a).
 //
 //   fa_exp_int4_int8ref  <- tools/exp_int4_unpack.py::kern_int8ref (:69, call :254)
-//   fa_exp_int4_s32      <- tools/exp_int4_unpack.py::kern_s32, npg 1 (:92, call :264)
-//   fa_exp_int4_twopage  <- tools/exp_int4_unpack.py::kern_s32, npg 2 (call :274)
-//   fa_exp_int4_fourpage <- tools/exp_int4_unpack.py::kern_s32, npg 4 (call :284)
 //   fa_exp_int4_int8_2pg <- tools/exp_int4_unpack.py::kern_int8ref_npg, npg 2 (:123, call :294)
-//   fa_exp_int4_bitcast  <- tools/exp_int4_unpack.py::kern_bitcast (:149, call :314)
 //   fa_exp_paged_decode  <- tools/exp_decode.py::_decode_kernel (:35, call :159)
 //
-// One kernel, decode_kernel: single-token attention of G query rows (one
-// kv head's group) over a K/V of quantized token rows, d = 128, with
-// per-token float32 scales.  The TPU kernels' grid (row, page) becomes one
-// CTA per (row b, kv head h) that loops over its pages in steps of npg
-// pages; a step's pages are staged in shared memory (int8 bytes, rows
-// padded to 33 words), scored in full, merged into the running (m, l, acc)
-// with one online-softmax update (the step's maximum, as the TPU kernel's
-// grid step), then multiplied into acc.  npg therefore keeps its meaning:
-// pages loaded per loop iteration before their softmax.
+// The int4 unpack tool's four int4 sites run the serving decode's
+// tensor-core body as compiled policies (decode_tc.cuh, entries in
+// serving_kernels.cu).
 //
-// Payloads: int8 token rows; int4 nibble pairs (byte row r of a page holds
-// token 2r in its low nibble and 2r+1 in its high one, scales (pages, 2,
-// rows): sublane 0 the even tokens', 1 the odd ones').  kInt4Shift unpacks
-// as the tool's kern_s32 does (sign-extend the byte, shift each nibble
-// out).  kInt4Magic replaces the TPU's native s4->bf16 convert, which
-// Hopper lacks, by a register conversion of two nibbles at a time: bias
-// every nibble by 8 (one xor), lop3 a nibble pair into the low mantissa of
-// the bf16 pair 128.0, 128.0, and subtract 136.0 with one bf16x2
-// instruction.  Its even and odd tokens accumulate apart and finish as the
-// tool's runner does: each half divided by l and rounded to bf16, and the
-// two halves summed in bf16 (the de-interleave, exp_int4_unpack.py:311).
+// One kernel, decode_kernel: single-token attention of G query rows (one
+// kv head's group) over a K/V of int8 token rows, d = 128, with per-token
+// float32 scales.  The TPU kernels' grid (row, page) becomes one CTA per
+// (row b, kv head h) that loops over its pages in steps of npg pages; a
+// step's pages are staged in shared memory (int8 bytes, rows padded to 33
+// words), scored in full, merged into the running (m, l, acc) with one
+// online-softmax update (the step's maximum, as the TPU kernel's grid
+// step), then multiplied into acc.  npg therefore keeps its meaning: pages
+// loaded per loop iteration before their softmax.  Scales (pages, 1, page).
 //
 // Variants (exp_decode.py): kCurrent dequantizes K/V (bf16(bf16(x) *
 // bf16(scale))); kPostscale puts the scales on s and p, which is also the
-// int8ref and s32 kernels' math; kInt8mm quantizes q per row and p per row
-// per page (IEEE division, round half to even) and takes int8 products with
+// int8ref kernels' math; kInt8mm quantizes q per row and p per row per
+// page (IEEE division, round half to even) and takes int8 products with
 // __dp4a (int32 sums, exact): the codes and the integer scores equal the
 // plain version's bit for bit, and the float steps around them are written
 // with __fmul_rn / __fsub_rn / __fdiv_rn so nvcc contracts nothing into an
@@ -47,11 +36,10 @@
 // payload: 276.8 MB for exp_decode's 16 x 8192 tokens), but a CTA streams
 // its pages with plain 16-byte loads, one step at a time, with no copy in
 // flight during the step's arithmetic, and the 128 CTAs hold one each on
-// 132 SMs: the kernel runs at what one SM's loads in flight can fetch.
-// Scores take a thread per staged byte row, so an int4 step of one page
-// (128 byte rows) leaves half the CTA idle there; two or four pages a step
-// fill it.  Overlapping the next step's copy (cp.async or TMA into a second
-// buffer) is the next lever.
+// 132 SMs; scores and P V are scalar FP32 FMA, a thread a staged row, six
+// __syncthreads a step.  The kernel runs at what one SM's loads in flight
+// and FMA lanes give.  The redesign is the decode's tensor-core body with
+// an int8 payload, as the int4 sites have had.
 //
 // Each extern "C" entry launches one kernel on the caller's stream,
 // allocates nothing, and returns cudaGetLastError() (or
@@ -71,14 +59,13 @@ constexpr int LDW = 33;    // words per staged row (32 + 1: conflict-free rows)
 constexpr int GMAX = 8;
 constexpr int MAX_SMEM = 232448;
 
-enum Payload { kInt8 = 0, kInt4Shift = 1, kInt4Magic = 2 };
 enum Variant { kCurrent = 0, kPostscale = 1, kInt8mm = 2 };
 
 struct DecArgs {
   const bf16* q;                 // (B, n_kv, G, D)
   const int8_t* k;               // (n_kv, n_pages, rows, D)
   const int8_t* v;
-  const float* ks;               // (n_kv, n_pages, pack, rows)
+  const float* ks;               // (n_kv, n_pages, 1, rows)
   const float* vs;
   const int* tables;             // (B, max_pages), or null: page p is p
   const int* lengths;            // (B,), or null: every token live
@@ -116,51 +103,10 @@ __device__ __forceinline__ void bytes4(uint32_t x, float (&f)[4]) {
   for (int e = 0; e < 4; ++e) f[e] = static_cast<float>(static_cast<int>(x << (24 - 8 * e)) >> 24);
 }
 
-// kern_s32's unpack: each byte sign-extended to int32, the low nibble by
-// (b << 28) >> 28, the high one by b >> 4
-__device__ __forceinline__ void nibbles_shift(uint32_t x, float (&lo)[4], float (&hi)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int b = static_cast<int>(x << (24 - 8 * e)) >> 24;
-    lo[e] = static_cast<float>((b << 28) >> 28);
-    hi[e] = static_cast<float>(b >> 4);
-  }
-}
-
-__device__ __forceinline__ uint32_t lop3_and_or(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t r;
-  asm("lop3.b32 %0, %1, %2, %3, 0xea;" : "=r"(r) : "r"(a), "r"(b), "r"(c));  // (a & b) | c
-  return r;
-}
-
-// eight signed nibbles of a word to bf16 pairs, two a conversion: with
-// every nibble biased by 8, nibble n in the low mantissa of bf16 128.0
-// reads 128 + n, and one bf16x2 subtraction of 136 gives n - 8, the signed
-// value.  lo/hi[e]: the low/high nibble of byte e (column e)
-__device__ __forceinline__ void nibbles_magic(uint32_t x, float (&lo)[4], float (&hi)[4]) {
-  const uint32_t y = x ^ 0x88888888u, magic = 0x43004300u, mask = 0x000F000Fu;
-  const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
-  uint32_t w[4] = {lop3_and_or(y, mask, magic), lop3_and_or(y >> 4, mask, magic),
-                   lop3_and_or(y >> 8, mask, magic), lop3_and_or(y >> 12, mask, magic)};
-  float2 f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __bfloat1622float2(__hsub2(*reinterpret_cast<__nv_bfloat162*>(&w[i]), bias));
-  // w[0]: low nibbles of bytes 0, 2; w[1]: high of 0, 2; w[2], w[3]: bytes 1, 3
-  lo[0] = f[0].x, lo[2] = f[0].y, hi[0] = f[1].x, hi[2] = f[1].y;
-  lo[1] = f[2].x, lo[3] = f[2].y, hi[1] = f[3].x, hi[3] = f[3].y;
-}
-
-template <int PAY>
-__host__ __device__ constexpr int pack() {
-  return PAY == kInt8 ? 1 : 2;
-}
-
-template <int PAY, int VAR>
+template <int VAR>
 __global__ void __launch_bounds__(NT, 1) decode_kernel(DecArgs a) {
-  constexpr int PACK = pack<PAY>();
   extern __shared__ float smem[];
-  const int G = a.G, rows = a.rows, PT = rows * PACK, TR = a.npg * rows, T = TR * PACK;
+  const int G = a.G, rows = a.rows, PT = rows, TR = a.npg * rows, T = TR;
   const int WPR = NW / G;  // warps per query row
   float* Qf = smem;                                            // G x D (kInt8mm: G x 32 code words)
   uint32_t* Ks = reinterpret_cast<uint32_t*>(Qf + GMAX * D);   // TR x LDW
@@ -215,7 +161,7 @@ __global__ void __launch_bounds__(NT, 1) decode_kernel(DecArgs a) {
     l_s[tid] = 0.f;
   }
   const int g_pv = warp / WPR, part = warp % WPR;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f}, acc_odd[4] = {0.f, 0.f, 0.f, 0.f};
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
 
   for (int st = 0; st < n_steps; ++st) {
     __syncthreads();  // the previous step's readers are done
@@ -244,13 +190,12 @@ __global__ void __launch_bounds__(NT, 1) decode_kernel(DecArgs a) {
     // scores: a thread per byte row, every query row of the group
     for (int rr = tid; rr < TR; rr += NT) {
       const int j = rr / rows, r = rr - j * rows, p = st * a.npg + j;
-      float s[GMAX][PACK];
+      float s[GMAX];
       int si[GMAX];
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
         si[g] = 0;
-#pragma unroll
-        for (int n = 0; n < PACK; ++n) s[g][n] = 0.f;
+        s[g] = 0.f;
       }
       const uint32_t* krow = Ks + rr * LDW;
       const float ks_b = VAR == kCurrent ? bf16r(ksc[rr]) : 0.f;
@@ -263,53 +208,40 @@ __global__ void __launch_bounds__(NT, 1) decode_kernel(DecArgs a) {
             if (g < G) si[g] = __dp4a(static_cast<int>(x), static_cast<int>(qc[g * 32 + w]), si[g]);
           continue;
         }
-        float kv[PACK][4];
-        if (PAY == kInt8) {
-          bytes4(x, kv[0]);
-          if (VAR == kCurrent) {
+        float kv[4];
+        bytes4(x, kv);
+        if (VAR == kCurrent) {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) kv[0][e] = bf16r(kv[0][e] * ks_b);
-          }
-        } else if (PAY == kInt4Shift) {
-          nibbles_shift(x, kv[0], kv[PACK - 1]);
-        } else {
-          nibbles_magic(x, kv[0], kv[PACK - 1]);
+          for (int e = 0; e < 4; ++e) kv[e] = bf16r(kv[e] * ks_b);
         }
 #pragma unroll
         for (int g = 0; g < GMAX; ++g) {
           if (g >= G) break;
           const float4 qv = reinterpret_cast<const float4*>(Qf)[g * 32 + w];
-#pragma unroll
-          for (int n = 0; n < PACK; ++n) {
-            float t = s[g][n];
-            t = fmaf(qv.x, kv[n][0], t);
-            t = fmaf(qv.y, kv[n][1], t);
-            t = fmaf(qv.z, kv[n][2], t);
-            t = fmaf(qv.w, kv[n][3], t);
-            s[g][n] = t;
-          }
+          float t = s[g];
+          t = fmaf(qv.x, kv[0], t);
+          t = fmaf(qv.y, kv[1], t);
+          t = fmaf(qv.z, kv[2], t);
+          t = fmaf(qv.w, kv[3], t);
+          s[g] = t;
         }
       }
+      const int tok = j * PT + r;                        // index in the step
+      const int pos = p * PT + r;
+      const bool live = !a.lengths || pos < len;
 #pragma unroll
-      for (int n = 0; n < PACK; ++n) {
-        const int tok = j * PT + n * rows + r;           // index in the step
-        const int pos = p * PT + (PACK == 1 ? r : 2 * r + n);
-        const bool live = !a.lengths || pos < len;
-#pragma unroll
-        for (int g = 0; g < GMAX; ++g) {
-          if (g >= G) break;
-          float x;
-          if (VAR == kCurrent) {
-            x = __fmul_rn(s[g][n], c);
-          } else if (VAR == kPostscale) {
-            x = __fmul_rn(s[g][n], __fmul_rn(ksc[tok], c));
-          } else {
-            x = __fmul_rn(static_cast<float>(si[g]),
-                          __fmul_rn(__fmul_rn(qs_s[g], ksc[tok]), c));
-            if (a.s_int) a.s_int[(qrow0 + g) * t_total + pos] = si[g];
-          }
-          Sc[g * T + tok] = live ? x : neg_inf();
+      for (int g = 0; g < GMAX; ++g) {
+        if (g >= G) break;
+        float x;
+        if (VAR == kCurrent) {
+          x = __fmul_rn(s[g], c);
+        } else if (VAR == kPostscale) {
+          x = __fmul_rn(s[g], __fmul_rn(ksc[tok], c));
+        } else {
+          x = __fmul_rn(static_cast<float>(si[g]), __fmul_rn(__fmul_rn(qs_s[g], ksc[tok]), c));
+          if (a.s_int) a.s_int[(qrow0 + g) * t_total + pos] = si[g];
         }
+        Sc[g * T + tok] = live ? x : neg_inf();
       }
     }
     __syncthreads();
@@ -376,10 +308,7 @@ __global__ void __launch_bounds__(NT, 1) decode_kernel(DecArgs a) {
       const float alpha = a_s[g_pv];
       const float* prow = Sc + g_pv * T;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[e] *= alpha;
-        acc_odd[e] *= alpha;
-      }
+      for (int e = 0; e < 4; ++e) acc[e] *= alpha;
       if (VAR == kInt8mm) {
         int pv[4] = {0, 0, 0, 0};
         const int8_t* pc = Pc + g_pv * T;
@@ -401,34 +330,16 @@ __global__ void __launch_bounds__(NT, 1) decode_kernel(DecArgs a) {
       } else {
         for (int rr = part; rr < TR; rr += WPR) {
           const uint32_t x = Vs[rr * LDW + lane];
-          if (PAY == kInt8) {
-            float vv[4];
-            bytes4(x, vv);
-            if (VAR == kCurrent) {
-              const float vs_b = bf16r(vsc[rr]);
+          float vv[4];
+          bytes4(x, vv);
+          if (VAR == kCurrent) {
+            const float vs_b = bf16r(vsc[rr]);
 #pragma unroll
-              for (int e = 0; e < 4; ++e) vv[e] = bf16r(vv[e] * vs_b);
-            }
-            const float pr = prow[rr];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[e] = fmaf(pr, vv[e], acc[e]);
-          } else {
-            const int j = rr / rows, r = rr - j * rows;
-            const float pe = prow[j * PT + r], po = prow[j * PT + rows + r];
-            float lo[4], hi[4];
-            if (PAY == kInt4Shift) {
-              nibbles_shift(x, lo, hi);
-#pragma unroll
-              for (int e = 0; e < 4; ++e) acc[e] = fmaf(po, hi[e], fmaf(pe, lo[e], acc[e]));
-            } else {
-              nibbles_magic(x, lo, hi);
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                acc[e] = fmaf(pe, lo[e], acc[e]);
-                acc_odd[e] = fmaf(po, hi[e], acc_odd[e]);
-              }
-            }
+            for (int e = 0; e < 4; ++e) vv[e] = bf16r(vv[e] * vs_b);
           }
+          const float pr = prow[rr];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[e] = fmaf(pr, vv[e], acc[e]);
         }
       }
     }
@@ -436,53 +347,41 @@ __global__ void __launch_bounds__(NT, 1) decode_kernel(DecArgs a) {
 
   // sum the parts of each query row (in the K staging area), then finish
   __syncthreads();
-  float* part_acc = reinterpret_cast<float*>(Ks);  // NW x 2 x D
+  float* part_acc = reinterpret_cast<float*>(Ks);  // NW x D
   if (WPR > 1) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      part_acc[(warp * 2) * D + 4 * lane + e] = acc[e];
-      part_acc[(warp * 2 + 1) * D + 4 * lane + e] = acc_odd[e];
-    }
+    for (int e = 0; e < 4; ++e) part_acc[warp * D + 4 * lane + e] = acc[e];
     __syncthreads();
     if (part == 0) {
       for (int i = 1; i < WPR; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[e] += part_acc[((warp + i) * 2) * D + 4 * lane + e];
-          acc_odd[e] += part_acc[((warp + i) * 2 + 1) * D + 4 * lane + e];
-        }
+        for (int e = 0; e < 4; ++e) acc[e] += part_acc[(warp + i) * D + 4 * lane + e];
     }
   }
   if (part == 0) {
     const float l = l_s[g_pv], l_safe = l == 0.f ? 1.f : l;
     bf16* o = a.o + (qrow0 + g_pv) * D + 4 * lane;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (PAY == kInt4Magic)
-        o[e] = __float2bfloat16_rn(bf16r(acc[e] / l_safe) + bf16r(acc_odd[e] / l_safe));
-      else
-        o[e] = __float2bfloat16_rn(acc[e] / l_safe);
-    }
+    for (int e = 0; e < 4; ++e) o[e] = __float2bfloat16_rn(acc[e] / l_safe);
   }
 }
 
-template <int PAY>
 size_t decode_smem(const DecArgs& a) {
-  const size_t TR = static_cast<size_t>(a.npg) * a.rows, T = TR * pack<PAY>();
-  return sizeof(float) * (GMAX * D + 2 * TR * LDW + 2 * T + a.G * T + 2 * NW + 5 * GMAX) +
+  const size_t T = static_cast<size_t>(a.npg) * a.rows;
+  return sizeof(float) * (GMAX * D + 2 * T * LDW + 2 * T + a.G * T + 2 * NW + 5 * GMAX) +
          a.G * T;
 }
 
-template <int PAY, int VAR>
+template <int VAR>
 int decode(const DecArgs& a, cudaStream_t stream) {
-  const int T = a.npg * a.rows * pack<PAY>();
+  const int T = a.npg * a.rows;
   const bool ok = a.B >= 1 && a.B <= 65535 && a.n_kv >= 1 && a.n_kv <= 65535 &&
                   (a.G == 1 || a.G == 2 || a.G == 4 || a.G == 8) && a.npg >= 1 && a.rows >= 4 &&
                   a.rows % 4 == 0 && T % 4 == 0 && a.max_pages % a.npg == 0 &&
                   (a.tables || a.max_pages <= a.n_pages) && (a.lengths == nullptr || a.npg == 1);
   if (!ok) return cudaErrorInvalidValue;
-  auto kernel = decode_kernel<PAY, VAR>;
-  const size_t smem = decode_smem<PAY>(a);
+  auto kernel = decode_kernel<VAR>;
+  const size_t smem = decode_smem(a);
   if (smem > static_cast<size_t>(MAX_SMEM)) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -514,24 +413,20 @@ DecArgs shared_args(const void* q, const void* k, const void* ks, const void* v,
 
 }  // namespace
 
-#define FA_SHARED_ENTRY(name, PAY, NPG)                                                        \
+#define FA_SHARED_ENTRY(name, NPG)                                                              \
   int name(const void* q, const void* k, const void* ks, const void* v, const void* vs, void* o, \
            int B, int n_kv, int G, int pages, int rows, float scale_log2e, void* stream) {     \
-    return decode<PAY, kPostscale>(                                                            \
+    return decode<kPostscale>(                                                                 \
         shared_args(q, k, ks, v, vs, o, B, n_kv, G, pages, rows, NPG, scale_log2e),            \
         static_cast<cudaStream_t>(stream));                                                    \
   }
 
 extern "C" {
 
-// q (B, n_kv, G, 128) bf16; k, v (n_kv, pages, rows, 128) int8 (int4: nibble
-// pairs, rows = page / 2); ks, vs (n_kv, pages, pack, rows) float32
-FA_SHARED_ENTRY(fa_exp_int4_int8ref, kInt8, 1)
-FA_SHARED_ENTRY(fa_exp_int4_int8_2pg, kInt8, 2)
-FA_SHARED_ENTRY(fa_exp_int4_s32, kInt4Shift, 1)
-FA_SHARED_ENTRY(fa_exp_int4_twopage, kInt4Shift, 2)
-FA_SHARED_ENTRY(fa_exp_int4_fourpage, kInt4Shift, 4)
-FA_SHARED_ENTRY(fa_exp_int4_bitcast, kInt4Magic, 1)
+// q (B, n_kv, G, 128) bf16; k, v (n_kv, pages, rows, 128) int8, rows =
+// page; ks, vs (n_kv, pages, 1, rows) float32
+FA_SHARED_ENTRY(fa_exp_int4_int8ref, 1)
+FA_SHARED_ENTRY(fa_exp_int4_int8_2pg, 2)
 
 // variant: 0 current, 1 postscale, 2 int8mm.  q (S, n_kv * G, 128) bf16;
 // k_pages, v_pages (n_kv, n_pages, page, 128) int8; scales (n_kv, n_pages,
@@ -552,9 +447,9 @@ int fa_exp_paged_decode(int variant, const void* q, const void* k_pages, const v
   a.p_codes = static_cast<int8_t*>(p_codes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (variant) {
-    case kCurrent: return decode<kInt8, kCurrent>(a, s);
-    case kPostscale: return decode<kInt8, kPostscale>(a, s);
-    case kInt8mm: return decode<kInt8, kInt8mm>(a, s);
+    case kCurrent: return decode<kCurrent>(a, s);
+    case kPostscale: return decode<kPostscale>(a, s);
+    case kInt8mm: return decode<kInt8mm>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -10,6 +10,9 @@
 //                           pages
 //   paged_multitoken_decode speculative decode: gamma draft tokens per slot,
 //                           each up to its own position (the same kernel)
+// The int4 unpack tool's four int4 sites (fa_exp_int4_*, off the serving
+// path) run the decode's tensor-core body as compiled policies
+// (decode_tc.cuh), so their entries live here beside the decode's.
 //
 // Sequence sharding (context-parallel serving, the JAX package's
 // serving/seq_sharded_decode.py): a shard's cache holds every
@@ -1585,6 +1588,33 @@ int fa_paged_multitoken_decode(int act, int kv, const void* q, const void* k_pag
                  static_cast<int*>(tickets), splits, walk, static_cast<cudaStream_t>(stream)};
   return dispatch(act, kv, f);
 }
+
+// The int4 unpack tool's sites (tools/exp_int4_unpack.py) on the decode's
+// tensor-core body, each a compiled policy (decode_tc.cuh: the unpack, the
+// merge's cap, the split accumulators): q (B, n_kv, G, 128) bf16 over K/V
+// pages (n_kv, pages, rows, 128) of int4 pairs, scales (n_kv, pages, 2,
+// rows), page 2 rows; o as q.  Every row reads all pages: tables (B, pages)
+// the identity and lengths (B,) pages x page, int32.  A merge is NPG pages;
+// ws, tickets and splits as the decode's (native.exp_int4_plan); walk (3
+// ints out) as the decode's.
+#define FA_INT4_ENTRY(name, UNPACK, NPG, SPLIT)                                                 \
+  int name(const void* q, const void* k, const void* ks, const void* v, const void* vs, void* o, \
+           const void* tables, const void* lengths, void* ws, void* tickets, int B, int n_kv,    \
+           int G, int pages, int rows, int splits, float scale_log2e, int* walk, void* stream) { \
+    const tc::DcArgs a{static_cast<const bf16*>(q), k, v, static_cast<const float*>(ks),         \
+                       static_cast<const float*>(vs), static_cast<const int*>(tables),          \
+                       static_cast<const int*>(lengths), nullptr, static_cast<bf16*>(o),        \
+                       nullptr, nullptr, static_cast<float*>(ws), static_cast<int*>(tickets),   \
+                       n_kv * G, n_kv, tc::kDcD, 2 * rows, pages, pages, 1, 1, 0, scale_log2e,  \
+                       0, 0, 0, splits, 1, NPG * 2 * rows};                                     \
+    return tc::decode_tc_tool<tc::DcPolicy<UNPACK, 256 * NPG, SPLIT>>(                          \
+        a, B, walk, static_cast<cudaStream_t>(stream));                                         \
+  }
+
+FA_INT4_ENTRY(fa_exp_int4_s32, tc::kDcShift, 1, false)
+FA_INT4_ENTRY(fa_exp_int4_twopage, tc::kDcShift, 2, false)
+FA_INT4_ENTRY(fa_exp_int4_fourpage, tc::kDcShift, 4, false)
+FA_INT4_ENTRY(fa_exp_int4_bitcast, tc::kDcMagic, 1, true)
 
 int fa_paged_prefill(int act, int kv, const void* q, const void* k_pages, const void* v_pages,
                      const void* k_scales, const void* v_scales, const void* table_row,

@@ -14,8 +14,13 @@ one K/V of CTX tokens that every row reads, in pages of PAGE tokens:
             subtraction turns two nibbles at a time), even and odd tokens
             accumulated apart and summed in bf16 as the tool's runner does
 
-The kernels are the ``exp_int4_*`` entries of
-``csrc/exp_decode_kernels.cu``: one CTA per (row, kv head).
+The four int4 kernels run the serving decode's tensor-core body
+(``csrc/decode_tc.cuh``), each unpack method, merge width and the split
+accumulators a compiled policy, a (row, kv head)'s merges split over CTAs
+(``native.exp_int4_plan``); the two int8 ones the scalar template of
+``csrc/exp_decode_kernels.cu``, one CTA per (row, kv head).
+``serving_decode`` runs the serving decode itself on the same K/V laid out
+as a cache whose slots share its pages: the yardstick beside them.
 
     python -m tf_flash_attention_tpu_torch.experiments.exp_int4_unpack
 """
@@ -28,11 +33,12 @@ import torch
 
 from .. import native
 from ..ops.kernel_common import LOG2E, NEG_INF_F32
-from ..serving.kv_cache import _unpack_nibbles
+from ..serving.decode import paged_decode_attention
+from ..serving.kv_cache import KVCacheConfig, PagedKVCache, _unpack_nibbles
 from ._steps import bf16r, div, require_cuda
 
 __all__ = ["KERNELS", "int4_decode", "int4_decode_plain", "quantize_int4", "quantize_int8",
-           "build", "main"]
+           "shared_cache", "serving_decode", "build", "main"]
 
 B, CTX, PAGE, N_KV, D, G = 16, 8192, 256, 8, 128, 8
 #: the tool's runners, in its order, and their kernels
@@ -125,6 +131,31 @@ def int4_decode(kernel: str, q, k, ks, v, vs):
     if not q.is_cuda:
         return int4_decode_plain(kernel, q, k, ks, v, vs)
     return native.exp_int4_decode(kernel, q, k, ks, v, vs, 1.0 / math.sqrt(q.shape[-1]) * LOG2E)
+
+
+def shared_cache(k, ks, v, vs, B: int):
+    """The tool's K/V (k, v (n_kv, pages, rows, d) int8, scales (n_kv,
+    pages, pack, rows); int4 pairs where pack is 2) as the pages of a
+    serving cache of B slots that all map pages 0 .. pages - 1 at full
+    length: (cache, cfg)."""
+    n_kv, pages, rows, d = k.shape
+    int4 = ks.shape[2] == 2
+    page = rows * ks.shape[2]
+    cfg = KVCacheConfig(n_kv_heads=n_kv, head_dim=d, page_size=page, n_pages=pages, max_seqs=B,
+                        max_pages_per_seq=pages, quantized=True,
+                        quant_dtype="int4" if int4 else torch.int8)
+    tables = torch.arange(pages, dtype=torch.int32, device=k.device).expand(B, pages).contiguous()
+    lengths = torch.full((B,), pages * page, dtype=torch.int32, device=k.device)
+    return PagedKVCache(k, v, ks, vs, tables, lengths), cfg
+
+
+def serving_decode(q, k, ks, v, vs):
+    """The serving decode (``paged_decode_attention``, causal: every key
+    visible) on ``shared_cache``: q (B, n_kv, G, d) bf16 -> o of that shape
+    (scale 1/sqrt(d)).  On the card, the serving body and its unpack."""
+    B, n_kv, G, d = q.shape
+    cache, cfg = shared_cache(k, ks, v, vs, B)
+    return paged_decode_attention(q.reshape(B, n_kv * G, d), cache, cfg).reshape(q.shape)
 
 
 def build(gen, device):

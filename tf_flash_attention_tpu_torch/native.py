@@ -92,7 +92,9 @@ def reset_launch_counts() -> None:
 #: ``paged_prefill[cp]``; ("vector" or "scalar") for ``kv_chunk_write``,
 #: ``kv_chunk_write[cp]`` and ``kv_append``; for the decodes (``paged_decode``,
 #: ``paged_multitoken_decode`` and their ``[cp]`` forms) also ``splits`` and
-#: ``ctas``; for each persistent walk (``resident_fwd`` and
+#: ``ctas``; the same three for the int4 unpack tool's four int4 sites
+#: (``exp_int4_s32``, ``_twopage``, ``_fourpage``, ``_bitcast``); for each
+#: persistent walk (``resident_fwd`` and
 #: the three experiment forwards) also ``grid`` (CTAs), ``items`` (work
 #: items) and ``group_rows`` (the rows a group of the walk)
 WALKS = {}
@@ -247,6 +249,12 @@ _SIGNATURES = {
         # as fa_paged_decode, with gamma after S
         "fa_paged_multitoken_decode": [_I, _I] + [_P] * 11 + [_I] * 11 + [_F] + [_I] * 3
                                       + [_P, _P, _I, _P],
+        # the int4 unpack tool's sites on the decode's tensor-core body: q, k,
+        # ks, v, vs, o, tables, lengths, ws, tickets, B, n_kv, G, pages, rows,
+        # splits, scale_log2e, walk (3 ints out)
+        **{f"fa_{name}": [_P] * 10 + [_I] * 6 + [_F, _P]
+           for name in ("exp_int4_s32", "exp_int4_twopage", "exp_int4_fourpage",
+                        "exp_int4_bitcast")},
         # act, kv, q, k_pages, v_pages, k_scales, v_scales, table_row, o, l,
         # m, chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages,
         # page_stride, page_offset, start, total, first_live, count, window,
@@ -297,8 +305,7 @@ _SIGNATURES = {
     "exp_decode_kernels.cu": {
         # q, k, ks, v, vs, o, B, n_kv, G, pages, rows, scale_log2e
         **{f"fa_{name}": [_P] * 6 + [_I] * 5 + [_F]
-           for name in ("exp_int4_int8ref", "exp_int4_s32", "exp_int4_twopage",
-                        "exp_int4_fourpage", "exp_int4_int8_2pg", "exp_int4_bitcast")},
+           for name in ("exp_int4_int8ref", "exp_int4_int8_2pg")},
         # variant, q, k_pages, v_pages, k_scales, v_scales, tables, lengths, o,
         # q_codes, s_int, p_codes, S, n_kv, G, n_pages, page, max_pages,
         # scale_log2e (the codes nullable)
@@ -539,19 +546,36 @@ def decode_merge_keys(page: int, rows: int) -> int:
     return page if page_merge else DECODE_STAGE_KEYS
 
 
-def decode_tc_smem(cfg, rows: int) -> int:
+def _dc_smem(item: int, rows: int, merge: int, cap: int = _DC_MAX_MERGE) -> int:
     """Shared memory of a tensor-core decode CTA of ``rows`` query rows (C
-    ``dc_smem``): a ring of four 64-key items (raw payload rows, then 64 K
-    and 64 V scales), Q (rows padded to 16), two widened bf16 V tiles, the
-    rows' scores of a merge, its V scales, m, l and alpha a padded row, the
-    barriers and the ticket flag."""
+    ``dc_smem``) whose ring items hold ``item`` payload bytes, merging
+    ``merge`` keys at once under a cap of ``cap``: a ring of four 64-key
+    items (raw payload rows, then 64 K and 64 V scales), Q (rows padded to
+    16), two widened bf16 V tiles, the rows' scores of a merge, the V scales
+    of the cap, m, l and alpha a padded row, the barriers and the ticket
+    flag."""
+    padded = -(-rows // 16) * 16
+    return (_DC_RING * (item + 2 * DECODE_STAGE_KEYS * 4) + padded * _DC_Q_STRIDE * 2
+            + 2 * DECODE_STAGE_KEYS * _DC_V_STRIDE * 2 + rows * (merge + 4) * 4 + cap * 4
+            + 3 * padded * 4 + 2 * _DC_RING * 8 + 16)
+
+
+def decode_tc_smem(cfg, rows: int) -> int:
+    """Shared memory of a tensor-core decode CTA of ``rows`` query rows on
+    the cache of ``cfg`` (``_dc_smem``)."""
     item = DECODE_STAGE_KEYS // (2 if cfg.is_int4 else 1) * 128 * (
         1 if cfg.quantized else cfg.payload_dtype.itemsize)
-    padded = -(-rows // 16) * 16
-    merge = decode_merge_keys(cfg.page_size, rows)
-    return (_DC_RING * (item + 2 * DECODE_STAGE_KEYS * 4) + padded * _DC_Q_STRIDE * 2
-            + 2 * DECODE_STAGE_KEYS * _DC_V_STRIDE * 2 + rows * (merge + 4) * 4 + _DC_MAX_MERGE * 4
-            + 3 * padded * 4 + 2 * _DC_RING * 8 + 16)
+    return _dc_smem(item, rows, decode_merge_keys(cfg.page_size, rows))
+
+
+def _dc_splits(units: int, cells: int, smem: int, two_ctas: bool) -> int:
+    """The CTAs a cell's ``units`` merge units are cut into: two waves of
+    the H100's SMs at the CTAs an SM holds, by shared memory (1 KB of it the
+    system's a CTA) and by registers (``two_ctas``: one row tile of a
+    one-byte payload, whose body is capped at 112 registers), at most a unit
+    each."""
+    per_sm = max(1, min(_SM_SMEM // (smem + 1024), 2 if two_ctas else 1))
+    return max(1, min(units, 2 * _H100_SMS * per_sm // max(cells, 1)))
 
 
 def decode_plan(S: int, n_q: int, gamma: int, cfg, act_dtype=torch.bfloat16) -> dict:
@@ -580,11 +604,7 @@ def decode_plan(S: int, n_q: int, gamma: int, cfg, act_dtype=torch.bfloat16) -> 
              else -(-cfg.max_pages_per_seq // (DECODE_STAGE_KEYS // page)))
     cells = S * n_kv * groups
     smem = decode_tc_smem(cfg, min(rows, DECODE_CTA_ROWS))
-    # CTAs an SM holds: by shared memory (1 KB of it the system's a CTA), and
-    # by registers (288 threads: two CTAs for one row tile of a one-byte
-    # payload, whose body is capped at 112 registers; one past)
-    per_sm = max(1, min(_SM_SMEM // (smem + 1024), 2 if rows <= 16 and cfg.quantized else 1))
-    splits = max(1, min(units, 2 * _H100_SMS * per_sm // max(cells, 1)))
+    splits = _dc_splits(units, cells, smem, rows <= 16 and cfg.quantized)
     return dict(body=body, splits=splits, row_groups=groups, ctas=cells * splits, smem=smem,
                 tickets=cells,
                 workspace=cells * splits * DECODE_CTA_ROWS * (128 + 2) if splits > 1 else 0)
@@ -1226,9 +1246,16 @@ LADDER_RUNGS = ("prod", "nomax", "noexp", "nosum", "bf16exp", "mm")
 #: exp_decode's strategies (the kernel's codes); a ``_t`` suffix names the
 #: scale layout only
 DECODE_VARIANTS = ("current", "postscale", "int8mm")
-#: the pages per step of each exp_int4_unpack kernel
+#: the pages per step of each exp_int4_unpack kernel: the int8 sites' step
+#: on the scalar template, the int4 sites' compiled merge width (npg pages
+#: before a softmax update; the C policy's cap is npg x 256 keys)
 INT4_NPG = {"exp_int4_int8ref": 1, "exp_int4_int8_2pg": 2, "exp_int4_s32": 1,
             "exp_int4_twopage": 2, "exp_int4_fourpage": 4, "exp_int4_bitcast": 1}
+#: the int4 sites on the decode's tensor-core body (``decode_tc.cuh``) and
+#: each one's compiled unpack method (C ``DcUnpack``); ``exp_int4_bitcast``
+#: also accumulates even and odd keys apart
+INT4_TC_UNPACK = {"exp_int4_s32": "shift", "exp_int4_twopage": "shift",
+                  "exp_int4_fourpage": "shift", "exp_int4_bitcast": "magic"}
 
 
 def _check_exp(*tensors, dtype=None) -> None:
@@ -1312,10 +1339,47 @@ def exp_kv_unroll(q, k, v, nkv: int, fused: bool, block_kv: int, scale_log2e: fl
                        tail=(block_kv, float(scale_log2e)))
 
 
+def exp_int4_plan(kernel: str, B: int, n_kv: int, G: int, pages: int, rows: int) -> dict:
+    """The launch of an int4 site (``INT4_TC_UNPACK``) on the decode's
+    tensor-core body (C ``decode_tc_tool``) for B rows of G query rows a kv
+    head over ``pages`` pages of ``rows`` byte rows (2 ``rows`` keys), from
+    the shapes alone: ``body``; ``merge_keys``, npg pages; ``splits``, the
+    CTAs a (row, kv head) cuts its merges into (``decode_plan``'s rule);
+    ``ctas``; ``smem`` a CTA; the float32 ``workspace`` of the partials
+    (both accumulators for bitcast) and the ``tickets`` of the in-launch
+    merge."""
+    npg = INT4_NPG[kernel]
+    cells = B * n_kv
+    smem = _dc_smem(DECODE_STAGE_KEYS // 2 * 128, G, npg * 2 * rows, npg * 256)
+    splits = _dc_splits(-(-pages // npg), cells, smem, True)
+    acc = 2 if kernel == "exp_int4_bitcast" else 1
+    return dict(body="tensor-core", merge_keys=npg * 2 * rows, splits=splits,
+                ctas=cells * splits, smem=smem, tickets=cells,
+                workspace=cells * splits * DECODE_CTA_ROWS * (acc * 128 + 2) if splits > 1 else 0)
+
+
+_IDENTITY = {}
+
+
+def _identity_table(device, B: int, pages: int, page: int) -> tuple:
+    """(tables (B, pages) int32, every row the identity; lengths (B,) int32
+    of ``pages * page``) on ``device``, made once for each shape."""
+    key = (str(device), B, pages, page)
+    if key not in _IDENTITY:
+        _IDENTITY[key] = (torch.arange(pages, dtype=torch.int32, device=device)
+                          .expand(B, pages).contiguous(),
+                          torch.full((B,), pages * page, dtype=torch.int32, device=device))
+    return _IDENTITY[key]
+
+
 def exp_int4_decode(kernel: str, q, k, ks, v, vs, scale_log2e: float):
     """Launch one of exp_int4_unpack's kernels (``INT4_NPG``): q (B, n_kv,
     G, 128) bf16 over the K/V every row shares, k, v (n_kv, pages, rows,
-    128) int8 (int4: nibble pairs), scales (n_kv, pages, pack, rows)."""
+    128) int8 (int4: nibble pairs), scales (n_kv, pages, pack, rows).  The
+    int4 sites run the decode's tensor-core body on an identity page table
+    (``exp_int4_plan``; G <= 16, pages of a multiple of 64 keys), the
+    launch's report (body, splits, CTAs) in ``WALKS``; the int8 sites the
+    scalar template of ``exp_decode_kernels.cu``."""
     _check_exp(q, dtype=torch.bfloat16)
     _check_exp(k, v, dtype=torch.int8)
     _check_exp(ks, vs, dtype=torch.float32)
@@ -1329,8 +1393,23 @@ def exp_int4_decode(kernel: str, q, k, ks, v, vs, scale_log2e: float):
                          f"{tuple(k.shape)}, scales {tuple(ks.shape)} (d 128, pages a "
                          f"multiple of {INT4_NPG[kernel]})")
     o = torch.empty_like(q)
+    if kernel not in INT4_TC_UNPACK:
+        _call(f"fa_{kernel}", q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(),
+              vs.data_ptr(), o.data_ptr(), B, n_kv, G, pages, rows, float(scale_log2e))
+        return o
+    if G > 16 or (2 * rows) % DECODE_STAGE_KEYS:
+        raise ValueError(f"{kernel} takes G <= 16 query rows a kv head and pages of a multiple "
+                         f"of {DECODE_STAGE_KEYS} keys, got G {G}, {2 * rows} keys")
+    plan = exp_int4_plan(kernel, B, n_kv, G, pages, rows)
+    _check_smem(f"{kernel} at G {G}, page {2 * rows}", plan["smem"])
+    ws, tickets = _decode_scratch(q.device, plan["workspace"], plan["tickets"])
+    tables, lengths = _identity_table(q.device, B, pages, 2 * rows)
+    walk = (ctypes.c_int * 3)()
     _call(f"fa_{kernel}", q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(), vs.data_ptr(),
-          o.data_ptr(), B, n_kv, G, pages, rows, float(scale_log2e))
+          o.data_ptr(), tables.data_ptr(), lengths.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+          B, n_kv, G, pages, rows, plan["splits"], float(scale_log2e), walk)
+    WALKS[kernel] = dict(body="tensor-core" if walk[0] else "scalar", splits=walk[1],
+                         ctas=walk[2])
     return o
 
 

@@ -157,16 +157,21 @@ Phases (any failure exits non-zero before the final line):
      six kernels (16 rows x 8 kv heads x 8 queries over 8192 shared tokens)
      and exp_decode's five variants (16 slots x 8192 tokens, int8, page
      512); each held against its plain version (2 bf16 ulps at the output's
-     scale, bitcast 3; int8mm's codes and integer scores bit for bit) and
-     timed beside its plain version, its bound and, for the forwards, one
-     scaled_dot_product_attention call; exp_int4_unpack's kernels also by
-     their own device time (torch.profiler), its four int4 sites must run
-     the decode's tensor-core body and print their splits and CTAs, and
-     beside them paged_decode (the serving body) is timed on the same int4
-     and int8 K/V as a 16-slot cache whose slots share the pages (a
-     yardstick, not a port; held against s32's and int8ref's plain
-     versions); the forwards name their body
-     (exp_resident on the resident tensor-core forward: each pair timed
+     scale, bitcast 3; int8mm's q codes, integer scores and p codes bit for
+     bit) and timed beside its plain version, its bound and, for the
+     forwards, one scaled_dot_product_attention call; exp_int4_unpack's
+     kernels also by their own device time (torch.profiler), beside one
+     scaled_dot_product_attention of the 16 rows over the shared int8 or
+     int4 K/V dequantized to bf16 beforehand (enable_gqa), and beside them
+     paged_decode (the serving body) is timed on the same int4 and int8
+     K/V as a 16-slot cache whose slots share the pages (a yardstick, not a
+     port; held against s32's and int8ref's plain versions); exp_decode's
+     variants also by their own device time, beside one
+     scaled_dot_product_attention on every slot's K/V dequantized to bf16
+     and gathered beforehand; every decode site of the tools (the six of
+     exp_int4_unpack, the five variants of exp_decode) must run the
+     decode's tensor-core body and prints its splits and CTAs; the
+     forwards name their body (exp_resident on the resident tensor-core forward: each pair timed
      through the tool's entry, its prescale included, and its kernel alone
      on the prescaled q, with the items and CTAs its launch reports, and
      held against the dense causal oracle within 1e-2 as well); then, at
@@ -658,6 +663,24 @@ def decode_library(q, cache, cfg, lengths):
     lib = lambda: F.scaled_dot_product_attention(q4, k_all, v_all, attn_mask=mask[:, None],
                                                  **gqa)
     return lib, lib().permute(0, 2, 1, 3)
+
+
+def int4_tool_library(q, k, ks, v, vs):
+    """The int4 unpack tool's library yardstick: one
+    scaled_dot_product_attention of its B rows over the K/V they share
+    (k, v (n_kv, pages, rows, d) int8 or int4 pairs, scales (n_kv, pages,
+    pack, rows)), dequantized and widened to bf16 beforehand, each row a
+    query position of the n_kv G heads (``enable_gqa``).  q (B, n_kv, G, d)
+    bf16.  Returns the call."""
+    from tf_flash_attention_tpu_torch.experiments.exp_int4_unpack import _tokens
+    B, n_kv, G, d = q.shape
+    pack = ks.shape[2]
+    kv = []
+    for pages, scales in ((k, ks), (v, vs)):
+        vals, sc = _tokens(pages, scales, pack)
+        kv.append((vals * sc[..., None]).reshape(1, n_kv, -1, d).to(torch.bfloat16).contiguous())
+    q4 = q.permute(1, 2, 0, 3).reshape(1, n_kv * G, B, d)
+    return lambda: F.scaled_dot_product_attention(q4, *kv, enable_gqa=True)
 
 
 def gathered_kv(cache, cfg, slot, total):
@@ -2361,15 +2384,19 @@ def experiment_phase(dev, seed):
     iq, (k4_, ks4, v4_, vs4, _, _, k8, ks8, v8, vs8) = exp_int4_unpack.build(gen, dev)
     rows = iq.numel() // D                                           # 1024 query rows
     ib, ctx = exp_int4_unpack.B, exp_int4_unpack.CTX
+    # the library yardstick of each payload: one scaled_dot_product_attention
+    # on the shared K/V dequantized to bf16 beforehand
+    int4_lib = {8: int4_tool_library(iq, k8, ks8, v8, vs8),
+                4: int4_tool_library(iq, k4_, ks4, v4_, vs4)}
     for name, kernel in exp_int4_unpack.KERNELS.items():
-        args = ((iq, k8, ks8, v8, vs8) if kernel.startswith("exp_int4_int8")
-                else (iq, k4_, ks4, v4_, vs4))
+        bits = 8 if kernel.startswith("exp_int4_int8") else 4
+        args = (iq, k8, ks8, v8, vs8) if bits == 8 else (iq, k4_, ks4, v4_, vs4)
         n_bytes = sum(t.numel() * t.element_size() for t in args) + iq.numel() * 2
         runs.append((kernel, name,
                      lambda kernel=kernel, args=args: exp_int4_unpack.int4_decode(kernel, *args),
                      lambda kernel=kernel, args=args: exp_int4_unpack.int4_decode_plain(
                          kernel, *args),
-                     n_bytes, 4 * rows * ctx * D, "bf16", None,
+                     n_bytes, 4 * rows * ctx * D, "bf16", int4_lib[bits],
                      bitcast_tol if name == "bitcast" else exp_tol, None))
 
     # site 9: exp_decode's paged int8 cache, written by the port's cache code
@@ -2386,6 +2413,9 @@ def experiment_phase(dev, seed):
     dq = uni((max_seqs, n_kv, D)).to(bf)
     live = int(cache.lengths.sum())
     page_major = (exp_decode.page_major(cache.k_scales), exp_decode.page_major(cache.v_scales))
+    # the library yardstick: one scaled_dot_product_attention on every
+    # slot's K/V dequantized to bf16 and gathered beforehand
+    dec_lib, _ = decode_library(dq.unsqueeze(1), cache, cfg, cache.lengths.tolist())
     for variant in ("postscale_t", "int8mm_t", "current", "postscale", "int8mm"):
         scales = (cache.k_scales, cache.v_scales) if variant.endswith("_t") else page_major
         args = (variant, dq, cache.k_pages, cache.v_pages, *scales, cache.page_tables,
@@ -2394,25 +2424,26 @@ def experiment_phase(dev, seed):
                      lambda args=args: exp_decode.paged_decode(*args),
                      lambda args=args: exp_decode.paged_decode_plain(*args),
                      live * n_kv * (2 * D + 2 * 4) + 2 * dq.numel() * 2,
-                     4 * dq.shape[1] * D * live, "int8" if "int8mm" in variant else "bf16", None,
-                     exp_tol, args if variant.startswith("int8mm") else None))
+                     4 * dq.shape[1] * D * live, "int8" if "int8mm" in variant else "bf16",
+                     dec_lib, exp_tol, args if variant.startswith("int8mm") else None))
 
-    # the tools' entry points, each instantiation once, counted; the int4
-    # sites' reports of the body they ran, with their splits and CTAs
+    # the tools' entry points, each instantiation once, counted; every decode
+    # site's report of the body it ran (the decode's tensor-core body, or the
+    # phase fails), with its splits and CTAs
     native.reset_launch_counts()
     torch.cuda.synchronize()
-    outs, int4_walks = [], {}
-    for kernel, _, fn, *_ in runs:
+    outs, dc_walks = [], {}
+    for kernel, variant, fn, *_ in runs:
         outs.append(fn())
-        if kernel in native.INT4_TC_UNPACK:
-            int4_walks[kernel] = dict(native.WALKS[kernel])
+        if kernel in native.INT4_TC_UNPACK or kernel == "exp_paged_decode":
+            dc_walks[kernel, variant] = dict(native.WALKS[kernel])
     torch.cuda.synchronize()
     launches = {kn: native.LAUNCHES[kn] for kn in native.EXPERIMENT_KERNELS}
     if min(launches.values()) < 1:
         fail(f"phase 8: an experiment kernel never launched: {launches}")
-    for kernel, walk in int4_walks.items():
+    for (kernel, variant), walk in dc_walks.items():
         if walk["body"] != "tensor-core":
-            fail(f"phase 8: {kernel} ran the {walk['body']} body")
+            fail(f"phase 8: {kernel} {variant} ran the {walk['body']} body")
 
     entries, oracle = {}, None
     for (kernel, variant, fn, plain, n_bytes, n_ops, ops_type, lib, tol, codes), o in zip(runs,
@@ -2440,10 +2471,9 @@ def experiment_phase(dev, seed):
                          f"places")
             extra["codes_equal"] = True
         ms = time_ms(fn, n=10)
-        if kernel.startswith("exp_int4"):   # its own device time, and the int4 sites' body
-            extra["kernel_ms"] = kernel_ms(fn, ("decode_tc_kernel",) if kernel in int4_walks
-                                           else ("decode_kernel",))
-            extra.update(int4_walks.get(kernel, {}))
+        if (kernel, variant) in dc_walks:   # its own device time, the body, splits and CTAs
+            extra["kernel_ms"] = kernel_ms(fn, ("decode_tc_kernel",))
+            extra.update(dc_walks[kernel, variant])
         if kernel in native.EXP_FWD_BODY:   # the variant's walk, as its launches report it
             walk = native.WALKS[kernel]
             if walk["body"] != extra["body"]:

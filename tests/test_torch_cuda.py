@@ -1109,8 +1109,9 @@ INT4_CASES = [(8, 8, 4), (2, 8, 4), (1, 4, 4), (4, 12, 24), (8, 32, 24), (2, 12,
     for name in ("int8ref", "s32", "twopage", "fourpage", "int8_2pg", "bitcast")])
 def test_exp_int4_unpack_kernels_match_plain(dev, name, G, pages, B):
     """Each of the tool's kernels against its plain version (2 bf16 ulps at
-    the output's scale, bitcast 3); the int4 sites report the tensor-core
-    body with ``native.exp_int4_plan``'s splits and CTAs."""
+    the output's scale, bitcast 3); each site reports the decode's
+    tensor-core body with ``native.exp_int4_plan``'s splits and CTAs, and two
+    launches give the same bits."""
     from tf_flash_attention_tpu_torch.experiments import exp_int4_unpack as x
     gen = torch.Generator(device=dev).manual_seed(G)
     kv = torch.rand((2, 2, 256 * pages, 128), generator=gen, device=dev) * 2 - 1
@@ -1125,11 +1126,10 @@ def test_exp_int4_unpack_kernels_match_plain(dev, name, G, pages, B):
     assert torch.isfinite(got).all()
     assert float((got.float() - want.float()).abs().max()) <= _exp_tol(
         want, 3 if name == "bitcast" else 2)
-    if kernel in native.INT4_TC_UNPACK:
-        plan = native.exp_int4_plan(kernel, B, 2, G, pages, k.shape[2])
-        assert native.WALKS[kernel] == dict(body="tensor-core", splits=plan["splits"],
-                                            ctas=plan["ctas"]), native.WALKS[kernel]
-        assert torch.equal(x.int4_decode(kernel, q, k, ks, v, vs), got)   # run order: the same bits
+    plan = native.exp_int4_plan(kernel, B, 2, G, pages, k.shape[2])
+    assert native.WALKS[kernel] == dict(body="tensor-core", splits=plan["splits"],
+                                        ctas=plan["ctas"]), native.WALKS[kernel]
+    assert torch.equal(x.int4_decode(kernel, q, k, ks, v, vs), got)   # run order: the same bits
 
 
 @pytest.mark.parametrize("int4", [True, False])
@@ -1152,11 +1152,14 @@ def test_serving_decode_on_the_tools_pages(dev, int4):
     assert float((got.float() - want.float()).abs().max()) <= _exp_tol(want)
 
 
-def _exp_decode_cache(dev, n_q=4):
-    """An int8 cache, page 128, 3 slots (lengths 300, 512, 0), 4 pages a
-    slot, 2 kv heads, d 128, and q (3, n_q, 128)."""
-    cfg = kv_cache.KVCacheConfig(n_kv_heads=2, head_dim=128, page_size=128, n_pages=14,
-                                 max_seqs=3, max_pages_per_seq=4, quantized=True,
+def _exp_decode_cache(dev, n_q=4, page=128, lengths=(300, 512, 0), max_pages=4):
+    """An int8 cache of 2 kv heads, d 128, a slot per length (page 128, 3
+    slots of lengths 300, 512 and 0, 4 pages a slot, by default), pages
+    drawn at random, and q (slots, n_q, 128)."""
+    S = len(lengths)
+    cfg = kv_cache.KVCacheConfig(n_kv_heads=2, head_dim=128, page_size=page,
+                                 n_pages=S * max_pages + 2, max_seqs=S,
+                                 max_pages_per_seq=max_pages, quantized=True,
                                  dtype=torch.bfloat16)
     gen = torch.Generator(device=dev).manual_seed(5)
     c = kv_cache.PagedKVCache.create(cfg, dev)
@@ -1164,36 +1167,85 @@ def _exp_decode_cache(dev, n_q=4):
         p.copy_(torch.randint(-127, 128, p.shape, generator=gen, device=dev))
     for s in (c.k_scales, c.v_scales):
         s.copy_(0.005 + 0.015 * torch.rand(s.shape, generator=gen, device=dev))
-    c.page_tables.copy_(torch.randperm(13, generator=gen, device=dev)[:12].reshape(3, 4))
-    c.lengths.copy_(torch.tensor([300, 512, 0], dtype=torch.int32))
-    return c, _uniform(gen, (3, n_q, 128), dev)
+    c.page_tables.copy_(torch.randperm(cfg.n_pages - 1, generator=gen, device=dev)
+                        [:S * max_pages].reshape(S, max_pages))
+    c.lengths.copy_(torch.tensor(lengths, dtype=torch.int32))
+    return c, _uniform(gen, (S, n_q, 128), dev)
 
 
-@pytest.mark.parametrize("n_q", [2, 4, 16])
-@pytest.mark.parametrize("variant", ["current", "postscale", "postscale_t", "int8mm", "int8mm_t"])
-def test_exp_paged_decode_kernel_matches_plain(dev, variant, n_q):
+def _exp_decode_run(dev, variant, n_q, **cache):
+    """exp_decode's ``variant`` on ``_exp_decode_cache``: within 2 bf16 ulps
+    of its plain version at the output's scale, an empty slot's rows zero,
+    the decode's tensor-core body with ``native.exp_decode_plan``'s splits
+    and CTAs, and two launches' bits equal."""
     from tf_flash_attention_tpu_torch.experiments import exp_decode as x
-    c, q = _exp_decode_cache(dev, n_q)
+    c, q = _exp_decode_cache(dev, n_q, **cache)
     scales = ((c.k_scales, c.v_scales) if variant.endswith("_t")
               else (x.page_major(c.k_scales), x.page_major(c.v_scales)))
     args = (variant, q, c.k_pages, c.v_pages, *scales, c.page_tables, c.lengths)
     got = _exp_launch("exp_paged_decode", lambda: x.paged_decode(*args))
     want = x.paged_decode_plain(*args)
-    assert torch.isfinite(got).all() and not got[2].any()
+    empty = c.lengths.cpu() == 0
+    assert torch.isfinite(got).all() and not got[empty].any()
     assert float((got.float() - want.float()).abs().max()) <= _exp_tol(want)
+    plan = native.exp_decode_plan(variant.removesuffix("_t"), *q.shape[:2], 2,
+                                  c.k_pages.shape[2], c.page_tables.shape[1])
+    assert native.WALKS["exp_paged_decode"] == dict(body="tensor-core", splits=plan["splits"],
+                                                    ctas=plan["ctas"])
+    assert torch.equal(x.paged_decode(*args), got)
 
 
-def test_exp_paged_decode_int8mm_codes_equal(dev):
-    """int8mm's q codes, integer scores and p codes equal the plain
-    version's bit for bit."""
+EXP_DECODE_VARIANTS = ["current", "postscale", "postscale_t", "int8mm", "int8mm_t"]
+
+
+# n_q 2, 4, 16 and 32 over 2 kv heads: G 1, 2, 8 and 16
+@pytest.mark.parametrize("n_q", [2, 4, 16, 32])
+@pytest.mark.parametrize("variant", EXP_DECODE_VARIANTS)
+def test_exp_paged_decode_kernel_matches_plain(dev, variant, n_q):
+    _exp_decode_run(dev, variant, n_q)
+
+
+# pages of 512 keys (the tool's) and 64, lengths that are no multiple of 64
+# (1,000, 37), a full slot and an empty one, at G 1 and 16
+@pytest.mark.parametrize("page,lengths,max_pages", [(512, (1000, 2048, 0, 37), 4),
+                                                    (64, (1000, 0, 37, 1024), 16)])
+@pytest.mark.parametrize("n_q", [2, 32])
+@pytest.mark.parametrize("variant", EXP_DECODE_VARIANTS)
+def test_exp_paged_decode_pages(dev, variant, n_q, page, lengths, max_pages):
+    _exp_decode_run(dev, variant, n_q, page=page, lengths=lengths, max_pages=max_pages)
+
+
+@pytest.mark.parametrize("n_q,page", [(34, 128), (2, 96), (2, 1024)])
+def test_exp_paged_decode_refuses_other_shapes(dev, n_q, page):
+    """G > 16 and pages that are not 64-512 keys, a multiple of 64, raise:
+    no scalar body takes them."""
     from tf_flash_attention_tpu_torch.experiments import exp_decode as x
-    c, q = _exp_decode_cache(dev)
+    c, q = _exp_decode_cache(dev, n_q, page=page, lengths=(page, 0), max_pages=2)
+    with pytest.raises(ValueError, match="G <= 16"):
+        x.paged_decode("postscale_t", q, c.k_pages, c.v_pages, c.k_scales, c.v_scales,
+                       c.page_tables, c.lengths)
+
+
+def _int8mm_codes_equal(dev, **cache):
+    from tf_flash_attention_tpu_torch.experiments import exp_decode as x
+    c, q = _exp_decode_cache(dev, **cache)
     args = ("int8mm_t", q, c.k_pages, c.v_pages, c.k_scales, c.v_scales, c.page_tables,
             c.lengths)
     got = x.paged_decode(*args, codes=True)
     want = x.paged_decode_plain(*args, codes=True)
     for name, a, b in zip(("q codes", "scores", "p codes"), got[1:], want[1:]):
         assert torch.equal(a, b), (name, int((a != b).sum()))
+
+
+def test_exp_paged_decode_int8mm_codes_equal(dev):
+    """int8mm's q codes, integer scores and p codes equal the plain
+    version's bit for bit."""
+    _int8mm_codes_equal(dev)
+
+
+def test_exp_paged_decode_int8mm_codes_equal_page512(dev):
+    """The same on the tool's pages of 512 keys, ragged and empty slots."""
+    _int8mm_codes_equal(dev, page=512, lengths=(1000, 2048, 0, 37), max_pages=4)
 
 
 # ---- the tensor-core q-outer backward (attention_qouter_tc.cuh) ----

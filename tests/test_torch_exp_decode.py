@@ -116,17 +116,17 @@ def test_int4_quantizers_match_tool():
     np.testing.assert_array_equal(kd.numpy(), (q4 * sc4).astype(np.float32))
 
 
-# ---- the int4 sites on the decode's tensor-core body (decode_tc.cuh) ----
+# ---- the tool's sites on the decode's tensor-core body (decode_tc.cuh) ----
 
 def _int4_state(kernel, q, k, ks, v, vs):
     """The plain version's running state over the pages of k, v, in its
     order (``int4_decode_plain``'s loop, a merge each npg pages): (acc,
     acc_odd, m, l), float32; acc_odd is bitcast's odd keys' (else zero)."""
-    npg = tint4.native.INT4_NPG[kernel]
+    npg, pack = tint4.native.INT4_NPG[kernel], tint4.native._tool_pack(kernel)
     n_kv, pages, rows, d = k.shape
     c = 1.0 / np.sqrt(d) * tint4.LOG2E
-    (kt, kst), (vt, vst) = tint4._tokens(k, ks, 2), tint4._tokens(v, vs, 2)
-    T = npg * 2 * rows
+    (kt, kst), (vt, vst) = tint4._tokens(k, ks, pack), tint4._tokens(v, vs, pack)
+    T = npg * pack * rows
     kt, vt = kt.reshape(n_kv, pages // npg, T, d), vt.reshape(n_kv, pages // npg, T, d)
     kst, vst = kst.reshape(n_kv, pages // npg, T), vst.reshape(n_kv, pages // npg, T)
     qf = q.float()
@@ -152,7 +152,7 @@ def _int4_state(kernel, q, k, ks, v, vs):
 
 
 def int4_split_model(kernel, q, k, ks, v, vs, splits):
-    """The tensor-core body's arithmetic for an int4 site: each
+    """The tensor-core body's arithmetic for one of the tool's sites: each
     (row, kv head)'s merges of npg pages cut into ``splits`` runs
     (``decode_tc_kernel``: ceil(units / splits) a run, the empty ones
     dropped), each run's state from a fresh start, the partials merged as
@@ -183,10 +183,18 @@ INT4_TC = list(tint4.native.INT4_TC_UNPACK)
 INT4_SHAPES = {"tool": (16, 8192, 8), "small": (2, 1024, 2)}
 
 
+def _tool_kv(kernel, kv):
+    """The tool's payload of float32 kv (2, n_kv, ctx, d): (k, ks, v, vs)."""
+    if tint4.native._tool_pack(kernel) == 1:
+        return (*tint4.quantize_int8(kv[0]), *tint4.quantize_int8(kv[1]))
+    (k, ks, _), (v, vs, _) = tint4.quantize_int4(kv[0]), tint4.quantize_int4(kv[1])
+    return k, ks, v, vs
+
+
 @pytest.mark.parametrize("shape", list(INT4_SHAPES))
 @pytest.mark.parametrize("kernel", INT4_TC)
 def test_int4_split_merge_within_card_gate(kernel, shape):
-    """The int4 sites cut a (row, kv head)'s merges over CTAs
+    """The tool's six sites cut a (row, kv head)'s merges over CTAs
     (``native.exp_int4_plan``) and merge the runs' partials in the launch:
     that model stays within phase 8's gate of the unsplit plain version (2
     bf16 ulps at the output's scale, bitcast 3 with both halves merged), on
@@ -196,7 +204,7 @@ def test_int4_split_merge_within_card_gate(kernel, shape):
     for seed in range(2 if shape == "tool" else 4):
         gen = torch.Generator().manual_seed(seed)
         kv = torch.rand((2, n_kv, ctx, 128), generator=gen) * 2 - 1
-        (k, ks, _), (v, vs, _) = tint4.quantize_int4(kv[0]), tint4.quantize_int4(kv[1])
+        k, ks, v, vs = _tool_kv(kernel, kv)
         q = (torch.rand((B, n_kv, 8, 128), generator=gen) * 2 - 1).to(torch.bfloat16)
         want = tint4.int4_decode_plain(kernel, q, k, ks, v, vs)
         splits = tint4.native.exp_int4_plan(kernel, B, n_kv, 8, k.shape[1], k.shape[2])["splits"]
@@ -263,13 +271,27 @@ def test_bitcast_even_odd_tile_order():
     # one unit: one run, no workspace
     ("exp_int4_fourpage", 1, 1, 1, 4, dict(merge_keys=1024, splits=1, ctas=1, smem=65952,
                                            workspace=0)),
+    # the int8 sites (pages of 256 rows, 256 keys): a ring item of 64 keys'
+    # 8,192 bytes; 83-93 KB, still two CTAs an SM
+    ("exp_int4_int8ref", 16, 8, 8, 32, dict(merge_keys=256, splits=4, ctas=512, smem=83472,
+                                            workspace=128 * 4 * 64 * 130)),
+    ("exp_int4_int8_2pg", 16, 8, 8, 32, dict(merge_keys=512, splits=4, ctas=512, smem=92688,
+                                             workspace=128 * 4 * 64 * 130)),
+    # G 16: 16 rows of scores (4 x 8,704 ring + 4,224 Q + 34,816 V tiles +
+    # 16 x 516 x 4 + 2,048 + 192 + 80); 6 rows x 8 kv heads, 11 splits of 16
+    # units
+    ("exp_int4_int8_2pg", 6, 8, 16, 32, dict(merge_keys=512, splits=11, ctas=528,
+                                             smem=109200, workspace=48 * 11 * 64 * 130)),
 ])
 def test_int4_plan_mirrors_c(kernel, B, n_kv, G, pages, want):
     """``native.exp_int4_plan`` mirrors the C rule (``decode_tc_tool``,
-    ``dc_smem`` with the policy's cap of npg x 256 keys, ``dc_partial``
-    with both accumulators for bitcast): merge, splits, CTAs, shared memory
-    within a block of the H100, workspace and tickets."""
-    plan = tint4.native.exp_int4_plan(kernel, B, n_kv, G, pages, 128)
+    ``dc_smem`` with the policy's cap of npg x 256 keys and a ring item of
+    64 keys of the site's payload, ``dc_partial`` with both accumulators
+    for bitcast): merge, splits, CTAs, shared memory within a block of the
+    H100, workspace and tickets; the int8 sites' pages hold ``rows`` keys,
+    the int4 sites' 2 ``rows``."""
+    rows = 256 if kernel.startswith("exp_int4_int8") else 128
+    plan = tint4.native.exp_int4_plan(kernel, B, n_kv, G, pages, rows)
     assert plan == dict(body="tensor-core", tickets=B * n_kv, **want)
     assert plan["smem"] <= tint4.native.MAX_SMEM
 
@@ -350,3 +372,272 @@ def test_paged_decode_rejects_the_other_layout(decode_case):
     with pytest.raises(ValueError, match="reads scales"):
         tdec.paged_decode("postscale", _t(q, torch.bfloat16), tc.k_pages, tc.v_pages,
                           tc.k_scales, tc.v_scales, tc.page_tables, tc.lengths)
+
+
+# ---- exp_decode on the decode's tensor-core body (decode_tc.cuh) ----
+
+def paged_split_model(variant, q, k_pages, v_pages, k_scales, v_scales, tables, lengths, splits):
+    """The tensor-core body's arithmetic for ``postscale`` and ``current``:
+    each slot's live pages (ceil(length / page)) cut into ``splits`` runs
+    (``decode_tc_kernel``: ceil(count / splits) pages a run, the empty ones
+    dropped), each run's state from a fresh start (``decode_walk`` over the
+    run's pages, the lengths shifted with them; the r-th runs of all slots
+    in one walk), the partials merged in run order as the last CTA merges
+    them (M the largest m, each scaled by exp2(m - M)); a single run writes
+    o from its own state -> o bf16."""
+    S, n_q, d = q.shape
+    page = k_pages.shape[2]
+    counts = [-(-int(n) // page) for n in lengths]
+    per = [-(-c // splits) for c in counts]
+    runs = [-(-c // p) if p else 0 for c, p in zip(counts, per)]
+    parts = []
+    for r in range(max(max(runs), 1)):
+        tb = torch.zeros((S, max(max(per), 1)), dtype=torch.int32)
+        ln = torch.zeros(S, dtype=torch.int32)
+        for b in range(S):
+            if r < runs[b]:
+                seg = tables[b, r * per[b]:(r + 1) * per[b]]
+                tb[b, :len(seg)] = seg
+                ln[b] = min(max(int(lengths[b]) - r * per[b] * page, 0), per[b] * page)
+        parts.append(tdec.decode_walk(variant.removesuffix("_t"), q, k_pages, v_pages, k_scales,
+                                      v_scales, tb, ln)[:3])
+    m, l, acc = parts[0]
+    O, L = acc.clone(), l.clone()
+    for b in range(S):
+        if runs[b] > 1:
+            M = torch.stack([p[0][b] for p in parts[:runs[b]]]).amax(0)
+            O[b], L[b] = 0, 0
+            for m_r, l_r, acc_r in parts[:runs[b]]:
+                f = torch.exp2(m_r[b] - M)
+                O[b], L[b] = O[b] + acc_r[b] * f, L[b] + l_r[b] * f
+    return (O / torch.where(L == 0, torch.ones_like(L), L)).to(q.dtype).reshape(S, n_q, d)
+
+
+def _int8_cache(rng, S, n_kv, page, max_pages, lengths):
+    """An int8 cache's tensors (random payload and scales, each slot's pages
+    drawn at random) with the given lengths: (k_pages, v_pages, k_scales,
+    v_scales (n_kv, n_pages, 1, page), tables, lengths)."""
+    n_pages = S * max_pages + 1
+    pages = [torch.from_numpy(rng.integers(-127, 128, (n_kv, n_pages, page, 128)).astype(np.int8))
+             for _ in range(2)]
+    scales = [torch.from_numpy(rng.uniform(0.005, 0.02, (n_kv, n_pages, 1, page))
+                               .astype(np.float32)) for _ in range(2)]
+    tables = torch.from_numpy(rng.permutation(n_pages)[:S * max_pages].reshape(S, max_pages)
+                              .astype(np.int32))
+    return (*pages, *scales, tables, torch.tensor(lengths, dtype=torch.int32))
+
+
+# (S, n_kv, n_q, page, max_pages, lengths): decode_case's shape (every live
+# page a run of its own), and 45 slots x 2 kv heads (5 splits: runs of 4 of
+# 16 pages of 64 keys) at ragged lengths, empty and full slots among them
+PAGED_SHAPES = {
+    "small": (3, 2, 4, 128, 4, [300, 512, 0]),
+    "runs": (45, 2, 8, 64, 16,
+             [0, 1024, 1, 63, 64, 65, 700] + [(37 * i) % 1025 for i in range(38)]),
+}
+
+
+@pytest.mark.parametrize("shape", list(PAGED_SHAPES))
+@pytest.mark.parametrize("variant", ["postscale", "current"])
+def test_paged_split_merge_within_card_gate(variant, shape):
+    """``postscale`` and ``current`` cut a slot's live pages over CTAs as
+    the serving decode does (``native.exp_decode_plan``) and merge the
+    runs' partials in the launch: that model stays within phase 8's gate of
+    the unsplit plain version (2 bf16 ulps at the output's scale) over
+    paged, ragged slots on several seeds; with one run it is the plain
+    version bit for bit."""
+    S, n_kv, n_q, page, max_pages, lengths = PAGED_SHAPES[shape]
+    splits = tdec.native.exp_decode_plan(variant, S, n_q, n_kv, page, max_pages)["splits"]
+    assert splits == (4 if shape == "small" else 5)
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        k, v, ks, vs, tables, lens = _int8_cache(rng, S, n_kv, page, max_pages, lengths)
+        q = _t(rng.uniform(-1, 1, (S, n_q, 128)), torch.bfloat16)
+        args = (q, k, v, tdec.page_major(ks), tdec.page_major(vs), tables, lens)
+        want = tdec.paged_decode_plain(variant, *args)
+        got = paged_split_model(variant, *args, splits)
+        assert not got[lens == 0].any()
+        _close(got.float().numpy(), want.float().numpy(), ULPS)
+        if seed == 0:
+            assert torch.equal(paged_split_model(variant, *args, 1), want)
+
+
+def test_serving_decode_matches_postscale():
+    """``postscale`` is the serving decode's int8 instantiation: on the
+    CPU the serving plain decode (causal, scale 1/sqrt(d)) gives
+    ``paged_decode_plain("postscale", ...)``'s bits on decode_case's
+    cache and on ragged slots of pages of 64."""
+    from tf_flash_attention_tpu_torch.serving.decode import paged_decode_attention
+    from tf_flash_attention_tpu_torch.serving.kv_cache import KVCacheConfig, PagedKVCache
+    for shape in PAGED_SHAPES.values():
+        S, n_kv, n_q, page, max_pages, lengths = shape
+        rng = np.random.default_rng(9)
+        k, v, ks, vs, tables, lens = _int8_cache(rng, S, n_kv, page, max_pages, lengths)
+        q = _t(rng.uniform(-1, 1, (S, n_q, 128)), torch.bfloat16)
+        cfg = KVCacheConfig(n_kv_heads=n_kv, head_dim=128, page_size=page, n_pages=k.shape[1],
+                            max_seqs=S, max_pages_per_seq=max_pages, quantized=True)
+        got = paged_decode_attention(q, PagedKVCache(k, v, ks, vs, tables, lens), cfg)
+        assert torch.equal(got, tdec.paged_decode_plain("postscale_t", q, k, v, ks, vs, tables,
+                                                        lens))
+
+
+# ---- int8mm on the integer mma (kDcS8) ----
+
+def dc_s8_pos(k):
+    """decode_tc.cuh's dc_s8_pos: the byte of a 32-key step's p code row
+    that holds key k."""
+    return (k & 16) | ((k & 6) << 1) | ((k & 8) >> 2) | (k & 1)
+
+
+def _b_bytes(word):
+    return [(word >> (8 * i)) & 0xFF for i in range(4)]
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm: result byte i is byte (sel >> 4 i) & 7 of y:x."""
+    src = _b_bytes(x) + _b_bytes(y)
+    return sum(src[(sel >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
+def _word(bs):
+    return sum((int(b) & 0xFF) << (8 * i) for i, b in enumerate(bs))
+
+
+def _s8(word):
+    return [((b + 128) & 0xFF) - 128 for b in _b_bytes(word)]
+
+
+def _mma_s8(a, b):
+    """mma.sync m16n8k32 s8 on one warp's registers: a[lane] (a0..a3),
+    b[lane] (b0, b1) -> d (16, 8), by the PTX fragment layouts."""
+    A, B = np.zeros((16, 32), np.int64), np.zeros((32, 8), np.int64)
+    for lane in range(32):
+        gq, t = lane >> 2, lane & 3
+        for reg, (row, k0) in enumerate(((gq, 0), (gq + 8, 0), (gq, 16), (gq + 8, 16))):
+            A[row, k0 + 4 * t:k0 + 4 * t + 4] = _s8(a[lane][reg])
+        for reg, k0 in enumerate((0, 16)):
+            B[k0 + 4 * t:k0 + 4 * t + 4, gq] = _s8(b[lane][reg])
+    return A @ B
+
+
+def test_int8mm_fragment_orders():
+    """kDcS8's products on one 64-key stage, lane by lane as
+    ``decode_tc_kernel`` builds them: S = Q K^T with each lane's q codes and
+    raw K bytes at d 32 t + 8 ks .. (k-step ks), and O = P V with the p codes
+    in dc_s8_pos's order and V from ldmatrix.trans of the restaged tile (a
+    lane gets keys 2t, 2t + 1 (+ 8 i in matrix i) of its column pair in
+    b16 pairs), sorted by __byte_perm 0x6420 (even column) and 0x7531 (odd
+    column), the output column of n-tile nt, element e 16 w + 4 t + 2 e + nt:
+    both equal the plain integer products."""
+    rng = np.random.default_rng(2)
+    qc = rng.integers(-127, 128, (16, 128))
+    k = rng.integers(-127, 128, (64, 128))
+    v = rng.integers(-127, 128, (64, 128))
+    pc = rng.integers(0, 128, (16, 64))
+    # scores: warp w's n-tile is keys 8 w .. 8 w + 7
+    for w in range(8):
+        d = np.zeros((16, 8), np.int64)
+        for ks in range(4):
+            a = [[_word(qc[r, 32 * (l & 3) + 8 * ks + o:32 * (l & 3) + 8 * ks + o + 4])
+                  for r, o in ((l >> 2, 0), ((l >> 2) + 8, 0), (l >> 2, 4), ((l >> 2) + 8, 4))]
+                 for l in range(32)]
+            b = [[_word(k[8 * w + (l >> 2), 32 * (l & 3) + 8 * ks + o:
+                          32 * (l & 3) + 8 * ks + o + 4]) for o in (0, 4)] for l in range(32)]
+            d += _mma_s8(a, b)
+        np.testing.assert_array_equal(d, qc @ k[8 * w:8 * w + 8].T)
+    # p codes as the merge stores them: key 32 i + k at byte 32 i + dc_s8_pos(k)
+    stored = np.zeros_like(pc)
+    for key in range(64):
+        stored[:, (key & ~31) + dc_s8_pos(key & 31)] = pc[:, key]
+    ub = (v & 0xFF).astype(np.int64)                 # the restaged tile's bytes
+    for w in range(8):
+        out = np.zeros((16, 16), np.int64)
+        for kk in range(2):
+            x = [[0] * 4 for _ in range(32)]
+            for l in range(32):
+                gq, t = l >> 2, l & 3
+                for mi in range(4):          # matrix mi: keys 32 kk + 8 mi .. + 7
+                    k0 = 32 * kk + 8 * mi + 2 * t
+                    c = 16 * w + 2 * gq
+                    x[l][mi] = _word([ub[k0, c], ub[k0, c + 1], ub[k0 + 1, c], ub[k0 + 1, c + 1]])
+            a = [[_word(stored[r, 32 * kk + o + 4 * (l & 3):32 * kk + o + 4 * (l & 3) + 4])
+                  for r, o in ((l >> 2, 0), ((l >> 2) + 8, 0), (l >> 2, 16), ((l >> 2) + 8, 16))]
+                 for l in range(32)]
+            for nt, sel in ((0, 0x6420), (1, 0x7531)):
+                b = [[_byte_perm(x[l][0], x[l][1], sel), _byte_perm(x[l][2], x[l][3], sel)]
+                     for l in range(32)]
+                d = _mma_s8(a, b)
+                for n in range(8):   # lane (n / 2)'s element n % 2: column 16 w + 2 n + nt
+                    out[:, 4 * (n >> 1) + 2 * (n & 1) + nt] += d[:, n]
+        np.testing.assert_array_equal(out, pc @ v[:, 16 * w:16 * w + 16])
+
+
+def int8mm_walk_model(q, k_pages, v_pages, k_scales, v_scales, tables, lengths):
+    """kDcS8's walk: one CTA a (slot, kv head), its live pages in order, a
+    page a merge: q codes (max |q| / 127, IEEE; rint), per 64-key stage the
+    integer scores (the order of d does not change an integer sum) and s =
+    si x ((qs x ks) x c); at the page's merge m, p = exp2(s - m), y = p x V
+    scale, ps = max y / 127 and the codes rint(y / ps); the page's integer
+    P V over its stages, acc = acc x alpha + float(sum) x ps -> (o, q codes,
+    integer scores, p codes) as ``paged_decode_plain(..., codes=True)``."""
+    S, n_q, d = q.shape
+    n_kv, _, page, _ = k_pages.shape
+    G, max_pages = n_q // n_kv, tables.shape[1]
+    c = torch.tensor(1.0 / np.sqrt(d) * tint4.LOG2E, dtype=torch.float32)
+    ks, vs = k_scales.reshape(n_kv, -1, page), v_scales.reshape(n_kv, -1, page)
+    o = torch.zeros((S, n_kv, G, d), dtype=q.dtype)
+    qcodes = torch.zeros((S, n_kv, G, d), dtype=torch.int8)
+    s_int = torch.zeros((S, n_kv, G, max_pages * page), dtype=torch.int32)
+    p_codes = torch.zeros((S, n_kv, G, max_pages * page), dtype=torch.int8)
+    neg = torch.tensor(tint4.NEG_INF_F32)
+    for b in range(S):
+        count = -(-int(lengths[b]) // page)
+        for h in range(n_kv):
+            qf = q[b].float().reshape(n_kv, G, d)[h]
+            qs = qf.abs().amax(-1, keepdim=True) / torch.tensor(127.0)
+            qs = torch.where(qs == 0, torch.ones_like(qs), qs)
+            qc = torch.round(qf / qs)
+            qcodes[b, h] = qc.to(torch.int8)
+            m, l, acc = torch.full((G, 1), neg.item()), torch.zeros((G, 1)), torch.zeros((G, d))
+            for p in range(count):
+                phys = int(tables[b, p])
+                kk, vv = k_pages[h, phys].long(), v_pages[h, phys].long()
+                si = torch.cat([qc.long() @ kk[st:st + 64].T for st in range(0, page, 64)], 1)
+                s = si.float() * ((qs * ks[h, phys][None, :]) * c)
+                pos = p * page + torch.arange(page)
+                s = torch.where(pos[None, :] < lengths[b], s, neg)
+                s_int[b, h, :, p * page:(p + 1) * page] = si.to(torch.int32)
+                m_next = torch.maximum(m, s.amax(-1, keepdim=True))
+                alpha = torch.exp2(m - m_next)
+                y = torch.exp2(s - m_next)
+                l = alpha * l + y.sum(-1, keepdim=True)
+                y = y * vs[h, phys][None, :]
+                ps = y.amax(-1, keepdim=True) / torch.tensor(127.0)
+                ps = torch.where(ps == 0, torch.ones_like(ps), ps)
+                pc = torch.round(y / ps)
+                p_codes[b, h, :, p * page:(p + 1) * page] = pc.to(torch.int8)
+                pv = sum(pc[:, st:st + 64].long() @ vv[st:st + 64] for st in range(0, page, 64))
+                acc = acc * alpha + pv.float() * ps
+                m = m_next
+            o[b, h] = (acc / torch.where(l == 0, torch.ones_like(l), l)).to(q.dtype)
+    return (o.reshape(S, n_q, d), qcodes.reshape(S, n_q, d), s_int.reshape(S, n_q, -1),
+            p_codes.reshape(S, n_q, -1))
+
+
+@pytest.mark.parametrize("shape", list(PAGED_SHAPES))
+def test_int8mm_page_order_walk(shape):
+    """int8mm's one-CTA walk in page order takes each page's running
+    maximum, so its q codes, integer scores and p codes are the plain
+    version's bit for bit (``native.exp_decode_plan`` gives it one split),
+    and its o is within the 2-ulp gate."""
+    S, n_kv, n_q, page, max_pages, lengths = PAGED_SHAPES[shape]
+    S, lengths = min(S, 9), lengths[:9]
+    assert tdec.native.exp_decode_plan("int8mm", S, n_q, n_kv, page, max_pages)["splits"] == 1
+    rng = np.random.default_rng(4)
+    k, v, ks, vs, tables, lens = _int8_cache(rng, S, n_kv, page, max_pages, lengths)
+    q = _t(rng.uniform(-1, 1, (S, n_q, 128)), torch.bfloat16)
+    want = tdec.paged_decode_plain("int8mm_t", q, k, v, ks, vs, tables, lens, codes=True)
+    got = int8mm_walk_model(q, k, v, ks, vs, tables, lens)
+    for name, a, b in zip(("q codes", "scores", "p codes"), got[1:], want[1:]):
+        assert torch.equal(a, b), name
+    _close(got[0].float().numpy(), want[0].float().numpy(), ULPS)

@@ -10,7 +10,8 @@
 //                           pages
 //   paged_multitoken_decode speculative decode: gamma draft tokens per slot,
 //                           each up to its own position (the same kernel)
-// The int4 unpack tool's four int4 sites (fa_exp_int4_*, off the serving
+// The experiment tools' decode sites (fa_exp_int4_*, the int4 unpack
+// tool's six; fa_exp_paged_decode, exp_decode's variants; off the serving
 // path) run the decode's tensor-core body as compiled policies
 // (decode_tc.cuh), so their entries live here beside the decode's.
 //
@@ -1590,31 +1591,67 @@ int fa_paged_multitoken_decode(int act, int kv, const void* q, const void* k_pag
 }
 
 // The int4 unpack tool's sites (tools/exp_int4_unpack.py) on the decode's
-// tensor-core body, each a compiled policy (decode_tc.cuh: the unpack, the
-// merge's cap, the split accumulators): q (B, n_kv, G, 128) bf16 over K/V
-// pages (n_kv, pages, rows, 128) of int4 pairs, scales (n_kv, pages, 2,
-// rows), page 2 rows; o as q.  Every row reads all pages: tables (B, pages)
-// the identity and lengths (B,) pages x page, int32.  A merge is NPG pages;
-// ws, tickets and splits as the decode's (native.exp_int4_plan); walk (3
-// ints out) as the decode's.
-#define FA_INT4_ENTRY(name, UNPACK, NPG, SPLIT)                                                 \
+// tensor-core body, each a compiled policy (decode_tc.cuh: the payload, the
+// unpack, the merge's cap, the split accumulators): q (B, n_kv, G, 128) bf16
+// over K/V pages (n_kv, pages, rows, 128) of int8 (a page rows keys) or of
+// int4 pairs (2 rows keys), scales (n_kv, pages, pack, rows).  Every row
+// reads all pages: tables (B, pages) the identity and lengths (B,) pages x
+// page, int32.  A merge is NPG pages; ws, tickets and splits as the
+// decode's (native.exp_int4_plan); walk (3 ints out) as the decode's.
+#define FA_TOOL_ENTRY(name, P, UNPACK, NPG, SPLIT)                                              \
   int name(const void* q, const void* k, const void* ks, const void* v, const void* vs, void* o, \
            const void* tables, const void* lengths, void* ws, void* tickets, int B, int n_kv,    \
            int G, int pages, int rows, int splits, float scale_log2e, int* walk, void* stream) { \
+    constexpr int pack = Payload<P>::kPack;                                                     \
     const tc::DcArgs a{static_cast<const bf16*>(q), k, v, static_cast<const float*>(ks),         \
                        static_cast<const float*>(vs), static_cast<const int*>(tables),          \
                        static_cast<const int*>(lengths), nullptr, static_cast<bf16*>(o),        \
                        nullptr, nullptr, static_cast<float*>(ws), static_cast<int*>(tickets),   \
-                       n_kv * G, n_kv, tc::kDcD, 2 * rows, pages, pages, 1, 1, 0, scale_log2e,  \
-                       0, 0, 0, splits, 1, NPG * 2 * rows};                                     \
-    return tc::decode_tc_tool<tc::DcPolicy<UNPACK, 256 * NPG, SPLIT>>(                          \
+                       n_kv * G, n_kv, tc::kDcD, pack * rows, pages, pages, 1, 1, 0,            \
+                       scale_log2e, 0, 0, 0, splits, 1, NPG * pack * rows};                     \
+    return tc::decode_tc_tool<P, tc::DcPolicy<UNPACK, 256 * NPG, SPLIT, true>>(                 \
         a, B, walk, static_cast<cudaStream_t>(stream));                                         \
   }
 
-FA_INT4_ENTRY(fa_exp_int4_s32, tc::kDcShift, 1, false)
-FA_INT4_ENTRY(fa_exp_int4_twopage, tc::kDcShift, 2, false)
-FA_INT4_ENTRY(fa_exp_int4_fourpage, tc::kDcShift, 4, false)
-FA_INT4_ENTRY(fa_exp_int4_bitcast, tc::kDcMagic, 1, true)
+FA_TOOL_ENTRY(fa_exp_int4_int8ref, int8_t, tc::kDcPermute, 1, false)
+FA_TOOL_ENTRY(fa_exp_int4_s32, int4x2, tc::kDcShift, 1, false)
+FA_TOOL_ENTRY(fa_exp_int4_twopage, int4x2, tc::kDcShift, 2, false)
+FA_TOOL_ENTRY(fa_exp_int4_fourpage, int4x2, tc::kDcShift, 4, false)
+FA_TOOL_ENTRY(fa_exp_int4_int8_2pg, int8_t, tc::kDcPermute, 2, false)
+FA_TOOL_ENTRY(fa_exp_int4_bitcast, int4x2, tc::kDcMagic, 1, true)
+
+// exp_decode's paged decode (tools/exp_decode.py) on the decode's
+// tensor-core body, variant 0 current (kDcDequant), 1 postscale (the serving
+// decode's int8 instantiation), 2 int8mm (kDcS8, one split).  q (S, n_kv G,
+// 128) bf16; k_pages, v_pages (n_kv, n_pages, page, 128) int8; scales
+// (n_kv, n_pages, page) float32 in either of the tool's layouts (the same
+// bytes); tables (S, max_pages), lengths (S,) int32; q_codes, s_int,
+// p_codes nullable (int8mm: q codes as q, integer scores and p codes (S,
+// n_kv G, max_pages x page)); ws, tickets and splits as the decode's
+// (native.exp_decode_plan); walk (3 ints out) as the decode's.
+int fa_exp_paged_decode(int variant, const void* q, const void* k_pages, const void* v_pages,
+                        const void* k_scales, const void* v_scales, const void* tables,
+                        const void* lengths, void* o, void* q_codes, void* s_int, void* p_codes,
+                        void* ws, void* tickets, int S, int n_kv, int G, int n_pages, int page,
+                        int max_pages, int splits, float scale_log2e, int* walk, void* stream) {
+  const tc::DcArgs a{static_cast<const bf16*>(q), k_pages, v_pages,
+                     static_cast<const float*>(k_scales), static_cast<const float*>(v_scales),
+                     static_cast<const int*>(tables), static_cast<const int*>(lengths), nullptr,
+                     static_cast<bf16*>(o), nullptr, nullptr, static_cast<float*>(ws),
+                     static_cast<int*>(tickets), n_kv * G, n_kv, tc::kDcD, page, n_pages,
+                     max_pages, 1, 1, 0, scale_log2e, 0, 0, 0, splits, 1, page};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case 0: return tc::decode_tc_exp<tc::DcPolicy<tc::kDcDequant, tc::kDcMaxMerge, false>>(
+                a, S, walk, st);
+    case 1: return tc::decode_tc_exp<tc::DcServing>(a, S, walk, st);
+    case 2: return tc::decode_tc_exp<tc::DcPolicy<tc::kDcS8, tc::kDcMaxMerge, false>>(
+                tc::DcS8Args{a, static_cast<int8_t*>(q_codes), static_cast<int*>(s_int),
+                             static_cast<int8_t*>(p_codes)},
+                S, walk, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 int fa_paged_prefill(int act, int kv, const void* q, const void* k_pages, const void* v_pages,
                      const void* k_scales, const void* v_scales, const void* table_row,

@@ -7,15 +7,22 @@ Single-token paged decode over the serving path's int8 cache (16 slots of
   current    dequantize K/V tiles: bf16(bf16(x) * bf16(per-token scale))
   postscale  K/V cast only; the per-token scales go on the scores and on p
   int8mm     q and p quantized per row in the kernel (IEEE division, round
-             half to even), int8 products with int32 sums (__dp4a)
+             half to even), int8 products with int32 sums
 
 each in two scale layouts: ``_t`` reads the cache's own rows (n_kv,
 n_pages, 1, page); without it, a page-major (n_kv, n_pages, page, 1) copy
 that ``main`` builds.  The tool as committed reads the cache's scales
 through page-major block shapes and returns NaN; the port computes the
-function the tool was written for.  The kernel is ``exp_paged_decode`` in
-``csrc/exp_decode_kernels.cu``: one CTA per (slot, kv head), pages p <
-ceil(length / page), tokens below the length.
+function the tool was written for.  The kernel is ``exp_paged_decode``: the
+decode's tensor-core body (``csrc/decode_tc.cuh``), each strategy a
+compiled policy (``native.DECODE_VARIANTS``): ``postscale`` the serving
+decode's int8 instantiation, ``current`` with K and V scaled in bf16,
+``int8mm`` on integer products; a slot's live pages (p < ceil(length /
+page), tokens below the length) split over CTAs as the serving decode's
+(``native.exp_decode_plan``), except int8mm's, whose p codes take each
+page's running maximum: one CTA walks a (slot, kv head)'s pages in order.
+It takes G <= 16 query rows a kv head and pages of 64-512 keys, a multiple
+of 64.
 
     python -m tf_flash_attention_tpu_torch.experiments.exp_decode
 """
@@ -30,7 +37,8 @@ from .. import native
 from ..ops.kernel_common import LOG2E, NEG_INF_F32
 from ._steps import bf16r, div, require_cuda
 
-__all__ = ["VARIANTS", "paged_decode", "paged_decode_plain", "page_major", "main"]
+__all__ = ["VARIANTS", "paged_decode", "paged_decode_plain", "decode_walk", "page_major",
+           "main"]
 
 VARIANTS = ("current", "postscale", "postscale_t", "int8mm", "int8mm_t")
 
@@ -56,7 +64,21 @@ def paged_decode_plain(variant, q, k_pages, v_pages, k_scales, v_scales, tables,
     ``codes`` (int8mm) (o, q codes, integer scores, p codes) as
     ``native.exp_paged_decode`` returns them."""
     _check_layout(variant, k_scales)
-    strategy = variant.removesuffix("_t")
+    m, l, acc, qc, s_all, p_all = decode_walk(variant.removesuffix("_t"), q, k_pages, v_pages,
+                                              k_scales, v_scales, tables, lengths)
+    S, n_q, d = q.shape
+    o = (acc / torch.where(l == 0, torch.ones_like(l), l)).to(q.dtype).reshape(S, n_q, d)
+    if not codes:
+        return o
+    return (o, qc.to(torch.int8).reshape(S, n_q, d), s_all.reshape(S, n_q, -1),
+            p_all.reshape(S, n_q, -1))
+
+
+def decode_walk(strategy, q, k_pages, v_pages, k_scales, v_scales, tables, lengths):
+    """The plain version's walk over each slot's live pages, a page a merge:
+    float32 (m, l, acc) (S, n_kv, G, 1 | d), and int8mm's q codes (S, n_kv,
+    G, d), integer scores and p codes (S, n_kv, G, max_pages * page), zero
+    past the live pages (else None, and zeros)."""
     S, n_q, d = q.shape
     n_kv, n_pages, page, _ = k_pages.shape
     G, max_pages = n_q // n_kv, tables.shape[1]
@@ -64,6 +86,7 @@ def paged_decode_plain(variant, q, k_pages, v_pages, k_scales, v_scales, tables,
     ks, vs = k_scales.reshape(n_kv, n_pages, page), v_scales.reshape(n_kv, n_pages, page)
     counts = torch.clamp(-(-lengths.long() // page), max=max_pages)
     qf = q.float().reshape(S, n_kv, G, d)
+    qc = None
     if strategy == "int8mm":
         qs = div(qf.abs().amax(-1, keepdim=True), 127.0)
         qs = torch.where(qs == 0, torch.ones_like(qs), qs)
@@ -108,11 +131,7 @@ def paged_decode_plain(variant, q, k_pages, v_pages, k_scales, v_scales, tables,
         m = torch.where(live, m_next, m)
         l = torch.where(live, l_next, l)
         acc = torch.where(live, acc * alpha + pv, acc)
-    o = (acc / torch.where(l == 0, torch.ones_like(l), l)).to(q.dtype).reshape(S, n_q, d)
-    if not codes:
-        return o
-    return (o, qc.to(torch.int8).reshape(S, n_q, d), s_all.reshape(S, n_q, -1),
-            p_all.reshape(S, n_q, -1))
+    return m, l, acc, qc, s_all, p_all
 
 
 def paged_decode(variant, q, k_pages, v_pages, k_scales, v_scales, tables, lengths,

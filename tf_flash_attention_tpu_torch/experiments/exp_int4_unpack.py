@@ -14,11 +14,10 @@ one K/V of CTX tokens that every row reads, in pages of PAGE tokens:
             subtraction turns two nibbles at a time), even and odd tokens
             accumulated apart and summed in bf16 as the tool's runner does
 
-The four int4 kernels run the serving decode's tensor-core body
-(``csrc/decode_tc.cuh``), each unpack method, merge width and the split
-accumulators a compiled policy, a (row, kv head)'s merges split over CTAs
-(``native.exp_int4_plan``); the two int8 ones the scalar template of
-``csrc/exp_decode_kernels.cu``, one CTA per (row, kv head).
+The six kernels run the serving decode's tensor-core body
+(``csrc/decode_tc.cuh``), each payload, unpack method, merge width and the
+split accumulators a compiled policy (the int8 ones on the serving unpack),
+a (row, kv head)'s merges split over CTAs (``native.exp_int4_plan``).
 ``serving_decode`` runs the serving decode itself on the same K/V laid out
 as a cache whose slots share its pages: the yardstick beside them.
 
@@ -89,7 +88,7 @@ def _tokens(pages, scales, pack):
 def int4_decode_plain(kernel: str, q, k, ks, v, vs):
     """The kernel ``KERNELS[name]`` in PyTorch: q (B, n_kv, G, d) bf16 over
     the shared K/V -> o (B, n_kv, G, d) bf16 (scale 1/sqrt(d))."""
-    npg, pack = native.INT4_NPG[kernel], 1 if kernel.startswith("exp_int4_int8") else 2
+    npg, pack = native.INT4_NPG[kernel], native._tool_pack(kernel)
     n_kv, pages, rows, d = k.shape
     c = 1.0 / math.sqrt(d) * LOG2E
     kt, kst = _tokens(k, ks, pack)

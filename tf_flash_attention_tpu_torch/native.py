@@ -92,8 +92,8 @@ def reset_launch_counts() -> None:
 #: ``paged_prefill[cp]``; ("vector" or "scalar") for ``kv_chunk_write``,
 #: ``kv_chunk_write[cp]`` and ``kv_append``; for the decodes (``paged_decode``,
 #: ``paged_multitoken_decode`` and their ``[cp]`` forms) also ``splits`` and
-#: ``ctas``; the same three for the int4 unpack tool's four int4 sites
-#: (``exp_int4_s32``, ``_twopage``, ``_fourpage``, ``_bitcast``); for each
+#: ``ctas``; the same three for the int4 unpack tool's six sites
+#: (``INT4_TC_UNPACK``) and ``exp_paged_decode``; for each
 #: persistent walk (``resident_fwd`` and
 #: the three experiment forwards) also ``grid`` (CTAs), ``items`` (work
 #: items) and ``group_rows`` (the rows a group of the walk)
@@ -253,8 +253,13 @@ _SIGNATURES = {
         # ks, v, vs, o, tables, lengths, ws, tickets, B, n_kv, G, pages, rows,
         # splits, scale_log2e, walk (3 ints out)
         **{f"fa_{name}": [_P] * 10 + [_I] * 6 + [_F, _P]
-           for name in ("exp_int4_s32", "exp_int4_twopage", "exp_int4_fourpage",
-                        "exp_int4_bitcast")},
+           for name in ("exp_int4_int8ref", "exp_int4_s32", "exp_int4_twopage",
+                        "exp_int4_fourpage", "exp_int4_int8_2pg", "exp_int4_bitcast")},
+        # exp_decode on the decode's tensor-core body: variant, q, k_pages,
+        # v_pages, k_scales, v_scales, tables, lengths, o, q_codes, s_int,
+        # p_codes, ws, tickets, S, n_kv, G, n_pages, page, max_pages, splits,
+        # scale_log2e, walk (3 ints out) (the codes nullable)
+        "fa_exp_paged_decode": [_I] + [_P] * 13 + [_I] * 7 + [_F, _P],
         # act, kv, q, k_pages, v_pages, k_scales, v_scales, table_row, o, l,
         # m, chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages,
         # page_stride, page_offset, start, total, first_live, count, window,
@@ -301,15 +306,6 @@ _SIGNATURES = {
         # dtype, q, k, v, dout, lse2, delta, dq_acc, dk, dv, starts, seg, band,
         # sub_kv, B, g, d, v_d, dk_scale, body (1 int out), rule
         "fa_window_bwd": [_I] + [_P] * 11 + [_I] * 6 + [_F, _P, _R],
-    },
-    "exp_decode_kernels.cu": {
-        # q, k, ks, v, vs, o, B, n_kv, G, pages, rows, scale_log2e
-        **{f"fa_{name}": [_P] * 6 + [_I] * 5 + [_F]
-           for name in ("exp_int4_int8ref", "exp_int4_int8_2pg")},
-        # variant, q, k_pages, v_pages, k_scales, v_scales, tables, lengths, o,
-        # q_codes, s_int, p_codes, S, n_kv, G, n_pages, page, max_pages,
-        # scale_log2e (the codes nullable)
-        "fa_exp_paged_decode": [_I] + [_P] * 11 + [_I] * 6 + [_F],
     },
     "exp_forward_kernels.cu": {
         # q, k, v, o, next_item, B, S, d, block_q, block_kv, walk (4 ints out)
@@ -610,6 +606,12 @@ def decode_plan(S: int, n_q: int, gamma: int, cfg, act_dtype=torch.bfloat16) -> 
                 workspace=cells * splits * DECODE_CTA_ROWS * (128 + 2) if splits > 1 else 0)
 
 
+def _dc_report(kernel: str, walk) -> None:
+    """A decode launch's report (C ``walk``: body, splits, CTAs) in ``WALKS``."""
+    WALKS[kernel] = dict(body="tensor-core" if walk[0] else "scalar", splits=walk[1],
+                         ctas=walk[2])
+
+
 _SCRATCH = {}
 
 
@@ -655,9 +657,7 @@ def _decode(entry, q, cache, cfg, S, gamma, scale_log2e, rule, returning_l_m, pa
           S, *(() if entry == "fa_paged_decode" else (gamma,)), n_q, cfg.n_kv_heads, d, D, *dims,
           page_stride, page_offset, float(scale_log2e), *_rule_args(rule), ws.data_ptr(),
           tickets.data_ptr(), plan["splits"], walk, cp=cp)
-    kernel = entry[3:] + ("[cp]" if cp else "")
-    WALKS[kernel] = dict(body="tensor-core" if walk[0] else "scalar", splits=walk[1],
-                         ctas=walk[2])
+    _dc_report(entry[3:] + ("[cp]" if cp else ""), walk)
     return (o, l, m) if returning_l_m else o
 
 
@@ -1243,19 +1243,24 @@ def flash_bwd_qouter(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, tables, bl
 
 #: the ladder's rungs in the order of exp_vpu_attrib's main (the kernel's codes)
 LADDER_RUNGS = ("prod", "nomax", "noexp", "nosum", "bf16exp", "mm")
-#: exp_decode's strategies (the kernel's codes); a ``_t`` suffix names the
-#: scale layout only
+#: exp_decode's strategies (the kernel's codes), each a compiled policy of
+#: the decode's tensor-core body (C ``DcUnpack``): ``current`` dequantizes K
+#: and V in bf16 (``kDcDequant``), ``postscale`` is the serving decode's int8
+#: instantiation, ``int8mm`` takes integer products (``kDcS8``); a ``_t``
+#: suffix names the scale layout only
 DECODE_VARIANTS = ("current", "postscale", "int8mm")
-#: the pages per step of each exp_int4_unpack kernel: the int8 sites' step
-#: on the scalar template, the int4 sites' compiled merge width (npg pages
-#: before a softmax update; the C policy's cap is npg x 256 keys)
+#: the pages per step of each exp_int4_unpack kernel: its compiled merge
+#: width (npg pages before a softmax update; the C policy's cap is npg x 256
+#: keys)
 INT4_NPG = {"exp_int4_int8ref": 1, "exp_int4_int8_2pg": 2, "exp_int4_s32": 1,
             "exp_int4_twopage": 2, "exp_int4_fourpage": 4, "exp_int4_bitcast": 1}
-#: the int4 sites on the decode's tensor-core body (``decode_tc.cuh``) and
-#: each one's compiled unpack method (C ``DcUnpack``); ``exp_int4_bitcast``
-#: also accumulates even and odd keys apart
-INT4_TC_UNPACK = {"exp_int4_s32": "shift", "exp_int4_twopage": "shift",
-                  "exp_int4_fourpage": "shift", "exp_int4_bitcast": "magic"}
+#: the six sites on the decode's tensor-core body (``decode_tc.cuh``) and
+#: each one's compiled unpack method (C ``DcUnpack``): the int8 sites the
+#: serving decode's ``permute``; ``exp_int4_bitcast`` also accumulates even
+#: and odd keys apart
+INT4_TC_UNPACK = {"exp_int4_int8ref": "permute", "exp_int4_s32": "shift",
+                  "exp_int4_twopage": "shift", "exp_int4_fourpage": "shift",
+                  "exp_int4_int8_2pg": "permute", "exp_int4_bitcast": "magic"}
 
 
 def _check_exp(*tensors, dtype=None) -> None:
@@ -1339,21 +1344,27 @@ def exp_kv_unroll(q, k, v, nkv: int, fused: bool, block_kv: int, scale_log2e: fl
                        tail=(block_kv, float(scale_log2e)))
 
 
+def _tool_pack(kernel: str) -> int:
+    """Keys a stored row of an exp_int4_unpack site: 1 (int8), 2 (int4)."""
+    return 1 if kernel.startswith("exp_int4_int8") else 2
+
+
 def exp_int4_plan(kernel: str, B: int, n_kv: int, G: int, pages: int, rows: int) -> dict:
-    """The launch of an int4 site (``INT4_TC_UNPACK``) on the decode's
-    tensor-core body (C ``decode_tc_tool``) for B rows of G query rows a kv
-    head over ``pages`` pages of ``rows`` byte rows (2 ``rows`` keys), from
-    the shapes alone: ``body``; ``merge_keys``, npg pages; ``splits``, the
-    CTAs a (row, kv head) cuts its merges into (``decode_plan``'s rule);
-    ``ctas``; ``smem`` a CTA; the float32 ``workspace`` of the partials
-    (both accumulators for bitcast) and the ``tickets`` of the in-launch
-    merge."""
-    npg = INT4_NPG[kernel]
+    """The launch of one of exp_int4_unpack's sites (``INT4_TC_UNPACK``) on
+    the decode's tensor-core body (C ``decode_tc_tool``) for B rows of G
+    query rows a kv head over ``pages`` pages of ``rows`` byte rows (int8:
+    ``rows`` keys; int4: 2 ``rows``), from the shapes alone: ``body``;
+    ``merge_keys``, npg pages; ``splits``, the CTAs a (row, kv head) cuts
+    its merges into (``decode_plan``'s rule); ``ctas``; ``smem`` a CTA (a
+    ring item holds 64 keys' payload); the float32 ``workspace`` of the
+    partials (both accumulators for bitcast) and the ``tickets`` of the
+    in-launch merge."""
+    npg, pack = INT4_NPG[kernel], _tool_pack(kernel)
     cells = B * n_kv
-    smem = _dc_smem(DECODE_STAGE_KEYS // 2 * 128, G, npg * 2 * rows, npg * 256)
+    smem = _dc_smem(DECODE_STAGE_KEYS // pack * 128, G, npg * pack * rows, npg * 256)
     splits = _dc_splits(-(-pages // npg), cells, smem, True)
     acc = 2 if kernel == "exp_int4_bitcast" else 1
-    return dict(body="tensor-core", merge_keys=npg * 2 * rows, splits=splits,
+    return dict(body="tensor-core", merge_keys=npg * pack * rows, splits=splits,
                 ctas=cells * splits, smem=smem, tickets=cells,
                 workspace=cells * splits * DECODE_CTA_ROWS * (acc * 128 + 2) if splits > 1 else 0)
 
@@ -1375,52 +1386,67 @@ def _identity_table(device, B: int, pages: int, page: int) -> tuple:
 def exp_int4_decode(kernel: str, q, k, ks, v, vs, scale_log2e: float):
     """Launch one of exp_int4_unpack's kernels (``INT4_NPG``): q (B, n_kv,
     G, 128) bf16 over the K/V every row shares, k, v (n_kv, pages, rows,
-    128) int8 (int4: nibble pairs), scales (n_kv, pages, pack, rows).  The
-    int4 sites run the decode's tensor-core body on an identity page table
-    (``exp_int4_plan``; G <= 16, pages of a multiple of 64 keys), the
-    launch's report (body, splits, CTAs) in ``WALKS``; the int8 sites the
-    scalar template of ``exp_decode_kernels.cu``."""
+    128) int8 (int4: nibble pairs), scales (n_kv, pages, pack, rows).  Each
+    runs the decode's tensor-core body on an identity page table
+    (``exp_int4_plan``; G <= 16, pages of a multiple of 64 keys; any other
+    shape raises), the launch's report (body, splits, CTAs) in ``WALKS``."""
     _check_exp(q, dtype=torch.bfloat16)
     _check_exp(k, v, dtype=torch.int8)
     _check_exp(ks, vs, dtype=torch.float32)
     B, n_kv, G, d = q.shape
     _, pages, rows, _ = k.shape
-    pack = 1 if kernel.startswith("exp_int4_int8") else 2
+    pack = _tool_pack(kernel)
     if (d != 128 or k.shape != (n_kv, pages, rows, d) or v.shape != k.shape
             or ks.shape != (n_kv, pages, pack, rows) or vs.shape != ks.shape
             or pages % INT4_NPG[kernel]):
         raise ValueError(f"{kernel}: inconsistent shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, scales {tuple(ks.shape)} (d 128, pages a "
                          f"multiple of {INT4_NPG[kernel]})")
-    o = torch.empty_like(q)
-    if kernel not in INT4_TC_UNPACK:
-        _call(f"fa_{kernel}", q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(),
-              vs.data_ptr(), o.data_ptr(), B, n_kv, G, pages, rows, float(scale_log2e))
-        return o
-    if G > 16 or (2 * rows) % DECODE_STAGE_KEYS:
+    if G > 16 or (pack * rows) % DECODE_STAGE_KEYS:
         raise ValueError(f"{kernel} takes G <= 16 query rows a kv head and pages of a multiple "
-                         f"of {DECODE_STAGE_KEYS} keys, got G {G}, {2 * rows} keys")
+                         f"of {DECODE_STAGE_KEYS} keys, got G {G}, {pack * rows} keys")
+    o = torch.empty_like(q)
     plan = exp_int4_plan(kernel, B, n_kv, G, pages, rows)
-    _check_smem(f"{kernel} at G {G}, page {2 * rows}", plan["smem"])
+    _check_smem(f"{kernel} at G {G}, page {pack * rows}", plan["smem"])
     ws, tickets = _decode_scratch(q.device, plan["workspace"], plan["tickets"])
-    tables, lengths = _identity_table(q.device, B, pages, 2 * rows)
+    tables, lengths = _identity_table(q.device, B, pages, pack * rows)
     walk = (ctypes.c_int * 3)()
     _call(f"fa_{kernel}", q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(), vs.data_ptr(),
           o.data_ptr(), tables.data_ptr(), lengths.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
           B, n_kv, G, pages, rows, plan["splits"], float(scale_log2e), walk)
-    WALKS[kernel] = dict(body="tensor-core" if walk[0] else "scalar", splits=walk[1],
-                         ctas=walk[2])
+    _dc_report(kernel, walk)
     return o
+
+
+def exp_decode_plan(variant: str, S: int, n_q: int, n_kv: int, page: int,
+                    max_pages: int) -> dict:
+    """The launch of one of exp_decode's strategies (``DECODE_VARIANTS``) on
+    the decode's tensor-core body (C ``decode_tc_exp``) for S slots of
+    ``n_q`` heads over an int8 cache of ``n_kv`` kv heads, pages of ``page``
+    keys, ``max_pages`` a slot, from the shapes alone (no length is read):
+    ``body``; ``splits``, the CTAs a (slot, kv head) cuts its live pages into
+    (``decode_plan``'s rule; one for ``int8mm``, whose p codes take each
+    page's running maximum: its pages in order in one CTA); ``ctas``;
+    ``smem`` a CTA; the float32 ``workspace`` and the ``tickets``."""
+    cells = S * n_kv
+    smem = _dc_smem(DECODE_STAGE_KEYS * 128, n_q // n_kv, page)
+    splits = 1 if variant == "int8mm" else _dc_splits(max_pages, cells, smem, True)
+    return dict(body="tensor-core", splits=splits, ctas=cells * splits, smem=smem,
+                tickets=cells,
+                workspace=cells * splits * DECODE_CTA_ROWS * (128 + 2) if splits > 1 else 0)
 
 
 def exp_paged_decode(variant: str, q, k_pages, v_pages, k_scales, v_scales, tables, lengths,
                      scale_log2e: float, codes: bool = False):
-    """Launch ``exp_paged_decode`` (``DECODE_VARIANTS``): q (S, n_q, 128)
-    bf16 over an int8 paged cache, scales (n_kv, n_pages, 1, page) or
-    (n_kv, n_pages, page, 1).  Returns o, or with ``codes`` (int8mm) (o, q
-    codes (S, n_q, 128) int8, integer scores (S, n_q, max_pages * page)
-    int32, p codes (S, n_q, max_pages * page) int8), zero past each slot's
-    live pages."""
+    """Launch ``exp_paged_decode`` (``DECODE_VARIANTS``) on the decode's
+    tensor-core body (``exp_decode_plan``): q (S, n_q, 128) bf16 over an
+    int8 paged cache, G = n_q / n_kv <= 16, pages of 64-512 keys (a
+    multiple of 64; any other shape raises), lengths at most ``max_pages``
+    pages, scales (n_kv, n_pages, 1, page) or (n_kv, n_pages, page, 1).
+    Returns o, or with ``codes`` (int8mm) (o, q codes (S, n_q, 128) int8,
+    integer scores (S, n_q, max_pages * page) int32, p codes (S, n_q,
+    max_pages * page) int8), zero past each slot's live pages.  The launch's
+    report (body, splits, CTAs) is in ``WALKS``."""
     _check_exp(q, dtype=torch.bfloat16)
     _check_exp(k_pages, v_pages, dtype=torch.int8)
     _check_exp(k_scales, v_scales, dtype=torch.float32)
@@ -1434,6 +1460,10 @@ def exp_paged_decode(variant: str, q, k_pages, v_pages, k_scales, v_scales, tabl
         raise ValueError(f"exp_paged_decode: inconsistent shapes q {tuple(q.shape)}, pages "
                          f"{tuple(k_pages.shape)}, scales {tuple(k_scales.shape)}, tables "
                          f"{tuple(tables.shape)}")
+    if n_q // n_kv > 16 or page % DECODE_STAGE_KEYS or not DECODE_STAGE_KEYS <= page <= 512:
+        raise ValueError(f"exp_paged_decode takes G <= 16 query rows a kv head and pages of "
+                         f"64-512 keys, a multiple of {DECODE_STAGE_KEYS}, got G "
+                         f"{n_q // n_kv}, {page} keys")
     if codes and variant != "int8mm":
         raise ValueError("only the int8mm variant has codes")
     o = torch.empty_like(q)
@@ -1441,8 +1471,14 @@ def exp_paged_decode(variant: str, q, k_pages, v_pages, k_scales, v_scales, tabl
              torch.zeros((S, n_q, max_pages * page), dtype=torch.int32, device=q.device),
              torch.zeros((S, n_q, max_pages * page), dtype=torch.int8, device=q.device)
              ) if codes else (None, None, None)
+    plan = exp_decode_plan(variant, S, n_q, n_kv, page, max_pages)
+    _check_smem(f"exp_paged_decode at G {n_q // n_kv}, page {page}", plan["smem"])
+    ws, tickets = _decode_scratch(q.device, plan["workspace"], plan["tickets"])
+    walk = (ctypes.c_int * 3)()
     _call("fa_exp_paged_decode", DECODE_VARIANTS.index(variant), q.data_ptr(),
           k_pages.data_ptr(), v_pages.data_ptr(), k_scales.data_ptr(), v_scales.data_ptr(),
-          tables.data_ptr(), lengths.data_ptr(), o.data_ptr(), *(_ptr(t) for t in extra), S, n_kv,
-          n_q // n_kv, n_pages, page, max_pages, float(scale_log2e))
+          tables.data_ptr(), lengths.data_ptr(), o.data_ptr(), *(_ptr(t) for t in extra),
+          ws.data_ptr(), tickets.data_ptr(), S, n_kv, n_q // n_kv, n_pages, page, max_pages,
+          plan["splits"], float(scale_log2e), walk)
+    _dc_report("exp_paged_decode", walk)
     return (o, *extra) if codes else o

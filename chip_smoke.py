@@ -83,7 +83,42 @@ Phases (any failure exits non-zero before the final line):
      float32 gate: all 8 layers, unquantized cache, 4 prompts of
      4,000-15,000 tokens, cp = 4 with and without speculation against the
      flat engine: the last prompt token's logits within half the tie gap,
-     equal greedy tokens up to each request's first top-2 logit tie;
+     equal greedy tokens up to each request's first top-2 logit tie; each
+     attention variant of (a) also timed beside its library yardstick, one
+     aten._scaled_dot_product_efficient_attention with compute_log_sumexp
+     on shard 0's own keys gathered beforehand (masked by global
+     position), and kv_chunk_write[cp] beside one index_put_ of shard 0's
+     owned rows into bf16 pages;
+  3f. sliding-window serving: (a) the serving kernels on rolled page
+     tables: 16 slots, page 256, 10 table slots a sequence (2,560 tokens),
+     slot lengths 3,600-12,000, every table slot below a slot's window at
+     the trash page (the payload's largest values at scales of 1,000),
+     int8 and int4 caches, LocalRule(1024) and the strided LocalRule(256,
+     2): paged_decode, paged_multitoken_decode (gamma 4) and paged_prefill
+     (a 512-token chunk at 3,000 or more) against their plain versions
+     (attn_tol) and against a dense windowed oracle on the live K/V
+     gathered by position (oracle_tol), each on the body native names;
+     kv_chunk_write and kv_append (one token, then 4) bit for bit with
+     lengths; paged_decode[cp] at cp = 4 on rolled local tables, each shard
+     against its plain version and the shards' merge against the oracle;
+     (b) the 168M decoder with LocalRule(1024) served (int8, page 256, chunk
+     512, 16 slots, 10 table slots, 161 pages): 16 requests of 1,000-6,000
+     prompt tokens with 64 greedy tokens and one of 4,000 with 1,400, then
+     speculation (3 drafts) on pattern prompts, then an int4 cache; each
+     run must launch its kernels on their Hopper bodies, evict, keep
+     pages_in_use_peak within the page cap times the slots, complete the
+     long request, and (int8) give each last prompt token the logits of the
+     model's forward over the whole prompt within LOGIT_ATOL; prints the
+     rates and the window engine's census; (c) a float32 gate: 2 layers,
+     window 1,024, unquantized cache, 4 prompts of 2,000-5,000 tokens, 48
+     new tokens, flat and cp = 4 (4 local table slots: the shards' tables
+     roll), each with and without speculation: the greedy tokens are the
+     argmax of a teacher-forced forward over each final sequence up to
+     each request's first top-2 tie;
+  3g. the bucketed prefill (buckets 512 and 2,048) on phase 3's requests:
+     the forward kernel the route picks launches once per layer and
+     prompt; last prompt token's logits within LOGIT_ATOL of phase 3's
+     chunked engine's; prints its prefill rate beside phase 3's;
   4. the same weights on the CPU (plain versions) and on the card: the
      logits of a 512-token prompt's last token must agree;
   5. the op path's ten kernels (the table-driven forward, kv-outer and
@@ -176,7 +211,16 @@ Phases (any failure exits non-zero before the final line):
      on the prescaled q, with the items and CTAs its launch reports, and
      held against the dense causal oracle within 1e-2 as well); then, at
      the tool's shape, resident_fwd and exp_resident_fwd at 128-row items
-     and 128-key merges, each timed in windows of 2 and of 20 calls.
+     and 128-key merges, each timed in windows of 2 and of 20 calls;
+  9. weight-only int8 projections: int8_matmul (torch._int_mm on the card)
+     at each 168M projection shape on 256 seeded bf16 rows, its weight and
+     row codes and scales, int32 accumulators and outputs bit-equal between
+     the card and the CPU; forward with quantize_model_weights at 1 x 2,048
+     tokens (every projection one torch._int_mm on the card) within
+     INT8_NOISE_FACTOR times the CPU forward's own response to a 2**-9
+     nudge of its norm scales (at least LOGIT_ATOL) of the CPU's plain
+     path; prints the error and top-1 agreement against the dense weights'
+     forward, and both forwards' ms.
 
 The kernels' JSON line gives each kernel's launches from the run of the
 path that takes it by default ("path": the engine, the speculative engine,
@@ -185,9 +229,11 @@ its bound (the larger of its bytes over 3.35 TB/s and its products over
 the peak of their type) and the time of one PyTorch call computing the same
 function (null where there is none); the serving kernels add the payloads
 held against their plain versions, each payload's time, and their launches
-in phase 3c.  The four sequence-sharded variants follow as kernels of their
-own ("paged_decode[cp]", ...; launches from the cp engine of phase 3e, times
-from 3e(a) on shard 0), then the ten experiment kernels (phase 8; the
+in phase 3c, the window engine's launches (3f(b)) and the rolled tables'
+errors (3f(a)).  The four sequence-sharded variants follow as kernels of
+their own ("paged_decode[cp]", ...; launches from the cp engine of phase
+3e, times and library yardsticks from 3e(a) on shard 0), then the ten
+experiment kernels (phase 8; the
 numbers of each tool's first variant, every variant's under "variants").
 The last lines are that JSON object, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -265,6 +311,14 @@ PREFILL_TOKS_BEFORE = {"engine": 43432.9, "speculative": 43340.6, "e4m3": 44052.
                        "int4 speculative": 47078.3, "int4": 40867.0, "cp engine": 18781.4,
                        "cp engine speculative": 17767.2, "flat engine": 22850.6,
                        "flat engine speculative": 21290.3}
+# int8 forward, CPU vs card (phase 9): a rounding that moves a projection's
+# input across a code boundary moves it by a whole step (1/127 of its row's
+# largest value), and the flips cascade through the layers; so the int8
+# forward's logits respond to any rounding difference by far more than the
+# dense forward's, past LOGIT_ATOL.  The card may differ from the CPU by
+# twice the CPU forward's own response to a 2**-9 nudge of its norm scales,
+# measured in the run
+INT8_NOISE_FACTOR = 2
 # CPU vs card (phase 7): bf16 matmuls accumulate in other orders on the two
 # devices; the mean of 512 token losses agrees to well under 1e-2
 CPU_LOSS_ATOL = 1e-2
@@ -814,7 +868,9 @@ def main():
     n_new = 32
 
     eng = DecodeEngine(mcfg, cpu_model, ecfg, device=dev)   # casts its own copy
+    chunked_logits = record_prompt_logits(eng)
     results, launches = serve("engine", eng, [(p, None) for p in prompts], n_new, mcfg.vocab)
+    chunked_logits, chunked_rate = dict(chunked_logits), eng.rates[0]   # the census's stay out
     if eng.prefix_cache.hits < 1:
         fail("the prefix cache never hit")
     kernels_3 = ("paged_decode", "paged_prefill", "kv_chunk_write", "kv_append")
@@ -853,6 +909,18 @@ def main():
 
     # ---- 3e: context-parallel serving, 4 shards on the card ----
     cp_measured, cp_launches = cp_phase(mcfg, cpu_model, args.seed, n_new, dev)
+
+    # ---- 3f: sliding-window serving ----
+    # (a) the serving kernels on rolled page tables
+    t0 = time.perf_counter()
+    rolled = {p: rolled_case(f"rolled_{p}", p, dev, gen) for p in ("int8", "int4")}
+    print(f"phase 3f(a): {time.perf_counter() - t0:.3f} s", flush=True)
+    # (b) the window engine at full width; (c) a float32 gate, flat and cp = 4
+    window_launches = window_engine_phase(mcfg, cpu_model, args.seed, dev)
+    window_gate(mcfg, args.seed, dev)
+
+    # ---- 3g: the bucketed prefill on phase 3's requests ----
+    bucketed_phase(mcfg, cpu_model, ecfg, prompts, n_new, chunked_logits, chunked_rate, dev)
 
     # ---- 4: logits on the CPU (plain versions) against the card ----
     small = EngineConfig(max_seqs=1, page_size=256, n_pages=18, max_pages_per_seq=16,
@@ -897,6 +965,9 @@ def main():
     # ---- 8: the experiment tools' kernels at the tools' shapes ----
     exp_entries, exp_launches = experiment_phase(dev, args.seed)
 
+    # ---- 9: weight-only int8 projections ----
+    quant_phase(mcfg, cpu_model, dev, args.seed)
+
     csrc = "tf_flash_attention_tpu_torch/csrc/"
     replaces = {
         "paged_decode": "tf_flash_attention_tpu/serving/decode.py:113",
@@ -940,6 +1011,12 @@ def main():
                                       "kernel_ms_gamma4", "bound_ms_gamma4",
                                       "library_payload", "shapes") if x in m}}
         if k in native.SERVING_KERNELS:
+            # the window engine's run (phase 3f(b)) and the rolled tables'
+            # errors against the plain versions and the dense oracle (3f(a))
+            entry["window_engine"] = {"path": "window engine (phase 3f(b): int8, with and "
+                                              "without speculation)",
+                                      "launches": window_launches[k]}
+            entry["rolled_tables"] = {p: r[k] for p, r in rolled.items()}
             entry["payloads_held"] = [pl for pl, c in cases.items() if k in c]
             entry["ms_by_payload"] = {pl: c[k]["ms"] for pl, c in cases.items() if k in c}
             entry["launches_by_payload"] = {pl: n[k] for pl, n in payload_launches.items()}
@@ -962,10 +1039,13 @@ def main():
                       "replaces": cp_replaces[k], "launches": cp_launches[k],
                       "path": "cp engine (phase 3e)", "max_abs_err": m["err"], "ms": m["ms"],
                       "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                      "bound_by": m["bound_by"], "library_ms": None,
+                      "bound_by": m["bound_by"], "library_ms": m.get("library_ms"),
+                      **({"rolled_tables": {p: r[k] for p, r in rolled.items()}}
+                         if k == "paged_decode[cp]" else {}),
                       **{x: m[x] for x in ("body", "splits", "ctas", "deterministic",
                                            "kernel_ms", "l_err", "m_err", "merge_err",
-                                           "cp_step_ms", "flat_ms", "entry_ms") if x in m}})
+                                           "cp_step_ms", "flat_ms", "entry_ms", "library_call",
+                                           "library_err") if x in m}})
     # the experiment tools' kernels: the numbers of each tool's first
     # variant, every variant's under "variants" (phase 8)
     for k in native.EXPERIMENT_KERNELS:
@@ -986,15 +1066,17 @@ def main():
 
 
 def serve(label, eng, reqs, n_new, vocab):
-    """Run ``reqs`` [(prompt, SamplingParams or None)] through ``eng`` with the
-    launch counts reset just before; checks every request returns its prompt
-    and ``n_new`` tokens of the vocabulary, prints the stats and the rates
-    (wall clock; prefill timed around each admission's chunks).  Returns
-    ({rid: tokens}, {kernel: launches in this run})."""
+    """Run ``reqs`` [(prompt, SamplingParams or None[, new tokens])] through
+    ``eng`` with the launch counts reset just before; checks every request
+    returns its prompt and its new tokens (``n_new`` unless the request
+    says) of the vocabulary, prints the stats and the rates (wall clock;
+    prefill timed around each admission's prefill), which it also leaves in
+    ``eng.rates`` as (prefill, decode) tokens/s.  Returns ({rid: tokens},
+    {kernel: launches in this run})."""
     from tf_flash_attention_tpu_torch import native
 
     prefill_s = [0.0]
-    inner = eng._prefill_chunked
+    inner = eng._prefill
 
     def timed_prefill(p, slot):
         torch.cuda.synchronize()
@@ -1004,21 +1086,21 @@ def serve(label, eng, reqs, n_new, vocab):
         prefill_s[0] += time.perf_counter() - t
         return r
 
-    eng._prefill_chunked = timed_prefill
-    rids = [eng.submit(p, max_new_tokens=n_new, **({} if sp is None else {"sampling": sp}))
-            for p, sp in reqs]
+    eng._prefill = timed_prefill
+    news = [r[2] if len(r) > 2 else n_new for r in reqs]
+    rids = [eng.submit(p, max_new_tokens=n, **({} if sp is None else {"sampling": sp}))
+            for (p, sp, *_), n in zip(reqs, news)]
     native.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = eng.run(max_steps=10_000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: native.LAUNCHES[k] for k in native.SERVING_KERNELS + native.CP_VARIANTS}
-    for rid, (p, _) in zip(rids, reqs):
+    launches = dict(native.LAUNCHES)
+    for rid, (p, *_), n in zip(rids, reqs, news):
         got = results.get(rid, [])
-        if len(got) != len(p) + n_new or got[:len(p)] != p:
-            fail(f"{label}: request {rid} returned {len(got)} tokens, expected "
-                 f"{len(p) + n_new}")
+        if len(got) != len(p) + n or got[:len(p)] != p:
+            fail(f"{label}: request {rid} returned {len(got)} tokens, expected {len(p) + n}")
         if not all(0 <= t < vocab for t in got[len(p):]):
             fail(f"{label}: request {rid} produced a token outside the vocabulary")
     decode_s = wall - prefill_s[0]
@@ -1032,14 +1114,18 @@ def serve(label, eng, reqs, n_new, vocab):
                              "paged_multitoken_decode[cp]") if launches[k]})
     print(f"{label}: {len(rids)} requests, stats {json.dumps(st)}, prefix hits "
           f"{eng.prefix_cache.hits if eng.prefix_cache else None}, launches "
-          f"{json.dumps(launches)}, attention bodies {json.dumps(bodies)}", flush=True)
-    rate = st['prefill_tokens'] / prefill_s[0]
+          f"{json.dumps({k: v for k, v in launches.items() if v})}, attention bodies "
+          f"{json.dumps(bodies)}", flush=True)
+    # the bucketed prefill counts no chunks: its tokens are the prompts'
+    n_prefill = (st["prefill_tokens"] if eng.ecfg.prefill_mode == "chunked"
+                 else sum(len(r[0]) for r in reqs))
+    eng.rates = (n_prefill / prefill_s[0], st["decode_tokens"] / decode_s)
     before = PREFILL_TOKS_BEFORE.get(label)
-    beside = "" if before is None else f" (on the scalar prefill: {before}, {rate / before:.3f}x)"
-    print(f"{label}: wall {wall:.3f} s; prefill {st['prefill_tokens']} tokens in "
-          f"{prefill_s[0]:.3f} s = {rate:.1f} tokens/s{beside}; "
+    beside = "" if before is None else f" (on the scalar prefill: {before}, {eng.rates[0] / before:.3f}x)"
+    print(f"{label}: wall {wall:.3f} s; prefill {n_prefill} tokens in "
+          f"{prefill_s[0]:.3f} s = {eng.rates[0]:.1f} tokens/s{beside}; "
           f"decode {st['decode_tokens']} tokens in {decode_s:.3f} s over {st['steps']} steps "
-          f"= {st['decode_tokens'] / decode_s:.1f} tokens/s", flush=True)
+          f"= {eng.rates[1]:.1f} tokens/s", flush=True)
     return results, launches
 
 
@@ -1090,20 +1176,22 @@ def quantized_engines(mcfg, cpu_model, ecfg, prompts, n_new, dev):
 
 
 def top2_gaps(cfg, model, prompts, outs, dev):
-    """The top-2 gap of each generated token's logits: a teacher-forced
-    forward of the model over each output sequence, on the card."""
+    """The top-2 gap of each generated token's logits, and the argmax: a
+    teacher-forced forward of the model over each output sequence, on the
+    card.  Returns (gaps, argmaxes), a list of each per request."""
     from tf_flash_attention_tpu_torch.models import transformer as tf
 
     card_model = copy.deepcopy(model).to(dev)
-    gaps = []
+    gaps, best = [], []
     with torch.no_grad():
         for p, full in zip(prompts, outs):
             logits = tf.forward(cfg, card_model, torch.tensor([full[:-1]], device=dev))[0]
-            top2 = logits[len(p) - 1:].topk(2, dim=-1).values
-            gaps.append((top2[:, 0] - top2[:, 1]).cpu().tolist())
+            top2 = logits[len(p) - 1:].topk(2, dim=-1)
+            gaps.append((top2.values[:, 0] - top2.values[:, 1]).cpu().tolist())
+            best.append(top2.indices[:, 0].cpu().tolist())
     del card_model
     torch.cuda.empty_cache()
-    return gaps
+    return gaps, best
 
 
 def check_to_tie(label, prompts, want, got, gaps):
@@ -1142,7 +1230,7 @@ def lossless_gate(mcfg, seed, prompts, n_new, dev):
 
     base, _, _ = run(0)
     torch.cuda.empty_cache()
-    gaps = top2_gaps(cfg, model, prompts, base, dev)
+    gaps, _ = top2_gaps(cfg, model, prompts, base, dev)
 
     def oracle(shift):
         def propose(hist, n_draft):
@@ -1375,6 +1463,26 @@ def cp_kernel_case(label, n_q, n_kv, dev, gen, timed):
                                                  cfg.n_pages - 1, n, 0),
             2 * n_kv * own_rows * (d * act + tok), 0),
     }
+    # the library yardsticks on shard 0 (before the timed chunk writes change
+    # slot 1): one memory-efficient attention with its log-sum-exp (the
+    # content of the (l, m) pair) on the shard's own keys gathered
+    # beforehand, for the attention variants; one index_put_ of the shard's
+    # owned rows into bf16 pages (K, then V) for the chunk write (below)
+    arange = lambda m: torch.arange(m, device=dev)
+    libs = {"paged_decode[cp]": (q[:, :, None], range(S), lengths, (glob - 1)[:, None],
+                                 lambda o: o[:, :, None]),
+            "paged_multitoken_decode[cp]": (qm.permute(0, 2, 1, 3), range(S), lengths,
+                                            glob[:, None] - 4 + arange(4),
+                                            lambda o: o.permute(0, 2, 1, 3)),
+            "paged_prefill[cp]": (qp.permute(1, 0, 2)[None], [0], [start + chunk],
+                                  (start + arange(chunk))[None],
+                                  lambda o: o.permute(1, 0, 2)[None])}
+    for variant, (q4, slots, totals, q_pos, as_rows) in libs.items():
+        lib, lib_o = cp_library(q4.contiguous(), sc, cfg, list(slots), totals, q_pos, 0, n)
+        got = as_rows(runs[variant][0]()[0])
+        out[variant].update(library_ms=time_ms(lib), library_call="aten._scaled_dot_product_"
+                            "efficient_attention(compute_log_sumexp=True)",
+                            library_err=float((lib_o.float() - got.float()).abs().max()))
     for variant, (kern, plain, n_bytes, n_ops) in runs.items():
         b_ms, b_by = bound(n_bytes, n_ops, "bf16")
         out[variant].update(ms=time_ms(kern),
@@ -1383,6 +1491,17 @@ def cp_kernel_case(label, n_q, n_kv, dev, gen, timed):
         out[variant].update(native.WALKS[variant])   # the timed launch's (shard 0, causal)
     out["kv_chunk_write[cp]"]["entry_ms"] = time_ms(
         lambda: kv_cache.write_tokens_at(sc, cfg, 1, w_start, k, v, w_len, cfg.n_pages - 1, n, 0))
+    mine = [t for t in range(w_len) if ((w_start + t) // ps) % n == 0]
+    pos = w_start + torch.tensor(mine, device=dev)
+    at = (arange(n_kv)[:, None],
+          sc.page_tables[1].long()[(pos // ps // n) % cfg.max_pages_per_seq][None],
+          (pos % ps)[None])
+    k_own, v_own = k[:, mine].contiguous(), v[:, mine].contiguous()
+    bf_k = torch.zeros((n_kv, cfg.n_pages, ps, d), dtype=bf, device=dev)
+    bf_v = torch.zeros_like(bf_k)
+    out["kv_chunk_write[cp]"].update(
+        library_ms=time_ms(lambda: (bf_k.index_put_(at, k_own), bf_v.index_put_(at, v_own))),
+        library_call="Tensor.index_put_ of the owned rows into bf16 K and V pages")
     # the whole context-parallel decode (4 launches and the merge) against
     # the flat kernel over the same tokens
     out["paged_decode[cp]"]["cp_step_ms"] = time_ms(
@@ -1392,6 +1511,39 @@ def cp_kernel_case(label, n_q, n_kv, dev, gen, timed):
     for variant, r in out.items():
         print(f"kernel cp {label} {variant}: {json.dumps(r)}", flush=True)
     return out
+
+
+def cp_library(q4, sc, cfg, slots, totals, q_pos, r, n):
+    """The sequence-sharded attention's library yardstick: one
+    ``_scaled_dot_product_efficient_attention`` with ``compute_log_sumexp``
+    (o and the rows' log-sum-exp, what the (l, m) pair holds) of query rows
+    ``q4`` (B, n_q, rows, d) over shard ``r``'s own keys of ``slots`` (each
+    up to global length ``totals[i]``), gathered and widened to bf16
+    beforehand and masked by global position (a key at or before its row,
+    ``q_pos`` (B, rows)).  Returns (the call, its o (B, n_q, rows, d))."""
+    from tf_flash_attention_tpu_torch.serving.kv_cache import _owned_token_count
+    ps, dev = cfg.page_size, q4.device
+    B, H, R, d = q4.shape
+    if H != cfg.n_kv_heads:
+        fail(f"cp library yardstick: {H} q heads over {cfg.n_kv_heads} kv heads")
+    owned = [_owned_token_count(t, ps, n, r) for t in totals]
+    top = max(owned)
+    k_all = torch.zeros((B, H, top, d), dtype=torch.bfloat16, device=dev)
+    v_all = torch.zeros_like(k_all)
+    for i, (b, m) in enumerate(zip(slots, owned)):
+        if m:
+            k_all[i, :, :m], v_all[i, :, :m] = gathered_kv(sc, cfg, b, m)
+    j = torch.arange(top, device=dev)
+    gpos = ((j // ps) * n + r) * ps + j % ps
+    live = j[None, :] < torch.tensor(owned, device=dev)[:, None]
+    vis = live[:, None, :] & (gpos[None, None, :] <= q_pos[:, :, None])      # (B, rows, keys)
+    # the bias rows start on 16-element boundaries, as the kernel wants
+    bias = torch.full((B, H, R, -(-top // 16) * 16), -math.inf, dtype=torch.bfloat16,
+                      device=dev)[..., :top]
+    bias.masked_fill_(vis[:, None], 0.0)
+    lib = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(q4, k_all, v_all, bias,
+                                                                         True)
+    return lib, lib()[0]
 
 
 def cp_phase(mcfg, cpu_model, seed, n_new, dev):
@@ -1508,14 +1660,14 @@ def step_profile(label, eng, prompts, n_steps=3):
 def record_prompt_logits(eng):
     """{prompt as a tuple: float32 logits of its last token}, filled as
     ``eng`` admits its requests."""
-    out, inner = {}, eng._prefill_chunked
+    out, inner = {}, eng._prefill
 
     def prefill(p, slot):
         r = inner(p, slot)
-        out[tuple(p)] = r.float()
+        out[tuple(p)] = r[0].float()
         return r
 
-    eng._prefill_chunked = prefill
+    eng._prefill = prefill
     return out
 
 
@@ -1526,8 +1678,7 @@ def logits_err(label, got, want, tol):
         fail(f"{label}: the engines admitted different prompts")
     err = max(float((got[p] - want[p]).abs().max()) for p in want)
     if not all(torch.isfinite(x).all() for x in got.values()) or err > tol:
-        fail(f"{label}: last prompt token's logits differ from the flat engine's by {err} > "
-             f"{tol}")
+        fail(f"{label}: last prompt token's logits differ by {err} > {tol}")
     return err
 
 
@@ -1561,7 +1712,7 @@ def cp_gate(mcfg, seed, mesh, dev):
         return [res[r] for r in rids], logits
 
     base, base_logits = run(flat_cfg, 0, device=dev)
-    gaps = top2_gaps(cfg, model, prompts, base, dev)
+    gaps, _ = top2_gaps(cfg, model, prompts, base, dev)
     for spec in (0, 3):
         out, out_logits = run(cp_cfg, spec, mesh=mesh)
         label = f"cp gate (speculative_tokens={spec}, against the flat engine)"
@@ -1573,6 +1724,516 @@ def cp_gate(mcfg, seed, mesh, dev):
               f"max_abs_err {err} (tol {CP_F32_LOGIT_ATOL}); prompt lengths "
               f"{[len(p) for p in prompts]}; smallest top-2 gap {min(min(g) for g in gaps)}",
               flush=True)
+
+
+# ---- phases 3f and 3g: sliding-window serving and the bucketed prefill ----
+
+# the window phases' rules: a window of 1,024 and a strided one of the same
+# reach (256 positions of stride 4)
+def window_rules():
+    from tf_flash_attention_tpu_torch.mask_rules import LocalRule
+    return (LocalRule(1024, 0, True), LocalRule(256, 2, True))
+
+
+# the dense windowed oracle (phase 3f(a)): float32 attention on the live K/V
+# gathered by position, against kernels that round q, K, V and p to bf16:
+# a p rounding moves an output element by at most 2**-9 of the largest
+# value, and the outputs are means over hundreds of keys; 8 bf16 ulps at the
+# output's scale, while a page read from the wrong table slot or skipped
+# moves an output by a sizeable share of it
+def oracle_tol(ref):
+    return 8 * 2.0 ** -8 * float(ref.abs().max())
+
+
+def live_kv(cache, cfg, slot, lo, hi):
+    """K and V of positions [lo, hi) of ``slot``, gathered by position
+    through its (rolled) page table and dequantized: float32 (n_kv, hi - lo,
+    head_dim)."""
+    from tf_flash_attention_tpu_torch.serving.kv_cache import _page_tokens
+    ps, mp = cfg.page_size, cfg.max_pages_per_seq
+    g0, g1 = lo // ps, (hi - 1) // ps + 1
+    phys = cache.page_tables[slot].long()[torch.arange(g0, g1, device=cache.page_tables.device) % mp]
+    out = []
+    for pages, scales in ((cache.k_pages, cache.k_scales), (cache.v_pages, cache.v_scales)):
+        x, sc = _page_tokens(pages[:, phys], None if scales is None else scales[:, phys], cfg)
+        if sc is not None:
+            x = x * sc[..., None]
+        x = x.reshape(cfg.n_kv_heads, -1, x.shape[-1])
+        out.append(x[:, lo - g0 * ps:hi - g0 * ps, :cfg.head_dim].float())
+    return out
+
+
+def window_oracle(q, q_pos, cache, cfg, slot, total, rule, scale):
+    """Dense windowed attention of query rows ``q`` (rows, n_q, d) at
+    positions ``q_pos`` (rows,) of ``slot`` over its keys below ``total``
+    that ``rule`` lets them see, on K/V gathered by position (``live_kv``);
+    float32 (rows, n_q, d)."""
+    from tf_flash_attention_tpu_torch.serving.decode import _rule_visible
+    lo = max(0, int(q_pos.min()) - (rule.strided_window_size - 1))
+    k, v = live_kv(cache, cfg, slot, lo, total)
+    rows, n_q, d = q.shape
+    g = n_q // cfg.n_kv_heads
+    kv_pos = torch.arange(lo, total, device=q.device)
+    vis = _rule_visible(rule, q_pos[:, None].long(), kv_pos[None, :])    # (rows, keys)
+    qh = q.float().reshape(rows, cfg.n_kv_heads, g, d).permute(1, 2, 0, 3)  # (n_kv, g, rows, d)
+    s = (qh @ k[:, None].transpose(-1, -2)) * scale                      # (n_kv, g, rows, keys)
+    s = s.masked_fill(~vis, -math.inf)
+    o = torch.softmax(s, dim=-1) @ v[:, None]                            # (n_kv, g, rows, d)
+    return o.permute(2, 0, 1, 3).reshape(rows, n_q, d)
+
+
+def rolled_cache(cfg, dev, gen, lengths, reach):
+    """A cache with random contents whose slot s maps the global pages from
+    ``reach[s]`` up to the page of position ``lengths[s] + 4`` at table slot
+    ``g % max_pages_per_seq`` (the engine's rolled table), every other table
+    slot at the trash page, which holds the payload's largest values at
+    scales of 1,000: a kernel that reads a rolled-over slot is far off."""
+    from tf_flash_attention_tpu_torch.serving.kv_cache import PagedKVCache
+    ps, mp, trash = cfg.page_size, cfg.max_pages_per_seq, cfg.n_pages - 1
+    cache = PagedKVCache.create(cfg, dev)
+    fill_random(cache, cfg, dev, gen)
+    for pages, scales in ((cache.k_pages, cache.k_scales), (cache.v_pages, cache.v_scales)):
+        if cfg.is_int4:
+            pages[:, trash] = 0x77
+        elif cfg.quantized:
+            pages[:, trash] = 127
+        else:
+            pages[:, trash] = 1e3
+        if scales is not None:
+            scales[:, trash] = 1e3
+    table = torch.full((cfg.max_seqs, mp), trash, dtype=torch.int32)
+    free = iter(torch.randperm(trash, generator=torch.Generator().manual_seed(len(lengths))).tolist())
+    for s, (n, lo) in enumerate(zip(lengths, reach)):
+        g0, g1 = lo // ps, (n + 4) // ps + 1
+        if g1 - g0 > mp:
+            fail(f"rolled case: slot {s} needs {g1 - g0} live pages, the table holds {mp}")
+        for g in range(g0, g1):
+            table[s, g % mp] = next(free)
+    cache.page_tables.copy_(table)
+    cache.lengths.copy_(torch.tensor(lengths, dtype=torch.int32))
+    return cache
+
+
+def rolled_case(label, payload, dev, gen):
+    """Phase 3f(a) for one payload: 16 slots, page 256, max_pages_per_seq 10
+    (the table reaches 2,560 tokens), slot lengths 3,000-12,000, 8 q / 8 kv
+    heads, d 128; every slot's table rolled, the slots below its window at
+    the trash page (``rolled_cache``).  For each window rule: paged_decode,
+    paged_multitoken_decode (gamma 4) and paged_prefill (a 512-token chunk at
+    3,000 or more) against their plain versions (attn_tol) and against the
+    dense windowed oracle (oracle_tol), each on the body native names;
+    kv_chunk_write and kv_append (one token, then gamma 4) bit for bit with
+    lengths; paged_decode[cp] at cp = 4 on shards whose local tables roll,
+    each shard against its plain version and the shards' merge against the
+    oracle.  Returns {kernel: {err, oracle_err, ...}}."""
+    from tf_flash_attention_tpu_torch.ops.kernel_common import LOG2E
+    from tf_flash_attention_tpu_torch.serving import decode, kv_cache, prefill
+    from tf_flash_attention_tpu_torch.serving.seq_sharded_decode import _merge_partials
+
+    S, ps, mp, d, n_q, n_kv, chunk = 16, 256, 10, 128, 8, 8, 512
+    cfg = payload_cfg(payload, n_kv_heads=n_kv, head_dim=d, page_size=ps,
+                      n_pages=S * mp + 1, max_seqs=S, max_pages_per_seq=mp)
+    trash = cfg.n_pages - 1
+    lengths = torch.randint(3600, 12001, (S,), generator=gen, device=dev).tolist()
+    lengths[1] = 36 * 256          # a length on a page boundary
+    # the oldest row any kernel below runs: the prefill chunk's first
+    reach = [max(0, n - chunk - 1023) for n in lengths]
+    cache = rolled_cache(cfg, dev, gen, lengths, reach)
+    glob = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    bf, scale = torch.bfloat16, d ** -0.5
+    out = {}
+
+    def check(kernel, rule, got, want, oracle):
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        o_err = float((got.float() - oracle).abs().max())
+        if not torch.isfinite(got).all() or err > attn_tol(want) or o_err > oracle_tol(oracle):
+            fail(f"{label}: {kernel} ({rule}) on rolled tables: error {err} against its plain "
+                 f"version (tol {attn_tol(want)}), {o_err} against the dense windowed oracle "
+                 f"(tol {oracle_tol(oracle)})")
+        r = out.setdefault(kernel, {})
+        r.update(err=max(r.get("err", 0.0), err), oracle_err=max(r.get("oracle_err", 0.0), o_err))
+
+    q1 = torch.randn((S, n_q, d), generator=gen, device=dev).to(bf)
+    q4 = torch.randn((S, 4, n_q, d), generator=gen, device=dev).to(bf)
+    start = lengths[0] - chunk
+    qp = torch.randn((chunk, n_q, d), generator=gen, device=dev).to(bf)
+    qs = (qp.float() * torch.tensor(scale * LOG2E, dtype=torch.float32)).to(bf)
+    for rule in window_rules():
+        name = f"LocalRule({rule.window_size}, {rule.log2_stride_size})"
+        for kernel, q in (("paged_decode", q1), ("paged_multitoken_decode", q4)):
+            gamma = 1 if q.dim() == 3 else 4
+            fn = (decode.paged_decode_attention if gamma == 1 else decode.paged_multitoken_decode)
+            plain = (decode._paged_decode_plain if gamma == 1
+                     else decode._paged_multitoken_decode_plain)
+            got = fn(q, cache, cfg, rule=rule)
+            out.setdefault(kernel, {}).update(decode_ran(kernel, cfg, label))
+            want = plain(q, cache, cfg, scale, rule)
+            qq = q.reshape(S, gamma, n_q, d)
+            oracle = torch.stack([
+                window_oracle(qq[b], torch.arange(n - gamma, n, device=dev), cache, cfg, b, n,
+                              rule, scale) for b, n in enumerate(lengths)]).reshape(q.shape)
+            check(kernel, name, got, want, oracle)
+        got = prefill.paged_prefill_attention(qp, cache, cfg, 0, start, chunk, rule=rule)
+        out.setdefault("paged_prefill", {}).update(prefill_ran("paged_prefill", cfg, label))
+        want = prefill._paged_prefill_plain(qs, cache, cfg, 0, start, chunk, rule)
+        oracle = window_oracle(qs.float() / (scale * LOG2E), torch.arange(start, start + chunk,
+                               device=dev), cache, cfg, 0, start + chunk, rule, scale)
+        check("paged_prefill", name, got, want, oracle)
+
+    # the KV writes on rolled tables: a chunk of 451 real rows at an even
+    # start 512 or 513 tokens below slot 2's length, then appends at every
+    # slot's length, one token and then 4 (slot 5 inactive)
+    w_start = (lengths[2] - chunk) & ~1
+    k = torch.randn((chunk, n_kv, d), generator=gen, device=dev).to(bf).transpose(0, 1)
+    v = torch.randn((chunk, n_kv, d), generator=gen, device=dev).to(bf).transpose(0, 1)
+    ck, cpl = clone_cache(cache), clone_cache(cache)
+    kv_cache.write_tokens_at(ck, cfg, 2, w_start, k, v, 451, trash)
+    out["kv_chunk_write"] = dict(err=0.0, **kv_ran("kv_chunk_write", k, v, cfg, label))
+    kv_cache._write_tokens_plain(cpl, cfg, 2, w_start, k, v, 451, trash)
+    cpl.lengths[2] = w_start + 451
+    torch.cuda.synchronize()
+    diffs = diff_outside_trash(ck, cpl, trash)
+    if diffs or not torch.equal(ck.lengths, cpl.lengths):
+        fail(f"{label}: kv_chunk_write on a rolled table differs from its plain version: {diffs}")
+    kn = torch.randn((S, 4, n_kv, d), generator=gen, device=dev).to(bf)
+    vn = torch.randn((S, 4, n_kv, d), generator=gen, device=dev).to(bf)
+    act = torch.ones(S, dtype=torch.bool, device=dev)
+    act[5] = False
+    ck, cpl = clone_cache(cache), clone_cache(cache)
+    for T in (1, 4):
+        kv_cache.append_tokens_batched(ck, cfg, kn[:, :T], vn[:, :T], act, trash)
+        out["kv_append"] = dict(err=0.0, **kv_ran("kv_append", kn[:, :T], vn[:, :T], cfg, label))
+        kv_cache._append_tokens_plain(cpl, cfg, kn[:, :T], vn[:, :T], act, trash)
+        torch.cuda.synchronize()
+        diffs = diff_outside_trash(ck, cpl, trash)
+        if diffs or not torch.equal(ck.lengths, cpl.lengths):
+            fail(f"{label}: kv_append (T {T}) on a rolled table differs from its plain version: "
+                 f"{diffs}")
+    del ck, cpl
+
+    # paged_decode[cp]: shard r holds global pages r, r + 4, ... of every
+    # slot, local page j at its table slot j % 10; the live ones copied from
+    # the flat cache, the rolled-over ones at the trash page
+    n = N_SHARDS
+    shards = []
+    for r in range(n):
+        sc = kv_cache.PagedKVCache.create(cfg, dev)
+        for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
+            if getattr(sc, name) is not None:
+                getattr(sc, name)[:, trash] = getattr(cache, name)[:, trash]
+        table = torch.full((S, mp), trash, dtype=torch.int32)
+        nxt = 0
+        for b, L in enumerate(lengths):
+            for g in range(reach[b] // ps, -(-L // ps)):
+                if g % n != r:
+                    continue
+                src = int(cache.page_tables[b, g % mp])
+                for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
+                    if getattr(sc, name) is not None:
+                        getattr(sc, name)[:, nxt] = getattr(cache, name)[:, src]
+                table[b, (g // n) % mp] = nxt
+                nxt += 1
+        sc.page_tables.copy_(table)
+        sc.lengths.copy_(torch.tensor([kv_cache._owned_token_count(L, ps, n, r) for L in lengths],
+                                      dtype=torch.int32))
+        shards.append(sc)
+    for rule in window_rules():
+        parts = []
+        for r, sc in enumerate(shards):
+            got = decode.paged_decode_attention(q1, sc, cfg, rule=rule, returning_l_m=True,
+                                                page_stride=n, page_offset=r, global_lengths=glob)
+            ran = decode_ran("paged_decode[cp]", cfg, label)
+            want = decode._paged_decode_plain(q1, sc, cfg, scale, rule, True, n, r, glob)
+            torch.cuda.synchronize()
+            err = float((got[0].float() - want[0].float()).abs().max())
+            l_err, m_err = lm_errors(got, want)
+            if err > attn_tol(want[0]) or l_err > LM_RTOL or m_err > LM_RTOL:
+                fail(f"{label}: paged_decode[cp] shard {r} on a rolled table: o error {err}, l "
+                     f"{l_err}, m {m_err}")
+            parts.append(got)
+            rec = out.setdefault("paged_decode[cp]", dict(err=0.0, oracle_err=0.0))
+            rec.update(ran, err=max(rec["err"], err))
+        merged = _merge_partials(parts, dev)
+        oracle = torch.stack([window_oracle(q1[b][None], torch.tensor([L - 1], device=dev), cache,
+                                            cfg, b, L, rule, scale)[0]
+                              for b, L in enumerate(lengths)])
+        o_err = float((merged - oracle).abs().max())
+        if not torch.isfinite(merged).all() or o_err > oracle_tol(oracle):
+            fail(f"{label}: the merged paged_decode[cp] on rolled tables differs from the dense "
+                 f"windowed oracle by {o_err} > {oracle_tol(oracle)}")
+        out["paged_decode[cp]"]["oracle_err"] = max(out["paged_decode[cp]"]["oracle_err"], o_err)
+    print(f"rolled tables {label}: lengths {lengths}; {json.dumps(out)}", flush=True)
+    return out
+
+
+def kv_bodies(label):
+    """Fail unless the last launches of the KV writes ran the vector row
+    body (the one native.kv_write_body names for the projection's K/V at
+    head_dim_store 128)."""
+    from tf_flash_attention_tpu_torch import native
+    for k in ("kv_chunk_write", "kv_append"):
+        if native.LAUNCHES[k] and native.WALKS[k]["body"] != "vector":
+            fail(f"{label}: {k} ran the {native.WALKS[k]['body']} body")
+
+
+def window_forward_logits(cfg, model, prompts, dev):
+    """{prompt: float32 logits of its last token} from one ``forward`` of
+    the model over each whole prompt on the card (the op path's window
+    kernels)."""
+    from tf_flash_attention_tpu_torch.models import transformer as tf
+    card_model = copy.deepcopy(model).to(dev)
+    out = {}
+    with torch.no_grad():
+        for p in prompts:
+            out[tuple(p)] = tf.forward(cfg, card_model, torch.tensor([p], device=dev))[0, -1]
+    del card_model
+    torch.cuda.empty_cache()
+    return out
+
+
+def window_engine_phase(mcfg, cpu_model, seed, dev):
+    """Phase 3f(b): the 168M decoder with a causal window of 1,024 served by
+    the engine (int8 cache, page 256, chunk 512, 16 slots, 10 table slots a
+    sequence, 161 pages): 16 requests of 1,000-6,000 prompt tokens with 64
+    greedy tokens each and one of 4,000 with 1,400 (5,400 tokens, more than
+    twice the table's reach); then speculation (3 drafts) on pattern
+    prompts, and an int4 cache.  Each run must launch its kernels on their
+    Hopper bodies, evict, stay within its page cap, complete the long
+    request, and give each request's last prompt token the logits of the
+    model's forward over the whole prompt within LOGIT_ATOL (int8; the int4
+    run's are printed).  Returns {kernel: launches} of the int8 runs."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.mask_rules import LocalRule
+    from tf_flash_attention_tpu_torch.serving.engine import DecodeEngine, EngineConfig
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(mcfg, rule=LocalRule(window_size=1024, is_causal=True))
+    ecfg = EngineConfig(max_seqs=16, page_size=256, n_pages=161, max_pages_per_seq=10,
+                        quantized_kv=True, prefill_chunk=512)
+    pgen = torch.Generator().manual_seed(seed + 8)
+    lens = [4000] + torch.randint(1000, 6001, (16,), generator=pgen).tolist()
+    news = [1400] + [64] * 16
+    prompts = [torch.randint(1, cfg.vocab, (n,), generator=pgen).tolist() for n in lens]
+    pattern = torch.randint(1, cfg.vocab, (64,), generator=pgen).tolist()
+    pattern_prompts = [(pattern * (n // 64 + 1))[:n] for n in lens]
+    want = window_forward_logits(cfg, cpu_model, prompts + pattern_prompts, dev)
+    launches = {}
+    for label, ecfg_run, reqs_prompts, kernels in (
+            ("window engine", ecfg, prompts,
+             ("paged_decode", "paged_prefill", "kv_chunk_write", "kv_append")),
+            ("window engine speculative", dataclasses.replace(ecfg, speculative_tokens=3),
+             pattern_prompts, ("paged_multitoken_decode", "paged_prefill", "kv_chunk_write",
+                               "kv_append")),
+            ("window engine int4", dataclasses.replace(ecfg, kv_quant_dtype="int4"), prompts,
+             ("paged_decode", "paged_prefill", "kv_chunk_write", "kv_append"))):
+        eng = DecodeEngine(cfg, cpu_model, ecfg_run, device=dev)
+        logits = record_prompt_logits(eng)
+        results, ran = serve(label, eng, [(p, None, n) for p, n in zip(reqs_prompts, news)], None,
+                             cfg.vocab)
+        kv_bodies(label)
+        if min(ran[k] for k in kernels) < 1:
+            fail(f"{label}: a kernel of the path never launched: {ran}")
+        st, cap = eng.stats, eng._pages_cap * ecfg_run.max_seqs
+        if st["pages_evicted"] < 1 or st["pages_in_use_peak"] > cap:
+            fail(f"{label}: pages_evicted {st['pages_evicted']}, pages_in_use_peak "
+                 f"{st['pages_in_use_peak']} (cap {cap})")
+        err = max(float((logits[tuple(p)] - want[tuple(p)]).abs().max()) for p in reqs_prompts)
+        if label != "window engine int4" and (
+                err > LOGIT_ATOL or not all(torch.isfinite(x).all() for x in logits.values())):
+            fail(f"{label}: last prompt token's logits differ from the windowed forward's by "
+                 f"{err} > {LOGIT_ATOL}")
+        print(f"{label}: pages_in_use_peak {st['pages_in_use_peak']} of cap {cap}, "
+              f"pages_evicted {st['pages_evicted']}, long request {len(results[0])} tokens; "
+              f"last prompt token's logits against the windowed forward: max_abs_err {err} "
+              f"(tol {LOGIT_ATOL}{', not gated: int4 cache' if 'int4' in label else ''})"
+              + (f"; spec_stats {json.dumps(eng.spec_stats)}" if eng.ecfg.speculative_tokens
+                 else ""), flush=True)
+        if label != "window engine int4":
+            for k in native.SERVING_KERNELS:
+                launches[k] = launches.get(k, 0) + ran[k]
+        if label == "window engine":
+            census(label, eng, seed)
+        del eng
+        torch.cuda.empty_cache()
+    print(f"phase 3f(b): {time.perf_counter() - t0:.3f} s", flush=True)
+    return launches
+
+
+def teacher_check(label, cfg, model, prompts, outs, dev):
+    """Fail unless each request's generated tokens are the argmax of one
+    teacher-forced forward over its final sequence, up to its first top-2
+    logit tie (gap under GAP_TIE).  Returns (requests equal in full, the
+    ties as (request, position, gap))."""
+    gaps, best = top2_gaps(cfg, model, prompts, outs, dev)
+    want = [p + b for p, b in zip(prompts, best)]
+    check_to_tie(label, prompts, want, outs, gaps)
+    ties = [(i, j, x) for i, gap in enumerate(gaps) for j, x in enumerate(gap) if x < GAP_TIE]
+    return sum(a == b for a, b in zip(outs, want)), ties
+
+
+def window_gate(mcfg, seed, dev):
+    """Phase 3f(c): 2 layers at the 168M width in float32 with a causal
+    window of 1,024, unquantized cache, 4 prompts of 2,000-5,000 tokens and
+    48 new tokens each; flat (10 table slots a sequence) and cp = 4 (a mesh
+    of the card repeated, 4 local table slots: the shards' tables roll),
+    each with and without speculation: every run's greedy tokens must be
+    the argmax of one teacher-forced forward over its final sequence, up to
+    each request's first top-2 tie."""
+    from tf_flash_attention_tpu_torch.mask_rules import LocalRule
+    from tf_flash_attention_tpu_torch.models import transformer as tf
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+    from tf_flash_attention_tpu_torch.serving.engine import DecodeEngine, EngineConfig
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(mcfg, n_layers=2, dtype=torch.float32,
+                              rule=LocalRule(window_size=1024, is_causal=True))
+    model = tf.init_params(cfg, torch.Generator().manual_seed(seed + 9), device="cpu")
+    pgen = torch.Generator().manual_seed(seed + 10)
+    prompts = [torch.randint(1, cfg.vocab, (n,), generator=pgen).tolist()
+               for n in torch.randint(2000, 5001, (4,), generator=pgen).tolist()]
+    flat = EngineConfig(max_seqs=4, page_size=256, n_pages=4 * 10 + 1, max_pages_per_seq=10,
+                        quantized_kv=False, prefill_chunk=512)
+    cp = dataclasses.replace(flat, n_pages=4 * 6 + 1, max_pages_per_seq=4)
+    mesh = make_mesh((N_SHARDS,), ("seq",), [dev] * N_SHARDS)
+    for name, ecfg, kw in (("flat", flat, dict(device=dev)), ("cp = 4", cp, dict(mesh=mesh))):
+        for spec in (0, 3):
+            eng = DecodeEngine(cfg, model, dataclasses.replace(ecfg, speculative_tokens=spec), **kw)
+            rids = [eng.submit(p, max_new_tokens=48) for p in prompts]
+            res = eng.run(max_steps=10_000)
+            outs = [res[r] for r in rids]
+            label = f"window gate ({name}, speculative_tokens={spec})"
+            if [len(o) for o in outs] != [len(p) + 48 for p in prompts]:
+                fail(f"{label}: requests returned {[len(o) for o in outs]} tokens")
+            full, ties = teacher_check(label, cfg, model, prompts, outs, dev)
+            print(f"{label}: {full} of {len(prompts)} requests equal the teacher-forced argmax in "
+                  f"full; ties (request, position, gap) {ties}; pages_evicted "
+                  f"{eng.stats['pages_evicted']}, pages_in_use_peak "
+                  f"{eng.stats['pages_in_use_peak']}"
+                  + (f"; spec_stats {json.dumps(eng.spec_stats)}" if spec else ""), flush=True)
+            del eng
+            torch.cuda.empty_cache()
+    print(f"phase 3f(c): {time.perf_counter() - t0:.3f} s; prompt lengths "
+          f"{[len(p) for p in prompts]}", flush=True)
+
+
+#: the op path's forward kernels (the bucketed prefill runs one of them)
+FORWARD_KERNELS = ("flash_fwd", "banded_fwd", "window_fwd", "resident_fwd")
+
+
+def bucketed_phase(mcfg, cpu_model, ecfg, prompts, n_new, chunked_logits, chunked_rate, dev):
+    """Phase 3g: the engine with prefill_mode="bucketed" (buckets 512 and
+    2,048) on phase 3's requests: the forward kernel the route picks must
+    launch once per layer and prompt, and no other op kernel; each
+    request's last prompt token's logits within LOGIT_ATOL of phase 3's
+    chunked engine's.  Prints the prefill rate beside phase 3's."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.serving.engine import DecodeEngine
+
+    eng = DecodeEngine(mcfg, cpu_model, dataclasses.replace(
+        ecfg, prefill_mode="bucketed", prefill_buckets=(512, 2048)), device=dev)
+    logits = record_prompt_logits(eng)
+    _, ran = serve("bucketed engine", eng, [(p, None) for p in prompts], n_new, mcfg.vocab)
+    fwd = {k: ran[k] for k in FORWARD_KERNELS if ran[k]}
+    others = {k: ran[k] for k in native.ATTENTION_KERNELS if ran[k] and k not in FORWARD_KERNELS}
+    want = mcfg.n_layers * len(prompts)
+    if len(fwd) != 1 or sum(fwd.values()) != want or others:
+        fail(f"bucketed engine: forward launches {fwd}, other op kernels {others}; expected one "
+             f"forward kernel {want} times")
+    err = logits_err("bucketed engine", logits, chunked_logits, LOGIT_ATOL)
+    print(f"bucketed engine: forward launches {json.dumps(fwd)} ({mcfg.n_layers} layers x "
+          f"{len(prompts)} prompts); last prompt token's logits against the chunked engine's "
+          f"(phase 3): max_abs_err {err} (tol {LOGIT_ATOL}); prefill {eng.rates[0]:.1f} tokens/s "
+          f"against the chunked engine's {chunked_rate:.1f} (phase 3, {eng.rates[0] / chunked_rate:.3f}x)",
+          flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return fwd
+
+
+def quant_phase(mcfg, cpu_model, dev, seed):
+    """Phase 9: weight-only int8 projections.  int8_matmul on seeded bf16
+    inputs of 256 rows at each 168M projection shape: weight codes and
+    scales, row codes and scales, int32 accumulators and outputs bit-equal
+    between the card and the CPU.  Then forward with quantize_model_weights
+    at 1 x 2,048 tokens: every projection one torch._int_mm on the card,
+    and the card's logits within INT8_NOISE_FACTOR times the CPU forward's
+    own response to a 2**-9 nudge of its norm scales (at least LOGIT_ATOL)
+    of the CPU's plain path; prints the error and top-1 agreement against
+    the dense weights' forward on the card, and both forwards' ms."""
+    from tf_flash_attention_tpu_torch.models import transformer as tf
+    from tf_flash_attention_tpu_torch.ops import quant
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(seed + 11)
+    for name, (d_in, d_out) in mcfg.proj_shapes().items():
+        x = torch.randn((256, d_in), generator=gen).to(torch.bfloat16)
+        w = torch.randn((d_in, d_out), generator=gen) / math.sqrt(d_in)
+        qw, qw_card = quant.quantize_weight_int8(w), quant.quantize_weight_int8(w.to(dev))
+        cpu = quant.int8_matmul(x, qw, return_parts=True)
+        card = quant.int8_matmul(x.to(dev), qw_card, return_parts=True)
+        pairs = {"weight codes": (qw.values, qw_card.values),
+                 "weight scales": (qw.scales, qw_card.scales),
+                 "row codes": (cpu[1].values, card[1].values),
+                 "row scales": (cpu[1].scales, card[1].scales),
+                 "accumulators": (cpu[2], card[2]), "outputs": (cpu[0], card[0])}
+        bad = [k for k, (a, b) in pairs.items() if not torch.equal(a, b.cpu())]
+        if bad:
+            fail(f"phase 9: int8_matmul at {name} ({d_in} x {d_out}): the card's {bad} differ "
+                 f"from the CPU's")
+    print(f"phase 9: int8_matmul bit-equal between the card and the CPU at "
+          f"{json.dumps(mcfg.proj_shapes())} (256 rows, bf16)", flush=True)
+    tokens = torch.randint(1, mcfg.vocab, (1, 2048), generator=gen)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    q_card = tf.quantize_model_weights(card_model)
+    q_cpu = tf.quantize_model_weights(cpu_model)
+    products = []
+    inner = quant._int8_product
+
+    def counted(a, b):
+        products.append(a.device.type)
+        return inner(a, b)
+
+    quant._int8_product = counted
+    with torch.no_grad():
+        want = tf.forward(mcfg, q_cpu, tokens)
+        # the int8 forward's own rounding sensitivity: the same forward with
+        # every ln1 scale nudged by 2**-9 (below a bf16 ulp), on the CPU
+        nudged = copy.deepcopy(q_cpu)
+        for block in nudged.layers:
+            block.ln1.mul_(1 + 2.0 ** -9)
+        noise = float((tf.forward(mcfg, nudged, tokens) - want).abs().max())
+        tol = max(LOGIT_ATOL, INT8_NOISE_FACTOR * noise)
+        products.clear()
+        tok = tokens.to(dev)
+        got = tf.forward(mcfg, q_card, tok)
+        ran = list(products)
+        dense = tf.forward(mcfg, card_model, tok)
+        err = float((got.cpu() - want).abs().max())
+        last_err = float((got[0, -1].cpu() - want[0, -1]).abs().max())
+        if ran != ["cuda"] * (7 * mcfg.n_layers):
+            fail(f"phase 9: the int8 forward on the card ran {ran.count('cuda')} int8 products "
+                 f"on the card, {len(ran)} in all; expected {7 * mcfg.n_layers}")
+        if not torch.isfinite(got).all() or err > tol:
+            fail(f"phase 9: the int8 forward's logits on the card differ from the CPU's by {err} "
+                 f"> {tol} (the CPU forward's response to a nudge: {noise})")
+        dense_err = float((got - dense).abs().max())
+        top1 = float((got.argmax(-1) == dense.argmax(-1)).float().mean())
+        card_cpu_top1 = float((got.argmax(-1).cpu() == want.argmax(-1)).float().mean())
+        q_ms = time_ms(lambda: tf.forward(mcfg, q_card, tok), n=5)
+        d_ms = time_ms(lambda: tf.forward(mcfg, card_model, tok), n=5)
+    quant._int8_product = inner
+    print(f"phase 9: int8 forward at 1 x 2048 ({7 * mcfg.n_layers} torch._int_mm products on "
+          f"the card): card vs CPU logits max_abs_err {err}, last token {last_err}, top-1 "
+          f"agreement {card_cpu_top1} (tol {tol}: {INT8_NOISE_FACTOR} x the CPU forward's "
+          f"response {noise} to a 2**-9 nudge of its norm scales, at least {LOGIT_ATOL}); against "
+          f"the dense-weight forward on the card: max_abs_err {dense_err}, top-1 agreement "
+          f"{top1}; forward {q_ms:.4f} ms int8, {d_ms:.4f} ms dense; "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    del card_model, q_card
+    torch.cuda.empty_cache()
+    return dict(err=err, noise=noise, dense_err=dense_err, top1=top1, int8_ms=q_ms,
+                dense_ms=d_ms)
 
 
 @contextlib.contextmanager

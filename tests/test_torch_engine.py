@@ -361,17 +361,66 @@ def test_engine_defaults_to_the_card(params_np):
 
 
 @pytest.mark.parametrize("change", [
-    dict(engine=dict(prefill_mode="bucketed")),
-    dict(model=dict(rule=LocalRule(window_size=8, is_causal=True))),
     # tensor parallelism: a mesh whose model axis is larger than 1
     dict(mesh=make_mesh((2,), ("model",), ["cpu", "cpu"])),
-], ids=["bucketed", "local_rule", "mesh"])
+], ids=["mesh"])
 def test_engine_unported_options_raise(params_np, change):
     cfg = dataclasses.replace(TCFG, **change.get("model", {}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         teng.DecodeEngine(cfg, ttf.params_from_jax(cfg, params_np, "cpu"),
                           teng.EngineConfig(**ECFG, **change.get("engine", {})),
                           mesh=change.get("mesh"), device="cpu")
+
+
+# the JAX engine's ValueError cases: a rule that is not left-to-right, a
+# window model or a mesh with the bucketed prefill, a table too small for a
+# window's live set (flat, with speculation, under cp), and speculation
+# past a page under cp; "rule" is (window, log2 stride, causal) or "full"
+BUCKETED = dict(prefill_mode="bucketed")
+
+
+@pytest.mark.parametrize("case", [
+    dict(rule=(8, 0, True), engine=BUCKETED, match="chunked"),
+    dict(rule=(4, 1, True), engine=BUCKETED, match="chunked"),
+    dict(rule=(8, 0, False), match="autoregressive"),
+    dict(rule=(4, 1, False), match="autoregressive"),
+    dict(rule=(8, 0, False), engine=BUCKETED, match="autoregressive"),
+    dict(rule="full", match="autoregressive"),
+    dict(cp=4, engine=BUCKETED, match="chunked"),
+    dict(cp=2, engine=BUCKETED, match="chunked"),
+    dict(cp=4, rule=(12, 0, True), engine=BUCKETED, match="chunked"),
+    dict(rule=(64, 0, True), match="too small"),
+    dict(rule=(16, 2, True), match="too small"),
+    dict(rule=(56, 0, True), engine=dict(speculative_tokens=8), match="too small"),
+    dict(cp=4, rule=(600, 0, True), match="too small"),
+    dict(cp=4, engine=dict(page_size=2, speculative_tokens=3), match="page_size"),
+], ids=["window_bucketed", "strided_bucketed", "window_noncausal", "strided_noncausal",
+        "noncausal_bucketed", "full_rule", "cp4_bucketed", "cp2_bucketed", "cp_window_bucketed",
+        "window_table_small", "strided_table_small", "window_spec_table_small",
+        "cp_window_table_small", "cp_spec_page_small"])
+def test_engine_rejects_what_jax_rejects(params_np, case):
+    """Each configuration the JAX engine refuses with a ValueError, the port's
+    engine refuses too, with the same words."""
+    from tf_flash_attention_tpu.mask_rules import FullRule as JFullRule
+    from tf_flash_attention_tpu.mask_rules import LocalRule as JLocalRule
+    from tf_flash_attention_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from tf_flash_attention_tpu_torch.mask_rules import FullRule
+
+    rule, cp = case.get("rule"), case.get("cp", 1)
+    rules = {None: ({}, {}), "full": (dict(rule=JFullRule()), dict(rule=FullRule()))}
+    jrule, trule = (rules[rule] if rule in rules else
+                    (dict(rule=JLocalRule(*rule)), dict(rule=LocalRule(*rule))))
+    ecfg = dict(ECFG, **case.get("engine", {}))
+    with pytest.raises(ValueError, match=case["match"]):
+        jeng.DecodeEngine(dataclasses.replace(MCFG, **jrule),
+                          jax.tree.map(jnp.asarray, params_np), jeng.EngineConfig(**ecfg),
+                          mesh=jmake_mesh((cp,), ("seq",), jax.devices()[:cp]) if cp > 1 else None)
+    cfg = dataclasses.replace(TCFG, **trule)
+    place = (dict(mesh=make_mesh((cp,), ("seq",), ["cpu"] * cp)) if cp > 1
+             else dict(device="cpu"))
+    with pytest.raises(ValueError, match=case["match"]):
+        teng.DecodeEngine(cfg, ttf.params_from_jax(cfg, params_np, "cpu"),
+                          teng.EngineConfig(**ecfg), **place)
 
 
 def test_moe_config_raises():

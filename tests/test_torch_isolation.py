@@ -30,6 +30,7 @@ def test_engine_import_leaves_jax_out():
             "import tf_flash_attention_tpu_torch.api; "
             "import tf_flash_attention_tpu_torch.flops; "
             "import tf_flash_attention_tpu_torch.models.transformer; "
+            "import tf_flash_attention_tpu_torch.ops.quant; "
             "import tf_flash_attention_tpu_torch.ops.reference; "
             "import tf_flash_attention_tpu_torch.utils.profiling; "
             "import tf_flash_attention_tpu_torch.experiments.exp_decode; "

@@ -11,7 +11,10 @@ Parameters are float32 ``nn.Parameter``s, as in the JAX package, and are
 cast to ``cfg.dtype`` at each use; norm math runs in float32.  The serving
 engine casts once, when it is built (``inference_weights``), which gives
 the same values.  Weights keep the JAX layout (in, out): a projection is
-``x @ w``.
+``x @ w``.  ``quantize_model_weights`` gives an inference copy whose
+projections are weight-only int8 (``ops/quant.py``); ``forward`` runs them
+through ``int8_matmul`` (``_proj``).  The serving engine takes dense
+weights only, as the JAX engine does.
 
 Not ported (each raises ``NotImplementedError``; see ROADMAP): the
 sharded step (``mesh``), context parallelism, MoE.
@@ -30,10 +33,11 @@ from torch import nn
 
 from ..block_sizes import BlockConfig
 from ..mask_rules import CausalRule, MaskRule
+from ..ops.quant import QuantizedTensor, int8_matmul, quantize_weight_int8
 from ..parallel.sharded import mha
 
 __all__ = ["ModelConfig", "Transformer", "init_params", "params_from_jax",
-           "inference_weights", "forward", "loss_fn", "train_step"]
+           "inference_weights", "quantize_model_weights", "forward", "loss_fn", "train_step"]
 
 _PROJ = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
 
@@ -159,6 +163,9 @@ def inference_weights(model: Transformer, device=None) -> Transformer:
     """A frozen copy on ``device`` with the embedding and projections cast
     to ``cfg.dtype`` once (the values a per-use cast gives); norm scales
     stay float32."""
+    if any(isinstance(getattr(b, name), QuantizedTensor) for b in model.layers for name in _PROJ):
+        raise TypeError("the serving engine takes dense weights, as the JAX engine does "
+                        "(quantize_model_weights is for forward)")
     out = copy.deepcopy(model).to(device)
     dtype = model.cfg.dtype
     out.embed.data = out.embed.data.to(dtype)
@@ -167,6 +174,20 @@ def inference_weights(model: Transformer, device=None) -> Transformer:
             p = getattr(block, name)
             p.data = p.data.to(dtype)
     return out.requires_grad_(False)
+
+
+@torch.no_grad()
+def quantize_model_weights(model: Transformer) -> Transformer:
+    """Weight-only int8 for the linear projections (inference path): a copy
+    of ``model`` whose ``wq, wk, wv, wo, w1, w2, w3`` are ``QuantizedTensor``s
+    (int8 codes and per-output-channel float32 scales), on the same device;
+    ``forward`` multiplies them with ``int8_matmul``."""
+    out = copy.deepcopy(model).requires_grad_(False)
+    for block in out.layers:
+        for name in _PROJ:
+            w = block._parameters.pop(name)
+            setattr(block, name, quantize_weight_int8(w))
+    return out
 
 
 def _rope(x: torch.Tensor, theta: float, pos0: int = 0) -> torch.Tensor:
@@ -181,7 +202,10 @@ def _rope(x: torch.Tensor, theta: float, pos0: int = 0) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _proj(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w for a dense or a weight-only int8 ``w``."""
+    if isinstance(w, QuantizedTensor):
+        return int8_matmul(x, w)
     return x @ w.to(x.dtype)
 
 

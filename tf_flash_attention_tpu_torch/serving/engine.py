@@ -34,6 +34,22 @@ single-device engine is the same code with one shard (cp = 1): every page
 is shard 0's, and the sharded calls reduce to the plain kernels (no
 ``(l, m)``, no merge).
 
+Sliding-window models (``ModelConfig.rule`` a causal ``LocalRule``) keep
+their KV memory bounded by the window, flat and under CP, as the JAX
+engine does: the prompt pages in lazily (each page mapped just before the
+chunk that writes it) and the pages wholly below the window are released
+after every chunk and every step (``_evict_window_pages``); a global page
+``g`` maps at table slot ``(g // cp) % max_pages_per_seq`` of its shard, so
+the table rolls and a sequence may outgrow it; admission reserves only the
+window's live set (``_pages_cap``).  The kernels skip the pages below the
+window before any load, so the rolled-over slots are never read.  Window
+models run without the prefix cache.
+
+The bucketed prefill (``prefill_mode="bucketed"``, one device) runs the
+whole prompt, padded to the smallest bucket of ``prefill_buckets`` that
+holds it, through the training forward's attention (``parallel.sharded.
+mha``, the op kernels) and writes its K/V with ``write_prompt``.
+
 PyTorch runs eagerly, so there is no compiled step: the engine calls the
 model's layers and the five serving kernels directly.  The KV caches are
 updated in place by the kernels (the JAX engine donates them instead).
@@ -41,10 +57,9 @@ The host keeps a mirror of the page tables, uploaded when it changes, and
 of the slots' lengths, so a decode step copies one tensor back to the
 host: the next tokens.
 
-Not ported yet (each raises ``NotImplementedError``; see ROADMAP): tensor
-parallelism (a mesh ``model`` axis larger than 1), the bucketed prefill
-(its forward kernel now exists; the engine route does not), sliding-window
-(``LocalRule``) models with their page eviction, and MoE.
+Not ported yet (raises ``NotImplementedError``; see ROADMAP): tensor
+parallelism (a mesh ``model`` axis larger than 1), and MoE (raised by
+``ModelConfig``).
 """
 
 from __future__ import annotations
@@ -57,8 +72,9 @@ import torch
 import torch.nn.functional as F
 
 from ..mask_rules import LocalRule
-from ..models.transformer import ModelConfig, Transformer, _rms_norm, inference_weights
-from .kv_cache import KVCacheConfig, PagedKVCache, _owned_token_count
+from ..models.transformer import ModelConfig, Transformer, _rms_norm, _rope, inference_weights
+from ..parallel.sharded import mha
+from .kv_cache import KVCacheConfig, PagedKVCache, _owned_token_count, write_prompt
 from .prefix_cache import PrefixCache, SharedPageAllocator
 from .sampling import SamplingParams, sample_tokens
 from .scheduler import Request, Scheduler
@@ -78,10 +94,15 @@ class EngineConfig:
     # torch.int8, torch.float8_e4m3fn, torch.float8_e5m2, or "int4"
     # (nibble-packed; needs an even prefill_chunk)
     kv_quant_dtype: object = torch.int8
+    prefill_buckets: tuple = (128, 512)
     seed: int = 0               # seed of the sampling generator
+    # "chunked": prompts run prefill_chunk tokens at a time through the
+    # paged prefill kernel (prefix caching, CP, sliding windows);
+    # "bucketed": the whole prompt in one padded pass through the training
+    # forward (one device, causal models)
     prefill_mode: str = "chunked"
     prefill_chunk: int = 128
-    prefix_caching: bool = True
+    prefix_caching: bool = True     # chunked mode only
     # draft tokens per step proposed by prompt lookup (n-gram
     # self-speculation); 0 disables.  Greedy slots verify losslessly;
     # sampled slots emit one token per step in the same batch.
@@ -136,16 +157,20 @@ class DecodeEngine:
             shard_devices = (mesh.axis_devices(seq_axis) if seq_axis in axes
                              else [mesh.devices.flat[0]])
             device = shard_devices[0]
-        if engine_cfg.prefill_mode != "chunked":
-            raise NotImplementedError("the bucketed prefill is not ported yet (ROADMAP "
-                                      "queue 1 item 12, first in the serving queue)")
         rule = model_cfg.rule
-        if isinstance(rule, LocalRule):
-            raise NotImplementedError("sliding-window serving (page eviction, rolling "
-                                      "tables) is not ported yet (ROADMAP queue 1)")
-        if type(rule).__name__ != "CausalRule":
-            raise ValueError("the serving engine is autoregressive: ModelConfig.rule "
-                             "must be CausalRule")
+        if not (isinstance(rule, LocalRule) and rule.is_causal
+                or type(rule).__name__ == "CausalRule"):
+            raise ValueError("the serving engine is autoregressive: ModelConfig.rule must be "
+                             "CausalRule or LocalRule(is_causal=True) (the paged kernels "
+                             "always enforce left-to-right order)")
+        if engine_cfg.prefill_mode not in ("chunked", "bucketed"):
+            raise ValueError(f"unknown prefill_mode {engine_cfg.prefill_mode!r}")
+        if isinstance(rule, LocalRule) and engine_cfg.prefill_mode != "chunked":
+            raise ValueError("sliding-window models require chunked prefill (lazy paging "
+                             "and the rolling page table have no bucketed-path analog)")
+        if shard_devices is not None and len(shard_devices) > 1 and (
+                engine_cfg.prefill_mode != "chunked"):
+            raise ValueError("context-parallel engine requires chunked prefill")
         self.mcfg = model_cfg
         self.ecfg = engine_cfg
         self.device = torch.device("cuda") if device is None else torch.device(device)
@@ -180,8 +205,27 @@ class DecodeEngine:
         # one allocator per shard (each excludes its trash page)
         self.allocators = [SharedPageAllocator(engine_cfg.n_pages - 1) for _ in range(self.cp)]
         self.allocator = self.allocators[0]
+        # sliding-window models: lazy prompt paging and eviction keep the
+        # live page set window-bounded (a rolling page table), so admission
+        # reserves only the capped page count; the prefix cache cannot keep
+        # evicted prompt pages, so window models run without it
+        self._window = rule.strided_window_size if isinstance(rule, LocalRule) else None
+        self._pages_cap = -1
+        if self._window is not None:
+            gamma = max(1, engine_cfg.speculative_tokens + 1)
+            span = self._window + gamma + engine_cfg.prefill_chunk
+            live_pages = -(-span // engine_cfg.page_size) + 2
+            # under CP the live set spreads round-robin: the binding shard
+            # holds at most ceil(live / cp) + 1 of its pages
+            self._pages_cap = -(-live_pages // self.cp) + 1 if self.cp > 1 else live_pages
+            if self._pages_cap > engine_cfg.max_pages_per_seq:
+                raise ValueError(
+                    f"max_pages_per_seq={engine_cfg.max_pages_per_seq} too small for the "
+                    f"window's live set ({self._pages_cap} local pages: window "
+                    f"{self._window} + chunk/gamma)")
         self.prefix_cache = (PrefixCache(engine_cfg.page_size)
-                             if engine_cfg.prefix_caching and self.cp == 1 else None)
+                             if engine_cfg.prefix_caching and engine_cfg.prefill_mode == "chunked"
+                             and self.cp == 1 and self._window is None else None)
         self.scheduler = Scheduler(engine_cfg.max_seqs, engine_cfg.n_pages - 1,
                                    engine_cfg.page_size)
         self._slots: List[Optional[dict]] = [None] * engine_cfg.max_seqs
@@ -312,10 +356,14 @@ class DecodeEngine:
             raise ValueError("empty prompt")
         rid = self._next_rid
         self._next_rid += 1
-        # reserve the binding (first) shard's share of the pages
-        g = -(-(len(prompt) + max_new_tokens) // self.ecfg.page_size)
-        self.scheduler.enqueue(Request(rid, len(prompt), max_new_tokens,
-                                       pages_cap=-(-g // self.cp)))
+        # reserve the binding (first) shard's share of the pages; window
+        # models are capped by their live set
+        cap = self._pages_cap
+        if self.cp > 1:
+            g = -(-(len(prompt) + max_new_tokens) // self.ecfg.page_size)
+            share = -(-g // self.cp)
+            cap = share if cap < 0 else min(cap, share)
+        self.scheduler.enqueue(Request(rid, len(prompt), max_new_tokens, pages_cap=cap))
         self._results[rid] = list(prompt)
         self._prompts[rid] = list(prompt)
         self._sampling[rid] = (sampling, eos_id)
@@ -341,12 +389,36 @@ class DecodeEngine:
             self.prefix_cache.evict(alloc, n)
         return alloc.alloc(slot, n)
 
+    def _map_page(self, slot: int, g: int) -> None:
+        """Map a fresh page at global logical page ``g`` of ``slot``: on
+        shard ``g % cp``, at table slot ``(g // cp) % max_pages_per_seq``
+        (window models roll the table; a causal sequence raises past it)."""
+        owner, loc = g % self.cp, g // self.cp
+        mp = self.ecfg.max_pages_per_seq
+        if loc >= mp and self._window is None:
+            raise RuntimeError(f"sequence needs local page {loc} on shard {owner} but "
+                               f"max_pages_per_seq={mp}; only sliding-window models "
+                               f"(ModelConfig.rule = LocalRule) roll the page table")
+        self._set_table(slot, loc % mp, self._alloc_pages(slot, 1, owner)[0], owner)
+
+    def _prefill(self, prompt: List[int], slot: int):
+        """Prefill ``prompt`` into ``slot`` by the configured mode; returns
+        ``(last_logits, pages_evicted, budget_refunded)``."""
+        if self.ecfg.prefill_mode == "chunked":
+            return self._prefill_chunked(prompt, slot)
+        return self._prefill_bucketed(prompt, slot), 0, 0
+
     def _prefill_chunked(self, prompt: List[int], slot: int):
-        """Chunked prefill against the paged cache: each shard maps its
-        round-robin share of the prompt's pages up front (shard 0 reusing any
-        cached page-aligned prefix as shared refcounted pages), then every
-        chunk writes each shard's own rows and merges the shards' attention
-        partials.  Returns the logits of the last prompt token."""
+        """Chunked prefill against the paged cache; every chunk writes each
+        shard's own rows and merges the shards' attention partials.  Causal
+        models map each shard's round-robin share of the prompt's pages up
+        front (shard 0 reusing any cached page-aligned prefix as shared
+        refcounted pages); sliding-window models page the prompt lazily and
+        evict behind the window after every chunk (``_run_chunks``).
+        Returns ``(last_logits, pages_evicted, budget_refunded)``."""
+        if self._window is not None:
+            last_logits, evicted = self._run_chunks(prompt, slot, 0)
+            return last_logits, evicted, 0
         ps, mp = self.ecfg.page_size, self.ecfg.max_pages_per_seq
         G = -(-len(prompt) // ps)
         counts = [len(range(r, G, self.cp)) for r in range(self.cp)]
@@ -367,30 +439,96 @@ class DecodeEngine:
             for local, page in enumerate(pages):
                 self._set_table(slot, local, page, r)
         self._sync_tables()
-        last_logits = self._run_chunks(prompt, slot, cached_tokens)
+        last_logits, _ = self._run_chunks(prompt, slot, cached_tokens)
         if self.prefix_cache is not None:
             self.prefix_cache.insert(prompt, shard_pages[0], self.allocator)
-        return last_logits
+        return last_logits, 0, 0
 
     def _run_chunks(self, prompt: List[int], slot: int, start: int):
-        """Prefill ``prompt[start:]`` chunk by chunk; the last token's logits."""
-        chunk = self.ecfg.prefill_chunk
-        last_logits = None
+        """Prefill ``prompt[start:]`` chunk by chunk.  A window model maps
+        each page just before the chunk that writes it and, after the chunk,
+        releases the pages wholly below the next query row's window, so a
+        prompt of any length holds only window + chunk pages at once.
+        Returns (the last token's logits, pages evicted)."""
+        ps, chunk = self.ecfg.page_size, self.ecfg.prefill_chunk
+        lazy = self._window is not None
+        last_logits, mapped, evicted = None, 0, 0
         while start < len(prompt):
             n = min(chunk, len(prompt) - start)
+            if lazy:
+                for g in range(mapped, (start + n - 1) // ps + 1):
+                    self._map_page(slot, g)
+                mapped = (start + n - 1) // ps + 1
+                self._sync_tables()
             self.stats["prefill_chunks"] += 1
             self.stats["prefill_tokens"] += n
             toks = prompt[start:start + n] + [0] * (chunk - n)
             last_logits = self._chunk_prefill(
                 torch.tensor(toks, dtype=torch.long, device=self.device), slot, start, n)
             start += n
+            if lazy:
+                keep_from = max(0, start - (self._window - 1)) // ps
+                if keep_from > evicted:
+                    # the pages recycle inside the slot's capped reservation:
+                    # no scheduler refund
+                    self._release_global_pages(slot, evicted, keep_from)
+                    self.stats["pages_evicted"] += keep_from - evicted
+                    evicted = keep_from
+        return last_logits, evicted
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.ecfg.prefill_buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"prompt length {n} exceeds largest bucket")
+
+    @torch.no_grad()
+    def _prefill_impl(self, tokens, true_len: int):
+        """The whole padded prompt ``tokens`` (bucket,) through the training
+        forward's attention (``mha``: the op kernels) with ``_rope``; returns
+        the last real token's logits and each layer's (k, v), (n_kv_heads,
+        bucket, d_head)."""
+        cfg = self.mcfg
+        x = self.model.embed[tokens][None]                   # (1, bucket, d_model)
+        kvs = []
+        for layer in self.model.layers:
+            h = _rms_norm(x, layer.ln1)
+            b, s, _ = h.shape
+            q = (h @ layer.wq).reshape(b, s, cfg.n_heads, cfg.d_head).transpose(1, 2)
+            k = (h @ layer.wk).reshape(b, s, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
+            v = (h @ layer.wv).reshape(b, s, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
+            q, k = _rope(q, cfg.rope_theta), _rope(k, cfg.rope_theta)
+            o = mha(q, k, v, rule=cfg.rule, block_config=cfg.block_config)
+            x = self._attn_out(layer, x, o.transpose(1, 2).reshape(b, s, -1))
+            x = self._mlp(layer, x)
+            kvs.append((k[0], v[0]))
+        return self._logits(x[0, true_len - 1]), kvs
+
+    def _prefill_bucketed(self, prompt: List[int], slot: int):
+        """The whole prompt in one padded pass (``_prefill_impl``), its K/V
+        written into freshly allocated pages; returns the last token's
+        logits."""
+        bucket = self._bucket_for(len(prompt))
+        n_pages = -(-len(prompt) // self.ecfg.page_size)
+        if n_pages > self.ecfg.max_pages_per_seq:
+            raise RuntimeError(f"prompt needs {n_pages} pages but "
+                               f"max_pages_per_seq={self.ecfg.max_pages_per_seq}")
+        tokens = torch.tensor(prompt + [0] * (bucket - len(prompt)), dtype=torch.long,
+                              device=self.device)
+        last_logits, kvs = self._prefill_impl(tokens, len(prompt))
+        pages = self.allocator.alloc(slot, n_pages)
+        for i, page in enumerate(pages):
+            self._set_table(slot, i, page)
+        self._sync_tables()
+        for (k, v), cache in zip(kvs, self.shards[0]):
+            write_prompt(cache, self.ccfg, slot, pages, k[:, :len(prompt)], v[:, :len(prompt)])
         return last_logits
 
     def _admit(self):
         for req, slot in self.scheduler.admit():
             self.stats["admitted"] += 1
             prompt = self._prompts.pop(req.rid)
-            last_logits = self._prefill_chunked(prompt, slot)
+            last_logits, evicted, refunded = self._prefill(prompt, slot)
             self.last_prefill_logits = last_logits
             sp, eos_id = self._sampling.pop(req.rid, (SamplingParams(), None))
             if sp.temperature > 0:
@@ -407,6 +545,9 @@ class DecodeEngine:
                 "eos_id": eos_id,
                 # the budget reserved at admission, handed back at retirement
                 "reserved": req.pages_needed(self.ecfg.page_size),
+                # sliding-window bookkeeping, primed by the prefill's eviction
+                "evicted": evicted,
+                "refunded": refunded,
             }
             if eos_id is not None and first_tok == eos_id:
                 self._slots[slot]["remaining"] = 0
@@ -415,18 +556,41 @@ class DecodeEngine:
         """Map pages for the next ``n_tokens`` appends of every active slot
         (positions ``length .. length + n_tokens - 1``).  Speculation may
         map a page past the request's reservation, as in the JAX engine."""
-        ps, mp = self.ecfg.page_size, self.ecfg.max_pages_per_seq
+        ps = self.ecfg.page_size
         for slot, st in enumerate(self._slots):
             if st is None:
                 continue
             length = st["length"]
-            # global page g maps on shard g % cp at local page g // cp
             for g in range(-(-length // ps), (length + n_tokens - 1) // ps + 1):
-                owner, loc = g % self.cp, g // self.cp
-                if loc >= mp:
-                    raise RuntimeError(f"sequence needs local page {loc} on shard {owner} "
-                                       f"but max_pages_per_seq={mp}")
-                self._set_table(slot, loc, self._alloc_pages(slot, 1, owner)[0], owner)
+                self._map_page(slot, g)
+
+    def _evict_window_pages(self):
+        """Sliding-window eviction: the pages wholly below every future query
+        row's window are dead (the kernels skip them before any load), so
+        each slot drops its references to them.  The pages recycle inside
+        the slot's capped reservation, so the scheduler gets no refund."""
+        if self._window is None:
+            return
+        ps = self.ecfg.page_size
+        for slot, st in enumerate(self._slots):
+            if st is None:
+                continue
+            # the next step's oldest query row sits at ``length`` and reaches
+            # back strided_window - 1 positions; the window only moves right
+            keep_from = max(0, st["length"] - (self._window - 1)) // ps
+            if keep_from > st["evicted"]:
+                self._release_global_pages(slot, st["evicted"], keep_from)
+                self.stats["pages_evicted"] += keep_from - st["evicted"]
+                st["evicted"] = keep_from
+
+    def _release_global_pages(self, slot: int, lo: int, hi: int):
+        """Drop the slot's references to global logical pages [lo, hi),
+        oldest first: each shard releases its round-robin share (its owned
+        list is in logical order)."""
+        for r in range(self.cp):
+            cnt = len(range(lo + (r - lo) % self.cp, hi, self.cp))
+            if cnt:
+                self.allocators[r].release_prefix(slot, cnt)
 
     def _retire(self):
         for slot, st in enumerate(self._slots):
@@ -434,7 +598,7 @@ class DecodeEngine:
                 self.stats["retired"] += 1
                 for alloc in self.allocators:
                     alloc.free(slot)
-                self.scheduler.release(slot, st["reserved"])
+                self.scheduler.release(slot, st["reserved"] - st["refunded"])
                 # zero the slot length so the dead slot reads no pages
                 for shard in self.shards:
                     for cache in shard:
@@ -527,6 +691,7 @@ class DecodeEngine:
             for cache in shard:
                 cache.lengths.copy_(lengths)
         self._retire()
+        self._evict_window_pages()
         return produced
 
     def step(self) -> int:
@@ -565,6 +730,7 @@ class DecodeEngine:
             produced += 1
         self.stats["decode_tokens"] += produced
         self._retire()
+        self._evict_window_pages()
         return produced
 
     def run(self, max_steps: int = 1000) -> Dict[int, List[int]]:

@@ -119,6 +119,25 @@ Phases (any failure exits non-zero before the final line):
      the forward kernel the route picks launches once per layer and
      prompt; last prompt token's logits within LOGIT_ATOL of phase 3's
      chunked engine's; prints its prefill rate beside phase 3's;
+  3h. tensor-parallel serving, a model axis of 4 on the card (cuda:0 four
+     times): (a) phase 2's kernel_case at a head shard's heads, 2 q / 2 KV
+     and 4 / 4, int8 and int4, the four kernels and gamma 4, every decode
+     and prefill launch on the tensor-core body, each kernel's kernel_ms and
+     CTAs printed beside phase 2's at 8 / 8; sharded_paged_decode at tp = 4
+     against the flat paged_decode at 8 KV heads on the same pages: bit-equal
+     where both launches cut a slot into the same runs (2 table slots),
+     within attn_tol where the shards' smaller grids cut more runs (phase
+     2's table: 16 runs against 4); (b) the 168M engine with that mesh
+     (2 KV heads a shard, int8) on phase 3's 18 requests and 32 greedy
+     tokens, then with 3 drafts on two pattern prompts and six of phase
+     3's: every serving launch on its fast body (tensor cores; the writes'
+     vector body), each request's last prompt token's logits within
+     LOGIT_ATOL of phase 3's, the requests equal to phase 3's, the rates and
+     the census; (c) a float32 gate: 2 layers, unquantized cache, 4 prompts
+     of 1,000-4,000 tokens, 48 new tokens, tp = 2 and model 2 x seq 2, each
+     with and without speculation: tokens equal to a teacher-forced
+     forward's argmax up to each request's first tie (float32 activations
+     run the scalar bodies, which it prints);
   4. the same weights on the CPU (plain versions) and on the card: the
      logits of a 512-token prompt's last token must agree;
   5. the op path's ten kernels (the table-driven forward, kv-outer and
@@ -177,6 +196,16 @@ Phases (any failure exits non-zero before the final line):
      backward for the backward) and the route FA_WINDOW=0 / FA_WINDOW_BWD=0
      takes at the same shape (local1d_w512's numbers head the kernels
      line; each shape's under "shapes");
+  5q. float64 through the chunked path (ops/chunked.py): causal_1d and
+     local_1d (a causal window of 256) at (2, 4, 64, 4096), outputs and
+     gradients within 1e-9 * 4096 * 10 of the float64 dense oracle
+     (implementation="xla"), with the forward, forward + backward and the
+     oracle's ms; the JAX package's 16k case (S 16,384, D 8, a causal
+     window of 64, blocks 512): peak device memory above its inputs under
+     1/8 of the 2 GiB score tensor a dense path holds, row 12,345 against a
+     float64 oracle on the host; then the reference harness (python -m
+     tf_flash_attention_tpu_torch.testing) in three processes: verify a 1d
+     and a 2d case, benchmark one, their lines printed;
   6. training at full width: the same 168M decoder (fp32 parameters, bf16
      compute) takes 5 AdamW steps on one seeded batch of 8 x 2048 tokens;
      the first step's loss and gradient norm must match the plain path on
@@ -229,8 +258,9 @@ its bound (the larger of its bytes over 3.35 TB/s and its products over
 the peak of their type) and the time of one PyTorch call computing the same
 function (null where there is none); the serving kernels add the payloads
 held against their plain versions, each payload's time, and their launches
-in phase 3c, the window engine's launches (3f(b)) and the rolled tables'
-errors (3f(a)).  The four sequence-sharded variants follow as kernels of
+in phase 3c, the window engine's launches (3f(b)), the rolled tables'
+errors (3f(a)), the tp engine's launches (3h(b)) and their numbers at a
+head shard's heads (3h(a)).  The four sequence-sharded variants follow as kernels of
 their own ("paged_decode[cp]", ...; launches from the cp engine of phase
 3e, times and library yardsticks from 3e(a) on shard 0), then the ten
 experiment kernels (phase 8; the
@@ -922,6 +952,12 @@ def main():
     # ---- 3g: the bucketed prefill on phase 3's requests ----
     bucketed_phase(mcfg, cpu_model, ecfg, prompts, n_new, chunked_logits, chunked_rate, dev)
 
+    # ---- 3h: tensor-parallel serving, a model axis of 4 on the card ----
+    tp_heads = tp_kernel_phase(cases, dev, gen)
+    tp_launches = tp_engine_phase(mcfg, cpu_model, ecfg, prompts, pattern, n_new, greedy_3,
+                                  chunked_logits, args.seed, dev)
+    tp_gate(mcfg, args.seed, dev)
+
     # ---- 4: logits on the CPU (plain versions) against the card ----
     small = EngineConfig(max_seqs=1, page_size=256, n_pages=18, max_pages_per_seq=16,
                          quantized_kv=True, prefill_chunk=512)
@@ -945,6 +981,8 @@ def main():
     # ---- 5: the op path's kernels against the plain path ----
     torch.manual_seed(args.seed)
     op, op_launches = op_phase(dev)
+    # ---- 5q: float64 through the chunked path, and the reference harness ----
+    float64_phase(dev, args.seed)
 
     # ---- 6: training at full width ----
     train_launches = train_phase(mcfg, cpu_model, dev, args.seed)
@@ -1017,6 +1055,12 @@ def main():
                                               "without speculation)",
                                       "launches": window_launches[k]}
             entry["rolled_tables"] = {p: r[k] for p, r in rolled.items()}
+            # the tp engine's run (phase 3h(b)) and the kernels at a head
+            # shard's heads (3h(a))
+            entry["tp_engine"] = {"path": f"tp engine (phase 3h(b): a model axis of {TP} on "
+                                          f"the card, int8, with and without speculation)",
+                                  "launches": tp_launches[k]}
+            entry["tp_heads"] = {name: r[k] for name, r in tp_heads.items() if k in r}
             entry["payloads_held"] = [pl for pl, c in cases.items() if k in c]
             entry["ms_by_payload"] = {pl: c[k]["ms"] for pl, c in cases.items() if k in c}
             entry["launches_by_payload"] = {pl: n[k] for pl, n in payload_launches.items()}
@@ -2149,6 +2193,365 @@ def bucketed_phase(mcfg, cpu_model, ecfg, prompts, n_new, chunked_logits, chunke
     del eng
     torch.cuda.empty_cache()
     return fwd
+
+
+# ---- phase 3h: tensor-parallel serving (a model axis on the one card) ----
+
+# the model axis of the 168M engine on the card: 8 KV heads over 4 shards
+TP = 4
+
+
+def fast_bodies(label, launches):
+    """Fail unless the last launch of each serving kernel in ``launches``
+    ran its fast body: the tensor cores for the attention kernels, the
+    vector row body for the KV writes (every launch of a run has the shapes
+    of its last)."""
+    from tf_flash_attention_tpu_torch import native
+    for k in native.SERVING_KERNELS:
+        want = "vector" if k.startswith("kv_") else "tensor-core"
+        if launches.get(k) and native.WALKS[k]["body"] != want:
+            fail(f"{label}: {k} ran the {native.WALKS[k]['body']} body, not the {want} one")
+
+
+def tp_kernel_phase(cases, dev, gen):
+    """Phase 3h(a): phase 2's kernel_case at a head shard's heads (2 q / 2
+    KV and 4 / 4, int8 and int4, the four kernels and gamma 4), every
+    attention launch on the tensor-core body; each kernel's kernel_ms and
+    CTAs printed beside phase 2's at 8 / 8; then sharded_paged_decode at
+    tp = 4 against the flat paged_decode (``sharded_decode_check``).
+    Returns {"payload_heads": {kernel: measurements}}."""
+    t0 = time.perf_counter()
+    out = {}
+    for payload in ("int8", "int4"):
+        for h in (2, 4):
+            label = f"tp_{payload}_{h}q{h}kv"
+            r = kernel_case(label, h, h, payload, dev, gen)
+            r.update(kernel_case(label + "_gamma4", h, h, payload, dev, gen, gamma=4))
+            for k in ("paged_decode", "paged_multitoken_decode", "paged_prefill"):
+                if r[k]["body"] != "tensor-core":
+                    fail(f"{label}: {k} ran the {r[k]['body']} body")
+            for k, m in r.items():
+                ref = cases[payload][k]
+                print(f"tp kernels {label} {k}: kernel_ms {json.dumps(m['kernel_ms'])} ctas "
+                      f"{m.get('ctas')} ms {m['ms']} (phase 2 at 8 q / 8 kv: kernel_ms "
+                      f"{json.dumps(ref['kernel_ms'])} ctas {ref.get('ctas')} ms {ref['ms']})",
+                      flush=True)
+            out[f"{payload}_{h}kv"] = {k: {x: m.get(x) for x in ("kernel_ms", "ctas", "splits",
+                                                                 "ms", "err", "body")}
+                                       for k, m in r.items()}
+    sharded_decode_check(dev, gen)
+    print(f"phase 3h(a): {time.perf_counter() - t0:.3f} s", flush=True)
+    return out
+
+
+def sharded_decode_check(dev, gen):
+    """sharded_paged_decode at tp = 4 (the card four times) against the flat
+    paged_decode at 8 KV heads on the same pages (int8, 16 slots, page 256,
+    bf16): at phase 2's table (16 slots a sequence) and at 4 table slots.
+    Heads are independent, so where the two launches cut a slot's pages
+    into the same runs (``native.decode_plan``'s splits) the outputs must be
+    bit-equal; where the shards' smaller grids cut more runs, the runs'
+    merge sums in another order and the outputs may part by rounding:
+    within attn_tol.  Both launches on the tensor-core body."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+    from tf_flash_attention_tpu_torch.serving import decode
+    from tf_flash_attention_tpu_torch.serving.sharded_decode import (shard_cache_heads,
+                                                                     sharded_paged_decode)
+    mesh = make_mesh((TP,), ("model",), [dev] * TP)
+    S = 16
+    checked = False
+    # a slot's pages are cut into at most a run a page: with 2 table slots
+    # both grids cut every slot into 2 runs, and the outputs are bit-equal
+    for table, mapped, slots in (("phase 2's table", 8, 16), ("2 table slots", 2, 2)):
+        cfg = payload_cfg("int8", n_kv_heads=8, head_dim=128, page_size=256,
+                          n_pages=S * mapped + S + 1, max_seqs=S, max_pages_per_seq=slots)
+        lengths = torch.randint(1, 256 * mapped, (S,), generator=gen, device=dev).tolist()
+        lengths[3] = 0
+        cache = make_cache(cfg, dev, gen, lengths, mapped)
+        q = torch.randn((S, 8, 128), generator=gen, device=dev).to(torch.bfloat16)
+        native.reset_launch_counts()
+        flat = decode.paged_decode_attention(q, cache, cfg)
+        flat_ran = decode_ran("paged_decode", cfg, "tp decode (flat)")
+        shards = shard_cache_heads(cache, cfg, mesh)
+        got = sharded_paged_decode(mesh, cfg)(q, shards)
+        torch.cuda.synchronize()
+        shard_ran = decode_ran("paged_decode", cfg, "tp decode (shard)")
+        launches = native.LAUNCHES["paged_decode"]
+        if launches != 1 + TP:
+            fail(f"tp decode: {launches} paged_decode launches, expected {1 + TP}")
+        if "tensor-core" != flat_ran["body"] or "tensor-core" != shard_ran["body"]:
+            fail(f"tp decode: bodies {flat_ran['body']} (flat), {shard_ran['body']} (shard)")
+        equal = torch.equal(got, flat)
+        err = float((got.float() - flat.float()).abs().max())
+        if flat_ran["splits"] == shard_ran["splits"]:
+            checked = True
+            if not equal:
+                fail(f"tp decode ({table}): the shards cut the same runs as the flat launch "
+                     f"({flat_ran['splits']}) but differ from it by {err}")
+        if not torch.isfinite(got).all() or err > attn_tol(flat):
+            fail(f"tp decode ({table}): the shards differ from the flat decode by {err} > "
+                 f"{attn_tol(flat)}")
+        print(f"tp decode ({table}: {cfg.max_pages_per_seq} pages a sequence): "
+              f"sharded_paged_decode at tp = {TP} {'bit-equal to' if equal else 'within attn_tol of'}"
+              f" the flat paged_decode (max_abs_err {err}, tol {attn_tol(flat)}); flat splits "
+              f"{flat_ran['splits']} ctas {flat_ran['ctas']}, a shard's splits "
+              f"{shard_ran['splits']} ctas {shard_ran['ctas']}; both tensor-core", flush=True)
+    if not checked:
+        fail("tp decode: no case cut the same runs flat and sharded (no bit-equal check ran)")
+
+
+def tp_engine_phase(mcfg, cpu_model, ecfg, prompts, pattern, n_new, greedy_3, chunked_logits,
+                    seed, dev):
+    """Phase 3h(b): the 168M engine with a model axis of TP (the card four
+    times: 2 KV heads a shard), int8, phase 3's 18 requests and greedy
+    tokens; every serving launch on its fast body; each request's last
+    prompt token's logits within LOGIT_ATOL of phase 3's flat engine; then
+    speculation (3 drafts) on two pattern prompts and six of phase 3's.
+    Prints the requests equal to phase 3's, the rates and a decode step's
+    census.  Returns {kernel: launches in both runs}."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+    from tf_flash_attention_tpu_torch.serving.engine import DecodeEngine
+
+    t0 = time.perf_counter()
+    mesh = make_mesh((TP,), ("model",), [dev] * TP)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    eng = DecodeEngine(mcfg, cpu_model, ecfg, mesh=mesh)
+    # the engine holds its shards' slices (one set of layers), the replicated
+    # embedding and norms and its caches, and no full copy of the layers
+    held = torch.cuda.memory_allocated(dev) - base
+    unique = lambda ts: sum({t.data_ptr(): t.numel() * t.element_size() for t in ts}.values())
+    layer_bytes = unique(p for s in eng._params for p in s.layers.parameters())
+    rest = unique(list(eng.model.parameters()) + [
+        t for c in (c for layers in eng.shards for c in layers)
+        for t in vars(c).values() if torch.is_tensor(t)])
+    print(f"tp engine: {held} bytes on the card after construction: the shards' layers "
+          f"{layer_bytes}, embedding, norms and caches {rest}", flush=True)
+    # a full copy beside the shards would add layer_bytes again; half of it
+    # leaves room for the allocator's rounding and small buffers
+    if len(eng.model.layers) or held >= rest + 1.5 * layer_bytes:
+        fail(f"the tp engine holds {held} bytes, 1.5x its shards' layers {layer_bytes} or "
+             f"more beside the rest {rest}: a full copy of the layers stayed")
+    logits = record_prompt_logits(eng)
+    results, launches = serve("tp engine", eng, [(p, None) for p in prompts], n_new, mcfg.vocab)
+    logits = dict(logits)                   # the census prompts stay out
+    fast_bodies("tp engine", launches)
+    err = logits_err("tp engine", logits, chunked_logits, LOGIT_ATOL)
+    same = sum(results[r] == greedy_3[r] for r in range(len(prompts)))
+    print(f"tp engine (tp = {TP}, {eng.ccfg.n_kv_heads // TP} KV heads a shard): requests equal "
+          f"to phase 3's: {same} of {len(prompts)}; prefix hits {eng.prefix_cache.hits}; last "
+          f"prompt token's logits against phase 3's: max_abs_err {err} (tol {LOGIT_ATOL})",
+          flush=True)
+    census("tp engine", eng, seed)
+    del eng
+    torch.cuda.empty_cache()
+
+    eng = DecodeEngine(mcfg, cpu_model, dataclasses.replace(ecfg, speculative_tokens=3),
+                       mesh=mesh)
+    reqs = [(pattern * 8, None), (pattern * 12, None)] + [(p, None) for p in prompts[:6]]
+    _, spec_launches = serve("tp engine speculative", eng, reqs, n_new, mcfg.vocab)
+    fast_bodies("tp engine speculative", spec_launches)
+    print(f"tp engine speculative: spec_stats {json.dumps(eng.spec_stats)}; "
+          f"{eng.stats['decode_tokens'] / eng.stats['steps']:.3f} tokens per step", flush=True)
+    census("tp engine speculative", eng, seed)
+    del eng
+    torch.cuda.empty_cache()
+    total = {k: launches[k] + spec_launches[k] for k in native.SERVING_KERNELS}
+    if min(total.values()) < 1:
+        fail(f"the tp engine did not launch every serving kernel: {total}")
+    print(f"phase 3h(b): {time.perf_counter() - t0:.3f} s", flush=True)
+    return total
+
+
+def tp_gate(mcfg, seed, dev):
+    """Phase 3h(c): 2 layers at the 168M width in float32, unquantized
+    cache, 4 prompts of 1,000-4,000 tokens and 48 new tokens each; tp = 2,
+    then model 2 x seq 2, each with and without speculation: the greedy
+    tokens must be the argmax of one teacher-forced forward over each final
+    sequence up to each request's first top-2 tie.  Float32 activations run
+    the serving kernels' scalar bodies (``native.decode_body``), which the
+    run prints."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.models import transformer as tf
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+    from tf_flash_attention_tpu_torch.serving.engine import DecodeEngine, EngineConfig
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(mcfg, n_layers=2, dtype=torch.float32)
+    model = tf.init_params(cfg, torch.Generator().manual_seed(seed + 11), device="cpu")
+    pgen = torch.Generator().manual_seed(seed + 12)
+    prompts = [torch.randint(1, cfg.vocab, (n,), generator=pgen).tolist()
+               for n in torch.randint(1000, 4001, (4,), generator=pgen).tolist()]
+    flat = EngineConfig(max_seqs=4, page_size=256, n_pages=4 * 17 + 1, max_pages_per_seq=17,
+                        quantized_kv=False, prefill_chunk=512)
+    sharded = dataclasses.replace(flat, n_pages=4 * 9 + 1, max_pages_per_seq=9)
+    runs = (("tp = 2", flat, make_mesh((2,), ("model",), [dev] * 2)),
+            ("model 2 x seq 2", sharded, make_mesh((2, 2), ("model", "seq"), [dev] * 4)))
+    for name, ecfg, mesh in runs:
+        for spec in (0, 3):
+            eng = DecodeEngine(cfg, model, dataclasses.replace(ecfg, speculative_tokens=spec),
+                               mesh=mesh)
+            rids = [eng.submit(p, max_new_tokens=48) for p in prompts]
+            native.reset_launch_counts()
+            res = eng.run(max_steps=10_000)
+            outs = [res[r] for r in rids]
+            label = f"tp gate ({name}, speculative_tokens={spec})"
+            if [len(o) for o in outs] != [len(p) + 48 for p in prompts]:
+                fail(f"{label}: requests returned {[len(o) for o in outs]} tokens")
+            full, ties = teacher_check(label, cfg, model, prompts, outs, dev)
+            bodies = {k: native.WALKS[k]["body"] for k, n in native.LAUNCHES.items()
+                      if n and k in native.WALKS}
+            print(f"{label}: {full} of {len(prompts)} requests equal the teacher-forced argmax "
+                  f"in full; ties (request, position, gap) {ties}; bodies {json.dumps(bodies)}"
+                  + (f"; spec_stats {json.dumps(eng.spec_stats)}" if spec else ""), flush=True)
+            del eng
+            torch.cuda.empty_cache()
+    print(f"phase 3h(c): {time.perf_counter() - t0:.3f} s; prompt lengths "
+          f"{[len(p) for p in prompts]}", flush=True)
+
+
+# ---- phase 5q: float64 (the chunked path) and the reference harness ----
+
+# float64 against its dense oracle: the reference's float64 class, 1e-9 of
+# the reduction length, with the JAX chunked tests' factor of 10
+def f64_tol(n):
+    return 1e-9 * n * 10
+
+
+# the second float64 limit, from the readings (at most 2.7e-14 at K = 4096 on
+# the H100): f64_tol would pass a float32 computation (about 1e-7 off), so a
+# control runs the same inputs in float32 and must fail this one
+F64_READ_TOL = 1e-11
+
+
+def float64_phase(dev, seed):
+    """Phase 5q: causal_1d and local_1d in float64 at (2, 4, 64, 4096),
+    forward and gradients against the float64 dense oracle
+    (implementation="xla") within f64_tol and F64_READ_TOL, with a float32
+    control on the same inputs that must fail F64_READ_TOL; the JAX package's 16k case
+    (S 16,384, D 8, a causal window of 64) with the peak memory above its
+    inputs under 1/8 of the 2 GiB score tensor a dense path would hold, and
+    row 12,345 against a float64 oracle on the host; then the reference
+    harness's CLI in subprocesses: verify one 1d and one 2d case, benchmark
+    one.  Prints the float64 calls' ms."""
+    import numpy as np
+    import tf_flash_attention_tpu_torch.api as ta
+    from tf_flash_attention_tpu_torch.mask_rules import LocalRule
+    from tf_flash_attention_tpu_torch.ops.chunked import flash_attention_xla
+    from tf_flash_attention_tpu_torch.sync_modes import make_sync_pack
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    f64 = torch.float64
+    rand = lambda shape, lo=-2.0: torch.rand(shape, dtype=f64, generator=gen,
+                                              device=dev) * (-2 * lo) + lo
+    calls = {"causal_1d": lambda *x, **kw: ta.causal_1d(*x, sync_mode="none_front", **kw),
+             "local_1d": lambda *x, **kw: ta.local_1d(*x, window_size=256, log2_stride_size=0,
+                                                      is_causal=True, sync_mode="none_front",
+                                                      **kw)}
+    shape = (2, 4, 64, 4096)
+    for name, fn in calls.items():
+        Q, K, V, dO = (rand(shape) for _ in range(4))
+        leaves = [x.clone().requires_grad_(True) for x in (Q, K, V)]
+        o = fn(*leaves)
+        grads = torch.autograd.grad(o, leaves, dO)
+        o_ref = fn(*leaves, implementation="xla")
+        refs = torch.autograd.grad(o_ref, leaves, dO)
+        tol = min(f64_tol(shape[-1]), F64_READ_TOL)
+        errs = {n: float((a - b).detach().abs().max()) for n, a, b in zip(
+            ("O", "dQ", "dK", "dV"), (o,) + grads, (o_ref,) + refs)}
+        if o.dtype != f64 or any(not (e <= tol) for e in errs.values()):
+            fail(f"5q {name} float64: errors {errs} (tol {tol}), dtype {o.dtype}")
+        # the control: the same inputs through the chunked path in float32
+        # must fail F64_READ_TOL
+        leaves32 = [x.detach().float().requires_grad_(True) for x in (Q, K, V)]
+        o32 = fn(*leaves32, implementation="xla_flash")
+        ctrl = {n: float((a.double() - b).detach().abs().max()) for n, a, b in zip(
+            ("O", "dQ", "dK", "dV"), (o32,) + torch.autograd.grad(o32, leaves32, dO.float()),
+            (o_ref,) + refs)}
+        if o32.dtype != torch.float32 or any(not (e > F64_READ_TOL) for e in ctrl.values()):
+            fail(f"5q {name}: the float32 control {ctrl} passed the float64 limit "
+                 f"{F64_READ_TOL}")
+        del o, grads, o_ref, refs, o32, leaves32
+        with torch.no_grad():
+            ms = time_ms(lambda: fn(Q, K, V), n=5)
+            oracle_ms = time_ms(lambda: fn(Q, K, V, implementation="xla"), n=5)
+        fb_ms = time_ms(lambda: torch.autograd.grad(fn(*leaves), leaves, dO), n=5)
+        print(f"5q {name} float64 {shape}: max_abs_err {json.dumps(errs)} (tol "
+              f"{f64_tol(shape[-1])} and {F64_READ_TOL}); the float32 control's "
+              f"{json.dumps(ctrl)} (must exceed {F64_READ_TOL}); "
+              f"forward {ms} ms, forward + backward {fb_ms} ms, the dense oracle's forward "
+              f"{oracle_ms} ms", flush=True)
+        torch.cuda.empty_cache()
+
+    S, D = 16384, 8
+    q, k, v = (rand((1, S, D), lo=-1.0) for _ in range(3))
+    pack = make_sync_pack("none_front", (S,), (S,))
+    rule = LocalRule(window_size=64, log2_stride_size=0, is_causal=True)
+    run = lambda: flash_attention_xla(q, k, v, pack=pack, rule=rule, block_q=512,
+                                      block_kv=512)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with torch.no_grad():
+        o, l, m = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    gate = S * S * 8 // 8
+    if o.shape != (1, S, D) or not torch.isfinite(o).all() or not bool((l > 0).all()):
+        fail("5q 16k float64: bad output")
+    if peak >= gate:
+        fail(f"5q 16k float64: peak {peak} bytes above the inputs >= {gate}")
+    row = 12345
+    qn, kn, vn = (x[0].cpu().numpy() for x in (q, k, v))
+    s = kn[row - 63:row + 1] @ qn[row] / np.sqrt(D)
+    p = np.exp(s - s.max())
+    o_row = p @ vn[row - 63:row + 1] / p.sum()
+    err = float(np.abs(o[0, row].cpu().numpy() - o_row).max())
+    if not err <= min(1e-9 * S, F64_READ_TOL):
+        fail(f"5q 16k float64: row {row} differs from the host oracle by {err}")
+    with torch.no_grad():
+        o32 = flash_attention_xla(q.float(), k.float(), v.float(), pack=pack, rule=rule,
+                                  block_q=512, block_kv=512)[0]
+    ctrl = float(np.abs(o32[0, row].double().cpu().numpy() - o_row).max())
+    if not ctrl > F64_READ_TOL:
+        fail(f"5q 16k: the float32 control's row {row} ({ctrl}) passed the float64 limit")
+    del o32
+    with torch.no_grad():
+        ms = time_ms(lambda: run(), n=5)
+    print(f"5q 16k float64 (S {S}, D {D}, LocalRule(64, 0, True), blocks 512): peak "
+          f"{peak} bytes above the inputs (gate {gate}, 1/8 of the dense score tensor); row "
+          f"{row} against the host oracle: max_abs_err {err} (tol {1e-9 * S} and "
+          f"{F64_READ_TOL}; the float32 control's {ctrl}); {ms} ms", flush=True)
+    del q, k, v, o, l, m
+    torch.cuda.empty_cache()
+
+    # the reference harness, each command in a process of its own, all at once
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmds = [(("verify",), "CausalAttentionSyncModeScaleFront"),
+            (("verify", "2d"), "LocalStrideAndCausalAttentionSyncModeScaleEnd"),
+            (("benchmark",), "LocalAndCausalAttentionSyncModeNoneFront")]
+    procs = []
+    for args, case in cmds:
+        env = dict(os.environ, TESTCASE=case, FA_RUNS="1", FA_SEED=str(seed))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "tf_flash_attention_tpu_torch.testing", *args],
+            cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    for (args, case), proc in zip(cmds, procs):
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            fail(f"5q testing {' '.join(args)} ({case}) timed out")
+        for line in out.strip().splitlines():
+            print(f"5q testing {' '.join(args)}: {line}", flush=True)
+        if proc.returncode != 0 or (args[0] == "verify" and out.strip().splitlines()[-1:] != ["OK"]):
+            fail(f"5q testing {' '.join(args)} ({case}) exited {proc.returncode}: {err[-2000:]}")
+    print(f"phase 5q: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
 def quant_phase(mcfg, cpu_model, dev, seed):

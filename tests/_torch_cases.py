@@ -3,6 +3,10 @@ card tests (no jax here: the card's machine has none)."""
 
 import numpy as np
 
+#: the fuzz runs also drawn in float64 (the chunked path), as test_fuzz.py's
+#: float64 parametrization does, with few runs
+FLOAT64_RUNS = range(2)
+
 
 def fuzz_case(run):
     """One random case in the spirit of tests/test_fuzz.py: a rule with

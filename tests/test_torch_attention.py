@@ -33,7 +33,7 @@ from tf_flash_attention_tpu_torch.ops import reference as tref
 from tf_flash_attention_tpu_torch.sync_modes import make_sync_pack as tpack
 from tf_flash_attention_tpu_torch.utils import dtypes as tdtypes
 
-from _torch_cases import CheckerCausal, fuzz_case
+from _torch_cases import FLOAT64_RUNS, CheckerCausal, fuzz_case
 from test_kernels import ATTENTION_CASES, CASE_MATRIX, SHAPES_1D, SHAPES_2D, SMALL_BLOCKS
 
 BLOCKS = BlockConfig(128, 128, 128, 128, 128, 128)
@@ -152,6 +152,42 @@ def test_fuzz_matches_jax_reference(run):
                              (o2, l2, m2) + tuple(g2), (n_k, n_k, n_k, n_k, n_q, n_q)):
         np.testing.assert_allclose(_np(b), _np(a), err_msg=f"{label} {name}",
                                    **_tol(torch.float32, n))
+
+
+@pytest.mark.parametrize("run", FLOAT64_RUNS)
+def test_fuzz_float64_matches_jax_reference(run):
+    """The fuzz cases in float64: the port's default float64 route (the
+    chunked path) against the JAX float64 dense oracle, forward and
+    gradients within 1e-9 * n * 10 (the reference's float64 class)."""
+    kind, kw, sync, q_seq, k_seq, d, v_d, g = fuzz_case(run)
+    seq_dims = len(q_seq)
+    rng = np.random.default_rng(run)
+    t = lambda shape: rng.uniform(-2.0, 2.0, shape)
+    Q, K, V, dO = t((g, d) + q_seq), t((g, d) + k_seq), t((g, v_d) + k_seq), t((g, v_d) + q_seq)
+    jrule = {"full": fa.FullRule, "causal": fa.CausalRule, "local": fa.LocalRule}[kind](**kw)
+    jax.config.update("jax_enable_x64", True)
+    try:
+        (o1, l1, m1), vjp = jax.vjp(
+            lambda q, k, v: reference_attention(q, k, v, rule=jrule, sync_mode=sync,
+                                                seq_dims=seq_dims, returning_l_m=True),
+            jnp.asarray(Q), jnp.asarray(K), jnp.asarray(V))
+        g1 = [np.asarray(x) for x in vjp((jnp.asarray(dO), jnp.zeros_like(l1),
+                                          jnp.zeros_like(m1)))]
+        o1, l1, m1 = (np.asarray(x) for x in (o1, l1, m1))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    assert o1.dtype == np.float64
+    Qt, Kt, Vt = (torch.tensor(x, requires_grad=True) for x in (Q, K, V))
+    o2, l2, m2 = ta.flash_attention(Qt, Kt, Vt, rule=trules.make_rule(kind, **kw),
+                                    sync_mode=sync, seq_dims=seq_dims, returning_l_m=True)
+    assert o2.dtype == l2.dtype == m2.dtype == torch.float64
+    g2 = torch.autograd.grad(o2, (Qt, Kt, Vt), torch.from_numpy(dO))
+    n = max(int(np.prod(q_seq)), int(np.prod(k_seq)))
+    label = f"run {run}: {kind} {kw} {sync} {q_seq} {k_seq} d {d} v_d {v_d}"
+    for name, a, b in zip(("O", "l", "m", "dQ", "dK", "dV"), (o1, l1, m1) + tuple(g1),
+                          (o2, l2, m2) + tuple(g2)):
+        np.testing.assert_allclose(b.detach().numpy(), a, rtol=0, atol=1e-9 * n * 10,
+                                   err_msg=f"{label} {name}")
 
 
 # cases run through JAX's table-driven kernels in interpret mode:
@@ -824,12 +860,15 @@ def test_validation_errors():
         ta.causal_1d(Q, K, V, sync_mode="none_front", implementation="bogus")
 
 
-def test_float64_chunked_path_not_ported():
+def test_float64_default_is_chunked_path():
+    """The float64 default is the chunked path (``ops/chunked.py``):
+    float64 outputs equal to the dense oracle's at float64 precision."""
     Q, K, V = _api_data(torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ta.causal_1d(Q, K, V, sync_mode="none_front")
-    O = ta.causal_1d(Q, K, V, sync_mode="none_front", implementation="xla")
-    assert O.dtype == torch.float64
+    O, l, m = ta.causal_1d(Q, K, V, sync_mode="none_front", returning_l_m=True)
+    assert O.dtype == l.dtype == m.dtype == torch.float64
+    O2 = ta.causal_1d(Q, K, V, sync_mode="none_front", implementation="xla")
+    assert O2.dtype == torch.float64
+    np.testing.assert_allclose(O.numpy(), O2.numpy(), rtol=1e-12, atol=1e-12)
 
 
 def test_fp8_inputs_compute_in_bf16():

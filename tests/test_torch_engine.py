@@ -360,18 +360,6 @@ def test_engine_defaults_to_the_card(params_np):
         ttf.init_params(TCFG)
 
 
-@pytest.mark.parametrize("change", [
-    # tensor parallelism: a mesh whose model axis is larger than 1
-    dict(mesh=make_mesh((2,), ("model",), ["cpu", "cpu"])),
-], ids=["mesh"])
-def test_engine_unported_options_raise(params_np, change):
-    cfg = dataclasses.replace(TCFG, **change.get("model", {}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.DecodeEngine(cfg, ttf.params_from_jax(cfg, params_np, "cpu"),
-                          teng.EngineConfig(**ECFG, **change.get("engine", {})),
-                          mesh=change.get("mesh"), device="cpu")
-
-
 # the JAX engine's ValueError cases: a rule that is not left-to-right, a
 # window model or a mesh with the bucketed prefill, a table too small for a
 # window's live set (flat, with speculation, under cp), and speculation

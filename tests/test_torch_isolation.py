@@ -27,6 +27,9 @@ def test_engine_import_leaves_jax_out():
             "import tf_flash_attention_tpu_torch.native; "
             "import tf_flash_attention_tpu_torch.parallel.mesh; "
             "import tf_flash_attention_tpu_torch.serving.seq_sharded_decode; "
+            "import tf_flash_attention_tpu_torch.serving.sharded_decode; "
+            "import tf_flash_attention_tpu_torch.ops.chunked; "
+            "import tf_flash_attention_tpu_torch.testing; "
             "import tf_flash_attention_tpu_torch.api; "
             "import tf_flash_attention_tpu_torch.flops; "
             "import tf_flash_attention_tpu_torch.models.transformer; "

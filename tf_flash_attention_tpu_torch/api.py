@@ -13,7 +13,9 @@ Implementations behind the same surface (the JAX package's names):
   their plain PyTorch versions on the CPU;
 * ``"xla"`` — the dense oracle (``ops.reference``), differentiated by
   torch's autograd;
-* ``"xla_flash"`` — the chunked path, the default for float64: not ported.
+* ``"xla_flash"`` — the chunked path (``ops.chunked``), the default for
+  float64: the kernels' online softmax in plain PyTorch over the live
+  tiles, O(block) memory, float64 products on the card by cuBLAS.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from .block_sizes import BlockConfig, choose_block_config
 from .mask_rules import CausalRule, FullRule, LocalRule, MaskRule
 from .ops.attend import AttendParams, attend
+from .ops.chunked import flash_attention_xla
 from .ops.reference import build_mask, reference_attention_flat
 from .sync_modes import make_sync_pack
 from .utils.dtypes import l_dtype, neg_inf_approx
@@ -77,6 +80,8 @@ def flash_attention(Q: torch.Tensor, K: torch.Tensor, V: torch.Tensor, *, rule: 
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if implementation is None:
+        # float64 has no kernel (nor a TPU one in the JAX package): the
+        # chunked path keeps flash's O(block) memory at float64 precision
         implementation = "xla_flash" if Q.dtype == torch.float64 else "pallas"
 
     B = int(np.prod(batch_shape)) if batch_shape else 1
@@ -90,8 +95,10 @@ def flash_attention(Q: torch.Tensor, K: torch.Tensor, V: torch.Tensor, *, rule: 
         mask = mask.to(Q.device)
         o, l, m = reference_attention_flat(qf, kf, vf, mask, scale=scale)
     elif implementation == "xla_flash":
-        raise NotImplementedError("the chunked path (ops/chunked.py), which float64 takes, "
-                                  "is not ported yet (ROADMAP queue 1 item 9)")
+        blocks = {} if block_config is None else dict(block_q=block_config.block_q,
+                                                      block_kv=block_config.block_kv)
+        o, lv, mv = flash_attention_xla(qf, kf, vf, pack=pack, rule=rule, scale=scale, **blocks)
+        l, m = _public_lm(Q.dtype, lv, mv)
     elif implementation == "pallas":
         if block_config is None:
             block_config = choose_block_config(d, v_d)

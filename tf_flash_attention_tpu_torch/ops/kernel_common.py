@@ -57,7 +57,8 @@ def build_tile_mask(pack: SyncPack, rule: MaskRule, q_pos: torch.Tensor,
                     k_len_padded: int) -> Optional[torch.Tensor]:
     """Boolean visibility of a (q, k) tile, or ``None`` when nothing can be
     masked.  ``q_pos``/``k_pos`` are global flattened positions as column
-    and row int tensors."""
+    and row int tensors, or any pair of int tensors that broadcast together
+    (a stack of tiles: ``(n, rows, 1)`` and ``(n, 1, cols)``)."""
     mask = None
     if not rule.is_full:
         logs = ref_log2(pack.reference_shape)
@@ -72,4 +73,4 @@ def build_tile_mask(pack: SyncPack, rule: MaskRule, q_pos: torch.Tensor,
         mask = bounds_k if mask is None else (mask & bounds_k)
     if mask is None:
         return None
-    return torch.broadcast_to(mask, (q_pos.shape[0], k_pos.shape[1]))
+    return torch.broadcast_to(mask, torch.broadcast_shapes(q_pos.shape, k_pos.shape))

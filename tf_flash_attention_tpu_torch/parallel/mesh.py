@@ -37,10 +37,17 @@ class Mesh:
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
 
-    def axis_devices(self, axis: str):
-        """The devices along ``axis``, at index 0 of every other axis."""
-        arr = np.moveaxis(self.devices, self.axis_names.index(axis), 0)
-        return [arr[(i,) + (0,) * (arr.ndim - 1)] for i in range(arr.shape[0])]
+    def grid(self, *axes: str):
+        """The devices along ``axes`` as nested lists, the first axis
+        outermost, at index 0 of every other axis; an axis the mesh lacks
+        counts as size 1."""
+        arr = self.devices[tuple(slice(None) if a in axes else 0 for a in self.axis_names)]
+        names = [a for a in self.axis_names if a in axes]
+        arr = np.transpose(arr, [names.index(a) for a in axes if a in names])
+        for i, a in enumerate(axes):
+            if a not in names:
+                arr = np.expand_dims(arr, i)
+        return arr.tolist()
 
 
 def make_mesh(shape: Optional[Sequence[int]] = None,

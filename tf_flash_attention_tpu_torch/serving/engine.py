@@ -1,7 +1,8 @@
 """Continuous-batching decode engine for the flagship transformer (PyTorch port).
 
-Counterpart of the JAX package's ``serving/engine.py`` on its single-device
-chunked path: prompts run ``prefill_chunk`` tokens at a time (KV write,
+Counterpart of the JAX package's ``serving/engine.py``, on one device or
+over a mesh (context and tensor parallelism, below).  On its chunked
+path prompts run ``prefill_chunk`` tokens at a time (KV write,
 then paged prefill attention, then the MLP, per layer), reusing any cached
 page-aligned prefix; then every active slot advances one token per
 ``step()`` (KV append, then paged decode attention).  New requests are
@@ -57,9 +58,25 @@ The host keeps a mirror of the page tables, uploaded when it changes, and
 of the slots' lengths, so a decode step copies one tensor back to the
 host: the next tokens.
 
-Not ported yet (raises ``NotImplementedError``; see ROADMAP): tensor
-parallelism (a mesh ``model`` axis larger than 1), and MoE (raised by
-``ModelConfig``).
+Tensor parallelism (``mesh`` with a ``model`` axis of ``tp`` shards,
+alone or beside the ``seq`` axis) is the JAX engine's Megatron placement:
+each head shard holds the columns of ``wq``/``wk``/``wv``/``w1``/``w3`` and
+the rows of ``wo``/``w2`` of its ``n_heads // tp`` query heads, ``n_kv_heads
+// tp`` KV heads and ``d_ff // tp`` hidden units (``megatron_shards``), on
+its device of seq shard 0, and caches of its own KV heads: one cache a
+(seq shard, head shard), the head shards of a seq shard sharing that seq
+shard's page table and allocator, so pages are counted once.  Every layer
+projects each shard's q/k/v from the replicated activations, writes and
+attends on the shard's own caches (no collective inside attention), and
+adds the shards' ``wo`` and ``w2`` partials in shard order before each
+residual add (the JAX engine's ``psum``); the embedding, the final norm and
+the logits run once, on the first device.  Positions come from head shard
+0's lengths.  A ``model`` axis of four on one card is ``cuda:0`` four times:
+each shard's kernels then launch over its ``n_kv_heads // 4`` heads.  TP
+takes the chunked prefill only, and keeps the prefix cache (flat, no window)
+and window models as the JAX engine does.
+
+Not ported yet: MoE (raised by ``ModelConfig``).
 """
 
 from __future__ import annotations
@@ -80,8 +97,9 @@ from .sampling import SamplingParams, sample_tokens
 from .scheduler import Request, Scheduler
 from .seq_sharded_decode import (append_owned, decode_merged, global_lengths, prefill_merged,
                                  write_tokens_sharded)
+from .sharded_decode import head_shard_config
 
-__all__ = ["EngineConfig", "DecodeEngine"]
+__all__ = ["EngineConfig", "DecodeEngine", "megatron_shards"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,31 +150,93 @@ def _rope_at(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return _rotate(x, cos, sin)
 
 
+def _gated(layer, h: torch.Tensor) -> torch.Tensor:
+    """The gated MLP's output (before the residual add) of normed ``h``."""
+    return (F.silu(h @ layer.w1) * (h @ layer.w3)) @ layer.w2
+
+
+def _reduce(parts: List[torch.Tensor]) -> torch.Tensor:
+    """The head shards' partial products summed in shard order on the first
+    shard's device (the engine's); one part is returned as it is."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p.to(out.device)
+    return out
+
+
+_COLUMNS = ("wq", "wk", "wv", "w1", "w3")
+_ROWS = ("wo", "w2")
+
+
+@torch.no_grad()
+def megatron_shards(params: Transformer, tp: int, devices=None) -> List[Transformer]:
+    """The tensor-parallel placement of ``params`` (the JAX engine's
+    ``_param_pspec``): ``tp`` frozen copies of a model of ``n_heads // tp``
+    q heads, ``n_kv_heads // tp`` KV heads and ``d_ff // tp`` hidden units,
+    shard ``t`` on ``devices[t]`` (``params``' device when None).  ``wq``,
+    ``wk``, ``wv``, ``w1`` and ``w3`` are split by columns (head-major for
+    q/k/v), ``wo`` and ``w2`` by rows; the norms and the embedding are
+    replicated (no copy on ``params``' own device).  The slices are copies,
+    so ``params``' layers may be freed."""
+    cfg = params.cfg
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp or cfg.d_ff % tp:
+        raise ValueError(f"heads ({cfg.n_heads}/{cfg.n_kv_heads}) or d_ff {cfg.d_ff} not "
+                         f"divisible by tensor-parallel degree {tp}")
+    loc = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
+                              d_ff=cfg.d_ff // tp)
+    frozen = lambda x, dev: torch.nn.Parameter(x.detach().to(dev), requires_grad=False)
+    shards = []
+    for t, dev in enumerate(devices or [params.embed.device] * tp):
+        shard = Transformer(loc, "meta")
+        shard.embed = frozen(params.embed, dev)
+        shard.final_norm = frozen(params.final_norm, dev)
+        for src, dst in zip(params.layers, shard.layers):
+            for name in ("ln1", "ln2"):
+                setattr(dst, name, frozen(getattr(src, name), dev))
+            for name in _COLUMNS + _ROWS:
+                w = getattr(src, name)
+                if name in _COLUMNS:
+                    n = w.shape[1] // tp
+                    w = w[:, t * n:(t + 1) * n]
+                else:
+                    n = w.shape[0] // tp
+                    w = w[t * n:(t + 1) * n]
+                w = w.to(dev, memory_format=torch.contiguous_format, copy=True)
+                setattr(dst, name, torch.nn.Parameter(w, requires_grad=False))
+        shards.append(shard)
+    return shards
+
+
 class DecodeEngine:
     """Continuous-batching engine on one device: the CUDA card, or the CPU
     when ``device="cpu"``, where the kernels' plain PyTorch versions run;
-    or context-parallel over the ``seq_axis`` of ``mesh`` (then the devices
-    are the mesh's and ``device`` stays None).  ``params`` may live
-    anywhere; the engine casts its own copy onto its (first) device."""
+    or over ``mesh``: context-parallel over its ``seq_axis``,
+    tensor-parallel over its ``model_axis``, or both (then the devices are
+    the mesh's and ``device`` stays None).  ``params`` may live anywhere;
+    the engine casts its own copy onto its devices."""
 
     def __init__(self, model_cfg: ModelConfig, params: Transformer,
                  engine_cfg: EngineConfig = EngineConfig(), device=None, mesh=None,
                  model_axis: str = "model", seq_axis: str = "seq"):
-        shard_devices = None
+        # grid[r][t]: the device of seq shard r and head shard t
+        grid = None
         if mesh is not None:
             axes = mesh.shape
-            if axes.get(model_axis, 1) > 1:
-                raise NotImplementedError(
-                    "tensor-parallel serving (a mesh model axis > 1, the JAX "
-                    "sharded_decode.py) is not ported yet (ROADMAP: Next, tensor parallelism)")
             if any(n > 1 for a, n in axes.items() if a not in (model_axis, seq_axis)):
                 raise ValueError(f"the engine's mesh takes a {seq_axis!r} axis and a "
-                                 f"{model_axis!r} axis of 1, got {axes}")
+                                 f"{model_axis!r} axis, got {axes}")
             if device is not None:
                 raise ValueError("with a mesh, the devices are the mesh's: leave device None")
-            shard_devices = (mesh.axis_devices(seq_axis) if seq_axis in axes
-                             else [mesh.devices.flat[0]])
-            device = shard_devices[0]
+            grid = mesh.grid(seq_axis, model_axis)
+            device = grid[0][0]
+        tp = len(grid[0]) if grid else 1
+        if tp > 1:
+            if model_cfg.n_heads % tp or model_cfg.n_kv_heads % tp:
+                raise ValueError(
+                    f"heads ({model_cfg.n_heads}/{model_cfg.n_kv_heads}) not divisible by "
+                    f"tensor-parallel degree {tp}")
+            if engine_cfg.prefill_mode != "chunked":
+                raise ValueError("tensor-parallel engine requires chunked prefill")
         rule = model_cfg.rule
         if not (isinstance(rule, LocalRule) and rule.is_causal
                 or type(rule).__name__ == "CausalRule"):
@@ -168,19 +248,30 @@ class DecodeEngine:
         if isinstance(rule, LocalRule) and engine_cfg.prefill_mode != "chunked":
             raise ValueError("sliding-window models require chunked prefill (lazy paging "
                              "and the rolling page table have no bucketed-path analog)")
-        if shard_devices is not None and len(shard_devices) > 1 and (
-                engine_cfg.prefill_mode != "chunked"):
+        if grid is not None and len(grid) > 1 and engine_cfg.prefill_mode != "chunked":
             raise ValueError("context-parallel engine requires chunked prefill")
         self.mcfg = model_cfg
         self.ecfg = engine_cfg
         self.device = torch.device("cuda") if device is None else torch.device(device)
-        shard_devices = shard_devices or [self.device]
-        self.cp = len(shard_devices)
+        grid = grid or [[self.device]]
+        self.cp, self.tp = len(grid), tp
         if self.cp > 1 and engine_cfg.speculative_tokens and (
                 engine_cfg.page_size <= engine_cfg.speculative_tokens):
             raise ValueError("page_size must exceed speculative_tokens")
-        # projections and embedding cast to the model dtype once, here
+        # projections and embedding cast to the model dtype once, here; under
+        # TP each head shard takes its Megatron slices (``megatron_shards``)
+        # on its device of seq shard 0, where its projections run, and the
+        # full copy keeps only what runs once (the embedding, the final norm)
         self.model = inference_weights(params, self.device)
+        self._params = [self.model]
+        if tp > 1:
+            self._params = megatron_shards(self.model, tp, grid[0])
+            self.model.layers = torch.nn.ModuleList()
+        # each head shard's device, None where it is the engine's own
+        self._moves = [None if torch.device(d) == self.device else torch.device(d)
+                       for d in grid[0]]
+        self._n_heads_loc = model_cfg.n_heads // tp
+        self._n_kv_loc = model_cfg.n_kv_heads // tp
         self.ccfg = KVCacheConfig(
             n_kv_heads=model_cfg.n_kv_heads, head_dim=model_cfg.d_head,
             page_size=engine_cfg.page_size, n_pages=engine_cfg.n_pages,
@@ -188,21 +279,28 @@ class DecodeEngine:
             max_pages_per_seq=engine_cfg.max_pages_per_seq,
             quantized=engine_cfg.quantized_kv, quant_dtype=engine_cfg.kv_quant_dtype,
             dtype=model_cfg.dtype)
+        self._ccfg_loc = head_shard_config(self.ccfg, tp)
         self.trash_page = engine_cfg.n_pages - 1
-        # shards[r][layer]: shard r's caches (``n_pages`` is per shard); every
-        # layer of a shard maps the same pages: one device table per shard,
-        # mirrored on the host
-        self.shards: List[List[PagedKVCache]] = [
-            [PagedKVCache.create(self.ccfg, dev) for _ in range(model_cfg.n_layers)]
-            for dev in shard_devices]
-        for shard in self.shards:
-            for c in shard[1:]:
-                c.page_tables = shard[0].page_tables
-        self._layer_shards = [list(cs) for cs in zip(*self.shards)]   # [layer][shard]
+        # caches[r][t][layer]: the caches of seq shard r and head shard t
+        # (``n_pages`` is per seq shard, ``n_kv_heads // tp`` heads a head
+        # shard); every layer and head shard of a seq shard maps the same
+        # pages: one device table per seq shard and device, mirrored on the
+        # host
+        self._caches = [[[PagedKVCache.create(self._ccfg_loc, dev)
+                          for _ in range(model_cfg.n_layers)] for dev in row] for row in grid]
+        for row in self._caches:
+            tables = {}
+            for layers in row:
+                for c in layers:
+                    c.page_tables = tables.setdefault(c.page_tables.device, c.page_tables)
+        # [layer][t]: head shard t's caches of the layer over the seq shards
+        self._layer_shards = [[[row[t][i] for row in self._caches] for t in range(tp)]
+                              for i in range(model_cfg.n_layers)]
         self._tables = np.zeros((self.cp, engine_cfg.max_seqs, engine_cfg.max_pages_per_seq),
                                 np.int32)
         self._tables_dirty = False
-        # one allocator per shard (each excludes its trash page)
+        # one allocator per seq shard (each excludes its trash page); the
+        # head shards of a seq shard share it, as they share its pages
         self.allocators = [SharedPageAllocator(engine_cfg.n_pages - 1) for _ in range(self.cp)]
         self.allocator = self.allocators[0]
         # sliding-window models: lazy prompt paging and eviction keep the
@@ -243,25 +341,44 @@ class DecodeEngine:
         # logits of the last prompt token of the most recently admitted request
         self.last_prefill_logits: Optional[torch.Tensor] = None
 
+    @property
+    def shards(self) -> List[List[PagedKVCache]]:
+        """Every (seq shard, head shard)'s layer list, seq shard major."""
+        return [layers for row in self._caches for layers in row]
+
     # ---- model functions ----
 
-    def _mlp(self, layer, x):
-        h = _rms_norm(x, layer.ln2)
-        return x + (F.silu(h @ layer.w1) * (h @ layer.w3)) @ layer.w2
+    def _on_shards(self, *tensors):
+        """``tensors`` on every head shard's device, once a step: one tuple a
+        head shard (the tensors themselves on the engine's device)."""
+        return [tensors if dev is None else tuple(t.to(dev) for t in tensors)
+                for dev in self._moves]
 
-    def _attn_out(self, layer, x, o):
-        return x + o.to(x.dtype) @ layer.wo
-
-    def _qkv(self, layer, x, cos, sin):
-        """x (..., d_model) -> q (..., n_heads, d_head), k, v (...,
-        n_kv_heads, d_head), q and k rotated by cos/sin (..., 1, d_head/2)."""
-        cfg = self.mcfg
-        lead = x.shape[:-1]
-        h = _rms_norm(x, layer.ln1)
-        q = (h @ layer.wq).reshape(*lead, cfg.n_heads, cfg.d_head)
-        k = (h @ layer.wk).reshape(*lead, cfg.n_kv_heads, cfg.d_head)
-        v = (h @ layer.wv).reshape(*lead, cfg.n_kv_heads, cfg.d_head)
-        return _rotate(q, cos, sin), _rotate(k, cos, sin), v
+    def _layer(self, i: int, x, per_shard, attend):
+        """Decoder layer ``i`` on ``x`` (..., d_model): head shard ``t``
+        projects its q/k/v, rotates them by ``per_shard[t] = (cos, sin,
+        *extra)`` (``_on_shards``), attends with ``attend(q, k, v, caches,
+        *extra)`` on its caches of the layer (one a seq shard) and multiplies
+        the output by its rows of ``wo``; the shards' partials add up in
+        shard order before the residual add (the JAX engine's ``psum``), and
+        likewise the MLP's ``w2`` partials.  One head shard is the plain
+        layer."""
+        cfg, lead = self.mcfg, x.shape[:-1]
+        h = _rms_norm(x, self._params[0].layers[i].ln1)
+        parts = []
+        for p, caches, dev, (cos, sin, *extra) in zip(self._params, self._layer_shards[i],
+                                                      self._moves, per_shard):
+            layer = p.layers[i]
+            ht = h if dev is None else h.to(dev)
+            q = (ht @ layer.wq).reshape(*lead, self._n_heads_loc, cfg.d_head)
+            k = (ht @ layer.wk).reshape(*lead, self._n_kv_loc, cfg.d_head)
+            v = (ht @ layer.wv).reshape(*lead, self._n_kv_loc, cfg.d_head)
+            o = attend(_rotate(q, cos, sin), _rotate(k, cos, sin), v, caches, *extra)
+            parts.append(o.reshape(*lead, -1).to(x.dtype) @ layer.wo)
+        x = x + _reduce(parts)
+        h = _rms_norm(x, self._params[0].layers[i].ln2)
+        return x + _reduce([_gated(p.layers[i], h if dev is None else h.to(dev))
+                            for p, dev in zip(self._params, self._moves)])
 
     def _logits(self, x):
         return _rms_norm(x, self.model.final_norm) @ self.model.embed.T
@@ -274,36 +391,44 @@ class DecodeEngine:
         cfg = self.mcfg
         chunk = tokens.shape[0]
         pos = start + torch.arange(chunk, device=self.device)
-        cos, sin = _rope_cos_sin(pos, cfg.d_head, cfg.rope_theta, cfg.dtype)
-        x = self.model.embed[tokens]
-        for layer, shards in zip(self.model.layers, self._layer_shards):
-            q, k, v = self._qkv(layer, x, cos, sin)
-            # each shard keeps the rows of its own pages; partials merge
-            write_tokens_sharded(shards, self.ccfg, slot, start, k.transpose(0, 1),
+        per_shard = self._on_shards(*_rope_cos_sin(pos, cfg.d_head, cfg.rope_theta, cfg.dtype))
+
+        def attend(q, k, v, caches):
+            # each seq shard keeps the rows of its own pages; partials merge
+            write_tokens_sharded(caches, self._ccfg_loc, slot, start, k.transpose(0, 1),
                                  v.transpose(0, 1), true_len, self.trash_page)
-            o = prefill_merged(q, shards, self.ccfg, slot, start, true_len, rule=cfg.rule)
-            x = self._attn_out(layer, x, o.reshape(chunk, -1))
-            x = self._mlp(layer, x)
+            return prefill_merged(q, caches, self._ccfg_loc, slot, start, true_len,
+                                  rule=cfg.rule)
+
+        x = self.model.embed[tokens]
+        for i in range(cfg.n_layers):
+            x = self._layer(i, x, per_shard, attend)
         return self._logits(x[true_len - 1])
+
+    def _positions(self):
+        """The slots' global lengths before this step's appends: the sum
+        over the seq shards of head shard 0's layer 0 lengths (every head
+        shard's appends advance its own copy alike)."""
+        return global_lengths(self._layer_shards[0][0], self.device)
 
     @torch.no_grad()
     def _decode_step(self, tokens, active, sps: List[SamplingParams]):
         """One token for every slot: tokens (S,), active (S,) bool."""
         cfg = self.mcfg
         S = tokens.shape[0]
-        # positions of the new tokens (global: the sum of the shards' local
-        # lengths); computed before layer 0's append advances its lengths
-        pos = global_lengths(self._layer_shards[0], self.device)
+        pos = self._positions()
         glob = pos + active.to(torch.int32)
         cos, sin = _rope_cos_sin(pos, cfg.d_head, cfg.rope_theta, cfg.dtype)
+        per_shard = self._on_shards(cos, sin, active, pos, glob)
+
+        def attend(q, k, v, caches, active, pos, glob):
+            # the append lands on the owner seq shard of the position
+            append_owned(caches, self._ccfg_loc, k, v, active, pos, self.trash_page)
+            return decode_merged(q, caches, self._ccfg_loc, glob, rule=cfg.rule)
+
         x = self.model.embed[tokens]
-        for layer, shards in zip(self.model.layers, self._layer_shards):
-            q, k, v = self._qkv(layer, x, cos, sin)
-            # the append lands on the owner shard of the position
-            append_owned(shards, self.ccfg, k, v, active, pos, self.trash_page)
-            o = decode_merged(q, shards, self.ccfg, glob, rule=cfg.rule)
-            x = self._attn_out(layer, x, o.reshape(S, -1))
-            x = self._mlp(layer, x)
+        for i in range(cfg.n_layers):
+            x = self._layer(i, x, per_shard, attend)
         logits = self._logits(x)
         if all(sp.temperature == 0 for sp in sps):
             return torch.argmax(logits.float(), dim=-1)
@@ -319,20 +444,20 @@ class DecodeEngine:
         samples, a token sampled from position 0 (S,), else None."""
         cfg = self.mcfg
         S, gamma = tokens.shape
-        # positions of the gamma tokens, from the (global) lengths before
-        # layer 0's appends advance them in place
-        pos0 = global_lengths(self._layer_shards[0], self.device)
+        pos0 = self._positions()
         glob = pos0 + gamma * active.to(torch.int32)
         pos = pos0.long()[:, None] + torch.arange(gamma, device=self.device)
         cos, sin = _rope_cos_sin(pos, cfg.d_head, cfg.rope_theta, cfg.dtype)
+        per_shard = self._on_shards(cos, sin, active, pos0, glob)
+
+        def attend(q, k, v, caches, active, pos0, glob):
+            # each token goes to the owner seq shard of its position
+            append_owned(caches, self._ccfg_loc, k, v, active, pos0, self.trash_page)
+            return decode_merged(q, caches, self._ccfg_loc, glob, rule=cfg.rule)
+
         x = self.model.embed[tokens]                         # (S, gamma, d_model)
-        for layer, shards in zip(self.model.layers, self._layer_shards):
-            q, k, v = self._qkv(layer, x, cos, sin)
-            # each token goes to the owner shard of its position
-            append_owned(shards, self.ccfg, k, v, active, pos0, self.trash_page)
-            o = decode_merged(q, shards, self.ccfg, glob, rule=cfg.rule)
-            x = self._attn_out(layer, x, o.reshape(S, gamma, -1))
-            x = self._mlp(layer, x)
+        for i in range(cfg.n_layers):
+            x = self._layer(i, x, per_shard, attend)
         logits = self._logits(x)                             # (S, gamma, vocab)
         greedy = torch.argmax(logits.float(), dim=-1)
         sampled0 = (self._sample(logits[:, 0], sps)
@@ -375,10 +500,11 @@ class DecodeEngine:
 
     def _sync_tables(self) -> None:
         """Upload the host page tables if they changed (one small copy a
-        shard)."""
+        seq shard and device: the head shards on one device share it)."""
         if self._tables_dirty:
-            for table, shard in zip(self._tables, self.shards):
-                shard[0].page_tables.copy_(torch.from_numpy(table))
+            for table, row in zip(self._tables, self._caches):
+                for t in {c[0].page_tables.device: c[0].page_tables for c in row}.values():
+                    t.copy_(torch.from_numpy(table))
             self._tables_dirty = False
 
     def _alloc_pages(self, slot: int, n: int, shard: int = 0):
@@ -499,8 +625,8 @@ class DecodeEngine:
             v = (h @ layer.wv).reshape(b, s, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
             q, k = _rope(q, cfg.rope_theta), _rope(k, cfg.rope_theta)
             o = mha(q, k, v, rule=cfg.rule, block_config=cfg.block_config)
-            x = self._attn_out(layer, x, o.transpose(1, 2).reshape(b, s, -1))
-            x = self._mlp(layer, x)
+            x = x + o.transpose(1, 2).reshape(b, s, -1).to(x.dtype) @ layer.wo
+            x = x + _gated(layer, _rms_norm(x, layer.ln2))
             kvs.append((k[0], v[0]))
         return self._logits(x[0, true_len - 1]), kvs
 
@@ -684,12 +810,15 @@ class DecodeEngine:
         # each layer's appends advanced its own lengths by gamma: roll back
         # to the committed lengths (a shard's local length is its owned-token
         # count of the committed global length)
-        for r, shard in enumerate(self.shards):
+        for r, row in enumerate(self._caches):
             lengths = torch.tensor(
                 [_owned_token_count(st["length"], self.ecfg.page_size, self.cp, r) if st else 0
-                 for st in self._slots], dtype=torch.int32).to(shard[0].lengths.device)
-            for cache in shard:
-                cache.lengths.copy_(lengths)
+                 for st in self._slots], dtype=torch.int32)
+            on = {}      # one upload a device
+            for layers in row:
+                for cache in layers:
+                    dev = cache.lengths.device
+                    cache.lengths.copy_(on.setdefault(dev, lengths.to(dev)))
         self._retire()
         self._evict_window_pages()
         return produced

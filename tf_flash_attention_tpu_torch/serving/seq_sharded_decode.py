@@ -34,6 +34,7 @@ from .decode import paged_decode_attention, paged_multitoken_decode
 from .kv_cache import (KVCacheConfig, PagedKVCache, append_tokens_batched, write_prompt,
                        write_tokens_at)
 from .prefill import paged_prefill_attention
+from .sharded_decode import head_shard_config
 
 __all__ = ["create_seq_sharded_cache", "write_prompt_seq_sharded",
            "seq_sharded_paged_decode", "seq_sharded_paged_prefill",
@@ -42,14 +43,30 @@ __all__ = ["create_seq_sharded_cache", "write_prompt_seq_sharded",
 
 
 def create_seq_sharded_cache(cfg: KVCacheConfig, mesh: Mesh, axis: str,
-                             head_axis=None) -> List[PagedKVCache]:
+                             head_axis=None):
     """One empty ``PagedKVCache`` per shard of ``axis``, on its device.
     ``cfg`` describes ONE shard (``n_pages`` and ``max_pages_per_seq`` are
-    per-shard capacities)."""
-    if head_axis is not None:
-        raise NotImplementedError("sharding the KV heads too (tensor x context parallel) "
-                                  "is not ported yet (ROADMAP: tensor-parallel serving)")
-    return [PagedKVCache.create(cfg, dev) for dev in mesh.axis_devices(axis)]
+    per-shard capacities).
+
+    With ``head_axis`` the KV heads shard over that mesh axis too (tensor x
+    context parallel): a list over the seq shards of lists over the head
+    shards, each cache of ``n_kv_heads // tp`` heads on the device at (seq
+    shard, head shard).  The head shards of a seq shard map the same pages:
+    they share one page-table tensor where they share a device (the caller
+    keeps copies on other devices equal); each keeps its own lengths, as
+    each of its appends advances them."""
+    if head_axis is None:
+        return [PagedKVCache.create(cfg, dev) for dev in mesh.grid(axis)]
+    loc = head_shard_config(cfg, int(mesh.shape[head_axis]))
+    out = []
+    for row in mesh.grid(axis, head_axis):
+        caches, tables = [], {}
+        for dev in row:
+            c = PagedKVCache.create(loc, dev)
+            c.page_tables = tables.setdefault(c.page_tables.device, c.page_tables)
+            caches.append(c)
+        out.append(caches)
+    return out
 
 
 def write_prompt_seq_sharded(caches: List[PagedKVCache], cfg: KVCacheConfig, mesh: Mesh,

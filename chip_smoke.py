@@ -211,6 +211,21 @@ Phases (any failure exits non-zero before the final line):
      the first step's loss and gradient norm must match the plain path on
      the card, the loss must fall, and the five steps must launch the
      banded kernels; prints step ms and tokens/s;
+  6b. training parallelism, single-controller on the one card (every
+     shard on cuda:0, one after another: no communication is measured):
+     (a) the ring (CausalRule, FullRule, LocalRule(1024, is_causal=True))
+     and Ulysses (CausalRule) on a context axis of 4 at (b, h, S, d) =
+     (4, 8, 8192, 128) bf16: outputs and dQ/dK/dV against single-device
+     mha within op_tol and against the same function on the plain versions
+     within attn_tol; prints the forward and forward + backward ms, the
+     ring steps visited and the launches by kernel; (b) the same 168M
+     decoder on phase 6's batch, 3 AdamW steps of make_sharded_train_step
+     on (data 2, model 4) and, with context_parallel=True, on (data 2,
+     model 2, context 2): the first step's loss and gradient norm within
+     TRAIN_LOSS_ATOL / TRAIN_GNORM_RTOL of phase 6's plain path, falling
+     losses, one attention launch a (data, model) block, layer and step
+     (under cp one a ring pair: 3 a ring of 2); prints step ms and
+     tokens/s;
   7. one step of the same model at 1 x 512 tokens on the CPU (plain
      versions) and on the card (kernels): the losses must agree;
   8. the experiment tools' kernels (experiments/), every instantiation the
@@ -260,7 +275,11 @@ function (null where there is none); the serving kernels add the payloads
 held against their plain versions, each payload's time, and their launches
 in phase 3c, the window engine's launches (3f(b)), the rolled tables'
 errors (3f(a)), the tp engine's launches (3h(b)) and their numbers at a
-head shard's heads (3h(a)).  The four sequence-sharded variants follow as kernels of
+head shard's heads (3h(a)); the op kernels the ring and the sharded step
+can take (flash_fwd, banded_fwd, window_fwd, resident_fwd,
+flash_bwd_fused, window_bwd, banded_bwd) add their launches in phase 6b's
+runs under test ("ring train (6b)"; the mha and plain references left
+out).  The four sequence-sharded variants follow as kernels of
 their own ("paged_decode[cp]", ...; launches from the cp engine of phase
 3e, times and library yardsticks from 3e(a) on shard 0), then the ten
 experiment kernels (phase 8; the
@@ -985,7 +1004,16 @@ def main():
     float64_phase(dev, args.seed)
 
     # ---- 6: training at full width ----
-    train_launches = train_phase(mcfg, cpu_model, dev, args.seed)
+    train_launches, train_tokens, loss_plain, gnorm_plain = train_phase(mcfg, cpu_model, dev,
+                                                                        args.seed)
+    # ---- 6b: ring and Ulysses at the op level, the sharded step at full width ----
+    t0 = time.perf_counter()
+    ring_launches = ring_op_phase(dev, args.seed)
+    _add_launches(ring_launches, ring_train_phase(mcfg, cpu_model, dev, train_tokens,
+                                                  loss_plain, gnorm_plain))
+    del train_tokens
+    print(f"phase 6b: {time.perf_counter() - t0:.3f} s; launches {json.dumps(ring_launches)}",
+          flush=True)
     # each kernel's count from the run of the path that takes it by default:
     # the training step's (banded) kernels from phase 6, the others from the
     # op path's public calls in phase 5
@@ -1048,6 +1076,11 @@ def main():
                                       "kernel_ms", "gqa", "pair", "entry_ms",
                                       "kernel_ms_gamma4", "bound_ms_gamma4",
                                       "library_payload", "shapes") if x in m}}
+        if k in RING_KERNELS:
+            entry["ring_train"] = {"path": "ring train (6b): the ring and Ulysses on a context "
+                                           "axis of 4, and the 168M sharded step on (data 2, "
+                                           "model 4) and (data 2, model 2, context 2)",
+                                   "launches": ring_launches.get(k, 0)}
         if k in native.SERVING_KERNELS:
             # the window engine's run (phase 3f(b)) and the rolled tables'
             # errors against the plain versions and the dense oracle (3f(a))
@@ -2642,8 +2675,10 @@ def quant_phase(mcfg, cpu_model, dev, seed):
 @contextlib.contextmanager
 def plain_attention(fused="kv"):
     """The attention core on its plain versions, on any device: the plain
-    path the kernels are held against (``fused=False``: the split pair's)."""
+    path the kernels are held against (``fused=False``: the split pair's),
+    in ``ops/attend.py`` and in the ring (``parallel/ring.py``)."""
     from tf_flash_attention_tpu_torch.ops import attend, backward, forward
+    from tf_flash_attention_tpu_torch.parallel import ring
 
     def fwd(q, k, v, *, pack, rule, config, scale):
         return forward._flash_forward_plain(forward.prescale(q, scale), k, v, pack, rule)
@@ -2653,12 +2688,14 @@ def plain_attention(fused="kv"):
         return backward._flash_backward_plain(q, k, v, do, lse2, delta, pack, rule, scale,
                                               fused)
 
-    saved = attend.flash_forward, attend.flash_backward
-    attend.flash_forward, attend.flash_backward = fwd, bwd
+    saved = {mod: (mod.flash_forward, mod.flash_backward) for mod in (attend, ring)}
+    for mod in saved:
+        mod.flash_forward, mod.flash_backward = fwd, bwd
     try:
         yield
     finally:
-        attend.flash_forward, attend.flash_backward = saved
+        for mod, (f, b) in saved.items():
+            mod.flash_forward, mod.flash_backward = f, b
 
 
 # the JAX package's route switches, read by the port as by the package
@@ -3267,16 +3304,19 @@ def window_shape(dev, err, shape, Q, K, V, dO):
     return out
 
 
+def grad_norm(model):
+    return math.sqrt(sum(float((p.grad.float() ** 2).sum()) for p in model.parameters()))
+
+
 def train_phase(mcfg, cpu_model, dev, seed):
-    """Phase 6: 5 AdamW steps of the 168M decoder at 8 x 2048 tokens."""
+    """Phase 6: 5 AdamW steps of the 168M decoder at 8 x 2048 tokens.
+    Returns ({kernel: launches in the 5 steps}, the batch, and the plain
+    path's first-step loss and gradient norm, which phase 6b reuses)."""
     from tf_flash_attention_tpu_torch import native
     from tf_flash_attention_tpu_torch.models import transformer as tf
 
     gen = torch.Generator().manual_seed(seed + 2)
     tokens = torch.randint(0, mcfg.vocab, (8, 2049), generator=gen).to(dev)
-
-    def grad_norm(model):
-        return math.sqrt(sum(float((p.grad.float() ** 2).sum()) for p in model.parameters()))
 
     model = copy.deepcopy(cpu_model).to(dev)
     with plain_attention():
@@ -3318,7 +3358,195 @@ def train_phase(mcfg, cpu_model, dev, seed):
           flush=True)
     del model, opt
     torch.cuda.empty_cache()
-    return launches
+    return launches, tokens, loss_plain, gnorm_plain
+
+
+# phase 6b: a context axis of 4 on the card at the op level; the rows of
+# PERF.md's kernel table that the ring and the sharded step can take
+RING_SHAPE = (4, 8, 8192, 128)
+RING_AXES = ("data", "model", "context")
+RING_KERNELS = ("flash_fwd", "banded_fwd", "window_fwd", "resident_fwd", "flash_bwd_fused",
+                "window_bwd", "banded_bwd")
+
+
+def _add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def ring_op_phase(dev, seed):
+    """Phase 6b(a): the ring (causal, full, a causal window of 1024) and
+    Ulysses (causal) on a context axis of 4 (cuda:0 four times) at
+    RING_SHAPE bf16: outputs and dQ/dK/dV against single-device mha within
+    op_tol and against the same function on the plain versions within
+    attn_tol.  Returns {kernel: launches} of the four runs under test."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.mask_rules import CausalRule, FullRule, LocalRule
+    from tf_flash_attention_tpu_torch.parallel import (make_mesh, mha, ring, ring_flash_attention,
+                                                       ulysses_flash_attention)
+
+    bf = torch.bfloat16
+    b, h, S, d = RING_SHAPE
+    n = 4
+    mesh = make_mesh((1, 1, n), RING_AXES, [dev] * n)
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    q, k, v, do = (torch.randn(RING_SHAPE, generator=gen, device=dev).to(bf) for _ in range(4))
+    window = LocalRule(1024, is_causal=True)
+    cases = [("ring causal", CausalRule(), ring_flash_attention(mesh, rule=CausalRule())),
+             ("ring full", FullRule(), ring_flash_attention(mesh, rule=FullRule())),
+             ("ring local w1024 causal", window, ring_flash_attention(mesh, rule=window)),
+             ("ulysses causal", CausalRule(), ulysses_flash_attention(mesh, CausalRule()))]
+
+    def run(fn):
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o = fn(*xs)
+        return [o.detach(), *torch.autograd.grad(o, xs, do)]
+
+    names = ("o", "dq", "dk", "dv")
+    total = {}
+    for label, rule, fn in cases:
+        native.reset_launch_counts()
+        got = run(fn)
+        torch.cuda.synchronize()
+        launches = {kk: vv for kk, vv in native.LAUNCHES.items() if vv}
+        _add_launches(total, launches)
+        mha_err = compare(f"6b {label} vs mha", names, got,
+                          run(lambda Q, K, V: mha(Q, K, V, rule=rule)), (bf,) * 4)
+        with plain_attention():
+            want = run(fn)
+        plain_err = 0.0
+        for name, a, ref in zip(names, got, want):
+            err, tol = float((a.float() - ref.float()).abs().max()), attn_tol(ref)
+            if not torch.isfinite(a.float()).all() or err > tol:
+                fail(f"6b {label}: {name} max error {err} against the plain versions > {tol}")
+            plain_err = max(plain_err, err)
+        del want
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: fn(q, k, v), n=10)
+        fb_ms = time_ms(lambda: run(fn), n=10)
+        if label.startswith("ring"):
+            steps = ([t for t, _, _ in ring._local_live_steps(rule, n, S // n)]
+                     if isinstance(rule, LocalRule) else list(range(n)))
+            visited = (f"ring steps visited {steps}, shard pairs "
+                       f"{sum(vv for kk, vv in launches.items() if kk.endswith('_fwd'))} of "
+                       f"{n * n}")
+        else:
+            visited = "all-to-all, one local attention a head group"
+        print(f"6b(a) {label} (b, h, S, d) {RING_SHAPE} bf16, context {n} on the card: "
+              f"{visited}; launches {json.dumps(launches)}; max_abs_err vs mha {mha_err} "
+              f"(op_tol), vs plain versions {plain_err} (attn_tol); forward {fwd_ms:.4f} ms, "
+              f"forward + backward {fb_ms:.4f} ms", flush=True)
+        del got
+        torch.cuda.empty_cache()
+    return total
+
+
+def train_step_profile(label, step):
+    """One training step ``step()`` under torch.profiler: its wall ms, the
+    device's busy ms (each CUDA kernel and copy once) and share of the
+    wall, the kernels it launched, and the device ms by class."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    classes, n = {}, 0
+    names = sum((v for d in OP_KERNEL_NAMES.values() for v in d.values()), ())
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n += 1
+        cls = ("attention" if any(k in e.name for k in names) else "matmul"
+               if any(k in e.name.lower() for k in ("gemm", "nvjet", "cutlass")) else "other")
+        classes[cls] = classes.get(cls, 0.0) + e.device_time_total / 1e3
+    busy = sum(classes.values())
+    print(f"6b(b) step profile {label}: {wall:.3f} ms wall (profiled); "
+          + (f"device busy {busy:.3f} ms = {busy / wall:.4f} of the wall; {n} kernels and "
+             f"copies; device ms by class {json.dumps({k: round(v, 3) for k, v in classes.items()})}"
+             if busy else "device time not measured (the profiler saw no device events)"),
+          flush=True)
+
+
+def ring_train_phase(mcfg, cpu_model, dev, tokens, loss_plain, gnorm_plain):
+    """Phase 6b(b): 3 AdamW steps of the 168M decoder on phase 6's batch
+    through make_sharded_train_step on (data 2, model 4) and, with
+    context_parallel, on (data 2, model 2, context 2), each mesh cuda:0
+    repeated: first-step loss and gradient norm against phase 6's plain
+    path, falling losses, the ring's pairs launched; then one more step of
+    each, and one of phase 6's unsharded step for comparison, under
+    torch.profiler (``train_step_profile``).  Returns {kernel: launches} of
+    the two sharded runs' first 3 steps."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.models import transformer as tf
+    from tf_flash_attention_tpu_torch.parallel import make_mesh
+
+    total = {}
+    b, s = tokens.shape[0], tokens.shape[1] - 1
+
+    def adamw(model):   # phase 6's
+        return torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=1e-4)
+
+    model = copy.deepcopy(cpu_model).to(dev)
+    opt = adamw(model)
+    tf.train_step(mcfg, model, tokens, optimizer=opt)       # warm
+    train_step_profile("unsharded (phase 6's step)",
+                       lambda: tf.train_step(mcfg, model, tokens, optimizer=opt))
+    del model, opt
+    for label, cfg, shape, axes in (
+            ("tp", mcfg, (2, 4), ("data", "model")),
+            ("cp", dataclasses.replace(mcfg, context_parallel=True), (2, 2, 2), RING_AXES)):
+        mesh = make_mesh(shape, axes, [dev] * math.prod(shape))
+        model = copy.deepcopy(cpu_model).to(dev)
+        opt = adamw(model)
+        step = tf.make_sharded_train_step(cfg, mesh, opt)
+        losses, step_s = [], []
+        native.reset_launch_counts()
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(model, tokens)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            if i == 0:
+                gnorm = grad_norm(model)
+        launches = {k: v for k, v in native.LAUNCHES.items() if v}
+        _add_launches(total, launches)
+        # one attention call a (data, model) block, layer and step; under cp a
+        # ring over 2 shards whose causal pairs are 3 of 4
+        blocks = shape[0] * shape[1] * mcfg.n_layers * 3
+        pairs = blocks * (3 if label == "cp" else 1)
+        n_fwd = sum(v for k, v in launches.items() if k.endswith("_fwd"))
+        n_bwd = sum(v for k, v in launches.items() if k in native.ATTENTION_KERNELS
+                    and not k.endswith("_fwd"))
+        if n_fwd != pairs or n_bwd != pairs:
+            fail(f"6b(b) {label}: {n_fwd} forward and {n_bwd} backward launches, "
+                 f"{pairs} expected: {launches}")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            fail(f"6b(b) {label}: training losses {losses} are not finite and falling")
+        if abs(losses[0] - loss_plain) > TRAIN_LOSS_ATOL:
+            fail(f"6b(b) {label}: first-step loss {losses[0]} vs plain path {loss_plain}: "
+                 f"> {TRAIN_LOSS_ATOL}")
+        if abs(gnorm - gnorm_plain) > TRAIN_GNORM_RTOL * gnorm_plain:
+            fail(f"6b(b) {label}: first-step grad norm {gnorm} vs plain path {gnorm_plain}: "
+                 f"> {TRAIN_GNORM_RTOL} relative")
+        ms = statistics.median(step_s[1:]) * 1e3
+        print(f"6b(b) sharded train {label}, mesh {dict(zip(axes, shape))} on cuda:0 x "
+              f"{math.prod(shape)} (the shards run one after another on the one card; no "
+              f"communication is measured): losses {losses}; first step loss {losses[0]} vs "
+              f"plain {loss_plain} (tol {TRAIN_LOSS_ATOL}), grad norm {gnorm} vs plain "
+              f"{gnorm_plain} (rtol {TRAIN_GNORM_RTOL}); step ms "
+              f"{[round(x * 1e3, 3) for x in step_s]}, median of steps 2-3 {ms:.3f} ms = "
+              f"{b * s / ms * 1e3:.1f} tokens/s; launches in the 3 steps {json.dumps(launches)}",
+              flush=True)
+        train_step_profile(f"{label} {dict(zip(axes, shape))}", lambda: step(model, tokens))
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return total
 
 
 def cpu_card_phase(mcfg, cpu_model, dev, seed):

@@ -25,7 +25,7 @@ def _env():
 def test_engine_import_leaves_jax_out():
     code = ("import sys; import tf_flash_attention_tpu_torch.serving.engine; "
             "import tf_flash_attention_tpu_torch.native; "
-            "import tf_flash_attention_tpu_torch.parallel.mesh; "
+            "import tf_flash_attention_tpu_torch.parallel; "
             "import tf_flash_attention_tpu_torch.serving.seq_sharded_decode; "
             "import tf_flash_attention_tpu_torch.serving.sharded_decode; "
             "import tf_flash_attention_tpu_torch.ops.chunked; "

@@ -139,12 +139,32 @@ def test_mha_gqa_matches_jax():
 
 
 def test_unported_options_raise():
-    model = ttf.init_params(TCFG, device="cpu")
-    tokens = torch.zeros((1, 9), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.train_step(TCFG, model, tokens, optimizer=torch.optim.SGD(model.parameters(), 0.1),
-                       mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataclasses.replace(TCFG, context_parallel=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sharded_flash_attention(None, trules.CausalRule())
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+        dataclasses.replace(TCFG, n_experts=4)
+
+
+@pytest.mark.parametrize("option", ["mesh", "context_parallel", "sharded_flash_attention"])
+def test_ported_mesh_options_run(option):
+    """What raised before the parallel layer was ported now runs: a train
+    step over a (data, model) mesh, the context-parallel config over a
+    (data, model, context) mesh, and the head- and data-sharded attention
+    (each against JAX in ``test_torch_sharded_train.py`` and
+    ``test_torch_ring.py``)."""
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+
+    tokens = torch.randint(0, TCFG.vocab, (2, 17), generator=torch.Generator().manual_seed(0))
+    if option == "sharded_flash_attention":
+        q = torch.randn((2, 4, 64, 16), generator=torch.Generator().manual_seed(1))
+        fn = sharded_flash_attention(make_mesh((2, 2), ("data", "model"), ["cpu"] * 4),
+                                     trules.CausalRule())
+        torch.testing.assert_close(fn(q, q, q), mha(q, q, q, rule=trules.CausalRule()),
+                                   rtol=0, atol=0)
+        return
+    cfg = dataclasses.replace(TCFG, context_parallel=option == "context_parallel")
+    mesh = (make_mesh((2, 2), ("data", "model"), ["cpu"] * 4) if option == "mesh"
+            else make_mesh((1, 2, 2), ("data", "model", "context"), ["cpu"] * 4))
+    model = ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    dense = float(ttf.loss_fn(cfg, model, tokens))
+    loss = ttf.train_step(cfg, model, tokens, optimizer=torch.optim.SGD(model.parameters(), 0.1),
+                          mesh=mesh)
+    np.testing.assert_allclose(float(loss), dense, rtol=1e-5)

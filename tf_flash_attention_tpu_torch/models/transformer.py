@@ -1,11 +1,32 @@
 """The flagship decoder-only transformer (PyTorch port).
 
-Counterpart of the JAX package's ``models/transformer.py`` on one device:
+Counterpart of the JAX package's ``models/transformer.py``:
 ``ModelConfig``, the parameters as an ``nn.Module``, ``init_params`` with
 the reference's scales, ``params_from_jax`` (loads the JAX parameter pytree
 of numpy arrays), and the training path: ``forward`` (rotary embedding,
 rule-masked attention through ``parallel.sharded.mha``, gated MLP),
-``loss_fn`` (next-token cross entropy) and ``train_step``.
+``loss_fn`` (next-token cross entropy) and ``train_step``, on one device
+or over a ``(data, model, context)`` mesh (``make_sharded_train_step``):
+
+* **dp** — batch sharded over ``data``;
+* **tp** — heads and MLP hidden sharded over ``model`` (Megatron column /
+  row pairs, ``param_shardings``): each shard multiplies by its slice of
+  the weights, and the ``wo`` / ``w2`` partials add up in shard order, in
+  float32 (JAX's ``psum``);
+* **sp** — between blocks, the residual stream of each batch shard is held
+  as sequence chunks over the ``model`` devices, and the norms run on the
+  chunks (Megatron sequence parallelism): placement only, the forward's
+  numbers do not change (the norm scales' gradients add the chunks' sums,
+  so they move by float32 summation order);
+* **cp** — with ``context_parallel=True`` and a ``context`` axis, the
+  sequence is sharded over it: each shard applies RoPE at its global
+  positions and attention is the differentiable ring
+  (``parallel/ring.py``), its K/V rows grouped as GQA.
+
+Single-controller, as ``parallel/mesh.py`` says: one process drives every
+shard, the devices may repeat (``cuda:0`` eight times), and each shard's
+weights are differentiable slices of the one float32 master, so the
+gradients and the optimizer's step land on that one set of parameters.
 
 Parameters are float32 ``nn.Parameter``s, as in the JAX package, and are
 cast to ``cfg.dtype`` at each use; norm math runs in float32.  The serving
@@ -16,8 +37,7 @@ projections are weight-only int8 (``ops/quant.py``); ``forward`` runs them
 through ``int8_matmul`` (``_proj``).  The serving engine takes dense
 weights only, as the JAX engine does.
 
-Not ported (each raises ``NotImplementedError``; see ROADMAP): the
-sharded step (``mesh``), context parallelism, MoE.
+Not ported (raises ``NotImplementedError``; see ROADMAP): MoE.
 """
 
 from __future__ import annotations
@@ -34,10 +54,13 @@ from torch import nn
 from ..block_sizes import BlockConfig
 from ..mask_rules import CausalRule, MaskRule
 from ..ops.quant import QuantizedTensor, int8_matmul, quantize_weight_int8
+from ..parallel.mesh import AXIS_CONTEXT, AXIS_DATA, AXIS_MODEL, Mesh, shard
+from ..parallel.ring import ring_attention_local
 from ..parallel.sharded import mha
 
 __all__ = ["ModelConfig", "Transformer", "init_params", "params_from_jax",
-           "inference_weights", "quantize_model_weights", "forward", "loss_fn", "train_step"]
+           "inference_weights", "quantize_model_weights", "forward", "loss_fn", "train_step",
+           "param_shardings", "make_sharded_train_step"]
 
 _PROJ = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
 
@@ -60,10 +83,7 @@ class ModelConfig:
 
     def __post_init__(self):
         if self.n_experts:
-            raise NotImplementedError("MoE is not ported yet (ROADMAP queue 1: models)")
-        if self.context_parallel:
-            raise NotImplementedError("context parallelism (ring attention) is not ported "
-                                      "yet (ROADMAP queue 1 item 11)")
+            raise NotImplementedError("MoE is not ported yet (ROADMAP queue 1 item 9)")
 
     @property
     def rope_theta(self) -> float:
@@ -228,40 +248,216 @@ def _mlp_block(cfg: ModelConfig, layer: Block, x: torch.Tensor) -> torch.Tensor:
     return x + _proj(gated, layer.w2)
 
 
-def _one_device(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("the sharded train step (mesh) is not ported yet "
-                                  "(ROADMAP queue 1 items 11 and 13)")
+# the tensor-parallel placement of a layer (the JAX package's
+# ``param_shardings``): the dim of each weight a ``model`` shard slices
+_LAYER_SPECS = {"ln1": (None,), "ln2": (None,),
+                "wq": (None, AXIS_MODEL), "wk": (None, AXIS_MODEL), "wv": (None, AXIS_MODEL),
+                "wo": (AXIS_MODEL, None),
+                "w1": (None, AXIS_MODEL), "w3": (None, AXIS_MODEL), "w2": (AXIS_MODEL, None)}
+
+
+def param_shardings(cfg: ModelConfig) -> Dict[str, Any]:
+    """The placement of every parameter over a mesh, as the JAX package's
+    ``PartitionSpec``s: a tuple a parameter, one entry a dim, ``"model"``
+    where a ``model`` shard holds the ``j``-th of ``tp`` equal slices of
+    that dim (head-major for q/k/v), None where it holds all of it; nested
+    as the JAX parameter pytree."""
+    return {"embed": (None, None), "final_norm": (None,),
+            "layers": [dict(_LAYER_SPECS) for _ in range(cfg.n_layers)]}
+
+
+def _weight(layer: Block, name: str, j: int, tp: int, device) -> torch.Tensor:
+    """Model shard ``j``'s slice of ``layer.<name>`` on ``device``: a
+    differentiable view of the master parameter."""
+    w = getattr(layer, name)
+    spec = _LAYER_SPECS[name]
+    if AXIS_MODEL in spec:
+        w = w.chunk(tp, spec.index(AXIS_MODEL))[j]
+    return w.to(device)
+
+
+def _use_cp(cfg: ModelConfig, mesh: Optional[Mesh]) -> bool:
+    return (cfg.context_parallel and mesh is not None
+            and int(mesh.shape.get(AXIS_CONTEXT, 1)) > 1)
+
+
+def _sequence_parallel(cfg: ModelConfig, mesh: Mesh) -> bool:
+    """Whether the residual stream is held as sequence chunks over the
+    ``model`` devices between blocks (JAX's ``sp``): under tp without cp
+    (under cp the sequence is already sharded over ``context``)."""
+    return not _use_cp(cfg, mesh) and int(mesh.shape.get(AXIS_MODEL, 1)) > 1
+
+
+def _token_blocks(cfg: ModelConfig, mesh: Mesh, tokens: torch.Tensor):
+    """``tokens (batch, seq)`` as ``[data][context]`` blocks (one context
+    block without cp), block ``(i, c)`` on the device at mesh index
+    ``(i, 0, c)``."""
+    if _use_cp(cfg, mesh):
+        return shard(tokens, mesh, (AXIS_DATA, AXIS_CONTEXT))
+    return [[t] for t in shard(tokens, mesh, (AXIS_DATA, None))]
+
+
+def _mesh_devices(cfg: ModelConfig, mesh: Mesh):
+    """The devices ``[data][model][context]`` (one context index without
+    cp), after checking that the model divides over ``model``."""
+    tp = int(mesh.shape.get(AXIS_MODEL, 1))
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp or cfg.d_ff % tp:
+        raise ValueError(f"heads ({cfg.n_heads}/{cfg.n_kv_heads}) or d_ff {cfg.d_ff} not "
+                         f"divisible by the model axis size {tp}")
+    devs = mesh.grid(AXIS_DATA, AXIS_MODEL, AXIS_CONTEXT)
+    return devs if _use_cp(cfg, mesh) else [[col[:1] for col in row] for row in devs]
+
+
+def _gather(chunks, device) -> torch.Tensor:
+    return torch.cat([x.to(device) for x in chunks], dim=1)
+
+
+def _add_partials(chunks, parts):
+    """The residual ``chunks`` plus the sum of the row-parallel ``parts``
+    (one a model shard, over the whole sequence), added in float32 in shard
+    order and rounded once, each chunk's rows on its own device (JAX's
+    ``psum``; a reduce-scatter under sp)."""
+    out, lo = [], 0
+    for x in chunks:
+        hi = lo + x.shape[1]
+        acc = None
+        for part in parts:
+            piece = part[:, lo:hi].to(x.device).float()
+            acc = piece if acc is None else acc + piece
+        out.append(x + acc.to(x.dtype))
+        lo = hi
+    return out
+
+
+def _mesh_attention(cfg: ModelConfig, layer: Block, xs, devs):
+    """The attention block of one batch shard: ``xs[c]`` the residual
+    chunks of context shard ``c``, ``devs[j][c]`` the devices."""
+    tp, cp = len(devs), len(xs)
+    hs = [[_rms_norm(x, layer.ln1.to(x.device)) for x in chunks] for chunks in xs]
+    parts = [[] for _ in range(cp)]
+    for j in range(tp):
+        qkv = []
+        for c in range(cp):
+            h = _gather(hs[c], devs[j][c])
+            b, s, _ = h.shape
+            heads = lambda name: _proj(h, _weight(layer, name, j, tp, h.device)).reshape(
+                b, s, -1, cfg.d_head).transpose(1, 2)
+            # RoPE at global positions: context shard c starts at c * s
+            qkv.append((_rope(heads("wq"), cfg.rope_theta, c * s),
+                        _rope(heads("wk"), cfg.rope_theta, c * s), heads("wv")))
+        if cp > 1:
+            b, hq, s, d = qkv[0][0].shape
+            hkv = qkv[0][1].shape[1]
+            os_ = ring_attention_local(
+                [q.reshape(b * hq, s, d) for q, _, _ in qkv],
+                [k.reshape(b * hkv, s, d) for _, k, _ in qkv],
+                [v.reshape(b * hkv, s, -1) for _, _, v in qkv],
+                rule=cfg.rule, block_config=cfg.block_config)
+            os_ = [o.reshape(b, hq, s, -1) for o in os_]
+        else:
+            os_ = [mha(*qkv[0], rule=cfg.rule, block_config=cfg.block_config)]
+        for c, o in enumerate(os_):
+            b, hq, s, _ = o.shape
+            o = o.transpose(1, 2).reshape(b, s, hq * cfg.d_head)
+            parts[c].append(_proj(o, _weight(layer, "wo", j, tp, o.device)))
+    return [_add_partials(chunks, parts[c]) for c, chunks in enumerate(xs)]
+
+
+def _mesh_mlp(cfg: ModelConfig, layer: Block, xs, devs):
+    """The MLP block of one batch shard (``_mesh_attention``'s layout)."""
+    out = []
+    for c, chunks in enumerate(xs):
+        hs = [_rms_norm(x, layer.ln2.to(x.device)) for x in chunks]
+        parts = []
+        for j in range(len(devs)):
+            h = _gather(hs, devs[j][c])
+            w = lambda name: _weight(layer, name, j, len(devs), h.device)
+            parts.append(_proj(F.silu(_proj(h, w("w1"))) * _proj(h, w("w3")), w("w2")))
+        out.append(_add_partials(chunks, parts))
+    return out
+
+
+def _mesh_hidden(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, mesh: Mesh):
+    """The final-normed hidden states of every (data, context) block of
+    ``tokens``, ``[data][context]``, block ``(i, c)`` on the device at mesh
+    index ``(i, 0, c)``."""
+    if any(isinstance(getattr(b, name), QuantizedTensor) for b in params.layers
+           for name in _PROJ):
+        raise TypeError("the sharded path takes dense weights")
+    devs = _mesh_devices(cfg, mesh)
+    sp = _sequence_parallel(cfg, mesh)
+    out = []
+    for row, toks in zip(devs, _token_blocks(cfg, mesh, tokens)):   # independent data shards
+        xs = []
+        for c, t in enumerate(toks):
+            x = params.embed.to(t.device).to(cfg.dtype)[t]
+            homes = [col[c] for col in row] if sp else [t.device]
+            xs.append([p.to(d) for p, d in zip(x.tensor_split(len(homes), dim=1), homes)])
+        for layer in params.layers:
+            xs = _mesh_attention(cfg, layer, xs, row)
+            xs = _mesh_mlp(cfg, layer, xs, row)
+        out.append([_rms_norm(_gather(chunks, t.device), params.final_norm.to(t.device))
+                    for chunks, t in zip(xs, toks)])
+    return out
+
+
+def _logits(params: Transformer, x: torch.Tensor) -> torch.Tensor:
+    return (x @ params.embed.to(x.device).to(x.dtype).T).float()
 
 
 def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
-            mesh=None) -> torch.Tensor:
-    """Token ids ``(batch, seq)`` -> float32 logits ``(batch, seq, vocab)``."""
-    _one_device(mesh)
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Token ids ``(batch, seq)`` -> float32 logits ``(batch, seq, vocab)``
+    (on the parameters' device under a mesh)."""
+    if mesh is not None:
+        home = params.embed.device
+        return torch.cat([torch.cat([_logits(params, x).to(home) for x in row], 1)
+                          for row in _mesh_hidden(cfg, params, tokens, mesh)], 0)
     x = params.embed.to(cfg.dtype)[tokens]
     for layer in params.layers:
         x = _attention_block(cfg, layer, x)
         x = _mlp_block(cfg, layer, x)
-    x = _rms_norm(x, params.final_norm)
-    return (x @ params.embed.to(x.dtype).T).float()
+    return _logits(params, _rms_norm(x, params.final_norm))
 
 
 def loss_fn(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
-            mesh=None) -> torch.Tensor:
-    """Next-token cross entropy over ``tokens (batch, seq + 1)``."""
-    logits = forward(cfg, params, tokens[:, :-1], mesh=mesh)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, tokens[:, 1:, None])[..., 0]
-    return nll.mean()
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Next-token cross entropy over ``tokens (batch, seq + 1)``; under a
+    mesh each block's token losses are summed on its device, and the sums
+    added in block order on the parameters' device."""
+    if mesh is None:
+        logits = forward(cfg, params, tokens[:, :-1])
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, tokens[:, 1:, None])[..., 0]
+        return nll.mean()
+    hidden = _mesh_hidden(cfg, params, tokens[:, :-1], mesh)
+    total = None
+    for xs, ts in zip(hidden, _token_blocks(cfg, mesh, tokens[:, 1:])):
+        for x, t in zip(xs, ts):
+            logp = torch.log_softmax(_logits(params, x), dim=-1)
+            nll = (-torch.gather(logp, -1, t[..., None])).sum().to(params.embed.device)
+            total = nll if total is None else total + nll
+    return total / tokens[:, 1:].numel()
 
 
 def train_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
-               optimizer: torch.optim.Optimizer, mesh=None) -> torch.Tensor:
+               optimizer: torch.optim.Optimizer, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One optimizer step on ``params`` in place; returns the loss (before
     the step)."""
-    _one_device(mesh)
     optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(cfg, params, tokens)
+    loss = loss_fn(cfg, params, tokens, mesh=mesh)
     loss.backward()
     optimizer.step()
     return loss.detach()
+
+
+def make_sharded_train_step(cfg: ModelConfig, mesh: Mesh, optimizer: torch.optim.Optimizer):
+    """The train step with dp/tp/sp (and cp, with ``context_parallel``)
+    over ``mesh``: ``step(params, tokens) -> loss``, ``optimizer`` over
+    ``params``' float32 master weights."""
+    _mesh_devices(cfg, mesh)
+
+    def step(params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+        return train_step(cfg, params, tokens, optimizer=optimizer, mesh=mesh)
+
+    return step

@@ -5,7 +5,10 @@ does.  The serving engine is single-controller, like the JAX one: one
 process drives every device of the mesh, so a mesh is only placement, not
 a process group.  Devices may repeat: a ``seq`` axis of four shards on one
 card (``cuda:0`` four times) or on the CPU (``"cpu"`` four times) runs the
-same code as four cards.
+same code as four cards.  ``shard`` and ``unshard`` stand in for
+``shard_map``'s in and out specs: they split a tensor into the blocks a
+``PartitionSpec`` gives, each on its device, and put them back together;
+both are differentiable, so gradients flow back to the whole tensor.
 
 Not ported: ``maybe_init_distributed`` (multi-host start-up).
 """
@@ -18,7 +21,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_mesh", "AXIS_DATA", "AXIS_MODEL", "AXIS_CONTEXT"]
+__all__ = ["Mesh", "make_mesh", "shard", "unshard", "AXIS_DATA", "AXIS_MODEL", "AXIS_CONTEXT"]
 
 AXIS_DATA = "data"
 AXIS_MODEL = "model"
@@ -71,3 +74,40 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
     arr = np.empty(n, dtype=object)
     arr[:] = devices
     return Mesh(arr.reshape(tuple(shape)), tuple(axis_names))
+
+
+def _split_axes(spec) -> Tuple[Tuple[str, int], ...]:
+    """The (axis, tensor dim) pairs of a spec, in spec order."""
+    return tuple((a, dim) for dim, a in enumerate(spec) if a is not None)
+
+
+def shard(x: torch.Tensor, mesh: Mesh, spec: Sequence[Optional[str]]):
+    """The blocks of ``x`` under ``spec`` (one mesh axis or None a dim of
+    ``x``, as a ``PartitionSpec``): nested lists indexed by the spec's axes
+    in spec order, each block on its device (index 0 of the axes the spec
+    leaves out; an axis the mesh lacks counts as size 1).  Each split dim
+    must divide by its axis size."""
+    axes = _split_axes(spec)
+
+    def split(t, level, devs):
+        if level == len(axes):
+            return t.to(devs)
+        axis, dim = axes[level]
+        if t.shape[dim] % len(devs):
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide by the "
+                             f"{axis!r} axis size {len(devs)}")
+        return [split(p, level + 1, d) for p, d in zip(t.chunk(len(devs), dim), devs)]
+
+    return split(x, 0, mesh.grid(*(a for a, _ in axes)))
+
+
+def unshard(blocks, spec: Sequence[Optional[str]], device) -> torch.Tensor:
+    """The tensor whose ``shard`` under ``spec`` is ``blocks``, on ``device``."""
+    axes = _split_axes(spec)
+
+    def join(b, level):
+        if level == len(axes):
+            return b.to(device)
+        return torch.cat([join(p, level + 1) for p in b], dim=axes[level][1])
+
+    return join(blocks, 0)

@@ -1,8 +1,11 @@
 """Multi-head attention layer (PyTorch port of ``parallel/sharded.py``).
 
 ``mha`` is the ``(batch, heads, seq, head_dim)`` GQA layer the model calls,
-on one device.  ``sharded_flash_attention`` (heads and batch sharded over a
-mesh) needs ``torch.distributed`` and is not ported yet.
+on one device.  ``sharded_flash_attention`` runs it over a ``(data,
+model)`` mesh: batch sharded on ``data``, heads on ``model``, each block's
+``mha`` on its device, with no communication inside attention.  GQA keeps
+each KV head with its query-head group.  Single-controller, as
+``parallel/mesh.py`` says: one process drives every block.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from ..block_sizes import BlockConfig, choose_block_config
 from ..mask_rules import MaskRule
 from ..ops.attend import AttendParams, attend
 from ..sync_modes import make_sync_pack
+from .mesh import AXIS_DATA, AXIS_MODEL, Mesh, shard, unshard
 
 __all__ = ["mha", "sharded_flash_attention"]
 
@@ -50,7 +54,25 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, rule: MaskRule,
     return o
 
 
-def sharded_flash_attention(*args, **kwargs):
-    """Head- and data-sharded attention over a device mesh: not ported yet."""
-    raise NotImplementedError("sharded attention needs torch.distributed and is not ported "
-                              "yet (ROADMAP queue 1 item 11)")
+def sharded_flash_attention(mesh: Mesh, rule: MaskRule, *, sync_mode: str = "none_front",
+                            scale: Optional[float] = None,
+                            block_config: Optional[BlockConfig] = None,
+                            data_axis: str = AXIS_DATA, model_axis: str = AXIS_MODEL):
+    """A head- and data-sharded attention callable over ``mesh``.
+
+    Input layout ``(batch, heads, seq, head_dim)``; batch sharded over
+    ``data_axis``, heads over ``model_axis``; sequence and head_dim
+    replicated.  Each block runs ``mha`` on its device.  The callable takes
+    and returns whole tensors (the output on q's device) and is
+    differentiable.
+    """
+    spec = (data_axis, model_axis, None, None)
+
+    def fn(q, k, v):
+        blocks = [shard(x, mesh, spec) for x in (q, k, v)]
+        out = [[mha(qb, kb, vb, rule=rule, sync_mode=sync_mode, scale=scale,
+                    block_config=block_config) for qb, kb, vb in zip(*rows)]
+               for rows in zip(*blocks)]
+        return unshard(out, spec, q.device)
+
+    return fn

@@ -1,0 +1,144 @@
+"""Ulysses sequence parallelism: head <-> sequence resharding (PyTorch port
+of the JAX package's ``parallel/ulysses.py``).
+
+The second context-parallel strategy beside the ring (``parallel/ring.py``).
+Inputs arrive sequence-sharded over the ``context`` axis; an all-to-all
+turns them into *head*-sharded tensors holding the **full** sequence, each
+device runs the local flash kernels (``ops/attend.py``) on its head group,
+and a second all-to-all turns the output back to sequence shards:
+
+    (b, H, S/cp, d) --a2a(heads->seq)--> (b, H/cp, S, d)
+        --local flash attention--> (b, H/cp, S, v_d)
+        --a2a(seq->heads)--> (b, H, S/cp, v_d)
+
+Every mask rule and sync mode works unchanged, since each device sees the
+whole sequence; the context axis is bounded by the head counts.
+
+Single-controller, as the ring: the all-to-all is a split of every shard's
+heads and a concatenation of the pieces, in mesh-axis order, on the
+receiving device.  Both are differentiable, and the local attention is the
+``autograd.Function`` of ``ops/attend.py``, so gradients need no backward
+of this module's own.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..block_sizes import BlockConfig, choose_block_config
+from ..mask_rules import MaskRule
+from ..ops.attend import AttendParams, attend
+from ..sync_modes import make_sync_pack
+from .mesh import AXIS_CONTEXT, AXIS_DATA, AXIS_MODEL, Mesh, shard, unshard
+
+__all__ = ["ulysses_attention_local", "ulysses_flash_attention"]
+
+
+def _all_to_all(xs: Sequence[torch.Tensor], split_axis: int, concat_axis: int):
+    """JAX's tiled ``all_to_all``: shard ``j`` receives piece ``j`` (along
+    ``split_axis``) of every shard, concatenated in shard order along
+    ``concat_axis``, on its own device."""
+    pieces = [x.chunk(len(xs), split_axis) for x in xs]
+    return [torch.cat([p[j].to(dst.device) for p in pieces], concat_axis)
+            for j, dst in enumerate(xs)]
+
+
+def ulysses_attention_local(
+    q: Sequence[torch.Tensor],
+    k: Sequence[torch.Tensor],
+    v: Sequence[torch.Tensor],
+    *,
+    rule: MaskRule,
+    sync_mode: str = "none_front",
+    q_seq_shape=None,
+    k_seq_shape=None,
+    scale: Optional[float] = None,
+    block_config: Optional[BlockConfig] = None,
+) -> List[torch.Tensor]:
+    """Ulysses over the shards of one context axis; differentiable.
+
+    ``q``: the ``cp`` shards ``(b, Hq, sq_local, d)``; ``k``/``v``: ``(b,
+    Hkv, skv_local, *)``, each on its device, shard ``i`` holding the
+    ``i``-th slice of the sequence (row slabs of dim 0 for 2d sequences,
+    whose *global* shapes are ``q_seq_shape``/``k_seq_shape``).  Both head
+    counts must divide by ``cp``.  Returns the ``cp`` local output shards
+    ``(b, Hq, sq_local, v_d)``.
+    """
+    cp = len(q)
+    b, hq, sq_loc, d = q[0].shape
+    _, hkv, skv_loc, _ = k[0].shape
+    if hq % cp or hkv % cp:
+        raise ValueError(
+            f"Ulysses needs head counts divisible by the context axis size: "
+            f"q heads {hq}, kv heads {hkv}, axis {cp} (use ring attention "
+            f"when cp exceeds the KV head count)")
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+
+    sq, skv = sq_loc * cp, skv_loc * cp
+    q_seq_shape = tuple(int(x) for x in (q_seq_shape or (sq,)))
+    k_seq_shape = tuple(int(x) for x in (k_seq_shape or (skv,)))
+    if int(np.prod(q_seq_shape)) != sq or int(np.prod(k_seq_shape)) != skv:
+        raise ValueError(
+            f"global seq shapes {q_seq_shape}/{k_seq_shape} do not flatten "
+            f"to {sq}/{skv}")
+
+    if cp > 1:
+        # heads -> sequence: split the head axis over the shards, gather the
+        # full sequence in shard order (= global sequence order)
+        q, k, v = (_all_to_all(x, 1, 2) for x in (q, k, v))
+    hq_loc, hkv_loc = hq // cp, hkv // cp
+    if block_config is None:
+        block_config = choose_block_config(d, v[0].shape[-1])
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    params = AttendParams(pack=make_sync_pack(sync_mode, q_seq_shape, k_seq_shape), rule=rule,
+                          config=block_config, scale=float(scale))
+    # GQA runs in the kernels: query row b·hq + h reads kv row (b·hq + h) // g
+    o = [attend(qi.reshape(b * hq_loc, sq, d), ki.reshape(b * hkv_loc, skv, d),
+                vi.reshape(b * hkv_loc, skv, vi.shape[-1]), params)[0].reshape(b, hq_loc, sq, -1)
+         for qi, ki, vi in zip(q, k, v)]
+    if cp > 1:
+        # sequence -> heads, back to the caller's layout
+        o = _all_to_all(o, 2, 1)
+    return o
+
+
+def ulysses_flash_attention(
+    mesh: Mesh,
+    rule: MaskRule,
+    *,
+    sync_mode: str = "none_front",
+    q_seq_shape=None,
+    k_seq_shape=None,
+    scale: Optional[float] = None,
+    block_config: Optional[BlockConfig] = None,
+    data_axis: str = AXIS_DATA,
+    model_axis: str = AXIS_MODEL,
+    context_axis: str = AXIS_CONTEXT,
+):
+    """A Ulysses context-parallel attention callable over ``mesh``.
+
+    Input layout ``(batch, heads, seq, head_dim)``: batch on ``data``,
+    heads on ``model``, sequence on ``context`` (the ``seq`` axis carries
+    the row-major flattening of 2d sequences, sharded along dim 0, whose
+    *global* shapes are ``q_seq_shape``/``k_seq_shape``).  The local head
+    count (after any ``model`` sharding) must divide by the context axis
+    size.  The callable takes and returns whole tensors (the output on q's
+    device) and is differentiable end to end.
+    """
+    spec = (data_axis, model_axis, context_axis, None)
+
+    def fn(q, k, v):
+        blocks = [shard(x, mesh, spec) for x in (q, k, v)]
+        out = [[ulysses_attention_local(
+                    qs, ks, vs, rule=rule, sync_mode=sync_mode, q_seq_shape=q_seq_shape,
+                    k_seq_shape=k_seq_shape, scale=scale, block_config=block_config)
+                for qs, ks, vs in zip(*rows)] for rows in zip(*blocks)]
+        return unshard(out, spec, q.device)
+
+    return fn

@@ -138,6 +138,18 @@ Phases (any failure exits non-zero before the final line):
      with and without speculation: tokens equal to a teacher-forced
      forward's argmax up to each request's first tie (float32 activations
      run the scalar bodies, which it prints);
+  3i. MoE serving (4 top-1 experts a layer, float32 router and experts):
+     (a) a float32 gate, 2 layers at the 168M width, unquantized and int8
+     caches, 4 slots, 3 requests (one retiring early from slot 0, slot 3
+     idle throughout), without and with 3 drafts: the card's greedy tokens
+     equal to the port's CPU engine's up to each request's first tie (a
+     top-2 logit gap under GAP_TIE or a top-2 router probability gap under
+     ROUTER_TIE in a model call the request takes part in), every idle
+     slot's decode output exactly 0 on the card; (b) the bf16 168M decoder
+     with 4 experts serves phase 3's 18 requests on phase 3's engine
+     configuration, then with 3 drafts: requests complete, the serving
+     kernels launch on the bodies native.*_body names, rates beside phase
+     3's and 3b's;
   4. the same weights on the CPU (plain versions) and on the card: the
      logits of a 512-token prompt's last token must agree;
   5. the op path's ten kernels (the table-driven forward, kv-outer and
@@ -226,6 +238,19 @@ Phases (any failure exits non-zero before the final line):
      losses, one attention launch a (data, model) block, layer and step
      (under cp one a ring pair: 3 a ring of 2); prints step ms and
      tokens/s;
+  6c. MoE training: the 168M decoder with 4 experts (fp32 parameters, bf16
+     compute, float32 experts) on phase 6's batch, 3 AdamW steps, then 3
+     of make_sharded_train_step on (data 2, model 4), one expert a model
+     shard: the first step's loss and gradient norm within
+     TRAIN_LOSS_ATOL / TRAIN_GNORM_RTOL of the plain path, falling losses,
+     one banded_fwd and banded_bwd a (data, model) block, layer and step;
+     prints step ms, tokens/s and the launches;
+  6d. the GPipe step: phase 6's model, weights and batch on (data 2, pipe
+     4), 2 layers a stage, 4 microbatches: the first step's loss and
+     gradient norm within the same tolerances of phase 6's plain path,
+     falling losses, exactly 64 launches each of banded_fwd and banded_bwd
+     a step (a stage only on its live ticks); prints the ticks, step ms
+     and tokens/s;
   7. one step of the same model at 1 x 512 tokens on the CPU (plain
      versions) and on the card (kernels): the losses must agree;
   8. the experiment tools' kernels (experiments/), every instantiation the
@@ -279,7 +304,9 @@ head shard's heads (3h(a)); the op kernels the ring and the sharded step
 can take (flash_fwd, banded_fwd, window_fwd, resident_fwd,
 flash_bwd_fused, window_bwd, banded_bwd) add their launches in phase 6b's
 runs under test ("ring train (6b)"; the mha and plain references left
-out).  The four sequence-sharded variants follow as kernels of
+out); banded_fwd and banded_bwd add their launches in the MoE steps ("moe
+train (6c)") and the pipeline's ("pipeline train (6d)"), and the serving
+kernels theirs in the MoE engine's runs ("moe engine (3i)").  The four sequence-sharded variants follow as kernels of
 their own ("paged_decode[cp]", ...; launches from the cp engine of phase
 3e, times and library yardsticks from 3e(a) on shard 0), then the ten
 experiment kernels (phase 8; the
@@ -920,6 +947,7 @@ def main():
     chunked_logits = record_prompt_logits(eng)
     results, launches = serve("engine", eng, [(p, None) for p in prompts], n_new, mcfg.vocab)
     chunked_logits, chunked_rate = dict(chunked_logits), eng.rates[0]   # the census's stay out
+    dense_rates = {"engine": eng.rates}
     if eng.prefix_cache.hits < 1:
         fail("the prefix cache never hit")
     kernels_3 = ("paged_decode", "paged_prefill", "kv_chunk_write", "kv_append")
@@ -946,6 +974,7 @@ def main():
           f"requests equal to phase 3's: {same} of {len(prompts)} = {same / len(prompts)}",
           flush=True)
     launches["paged_multitoken_decode"] = spec_launches["paged_multitoken_decode"]
+    dense_rates["speculative"] = eng.rates
     census("speculative", eng, args.seed)
     del eng
     torch.cuda.empty_cache()
@@ -976,6 +1005,12 @@ def main():
     tp_launches = tp_engine_phase(mcfg, cpu_model, ecfg, prompts, pattern, n_new, greedy_3,
                                   chunked_logits, args.seed, dev)
     tp_gate(mcfg, args.seed, dev)
+
+    # ---- 3i: MoE serving: a float32 gate, then the 168M decoder with 4 experts ----
+    t0 = time.perf_counter()
+    moe_gate(mcfg, args.seed, dev)
+    moe_launches = moe_engine_phase(mcfg, ecfg, prompts, n_new, dense_rates, args.seed, dev)
+    print(f"phase 3i: {time.perf_counter() - t0:.3f} s", flush=True)
 
     # ---- 4: logits on the CPU (plain versions) against the card ----
     small = EngineConfig(max_seqs=1, page_size=256, n_pages=18, max_pages_per_seq=16,
@@ -1011,9 +1046,12 @@ def main():
     ring_launches = ring_op_phase(dev, args.seed)
     _add_launches(ring_launches, ring_train_phase(mcfg, cpu_model, dev, train_tokens,
                                                   loss_plain, gnorm_plain))
-    del train_tokens
     print(f"phase 6b: {time.perf_counter() - t0:.3f} s; launches {json.dumps(ring_launches)}",
           flush=True)
+    # ---- 6c: MoE training (and expert parallelism); 6d: the GPipe step ----
+    moe_train_launches = moe_train_phase(mcfg, dev, train_tokens, args.seed)
+    pipe_launches = pipeline_phase(mcfg, cpu_model, dev, train_tokens, loss_plain, gnorm_plain)
+    del train_tokens
     # each kernel's count from the run of the path that takes it by default:
     # the training step's (banded) kernels from phase 6, the others from the
     # op path's public calls in phase 5
@@ -1076,12 +1114,19 @@ def main():
                                       "kernel_ms", "gqa", "pair", "entry_ms",
                                       "kernel_ms_gamma4", "bound_ms_gamma4",
                                       "library_payload", "shapes") if x in m}}
+        if k in ("banded_fwd", "banded_bwd"):
+            # the MoE steps (6c, unsharded and expert-parallel) and the
+            # pipeline's (6d)
+            entry["moe train (6c)"] = moe_train_launches.get(k, 0)
+            entry["pipeline train (6d)"] = pipe_launches[k]
         if k in RING_KERNELS:
             entry["ring_train"] = {"path": "ring train (6b): the ring and Ulysses on a context "
                                            "axis of 4, and the 168M sharded step on (data 2, "
                                            "model 4) and (data 2, model 2, context 2)",
                                    "launches": ring_launches.get(k, 0)}
         if k in native.SERVING_KERNELS:
+            # the MoE engine's runs (phase 3i(b), with and without speculation)
+            entry["moe engine (3i)"] = moe_launches.get(k, 0)
             # the window engine's run (phase 3f(b)) and the rolled tables'
             # errors against the plain versions and the dense oracle (3f(a))
             entry["window_engine"] = {"path": "window engine (phase 3f(b): int8, with and "
@@ -2445,6 +2490,200 @@ def tp_gate(mcfg, seed, dev):
           f"{[len(p) for p in prompts]}", flush=True)
 
 
+# ---- phase 3i: MoE serving ----
+
+MOE_EXPERTS = 4
+# MoE float32 gate (phase 3i(a)): the card's and the CPU's float32
+# activations part by summation order (cuBLAS against the CPU's products,
+# the serving kernels' float32 scalar bodies against their plain versions:
+# ~1e-6 of an activation through 2 layers), so router logits (d_model 1,024
+# against weights of scale 1/32) and the probabilities near 1/4 part by
+# ~1e-6 too.  Two top probabilities closer than ROUTER_TIE (ten times that)
+# may swap which expert a row takes, and with the expert the row's queue
+# place ahead of every later row of its call (capacity couples them): such
+# a call is a tie, like a top-2 logit gap under GAP_TIE.  A lost or
+# misplaced row moves the tokens far from any tie
+ROUTER_TIE = 1e-5
+
+
+@contextlib.contextmanager
+def moe_trace(eng, check_idle=False):
+    """Trace ``eng``'s MoE run: each request's first tie (``trace["tie"]``,
+    {rid: generated tokens before the first model call that had a router
+    top-2 gap under ROUTER_TIE among its real rows, or a top-2 logit gap
+    under GAP_TIE for the request's own row}) and, with ``check_idle``,
+    fail unless every idle slot's decode attention output is exactly 0
+    (``trace["idle_rows"]`` counts them).  Requests are admitted in
+    submission order (the scheduler is FIFO)."""
+    from tf_flash_attention_tpu_torch.serving import engine as engine_mod
+
+    trace = {"tie": {}, "idle_rows": 0}
+    call, plen = {}, {}
+    moe_ffn, decode_merged = engine_mod.moe_ffn, engine_mod.decode_merged
+    inner = {k: getattr(eng, k) for k in ("_prefill", "_chunk_prefill", "_decode_step",
+                                          "_spec_step", "_logits")}
+
+    def gap2(x):
+        top = x.float().topk(2, dim=-1).values
+        return top[..., 0] - top[..., 1]
+
+    def traced_moe(cfg, params, x):
+        probs = torch.softmax(x.float() @ params.router.float(), dim=-1)[0, :call.get("rows")]
+        call["router"] = min(call.get("router", math.inf), float(gap2(probs).min()))
+        return moe_ffn(cfg, params, x)
+
+    def traced_decode(q, caches, ccfg, glob, rule):
+        o = decode_merged(q, caches, ccfg, glob, rule=rule)
+        idle = [i for i, st in enumerate(eng._slots) if st is None]
+        if check_idle and idle:
+            rows = o[idle]
+            if not bool((rows == 0).all()):
+                fail(f"3i: an idle slot's decode output is not 0 (max |o| "
+                     f"{float(rows.float().abs().max())})")
+            trace["idle_rows"] += len(idle)
+        return o
+
+    def logits(x):
+        call["logits"] = inner["_logits"](x)
+        return call["logits"]
+
+    def tie(rid, generated, logit_gap):
+        if call.get("router", math.inf) < ROUTER_TIE or logit_gap < GAP_TIE:
+            trace["tie"][rid] = min(trace["tie"].get(rid, generated), generated)
+
+    def prefill(prompt, slot):
+        rid = len(plen)
+        plen[rid] = len(prompt)
+        call.clear()
+        out = inner["_prefill"](prompt, slot)
+        tie(rid, 0, float(gap2(call["logits"])))
+        return out
+
+    def chunk(tokens, slot, start, true_len):
+        call["rows"] = true_len
+        return inner["_chunk_prefill"](tokens, slot, start, true_len)
+
+    def step(name):
+        def run(tokens, active, sps):
+            # each live slot's request and its tokens generated before the call
+            live = {s: (st["rid"], len(eng._results[st["rid"]]) - plen[st["rid"]])
+                    for s, st in enumerate(eng._slots) if st is not None}
+            call.clear()
+            out = inner[name](tokens, active, sps)
+            gaps = gap2(call["logits"])
+            for s, (rid, generated) in live.items():
+                tie(rid, generated, float(gaps[s].min()))
+            return out
+        return run
+
+    eng._prefill, eng._chunk_prefill, eng._logits = prefill, chunk, logits
+    eng._decode_step, eng._spec_step = step("_decode_step"), step("_spec_step")
+    engine_mod.moe_ffn, engine_mod.decode_merged = traced_moe, traced_decode
+    try:
+        yield trace
+    finally:
+        engine_mod.moe_ffn, engine_mod.decode_merged = moe_ffn, decode_merged
+        for k, f in inner.items():
+            setattr(eng, k, f)
+
+
+def moe_gate(mcfg, seed, dev):
+    """Phase 3i(a): 2 layers at the 168M width with MOE_EXPERTS experts in
+    float32 (TF32 off), unquantized and int8 caches, 4 slots: 3 requests of
+    different lengths (request 0 retires early from slot 0, whose idle row
+    then routes ahead of the others'; slot 3 is idle throughout), without
+    and with speculation (3 drafts).  The card's greedy tokens must equal
+    the port's CPU engine's (plain versions) on the same weights up to each
+    request's first tie (``moe_trace``: the CPU run's ties; a speculative
+    step routes S x gamma rows as one pool, so each speculative engine is
+    held against its CPU twin), and every idle slot's decode output on the
+    card must be exactly 0."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.models import transformer as tf
+    from tf_flash_attention_tpu_torch.serving.engine import DecodeEngine, EngineConfig
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(mcfg, n_layers=2, dtype=torch.float32, n_experts=MOE_EXPERTS)
+    model = tf.init_params(cfg, torch.Generator().manual_seed(seed + 22), device="cpu")
+    gen = torch.Generator().manual_seed(seed + 23)
+    reqs = [(torch.randint(1, cfg.vocab, (n,), generator=gen).tolist(), m)
+            for n, m in ((128, 4), (300, 12), (520, 12))]
+    for quantized in (False, True):
+        for spec in (0, 3):
+            ecfg = EngineConfig(max_seqs=4, page_size=256, n_pages=4 * 8 + 1, max_pages_per_seq=8,
+                                quantized_kv=quantized, prefill_chunk=512,
+                                speculative_tokens=spec)
+            label = (f"3i(a) {'int8' if quantized else 'unquantized'}"
+                     f"{' speculative' if spec else ''}")
+            runs = {}
+            for card, where in ((False, "cpu"), (True, dev)):
+                eng = DecodeEngine(cfg, model, ecfg, device=where)
+                with moe_trace(eng, check_idle=card) as trace:
+                    rids = [eng.submit(p, max_new_tokens=m) for p, m in reqs]
+                    res = eng.run(max_steps=1000)
+                runs[card] = ([res[r] for r in rids], trace, dict(eng.stats),
+                                      dict(eng.spec_stats), eng.ccfg)
+                del eng
+            (want, ref, _, spec_cpu, ccfg), (got, card, stats, spec_card, _) = runs[False], runs[True]
+            for i, ((p, m), w, g) in enumerate(zip(reqs, want, got)):
+                tie = ref["tie"].get(i, m)
+                if g[len(p):][:tie] != w[len(p):][:tie]:
+                    fail(f"{label}: request {i} differs from the CPU engine before its first "
+                         f"tie (position {tie}): {g[len(p):]} vs {w[len(p):]}")
+            if card["idle_rows"] < 1:
+                fail(f"{label}: no idle slot row was checked")
+            same = sum(a == b for a, b in zip(want, got))
+            print(f"{label}: {same} of {len(reqs)} requests equal to the CPU engine's in full; "
+                  f"first ties (request: position) {json.dumps(ref['tie'])}; idle slot rows "
+                  f"exactly 0 on the card: {card['idle_rows']}; stats {json.dumps(stats)}"
+                  + (f"; spec_stats card {json.dumps(spec_card)}, CPU {json.dumps(spec_cpu)}"
+                     if spec else "")
+                  + f"; bodies decode {native.decode_body(torch.float32, ccfg)}, prefill "
+                  f"{native.prefill_body(torch.float32, ccfg)}", flush=True)
+    print(f"phase 3i(a): {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def moe_engine_phase(mcfg, ecfg, prompts, n_new, dense_rates, seed, dev):
+    """Phase 3i(b): the bf16 168M decoder with MOE_EXPERTS experts (random
+    weights from the seed) on phase 3's engine configuration and 18
+    requests, then with 3 drafts: every request completes, the serving
+    kernels launch on the bodies native.*_body names, and the rates print
+    beside phase 3's and 3b's dense ones.  Returns {kernel: launches} of
+    both runs."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.models import transformer as tf
+    from tf_flash_attention_tpu_torch.serving.engine import DecodeEngine
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(mcfg, n_experts=MOE_EXPERTS)
+    model = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(seed + 24), device=dev)
+    print(f"3i(b) model: {sum(p.numel() for p in model.parameters())} params "
+          f"({MOE_EXPERTS} experts of d_ff {cfg.d_ff} a layer, float32)", flush=True)
+    total = {}
+    for label, spec, dense in (("moe engine", 0, "engine"),
+                               ("moe engine speculative", 3, "speculative")):
+        eng = DecodeEngine(cfg, model, dataclasses.replace(ecfg, speculative_tokens=spec),
+                           device=dev)
+        _, launches = serve(label, eng, [(p, None) for p in prompts], n_new, cfg.vocab)
+        kv_bodies(label)
+        kernels = ("paged_multitoken_decode" if spec else "paged_decode", "paged_prefill",
+                   "kv_chunk_write", "kv_append")
+        if min(launches[k] for k in kernels) < 1:
+            fail(f"{label}: a kernel of the path never launched: {launches}")
+        _add_launches(total, {k: v for k, v in launches.items() if v})
+        (pre, dec), (pre0, dec0) = eng.rates, dense_rates[dense]
+        print(f"{label}: prefill {pre:.1f} tokens/s = {pre / pre0:.3f}x the dense {dense}'s "
+              f"{pre0:.1f}; decode {dec:.1f} tokens/s = {dec / dec0:.3f}x its {dec0:.1f}"
+              + (f"; spec_stats {json.dumps(eng.spec_stats)}" if spec else ""), flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 3i(b): {time.perf_counter() - t0:.3f} s; launches {json.dumps(total)}",
+          flush=True)
+    return total
+
+
 # ---- phase 5q: float64 (the chunked path) and the reference harness ----
 
 # float64 against its dense oracle: the reference's float64 class, 1e-9 of
@@ -3441,7 +3680,7 @@ def ring_op_phase(dev, seed):
     return total
 
 
-def train_step_profile(label, step):
+def train_step_profile(label, step, phase="6b(b)"):
     """One training step ``step()`` under torch.profiler: its wall ms, the
     device's busy ms (each CUDA kernel and copy once) and share of the
     wall, the kernels it launched, and the device ms by class."""
@@ -3463,7 +3702,7 @@ def train_step_profile(label, step):
                if any(k in e.name.lower() for k in ("gemm", "nvjet", "cutlass")) else "other")
         classes[cls] = classes.get(cls, 0.0) + e.device_time_total / 1e3
     busy = sum(classes.values())
-    print(f"6b(b) step profile {label}: {wall:.3f} ms wall (profiled); "
+    print(f"{phase} step profile {label}: {wall:.3f} ms wall (profiled); "
           + (f"device busy {busy:.3f} ms = {busy / wall:.4f} of the wall; {n} kernels and "
              f"copies; device ms by class {json.dumps({k: round(v, 3) for k, v in classes.items()})}"
              if busy else "device time not measured (the profiler saw no device events)"),
@@ -3547,6 +3786,157 @@ def ring_train_phase(mcfg, cpu_model, dev, tokens, loss_plain, gnorm_plain):
         del model, opt, step
         torch.cuda.empty_cache()
     return total
+
+
+def timed_steps(step, model, n=3):
+    """``n`` calls of ``step()`` (each returns its loss) with the launch
+    counts reset just before: (losses, each step's seconds, ``model``'s
+    gradient norm after the first step, {kernel: launches})."""
+    from tf_flash_attention_tpu_torch import native
+
+    losses, step_s = [], []
+    native.reset_launch_counts()
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if i == 0:
+            gnorm = grad_norm(model)
+    return losses, step_s, gnorm, {k: v for k, v in native.LAUNCHES.items() if v}
+
+
+def check_train(label, losses, gnorm, loss_plain, gnorm_plain):
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"{label}: training losses {losses} are not finite and falling")
+    if abs(losses[0] - loss_plain) > TRAIN_LOSS_ATOL:
+        fail(f"{label}: first-step loss {losses[0]} vs plain path {loss_plain}: "
+             f"> {TRAIN_LOSS_ATOL}")
+    if abs(gnorm - gnorm_plain) > TRAIN_GNORM_RTOL * gnorm_plain:
+        fail(f"{label}: first-step grad norm {gnorm} vs plain path {gnorm_plain}: "
+             f"> {TRAIN_GNORM_RTOL} relative")
+
+
+def moe_train_phase(mcfg, dev, tokens, seed):
+    """Phase 6c: the 168M decoder with MOE_EXPERTS experts (fp32
+    parameters, bf16 compute, the experts in float32) on phase 6's batch:
+    3 AdamW steps, then 3 of make_sharded_train_step on (data 2, model 4),
+    one expert a model shard, each from the same initial weights; the
+    first step's loss (cross entropy plus the aux) and gradient norm
+    within TRAIN_LOSS_ATOL / TRAIN_GNORM_RTOL of the plain path on the card
+    and falling losses.  The tolerances hold through the routing: a route
+    that bf16 rounding flips between the kernels and the plain path moves
+    one token's MLP output, and its place in its expert's queue, by O(1);
+    that token's loss moves by about 1e-2, the mean over 16,384 tokens by
+    about 1e-6 a flipped route, so even a few hundred flips stay far under
+    2e-3 (the printed loss differences are the check).  Returns {kernel:
+    launches} of the 6 steps."""
+    from tf_flash_attention_tpu_torch.models import transformer as tf
+    from tf_flash_attention_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(mcfg, n_experts=MOE_EXPERTS)
+    init = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(seed + 21), device=dev)
+    b, s = tokens.shape[0], tokens.shape[1] - 1
+    model = copy.deepcopy(init)
+    with plain_attention():
+        loss = tf.loss_fn(cfg, model, tokens)
+        loss.backward()
+        loss_plain, gnorm_plain = float(loss.detach()), grad_norm(model)
+    del model, loss
+    total = {}
+    for label, shape in (("6c moe train", None), ("6c moe train ep", (2, 4))):
+        model = copy.deepcopy(init)
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4)   # phase 6's
+        if shape is None:
+            run = lambda: tf.train_step(cfg, model, tokens, optimizer=opt)
+            blocks = cfg.n_layers
+        else:
+            mesh = make_mesh(shape, ("data", "model"), [dev] * math.prod(shape))
+            run = lambda step=tf.make_sharded_train_step(cfg, mesh, opt): step(model, tokens)
+            blocks = math.prod(shape) * cfg.n_layers
+        losses, step_s, gnorm, launches = timed_steps(run, model)
+        _add_launches(total, launches)
+        check_train(label, losses, gnorm, loss_plain, gnorm_plain)
+        if launches.get("banded_fwd") != 3 * blocks or launches.get("banded_bwd") != 3 * blocks:
+            fail(f"{label}: {launches} launches, {3 * blocks} each of banded_fwd and "
+                 f"banded_bwd expected")
+        ms = statistics.median(step_s[1:]) * 1e3
+        print(f"{label}{'' if shape is None else ' (data 2, model 4) on cuda:0 x 8'}: losses "
+              f"{losses}; first step loss {losses[0]} vs plain {loss_plain} (diff "
+              f"{abs(losses[0] - loss_plain)}, tol {TRAIN_LOSS_ATOL}), grad norm {gnorm} vs "
+              f"plain {gnorm_plain} (rtol {TRAIN_GNORM_RTOL}); step ms "
+              f"{[round(x * 1e3, 3) for x in step_s]}, median of steps 2-3 {ms:.3f} ms = "
+              f"{b * s / ms * 1e3:.1f} tokens/s; launches in the 3 steps {json.dumps(launches)}",
+              flush=True)
+        train_step_profile(label[3:], run, phase="6c")
+        del model, opt, run
+        torch.cuda.empty_cache()
+    print(f"phase 6c: {time.perf_counter() - t0:.3f} s; "
+          f"{sum(p.numel() for p in init.parameters())} params", flush=True)
+    del init
+    torch.cuda.empty_cache()
+    return total
+
+
+PIPE_SHAPE = (2, 4)      # (data, pipe)
+PIPE_MICROBATCHES = 4
+
+
+def pipeline_phase(mcfg, cpu_model, dev, tokens, loss_plain, gnorm_plain):
+    """Phase 6d: phase 6's dense model, weights and batch through
+    make_pipeline_train_step on (data 2, pipe 4), 2 layers a stage, M = 4
+    microbatches of one sequence: 3 AdamW steps, the first step's loss and
+    gradient norm within TRAIN_LOSS_ATOL / TRAIN_GNORM_RTOL of phase 6's
+    plain path (the same loss), falling losses, and in every step exactly
+    n_layers x M x dp launches each of banded_fwd and banded_bwd (a stage
+    runs only on its M live ticks).  Returns {kernel: launches} of the 3
+    steps."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.models import pipeline
+    from tf_flash_attention_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    dp, S = PIPE_SHAPE
+    M = PIPE_MICROBATCHES
+    b, s = tokens.shape[0], tokens.shape[1] - 1
+    mesh = make_mesh(PIPE_SHAPE, ("data", pipeline.AXIS_PIPE), [dev] * (dp * S))
+    staged = pipeline.stack_stage_params(mcfg, copy.deepcopy(cpu_model).to(dev), S)
+    opt = torch.optim.AdamW(staged.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)   # phase 6's
+    step, _ = pipeline.make_pipeline_train_step(mcfg, mesh, opt, M)
+    per_step = mcfg.n_layers * M * dp
+    counts = []
+
+    def run():
+        native.reset_launch_counts()
+        loss = step(staged, tokens)
+        counts.append((native.LAUNCHES["banded_fwd"], native.LAUNCHES["banded_bwd"]))
+        return loss
+
+    losses, step_s, gnorm, _ = timed_steps(run, staged)
+    check_train("6d pipeline", losses, gnorm, loss_plain, gnorm_plain)
+    if any(c != (per_step, per_step) for c in counts):
+        fail(f"6d pipeline: banded_fwd/banded_bwd launches a step {counts}, {per_step} each "
+             f"expected (n_layers x M x dp)")
+    ms = statistics.median(step_s[1:]) * 1e3
+    print(f"6d pipeline (data {dp}, pipe {S}) on cuda:0 x {dp * S}, {mcfg.n_layers // S} layers "
+          f"a stage, M = {M} microbatches of {b // dp // M} x {s}: {M + S - 1} ticks; losses "
+          f"{losses}; first step loss {losses[0]} vs phase 6's plain {loss_plain} (diff "
+          f"{abs(losses[0] - loss_plain)}, tol {TRAIN_LOSS_ATOL}), grad norm {gnorm} vs plain "
+          f"{gnorm_plain} (rtol {TRAIN_GNORM_RTOL}); banded_fwd/banded_bwd a step {counts}; "
+          f"step ms {[round(x * 1e3, 3) for x in step_s]}, median of steps 2-3 {ms:.3f} ms = "
+          f"{b * s / ms * 1e3:.1f} tokens/s ({ms / STEP_MS_BEFORE:.4f}x phase 6's "
+          f"{STEP_MS_BEFORE} ms before)", flush=True)
+    launches = {"banded_fwd": sum(c[0] for c in counts), "banded_bwd": sum(c[1] for c in counts)}
+    train_step_profile("pipeline", lambda: step(staged, tokens), phase="6d")
+    del staged, opt, step
+    torch.cuda.empty_cache()
+    print(f"phase 6d: {time.perf_counter() - t0:.3f} s", flush=True)
+    return launches
 
 
 def cpu_card_phase(mcfg, cpu_model, dev, seed):

@@ -10,6 +10,7 @@ import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from tf_flash_attention_tpu.serving import kv_cache as jkv
@@ -24,6 +25,17 @@ PAYLOADS = {"int8": (jnp.int8, torch.int8),
             "int4": ("int4", "int4")}
 #: every cache kind: None is unquantized (the model dtype)
 KINDS = [None, "int8", "e4m3", "e5m2", "int4"]
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module's port computations, restored after
+    it: they are many small CPU ops, and a thread pool per test worker
+    oversubscribes the cores (a module imports this fixture as autouse)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _payload(kind):

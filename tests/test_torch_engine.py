@@ -362,8 +362,9 @@ def test_engine_defaults_to_the_card(params_np):
 
 # the JAX engine's ValueError cases: a rule that is not left-to-right, a
 # window model or a mesh with the bucketed prefill, a table too small for a
-# window's live set (flat, with speculation, under cp), and speculation
-# past a page under cp; "rule" is (window, log2 stride, causal) or "full"
+# window's live set (flat, with speculation, under cp), speculation past a
+# page under cp, and an MoE model under tp, cp or both; "rule" is (window,
+# log2 stride, causal) or "full"
 BUCKETED = dict(prefill_mode="bucketed")
 
 
@@ -382,11 +383,14 @@ BUCKETED = dict(prefill_mode="bucketed")
     dict(rule=(56, 0, True), engine=dict(speculative_tokens=8), match="too small"),
     dict(cp=4, rule=(600, 0, True), match="too small"),
     dict(cp=4, engine=dict(page_size=2, speculative_tokens=3), match="page_size"),
+    dict(moe=True, tp=2, match="tensor-parallel engine does not support MoE"),
+    dict(moe=True, cp=2, match="context-parallel engine does not support MoE"),
+    dict(moe=True, tp=2, cp=2, match="tensor-parallel engine does not support MoE"),
 ], ids=["window_bucketed", "strided_bucketed", "window_noncausal", "strided_noncausal",
         "noncausal_bucketed", "full_rule", "cp4_bucketed", "cp2_bucketed", "cp_window_bucketed",
         "window_table_small", "strided_table_small", "window_spec_table_small",
-        "cp_window_table_small", "cp_spec_page_small"])
-def test_engine_rejects_what_jax_rejects(params_np, case):
+        "cp_window_table_small", "cp_spec_page_small", "moe_tp2", "moe_cp2", "moe_tp2_cp2"])
+def test_engine_rejects_what_jax_rejects(params_np, moe_params_np, case):
     """Each configuration the JAX engine refuses with a ValueError, the port's
     engine refuses too, with the same words."""
     from tf_flash_attention_tpu.mask_rules import FullRule as JFullRule
@@ -394,23 +398,43 @@ def test_engine_rejects_what_jax_rejects(params_np, case):
     from tf_flash_attention_tpu.parallel.mesh import make_mesh as jmake_mesh
     from tf_flash_attention_tpu_torch.mask_rules import FullRule
 
-    rule, cp = case.get("rule"), case.get("cp", 1)
+    rule, cp, tp = case.get("rule"), case.get("cp", 1), case.get("tp", 1)
     rules = {None: ({}, {}), "full": (dict(rule=JFullRule()), dict(rule=FullRule()))}
     jrule, trule = (rules[rule] if rule in rules else
                     (dict(rule=JLocalRule(*rule)), dict(rule=LocalRule(*rule))))
+    if case.get("moe"):
+        jrule, trule, params_np = (dict(rule=jrule.get("rule", MCFG.rule), n_experts=4),
+                                   dict(trule, n_experts=4), moe_params_np)
     ecfg = dict(ECFG, **case.get("engine", {}))
+    axes = [(n, a) for n, a in ((tp, "model"), (cp, "seq")) if n > 1]
+    shape, names = tuple(n for n, _ in axes), tuple(a for _, a in axes)
     with pytest.raises(ValueError, match=case["match"]):
         jeng.DecodeEngine(dataclasses.replace(MCFG, **jrule),
                           jax.tree.map(jnp.asarray, params_np), jeng.EngineConfig(**ecfg),
-                          mesh=jmake_mesh((cp,), ("seq",), jax.devices()[:cp]) if cp > 1 else None)
+                          mesh=jmake_mesh(shape, names, jax.devices()[:tp * cp]) if axes else None)
     cfg = dataclasses.replace(TCFG, **trule)
-    place = (dict(mesh=make_mesh((cp,), ("seq",), ["cpu"] * cp)) if cp > 1
+    place = (dict(mesh=make_mesh(shape, names, ["cpu"] * (tp * cp))) if axes
              else dict(device="cpu"))
     with pytest.raises(ValueError, match=case["match"]):
         teng.DecodeEngine(cfg, ttf.params_from_jax(cfg, params_np, "cpu"),
                           teng.EngineConfig(**ecfg), **place)
 
 
-def test_moe_config_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataclasses.replace(TCFG, n_experts=4)
+@pytest.fixture(scope="module")
+def moe_params_np():
+    cfg = dataclasses.replace(MCFG, n_experts=4)
+    return jax.tree.map(np.asarray, jtf.init_params(cfg, jax.random.PRNGKey(0)))
+
+
+def test_moe_engine_builds_flat(moe_params_np):
+    """The flat MoE engine builds on both (``test_torch_moe_engine.py``
+    serves on it against JAX); the Megatron placement refuses MoE with the
+    JAX engine's words."""
+    jeng.DecodeEngine(dataclasses.replace(MCFG, n_experts=4),
+                      jax.tree.map(jnp.asarray, moe_params_np), jeng.EngineConfig(**ECFG))
+    cfg = dataclasses.replace(TCFG, n_experts=4)
+    params = ttf.params_from_jax(cfg, moe_params_np, "cpu")
+    te = teng.DecodeEngine(cfg, params, teng.EngineConfig(**ECFG), device="cpu")
+    assert te.tp == te.cp == 1 and te.model.layers[0].moe.w_in.dtype == torch.float32
+    with pytest.raises(ValueError, match="tensor-parallel engine does not support MoE"):
+        teng.megatron_shards(params, 2)

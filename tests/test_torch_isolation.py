@@ -33,6 +33,8 @@ def test_engine_import_leaves_jax_out():
             "import tf_flash_attention_tpu_torch.api; "
             "import tf_flash_attention_tpu_torch.flops; "
             "import tf_flash_attention_tpu_torch.models.transformer; "
+            "import tf_flash_attention_tpu_torch.models.moe; "
+            "import tf_flash_attention_tpu_torch.models.pipeline; "
             "import tf_flash_attention_tpu_torch.ops.quant; "
             "import tf_flash_attention_tpu_torch.ops.reference; "
             "import tf_flash_attention_tpu_torch.utils.profiling; "

@@ -138,11 +138,6 @@ def test_mha_gqa_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        dataclasses.replace(TCFG, n_experts=4)
-
-
 @pytest.mark.parametrize("option", ["mesh", "context_parallel", "sharded_flash_attention"])
 def test_ported_mesh_options_run(option):
     """What raised before the parallel layer was ported now runs: a train

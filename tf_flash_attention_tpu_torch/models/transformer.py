@@ -21,7 +21,14 @@ or over a ``(data, model, context)`` mesh (``make_sharded_train_step``):
 * **cp** — with ``context_parallel=True`` and a ``context`` axis, the
   sequence is sharded over it: each shard applies RoPE at its global
   positions and attention is the differentiable ring
-  (``parallel/ring.py``), its K/V rows grouped as GQA.
+  (``parallel/ring.py``), its K/V rows grouped as GQA;
+* **ep** — with ``n_experts``, each layer's MLP is the top-1
+  Mixture-of-Experts FFN (``models/moe.py``) and the experts are split over
+  ``model``: the batch shard's whole sequence is routed once, model shard
+  ``j`` runs experts ``j·E/tp … (j+1)·E/tp − 1`` on its device, and each
+  token's output comes from its one expert.  The load-balancing loss is
+  formed once from counts and probability sums added over the data shards
+  (JAX's MoE runs on the global arrays under GSPMD).
 
 Single-controller, as ``parallel/mesh.py`` says: one process drives every
 shard, the devices may repeat (``cuda:0`` eight times), and each shard's
@@ -35,9 +42,9 @@ the same values.  Weights keep the JAX layout (in, out): a projection is
 ``x @ w``.  ``quantize_model_weights`` gives an inference copy whose
 projections are weight-only int8 (``ops/quant.py``); ``forward`` runs them
 through ``int8_matmul`` (``_proj``).  The serving engine takes dense
-weights only, as the JAX engine does.
-
-Not ported (raises ``NotImplementedError``; see ROADMAP): MoE.
+weights only, as the JAX engine does.  MoE weights stay float32 everywhere:
+the router, the experts and the aux loss run in float32, as in the JAX
+package, and ``quantize_model_weights`` leaves them dense.
 """
 
 from __future__ import annotations
@@ -57,13 +64,11 @@ from ..ops.quant import QuantizedTensor, int8_matmul, quantize_weight_int8
 from ..parallel.mesh import AXIS_CONTEXT, AXIS_DATA, AXIS_MODEL, Mesh, shard
 from ..parallel.ring import ring_attention_local
 from ..parallel.sharded import mha
+from .moe import MoE, MoEConfig, aux_loss, expert_outputs, init_moe_params, moe_ffn, route
 
 __all__ = ["ModelConfig", "Transformer", "init_params", "params_from_jax",
            "inference_weights", "quantize_model_weights", "forward", "loss_fn", "train_step",
            "param_shardings", "make_sharded_train_step"]
-
-_PROJ = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -78,23 +83,30 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16
     rule: MaskRule = dataclasses.field(default_factory=CausalRule)
     block_config: Optional[BlockConfig] = None
+    # Mixture-of-Experts FFN (expert parallelism) when n_experts > 0
     n_experts: int = 0
+    capacity_factor: float = 1.25
     context_parallel: bool = False
-
-    def __post_init__(self):
-        if self.n_experts:
-            raise NotImplementedError("MoE is not ported yet (ROADMAP queue 1 item 9)")
 
     @property
     def rope_theta(self) -> float:
         return 10000.0
 
     def proj_shapes(self) -> Dict[str, tuple]:
+        """The shapes of a layer's linear projections: attention's, and the
+        gated MLP's unless the layer is MoE (whose weights ``moe_cfg``
+        gives)."""
         dq, dkv = self.n_heads * self.d_head, self.n_kv_heads * self.d_head
-        return {"wq": (self.d_model, dq), "wk": (self.d_model, dkv),
-                "wv": (self.d_model, dkv), "wo": (dq, self.d_model),
-                "w1": (self.d_model, self.d_ff), "w3": (self.d_model, self.d_ff),
-                "w2": (self.d_ff, self.d_model)}
+        shapes = {"wq": (self.d_model, dq), "wk": (self.d_model, dkv),
+                  "wv": (self.d_model, dkv), "wo": (dq, self.d_model)}
+        if not self.n_experts:
+            shapes.update({"w1": (self.d_model, self.d_ff), "w3": (self.d_model, self.d_ff),
+                           "w2": (self.d_ff, self.d_model)})
+        return shapes
+
+    def moe_cfg(self) -> MoEConfig:
+        return MoEConfig(n_experts=self.n_experts, d_model=self.d_model, d_ff=self.d_ff,
+                         capacity_factor=self.capacity_factor)
 
 
 def _device(device) -> torch.device:
@@ -105,7 +117,8 @@ def _device(device) -> torch.device:
 
 class Block(nn.Module):
     """One decoder layer's parameters (on the card unless ``device`` says
-    otherwise)."""
+    otherwise); an MoE layer holds ``moe`` (``models/moe.py``) in place of
+    ``w1, w3, w2``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -114,12 +127,15 @@ class Block(nn.Module):
         self.ln2 = nn.Parameter(torch.ones(cfg.d_model, device=device))
         for name, shape in cfg.proj_shapes().items():
             setattr(self, name, nn.Parameter(torch.zeros(shape, device=device)))
+        if cfg.n_experts:
+            self.moe = MoE(cfg.moe_cfg(), device)
 
 
 class Transformer(nn.Module):
     """Parameters of the decoder: ``embed`` (vocab, d_model), ``final_norm``
-    and per-layer ``ln1, ln2, wq, wk, wv, wo, w1, w3, w2``, all float32, on
-    the card unless ``device`` says otherwise."""
+    and per-layer ``ln1, ln2, wq, wk, wv, wo`` and ``w1, w3, w2`` (or
+    ``moe.router, moe.w_in, moe.w_out``), all float32, on the card unless
+    ``device`` says otherwise."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -140,8 +156,8 @@ def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None) -> Transformer:
     """Random parameters with the reference's scales: embed N(0, 0.02^2),
-    projections N(0, 1/fan_in), norms 1, on ``device`` (the card when None).
-    A ``generator`` must live on that device."""
+    projections and experts N(0, 1/fan_in), norms 1, on ``device`` (the card
+    when None).  A ``generator`` must live on that device."""
     device = _device(device)
     model = Transformer(cfg, device)
 
@@ -152,6 +168,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     for block in model.layers:
         for name, shape in cfg.proj_shapes().items():
             getattr(block, name).copy_(normal(shape, 1.0 / np.sqrt(shape[0])))
+        if cfg.n_experts:
+            block.moe = init_moe_params(cfg.moe_cfg(), generator, device)
     return model
 
 
@@ -173,24 +191,32 @@ def params_from_jax(cfg: ModelConfig, params_np: Dict[str, Any], device=None) ->
     if len(params_np["layers"]) != cfg.n_layers:
         raise ValueError(f"{len(params_np['layers'])} layers, config has {cfg.n_layers}")
     for block, layer in zip(model.layers, params_np["layers"]):
-        for name in ("ln1", "ln2") + _PROJ:
+        for name in ("ln1", "ln2", *cfg.proj_shapes()):
             load(getattr(block, name), layer[name])
+        if cfg.n_experts:
+            for name in cfg.moe_cfg().shapes():
+                load(getattr(block.moe, name), layer["moe"][name])
     return model
+
+
+def _quantized(model: Transformer) -> bool:
+    return any(isinstance(getattr(b, name), QuantizedTensor) for b in model.layers
+               for name in model.cfg.proj_shapes())
 
 
 @torch.no_grad()
 def inference_weights(model: Transformer, device=None) -> Transformer:
     """A frozen copy on ``device`` with the embedding and projections cast
     to ``cfg.dtype`` once (the values a per-use cast gives); norm scales
-    stay float32."""
-    if any(isinstance(getattr(b, name), QuantizedTensor) for b in model.layers for name in _PROJ):
+    and MoE weights stay float32 (the experts run in float32)."""
+    if _quantized(model):
         raise TypeError("the serving engine takes dense weights, as the JAX engine does "
                         "(quantize_model_weights is for forward)")
     out = copy.deepcopy(model).to(device)
     dtype = model.cfg.dtype
     out.embed.data = out.embed.data.to(dtype)
     for block in out.layers:
-        for name in _PROJ:
+        for name in model.cfg.proj_shapes():
             p = getattr(block, name)
             p.data = p.data.to(dtype)
     return out.requires_grad_(False)
@@ -201,10 +227,11 @@ def quantize_model_weights(model: Transformer) -> Transformer:
     """Weight-only int8 for the linear projections (inference path): a copy
     of ``model`` whose ``wq, wk, wv, wo, w1, w2, w3`` are ``QuantizedTensor``s
     (int8 codes and per-output-channel float32 scales), on the same device;
-    ``forward`` multiplies them with ``int8_matmul``."""
+    ``forward`` multiplies them with ``int8_matmul``.  MoE weights stay
+    dense, as in the JAX package."""
     out = copy.deepcopy(model).requires_grad_(False)
     for block in out.layers:
-        for name in _PROJ:
+        for name in model.cfg.proj_shapes():
             w = block._parameters.pop(name)
             setattr(block, name, quantize_weight_int8(w))
     return out
@@ -242,10 +269,15 @@ def _attention_block(cfg: ModelConfig, layer: Block, x: torch.Tensor) -> torch.T
     return x + _proj(o, layer.wo)
 
 
-def _mlp_block(cfg: ModelConfig, layer: Block, x: torch.Tensor) -> torch.Tensor:
+def _mlp_block(cfg: ModelConfig, layer: Block, x: torch.Tensor):
+    """The MLP block: ``(x + mlp(norm(x)), aux)``, aux the MoE layer's
+    load-balancing loss (None for a dense layer)."""
     h = _rms_norm(x, layer.ln2)
+    if cfg.n_experts:
+        y, aux = moe_ffn(cfg.moe_cfg(), layer.moe, h)
+        return x + y, aux
     gated = F.silu(_proj(h, layer.w1)) * _proj(h, layer.w3)
-    return x + _proj(gated, layer.w2)
+    return x + _proj(gated, layer.w2), None
 
 
 # the tensor-parallel placement of a layer (the JAX package's
@@ -254,23 +286,29 @@ _LAYER_SPECS = {"ln1": (None,), "ln2": (None,),
                 "wq": (None, AXIS_MODEL), "wk": (None, AXIS_MODEL), "wv": (None, AXIS_MODEL),
                 "wo": (AXIS_MODEL, None),
                 "w1": (None, AXIS_MODEL), "w3": (None, AXIS_MODEL), "w2": (AXIS_MODEL, None)}
+# expert parallelism: the expert axis over ``model``, the router replicated
+_MOE_SPECS = {"router": (None, None), "w_in": (AXIS_MODEL, None, None),
+              "w_out": (AXIS_MODEL, None, None)}
 
 
 def param_shardings(cfg: ModelConfig) -> Dict[str, Any]:
     """The placement of every parameter over a mesh, as the JAX package's
     ``PartitionSpec``s: a tuple a parameter, one entry a dim, ``"model"``
     where a ``model`` shard holds the ``j``-th of ``tp`` equal slices of
-    that dim (head-major for q/k/v), None where it holds all of it; nested
-    as the JAX parameter pytree."""
+    that dim (head-major for q/k/v; the experts of an MoE layer), None
+    where it holds all of it; nested as the JAX parameter pytree."""
+    layer = {name: _LAYER_SPECS[name] for name in ("ln1", "ln2", *cfg.proj_shapes())}
+    if cfg.n_experts:
+        layer["moe"] = dict(_MOE_SPECS)
     return {"embed": (None, None), "final_norm": (None,),
-            "layers": [dict(_LAYER_SPECS) for _ in range(cfg.n_layers)]}
+            "layers": [dict(layer) for _ in range(cfg.n_layers)]}
 
 
-def _weight(layer: Block, name: str, j: int, tp: int, device) -> torch.Tensor:
-    """Model shard ``j``'s slice of ``layer.<name>`` on ``device``: a
-    differentiable view of the master parameter."""
+def _weight(layer: nn.Module, name: str, j: int, tp: int, device) -> torch.Tensor:
+    """Model shard ``j``'s slice of ``layer.<name>`` (of a ``Block`` or its
+    ``MoE``) on ``device``: a differentiable view of the master parameter."""
     w = getattr(layer, name)
-    spec = _LAYER_SPECS[name]
+    spec = (_MOE_SPECS if isinstance(layer, MoE) else _LAYER_SPECS)[name]
     if AXIS_MODEL in spec:
         w = w.chunk(tp, spec.index(AXIS_MODEL))[j]
     return w.to(device)
@@ -301,7 +339,9 @@ def _mesh_devices(cfg: ModelConfig, mesh: Mesh):
     """The devices ``[data][model][context]`` (one context index without
     cp), after checking that the model divides over ``model``."""
     tp = int(mesh.shape.get(AXIS_MODEL, 1))
-    if cfg.n_heads % tp or cfg.n_kv_heads % tp or cfg.d_ff % tp:
+    if cfg.n_experts and cfg.n_experts % tp:
+        raise ValueError(f"n_experts {cfg.n_experts} not divisible by the model axis size {tp}")
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp or (not cfg.n_experts and cfg.d_ff % tp):
         raise ValueError(f"heads ({cfg.n_heads}/{cfg.n_kv_heads}) or d_ff {cfg.d_ff} not "
                          f"divisible by the model axis size {tp}")
     devs = mesh.grid(AXIS_DATA, AXIS_MODEL, AXIS_CONTEXT)
@@ -364,7 +404,11 @@ def _mesh_attention(cfg: ModelConfig, layer: Block, xs, devs):
 
 
 def _mesh_mlp(cfg: ModelConfig, layer: Block, xs, devs):
-    """The MLP block of one batch shard (``_mesh_attention``'s layout)."""
+    """The MLP block of one batch shard (``_mesh_attention``'s layout).
+    Returns the new chunks and, for an MoE layer, the shard's kept-token
+    counts and probability sums by expert (else None)."""
+    if cfg.n_experts:
+        return _mesh_moe(cfg, layer, xs, devs)
     out = []
     for c, chunks in enumerate(xs):
         hs = [_rms_norm(x, layer.ln2.to(x.device)) for x in chunks]
@@ -374,70 +418,127 @@ def _mesh_mlp(cfg: ModelConfig, layer: Block, xs, devs):
             w = lambda name: _weight(layer, name, j, len(devs), h.device)
             parts.append(_proj(F.silu(_proj(h, w("w1"))) * _proj(h, w("w3")), w("w2")))
         out.append(_add_partials(chunks, parts))
-    return out
+    return out, None
+
+
+def _mesh_moe(cfg: ModelConfig, layer: Block, xs, devs):
+    """The MoE block of one batch shard: the normed chunks of its whole
+    sequence gathered on its first device and routed once; model shard
+    ``j`` runs its ``E / tp`` experts on its device; each token's output
+    comes from its one expert (the others' rows are 0, so the combine is
+    exact in any order) and goes back to its chunk's device.  Returns the
+    chunks and the shard's (kept counts, probability sums) by expert."""
+    mcfg, tp = cfg.moe_cfg(), len(devs)
+    home = devs[0][0]
+    h = _gather([_rms_norm(x, layer.ln2.to(x.device)) for chunks in xs for x in chunks], home)
+    r = route(mcfg, layer.moe.router.to(home), h)
+    y = None
+    for j in range(tp):
+        dev = devs[j][0]
+        part = expert_outputs(r.to(dev), h.to(dev), _weight(layer.moe, "w_in", j, tp, dev),
+                              _weight(layer.moe, "w_out", j, tp, dev),
+                              first=j * mcfg.n_experts // tp).to(home)
+        y = part if y is None else y + part
+    y = y.to(h.dtype)
+    out, lo = [], 0
+    for chunks in xs:
+        new = []
+        for x in chunks:
+            hi = lo + x.shape[1]
+            new.append(x + y[:, lo:hi].to(x.device))
+            lo = hi
+        out.append(new)
+    return out, r.sums()
 
 
 def _mesh_hidden(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, mesh: Mesh):
     """The final-normed hidden states of every (data, context) block of
     ``tokens``, ``[data][context]``, block ``(i, c)`` on the device at mesh
-    index ``(i, 0, c)``."""
-    if any(isinstance(getattr(b, name), QuantizedTensor) for b in params.layers
-           for name in _PROJ):
+    index ``(i, 0, c)``, and the MoE layers' summed load-balancing loss on
+    the parameters' device (None for a dense model): each layer's from the
+    counts and probability sums of every data shard."""
+    if _quantized(params):
         raise TypeError("the sharded path takes dense weights")
     devs = _mesh_devices(cfg, mesh)
     sp = _sequence_parallel(cfg, mesh)
-    out = []
+    out, stats = [], [[] for _ in params.layers]
     for row, toks in zip(devs, _token_blocks(cfg, mesh, tokens)):   # independent data shards
         xs = []
         for c, t in enumerate(toks):
             x = params.embed.to(t.device).to(cfg.dtype)[t]
             homes = [col[c] for col in row] if sp else [t.device]
             xs.append([p.to(d) for p, d in zip(x.tensor_split(len(homes), dim=1), homes)])
-        for layer in params.layers:
+        for i, layer in enumerate(params.layers):
             xs = _mesh_attention(cfg, layer, xs, row)
-            xs = _mesh_mlp(cfg, layer, xs, row)
+            xs, st = _mesh_mlp(cfg, layer, xs, row)
+            stats[i].append(st)
         out.append([_rms_norm(_gather(chunks, t.device), params.final_norm.to(t.device))
                     for chunks, t in zip(xs, toks)])
-    return out
+    aux = None
+    if cfg.n_experts:
+        home = params.embed.device
+        for st in stats:
+            counts = sum(c.to(home) for c, _ in st)
+            probs = sum(p.to(home) for _, p in st)
+            a = aux_loss(cfg.moe_cfg(), counts, probs, tokens.numel())
+            aux = a if aux is None else aux + a
+    return out, aux
 
 
 def _logits(params: Transformer, x: torch.Tensor) -> torch.Tensor:
     return (x @ params.embed.to(x.device).to(x.dtype).T).float()
 
 
-def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
-            mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """Token ids ``(batch, seq)`` -> float32 logits ``(batch, seq, vocab)``
-    (on the parameters' device under a mesh)."""
+def _forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
+             mesh: Optional[Mesh]):
+    """(float32 logits, the MoE layers' summed aux or None)."""
     if mesh is not None:
         home = params.embed.device
+        hidden, aux = _mesh_hidden(cfg, params, tokens, mesh)
         return torch.cat([torch.cat([_logits(params, x).to(home) for x in row], 1)
-                          for row in _mesh_hidden(cfg, params, tokens, mesh)], 0)
+                          for row in hidden], 0), aux
     x = params.embed.to(cfg.dtype)[tokens]
+    aux = None
     for layer in params.layers:
         x = _attention_block(cfg, layer, x)
-        x = _mlp_block(cfg, layer, x)
-    return _logits(params, _rms_norm(x, params.final_norm))
+        x, a = _mlp_block(cfg, layer, x)
+        aux = a if aux is None else aux + a
+    return _logits(params, _rms_norm(x, params.final_norm)), aux
+
+
+def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
+            mesh: Optional[Mesh] = None, return_aux: bool = False):
+    """Token ids ``(batch, seq)`` -> float32 logits ``(batch, seq, vocab)``
+    (on the parameters' device under a mesh); with ``return_aux``,
+    ``(logits, aux)``, aux the MoE layers' summed load-balancing loss
+    (float32 0 for a dense model)."""
+    logits, aux = _forward(cfg, params, tokens, mesh)
+    if return_aux:
+        return logits, torch.zeros((), device=logits.device) if aux is None else aux
+    return logits
 
 
 def loss_fn(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
             mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """Next-token cross entropy over ``tokens (batch, seq + 1)``; under a
-    mesh each block's token losses are summed on its device, and the sums
-    added in block order on the parameters' device."""
+    """Next-token cross entropy over ``tokens (batch, seq + 1)``, plus the
+    MoE layers' load-balancing loss; under a mesh each block's token losses
+    are summed on its device, and the sums added in block order on the
+    parameters' device."""
     if mesh is None:
-        logits = forward(cfg, params, tokens[:, :-1])
+        logits, aux = _forward(cfg, params, tokens[:, :-1], None)
         logp = torch.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, -1, tokens[:, 1:, None])[..., 0]
-        return nll.mean()
-    hidden = _mesh_hidden(cfg, params, tokens[:, :-1], mesh)
+        nll = -torch.gather(logp, -1, tokens[:, 1:, None])[..., 0].mean()
+        # the JAX package adds a float32 0 for a dense model: the same number
+        return nll if aux is None else nll + aux
+    hidden, aux = _mesh_hidden(cfg, params, tokens[:, :-1], mesh)
     total = None
     for xs, ts in zip(hidden, _token_blocks(cfg, mesh, tokens[:, 1:])):
         for x, t in zip(xs, ts):
             logp = torch.log_softmax(_logits(params, x), dim=-1)
             nll = (-torch.gather(logp, -1, t[..., None])).sum().to(params.embed.device)
             total = nll if total is None else total + nll
-    return total / tokens[:, 1:].numel()
+    total = total / tokens[:, 1:].numel()
+    return total if aux is None else total + aux
 
 
 def train_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
@@ -452,8 +553,8 @@ def train_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
 
 
 def make_sharded_train_step(cfg: ModelConfig, mesh: Mesh, optimizer: torch.optim.Optimizer):
-    """The train step with dp/tp/sp (and cp, with ``context_parallel``)
-    over ``mesh``: ``step(params, tokens) -> loss``, ``optimizer`` over
+    """The train step with dp/tp/sp (and cp, with ``context_parallel``; ep,
+    with ``n_experts``) over ``mesh``: ``step(params, tokens) -> loss``, ``optimizer`` over
     ``params``' float32 master weights."""
     _mesh_devices(cfg, mesh)
 

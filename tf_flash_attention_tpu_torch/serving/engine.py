@@ -76,7 +76,14 @@ each shard's kernels then launch over its ``n_kv_heads // 4`` heads.  TP
 takes the chunked prefill only, and keeps the prefix cache (flat, no window)
 and window models as the JAX engine does.
 
-Not ported yet: MoE (raised by ``ModelConfig``).
+MoE models (``ModelConfig.n_experts``) serve on one device, as in the JAX
+engine (tp and cp raise its ``ValueError``): every layer runs ``moe_ffn``
+on the step's rows flattened to one sequence, a chunk's ``chunk`` rows, a
+decode step's ``max_seqs`` slots, a speculative step's ``max_seqs x gamma``
+rows slot-major, a bucketed prompt's ``bucket`` rows.  Capacity couples
+those rows, so an idle slot's row (token 0, attention output 0 over no
+keys) takes its place in the queues as in JAX; the router and the experts
+run in float32 on float32 weights.
 """
 
 from __future__ import annotations
@@ -89,6 +96,7 @@ import torch
 import torch.nn.functional as F
 
 from ..mask_rules import LocalRule
+from ..models.moe import moe_ffn
 from ..models.transformer import ModelConfig, Transformer, _rms_norm, _rope, inference_weights
 from ..parallel.sharded import mha
 from .kv_cache import KVCacheConfig, PagedKVCache, _owned_token_count, write_prompt
@@ -150,8 +158,14 @@ def _rope_at(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return _rotate(x, cos, sin)
 
 
-def _gated(layer, h: torch.Tensor) -> torch.Tensor:
-    """The gated MLP's output (before the residual add) of normed ``h``."""
+def _mlp(cfg: ModelConfig, layer, h: torch.Tensor) -> torch.Tensor:
+    """The MLP's output (before the residual add) of normed ``h`` (...,
+    d_model): the gated MLP, or the expert FFN on the rows of ``h`` as one
+    sequence (1, n, d_model) in row-major order (the JAX engine's
+    ``_mlp``)."""
+    if cfg.n_experts:
+        y, _ = moe_ffn(cfg.moe_cfg(), layer.moe, h.reshape(1, -1, h.shape[-1]))
+        return y.reshape(h.shape)
     return (F.silu(h @ layer.w1) * (h @ layer.w3)) @ layer.w2
 
 
@@ -179,6 +193,8 @@ def megatron_shards(params: Transformer, tp: int, devices=None) -> List[Transfor
     replicated (no copy on ``params``' own device).  The slices are copies,
     so ``params``' layers may be freed."""
     cfg = params.cfg
+    if cfg.n_experts:
+        raise ValueError("tensor-parallel engine does not support MoE")
     if cfg.n_heads % tp or cfg.n_kv_heads % tp or cfg.d_ff % tp:
         raise ValueError(f"heads ({cfg.n_heads}/{cfg.n_kv_heads}) or d_ff {cfg.d_ff} not "
                          f"divisible by tensor-parallel degree {tp}")
@@ -235,6 +251,8 @@ class DecodeEngine:
                 raise ValueError(
                     f"heads ({model_cfg.n_heads}/{model_cfg.n_kv_heads}) not divisible by "
                     f"tensor-parallel degree {tp}")
+            if model_cfg.n_experts:
+                raise ValueError("tensor-parallel engine does not support MoE")
             if engine_cfg.prefill_mode != "chunked":
                 raise ValueError("tensor-parallel engine requires chunked prefill")
         rule = model_cfg.rule
@@ -248,8 +266,11 @@ class DecodeEngine:
         if isinstance(rule, LocalRule) and engine_cfg.prefill_mode != "chunked":
             raise ValueError("sliding-window models require chunked prefill (lazy paging "
                              "and the rolling page table have no bucketed-path analog)")
-        if grid is not None and len(grid) > 1 and engine_cfg.prefill_mode != "chunked":
-            raise ValueError("context-parallel engine requires chunked prefill")
+        if grid is not None and len(grid) > 1:
+            if model_cfg.n_experts:
+                raise ValueError("context-parallel engine does not support MoE")
+            if engine_cfg.prefill_mode != "chunked":
+                raise ValueError("context-parallel engine requires chunked prefill")
         self.mcfg = model_cfg
         self.ecfg = engine_cfg
         self.device = torch.device("cuda") if device is None else torch.device(device)
@@ -377,7 +398,7 @@ class DecodeEngine:
             parts.append(o.reshape(*lead, -1).to(x.dtype) @ layer.wo)
         x = x + _reduce(parts)
         h = _rms_norm(x, self._params[0].layers[i].ln2)
-        return x + _reduce([_gated(p.layers[i], h if dev is None else h.to(dev))
+        return x + _reduce([_mlp(cfg, p.layers[i], h if dev is None else h.to(dev))
                             for p, dev in zip(self._params, self._moves)])
 
     def _logits(self, x):
@@ -626,7 +647,7 @@ class DecodeEngine:
             q, k = _rope(q, cfg.rope_theta), _rope(k, cfg.rope_theta)
             o = mha(q, k, v, rule=cfg.rule, block_config=cfg.block_config)
             x = x + o.transpose(1, 2).reshape(b, s, -1).to(x.dtype) @ layer.wo
-            x = x + _gated(layer, _rms_norm(x, layer.ln2))
+            x = x + _mlp(cfg, layer, _rms_norm(x, layer.ln2))
             kvs.append((k[0], v[0]))
         return self._logits(x[0, true_len - 1]), kvs
 

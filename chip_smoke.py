@@ -289,7 +289,26 @@ Phases (any failure exits non-zero before the final line):
      INT8_NOISE_FACTOR times the CPU forward's own response to a 2**-9
      nudge of its norm scales (at least LOGIT_ATOL) of the CPU's plain
      path; prints the error and top-1 agreement against the dense weights'
-     forward, and both forwards' ms.
+     forward, and both forwards' ms;
+  10. the rest of the package (no kernel of its own): (a) checkpointing
+     (utils/checkpoint.py): phase 6's model on its batch takes 2 AdamW
+     steps, is saved, and restored through ``target`` into a fresh model
+     and optimizer (its AdamW state made by one step on zero gradients, so
+     the target places every moment too); every restored tensor on its
+     target leaf's device and dtype and bit-equal to the saved one, steps
+     3 and 4 of the restored run within TRAIN_LOSS_ATOL of the unbroken
+     run's (the dQ reduce-add is not bit-deterministic: the differences are
+     printed); prints the checkpoint's bytes and its save and restore
+     seconds; (b) the C++ host classifier (csrc/fa_native.cc, built with
+     the host compiler) equal to the NumPy spec on every schedule the run
+     built up to here (phase 5's: the slice, the window shapes, the float32
+     and float64 cases; a custom rule has no C++ kind and takes the spec),
+     each one's host ms beside the NumPy ms; (c) graft_entry.entry()'s
+     forward on the card within LOGIT_ATOL of the CPU's, on its zero tokens
+     and on seeded random ones, then
+     dryrun_multichip(8) over 8 shards of cuda:0 with its own checks; (d)
+     the four examples (examples/torch_*.py) on the card, their wall
+     seconds and invariants.
 
 The kernels' JSON line gives each kernel's launches from the run of the
 path that takes it by default ("path": the engine, the speculative engine,
@@ -894,6 +913,11 @@ def main():
     print(f"build: {sorted(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     build_report(native)
+    t0 = time.perf_counter()
+    host = native.get_lib()
+    print(f"build: host runtime {os.path.basename(host._name)} in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    built_schedules = record_schedules()
 
     # ---- 2: kernels against their plain versions ----
     gen = torch.Generator(device=dev)
@@ -1051,7 +1075,6 @@ def main():
     # ---- 6c: MoE training (and expert parallelism); 6d: the GPipe step ----
     moe_train_launches = moe_train_phase(mcfg, dev, train_tokens, args.seed)
     pipe_launches = pipeline_phase(mcfg, cpu_model, dev, train_tokens, loss_plain, gnorm_plain)
-    del train_tokens
     # each kernel's count from the run of the path that takes it by default:
     # the training step's (banded) kernels from phase 6, the others from the
     # op path's public calls in phase 5
@@ -1071,6 +1094,15 @@ def main():
 
     # ---- 9: weight-only int8 projections ----
     quant_phase(mcfg, cpu_model, dev, args.seed)
+
+    # ---- 10: the rest of the package ----
+    t0 = time.perf_counter()
+    checkpoint_phase(mcfg, cpu_model, dev, train_tokens)
+    del train_tokens
+    classifier_phase(built_schedules)
+    graft_phase(dev)
+    examples_phase()
+    print(f"phase 10: {time.perf_counter() - t0:.3f} s", flush=True)
 
     csrc = "tf_flash_attention_tpu_torch/csrc/"
     replaces = {
@@ -4247,6 +4279,216 @@ def resident_timer_check(q_res, k, v):
     out = {name: {f"ms_{n // 5}_call_windows": time_ms(fn, n=n) for n in (10, 100)}
            for name, fn in fns.items()}
     print(f"resident timer check (8, {S}, {d}) bf16 causal: {json.dumps(out)}", flush=True)
+
+
+# ---- phase 10: the rest of the package ----
+
+def record_schedules():
+    """From here on, record every (pack, rule, block_q, block_kv) the port's
+    schedule builder classifies (its ``_classes``, behind its cache), for
+    phase 10(b).  Returns the dict that fills."""
+    from tf_flash_attention_tpu_torch import schedule
+
+    built, classes = {}, schedule._classes
+
+    def recording(pack, rule, block_q, block_kv, use_native):
+        built.setdefault((pack, rule, block_q, block_kv), None)
+        return classes(pack, rule, block_q, block_kv, use_native)
+
+    schedule._classes = recording
+    return built
+
+
+def checkpoint_phase(mcfg, cpu_model, dev, tokens):
+    """Phase 10(a): 2 AdamW steps of the 168M decoder on phase 6's batch,
+    save_checkpoint, restore_checkpoint through ``target`` into a fresh
+    model and optimizer: every restored tensor bit-equal, then steps 3 and
+    4 of both runs within TRAIN_LOSS_ATOL."""
+    import tempfile
+
+    from tf_flash_attention_tpu_torch.models import transformer as tf
+    from tf_flash_attention_tpu_torch.utils.checkpoint import (latest_step, restore_checkpoint,
+                                                               save_checkpoint)
+
+    def adamw(model):
+        return torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=1e-4)   # phase 6's
+
+    def tensors(tree):
+        if isinstance(tree, dict):
+            return [t for v in tree.values() for t in tensors(v)]
+        if isinstance(tree, (list, tuple)):
+            return [t for v in tree for t in tensors(v)]
+        return [tree] if isinstance(tree, torch.Tensor) else []
+
+    model = copy.deepcopy(cpu_model).to(dev)
+    opt = adamw(model)
+    losses = [float(tf.train_step(mcfg, model, tokens, optimizer=opt)) for _ in range(2)]
+    with tempfile.TemporaryDirectory() as ckpt:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(ckpt, 2, {"params": model.state_dict(),
+                                         "opt_state": opt.state_dict(), "step": 2})
+        save_s = time.perf_counter() - t0
+        n_bytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        fresh = tf.init_params(mcfg, torch.Generator(device=dev).manual_seed(99), dev)
+        fresh_opt = adamw(fresh)
+        # AdamW makes its state at its first step: one on zero gradients
+        # gives the target every moment and step leaf, as AdamW places them
+        for p in fresh.parameters():
+            p.grad = torch.zeros_like(p)
+        fresh_opt.step()
+        fresh_opt.zero_grad(set_to_none=True)
+        target = {"params": fresh.state_dict(), "opt_state": fresh_opt.state_dict(), "step": 0}
+        t0 = time.perf_counter()
+        state = restore_checkpoint(ckpt, target=target)
+        torch.cuda.synchronize()
+        placed_s = time.perf_counter() - t0
+        misplaced = sum(not (a.device == b.device and a.dtype == b.dtype)
+                        for a, b in zip(tensors(state), tensors(target), strict=True))
+        if misplaced:
+            fail(f"checkpoint: {misplaced} restored tensors not on their target leaf's device "
+                 f"and dtype")
+        t0 = time.perf_counter()
+        fresh.load_state_dict(state["params"])
+        fresh_opt.load_state_dict(state["opt_state"])
+        torch.cuda.synchronize()
+        restore_s = placed_s + time.perf_counter() - t0
+        if latest_step(ckpt) != 2 or state["step"] != 2:
+            fail(f"checkpoint: latest step {latest_step(ckpt)}, restored step {state['step']}")
+    pairs = list(zip(tensors(fresh.state_dict()) + tensors(fresh_opt.state_dict()["state"]),
+                     tensors(model.state_dict()) + tensors(opt.state_dict()["state"])))
+    unequal = sum(not (a.dtype == b.dtype and a.device == b.device and torch.equal(a, b))
+                  for a, b in pairs)
+    if unequal or len(pairs) != len(list(model.parameters())) * 4:
+        fail(f"checkpoint: {unequal} of {len(pairs)} restored tensors differ from the saved ones")
+    after = [[float(tf.train_step(mcfg, m, tokens, optimizer=o)) for _ in range(2)]
+             for m, o in ((model, opt), (fresh, fresh_opt))]
+    diffs = [abs(a - b) for a, b in zip(*after)]
+    if not all(map(math.isfinite, losses + after[0] + after[1])) or max(diffs) > TRAIN_LOSS_ATOL:
+        fail(f"checkpoint: steps 3-4 unbroken {after[0]} vs restored {after[1]}: "
+             f"> {TRAIN_LOSS_ATOL}")
+    print(f"checkpoint: 168M decoder + AdamW, {n_bytes} bytes, save {save_s:.3f} s, restore "
+          f"(restore_checkpoint + load_state_dict, onto the card) {restore_s:.3f} s; "
+          f"{len(pairs)} tensors restored bit-equal, each placed by target; losses steps 1-2 {losses}, steps 3-4 "
+          f"unbroken {after[0]} restored {after[1]}: |diff| {diffs} (tol {TRAIN_LOSS_ATOL})",
+          flush=True)
+    del model, opt, fresh, fresh_opt, state, target
+    torch.cuda.empty_cache()
+
+
+def classifier_phase(built):
+    """Phase 10(b): the C++ tile classifier against the NumPy spec on every
+    schedule recorded since phase 1, each timed on the host (median of 5)."""
+    from tf_flash_attention_tpu_torch import native, schedule
+
+    def host_ms(fn, n=5):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t0)
+        return out, statistics.median(times) * 1e3
+
+    if not built:
+        fail("classifier: the run built no schedule")
+    totals, n_custom = [0.0, 0.0], 0
+    for (pack, rule, bq, bk) in built:
+        want, numpy_ms = host_ms(lambda: schedule._tile_classes_python(pack, rule, bq, bk))
+        got, cxx_ms = host_ms(lambda: native.native_tile_classes(pack, rule, bq, bk))
+        label = (f"{type(rule).__name__}{getattr(rule, 'window_size', '')} "
+                 f"q{tuple(pack.q.shape)} k{tuple(pack.k.shape)} {bq}x{bk}")
+        if got is None:
+            # a custom rule has no C++ kind: build_schedule takes the spec
+            if type(rule).__name__ in ("FullRule", "CausalRule", "LocalRule"):
+                fail(f"classifier {label}: the C++ classifier declined a built-in rule")
+            n_custom += 1
+            print(f"classifier {label}: custom rule, NumPy spec {numpy_ms:.4f} ms", flush=True)
+            continue
+        if not all((g == w).all() for g, w in zip(got, want)):
+            fail(f"classifier {label}: the C++ tile classes differ from the NumPy spec")
+        totals[0] += cxx_ms
+        totals[1] += numpy_ms
+        print(f"classifier {label}: equal; C++ {cxx_ms:.4f} ms, NumPy {numpy_ms:.4f} ms "
+              f"({numpy_ms / cxx_ms:.1f}x)", flush=True)
+    print(f"classifier: {len(built)} schedules ({n_custom} custom), the C++ classes equal the "
+          f"NumPy spec's on all the others; host ms summed C++ {totals[0]:.3f}, NumPy "
+          f"{totals[1]:.3f}", flush=True)
+
+
+def graft_phase(dev):
+    """Phase 10(c): graft_entry.entry()'s forward on the card against the
+    CPU's within LOGIT_ATOL, on entry()'s zero tokens and on seeded random
+    ones (zero tokens give every position the same input, so attention
+    returns v whatever it masks), then dryrun_multichip(8) over 8 shards of
+    the card."""
+    from tf_flash_attention_tpu_torch import graft_entry
+
+    t0 = time.perf_counter()
+    fn, (params, tokens) = graft_entry.entry()
+    cpu_params = copy.deepcopy(params).cpu()
+    random_tokens = torch.randint(0, params.cfg.vocab, tuple(tokens.shape),
+                                  generator=torch.Generator().manual_seed(10))
+    errs = []
+    for name, toks in (("zero", tokens.cpu()), ("random", random_tokens)):
+        with torch.no_grad():
+            card = fn(params, toks.to(tokens.device)).cpu()
+            cpu = fn(cpu_params, toks)
+        errs.append(float((card - cpu).abs().max()))
+        if card.shape != (2, 256, 1024) or not torch.isfinite(card).all() or errs[-1] > LOGIT_ATOL:
+            fail(f"graft entry, {name} tokens: card logits {tuple(card.shape)}, CPU-vs-card "
+                 f"{errs[-1]} > {LOGIT_ATOL}")
+    print(f"graft entry: forward {tuple(card.shape)} {card.dtype}, CPU vs card max_abs_err "
+          f"{errs[0]} on entry()'s zero tokens, {errs[1]} on seeded random tokens "
+          f"(tol {LOGIT_ATOL}), {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    try:
+        graft_entry.dryrun_multichip(8)
+    except (AssertionError, ValueError, RuntimeError) as e:
+        fail(f"graft entry: dryrun_multichip(8) failed: {e!r}")
+    print(f"graft entry: dryrun_multichip(8) over 8 shards of cuda:0 in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def examples_phase():
+    """Phase 10(d): the four examples (examples/torch_*.py) on the card, with
+    their JAX counterparts' invariants and their wall seconds."""
+    import importlib.util
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
+
+    def run(name):
+        spec = importlib.util.spec_from_file_location(f"torch_{name}",
+                                                      os.path.join(root, f"torch_{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = module.main()
+        except (AssertionError, ValueError, RuntimeError) as e:
+            fail(f"example torch_{name}.py failed: {e!r}")
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    seconds = {}
+    out, seconds["basic_usage"] = run("basic_usage")
+    if (out["local_1d"], out["local_2d"], out["grad"], out["mha"]) != (
+            (8, 16, 1024), (2, 4, 16, 32, 32), (8, 32, 1024), (2, 8, 1024, 128)):
+        fail(f"example basic_usage: shapes {out}")
+    out, seconds["serving_demo"] = run("serving_demo")
+    if out["prefix_hits"] < 1 or len(out["results"]) != 5 or any(
+            len(t) < 12 for t in out["results"].values()):
+        fail(f"example serving_demo: {out}")
+    out, seconds["sliding_window_serving"] = run("sliding_window_serving")
+    s = out["stats"]
+    if len(out["tokens"]) != 700 or not s["pages_evicted"] or \
+            s["pages_in_use_peak"] > out["pages_cap"] * 2:
+        fail(f"example sliding_window_serving: {s}")
+    out, seconds["train_demo"] = run("train_demo")
+    if out["mesh"] != {"data": 2, "model": 4} or not all(map(math.isfinite, out["losses"])):
+        fail(f"example train_demo: {out}")
+    print(f"examples on the card: wall seconds {json.dumps(seconds)}", flush=True)
 
 
 if __name__ == "__main__":

@@ -4,6 +4,7 @@ of mask_rules/sync_modes, the scheduler, the prefix cache and sampling."""
 import ast
 import dataclasses
 import inspect
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -42,17 +43,27 @@ def test_carried_copies_equal_the_originals(pair):
     assert _code_without_docstring(pair[0]) == _code_without_docstring(pair[1])
 
 
+def test_carried_host_runtime_source_is_byte_identical():
+    """The port builds its own copy of the C++ host runtime."""
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    original = repo / "tf_flash_attention_tpu" / "csrc" / "fa_native.cc"
+    assert (repo / "tf_flash_attention_tpu_torch" / "csrc" / "fa_native.cc").read_bytes() \
+        == original.read_bytes()
+
+
 def _port_rule(rule):
     if isinstance(rule, jrules.LocalRule):
         return trules.LocalRule(rule.window_size, rule.log2_stride_size, rule.is_causal)
     return trules.CausalRule() if isinstance(rule, jrules.CausalRule) else trules.FullRule()
 
 
+@pytest.mark.parametrize("use_native", [False, True], ids=["numpy", "native"])
 @pytest.mark.parametrize("seq_dims", [1, 2], ids=["1d", "2d"])
-def test_schedules_equal_the_jax_packages(seq_dims):
-    """The port builds its schedules with the NumPy classifier
-    (use_native=False); they must equal the JAX package's default build
-    for the whole case matrix of tests/test_kernels.py, transposed too."""
+def test_schedules_equal_the_jax_packages(seq_dims, use_native):
+    """The port's schedules, from the NumPy classifier (the spec,
+    use_native=False) and from its C++ host classifier (the default, as the
+    op path builds them), must equal the JAX package's default build for
+    the whole case matrix of tests/test_kernels.py, transposed too."""
     from test_kernels import ATTENTION_CASES, CASE_MATRIX, SHAPES_1D, SHAPES_2D
     shapes = SHAPES_1D if seq_dims == 1 else SHAPES_2D
     for case, mode in CASE_MATRIX:
@@ -60,7 +71,7 @@ def test_schedules_equal_the_jax_packages(seq_dims):
         jp = jsync.make_sync_pack(mode, shapes["q_seq"], shapes["k_seq"])
         tp = tsync.make_sync_pack(mode, shapes["q_seq"], shapes["k_seq"])
         want = jsched.build_schedule(jp, rule, 128, 128)
-        got = tsched.build_schedule(tp, _port_rule(rule), 128, 128, use_native=False)
+        got = tsched.build_schedule(tp, _port_rule(rule), 128, 128, use_native=use_native)
         for a, b in ((want, got), (want.transpose(), got.transpose())):
             for field in ("kv_table", "kv_counts", "needs_mask"):
                 np.testing.assert_array_equal(getattr(a, field), getattr(b, field),
@@ -68,8 +79,8 @@ def test_schedules_equal_the_jax_packages(seq_dims):
 
 
 def test_carried_flops_price_like_the_jax_package():
-    """flops.py calls build_schedule with use_native left True; the port's
-    native.native_tile_classes returns None, so the NumPy spec prices it."""
+    """flops.py calls build_schedule with use_native left True: the port's
+    C++ host classifier prices it, as the JAX package's does."""
     want = jflops.matmul_flops_forward(jrules.CausalRule(), "none_front", (2048,), (2048,),
                                        128, 128, 64)
     got = tflops.matmul_flops_forward(trules.CausalRule(), "none_front", (2048,), (2048,),

@@ -16,7 +16,7 @@ import torch
 from tf_flash_attention_tpu.serving import kv_cache as jkv
 from tf_flash_attention_tpu_torch.serving import kv_cache as tkv
 
-from _torch_parity import (PAYLOADS, assert_same_cache, cache_cfgs, caches_from,
+from _torch_parity import (KINDS, PAYLOADS, assert_same_cache, cache_cfgs, caches_from,
                            random_state, raw)
 
 QUANTIZED = [False, True, "e4m3", "e5m2", "int4"]
@@ -128,6 +128,22 @@ def test_append_tokens_batched_matches_jax(quantized):
                                   torch.from_numpy(active), trash)
     np.testing.assert_array_equal(tc.lengths.numpy(), [67, 136, 0])
     assert_same_cache(jc, tc, trash)
+
+
+@pytest.mark.parametrize("kind", KINDS, ids=lambda k: k or "unquantized")
+def test_append_token_matches_jax(kind):
+    """One token a call for one slot, bit for bit on the cache bytes: slot 0
+    starts at an odd offset and crosses a page boundary, slot 1 starts
+    even (int4: the even append owns the byte, the odd one keeps it)."""
+    rng = np.random.default_rng(7)
+    jcfg, tcfg = cache_cfgs(kind)
+    jc, tc = caches_from(random_state(tcfg, rng, [61, 130, 0]), jcfg, tcfg)
+    for slot in (0, 1, 0, 0, 1, 0, 0, 1):
+        k, v = (rng.uniform(-2, 2, (2, 32)).astype(np.float32) for _ in range(2))
+        jc = jkv.append_token(jc, jcfg, slot, jnp.asarray(k), jnp.asarray(v))
+        assert tkv.append_token(tc, tcfg, slot, torch.from_numpy(k), torch.from_numpy(v)) is tc
+    np.testing.assert_array_equal(tc.lengths.numpy(), [66, 133, 0])
+    assert_same_cache(jc, tc, tcfg.n_pages)
 
 
 @pytest.mark.parametrize("quantized", QUANTIZED)

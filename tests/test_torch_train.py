@@ -9,6 +9,7 @@ after one AdamW step must agree.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -107,6 +108,56 @@ def test_gradients_and_adamw_step_match_jax(setup):
     opt.step()
     for name, p in stepped.items():
         _assert_close(params_t[name], p, f"param {name}", atol=2.4e-7)
+
+
+@pytest.fixture(scope="module")
+def jax_unbroken_steps(setup):
+    """The losses of 4 unbroken steps of JAX's jitted ``train_step`` with
+    ``optax.adamw`` on ``setup``'s weights and tokens."""
+    params, _, tokens = setup
+    optimizer = optax.adamw(1e-3)
+    step = jax.jit(functools.partial(jtf.train_step, JCFG, optimizer=optimizer))
+    opt_state, losses = optimizer.init(params), []
+    for _ in range(4):
+        loss, params, opt_state = step(params, opt_state, jnp.asarray(tokens))
+        losses.append(float(loss))
+    return losses
+
+
+def test_resumed_adamw_steps_match_jax_unbroken_steps(setup, jax_unbroken_steps, tmp_path):
+    """2 port steps, a checkpoint, a fresh model and optimizer restored
+    through ``target``, 2 more steps: each step's loss against JAX's 4
+    unbroken optax steps within ATOL.  Steps 3 and 4 read the restored AdamW
+    moments (a fresh optimizer state moves their losses by 6.6e-3).  The
+    weights are not compared with JAX's: where |g| is near adam's eps,
+    g / (|g| + eps) magnifies the gradients' float32 differences (see
+    ``test_gradients_and_adamw_step_match_jax``); the resumed weights equal
+    the port's unbroken ones bit for bit in ``test_torch_checkpoint.py``."""
+    from tf_flash_attention_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    _, params_np, tokens = setup
+    want_losses = jax_unbroken_steps
+    tok = torch.from_numpy(tokens).long()
+
+    def adamw(model):
+        return torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=1e-4)
+
+    model = ttf.params_from_jax(TCFG, params_np, "cpu")
+    opt = adamw(model)
+    losses = [ttf.train_step(TCFG, model, tok, optimizer=opt) for _ in range(2)]
+    save_checkpoint(str(tmp_path), 2, {"params": model.state_dict(),
+                                       "opt_state": opt.state_dict(), "step": 2})
+    model = ttf.init_params(TCFG, torch.Generator().manual_seed(5), "cpu")
+    opt = adamw(model)
+    state = restore_checkpoint(str(tmp_path), target={"params": model.state_dict(),
+                                                      "opt_state": opt.state_dict(), "step": 0})
+    model.load_state_dict(state["params"])
+    opt.load_state_dict(state["opt_state"])
+    losses += [ttf.train_step(TCFG, model, tok, optimizer=opt) for _ in range(2)]
+    assert len(losses) == len(want_losses) == 4
+    for i, (got, want) in enumerate(zip(losses, want_losses)):
+        _assert_close(got, want, f"loss {i}")
 
 
 def test_train_step_decreases_loss():

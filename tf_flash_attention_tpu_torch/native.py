@@ -17,9 +17,15 @@ outputs, a page stride, global lengths) counts under its variant's name,
 ``<kernel>[cp]`` (``CP_VARIANTS``), so a context-parallel run shows its own
 launches.
 
-``native_tile_classes`` is the JAX package's hook for its C++ schedule
-classifier (``csrc/fa_native.cc``), which is not ported: it returns
-``None``, which sends ``schedule.py`` to its NumPy classifier (the spec).
+The host runtime, ``csrc/fa_native.cc`` (a copy of the JAX package's
+source: the schedule classifier, the FLOPs estimator and the
+continuous-batching scheduler), is built the same way on first use, with
+the host C++ compiler (``CXX``, else ``c++`` or ``g++``), into the same
+directory, and its bindings keep the JAX package's names
+(``get_lib``, ``native_tile_classes``, ``native_estimate_forward_flops``,
+``NativeScheduler``).  Its build too raises when it fails; ``FA_NO_NATIVE``
+set in the environment turns it off, and ``schedule.py`` then classifies
+with its NumPy spec, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from collections.abc import Mapping
 from concurrent.futures import ThreadPoolExecutor
@@ -46,7 +53,8 @@ from .sync_modes import ref_log2
 
 __all__ = ["LAUNCHES", "SERVING_KERNELS", "CP_VARIANTS", "ATTENTION_KERNELS",
            "EXPERIMENT_KERNELS", "KERNEL_SOURCES", "reset_launch_counts", "build",
-           "compile_sources", "library", "native_tile_classes"]
+           "compile_sources", "library", "get_lib", "native_tile_classes",
+           "native_estimate_forward_flops", "NativeScheduler"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -109,9 +117,184 @@ def _body(kernel: str, body) -> None:
     WALKS[kernel] = dict(body="tensor-core" if body.value else "scalar")
 
 
+HOST_SOURCE = "fa_native.cc"
+# the JAX package's csrc/Makefile flags
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+_host_lock = threading.Lock()
+_host_lib = None
+
+
+def _cxx() -> str:
+    for cand in (os.environ.get("CXX"), "c++", "g++"):
+        path = cand and shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError(f"no host C++ compiler (CXX, c++ or g++) to build {HOST_SOURCE}")
+
+
+def _host_lib_path() -> Path:
+    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    digest.update((_CSRC / HOST_SOURCE).read_bytes())
+    return _BUILD_DIR / f"libfa_native_{digest.hexdigest()[:16]}.so"
+
+
+def _configure(lib):
+    i32, i64 = ctypes.c_int32, ctypes.c_int64
+    p_i32, p_i64, p_u8 = (ctypes.POINTER(t) for t in (i32, i64, ctypes.c_uint8))
+    lib.fa_build_tile_classes.restype = i32
+    lib.fa_build_tile_classes.argtypes = [
+        i32, p_i32, p_i32, p_i32, p_i32, p_i32, p_i32, p_i32,
+        i32, i32, i32, i32, i32, i32, i32, i32,
+        p_u8, p_u8, p_i32, p_i32,
+    ]
+    lib.fa_estimate_forward_flops.restype = ctypes.c_double
+    lib.fa_estimate_forward_flops.argtypes = [p_u8, i32, i32, i64, i64, i32, i32, i32, i32, i64]
+    lib.fa_sched_create.restype = ctypes.c_void_p
+    lib.fa_sched_create.argtypes = [i32, i64, i32]
+    lib.fa_sched_destroy.restype = None
+    lib.fa_sched_destroy.argtypes = [ctypes.c_void_p]
+    lib.fa_sched_enqueue.restype = None
+    lib.fa_sched_enqueue.argtypes = [ctypes.c_void_p, i64, i64, i64]
+    lib.fa_sched_enqueue_capped.restype = None
+    lib.fa_sched_enqueue_capped.argtypes = [ctypes.c_void_p, i64, i64, i64, i64]
+    lib.fa_sched_queued.restype = i64
+    lib.fa_sched_queued.argtypes = [ctypes.c_void_p]
+    lib.fa_sched_admit.restype = i32
+    lib.fa_sched_admit.argtypes = [ctypes.c_void_p, p_i64, p_i32, i32]
+    lib.fa_sched_release.restype = None
+    lib.fa_sched_release.argtypes = [ctypes.c_void_p, i32, i64]
+    lib.fa_sched_refund.restype = None
+    lib.fa_sched_refund.argtypes = [ctypes.c_void_p, i64]
+    return lib
+
+
+def get_lib():
+    """The host runtime library, compiled from ``csrc/fa_native.cc`` on
+    first use (a failed build raises); None when ``FA_NO_NATIVE`` is set.
+    Concurrent processes each compile to a temporary file and rename it
+    into place."""
+    global _host_lib
+    if os.environ.get("FA_NO_NATIVE"):
+        return None
+    with _host_lock:
+        if _host_lib is None:
+            path = _host_lib_path()
+            if not path.exists():
+                _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+                os.close(fd)
+                try:
+                    res = subprocess.run([_cxx(), *HOST_FLAGS, "-o", tmp, str(_CSRC / HOST_SOURCE)],
+                                         capture_output=True, text=True)
+                    if res.returncode != 0:
+                        raise RuntimeError(f"{HOST_SOURCE}: the host build failed "
+                                           f"({res.returncode}):\n{res.stderr}")
+                    os.replace(tmp, path)
+                finally:
+                    if os.path.exists(tmp):
+                        os.unlink(tmp)
+            _host_lib = _configure(ctypes.CDLL(str(path)))
+        return _host_lib
+
+
+def _i32_ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
 def native_tile_classes(pack, rule, block_q: int, block_kv: int):
-    """The C++ schedule classifier is not ported: ``None`` (NumPy spec)."""
-    return None
+    """The C++ tile classifier: ``(live, partial)`` bool arrays (q tiles, kv
+    tiles), or None where it does not apply (``FA_NO_NATIVE``, or a rule
+    other than full, causal and local: a custom ``MaskRule`` has no C++
+    kind), which sends ``schedule.py`` to its NumPy classifier."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    if isinstance(rule, FullRule):
+        kind, window, log2s, causal = 0, 0, 0, 0
+    elif isinstance(rule, CausalRule):
+        kind, window, log2s, causal = 1, 0, 0, 0
+    elif isinstance(rule, LocalRule):
+        kind, window = 2, rule.window_size
+        log2s, causal = rule.log2_stride_size, int(rule.is_causal)
+    else:
+        return None
+    q_len, k_len = int(np.prod(pack.q.shape)), int(np.prod(pack.k.shape))
+    n_q, n_k = -(-q_len // block_q), -(-k_len // block_kv)
+    live = np.zeros(n_q * n_k, dtype=np.uint8)
+    partial = np.zeros(n_q * n_k, dtype=np.uint8)
+    nq_out, nk_out = ctypes.c_int32(), ctypes.c_int32()
+    # the int32 copies stay referenced here through the call
+    held = [np.ascontiguousarray(x, dtype=np.int32) for x in (
+        pack.q.shape, pack.q.stride, pack.q.offset, pack.k.shape, pack.k.stride, pack.k.offset,
+        ref_log2(pack.reference_shape))]
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    status = lib.fa_build_tile_classes(
+        pack.ndim, *(_i32_ptr(h) for h in held), kind, window, log2s, causal,
+        block_q, block_kv, int(q_len % block_q != 0), int(k_len % block_kv != 0),
+        live.ctypes.data_as(u8), partial.ctypes.data_as(u8),
+        ctypes.byref(nq_out), ctypes.byref(nk_out))
+    if status != 0:
+        return None
+    if (nq_out.value, nk_out.value) != (n_q, n_k):
+        raise RuntimeError(f"tile grid {(nq_out.value, nk_out.value)} != {(n_q, n_k)}")
+    return live.reshape(n_q, n_k).astype(bool), partial.reshape(n_q, n_k).astype(bool)
+
+
+def native_estimate_forward_flops(live: np.ndarray, q_len: int, k_len: int,
+                                  block_q: int, block_kv: int,
+                                  d: int, v_d: int, batch: int):
+    """The C++ FLOPs estimate over the live tiles (``flops.py``'s
+    ``estimate_forward_flops``); None when ``FA_NO_NATIVE`` is set."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    live_u8 = np.ascontiguousarray(live, dtype=np.uint8)
+    n_q, n_k = live_u8.shape
+    return float(lib.fa_estimate_forward_flops(
+        live_u8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), n_q, n_k, q_len, k_len,
+        block_q, block_kv, d, v_d, batch))
+
+
+class NativeScheduler:
+    """The C++ continuous-batching scheduler (``serving/scheduler.py``'s
+    ``Scheduler`` is its spec): FCFS admission under a page budget."""
+
+    def __init__(self, max_seqs: int, n_pages: int, page_size: int):
+        lib = get_lib()
+        if lib is None:
+            raise RuntimeError("the host runtime is off (FA_NO_NATIVE)")
+        self._lib = lib
+        self._h = lib.fa_sched_create(max_seqs, n_pages, page_size)
+        self._max_seqs = max_seqs
+
+    def enqueue(self, rid: int, prompt_len: int, max_new_tokens: int,
+                pages_cap: int = -1) -> None:
+        """Queue a request; ``pages_cap`` >= 0 caps the pages it reserves
+        (a window model's rolling set), -1 reserves its whole length."""
+        self._lib.fa_sched_enqueue_capped(self._h, rid, prompt_len, max_new_tokens, pages_cap)
+
+    @property
+    def queued(self) -> int:
+        return int(self._lib.fa_sched_queued(self._h))
+
+    def admit(self):
+        """``[(rid, slot)]`` admitted in queue order while slots and pages last."""
+        rids = np.zeros(self._max_seqs, dtype=np.int64)
+        slots = np.zeros(self._max_seqs, dtype=np.int32)
+        n = self._lib.fa_sched_admit(self._h, rids.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                                     _i32_ptr(slots), self._max_seqs)
+        return [(int(rids[i]), int(slots[i])) for i in range(n)]
+
+    def release(self, slot: int, pages_held: int) -> None:
+        self._lib.fa_sched_release(self._h, slot, pages_held)
+
+    def refund(self, n_pages: int) -> None:
+        self._lib.fa_sched_refund(self._h, n_pages)
+
+    def __del__(self):
+        h, self._h = getattr(self, "_h", None), None
+        if h:
+            self._lib.fa_sched_destroy(h)
 
 
 def _nvcc() -> str:
@@ -762,7 +945,7 @@ def custom_mask(pack, rule) -> tuple:
     q_coords, q_flat = sequence_orders(pack.q, pack.reference_shape)
     k_coords, k_flat = sequence_orders(pack.k, pack.reference_shape)
     q_len, k_len = q_flat.size, k_flat.size
-    sched = build_schedule(pack, rule, G, G, use_native=False)
+    sched = build_schedule(pack, rule, G, G)
     index = np.where(sched.live & ~sched.partial, MASK_ALL, MASK_NONE).astype(np.int32)
     words = []
     for qi in np.flatnonzero(sched.partial.any(axis=1)):

@@ -121,14 +121,14 @@ def _backward_route(pack: SyncPack, rule: MaskRule, config: BlockConfig, fused,
     block_qf = min(config.block_q_dkv, pad_to(q_len, LANE))
     block_kvf = min(config.block_kv_dkv, pad_to(k_len, LANE))
     if fused == "q":
-        sched = build_schedule(pack, rule, block_qf, block_kvf, use_native=False)
+        sched = build_schedule(pack, rule, block_qf, block_kvf)
         return (Route("flash_bwd_qouter", block_qf, block_kvf,
                       (sched.kv_table, sched.kv_counts, sched.needs_mask)),)
     if not fused:
         block_q = min(config.block_q_dq, pad_to(q_len, LANE))
         block_kv = min(config.block_kv_dq, pad_to(k_len, LANE))
-        sched = build_schedule(pack, rule, block_q, block_kv, use_native=False)
-        sched_t = build_schedule(pack, rule, block_qf, block_kvf, use_native=False).transpose()
+        sched = build_schedule(pack, rule, block_q, block_kv)
+        sched_t = build_schedule(pack, rule, block_qf, block_kvf).transpose()
         return (Route("flash_bwd_dq", block_q, block_kv,
                       (sched.kv_table, sched.kv_counts, sched.needs_mask)),
                 Route("flash_bwd_dkv", block_qf, block_kvf,
@@ -143,7 +143,7 @@ def _backward_route(pack: SyncPack, rule: MaskRule, config: BlockConfig, fused,
             return (Route("window_bwd", block_qf, block_kvf,
                           (starts, window_segments(pack, rule, starts, band, sub_kv,
                                                    transposed=True)), band, sub_kv),)
-    sched_t = build_schedule(pack, rule, block_qf, block_kvf, use_native=False).transpose()
+    sched_t = build_schedule(pack, rule, block_qf, block_kvf).transpose()
     if banded_on:
         seg_t = sched_t.banded_segments()
         if seg_t is not None:

@@ -217,7 +217,7 @@ class _AttendXLA(torch.autograd.Function):
     def forward(ctx, q, k, v, pack, rule, scale, block_q, block_kv):
         q_len, k_len = q.shape[1], v.shape[1]
         q_pad, k_pad = pad_to(q_len, block_q), pad_to(k_len, block_kv)
-        sched = build_schedule(pack, rule, block_q, block_kv, use_native=False)
+        sched = build_schedule(pack, rule, block_q, block_kv)
         o, lv, mv = _fwd(_pad_seq(q, q_pad), _pad_seq(k, k_pad), _pad_seq(v, k_pad), pack, rule,
                          scale, block_q, block_kv, sched, q_len, k_len)
         o, lv, mv = o[:, :q_len], lv[:, :q_len], mv[:, :q_len]

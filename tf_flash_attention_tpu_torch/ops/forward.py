@@ -107,7 +107,7 @@ def window_segments(pack: SyncPack, rule: MaskRule, starts, band: int, sub: int,
     blocks (every element visible and in bounds: run on the body compiled
     without the rule predicate), or an empty ``[start, start)``.
     ``(tiles, 4)`` int32."""
-    fine = build_schedule(pack, rule, LANE, LANE, use_native=False)
+    fine = build_schedule(pack, rule, LANE, LANE)
     live, full = fine.live, fine.live & ~fine.partial   # (q tiles, k tiles)
     if transposed:
         live, full = live.T, full.T
@@ -154,7 +154,7 @@ def _forward_route(pack: SyncPack, rule: MaskRule, config: BlockConfig, d: int, 
                 return Route("window_fwd", block_q, block_kv,
                              (starts, window_segments(pack, rule, starts, band, sub_q)),
                              band, sub_q, slots is not None)
-    sched = build_schedule(pack, rule, block_q, block_kv, use_native=False)
+    sched = build_schedule(pack, rule, block_q, block_kv)
     if banded_on and tiled:
         seg = sched.banded_segments()
         if seg is not None:

@@ -2,12 +2,12 @@
 
 A carried copy of ``tf_flash_attention_tpu/schedule.py`` (numpy only),
 kept for the same reason as ``mask_rules.py``; ``tests/test_torch_host.py``
-holds it equal to the original.  The port calls ``build_schedule`` with
-``use_native=False``: the NumPy classifier below is the spec, and the C++
-host classifier (``csrc/fa_native.cc``) is not ported.  Callers carried
-unchanged (``flops.py``) reach ``_classes`` with ``use_native=True``; the
-port's ``native.native_tile_classes`` returns ``None`` for them, which is
-this module's own fallback to the NumPy classifier.
+holds it equal to the original.  As in the JAX package, ``build_schedule``
+classifies tiles with the C++ host classifier (the port's copy of
+``csrc/fa_native.cc``, through ``native.native_tile_classes``) by default;
+the NumPy classifier below is the spec, and runs where the classifier
+returns ``None`` (a custom rule, ``FA_NO_NATIVE``) or with
+``use_native=False``.
 
 The reference prunes masked-out (q-tile, kv-tile) pairs *inside* the CUDA
 kernel (``IsSkipped`` call sites, ``flash_attention.cu:865-871`` forward,

@@ -48,7 +48,7 @@ from .. import native
 from ..block_sizes import LANE, pad_to
 
 __all__ = ["KVCacheConfig", "PagedKVCache", "PageAllocator", "write_tokens_at",
-           "append_tokens_batched", "write_prompt", "assign_page",
+           "append_tokens_batched", "append_token", "write_prompt", "assign_page",
            "gather_sequence_kv"]
 
 # per-token symmetric quantization: the largest magnitude maps to this value
@@ -350,7 +350,12 @@ def _append_plain(cache, cfg, k_new, v_new, active, trash_page):
     logical = (lengths // cfg.page_size) % cfg.max_pages_per_seq
     phys = cache.page_tables.long().gather(1, logical[:, None])[:, 0]
     phys = torch.where(active, phys, torch.full_like(phys, trash_page))
-    offset = lengths % cfg.page_size
+    _store_token(cache, cfg, phys, lengths % cfg.page_size, k_new, v_new)
+
+
+def _store_token(cache, cfg, phys, offset, k_new, v_new):
+    """Store one token a row of ``k_new, v_new`` (S, n_kv, d) at
+    (``phys[i]``, ``offset[i]``)."""
     if not cfg.is_int4:
         _store_rows(cache, cfg, phys, offset, k_new.transpose(0, 1), v_new.transpose(0, 1))
         return
@@ -366,6 +371,22 @@ def _append_plain(cache, cfg, k_new, v_new, active, trash_page):
         byte = torch.where(nib[None, :, None] == 0, q32, (old & 0xF) | (q32 << 4))
         pages[:, phys, brow, :] = byte.to(torch.int8)
         scales[:, phys, nib, brow] = sc[..., 0]
+
+
+def append_token(cache: PagedKVCache, cfg: KVCacheConfig, slot: int,
+                 k_new: torch.Tensor, v_new: torch.Tensor) -> PagedKVCache:
+    """Append one token's K/V (n_kv_heads, head_dim) for sequence ``slot``,
+    in place, in plain PyTorch (no kernel: the engine appends through
+    ``append_tokens_batched``).  The page and the offset in it follow from
+    the slot's length; the page table must already map that page.  For
+    int4 an even position owns its whole byte and an odd one keeps the
+    even token in the low nibble."""
+    length = cache.lengths[slot:slot + 1].long()
+    logical = (length // cfg.page_size) % cfg.max_pages_per_seq
+    phys = cache.page_tables[slot].long()[logical]
+    _store_token(cache, cfg, phys, length % cfg.page_size, k_new[None], v_new[None])
+    cache.lengths[slot] += 1
+    return cache
 
 
 def _owner_mask(active, glob, i, cfg, page_stride, page_offset):

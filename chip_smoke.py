@@ -35,13 +35,19 @@ Phases (any failure exits non-zero before the final line):
      scaled_dot_product_attention on the K/V gathered and widened to bf16
      beforehand, with the causal offset mask (the prefill's on the tensor-core
      body; the decodes' on every slot, padded to the longest, a causal bound
-     a query row);
+     a query row); the chunk write and the prefill take their scalars as a
+     device int32 meta vector, built once before they are timed;
   2b. the same for fp8 e4m3, fp8 e5m2 and int4 caches (int4 also at page
      512), and paged_multitoken_decode at gamma 4 on int8, bf16, fp8 e4m3
      and int4 caches, at 8/8 heads and GQA 8 q / 2 kv; then shapes the JAX
      package takes that the kernels once refused: GQA 16/2 at gamma 4 (32 query
      rows a kv head), head_dim 384 (all four kernels; and the bf16 gamma 4
      decode), page 16;
+  2(r). one chunk write and one prefill captured together as a CUDA graph
+     with their (slot, start, true_len) in a device vector, run eagerly at
+     one triple and replayed at two more: writes and lengths bit for bit,
+     the prefill within 2 bf16 ulps, against the plain versions at each
+     triple (the kernels read their scalars on the device);
   3. engine: the 168M decoder (vocab 32768, d_model 1024, 8 layers, 8/8
      heads, d_head 128, d_ff 4096, bf16) with random weights from the seed
      serves 18 requests (prompts of 300-1900 tokens, two sharing a
@@ -308,7 +314,23 @@ Phases (any failure exits non-zero before the final line):
      and on seeded random ones, then
      dryrun_multichip(8) over 8 shards of cuda:0 with its own checks; (d)
      the four examples (examples/torch_*.py) on the card, their wall
-     seconds and invariants.
+     seconds and invariants;
+  11. the compiled steps: every engine above replays CUDA graphs of its
+     decode, speculative and chunked-prefill steps (DecodeEngine._compile;
+     3i(a)'s traced gate runs the impls eagerly); here each layout (flat
+     int8 on phase 3's 18 requests, speculative on 3b's 22, cp = 4 on 4
+     requests of 4,000-9,000 tokens, tp = 4 and MoE on 8 of phase 3's,
+     the window engine on 8 requests of 1,000-6,000 tokens with 64 new)
+     runs eager (its steps set back to their _*_impl methods), graphed,
+     graphed, eager, eager, graphed on the same requests, each run after
+     one warm-up request (which captures the graphs): the tokens must be
+     equal in all six runs; prints each run's prefill and decode tokens/s,
+     median wall ms of an engine step and of a prefill chunk, host ms
+     inside a step and a chunk call, the calls' CUDA-event spans (a
+     graph's replay: its kernels back to back) and its graphs (the
+     graph's kernel nodes, the wrappers' launches, the pool's bytes), and
+     each layout's medians with the busy shares (the graphed spans over
+     each kind's median step and chunk).
 
 The kernels' JSON line gives each kernel's launches from the run of the
 path that takes it by default ("path": the engine, the speculative engine,
@@ -338,6 +360,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -627,16 +650,16 @@ def kernel_case(name, n_q, n_kv, payload, dev, gen, page_size=256, gamma=None, d
         ck, cp = clone_cache(cache), clone_cache(cache)
         kv_cache.write_tokens_at(ck, cfg, 0, start, k, v, true_len, trash)
         ran = kv_ran("kv_chunk_write", k, v, cfg, name)
-        kv_cache._write_tokens_plain(cp, cfg, 0, start, k, v, true_len, trash)
-        cp.lengths[0] = start + true_len
+        # the kernel's scalars: a device meta vector, built once here
+        wmeta = kv_cache.chunk_write_meta(0, start, true_len, trash, 1, dev)[0]
+        kv_cache._write_tokens_plain(cp, cfg, wmeta, k, v)
         torch.cuda.synchronize()
         diffs = diff_outside_trash(ck, cp, trash)
         if diffs or not torch.equal(ck.lengths, cp.lengths):
             fail(f"{name}: kv_chunk_write differs from its plain version: {diffs}")
-        rows = kv_cache._owned_rows(cfg, start, true_len)
         record("kv_chunk_write", 0.0,
-               lambda: native.kv_chunk_write(ck, cfg, 0, start, k, v, *rows),
-               lambda: kv_cache._write_tokens_plain(cp, cfg, 0, start, k, v, true_len, trash),
+               lambda: native.kv_chunk_write(ck, cfg, wmeta, k, v),
+               lambda: kv_cache._write_tokens_plain(cp, cfg, wmeta, k, v),
                2 * n_kv * true_len * (d * act + tok), 0)
         out["kv_chunk_write"].update(ran, entry_ms=time_ms(
             lambda: kv_cache.write_tokens_at(ck, cfg, 0, start, k, v, true_len, trash)))
@@ -718,14 +741,14 @@ def kernel_case(name, n_q, n_kv, payload, dev, gen, page_size=256, gamma=None, d
         o = prefill.paged_prefill_attention(qp, cache, cfg, 0, start, true_len)
         ran = prefill_ran("paged_prefill", cfg, name)
         qs = (qp.float() * torch.tensor(scale * LOG2E, dtype=torch.float32)).to(bf)
-        ref = prefill._paged_prefill_plain(qs, cache, cfg, 0, start, true_len, rule)
+        pmeta = prefill.prefill_meta(cfg, 0, start, true_len, rule, 1, dev)[0]
+        ref = prefill._paged_prefill_plain(qs, cache, cfg, pmeta, rule)
         err = check_attn("paged_prefill", o[:true_len], ref[:true_len])
         total = start + true_len
         pairs = sum(start + i + 1 for i in range(true_len))
-        count = -(-total // page_size)
         record("paged_prefill", err,
-               lambda: native.paged_prefill(qs, cache, cfg, 0, start, total, 0, count, rule),
-               lambda: prefill._paged_prefill_plain(qs, cache, cfg, 0, start, true_len, rule),
+               lambda: native.paged_prefill(qs, cache, cfg, pmeta, rule),
+               lambda: prefill._paged_prefill_plain(qs, cache, cfg, pmeta, rule),
                2 * n_kv * total * tok + 2 * qp.numel() * act, 4 * n_q * d * pairs)
         out["paged_prefill"].update(ran)
         if ran["body"] == "tensor-core":
@@ -944,6 +967,8 @@ def main():
     kernel_case("int8_8q8kv_d384", 8, 8, "int8", dev, gen, d=384)
     kernel_case("bf16_8q8kv_d384_gamma4", 8, 8, "bf16", dev, gen, gamma=4, d=384)
     kernel_case("int8_8q8kv_page16", 8, 8, "int8", dev, gen, page_size=16)
+    # ---- 2(r): the chunk kernels' scalars on the device, through a graph ----
+    meta_replay_case(dev, gen)
 
     # ---- 3: the engine at the 168M configuration ----
     mcfg = ModelConfig(vocab=32768, d_model=1024, n_layers=8, n_heads=8, n_kv_heads=8,
@@ -971,6 +996,7 @@ def main():
     chunked_logits = record_prompt_logits(eng)
     results, launches = serve("engine", eng, [(p, None) for p in prompts], n_new, mcfg.vocab)
     chunked_logits, chunked_rate = dict(chunked_logits), eng.rates[0]   # the census's stay out
+    replayed_3 = eng.replayed
     dense_rates = {"engine": eng.rates}
     if eng.prefix_cache.hits < 1:
         fail("the prefix cache never hit")
@@ -1104,6 +1130,9 @@ def main():
     examples_phase()
     print(f"phase 10: {time.perf_counter() - t0:.3f} s", flush=True)
 
+    # ---- 11: the compiled steps, graphed against eager, every layout ----
+    compiled_phase(mcfg, cpu_model, ecfg, prompts, pattern, args.seed, dev)
+
     csrc = "tf_flash_attention_tpu_torch/csrc/"
     replaces = {
         "paged_decode": "tf_flash_attention_tpu/serving/decode.py:113",
@@ -1157,6 +1186,8 @@ def main():
                                            "model 4) and (data 2, model 2, context 2)",
                                    "launches": ring_launches.get(k, 0)}
         if k in native.SERVING_KERNELS:
+            # the launches phase 3's graph replays made beside its wrappers'
+            entry["replayed (phase 3)"] = replayed_3.get(k, 0)
             # the MoE engine's runs (phase 3i(b), with and without speculation)
             entry["moe engine (3i)"] = moe_launches.get(k, 0)
             # the window engine's run (phase 3f(b)) and the rolled tables'
@@ -1225,8 +1256,10 @@ def serve(label, eng, reqs, n_new, vocab):
     returns its prompt and its new tokens (``n_new`` unless the request
     says) of the vocabulary, prints the stats and the rates (wall clock;
     prefill timed around each admission's prefill), which it also leaves in
-    ``eng.rates`` as (prefill, decode) tokens/s.  Returns ({rid: tokens},
-    {kernel: launches in this run})."""
+    ``eng.rates`` as (prefill, decode) tokens/s, and the launches that
+    graph replays made in ``eng.replayed``.  Returns ({rid: tokens},
+    {kernel: launches in this run}: the wrappers', where a graph's capture
+    counts its kernels once)."""
     from tf_flash_attention_tpu_torch import native
 
     prefill_s = [0.0]
@@ -1245,12 +1278,14 @@ def serve(label, eng, reqs, n_new, vocab):
     rids = [eng.submit(p, max_new_tokens=n, **({} if sp is None else {"sampling": sp}))
             for (p, sp, *_), n in zip(reqs, news)]
     native.reset_launch_counts()
+    st0 = dict(eng.stats)           # an engine that served before counts on
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = eng.run(max_steps=10_000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(native.LAUNCHES)
+    eng.replayed = {k: n for k, n in native.REPLAYED.items() if n}
     for rid, (p, *_), n in zip(rids, reqs, news):
         got = results.get(rid, [])
         if len(got) != len(p) + n or got[:len(p)] != p:
@@ -1258,7 +1293,7 @@ def serve(label, eng, reqs, n_new, vocab):
         if not all(0 <= t < vocab for t in got[len(p):]):
             fail(f"{label}: request {rid} produced a token outside the vocabulary")
     decode_s = wall - prefill_s[0]
-    st = eng.stats
+    st = {k: v if k == "pages_in_use_peak" else v - st0[k] for k, v in eng.stats.items()}
     # the body of the run's prefill launches (one shape rule for them all:
     # the last launch's report stands for the run's)
     bodies = {k: prefill_ran(k, eng.ccfg, label, eng.mcfg.dtype)
@@ -1268,7 +1303,8 @@ def serve(label, eng, reqs, n_new, vocab):
                              "paged_multitoken_decode[cp]") if launches[k]})
     print(f"{label}: {len(rids)} requests, stats {json.dumps(st)}, prefix hits "
           f"{eng.prefix_cache.hits if eng.prefix_cache else None}, launches "
-          f"{json.dumps({k: v for k, v in launches.items() if v})}, attention bodies "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}, replayed "
+          f"{json.dumps(eng.replayed)}, attention bodies "
           f"{json.dumps(bodies)}", flush=True)
     # the bucketed prefill counts no chunks: its tokens are the prompts'
     n_prefill = (st["prefill_tokens"] if eng.ecfg.prefill_mode == "chunked"
@@ -1518,8 +1554,9 @@ def cp_kernel_case(label, n_q, n_kv, dev, gen, timed):
     for r, sc in enumerate(shards):
         got = prefill.paged_prefill_attention(qp, sc, cfg, 0, start, chunk, **shard(r))
         ran = prefill_ran("paged_prefill[cp]", cfg, label)
-        want = prefill._paged_prefill_plain(qs, sc, cfg, 0, start, chunk, CausalRule(), True, n,
-                                            r)
+        want = prefill._paged_prefill_plain(
+            qs, sc, cfg, prefill.prefill_meta(cfg, 0, start, chunk, CausalRule(), n, dev)[r],
+            CausalRule(), True, n)
         check("paged_prefill[cp]", got, want, want[0])
         out["paged_prefill[cp]"].update(ran)
         parts.append(got)
@@ -1543,9 +1580,8 @@ def cp_kernel_case(label, n_q, n_kv, dev, gen, timed):
                                      n, r)
             out.setdefault("kv_chunk_write[cp]", dict(err=0.0)).update(
                 kv_ran("kv_chunk_write[cp]", k, v, ccfg, label))
-            kv_cache._write_tokens_plain(cpl, ccfg, 1, w_start, k, v, w_len, ccfg.n_pages - 1,
-                                         n, r)
-            cpl.lengths[1] = owned(w_start + w_len, r)
+            kv_cache._write_tokens_plain(cpl, ccfg, kv_cache.chunk_write_meta(
+                1, w_start, w_len, ccfg.n_pages - 1, n, dev)[r], k, v, n)
             torch.cuda.synchronize()
             diffs = diff_outside_trash(ck, cpl, ccfg.n_pages - 1)
             if diffs or not torch.equal(ck.lengths, cpl.lengths):
@@ -1589,6 +1625,8 @@ def cp_kernel_case(label, n_q, n_kv, dev, gen, timed):
     lm = lambda rows: 2 * rows * 4                     # l and m, float32
     pairs0 = sum(owned(start + i + 1, 0) for i in range(chunk))
     own_rows = sum(1 for t in range(w_len) if ((w_start + t) // ps) % n == 0)   # 180
+    pmeta0 = prefill.prefill_meta(cfg, 0, start, chunk, CausalRule(), n, dev)[0]
+    wmeta0 = kv_cache.chunk_write_meta(1, w_start, w_len, cfg.n_pages - 1, n, dev)[0]
     runs = {
         "paged_decode[cp]": (
             lambda: native.paged_decode(q, sc, cfg, scale * LOG2E, CausalRule(), True, n, 0,
@@ -1603,18 +1641,13 @@ def cp_kernel_case(label, n_q, n_kv, dev, gen, timed):
             2 * n_kv * live * tok + 2 * qm.numel() * act + lm(S * 4 * n_q),
             4 * n_q * d * 4 * live),
         "paged_prefill[cp]": (
-            lambda: native.paged_prefill(qs, sc, cfg, 0, start, start + chunk,
-                                         *prefill._page_range(cfg, start, chunk, CausalRule(), n,
-                                                              0), CausalRule(), True, n, 0),
-            lambda: prefill._paged_prefill_plain(qs, sc, cfg, 0, start, chunk, CausalRule(), True,
-                                                 n, 0),
+            lambda: native.paged_prefill(qs, sc, cfg, pmeta0, CausalRule(), True, n),
+            lambda: prefill._paged_prefill_plain(qs, sc, cfg, pmeta0, CausalRule(), True, n),
             2 * n_kv * owned(start + chunk, 0) * tok + 2 * qp.numel() * act + lm(chunk * n_q),
             4 * n_q * d * pairs0),
         "kv_chunk_write[cp]": (
-            lambda: native.kv_chunk_write(sc, cfg, 1, w_start, k, v,
-                                          *kv_cache._owned_rows(cfg, w_start, w_len, n, 0), n, 0),
-            lambda: kv_cache._write_tokens_plain(sc, cfg, 1, w_start, k, v, w_len,
-                                                 cfg.n_pages - 1, n, 0),
+            lambda: native.kv_chunk_write(sc, cfg, wmeta0, k, v, n),
+            lambda: kv_cache._write_tokens_plain(sc, cfg, wmeta0, k, v, n),
             2 * n_kv * own_rows * (d * act + tok), 0),
     }
     # the library yardsticks on shard 0 (before the timed chunk writes change
@@ -1768,22 +1801,52 @@ def cp_phase(mcfg, cpu_model, seed, n_new, dev):
     return measured, cp_launches
 
 
+def timed_step_calls(eng, attr):
+    """Wrap ``eng``'s step ``attr`` (``_decode_step`` or ``_spec_step``) so
+    each call records the host's seconds inside it (the enqueue: no sync)
+    and a CUDA-event pair around it on the current stream, whose span is
+    the step's device time where its kernels run back to back (a graph's
+    replay); returns (host seconds list, event pairs list)."""
+    inner, host, events = getattr(eng, attr), [], []
+
+    def step(*args):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        t = time.perf_counter()
+        out = inner(*args)
+        host.append(time.perf_counter() - t)
+        b.record()
+        events.append((a, b))
+        return out
+
+    setattr(eng, attr, step)
+    return host, events
+
+
 def step_profile(label, eng, prompts, n_steps=3):
     """Decode steps of ``eng`` with ``prompts`` admitted: the wall time of
-    ``n_steps`` steps, then the device time of ``n_steps`` more by kernel
-    class from torch.profiler, and the device's busy share of the step's
-    wall time (and of the profiled wall, which the profiler stretches)."""
+    ``n_steps`` steps, with the host's ms inside each step call and the
+    CUDA-event span of the call (the device time of a graph's replay, its
+    kernels back to back), then the device time of ``n_steps`` more by
+    kernel class from torch.profiler, and the device's busy share of the
+    step's wall time (and of the profiled wall, which the profiler
+    stretches).  Where the profiler sees no device event (a graph's replay
+    shown only as its launch), the busy share is the event span's."""
     from torch.profiler import ProfilerActivity, profile
 
     for p in prompts:
         eng.submit(p, max_new_tokens=2 * n_steps + 2)
     eng.step()                                   # prefill, and one token each
     torch.cuda.synchronize()
+    graphed = hasattr(eng._decode_step, "graphs")
+    host, events = timed_step_calls(eng, "_decode_step")
     t = time.perf_counter()
     for _ in range(n_steps):
         eng.step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t) / n_steps * 1e3
+    span = statistics.median(a.elapsed_time(b) for a, b in events)
+    host_ms = statistics.median(host) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(n_steps):
@@ -1800,13 +1863,15 @@ def step_profile(label, eng, prompts, n_steps=3):
                     else "other")
         classes[name] = classes.get(name, 0.0) + e.device_time_total / 1e3 / n_steps
     busy = sum(classes.values())
+    head = (f"step profile {label} ({'graphed' if graphed else 'eager'}): step {wall:.3f} ms "
+            f"wall; host {host_ms:.3f} ms inside the step call; the call's CUDA-event span "
+            f"{span:.3f} ms")
     if busy == 0:
-        print(f"step profile {label}: step {wall:.3f} ms; device time not measured (the "
-              f"profiler saw no device events)", flush=True)
+        print(f"{head}; the profiler saw no device events: device busy taken as the event "
+              f"span, {span / wall:.3f} of the step's wall", flush=True)
         return
-    print(f"step profile {label}: step {wall:.3f} ms wall ({prof_wall:.3f} ms profiled); "
-          f"device busy {busy:.3f} ms a step ({busy / wall:.3f} of the step's wall, "
-          f"{busy / prof_wall:.3f} of the profiled wall); "
+    print(f"{head}; device busy {busy:.3f} ms a step ({busy / wall:.3f} of the step's wall, "
+          f"{busy / prof_wall:.3f} of the profiled {prof_wall:.3f} ms); "
           f"device ms a step by class {json.dumps({k: round(v, 4) for k, v in classes.items()})}",
           flush=True)
 
@@ -1818,7 +1883,8 @@ def record_prompt_logits(eng):
 
     def prefill(p, slot):
         r = inner(p, slot)
-        out[tuple(p)] = r[0].float()
+        # a copy: a graphed chunk's logits are overwritten by its next replay
+        out[tuple(p)] = r[0].float().clone()
         return r
 
     eng._prefill = prefill
@@ -2030,7 +2096,8 @@ def rolled_case(label, payload, dev, gen):
             check(kernel, name, got, want, oracle)
         got = prefill.paged_prefill_attention(qp, cache, cfg, 0, start, chunk, rule=rule)
         out.setdefault("paged_prefill", {}).update(prefill_ran("paged_prefill", cfg, label))
-        want = prefill._paged_prefill_plain(qs, cache, cfg, 0, start, chunk, rule)
+        want = prefill._paged_prefill_plain(
+            qs, cache, cfg, prefill.prefill_meta(cfg, 0, start, chunk, rule, 1, dev)[0], rule)
         oracle = window_oracle(qs.float() / (scale * LOG2E), torch.arange(start, start + chunk,
                                device=dev), cache, cfg, 0, start + chunk, rule, scale)
         check("paged_prefill", name, got, want, oracle)
@@ -2044,8 +2111,8 @@ def rolled_case(label, payload, dev, gen):
     ck, cpl = clone_cache(cache), clone_cache(cache)
     kv_cache.write_tokens_at(ck, cfg, 2, w_start, k, v, 451, trash)
     out["kv_chunk_write"] = dict(err=0.0, **kv_ran("kv_chunk_write", k, v, cfg, label))
-    kv_cache._write_tokens_plain(cpl, cfg, 2, w_start, k, v, 451, trash)
-    cpl.lengths[2] = w_start + 451
+    kv_cache._write_tokens_plain(cpl, cfg, kv_cache.chunk_write_meta(2, w_start, 451, trash, 1,
+                                                                     dev)[0], k, v)
     torch.cuda.synchronize()
     diffs = diff_outside_trash(ck, cpl, trash)
     if diffs or not torch.equal(ck.lengths, cpl.lengths):
@@ -2546,7 +2613,10 @@ def moe_trace(eng, check_idle=False):
     under GAP_TIE for the request's own row}) and, with ``check_idle``,
     fail unless every idle slot's decode attention output is exactly 0
     (``trace["idle_rows"]`` counts them).  Requests are admitted in
-    submission order (the scheduler is FIFO)."""
+    submission order (the scheduler is FIFO).  The trace reads the router's
+    gaps and the idle rows inside each step, on the host: the engine runs
+    its step impls eagerly meanwhile (a graph would run them at capture
+    only); phase 11 holds the graphed MoE engine to the eager one."""
     from tf_flash_attention_tpu_torch.serving import engine as engine_mod
 
     trace = {"tie": {}, "idle_rows": 0}
@@ -2554,6 +2624,8 @@ def moe_trace(eng, check_idle=False):
     moe_ffn, decode_merged = engine_mod.moe_ffn, engine_mod.decode_merged
     inner = {k: getattr(eng, k) for k in ("_prefill", "_chunk_prefill", "_decode_step",
                                           "_spec_step", "_logits")}
+    eager = {k: getattr(eng, k + "_impl") for k in ("_chunk_prefill", "_decode_step",
+                                                     "_spec_step")}
 
     def gap2(x):
         top = x.float().topk(2, dim=-1).values
@@ -2591,17 +2663,17 @@ def moe_trace(eng, check_idle=False):
         tie(rid, 0, float(gap2(call["logits"])))
         return out
 
-    def chunk(tokens, slot, start, true_len):
-        call["rows"] = true_len
-        return inner["_chunk_prefill"](tokens, slot, start, true_len)
+    def chunk(tokens, meta):
+        call["rows"] = int(meta[2])
+        return eager["_chunk_prefill"](tokens, meta)
 
     def step(name):
-        def run(tokens, active, sps):
+        def run(tokens, active):
             # each live slot's request and its tokens generated before the call
             live = {s: (st["rid"], len(eng._results[st["rid"]]) - plen[st["rid"]])
                     for s, st in enumerate(eng._slots) if st is not None}
             call.clear()
-            out = inner[name](tokens, active, sps)
+            out = eager[name](tokens, active)
             gaps = gap2(call["logits"])
             for s, (rid, generated) in live.items():
                 tie(rid, generated, float(gaps[s].min()))
@@ -4489,6 +4561,231 @@ def examples_phase():
     if out["mesh"] != {"data": 2, "model": 4} or not all(map(math.isfinite, out["losses"])):
         fail(f"example train_demo: {out}")
     print(f"examples on the card: wall seconds {json.dumps(seconds)}", flush=True)
+
+
+# ---- phase 2(r) and phase 11: the engine's compiled steps ----
+
+def meta_replay_case(dev, gen):
+    """Phase 2(r): one chunk write and one prefill captured together as a
+    CUDA graph (the engine's ``serving.graphs.GraphedStep``) with their
+    (slot, start, true_len) in an int32 device vector, as the engine's
+    chunk step takes them, run at three triples: the first call eager (then
+    the capture), the next two replays.  Each against the plain versions at
+    its own triple: the writes bit for bit with the lengths, the prefill
+    within attn_tol.  A replay runs the captured launches as they are, so
+    right answers at other triples show that the kernels read their
+    scalars on the device.  Phase 2's int8 case (16 slots, page 256, chunk
+    512, 8 q / 8 kv heads, d 128)."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.mask_rules import CausalRule
+    from tf_flash_attention_tpu_torch.ops.kernel_common import LOG2E
+    from tf_flash_attention_tpu_torch.serving import kv_cache, prefill
+    from tf_flash_attention_tpu_torch.serving.graphs import GraphedStep
+
+    S, chunk, n_q, n_kv, d, ps = 16, 512, 8, 8, 128, 256
+    mapped = 2048 // ps
+    cfg = payload_cfg("int8", n_kv_heads=n_kv, head_dim=d, page_size=ps,
+                      n_pages=S * mapped + S + 1, max_seqs=S, max_pages_per_seq=2 * mapped)
+    trash, rule, bf = cfg.n_pages - 1, CausalRule(), torch.bfloat16
+    cache = make_cache(cfg, dev, gen, torch.randint(1, 2048, (S,), generator=gen,
+                                                    device=dev).tolist(), mapped)
+    plain = clone_cache(cache)
+    k = torch.randn((chunk, n_kv, d), generator=gen, device=dev).to(bf).transpose(0, 1)
+    v = torch.randn((chunk, n_kv, d), generator=gen, device=dev).to(bf).transpose(0, 1)
+    q = torch.randn((chunk, n_q, d), generator=gen, device=dev).to(bf)
+    qs = (q.float() * torch.tensor(d ** -0.5 * LOG2E, dtype=torch.float32)).to(bf)
+    meta = torch.zeros(3, dtype=torch.int32, device=dev)
+
+    def chunk_step(meta):
+        slot, start, true_len = meta[0], meta[1], meta[2]
+        kv_cache.write_tokens_meta(
+            cache, cfg, kv_cache.chunk_write_meta(slot, start, true_len, trash, 1, dev)[0], k, v)
+        return (prefill.prefill_with_meta(
+            q, cache, cfg, prefill.prefill_meta(cfg, slot, start, true_len, rule, 1, dev)[0],
+            rule=rule),)
+
+    step = GraphedStep(chunk_step, 1, torch.cuda.Stream(dev), torch.cuda.graph_pool_handle())
+    errs = []
+    for slot, start, true_len in ((0, 1100, 451), (5, 512, 512), (9, 256, 77)):
+        meta.copy_(torch.tensor([slot, start, true_len], dtype=torch.int32))
+        o, = step(meta)
+        kv_cache._write_tokens_plain(plain, cfg, kv_cache.chunk_write_meta(
+            slot, start, true_len, trash, 1, dev)[0], k, v)
+        ref = prefill._paged_prefill_plain(qs, plain, cfg, prefill.prefill_meta(
+            cfg, slot, start, true_len, rule, 1, dev)[0], rule)[:true_len]
+        torch.cuda.synchronize()
+        diffs = diff_outside_trash(cache, plain, trash)
+        if diffs or not torch.equal(cache.lengths, plain.lengths):
+            fail(f"2(r): the graphed chunk write at {(slot, start, true_len)} differs from its "
+                 f"plain version: {diffs}")
+        errs.append(float((o[:true_len].float() - ref.float()).abs().max()))
+        if not torch.isfinite(o[:true_len]).all() or errs[-1] > attn_tol(ref):
+            fail(f"2(r): the graphed prefill at {(slot, start, true_len)}: max error "
+                 f"{errs[-1]} > {attn_tol(ref)}")
+    g = next(iter(step.graphs.values()))
+    if len(step.graphs) != 1 or g.replays != 2 or set(g.launches) != {"kv_chunk_write",
+                                                                        "paged_prefill"}:
+        fail(f"2(r): expected one graph of the two kernels replayed twice: {len(step.graphs)} "
+             f"graphs, {g.replays} replays, launches {g.launches}")
+    print(f"phase 2(r): a chunk write and a prefill in one CUDA graph, at (0, 1100, 451) "
+          f"eager then captured, replayed at (5, 512, 512) and (9, 256, 77): writes and lengths "
+          f"bit-equal to the plain versions at each; prefill max_abs_err {errs}; the graph's "
+          f"nodes {json.dumps(g.nodes)}, wrapper launches captured {json.dumps(g.launches)}, "
+          f"pool {g.pool_bytes} bytes; LAUNCHES {native.LAUNCHES['kv_chunk_write']} + "
+          f"{native.LAUNCHES['paged_prefill']}, REPLAYED "
+          f"{native.REPLAYED['kv_chunk_write']} + {native.REPLAYED['paged_prefill']}",
+          flush=True)
+
+
+def set_eager(eng):
+    """Set ``eng``'s compiled steps back to their impls: the eager engine."""
+    for name in ("_decode_step", "_spec_step", "_chunk_prefill"):
+        setattr(eng, name, getattr(eng, name + "_impl"))
+    return eng
+
+
+def compiled_run(label, make, reqs, n_new, vocab, graphed):
+    """One run of phase 11: a fresh engine from ``make()``, eager or
+    graphed, first serving one warm-up request (``reqs[0]``'s first 600
+    tokens, 4 new: it captures a graphed engine's graphs, and its figures
+    are left out), then ``reqs`` (``serve``).  Returns every token and the
+    run's figures: prefill and decode tokens/s (wall clock), the median
+    wall ms of an engine step (``step()``: its host loop and the decode or
+    speculative step, which ends in a sync, reading its tokens; the
+    admissions are the outliers the median leaves out) and of a prefill
+    chunk (the prefill's wall over its chunks), the host's ms inside a step
+    and a chunk call (medians: the enqueue, no sync), the calls'
+    CUDA-event spans (medians: a graph's replay, its kernels back to back),
+    and for a graphed engine its graphs (nodes, wrapper launches, pool
+    bytes, replays)."""
+    eng = make()
+    if not graphed:
+        set_eager(eng)
+    serve(f"{label} warm-up", eng, [(reqs[0][0][:600], None)], 4, vocab)
+    step = "_spec_step" if eng.ecfg.speculative_tokens else "_decode_step"
+    report_of = {k: getattr(eng, k) for k in ("_decode_step", "_spec_step", "_chunk_prefill")}
+    host, events = timed_step_calls(eng, step)
+    chunk_host, chunk_events = timed_step_calls(eng, "_chunk_prefill")
+    stats0 = dict(eng.stats)
+    walls, inner_step = [], eng.step
+
+    def timed_step():
+        t = time.perf_counter()
+        out = inner_step()
+        walls.append(time.perf_counter() - t)
+        return out
+
+    eng.step = timed_step
+    results, launches = serve(f"{label} {'graphed' if graphed else 'eager'}", eng, reqs, n_new,
+                              vocab)
+    graphs = {}
+    for name, fn in report_of.items():
+        for g in getattr(fn, "graphs", {}).values():
+            graphs[name] = {"nodes": g.nodes, "wrapper_launches": sum(g.launches.values()),
+                            "pool_bytes": g.pool_bytes, "replays": g.replays}
+    span = lambda ev: statistics.median(a.elapsed_time(b) for a, b in ev)
+    prefill_s = (eng.stats["prefill_tokens"] - stats0["prefill_tokens"]) / eng.rates[0]
+    fig = dict(prefill_tps=eng.rates[0], decode_tps=eng.rates[1],
+               step_ms=statistics.median(walls) * 1e3,
+               host_ms=statistics.median(host) * 1e3, span_ms=span(events),
+               chunk_ms=prefill_s / (eng.stats["prefill_chunks"] - stats0["prefill_chunks"]) * 1e3,
+               chunk_host_ms=statistics.median(chunk_host) * 1e3, chunk_span_ms=span(chunk_events),
+               graphs=graphs)
+    tokens = [results[r] for r in sorted(results)]
+    del eng, report_of, inner_step
+    gc.collect()             # the wrappers above hold the engine in cycles
+    torch.cuda.empty_cache()
+    return tokens, fig, launches
+
+
+def compiled_phase(mcfg, cpu_model, ecfg, prompts, pattern, seed, dev):
+    """Phase 11: each engine layout run eager (its compiled steps set back
+    to their ``_*_impl`` methods) and graphed (``DecodeEngine._compile``'s
+    CUDA graphs) on the same requests, in three alternating pairs (eager,
+    graphed, graphed, eager, eager, graphed).  Gate: every run's tokens
+    equal in full (the same kernels run in the same order, so a replay must
+    not change a bit).  Prints each run's figures (``compiled_run``) and a
+    layout's summary: the medians of each figure over its three eager and
+    three graphed runs, the busy share of a step and of a chunk (the
+    graphed replay's event span, which is the device work run back to back,
+    over each kind's median wall ms), the graphs and their kernels.  Layouts: flat
+    int8 (phase 3's 18 requests), speculative (3b's 22, two sampled), cp = 4
+    (4 of 3e(b)'s 8 requests: 4,000-9,000 tokens), tp = 4 (8 of phase 3's),
+    the window engine (8 of 3f(b)'s, 64 new tokens each) and the MoE engine
+    (8 of phase 3's); 32 new tokens where not said."""
+    from tf_flash_attention_tpu_torch.mask_rules import LocalRule
+    from tf_flash_attention_tpu_torch.models import transformer as tf
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+    from tf_flash_attention_tpu_torch.serving.engine import DecodeEngine, EngineConfig
+    from tf_flash_attention_tpu_torch.serving.sampling import SamplingParams
+
+    t0 = time.perf_counter()
+    pgen = torch.Generator().manual_seed(seed + 31)
+    tok = lambda n: torch.randint(1, mcfg.vocab, (n,), generator=pgen).tolist()
+    sampled = SamplingParams(temperature=0.8, top_k=50)
+    spec_reqs = ([(p, None) for p in prompts] + [(pattern * 8, None), (pattern * 12, None)]
+                 + [(tok(700), sampled), (tok(1200), sampled)])
+    cp_cfg = EngineConfig(max_seqs=8, page_size=256, n_pages=129, max_pages_per_seq=16,
+                          quantized_kv=True, prefill_chunk=512, prefix_caching=False)
+    wcfg = dataclasses.replace(mcfg, rule=LocalRule(window_size=1024, is_causal=True))
+    w_ecfg = EngineConfig(max_seqs=16, page_size=256, n_pages=161, max_pages_per_seq=10,
+                          quantized_kv=True, prefill_chunk=512)
+    moe_cfg = dataclasses.replace(mcfg, n_experts=MOE_EXPERTS)
+    moe_model = tf.init_params(moe_cfg, torch.Generator(device=dev).manual_seed(seed + 24),
+                               device=dev)
+    seq4 = make_mesh((N_SHARDS,), ("seq",), [dev] * N_SHARDS)
+    model4 = make_mesh((TP,), ("model",), [dev] * TP)
+    layouts = [
+        ("flat", lambda: DecodeEngine(mcfg, cpu_model, ecfg, device=dev),
+         [(p, None) for p in prompts], 32),
+        ("speculative", lambda: DecodeEngine(
+            mcfg, cpu_model, dataclasses.replace(ecfg, speculative_tokens=3), device=dev),
+         spec_reqs, 32),
+        ("cp = 4", lambda: DecodeEngine(mcfg, cpu_model, cp_cfg, mesh=seq4),
+         [(tok(n), None) for n in (4000, 5500, 7000, 9000)], 32),
+        ("tp = 4", lambda: DecodeEngine(mcfg, cpu_model, ecfg, mesh=model4),
+         [(p, None) for p in prompts[:8]], 32),
+        ("window", lambda: DecodeEngine(wcfg, cpu_model, w_ecfg, device=dev),
+         [(tok(n), None) for n in (1000, 1800, 2600, 3400, 4200, 5000, 5800, 6000)], 64),
+        ("moe", lambda: DecodeEngine(moe_cfg, moe_model, ecfg, device=dev),
+         [(p, None) for p in prompts[:8]], 32),
+    ]
+    summary = {}
+    for label, make, reqs, n_new in layouts:
+        runs = {False: [], True: []}
+        want = None
+        for graphed in (False, True, True, False, False, True):
+            tokens, fig, _ = compiled_run(f"11 {label}", make, reqs, n_new, mcfg.vocab, graphed)
+            if want is None:
+                want = tokens
+            elif tokens != want:
+                diff = sum(a != b for a, b in zip(tokens, want))
+                fail(f"11 {label}: the {'graphed' if graphed else 'eager'} engine's tokens "
+                     f"differ from the first run's in {diff} of {len(want)} requests")
+            if graphed and not fig["graphs"]:
+                fail(f"11 {label}: the graphed engine captured no graph")
+            runs[graphed].append(fig)
+            print(f"11 {label} {'graphed' if graphed else 'eager'}: {json.dumps(fig)}",
+                  flush=True)
+        med = {kind: {k: statistics.median(f[k] for f in runs[g])
+                      for k in ("prefill_tps", "decode_tps", "step_ms", "host_ms", "span_ms",
+                                "chunk_ms", "chunk_host_ms", "chunk_span_ms")}
+               for kind, g in (("eager", False), ("graphed", True))}
+        for kind in med:
+            med[kind]["busy_share"] = med["graphed"]["span_ms"] / med[kind]["step_ms"]
+            med[kind]["chunk_busy_share"] = (med["graphed"]["chunk_span_ms"]
+                                             / med[kind]["chunk_ms"])
+        summary[label] = dict(med, graphs=runs[True][-1]["graphs"],
+                              decode_speedup=med["graphed"]["decode_tps"]
+                              / med["eager"]["decode_tps"],
+                              prefill_speedup=med["graphed"]["prefill_tps"]
+                              / med["eager"]["prefill_tps"])
+        print(f"11 {label}: tokens equal in all 6 runs ({len(want)} requests); medians "
+              f"{json.dumps(summary[label])}", flush=True)
+    del moe_model
+    torch.cuda.empty_cache()
+    print(f"phase 11: {time.perf_counter() - t0:.3f} s", flush=True)
+    return summary
 
 
 if __name__ == "__main__":

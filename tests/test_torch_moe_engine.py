@@ -93,8 +93,8 @@ def test_moe_idle_slot_row_moves_the_others(params_np):
                                device="cpu")
         inner = te._decode_step
 
-        def step(tokens, active, sps, inner=inner, idle=idle):
-            return inner(torch.where(active, tokens, idle), active, sps)
+        def step(tokens, active, inner=inner, idle=idle):
+            return inner(torch.where(active, tokens, idle), active)
 
         te._decode_step = step
         rids = [te.submit(p, max_new_tokens=n) for p, n in reqs]

@@ -199,7 +199,8 @@ def stage_merge_fractions(payload, page_size, rule=CausalRule(), stride=1, offse
     # q prescaled and rounded to bf16, held in float32: the plain version's
     # arithmetic is the same, and its o stays float32
     qs = (q.float() * torch.tensor(128 ** -0.5 * LOG2E)).to(torch.bfloat16).float()
-    args = (qs, cache, cfg, 0, start, chunk, rule, True, stride, offset)
+    args = (qs, cache, cfg, tpre.prefill_meta(cfg, 0, start, chunk, rule, stride)[offset], rule,
+            True, stride)
     want = tpre._paged_prefill_plain(*args)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tpre, "_softmax_page", merge)

@@ -237,8 +237,8 @@ def _plain_stored_tokens(tcfg, start, true_len, chunk, stride, offset):
         cache.k_scales.zero_()
     cache.page_tables.copy_(torch.arange(8, dtype=torch.int32)[None])
     k = (torch.arange(chunk, dtype=torch.float32) + 1)[None, :, None].expand(2, chunk, 32)
-    tkv._write_tokens_plain(cache, tcfg, 0, start, k, k, true_len, tcfg.n_pages - 1,
-                            stride, offset)
+    meta = tkv.chunk_write_meta(0, start, true_len, tcfg.n_pages - 1, stride)[offset]
+    tkv._write_tokens_plain(cache, tcfg, meta, k, k, stride)
     kept = cache.k_pages[0, :-1] if tcfg.tok_pack == 1 else cache.k_scales[0, :-1, 0] * 7
     vals = kept[..., 0] if tcfg.tok_pack == 1 else kept
     return sorted(int(x) - 1 for x in torch.round(vals).flatten() if x > 0)

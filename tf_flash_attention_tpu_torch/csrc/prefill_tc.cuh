@@ -16,10 +16,13 @@
 //            the chunk (the most keys) first.  A 512-row chunk at 8 q heads
 //            gives 64 CTAs for 132 SMs; items of 128 rows (half the K/V loads
 //            and widening, half the CTAs) timed slower at every serving shape.
-//   walk     the slot's live pages [first_live, tile_count) through the
+//   walk     the slot's live pages [first_live, tile_count) through its
 //            table row, as the scalar body walks them (the [cp] global page
 //            lp * stride + offset), in stages of 64 keys: a page of P keys
-//            is P / 64 stages.
+//            is P / 64 stages.  The slot, the page range and the positions
+//            come from the device meta vector (pf_span), as the reference's
+//            scalar prefetch brings them, so one graph capture serves every
+//            chunk of every prompt.
 //   loads    the producer's first thread issues TMA copies of each stage's
 //            raw payload rows through 4-d maps over (D, page rows, n_pages,
 //            n_kv), a physical page a coordinate: 128-byte rows of int8 or
@@ -69,12 +72,26 @@ struct PfArgs {
   const bf16* q;
   const void *k_pages, *v_pages;
   const float *k_scales, *v_scales;
-  const int* table_row;
+  const int* tables;  // (max_seqs, max_pages)
+  const int* meta;    // slot, count, total, start, first_live, page_offset
   bf16* o;
   float *l, *m;
-  int chunk, n_q, n_kv, d, page_size, n_pages, max_pages, page_stride, page_offset, start, total,
-      first_live, count, window, log2_stride, is_local;
+  int chunk, n_q, n_kv, d, page_size, n_pages, max_pages, page_stride, window, log2_stride,
+      is_local;
 };
+
+// what a launch reads from its meta vector: the slot's table row, its local
+// page count, the chunk's end and start, the first live local page and the
+// shard's page offset
+struct PfSpan {
+  const int* table_row;
+  int count, total, start, first_live, page_offset;
+};
+
+__device__ __forceinline__ PfSpan pf_span(const PfArgs& a) {
+  return {a.tables + static_cast<size_t>(a.meta[0]) * a.max_pages, a.meta[1], a.meta[2],
+          a.meta[3], a.meta[4], a.meta[5]};
+}
 
 // a one-byte payload value as float (exact in bf16)
 template <typename P>
@@ -137,11 +154,11 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 
 // the local pages [first_live, tile_count) a tile of rows [row0, row0 +
 // rows) walks: pages past its last row's are fully masked for it
-__device__ __forceinline__ int pf_stages(const PfArgs& a, int row0, int rows) {
-  const int last_gp = (a.start + min(row0 + rows, a.chunk) - 1) / a.page_size;
+__device__ __forceinline__ int pf_stages(const PfArgs& a, const PfSpan& m, int row0, int rows) {
+  const int last_gp = (m.start + min(row0 + rows, a.chunk) - 1) / a.page_size;
   const int tile_count =
-      min(a.count, last_gp >= a.page_offset ? (last_gp - a.page_offset) / a.page_stride + 1 : 0);
-  return max(0, tile_count - a.first_live) * (a.page_size / kPfKeys);
+      min(m.count, last_gp >= m.page_offset ? (last_gp - m.page_offset) / a.page_stride + 1 : 0);
+  return max(0, tile_count - m.first_live) * (a.page_size / kPfKeys);
 }
 
 template <typename P>
@@ -164,7 +181,8 @@ __global__ void __launch_bounds__(256, 1)
   const int tid = threadIdx.x;
   const int hq = blockIdx.x, row0 = (gridDim.y - 1 - blockIdx.y) * R;
   const int hk = hq / (a.n_q / a.n_kv), ps = a.page_size, spp = ps / kPfKeys;
-  const int n = pf_stages(a, row0, R);
+  const PfSpan span = pf_span(a);
+  const int n = pf_stages(a, span, row0, R);
   if (tid == 0) {
     for (int s = 0; s < kPfRing; ++s) {
       mbar_init(raw_full + s, 1);
@@ -178,7 +196,7 @@ __global__ void __launch_bounds__(256, 1)
   if (tid >= 128) {  // ---- the producer warpgroup ----
     const int id = tid - 128;
     // stage `it`: page lp = first_live + it / spp, keys 64 (it % spp) on
-    auto phys_of = [&](int it) { return a.table_row[(a.first_live + it / spp) % a.max_pages]; };
+    auto phys_of = [&](int it) { return span.table_row[(span.first_live + it / spp) % a.max_pages]; };
     if constexpr (WIDEN) {
       constexpr int raw_rows = kPfKeys / PACK, raw_bytes = raw_rows * kRowBytes;
       auto issue = [&](int it) {
@@ -241,7 +259,7 @@ __global__ void __launch_bounds__(256, 1)
   // fragment element i: row row0 + 16 w + (lane >> 2) + 8 ((i >> 1) & 1) of
   // the chunk, key (or column) 8 (i >> 2) + 2 (lane & 3) + (i & 1)
   const int r_base = row0 + 16 * w + (lane >> 2);
-  const int q_pos[2] = {a.start + r_base, a.start + r_base + 8};
+  const int q_pos[2] = {span.start + r_base, span.start + r_base + 8};
   const int sw = a.window << a.log2_stride;
   float o[64], m_run[2] = {neg_inf(), neg_inf()}, l_part[2] = {0.f, 0.f};
 #pragma unroll
@@ -277,7 +295,7 @@ __global__ void __launch_bounds__(256, 1)
       if constexpr (WIDEN) s[i] *= ksc[col];
       if constexpr (MASKED) {
         const int kv_pos = kv0 + col;
-        if (!(kv_pos < a.total &&
+        if (!(kv_pos < span.total &&
               visible(q_pos[(i >> 1) & 1], kv_pos, a.window, a.log2_stride, a.is_local)))
           s[i] = neg_inf();
       }
@@ -324,10 +342,10 @@ __global__ void __launch_bounds__(256, 1)
     mbar_arrive(empty + st);
   };
   for (int it = 0; it < n; ++it) {
-    const int gp = (a.first_live + it / spp) * a.page_stride + a.page_offset;  // global page
+    const int gp = (span.first_live + it / spp) * a.page_stride + span.page_offset;  // global page
     // an interior page: wholly behind the chunk, and inside every row's window
-    bool interior = (gp + 1) * ps <= a.start;
-    if (a.is_local) interior = interior && !a.log2_stride && gp * ps >= a.start + a.chunk - sw;
+    bool interior = (gp + 1) * ps <= span.start;
+    if (a.is_local) interior = interior && !a.log2_stride && gp * ps >= span.start + a.chunk - sw;
     const int kv0 = gp * ps + (it % spp) * kPfKeys;
     if (interior)
       body(it, kv0, std::false_type{});

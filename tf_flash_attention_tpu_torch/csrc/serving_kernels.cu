@@ -483,13 +483,17 @@ __device__ __forceinline__ void locate(RowJob<T, P>& job, P* pages, float* scale
 // stored row this shard keeps): the chunk's tokens [start, start +
 // true_len), rounded up to whole stored rows (an int4 byte row follows its
 // even token; the chunk starts at an even position and is even), on this
-// shard's pages.  The host lists them as a run of the shard's local
-// positions, [local0, local0 + PACK * units): local position l is global
-// position ((l / page) * stride + offset) * page + l % page (stride 1,
-// offset 0: the positions themselves), stored at (table[(l / page) %
-// max_pages], l % page).  So the grid covers only the kept rows: the
-// padding rows and other shards' rows, which the TPU kernel stored to the
-// trash page (nothing reads it), start no warp.  The source is K and V as
+// shard's pages.  The per-call scalars come from the device, as the
+// reference's scalar prefetch brings them: meta = (slot, start, total,
+// trash_page, page_offset) (kv_cache.py:386-389), and every thread derives
+// from it the kept rows (chunk_span, the host's kv_cache._owned_rows): a run
+// of the shard's local positions, [local0, local0 + PACK * units): local
+// position l is global position ((l / page) * stride + offset) * page + l %
+// page (stride 1, offset 0: the positions themselves), stored at
+// (table[(l / page) % max_pages], l % page).  The grid covers the chunk's
+// rows, a static shape, so one graph capture serves every chunk; the warps
+// past the kept rows (padding rows and other shards' rows, which the TPU
+// kernel stored to the trash page: nothing reads it) leave at once.  The source is K and V as
 // the projection leaves them: any head and row strides, unit feature
 // stride.  One thread also sets the slot's length to the owned-token count
 // (the whole sequence's on this shard), so the wrapper runs no torch op.
@@ -502,31 +506,65 @@ struct ChunkRows {
   const T *k, *v;
   P *k_pages, *v_pages;
   float *k_scales, *v_scales;
-  const int* table_row;
-  int* length;  // the slot's
+  const int* tables;  // (max_seqs, max_pages)
+  int* lengths;       // (max_seqs,)
+  const int* meta;    // slot, start, total, trash_page, page_offset
   long long head_stride, row_stride;
-  int n_kv, d, d_store, page_size, page_shift, n_pages, max_pages, start, local0, units, owned,
-      page_stride, page_offset;
+  int n_kv, d, d_store, page_size, page_shift, n_pages, max_pages, page_stride;
 };
+
+// tokens in [0, total) on the shard owning every stride-th page from offset
+// (kv_cache._owned_token_count)
+__device__ __forceinline__ int owned_count(int total, int page_size, int page_shift, int stride,
+                                           int offset) {
+  if (stride == 1) return total;
+  const int n_g = page_of(total, page_size, page_shift);
+  const int full = n_g > offset ? (n_g - offset + stride - 1) / stride : 0;
+  return full * page_size + (n_g % stride == offset ? total - n_g * page_size : 0);
+}
+
+// what a launch reads from its meta vector: the slot's table row and
+// length, the chunk's start, the kept rows [local0, local0 + PACK * units)
+// and the slot's owned-token count after the write (kv_cache._owned_rows)
+struct ChunkSpan {
+  const int* table_row;
+  int* length;
+  int start, local0, units, owned, page_offset;
+};
+
+template <typename P, typename A>
+__device__ __forceinline__ ChunkSpan chunk_span(const A& a) {
+  constexpr int PACK = Payload<P>::kPack;
+  const int slot = a.meta[0], start = a.meta[1], total = a.meta[2], off = a.meta[4];
+  const int rounded = start + (total - start + PACK - 1) / PACK * PACK;
+  const int local0 = owned_count(start, a.page_size, a.page_shift, a.page_stride, off);
+  const int end = owned_count(rounded, a.page_size, a.page_shift, a.page_stride, off);
+  // an int4 chunk starts at an even position (the wrapper checks a host
+  // start); an odd one writes nothing rather than read before the chunk
+  const int units = start % PACK ? 0 : (end - local0) / PACK;
+  return {a.tables + static_cast<size_t>(slot) * a.max_pages, a.lengths + slot, start, local0,
+          units, owned_count(total, a.page_size, a.page_shift, a.page_stride, off), off};
+}
 
 // the jobs of one (K or V, kv head): the kept rows u = 0 .. units - 1
 template <typename T, typename P>
 struct HeadRows {
   const ChunkRows<T, P> a;
+  const ChunkSpan s;
   bool is_v;
   int h;
 
   __device__ __forceinline__ RowJob<T, P> operator()(int u) const {
     constexpr int PACK = Payload<P>::kPack;
-    const int loc = a.local0 + PACK * u;
+    const int loc = s.local0 + PACK * u;
     const int lp = page_of(loc, a.page_size, a.page_shift), off = loc - lp * a.page_size;
-    const int t = (lp * a.page_stride + a.page_offset) * a.page_size + off - a.start;
+    const int t = (lp * a.page_stride + s.page_offset) * a.page_size + off - s.start;
     RowJob<T, P> job;
     const T* src = (is_v ? a.v : a.k) + h * a.head_stride + t * a.row_stride;
 #pragma unroll
     for (int p = 0; p < PACK; ++p) job.src[p] = src + p * a.row_stride;
     const size_t page =
-        static_cast<size_t>(h) * a.n_pages + a.table_row[table_slot(lp, a.max_pages)];
+        static_cast<size_t>(h) * a.n_pages + s.table_row[table_slot(lp, a.max_pages)];
     locate(job, is_v ? a.v_pages : a.k_pages, is_v ? a.v_scales : a.k_scales, page, off,
            a.page_size, a.d_store);
     return job;
@@ -535,17 +573,18 @@ struct HeadRows {
 
 constexpr int kChunkThreads = 256;
 
-// grid: (blocks of kept rows, K and V of each kv head)
+// grid: (blocks of the chunk's stored rows, K and V of each kv head)
 template <typename T, typename P, int VEC>
 __global__ void __launch_bounds__(kChunkThreads)
 kv_chunk_write_kernel(const ChunkRows<T, P> a) {
   const int lane = threadIdx.x & 31;
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int warps = (gridDim.x * blockDim.x) >> 5;
-  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) *a.length = a.owned;
+  const ChunkSpan s = chunk_span<P>(a);
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) *s.length = s.owned;
   const bool is_v = static_cast<int>(blockIdx.y) >= a.n_kv;
-  const HeadRows<T, P> rows{a, is_v, static_cast<int>(blockIdx.y) - (is_v ? a.n_kv : 0)};
-  run_jobs<T, P, VEC>(rows, a.units, warp, warps, a.d, a.d_store, lane);
+  const HeadRows<T, P> rows{a, s, is_v, static_cast<int>(blockIdx.y) - (is_v ? a.n_kv : 0)};
+  run_jobs<T, P, VEC>(rows, s.units, warp, warps, a.d, a.d_store, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -1032,9 +1071,14 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
 //   columns lane + 32 c.
 // Bound by compute: chunk x live context x d multiply-adds, here on the
 // scalar FP32 pipes (no tensor cores yet).  q arrives prescaled by
-// scale * log2(e), so the logits feed exp2 directly.  Sharded: first_live
-// and count are local (the host computes them, prefill.py:241-253); key
-// positions and the interior test use the global page lp * stride + offset.
+// scale * log2(e), so the logits feed exp2 directly.  The per-call scalars
+// come from the device: meta = (slot, count, total, start, first_live,
+// page_offset), the reference's scalar-prefetch vector (prefill.py:254-257),
+// built by device arithmetic in serving/prefill.py::prefill_meta, and the
+// slot's table row is tables + slot * max_pages; the grid follows the
+// chunk's static shape, so one graph capture serves every chunk.  Sharded:
+// first_live and count are local; key positions and the interior test use
+// the global page lp * stride + offset.
 constexpr int kPfThreads = 128;
 constexpr int kPfTQ = 32;
 constexpr int kPfTK = 32;
@@ -1045,11 +1089,14 @@ template <typename T, typename P, typename C, int DC, int DK>
 __global__ void __launch_bounds__(kPfThreads)
 paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
                      const P* __restrict__ v_pages, const float* __restrict__ k_scales,
-                     const float* __restrict__ v_scales, const int* __restrict__ table_row,
-                     T* __restrict__ o, float* __restrict__ l_out, float* __restrict__ m_out,
-                     int chunk, int n_q, int n_kv, int d, int d_store, int page_size, int n_pages,
-                     int max_pages, int page_stride, int page_offset, int start, int total,
-                     int first_live, int count, int window, int log2_stride, int is_local) {
+                     const float* __restrict__ v_scales, const int* __restrict__ tables,
+                     const int* __restrict__ meta, T* __restrict__ o, float* __restrict__ l_out,
+                     float* __restrict__ m_out, int chunk, int n_q, int n_kv, int d, int d_store,
+                     int page_size, int n_pages, int max_pages, int page_stride, int window,
+                     int log2_stride, int is_local) {
+  const int count = meta[1], total = meta[2], start = meta[3], first_live = meta[4],
+            page_offset = meta[5];
+  const int* table_row = tables + static_cast<size_t>(meta[0]) * max_pages;
   const int D = DK ? DK : d_store;
   const int QS = D + 1;  // padded row strides: no bank conflicts in S
   constexpr int NC = DC / 32;
@@ -1324,32 +1371,41 @@ struct ChunkWrite {
   float *k_scales, *v_scales;
   const int* tables;
   int* lengths;
-  int slot, n_kv;
+  const int* meta;
+  int chunk, n_kv;
   long long head_stride, row_stride;
-  int d, d_store, page_size, n_pages, max_pages, start, local0, units, owned, page_stride,
-      page_offset;
+  int d, d_store, page_size, n_pages, max_pages, page_stride;
   int* body;
   cudaStream_t stream;
   template <typename T, typename P, int VEC>
   int launch(const ChunkRows<T, P>& a) const {
+    constexpr int PACK = Payload<P>::kPack;
     constexpr int per_block = kChunkThreads / 32;
-    // one block at least: it sets the slot's length
-    const dim3 grid(max(1, (units + per_block - 1) / per_block), 2 * n_kv);
+    // the most stored rows a call keeps, from the static shape: the chunk's
+    // rows, and on a shard the pages of it that the shard can own (a chunk
+    // touches at most ceil(chunk / page) + 1 consecutive pages, every
+    // stride-th of them the shard's); one block at least: it sets the
+    // slot's length.  The warps loop over the kept rows, so any grid is
+    // right; this one starts no more warps than the shape allows rows
+    int rows = chunk / PACK;
+    if (page_stride > 1) {
+      const int spanned = (chunk + page_size - 1) / page_size + 1;
+      rows = min(rows, (spanned + page_stride - 1) / page_stride * (page_size / PACK));
+    }
+    const dim3 grid(max(1, (rows + per_block - 1) / per_block), 2 * n_kv);
     kv_chunk_write_kernel<T, P, VEC><<<grid, kChunkThreads, 0, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
   template <typename T, typename P, typename C>
   int run() const {
     constexpr int PACK = Payload<P>::kPack;
-    if (start % PACK || local0 % PACK || units < 0 || page_size % PACK || page_stride < 1 ||
-        page_offset < 0 || page_offset >= page_stride || d > d_store)
+    if (chunk < 0 || chunk % PACK || page_size % PACK || page_stride < 1 || d > d_store)
       return static_cast<int>(cudaErrorInvalidValue);
     const ChunkRows<T, P> a{static_cast<const T*>(k), static_cast<const T*>(v),
                             static_cast<P*>(k_pages), static_cast<P*>(v_pages), k_scales,
-                            v_scales, tables + static_cast<size_t>(slot) * max_pages,
-                            lengths + slot, head_stride, row_stride, n_kv, d, d_store,
-                            page_size, shift_of(page_size), n_pages, max_pages, start, local0,
-                            units, owned, page_stride, page_offset};
+                            v_scales, tables, lengths, meta, head_stride, row_stride, n_kv, d,
+                            d_store, page_size, shift_of(page_size), n_pages, max_pages,
+                            page_stride};
     return launch_kv<T, P>(*this, a, kv_vec<T>(d, d_store, k, v, {head_stride, row_stride}, body));
   }
 };
@@ -1468,11 +1524,11 @@ struct Prefill {
   const void* q;
   const void *k_pages, *v_pages;
   const float *k_scales, *v_scales;
-  const int* table_row;
+  const int *tables, *meta;
   void* o;
   float *l, *m;
-  int chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages, page_stride, page_offset,
-      start, total, first_live, count, window, log2_stride, is_local;
+  int chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages, page_stride, window,
+      log2_stride, is_local;
   int* body;
   cudaStream_t stream;
   template <typename T, typename P, typename C, int DC, int DK>
@@ -1487,9 +1543,9 @@ struct Prefill {
     const dim3 grid(n_q, (chunk + kPfTQ - 1) / kPfTQ, d_store / DC);
     kernel<<<grid, kPfThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const P*>(k_pages),
-        static_cast<const P*>(v_pages), k_scales, v_scales, table_row, static_cast<T*>(o), l, m,
-        chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages, page_stride, page_offset,
-        start, total, first_live, count, window, log2_stride, is_local);
+        static_cast<const P*>(v_pages), k_scales, v_scales, tables, meta, static_cast<T*>(o), l,
+        m, chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages, page_stride, window,
+        log2_stride, is_local);
     return static_cast<int>(cudaGetLastError());
   }
   // the body: bf16 activations at head_dim_store 128 on pages of a multiple
@@ -1499,15 +1555,14 @@ struct Prefill {
   template <typename T, typename P, typename C>
   int run() const {
     if (page_size % Payload<P>::kPack || n_q % n_kv || d_store < 128 || d_store % 128 ||
-        page_stride < 1 || page_offset < 0 || page_offset >= page_stride ||
-        (l == nullptr) != (m == nullptr))
+        page_stride < 1 || (l == nullptr) != (m == nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
     if constexpr (std::is_same<T, bf16>::value) {
       if (d_store == 128 && page_size % tc::kPfKeys == 0) {
         const tc::PfArgs a{static_cast<const bf16*>(q), k_pages, v_pages, k_scales, v_scales,
-                           table_row, static_cast<bf16*>(o), l, m, chunk, n_q, n_kv, d,
-                           page_size, n_pages, max_pages, page_stride, page_offset, start, total,
-                           first_live, count, window, log2_stride, is_local};
+                           tables, meta, static_cast<bf16*>(o), l, m, chunk, n_q, n_kv, d,
+                           page_size, n_pages, max_pages, page_stride, window, log2_stride,
+                           is_local};
         return tc::prefill_tc<P>(a, d_store, body, stream);
       }
     }
@@ -1528,15 +1583,15 @@ extern "C" {
 
 int fa_kv_chunk_write(int act, int kv, const void* k, const void* v, void* k_pages,
                       void* v_pages, void* k_scales, void* v_scales, const void* tables,
-                      void* lengths, int slot, int n_kv, long long head_stride,
-                      long long row_stride, int d, int d_store, int page_size, int n_pages,
-                      int max_pages, int start, int local0, int units, int owned,
-                      int page_stride, int page_offset, int* body, void* stream) {
+                      void* lengths, const void* meta, int chunk, int n_kv,
+                      long long head_stride, long long row_stride, int d, int d_store,
+                      int page_size, int n_pages, int max_pages, int page_stride, int* body,
+                      void* stream) {
   const ChunkWrite f{k, v, k_pages, v_pages, static_cast<float*>(k_scales),
                      static_cast<float*>(v_scales), static_cast<const int*>(tables),
-                     static_cast<int*>(lengths), slot, n_kv, head_stride, row_stride, d,
-                     d_store, page_size, n_pages, max_pages, start, local0, units, owned,
-                     page_stride, page_offset, body, static_cast<cudaStream_t>(stream)};
+                     static_cast<int*>(lengths), static_cast<const int*>(meta), chunk, n_kv,
+                     head_stride, row_stride, d, d_store, page_size, n_pages, max_pages,
+                     page_stride, body, static_cast<cudaStream_t>(stream)};
   return dispatch(act, kv, f);
 }
 
@@ -1654,16 +1709,16 @@ int fa_exp_paged_decode(int variant, const void* q, const void* k_pages, const v
 }
 
 int fa_paged_prefill(int act, int kv, const void* q, const void* k_pages, const void* v_pages,
-                     const void* k_scales, const void* v_scales, const void* table_row,
-                     void* o, void* l, void* m, int chunk, int n_q, int n_kv, int d,
-                     int d_store, int page_size, int n_pages, int max_pages, int page_stride,
-                     int page_offset, int start, int total, int first_live, int count,
-                     int window, int log2_stride, int is_local, int* body, void* stream) {
+                     const void* k_scales, const void* v_scales, const void* tables,
+                     const void* meta, void* o, void* l, void* m, int chunk, int n_q, int n_kv,
+                     int d, int d_store, int page_size, int n_pages, int max_pages,
+                     int page_stride, int window, int log2_stride, int is_local, int* body,
+                     void* stream) {
   const Prefill f{q, k_pages, v_pages, static_cast<const float*>(k_scales),
-                  static_cast<const float*>(v_scales), static_cast<const int*>(table_row), o,
-                  static_cast<float*>(l), static_cast<float*>(m), chunk, n_q, n_kv, d,
-                  d_store, page_size, n_pages, max_pages, page_stride, page_offset, start,
-                  total, first_live, count, window, log2_stride, is_local, body,
+                  static_cast<const float*>(v_scales), static_cast<const int*>(tables),
+                  static_cast<const int*>(meta), o, static_cast<float*>(l),
+                  static_cast<float*>(m), chunk, n_q, n_kv, d, d_store, page_size, n_pages,
+                  max_pages, page_stride, window, log2_stride, is_local, body,
                   static_cast<cudaStream_t>(stream)};
   return dispatch(act, kv, f);
 }

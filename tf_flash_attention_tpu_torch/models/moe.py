@@ -129,11 +129,16 @@ def expert_outputs(r: Routing, x: torch.Tensor, w_in: torch.Tensor, w_out: torch
     mine = r.keep & (r.expert >= first) & (r.expert < first + E)
     rows = torch.arange(b, device=x.device)[:, None]
     slot = (((r.expert - first) * b + rows) * C + r.position).masked_fill(~mine, 0)
-    # the token each (expert, b, C) slot holds, b * s (a zero row) where none
-    src = torch.full((E * b * C,), b * s, dtype=torch.long, device=x.device)
-    src[slot[mine]] = torch.arange(b * s, device=x.device).reshape(b, s)[mine]
+    # the token each (expert, b, C) slot holds, b * s (a zero row) where
+    # none: the kept tokens' slots are distinct, and the others write a spare
+    # last entry, so no host sync picks the kept ones (a step of the serving
+    # engine is captured as a CUDA graph)
+    n_slots = E * b * C
+    src = torch.full((n_slots + 1,), b * s, dtype=torch.long, device=x.device)
+    src.scatter_(0, torch.where(mine, slot, n_slots).reshape(-1),
+                 torch.arange(b * s, device=x.device))
     flat = torch.cat([x.reshape(b * s, d).float(), x.new_zeros((1, d), dtype=torch.float32)])
-    slots = flat[src].reshape(E, b * C, d)
+    slots = flat[src[:n_slots]].reshape(E, b * C, d)
     h = F.gelu(torch.bmm(slots, w_in.float()), approximate="tanh")
     out = torch.bmm(h, w_out.float()).reshape(E * b * C, d)
     return torch.where(mine[..., None], out[slot] * r.gate[..., None], 0.0)

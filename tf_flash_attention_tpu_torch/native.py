@@ -15,7 +15,9 @@ adds one where the C entry has launched, and nowhere else.  A serving
 kernel launched with its sequence-sharding arguments on (the ``(l, m)``
 outputs, a page stride, global lengths) counts under its variant's name,
 ``<kernel>[cp]`` (``CP_VARIANTS``), so a context-parallel run shows its own
-launches.
+launches.  A serving engine's step captured as a CUDA graph
+(``serving/graphs.py``) counts its kernels once in ``LAUNCHES``, where the
+wrappers ran at capture, and each replay's in ``REPLAYED``.
 
 The host runtime, ``csrc/fa_native.cc`` (a copy of the JAX package's
 source: the schedule classifier, the FLOPs estimator and the
@@ -51,7 +53,7 @@ from .mask_rules import CausalRule, FullRule, LocalRule, MaskRule
 from .schedule import build_schedule, sequence_orders
 from .sync_modes import ref_log2
 
-__all__ = ["LAUNCHES", "SERVING_KERNELS", "CP_VARIANTS", "ATTENTION_KERNELS",
+__all__ = ["LAUNCHES", "REPLAYED", "SERVING_KERNELS", "CP_VARIANTS", "ATTENTION_KERNELS",
            "EXPERIMENT_KERNELS", "KERNEL_SOURCES", "reset_launch_counts", "build",
            "compile_sources", "library", "get_lib", "native_tile_classes",
            "native_estimate_forward_flops", "NativeScheduler"]
@@ -78,6 +80,8 @@ EXPERIMENT_KERNELS = ("exp_resident_fwd", "exp_int4_int8ref", "exp_int4_s32", "e
                       "exp_vpu_ladder", "exp_paged_decode", "exp_kv_unroll")
 LAUNCHES = {name: 0 for name in
             SERVING_KERNELS + CP_VARIANTS + ATTENTION_KERNELS + EXPERIMENT_KERNELS}
+#: the launches CUDA-graph replays made, per kernel (no wrapper runs there)
+REPLAYED = dict.fromkeys(LAUNCHES, 0)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float16: 3,
                torch.float8_e4m3fn: 4, torch.float8_e5m2: 5}
@@ -90,7 +94,7 @@ _libs = {}
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
-        LAUNCHES[name] = 0
+        LAUNCHES[name] = REPLAYED[name] = 0
 
 
 #: what the last launch of a kernel reported, by kernel: ``body``
@@ -414,10 +418,10 @@ _R = ctypes.POINTER(FaRule)
 _SIGNATURES = {
     "serving_kernels.cu": {
         # act, kv, k, v, k_pages, v_pages, k_scales, v_scales, tables,
-        # lengths, slot, n_kv, head_stride, row_stride, d, d_store,
-        # page_size, n_pages, max_pages, start, local0, units, owned,
-        # page_stride, page_offset, body (1 int out)
-        "fa_kv_chunk_write": [_I, _I] + [_P] * 8 + [_I, _I, _L, _L] + [_I] * 11 + [_P],
+        # lengths, meta (slot, start, total, trash_page, page_offset), chunk,
+        # n_kv, head_stride, row_stride, d, d_store, page_size, n_pages,
+        # max_pages, page_stride, body (1 int out)
+        "fa_kv_chunk_write": [_I, _I] + [_P] * 9 + [_I, _I, _L, _L] + [_I] * 6 + [_P],
         # act, kv, k, v, k_pages, v_pages, k_scales, v_scales, tables,
         # lengths, active, glob, S, T, n_kv, slot_stride, tok_stride,
         # head_stride, d, d_store, page_size, n_pages, max_pages, page_stride,
@@ -443,11 +447,12 @@ _SIGNATURES = {
         # p_codes, ws, tickets, S, n_kv, G, n_pages, page, max_pages, splits,
         # scale_log2e, walk (3 ints out) (the codes nullable)
         "fa_exp_paged_decode": [_I] + [_P] * 13 + [_I] * 7 + [_F, _P],
-        # act, kv, q, k_pages, v_pages, k_scales, v_scales, table_row, o, l,
-        # m, chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages,
-        # page_stride, page_offset, start, total, first_live, count, window,
-        # log2_stride, is_local, body (1 int out) (l, m nullable)
-        "fa_paged_prefill": [_I, _I] + [_P] * 9 + [_I] * 17 + [_P],
+        # act, kv, q, k_pages, v_pages, k_scales, v_scales, tables, meta
+        # (slot, count, total, start, first_live, page_offset), o, l, m,
+        # chunk, n_q, n_kv, d, d_store, page_size, n_pages, max_pages,
+        # page_stride, window, log2_stride, is_local, body (1 int out) (l, m
+        # nullable)
+        "fa_paged_prefill": [_I, _I] + [_P] * 10 + [_I] * 12 + [_P],
     },
     "attention_kernels.cu": {
         # dtype, q, k, v, o, l, m, table, counts, needs, num_steps, block_q,
@@ -621,15 +626,26 @@ def _check_kv(k, v, cfg, dims: int, head_axis: int) -> None:
                          f"{cfg.head_dim}")
 
 
-def kv_chunk_write(cache, cfg, slot, start, k, v, local0, rows, length, page_stride=1,
-                   page_offset=0) -> None:
-    """Launch ``kv_chunk_write``: quantize and store the stored rows of k, v
+def _check_meta(meta, n: int, like) -> None:
+    """A launch's scalars: a contiguous int32 vector of ``n`` on ``like``'s
+    device (read by the kernel, never by the host)."""
+    if (meta.dtype != torch.int32 or meta.shape != (n,) or not meta.is_contiguous()
+            or meta.device != like.device):
+        raise ValueError(f"meta must be a contiguous int32 vector of {n} on {like.device}, got "
+                         f"{meta.dtype} {tuple(meta.shape)} on {meta.device}")
+
+
+def kv_chunk_write(cache, cfg, meta, k, v, page_stride=1) -> None:
+    """Launch ``kv_chunk_write``: quantize and store the chunk's rows of k, v
     (n_kv, chunk, d; any head and row strides, unit feature stride, the same
-    for both) at the shard's local positions ``local0 .. local0 + pack *
-    rows`` (``kv_cache._owned_rows``), and set the slot's length to
-    ``length``.  ``kv_write_body`` names the body; the launch's own report
-    is in ``WALKS``."""
+    for both) that this shard keeps, and set the slot's length.  ``meta``
+    (int32 on the device: slot, start, total, trash_page, page_offset,
+    ``kv_cache.chunk_write_meta``) is read by the kernel, which derives the
+    kept rows (``kv_cache._owned_rows``) itself; the grid covers the chunk.
+    ``kv_write_body`` names the body; the launch's own report is in
+    ``WALKS``."""
     _check_kv(k, v, cfg, 3, 0)
+    _check_meta(meta, 5, k)
     act, kv = _codes(k.dtype, cache, cfg)
     dims = _cache_dims(cache, cfg)
     cp = page_stride != 1
@@ -637,9 +653,9 @@ def kv_chunk_write(cache, cfg, slot, start, k, v, local0, rows, length, page_str
     _call("fa_kv_chunk_write", act, kv, k.data_ptr(), v.data_ptr(),
           cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
           _ptr(cache.k_scales), _ptr(cache.v_scales), cache.page_tables.data_ptr(),
-          cache.lengths.data_ptr(), slot, cfg.n_kv_heads, head_stride, row_stride,
-          cfg.head_dim, cfg.head_dim_store, *dims, start, local0, rows, length, page_stride,
-          page_offset, WALKS["kv_chunk_write[cp]" if cp else "kv_chunk_write"].ptr, cp=cp)
+          cache.lengths.data_ptr(), meta.data_ptr(), k.shape[1], cfg.n_kv_heads, head_stride,
+          row_stride, cfg.head_dim, cfg.head_dim_store, *dims, page_stride,
+          WALKS["kv_chunk_write[cp]" if cp else "kv_chunk_write"].ptr, cp=cp)
 
 
 def kv_append(cache, cfg, k_new, v_new, active, glob=None, page_stride=1,
@@ -801,15 +817,29 @@ _SCRATCH = {}
 def _decode_scratch(device, workspace: int, tickets: int) -> tuple:
     """The tensor-core decode's float32 workspace and int32 tickets on
     ``device``, kept between launches (the tickets must stay zero there: the
-    merging CTA zeroes its own) and grown as a launch needs."""
+    merging CTA zeroes its own) and grown as a launch needs.  A CUDA graph
+    holds the pair it captured (``scratch_in_use``), so growing for another
+    launch never frees it; growing during a capture raises, since the
+    graph's pool would own the new pair (the capture's eager first run
+    sizes it)."""
     key = str(device)
     ws, tk = _SCRATCH.get(key, (None, None))
-    if ws is None or ws.numel() < max(workspace, 1):
+    grow_ws = ws is None or ws.numel() < max(workspace, 1)
+    grow_tk = tk is None or tk.numel() < max(tickets, 1)
+    if (grow_ws or grow_tk) and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("the decode's scratch grew during a CUDA graph capture: run the "
+                           "step once before capturing it")
+    if grow_ws:
         ws = torch.empty(max(workspace, 1), dtype=torch.float32, device=device)
-    if tk is None or tk.numel() < max(tickets, 1):
+    if grow_tk:
         tk = torch.zeros(max(tickets, 1), dtype=torch.int32, device=device)
     _SCRATCH[key] = ws, tk
     return ws, tk
+
+
+def scratch_in_use() -> list:
+    """The decode scratch tensors now kept, which a graph captured now reads."""
+    return [t for pair in _SCRATCH.values() for t in pair]
 
 
 def _decode(entry, q, cache, cfg, S, gamma, scale_log2e, rule, returning_l_m, page_stride,
@@ -862,12 +892,13 @@ def paged_multitoken_decode(q, cache, cfg, scale_log2e, rule, returning_l_m=Fals
                    scale_log2e, rule, returning_l_m, page_stride, page_offset, global_lengths)
 
 
-def paged_prefill(qs, cache, cfg, slot, start, total, first_live, count, rule,
-                  returning_l_m=False, page_stride=1, page_offset=0):
+def paged_prefill(qs, cache, cfg, meta, rule, returning_l_m=False, page_stride=1):
     """Launch ``paged_prefill``: prescaled q (chunk, n_q, d) -> o, or (o, l,
-    m) with l, m float32 (chunk, n_q); ``first_live`` and ``count`` are the
-    local page range.  ``prefill_body`` names the body; the launch's own
-    report is in ``WALKS``."""
+    m) with l, m float32 (chunk, n_q).  ``meta`` (int32 on the device: slot,
+    local page count, total, start, first live local page, page offset;
+    ``prefill.prefill_meta``) is read by the kernel, which finds the slot's
+    table row itself; the grid follows the chunk.  ``prefill_body`` names
+    the body; the launch's own report is in ``WALKS``."""
     chunk, n_q, d = qs.shape
     act, kv = _codes(qs.dtype, cache, cfg)
     dims = _cache_dims(cache, cfg)
@@ -878,16 +909,16 @@ def paged_prefill(qs, cache, cfg, slot, start, total, first_live, count, rule,
     _check_smem(f"paged_prefill at head_dim_store {D}, page {page}",
                 PREFILL_TC_SMEM if prefill_body(qs.dtype, cfg) == "tensor-core"
                 else prefill_smem(D, page))
+    _check_meta(meta, 6, qs)
     o = torch.empty_like(qs)
     l, m = _lm(qs, (chunk, n_q), returning_l_m)
-    table_row = cache.page_tables[slot]
     body = ctypes.c_int(0)
     cp = returning_l_m or page_stride != 1
     _call("fa_paged_prefill", act, kv, qs.data_ptr(), cache.k_pages.data_ptr(),
           cache.v_pages.data_ptr(), _ptr(cache.k_scales), _ptr(cache.v_scales),
-          table_row.data_ptr(), o.data_ptr(), _ptr(l), _ptr(m), chunk, n_q, cfg.n_kv_heads, d,
-          cfg.head_dim_store, *dims, page_stride, page_offset, start, total, first_live, count,
-          *_rule_args(rule), ctypes.byref(body), cp=cp)
+          cache.page_tables.data_ptr(), meta.data_ptr(), o.data_ptr(), _ptr(l), _ptr(m), chunk,
+          n_q, cfg.n_kv_heads, d, cfg.head_dim_store, *dims, page_stride, *_rule_args(rule),
+          ctypes.byref(body), cp=cp)
     _body("paged_prefill[cp]" if cp else "paged_prefill", body)
     return (o, l, m) if returning_l_m else o
 

@@ -9,23 +9,52 @@ same code as four cards.  ``shard`` and ``unshard`` stand in for
 ``shard_map``'s in and out specs: they split a tensor into the blocks a
 ``PartitionSpec`` gives, each on its device, and put them back together;
 both are differentiable, so gradients flow back to the whole tensor.
-
-Not ported: ``maybe_init_distributed`` (multi-host start-up).
+``maybe_init_distributed`` starts a ``torch.distributed`` process group
+where the environment configures one, as the JAX package's starts
+``jax.distributed``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_mesh", "shard", "unshard", "AXIS_DATA", "AXIS_MODEL", "AXIS_CONTEXT"]
+__all__ = ["Mesh", "make_mesh", "shard", "unshard", "maybe_init_distributed", "AXIS_DATA",
+           "AXIS_MODEL", "AXIS_CONTEXT"]
 
 AXIS_DATA = "data"
 AXIS_MODEL = "model"
 AXIS_CONTEXT = "context"
+
+
+def maybe_init_distributed() -> bool:
+    """Start ``torch.distributed`` when the environment configures a
+    process group (the JAX package's ``maybe_init_distributed``, which
+    starts ``jax.distributed``): NCCL where CUDA is available, else gloo.
+    ``COORDINATOR_ADDRESS`` (``host:port``, the JAX variable) with
+    ``WORLD_SIZE`` and ``RANK`` (1 and 0 where unset), or torchrun's
+    ``MASTER_ADDR`` and its companions (``env://``).  Call once at program
+    start in every process.  Returns True when a process group is up
+    (already, or now), False when nothing is configured."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return True
+    coordinator = os.environ.get("COORDINATOR_ADDRESS")
+    if not coordinator and not os.environ.get("MASTER_ADDR"):
+        return False
+    backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if coordinator:
+        dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                                world_size=int(os.environ.get("WORLD_SIZE", "1")),
+                                rank=int(os.environ.get("RANK", "0")))
+    else:
+        dist.init_process_group(backend, init_method="env://")
+    return True
 
 
 @dataclasses.dataclass(frozen=True)

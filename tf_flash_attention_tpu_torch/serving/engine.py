@@ -51,12 +51,24 @@ whole prompt, padded to the smallest bucket of ``prefill_buckets`` that
 holds it, through the training forward's attention (``parallel.sharded.
 mha``, the op kernels) and writes its K/V with ``write_prompt``.
 
-PyTorch runs eagerly, so there is no compiled step: the engine calls the
-model's layers and the five serving kernels directly.  The KV caches are
-updated in place by the kernels (the JAX engine donates them instead).
-The host keeps a mirror of the page tables, uploaded when it changes, and
-of the slots' lengths, so a decode step copies one tensor back to the
-host: the next tokens.
+The compiled steps (``_compile``, the JAX engine's ``engine.py:339-370``):
+the decode step, the speculative step and the chunked prefill are
+``_decode_step_impl``, ``_spec_step_impl`` and ``_chunk_prefill_impl``,
+device work only, and on the card ``_compile`` captures each as a CUDA
+graph (``graphs.py``), one per input shape, replayed on every later call,
+for every layout of the engine (flat, window, cp, tp, tp x cp, MoE);
+on the CPU, which a caller asks for explicitly, it returns the impl
+itself.  A step's inputs are the engine's static device buffers, filled
+from host tensors before each call: the tokens, the active mask, and for a
+chunk its (slot, start, true_len) as an int32 vector, which the chunk
+kernels take as their device ``meta``, as JAX's take traced scalars.  The
+greedy argmax runs in the step; sampling, where a slot samples, runs after
+it on the step's logits with the engine's generator, from per-slot
+parameters kept on the device.  The KV caches are updated in place by the
+kernels (the JAX engine donates them instead).  The host keeps a mirror of
+the page tables, uploaded in place when it changes, and of the slots'
+lengths, so a decode step copies one tensor back to the host: the next
+tokens.
 
 Tensor parallelism (``mesh`` with a ``model`` axis of ``tp`` shards,
 alone or beside the ``seq`` axis) is the JAX engine's Megatron placement:
@@ -99,7 +111,10 @@ from ..mask_rules import LocalRule
 from ..models.moe import moe_ffn
 from ..models.transformer import ModelConfig, Transformer, _rms_norm, _rope, inference_weights
 from ..parallel.sharded import mha
-from .kv_cache import KVCacheConfig, PagedKVCache, _owned_token_count, write_prompt
+from .graphs import GraphedStep
+from .kv_cache import (KVCacheConfig, PagedKVCache, _owned_token_count, chunk_write_meta,
+                       write_prompt)
+from .prefill import prefill_meta
 from .prefix_cache import PrefixCache, SharedPageAllocator
 from .sampling import SamplingParams, sample_tokens
 from .scheduler import Request, Scheduler
@@ -136,11 +151,17 @@ class EngineConfig:
     spec_lookup_window: int = 512   # n-gram search window (host)
 
 
-def _rope_cos_sin(pos: torch.Tensor, d: int, theta: float, dtype: torch.dtype):
-    """cos/sin tables (*pos.shape, 1, d/2) for rotary embedding at ``pos``."""
+def _inverse_freqs(d: int, theta: float, device) -> torch.Tensor:
+    """Rotary embedding's float32 inverse frequencies (d/2,) on ``device``."""
     half = d // 2
-    freqs = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
-    angles = pos.float()[..., None] * torch.from_numpy(freqs).to(pos.device)
+    return torch.from_numpy(1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
+                            ).to(device)
+
+
+def _rope_cos_sin(pos: torch.Tensor, inv_freq: torch.Tensor, dtype: torch.dtype):
+    """cos/sin tables (*pos.shape, 1, d/2) for rotary embedding at ``pos``
+    (``inv_freq`` from ``_inverse_freqs``, a device buffer of the engine's)."""
+    angles = pos.float()[..., None] * inv_freq
     return torch.cos(angles)[..., None, :].to(dtype), torch.sin(angles)[..., None, :].to(dtype)
 
 
@@ -154,7 +175,7 @@ def _rope_at(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding (half-split rotation) at token positions: x (..., h,
     d), pos (...): single tokens (S,) as the JAX ``_rope_at``, token grids
     (S, T) as its ``_rope_at_batch``."""
-    cos, sin = _rope_cos_sin(pos, x.shape[-1], theta, x.dtype)
+    cos, sin = _rope_cos_sin(pos, _inverse_freqs(x.shape[-1], theta, pos.device), x.dtype)
     return _rotate(x, cos, sin)
 
 
@@ -361,6 +382,24 @@ class DecodeEngine:
         self._generator.manual_seed(engine_cfg.seed)
         # logits of the last prompt token of the most recently admitted request
         self.last_prefill_logits: Optional[torch.Tensor] = None
+        dev, S = self.device, engine_cfg.max_seqs
+        self._inv_freq = _inverse_freqs(model_cfg.d_head, model_cfg.rope_theta, dev)
+        # each slot's sampling parameters, set when it is admitted or retired
+        self._temperature = torch.zeros(S, dtype=torch.float32, device=dev)
+        self._top_k = torch.zeros(S, dtype=torch.int32, device=dev)
+        self._top_p = torch.ones(S, dtype=torch.float32, device=dev)
+        # the steps' inputs: static device buffers, filled before each call
+        self._in_tokens = torch.zeros(S, dtype=torch.long, device=dev)
+        self._in_active = torch.zeros(S, dtype=torch.bool, device=dev)
+        self._in_drafts = torch.zeros((S, engine_cfg.speculative_tokens + 1), dtype=torch.long,
+                                      device=dev)
+        self._in_chunk = torch.zeros(engine_cfg.prefill_chunk, dtype=torch.long, device=dev)
+        self._in_meta = torch.zeros(3, dtype=torch.int32, device=dev)   # slot, start, true_len
+        self._devices = {torch.device(d) for row in grid for d in row}
+        self._graph_stream = self._graph_pool = None
+        self._decode_step = self._compile(self._decode_step_impl, 2)
+        self._spec_step = self._compile(self._spec_step_impl, 2)
+        self._chunk_prefill = self._compile(self._chunk_prefill_impl, 1)
 
     @property
     def shards(self) -> List[List[PagedKVCache]]:
@@ -404,27 +443,65 @@ class DecodeEngine:
     def _logits(self, x):
         return _rms_norm(x, self.model.final_norm) @ self.model.embed.T
 
+    # ---- the compiled steps ----
+
+    def _compile(self, impl, n_out_scalars: int):
+        """The step ``impl``, returning ``n_out_scalars`` tensors, as the
+        engine runs it (the JAX engine's ``_compile``, engine.py:339-370):
+        on the CPU, ``impl`` itself; on the card, a ``graphs.GraphedStep``
+        that captures it as a CUDA graph once per input shape and replays
+        it.  The graphs of an engine share one capture stream and one
+        memory pool.  Shards on more than one CUDA device raise: their
+        steps would need one graph a device."""
+        if self.device.type != "cuda":
+            return impl
+        if len(self._devices) > 1:
+            raise NotImplementedError(
+                f"a compiled step over shards on {len(self._devices)} devices "
+                f"({sorted(map(str, self._devices))}): ROADMAP.md queue 1 item 4 (a real "
+                f"multi-process mesh, and _compile over shards on several devices)")
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return GraphedStep(impl, n_out_scalars, self._graph_stream, self._graph_pool)
+
+    def _upload(self, buf: torch.Tensor, values) -> torch.Tensor:
+        """Fill the static input ``buf`` in place from host ``values``: one
+        copy from pinned memory on the card (the caching host allocator
+        keeps the pinned block until the copy has run)."""
+        host = torch.as_tensor(np.asarray(values), dtype=buf.dtype)
+        if buf.device.type == "cuda":
+            host = host.pin_memory()
+        return buf.copy_(host, non_blocking=True)
+
     @torch.no_grad()
-    def _chunk_prefill(self, tokens, slot: int, start: int, true_len: int):
-        """One prefill chunk: ``tokens`` (chunk,) at positions
-        ``start .. start + chunk`` of ``slot``; returns the logits of the
-        last real token."""
+    def _chunk_prefill_impl(self, tokens, meta):
+        """One prefill chunk: ``tokens`` (chunk,) at positions ``start ..
+        start + chunk`` of ``slot``, where ``meta`` = int32 (slot, start,
+        true_len) on the device; returns (the logits of the last real
+        token,).  The chunk kernels' own metas are built from it once a
+        chunk by device arithmetic, a row a seq shard."""
         cfg = self.mcfg
         chunk = tokens.shape[0]
+        slot, start, true_len = meta[0], meta[1], meta[2]
         pos = start + torch.arange(chunk, device=self.device)
-        per_shard = self._on_shards(*_rope_cos_sin(pos, cfg.d_head, cfg.rope_theta, cfg.dtype))
+        per_shard = self._on_shards(*_rope_cos_sin(pos, self._inv_freq, cfg.dtype))
+        write_meta = chunk_write_meta(slot, start, true_len, self.trash_page, self.cp,
+                                      self.device)
+        attend_meta = prefill_meta(self._ccfg_loc, slot, start, true_len, cfg.rule, self.cp,
+                                   self.device)
 
         def attend(q, k, v, caches):
             # each seq shard keeps the rows of its own pages; partials merge
-            write_tokens_sharded(caches, self._ccfg_loc, slot, start, k.transpose(0, 1),
-                                 v.transpose(0, 1), true_len, self.trash_page)
-            return prefill_merged(q, caches, self._ccfg_loc, slot, start, true_len,
-                                  rule=cfg.rule)
+            write_tokens_sharded(caches, self._ccfg_loc, write_meta, k.transpose(0, 1),
+                                 v.transpose(0, 1))
+            return prefill_merged(q, caches, self._ccfg_loc, attend_meta, rule=cfg.rule)
 
         x = self.model.embed[tokens]
         for i in range(cfg.n_layers):
             x = self._layer(i, x, per_shard, attend)
-        return self._logits(x[true_len - 1])
+        last = x.index_select(0, (true_len - 1).long().reshape(1))[0]
+        return (self._logits(last),)
 
     def _positions(self):
         """The slots' global lengths before this step's appends: the sum
@@ -433,13 +510,13 @@ class DecodeEngine:
         return global_lengths(self._layer_shards[0][0], self.device)
 
     @torch.no_grad()
-    def _decode_step(self, tokens, active, sps: List[SamplingParams]):
-        """One token for every slot: tokens (S,), active (S,) bool."""
+    def _decode_step_impl(self, tokens, active):
+        """One token for every slot: tokens (S,), active (S,) bool; returns
+        (the greedy tokens (S,), the logits (S, vocab))."""
         cfg = self.mcfg
-        S = tokens.shape[0]
         pos = self._positions()
         glob = pos + active.to(torch.int32)
-        cos, sin = _rope_cos_sin(pos, cfg.d_head, cfg.rope_theta, cfg.dtype)
+        cos, sin = _rope_cos_sin(pos, self._inv_freq, cfg.dtype)
         per_shard = self._on_shards(cos, sin, active, pos, glob)
 
         def attend(q, k, v, caches, active, pos, glob):
@@ -451,24 +528,22 @@ class DecodeEngine:
         for i in range(cfg.n_layers):
             x = self._layer(i, x, per_shard, attend)
         logits = self._logits(x)
-        if all(sp.temperature == 0 for sp in sps):
-            return torch.argmax(logits.float(), dim=-1)
-        return self._sample(logits, sps)
+        return torch.argmax(logits.float(), dim=-1), logits
 
     @torch.no_grad()
-    def _spec_step(self, tokens, active, sps: List[SamplingParams]):
+    def _spec_step_impl(self, tokens, active):
         """Speculative step: ``tokens`` (S, gamma) = [last, draft_1..] per
         slot.  Appends the gamma tokens' K/V with one append a layer (per
         shard: the tokens in order, each on its position's owner shard),
         verifies them with one multi-token decode per layer, and returns the
-        greedy token after each position (S, gamma) and, if any slot
-        samples, a token sampled from position 0 (S,), else None."""
+        greedy token after each position (S, gamma) and position 0's logits
+        (S, vocab), which a sampled slot samples from."""
         cfg = self.mcfg
         S, gamma = tokens.shape
         pos0 = self._positions()
         glob = pos0 + gamma * active.to(torch.int32)
         pos = pos0.long()[:, None] + torch.arange(gamma, device=self.device)
-        cos, sin = _rope_cos_sin(pos, cfg.d_head, cfg.rope_theta, cfg.dtype)
+        cos, sin = _rope_cos_sin(pos, self._inv_freq, cfg.dtype)
         per_shard = self._on_shards(cos, sin, active, pos0, glob)
 
         def attend(q, k, v, caches, active, pos0, glob):
@@ -480,18 +555,19 @@ class DecodeEngine:
         for i in range(cfg.n_layers):
             x = self._layer(i, x, per_shard, attend)
         logits = self._logits(x)                             # (S, gamma, vocab)
-        greedy = torch.argmax(logits.float(), dim=-1)
-        sampled0 = (self._sample(logits[:, 0], sps)
-                    if any(sp.temperature > 0 for sp in sps) else None)
-        return greedy, sampled0
+        return torch.argmax(logits.float(), dim=-1), logits[:, 0]
 
-    def _sample(self, logits, sps: List[SamplingParams]):
-        dev = self.device
-        return sample_tokens(
-            logits, self._generator,
-            torch.tensor([sp.temperature for sp in sps], dtype=torch.float32, device=dev),
-            torch.tensor([sp.top_k for sp in sps], dtype=torch.int32, device=dev),
-            torch.tensor([sp.top_p for sp in sps], dtype=torch.float32, device=dev))
+    def _sample(self, logits, slots=slice(None)):
+        """Sample from ``logits`` (n, vocab) with the parameters of ``slots``
+        (every slot's by default) and the engine's generator, after the
+        step: greedy slots take the argmax."""
+        return sample_tokens(logits, self._generator, self._temperature[slots],
+                             self._top_k[slots], self._top_p[slots])
+
+    def _set_sampling(self, slot: int, sp: SamplingParams) -> None:
+        self._temperature[slot] = sp.temperature
+        self._top_k[slot] = sp.top_k
+        self._top_p[slot] = sp.top_p
 
     # ---- host-side serving loop ----
 
@@ -609,9 +685,9 @@ class DecodeEngine:
                 self._sync_tables()
             self.stats["prefill_chunks"] += 1
             self.stats["prefill_tokens"] += n
-            toks = prompt[start:start + n] + [0] * (chunk - n)
-            last_logits = self._chunk_prefill(
-                torch.tensor(toks, dtype=torch.long, device=self.device), slot, start, n)
+            self._upload(self._in_chunk, prompt[start:start + n] + [0] * (chunk - n))
+            self._upload(self._in_meta, [slot, start, n])
+            last_logits, = self._chunk_prefill(self._in_chunk, self._in_meta)
             start += n
             if lazy:
                 keep_from = max(0, start - (self._window - 1)) // ps
@@ -676,10 +752,12 @@ class DecodeEngine:
             self.stats["admitted"] += 1
             prompt = self._prompts.pop(req.rid)
             last_logits, evicted, refunded = self._prefill(prompt, slot)
-            self.last_prefill_logits = last_logits
+            # a graphed chunk's logits are overwritten by the next replay
+            self.last_prefill_logits = last_logits = last_logits.clone()
             sp, eos_id = self._sampling.pop(req.rid, (SamplingParams(), None))
+            self._set_sampling(slot, sp)
             if sp.temperature > 0:
-                first_tok = int(self._sample(last_logits[None], [sp])[0])
+                first_tok = int(self._sample(last_logits[None], slice(slot, slot + 1))[0])
             else:
                 first_tok = int(torch.argmax(last_logits.float()))
             self._results[req.rid].append(first_tok)
@@ -750,6 +828,7 @@ class DecodeEngine:
                 for shard in self.shards:
                     for cache in shard:
                         cache.lengths[slot] = 0
+                self._set_sampling(slot, SamplingParams())
                 self._slots[slot] = None
 
     def _note_pages_in_use(self) -> None:
@@ -796,12 +875,13 @@ class DecodeEngine:
             if st is not None:
                 tok_mat[slot, 0] = st["last"]
                 tok_mat[slot, 1:] = self._propose(self._results[st["rid"]], gamma - 1)
-        active = torch.tensor([st is not None for st in self._slots], device=self.device)
-        sps = [st["sampling"] if st else SamplingParams() for st in self._slots]
-        greedy, sampled0 = self._spec_step(torch.from_numpy(tok_mat).to(self.device),
-                                           active, sps)
+        self._upload(self._in_drafts, tok_mat)
+        self._upload(self._in_active, [st is not None for st in self._slots])
+        greedy, logits0 = self._spec_step(self._in_drafts, self._in_active)
+        sampled0 = (self._sample(logits0).cpu().numpy()
+                    if any(st and st["sampling"].temperature > 0 for st in self._slots)
+                    else None)
         greedy = greedy.cpu().numpy()
-        sampled0 = None if sampled0 is None else sampled0.cpu().numpy()
         produced = 0
         for slot, st in enumerate(self._slots):
             if st is None:
@@ -861,11 +941,12 @@ class DecodeEngine:
         self._sync_tables()
         self.stats["steps"] += 1
         self._note_pages_in_use()
-        tokens = torch.tensor([st["last"] if st else 0 for st in self._slots],
-                              dtype=torch.long, device=self.device)
-        active = torch.tensor([st is not None for st in self._slots], device=self.device)
-        sps = [st["sampling"] if st else SamplingParams() for st in self._slots]
-        next_host = self._decode_step(tokens, active, sps).cpu().numpy()
+        self._upload(self._in_tokens, [st["last"] if st else 0 for st in self._slots])
+        self._upload(self._in_active, [st is not None for st in self._slots])
+        greedy, logits = self._decode_step(self._in_tokens, self._in_active)
+        if any(st and st["sampling"].temperature > 0 for st in self._slots):
+            greedy = self._sample(logits)
+        next_host = greedy.cpu().numpy()
         produced = 0
         for slot, st in enumerate(self._slots):
             if st is None:

@@ -25,10 +25,15 @@ nibble where a byte row's other token is not in the launch).  Each has a
 plain PyTorch version beside it, the JAX package's XLA-scatter
 specification, which the wrapper takes only for tensors on the CPU.  The
 kernels read K/V where the projection leaves them (strided views, no
-copy) and set the lengths themselves, so on the card a write is one launch
-and no torch op.  Several padding rows or inactive slots may write the
-reserved trash page at once; its contents are garbage by design, and
-nothing reads it (the kernels skip those rows).  Under sequence sharding
+copy) and set the lengths themselves.  A chunk write takes its per-call
+scalars as the JAX kernel does, one int32 ``meta`` vector on the device
+(``chunk_write_meta``: slot, start, total, trash page, page offset), which
+the kernel reads and derives its kept rows from, so one CUDA graph of the
+engine's chunked prefill serves every chunk; ``slot``, ``start`` and
+``true_len`` may be Python ints or 0-d tensors.  Several padding rows or
+inactive slots may write the reserved trash page at once; its contents
+are garbage by design, and nothing reads it (the kernels skip those
+rows).  Under sequence sharding
 (``seq_sharded_decode.py``) a chunk write with ``page_stride``/
 ``page_offset`` keeps only the rows of its shard's pages
 (``_owned_rows``), and its length becomes the shard's owned-token count
@@ -48,8 +53,8 @@ from .. import native
 from ..block_sizes import LANE, pad_to
 
 __all__ = ["KVCacheConfig", "PagedKVCache", "PageAllocator", "write_tokens_at",
-           "append_tokens_batched", "append_token", "write_prompt", "assign_page",
-           "gather_sequence_kv"]
+           "chunk_write_meta", "append_tokens_batched", "append_token", "write_prompt",
+           "assign_page", "gather_sequence_kv"]
 
 # per-token symmetric quantization: the largest magnitude maps to this value
 _QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0, torch.float8_e5m2: 57344.0}
@@ -268,7 +273,9 @@ def _owned_rows(cfg: KVCacheConfig, start: int, true_len: int, page_stride: int 
     shard's local positions ``local0 .. local0 + pack * rows - 1``; local
     position l is global position ``((l // page) * stride + offset) * page
     + l % page``, and ``length`` is the slot's owned-token count after the
-    write."""
+    write.  The kernel derives the same from its ``meta`` on the device
+    (``chunk_span`` in ``csrc/serving_kernels.cu``); this is its host
+    specification."""
     ps, pack = cfg.page_size, cfg.tok_pack
     local0 = _owned_token_count(start, ps, page_stride, page_offset)
     end = _owned_token_count(start + -(-true_len // pack) * pack, ps, page_stride, page_offset)
@@ -276,8 +283,44 @@ def _owned_rows(cfg: KVCacheConfig, start: int, true_len: int, page_stride: int 
             _owned_token_count(start + true_len, ps, page_stride, page_offset))
 
 
-def _write_tokens_plain(cache, cfg, slot, start, k, v, true_len, trash_page,
-                        page_stride=1, page_offset=0):
+def device_scalar(x, device) -> torch.Tensor:
+    """A Python int or a 0-d tensor as a 0-d int32 tensor on ``device``,
+    made there by a fill or a cast: no tensor from host data, so a CUDA
+    graph may capture it."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32).reshape(())
+    return torch.full((), int(x), dtype=torch.int32, device=device)
+
+
+def meta_device(scalars, device) -> torch.device:
+    """Where a meta vector is built: on ``device`` when a scalar is a
+    tensor (no host sync), else on the CPU, whose few ops cost less than
+    launches, and uploaded once."""
+    return device if any(isinstance(x, torch.Tensor) for x in scalars) else torch.device("cpu")
+
+
+def chunk_write_meta(slot, start, true_len, trash_page: int, page_stride: int = 1,
+                     device=None) -> torch.Tensor:
+    """The chunk write's scalars, a row a shard: int32 (page_stride, 5) rows
+    ``[slot, start, start + true_len, trash_page, r]`` for the shard of page
+    offset r, the JAX wrapper's ``meta`` (kv_cache.py:386-389), on
+    ``device`` (the CPU by default), made by device arithmetic from 0-d
+    tensors, or on the host from ints (``meta_device``)."""
+    device = torch.device("cpu" if device is None else device)
+    on = meta_device((slot, start, true_len), device)
+    slot, start, true_len = (device_scalar(x, on) for x in (slot, start, true_len))
+    head = torch.stack([slot, start, start + true_len, torch.full_like(slot, trash_page)])
+    offsets = torch.arange(page_stride, dtype=torch.int32, device=on)
+    meta = torch.cat([head.expand(page_stride, 4), offsets[:, None]], dim=1)
+    return meta.to(device, non_blocking=True)
+
+
+def _write_tokens_plain(cache, cfg, meta, k, v, page_stride=1):
+    """The chunk write of ``meta`` (one row of ``chunk_write_meta``) in
+    plain PyTorch, the slot's length included (the CPU's path); reads
+    ``meta`` back to the host."""
+    slot, start, total, trash_page, page_offset = meta.tolist()
+    true_len = total - start
     chunk = k.shape[1]
     idx = torch.arange(chunk, device=k.device)
     pos = start + idx
@@ -291,6 +334,7 @@ def _write_tokens_plain(cache, cfg, slot, start, k, v, true_len, trash_page,
     phys = torch.where(own, phys, torch.full_like(phys, trash_page))
     store = _store_byte_rows if cfg.is_int4 else _store_rows
     store(cache, cfg, phys, pos % cfg.page_size, k, v)
+    cache.lengths[slot] = _owned_token_count(total, cfg.page_size, page_stride, page_offset)
 
 
 def _check_device(cache, *tensors):
@@ -299,11 +343,12 @@ def _check_device(cache, *tensors):
             raise ValueError(f"tensor on {t.device}, cache on {cache.k_pages.device}")
 
 
-def write_tokens_at(cache: PagedKVCache, cfg: KVCacheConfig, slot: int,
-                    start: int, k: torch.Tensor, v: torch.Tensor,
-                    true_len: int, trash_page: int, page_stride: int = 1,
+def write_tokens_at(cache: PagedKVCache, cfg: KVCacheConfig, slot, start, k: torch.Tensor,
+                    v: torch.Tensor, true_len, trash_page: int, page_stride: int = 1,
                     page_offset: int = 0) -> PagedKVCache:
     """Write a prompt chunk's K/V at absolute position ``start``, in place.
+    ``slot``, ``start`` and ``true_len`` are Python ints or 0-d tensors, as
+    the JAX entry takes Python or traced scalars (``chunk_write_meta``).
 
     ``k, v``: (n_kv_heads, chunk, head_dim), for example the transposed
     (chunk, n_kv_heads, head_dim) projection (the kernel reads any head and
@@ -312,8 +357,9 @@ def write_tokens_at(cache: PagedKVCache, cfg: KVCacheConfig, slot: int,
     contents are garbage either way).  The slot's length becomes
     ``start + true_len``.  An int4 cache needs an even ``start`` and an
     even chunk (whole byte rows).  On a CUDA cache this launches
-    ``kv_chunk_write`` (quantization and the length fused in); on the CPU
-    it runs the plain version.
+    ``kv_chunk_write`` (quantization and the length fused in; a 0-d
+    tensor ``start`` is not checked for int4's evenness, as a traced one
+    is not); on the CPU it runs the plain version.
 
     Sequence sharding: with ``page_stride``/``page_offset`` this cache holds
     every ``page_stride``-th global page starting at ``page_offset`` (global
@@ -323,26 +369,31 @@ def write_tokens_at(cache: PagedKVCache, cfg: KVCacheConfig, slot: int,
     """
     if k.shape != v.shape or k.shape[0] != cfg.n_kv_heads or k.shape[2] != cfg.head_dim:
         raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)}")
-    if cfg.is_int4 and (start % 2 or k.shape[1] % 2):
+    if cfg.is_int4 and ((isinstance(start, int) and start % 2) or k.shape[1] % 2):
         raise ValueError(f"int4 chunked writes need an even start and chunk, got "
                          f"start {start}, chunk {k.shape[1]}")
     if not 0 <= page_offset < page_stride:
         raise ValueError(f"page offset {page_offset} outside stride {page_stride}")
+    meta = chunk_write_meta(slot, start, true_len, trash_page, page_stride, k.device)
+    write_tokens_meta(cache, cfg, meta[page_offset], k, v, page_stride)
+    return cache
+
+
+def write_tokens_meta(cache: PagedKVCache, cfg: KVCacheConfig, meta: torch.Tensor,
+                      k: torch.Tensor, v: torch.Tensor, page_stride: int = 1) -> None:
+    """``write_tokens_at`` with its scalars in ``meta``, a row of
+    ``chunk_write_meta`` on k's device (the engine builds the rows once a
+    chunk): ``kv_chunk_write`` on a CUDA cache, the plain version on the
+    CPU."""
     if k.device.type == "cpu":
-        _write_tokens_plain(cache, cfg, slot, start, k, v, true_len, trash_page,
-                            page_stride, page_offset)
-        cache.lengths[slot] = _owned_token_count(start + true_len, cfg.page_size, page_stride,
-                                                 page_offset)
+        _write_tokens_plain(cache, cfg, meta, k, v, page_stride)
     elif k.device.type == "cuda":
-        _check_device(cache, k, v)
+        _check_device(cache, k, v, meta)
         if k.stride() != v.stride() or k.stride(-1) != 1:
             k, v = k.contiguous(), v.contiguous()
-        native.kv_chunk_write(cache, cfg, slot, start, k, v,
-                              *_owned_rows(cfg, start, true_len, page_stride, page_offset),
-                              page_stride, page_offset)
+        native.kv_chunk_write(cache, cfg, meta, k, v, page_stride)
     else:
         raise ValueError(f"unsupported device {k.device}")
-    return cache
 
 
 def _append_plain(cache, cfg, k_new, v_new, active, trash_page):

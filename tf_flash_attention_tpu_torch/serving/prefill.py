@@ -15,6 +15,13 @@ returns each row's ``l`` and ``m`` (float32, base-2), and ``page_stride``/
 page starting at ``page_offset``; key positions are global, the page count
 and first live page local.  On a CUDA tensor this launches the same
 kernel with those arguments, counted as ``paged_prefill[cp]``.
+
+The per-call scalars reach the kernel as the JAX kernel's scalar prefetch
+does, one int32 ``meta`` vector on the device (``prefill_meta``: slot,
+local page count, total, start, first live local page, page offset), and
+the kernel reads the slot's table row itself, so one CUDA graph of the
+engine's chunked prefill serves every chunk; ``slot``, ``start`` and
+``true_len`` may be Python ints or 0-d tensors.
 """
 
 from __future__ import annotations
@@ -29,25 +36,39 @@ from .. import native
 from ..mask_rules import CausalRule, MaskRule
 from ..ops.kernel_common import LOG2E, NEG_INF_F32
 from .decode import _compute_dtype, _first_live_page, _rule_visible, _softmax_page
-from .kv_cache import KVCacheConfig, PagedKVCache, _page_tokens
+from .kv_cache import KVCacheConfig, PagedKVCache, _page_tokens, device_scalar, meta_device
 
-__all__ = ["paged_prefill_attention"]
-
-
-def _page_range(cfg, start, true_len, rule, page_stride, page_offset):
-    """(first live local page, local page count) of the chunk's sequence,
-    as the JAX wrapper computes them (prefill.py:241-253): the shard owns
-    global pages g with g % page_stride == page_offset."""
-    n_global = -(-(start + true_len) // cfg.page_size)
-    count = ((n_global - page_offset + page_stride - 1) // page_stride
-             if n_global > page_offset else 0)
-    first = int(_first_live_page(rule, torch.tensor(start + 1), 1, cfg.page_size, page_stride,
-                                 page_offset))
-    return first, count
+__all__ = ["paged_prefill_attention", "prefill_meta"]
 
 
-def _paged_prefill_plain(qs, cache, cfg, slot, start, true_len, rule, returning_l_m=False,
-                         page_stride=1, page_offset=0):
+def prefill_meta(cfg: KVCacheConfig, slot, start, true_len, rule: MaskRule = CausalRule(),
+                 page_stride: int = 1, device=None) -> torch.Tensor:
+    """The prefill's scalars, a row a shard: int32 (page_stride, 6) rows
+    ``[slot, count, total, start, first_live, r]`` for the shard of page
+    offset r, as the JAX wrapper builds its ``meta`` (prefill.py:241-257):
+    ``count`` the local pages of the chunk's sequence (the shard owns global
+    pages g with g % page_stride == r), ``first_live`` the first local page
+    the rule lets the chunk's first row see.  On ``device`` (the CPU by
+    default), by device arithmetic from 0-d tensors (no host sync), or on
+    the host from ints (``kv_cache.meta_device``)."""
+    device = torch.device("cpu" if device is None else device)
+    on = meta_device((slot, start, true_len), device)
+    slot, start, true_len = (device_scalar(x, on) for x in (slot, start, true_len))
+    total = start + true_len
+    offsets = torch.arange(page_stride, dtype=torch.int32, device=on)
+    n_global = (total + cfg.page_size - 1) // cfg.page_size
+    count = torch.where(n_global > offsets, (n_global - offsets + page_stride - 1) // page_stride,
+                        0)
+    first = _first_live_page(rule, start + 1, 1, cfg.page_size, page_stride, offsets)
+    cols = (slot, count, total, start, first, offsets)
+    meta = torch.stack([c.expand(page_stride) for c in cols], dim=1).to(torch.int32)
+    return meta.to(device, non_blocking=True)
+
+
+def _paged_prefill_plain(qs, cache, cfg, meta, rule, returning_l_m=False, page_stride=1):
+    """The prefill of ``meta`` (one row of ``prefill_meta``) in plain
+    PyTorch (the CPU's path); reads ``meta`` back to the host."""
+    slot, count, total, start, first, page_offset = meta.tolist()
     chunk, n_q, d = qs.shape
     n_kv, D, ps, mp = cfg.n_kv_heads, cfg.head_dim_store, cfg.page_size, cfg.max_pages_per_seq
     g = n_q // n_kv
@@ -55,8 +76,6 @@ def _paged_prefill_plain(qs, cache, cfg, slot, start, true_len, rule, returning_
     # (chunk, n_kv, g, d) -> (n_kv, g, chunk, D)
     qg = F.pad(qs.reshape(chunk, n_kv, g, d).permute(1, 2, 0, 3), (0, D - d))
     qg = qg.to(cdt).float()
-    total = start + true_len
-    first, count = _page_range(cfg, start, true_len, rule, page_stride, page_offset)
     q_pos = (start + torch.arange(chunk, device=qs.device))[:, None]
     state = (torch.full((n_kv, g, chunk, 1), NEG_INF_F32, device=qs.device),
              torch.zeros((n_kv, g, chunk, 1), device=qs.device),
@@ -89,12 +108,13 @@ def _paged_prefill_plain(qs, cache, cfg, slot, start, true_len, rule, returning_
     return (o, rows(l)[..., 0], rows(m)[..., 0]) if returning_l_m else o
 
 
-def paged_prefill_attention(q: torch.Tensor, cache: PagedKVCache,
-                            cfg: KVCacheConfig, slot: int, start: int,
-                            true_len: int, *, scale: Optional[float] = None,
+def paged_prefill_attention(q: torch.Tensor, cache: PagedKVCache, cfg: KVCacheConfig, slot,
+                            start, true_len, *, scale: Optional[float] = None,
                             rule: MaskRule = CausalRule(), returning_l_m: bool = False,
                             page_stride: int = 1, page_offset: int = 0):
     """Causal attention of a prompt chunk against one sequence's paged cache.
+    ``slot``, ``start`` and ``true_len`` are Python ints or 0-d tensors, as
+    the JAX entry takes Python or traced scalars (``prefill_meta``).
 
     ``q``: (chunk, n_q_heads, head_dim), queries at absolute positions
     ``start .. start + chunk``.  The chunk's own K/V must already be in the
@@ -105,22 +125,34 @@ def paged_prefill_attention(q: torch.Tensor, cache: PagedKVCache,
     n_q_heads), m base-2.  Sequence sharding: this cache holds every
     ``page_stride``-th global page of the sequence from ``page_offset``.
     """
+    if not 0 <= page_offset < page_stride:
+        raise ValueError(f"page offset {page_offset} outside stride {page_stride}")
+    meta = prefill_meta(cfg, slot, start, true_len, rule, page_stride, q.device)
+    return prefill_with_meta(q, cache, cfg, meta[page_offset], scale=scale, rule=rule,
+                             returning_l_m=returning_l_m, page_stride=page_stride)
+
+
+def prefill_with_meta(q: torch.Tensor, cache: PagedKVCache, cfg: KVCacheConfig,
+                      meta: torch.Tensor, *, scale: Optional[float] = None,
+                      rule: MaskRule = CausalRule(), returning_l_m: bool = False,
+                      page_stride: int = 1):
+    """``paged_prefill_attention`` with its scalars in ``meta``, a row of
+    ``prefill_meta`` on q's device (the engine builds the rows once a
+    chunk): ``paged_prefill`` on a CUDA tensor, the plain version on the
+    CPU."""
     chunk, n_q, d = q.shape
     if n_q % cfg.n_kv_heads:
         raise ValueError(f"q heads {n_q} not a multiple of kv heads {cfg.n_kv_heads}")
     if d != cfg.head_dim:
         raise ValueError(f"q head_dim {d}, cache head_dim {cfg.head_dim}")
-    if not 0 <= page_offset < page_stride:
-        raise ValueError(f"page offset {page_offset} outside stride {page_stride}")
     if scale is None:
         scale = 1.0 / float(np.sqrt(d))
-    # Q prescale in float32, rounded back to q's dtype (prefill.py:238)
-    qs = (q.float() * torch.tensor(scale * LOG2E, dtype=torch.float32)).to(q.dtype)
+    # Q prescale in float32, rounded back to q's dtype (prefill.py:238); the
+    # factor rounded to float32 on the host, as a float32 tensor holds it
+    qs = (q.float() * float(np.float32(scale * LOG2E))).to(q.dtype)
     if q.device.type == "cpu":
-        return _paged_prefill_plain(qs, cache, cfg, slot, start, true_len, rule, returning_l_m,
-                                    page_stride, page_offset)
+        return _paged_prefill_plain(qs, cache, cfg, meta, rule, returning_l_m, page_stride)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    first, count = _page_range(cfg, start, true_len, rule, page_stride, page_offset)
-    return native.paged_prefill(qs.contiguous(), cache, cfg, slot, start, start + true_len,
-                                first, count, rule, returning_l_m, page_stride, page_offset)
+    return native.paged_prefill(qs.contiguous(), cache, cfg, meta, rule, returning_l_m,
+                                page_stride)

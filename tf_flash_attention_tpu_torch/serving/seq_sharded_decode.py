@@ -32,8 +32,8 @@ from ..mask_rules import CausalRule, MaskRule
 from ..parallel.mesh import Mesh
 from .decode import paged_decode_attention, paged_multitoken_decode
 from .kv_cache import (KVCacheConfig, PagedKVCache, append_tokens_batched, write_prompt,
-                       write_tokens_at)
-from .prefill import paged_prefill_attention
+                       write_tokens_meta)
+from .prefill import prefill_meta, prefill_with_meta
 from .sharded_decode import head_shard_config
 
 __all__ = ["create_seq_sharded_cache", "write_prompt_seq_sharded",
@@ -129,34 +129,33 @@ def decode_merged(q: torch.Tensor, caches: List[PagedKVCache], cfg: KVCacheConfi
 
 
 def prefill_merged(q: torch.Tensor, caches: List[PagedKVCache], cfg: KVCacheConfig,
-                   slot: int, start: int, true_len: int, *, scale: Optional[float] = None,
+                   meta: torch.Tensor, *, scale: Optional[float] = None,
                    rule: MaskRule = CausalRule()) -> torch.Tensor:
     """Context-parallel chunked prefill: every shard scans its own pages for
-    the whole chunk, and the partials merge.  One shard is the plain
-    prefill."""
+    the whole chunk, and the partials merge.  ``meta`` holds a row a shard
+    (``prefill.prefill_meta`` with the shards' count as the page stride).
+    One shard is the plain prefill."""
     n = len(caches)
     if n == 1:
-        return paged_prefill_attention(q, caches[0], cfg, slot, start, true_len, scale=scale,
-                                       rule=rule)
+        return prefill_with_meta(q, caches[0], cfg, meta[0], scale=scale, rule=rule)
     parts = []
     for r, cache in enumerate(caches):
-        parts.append(paged_prefill_attention(
-            q.to(cache.k_pages.device), cache, cfg, slot, start, true_len, scale=scale,
-            rule=rule, returning_l_m=True, page_stride=n, page_offset=r))
+        dev = cache.k_pages.device
+        parts.append(prefill_with_meta(q.to(dev), cache, cfg, meta[r].to(dev), scale=scale,
+                                       rule=rule, returning_l_m=True, page_stride=n))
     return _merge_partials(parts, q.device).to(q.dtype)
 
 
-def write_tokens_sharded(caches: List[PagedKVCache], cfg: KVCacheConfig, slot: int,
-                         start: int, k: torch.Tensor, v: torch.Tensor, true_len: int,
-                         trash_page: int) -> None:
+def write_tokens_sharded(caches: List[PagedKVCache], cfg: KVCacheConfig, meta: torch.Tensor,
+                         k: torch.Tensor, v: torch.Tensor) -> None:
     """A prompt chunk's K/V (n_kv_heads, chunk, head_dim) into every shard:
-    each keeps the rows of its own pages (``write_tokens_at`` with the page
-    stride) and its local length becomes its owned-token count."""
+    each keeps the rows of its own pages (the chunk write with the page
+    stride; ``meta`` holds a row a shard, ``kv_cache.chunk_write_meta``) and
+    its local length becomes its owned-token count."""
     n = len(caches)
     for r, cache in enumerate(caches):
         dev = cache.k_pages.device
-        write_tokens_at(cache, cfg, slot, start, k.to(dev), v.to(dev), true_len, trash_page,
-                        page_stride=n, page_offset=r)
+        write_tokens_meta(cache, cfg, meta[r].to(dev), k.to(dev), v.to(dev), page_stride=n)
 
 
 def append_owned(caches: List[PagedKVCache], cfg: KVCacheConfig, k_new: torch.Tensor,
@@ -210,8 +209,9 @@ def seq_sharded_paged_prefill(mesh: Mesh, cfg: KVCacheConfig, axis: str, *,
 
     def fn(q, caches, slot, start, true_len):
         _check_shards(caches, n)
-        return prefill_merged(q, caches, cfg, int(slot), int(start), int(true_len), scale=scale,
-                              rule=rule)
+        return prefill_merged(q, caches, cfg,
+                              prefill_meta(cfg, slot, start, true_len, rule, n, q.device),
+                              scale=scale, rule=rule)
     return fn
 
 

@@ -25,7 +25,11 @@ lines, each naming the tree and the card:
   speculative step each launch (``torch.profiler``; memory copies and sets
   counted apart), with the KV writes' and the most frequent names.  The
   two calls of each launch the same kernels; where their counts differ,
-  the profiler dropped events in that run.
+  the profiler dropped events in that run.  The engine's steps are CUDA
+  graphs on the card: the first call of each captures it, the second and
+  third replay it, and beside the profiler's count of a replay stands the
+  graph's own (``step_kernels``: its kernel and memory nodes, counted once
+  at capture, and its replays), which is the "kernels a step" figure.
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -68,6 +72,21 @@ def summary(counts, top=8) -> dict:
             "top": {name[:60]: n for name, n in counts.most_common(top)}}
 
 
+def step_kernels(step, counts) -> dict:
+    """The ``summary`` of a call of ``step`` from its profiler ``counts``;
+    for a graphed step (``serving/graphs.py``), also its graph: the kernel
+    and memory nodes libcuda holds, counted once at capture (a replay
+    runs them all), the wrappers' launches captured in it and its replays
+    so far."""
+    out = summary(counts)
+    graphs = getattr(step, "graphs", None)
+    if graphs:
+        g = next(iter(graphs.values()))
+        out["graph"] = {"nodes": g.nodes, "wrapper_launches": sum(g.launches.values()),
+                        "replays": g.replays}
+    return out
+
+
 def step_census(eng, prompts, n_new=6) -> dict:
     """The device activities of ``eng``'s second and third prefill chunk,
     decode step and speculative step while it serves ``prompts`` (each of
@@ -85,19 +104,20 @@ def step_census(eng, prompts, n_new=6) -> dict:
             if calls[0] not in (2, 3):
                 return inner(*args, **kwargs)
             result, counts = kernels_of(lambda: inner(*args, **kwargs))
-            out.setdefault(label, []).append(summary(counts))
+            out.setdefault(label, []).append(step_kernels(inner, counts))
             return result
         return wrapped
 
+    steps = {attr: getattr(eng, attr) for attr in watched.values()}
     for label, attr in watched.items():
-        setattr(eng, attr, watch(label, getattr(eng, attr)))
+        setattr(eng, attr, watch(label, steps[attr]))
     try:
         for p in prompts:
             eng.submit(p, max_new_tokens=n_new)
         eng.run()
     finally:
-        for attr in watched.values():
-            delattr(eng, attr)
+        for attr, step in steps.items():
+            setattr(eng, attr, step)
     return out
 
 
@@ -163,9 +183,20 @@ def kv_write_times(dev, seed=0) -> dict:
                                   KV_KERNELS[1]),
     }
     # the bindings alone, as each tree's native module takes them: a tree
+    # with ``chunk_write_meta`` takes the scalars as a device vector; one
     # with ``_owned_rows`` reads strided K/V and sets the lengths in the
     # kernel; an earlier one takes contiguous K/V and the true length
-    if hasattr(kv_cache, "_owned_rows"):
+    if hasattr(kv_cache, "chunk_write_meta"):
+        meta = kv_cache.chunk_write_meta(0, 1100, 451, trash, 1, dev)[0]
+        meta_cp = kv_cache.chunk_write_meta(0, 1100, 451, trash, 4, dev)[0]
+        calls.update({
+            "native.kv_chunk_write": (lambda: native.kv_chunk_write(cache, cfg, meta, k, v),
+                                      KV_KERNELS[0]),
+            "native.kv_chunk_write[cp]": (lambda: native.kv_chunk_write(cache, cfg, meta_cp, k,
+                                                                        v, 4), KV_KERNELS[0]),
+            "native.kv_append": (lambda: native.kv_append(cache, cfg, kn, vn, active),
+                                 KV_KERNELS[1])})
+    elif hasattr(kv_cache, "_owned_rows"):
         rows = kv_cache._owned_rows(cfg, 1100, 451)
         rows_cp = kv_cache._owned_rows(cfg, 1100, 451, 4, 0)
         calls.update({

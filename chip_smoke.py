@@ -233,12 +233,14 @@ Phases (any failure exits non-zero before the final line):
      shard on cuda:0, one after another: no communication is measured):
      (a) the ring (CausalRule, FullRule, LocalRule(1024, is_causal=True))
      and Ulysses (CausalRule) on a context axis of 4 at (b, h, S, d) =
-     (4, 8, 8192, 128) bf16: outputs and dQ/dK/dV against single-device
-     mha within op_tol and against the same function on the plain versions
-     within attn_tol; prints the forward and forward + backward ms, the
-     ring steps visited and the launches by kernel; (b) the same 168M
-     decoder on phase 6's batch, 3 AdamW steps of make_sharded_train_step
-     on (data 2, model 4) and, with context_parallel=True, on (data 2,
+     (4, 8, 8192, 128) bf16, the callables' eager functions (``.eager``;
+     phase 12 replays their graphs): outputs and dQ/dK/dV against
+     single-device mha within op_tol and against the same function on the
+     plain versions within attn_tol; prints the forward and forward +
+     backward ms, the ring steps visited and the launches by kernel; (b)
+     the same 168M decoder on phase 6's batch, 3 AdamW steps (capturable)
+     of make_sharded_train_step's eager step (``.eager``; phase 12 its
+     graph) on (data 2, model 4) and, with context_parallel=True, on (data 2,
      model 2, context 2): the first step's loss and gradient norm within
      TRAIN_LOSS_ATOL / TRAIN_GNORM_RTOL of phase 6's plain path, falling
      losses, one attention launch a (data, model) block, layer and step
@@ -246,12 +248,13 @@ Phases (any failure exits non-zero before the final line):
      tokens/s;
   6c. MoE training: the 168M decoder with 4 experts (fp32 parameters, bf16
      compute, float32 experts) on phase 6's batch, 3 AdamW steps, then 3
-     of make_sharded_train_step on (data 2, model 4), one expert a model
+     of make_sharded_train_step's eager step on (data 2, model 4), one expert a model
      shard: the first step's loss and gradient norm within
      TRAIN_LOSS_ATOL / TRAIN_GNORM_RTOL of the plain path, falling losses,
      one banded_fwd and banded_bwd a (data, model) block, layer and step;
      prints step ms, tokens/s and the launches;
-  6d. the GPipe step: phase 6's model, weights and batch on (data 2, pipe
+  6d. the GPipe step (make_pipeline_train_step's eager step): phase 6's
+     model, weights and batch on (data 2, pipe
      4), 2 layers a stage, 4 microbatches: the first step's loss and
      gradient norm within the same tolerances of phase 6's plain path,
      falling losses, exactly 64 launches each of banded_fwd and banded_bwd
@@ -330,7 +333,28 @@ Phases (any failure exits non-zero before the final line):
      graph's replay: its kernels back to back) and its graphs (the
      graph's kernel nodes, the wrappers' launches, the pool's bytes), and
      each layout's medians with the busy shares (the graphed spans over
-     each kind's median step and chunk).
+     each kind's median step and chunk);
+  12. the rest of jax.jit: (a) each training-step factory eager
+     (``step.eager``) and graphed (the CUDA graph of forward, backward and
+     the capturable AdamW's step) from the same weights, 3 steps each on
+     phase 6's batch: a 1-device mesh (the JAX train demo's layout),
+     (data 2, model 4), (data 2, model 2, context 2), the MoE decoder on
+     (data 2, model 4) and the GPipe step on (data 2, pipe 4) with M = 4;
+     every graphed step's loss within TRAIN_LOSS_ATOL of the eager run's,
+     the first step's gradient norm within TRAIN_GNORM_RTOL; prints each
+     run's median step ms (steps 2-3), host ms inside the call, the call's
+     CUDA-event span, the busy share (span over wall), the graph's kernel
+     and copy nodes, the pool's bytes and the banded launches it holds;
+     (b) ring_flash_attention, ulysses_flash_attention (a context axis of
+     4) and sharded_flash_attention (a model axis of 4) at (4, 8, 8192, 128)
+     bf16, forward + backward eager and graphed (a forward and a backward
+     graph): a replay's output and gradients within attn_tol of the eager
+     call's; prints both ms and the graphs; (c) phase 3g's bucketed engine
+     eager and graphed (a graph a bucket, the first-token sampler's graph
+     drawing from the engine's generator), after two warm-up requests (the
+     captures), on phase 3's 18 requests and 2 sampled ones: every token
+     equal, the last prompt token's logits within LOGIT_ATOL of phase 3's
+     chunked engine; prints both prefill rates.
 
 The kernels' JSON line gives each kernel's launches from the run of the
 path that takes it by default ("path": the engine, the speculative engine,
@@ -346,7 +370,9 @@ can take (flash_fwd, banded_fwd, window_fwd, resident_fwd,
 flash_bwd_fused, window_bwd, banded_bwd) add their launches in phase 6b's
 runs under test ("ring train (6b)"; the mha and plain references left
 out); banded_fwd and banded_bwd add their launches in the MoE steps ("moe
-train (6c)") and the pipeline's ("pipeline train (6d)"), and the serving
+train (6c)") and the pipeline's ("pipeline train (6d)"), the op kernels
+phase 12's graphed runs launched, the wrappers' (eager first calls and
+captures) and the replays' apart ("compiled (12)"), and the serving
 kernels theirs in the MoE engine's runs ("moe engine (3i)").  The four sequence-sharded variants follow as kernels of
 their own ("paged_decode[cp]", ...; launches from the cp engine of phase
 3e, times and library yardsticks from 3e(a) on shard 0), then the ten
@@ -1124,7 +1150,6 @@ def main():
     # ---- 10: the rest of the package ----
     t0 = time.perf_counter()
     checkpoint_phase(mcfg, cpu_model, dev, train_tokens)
-    del train_tokens
     classifier_phase(built_schedules)
     graft_phase(dev)
     examples_phase()
@@ -1132,6 +1157,16 @@ def main():
 
     # ---- 11: the compiled steps, graphed against eager, every layout ----
     compiled_phase(mcfg, cpu_model, ecfg, prompts, pattern, args.seed, dev)
+
+    # ---- 12: the rest of jax.jit: the training steps, the parallel
+    # attention callables and the bucketed prefill, graphed against eager ----
+    t0 = time.perf_counter()
+    compiled = compiled_train_phase(mcfg, cpu_model, dev, train_tokens, args.seed)
+    del train_tokens
+    compiled_callables_phase(dev, args.seed, compiled)
+    compiled_bucketed_phase(mcfg, cpu_model, ecfg, prompts, chunked_logits, args.seed, dev)
+    print(f"phase 12: {time.perf_counter() - t0:.3f} s; op kernels of the graphed runs "
+          f"{json.dumps(compiled)}", flush=True)
 
     csrc = "tf_flash_attention_tpu_torch/csrc/"
     replaces = {
@@ -1180,6 +1215,10 @@ def main():
             # pipeline's (6d)
             entry["moe train (6c)"] = moe_train_launches.get(k, 0)
             entry["pipeline train (6d)"] = pipe_launches[k]
+        if k in compiled:
+            # phase 12's graphed steps and callables: the wrappers' launches
+            # (eager first calls, captures) and the graphs' replays apart
+            entry["compiled (12)"] = compiled[k]
         if k in RING_KERNELS:
             entry["ring_train"] = {"path": "ring train (6b): the ring and Ulysses on a context "
                                            "axis of 4, and the 168M sharded step on (data 2, "
@@ -2345,7 +2384,9 @@ FORWARD_KERNELS = ("flash_fwd", "banded_fwd", "window_fwd", "resident_fwd")
 def bucketed_phase(mcfg, cpu_model, ecfg, prompts, n_new, chunked_logits, chunked_rate, dev):
     """Phase 3g: the engine with prefill_mode="bucketed" (buckets 512 and
     2,048) on phase 3's requests: the forward kernel the route picks must
-    launch once per layer and prompt, and no other op kernel; each
+    launch once per layer and prompt (a bucket's graph counts its eager
+    first call and its capture in the wrappers' launches, each replay in
+    native.REPLAYED), and no other op kernel; each
     request's last prompt token's logits within LOGIT_ATOL of phase 3's
     chunked engine's.  Prints the prefill rate beside phase 3's."""
     from tf_flash_attention_tpu_torch import native
@@ -2355,15 +2396,18 @@ def bucketed_phase(mcfg, cpu_model, ecfg, prompts, n_new, chunked_logits, chunke
         ecfg, prefill_mode="bucketed", prefill_buckets=(512, 2048)), device=dev)
     logits = record_prompt_logits(eng)
     _, ran = serve("bucketed engine", eng, [(p, None) for p in prompts], n_new, mcfg.vocab)
+    ran = {k: n + eng.replayed.get(k, 0) for k, n in ran.items()}
     fwd = {k: ran[k] for k in FORWARD_KERNELS if ran[k]}
     others = {k: ran[k] for k in native.ATTENTION_KERNELS if ran[k] and k not in FORWARD_KERNELS}
-    want = mcfg.n_layers * len(prompts)
+    captures = len(getattr(eng._bucket_prefill, "graphs", {}))
+    want = mcfg.n_layers * (len(prompts) + captures)
     if len(fwd) != 1 or sum(fwd.values()) != want or others:
-        fail(f"bucketed engine: forward launches {fwd}, other op kernels {others}; expected one "
-             f"forward kernel {want} times")
+        fail(f"bucketed engine: forward launches {fwd} (replays included), other op kernels "
+             f"{others}; expected one forward kernel {want} times ({captures} captures)")
     err = logits_err("bucketed engine", logits, chunked_logits, LOGIT_ATOL)
     print(f"bucketed engine: forward launches {json.dumps(fwd)} ({mcfg.n_layers} layers x "
-          f"{len(prompts)} prompts); last prompt token's logits against the chunked engine's "
+          f"{len(prompts)} prompts and {captures} bucket captures); last prompt token's "
+          f"logits against the chunked engine's "
           f"(phase 3): max_abs_err {err} (tol {LOGIT_ATOL}); prefill {eng.rates[0]:.1f} tokens/s "
           f"against the chunked engine's {chunked_rate:.1f} (phase 3, {eng.rates[0] / chunked_rate:.3f}x)",
           flush=True)
@@ -3735,10 +3779,11 @@ def ring_op_phase(dev, seed):
     gen = torch.Generator(device=dev).manual_seed(seed + 11)
     q, k, v, do = (torch.randn(RING_SHAPE, generator=gen, device=dev).to(bf) for _ in range(4))
     window = LocalRule(1024, is_causal=True)
-    cases = [("ring causal", CausalRule(), ring_flash_attention(mesh, rule=CausalRule())),
-             ("ring full", FullRule(), ring_flash_attention(mesh, rule=FullRule())),
-             ("ring local w1024 causal", window, ring_flash_attention(mesh, rule=window)),
-             ("ulysses causal", CausalRule(), ulysses_flash_attention(mesh, CausalRule()))]
+    # the eager functions: phase 12(b) replays the callables' graphs
+    cases = [("ring causal", CausalRule(), ring_flash_attention(mesh, rule=CausalRule()).eager),
+             ("ring full", FullRule(), ring_flash_attention(mesh, rule=FullRule()).eager),
+             ("ring local w1024 causal", window, ring_flash_attention(mesh, rule=window).eager),
+             ("ulysses causal", CausalRule(), ulysses_flash_attention(mesh, CausalRule()).eager)]
 
     def run(fn):
         xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
@@ -3829,9 +3874,9 @@ def ring_train_phase(mcfg, cpu_model, dev, tokens, loss_plain, gnorm_plain):
     total = {}
     b, s = tokens.shape[0], tokens.shape[1] - 1
 
-    def adamw(model):   # phase 6's
+    def adamw(model):   # phase 6's, capturable (the factory's step on one card is a graph)
         return torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=1e-4)
+                                 weight_decay=1e-4, capturable=True)
 
     model = copy.deepcopy(cpu_model).to(dev)
     opt = adamw(model)
@@ -3845,7 +3890,7 @@ def ring_train_phase(mcfg, cpu_model, dev, tokens, loss_plain, gnorm_plain):
         mesh = make_mesh(shape, axes, [dev] * math.prod(shape))
         model = copy.deepcopy(cpu_model).to(dev)
         opt = adamw(model)
-        step = tf.make_sharded_train_step(cfg, mesh, opt)
+        step = tf.make_sharded_train_step(cfg, mesh, opt).eager    # phase 12: its graph
         losses, step_s = [], []
         native.reset_launch_counts()
         for i in range(3):
@@ -3954,13 +3999,15 @@ def moe_train_phase(mcfg, dev, tokens, seed):
     for label, shape in (("6c moe train", None), ("6c moe train ep", (2, 4))):
         model = copy.deepcopy(init)
         opt = torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=1e-4)   # phase 6's
+                                weight_decay=1e-4, capturable=True)   # phase 6's
         if shape is None:
             run = lambda: tf.train_step(cfg, model, tokens, optimizer=opt)
             blocks = cfg.n_layers
         else:
             mesh = make_mesh(shape, ("data", "model"), [dev] * math.prod(shape))
-            run = lambda step=tf.make_sharded_train_step(cfg, mesh, opt): step(model, tokens)
+            # the eager step: phase 12 its graph
+            run = lambda step=tf.make_sharded_train_step(cfg, mesh, opt).eager: step(model,
+                                                                                    tokens)
             blocks = math.prod(shape) * cfg.n_layers
         losses, step_s, gnorm, launches = timed_steps(run, model)
         _add_launches(total, launches)
@@ -4010,8 +4057,8 @@ def pipeline_phase(mcfg, cpu_model, dev, tokens, loss_plain, gnorm_plain):
     mesh = make_mesh(PIPE_SHAPE, ("data", pipeline.AXIS_PIPE), [dev] * (dp * S))
     staged = pipeline.stack_stage_params(mcfg, copy.deepcopy(cpu_model).to(dev), S)
     opt = torch.optim.AdamW(staged.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=1e-4)   # phase 6's
-    step, _ = pipeline.make_pipeline_train_step(mcfg, mesh, opt, M)
+                            weight_decay=1e-4, capturable=True)   # phase 6's
+    step = pipeline.make_pipeline_train_step(mcfg, mesh, opt, M)[0].eager   # 12: its graph
     per_step = mcfg.n_layers * M * dp
     counts = []
 
@@ -4641,6 +4688,7 @@ def set_eager(eng):
     """Set ``eng``'s compiled steps back to their impls: the eager engine."""
     for name in ("_decode_step", "_spec_step", "_chunk_prefill"):
         setattr(eng, name, getattr(eng, name + "_impl"))
+    eng._bucket_prefill, eng._sample1 = eng._prefill_impl, eng._sample1_impl
     return eng
 
 
@@ -4786,6 +4834,285 @@ def compiled_phase(mcfg, cpu_model, ecfg, prompts, pattern, seed, dev):
     torch.cuda.empty_cache()
     print(f"phase 11: {time.perf_counter() - t0:.3f} s", flush=True)
     return summary
+
+
+# ---- phase 12: the rest of jax.jit: the training steps, the parallel
+# attention callables and the bucketed prefill as CUDA graphs ----
+
+def graph_report(g):
+    """A captured graph's figures: its nodes, the wrappers' launches into it
+    by kernel, the bytes its capture reserved and its replays so far."""
+    return {"nodes": g.nodes, "launches": g.launches, "pool_bytes": g.pool_bytes,
+            "replays": g.replays}
+
+
+def count_compiled(total, launches=None):
+    """Add this run's wrapper launches and graph replays (native.LAUNCHES and
+    native.REPLAYED) of the op kernels to ``total`` ({kernel: {"launches",
+    "replayed"}})."""
+    from tf_flash_attention_tpu_torch import native
+
+    for k in native.ATTENTION_KERNELS:
+        n, r = native.LAUNCHES[k], native.REPLAYED[k]
+        if n or r:
+            t = total.setdefault(k, {"launches": 0, "replayed": 0})
+            t["launches"] += n
+            t["replayed"] += r
+    return total
+
+
+def timed_train_calls(fn, params, tokens, n=3):
+    """``n`` calls of ``fn(params, tokens)`` (each returns its loss), each
+    timed by the host clock to a sync (wall), by the host clock around the
+    call alone (the enqueue) and by CUDA events around it (on a replay: the
+    graph's kernels back to back).  Returns (losses, wall s, host s, event
+    ms, the gradient norm after the first call)."""
+    losses, walls, hosts, spans = [], [], [], []
+    for i in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        t0 = time.perf_counter()
+        loss = fn(params, tokens)
+        hosts.append(time.perf_counter() - t0)
+        b.record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        spans.append(a.elapsed_time(b))
+        losses.append(float(loss))
+        if i == 0:
+            gnorm = grad_norm(params)
+    return losses, walls, hosts, spans, gnorm
+
+
+def compiled_train_phase(mcfg, cpu_model, dev, tokens, seed):
+    """Phase 12(a): each training-step factory on phase 6's batch, from the
+    same initial weights (a deepcopy each run), 3 AdamW (capturable) steps
+    of its eager step (``step.eager``) and 3 of its CUDA graph (the first
+    call eager, then the capture; then two replays): a 1-device mesh, (data
+    2, model 4), (data 2, model 2, context 2), the MoE decoder (phase 6c's
+    weights) on (data 2, model 4) and the GPipe step on (data 2, pipe 4), M
+    = 4.  Gate: every graphed loss within TRAIN_LOSS_ATOL of the eager
+    run's at the same step, the first gradient norm within
+    TRAIN_GNORM_RTOL, one graph replayed twice.  Prints each run's figures
+    and the graph's; the busy share is the graphed replay's event span over
+    each kind's median wall (steps 2-3).  Returns {kernel: {"launches",
+    "replayed"}} of the graphed runs."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.models import pipeline
+    from tf_flash_attention_tpu_torch.models import transformer as tf
+    from tf_flash_attention_tpu_torch.parallel import make_mesh
+    from tf_flash_attention_tpu_torch.serving.graphs import GraphedTrainStep
+
+    t0 = time.perf_counter()
+    b, s = tokens.shape[0], tokens.shape[1] - 1
+    dense = copy.deepcopy(cpu_model).to(dev)
+    moe_cfg = dataclasses.replace(mcfg, n_experts=MOE_EXPERTS)
+    moe = tf.init_params(moe_cfg, torch.Generator(device=dev).manual_seed(seed + 21),
+                         device=dev)                                  # phase 6c's
+
+    def adamw(params):   # phase 6's, capturable
+        return torch.optim.AdamW(params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=1e-4, capturable=True)
+
+    def mesh(shape, axes):
+        return make_mesh(shape, axes, [dev] * math.prod(shape))
+
+    def sharded(cfg, init, shape, axes):
+        def make():
+            model = copy.deepcopy(init)
+            return model, tf.make_sharded_train_step(cfg, mesh(shape, axes),
+                                                     adamw(model.parameters()))
+        return make
+
+    def piped():
+        staged = pipeline.stack_stage_params(mcfg, copy.deepcopy(dense), PIPE_SHAPE[1])
+        step, _ = pipeline.make_pipeline_train_step(
+            mcfg, mesh(PIPE_SHAPE, ("data", pipeline.AXIS_PIPE)), adamw(staged.parameters()),
+            PIPE_MICROBATCHES)
+        return staged, step
+
+    layouts = [
+        ("1-device mesh", sharded(mcfg, dense, (1, 1), ("data", "model"))),
+        ("(data 2, model 4)", sharded(mcfg, dense, (2, 4), ("data", "model"))),
+        ("(data 2, model 2, context 2)", sharded(dataclasses.replace(mcfg, context_parallel=True),
+                                                 dense, (2, 2, 2), RING_AXES)),
+        ("moe (data 2, model 4)", sharded(moe_cfg, moe, (2, 4), ("data", "model"))),
+        (f"gpipe (data 2, pipe 4), M {PIPE_MICROBATCHES}", piped),
+    ]
+    total = {}
+    for label, make in layouts:
+        runs = {}
+        for graphed in (False, True):
+            model, step = make()
+            if not isinstance(step, GraphedTrainStep):
+                fail(f"12(a) {label}: the factory returned {type(step).__name__} on one card, "
+                     f"not a GraphedTrainStep")
+            native.reset_launch_counts()
+            losses, walls, hosts, spans, gnorm = timed_train_calls(
+                step if graphed else step.eager, model, tokens)
+            fig = {"losses": losses, "gnorm": gnorm,
+                   "step_ms": [round(w * 1e3, 3) for w in walls],
+                   "median_ms": statistics.median(walls[1:]) * 1e3,
+                   "host_ms": statistics.median(hosts[1:]) * 1e3,
+                   "span_ms": statistics.median(spans[1:])}
+            if graphed:
+                if len(step.graphs) != 1:
+                    fail(f"12(a) {label}: {len(step.graphs)} graphs, one expected")
+                g = next(iter(step.graphs.values()))
+                if g.replays != 2 or not g.launches.get("banded_fwd") and not g.launches.get(
+                        "flash_fwd"):
+                    fail(f"12(a) {label}: the graph replayed {g.replays} times (2 expected), "
+                         f"holding {g.launches}")
+                fig["graph"] = graph_report(g)
+                count_compiled(total)
+            runs[graphed] = fig
+            del model, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        eager, graphed = runs[False], runs[True]
+        for i, (a, ref) in enumerate(zip(graphed["losses"], eager["losses"])):
+            if not math.isfinite(a) or abs(a - ref) > TRAIN_LOSS_ATOL:
+                fail(f"12(a) {label}: graphed step {i + 1}'s loss {a} vs eager {ref}: > "
+                     f"{TRAIN_LOSS_ATOL}")
+        if abs(graphed["gnorm"] - eager["gnorm"]) > TRAIN_GNORM_RTOL * eager["gnorm"]:
+            fail(f"12(a) {label}: graphed first-step grad norm {graphed['gnorm']} vs eager "
+                 f"{eager['gnorm']}: > {TRAIN_GNORM_RTOL} relative")
+        for fig in runs.values():
+            fig["busy_share"] = graphed["span_ms"] / fig["median_ms"]
+            fig["tokens_per_s"] = b * s / fig["median_ms"] * 1e3
+        print(f"12(a) train step {label} on cuda:0: eager {json.dumps(eager)}; graphed "
+              f"{json.dumps(graphed)}; loss diffs "
+              f"{[abs(a - r) for a, r in zip(graphed['losses'], eager['losses'])]} (tol "
+              f"{TRAIN_LOSS_ATOL}); graphed {eager['median_ms'] / graphed['median_ms']:.3f}x "
+              f"eager (median step ms)", flush=True)
+    del dense, moe
+    torch.cuda.empty_cache()
+    print(f"phase 12(a): {time.perf_counter() - t0:.3f} s", flush=True)
+    return total
+
+
+def compiled_callables_phase(dev, seed, total):
+    """Phase 12(b): ring_flash_attention and ulysses_flash_attention on a
+    context axis of 4 and sharded_flash_attention on a model axis of 4
+    (each cuda:0 four times, causal), at 6b(a)'s RING_SHAPE bf16 inputs:
+    forward + backward through the eager function (``.eager``), then the
+    graphed callable twice (the first call eager, then its captures; the
+    second replays the forward and the backward graph).  Gate: the replay's
+    output and dQ/dK/dV within attn_tol of the eager call's.  Prints both
+    forward + backward ms (CUDA events) and the graphs; adds the graphed
+    runs' launches to ``total``."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.mask_rules import CausalRule
+    from tf_flash_attention_tpu_torch.parallel import (make_mesh, ring_flash_attention,
+                                                       sharded_flash_attention,
+                                                       ulysses_flash_attention)
+    from tf_flash_attention_tpu_torch.serving.graphs import GraphedFunction
+
+    t0 = time.perf_counter()
+    bf, n = torch.bfloat16, 4
+    ctx = make_mesh((1, 1, n), RING_AXES, [dev] * n)
+    heads = make_mesh((1, n), ("data", "model"), [dev] * n)
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)           # 6b(a)'s inputs
+    q, k, v, do = (torch.randn(RING_SHAPE, generator=gen, device=dev).to(bf) for _ in range(4))
+    cases = [("ring causal, context 4", ring_flash_attention(ctx, rule=CausalRule())),
+             ("ulysses causal, context 4", ulysses_flash_attention(ctx, CausalRule())),
+             ("sharded causal, model 4", sharded_flash_attention(heads, CausalRule()))]
+
+    def run(fn):
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o = fn(*xs)
+        return [o.detach(), *torch.autograd.grad(o, xs, do)]
+
+    for label, fn in cases:
+        if not isinstance(fn, GraphedFunction):
+            fail(f"12(b) {label}: the callable is {type(fn).__name__} on one card, not a "
+                 f"GraphedFunction")
+        want = run(fn.eager)
+        native.reset_launch_counts()
+        run(fn)
+        got = run(fn)
+        torch.cuda.synchronize()
+        count_compiled(total)
+        errs = {}
+        for name, a, ref in zip(("o", "dq", "dk", "dv"), got, want):
+            errs[name] = float((a.float() - ref.float()).abs().max())
+            if not torch.isfinite(a.float()).all() or errs[name] > attn_tol(ref):
+                fail(f"12(b) {label}: the replay's {name} differs from the eager call's by "
+                     f"{errs[name]} > {attn_tol(ref)}")
+        del got, want
+        eager_ms = time_ms(lambda: run(fn.eager), n=10)
+        graphed_ms = time_ms(lambda: run(fn), n=10)
+        sig = next(iter(fn.graphs.values()))
+        print(f"12(b) {label} {RING_SHAPE} bf16 on cuda:0: replay vs eager max_abs_err "
+              f"{json.dumps(errs)} (attn_tol); forward + backward eager {eager_ms:.4f} ms, "
+              f"graphed {graphed_ms:.4f} ms ({eager_ms / graphed_ms:.3f}x); forward graph "
+              f"{json.dumps(graph_report(sig.fwd))}, backward graph "
+              f"{json.dumps(graph_report(sig.bwd))}", flush=True)
+        del fn, sig
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 12(b): {time.perf_counter() - t0:.3f} s", flush=True)
+    return total
+
+
+def compiled_bucketed_phase(mcfg, cpu_model, ecfg, prompts, chunked_logits, seed, dev):
+    """Phase 12(c): phase 3g's bucketed engine (buckets 512 and 2,048) eager
+    (``set_eager``) and graphed (a graph a bucket, and the first-token
+    sampler's graph drawing from the engine's generator), each first
+    serving two warm-up requests (300 tokens sampled, 1,000 greedy, 4 new
+    tokens: a graphed engine captures its three graphs there, so the rates
+    are the steady state's), then phase 3's 18 requests and 2 sampled ones
+    (temperature 0.8, top-k 50; 700 and 1,200 tokens).  Gate: every
+    request's tokens equal between the two engines, sampled ones and the
+    warm-up's included (the same seed), and each of phase 3's prompts'
+    last-token logits within LOGIT_ATOL of phase 3's chunked engine's.
+    Prints both prefill rates and the graphs."""
+    from tf_flash_attention_tpu_torch.serving.engine import DecodeEngine
+    from tf_flash_attention_tpu_torch.serving.sampling import SamplingParams
+
+    t0 = time.perf_counter()
+    bcfg = dataclasses.replace(ecfg, prefill_mode="bucketed", prefill_buckets=(512, 2048))
+    pgen = torch.Generator().manual_seed(seed + 41)
+    sampled = SamplingParams(temperature=0.8, top_k=50)
+    tok = lambda n: torch.randint(1, mcfg.vocab, (n,), generator=pgen).tolist()
+    warm = [(tok(300), sampled), (tok(1000), None)]
+    reqs = [(p, None) for p in prompts] + [(tok(n), sampled) for n in (700, 1200)]
+    runs = {}
+    for graphed in (False, True):
+        label = f"12(c) bucketed engine {'graphed' if graphed else 'eager'}"
+        eng = DecodeEngine(mcfg, cpu_model, bcfg, device=dev)
+        if not graphed:
+            set_eager(eng)
+        serve(f"{label} warm-up", eng, warm, 4, mcfg.vocab)
+        logits = record_prompt_logits(eng)
+        results, _ = serve(label, eng, reqs, 32, mcfg.vocab)
+        err = logits_err(label, {p: x for p, x in logits.items() if p in chunked_logits},
+                         chunked_logits, LOGIT_ATOL)
+        graphs = {name: [graph_report(g) for g in getattr(getattr(eng, name), "graphs",
+                                                           {}).values()]
+                  for name in ("_bucket_prefill", "_sample1")}
+        if graphed and (len(graphs["_bucket_prefill"]) != 2 or len(graphs["_sample1"]) != 1):
+            fail(f"12(c): the graphed engine captured {graphs}: two buckets and one sampler "
+                 f"expected")
+        runs[graphed] = dict(tokens=[results[r] for r in sorted(results)], err=err,
+                             prefill_tps=eng.rates[0], decode_tps=eng.rates[1], graphs=graphs)
+        del eng, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    if runs[True]["tokens"] != runs[False]["tokens"]:
+        diff = [i for i, (a, b) in enumerate(zip(runs[True]["tokens"], runs[False]["tokens"]))
+                if a != b]
+        fail(f"12(c): the graphed bucketed engine's tokens differ from the eager engine's in "
+             f"requests {diff} (0 and 20, 21 sampled)")
+    print(f"12(c) bucketed engine: tokens equal eager and graphed in all {len(reqs) + 2} "
+          f"requests (3 sampled, 2 of them warm-up); last prompt token's logits against "
+          f"phase 3's chunked engine: eager {runs[False]['err']}, graphed {runs[True]['err']} (tol {LOGIT_ATOL}); prefill "
+          f"{runs[False]['prefill_tps']:.1f} tokens/s eager, {runs[True]['prefill_tps']:.1f} "
+          f"graphed ({runs[True]['prefill_tps'] / runs[False]['prefill_tps']:.3f}x); decode "
+          f"{runs[False]['decode_tps']:.1f}, {runs[True]['decode_tps']:.1f}; graphs "
+          f"{json.dumps(runs[True]['graphs'])}", flush=True)
+    print(f"phase 12(c): {time.perf_counter() - t0:.3f} s", flush=True)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 """Sharded training demo on the PyTorch port: dp/tp/sp with MoE expert
 parallelism (``train_demo.py``'s model and steps) on an 8-way (data 2,
 model 4) mesh: the first 8 CUDA cards, or 8 shards of one card (the
-port's meshes are single-controller), or ``--device cpu`` 8 times.
+port's meshes are single-controller; there the step is a CUDA graph, so
+the optimizer is capturable), or ``--device cpu`` 8 times.
 
 Run: python examples/torch_train_demo.py [--device cpu]
 """
@@ -41,9 +42,10 @@ def main(device=None):
                       n_experts=4)  # MoE: experts sharded over 'model'
     home = devices[0]
     params = init_params(cfg, torch.Generator(device=home).manual_seed(0), home)
-    # optax.adamw(3e-4)'s defaults
+    # optax.adamw(3e-4)'s defaults; capturable on CUDA, where a mesh on one
+    # card runs the step as a CUDA graph
     optimizer = torch.optim.AdamW(params.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
-                                  weight_decay=1e-4)
+                                  weight_decay=1e-4, capturable=home.type == "cuda")
     step = make_sharded_train_step(cfg, mesh, optimizer)
     gen = torch.Generator(device=home).manual_seed(1)
     losses = []

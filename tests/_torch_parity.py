@@ -7,11 +7,13 @@ viewed as fp8 on each side.
 """
 
 import dataclasses
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from tf_flash_attention_tpu.serving import kv_cache as jkv
 from tf_flash_attention_tpu_torch.serving import kv_cache as tkv
@@ -25,6 +27,24 @@ PAYLOADS = {"int8": (jnp.int8, torch.int8),
             "int4": ("int4", "int4")}
 #: every cache kind: None is unquantized (the model dtype)
 KINDS = [None, "int8", "e4m3", "e5m2", "int4"]
+
+
+#: aten ops that read a device value on the host or make a tensor from host
+#: data: what a CUDA graph's capture refuses
+FORBIDDEN = {"aten._local_scalar_dense", "aten.item", "aten.nonzero", "aten.lift_fresh",
+             "aten.lift_fresh_copy"}
+
+
+class _OpLog(TorchDispatchMode):
+    """Every aten op dispatched under it, by packet name."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = Counter()
+
+    def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
+        self.ops[str(func.overloadpacket)] += 1
+        return func(*args, **(kwargs or {}))
 
 
 @pytest.fixture(scope="module")

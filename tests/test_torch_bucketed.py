@@ -61,7 +61,9 @@ def test_bucketed_engine_matches_jax(params_np, kind):
 
 def test_bucketed_prefill_matches_jax_prefill_impl(params_np):
     """One prompt's last-token logits and every layer's K/V against the JAX
-    ``_prefill_impl`` at the same bucket."""
+    ``_prefill_impl`` at the same bucket; the port's takes the prompt's
+    length as a 0-d int32 tensor (the graph's device input) and returns
+    ``(logits, k_0, v_0, k_1, v_1)``."""
     je = jeng.DecodeEngine(MCFG, jax.tree.map(jnp.asarray, params_np),
                            jeng.EngineConfig(**ECFG, quantized_kv=False))
     te = teng.DecodeEngine(TCFG, ttf.params_from_jax(TCFG, params_np, "cpu"),
@@ -70,9 +72,11 @@ def test_bucketed_prefill_matches_jax_prefill_impl(params_np):
     assert te._bucket_for(len(prompt)) == je._bucket_for(len(prompt)) == 128
     toks = prompt + [0] * (128 - len(prompt))
     want, want_kv = je._prefill[128](je.params, jnp.asarray(toks, jnp.int32), len(prompt))
-    got, got_kv = te._prefill_impl(torch.tensor(toks), len(prompt))
+    got, *got_kv = te._prefill_impl(torch.tensor(toks), torch.tensor(len(prompt),
+                                                                     dtype=torch.int32))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
-    for (k, v), (jk, jv) in zip(got_kv, want_kv):
+    assert len(got_kv) == 2 * len(want_kv)
+    for k, v, (jk, jv) in zip(got_kv[0::2], got_kv[1::2], want_kv):
         np.testing.assert_allclose(k.numpy(), np.asarray(jk), rtol=0, atol=1e-5)
         np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=0, atol=1e-5)
 

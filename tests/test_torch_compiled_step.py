@@ -29,7 +29,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from tf_flash_attention_tpu.mask_rules import LocalRule as JLocalRule
 from tf_flash_attention_tpu.serving import kv_cache as jkv
@@ -43,8 +42,8 @@ from tf_flash_attention_tpu_torch.serving import kv_cache as tkv
 from tf_flash_attention_tpu_torch.serving import prefill as tpre
 from tf_flash_attention_tpu_torch.utils.serving_census import step_kernels
 
-from _torch_parity import (assert_same_cache, cache_cfgs, caches_from, one_torch_thread,  # noqa: F401
-                           random_state)
+from _torch_parity import (FORBIDDEN, _OpLog, assert_same_cache, cache_cfgs,  # noqa: F401
+                           caches_from, one_torch_thread, random_state)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -125,23 +124,6 @@ MCFG = ttf.ModelConfig(vocab=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2
                        d_ff=128, dtype=torch.float32)
 ECFG = teng.EngineConfig(max_seqs=2, page_size=16, n_pages=16, max_pages_per_seq=4,
                          prefill_chunk=16, prefix_caching=False)
-#: aten ops that read a device value on the host or make a tensor from host data
-FORBIDDEN = {"aten._local_scalar_dense", "aten.item", "aten.nonzero", "aten.lift_fresh",
-             "aten.lift_fresh_copy"}
-
-
-class _OpLog(TorchDispatchMode):
-    """Every aten op dispatched under it, by packet name."""
-
-    def __init__(self):
-        super().__init__()
-        self.ops = Counter()
-
-    def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
-        self.ops[str(func.overloadpacket)] += 1
-        return func(*args, **(kwargs or {}))
-
-
 def _zeros_like_out(q, returning_l_m):
     """A kernel's shape-correct output: o like q, l and m over its rows."""
     o = torch.zeros_like(q)

@@ -6,6 +6,7 @@ elsewhere.  Run them on the GPU with
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -1546,3 +1547,126 @@ def test_prefill_tc_cp_matches_plain(dev, payload, stride, offset):
     """The sequence-sharded form: a shard's pages of a stride from an
     offset, global key positions, l and m out."""
     _pf_run(dev, payload, 256, 8, 2, 3000, 512, 512, stride=stride, offset=offset)
+
+
+# ---- the rest of jax.jit: graphed training steps, attention callables and
+# the bucketed prefill against their eager functions on the same card ----
+
+TINY = ttf.ModelConfig(vocab=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_head=16,
+                       d_ff=128, dtype=torch.float32)
+
+
+def _graphed_train_case(dev, layout):
+    """``make() -> (params, step)``: a training layout on one card, from
+    the same initial weights at every call."""
+    from tf_flash_attention_tpu_torch.models import pipeline
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = {"moe": dataclasses.replace(TINY, n_experts=4),
+           "cp2": dataclasses.replace(TINY, context_parallel=True)}.get(layout, TINY)
+    init = ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    opt = lambda params: torch.optim.AdamW(params, lr=1e-2, capturable=True)
+    shapes = {"dense": ((1, 1), ("data", "model")), "tp2": ((2, 2), ("data", "model")),
+              "cp2": ((1, 1, 2), ("data", "model", "context")),
+              "moe": ((2, 2), ("data", "model")), "pipeline": ((2, 2), ("data", "pipe"))}
+    shape, axes = shapes[layout]
+    mesh = make_mesh(shape, axes, [dev] * int(np.prod(shape)))
+
+    def make():
+        params = copy.deepcopy(init).to(dev)
+        if layout == "pipeline":
+            staged = pipeline.stack_stage_params(cfg, params, 2)
+            return staged, pipeline.make_pipeline_train_step(cfg, mesh, opt(staged.parameters()),
+                                                             2)[0]
+        return params, ttf.make_sharded_train_step(cfg, mesh, opt(params.parameters()))
+
+    return make
+
+
+@pytest.mark.parametrize("layout", ["dense", "tp2", "cp2", "moe", "pipeline"])
+def test_graphed_train_step_matches_eager(dev, layout):
+    """Three steps of the factory's graph (the first eager, then the
+    capture; two replays) and three of its eager step from the same
+    weights: equal losses and gradients within float32 summation order,
+    a fresh loss each call, the graph's banded launches counted once and
+    its replays apart."""
+    from tf_flash_attention_tpu_torch.serving.graphs import GraphedTrainStep
+
+    make = _graphed_train_case(dev, layout)
+    tokens = torch.randint(0, 64, (4, 33), generator=torch.Generator().manual_seed(1)).to(dev)
+    runs = []
+    for graphed in (False, True):
+        params, step = make()
+        assert isinstance(step, GraphedTrainStep)
+        native.reset_launch_counts()
+        losses = [(step if graphed else step.eager)(params, tokens) for _ in range(3)]
+        grads = [p.grad.clone() for p in params.parameters() if p.grad is not None]
+        runs.append((torch.stack(losses), grads))
+    (want, want_g), (got, got_g) = runs
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert len(got_g) == len(want_g)
+    for a, b in zip(got_g, want_g):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    g = next(iter(step.graphs.values()))
+    assert g.replays == 2 and g.nodes["kernels"] >= sum(g.launches.values()) > 0
+    for kernel, n in g.launches.items():
+        assert native.LAUNCHES[kernel] == native.REPLAYED[kernel] == 2 * n, kernel
+
+
+def test_graphed_attention_callables_match_eager(dev):
+    """The ring and Ulysses on a context axis of 2 and the sharded callable
+    on a model axis of 2, bf16: a replay's output and gradients equal the
+    eager function's within 2 ulps; a backward after a later call of the
+    same signature raises."""
+    from tf_flash_attention_tpu_torch.parallel import (make_mesh, ring_flash_attention,
+                                                       sharded_flash_attention,
+                                                       ulysses_flash_attention)
+
+    ctx = make_mesh((1, 1, 2), ("data", "model", "context"), [dev] * 2)
+    heads = make_mesh((1, 2), ("data", "model"), [dev] * 2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v, do = (torch.randn((2, 4, 512, 64), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+
+    def run(fn):
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o = fn(*xs)
+        return [o.detach(), *torch.autograd.grad(o, xs, do)]
+
+    for fn in (ring_flash_attention(ctx, rule=CausalRule()),
+               ulysses_flash_attention(ctx, CausalRule()),
+               sharded_flash_attention(heads, CausalRule())):
+        want = run(fn.eager)
+        run(fn)
+        for a, b in zip(run(fn), want):
+            torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol_low(b))
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        first = fn(*xs)
+        fn(*xs)
+        with pytest.raises(RuntimeError, match="later call"):
+            torch.autograd.grad(first, xs, do)
+
+
+def test_graphed_bucketed_engine_matches_eager(dev):
+    """The bucketed engine with its graphs (a bucket's prefill, the first-
+    token sampler) gives the eager engine's tokens, sampled ones included."""
+    from tf_flash_attention_tpu_torch.serving.sampling import SamplingParams
+
+    ecfg = engine.EngineConfig(max_seqs=3, page_size=64, n_pages=32, max_pages_per_seq=4,
+                               prefill_mode="bucketed", prefill_buckets=(32, 128), seed=3)
+    # both buckets, each twice (a replay), tokens within the vocabulary of 64
+    prompts = [list(range(1, 21)), [(5 * i) % 63 + 1 for i in range(100)], [7] * 30,
+               list(range(2, 64))]
+    sampled = SamplingParams(temperature=0.9, top_k=10)
+    outs = []
+    for graphed in (False, True):
+        e = engine.DecodeEngine(TINY, ttf.init_params(TINY, torch.Generator().manual_seed(0),
+                                                      "cpu"), ecfg, device=dev)
+        if not graphed:
+            e._bucket_prefill, e._sample1 = e._prefill_impl, e._sample1_impl
+        rids = [e.submit(p, max_new_tokens=6, sampling=sampled if i % 2 else SamplingParams())
+                for i, p in enumerate(prompts)]
+        res = e.run()
+        outs.append([res[r] for r in rids])
+    assert outs[0] == outs[1]
+    assert len(e._bucket_prefill.graphs) == 2 and len(e._sample1.graphs) == 1

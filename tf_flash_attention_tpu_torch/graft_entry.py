@@ -83,9 +83,11 @@ def _devices(n_devices: int, devices):
     return [torch.device("cuda", 0)] * n_devices
 
 
-def _adamw(params):
-    # optax.adamw(1e-3)'s defaults
-    return torch.optim.AdamW(params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+def _adamw(params, device):
+    # optax.adamw(1e-3)'s defaults; capturable on CUDA, where a step on one
+    # card is captured as a CUDA graph
+    return torch.optim.AdamW(params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4,
+                             capturable=device.type == "cuda")
 
 
 def dryrun_multichip(n_devices: int, devices=None) -> None:
@@ -114,7 +116,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     cfg = ModelConfig(vocab=512, d_model=128, n_layers=2, n_heads=8, n_kv_heads=8,
                       d_head=32, d_ff=256, max_seq=128, n_experts=max(tp, 2))
     params = init_params(cfg, _generator(0, home), home)
-    step = make_sharded_train_step(cfg, mesh, _adamw(params.parameters()))
+    step = make_sharded_train_step(cfg, mesh, _adamw(params.parameters(), home))
     loss = step(params, torch.zeros((2 * dp, 129), dtype=torch.long, device=home))
     print(f"dryrun_multichip({n_devices}) dp/tp/sp/ep: "
           f"mesh={dict(mesh.shape)} experts={cfg.n_experts} loss={float(loss):.4f}", flush=True)
@@ -127,7 +129,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
         cfg_pp = ModelConfig(vocab=512, d_model=128, n_layers=2 * pp, n_heads=4, n_kv_heads=4,
                              d_head=32, d_ff=256, max_seq=128)
         staged = stack_stage_params(cfg_pp, init_params(cfg_pp, _generator(1, home), home), pp)
-        step_pp, _ = make_pipeline_train_step(cfg_pp, mesh_pp, _adamw(staged.parameters()),
+        step_pp, _ = make_pipeline_train_step(cfg_pp, mesh_pp, _adamw(staged.parameters(), home),
                                               n_microbatches=2)
         loss2 = step_pp(staged, torch.zeros((2 * dp2, 129), dtype=torch.long, device=home))
         print(f"dryrun_multichip({n_devices}) pp/dp: "
@@ -139,7 +141,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
         cfg_cp = ModelConfig(vocab=512, d_model=128, n_layers=2, n_heads=4, n_kv_heads=4,
                              d_head=32, d_ff=256, max_seq=256, context_parallel=True)
         params_cp = init_params(cfg_cp, _generator(2, home), home)
-        step_cp = make_sharded_train_step(cfg_cp, mesh_cp, _adamw(params_cp.parameters()))
+        step_cp = make_sharded_train_step(cfg_cp, mesh_cp, _adamw(params_cp.parameters(), home))
         loss3 = step_cp(params_cp, torch.zeros((2 * (n_devices // 4), 257), dtype=torch.long,
                                                device=home))
         print(f"dryrun_multichip({n_devices}) dp/tp/cp: "

@@ -77,6 +77,13 @@ def init_moe_params(cfg: MoEConfig, generator: Optional[torch.Generator] = None,
     return params
 
 
+def _one_hot(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(x, n)`` by a comparison: the same int64 values, without
+    the range check ``F.one_hot`` reads on the host for a CPU tensor (a
+    training step holds no host sync, which its CPU test checks)."""
+    return (x[..., None] == torch.arange(n, device=x.device)).long()
+
+
 class Routing(NamedTuple):
     """Top-1 routing of ``(b, s)`` tokens: ``probs`` (b, s, E) float32,
     ``expert`` and ``position`` (b, s) int64 (the token's place in its
@@ -97,7 +104,7 @@ class Routing(NamedTuple):
         """Each expert's count of kept tokens and sum of probabilities
         (float32, (E,)): what ``aux_loss`` takes."""
         E = self.probs.shape[-1]
-        kept = F.one_hot(self.expert, E).float() * self.keep[..., None].float()
+        kept = _one_hot(self.expert, E).float() * self.keep[..., None].float()
         return kept.sum(dim=(0, 1)), self.probs.sum(dim=(0, 1))
 
 
@@ -112,7 +119,7 @@ def route(cfg: MoEConfig, router: torch.Tensor, x: torch.Tensor) -> Routing:
     probs = torch.softmax(x.float() @ router.float(), dim=-1)
     expert = torch.argmax(probs, dim=-1)
     gate = probs.gather(-1, expert[..., None])[..., 0]
-    queue = torch.cumsum(F.one_hot(expert, E), dim=1)
+    queue = torch.cumsum(_one_hot(expert, E), dim=1)
     position = queue.gather(-1, expert[..., None])[..., 0] - 1
     return Routing(probs, expert, position, gate, position < capacity, capacity)
 

@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import AXIS_DATA, Mesh, shard
+from ..serving.graphs import GraphedTrainStep, capture_device
 from .transformer import (ModelConfig, Transformer, _attention_block, _logits, _mlp_block,
                           _rms_norm, params_from_jax)
 
@@ -158,7 +159,11 @@ def make_pipeline_train_step(cfg: ModelConfig, mesh: Mesh, optimizer: torch.opti
     place, ``optimizer`` over the staged parameters), ``placements(staged)``
     the JAX package's shardings as ``param_shardings`` gives them: the
     embedding and the final norm replicated, every stage leaf over
-    ``pipe``."""
+    ``pipe``.  As ``make_sharded_train_step``: on a mesh of one CUDA device
+    the step is a ``GraphedTrainStep`` (one graph holds all ``M +
+    n_stages - 1`` ticks, whose schedule is static per shape) and needs a
+    capturable ``optimizer``; on the CPU and over several CUDA devices it
+    runs eagerly."""
     loss_fn = pipeline_loss_fn(cfg, mesh, n_microbatches, data_axis, pipe_axis)
 
     def placements(staged: StagedTransformer) -> Dict[str, Any]:
@@ -167,6 +172,10 @@ def make_pipeline_train_step(cfg: ModelConfig, mesh: Mesh, optimizer: torch.opti
             out.update({n: leaves(m) for n, m in module.named_children()})
             return out
         return {"embed": (), "final_norm": (), "layers": [leaves(b) for b in staged.stages[0]]}
+
+    device = capture_device(mesh.devices.flat)
+    if device is not None:
+        return GraphedTrainStep(loss_fn, optimizer, device), placements
 
     def step(staged: StagedTransformer, tokens: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)

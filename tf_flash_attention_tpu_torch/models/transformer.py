@@ -64,6 +64,7 @@ from ..ops.quant import QuantizedTensor, int8_matmul, quantize_weight_int8
 from ..parallel.mesh import AXIS_CONTEXT, AXIS_DATA, AXIS_MODEL, Mesh, shard
 from ..parallel.ring import ring_attention_local
 from ..parallel.sharded import mha
+from ..serving.graphs import GraphedTrainStep, capture_device
 from .moe import MoE, MoEConfig, aux_loss, expert_outputs, init_moe_params, moe_ffn, route
 
 __all__ = ["ModelConfig", "Transformer", "init_params", "params_from_jax",
@@ -237,13 +238,36 @@ def quantize_model_weights(model: Transformer) -> Transformer:
     return out
 
 
+#: the rotary embedding's inverse frequencies on a device, by (d, theta,
+#: device): uploaded once, so a step makes no tensor from host data (a CUDA
+#: graph's capture refuses the copy)
+_INV_FREQS: Dict[tuple, torch.Tensor] = {}
+
+
+def _inverse_freqs(d: int, theta: float, device) -> torch.Tensor:
+    """Rotary embedding's float32 inverse frequencies (d/2,) on ``device``:
+    the JAX package's numpy computation, bit for bit, uploaded on the first
+    call for ``(d, theta, device)`` and kept.  A first call during a CUDA
+    graph's capture raises: the eager call before a capture uploads them."""
+    key = (int(d), float(theta), torch.device(device))
+    freqs = _INV_FREQS.get(key)
+    if freqs is None:
+        if key[2].type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the rotary frequencies were first needed during a CUDA graph "
+                               "capture: run the step once before capturing it")
+        half = d // 2
+        freqs = torch.from_numpy(1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
+                                 ).to(key[2])
+        _INV_FREQS[key] = freqs
+    return freqs
+
+
 def _rope(x: torch.Tensor, theta: float, pos0: int = 0) -> torch.Tensor:
     """Rotary embedding (half-split rotation) on (b, h, s, d_head)."""
     s, d = x.shape[-2], x.shape[-1]
     half = d // 2
-    freqs = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
     pos = pos0 + torch.arange(s, dtype=torch.float32, device=x.device)
-    angles = pos[:, None] * torch.from_numpy(freqs).to(x.device)[None, :]
+    angles = pos[:, None] * _inverse_freqs(d, theta, x.device)[None, :]
     cos, sin = torch.cos(angles).to(x.dtype), torch.sin(angles).to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
@@ -554,9 +578,22 @@ def train_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
 
 def make_sharded_train_step(cfg: ModelConfig, mesh: Mesh, optimizer: torch.optim.Optimizer):
     """The train step with dp/tp/sp (and cp, with ``context_parallel``; ep,
-    with ``n_experts``) over ``mesh``: ``step(params, tokens) -> loss``, ``optimizer`` over
-    ``params``' float32 master weights."""
+    with ``n_experts``) over ``mesh``: ``step(params, tokens) -> loss``,
+    ``optimizer`` over ``params``' float32 master weights.
+
+    The JAX package jits this step.  Where every device of ``mesh`` is one
+    CUDA device (every layout on one card, a 1-device mesh included), the
+    step is a ``serving.graphs.GraphedTrainStep``: its first call with a
+    batch shape runs the eager step and captures it as a CUDA graph, which
+    later calls replay; ``optimizer`` must be built with
+    ``capturable=True``, or this raises a ``ValueError``.  On the CPU, and
+    on a mesh over several CUDA devices (a graph a device: ROADMAP.md
+    queue 1 item 4), the step runs eagerly with ``optimizer`` as it is."""
     _mesh_devices(cfg, mesh)
+    device = capture_device(mesh.devices.flat)
+    if device is not None:
+        return GraphedTrainStep(lambda params, tokens: loss_fn(cfg, params, tokens, mesh=mesh),
+                                optimizer, device)
 
     def step(params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
         return train_step(cfg, params, tokens, optimizer=optimizer, mesh=mesh)

@@ -1043,10 +1043,14 @@ def device_tables(key, arrays, device) -> tuple:
     """The int32 ``arrays`` (a schedule's tables, band segments or starts, a
     custom rule's mask) as tensors on ``device``, uploaded once per ``key``
     (pack, rule, blocks, route); ``arrays`` may be a function that returns
-    them, called on the first use of a key only."""
+    them, called on the first use of a key only.  A first use during a CUDA
+    graph's capture raises: the eager call before a capture uploads them."""
     key = (key, str(device))
     tabs = _TABLES.get(key)
     if tabs is None:
+        if torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a kernel's tables were first needed during a CUDA graph "
+                               "capture: run the step once before capturing it")
         tabs = tuple(torch.from_numpy(np.ascontiguousarray(t, np.int32)).to(device)
                      for t in (arrays() if callable(arrays) else arrays))
         _TABLES[key] = tabs

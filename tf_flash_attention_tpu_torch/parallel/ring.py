@@ -43,6 +43,7 @@ from ..block_sizes import BlockConfig, choose_block_config
 from ..mask_rules import CausalRule, FullRule, LocalRule
 from ..ops.backward import flash_backward
 from ..ops.forward import flash_forward
+from ..serving.graphs import graph_callable
 from ..sync_modes import SeqDescriptor, SyncPack, make_sync_pack
 from ..utils.dtypes import MASK_VALUE_F32
 from .mesh import AXIS_CONTEXT, AXIS_DATA, AXIS_MODEL, Mesh, shard, unshard
@@ -303,7 +304,9 @@ def ring_flash_attention(
     carries the row-major flattening and is sharded along sequence dim 0
     (dim 0 must divide by the context axis size).  The callable takes and
     returns whole tensors (the output on q's device) and is differentiable
-    end to end.
+    end to end.  On a mesh of one CUDA device it is a
+    ``serving.graphs.GraphedFunction`` (JAX's ``jit``): a forward and a
+    backward CUDA graph per input signature, the first call eager.
     """
     axis_size = int(mesh.shape.get(context_axis, 1))
     local_seq_shape = None
@@ -329,4 +332,4 @@ def ring_flash_attention(
         out = [[local_fn(*blocks) for blocks in zip(*rows)] for rows in zip(qb, kb, vb)]
         return unshard(out, spec, q.device)
 
-    return fn
+    return graph_callable(fn, mesh.devices.flat)

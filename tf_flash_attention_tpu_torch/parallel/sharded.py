@@ -18,6 +18,7 @@ import torch
 from ..block_sizes import BlockConfig, choose_block_config
 from ..mask_rules import MaskRule
 from ..ops.attend import AttendParams, attend
+from ..serving.graphs import graph_callable
 from ..sync_modes import make_sync_pack
 from .mesh import AXIS_DATA, AXIS_MODEL, Mesh, shard, unshard
 
@@ -64,7 +65,9 @@ def sharded_flash_attention(mesh: Mesh, rule: MaskRule, *, sync_mode: str = "non
     ``data_axis``, heads over ``model_axis``; sequence and head_dim
     replicated.  Each block runs ``mha`` on its device.  The callable takes
     and returns whole tensors (the output on q's device) and is
-    differentiable.
+    differentiable.  On a mesh of one CUDA device it is a
+    ``serving.graphs.GraphedFunction`` (JAX's ``jit``): a forward and a
+    backward CUDA graph per input signature, the first call eager.
     """
     spec = (data_axis, model_axis, None, None)
 
@@ -75,4 +78,4 @@ def sharded_flash_attention(mesh: Mesh, rule: MaskRule, *, sync_mode: str = "non
                for rows in zip(*blocks)]
         return unshard(out, spec, q.device)
 
-    return fn
+    return graph_callable(fn, mesh.devices.flat)

@@ -32,6 +32,7 @@ import torch
 from ..block_sizes import BlockConfig, choose_block_config
 from ..mask_rules import MaskRule
 from ..ops.attend import AttendParams, attend
+from ..serving.graphs import graph_callable
 from ..sync_modes import make_sync_pack
 from .mesh import AXIS_CONTEXT, AXIS_DATA, AXIS_MODEL, Mesh, shard, unshard
 
@@ -129,7 +130,9 @@ def ulysses_flash_attention(
     *global* shapes are ``q_seq_shape``/``k_seq_shape``).  The local head
     count (after any ``model`` sharding) must divide by the context axis
     size.  The callable takes and returns whole tensors (the output on q's
-    device) and is differentiable end to end.
+    device) and is differentiable end to end.  On a mesh of one CUDA device
+    it is a ``serving.graphs.GraphedFunction`` (JAX's ``jit``): a forward
+    and a backward CUDA graph per input signature, the first call eager.
     """
     spec = (data_axis, model_axis, context_axis, None)
 
@@ -141,4 +144,4 @@ def ulysses_flash_attention(
                 for qs, ks, vs in zip(*rows)] for rows in zip(*blocks)]
         return unshard(out, spec, q.device)
 
-    return fn
+    return graph_callable(fn, mesh.devices.flat)

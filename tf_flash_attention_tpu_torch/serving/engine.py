@@ -52,19 +52,24 @@ holds it, through the training forward's attention (``parallel.sharded.
 mha``, the op kernels) and writes its K/V with ``write_prompt``.
 
 The compiled steps (``_compile``, the JAX engine's ``engine.py:339-370``):
-the decode step, the speculative step and the chunked prefill are
-``_decode_step_impl``, ``_spec_step_impl`` and ``_chunk_prefill_impl``,
-device work only, and on the card ``_compile`` captures each as a CUDA
-graph (``graphs.py``), one per input shape, replayed on every later call,
-for every layout of the engine (flat, window, cp, tp, tp x cp, MoE);
-on the CPU, which a caller asks for explicitly, it returns the impl
-itself.  A step's inputs are the engine's static device buffers, filled
-from host tensors before each call: the tokens, the active mask, and for a
-chunk its (slot, start, true_len) as an int32 vector, which the chunk
-kernels take as their device ``meta``, as JAX's take traced scalars.  The
-greedy argmax runs in the step; sampling, where a slot samples, runs after
-it on the step's logits with the engine's generator, from per-slot
-parameters kept on the device.  The KV caches are updated in place by the
+the decode step, the speculative step, the chunked prefill, the bucketed
+prefill and the first-token sampler are ``_decode_step_impl``,
+``_spec_step_impl``, ``_chunk_prefill_impl``, ``_prefill_impl`` (JAX's
+jit a bucket, ``:268-271``) and ``_sample1_impl`` (JAX's ``_sample1``,
+``:275``), device work only, and on the card ``_compile`` captures each
+as a CUDA graph (``graphs.py``), one per input shape (a bucket), replayed
+on every later call, for every layout of the engine (flat, window, cp,
+tp, tp x cp, MoE); on the CPU, which a caller asks for explicitly, it
+returns the impl itself.  A step's inputs are the engine's static device
+buffers, filled from host tensors before each call: the tokens, the
+active mask, for a chunk its (slot, start, true_len) as an int32 vector,
+which the chunk kernels take as their device ``meta``, as JAX's take
+traced scalars, and for a bucketed prompt its length as a 0-d int32, so
+the last real row is picked on the device.  The greedy argmax runs in
+the step; sampling, where a slot samples, runs after it on the step's
+logits with the engine's generator, from per-slot parameters kept on the
+device (a first token's through ``_sample1``, whose graph draws from the
+generator at every replay).  The KV caches are updated in place by the
 kernels (the JAX engine donates them instead).  The host keeps a mirror of
 the page tables, uploaded in place when it changes, and of the slots'
 lengths, so a decode step copies one tensor back to the host: the next
@@ -109,14 +114,15 @@ import torch.nn.functional as F
 
 from ..mask_rules import LocalRule
 from ..models.moe import moe_ffn
-from ..models.transformer import ModelConfig, Transformer, _rms_norm, _rope, inference_weights
+from ..models.transformer import (ModelConfig, Transformer, _inverse_freqs, _rms_norm, _rope,
+                                  inference_weights)
 from ..parallel.sharded import mha
 from .graphs import GraphedStep
 from .kv_cache import (KVCacheConfig, PagedKVCache, _owned_token_count, chunk_write_meta,
                        write_prompt)
 from .prefill import prefill_meta
 from .prefix_cache import PrefixCache, SharedPageAllocator
-from .sampling import SamplingParams, sample_tokens
+from .sampling import SamplingParams, draw_tokens, sample_tokens
 from .scheduler import Request, Scheduler
 from .seq_sharded_decode import (append_owned, decode_merged, global_lengths, prefill_merged,
                                  write_tokens_sharded)
@@ -149,13 +155,6 @@ class EngineConfig:
     # sampled slots emit one token per step in the same batch.
     speculative_tokens: int = 0
     spec_lookup_window: int = 512   # n-gram search window (host)
-
-
-def _inverse_freqs(d: int, theta: float, device) -> torch.Tensor:
-    """Rotary embedding's float32 inverse frequencies (d/2,) on ``device``."""
-    half = d // 2
-    return torch.from_numpy(1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
-                            ).to(device)
 
 
 def _rope_cos_sin(pos: torch.Tensor, inv_freq: torch.Tensor, dtype: torch.dtype):
@@ -395,11 +394,22 @@ class DecodeEngine:
                                       device=dev)
         self._in_chunk = torch.zeros(engine_cfg.prefill_chunk, dtype=torch.long, device=dev)
         self._in_meta = torch.zeros(3, dtype=torch.int32, device=dev)   # slot, start, true_len
+        # the bucketed prefill's: a padded prompt a bucket, and its length
+        self._in_prompt = ({b: torch.zeros(b, dtype=torch.long, device=dev)
+                            for b in engine_cfg.prefill_buckets}
+                           if engine_cfg.prefill_mode == "bucketed" else {})
+        self._in_true_len = torch.zeros((), dtype=torch.int32, device=dev)
+        # the first-token sampler's: the last prompt token's logits, its slot
+        self._in_logits1 = torch.zeros((1, model_cfg.vocab), dtype=model_cfg.dtype, device=dev)
+        self._in_slot = torch.zeros(1, dtype=torch.long, device=dev)
         self._devices = {torch.device(d) for row in grid for d in row}
         self._graph_stream = self._graph_pool = None
         self._decode_step = self._compile(self._decode_step_impl, 2)
         self._spec_step = self._compile(self._spec_step_impl, 2)
         self._chunk_prefill = self._compile(self._chunk_prefill_impl, 1)
+        # one graph a bucket, as the JAX engine jits one a bucket
+        self._bucket_prefill = self._compile(self._prefill_impl, 1 + 2 * model_cfg.n_layers)
+        self._sample1 = self._compile(self._sample1_impl, 1, generators=(self._generator,))
 
     @property
     def shards(self) -> List[List[PagedKVCache]]:
@@ -445,14 +455,15 @@ class DecodeEngine:
 
     # ---- the compiled steps ----
 
-    def _compile(self, impl, n_out_scalars: int):
+    def _compile(self, impl, n_out_scalars: int, generators=()):
         """The step ``impl``, returning ``n_out_scalars`` tensors, as the
         engine runs it (the JAX engine's ``_compile``, engine.py:339-370):
         on the CPU, ``impl`` itself; on the card, a ``graphs.GraphedStep``
         that captures it as a CUDA graph once per input shape and replays
-        it.  The graphs of an engine share one capture stream and one
-        memory pool.  Shards on more than one CUDA device raise: their
-        steps would need one graph a device."""
+        it, each replay drawing fresh numbers from ``generators``.  The
+        graphs of an engine share one capture stream and one memory pool.
+        Shards on more than one CUDA device raise: their steps would need
+        one graph a device."""
         if self.device.type != "cuda":
             return impl
         if len(self._devices) > 1:
@@ -463,7 +474,8 @@ class DecodeEngine:
         if self._graph_stream is None:
             self._graph_stream = torch.cuda.Stream(self.device)
             self._graph_pool = torch.cuda.graph_pool_handle()
-        return GraphedStep(impl, n_out_scalars, self._graph_stream, self._graph_pool)
+        return GraphedStep(impl, n_out_scalars, self._graph_stream, self._graph_pool,
+                           generators)
 
     def _upload(self, buf: torch.Tensor, values) -> torch.Tensor:
         """Fill the static input ``buf`` in place from host ``values``: one
@@ -556,6 +568,15 @@ class DecodeEngine:
             x = self._layer(i, x, per_shard, attend)
         logits = self._logits(x)                             # (S, gamma, vocab)
         return torch.argmax(logits.float(), dim=-1), logits[:, 0]
+
+    @torch.no_grad()
+    def _sample1_impl(self, logits, slot):
+        """The first token of a sampled request (the JAX engine's
+        ``_sample1``): ``logits`` (1, vocab) its last prompt token's, ``slot``
+        (1,) int64 on the device, whose sampling parameters it takes, drawing
+        from the engine's generator; returns (the token (1,) int32,)."""
+        return (draw_tokens(logits, self._generator, self._temperature[slot], self._top_k[slot],
+                            self._top_p[slot]),)
 
     def _sample(self, logits, slots=slice(None)):
         """Sample from ``logits`` (n, vocab) with the parameters of ``slots``
@@ -706,11 +727,13 @@ class DecodeEngine:
         raise ValueError(f"prompt length {n} exceeds largest bucket")
 
     @torch.no_grad()
-    def _prefill_impl(self, tokens, true_len: int):
+    def _prefill_impl(self, tokens, true_len):
         """The whole padded prompt ``tokens`` (bucket,) through the training
-        forward's attention (``mha``: the op kernels) with ``_rope``; returns
-        the last real token's logits and each layer's (k, v), (n_kv_heads,
-        bucket, d_head)."""
+        forward's attention (``mha``: the op kernels) with ``_rope``;
+        ``true_len`` is the prompt's length, a 0-d int32 tensor on the
+        device, so one graph serves every length of a bucket.  Returns the
+        last real token's logits and each layer's k and v, (n_kv_heads,
+        bucket, d_head): ``(logits, k_0, v_0, k_1, v_1, ...)``."""
         cfg = self.mcfg
         x = self.model.embed[tokens][None]                   # (1, bucket, d_model)
         kvs = []
@@ -724,27 +747,30 @@ class DecodeEngine:
             o = mha(q, k, v, rule=cfg.rule, block_config=cfg.block_config)
             x = x + o.transpose(1, 2).reshape(b, s, -1).to(x.dtype) @ layer.wo
             x = x + _mlp(cfg, layer, _rms_norm(x, layer.ln2))
-            kvs.append((k[0], v[0]))
-        return self._logits(x[0, true_len - 1]), kvs
+            kvs += [k[0], v[0]]
+        last = x[0].index_select(0, (true_len - 1).long().reshape(1))[0]
+        return (self._logits(last), *kvs)
 
     def _prefill_bucketed(self, prompt: List[int], slot: int):
-        """The whole prompt in one padded pass (``_prefill_impl``), its K/V
-        written into freshly allocated pages; returns the last token's
-        logits."""
-        bucket = self._bucket_for(len(prompt))
-        n_pages = -(-len(prompt) // self.ecfg.page_size)
+        """The whole prompt in one padded pass (``_bucket_prefill``: the
+        bucket's graph on the card), its K/V then written into freshly
+        allocated pages, as the JAX engine writes after its jit; returns the
+        last token's logits."""
+        n = len(prompt)
+        bucket = self._bucket_for(n)
+        n_pages = -(-n // self.ecfg.page_size)
         if n_pages > self.ecfg.max_pages_per_seq:
             raise RuntimeError(f"prompt needs {n_pages} pages but "
                                f"max_pages_per_seq={self.ecfg.max_pages_per_seq}")
-        tokens = torch.tensor(prompt + [0] * (bucket - len(prompt)), dtype=torch.long,
-                              device=self.device)
-        last_logits, kvs = self._prefill_impl(tokens, len(prompt))
+        tokens = self._upload(self._in_prompt[bucket], prompt + [0] * (bucket - n))
+        self._upload(self._in_true_len, n)
+        last_logits, *kvs = self._bucket_prefill(tokens, self._in_true_len)
         pages = self.allocator.alloc(slot, n_pages)
         for i, page in enumerate(pages):
             self._set_table(slot, i, page)
         self._sync_tables()
-        for (k, v), cache in zip(kvs, self.shards[0]):
-            write_prompt(cache, self.ccfg, slot, pages, k[:, :len(prompt)], v[:, :len(prompt)])
+        for i, cache in enumerate(self.shards[0]):
+            write_prompt(cache, self.ccfg, slot, pages, kvs[2 * i][:, :n], kvs[2 * i + 1][:, :n])
         return last_logits
 
     def _admit(self):
@@ -757,7 +783,9 @@ class DecodeEngine:
             sp, eos_id = self._sampling.pop(req.rid, (SamplingParams(), None))
             self._set_sampling(slot, sp)
             if sp.temperature > 0:
-                first_tok = int(self._sample(last_logits[None], slice(slot, slot + 1))[0])
+                self._in_logits1.copy_(last_logits[None])
+                self._upload(self._in_slot, [slot])
+                first_tok = int(self._sample1(self._in_logits1, self._in_slot)[0][0])
             else:
                 first_tok = int(torch.argmax(last_logits.float()))
             self._results[req.rid].append(first_tok)

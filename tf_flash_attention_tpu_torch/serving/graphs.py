@@ -1,28 +1,43 @@
-"""CUDA graphs of the serving engine's steps.
+"""CUDA graphs of the port's compiled entry points.
 
-The port's counterpart of the ``jax.jit`` that the JAX engine's
-``_compile`` (``serving/engine.py:339-370``) wraps around every step: XLA
-runs a step as one program, and a ``GraphedStep`` replays a step as one
-CUDA graph, so the host makes one launch where the eager step made a few
-hundred.  It wraps a step function ``impl(*inputs) -> outputs`` (a
-tuple of tensors) whose body is device work only: no host sync, no tensor
-made from host data, every persistent tensor updated in place.  Per input
-signature (shapes and dtypes) it captures one ``torch.cuda.CUDAGraph``:
+The port's counterpart of ``jax.jit``: XLA runs a jitted function as one
+program, and a CUDA graph replays a captured call as one launch where the
+eager call made hundreds or thousands.  Three wrappers share the capture,
+the node check and the counts below:
 
-- the first call with a signature runs ``impl`` eagerly on the capture
-  stream: that run is the call's result, and it sizes whatever the
-  kernels grow lazily (the decode's scratch), so the capture allocates
-  nothing that outlives it;
-- then it captures a second call on the same stream, which records the
-  kernels without running them, with the addresses of the inputs, the
-  engine's weights, caches and page tables, and the decode's scratch,
-  which the graph holds;
-- every later call copies its inputs into the captured ones where they
-  are other tensors (the engine passes its own static buffers: no copy),
-  replays the graph and returns the captured outputs, which the next
-  replay overwrites.
+- ``GraphedStep``: the serving engine's steps (the JAX engine's
+  ``_compile``, ``serving/engine.py:339-370``, and its bucketed prefill
+  and first-token sampler, ``:268-275``);
+- ``GraphedTrainStep``: a training step, forward, ``backward()`` and the
+  optimizer's step in one graph (``make_sharded_train_step``, JAX
+  ``models/transformer.py:332``; ``make_pipeline_train_step``, JAX
+  ``models/pipeline.py:158``);
+- ``GraphedFunction``: a differentiable callable, a forward graph and a
+  backward graph (``ring_flash_attention``, ``ulysses_flash_attention``,
+  ``sharded_flash_attention``: JAX's ``jit(shard_map)``).
 
-A capture that fails raises; nothing falls back to the eager step.
+The wrapped function's body is device work only: no host sync, no tensor
+made from host data (what uploads on first use, as the kernels' tables and
+the rotary frequencies, is uploaded by the eager first call), every
+persistent tensor updated in place.  Per input signature (shapes and
+dtypes) each wrapper:
+
+- runs the function eagerly on the first call: that run is the call's
+  result, and it sizes whatever grows lazily (the decode's scratch, the
+  optimizer's state);
+- then captures it, which records the kernels without running them, with
+  the addresses of its inputs and of the weights, caches and optimizer
+  state it reads;
+- on every later call copies the inputs into the captured ones, replays
+  the graph and returns its outputs (``GraphedStep``: the captured tensors
+  themselves, which the next replay overwrites; the other two: fresh
+  copies, as JAX returns new arrays).
+
+A capture that fails raises; nothing falls back to the eager function.
+Graphs are made only where every device of the layout is one CUDA device
+(``capture_device``); on the CPU, and over several CUDA devices (one graph
+a device: ROADMAP.md queue 1 item 4), the factories return the eager
+function.
 
 Counts: the kernel wrappers count a captured kernel once in
 ``native.LAUNCHES`` (they ran at capture); each replay adds the graph's
@@ -38,13 +53,15 @@ import dataclasses
 import gc
 import weakref
 from collections import Counter
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .. import native
 
-__all__ = ["Graph", "GraphedStep", "graph_nodes"]
+__all__ = ["Graph", "GraphedStep", "GraphedTrainStep", "GraphedFunction", "graph_nodes",
+           "capture_device", "check_capturable", "graph_callable"]
 
 # CUgraphNodeType (cuda.h): a kernel, a memory copy, a memory set
 _CU_KERNEL, _CU_MEMCPY, _CU_MEMSET = 0, 1, 2
@@ -83,12 +100,37 @@ def _new_graph() -> Tuple["torch.cuda.CUDAGraph", bool]:
         return torch.cuda.CUDAGraph(), False
 
 
+def capture_device(devices: Iterable) -> Optional[torch.device]:
+    """The CUDA device that every one of ``devices`` is, or None: a layout
+    on one card (a mesh of ``cuda:0`` repeated) is captured as CUDA graphs;
+    the CPU and several CUDA devices run eagerly."""
+    found = {torch.device(d) for d in devices}
+    if len(found) != 1:
+        return None
+    device = found.pop()
+    return device if device.type == "cuda" else None
+
+
+def check_capturable(optimizer: torch.optim.Optimizer) -> None:
+    """Raise a ``ValueError`` unless every param group of ``optimizer`` was
+    built with ``capturable=True``, which a captured ``step()`` needs (its
+    step count and bias correction on the device; PyTorch refuses to
+    capture any other group, ``fused=True`` ones included).  Needs no
+    CUDA."""
+    for i, group in enumerate(optimizer.param_groups):
+        if not group.get("capturable", False):
+            raise ValueError(
+                f"param group {i} of the {type(optimizer).__name__} is not capturable: a train "
+                f"step on one CUDA device is captured as a CUDA graph, so build the optimizer "
+                f"with capturable=True (torch.optim.AdamW(params, ..., capturable=True))")
+
+
 @dataclasses.dataclass
 class Graph:
-    """One captured signature of a step: the graph, its inputs and outputs,
-    the kernels the wrappers launched into it, its nodes, the memory its
-    capture reserved, and the decode scratch it reads (held so it is never
-    freed)."""
+    """One captured signature: the graph, its inputs and outputs, the
+    kernels the wrappers launched into it, its nodes, the memory its
+    capture reserved, the tensors it reads that nothing else keeps (held so
+    they are never freed into the pool), and its replays so far."""
 
     graph: "torch.cuda.CUDAGraph"
     inputs: tuple
@@ -99,18 +141,61 @@ class Graph:
     held: list
     replays: int = 0
 
+    def replay(self) -> None:
+        self.graph.replay()
+        self.replays += 1
+        for k, n in self.launches.items():
+            native.REPLAYED[k] += n
+
+
+def _capture(fn: Callable, stream: "torch.cuda.Stream", pool, generators=(),
+             held=(), inputs=()) -> Graph:
+    """``fn()`` (returning a tuple of tensors) captured on ``stream`` into
+    ``pool``, with ``generators`` registered so that each replay draws fresh
+    numbers from them.  Raises if the graph holds fewer kernels than its
+    wrappers launched: a launch left the capture stream."""
+    graph, kept = _new_graph()
+    for g in generators:
+        graph.register_generator_state(g)
+    before = dict(native.LAUNCHES)
+    # the capture empties the allocator's cache first: measure after that
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(stream.device)
+    with torch.cuda.graph(graph, pool=pool, stream=stream):
+        outputs = tuple(fn())
+    launches = {k: n - before[k] for k, n in native.LAUNCHES.items() if n > before[k]}
+    nodes = None
+    if kept:
+        nodes = graph_nodes(graph)
+        graph.instantiate()      # now, so that the first replay costs no more
+    if nodes is not None and nodes["kernels"] < sum(launches.values()):
+        raise RuntimeError(f"the graph holds {nodes['kernels']} kernels, fewer than the "
+                           f"{sum(launches.values())} its wrappers launched: a launch left "
+                           f"the capture stream")
+    return Graph(graph=graph, inputs=tuple(inputs), outputs=outputs, launches=launches,
+                 nodes=nodes, pool_bytes=torch.cuda.memory_reserved(stream.device) - reserved,
+                 held=list(held))
+
 
 class GraphedStep:
     """``impl`` captured once per input signature and replayed (see the
-    module's docstring).  ``stream`` is the capture stream and ``pool`` the
-    memory pool the engine's graphs share; ``n_out`` is the number of
-    outputs ``impl`` returns, checked at capture.  A bound method is held
-    weakly, so that the engine that holds this step, and its graphs, go
-    with the engine."""
+    module's docstring): a serving engine's step.  ``stream`` is the
+    capture stream and ``pool`` the memory pool the engine's graphs share;
+    ``n_out`` is the number of outputs ``impl`` returns, checked at
+    capture; ``generators`` are the ``torch.Generator``s ``impl`` draws
+    from.  The first call runs ``impl`` on the capture stream; a later call
+    copies its inputs into the captured ones where they are other tensors
+    (the engine passes its own static buffers: no copy) and returns the
+    captured outputs, which the next replay overwrites.  A bound method is
+    held weakly, so that the engine that holds this step, and its graphs,
+    go with the engine."""
 
-    def __init__(self, impl: Callable, n_out: int, stream: "torch.cuda.Stream", pool):
+    def __init__(self, impl: Callable, n_out: int, stream: "torch.cuda.Stream", pool,
+                 generators=()):
         self._impl = weakref.WeakMethod(impl) if hasattr(impl, "__self__") else lambda: impl
         self.n_out, self.stream, self.pool = n_out, stream, pool
+        self.generators = tuple(generators)
         self.graphs: Dict[tuple, Graph] = {}
 
     @property
@@ -125,10 +210,7 @@ class GraphedStep:
         for x, static in zip(inputs, g.inputs):
             if x is not static:
                 static.copy_(x, non_blocking=True)
-        g.graph.replay()
-        g.replays += 1
-        for k, n in g.launches.items():
-            native.REPLAYED[k] += n
+        g.replay()
         return g.outputs
 
     def _capture(self, key, inputs):
@@ -140,26 +222,181 @@ class GraphedStep:
             t.record_stream(cur)
         if len(out) != self.n_out:
             raise ValueError(f"the step returned {len(out)} outputs, {self.n_out} expected")
-        graph, kept = _new_graph()
-        before = dict(native.LAUNCHES)
-        # the capture empties the allocator's cache first: measure after that
-        gc.collect()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.stream.device)
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            static_out = self.impl(*inputs)
+        self.graphs[key] = _capture(lambda: self.impl(*inputs), self.stream, self.pool,
+                                    self.generators, native.scratch_in_use(), inputs)
         cur.wait_stream(self.stream)
-        launches = {k: n - before[k] for k, n in native.LAUNCHES.items() if n > before[k]}
-        nodes = None
-        if kept:
-            nodes = graph_nodes(graph)
-            graph.instantiate()      # now, so that the first replay costs no more
-        if nodes is not None and nodes["kernels"] < sum(launches.values()):
-            raise RuntimeError(f"the graph holds {nodes['kernels']} kernels, fewer than the "
-                               f"{sum(launches.values())} its wrappers launched: a launch left "
-                               f"the capture stream")
-        self.graphs[key] = Graph(
-            graph=graph, inputs=tuple(inputs), outputs=tuple(static_out), launches=launches,
-            nodes=nodes, pool_bytes=torch.cuda.memory_reserved(self.stream.device) - reserved,
-            held=native.scratch_in_use())
         return out
+
+
+class GraphedTrainStep:
+    """A training step ``step(params, tokens) -> loss`` (``loss_fn(params,
+    tokens)`` minimised by ``optimizer`` over ``params``' parameters)
+    captured as one CUDA graph per ``params`` and signature of ``tokens``.
+
+    The first call runs the eager step (``eager``): that run is the call's
+    result, and it creates the optimizer's state.  Then the gradients are
+    set to None and one step is captured on the capture stream: forward,
+    ``backward()`` (whose leaves' gradients the capture allocates in the
+    pool: every replay writes them anew, where a gradient left in place
+    would accumulate) and ``optimizer.step()``.  The eager step's gradients
+    are copied into the captured ones, so ``p.grad`` holds the last step's
+    gradients after every call.  A later call copies ``tokens`` into the
+    captured buffer, replays the graph and returns a fresh copy of the 0-d
+    loss.  The optimizer must be capturable (``check_capturable``, here),
+    and its hyper-parameters are captured as they are: a learning rate
+    changed later needs a tensor ``lr``."""
+
+    def __init__(self, loss_fn: Callable, optimizer: torch.optim.Optimizer, device):
+        check_capturable(optimizer)
+        self.loss_fn, self.optimizer = loss_fn, optimizer
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: Dict[tuple, Graph] = {}
+
+    def eager(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """One optimizer step run eagerly; returns the loss (before the
+        step)."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss_fn(params, tokens)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    def _parameters(self):
+        return [p for group in self.optimizer.param_groups for p in group["params"]]
+
+    def __call__(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        key = (id(params), tuple(tokens.shape), tokens.dtype, tokens.device)
+        g = self.graphs.get(key)
+        if g is None:
+            return self._capture(key, params, tokens)
+        g.inputs[0].copy_(tokens, non_blocking=True)
+        g.replay()
+        for p, grad in zip(self._parameters(), g.held[1]):
+            p.grad = grad
+        return g.outputs[0].clone()
+
+    def _capture(self, key, params, tokens):
+        loss = self.eager(params, tokens)
+        eager_grads = [p.grad for p in self._parameters()]
+        static = tokens.detach().clone()
+        self.optimizer.zero_grad(set_to_none=True)
+        cur = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(cur)
+
+        def step():
+            out = self.loss_fn(params, static)
+            out.backward()
+            self.optimizer.step()
+            return (out.detach(),)
+
+        g = _capture(step, self.stream, self.pool, inputs=(static,))
+        cur.wait_stream(self.stream)
+        grads = [p.grad for p in self._parameters()]
+        for mine, eager in zip(grads, eager_grads):
+            if mine is not None and eager is not None:
+                mine.copy_(eager)
+        # params keeps its id (the key) and the captured gradients stay out
+        # of the pool's free memory
+        g.held += [params, grads]
+        self.graphs[key] = g
+        return loss
+
+
+@dataclasses.dataclass
+class _Signature:
+    """A ``GraphedFunction``'s graphs of one signature: the forward, the
+    backward (None without gradients), which inputs take gradients, and
+    the number of forward replays so far."""
+
+    fwd: Graph
+    bwd: Optional[Graph]
+    requires: Tuple[bool, ...]
+    generation: int = 0
+
+
+class _Replayed(torch.autograd.Function):
+    """A replay of a signature's forward graph; its backward replays the
+    backward graph."""
+
+    @staticmethod
+    def forward(ctx, sig: _Signature, *inputs):
+        for x, static in zip(inputs, sig.fwd.inputs):
+            static.copy_(x)
+        sig.fwd.replay()
+        sig.generation += 1
+        ctx.sig, ctx.generation = sig, sig.generation
+        return sig.fwd.outputs[0].clone()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        sig = ctx.sig
+        if ctx.generation != sig.generation:
+            raise RuntimeError("the backward of a graphed call after a later call with the same "
+                               "signature: the graph's saved activations are the later call's; "
+                               "run each call's backward before the next call")
+        sig.bwd.inputs[0].copy_(grad)
+        sig.bwd.replay()
+        grads = iter(sig.bwd.outputs)
+        return (None, *(next(grads).clone() if r else None for r in sig.requires))
+
+
+class GraphedFunction:
+    """``fn(*tensors) -> tensor``, differentiable, captured per input
+    signature (shapes, dtypes, devices, which inputs require grad, and
+    whether grad mode is on): a forward graph, and a backward graph (the
+    gradients with respect to the inputs that require them) where the call
+    is differentiable.  The first call runs ``fn`` eagerly (the call's
+    result), then one eager forward and backward on copies of the inputs
+    (which uploads the backward kernels' tables), then the captures.  A
+    later call replays the forward graph into a fresh output whose backward
+    replays the backward graph into fresh gradients.  A signature's graphs
+    hold one call's saved activations: the backward of a call must run
+    before the next call of its signature, or it raises.  ``eager`` is
+    ``fn``."""
+
+    def __init__(self, fn: Callable, device):
+        self.eager = fn
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: Dict[tuple, _Signature] = {}
+
+    def __call__(self, *inputs):
+        grad = torch.is_grad_enabled() and any(x.requires_grad for x in inputs)
+        key = (tuple((tuple(x.shape), x.dtype, x.device, x.requires_grad) for x in inputs), grad)
+        sig = self.graphs.get(key)
+        if sig is None:
+            out = self.eager(*inputs)
+            self.graphs[key] = self._capture(inputs, grad)
+            return out
+        return _Replayed.apply(sig, *inputs)
+
+    def _capture(self, inputs, grad: bool) -> _Signature:
+        static = tuple(x.detach().clone().requires_grad_(grad and x.requires_grad)
+                       for x in inputs)
+        wants = [x for x in static if x.requires_grad]
+        if grad:
+            warm = self.eager(*static)
+            torch.autograd.grad(warm, wants, torch.zeros_like(warm))
+            del warm
+        cur = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(cur)
+        fwd = _capture(lambda: (self.eager(*static),), self.stream, self.pool, inputs=static)
+        bwd = None
+        if grad:
+            g_out = torch.zeros_like(fwd.outputs[0])
+            # retain_graph: the saved activations stay held, never freed
+            # into the pool between a forward replay and its backward's
+            bwd = _capture(lambda: torch.autograd.grad(fwd.outputs[0], wants, g_out,
+                                                       retain_graph=True),
+                           self.stream, self.pool, inputs=(g_out,))
+        cur.wait_stream(self.stream)
+        return _Signature(fwd, bwd, tuple(x.requires_grad for x in static))
+
+
+def graph_callable(fn: Callable, devices: Iterable) -> Callable:
+    """``fn`` as a ``GraphedFunction`` where ``devices`` are one CUDA
+    device (``capture_device``), else ``fn`` itself."""
+    device = capture_device(devices)
+    return fn if device is None else GraphedFunction(fn, device)

@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["SamplingParams", "sample_tokens"]
+__all__ = ["SamplingParams", "sample_tokens", "draw_tokens"]
 
 _NEG = -1e30
 
@@ -58,14 +58,25 @@ def sample_tokens(logits: torch.Tensor, generator: Optional[torch.Generator],
     ``top_k`` (S,) int, 0 = off; ``top_p`` (S,) float, 1 = off.  Returns
     (S,) int32 tokens.  ``generator`` must live on ``logits``' device.
     """
+    # an all-greedy batch (the common serving case) skips the full-vocab
+    # sort/cumsum chain
+    if not bool((temperature > 0).any()):
+        return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+    return draw_tokens(logits, generator, temperature, top_k, top_p)
+
+
+def draw_tokens(logits: torch.Tensor, generator: Optional[torch.Generator],
+                temperature: torch.Tensor, top_k: torch.Tensor,
+                top_p: torch.Tensor) -> torch.Tensor:
+    """``sample_tokens`` without its all-greedy shortcut, which reads the
+    temperatures on the host: every slot through the sampled path (greedy
+    slots take the argmax), device work only, so it can be captured as a
+    CUDA graph (the engine's first-token sampler).  It draws what
+    ``sample_tokens`` draws where a slot samples."""
     S, vocab = logits.shape
     logits = logits.float()
     greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
     temperature = temperature.float()
-    # an all-greedy batch (the common serving case) skips the full-vocab
-    # sort/cumsum chain
-    if not bool((temperature > 0).any()):
-        return greedy_tok
     safe_t = torch.where(temperature > 0, temperature, torch.ones_like(temperature))
     scaled = logits / safe_t[:, None]
 

@@ -354,7 +354,25 @@ Phases (any failure exits non-zero before the final line):
      drawing from the engine's generator), after two warm-up requests (the
      captures), on phase 3's 18 requests and 2 sampled ones: every token
      equal, the last prompt token's logits within LOGIT_ATOL of phase 3's
-     chunked engine; prints both prefill rates.
+     chunked engine; prints both prefill rates;
+  13. serving over a process group, one process a mesh slot: (a) four
+     ranks (torch.multiprocessing spawn) on cuda:0 joined by a gloo group
+     (NCCL refuses ranks that share a card; gloo's collectives of CUDA
+     tensors go through the host, so a graphed step refuses and the ranks
+     run eagerly) serve phase 3's 18 requests at the 168M configuration on
+     tp = 4, cp = 4 and model 2 x seq 2 meshes (weights from a CUDA
+     generator, the same in every process), and run the four standalone
+     callables, beside the same on single-controller meshes of cuda:0 in
+     this process: tokens equal up to each request's first top-2 tie,
+     every rank's equal, logits within LOGIT_ATOL, the callables within
+     attn_tol; prints the requests equal in full, the largest differences,
+     the launches and collective calls over the ranks and each rank's
+     wall; (b) a world-size-1 NCCL group in this process: the flat engine
+     on its mesh, graphed with the collectives inside, gives phase 3's
+     tokens up to the first tie, its decode graph's nodes printed beside
+     phase 11's; then each callable graphed on cuda:0 four times, called
+     with two caches of one shape in turn, equal to the eager call on its
+     own cache, two graphs of one replay each (nodes and replays printed).
 
 The kernels' JSON line gives each kernel's launches from the run of the
 path that takes it by default ("path": the engine, the speculative engine,
@@ -373,7 +391,9 @@ out); banded_fwd and banded_bwd add their launches in the MoE steps ("moe
 train (6c)") and the pipeline's ("pipeline train (6d)"), the op kernels
 phase 12's graphed runs launched, the wrappers' (eager first calls and
 captures) and the replays' apart ("compiled (12)"), and the serving
-kernels theirs in the MoE engine's runs ("moe engine (3i)").  The four sequence-sharded variants follow as kernels of
+kernels theirs in the MoE engine's runs ("moe engine (3i)") and in
+phase 13 ("process group (13)": the ranks' eager engines summed over the
+ranks, and the NCCL engine's wrapper launches and graph replays).  The four sequence-sharded variants follow as kernels of
 their own ("paged_decode[cp]", ...; launches from the cp engine of phase
 3e, times and library yardsticks from 3e(a) on shard 0), then the ten
 experiment kernels (phase 8; the
@@ -1156,7 +1176,7 @@ def main():
     print(f"phase 10: {time.perf_counter() - t0:.3f} s", flush=True)
 
     # ---- 11: the compiled steps, graphed against eager, every layout ----
-    compiled_phase(mcfg, cpu_model, ecfg, prompts, pattern, args.seed, dev)
+    compiled_11 = compiled_phase(mcfg, cpu_model, ecfg, prompts, pattern, args.seed, dev)
 
     # ---- 12: the rest of jax.jit: the training steps, the parallel
     # attention callables and the bucketed prefill, graphed against eager ----
@@ -1167,6 +1187,16 @@ def main():
     compiled_bucketed_phase(mcfg, cpu_model, ecfg, prompts, chunked_logits, args.seed, dev)
     print(f"phase 12: {time.perf_counter() - t0:.3f} s; op kernels of the graphed runs "
           f"{json.dumps(compiled)}", flush=True)
+
+    # ---- 13: serving over a process group: (a) four ranks on the card over
+    # gloo, (b) one rank over NCCL with its collectives in the graphs, and
+    # the standalone callables' graphs keyed by their caches ----
+    t0 = time.perf_counter()
+    pg_launches = process_group_phase(mcfg, ecfg, prompts, n_new, args.seed, dev)
+    nccl_launches = nccl_phase(mcfg, cpu_model, ecfg, prompts, greedy_3,
+                               compiled_11["flat"]["graphs"], args.seed, dev)
+    graph_keys_phase(dev, args.seed)
+    print(f"phase 13: {time.perf_counter() - t0:.3f} s", flush=True)
 
     csrc = "tf_flash_attention_tpu_torch/csrc/"
     replaces = {
@@ -1241,6 +1271,14 @@ def main():
                                           f"the card, int8, with and without speculation)",
                                   "launches": tp_launches[k]}
             entry["tp_heads"] = {name: r[k] for name, r in tp_heads.items() if k in r}
+            # phase 13: the ranks' engines (13(a), eager, the three layouts
+            # over the four ranks) and the NCCL rank's graphed engine (13(b))
+            entry["process group (13)"] = {
+                "path": f"13(a): tp = 4, cp = 4 and model 2 x seq 2 engines, {PG_WORLD} ranks "
+                        f"on the card over {PG_BACKEND}, eager; 13(b): the flat engine on a "
+                        f"world-size-1 NCCL group, graphed (wrapper launches)",
+                "launches": pg_launches.get(k, 0),
+                "nccl_engine": nccl_launches.get(k, {"launches": 0, "replayed": 0})}
             entry["payloads_held"] = [pl for pl, c in cases.items() if k in c]
             entry["ms_by_payload"] = {pl: c[k]["ms"] for pl, c in cases.items() if k in c}
             entry["launches_by_payload"] = {pl: n[k] for pl, n in payload_launches.items()}
@@ -1266,6 +1304,8 @@ def main():
                       "bound_by": m["bound_by"], "library_ms": m.get("library_ms"),
                       **({"rolled_tables": {p: r[k] for p, r in rolled.items()}}
                          if k == "paged_decode[cp]" else {}),
+                      "process group (13)": {"path": f"13(a) engines over {PG_WORLD} ranks",
+                                             "launches": pg_launches.get(k, 0)},
                       **{x: m[x] for x in ("body", "splits", "ctas", "deterministic",
                                            "kernel_ms", "l_err", "m_err", "merge_err",
                                            "cp_step_ms", "flat_ms", "entry_ms", "library_call",
@@ -2495,7 +2535,8 @@ def sharded_decode_check(dev, gen):
         flat = decode.paged_decode_attention(q, cache, cfg)
         flat_ran = decode_ran("paged_decode", cfg, "tp decode (flat)")
         shards = shard_cache_heads(cache, cfg, mesh)
-        got = sharded_paged_decode(mesh, cfg)(q, shards)
+        # the eager call (on one card the callable is a graph: phase 13(b))
+        got = sharded_paged_decode(mesh, cfg).eager(q, shards)
         torch.cuda.synchronize()
         shard_ran = decode_ran("paged_decode", cfg, "tp decode (shard)")
         launches = native.LAUNCHES["paged_decode"]
@@ -2680,8 +2721,8 @@ def moe_trace(eng, check_idle=False):
         call["router"] = min(call.get("router", math.inf), float(gap2(probs).min()))
         return moe_ffn(cfg, params, x)
 
-    def traced_decode(q, caches, ccfg, glob, rule):
-        o = decode_merged(q, caches, ccfg, glob, rule=rule)
+    def traced_decode(q, caches, ccfg, glob, **kw):
+        o = decode_merged(q, caches, ccfg, glob, **kw)
         idle = [i for i, st in enumerate(eng._slots) if st is None]
         if check_idle and idle:
             rows = o[idle]
@@ -5113,6 +5154,423 @@ def compiled_bucketed_phase(mcfg, cpu_model, ecfg, prompts, chunked_logits, seed
           f"{runs[False]['decode_tps']:.1f}, {runs[True]['decode_tps']:.1f}; graphs "
           f"{json.dumps(runs[True]['graphs'])}", flush=True)
     print(f"phase 12(c): {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+# ---- phase 13: serving over a process group, one process a mesh slot ----
+
+PG_WORLD = 4
+# the engines' layouts over the four ranks: (label, mesh shape, axes)
+PG_LAYOUTS = (("tp = 4", (4,), ("model",)), ("cp = 4", (4,), ("seq",)),
+              ("model 2 x seq 2", (2, 2), ("model", "seq")))
+# four ranks share cuda:0, and NCCL takes one rank a device: the group of
+# 13(a) is gloo, whose collectives of CUDA tensors go through the host
+# (collectives.py copies them out and back explicitly)
+PG_BACKEND = "gloo"
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def pg_model(mcfg, dev, seed):
+    """Phase 13(a)'s weights: the 168M decoder drawn on the card from a CUDA
+    generator, the same in every process."""
+    from tf_flash_attention_tpu_torch.models.transformer import init_params
+    return init_params(mcfg, torch.Generator(device=dev).manual_seed(seed + 51), device=dev)
+
+
+def pg_serve(eng, prompts, n_new):
+    """``eng``'s steps set eager, ``prompts`` served with the launch counts
+    reset just before: (tokens, the last prompt token's float32 logits as
+    numpy by request, launches, collective calls, wall seconds)."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.parallel import collectives
+
+    set_eager(eng)
+    logits = record_prompt_logits(eng)
+    rids = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
+    native.reset_launch_counts()
+    collectives.CALLS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run(max_steps=10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(tokens=[res[r] for r in rids],
+                logits={i: logits[tuple(p)].cpu().numpy() for i, p in enumerate(prompts)},
+                launches={k: n for k, n in native.LAUNCHES.items() if n},
+                collectives=dict(collectives.CALLS), wall=wall)
+
+
+def pg_caches(dev, gen, seed_shift=0):
+    """Phase 13's callable inputs from ``gen``: a full int8 cache (8 KV heads,
+    8 slots of 300-3,000 tokens, page 256) with bf16 decode queries, and 4
+    slots' prompts of 1,000-3,500 tokens (K/V bf16) for a 4-shard cache,
+    with decode queries, one append a slot and a 512-row prefill chunk."""
+    cfg = payload_cfg("int8", n_kv_heads=8, head_dim=128, page_size=256, n_pages=129,
+                      max_seqs=8, max_pages_per_seq=16)
+    lengths = torch.randint(300, 3001, (8,), generator=gen, device=dev).tolist()
+    bf = torch.bfloat16
+    full = make_cache(cfg, dev, gen, lengths, mapped=12)
+    tp_q = torch.randn((8, 8, 128), generator=gen, device=dev).to(bf)
+    totals = [t + (t % 256 == 0) for t in
+              torch.randint(1000, 3501, (4,), generator=gen, device=dev).tolist()]
+    kv = [(torch.randn((8, t, 128), generator=gen, device=dev).to(bf),
+           torch.randn((8, t, 128), generator=gen, device=dev).to(bf)) for t in totals]
+    return dict(cfg=cfg, full=full, tp_q=tp_q, totals=totals, kv=kv,
+                q=torch.randn((4, 8, 128), generator=gen, device=dev).to(bf),
+                k_new=torch.randn((4, 8, 128), generator=gen, device=dev).to(bf),
+                qp=torch.randn((512, 8, 128), generator=gen, device=dev).to(bf))
+
+
+def pg_seq_caches(inputs, mesh):
+    """The 4-shard cache of ``pg_caches``' prompts, the shards this process
+    drives (slot s on pages 4s .. 4s + 3 of every shard)."""
+    from tf_flash_attention_tpu_torch.serving import seq_sharded_decode as tsd
+    cfg = dataclasses.replace(inputs["cfg"], n_pages=17, max_seqs=4, max_pages_per_seq=4)
+    caches = tsd.create_seq_sharded_cache(cfg, mesh, "seq")
+    for s, (k, v) in enumerate(inputs["kv"]):
+        tsd.write_prompt_seq_sharded(caches, cfg, mesh, "seq", s, [range(4 * s, 4 * s + 4)] * 4,
+                                     k, v)
+    return cfg, caches
+
+
+def pg_callables(dev, seed):
+    """The four callables run eagerly (``.eager``) on meshes of cuda:0 four
+    times: single-controller where no process group is up, one shard a
+    rank where one is.  ``sharded_paged_decode`` at tp 4 on ``pg_caches``'
+    full cache; on a seq axis of 4: a decode, one append a slot, a decode
+    and a prefill chunk over slot 0's last 512 tokens.  Returns the outputs
+    on the CPU (whole on every process) and each launch count."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+    from tf_flash_attention_tpu_torch.serving import seq_sharded_decode as tsd
+    from tf_flash_attention_tpu_torch.serving.sharded_decode import (shard_cache_heads,
+                                                                     sharded_paged_decode)
+
+    eager = lambda fn: getattr(fn, "eager", fn)
+    inputs = pg_caches(dev, torch.Generator(device=dev).manual_seed(seed + 53))
+    native.reset_launch_counts()
+    heads = make_mesh((PG_WORLD,), ("model",), [dev] * PG_WORLD)
+    out = {"sharded_decode": eager(sharded_paged_decode(heads, inputs["cfg"]))(
+        inputs["tp_q"], shard_cache_heads(inputs["full"], inputs["cfg"], heads))}
+    seq = make_mesh((PG_WORLD,), ("seq",), [dev] * PG_WORLD)
+    cfg, caches = pg_seq_caches(inputs, seq)
+    decode = eager(tsd.seq_sharded_paged_decode(seq, cfg, "seq"))
+    out["decode"] = decode(inputs["q"], caches)
+    eager(tsd.seq_sharded_append(seq, cfg, "seq", trash_page=cfg.n_pages - 1))(
+        caches, inputs["k_new"], -inputs["k_new"], torch.ones(4, dtype=torch.bool, device=dev))
+    out["decode_after"] = decode(inputs["q"], caches)
+    total = inputs["totals"][0] + 1
+    out["prefill"] = eager(tsd.seq_sharded_paged_prefill(seq, cfg, "seq"))(
+        inputs["qp"], caches, 0, total - 512, 512)
+    torch.cuda.synchronize()
+    return ({k: v.float().cpu() for k, v in out.items()},
+            {k: n for k, n in native.LAUNCHES.items() if n})
+
+
+def pg_rank(rank, port, dev, mcfg, ecfg, prompts, n_new, seed, out):
+    """One rank of phase 13(a): joins the gloo group, serves ``prompts`` on
+    each of PG_LAYOUTS' meshes (``dev`` for every rank) with the engine's
+    steps eager, runs the four callables, and puts its results (or its
+    traceback) on ``out``.  A failure also exits non-zero."""
+    import traceback
+
+    import torch.distributed as dist
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+    from tf_flash_attention_tpu_torch.serving.engine import DecodeEngine
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    try:
+        dist.init_process_group(PG_BACKEND, init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=PG_WORLD, rank=rank)
+        model = pg_model(mcfg, dev, seed)
+        engines = {}
+        for label, shape, axes in PG_LAYOUTS:
+            mesh = make_mesh(shape, axes, [dev] * PG_WORLD)
+            at = dict(zip(axes, divmod(rank, 2) if len(shape) == 2 else (rank,)))
+            if not mesh.process_group or mesh.coords() != at:
+                raise RuntimeError(f"rank {rank}: the mesh {mesh} is not the process group's")
+            eng = DecodeEngine(mcfg, model, ecfg, mesh=mesh)
+            # a gloo group's collectives cannot be captured: the graphed step
+            # refuses when it would capture, before running anything
+            try:
+                eng._decode_step(eng._in_tokens, eng._in_active)
+            except RuntimeError as e:
+                if "gloo" not in str(e):
+                    raise
+            else:
+                if dev.type == "cuda":
+                    raise RuntimeError(f"rank {rank}: a graphed step over gloo did not refuse")
+            engines[label] = pg_serve(eng, prompts, n_new)
+            engines[label]["held"] = (len(eng._params), len(eng.shards))
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        outs, launches = pg_callables(dev, seed)
+        out.put((rank, None, dict(engines=engines,
+                                  callables={k: v.numpy() for k, v in outs.items()},
+                                  callable_launches=launches)))
+    except BaseException:
+        out.put((rank, traceback.format_exc(), None))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def process_group_phase(mcfg, ecfg, prompts, n_new, seed, dev):
+    """Phase 13(a): four ranks (``torch.multiprocessing`` spawn) on cuda:0
+    joined by a PG_BACKEND group serve phase 3's requests at the 168M
+    configuration (full width and depth, int8 cache; weights from a CUDA
+    generator) on each of PG_LAYOUTS eagerly, and run the four callables;
+    meanwhile this process runs the same on single-controller meshes of
+    cuda:0 four times.  Gates, for every layout and rank: each request's
+    tokens equal the single-process engine's up to its first top-2 logit
+    tie (GAP_TIE, teacher-forced over the single-process tokens), every
+    rank's tokens equal rank 0's, the last prompt token's logits within
+    LOGIT_ATOL of the single-process engine's, and every callable's output
+    within attn_tol of the single-process call's; a rank that fails, or
+    exits non-zero, fails the phase.  Prints the requests equal in full,
+    the largest differences (0 where the sums run in one order), each
+    layout's launches over the ranks, collective calls and wall seconds.
+    Returns {kernel: launches of the ranks' engine runs}."""
+    import queue
+
+    import torch.multiprocessing as mp
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+    from tf_flash_attention_tpu_torch.serving.engine import DecodeEngine
+
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=pg_rank, args=(r, port, dev, mcfg, ecfg, prompts, n_new, seed,
+                                               results))
+             for r in range(PG_WORLD)]
+    for p in procs:
+        p.start()
+    # the single-process references meanwhile, on the same card
+    model = pg_model(mcfg, dev, seed)
+    want = {}
+    for label, shape, axes in PG_LAYOUTS:
+        eng = DecodeEngine(mcfg, model, ecfg, mesh=make_mesh(shape, axes, [dev] * PG_WORLD))
+        want[label] = pg_serve(eng, prompts, n_new)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    gaps = {label: top2_gaps(mcfg, model, prompts, w["tokens"], dev)[0]
+            for label, w in want.items()}
+    want_calls, _ = pg_callables(dev, seed)
+    del model
+    torch.cuda.empty_cache()
+    ranks, errors = {}, []
+    try:
+        for _ in procs:
+            rank, err, value = results.get(timeout=600)
+            if err:
+                errors.append(f"rank {rank}:\n{err}")
+            ranks[rank] = value
+    except queue.Empty:
+        errors.append(f"ranks {sorted(set(range(PG_WORLD)) - set(ranks))} sent nothing in 600 s")
+    for p in procs:
+        p.join(timeout=60)
+        if p.is_alive():
+            p.kill()
+            p.join()
+        if p.exitcode != 0:
+            errors.append(f"a rank exited with code {p.exitcode}")
+    if errors:
+        fail("13(a): " + "\n".join(errors))
+    total = {}
+    for label, _, _ in PG_LAYOUTS:
+        w = want[label]
+        first = ranks[0]["engines"][label]
+        launches, err, calls, walls = {}, 0.0, {}, []
+        for rank in range(PG_WORLD):
+            got = ranks[rank]["engines"][label]
+            name = f"13(a) {label}, rank {rank} of {PG_WORLD} ({PG_BACKEND})"
+            check_to_tie(name, prompts, w["tokens"], got["tokens"], gaps[label])
+            if got["tokens"] != first["tokens"]:
+                fail(f"{name}: its tokens differ from rank 0's")
+            if got["held"] != (1, 1):
+                fail(f"{name}: holds {got['held']} (param shards, cache shards), not its own")
+            as_tensors = lambda d: {i: torch.from_numpy(x) for i, x in d.items()}
+            err = max(err, logits_err(name, as_tensors(got["logits"]), as_tensors(w["logits"]),
+                                      LOGIT_ATOL))
+            for k, n in got["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            for k, n in got["collectives"].items():
+                calls[k] = calls.get(k, 0) + n
+            walls.append(got["wall"])
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        same = sum(a == b for a, b in zip(first["tokens"], w["tokens"]))
+        print(f"13(a) {label}: {PG_WORLD} ranks on {dev} over {PG_BACKEND}, eager: every "
+              f"rank's tokens equal; {same} of {len(prompts)} requests equal to the "
+              f"single-process engine's in full; last prompt token's logits max_abs_err {err} "
+              f"(tol {LOGIT_ATOL}); smallest top-2 gap {min(min(g) for g in gaps[label])}; "
+              f"launches over the ranks {json.dumps(launches)} (single process "
+              f"{json.dumps(w['launches'])}); collective calls over the ranks "
+              f"{json.dumps(calls)}; wall s by rank {walls} (single process {w['wall']:.3f})",
+              flush=True)
+    errs = {}
+    for name, ref in want_calls.items():
+        for rank in range(PG_WORLD):
+            got = torch.from_numpy(ranks[rank]["callables"][name])
+            e = float((got - ref).abs().max())
+            errs[name] = max(errs.get(name, 0.0), e)
+            if not torch.isfinite(got).all() or e > attn_tol(ref):
+                fail(f"13(a) {name} on rank {rank}: differs from the single-process call by "
+                     f"{e} > {attn_tol(ref)}")
+    launches = {}
+    for rank in range(PG_WORLD):
+        for k, n in ranks[rank]["callable_launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    print(f"13(a) callables over the {PG_WORLD} ranks against the single-process calls: "
+          f"max_abs_err {json.dumps(errs)} (attn_tol); launches over the ranks "
+          f"{json.dumps(launches)}", flush=True)
+    print(f"phase 13(a): {time.perf_counter() - t0:.3f} s", flush=True)
+    return total
+
+
+def nccl_phase(mcfg, cpu_model, ecfg, prompts, greedy_3, flat_graphs, seed, dev):
+    """Phase 13(b): a world-size-1 NCCL group in this process and the flat
+    168M engine on its process-group mesh (seq 1 x model 1), graphed, on
+    phase 3's requests after one warm-up request: its graphs capture the
+    NCCL collectives (the model axis's two sums a layer, the seq axis's
+    lengths).  Gate: each request's tokens equal phase 3's graphed engine's
+    up to its first top-2 tie (GAP_TIE), collectives ran at the capture,
+    and the decode graph holds more nodes than phase 11's flat one
+    (``flat_graphs``), whose nodes it prints beside its own.  Returns
+    {kernel: {"launches": the wrappers', "replayed": the graphs'}} of the
+    run after the warm-up."""
+    import torch.distributed as dist
+    from tf_flash_attention_tpu_torch.parallel import collectives
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+    from tf_flash_attention_tpu_torch.serving.engine import DecodeEngine
+
+    t0 = time.perf_counter()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), ("seq", "model"))
+        if not mesh.process_group or mesh.device != dev or mesh.capture_refusal():
+            fail(f"13(b): the NCCL mesh is {mesh} on {mesh.device}, refusal "
+                 f"{mesh.capture_refusal()}")
+        eng = DecodeEngine(mcfg, cpu_model, ecfg, mesh=mesh)
+        collectives.CALLS.clear()
+        serve("13(b) nccl warm-up", eng, [(prompts[0][:600], None)], 4, mcfg.vocab)
+        captured = dict(collectives.CALLS)
+        results, launches = serve("13(b) nccl", eng, [(p, None) for p in prompts], 32,
+                                  mcfg.vocab)
+        tokens = [results[r] for r in sorted(results)][1:]
+        graphs = {name: graph_report(g) for name in ("_decode_step", "_chunk_prefill")
+                  for g in getattr(eng, name).graphs.values()}
+        replayed = eng.replayed
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    gaps, _ = top2_gaps(mcfg, cpu_model, prompts, greedy_3, dev)
+    check_to_tie("13(b) nccl engine against phase 3's", prompts, greedy_3, tokens, gaps)
+    if not captured.get("psum"):
+        fail(f"13(b): no collective ran in the warm-up's captures: {captured}")
+    # one rank's NCCL gather is a copy, not a kernel: the graph holds more
+    # nodes than the flat engine's, whose sums of one part are no work
+    mine, flat = graphs["_decode_step"]["nodes"], flat_graphs["_decode_step"]["nodes"]
+    if mine is not None and flat is not None and sum(mine.values()) <= sum(flat.values()):
+        fail(f"13(b): the decode graph holds {mine} nodes, no more than phase 11's flat "
+             f"{flat}: the NCCL collectives were not captured")
+    same = sum(a == b for a, b in zip(tokens, greedy_3))
+    print(f"13(b) flat engine on a world-size-1 NCCL group, graphed: {same} of {len(prompts)} "
+          f"requests equal to phase 3's in full; collective calls at capture "
+          f"{json.dumps(captured)}; decode graph nodes {json.dumps(mine)} beside phase 11's "
+          f"flat {json.dumps(flat)}; graphs {json.dumps(graphs)}; replayed "
+          f"{json.dumps(replayed)}", flush=True)
+    print(f"phase 13(b) engine: {time.perf_counter() - t0:.3f} s", flush=True)
+    return {k: {"launches": launches[k], "replayed": replayed.get(k, 0)}
+            for k in launches if launches[k] or replayed.get(k)}
+
+
+def graph_keys_phase(dev, seed):
+    """Phase 13(b), the callables' graphs: on single-controller meshes of
+    cuda:0 four times, each of the four callables is a ``GraphedCall``
+    called with two different caches of one shape in turn (A, B, A, B: two
+    captures, then a replay of each).  Gate: every call equals the eager
+    function on its own cache (bit for bit: the same kernels), A's result
+    differs from B's, each callable holds two graphs replayed once each;
+    the appends leave each cache as two eager appends leave a copy of it.
+    Prints each graph's nodes and replays."""
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+    from tf_flash_attention_tpu_torch.serving import seq_sharded_decode as tsd
+    from tf_flash_attention_tpu_torch.serving.graphs import GraphedCall
+    from tf_flash_attention_tpu_torch.serving.sharded_decode import (shard_cache_heads,
+                                                                     sharded_paged_decode)
+
+    t0 = time.perf_counter()
+    heads = make_mesh((PG_WORLD,), ("model",), [dev] * PG_WORLD)
+    seq = make_mesh((PG_WORLD,), ("seq",), [dev] * PG_WORLD)
+    a, b = (pg_caches(dev, torch.Generator(device=dev).manual_seed(seed + s)) for s in (61, 62))
+    (cfg, sa), (_, sb) = pg_seq_caches(a, seq), pg_seq_caches(b, seq)
+    ha, hb = (shard_cache_heads(x["full"], x["cfg"], heads) for x in (a, b))
+    total = min(a["totals"][0], b["totals"][0])
+    cases = [("sharded_paged_decode", sharded_paged_decode(heads, a["cfg"]),
+              (a["tp_q"], ha), (a["tp_q"], hb)),
+             ("seq_sharded_paged_decode", tsd.seq_sharded_paged_decode(seq, cfg, "seq"),
+              (a["q"], sa), (a["q"], sb)),
+             ("seq_sharded_paged_prefill", tsd.seq_sharded_paged_prefill(seq, cfg, "seq"),
+              (a["qp"], sa, 0, total - 512, 512), (a["qp"], sb, 0, total - 512, 512))]
+    report = {}
+    for name, fn, args_a, args_b in cases:
+        if not isinstance(fn, GraphedCall):
+            fail(f"13(b) {name}: {type(fn).__name__} on one card, not a GraphedCall")
+        want = [fn.eager(*args_a), fn.eager(*args_b)]
+        got = [fn(*args_a), fn(*args_b), fn(*args_a), fn(*args_b)]
+        torch.cuda.synchronize()
+        for i, g in enumerate(got):
+            if not torch.equal(g, want[i % 2]):
+                fail(f"13(b) {name}: call {i} ({'AB'[i % 2]}) differs from the eager call on "
+                     f"its cache by {float((g.float() - want[i % 2].float()).abs().max())}")
+        if torch.equal(want[0], want[1]):
+            fail(f"13(b) {name}: the two caches give one result")
+        if sorted(g.replays for g in fn.graphs.values()) != [1, 1]:
+            fail(f"13(b) {name}: graphs {[g.replays for g in fn.graphs.values()]}, two of one "
+                 f"replay each expected")
+        report[name] = [dict(nodes=g.nodes, replays=g.replays) for g in fn.graphs.values()]
+    # the append updates its caches in place: against two eager appends on copies
+    fn = tsd.seq_sharded_append(seq, cfg, "seq", trash_page=cfg.n_pages - 1)
+    copies = [[clone_cache(c) for c in s] for s in (sa, sb)]
+    active = torch.ones(4, dtype=torch.bool, device=dev)
+    for _ in range(2):
+        for caches, src in ((copies[0], a), (copies[1], b)):
+            fn.eager(caches, src["k_new"], -src["k_new"], active)
+        for caches, src in ((sa, a), (sb, b)):
+            if fn(caches, src["k_new"], -src["k_new"], active) is not caches:
+                fail("13(b) seq_sharded_append: the call returned other caches than its own")
+    torch.cuda.synchronize()
+    for got, want in ((sa, copies[0]), (sb, copies[1])):
+        for g, w in zip(got, want):
+            d = diff_outside_trash(g, w, cfg.n_pages - 1)
+            if not torch.equal(g.lengths, w.lengths):
+                d.append("lengths")
+            if d:
+                fail(f"13(b) seq_sharded_append: a graphed append differs from the eager one: "
+                     f"{d}")
+    if sorted(g.replays for g in fn.graphs.values()) != [1, 1]:
+        fail(f"13(b) seq_sharded_append: graphs {[g.replays for g in fn.graphs.values()]}")
+    report["seq_sharded_append"] = [dict(nodes=g.nodes, replays=g.replays)
+                                    for g in fn.graphs.values()]
+    print(f"13(b) callables graphed on cuda:0, two caches of one shape in turn: every call "
+          f"equal to the eager call on its own cache; graphs {json.dumps(report)}", flush=True)
+    print(f"phase 13(b) callables: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
 if __name__ == "__main__":

@@ -35,6 +35,10 @@ from tf_flash_attention_tpu_torch.utils import dtypes as tdtypes
 
 from _torch_cases import FLOAT64_RUNS, CheckerCausal, fuzz_case
 from test_kernels import ATTENTION_CASES, CASE_MATRIX, SHAPES_1D, SHAPES_2D, SMALL_BLOCKS
+from _torch_parity import one_torch_thread  # noqa: F401 (the fixture below)
+
+# many small CPU ops: one intra-op thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BLOCKS = BlockConfig(128, 128, 128, 128, 128, 128)
 _JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}

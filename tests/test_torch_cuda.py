@@ -1670,3 +1670,133 @@ def test_graphed_bucketed_engine_matches_eager(dev):
         outs.append([res[r] for r in rids])
     assert outs[0] == outs[1]
     assert len(e._bucket_prefill.graphs) == 2 and len(e._sample1.graphs) == 1
+
+
+# ---- serving over a process group (a world of one rank in this process)
+# and the standalone serving callables' graphs ----
+
+def _world_of_one(backend, dev):
+    """A world-size-1 ``backend`` group in this process; returns its
+    tear-down."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(torch.device(dev.type, torch.cuda.current_device()))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    return dist.destroy_process_group
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_process_group_engine_of_one_rank(dev, backend):
+    """The flat engine on a world-size-1 group's mesh (seq 1 x model 1)
+    gives the single-process engine's tokens: over NCCL graphed, its sums
+    inside the graphs; over gloo a graphed step refuses when it would
+    capture (not at construction), and the eager steps serve."""
+    from tf_flash_attention_tpu_torch.parallel import collectives
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+
+    params = ttf.init_params(TINY, torch.Generator().manual_seed(0), "cpu")
+    ecfg = engine.EngineConfig(max_seqs=2, page_size=64, n_pages=16, max_pages_per_seq=4,
+                               prefill_chunk=32)
+    prompts = [list(range(1, 40)), [5, 9, 5, 9, 5]]
+
+    def serve(e):
+        rids = [e.submit(p, max_new_tokens=6) for p in prompts]
+        res = e.run()
+        return [res[r] for r in rids]
+
+    want = serve(engine.DecodeEngine(TINY, params, ecfg, device=dev))
+    close = _world_of_one(backend, dev)
+    try:
+        mesh = make_mesh((1, 1), ("seq", "model"))
+        assert mesh.process_group and mesh.device.type == "cuda"
+        e = engine.DecodeEngine(TINY, params, ecfg, mesh=mesh)
+        if backend == "gloo":
+            with pytest.raises(RuntimeError, match="gloo"):
+                e._decode_step(e._in_tokens, e._in_active)
+            for name in ("_decode_step", "_spec_step", "_chunk_prefill"):
+                setattr(e, name, getattr(e, name + "_impl"))
+        collectives.CALLS.clear()
+        assert serve(e) == want
+        assert collectives.CALLS["psum"] > 0
+        if backend == "nccl":
+            g = next(iter(e._decode_step.graphs.values()))
+            assert g.replays > 0 and g.nodes["kernels"] >= sum(g.launches.values())
+    finally:
+        close()
+
+
+def _seq_caches(mesh, dev, seed, lengths=(700, 300)):
+    """Two slots' prompts (bf16 K/V, int8 cache, 8 KV heads, d 128, page 64)
+    written round-robin over ``mesh``'s seq axis of 4."""
+    from tf_flash_attention_tpu_torch.serving import seq_sharded_decode as tsd
+    cfg = kv_cache.KVCacheConfig(n_kv_heads=8, head_dim=128, page_size=64, n_pages=12,
+                                 max_seqs=2, max_pages_per_seq=4, quantized=True,
+                                 quant_dtype=torch.int8, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    caches = tsd.create_seq_sharded_cache(cfg, mesh, "seq")
+    for s, t in enumerate(lengths):
+        k, v = (torch.randn((8, t, 128), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        tsd.write_prompt_seq_sharded(caches, cfg, mesh, "seq", s, [range(4 * s, 4 * s + 4)] * 4,
+                                     k, v)
+    return cfg, caches
+
+
+def test_graphed_serving_callables_key_by_cache(dev):
+    """On cuda x 4 each serving callable is a ``GraphedCall``; two caches of
+    one shape called in turn (A, B, A, B) each give the eager result on
+    their own cache, bit for bit, from two graphs replayed once each (a
+    graph keyed by shapes alone would replay A's caches for B); a prefill
+    replays at another start; the appends leave each cache as eager ones
+    leave a copy."""
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+    from tf_flash_attention_tpu_torch.serving import seq_sharded_decode as tsd
+    from tf_flash_attention_tpu_torch.serving.graphs import GraphedCall
+    from tf_flash_attention_tpu_torch.serving.sharded_decode import (shard_cache_heads,
+                                                                     sharded_paged_decode)
+
+    seq = make_mesh((4,), ("seq",), [dev] * 4)
+    heads = make_mesh((4,), ("model",), [dev] * 4)
+    (cfg, sa), (_, sb) = _seq_caches(seq, dev, 1), _seq_caches(seq, dev, 2)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((2, 8, 128), generator=gen, device=dev).to(torch.bfloat16)
+    qp = torch.randn((128, 8, 128), generator=gen, device=dev).to(torch.bfloat16)
+    full = [_cache("int8", torch.bfloat16, dev, [200, 90], n_kv=8, head_dim=128, seed=s)
+            for s in (4, 5)]
+    ha, hb = (shard_cache_heads(c, cfg_, heads) for cfg_, c in full)
+    cases = [(sharded_paged_decode(heads, full[0][0]), (q, ha), (q, hb)),
+             (tsd.seq_sharded_paged_decode(seq, cfg, "seq"), (q, sa), (q, sb)),
+             (tsd.seq_sharded_paged_prefill(seq, cfg, "seq"), (qp, sa, 0, 172, 128),
+              (qp, sb, 0, 172, 128))]
+    for fn, args_a, args_b in cases:
+        assert isinstance(fn, GraphedCall)
+        want = [fn.eager(*args_a), fn.eager(*args_b)]
+        assert not torch.equal(want[0], want[1])
+        for i, args in enumerate((args_a, args_b, args_a, args_b)):
+            assert torch.equal(fn(*args), want[i % 2]), i
+        assert sorted(g.replays for g in fn.graphs.values()) == [1, 1]
+    prefill_fn = cases[2][0]
+    assert torch.equal(prefill_fn(qp, sa, 0, 300, 128), prefill_fn.eager(qp, sa, 0, 300, 128))
+    assert len(prefill_fn.graphs) == 2
+
+    append = tsd.seq_sharded_append(seq, cfg, "seq", trash_page=cfg.n_pages - 1)
+    copies = [[_clone(c) for c in s] for s in (sa, sb)]
+    k_new = torch.randn((2, 8, 128), generator=gen, device=dev).to(torch.bfloat16)
+    active = torch.ones(2, dtype=torch.bool, device=dev)
+    for _ in range(2):
+        for caches in copies:
+            append.eager(caches, k_new, -k_new, active)
+        for caches in (sa, sb):
+            assert append(caches, k_new, -k_new, active) is caches
+    for got, want in ((sa, copies[0]), (sb, copies[1])):
+        for g, w in zip(got, want):
+            _same(g, w, cfg.n_pages - 1)
+    assert sorted(g.replays for g in append.graphs.values()) == [1, 1]

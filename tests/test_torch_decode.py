@@ -16,7 +16,10 @@ from tf_flash_attention_tpu.serving import decode as jdec
 from tf_flash_attention_tpu_torch.mask_rules import LocalRule
 from tf_flash_attention_tpu_torch.serving import decode as tdec
 
-from _torch_parity import cache_cfgs, caches_from, random_state
+from _torch_parity import cache_cfgs, caches_from, one_torch_thread, random_state
+
+# the split-merge models are many small CPU ops: one intra-op thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # float32 with an unquantized cache: only the summation order differs
 TOL_F32 = 2e-5

@@ -23,7 +23,10 @@ from jax.experimental import pallas as pl
 from tf_flash_attention_tpu_torch.experiments import exp_decode as tdec
 from tf_flash_attention_tpu_torch.experiments import exp_int4_unpack as tint4
 
-from _torch_parity import cache_cfgs, caches_from, random_state
+from _torch_parity import cache_cfgs, caches_from, one_torch_thread, random_state
+
+# the split-merge models are many small CPU ops: one intra-op thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOOLS = pathlib.Path(__file__).resolve().parent.parent / "tools"
 

@@ -15,7 +15,10 @@ from tf_flash_attention_tpu.serving import prefill as jpre
 from tf_flash_attention_tpu_torch.mask_rules import LocalRule
 from tf_flash_attention_tpu_torch.serving import prefill as tpre
 
-from _torch_parity import cache_cfgs, caches_from, random_state
+from _torch_parity import cache_cfgs, caches_from, one_torch_thread, random_state
+
+# many small CPU ops: one intra-op thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL_F32 = 2e-5   # float32, unquantized cache: summation order only
 TOL_INT8 = 1e-3  # int8 cache: a bf16-rounded p element may round the other way

@@ -31,6 +31,11 @@ from tf_flash_attention_tpu_torch.parallel import make_mesh, mha, ring_flash_att
 from tf_flash_attention_tpu_torch.parallel import ring as tring
 from tf_flash_attention_tpu_torch.parallel.ring import ring_attention_local
 
+from _torch_parity import one_torch_thread  # noqa: F401 (the fixture below)
+
+# many small CPU ops: one intra-op thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 JBLOCKS = BlockConfig(128, 128, 128, 128, 128, 128)
 TOL = dict(rtol=2e-5, atol=2e-5)    # tests/test_parallel.py's ring tolerance
 AXES = ("data", "model", "context")

@@ -30,7 +30,11 @@ from tf_flash_attention_tpu_torch.serving import kv_cache as tkv
 from tf_flash_attention_tpu_torch.serving import prefill as tpre
 from tf_flash_attention_tpu_torch.serving import seq_sharded_decode as tsd
 
-from _torch_parity import assert_same_cache, cache_cfgs, caches_from, random_state, raw
+from _torch_parity import (assert_same_cache, cache_cfgs, caches_from, one_torch_thread,
+                           random_state, raw)
+
+# many small CPU ops: one intra-op thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N = 4                      # shards
 # o: float32 with an unquantized cache differs by summation order only; a

@@ -24,7 +24,10 @@ from tf_flash_attention_tpu_torch.models import transformer as ttf
 from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
 from tf_flash_attention_tpu_torch.serving import engine as teng
 
-from _torch_parity import PAYLOADS
+from _torch_parity import PAYLOADS, one_torch_thread
+
+# many small CPU ops: one intra-op thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MCFG = jtf.ModelConfig(vocab=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
                        d_head=16, d_ff=128, max_seq=256, dtype=jnp.float32)

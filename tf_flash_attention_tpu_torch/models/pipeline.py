@@ -173,6 +173,7 @@ def make_pipeline_train_step(cfg: ModelConfig, mesh: Mesh, optimizer: torch.opti
             return out
         return {"embed": (), "final_norm": (), "layers": [leaves(b) for b in staged.stages[0]]}
 
+    mesh.require_single_controller("make_pipeline_train_step")
     device = capture_device(mesh.devices.flat)
     if device is not None:
         return GraphedTrainStep(loss_fn, optimizer, device), placements

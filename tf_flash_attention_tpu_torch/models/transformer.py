@@ -590,6 +590,7 @@ def make_sharded_train_step(cfg: ModelConfig, mesh: Mesh, optimizer: torch.optim
     on a mesh over several CUDA devices (a graph a device: ROADMAP.md
     queue 1 item 4), the step runs eagerly with ``optimizer`` as it is."""
     _mesh_devices(cfg, mesh)
+    mesh.require_single_controller("make_sharded_train_step")
     device = capture_device(mesh.devices.flat)
     if device is not None:
         return GraphedTrainStep(lambda params, tokens: loss_fn(cfg, params, tokens, mesh=mesh),

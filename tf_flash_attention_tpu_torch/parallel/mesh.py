@@ -1,17 +1,30 @@
 """Device meshes (PyTorch port of the JAX package's ``parallel/mesh.py``).
 
 A ``Mesh`` names the axes of an array of devices, as ``jax.sharding.Mesh``
-does.  The serving engine is single-controller, like the JAX one: one
-process drives every device of the mesh, so a mesh is only placement, not
-a process group.  Devices may repeat: a ``seq`` axis of four shards on one
-card (``cuda:0`` four times) or on the CPU (``"cpu"`` four times) runs the
-same code as four cards.  ``shard`` and ``unshard`` stand in for
-``shard_map``'s in and out specs: they split a tensor into the blocks a
-``PartitionSpec`` gives, each on its device, and put them back together;
-both are differentiable, so gradients flow back to the whole tensor.
-``maybe_init_distributed`` starts a ``torch.distributed`` process group
-where the environment configures one, as the JAX package's starts
-``jax.distributed``.
+does, in one of two modes.
+
+Single-controller (no process group, or a ``devices`` list whose length
+is not the world size): one process drives every device of the mesh.
+Devices may repeat: a ``seq`` axis of four shards on one card (``cuda:0``
+four times) or on the CPU (``"cpu"`` four times) runs the same code as four
+cards.  ``shard`` and ``unshard`` stand in for ``shard_map``'s in and out
+specs: they split a tensor into the blocks a ``PartitionSpec`` gives, each
+on its device, and put them back together; both are differentiable, so
+gradients flow back to the whole tensor.
+
+Over a process group (``jax.distributed``'s multi-controller mode): with
+``torch.distributed`` up, ``make_mesh`` covers ``world_size`` slots, one a
+rank in rank order, and every process runs the same program on its own
+slot's shards.  ``Mesh.ranks`` holds each slot's rank (as a JAX device
+carries its ``process_index``); ownership goes by rank, never by device,
+since ranks may share a card.  ``coords`` gives the caller's slot,
+``axis`` the caller's view of an axis (its size, the caller's index and
+the ``torch.distributed`` subgroup of the caller's line, made once by
+``make_mesh`` for every line of every axis) for ``collectives.py``;
+``shard`` returns the caller's block only, and ``unshard`` gathers.
+Training over processes is not ported: its factories refuse such a mesh.
+``maybe_init_distributed`` starts the process group where the environment
+configures one, as the JAX package's starts ``jax.distributed``.
 """
 
 from __future__ import annotations
@@ -60,14 +73,24 @@ def maybe_init_distributed() -> bool:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """``devices``: a numpy object array of ``torch.device``, one axis per
-    name in ``axis_names``."""
+    name in ``axis_names``.  Over a process group, ``ranks`` holds the rank
+    of each slot (the same shape) and ``groups`` the caller's line of each
+    axis as a subgroup; both are None and empty in a single-controller
+    mesh."""
 
     devices: np.ndarray
     axis_names: Tuple[str, ...]
+    ranks: Optional[np.ndarray] = None
+    groups: Dict[str, object] = dataclasses.field(default_factory=dict, compare=False)
 
     @property
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def process_group(self) -> bool:
+        """Whether the mesh spans processes, one a slot."""
+        return self.ranks is not None
 
     def grid(self, *axes: str):
         """The devices along ``axes`` as nested lists, the first axis
@@ -81,6 +104,110 @@ class Mesh:
                 arr = np.expand_dims(arr, i)
         return arr.tolist()
 
+    def local_grid(self, *axes: str):
+        """``grid`` as the caller drives it: all of it single-controller;
+        over a process group the caller's device alone, nested as deep."""
+        if not self.process_group:
+            return self.grid(*axes)
+        out = self.device
+        for _ in axes:
+            out = [out]
+        return out
+
+    def coords(self, rank: Optional[int] = None) -> Dict[str, int]:
+        """The index along every axis of ``rank``'s slot (the caller's by
+        default); every index is 0 in a single-controller mesh."""
+        if self.ranks is None:
+            return {a: 0 for a in self.axis_names}
+        if rank is None:
+            import torch.distributed as dist
+            rank = dist.get_rank()
+        at = np.argwhere(self.ranks == rank)
+        if not len(at):
+            raise ValueError(f"rank {rank} holds no slot of the mesh")
+        return {a: int(i) for a, i in zip(self.axis_names, at[0])}
+
+    @property
+    def device(self) -> torch.device:
+        """The caller's device: its slot's over a process group, the first
+        slot's in a single-controller mesh."""
+        c = self.coords()
+        return self.devices[tuple(c[a] for a in self.axis_names)]
+
+    def local_devices(self):
+        """The devices the caller drives: all of them, or its slot's."""
+        return [self.device] if self.process_group else list(self.devices.flat)
+
+    def axis(self, name: str):
+        """``name`` as the caller sees it (``collectives.Axis``): its size,
+        the caller's index along it and its line's subgroup (0 and None in a
+        single-controller mesh; an axis the mesh lacks is size 1)."""
+        from .collectives import Axis
+        size = int(self.shape.get(name, 1))
+        if self.ranks is None or name not in self.axis_names:
+            return Axis(size)
+        return Axis(size, self.coords()[name], self.groups[name])
+
+    def capture_refusal(self) -> Optional[str]:
+        """Why the caller's steps on this mesh cannot be captured as CUDA
+        graphs (a gloo group on a CUDA device), or None."""
+        from .collectives import capture_refusal
+        return capture_refusal([self.axis(a) for a in self.axis_names], self.device)
+
+    def require_single_controller(self, what: str) -> None:
+        """Raise for a process-group mesh: ``what`` runs in one process."""
+        if self.process_group:
+            raise NotImplementedError(
+                f"{what} over a process group: the port runs it single-controller (one "
+                f"process driving every device of the mesh); training over processes is "
+                f"queued in ROADMAP.md")
+
+
+def _world_size() -> Optional[int]:
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else None
+
+
+def _local_device() -> torch.device:
+    """This process's device over a process group: ``cuda:{LOCAL_RANK}``
+    where CUDA is present (LOCAL_RANK defaulting to the rank modulo the
+    visible cards), else the CPU."""
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        return torch.device("cpu")
+    local = os.environ.get("LOCAL_RANK")
+    return torch.device("cuda", int(local) if local is not None
+                        else dist.get_rank() % torch.cuda.device_count())
+
+
+def _process_mesh(shape, axis_names, devices, world: int) -> Mesh:
+    """A mesh of ``world`` slots, rank k at flat index k, with one subgroup
+    for every line of every axis (every rank makes every group, in one
+    order, as ``new_group`` requires)."""
+    import torch.distributed as dist
+
+    if devices is None:
+        devices = [None] * world
+        dist.all_gather_object(devices, str(_local_device()))
+    devices = [torch.device(d) for d in devices]
+    if shape is None:
+        shape = (world,) + (1,) * (len(axis_names) - 1)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {tuple(shape)} and axes {tuple(axis_names)} differ in rank")
+    if int(np.prod(shape)) != world:
+        raise ValueError(f"mesh shape {tuple(shape)} does not cover the {world} ranks")
+    ranks = np.arange(world).reshape(tuple(shape))
+    me, groups = dist.get_rank(), {}
+    for i, name in enumerate(axis_names):
+        lines = np.moveaxis(ranks, i, -1).reshape(-1, shape[i])
+        for line in lines.tolist():
+            group = dist.new_group(line)
+            if me in line:
+                groups[name] = group
+    arr = np.empty(world, dtype=object)
+    arr[:] = devices
+    return Mesh(arr.reshape(tuple(shape)), tuple(axis_names), ranks, groups)
+
 
 def make_mesh(shape: Optional[Sequence[int]] = None,
               axis_names: Tuple[str, ...] = (AXIS_DATA, AXIS_MODEL),
@@ -88,8 +215,16 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
     """Build a mesh over ``devices`` (every CUDA card when None).
 
     ``shape=None`` puts all devices on the first axis.  Axis sizes must
-    multiply to the device count.
+    multiply to the device count.  With ``torch.distributed`` up and
+    ``devices`` None or of the world's length, the mesh spans the
+    processes: one slot a rank, each slot's device ``devices[rank]`` or,
+    when None, the rank's own (``cuda:{LOCAL_RANK}``, else the CPU); this
+    is a collective call (it makes the axes' subgroups), so every rank
+    calls it with the same shape and axes.
     """
+    world = _world_size()
+    if world is not None and (devices is None or len(devices) == world):
+        return _process_mesh(shape, axis_names, devices, world)
     if devices is None:
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     devices = [torch.device(d) for d in devices]
@@ -115,24 +250,40 @@ def shard(x: torch.Tensor, mesh: Mesh, spec: Sequence[Optional[str]]):
     ``x``, as a ``PartitionSpec``): nested lists indexed by the spec's axes
     in spec order, each block on its device (index 0 of the axes the spec
     leaves out; an axis the mesh lacks counts as size 1).  Each split dim
-    must divide by its axis size."""
+    must divide by its axis size.  Over a process group: the caller's own
+    block, on its device."""
     axes = _split_axes(spec)
+    for axis, dim in axes:
+        n = int(mesh.shape.get(axis, 1))
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide by the "
+                             f"{axis!r} axis size {n}")
+    if mesh.process_group:
+        at = mesh.coords()
+        for axis, dim in axes:
+            x = x.chunk(int(mesh.shape.get(axis, 1)), dim)[at.get(axis, 0)]
+        return x.to(mesh.device)
 
     def split(t, level, devs):
         if level == len(axes):
             return t.to(devs)
-        axis, dim = axes[level]
-        if t.shape[dim] % len(devs):
-            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide by the "
-                             f"{axis!r} axis size {len(devs)}")
-        return [split(p, level + 1, d) for p, d in zip(t.chunk(len(devs), dim), devs)]
+        return [split(p, level + 1, d) for p, d in zip(t.chunk(len(devs), axes[level][1]), devs)]
 
     return split(x, 0, mesh.grid(*(a for a, _ in axes)))
 
 
-def unshard(blocks, spec: Sequence[Optional[str]], device) -> torch.Tensor:
-    """The tensor whose ``shard`` under ``spec`` is ``blocks``, on ``device``."""
+def unshard(blocks, spec: Sequence[Optional[str]], device, mesh: Optional[Mesh] = None
+            ) -> torch.Tensor:
+    """The tensor whose ``shard`` under ``spec`` is ``blocks``, on ``device``.
+    Over a process group (``mesh`` one), ``blocks`` is the caller's block
+    and every rank gathers the whole (not differentiable)."""
     axes = _split_axes(spec)
+    if mesh is not None and mesh.process_group:
+        from .collectives import all_gather
+        x = blocks
+        for axis, dim in reversed(axes):
+            x = torch.cat(all_gather([x], mesh.axis(axis)), dim=dim)
+        return x.to(device)
 
     def join(b, level):
         if level == len(axes):

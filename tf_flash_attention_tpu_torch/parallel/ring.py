@@ -332,4 +332,5 @@ def ring_flash_attention(
         out = [[local_fn(*blocks) for blocks in zip(*rows)] for rows in zip(qb, kb, vb)]
         return unshard(out, spec, q.device)
 
+    mesh.require_single_controller("ring_flash_attention")
     return graph_callable(fn, mesh.devices.flat)

@@ -78,4 +78,5 @@ def sharded_flash_attention(mesh: Mesh, rule: MaskRule, *, sync_mode: str = "non
                for rows in zip(*blocks)]
         return unshard(out, spec, q.device)
 
+    mesh.require_single_controller("sharded_flash_attention")
     return graph_callable(fn, mesh.devices.flat)

@@ -144,4 +144,5 @@ def ulysses_flash_attention(
                 for qs, ks, vs in zip(*rows)] for rows in zip(*blocks)]
         return unshard(out, spec, q.device)
 
+    mesh.require_single_controller("ulysses_flash_attention")
     return graph_callable(fn, mesh.devices.flat)

@@ -35,6 +35,21 @@ single-device engine is the same code with one shard (cp = 1): every page
 is shard 0's, and the sharded calls reduce to the plain kernels (no
 ``(l, m)``, no merge).
 
+Over a process group (a mesh from ``make_mesh`` with ``torch.distributed``
+up: one process a mesh slot, ``jax.distributed``'s multi-controller
+mode), every rank builds the engine with the same arguments and runs the
+same host loop (admission, allocators, page tables, retirement, eviction:
+every rank keeps every seq shard's host state), but holds only its slot's
+Megatron slices (``megatron_shards(..., shards=[t])``) and caches, and
+uploads only its own seq shard's page tables.  The cross-shard reductions
+are ``parallel/collectives.py``'s: the ``wo``/``w2`` partials' ``psum``
+over ``model`` and the merge's ``pmax``/``psum`` and the global lengths'
+``psum`` over ``seq``, sums in shard order, so every rank's activations,
+logits and tokens are bit-equal to the single-controller engine's on the
+same devices; the sampler draws from the engine's generator, seeded alike
+on every rank, over those identical logits, so every rank returns the same
+tokens.
+
 Sliding-window models (``ModelConfig.rule`` a causal ``LocalRule``) keep
 their KV memory bounded by the window, flat and under CP, as the JAX
 engine does: the prompt pages in lazily (each page mapped just before the
@@ -59,8 +74,9 @@ jit a bucket, ``:268-271``) and ``_sample1_impl`` (JAX's ``_sample1``,
 ``:275``), device work only, and on the card ``_compile`` captures each
 as a CUDA graph (``graphs.py``), one per input shape (a bucket), replayed
 on every later call, for every layout of the engine (flat, window, cp,
-tp, tp x cp, MoE); on the CPU, which a caller asks for explicitly, it
-returns the impl itself.  A step's inputs are the engine's static device
+tp, tp x cp, MoE; over a process group, a rank's steps on its card with
+their NCCL collectives inside the graph); on the CPU, which a caller asks
+for explicitly, it returns the impl itself.  A step's inputs are the engine's static device
 buffers, filled from host tensors before each call: the tokens, the
 active mask, for a chunk its (slot, start, true_len) as an int32 vector,
 which the chunk kernels take as their device ``meta``, as JAX's take
@@ -116,6 +132,7 @@ from ..mask_rules import LocalRule
 from ..models.moe import moe_ffn
 from ..models.transformer import (ModelConfig, Transformer, _inverse_freqs, _rms_norm, _rope,
                                   inference_weights)
+from ..parallel.collectives import Axis, psum
 from ..parallel.sharded import mha
 from .graphs import GraphedStep
 from .kv_cache import (KVCacheConfig, PagedKVCache, _owned_token_count, chunk_write_meta,
@@ -189,29 +206,22 @@ def _mlp(cfg: ModelConfig, layer, h: torch.Tensor) -> torch.Tensor:
     return (F.silu(h @ layer.w1) * (h @ layer.w3)) @ layer.w2
 
 
-def _reduce(parts: List[torch.Tensor]) -> torch.Tensor:
-    """The head shards' partial products summed in shard order on the first
-    shard's device (the engine's); one part is returned as it is."""
-    out = parts[0]
-    for p in parts[1:]:
-        out = out + p.to(out.device)
-    return out
-
-
 _COLUMNS = ("wq", "wk", "wv", "w1", "w3")
 _ROWS = ("wo", "w2")
 
 
 @torch.no_grad()
-def megatron_shards(params: Transformer, tp: int, devices=None) -> List[Transformer]:
+def megatron_shards(params: Transformer, tp: int, devices=None,
+                    shards: Optional[List[int]] = None) -> List[Transformer]:
     """The tensor-parallel placement of ``params`` (the JAX engine's
-    ``_param_pspec``): ``tp`` frozen copies of a model of ``n_heads // tp``
-    q heads, ``n_kv_heads // tp`` KV heads and ``d_ff // tp`` hidden units,
-    shard ``t`` on ``devices[t]`` (``params``' device when None).  ``wq``,
-    ``wk``, ``wv``, ``w1`` and ``w3`` are split by columns (head-major for
-    q/k/v), ``wo`` and ``w2`` by rows; the norms and the embedding are
-    replicated (no copy on ``params``' own device).  The slices are copies,
-    so ``params``' layers may be freed."""
+    ``_param_pspec``): frozen copies of a model of ``n_heads // tp`` q heads,
+    ``n_kv_heads // tp`` KV heads and ``d_ff // tp`` hidden units, the
+    shards ``shards`` of the ``tp`` (every one when None; a rank of a
+    process group builds its own), the i-th on ``devices[i]`` (``params``'
+    device when None).  ``wq``, ``wk``, ``wv``, ``w1`` and ``w3`` are split
+    by columns (head-major for q/k/v), ``wo`` and ``w2`` by rows; the norms
+    and the embedding are replicated (no copy on ``params``' own device).
+    The slices are copies, so ``params``' layers may be freed."""
     cfg = params.cfg
     if cfg.n_experts:
         raise ValueError("tensor-parallel engine does not support MoE")
@@ -221,8 +231,9 @@ def megatron_shards(params: Transformer, tp: int, devices=None) -> List[Transfor
     loc = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
                               d_ff=cfg.d_ff // tp)
     frozen = lambda x, dev: torch.nn.Parameter(x.detach().to(dev), requires_grad=False)
-    shards = []
-    for t, dev in enumerate(devices or [params.embed.device] * tp):
+    shards = list(range(tp)) if shards is None else list(shards)
+    out = []
+    for t, dev in zip(shards, devices or [params.embed.device] * len(shards)):
         shard = Transformer(loc, "meta")
         shard.embed = frozen(params.embed, dev)
         shard.final_norm = frozen(params.final_norm, dev)
@@ -239,8 +250,8 @@ def megatron_shards(params: Transformer, tp: int, devices=None) -> List[Transfor
                     w = w[t * n:(t + 1) * n]
                 w = w.to(dev, memory_format=torch.contiguous_format, copy=True)
                 setattr(dst, name, torch.nn.Parameter(w, requires_grad=False))
-        shards.append(shard)
-    return shards
+        out.append(shard)
+    return out
 
 
 class DecodeEngine:
@@ -248,14 +259,18 @@ class DecodeEngine:
     when ``device="cpu"``, where the kernels' plain PyTorch versions run;
     or over ``mesh``: context-parallel over its ``seq_axis``,
     tensor-parallel over its ``model_axis``, or both (then the devices are
-    the mesh's and ``device`` stays None).  ``params`` may live anywhere;
-    the engine casts its own copy onto its devices."""
+    the mesh's and ``device`` stays None), in one process or, on a
+    process-group mesh, one rank a mesh slot, each rank building the engine
+    alike.  ``params`` may live anywhere; the engine casts its own copy onto
+    its devices."""
 
     def __init__(self, model_cfg: ModelConfig, params: Transformer,
                  engine_cfg: EngineConfig = EngineConfig(), device=None, mesh=None,
                  model_axis: str = "model", seq_axis: str = "seq"):
-        # grid[r][t]: the device of seq shard r and head shard t
-        grid = None
+        # grid[r][t]: the device of seq shard r and head shard t; local: the
+        # part of it this process drives (all of it, or over a process group
+        # its slot alone)
+        grid = local = None
         if mesh is not None:
             axes = mesh.shape
             if any(n > 1 for a, n in axes.items() if a not in (model_axis, seq_axis)):
@@ -263,8 +278,8 @@ class DecodeEngine:
                                  f"{model_axis!r} axis, got {axes}")
             if device is not None:
                 raise ValueError("with a mesh, the devices are the mesh's: leave device None")
-            grid = mesh.grid(seq_axis, model_axis)
-            device = grid[0][0]
+            grid, local = mesh.grid(seq_axis, model_axis), mesh.local_grid(seq_axis, model_axis)
+            device = local[0][0]
         tp = len(grid[0]) if grid else 1
         if tp > 1:
             if model_cfg.n_heads % tp or model_cfg.n_kv_heads % tp:
@@ -294,8 +309,13 @@ class DecodeEngine:
         self.mcfg = model_cfg
         self.ecfg = engine_cfg
         self.device = torch.device("cuda") if device is None else torch.device(device)
-        grid = grid or [[self.device]]
+        grid, local = grid or [[self.device]], local or [[self.device]]
         self.cp, self.tp = len(grid), tp
+        # the axes as this process sees them (collectives.Axis): sizes, its
+        # first shard's index, and its line's group over a process group
+        self._seq_ax = mesh.axis(seq_axis) if mesh is not None else Axis(1)
+        self._model_ax = mesh.axis(model_axis) if mesh is not None else Axis(1)
+        self._refuse = mesh.capture_refusal() if mesh is not None else None
         if self.cp > 1 and engine_cfg.speculative_tokens and (
                 engine_cfg.page_size <= engine_cfg.speculative_tokens):
             raise ValueError("page_size must exceed speculative_tokens")
@@ -306,11 +326,13 @@ class DecodeEngine:
         self.model = inference_weights(params, self.device)
         self._params = [self.model]
         if tp > 1:
-            self._params = megatron_shards(self.model, tp, grid[0])
+            t0 = self._model_ax.index
+            self._params = megatron_shards(self.model, tp, local[0],
+                                           shards=range(t0, t0 + len(local[0])))
             self.model.layers = torch.nn.ModuleList()
         # each head shard's device, None where it is the engine's own
         self._moves = [None if torch.device(d) == self.device else torch.device(d)
-                       for d in grid[0]]
+                       for d in local[0]]
         self._n_heads_loc = model_cfg.n_heads // tp
         self._n_kv_loc = model_cfg.n_kv_heads // tp
         self.ccfg = KVCacheConfig(
@@ -322,21 +344,21 @@ class DecodeEngine:
             dtype=model_cfg.dtype)
         self._ccfg_loc = head_shard_config(self.ccfg, tp)
         self.trash_page = engine_cfg.n_pages - 1
-        # caches[r][t][layer]: the caches of seq shard r and head shard t
-        # (``n_pages`` is per seq shard, ``n_kv_heads // tp`` heads a head
-        # shard); every layer and head shard of a seq shard maps the same
-        # pages: one device table per seq shard and device, mirrored on the
-        # host
+        # caches[r][t][layer]: the caches of the driven seq shard r and head
+        # shard t (``n_pages`` is per seq shard, ``n_kv_heads // tp`` heads a
+        # head shard); every layer and head shard of a seq shard maps the
+        # same pages: one device table per seq shard and device, mirrored on
+        # the host (every seq shard's, on every rank)
         self._caches = [[[PagedKVCache.create(self._ccfg_loc, dev)
-                          for _ in range(model_cfg.n_layers)] for dev in row] for row in grid]
+                          for _ in range(model_cfg.n_layers)] for dev in row] for row in local]
         for row in self._caches:
             tables = {}
             for layers in row:
                 for c in layers:
                     c.page_tables = tables.setdefault(c.page_tables.device, c.page_tables)
         # [layer][t]: head shard t's caches of the layer over the seq shards
-        self._layer_shards = [[[row[t][i] for row in self._caches] for t in range(tp)]
-                              for i in range(model_cfg.n_layers)]
+        self._layer_shards = [[[row[t][i] for row in self._caches]
+                               for t in range(len(local[0]))] for i in range(model_cfg.n_layers)]
         self._tables = np.zeros((self.cp, engine_cfg.max_seqs, engine_cfg.max_pages_per_seq),
                                 np.int32)
         self._tables_dirty = False
@@ -402,7 +424,7 @@ class DecodeEngine:
         # the first-token sampler's: the last prompt token's logits, its slot
         self._in_logits1 = torch.zeros((1, model_cfg.vocab), dtype=model_cfg.dtype, device=dev)
         self._in_slot = torch.zeros(1, dtype=torch.long, device=dev)
-        self._devices = {torch.device(d) for row in grid for d in row}
+        self._devices = {torch.device(d) for row in local for d in row}
         self._graph_stream = self._graph_pool = None
         self._decode_step = self._compile(self._decode_step_impl, 2)
         self._spec_step = self._compile(self._spec_step_impl, 2)
@@ -430,9 +452,9 @@ class DecodeEngine:
         *extra)`` (``_on_shards``), attends with ``attend(q, k, v, caches,
         *extra)`` on its caches of the layer (one a seq shard) and multiplies
         the output by its rows of ``wo``; the shards' partials add up in
-        shard order before the residual add (the JAX engine's ``psum``), and
-        likewise the MLP's ``w2`` partials.  One head shard is the plain
-        layer."""
+        shard order before the residual add (the JAX engine's ``psum``, over
+        the model axis's group on a process-group mesh), and likewise the
+        MLP's ``w2`` partials.  One head shard is the plain layer."""
         cfg, lead = self.mcfg, x.shape[:-1]
         h = _rms_norm(x, self._params[0].layers[i].ln1)
         parts = []
@@ -445,10 +467,10 @@ class DecodeEngine:
             v = (ht @ layer.wv).reshape(*lead, self._n_kv_loc, cfg.d_head)
             o = attend(_rotate(q, cos, sin), _rotate(k, cos, sin), v, caches, *extra)
             parts.append(o.reshape(*lead, -1).to(x.dtype) @ layer.wo)
-        x = x + _reduce(parts)
+        x = x + psum(parts, self._model_ax)
         h = _rms_norm(x, self._params[0].layers[i].ln2)
-        return x + _reduce([_mlp(cfg, p.layers[i], h if dev is None else h.to(dev))
-                            for p, dev in zip(self._params, self._moves)])
+        return x + psum([_mlp(cfg, p.layers[i], h if dev is None else h.to(dev))
+                         for p, dev in zip(self._params, self._moves)], self._model_ax)
 
     def _logits(self, x):
         return _rms_norm(x, self.model.final_norm) @ self.model.embed.T
@@ -462,20 +484,24 @@ class DecodeEngine:
         that captures it as a CUDA graph once per input shape and replays
         it, each replay drawing fresh numbers from ``generators``.  The
         graphs of an engine share one capture stream and one memory pool.
-        Shards on more than one CUDA device raise: their steps would need
-        one graph a device."""
+        On a process-group mesh the rank's steps are captured on its card
+        with their NCCL collectives; a gloo group's cannot be, and the step
+        raises when it would capture (never at construction).  One process
+        driving shards on more than one CUDA device raises: its steps would
+        need one graph a device."""
         if self.device.type != "cuda":
             return impl
         if len(self._devices) > 1:
             raise NotImplementedError(
-                f"a compiled step over shards on {len(self._devices)} devices "
-                f"({sorted(map(str, self._devices))}): ROADMAP.md queue 1 item 4 (a real "
-                f"multi-process mesh, and _compile over shards on several devices)")
+                f"a compiled step of one process over shards on {len(self._devices)} devices "
+                f"({sorted(map(str, self._devices))}): run one process a device instead "
+                f"(torch.distributed up, then parallel.mesh.make_mesh over the process "
+                f"group: each rank's steps are graphed on its own card)")
         if self._graph_stream is None:
             self._graph_stream = torch.cuda.Stream(self.device)
             self._graph_pool = torch.cuda.graph_pool_handle()
         return GraphedStep(impl, n_out_scalars, self._graph_stream, self._graph_pool,
-                           generators)
+                           generators, self._refuse)
 
     def _upload(self, buf: torch.Tensor, values) -> torch.Tensor:
         """Fill the static input ``buf`` in place from host ``values``: one
@@ -506,8 +532,9 @@ class DecodeEngine:
         def attend(q, k, v, caches):
             # each seq shard keeps the rows of its own pages; partials merge
             write_tokens_sharded(caches, self._ccfg_loc, write_meta, k.transpose(0, 1),
-                                 v.transpose(0, 1))
-            return prefill_merged(q, caches, self._ccfg_loc, attend_meta, rule=cfg.rule)
+                                 v.transpose(0, 1), self._seq_ax)
+            return prefill_merged(q, caches, self._ccfg_loc, attend_meta, rule=cfg.rule,
+                                  axis=self._seq_ax)
 
         x = self.model.embed[tokens]
         for i in range(cfg.n_layers):
@@ -519,7 +546,7 @@ class DecodeEngine:
         """The slots' global lengths before this step's appends: the sum
         over the seq shards of head shard 0's layer 0 lengths (every head
         shard's appends advance its own copy alike)."""
-        return global_lengths(self._layer_shards[0][0], self.device)
+        return global_lengths(self._layer_shards[0][0], self.device, self._seq_ax)
 
     @torch.no_grad()
     def _decode_step_impl(self, tokens, active):
@@ -533,8 +560,10 @@ class DecodeEngine:
 
         def attend(q, k, v, caches, active, pos, glob):
             # the append lands on the owner seq shard of the position
-            append_owned(caches, self._ccfg_loc, k, v, active, pos, self.trash_page)
-            return decode_merged(q, caches, self._ccfg_loc, glob, rule=cfg.rule)
+            append_owned(caches, self._ccfg_loc, k, v, active, pos, self.trash_page,
+                         self._seq_ax)
+            return decode_merged(q, caches, self._ccfg_loc, glob, rule=cfg.rule,
+                                 axis=self._seq_ax)
 
         x = self.model.embed[tokens]
         for i in range(cfg.n_layers):
@@ -560,8 +589,10 @@ class DecodeEngine:
 
         def attend(q, k, v, caches, active, pos0, glob):
             # each token goes to the owner seq shard of its position
-            append_owned(caches, self._ccfg_loc, k, v, active, pos0, self.trash_page)
-            return decode_merged(q, caches, self._ccfg_loc, glob, rule=cfg.rule)
+            append_owned(caches, self._ccfg_loc, k, v, active, pos0, self.trash_page,
+                         self._seq_ax)
+            return decode_merged(q, caches, self._ccfg_loc, glob, rule=cfg.rule,
+                                 axis=self._seq_ax)
 
         x = self.model.embed[tokens]                         # (S, gamma, d_model)
         for i in range(cfg.n_layers):
@@ -620,7 +651,7 @@ class DecodeEngine:
         """Upload the host page tables if they changed (one small copy a
         seq shard and device: the head shards on one device share it)."""
         if self._tables_dirty:
-            for table, row in zip(self._tables, self._caches):
+            for table, row in zip(self._tables[self._seq_ax.index:], self._caches):
                 for t in {c[0].page_tables.device: c[0].page_tables for c in row}.values():
                     t.copy_(torch.from_numpy(table))
             self._tables_dirty = False
@@ -939,7 +970,7 @@ class DecodeEngine:
         # each layer's appends advanced its own lengths by gamma: roll back
         # to the committed lengths (a shard's local length is its owned-token
         # count of the committed global length)
-        for r, row in enumerate(self._caches):
+        for r, row in enumerate(self._caches, self._seq_ax.index):
             lengths = torch.tensor(
                 [_owned_token_count(st["length"], self.ecfg.page_size, self.cp, r) if st else 0
                  for st in self._slots], dtype=torch.int32)

@@ -14,7 +14,13 @@ the node check and the counts below:
   ``models/pipeline.py:158``);
 - ``GraphedFunction``: a differentiable callable, a forward graph and a
   backward graph (``ring_flash_attention``, ``ulysses_flash_attention``,
-  ``sharded_flash_attention``: JAX's ``jit(shard_map)``).
+  ``sharded_flash_attention``: JAX's ``jit(shard_map)``);
+- ``GraphedCall``: a serving callable that reads and writes KV caches in
+  place (``sharded_paged_decode``, ``seq_sharded_paged_decode``,
+  ``seq_sharded_paged_prefill``, ``seq_sharded_append``: JAX's
+  ``jit(shard_map)`` of ``serving/sharded_decode.py:62`` and
+  ``seq_sharded_decode.py:169,201,236``), its graphs keyed by the caches'
+  identity as well as the shapes.
 
 The wrapped function's body is device work only: no host sync, no tensor
 made from host data (what uploads on first use, as the kernels' tables and
@@ -34,10 +40,13 @@ dtypes) each wrapper:
   copies, as JAX returns new arrays).
 
 A capture that fails raises; nothing falls back to the eager function.
-Graphs are made only where every device of the layout is one CUDA device
-(``capture_device``); on the CPU, and over several CUDA devices (one graph
-a device: ROADMAP.md queue 1 item 4), the factories return the eager
-function.
+Graphs are made only where every device a process drives is one CUDA
+device (``capture_device``): a single-controller layout on one card, or
+one rank of a process-group mesh on its card, whose NCCL collectives the
+graph captures (a gloo group's cannot be: ``GraphedStep`` and
+``GraphedCall`` then raise when a capture is attempted, never running
+eagerly in its place); on the CPU, and where one process drives several
+CUDA devices, the factories return the eager function.
 
 Counts: the kernel wrappers count a captured kernel once in
 ``native.LAUNCHES`` (they ran at capture); each replay adds the graph's
@@ -60,8 +69,9 @@ from torch.autograd.function import once_differentiable
 
 from .. import native
 
-__all__ = ["Graph", "GraphedStep", "GraphedTrainStep", "GraphedFunction", "graph_nodes",
-           "capture_device", "check_capturable", "graph_callable"]
+__all__ = ["Graph", "GraphedStep", "GraphedTrainStep", "GraphedFunction", "GraphedCall",
+           "graph_nodes", "capture_device", "check_capturable", "graph_callable",
+           "graph_cache_call", "cache_key"]
 
 # CUgraphNodeType (cuda.h): a kernel, a memory copy, a memory set
 _CU_KERNEL, _CU_MEMCPY, _CU_MEMSET = 0, 1, 2
@@ -189,13 +199,16 @@ class GraphedStep:
     (the engine passes its own static buffers: no copy) and returns the
     captured outputs, which the next replay overwrites.  A bound method is
     held weakly, so that the engine that holds this step, and its graphs,
-    go with the engine."""
+    go with the engine.  ``refuse``, where set, is why no graph can be
+    captured (``collectives.capture_refusal``): a call that would capture
+    raises it."""
 
     def __init__(self, impl: Callable, n_out: int, stream: "torch.cuda.Stream", pool,
-                 generators=()):
+                 generators=(), refuse: Optional[str] = None):
         self._impl = weakref.WeakMethod(impl) if hasattr(impl, "__self__") else lambda: impl
         self.n_out, self.stream, self.pool = n_out, stream, pool
         self.generators = tuple(generators)
+        self.refuse = refuse
         self.graphs: Dict[tuple, Graph] = {}
 
     @property
@@ -214,6 +227,8 @@ class GraphedStep:
         return g.outputs
 
     def _capture(self, key, inputs):
+        if self.refuse:
+            raise RuntimeError(self.refuse)
         cur = torch.cuda.current_stream(self.stream.device)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
@@ -400,3 +415,96 @@ def graph_callable(fn: Callable, devices: Iterable) -> Callable:
     device (``capture_device``), else ``fn`` itself."""
     device = capture_device(devices)
     return fn if device is None else GraphedFunction(fn, device)
+
+
+def cache_key(caches) -> tuple:
+    """The identity of ``caches`` (a ``PagedKVCache`` or nested lists of
+    them): the ``data_ptr`` of each of their tensors, in order."""
+    if isinstance(caches, (list, tuple)):
+        return tuple(cache_key(c) for c in caches)
+    return tuple(None if t is None else t.data_ptr()
+                 for t in (caches.k_pages, caches.v_pages, caches.k_scales, caches.v_scales,
+                           caches.page_tables, caches.lengths))
+
+
+class GraphedCall:
+    """A serving callable ``fn(*args)`` that reads and updates KV caches in
+    place, captured per signature and replayed.  Each argument is a tensor
+    or caches (a ``PagedKVCache`` or nested lists of them); ``prepare``,
+    where given, first maps the public arguments to those (on the host,
+    before any graph: a prefill's slot, start and length become a device
+    vector).  The signature is the tensors' shapes, dtypes and devices and
+    the identity of the caches (``cache_key``: every cache tensor's
+    ``data_ptr``): a graph reads and writes the cache tensors at the
+    addresses it captured, so it serves only the caches it was captured
+    with, and another cache of the same shape gets its own graph rather
+    than a replay onto the first one's.  The first call of a signature
+    runs ``fn`` on the capture stream (the call's result and its update of
+    the caches), then captures it; a later call copies the tensors into the
+    captured inputs and replays.  It returns a fresh copy of a tensor
+    output (JAX returns new arrays), or the argument that ``fn`` returned
+    (an append returns its caches, updated in place where JAX's return new
+    ones).  ``eager`` runs ``fn`` without a graph; ``refuse``, where set,
+    is why no graph can be captured: a call that would capture raises it."""
+
+    def __init__(self, fn: Callable, device, refuse: Optional[str] = None,
+                 prepare: Optional[Callable] = None):
+        self.fn, self.refuse, self.prepare = fn, refuse, prepare
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: Dict[tuple, Graph] = {}
+        self._returns: Dict[tuple, Optional[int]] = {}
+
+    def eager(self, *args):
+        return self.fn(*(self.prepare(*args) if self.prepare else args))
+
+    def __call__(self, *args):
+        if self.prepare:
+            args = self.prepare(*args)
+        key = tuple((tuple(a.shape), a.dtype, a.device) if torch.is_tensor(a) else cache_key(a)
+                    for a in args)
+        g = self.graphs.get(key)
+        if g is None:
+            return self._capture(key, args)
+        for a, static in zip(args, g.inputs):
+            if static is not None:
+                static.copy_(a, non_blocking=True)
+        g.replay()
+        i = self._returns[key]          # -1: the tensor output; else an argument or None
+        return g.outputs[0].clone() if i == -1 else None if i is None else args[i]
+
+    def _capture(self, key, args):
+        if self.refuse:
+            raise RuntimeError(self.refuse)
+        static = tuple(a.detach().clone() if torch.is_tensor(a) else None for a in args)
+        cur = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            out = self.fn(*args)
+        tensor_out = torch.is_tensor(out)
+        if tensor_out:
+            out.record_stream(cur)
+        self._returns[key] = -1 if tensor_out else next(
+            (i for i, a in enumerate(args) if a is out), None)
+        captured = tuple(a if s is None else s for a, s in zip(args, static))
+
+        def call():
+            o = self.fn(*captured)
+            return (o,) if tensor_out else ()
+
+        g = _capture(call, self.stream, self.pool, held=[args, *native.scratch_in_use()],
+                     inputs=static)
+        self.graphs[key] = g
+        cur.wait_stream(self.stream)
+        return out
+
+
+def graph_cache_call(fn: Callable, mesh, prepare: Optional[Callable] = None):
+    """``fn`` (see ``GraphedCall``) as the serving callables return it on
+    ``mesh``: a ``GraphedCall`` where the devices the caller drives are one
+    CUDA device (a single-controller mesh on one card, or a process-group
+    rank on its card), else ``fn`` (after ``prepare``) itself."""
+    device = capture_device(mesh.local_devices())
+    if device is None:
+        return fn if prepare is None else lambda *args: fn(*prepare(*args))
+    return GraphedCall(fn, device, mesh.capture_refusal(), prepare)

@@ -7,13 +7,14 @@ own heads, so attention needs no collective; the projections around it
 do the reduce (``serving/engine.py``).  Page tables and lengths are the
 same on every shard.
 
-Placement is single-controller, as in ``seq_sharded_decode.py``: one
-process drives every shard, and a head-sharded cache is a list of
-``PagedKVCache``, one per shard of the axis, each on its shard's device
-(devices may repeat: four shards on one card run the same code).  Shard
-``t`` of ``tp`` holds KV heads ``t * n_kv / tp .. (t + 1) * n_kv / tp``
-and so serves query heads ``t * n_q / tp ..``: a GQA group never spans two
-shards.
+A head-sharded cache is a list of ``PagedKVCache``, the head shards the
+caller drives, each on its shard's device, as in ``seq_sharded_decode.py``:
+every shard of the axis where one process drives them all (devices may
+repeat: four shards on one card run the same code), the rank's own over a
+process group, whose outputs then join by an ``all_gather`` over the
+axis.  Shard ``t`` of ``tp`` holds KV heads ``t * n_kv / tp .. (t + 1) *
+n_kv / tp`` and so serves query heads ``t * n_q / tp ..``: a GQA group
+never spans two shards.
 """
 
 from __future__ import annotations
@@ -23,8 +24,10 @@ from typing import List, Optional
 
 import torch
 
+from ..parallel.collectives import all_gather
 from ..parallel.mesh import AXIS_MODEL, Mesh
 from .decode import paged_decode_attention
+from .graphs import graph_cache_call
 from .kv_cache import KVCacheConfig, PagedKVCache
 
 __all__ = ["sharded_paged_decode", "shard_cache_heads", "head_shard_config"]
@@ -40,10 +43,11 @@ def head_shard_config(cfg: KVCacheConfig, tp: int) -> KVCacheConfig:
 
 def shard_cache_heads(cache: PagedKVCache, cfg: KVCacheConfig, mesh: Mesh,
                       model_axis: str = AXIS_MODEL) -> List[PagedKVCache]:
-    """A full cache split into its head shards, each a copy on its shard's
-    device (set-up utility; the engine creates its shards empty)."""
-    devices = mesh.grid(model_axis)
-    n = head_shard_config(cfg, len(devices)).n_kv_heads
+    """A full cache split into the head shards the caller drives (all of
+    them, or the rank's own over a process group), each a copy on its
+    shard's device (set-up utility; the engine creates its shards empty)."""
+    ax = mesh.axis(model_axis)
+    n = head_shard_config(cfg, ax.size).n_kv_heads
 
     def part(x, t, dev):
         return None if x is None else x[t * n:(t + 1) * n].to(dev, copy=True)
@@ -53,7 +57,7 @@ def shard_cache_heads(cache: PagedKVCache, cfg: KVCacheConfig, mesh: Mesh,
                          v_scales=part(cache.v_scales, t, dev),
                          page_tables=cache.page_tables.to(dev, copy=True),
                          lengths=cache.lengths.to(dev, copy=True))
-            for t, dev in enumerate(devices)]
+            for t, dev in enumerate(mesh.local_grid(model_axis), ax.index)]
 
 
 def sharded_paged_decode(mesh: Mesh, cfg: KVCacheConfig, model_axis: str = AXIS_MODEL,
@@ -62,20 +66,24 @@ def sharded_paged_decode(mesh: Mesh, cfg: KVCacheConfig, model_axis: str = AXIS_
     over ``model_axis``.
 
     ``q`` (max_seqs, n_q_heads, d) on any device; ``caches`` one
-    ``PagedKVCache`` of ``n_kv_heads // tp`` heads a shard, on the shard's
-    device (``shard_cache_heads``).  Each shard decodes its own query heads
-    and the outputs join on the head axis, on ``q``'s device."""
-    tp = int(mesh.shape[model_axis])
-    local_cfg = head_shard_config(cfg, tp)
+    ``PagedKVCache`` of ``n_kv_heads // tp`` heads a shard the caller
+    drives, on the shard's device (``shard_cache_heads``).  Each shard
+    decodes its own query heads and the outputs join on the head axis (an
+    ``all_gather`` over a process group), on ``q``'s device.  A
+    ``graphs.GraphedCall`` where the caller drives one CUDA device."""
+    ax = mesh.axis(model_axis)
+    tp, local_cfg = ax.size, head_shard_config(cfg, ax.size)
+    n = len(mesh.local_grid(model_axis))
 
     def fn(q, caches):
-        if len(caches) != tp:
-            raise ValueError(f"{len(caches)} head-shard caches for a mesh axis of {tp}")
+        if len(caches) != n:
+            raise ValueError(f"{len(caches)} head-shard caches for the {n} shards of the mesh "
+                             f"axis this process drives")
         if q.shape[1] % tp:
             raise ValueError(f"{q.shape[1]} query heads not divisible by tp {tp}")
         n_q = q.shape[1] // tp
         outs = [paged_decode_attention(q[:, t * n_q:(t + 1) * n_q].to(c.k_pages.device), c,
                                        local_cfg, scale=scale)
-                for t, c in enumerate(caches)]
-        return torch.cat([o.to(q.device) for o in outs], dim=1)
-    return fn
+                for t, c in enumerate(caches, ax.index)]
+        return torch.cat([o.to(q.device) for o in all_gather(outs, ax)], dim=1)
+    return graph_cache_call(fn, mesh)

@@ -373,6 +373,21 @@ Phases (any failure exits non-zero before the final line):
      phase 11's; then each callable graphed on cuda:0 four times, called
      with two caches of one shape in turn, equal to the eager call on its
      own cache, two graphs of one replay each (nodes and replays printed).
+  14. training over a process group, one process a mesh slot: (a) four
+     spawned ranks on cuda:0 over gloo, each holding its slot of the 168M
+     decoder (slot_params / slot_stages), take 2 eager AdamW steps on
+     phase 6's batch on dense sp (data 2, model 2), cp (data 1, model 2,
+     context 2), MoE (4 experts, data 2, model 2) and GPipe (data 2, pipe
+     2, M 2), and run the ring, Ulysses and sharded callables at 6b(a)'s
+     shape forward and backward; this process runs the same on
+     single-controller meshes of cuda:0 first: every rank's losses equal
+     and its gathered parameters bit-equal, the first loss and gathered
+     gradient norm within phase 6's gates of the single process's, the
+     parameters after the steps within TRAIN_PG_UPDATE_RTOL, the
+     callables within attn_tol; prints each rank's step walls, collective
+     calls and banded launches; (b) a world-size-1 NCCL group: the graphed
+     step on its one-slot mesh against phase 12(a)'s 1-device graph, its
+     collectives captured, and a graphed ring on it.
 
 The kernels' JSON line gives each kernel's launches from the run of the
 path that takes it by default ("path": the engine, the speculative engine,
@@ -393,7 +408,9 @@ phase 12's graphed runs launched, the wrappers' (eager first calls and
 captures) and the replays' apart ("compiled (12)"), and the serving
 kernels theirs in the MoE engine's runs ("moe engine (3i)") and in
 phase 13 ("process group (13)": the ranks' eager engines summed over the
-ranks, and the NCCL engine's wrapper launches and graph replays).  The four sequence-sharded variants follow as kernels of
+ranks, and the NCCL engine's wrapper launches and graph replays);
+banded_fwd and banded_bwd add the ranks' training steps of phase 14(a)
+("process group (14)").  The four sequence-sharded variants follow as kernels of
 their own ("paged_decode[cp]", ...; launches from the cp engine of phase
 3e, times and library yardsticks from 3e(a) on shard 0), then the ten
 experiment kernels (phase 8; the
@@ -1181,7 +1198,7 @@ def main():
     # ---- 12: the rest of jax.jit: the training steps, the parallel
     # attention callables and the bucketed prefill, graphed against eager ----
     t0 = time.perf_counter()
-    compiled = compiled_train_phase(mcfg, cpu_model, dev, train_tokens, args.seed)
+    compiled, graphed_12a = compiled_train_phase(mcfg, cpu_model, dev, train_tokens, args.seed)
     del train_tokens
     compiled_callables_phase(dev, args.seed, compiled)
     compiled_bucketed_phase(mcfg, cpu_model, ecfg, prompts, chunked_logits, args.seed, dev)
@@ -1197,6 +1214,14 @@ def main():
                                compiled_11["flat"]["graphs"], args.seed, dev)
     graph_keys_phase(dev, args.seed)
     print(f"phase 13: {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # ---- 14: training over a process group: (a) four ranks on the card over
+    # gloo, each holding its slot, (b) one rank over NCCL with its
+    # collectives in the step's graph ----
+    t0 = time.perf_counter()
+    train_pg_launches = train_pg_phase(mcfg, args.seed, dev)
+    train_nccl_phase(mcfg, cpu_model, graphed_12a, args.seed, dev)
+    print(f"phase 14: {time.perf_counter() - t0:.3f} s", flush=True)
 
     csrc = "tf_flash_attention_tpu_torch/csrc/"
     replaces = {
@@ -1245,6 +1270,11 @@ def main():
             # pipeline's (6d)
             entry["moe train (6c)"] = moe_train_launches.get(k, 0)
             entry["pipeline train (6d)"] = pipe_launches[k]
+            # phase 14(a): the ranks' eager steps over gloo, every layout
+            entry["process group (14)"] = {
+                "path": f"14(a): {', '.join(l for l, _, _, _ in TRAIN_PG_LAYOUTS)} steps, "
+                        f"{PG_WORLD} ranks on the card over {PG_BACKEND}, eager",
+                "launches": train_pg_launches.get(k, 0)}
         if k in compiled:
             # phase 12's graphed steps and callables: the wrappers' launches
             # (eager first calls, captures) and the graphs' replays apart
@@ -4937,8 +4967,9 @@ def compiled_train_phase(mcfg, cpu_model, dev, tokens, seed):
     run's at the same step, the first gradient norm within
     TRAIN_GNORM_RTOL, one graph replayed twice.  Prints each run's figures
     and the graph's; the busy share is the graphed replay's event span over
-    each kind's median wall (steps 2-3).  Returns {kernel: {"launches",
-    "replayed"}} of the graphed runs."""
+    each kind's median wall (steps 2-3).  Returns ({kernel: {"launches",
+    "replayed"}} of the graphed runs, the 1-device mesh's graphed figures:
+    phase 14(b)'s reference)."""
     from tf_flash_attention_tpu_torch import native
     from tf_flash_attention_tpu_torch.models import pipeline
     from tf_flash_attention_tpu_torch.models import transformer as tf
@@ -5012,6 +5043,8 @@ def compiled_train_phase(mcfg, cpu_model, dev, tokens, seed):
             gc.collect()
             torch.cuda.empty_cache()
         eager, graphed = runs[False], runs[True]
+        if label == "1-device mesh":
+            one_device = graphed          # phase 14(b)'s reference
         for i, (a, ref) in enumerate(zip(graphed["losses"], eager["losses"])):
             if not math.isfinite(a) or abs(a - ref) > TRAIN_LOSS_ATOL:
                 fail(f"12(a) {label}: graphed step {i + 1}'s loss {a} vs eager {ref}: > "
@@ -5030,7 +5063,7 @@ def compiled_train_phase(mcfg, cpu_model, dev, tokens, seed):
     del dense, moe
     torch.cuda.empty_cache()
     print(f"phase 12(a): {time.perf_counter() - t0:.3f} s", flush=True)
-    return total
+    return total, one_device
 
 
 def compiled_callables_phase(dev, seed, total):
@@ -5571,6 +5604,428 @@ def graph_keys_phase(dev, seed):
     print(f"13(b) callables graphed on cuda:0, two caches of one shape in turn: every call "
           f"equal to the eager call on its own cache; graphs {json.dumps(report)}", flush=True)
     print(f"phase 13(b) callables: {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+# ---- phase 14: training over a process group, one process a mesh slot ----
+
+# the layouts of 14(a) over the four ranks: (label, mesh shape, axes, what
+# the config adds); the pipeline's M
+TRAIN_PG_LAYOUTS = (("dense sp", (2, 2), ("data", "model"), {}),
+                    ("cp", (1, 2, 2), RING_AXES, dict(context_parallel=True)),
+                    ("moe", (2, 2), ("data", "model"), dict(n_experts=MOE_EXPERTS)),
+                    ("gpipe", (2, 2), ("data", "pipe"), {}))
+TRAIN_PG_MICROBATCHES = 2
+TRAIN_PG_STEPS = 2
+# the callables of 14(a): (label, mesh shape over RING_AXES, kind)
+TRAIN_PG_CALLABLES = (("ring causal", (1, 1, 4), "ring"), ("ulysses causal", (1, 1, 4), "ulysses"),
+                      ("sharded causal", (2, 2, 1), "sharded"))
+# the gathered parameters after TRAIN_PG_STEPS AdamW steps against the
+# single process's: in its first steps AdamW moves an element by at most lr
+# (|m_hat / sqrt(v_hat)| <= 1), so two runs part by at most 2 lr a step
+# wherever their gradients differ, however little (an element whose
+# gradient is near 0 flips its step's sign at a bf16 rounding); that bound
+# holds for any two runs, so the gate that has teeth is the mean: the mean
+# |difference| over the mean |update| of the single process.  A lost or
+# doubled shard's gradient changes the sign of a large share of the
+# updates (a share of 0.3 or more), bf16 roundings only the steps of
+# near-zero gradients; 0.1
+TRAIN_PG_UPDATE_RTOL = 0.1
+
+
+def pg_train_model(cfg, dev, seed, pipe=None):
+    """14(a)'s initial weights, the same in every process: the 168M decoder
+    drawn on the card from a CUDA generator (phase 6c's draw for the MoE
+    model), as a ``StagedTransformer`` of ``pipe`` stages where given."""
+    from tf_flash_attention_tpu_torch.models import pipeline
+    from tf_flash_attention_tpu_torch.models.transformer import init_params
+
+    gen = torch.Generator(device=dev).manual_seed(seed + (21 if cfg.n_experts else 71))
+    model = init_params(cfg, gen, device=dev)
+    return model if pipe is None else pipeline.stack_stage_params(cfg, model, pipe)
+
+
+def pg_train_tokens(cfg, dev, seed):
+    """Phase 6's batch (8 x 2,049 tokens from its generator)."""
+    gen = torch.Generator().manual_seed(seed + 2)
+    return torch.randint(0, cfg.vocab, (8, 2049), generator=gen).to(dev)
+
+
+def pg_train_step(label, cfg, params, mesh):
+    """(step, the parameters it takes) of a 14(a) layout on ``mesh``: the
+    factory's step over ``params`` (the whole model or its stages), on a
+    process-group mesh over the rank's slot of them; phase 6's AdamW,
+    capturable (on one card the factory returns a ``GraphedTrainStep``)."""
+    from tf_flash_attention_tpu_torch.models import pipeline
+    from tf_flash_attention_tpu_torch.models import transformer as tf
+
+    adamw = lambda ps: torch.optim.AdamW(ps, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                                         weight_decay=1e-4, capturable=True)
+    if label == "gpipe":
+        slot = pipeline.slot_stages(params, mesh)
+        step, _ = pipeline.make_pipeline_train_step(cfg, mesh, adamw(slot.parameters()),
+                                                    TRAIN_PG_MICROBATCHES)
+    else:
+        slot = tf.slot_params(cfg, params, mesh)
+        step = tf.make_sharded_train_step(cfg, mesh, adamw(slot.parameters()))
+    return step, slot
+
+
+def pg_gathered(label, cfg, slot, mesh, grads=False):
+    """The whole parameters (or gradients) as {name: tensor}."""
+    from tf_flash_attention_tpu_torch.models import pipeline
+    from tf_flash_attention_tpu_torch.models import transformer as tf
+
+    whole = (pipeline.gather_stages(slot, mesh, grads=grads) if label == "gpipe"
+             else tf.gather_params(cfg, slot, mesh, grads=grads))
+    return {n: p.detach() for n, p in whole.named_parameters()}
+
+
+def pg_callable_inputs(dev, seed):
+    """6b(a)'s q, k, v and output cotangent at RING_SHAPE, bf16."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    return [torch.randn(RING_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(4)]
+
+
+def pg_callables_run(mesh_of, dev, seed):
+    """TRAIN_PG_CALLABLES (causal) eagerly on ``mesh_of(shape)``: {label:
+    [o, dq, dk, dv]} (whole), and their launches."""
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.mask_rules import CausalRule
+    from tf_flash_attention_tpu_torch.parallel import (ring_flash_attention,
+                                                       sharded_flash_attention,
+                                                       ulysses_flash_attention)
+
+    *qkv, do = pg_callable_inputs(dev, seed)
+    out = {}
+    native.reset_launch_counts()
+    for label, shape, kind in TRAIN_PG_CALLABLES:
+        mesh = mesh_of(shape)
+        fn = {"ring": lambda: ring_flash_attention(mesh, rule=CausalRule()),
+              "ulysses": lambda: ulysses_flash_attention(mesh, CausalRule()),
+              "sharded": lambda: sharded_flash_attention(mesh, CausalRule())}[kind]()
+        xs = [x.detach().requires_grad_(True) for x in qkv]
+        o = getattr(fn, "eager", fn)(*xs)
+        out[label] = [o.detach(), *torch.autograd.grad(o, xs, do)]
+    torch.cuda.synchronize()
+    return out, {k: n for k, n in native.LAUNCHES.items() if n}
+
+
+def pg_train_rank(rank, port, dev, mcfg, seed, refdir, ready, out):
+    """One rank of phase 14(a): joins the gloo group, waits for the parent's
+    references (``ready``), and on each of TRAIN_PG_LAYOUTS: its slot of the
+    initial weights, a check that the factory's step refuses to capture
+    over gloo, TRAIN_PG_STEPS eager steps timed, the gathered gradient
+    norm after the first, the gathered parameters after the last against
+    the parent's (``refdir``); then the callables eagerly against the
+    parent's.  Puts its figures (or its traceback) on ``out``."""
+    import traceback
+
+    import torch.distributed as dist
+    from tf_flash_attention_tpu_torch import native
+    from tf_flash_attention_tpu_torch.models import pipeline
+    from tf_flash_attention_tpu_torch.parallel import collectives
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(dev)
+    try:
+        dist.init_process_group(PG_BACKEND, init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=PG_WORLD, rank=rank)
+        if not ready.wait(timeout=900):
+            raise RuntimeError("the parent's references did not come")
+        figures = {}
+        for label, shape, axes, extra in TRAIN_PG_LAYOUTS:
+            cfg = dataclasses.replace(mcfg, **extra)
+            mesh = make_mesh(shape, axes, [dev] * PG_WORLD)
+            tokens = pg_train_tokens(cfg, dev, seed)
+            init = pg_train_model(cfg, dev, seed, shape[1] if label == "gpipe" else None)
+            step, slot = pg_train_step(label, cfg, init, mesh)
+            try:
+                step(slot, tokens)
+            except RuntimeError as e:
+                if "gloo" not in str(e):
+                    raise
+            else:
+                raise RuntimeError(f"rank {rank} {label}: a graphed step over gloo did not "
+                                   f"refuse")
+            losses, walls, calls, launches = [], [], [], []
+            for i in range(TRAIN_PG_STEPS):
+                collectives.CALLS.clear()
+                native.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(step.eager(slot, tokens)))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                calls.append(dict(collectives.CALLS))
+                launches.append({k: native.LAUNCHES[k] for k in ("banded_fwd", "banded_bwd")})
+                if i == 0:
+                    grads = pg_gathered(label, cfg, slot, mesh, grads=True)
+                    gnorm = math.sqrt(sum(float((g.float() ** 2).sum()) for g in grads.values()))
+                    del grads
+            after = pg_gathered(label, cfg, slot, mesh)
+            start = dict(init.named_parameters())
+            ref = torch.load(os.path.join(refdir, f"{label}.pt"), mmap=True)
+            worst, diff, moved, sums = 0.0, 0.0, 0.0, []
+            for name, p in after.items():
+                want = ref[name].to(dev)
+                d = (p.detach() - want).abs()
+                worst = max(worst, float(d.max()))
+                diff += float(d.double().sum())
+                moved += float((want - start[name].detach()).abs().double().sum())
+                sums.append(int(p.detach().view(torch.int32).sum(dtype=torch.int64)))
+            figures[label] = dict(losses=losses, walls=walls, calls=calls, launches=launches,
+                                  gnorm=gnorm, worst=worst, update_err=diff / moved,
+                                  checksums=sums,
+                                  held=sum(p.numel() for p in slot.parameters()),
+                                  whole=sum(p.numel() for p in after.values()))
+            del init, step, slot, after, start, ref
+            gc.collect()
+            torch.cuda.empty_cache()
+        collectives.CALLS.clear()
+        outs, launches = pg_callables_run(lambda shape: make_mesh(shape, RING_AXES,
+                                                                  [dev] * PG_WORLD), dev, seed)
+        calls = dict(collectives.CALLS)
+        ref = torch.load(os.path.join(refdir, "callables.pt"), mmap=True)
+        errs = {}
+        for label, got in outs.items():
+            errs[label] = []
+            for a, want in zip(got, ref[label]):
+                want = want.to(dev)
+                e, tol = float((a.float() - want.float()).abs().max()), attn_tol(want)
+                if not torch.isfinite(a.float()).all() or e > tol:
+                    raise RuntimeError(f"rank {rank} {label}: differs from the single-process "
+                                       f"call by {e} > {tol}")
+                errs[label].append(e)
+        out.put((rank, None, dict(layouts=figures, callable_errs=errs,
+                                  callable_launches=launches, callable_calls=calls)))
+    except BaseException:
+        out.put((rank, traceback.format_exc(), None))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def train_pg_phase(mcfg, seed, dev):
+    """Phase 14(a): four ranks (``torch.multiprocessing`` spawn) on cuda:0
+    joined by a PG_BACKEND group train the 168M decoder at full width and
+    depth on phase 6's batch (8 x 2,048 tokens) on each of TRAIN_PG_LAYOUTS,
+    TRAIN_PG_STEPS AdamW steps eagerly (phase 6's settings), each rank
+    holding its slot of the weights, and run TRAIN_PG_CALLABLES at
+    RING_SHAPE bf16 forward and backward.  While they start, this process
+    runs the same on single-controller meshes of cuda:0 four times and
+    leaves its final parameters and outputs in a temporary folder.  Gates:
+    every rank's losses are equal, and its gathered parameters bit-equal
+    (checksums); the first loss within TRAIN_LOSS_ATOL and the gathered
+    gradient norm within TRAIN_GNORM_RTOL of the single process's; the
+    gathered parameters after the steps within TRAIN_PG_UPDATE_RTOL
+    (mean) of the single process's; each callable's output and dQ/dK/dV
+    within attn_tol of the single-process call's; rows 2 and 7 launched in
+    every layout.  Prints each rank's step walls, collective calls and
+    launches of banded_fwd and banded_bwd.  Returns {kernel: launches over
+    the ranks' steps}."""
+    import queue
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    results, ready = ctx.Queue(), ctx.Event()
+    port = free_port()
+    with tempfile.TemporaryDirectory() as refdir:
+        procs = [ctx.Process(target=pg_train_rank,
+                             args=(r, port, dev, mcfg, seed, refdir, ready, results))
+                 for r in range(PG_WORLD)]
+        for p in procs:
+            p.start()
+        # the single-process references meanwhile (the ranks wait for them)
+        want = {}
+        for label, shape, axes, extra in TRAIN_PG_LAYOUTS:
+            cfg = dataclasses.replace(mcfg, **extra)
+            mesh = make_mesh(shape, axes, [dev] * PG_WORLD)
+            tokens = pg_train_tokens(cfg, dev, seed)
+            init = pg_train_model(cfg, dev, seed, shape[1] if label == "gpipe" else None)
+            step, params = pg_train_step(label, cfg, init, mesh)
+            losses, walls, _, _, gnorm = timed_train_calls(step.eager, params, tokens,
+                                                           n=TRAIN_PG_STEPS)
+            want[label] = dict(losses=losses, walls=walls, gnorm=gnorm)
+            torch.save({n: p.detach().cpu() for n, p in params.named_parameters()},
+                       os.path.join(refdir, f"{label}.pt"))
+            del step, params, init
+            gc.collect()
+            torch.cuda.empty_cache()
+        outs, single_launches = pg_callables_run(
+            lambda shape: make_mesh(shape, RING_AXES, [dev] * PG_WORLD), dev, seed)
+        torch.save({k: [x.cpu() for x in v] for k, v in outs.items()},
+                   os.path.join(refdir, "callables.pt"))
+        del outs
+        torch.cuda.empty_cache()
+        print(f"14(a) single-process references: {time.perf_counter() - t0:.3f} s", flush=True)
+        ready.set()
+        ranks, errors = {}, []
+        try:
+            for _ in procs:
+                rank, err, value = results.get(timeout=900)
+                if err:
+                    errors.append(f"rank {rank}:\n{err}")
+                ranks[rank] = value
+        except queue.Empty:
+            errors.append(f"ranks {sorted(set(range(PG_WORLD)) - set(ranks))} sent nothing in "
+                          f"900 s")
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+            if p.exitcode != 0:
+                errors.append(f"a rank exited with code {p.exitcode}")
+    if errors:
+        fail("14(a): " + "\n".join(errors))
+    total = {}
+    for label, shape, axes, _ in TRAIN_PG_LAYOUTS:
+        w, first = want[label], ranks[0]["layouts"][label]
+        name = f"14(a) {label} {dict(zip(axes, shape))}"
+        for rank in range(PG_WORLD):
+            got = ranks[rank]["layouts"][label]
+            if got["losses"] != first["losses"] or got["checksums"] != first["checksums"]:
+                fail(f"{name}: rank {rank}'s losses {got['losses']} or gathered parameters "
+                     f"differ from rank 0's ({first['losses']})")
+            for launches in got["launches"]:
+                if not launches["banded_fwd"] or not launches["banded_bwd"]:
+                    fail(f"{name}: rank {rank} launched {launches} in a step")
+                for k, n in launches.items():
+                    total[k] = total.get(k, 0) + n
+        check_train(name, first["losses"], first["gnorm"], w["losses"][0], w["gnorm"])
+        walls = [[round(x, 3) for x in ranks[r]["layouts"][label]["walls"]]
+                 for r in range(PG_WORLD)]
+        if first["update_err"] > TRAIN_PG_UPDATE_RTOL:
+            fail(f"{name}: the gathered parameters after {TRAIN_PG_STEPS} steps part from the "
+                 f"single process's by {first['update_err']} of its mean update > "
+                 f"{TRAIN_PG_UPDATE_RTOL} (largest element {first['worst']})")
+        print(f"{name}, {PG_WORLD} ranks on {dev} over {PG_BACKEND}, eager: losses "
+              f"{first['losses']} on every rank (single process {w['losses']}, first-step diff "
+              f"{abs(first['losses'][0] - w['losses'][0])}, tol {TRAIN_LOSS_ATOL}); gathered "
+              f"grad norm {first['gnorm']} vs {w['gnorm']} (rtol {TRAIN_GNORM_RTOL}); "
+              f"parameters after {TRAIN_PG_STEPS} steps: mean |diff| / mean |update| "
+              f"{first['update_err']} (tol {TRAIN_PG_UPDATE_RTOL}), largest {first['worst']}, "
+              f"bit-equal on every rank; a rank holds {first['held']} of {first['whole']} "
+              f"parameters; step wall s by rank {walls} (single process "
+              f"{[round(x, 3) for x in w['walls']]}); collective calls a "
+              f"step by rank {[ranks[r]['layouts'][label]['calls'] for r in range(PG_WORLD)]}; "
+              f"banded_fwd/banded_bwd a step by rank "
+              f"{[ranks[r]['layouts'][label]['launches'] for r in range(PG_WORLD)]}",
+              flush=True)
+    errs = {label: max(max(ranks[r]["callable_errs"][label]) for r in range(PG_WORLD))
+            for label, _, _ in TRAIN_PG_CALLABLES}
+    launches = {}
+    for rank in range(PG_WORLD):
+        for k, n in ranks[rank]["callable_launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    print(f"14(a) callables at {RING_SHAPE} bf16 over the {PG_WORLD} ranks, forward and "
+          f"backward, against the single-process calls: max_abs_err of o, dq, dk, dv "
+          f"{json.dumps(errs)} (attn_tol); launches over the ranks {json.dumps(launches)} "
+          f"(single process {json.dumps(single_launches)}); collective calls by rank "
+          f"{[ranks[r]['callable_calls'] for r in range(PG_WORLD)]}", flush=True)
+    print(f"phase 14(a): {time.perf_counter() - t0:.3f} s", flush=True)
+    return total
+
+
+def train_nccl_phase(mcfg, cpu_model, graphed_12a, seed, dev):
+    """Phase 14(b): a world-size-1 NCCL group in this process.
+    make_sharded_train_step on its one-slot mesh (data 1 x model 1) is a
+    GraphedTrainStep whose graph captures the step's collectives; three
+    calls (eager and capture, two replays) from phase 6's weights on its
+    batch, gated against phase 12(a)'s 1-device graphed step
+    (``graphed_12a``: its losses and gradient norm) within TRAIN_LOSS_ATOL
+    and TRAIN_GNORM_RTOL, with collectives run at the capture.  Then
+    ring_flash_attention on the one-slot mesh (data, model, context 1),
+    graphed: two calls, the replay's output and dQ/dK/dV within attn_tol of
+    the eager function's.  Prints both graphs' nodes."""
+    import torch.distributed as dist
+    from tf_flash_attention_tpu_torch.mask_rules import CausalRule
+    from tf_flash_attention_tpu_torch.models import transformer as tf
+    from tf_flash_attention_tpu_torch.parallel import collectives, ring_flash_attention
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+    from tf_flash_attention_tpu_torch.serving.graphs import GraphedFunction, GraphedTrainStep
+
+    t0 = time.perf_counter()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        if not mesh.process_group or mesh.device != dev or mesh.capture_refusal():
+            fail(f"14(b): the NCCL mesh is {mesh} on {mesh.device}, refusal "
+                 f"{mesh.capture_refusal()}")
+        tokens = pg_train_tokens(mcfg, dev, seed)
+        slot = tf.slot_params(mcfg, copy.deepcopy(cpu_model).to(dev), mesh)
+        opt = torch.optim.AdamW(slot.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4, capturable=True)     # phase 6's
+        step = tf.make_sharded_train_step(mcfg, mesh, opt)
+        if not isinstance(step, GraphedTrainStep):
+            fail(f"14(b): the factory returned {type(step).__name__} on the NCCL rank")
+        collectives.CALLS.clear()
+        losses, walls, _, spans, gnorm = timed_train_calls(step, slot, tokens)
+        captured = dict(collectives.CALLS)
+        g = next(iter(step.graphs.values()))
+        train_graph = graph_report(g)
+        del slot, opt, step, g
+        gc.collect()
+        torch.cuda.empty_cache()
+        ctx = make_mesh((1, 1, 1), RING_AXES)
+        ring = ring_flash_attention(ctx, rule=CausalRule())
+        if not isinstance(ring, GraphedFunction):
+            fail(f"14(b): ring_flash_attention is {type(ring).__name__} on the NCCL rank")
+        *qkv, do = pg_callable_inputs(dev, seed)
+
+        def run(fn):
+            xs = [x.detach().requires_grad_(True) for x in qkv]
+            o = fn(*xs)
+            return [o.detach(), *torch.autograd.grad(o, xs, do)]
+
+        want = run(ring.eager)
+        run(ring)                      # the eager first call and the captures
+        got = run(ring)                # the replays
+        torch.cuda.synchronize()
+        ring_err = 0.0
+        for name, a, ref in zip(("o", "dq", "dk", "dv"), got, want):
+            e, tol = float((a.float() - ref.float()).abs().max()), attn_tol(ref)
+            if not torch.isfinite(a.float()).all() or e > tol:
+                fail(f"14(b) ring graphed at world size 1: {name} differs from the eager call "
+                     f"by {e} > {tol}")
+            ring_err = max(ring_err, e)
+        sig = next(iter(ring.graphs.values()))
+        ring_graphs = {"forward": graph_report(sig.fwd), "backward": graph_report(sig.bwd)}
+        del ring, sig, got, want
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    ref = graphed_12a
+    for i, (a, b) in enumerate(zip(losses, ref["losses"])):
+        if not math.isfinite(a) or abs(a - b) > TRAIN_LOSS_ATOL:
+            fail(f"14(b): step {i + 1}'s loss {a} vs phase 12(a)'s 1-device graphed {b}: > "
+                 f"{TRAIN_LOSS_ATOL}")
+    if abs(gnorm - ref["gnorm"]) > TRAIN_GNORM_RTOL * ref["gnorm"]:
+        fail(f"14(b): first-step grad norm {gnorm} vs phase 12(a)'s {ref['gnorm']}: > "
+             f"{TRAIN_GNORM_RTOL} relative")
+    if not captured.get("psum"):
+        fail(f"14(b): no collective ran in the step's capture: {captured}")
+    print(f"14(b) make_sharded_train_step on a world-size-1 NCCL group (data 1 x model 1), "
+          f"graphed: losses {losses} vs phase 12(a)'s 1-device graphed {ref['losses']} (diffs "
+          f"{[abs(a - b) for a, b in zip(losses, ref['losses'])]}, equal: "
+          f"{losses == ref['losses']}); grad norm {gnorm} vs {ref['gnorm']}; collective calls "
+          f"of the eager step and the capture {json.dumps(captured)}; step ms "
+          f"{[round(w * 1e3, 3) for w in walls]} (replay spans ms {[round(s, 3) for s in spans]}"
+          f"); graph {json.dumps(train_graph)}; phase 12(a)'s 1-device graph "
+          f"{json.dumps(ref['graph'])}", flush=True)
+    print(f"14(b) ring_flash_attention causal at {RING_SHAPE} bf16 on the one-slot NCCL mesh, "
+          f"graphed: replay vs eager max_abs_err {ring_err} (attn_tol); graphs "
+          f"{json.dumps(ring_graphs)}", flush=True)
+    print(f"phase 14(b): {time.perf_counter() - t0:.3f} s", flush=True)
 
 
 if __name__ == "__main__":

@@ -5,7 +5,9 @@
 inputs)``; ``join`` collects every rank's result and raises if a rank
 failed.  The cases are plain functions of a mesh, so the parent runs the
 same code on a single-controller mesh of ``"cpu"`` four times, and the
-ranks on the process-group mesh: ``serve_engines`` and ``run_callables``.
+ranks on the process-group mesh: ``serve_engines`` and ``run_callables``
+(``run_world``, serving), ``train_layouts`` and ``train_callables``
+(``train_world``, training).
 Nothing here imports JAX: the ranks start without it, and the parent
 brings the JAX package's numbers itself.
 """
@@ -36,14 +38,14 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank, world, port, inputs, out):
+def _rank_main(rank, world, port, inputs, out, case):
     import torch.distributed as dist
 
     torch.set_num_threads(1)
     try:
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
                                 rank=rank)
-        out.put((rank, None, run_world(rank, inputs)))
+        out.put((rank, None, globals()[case](rank, inputs)))
     except BaseException:
         out.put((rank, traceback.format_exc(), None))
     finally:
@@ -51,12 +53,14 @@ def _rank_main(rank, world, port, inputs, out):
             dist.destroy_process_group()
 
 
-def start(inputs, world: int = WORLD):
-    """Spawn the world; returns what ``join`` takes."""
+def start(inputs, world: int = WORLD, case: str = "run_world"):
+    """Spawn the world, each rank running ``case(rank, inputs)`` (a function
+    of this module); returns what ``join`` takes."""
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=_rank_main, args=(r, world, port, inputs, out), daemon=True)
+    procs = [ctx.Process(target=_rank_main, args=(r, world, port, inputs, out, case),
+                         daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
@@ -222,7 +226,9 @@ def mesh_checks(rank):
     """A process-group mesh's ownership and collectives, from one rank."""
     from tf_flash_attention_tpu_torch.parallel import collectives as col
     from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh, shard, unshard
+    from tf_flash_attention_tpu_torch.mask_rules import CausalRule
     from tf_flash_attention_tpu_torch.parallel.ring import ring_flash_attention
+    from tf_flash_attention_tpu_torch.parallel.sharded import mha
 
     mesh = make_mesh((2, 2), ("model", "seq"), ["cpu"] * WORLD)
     x = torch.arange(4 * 6 * 2, dtype=torch.float32).reshape(4, 6, 2)
@@ -232,11 +238,11 @@ def mesh_checks(rank):
     ax = mesh.axis("seq")
     mine = torch.tensor([rank, -rank], dtype=torch.int32)
     half = torch.full((3,), rank + 0.5, dtype=torch.bfloat16)
-    try:
-        ring_flash_attention(mesh)
-        refused = None
-    except NotImplementedError as e:
-        refused = str(e)
+    # the training callables take the process-group mesh: heads over the
+    # model line, each rank's block, the whole output gathered
+    q, k, v = (torch.from_numpy(np.random.default_rng(s).uniform(-1, 1, (1, 4, 32, 16))
+                                .astype(np.float32)) for s in range(3))
+    ring = ring_flash_attention(mesh)(q, k, v)
     return dict(
         coords=mesh.coords(), ranks=mesh.ranks.tolist(), device=str(mesh.device),
         local=[str(d) for d in mesh.local_devices()], block=block.numpy(),
@@ -245,7 +251,8 @@ def mesh_checks(rank):
         psum=col.psum([mine], ax).tolist(), pmax=col.pmax([mine], ax).tolist(),
         gather=[t.float().tolist() for t in col.all_gather([half], mesh.axis("model"))],
         refusal_cpu=mesh.capture_refusal(),
-        refusal_cuda=col.capture_refusal([ax], "cuda:0"), ring_refused=refused)
+        refusal_cuda=col.capture_refusal([ax], "cuda:0"),
+        ring=ring.numpy(), ring_plain=mha(q, k, v, rule=CausalRule()).numpy())
 
 
 def run_world(rank, inputs):
@@ -254,3 +261,147 @@ def run_world(rank, inputs):
     return dict(mesh=mesh_checks(rank),
                 engines=serve_engines(inputs["params"], devices),
                 callables=run_callables(inputs["callables"], inputs["tp_state"], devices))
+
+
+# ---- training over the group ----
+
+# the training layouts: (mesh shape, axes, model config, batch shape of the
+# tokens); tests/test_torch_sharded_train.py's, test_torch_moe.py's and
+# test_torch_pipeline.py's configurations at 4 slots
+TRAIN_MODEL = dict(vocab=128, d_model=64, n_layers=1, n_heads=4, n_kv_heads=4, d_head=16,
+                   d_ff=128, max_seq=128)
+TRAIN = {
+    "dense": ((2, 2), ("data", "model"), {}, (4, 65)),
+    "cp": ((1, 2, 2), ("data", "model", "context"), dict(context_parallel=True), (4, 129)),
+    "moe": ((2, 2), ("data", "model"), dict(n_experts=4), (4, 65)),
+    "pipe": ((2, 2), ("data", "pipe"), dict(n_layers=2), (8, 33)),
+}
+MICROBATCHES = 2
+TRAIN_LR = 1e-2
+TRAIN_STEPS = 2
+# the callables at context 4 (ring and Ulysses) and on (data 2, model 2)
+CALLABLES = {
+    "ring-causal": ((1, 1, 4), "ring", "causal"), "ring-full": ((1, 1, 4), "ring", "full"),
+    "ring-local": ((1, 1, 4), "ring", "local"), "ulysses": ((1, 1, 4), "ulysses", "causal"),
+    "sharded": ((2, 2, 1), "sharded", "causal"),
+}
+
+
+def train_cfg(name):
+    from tf_flash_attention_tpu_torch.models.transformer import ModelConfig
+    return ModelConfig(**{**TRAIN_MODEL, **TRAIN[name][2]}, dtype=torch.float32)
+
+
+def _named(module):
+    return {n: p.detach().numpy().copy() for n, p in module.named_parameters()}
+
+
+def train_layouts(params_np, tokens, devices):
+    """``TRAIN_STEPS`` AdamW steps (optax.adamw's settings) of every layout
+    on a mesh of ``devices`` from ``params_np`` (the JAX parameter pytrees
+    by layout; the pipeline's stacked by stage): {name: (losses, the whole
+    parameters gathered after the steps, the parameters this process
+    holds, the gradients of the last step gathered)}."""
+    from tf_flash_attention_tpu_torch.models import pipeline as tpp
+    from tf_flash_attention_tpu_torch.models import transformer as ttf
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+
+    out = {}
+    for name, (shape, axes, _, _) in TRAIN.items():
+        cfg, mesh = train_cfg(name), make_mesh(shape, axes, devices)
+        tok = torch.from_numpy(tokens[name]).long()
+        if name == "pipe":
+            slot = tpp.slot_stages(tpp.stages_from_jax(cfg, params_np[name], "cpu"), mesh)
+            opt = torch.optim.AdamW(slot.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999),
+                                    eps=1e-8, weight_decay=1e-4)
+            step, _ = tpp.make_pipeline_train_step(cfg, mesh, opt, MICROBATCHES)
+            gather = lambda grads=False: tpp.gather_stages(slot, mesh, grads=grads)
+        else:
+            slot = ttf.slot_params(cfg, ttf.params_from_jax(cfg, params_np[name], "cpu"), mesh)
+            opt = torch.optim.AdamW(slot.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999),
+                                    eps=1e-8, weight_decay=1e-4)
+            step = ttf.make_sharded_train_step(cfg, mesh, opt)
+            gather = lambda grads=False: ttf.gather_params(cfg, slot, mesh, grads=grads)
+        losses = [float(step(slot, tok)) for _ in range(TRAIN_STEPS)]
+        out[name] = dict(losses=losses, params=_named(gather()), held=_named(slot),
+                         grads=_named(gather(grads=True)))
+    return out
+
+
+def callable_qkv(name):
+    """A callable's numpy q, k, v and output cotangent."""
+    rng = np.random.default_rng(7)
+    shape = (2, 4, 64, 16) if name == "sharded" else (1, 4, 128, 16)
+    return tuple(rng.uniform(-1, 1, shape).astype(np.float32) for _ in range(4))
+
+
+def train_callables(devices):
+    """Every one of CALLABLES on a mesh of ``devices``: {name: (output,
+    dq, dk, dv)}, whole on every process."""
+    from tf_flash_attention_tpu_torch import mask_rules as rules
+    from tf_flash_attention_tpu_torch.parallel import (make_mesh, ring_flash_attention,
+                                                       sharded_flash_attention,
+                                                       ulysses_flash_attention)
+
+    pick = {"causal": rules.CausalRule(), "full": rules.FullRule(),
+            "local": rules.LocalRule(100, is_causal=True)}
+    out = {}
+    for name, (shape, kind, rule) in CALLABLES.items():
+        mesh = make_mesh(shape, ("data", "model", "context"), devices)
+        fn = {"ring": lambda: ring_flash_attention(mesh, rule=pick[rule]),
+              "ulysses": lambda: ulysses_flash_attention(mesh, pick[rule]),
+              "sharded": lambda: sharded_flash_attention(mesh, pick[rule])}[kind]()
+        *qkv, do = (torch.from_numpy(x) for x in callable_qkv(name))
+        qkv = [x.requires_grad_(True) for x in qkv]
+        o = fn(*qkv)
+        grads = torch.autograd.grad(o, qkv, do)
+        out[name] = [o.detach().numpy()] + [g.numpy() for g in grads]
+    return out
+
+
+def collective_checks(rank):
+    """The new collectives and their backwards over the group, from one
+    rank, on a (2, 2) mesh ("a", "b")."""
+    from tf_flash_attention_tpu_torch.parallel import collectives as col
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((2, 2), ("a", "b"), ["cpu"] * WORLD)
+    a, b = mesh.axis("a"), mesh.axis("b")
+    x = torch.arange(4.0).reshape(2, 2) + 10 * rank
+    out = {}
+
+    def grad_of(fn, x, cot):
+        x = x.clone().requires_grad_(True)
+        y = fn(x)
+        g, = torch.autograd.grad(y, x, cot(y))
+        return y.detach().numpy(), g.numpy()
+
+    ones = lambda y: torch.ones_like(y)
+    weighted = lambda y: torch.full_like(y, float(rank + 1))
+    out["psum"] = grad_of(lambda t: col.psum([t], a), x, weighted)
+    out["pvary"] = grad_of(lambda t: col.pvary(t, a), x, weighted)
+    out["all_gather"] = grad_of(lambda t: torch.stack(col.all_gather([t], b)), x, weighted)
+    out["all_gather_invariant"] = grad_of(
+        lambda t: torch.stack(col.all_gather_invariant(t, b)), x, weighted)
+    out["piece"] = grad_of(lambda t: col.piece(t, b, 0), x, weighted)
+    out["psum_scatter"] = grad_of(lambda t: col.psum_scatter(t, b, 0), x, weighted)
+    out["ppermute"] = grad_of(lambda t: col.ppermute([t], b, [(0, 1)])[0], x, weighted)
+    out["all_to_all"] = grad_of(lambda t: col.all_to_all([t], a, 0, 1)[0], x, weighted)
+    half = torch.full((3,), rank + 0.5, dtype=torch.bfloat16)
+    out["ppermute_bf16"] = col.ppermute([half], b, [(0, 1), (1, 0)])[0].float().numpy()
+    p = torch.nn.Parameter(torch.zeros(2))
+    q = torch.nn.Parameter(torch.zeros(3))
+    p.grad = torch.full((2,), float(rank))
+    col.psum_gradients([p, q], [a, b])
+    out["psum_gradients"] = (p.grad.numpy(), q.grad.numpy())
+    out["calls"] = dict(col.CALLS)
+    return out
+
+
+def train_world(rank, inputs):
+    """The training cases on the process-group mesh of ``"cpu"`` four
+    times."""
+    devices = ["cpu"] * WORLD
+    return dict(collectives=collective_checks(rank),
+                layouts=train_layouts(inputs["params"], inputs["tokens"], devices),
+                callables=train_callables(devices))

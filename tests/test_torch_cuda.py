@@ -1733,6 +1733,55 @@ def test_process_group_engine_of_one_rank(dev, backend):
         close()
 
 
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_process_group_training_of_one_rank(dev, backend):
+    """``make_sharded_train_step`` and ``ring_flash_attention`` on a
+    world-size-1 group's mesh give the single-process results: three steps'
+    losses and the gathered parameters after them, the ring's output.  Over
+    NCCL the step and the callable are graphs with the loss's ``psum``
+    inside; over gloo each refuses at the call that would capture, and its
+    ``eager`` runs."""
+    from tf_flash_attention_tpu_torch.parallel import collectives, mha, ring_flash_attention
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+
+    adamw = lambda ps: torch.optim.AdamW(ps, lr=1e-3, capturable=True)
+    init = ttf.init_params(TINY, torch.Generator().manual_seed(0), "cpu").to(dev)
+    tokens = torch.randint(0, 64, (4, 33), generator=torch.Generator().manual_seed(1)).to(dev)
+    ref = copy.deepcopy(init)
+    opt = adamw(ref.parameters())
+    want = torch.stack([ttf.train_step(TINY, ref, tokens, optimizer=opt) for _ in range(3)])
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn((2, 4, 256, 64), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    want_o = mha(q, k, v, rule=CausalRule())
+    close = _world_of_one(backend, dev)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        slot = ttf.slot_params(TINY, init, mesh)
+        step = ttf.make_sharded_train_step(TINY, mesh, adamw(slot.parameters()))
+        ring = ring_flash_attention(make_mesh((1, 1, 1), ("data", "model", "context")),
+                                    rule=CausalRule())
+        if backend == "gloo":
+            with pytest.raises(RuntimeError, match="gloo"):
+                step(slot, tokens)
+            with pytest.raises(RuntimeError, match="gloo"):
+                ring(q, k, v)
+            step, ring = step.eager, ring.eager
+        collectives.CALLS.clear()
+        got = torch.stack([step(slot, tokens) for _ in range(3)])
+        assert collectives.CALLS["psum"] > 0
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        for a, b in zip(ttf.gather_params(TINY, slot, mesh).parameters(), ref.parameters()):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        for _ in range(2):      # over NCCL the second call replays the graph
+            o = ring(q, k, v)
+        torch.testing.assert_close(o.float(), want_o.float(), rtol=0, atol=tol_low(want_o))
+        if backend == "nccl":
+            assert next(iter(step.graphs.values())).replays == 2
+    finally:
+        close()
+
+
 def _seq_caches(mesh, dev, seed, lengths=(700, 300)):
     """Two slots' prompts (bf16 K/V, int8 cache, 8 KV heads, d 128, page 64)
     written round-robin over ``mesh``'s seq axis of 4."""

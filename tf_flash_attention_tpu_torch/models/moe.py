@@ -21,7 +21,8 @@ form as the plain version the tests hold it against.
 Expert parallelism (``models/transformer.py``'s sharded step) routes the
 whole sequence once (``route``) and runs each model shard's experts with
 ``expert_outputs``; ``aux_loss`` forms the loss from counts and
-probability sums added over the data shards.
+probability sums added over the data shards (over a process group, over
+every rank, each rank's own tokens').
 """
 
 from __future__ import annotations
@@ -100,12 +101,14 @@ class Routing(NamedTuple):
     def to(self, device) -> "Routing":
         return Routing(*(t.to(device) for t in self[:-1]), self.capacity)
 
-    def sums(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    def sums(self, lo: int = 0, hi: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Each expert's count of kept tokens and sum of probabilities
-        (float32, (E,)): what ``aux_loss`` takes."""
+        (float32, (E,)) over sequence positions ``lo .. hi - 1`` (all by
+        default): what ``aux_loss`` takes."""
         E = self.probs.shape[-1]
-        kept = _one_hot(self.expert, E).float() * self.keep[..., None].float()
-        return kept.sum(dim=(0, 1)), self.probs.sum(dim=(0, 1))
+        at = slice(lo, hi)
+        kept = _one_hot(self.expert[:, at], E).float() * self.keep[:, at, None].float()
+        return kept.sum(dim=(0, 1)), self.probs[:, at].sum(dim=(0, 1))
 
 
 def route(cfg: MoEConfig, router: torch.Tensor, x: torch.Tensor) -> Routing:

@@ -30,10 +30,21 @@ or over a ``(data, model, context)`` mesh (``make_sharded_train_step``):
   formed once from counts and probability sums added over the data shards
   (JAX's MoE runs on the global arrays under GSPMD).
 
-Single-controller, as ``parallel/mesh.py`` says: one process drives every
-shard, the devices may repeat (``cuda:0`` eight times), and each shard's
-weights are differentiable slices of the one float32 master, so the
-gradients and the optimizer's step land on that one set of parameters.
+On either kind of mesh (``parallel/mesh.py``).  Single-controller: one
+process drives every shard, the devices may repeat (``cuda:0`` eight
+times), and each shard's weights are differentiable slices of the one
+float32 master, so the gradients and the optimizer's step land on that one
+set of parameters.  Over a process group (JAX's multi-controller mode):
+each rank holds its slot's parameters (``slot_params``: its model shard's
+slices, the rest whole), runs its (data, model, context) block with
+``parallel/collectives.py``'s differentiable collectives in the places
+where the single-controller code moves tensors between shards (a
+column-parallel input's ``pvary`` or, under sp, ``all_gather``; the
+partials' ``psum`` or ``psum_scatter``; the ring's ``ppermute``), sums its
+token losses with the other ranks', and after ``backward()``
+``sync_gradients`` sums each replicated parameter's gradient over the
+ranks that saw other tokens; each rank's optimizer steps its own slot, and
+``gather_params`` puts the whole model back together.
 
 Parameters are float32 ``nn.Parameter``s, as in the JAX package, and are
 cast to ``cfg.dtype`` at each use; norm math runs in float32.  The serving
@@ -61,15 +72,18 @@ from torch import nn
 from ..block_sizes import BlockConfig
 from ..mask_rules import CausalRule, MaskRule
 from ..ops.quant import QuantizedTensor, int8_matmul, quantize_weight_int8
+from ..parallel.collectives import (LOCAL, Axis, all_gather, all_gather_invariant, psum,
+                                    psum_gradients, psum_scatter, pvary)
 from ..parallel.mesh import AXIS_CONTEXT, AXIS_DATA, AXIS_MODEL, Mesh, shard
 from ..parallel.ring import ring_attention_local
 from ..parallel.sharded import mha
-from ..serving.graphs import GraphedTrainStep, capture_device
+from ..serving.graphs import graph_train_step, train_once
 from .moe import MoE, MoEConfig, aux_loss, expert_outputs, init_moe_params, moe_ffn, route
 
 __all__ = ["ModelConfig", "Transformer", "init_params", "params_from_jax",
            "inference_weights", "quantize_model_weights", "forward", "loss_fn", "train_step",
-           "param_shardings", "make_sharded_train_step"]
+           "param_shardings", "slot_params", "gather_params", "sync_gradients",
+           "make_sharded_train_step"]
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -509,6 +523,258 @@ def _mesh_hidden(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, me
     return out, aux
 
 
+# ---- over a process group: the caller's (data, model, context) block ----
+#
+# Each rank runs the same program on its block: its data rows, its
+# ``context`` shard under cp, and under sp its chunk of that along ``model``.
+# The collectives are ``parallel/collectives.py``'s differentiable ones, so
+# ``backward()`` sends each rank's gradients where JAX's transposes send
+# them; ``sync_gradients`` then sums each parameter's gradient over the
+# axes it is replicated on.
+
+
+@dataclasses.dataclass(frozen=True)
+class _Lines:
+    """The caller's lines of a process-group mesh as the step communicates
+    over them: an axis the step does not split, or of size 1, is
+    ``LOCAL`` (no collective); ``cp``/``sp`` as ``_use_cp`` and
+    ``_sequence_parallel``."""
+
+    data: Axis
+    model: Axis
+    context: Axis
+    cp: bool
+    sp: bool
+
+
+def _lines(cfg: ModelConfig, mesh: Mesh) -> _Lines:
+    cp, sp = _use_cp(cfg, mesh), _sequence_parallel(cfg, mesh)
+    line = lambda name, used=True: (mesh.axis(name) if used and int(mesh.shape.get(name, 1)) > 1
+                                    else LOCAL)
+    return _Lines(line(AXIS_DATA), line(AXIS_MODEL), line(AXIS_CONTEXT, cp), cp, sp)
+
+
+def _rank_tokens(cfg: ModelConfig, mesh: Mesh, tokens: torch.Tensor, ax: _Lines):
+    """The caller's block of ``tokens (batch, seq)``: its data rows, its
+    context shard under cp, its model chunk under sp."""
+    x = shard(tokens, mesh, (AXIS_DATA, AXIS_CONTEXT if ax.cp else None))
+    if ax.sp:
+        if x.shape[1] % ax.model.size:
+            raise ValueError(f"sequence {x.shape[1]} does not divide over the model axis "
+                             f"({ax.model.size}) for sequence parallelism over processes")
+        x = x.chunk(ax.model.size, 1)[ax.model.index]
+    return x
+
+
+def _column_input(h: torch.Tensor, ax: _Lines) -> torch.Tensor:
+    """The caller's rows ``h`` as the column-parallel projections take them:
+    under sp the model line's chunks gathered into the whole sequence
+    (their gradients reduce-scattered), else ``h``, which the line holds
+    alike (its gradient summed over the line)."""
+    if ax.sp:
+        return torch.cat(all_gather([h], ax.model), dim=1)
+    return pvary(h, ax.model)
+
+
+def _row_output(x: torch.Tensor, part: torch.Tensor, ax: _Lines) -> torch.Tensor:
+    """``x`` plus the sum over the model line of the row-parallel
+    ``part``s, added in float32 in shard order and rounded once
+    (``_add_partials``): under sp the caller's chunk of it."""
+    part = part.float()
+    acc = psum_scatter(part, ax.model, 1) if ax.sp else psum([part], ax.model)
+    return x + acc.to(x.dtype)
+
+
+def _rank_attention(cfg: ModelConfig, layer: Block, x: torch.Tensor, ax: _Lines):
+    h = _column_input(_rms_norm(x, layer.ln1), ax)
+    b, s, _ = h.shape
+    heads = lambda name: _proj(h, getattr(layer, name)).reshape(
+        b, s, -1, cfg.d_head).transpose(1, 2)
+    # RoPE at global positions: context shard c starts at c * s
+    pos0 = ax.context.index * s
+    q, k = _rope(heads("wq"), cfg.rope_theta, pos0), _rope(heads("wk"), cfg.rope_theta, pos0)
+    v = heads("wv")
+    if ax.cp:
+        hq, hkv = q.shape[1], k.shape[1]
+        o = ring_attention_local([q.reshape(b * hq, s, -1)], [k.reshape(b * hkv, s, -1)],
+                                 [v.reshape(b * hkv, s, -1)], rule=cfg.rule,
+                                 block_config=cfg.block_config, axis=ax.context)[0]
+        o = o.reshape(b, hq, s, -1)
+    else:
+        o = mha(q, k, v, rule=cfg.rule, block_config=cfg.block_config)
+    o = o.transpose(1, 2).reshape(b, s, -1)
+    return _row_output(x, _proj(o, layer.wo), ax)
+
+
+def _rank_moe(cfg: ModelConfig, layer: Block, x: torch.Tensor, ax: _Lines):
+    """The MoE block on the caller's rows: the normed rows of the batch
+    shard's whole sequence gathered (model chunks within context shards)
+    and routed on every rank alike; the caller's ``E / tp`` experts; their
+    outputs over its context shard summed over the model line (foreign
+    experts' rows are exact zeros); the caller's rows of that.  Returns the
+    rows and the (kept counts, probability sums) of the caller's own
+    tokens (its model chunk, or without sp its ``1/tp`` of the shard), so
+    that the sums over every rank count each token once."""
+    mcfg = cfg.moe_cfg()
+    h = _rms_norm(x, layer.ln2)
+    if ax.sp:
+        h = torch.cat(all_gather([h], ax.model), dim=1)
+    else:
+        h = pvary(h, ax.model)
+    span = h.shape[1]
+    h = torch.cat(all_gather([h], ax.context), dim=1)
+    r = route(mcfg, layer.moe.router, h)
+    n_local = layer.moe.w_in.shape[0]
+    part = expert_outputs(r, h, layer.moe.w_in, layer.moe.w_out,
+                          first=ax.model.index * n_local)
+    c0 = ax.context.index * span
+    part = part[:, c0:c0 + span]
+    y = psum_scatter(part, ax.model, 1) if ax.sp else psum([part], ax.model)
+    j, tp = ax.model.index, ax.model.size
+    return x + y.to(x.dtype), r.sums(c0 + span * j // tp, c0 + span * (j + 1) // tp)
+
+
+def _rank_hidden(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, mesh: Mesh,
+                 ax: _Lines):
+    """The caller's final-normed rows and the MoE layers' summed
+    load-balancing loss (None for a dense model), the same on every rank:
+    each layer's from the counts and probability sums of every rank's own
+    tokens."""
+    if _quantized(params):
+        raise TypeError("the sharded path takes dense weights")
+    x = params.embed.to(cfg.dtype)[_rank_tokens(cfg, mesh, tokens, ax)]
+    aux = None
+    for layer in params.layers:
+        x = _rank_attention(cfg, layer, x, ax)
+        if not cfg.n_experts:
+            h = _column_input(_rms_norm(x, layer.ln2), ax)
+            x = _row_output(x, _proj(F.silu(_proj(h, layer.w1)) * _proj(h, layer.w3),
+                                     layer.w2), ax)
+            continue
+        x, (counts, probs) = _rank_moe(cfg, layer, x, ax)
+        sums = torch.cat([counts, probs])
+        for line in (ax.model, ax.context, ax.data):
+            sums = psum([sums], line)
+        counts, probs = sums.chunk(2)
+        a = aux_loss(cfg.moe_cfg(), counts, probs, tokens.numel())
+        aux = a if aux is None else aux + a
+    return _rms_norm(x, params.final_norm), aux
+
+
+def _rank_logits(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, mesh: Mesh):
+    """The whole float32 logits on every rank, and the aux or None."""
+    ax = _lines(cfg, mesh)
+    h, aux = _rank_hidden(cfg, params, tokens, mesh, ax)
+    logits = _logits(params, h)
+    for line, dim in ((ax.model if ax.sp else LOCAL, 1), (ax.context, 1), (ax.data, 0)):
+        logits = torch.cat(all_gather_invariant(logits, line), dim=dim)
+    return logits, aux
+
+
+def _rank_loss(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, mesh: Mesh):
+    """``loss_fn`` over a process group: the caller's token-loss sum,
+    summed over the ranks that hold other tokens (the model line under sp,
+    the context line under cp, the data line) in shard order, over the
+    global token count; the same number on every rank."""
+    ax = _lines(cfg, mesh)
+    h, aux = _rank_hidden(cfg, params, tokens[:, :-1], mesh, ax)
+    logp = torch.log_softmax(_logits(params, h), dim=-1)
+    targets = _rank_tokens(cfg, mesh, tokens[:, 1:], ax)
+    total = (-torch.gather(logp, -1, targets[..., None])).sum()
+    for name, used in ((AXIS_MODEL, ax.sp), (AXIS_CONTEXT, ax.cp), (AXIS_DATA, True)):
+        if used:
+            total = psum([total], mesh.axis(name))
+    total = total / tokens[:, 1:].numel()
+    return total if aux is None else total + aux
+
+
+def sync_gradients(cfg: ModelConfig, params: Transformer, mesh: Mesh) -> None:
+    """Over a process group, after ``backward()``: each parameter's
+    gradient summed, in shard order, over the mesh axes it is replicated on
+    whose ranks saw other tokens: ``data``, ``context`` under cp, and
+    ``model`` for the norm scales and the embedding under sp (each model
+    rank saw its chunk) and for an MoE router (each rank's gates are its
+    experts' tokens').  Every rank then holds the whole batch's gradient of
+    its slot, and replicated parameters stay bit-equal across ranks.  A
+    single-controller mesh needs nothing (its gradients land on one
+    master)."""
+    if not mesh.process_group:
+        return
+    ax = _lines(cfg, mesh)
+    groups: Dict[tuple, list] = {}
+    for name, p in params.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        over_model = leaf == "router" or (ax.sp and leaf in ("ln1", "ln2", "final_norm",
+                                                             "embed"))
+        lines = tuple(a for a in (ax.data, ax.context, ax.model if over_model else LOCAL)
+                      if a.group is not None)
+        groups.setdefault(lines, []).append(p)
+    for lines, ps in groups.items():
+        psum_gradients(ps, lines)
+
+
+def _spec(name: str) -> tuple:
+    """The ``param_shardings`` entry of parameter ``name`` (dotted, as
+    ``named_parameters`` gives it)."""
+    leaf = name.rsplit(".", 1)[-1]
+    if ".moe." in name:
+        return _MOE_SPECS[leaf]
+    return _LAYER_SPECS.get(leaf, (None,) * 2)
+
+
+def _filled(module: nn.Module, tensors: Dict[str, torch.Tensor]) -> nn.Module:
+    """``module`` (built on the ``"meta"`` device) with its parameters set
+    to ``tensors`` by name."""
+    for name, t in tensors.items():
+        owner, _, leaf = name.rpartition(".")
+        setattr(module.get_submodule(owner), leaf, nn.Parameter(t))
+    return module
+
+
+@torch.no_grad()
+def slot_params(cfg: ModelConfig, params: Transformer, mesh: Mesh) -> Transformer:
+    """The parameters the caller's step takes on ``mesh`` (JAX's
+    ``jax.device_put(params, param_shardings(cfg, mesh))``, seen from one
+    process): over a process group a new ``Transformer`` on the caller's
+    device holding its model shard's slice of every model-sharded weight
+    (``param_shardings``) and every other weight whole; single-controller,
+    ``params`` itself (its step slices the one master)."""
+    if not mesh.process_group:
+        return params
+    model = mesh.axis(AXIS_MODEL)
+    out = {}
+    for name, p in params.named_parameters():
+        spec = _spec(name)
+        if AXIS_MODEL in spec:
+            p = p.chunk(model.size, spec.index(AXIS_MODEL))[model.index]
+        out[name] = p.detach().to(mesh.device, copy=True)
+    return _filled(Transformer(cfg, "meta"), out)
+
+
+@torch.no_grad()
+def gather_params(cfg: ModelConfig, slot: Transformer, mesh: Mesh,
+                  grads: bool = False) -> Transformer:
+    """``slot_params``' inverse: the whole parameters on the caller's
+    device, every model-sharded weight gathered over the model line (or,
+    with ``grads``, their gradients, zeros where None, as the parameters of
+    the result); a collective call over a process group.  Single-controller:
+    ``slot`` itself (with ``grads``, a copy holding its gradients)."""
+    pick = lambda p: (p.grad if p.grad is not None else torch.zeros_like(p)) if grads else p
+    if not mesh.process_group:
+        if not grads:
+            return slot
+        return _filled(Transformer(cfg, "meta"),
+                       {n: pick(p).detach().clone() for n, p in slot.named_parameters()})
+    model = mesh.axis(AXIS_MODEL)
+    out = {}
+    for name, p in slot.named_parameters():
+        t, spec = pick(p).detach(), _spec(name)
+        if AXIS_MODEL in spec:
+            t = torch.cat(all_gather([t], model), dim=spec.index(AXIS_MODEL))
+        out[name] = t.clone()
+    return _filled(Transformer(cfg, "meta"), out)
+
+
 def _logits(params: Transformer, x: torch.Tensor) -> torch.Tensor:
     return (x @ params.embed.to(x.device).to(x.dtype).T).float()
 
@@ -516,6 +782,8 @@ def _logits(params: Transformer, x: torch.Tensor) -> torch.Tensor:
 def _forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
              mesh: Optional[Mesh]):
     """(float32 logits, the MoE layers' summed aux or None)."""
+    if mesh is not None and mesh.process_group:
+        return _rank_logits(cfg, params, tokens, mesh)
     if mesh is not None:
         home = params.embed.device
         hidden, aux = _mesh_hidden(cfg, params, tokens, mesh)
@@ -533,7 +801,8 @@ def _forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
 def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
             mesh: Optional[Mesh] = None, return_aux: bool = False):
     """Token ids ``(batch, seq)`` -> float32 logits ``(batch, seq, vocab)``
-    (on the parameters' device under a mesh); with ``return_aux``,
+    (on the parameters' device under a mesh; the whole logits on every rank
+    over a process group); with ``return_aux``,
     ``(logits, aux)``, aux the MoE layers' summed load-balancing loss
     (float32 0 for a dense model)."""
     logits, aux = _forward(cfg, params, tokens, mesh)
@@ -547,7 +816,10 @@ def loss_fn(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
     """Next-token cross entropy over ``tokens (batch, seq + 1)``, plus the
     MoE layers' load-balancing loss; under a mesh each block's token losses
     are summed on its device, and the sums added in block order on the
-    parameters' device."""
+    parameters' device (over a process group, in shard order on every
+    rank)."""
+    if mesh is not None and mesh.process_group:
+        return _rank_loss(cfg, params, tokens, mesh)
     if mesh is None:
         logits, aux = _forward(cfg, params, tokens[:, :-1], None)
         logp = torch.log_softmax(logits, dim=-1)
@@ -567,13 +839,17 @@ def loss_fn(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
 
 def train_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
                optimizer: torch.optim.Optimizer, mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """One optimizer step on ``params`` in place; returns the loss (before
-    the step)."""
-    optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(cfg, params, tokens, mesh=mesh)
-    loss.backward()
-    optimizer.step()
-    return loss.detach()
+    """One optimizer step on ``params`` in place (over a process group, the
+    caller's slot, its gradients summed by ``sync_gradients``); returns the
+    loss (before the step)."""
+    return train_once(lambda p, t: loss_fn(cfg, p, t, mesh=mesh), optimizer, params, tokens,
+                      _sync(cfg, mesh))
+
+
+def _sync(cfg: ModelConfig, mesh: Optional[Mesh]):
+    if mesh is None or not mesh.process_group:
+        return None
+    return lambda params: sync_gradients(cfg, params, mesh)
 
 
 def make_sharded_train_step(cfg: ModelConfig, mesh: Mesh, optimizer: torch.optim.Optimizer):
@@ -581,22 +857,21 @@ def make_sharded_train_step(cfg: ModelConfig, mesh: Mesh, optimizer: torch.optim
     with ``n_experts``) over ``mesh``: ``step(params, tokens) -> loss``,
     ``optimizer`` over ``params``' float32 master weights.
 
-    The JAX package jits this step.  Where every device of ``mesh`` is one
-    CUDA device (every layout on one card, a 1-device mesh included), the
-    step is a ``serving.graphs.GraphedTrainStep``: its first call with a
-    batch shape runs the eager step and captures it as a CUDA graph, which
-    later calls replay; ``optimizer`` must be built with
-    ``capturable=True``, or this raises a ``ValueError``.  On the CPU, and
-    on a mesh over several CUDA devices (a graph a device: ROADMAP.md
-    queue 1 item 4), the step runs eagerly with ``optimizer`` as it is."""
+    Over a process group every rank calls ``step`` with its own slot
+    (``slot_params``; ``optimizer`` over it) and the whole ``tokens``, and
+    gets the same loss.
+
+    The JAX package jits this step.  Where the devices the caller drives are
+    one CUDA device (every layout on one card, a 1-device mesh, a rank of a
+    process group on its card), the step is a
+    ``serving.graphs.GraphedTrainStep``: its first call with a batch shape
+    runs the eager step and captures it as a CUDA graph (over NCCL, with
+    the rank's collectives), which later calls replay; ``optimizer`` must
+    be built with ``capturable=True``, or this raises a ``ValueError``.  A
+    gloo group's collectives cannot be captured: the step then raises when
+    it would capture, and ``step.eager`` runs it.  On the CPU, and where
+    one process drives several CUDA devices (a graph a device: ROADMAP.md
+    queue 1 item 7), the step runs eagerly with ``optimizer`` as it is."""
     _mesh_devices(cfg, mesh)
-    mesh.require_single_controller("make_sharded_train_step")
-    device = capture_device(mesh.devices.flat)
-    if device is not None:
-        return GraphedTrainStep(lambda params, tokens: loss_fn(cfg, params, tokens, mesh=mesh),
-                                optimizer, device)
-
-    def step(params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-        return train_step(cfg, params, tokens, optimizer=optimizer, mesh=mesh)
-
-    return step
+    return graph_train_step(lambda params, tokens: loss_fn(cfg, params, tokens, mesh=mesh),
+                            optimizer, mesh, _sync(cfg, mesh))

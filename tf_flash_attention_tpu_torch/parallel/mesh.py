@@ -21,8 +21,11 @@ since ranks may share a card.  ``coords`` gives the caller's slot,
 ``axis`` the caller's view of an axis (its size, the caller's index and
 the ``torch.distributed`` subgroup of the caller's line, made once by
 ``make_mesh`` for every line of every axis) for ``collectives.py``;
-``shard`` returns the caller's block only, and ``unshard`` gathers.
-Training over processes is not ported: its factories refuse such a mesh.
+``shard`` returns the caller's block only, and ``unshard`` gathers; both
+are differentiable there too (the gradient of a block is gathered into the
+whole tensor's, and that of the gathered whole is the caller's block of
+it), so the training steps and the attention callables run unchanged in
+form with one block a process.
 ``maybe_init_distributed`` starts the process group where the environment
 configures one, as the JAX package's starts ``jax.distributed``.
 """
@@ -154,14 +157,6 @@ class Mesh:
         from .collectives import capture_refusal
         return capture_refusal([self.axis(a) for a in self.axis_names], self.device)
 
-    def require_single_controller(self, what: str) -> None:
-        """Raise for a process-group mesh: ``what`` runs in one process."""
-        if self.process_group:
-            raise NotImplementedError(
-                f"{what} over a process group: the port runs it single-controller (one "
-                f"process driving every device of the mesh); training over processes is "
-                f"queued in ROADMAP.md")
-
 
 def _world_size() -> Optional[int]:
     import torch.distributed as dist
@@ -251,7 +246,8 @@ def shard(x: torch.Tensor, mesh: Mesh, spec: Sequence[Optional[str]]):
     in spec order, each block on its device (index 0 of the axes the spec
     leaves out; an axis the mesh lacks counts as size 1).  Each split dim
     must divide by its axis size.  Over a process group: the caller's own
-    block, on its device."""
+    block, on its device, whose gradient is gathered into ``x``'s on every
+    rank (``x`` is the same on every rank, as JAX's global arrays)."""
     axes = _split_axes(spec)
     for axis, dim in axes:
         n = int(mesh.shape.get(axis, 1))
@@ -259,9 +255,9 @@ def shard(x: torch.Tensor, mesh: Mesh, spec: Sequence[Optional[str]]):
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide by the "
                              f"{axis!r} axis size {n}")
     if mesh.process_group:
-        at = mesh.coords()
+        from .collectives import piece
         for axis, dim in axes:
-            x = x.chunk(int(mesh.shape.get(axis, 1)), dim)[at.get(axis, 0)]
+            x = piece(x, mesh.axis(axis), dim)
         return x.to(mesh.device)
 
     def split(t, level, devs):
@@ -276,13 +272,14 @@ def unshard(blocks, spec: Sequence[Optional[str]], device, mesh: Optional[Mesh] 
             ) -> torch.Tensor:
     """The tensor whose ``shard`` under ``spec`` is ``blocks``, on ``device``.
     Over a process group (``mesh`` one), ``blocks`` is the caller's block
-    and every rank gathers the whole (not differentiable)."""
+    and every rank gathers the whole; the gradient of the block is the
+    caller's block of the whole's gradient (the same on every rank)."""
     axes = _split_axes(spec)
     if mesh is not None and mesh.process_group:
-        from .collectives import all_gather
+        from .collectives import all_gather_invariant
         x = blocks
         for axis, dim in reversed(axes):
-            x = torch.cat(all_gather([x], mesh.axis(axis)), dim=dim)
+            x = torch.cat(all_gather_invariant(x, mesh.axis(axis)), dim=dim)
         return x.to(device)
 
     def join(b, level):

@@ -17,15 +17,19 @@ a later one is skipped.  A local rule runs the banded shard schedule
 each shard pair masked at its global positions (``_offset_pack``).  2d
 sequences shard along dim 0 (row slabs of the row-major flattening).
 
-Single-controller, as the port's serving meshes (``parallel/mesh.py``):
-one process drives every shard, and JAX's ``ppermute`` is a rotation of a
-list of tensors, each moved to the device of its new slot.  The shards may
-share a device (``cuda:0`` four times).  The ring is one
-``torch.autograd.Function`` over all ``n`` shards, the counterpart of the
-JAX package's ``custom_vjp``: its forward saves each shard's ``(q, k, v,
-o)`` and the *global* ``(l, m)``; its backward runs its own ring, calling
-``flash_backward`` on each visited pair with those global stats, and the
-dK/dV partials rotate with their K/V shards until they are home.  The merge
+Either kind of mesh (``parallel/mesh.py``).  Single-controller, one
+process drives every shard, and JAX's ``ppermute`` is a rotation of a list
+of tensors, each moved to the device of its new slot; the shards may share
+a device (``cuda:0`` four times).  Over a process group each rank passes
+its own shard and the rotation is ``collectives.ppermute`` over the
+``context`` line; every rank takes every rotation of the static schedule
+(``_visits``), so the ranks' sends and receives pair up.  The ring is one
+``torch.autograd.Function`` over the shards a process holds, the
+counterpart of the JAX package's ``custom_vjp``: its forward saves each
+shard's ``(q, k, v, o)`` and the *global* ``(l, m)``; its backward runs its
+own ring, calling ``flash_backward`` on each visited pair with those global
+stats, and the dK/dV partials rotate with their K/V shards until they are
+home.  The merge
 and the float32 gradient sums are plain torch, as they are ``jnp`` outside
 any kernel in the JAX package.
 """
@@ -46,6 +50,7 @@ from ..ops.forward import flash_forward
 from ..serving.graphs import graph_callable
 from ..sync_modes import SeqDescriptor, SyncPack, make_sync_pack
 from ..utils.dtypes import MASK_VALUE_F32
+from .collectives import LOCAL, Axis, ppermute
 from .mesh import AXIS_CONTEXT, AXIS_DATA, AXIS_MODEL, Mesh, shard, unshard
 
 __all__ = ["ring_attention_local", "ring_flash_attention"]
@@ -63,11 +68,12 @@ class _RingParams:
     seq_shape: tuple = ()
 
 
-def _shift(xs: Sequence[torch.Tensor], delta: int = 1) -> List[torch.Tensor]:
-    """``ppermute`` by ``delta``: shard ``i``'s tensor moves to slot
-    ``(i + delta) % n``, on that slot's device."""
-    n = len(xs)
-    return [xs[(i - delta) % n].to(xs[i].device) for i in range(n)]
+def _shift(xs: Sequence[torch.Tensor], delta: int, axis: Axis, n: int) -> List[torch.Tensor]:
+    """``ppermute`` by ``delta`` around the ring of ``n``: shard ``i``'s
+    tensor moves to slot ``(i + delta) % n``, on that slot's device (the
+    caller's shards ``xs``: all of them in process, its own over a process
+    group)."""
+    return ppermute(xs, axis, [(i, (i + delta) % n) for i in range(n)])
 
 
 def _branch_index(src: int, my: int) -> int:
@@ -161,9 +167,14 @@ def _visits(p: _RingParams, n: int):
         yield step, [None if r is None else (pack, r) for r in picked]
 
 
-def _ring_forward(qs, ks, vs, p: _RingParams):
-    """Every shard's ``(o, l, m)``: ``o`` in q's dtype, the global stats in
-    float32."""
+def _mine(parts, axis: Axis, qs):
+    """The caller's pairs of a ``_visits`` step, one a shard it holds."""
+    return parts[axis.index:axis.index + len(qs)]
+
+
+def _ring_forward(qs, ks, vs, p: _RingParams, axis: Axis):
+    """The caller's shards' ``(o, l, m)``: ``o`` in q's dtype, the global
+    stats in float32."""
     n = p.axis_size
     state = [(torch.zeros((*q.shape[:2], v.shape[-1]), dtype=torch.float32, device=q.device),
               torch.zeros(q.shape[:2], dtype=torch.float32, device=q.device),
@@ -172,8 +183,9 @@ def _ring_forward(qs, ks, vs, p: _RingParams):
     k_cur, v_cur, rot = list(ks), list(vs), 0
     for t, parts in _visits(p, n):
         if t != rot:
-            k_cur, v_cur, rot = _shift(k_cur, t - rot), _shift(v_cur, t - rot), t
-        for my, part in enumerate(parts):
+            k_cur, v_cur = _shift(k_cur, t - rot, axis, n), _shift(v_cur, t - rot, axis, n)
+            rot = t
+        for my, part in enumerate(_mine(parts, axis, qs)):
             if part is not None:
                 o_s, l_s, m_s = flash_forward(qs[my], k_cur[my], v_cur[my], pack=part[0],
                                               rule=part[1], config=p.block_config, scale=p.scale)
@@ -182,9 +194,9 @@ def _ring_forward(qs, ks, vs, p: _RingParams):
     return [(o.to(q.dtype), l, m) for (o, l, m), q in zip(state, qs)]
 
 
-def _ring_backward(qs, ks, vs, os_, ls, ms, dos, p: _RingParams):
-    """Every shard's ``(dq, dk, dv)``: dK/dV partials ride with their K/V
-    shards and are rotated home after the last visit."""
+def _ring_backward(qs, ks, vs, os_, ls, ms, dos, p: _RingParams, axis: Axis):
+    """The caller's shards' ``(dq, dk, dv)``: dK/dV partials ride with their
+    K/V shards and are rotated home after the last visit."""
     n = p.axis_size
     dq = [torch.zeros(q.shape, dtype=torch.float32, device=q.device) for q in qs]
     dk_cur = [torch.zeros(k.shape, dtype=torch.float32, device=k.device) for k in ks]
@@ -192,9 +204,10 @@ def _ring_backward(qs, ks, vs, os_, ls, ms, dos, p: _RingParams):
     k_cur, v_cur, rot = list(ks), list(vs), 0
     for t, parts in _visits(p, n):
         if t != rot:
-            k_cur, v_cur = _shift(k_cur, t - rot), _shift(v_cur, t - rot)
-            dk_cur, dv_cur, rot = _shift(dk_cur, t - rot), _shift(dv_cur, t - rot), t
-        for my, part in enumerate(parts):
+            k_cur, v_cur = _shift(k_cur, t - rot, axis, n), _shift(v_cur, t - rot, axis, n)
+            dk_cur, dv_cur = _shift(dk_cur, t - rot, axis, n), _shift(dv_cur, t - rot, axis, n)
+            rot = t
+        for my, part in enumerate(_mine(parts, axis, qs)):
             if part is None:
                 continue   # a skipped pair's gradients are exact zeros
             dq_s, dk_s, dv_s = flash_backward(qs[my], k_cur[my], v_cur[my], os_[my], ls[my],
@@ -205,34 +218,34 @@ def _ring_backward(qs, ks, vs, os_, ls, ms, dos, p: _RingParams):
             dv_cur[my] = dv_cur[my] + dv_s.float()
     if rot % n:
         home = (n - rot) % n
-        dk_cur, dv_cur = _shift(dk_cur, home), _shift(dv_cur, home)
+        dk_cur, dv_cur = _shift(dk_cur, home, axis, n), _shift(dv_cur, home, axis, n)
     return ([x.to(q.dtype) for x, q in zip(dq, qs)], [x.to(k.dtype) for x, k in zip(dk_cur, ks)],
             [x.to(v.dtype) for x, v in zip(dv_cur, vs)])
 
 
 class _RingAttend(torch.autograd.Function):
-    """The ring over all ``n`` shards: inputs ``(params, *qs, *ks, *vs)``,
-    outputs the ``n`` output shards."""
+    """The ring over the caller's shards (all ``n`` in process, its own over
+    a process group): inputs ``(params, axis, *qs, *ks, *vs)``, outputs the
+    caller's output shards."""
 
     @staticmethod
-    def forward(ctx, params: _RingParams, *qkv):
-        n = params.axis_size
+    def forward(ctx, params: _RingParams, axis: Axis, *qkv):
+        n = len(qkv) // 3
         qs, ks, vs = qkv[:n], qkv[n:2 * n], qkv[2 * n:]
-        outs = _ring_forward(qs, ks, vs, params)
+        outs = _ring_forward(qs, ks, vs, params, axis)
         os_ = [o for o, _, _ in outs]
-        ctx.params = params
+        ctx.params, ctx.axis = params, axis
         ctx.save_for_backward(*qs, *ks, *vs, *os_, *(l for _, l, _ in outs),
                               *(m for _, _, m in outs))
         return tuple(os_)
 
     @staticmethod
     def backward(ctx, *dos):
-        p = ctx.params
-        n = p.axis_size
         saved = ctx.saved_tensors
+        n = len(saved) // 6
         qs, ks, vs, os_, ls, ms = (saved[i * n:(i + 1) * n] for i in range(6))
-        dq, dk, dv = _ring_backward(qs, ks, vs, os_, ls, ms, dos, p)
-        return (None, *dq, *dk, *dv)
+        dq, dk, dv = _ring_backward(qs, ks, vs, os_, ls, ms, dos, ctx.params, ctx.axis)
+        return (None, None, *dq, *dk, *dv)
 
 
 def ring_attention_local(
@@ -245,6 +258,7 @@ def ring_attention_local(
     seq_shape=None,
     scale: Optional[float] = None,
     block_config: Optional[BlockConfig] = None,
+    axis: Axis = LOCAL,
 ) -> List[torch.Tensor]:
     """Ring attention over the shards of one context axis; differentiable.
 
@@ -252,15 +266,19 @@ def ring_attention_local(
     ``B / g`` rows: grouped-query attention), shard ``i`` holding sequence
     positions ``[i·s, (i+1)·s)``, each on its device (the JAX function's
     ``shard_map`` body over an axis of ``n``, seen from all devices at
-    once).  ``rule`` may be Full/Causal (overrides ``causal``) or a
+    once).  Over a process group (``axis`` a process-group mesh's
+    ``context`` axis, ``Mesh.axis``) each list holds the caller's own shard
+    and the ring spans the axis's ranks.  ``rule`` may be Full/Causal (overrides ``causal``) or a
     :class:`LocalRule`, which runs the banded shard schedule.
     ``seq_shape`` is the *local* (per-shard) sequence shape for 2d
     sequences sharded along dim 0 (``s`` must equal its product); omit for
-    1d.  Returns the ``n`` local output shards ``(B, s, v_d)``.
+    1d.  Returns the caller's output shards ``(B, s, v_d)``.
     """
-    n = len(q)
-    if not n or len(k) != n or len(v) != n:
+    if not q or len(k) != len(q) or len(v) != len(q):
         raise ValueError(f"{len(q)} q, {len(k)} k and {len(v)} v shards")
+    n = axis.size if axis.group is not None else len(q)
+    if axis.group is not None and len(q) != 1:
+        raise ValueError(f"{len(q)} shards on a process-group axis: a rank passes its own")
     B, s, d = q[0].shape
     seq_shape = tuple(int(x) for x in (seq_shape or (s,)))
     if int(np.prod(seq_shape)) != s:
@@ -281,7 +299,7 @@ def ring_attention_local(
                          scale=1.0 / math.sqrt(d) if scale is None else float(scale),
                          block_config=block_config, local_rule=local_rule,
                          seq_shape=seq_shape)
-    return list(_RingAttend.apply(params, *q, *k, *v))
+    return list(_RingAttend.apply(params, axis, *q, *k, *v))
 
 
 def ring_flash_attention(
@@ -304,7 +322,10 @@ def ring_flash_attention(
     carries the row-major flattening and is sharded along sequence dim 0
     (dim 0 must divide by the context axis size).  The callable takes and
     returns whole tensors (the output on q's device) and is differentiable
-    end to end.  On a mesh of one CUDA device it is a
+    end to end; over a process group every rank passes the whole inputs
+    (JAX's global arrays), runs the ring on its own block with its
+    ``context`` line, and gets the whole output and the whole input
+    gradients.  Where the caller drives one CUDA device it is a
     ``serving.graphs.GraphedFunction`` (JAX's ``jit``): a forward and a
     backward CUDA graph per input signature, the first call eager.
     """
@@ -319,18 +340,21 @@ def ring_flash_attention(
         local_seq_shape = (seq_shape[0] // axis_size,) + seq_shape[1:]
     spec = (data_axis, model_axis, context_axis, None)
 
+    ax = mesh.axis(context_axis)
+
     def local_fn(qs, ks, vs):
         b, h, s, d = qs[0].shape
         os_ = ring_attention_local(
             [x.reshape(b * h, s, d) for x in qs], [x.reshape(b * h, s, d) for x in ks],
             [x.reshape(b * h, s, x.shape[-1]) for x in vs], causal=causal, rule=rule,
-            seq_shape=local_seq_shape, scale=scale, block_config=block_config)
+            seq_shape=local_seq_shape, scale=scale, block_config=block_config, axis=ax)
         return [o.reshape(b, h, s, -1) for o in os_]
 
     def fn(q, k, v):
         qb, kb, vb = (shard(x, mesh, spec) for x in (q, k, v))
+        if mesh.process_group:
+            return unshard(local_fn([qb], [kb], [vb])[0], spec, q.device, mesh)
         out = [[local_fn(*blocks) for blocks in zip(*rows)] for rows in zip(qb, kb, vb)]
         return unshard(out, spec, q.device)
 
-    mesh.require_single_controller("ring_flash_attention")
-    return graph_callable(fn, mesh.devices.flat)
+    return graph_callable(fn, mesh)

@@ -4,8 +4,10 @@
 on one device.  ``sharded_flash_attention`` runs it over a ``(data,
 model)`` mesh: batch sharded on ``data``, heads on ``model``, each block's
 ``mha`` on its device, with no communication inside attention.  GQA keeps
-each KV head with its query-head group.  Single-controller, as
-``parallel/mesh.py`` says: one process drives every block.
+each KV head with its query-head group.  Either kind of mesh
+(``parallel/mesh.py``): single-controller, one process drives every block;
+over a process group, each rank its own block, the whole gathered at the
+edges.
 """
 
 from __future__ import annotations
@@ -65,18 +67,21 @@ def sharded_flash_attention(mesh: Mesh, rule: MaskRule, *, sync_mode: str = "non
     ``data_axis``, heads over ``model_axis``; sequence and head_dim
     replicated.  Each block runs ``mha`` on its device.  The callable takes
     and returns whole tensors (the output on q's device) and is
-    differentiable.  On a mesh of one CUDA device it is a
-    ``serving.graphs.GraphedFunction`` (JAX's ``jit``): a forward and a
-    backward CUDA graph per input signature, the first call eager.
+    differentiable; over a process group every rank passes the whole inputs
+    (JAX's global arrays), runs its own block and gets the whole output and
+    the whole input gradients.  Where the caller drives one CUDA device it
+    is a ``serving.graphs.GraphedFunction`` (JAX's ``jit``): a forward and
+    a backward CUDA graph per input signature, the first call eager.
     """
     spec = (data_axis, model_axis, None, None)
+    attend = lambda qb, kb, vb: mha(qb, kb, vb, rule=rule, sync_mode=sync_mode, scale=scale,
+                                    block_config=block_config)
 
     def fn(q, k, v):
         blocks = [shard(x, mesh, spec) for x in (q, k, v)]
-        out = [[mha(qb, kb, vb, rule=rule, sync_mode=sync_mode, scale=scale,
-                    block_config=block_config) for qb, kb, vb in zip(*rows)]
-               for rows in zip(*blocks)]
+        if mesh.process_group:
+            return unshard(attend(*blocks), spec, q.device, mesh)
+        out = [[attend(*b) for b in zip(*rows)] for rows in zip(*blocks)]
         return unshard(out, spec, q.device)
 
-    mesh.require_single_controller("sharded_flash_attention")
-    return graph_callable(fn, mesh.devices.flat)
+    return graph_callable(fn, mesh)

@@ -14,9 +14,11 @@ and a second all-to-all turns the output back to sequence shards:
 Every mask rule and sync mode works unchanged, since each device sees the
 whole sequence; the context axis is bounded by the head counts.
 
-Single-controller, as the ring: the all-to-all is a split of every shard's
-heads and a concatenation of the pieces, in mesh-axis order, on the
-receiving device.  Both are differentiable, and the local attention is the
+Either kind of mesh, as the ring: the all-to-all is ``collectives.py``'s,
+in process a split of every shard's heads and a concatenation of the
+pieces, in mesh-axis order, on the receiving device, over a process group
+an ``all_to_all`` over the ``context`` line whose backward is the inverse
+one.  Both are differentiable, and the local attention is the
 ``autograd.Function`` of ``ops/attend.py``, so gradients need no backward
 of this module's own.
 """
@@ -34,18 +36,10 @@ from ..mask_rules import MaskRule
 from ..ops.attend import AttendParams, attend
 from ..serving.graphs import graph_callable
 from ..sync_modes import make_sync_pack
+from .collectives import LOCAL, Axis, all_to_all
 from .mesh import AXIS_CONTEXT, AXIS_DATA, AXIS_MODEL, Mesh, shard, unshard
 
 __all__ = ["ulysses_attention_local", "ulysses_flash_attention"]
-
-
-def _all_to_all(xs: Sequence[torch.Tensor], split_axis: int, concat_axis: int):
-    """JAX's tiled ``all_to_all``: shard ``j`` receives piece ``j`` (along
-    ``split_axis``) of every shard, concatenated in shard order along
-    ``concat_axis``, on its own device."""
-    pieces = [x.chunk(len(xs), split_axis) for x in xs]
-    return [torch.cat([p[j].to(dst.device) for p in pieces], concat_axis)
-            for j, dst in enumerate(xs)]
 
 
 def ulysses_attention_local(
@@ -59,17 +53,19 @@ def ulysses_attention_local(
     k_seq_shape=None,
     scale: Optional[float] = None,
     block_config: Optional[BlockConfig] = None,
+    axis: Axis = LOCAL,
 ) -> List[torch.Tensor]:
     """Ulysses over the shards of one context axis; differentiable.
 
     ``q``: the ``cp`` shards ``(b, Hq, sq_local, d)``; ``k``/``v``: ``(b,
     Hkv, skv_local, *)``, each on its device, shard ``i`` holding the
     ``i``-th slice of the sequence (row slabs of dim 0 for 2d sequences,
-    whose *global* shapes are ``q_seq_shape``/``k_seq_shape``).  Both head
-    counts must divide by ``cp``.  Returns the ``cp`` local output shards
-    ``(b, Hq, sq_local, v_d)``.
+    whose *global* shapes are ``q_seq_shape``/``k_seq_shape``).  Over a
+    process group (``axis`` a process-group mesh's ``context`` axis) each
+    list holds the caller's own shard.  Both head counts must divide by
+    ``cp``.  Returns the caller's output shards ``(b, Hq, sq_local, v_d)``.
     """
-    cp = len(q)
+    cp = axis.size if axis.group is not None else len(q)
     b, hq, sq_loc, d = q[0].shape
     _, hkv, skv_loc, _ = k[0].shape
     if hq % cp or hkv % cp:
@@ -91,7 +87,7 @@ def ulysses_attention_local(
     if cp > 1:
         # heads -> sequence: split the head axis over the shards, gather the
         # full sequence in shard order (= global sequence order)
-        q, k, v = (_all_to_all(x, 1, 2) for x in (q, k, v))
+        q, k, v = (all_to_all(x, axis, 1, 2) for x in (q, k, v))
     hq_loc, hkv_loc = hq // cp, hkv // cp
     if block_config is None:
         block_config = choose_block_config(d, v[0].shape[-1])
@@ -105,7 +101,7 @@ def ulysses_attention_local(
          for qi, ki, vi in zip(q, k, v)]
     if cp > 1:
         # sequence -> heads, back to the caller's layout
-        o = _all_to_all(o, 2, 1)
+        o = all_to_all(o, axis, 2, 1)
     return o
 
 
@@ -130,19 +126,26 @@ def ulysses_flash_attention(
     *global* shapes are ``q_seq_shape``/``k_seq_shape``).  The local head
     count (after any ``model`` sharding) must divide by the context axis
     size.  The callable takes and returns whole tensors (the output on q's
-    device) and is differentiable end to end.  On a mesh of one CUDA device
-    it is a ``serving.graphs.GraphedFunction`` (JAX's ``jit``): a forward
-    and a backward CUDA graph per input signature, the first call eager.
+    device) and is differentiable end to end; over a process group every
+    rank passes the whole inputs (JAX's global arrays), runs its own block
+    with its ``context`` line, and gets the whole output and the whole input
+    gradients.  Where the caller drives one CUDA device it is a
+    ``serving.graphs.GraphedFunction`` (JAX's ``jit``): a forward and a
+    backward CUDA graph per input signature, the first call eager.
     """
     spec = (data_axis, model_axis, context_axis, None)
+    ax = mesh.axis(context_axis)
+
+    def local_fn(qs, ks, vs):
+        return ulysses_attention_local(qs, ks, vs, rule=rule, sync_mode=sync_mode,
+                                       q_seq_shape=q_seq_shape, k_seq_shape=k_seq_shape,
+                                       scale=scale, block_config=block_config, axis=ax)
 
     def fn(q, k, v):
         blocks = [shard(x, mesh, spec) for x in (q, k, v)]
-        out = [[ulysses_attention_local(
-                    qs, ks, vs, rule=rule, sync_mode=sync_mode, q_seq_shape=q_seq_shape,
-                    k_seq_shape=k_seq_shape, scale=scale, block_config=block_config)
-                for qs, ks, vs in zip(*rows)] for rows in zip(*blocks)]
+        if mesh.process_group:
+            return unshard(local_fn(*([b] for b in blocks))[0], spec, q.device, mesh)
+        out = [[local_fn(*b) for b in zip(*rows)] for rows in zip(*blocks)]
         return unshard(out, spec, q.device)
 
-    mesh.require_single_controller("ulysses_flash_attention")
-    return graph_callable(fn, mesh.devices.flat)
+    return graph_callable(fn, mesh)

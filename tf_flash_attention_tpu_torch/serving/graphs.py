@@ -43,9 +43,9 @@ A capture that fails raises; nothing falls back to the eager function.
 Graphs are made only where every device a process drives is one CUDA
 device (``capture_device``): a single-controller layout on one card, or
 one rank of a process-group mesh on its card, whose NCCL collectives the
-graph captures (a gloo group's cannot be: ``GraphedStep`` and
-``GraphedCall`` then raise when a capture is attempted, never running
-eagerly in its place); on the CPU, and where one process drives several
+graph captures (a gloo group's cannot be: every wrapper then raises when
+a capture is attempted, never running eagerly in its place, and the caller
+runs its ``eager`` form); on the CPU, and where one process drives several
 CUDA devices, the factories return the eager function.
 
 Counts: the kernel wrappers count a captured kernel once in
@@ -71,6 +71,7 @@ from .. import native
 
 __all__ = ["Graph", "GraphedStep", "GraphedTrainStep", "GraphedFunction", "GraphedCall",
            "graph_nodes", "capture_device", "check_capturable", "graph_callable",
+           "graph_train_step", "train_once",
            "graph_cache_call", "cache_key"]
 
 # CUgraphNodeType (cuda.h): a kernel, a memory copy, a memory set
@@ -259,11 +260,16 @@ class GraphedTrainStep:
     captured buffer, replays the graph and returns a fresh copy of the 0-d
     loss.  The optimizer must be capturable (``check_capturable``, here),
     and its hyper-parameters are captured as they are: a learning rate
-    changed later needs a tensor ``lr``."""
+    changed later needs a tensor ``lr``.  ``sync(params)``, where given,
+    runs between ``backward()`` and the optimizer's step (a process-group
+    step's gradient sums, captured with the rest on NCCL); ``refuse``,
+    where set, is why no graph can be captured (``capture_refusal``): a
+    call that would capture raises it, and ``eager`` runs the step."""
 
-    def __init__(self, loss_fn: Callable, optimizer: torch.optim.Optimizer, device):
+    def __init__(self, loss_fn: Callable, optimizer: torch.optim.Optimizer, device,
+                 sync: Optional[Callable] = None, refuse: Optional[str] = None):
         check_capturable(optimizer)
-        self.loss_fn, self.optimizer = loss_fn, optimizer
+        self.loss_fn, self.optimizer, self.sync, self.refuse = loss_fn, optimizer, sync, refuse
         self.stream = torch.cuda.Stream(device)
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: Dict[tuple, Graph] = {}
@@ -271,11 +277,7 @@ class GraphedTrainStep:
     def eager(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """One optimizer step run eagerly; returns the loss (before the
         step)."""
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn(params, tokens)
-        loss.backward()
-        self.optimizer.step()
-        return loss.detach()
+        return train_once(self.loss_fn, self.optimizer, params, tokens, self.sync)
 
     def _parameters(self):
         return [p for group in self.optimizer.param_groups for p in group["params"]]
@@ -292,6 +294,8 @@ class GraphedTrainStep:
         return g.outputs[0].clone()
 
     def _capture(self, key, params, tokens):
+        if self.refuse:
+            raise RuntimeError(self.refuse)
         loss = self.eager(params, tokens)
         eager_grads = [p.grad for p in self._parameters()]
         static = tokens.detach().clone()
@@ -300,10 +304,8 @@ class GraphedTrainStep:
         self.stream.wait_stream(cur)
 
         def step():
-            out = self.loss_fn(params, static)
-            out.backward()
-            self.optimizer.step()
-            return (out.detach(),)
+            return (train_once(self.loss_fn, self.optimizer, params, static, self.sync,
+                               zero=False),)
 
         g = _capture(step, self.stream, self.pool, inputs=(static,))
         cur.wait_stream(self.stream)
@@ -369,10 +371,11 @@ class GraphedFunction:
     replays the backward graph into fresh gradients.  A signature's graphs
     hold one call's saved activations: the backward of a call must run
     before the next call of its signature, or it raises.  ``eager`` is
-    ``fn``."""
+    ``fn``; ``refuse``, where set, is why no graph can be captured: a call
+    that would capture raises it."""
 
-    def __init__(self, fn: Callable, device):
-        self.eager = fn
+    def __init__(self, fn: Callable, device, refuse: Optional[str] = None):
+        self.eager, self.refuse = fn, refuse
         self.stream = torch.cuda.Stream(device)
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: Dict[tuple, _Signature] = {}
@@ -382,6 +385,8 @@ class GraphedFunction:
         key = (tuple((tuple(x.shape), x.dtype, x.device, x.requires_grad) for x in inputs), grad)
         sig = self.graphs.get(key)
         if sig is None:
+            if self.refuse:
+                raise RuntimeError(self.refuse)
             out = self.eager(*inputs)
             self.graphs[key] = self._capture(inputs, grad)
             return out
@@ -410,11 +415,40 @@ class GraphedFunction:
         return _Signature(fwd, bwd, tuple(x.requires_grad for x in static))
 
 
-def graph_callable(fn: Callable, devices: Iterable) -> Callable:
-    """``fn`` as a ``GraphedFunction`` where ``devices`` are one CUDA
-    device (``capture_device``), else ``fn`` itself."""
-    device = capture_device(devices)
-    return fn if device is None else GraphedFunction(fn, device)
+def train_once(loss_fn: Callable, optimizer: torch.optim.Optimizer, params,
+               tokens: torch.Tensor, sync: Optional[Callable] = None,
+               zero: bool = True) -> torch.Tensor:
+    """One optimizer step on ``params`` in place: the loss, ``backward()``,
+    ``sync(params)`` where given, the optimizer's step; returns the loss
+    (before the step).  ``zero`` first sets the gradients to None."""
+    if zero:
+        optimizer.zero_grad(set_to_none=True)
+    loss = loss_fn(params, tokens)
+    loss.backward()
+    if sync is not None:
+        sync(params)
+    optimizer.step()
+    return loss.detach()
+
+
+def graph_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer, mesh,
+                     sync: Optional[Callable] = None) -> Callable:
+    """A train step ``step(params, tokens) -> loss`` on ``mesh``
+    (``train_once``): a ``GraphedTrainStep`` where the devices the caller
+    drives are one CUDA device (a single-controller layout on one card, or a
+    process-group rank on its card), else the eager step."""
+    device = capture_device(mesh.local_devices())
+    if device is not None:
+        return GraphedTrainStep(loss_fn, optimizer, device, sync, mesh.capture_refusal())
+    return lambda params, tokens: train_once(loss_fn, optimizer, params, tokens, sync)
+
+
+def graph_callable(fn: Callable, mesh) -> Callable:
+    """``fn`` as a ``GraphedFunction`` where the devices the caller drives
+    on ``mesh`` are one CUDA device (``capture_device``), else ``fn``
+    itself."""
+    device = capture_device(mesh.local_devices())
+    return fn if device is None else GraphedFunction(fn, device, mesh.capture_refusal())
 
 
 def cache_key(caches) -> tuple:

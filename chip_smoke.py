@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (and on four, phase 15).
 
     python3 chip_smoke.py [--seed N]
 
@@ -388,6 +388,19 @@ Phases (any failure exits non-zero before the final line):
      calls and banded launches; (b) a world-size-1 NCCL group: the graphed
      step on its one-slot mesh against phase 12(a)'s 1-device graph, its
      collectives captured, and a graphed ring on it.
+  15. the four cards of one host, only where four cards are (on one card
+     a line saying that it needs a host of four cards): (a) one process
+     drives cuda:0..3: the tp = 4, cp = 4 and model 2 x seq 2 engines of
+     phase 13 on phase 3's requests, graphed (one graph a step across the
+     cards) and eager, tokens and logits bit-equal to the same layout on
+     cuda:0 four times, a quarter of a profiled replay's decode and append
+     kernels on each card, the four serving callables bit-equal too; (b)
+     dryrun_multichip(4) on the four cards; (c) four NCCL ranks, rank k on
+     cuda:k, started by maybe_init_distributed() under torchrun's
+     variables: the engines and callables graphed, bit-equal to (a)'s, and
+     phase 14(a)'s layouts and callables graphed within its gates against
+     the single process on cuda:0; prints walls, busy shares, graph nodes
+     and collective calls beside (a)'s.
 
 The kernels' JSON line gives each kernel's launches from the run of the
 path that takes it by default ("path": the engine, the speculative engine,
@@ -1222,6 +1235,16 @@ def main():
     train_pg_launches = train_pg_phase(mcfg, args.seed, dev)
     train_nccl_phase(mcfg, cpu_model, graphed_12a, args.seed, dev)
     print(f"phase 14: {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # ---- 15: the port across the four cards of one host: (a) one process
+    # driving cuda:0..3, its engines graphed across them, (b)
+    # dryrun_multichip(4), (c) four NCCL ranks, a card each, graphed ----
+    if torch.cuda.device_count() >= CARDS:
+        multicard_phases(mcfg, ecfg, prompts, n_new, args.seed, dev, compiled_11)
+    else:
+        print(f"phase 15: not run here: it needs {CARDS} cards of one host and this one has "
+              f"{torch.cuda.device_count()}; run `python3 chip_smoke.py` on a host with {CARDS} "
+              f"cards", flush=True)
 
     csrc = "tf_flash_attention_tpu_torch/csrc/"
     replaces = {
@@ -4722,7 +4745,7 @@ def meta_replay_case(dev, gen):
             q, cache, cfg, prefill.prefill_meta(cfg, slot, start, true_len, rule, 1, dev)[0],
             rule=rule),)
 
-    step = GraphedStep(chunk_step, 1, torch.cuda.Stream(dev), torch.cuda.graph_pool_handle())
+    step = GraphedStep(chunk_step, 1, (torch.cuda.Stream(dev),), torch.cuda.graph_pool_handle())
     errs = []
     for slot, start, true_len in ((0, 1100, 451), (5, 512, 512), (9, 256, 77)):
         meta.copy_(torch.tensor([slot, start, true_len], dtype=torch.int32))
@@ -4763,7 +4786,7 @@ def set_eager(eng):
     return eng
 
 
-def compiled_run(label, make, reqs, n_new, vocab, graphed):
+def compiled_run(label, make, reqs, n_new, vocab, graphed, inspect=None):
     """One run of phase 11: a fresh engine from ``make()``, eager or
     graphed, first serving one warm-up request (``reqs[0]``'s first 600
     tokens, 4 new: it captures a graphed engine's graphs, and its figures
@@ -4776,7 +4799,8 @@ def compiled_run(label, make, reqs, n_new, vocab, graphed):
     and a chunk call (medians: the enqueue, no sync), the calls'
     CUDA-event spans (medians: a graph's replay, its kernels back to back),
     and for a graphed engine its graphs (nodes, wrapper launches, pool
-    bytes, replays)."""
+    bytes, replays); ``inspect(eng)``, where given, runs after the requests
+    and its result is the figures' ``inspect``."""
     eng = make()
     if not graphed:
         set_eager(eng)
@@ -4810,6 +4834,8 @@ def compiled_run(label, make, reqs, n_new, vocab, graphed):
                chunk_ms=prefill_s / (eng.stats["prefill_chunks"] - stats0["prefill_chunks"]) * 1e3,
                chunk_host_ms=statistics.median(chunk_host) * 1e3, chunk_span_ms=span(chunk_events),
                graphs=graphs)
+    if inspect is not None:
+        fig["inspect"] = inspect(eng)
     tokens = [results[r] for r in sorted(results)]
     del eng, report_of, inner_step
     gc.collect()             # the wrappers above hold the engine in cycles
@@ -5271,38 +5297,55 @@ def pg_seq_caches(inputs, mesh):
     return cfg, caches
 
 
-def pg_callables(dev, seed):
-    """The four callables run eagerly (``.eager``) on meshes of cuda:0 four
-    times: single-controller where no process group is up, one shard a
+def pg_callables(dev, seed, devices=None, graphed=False):
+    """The four callables on meshes of ``devices`` (cuda:0 four times by
+    default): single-controller where no process group is up, one shard a
     rank where one is.  ``sharded_paged_decode`` at tp 4 on ``pg_caches``'
     full cache; on a seq axis of 4: a decode, one append a slot, a decode
-    and a prefill chunk over slot 0's last 512 tokens.  Returns the outputs
-    on the CPU (whole on every process) and each launch count."""
+    and a prefill chunk over slot 0's last 512 tokens.  Eagerly
+    (``.eager``), or ``graphed``: each decode and the prefill called twice,
+    the second call's output kept (a replay; the decode after the append
+    replays the first decode's graph on the appended caches), the append
+    once (its first call runs it, then captures it).  Returns the outputs
+    on the CPU (whole on every process), each launch count and the
+    callables' graphs (``graph_report``; none eagerly)."""
     from tf_flash_attention_tpu_torch import native
     from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
     from tf_flash_attention_tpu_torch.serving import seq_sharded_decode as tsd
     from tf_flash_attention_tpu_torch.serving.sharded_decode import (shard_cache_heads,
                                                                      sharded_paged_decode)
 
-    eager = lambda fn: getattr(fn, "eager", fn)
+    devices = devices or [dev] * PG_WORLD
+    fns = []
+
+    def take(fn):
+        fns.append(fn)
+        return fn if graphed else getattr(fn, "eager", fn)
+
+    def call(fn, *args):
+        out = fn(*args)
+        return fn(*args) if graphed else out
+
     inputs = pg_caches(dev, torch.Generator(device=dev).manual_seed(seed + 53))
     native.reset_launch_counts()
-    heads = make_mesh((PG_WORLD,), ("model",), [dev] * PG_WORLD)
-    out = {"sharded_decode": eager(sharded_paged_decode(heads, inputs["cfg"]))(
-        inputs["tp_q"], shard_cache_heads(inputs["full"], inputs["cfg"], heads))}
-    seq = make_mesh((PG_WORLD,), ("seq",), [dev] * PG_WORLD)
+    heads = make_mesh((PG_WORLD,), ("model",), devices)
+    out = {"sharded_decode": call(take(sharded_paged_decode(heads, inputs["cfg"])),
+                                  inputs["tp_q"],
+                                  shard_cache_heads(inputs["full"], inputs["cfg"], heads))}
+    seq = make_mesh((PG_WORLD,), ("seq",), devices)
     cfg, caches = pg_seq_caches(inputs, seq)
-    decode = eager(tsd.seq_sharded_paged_decode(seq, cfg, "seq"))
-    out["decode"] = decode(inputs["q"], caches)
-    eager(tsd.seq_sharded_append(seq, cfg, "seq", trash_page=cfg.n_pages - 1))(
+    decode = take(tsd.seq_sharded_paged_decode(seq, cfg, "seq"))
+    out["decode"] = call(decode, inputs["q"], caches)
+    take(tsd.seq_sharded_append(seq, cfg, "seq", trash_page=cfg.n_pages - 1))(
         caches, inputs["k_new"], -inputs["k_new"], torch.ones(4, dtype=torch.bool, device=dev))
     out["decode_after"] = decode(inputs["q"], caches)
     total = inputs["totals"][0] + 1
-    out["prefill"] = eager(tsd.seq_sharded_paged_prefill(seq, cfg, "seq"))(
-        inputs["qp"], caches, 0, total - 512, 512)
+    out["prefill"] = call(take(tsd.seq_sharded_paged_prefill(seq, cfg, "seq")),
+                          inputs["qp"], caches, 0, total - 512, 512)
     torch.cuda.synchronize()
     return ({k: v.float().cpu() for k, v in out.items()},
-            {k: n for k, n in native.LAUNCHES.items() if n})
+            {k: n for k, n in native.LAUNCHES.items() if n},
+            [graph_report(g) for fn in fns for g in getattr(fn, "graphs", {}).values()])
 
 
 def pg_rank(rank, port, dev, mcfg, ecfg, prompts, n_new, seed, out):
@@ -5344,7 +5387,7 @@ def pg_rank(rank, port, dev, mcfg, ecfg, prompts, n_new, seed, out):
             del eng
             gc.collect()
             torch.cuda.empty_cache()
-        outs, launches = pg_callables(dev, seed)
+        outs, launches, _ = pg_callables(dev, seed)
         out.put((rank, None, dict(engines=engines,
                                   callables={k: v.numpy() for k, v in outs.items()},
                                   callable_launches=launches)))
@@ -5398,7 +5441,7 @@ def process_group_phase(mcfg, ecfg, prompts, n_new, seed, dev):
         torch.cuda.empty_cache()
     gaps = {label: top2_gaps(mcfg, model, prompts, w["tokens"], dev)[0]
             for label, w in want.items()}
-    want_calls, _ = pg_callables(dev, seed)
+    want_calls, _, _ = pg_callables(dev, seed)
     del model
     torch.cuda.empty_cache()
     ranks, errors = {}, []
@@ -5687,9 +5730,12 @@ def pg_callable_inputs(dev, seed):
             for _ in range(4)]
 
 
-def pg_callables_run(mesh_of, dev, seed):
+def pg_callables_run(mesh_of, dev, seed, graphed=False):
     """TRAIN_PG_CALLABLES (causal) eagerly on ``mesh_of(shape)``: {label:
-    [o, dq, dk, dv]} (whole), and their launches."""
+    [o, dq, dk, dv]} (whole), their launches and their graphs
+    (``graph_report``; none eagerly); ``graphed``: each called twice,
+    forward and backward (its eager first call and captures, then a replay
+    of each graph), the replay's kept."""
     from tf_flash_attention_tpu_torch import native
     from tf_flash_attention_tpu_torch.mask_rules import CausalRule
     from tf_flash_attention_tpu_torch.parallel import (ring_flash_attention,
@@ -5697,18 +5743,22 @@ def pg_callables_run(mesh_of, dev, seed):
                                                        ulysses_flash_attention)
 
     *qkv, do = pg_callable_inputs(dev, seed)
-    out = {}
+    out, graphs = {}, {}
     native.reset_launch_counts()
     for label, shape, kind in TRAIN_PG_CALLABLES:
         mesh = mesh_of(shape)
         fn = {"ring": lambda: ring_flash_attention(mesh, rule=CausalRule()),
               "ulysses": lambda: ulysses_flash_attention(mesh, CausalRule()),
               "sharded": lambda: sharded_flash_attention(mesh, CausalRule())}[kind]()
-        xs = [x.detach().requires_grad_(True) for x in qkv]
-        o = getattr(fn, "eager", fn)(*xs)
-        out[label] = [o.detach(), *torch.autograd.grad(o, xs, do)]
+        for _ in range(2 if graphed else 1):
+            xs = [x.detach().requires_grad_(True) for x in qkv]
+            o = (fn if graphed else getattr(fn, "eager", fn))(*xs)
+            out[label] = [o.detach(), *torch.autograd.grad(o, xs, do)]
+        if graphed:
+            sig = next(iter(fn.graphs.values()))
+            graphs[label] = {"forward": graph_report(sig.fwd), "backward": graph_report(sig.bwd)}
     torch.cuda.synchronize()
-    return out, {k: n for k, n in native.LAUNCHES.items() if n}
+    return out, {k: n for k, n in native.LAUNCHES.items() if n}, graphs
 
 
 def pg_train_rank(rank, port, dev, mcfg, seed, refdir, ready, out):
@@ -5783,8 +5833,8 @@ def pg_train_rank(rank, port, dev, mcfg, seed, refdir, ready, out):
             gc.collect()
             torch.cuda.empty_cache()
         collectives.CALLS.clear()
-        outs, launches = pg_callables_run(lambda shape: make_mesh(shape, RING_AXES,
-                                                                  [dev] * PG_WORLD), dev, seed)
+        outs, launches, _ = pg_callables_run(
+            lambda shape: make_mesh(shape, RING_AXES, [dev] * PG_WORLD), dev, seed)
         calls = dict(collectives.CALLS)
         ref = torch.load(os.path.join(refdir, "callables.pt"), mmap=True)
         errs = {}
@@ -5805,6 +5855,38 @@ def pg_train_rank(rank, port, dev, mcfg, seed, refdir, ready, out):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def train_pg_references(mcfg, seed, dev, refdir, n_steps):
+    """The single-process references of TRAIN_PG_LAYOUTS and
+    TRAIN_PG_CALLABLES on single-controller meshes of ``dev`` four times,
+    eager: each layout's ``n_steps`` steps (losses, walls, the first step's
+    gradient norm) and its final parameters (saved in ``refdir`` as
+    ``<label>.pt``), the callables' outputs (``callables.pt``).  Returns
+    ({label: figures}, the callables' launches)."""
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+
+    want = {}
+    for label, shape, axes, extra in TRAIN_PG_LAYOUTS:
+        cfg = dataclasses.replace(mcfg, **extra)
+        mesh = make_mesh(shape, axes, [dev] * PG_WORLD)
+        tokens = pg_train_tokens(cfg, dev, seed)
+        init = pg_train_model(cfg, dev, seed, shape[1] if label == "gpipe" else None)
+        step, params = pg_train_step(label, cfg, init, mesh)
+        losses, walls, _, _, gnorm = timed_train_calls(step.eager, params, tokens, n=n_steps)
+        want[label] = dict(losses=losses, walls=walls, gnorm=gnorm)
+        torch.save({n: p.detach().cpu() for n, p in params.named_parameters()},
+                   os.path.join(refdir, f"{label}.pt"))
+        del step, params, init
+        gc.collect()
+        torch.cuda.empty_cache()
+    outs, launches, _ = pg_callables_run(
+        lambda shape: make_mesh(shape, RING_AXES, [dev] * PG_WORLD), dev, seed)
+    torch.save({k: [x.cpu() for x in v] for k, v in outs.items()},
+               os.path.join(refdir, "callables.pt"))
+    del outs
+    torch.cuda.empty_cache()
+    return want, launches
 
 
 def train_pg_phase(mcfg, seed, dev):
@@ -5829,7 +5911,6 @@ def train_pg_phase(mcfg, seed, dev):
     import tempfile
 
     import torch.multiprocessing as mp
-    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
 
     t0 = time.perf_counter()
     ctx = mp.get_context("spawn")
@@ -5842,27 +5923,7 @@ def train_pg_phase(mcfg, seed, dev):
         for p in procs:
             p.start()
         # the single-process references meanwhile (the ranks wait for them)
-        want = {}
-        for label, shape, axes, extra in TRAIN_PG_LAYOUTS:
-            cfg = dataclasses.replace(mcfg, **extra)
-            mesh = make_mesh(shape, axes, [dev] * PG_WORLD)
-            tokens = pg_train_tokens(cfg, dev, seed)
-            init = pg_train_model(cfg, dev, seed, shape[1] if label == "gpipe" else None)
-            step, params = pg_train_step(label, cfg, init, mesh)
-            losses, walls, _, _, gnorm = timed_train_calls(step.eager, params, tokens,
-                                                           n=TRAIN_PG_STEPS)
-            want[label] = dict(losses=losses, walls=walls, gnorm=gnorm)
-            torch.save({n: p.detach().cpu() for n, p in params.named_parameters()},
-                       os.path.join(refdir, f"{label}.pt"))
-            del step, params, init
-            gc.collect()
-            torch.cuda.empty_cache()
-        outs, single_launches = pg_callables_run(
-            lambda shape: make_mesh(shape, RING_AXES, [dev] * PG_WORLD), dev, seed)
-        torch.save({k: [x.cpu() for x in v] for k, v in outs.items()},
-                   os.path.join(refdir, "callables.pt"))
-        del outs
-        torch.cuda.empty_cache()
+        want, single_launches = train_pg_references(mcfg, seed, dev, refdir, TRAIN_PG_STEPS)
         print(f"14(a) single-process references: {time.perf_counter() - t0:.3f} s", flush=True)
         ready.set()
         ranks, errors = {}, []
@@ -6026,6 +6087,440 @@ def train_nccl_phase(mcfg, cpu_model, graphed_12a, seed, dev):
           f"graphed: replay vs eager max_abs_err {ring_err} (attn_tol); graphs "
           f"{json.dumps(ring_graphs)}", flush=True)
     print(f"phase 14(b): {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+# ---- phase 15: the port across the four cards of one host ----
+
+CARDS = 4
+# 15(c)'s training steps a layout (the first eager and captured, then replays)
+MC_TRAIN_STEPS = 3
+
+
+def cards():
+    return [torch.device("cuda", i) for i in range(CARDS)]
+
+
+def sync_cards():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def card_kernel_counts(eng, prompts):
+    """One decode step of ``eng`` under torch.profiler, after ``prompts``
+    were admitted and stepped once: {kernel: {device index: kernels the
+    profiler saw}} of the decode and the append (SERVING_KERNEL_NAMES); a
+    graphed engine's step is one replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts:
+        eng.submit(p, max_new_tokens=4)
+    eng.step()
+    sync_cards()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        sync_cards()
+    counts = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for k in ("paged_decode", "kv_append"):
+            if any(n in e.name for n in SERVING_KERNEL_NAMES[k]):
+                c = counts.setdefault(k, {})
+                c[e.device_index] = c.get(e.device_index, 0) + 1
+    return counts
+
+
+def multicard_serve(label, mcfg, model, ecfg, prompts, n_new, mesh, graphed, profile=False):
+    """``compiled_run`` of the engine of ``model`` on ``mesh`` over
+    ``prompts``: {"tokens", "logits" (the last prompt token's float32 logits
+    by request, on the CPU), "fig"}; with ``profile`` the figures'
+    ``inspect`` holds ``card_kernel_counts`` of a step over four more
+    prompts."""
+    from tf_flash_attention_tpu_torch.serving.engine import DecodeEngine
+
+    held = {}
+
+    def make():
+        eng = DecodeEngine(mcfg, model, ecfg, mesh=mesh)
+        held["logits"] = record_prompt_logits(eng)
+        return eng
+
+    more = [[7] * 200 + p[:100] for p in prompts[:4]]
+    inspect = (lambda eng: card_kernel_counts(eng, more)) if profile else None
+    tokens, fig, _ = compiled_run(label, make, [(p, None) for p in prompts], n_new, mcfg.vocab,
+                                  graphed, inspect)
+    return dict(tokens=tokens[1:],
+                logits={i: held["logits"][tuple(p)].cpu() for i, p in enumerate(prompts)},
+                fig=fig)
+
+
+def serve_figures(fig):
+    """A run's step and chunk figures (``compiled_run``), rounded for a
+    line, with the busy shares: the event span over the wall."""
+    out = {k: round(fig[k], 4) for k in ("step_ms", "host_ms", "span_ms", "chunk_ms",
+                                         "chunk_host_ms", "chunk_span_ms", "decode_tps",
+                                         "prefill_tps")}
+    out["busy"] = round(fig["span_ms"] / fig["step_ms"], 4)
+    out["chunk_busy"] = round(fig["chunk_span_ms"] / fig["chunk_ms"], 4)
+    return out
+
+
+def multicard_engines_phase(mcfg, ecfg, prompts, n_new, seed, dev, compiled_11=None):
+    """Phase 15(a): one process drives the shards on cuda:0..3.  For each of
+    PG_LAYOUTS (tp = 4, cp = 4, model 2 x seq 2) at the 168M configuration
+    on phase 3's requests (phase 13's weights): the engine on cuda:0 four
+    times, graphed; on cuda:0..3, graphed (each step one graph across the
+    four cards); on cuda:0..3 eager.  Gates: the four-card engines' tokens
+    and last prompt token's logits bit-equal to the one-card engine's (the
+    same kernels on the same shapes, sums in shard order on cuda:0), the
+    four-card graphs replayed, and in one profiled decode step (a replay)
+    each card running a quarter of the decode and append kernels.  Then the
+    four serving callables graphed on cuda:0..3 against cuda:0 four times
+    and against their eager calls on the four cards, bit for bit.  Prints
+    each run's figures (step and chunk walls, host ms in the calls, event
+    spans, busy shares) beside the one-card run's and phase 11's.  Returns
+    ({layout: the four-card run}, the callables' four-card outputs)."""
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    model = pg_model(mcfg, dev, seed)
+    out = {}
+    for label, shape, axes in PG_LAYOUTS:
+        runs = {}
+        for run, devices, graphed in (("one card", [dev] * CARDS, True),
+                                      ("four cards", cards(), True),
+                                      ("four cards eager", cards(), False)):
+            runs[run] = multicard_serve(f"15(a) {label} {run}", mcfg, model, ecfg, prompts,
+                                        n_new, make_mesh(shape, axes, devices), graphed,
+                                        profile=run == "four cards")
+        want = runs["one card"]
+        for run in ("four cards", "four cards eager"):
+            got = runs[run]
+            if got["tokens"] != want["tokens"]:
+                fail(f"15(a) {label} {run}: tokens differ from the one-card engine's in "
+                     f"{sum(a != b for a, b in zip(got['tokens'], want['tokens']))} of "
+                     f"{len(prompts)} requests")
+            bad = [i for i in want["logits"] if not torch.equal(got["logits"][i],
+                                                                 want["logits"][i])]
+            if bad:
+                i = bad[0]
+                fail(f"15(a) {label} {run}: the last prompt token's logits of {len(bad)} "
+                     f"requests differ from the one-card engine's (request {i}: max_abs_err "
+                     f"{float((got['logits'][i] - want['logits'][i]).abs().max())})")
+        four = runs["four cards"]["fig"]
+        for name in ("_decode_step", "_chunk_prefill"):
+            if not four["graphs"].get(name, {}).get("replays"):
+                fail(f"15(a) {label}: the four-card engine's {name} was not replayed: "
+                     f"{four['graphs']}")
+        counts = four["inspect"]
+        for k in ("paged_decode", "kv_append"):
+            c = counts.get(k, {})
+            if sorted(c) != list(range(CARDS)) or any(n * CARDS != sum(c.values())
+                                                      for n in c.values()):
+                fail(f"15(a) {label}: a profiled four-card decode step ran {k} on cards "
+                     f"{c}, not a quarter on each of {CARDS}")
+        figs = {run: serve_figures(r["fig"]) for run, r in runs.items()}
+        p11 = (compiled_11 or {}).get(label, {}).get("graphed")
+        print(f"15(a) {label} single-controller on cuda:0..{CARDS - 1}: tokens and logits of "
+              f"the {len(prompts)} requests bit-equal to cuda:0 x {CARDS}, graphed and eager; "
+              f"kernels of a profiled decode step by card {json.dumps(counts)}; figures "
+              f"{json.dumps(figs)}; phase 11's one-card graphed medians "
+              f"{json.dumps(p11) if p11 else 'n/a'}; four-card graphs "
+              f"{json.dumps(four['graphs'])}", flush=True)
+        out[label] = runs["four cards"]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    want, _, one_graphs = pg_callables(dev, seed, [dev] * CARDS, graphed=True)
+    got, launches, graphs = pg_callables(dev, seed, cards(), graphed=True)
+    eager, _, _ = pg_callables(dev, seed, cards())
+    for name, ref in want.items():
+        for run, outs in (("graphed", got), ("eager", eager)):
+            if not torch.equal(outs[name], ref):
+                fail(f"15(a) {name} on cuda:0..{CARDS - 1} {run}: differs from the graphed call "
+                     f"on cuda:0 x {CARDS} by {float((outs[name] - ref).abs().max())}")
+    print(f"15(a) the four serving callables graphed on cuda:0..{CARDS - 1}: bit-equal to cuda:0 "
+          f"x {CARDS} and to their eager calls on the four cards; launches {json.dumps(launches)};"
+          f" graphs {json.dumps(graphs)} (one card {json.dumps(one_graphs)})", flush=True)
+    print(f"phase 15(a): {time.perf_counter() - t0:.3f} s", flush=True)
+    return out, got
+
+
+def multicard_rank(rank, port, mcfg, ecfg, prompts, n_new, seed, refdir, ready, out):
+    """One rank of phase 15(c), on cuda:{rank}: started as torchrun starts a
+    process (MASTER_ADDR, MASTER_PORT, RANK, LOCAL_RANK, WORLD_SIZE) by
+    ``maybe_init_distributed()`` alone; serves phase 3's requests on each of
+    PG_LAYOUTS graphed (NCCL collectives inside its graphs), runs the four
+    serving callables graphed, then (after the parent's references,
+    ``ready``) each of TRAIN_PG_LAYOUTS graphed for MC_TRAIN_STEPS steps and
+    TRAIN_PG_CALLABLES graphed.  Puts its figures (or its traceback) on
+    ``out``."""
+    import traceback
+
+    import torch.distributed as dist
+    from tf_flash_attention_tpu_torch.parallel import collectives
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh, maybe_init_distributed
+    from tf_flash_attention_tpu_torch.serving.graphs import GraphedTrainStep
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      LOCAL_RANK=str(rank), WORLD_SIZE=str(CARDS), LOCAL_WORLD_SIZE=str(CARDS))
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        if not maybe_init_distributed():
+            raise RuntimeError("maybe_init_distributed started no group")
+        dev = torch.device("cuda", rank)
+        if torch.cuda.current_device() != rank or dist.get_backend() != "nccl":
+            raise RuntimeError(f"rank {rank}: on cuda:{torch.cuda.current_device()} over "
+                               f"{dist.get_backend()}")
+        started = time.perf_counter() - t0
+        model = pg_model(mcfg, dev, seed)
+        serving = {}
+        for label, shape, axes in PG_LAYOUTS:
+            mesh = make_mesh(shape, axes)
+            if not mesh.process_group or mesh.device != dev or mesh.capture_refusal():
+                raise RuntimeError(f"rank {rank}: the mesh is on {mesh.device}, refusal "
+                                   f"{mesh.capture_refusal()}")
+            collectives.CALLS.clear()
+            r = multicard_serve(f"15(c) {label} rank {rank}", mcfg, model, ecfg, prompts, n_new,
+                                mesh, True)
+            serving[label] = dict(tokens=r["tokens"],
+                                  logits={i: x.numpy() for i, x in r["logits"].items()},
+                                  fig=serve_figures(r["fig"]), graphs=r["fig"]["graphs"],
+                                  calls=dict(collectives.CALLS))
+            gc.collect()
+            torch.cuda.empty_cache()
+        del model
+        collectives.CALLS.clear()
+        outs, launches, graphs = pg_callables(dev, seed, cards(), graphed=True)
+        callables = dict(outs={k: v.numpy() for k, v in outs.items()}, launches=launches,
+                         graphs=graphs, calls=dict(collectives.CALLS))
+        if not ready.wait(timeout=900):
+            raise RuntimeError("the parent's references did not come")
+        training = {}
+        for label, shape, axes, extra in TRAIN_PG_LAYOUTS:
+            cfg = dataclasses.replace(mcfg, **extra)
+            mesh = make_mesh(shape, axes)
+            tokens = pg_train_tokens(cfg, dev, seed)
+            init = pg_train_model(cfg, dev, seed, shape[1] if label == "gpipe" else None)
+            step, slot = pg_train_step(label, cfg, init, mesh)
+            if not isinstance(step, GraphedTrainStep) or step.refuse:
+                raise RuntimeError(f"rank {rank} {label}: the factory returned "
+                                   f"{type(step).__name__}, refusal {getattr(step, 'refuse', '')}")
+            losses, walls, calls = [], [], []
+            for i in range(MC_TRAIN_STEPS):
+                collectives.CALLS.clear()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                losses.append(float(step(slot, tokens)))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t1)
+                calls.append(dict(collectives.CALLS))
+                if i == 0:
+                    grads = pg_gathered(label, cfg, slot, mesh, grads=True)
+                    gnorm = math.sqrt(sum(float((g.float() ** 2).sum()) for g in grads.values()))
+                    del grads
+            after = pg_gathered(label, cfg, slot, mesh)
+            start = dict(init.named_parameters())
+            ref = torch.load(os.path.join(refdir, f"{label}.pt"), mmap=True)
+            worst, diff, moved, sums = 0.0, 0.0, 0.0, []
+            for name, p in after.items():
+                want = ref[name].to(dev)
+                d = (p.detach() - want).abs()
+                worst = max(worst, float(d.max()))
+                diff += float(d.double().sum())
+                moved += float((want - start[name].detach()).abs().double().sum())
+                sums.append(int(p.detach().view(torch.int32).sum(dtype=torch.int64)))
+            g = next(iter(step.graphs.values()))
+            training[label] = dict(losses=losses, walls=walls, calls=calls, gnorm=gnorm,
+                                   worst=worst, update_err=diff / moved, checksums=sums,
+                                   graph=dict(nodes=g.nodes, replays=g.replays,
+                                              wrapper_launches=sum(g.launches.values())))
+            del init, step, slot, after, start, ref, g
+            gc.collect()
+            torch.cuda.empty_cache()
+        collectives.CALLS.clear()
+        outs, _, train_graphs = pg_callables_run(lambda shape: make_mesh(shape, RING_AXES), dev,
+                                                 seed, graphed=True)
+        train_calls = dict(collectives.CALLS)
+        ref = torch.load(os.path.join(refdir, "callables.pt"), mmap=True)
+        errs = {}
+        for label, got in outs.items():
+            errs[label] = []
+            for a, want in zip(got, ref[label]):
+                want = want.to(dev)
+                e, tol = float((a.float() - want.float()).abs().max()), attn_tol(want)
+                if not torch.isfinite(a.float()).all() or e > tol:
+                    raise RuntimeError(f"rank {rank} {label} graphed: differs from the "
+                                       f"single-process call by {e} > {tol}")
+                errs[label].append(e)
+        out.put((rank, None, dict(started=started, serving=serving, callables=callables,
+                                  training=training, train_callables=dict(
+                                      errs=errs, graphs=train_graphs, calls=train_calls))))
+    except BaseException:
+        out.put((rank, traceback.format_exc(), None))
+        raise
+    finally:
+        # NCCL keeps a communicator while a graph that captured it lives:
+        # the graphs go first
+        gc.collect()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def multicard_pg_phase(mcfg, ecfg, prompts, n_new, seed, dev, serving_want, callables_want):
+    """Phase 15(c): CARDS ranks (``torch.multiprocessing`` spawn), rank k on
+    cuda:k, joined by NCCL through ``maybe_init_distributed()`` under
+    torchrun's environment, every step graphed with its collectives inside:
+    the engines of 15(a)'s layouts on phase 3's requests, the four serving
+    callables, then (while they serve, this process computes 14(a)'s
+    single-process references on cuda:0 four times, eager, MC_TRAIN_STEPS
+    steps) each of TRAIN_PG_LAYOUTS for MC_TRAIN_STEPS steps and the three
+    training callables.  Gates: every rank's engine tokens and last prompt
+    token's logits bit-equal to 15(a)'s four-card single-controller engine
+    (``serving_want``), the serving callables within attn_tol of 15(a)'s
+    (``callables_want``); in training, as 14(a): every rank's losses equal
+    and gathered parameters bit-equal, the first loss and the gathered
+    gradient norm within TRAIN_LOSS_ATOL and TRAIN_GNORM_RTOL of the single
+    process's, the parameters after the steps within TRAIN_PG_UPDATE_RTOL;
+    the callables within attn_tol; the ring's and GPipe's point-to-point
+    calls ran.  Prints a rank's walls beside the single process's, its
+    graphs' nodes and its collective calls."""
+    import queue
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    results, ready = ctx.Queue(), ctx.Event()
+    port = free_port()
+    with tempfile.TemporaryDirectory() as refdir:
+        procs = [ctx.Process(target=multicard_rank, args=(r, port, mcfg, ecfg, prompts, n_new,
+                                                          seed, refdir, ready, results))
+                 for r in range(CARDS)]
+        for p in procs:
+            p.start()
+        want, _ = train_pg_references(mcfg, seed, dev, refdir, MC_TRAIN_STEPS)
+        print(f"15(c) single-process training references: {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        ready.set()
+        ranks, errors = {}, []
+        try:
+            for _ in procs:
+                rank, err, value = results.get(timeout=900)
+                if err:
+                    errors.append(f"rank {rank}:\n{err}")
+                ranks[rank] = value
+        except queue.Empty:
+            errors.append(f"ranks {sorted(set(range(CARDS)) - set(ranks))} sent nothing in "
+                          f"900 s")
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+            if p.exitcode != 0:
+                errors.append(f"a rank exited with code {p.exitcode}")
+    if errors:
+        fail("15(c): " + "\n".join(errors))
+    for label, _, _ in PG_LAYOUTS:
+        w = serving_want[label]
+        for rank in range(CARDS):
+            got = ranks[rank]["serving"][label]
+            name = f"15(c) {label}, rank {rank} of {CARDS} on cuda:{rank} (nccl)"
+            if got["tokens"] != w["tokens"]:
+                fail(f"{name}: tokens differ from 15(a)'s four-card engine's")
+            for i, x in w["logits"].items():
+                mine = torch.from_numpy(got["logits"][i])
+                if not torch.equal(mine, x):
+                    fail(f"{name}: request {i}'s last prompt token's logits differ from 15(a)'s "
+                         f"by {float((mine - x).abs().max())}")
+        r0 = ranks[0]["serving"][label]
+        figs = [ranks[r]["serving"][label]["fig"] for r in range(CARDS)]
+        print(f"15(c) {label}: {CARDS} NCCL ranks, a card each, graphed: tokens and logits of "
+              f"every rank bit-equal to 15(a)'s single-controller engine on cuda:0..{CARDS - 1}; "
+              f"rank figures {json.dumps(figs)} beside 15(a)'s "
+              f"{json.dumps(serve_figures(w['fig']))}; rank 0's graphs "
+              f"{json.dumps(r0['graphs'])} (15(a)'s {json.dumps(w['fig']['graphs'])}); collective "
+              f"calls of rank 0's run {json.dumps(r0['calls'])}", flush=True)
+    errs = {}
+    for rank in range(CARDS):
+        for name, x in ranks[rank]["callables"]["outs"].items():
+            ref, x = callables_want[name], torch.from_numpy(x)
+            e = float((x - ref).abs().max())
+            errs[name] = max(errs.get(name, 0.0), e)
+            if not torch.isfinite(x).all() or e > attn_tol(ref):
+                fail(f"15(c) {name} on rank {rank}: differs from 15(a)'s four-card call by "
+                     f"{e} > {attn_tol(ref)}")
+    c0 = ranks[0]["callables"]
+    print(f"15(c) serving callables graphed over the {CARDS} NCCL ranks against 15(a)'s: "
+          f"max_abs_err {json.dumps(errs)} (attn_tol); rank 0's graphs {json.dumps(c0['graphs'])},"
+          f" collective calls {json.dumps(c0['calls'])}", flush=True)
+    for label, shape, axes, _ in TRAIN_PG_LAYOUTS:
+        w, first = want[label], ranks[0]["training"][label]
+        name = f"15(c) {label} {dict(zip(axes, shape))}"
+        for rank in range(CARDS):
+            got = ranks[rank]["training"][label]
+            if got["losses"] != first["losses"] or got["checksums"] != first["checksums"]:
+                fail(f"{name}: rank {rank}'s losses {got['losses']} or gathered parameters "
+                     f"differ from rank 0's ({first['losses']})")
+            if got["graph"]["replays"] != MC_TRAIN_STEPS - 1:
+                fail(f"{name}: rank {rank}'s graph replayed {got['graph']['replays']} times")
+        check_train(name, first["losses"], first["gnorm"], w["losses"][0], w["gnorm"])
+        if first["update_err"] > TRAIN_PG_UPDATE_RTOL:
+            fail(f"{name}: the gathered parameters after {MC_TRAIN_STEPS} steps part from the "
+                 f"single process's by {first['update_err']} of its mean update > "
+                 f"{TRAIN_PG_UPDATE_RTOL} (largest element {first['worst']})")
+        if label == "gpipe" and not first["calls"][0].get("ppermute"):
+            fail(f"{name}: no point-to-point hand-off ran: {first['calls'][0]}")
+        walls = [[round(x, 4) for x in ranks[r]["training"][label]["walls"]]
+                 for r in range(CARDS)]
+        print(f"{name}, {CARDS} NCCL ranks, a card each, graphed: losses {first['losses']} on "
+              f"every rank (single process {w['losses']}, first-step diff "
+              f"{abs(first['losses'][0] - w['losses'][0])}, tol {TRAIN_LOSS_ATOL}); gathered "
+              f"grad norm {first['gnorm']} vs {w['gnorm']} (rtol {TRAIN_GNORM_RTOL}); "
+              f"parameters after {MC_TRAIN_STEPS} steps: mean |diff| / mean |update| "
+              f"{first['update_err']} (tol {TRAIN_PG_UPDATE_RTOL}), largest {first['worst']}, "
+              f"bit-equal on every rank; step wall s by rank {walls} (the first eager and "
+              f"captured, then replays; single process on cuda:0, eager "
+              f"{[round(x, 4) for x in w['walls']]}); collective calls a step on rank 0 "
+              f"{json.dumps(first['calls'])}; rank 0's graph {json.dumps(first['graph'])}",
+              flush=True)
+    terrs = {label: max(max(ranks[r]["train_callables"]["errs"][label]) for r in range(CARDS))
+             for label, _, _ in TRAIN_PG_CALLABLES}
+    tc = ranks[0]["train_callables"]
+    if not tc["calls"].get("ppermute"):
+        fail(f"15(c): the ring callable ran no point-to-point exchange: {tc['calls']}")
+    print(f"15(c) training callables at {RING_SHAPE} bf16, graphed over the {CARDS} NCCL ranks "
+          f"(forward and backward replays) against the single-process calls: max_abs_err of o, "
+          f"dq, dk, dv {json.dumps(terrs)} (attn_tol); rank 0's collective calls "
+          f"{json.dumps(tc['calls'])}, graphs {json.dumps(tc['graphs'])}; ranks up in "
+          f"{[round(ranks[r]['started'], 3) for r in range(CARDS)]} s", flush=True)
+    print(f"phase 15(c): {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def multicard_phases(mcfg, ecfg, prompts, n_new, seed, dev, compiled_11=None):
+    """Phase 15 on a host of CARDS cards or more: (a) the single-controller
+    engines and serving callables graphed across cuda:0..3, (b)
+    ``dryrun_multichip(4)`` on cuda:0..3, (c) CARDS NCCL ranks, a card each,
+    graphed (``multicard_engines_phase``, ``multicard_pg_phase``)."""
+    from tf_flash_attention_tpu_torch.graft_entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=index,name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(f"phase 15 cards: {json.dumps(smi.stdout.strip().splitlines())}", flush=True)
+    serving, callables = multicard_engines_phase(mcfg, ecfg, prompts, n_new, seed, dev,
+                                                 compiled_11)
+    t1 = time.perf_counter()
+    dryrun_multichip(CARDS)
+    print(f"phase 15(b) dryrun_multichip({CARDS}) on cuda:0..{CARDS - 1}: "
+          f"{time.perf_counter() - t1:.3f} s", flush=True)
+    multicard_pg_phase(mcfg, ecfg, prompts, n_new, seed, dev, serving, callables)
+    print(f"phase 15: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
 if __name__ == "__main__":

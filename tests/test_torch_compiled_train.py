@@ -280,11 +280,14 @@ def test_non_capturable_optimizer_is_refused():
 
 def test_captured_layouts():
     cuda = torch.device("cuda", 0)
-    assert graphs.capture_device(["cuda:0"] * 8) == cuda
-    assert graphs.capture_device(make_mesh((1, 1), ("data", "model"), [cuda]).devices.flat) == cuda
-    assert graphs.capture_device(["cuda:0", "cuda:1"]) is None
-    assert graphs.capture_device(["cpu"] * 4) is None
-    assert graphs.capture_device(["cpu", "cuda:0"]) is None
+    assert graphs.capture_devices(["cuda:0"] * 8) == (cuda,)
+    assert graphs.capture_devices(make_mesh((1, 1), ("data", "model"),
+                                            [cuda]).devices.flat) == (cuda,)
+    # several cards: one graph over all of them, the first named first
+    assert graphs.capture_devices(["cuda:1", "cuda:0", "cuda:1"]) == (
+        torch.device("cuda", 1), cuda)
+    assert graphs.capture_devices(["cpu"] * 4) is None
+    assert graphs.capture_devices(["cpu", "cuda:0"]) is None
 
 
 def test_factories_return_eager_functions_on_the_cpu():

@@ -1849,3 +1849,156 @@ def test_graphed_serving_callables_key_by_cache(dev):
         for g, w in zip(got, want):
             _same(g, w, cfg.n_pages - 1)
     assert sorted(g.replays for g in append.graphs.values()) == [1, 1]
+
+
+# ---- several cards of one host: each kernel launched on its tensors' card,
+# the single-controller engine graphed across four cards ----
+
+def _needs_cards(n):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA cards of one host")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.fixture
+def card1():
+    """``cuda:1`` while ``cuda:0`` is the current device (two cards)."""
+    _needs_cards(2)
+    torch.cuda.set_device(0)
+    return torch.device("cuda", 1)
+
+
+def _kernel_devices(fn):
+    """``fn()`` under the profiler: the device of every CUDA kernel, copy
+    and set it ran, by device index."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.device_index] = out.get(e.device_index, 0) + 1
+    return out
+
+
+# each kernel family through its public entry on ``dev``, against its plain
+# version (the checks above): (run, the kernels it must launch, the route
+# switches it runs under)
+CARD_FAMILIES = {
+    "kv_writes": (lambda dev: test_kv_writes_bit_identical(dev, True, torch.bfloat16,
+                                                           torch.bfloat16),
+                  {"kv_chunk_write", "kv_append"}, "auto"),
+    "decode_prefill": (lambda dev: test_decode_and_prefill_match_plain(
+        dev, True, torch.bfloat16, torch.bfloat16, 8), {"paged_decode", "paged_prefill"}, "auto"),
+    "multitoken_decode": (lambda dev: test_multitoken_decode_matches_plain(
+        dev, "int4", torch.bfloat16, torch.bfloat16, 4, 4), {"paged_multitoken_decode"}, "auto"),
+    "sharded_variants": (lambda dev: test_seq_sharded_variants_match_plain(
+        dev, True, torch.bfloat16, torch.bfloat16, CausalRule()),
+        {"paged_decode[cp]", "paged_prefill[cp]", "kv_chunk_write[cp]"}, "auto"),
+    "banded_split_qouter": (lambda dev: _run_op_case(dev, *OP_CASES["causal_1d_gqa"],
+                                                     dtype=torch.bfloat16),
+                            {"banded_fwd", "banded_bwd", "flash_bwd_dq", "flash_bwd_dkv",
+                             "flash_bwd_qouter"}, "auto"),
+    "window": (lambda dev: _run_op_case(dev, *OP_CASES["local_stride_1d"], dtype=torch.bfloat16),
+               {"window_fwd", "window_bwd"}, "auto"),
+    "table": (lambda dev: _run_op_case(dev, *OP_CASES["causal_1d_ragged"], dtype=torch.float32),
+              {"flash_fwd", "flash_bwd_fused"}, "table"),
+    "resident": (lambda dev: _run_op_case(dev, *OP_CASES["full_1d"], dtype=torch.float16),
+                 {"resident_fwd"}, "resident"),
+}
+
+
+@pytest.mark.parametrize("family", list(CARD_FAMILIES))
+def test_kernels_launch_on_their_tensors_card(card1, monkeypatch, family):
+    """Each kernel family on ``cuda:1`` while ``cuda:0`` is current: right
+    against its plain version, its kernels launched, and every kernel, copy
+    and set of the run on card 1 (the launch takes its tensors' device and
+    that device's stream); the current device stays ``cuda:0``."""
+    run, kernels, routes = CARD_FAMILIES[family]
+    for var, val in ROUTES[routes].items():
+        monkeypatch.setenv(var, val)
+    native.reset_launch_counts()
+    seen = _kernel_devices(lambda: run(card1))
+    launched = {k for k, n in native.LAUNCHES.items() if n}
+    assert kernels <= launched, launched
+    assert set(seen) == {1}, seen
+    assert torch.cuda.current_device() == 0
+
+
+def test_launch_refuses_tensors_on_two_cards(card1):
+    """A wrapper whose tensors lie on two cards raises before its launch
+    and counts nothing."""
+    cfg, c = _cache(True, torch.bfloat16, card1, [70, 0, 130])
+    k = torch.zeros((3, 2, 32), dtype=torch.bfloat16, device="cuda:0")
+    active = torch.ones(3, dtype=torch.bool, device=card1)
+    native.reset_launch_counts()
+    with pytest.raises(ValueError, match=r"one CUDA device.*\['cuda:0', 'cuda:1'\]"):
+        native.kv_append(c, cfg, k, k, active)
+    assert native.LAUNCHES["kv_append"] == 0
+
+
+MULTICARD_LAYOUTS = {"tp4": ((4,), ("model",)), "cp4": ((4,), ("seq",)),
+                     "tp2cp2": ((2, 2), ("model", "seq"))}
+CARD_MODEL = ttf.ModelConfig(vocab=64, d_model=128, n_layers=2, n_heads=4, n_kv_heads=4,
+                             d_head=32, d_ff=256, dtype=torch.bfloat16)
+
+
+def _serve_logged(e, prompts):
+    """(tokens, each admission's last prompt token's logits) of ``prompts``
+    through ``e``."""
+    logits, inner = [], e._prefill
+
+    def prefill(p, slot):
+        r = inner(p, slot)
+        logits.append(r[0].float().cpu())
+        return r
+
+    e._prefill = prefill
+    rids = [e.submit(p, max_new_tokens=8) for p in prompts]
+    res = e.run()
+    return [res[r] for r in rids], logits
+
+
+@pytest.mark.parametrize("layout", list(MULTICARD_LAYOUTS))
+def test_single_controller_engine_graphed_across_cards(layout):
+    """One process driving the shards on ``cuda:0..3``: every step a graph
+    over the four cards (replayed, no eager fallback), whose tokens and
+    logits equal the same layout's on ``cuda:0`` four times and the eager
+    steps' on the four cards bit for bit; one profiled decode step runs the
+    same number of kernels on each card."""
+    _needs_cards(4)
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+
+    shape, axes = MULTICARD_LAYOUTS[layout]
+    params = ttf.init_params(CARD_MODEL, torch.Generator().manual_seed(0), "cpu")
+    ecfg = engine.EngineConfig(max_seqs=2, page_size=64, n_pages=16, max_pages_per_seq=4,
+                               prefill_chunk=64)
+    prompts = [[(7 * i + 3) % 63 + 1 for i in range(150)], [5, 9, 5, 9, 5]]
+    cards = [torch.device("cuda", i) for i in range(4)]
+    runs = {}
+    for label, devices, graphed in (("one card", [cards[0]] * 4, True),
+                                    ("four cards", cards, True),
+                                    ("four cards eager", cards, False)):
+        e = engine.DecodeEngine(CARD_MODEL, params, ecfg, mesh=make_mesh(shape, axes, devices))
+        if not graphed:
+            for name in ("_decode_step", "_spec_step", "_chunk_prefill"):
+                setattr(e, name, getattr(e, name + "_impl"))
+        runs[label] = _serve_logged(e, prompts)
+        if label == "four cards":
+            g = next(iter(e._decode_step.graphs.values()))
+            assert g.devices[0] == cards[0] and set(g.devices) == set(cards)
+            assert g.replays > 0
+            assert next(iter(e._chunk_prefill.graphs.values())).replays > 0
+            e.submit(prompts[0], max_new_tokens=4)
+            e.step()
+            per_card = _kernel_devices(e.step)
+            assert set(per_card) == {0, 1, 2, 3}, per_card
+    want_tokens, want_logits = runs["one card"]
+    for label in ("four cards", "four cards eager"):
+        tokens, logits = runs[label]
+        assert tokens == want_tokens, label
+        for a, b in zip(logits, want_logits):
+            assert torch.equal(a, b), label

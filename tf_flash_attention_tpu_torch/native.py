@@ -528,23 +528,32 @@ def library(source: str = "serving_kernels.cu") -> ctypes.CDLL:
 
 
 def _launch(source: str, name: str, *args) -> None:
-    """Launch the C entry ``name`` of ``source`` on the current stream;
-    raises if it did not launch."""
-    err = getattr(library(source), name)(*args, torch.cuda.current_stream().cuda_stream)
+    """Launch the C entry ``name`` of ``source`` on the device its tensor
+    arguments lie on: under that device's guard (the C entries read the
+    current device: the shared-memory attribute they set, the SM count) and
+    on its current stream, whatever device is current.  A tensor passes as
+    its data pointer, None as a null one.  Raises where the tensors lie on
+    more than one device or not on a CUDA device, and where the launch
+    failed."""
+    devices = {a.device for a in args if isinstance(a, torch.Tensor)}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name} takes tensors on one CUDA device, got tensors on "
+                         f"{sorted(map(str, devices))}")
+    dev = devices.pop()
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        err = getattr(library(source), name)(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} failed to launch: CUDA error {err}")
+        raise RuntimeError(f"{name} failed to launch on {dev}: CUDA error {err}")
 
 
 def _call(name: str, *args, cp: bool = False) -> None:
-    """Launch the C entry ``name`` (``fa_<kernel>``) on the current stream and
-    count the launch (under ``<kernel>[cp]`` when ``cp``)."""
+    """Launch the C entry ``name`` (``fa_<kernel>``) on its tensors' device
+    (``_launch``) and count the launch (under ``<kernel>[cp]`` when
+    ``cp``)."""
     kernel = name[3:]
     _launch(KERNEL_SOURCES[kernel], name, *args)
     LAUNCHES[f"{kernel}[cp]" if cp else kernel] += 1
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
 
 
 def _codes(act: torch.dtype, cache, cfg) -> tuple:
@@ -650,11 +659,9 @@ def kv_chunk_write(cache, cfg, meta, k, v, page_stride=1) -> None:
     dims = _cache_dims(cache, cfg)
     cp = page_stride != 1
     head_stride, row_stride, _ = k.stride()
-    _call("fa_kv_chunk_write", act, kv, k.data_ptr(), v.data_ptr(),
-          cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
-          _ptr(cache.k_scales), _ptr(cache.v_scales), cache.page_tables.data_ptr(),
-          cache.lengths.data_ptr(), meta.data_ptr(), k.shape[1], cfg.n_kv_heads, head_stride,
-          row_stride, cfg.head_dim, cfg.head_dim_store, *dims, page_stride,
+    _call("fa_kv_chunk_write", act, kv, k, v, cache.k_pages, cache.v_pages, cache.k_scales,
+          cache.v_scales, cache.page_tables, cache.lengths, meta, k.shape[1], cfg.n_kv_heads,
+          head_stride, row_stride, cfg.head_dim, cfg.head_dim_store, *dims, page_stride,
           WALKS["kv_chunk_write[cp]" if cp else "kv_chunk_write"].ptr, cp=cp)
 
 
@@ -683,10 +690,8 @@ def kv_append(cache, cfg, k_new, v_new, active, glob=None, page_stride=1,
                              or not glob.is_contiguous()):
         raise ValueError("a sharded append needs glob, a contiguous int32 vector of "
                          "max_seqs entries")
-    _call("fa_kv_append", act, kv, k_new.data_ptr(), v_new.data_ptr(),
-          cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
-          _ptr(cache.k_scales), _ptr(cache.v_scales), cache.page_tables.data_ptr(),
-          cache.lengths.data_ptr(), active.data_ptr(), _ptr(glob), S, T, cfg.n_kv_heads,
+    _call("fa_kv_append", act, kv, k_new, v_new, cache.k_pages, cache.v_pages, cache.k_scales,
+          cache.v_scales, cache.page_tables, cache.lengths, active, glob, S, T, cfg.n_kv_heads,
           slot_stride, tok_stride, head_stride, cfg.head_dim, cfg.head_dim_store, *dims,
           page_stride, page_offset, WALKS["kv_append"].ptr)
 
@@ -864,12 +869,11 @@ def _decode(entry, q, cache, cfg, S, gamma, scale_log2e, rule, returning_l_m, pa
     ws, tickets = _decode_scratch(q.device, plan["workspace"], plan["tickets"])
     walk = (ctypes.c_int * 3)()
     cp = returning_l_m or page_stride != 1 or global_lengths is not None
-    _call(entry, act, kv, q.data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
-          _ptr(cache.k_scales), _ptr(cache.v_scales), cache.page_tables.data_ptr(),
-          cache.lengths.data_ptr(), _ptr(global_lengths), o.data_ptr(), _ptr(l), _ptr(m),
-          S, *(() if entry == "fa_paged_decode" else (gamma,)), n_q, cfg.n_kv_heads, d, D, *dims,
-          page_stride, page_offset, float(scale_log2e), *_rule_args(rule), ws.data_ptr(),
-          tickets.data_ptr(), plan["splits"], walk, cp=cp)
+    _call(entry, act, kv, q, cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales,
+          cache.page_tables, cache.lengths, global_lengths, o, l, m, S,
+          *(() if entry == "fa_paged_decode" else (gamma,)), n_q, cfg.n_kv_heads, d, D, *dims,
+          page_stride, page_offset, float(scale_log2e), *_rule_args(rule), ws, tickets,
+          plan["splits"], walk, cp=cp)
     _dc_report(entry[3:] + ("[cp]" if cp else ""), walk)
     return (o, l, m) if returning_l_m else o
 
@@ -914,11 +918,9 @@ def paged_prefill(qs, cache, cfg, meta, rule, returning_l_m=False, page_stride=1
     l, m = _lm(qs, (chunk, n_q), returning_l_m)
     body = ctypes.c_int(0)
     cp = returning_l_m or page_stride != 1
-    _call("fa_paged_prefill", act, kv, qs.data_ptr(), cache.k_pages.data_ptr(),
-          cache.v_pages.data_ptr(), _ptr(cache.k_scales), _ptr(cache.v_scales),
-          cache.page_tables.data_ptr(), meta.data_ptr(), o.data_ptr(), _ptr(l), _ptr(m), chunk,
-          n_q, cfg.n_kv_heads, d, cfg.head_dim_store, *dims, page_stride, *_rule_args(rule),
-          ctypes.byref(body), cp=cp)
+    _call("fa_paged_prefill", act, kv, qs, cache.k_pages, cache.v_pages, cache.k_scales,
+          cache.v_scales, cache.page_tables, meta, o, l, m, chunk, n_q, cfg.n_kv_heads, d,
+          cfg.head_dim_store, *dims, page_stride, *_rule_args(rule), ctypes.byref(body), cp=cp)
     _body("paged_prefill[cp]" if cp else "paged_prefill", body)
     return (o, l, m) if returning_l_m else o
 
@@ -1193,8 +1195,7 @@ def tc_tile_check(a, k, v):
                          "(64, 64) and v (64, 128)")
     s = torch.empty((64, 64), dtype=torch.float32, device=a.device)
     o = torch.empty((64, 128), dtype=torch.float32, device=a.device)
-    _launch("attention_kernels.cu", "fa_tc_tile_check", _DTYPE_CODE[a.dtype], a.data_ptr(),
-            k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr())
+    _launch("attention_kernels.cu", "fa_tc_tile_check", _DTYPE_CODE[a.dtype], a, k, v, s, o)
     return s, o
 
 
@@ -1215,7 +1216,7 @@ def tc_bwd_tile_check(x, y, z, dst, kt):
     outs = [torch.empty(shape, dtype=torch.float32, device=x.device)
             for shape in ((64, 64), (64, 128), (64, 128))]
     _launch("attention_kernels.cu", "fa_tc_bwd_tile_check", _DTYPE_CODE[x.dtype],
-            *(t.data_ptr() for t, _ in shapes), *(t.data_ptr() for t in outs))
+            *(t for t, _ in shapes), *outs)
     return tuple(outs)
 
 
@@ -1246,7 +1247,7 @@ def _check_attn(q, k, v, rule_c: FaRule, do=None, stats=()) -> int:
 
 def _sched_args(tables, block_q, block_kv) -> list:
     table, counts, needs = tables
-    return [table.data_ptr(), counts.data_ptr(), needs.data_ptr(), table.shape[1],
+    return [table, counts, needs, table.shape[1],
             block_q, block_kv]
 
 
@@ -1260,8 +1261,7 @@ def flash_fwd(q_scaled, k, v, rule_c: FaRule, tables, block_q, block_kv):
     o = torch.empty((B, q_len, v_d), dtype=q_scaled.dtype, device=q_scaled.device)
     l = torch.empty((B, q_len), dtype=torch.float32, device=q_scaled.device)
     m = torch.empty_like(l)
-    _call("fa_flash_fwd", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
-          o.data_ptr(), l.data_ptr(), m.data_ptr(), *_sched_args(tables, block_q, block_kv),
+    _call("fa_flash_fwd", code, q_scaled, k, v, o, l, m, *_sched_args(tables, block_q, block_kv),
           B, B // k.shape[0], d, v_d, ctypes.byref(rule_c))
     return o, l, m
 
@@ -1275,10 +1275,9 @@ def flash_bwd_fused(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, tables_t, b
     _check_bwd_smem("flash_bwd_fused", q_scaled.dtype, d, v.shape[2], q_len, k.shape[1])
     dq_acc = torch.zeros((B, q_len, d), dtype=torch.float32, device=q_scaled.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _call("fa_flash_bwd_fused", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
-          do.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
-          dv.data_ptr(), *_sched_args(tables_t, block_q, block_kv), B, B // k.shape[0], d,
-          v.shape[2], float(dk_scale), ctypes.byref(rule_c))
+    _call("fa_flash_bwd_fused", code, q_scaled, k, v, do, lse2, delta, dq_acc, dk, dv,
+          *_sched_args(tables_t, block_q, block_kv), B, B // k.shape[0], d, v.shape[2],
+          float(dk_scale), ctypes.byref(rule_c))
     return dq_acc, dk, dv
 
 
@@ -1291,10 +1290,9 @@ def flash_bwd_dq(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, tables, block_
     _check_bwd_smem("flash_bwd_dq", q_scaled.dtype, d, v.shape[2], q_len, k.shape[1])
     dq = torch.empty_like(q_scaled)
     body = ctypes.c_int(0)
-    _call("fa_flash_bwd_dq", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
-          do.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-          *_sched_args(tables, block_q, block_kv), B, B // k.shape[0], d, v.shape[2],
-          float(scale), ctypes.byref(body), ctypes.byref(rule_c))
+    _call("fa_flash_bwd_dq", code, q_scaled, k, v, do, lse2, delta, dq,
+          *_sched_args(tables, block_q, block_kv), B, B // k.shape[0], d, v.shape[2], float(scale),
+          ctypes.byref(body), ctypes.byref(rule_c))
     _body("flash_bwd_dq", body)
     return dq
 
@@ -1309,10 +1307,9 @@ def flash_bwd_dkv(q, k_scaled, v, do, lse2, delta, rule_c: FaRule, tables_t, blo
     _check_bwd_smem("flash_bwd_dkv", q.dtype, d, v.shape[2], q_len, k_scaled.shape[1])
     dk, dv = torch.empty_like(k_scaled), torch.empty_like(v)
     body = ctypes.c_int(0)
-    _call("fa_flash_bwd_dkv", code, q.data_ptr(), k_scaled.data_ptr(), v.data_ptr(),
-          do.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-          *_sched_args(tables_t, block_q, block_kv), B, B // k_scaled.shape[0], d,
-          v.shape[2], float(scale), ctypes.byref(body), ctypes.byref(rule_c))
+    _call("fa_flash_bwd_dkv", code, q, k_scaled, v, do, lse2, delta, dk, dv,
+          *_sched_args(tables_t, block_q, block_kv), B, B // k_scaled.shape[0], d, v.shape[2],
+          float(scale), ctypes.byref(body), ctypes.byref(rule_c))
     _body("flash_bwd_dkv", body)
     return dk, dv
 
@@ -1327,9 +1324,8 @@ def banded_fwd(q_scaled, k, v, rule_c: FaRule, seg, block_q, block_kv):
     o = torch.empty((B, q_len, v_d), dtype=q_scaled.dtype, device=q_scaled.device)
     l = torch.empty((B, q_len), dtype=torch.float32, device=q_scaled.device)
     m = torch.empty_like(l)
-    _call("fa_banded_fwd", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
-          o.data_ptr(), l.data_ptr(), m.data_ptr(), seg.data_ptr(), block_q, block_kv,
-          B, B // k.shape[0], d, v_d, ctypes.byref(rule_c))
+    _call("fa_banded_fwd", code, q_scaled, k, v, o, l, m, seg, block_q, block_kv, B,
+          B // k.shape[0], d, v_d, ctypes.byref(rule_c))
     return o, l, m
 
 
@@ -1361,10 +1357,8 @@ def window_fwd(q_scaled, k, v, rule_c: FaRule, starts, seg, band, sub_q, masked)
     l = torch.empty((B, q_len), dtype=torch.float32, device=q_scaled.device)
     m = torch.empty_like(l)
     body = ctypes.c_int(0)
-    _call("fa_window_fwd", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
-          o.data_ptr(), l.data_ptr(), m.data_ptr(), starts.data_ptr(), seg.data_ptr(),
-          band, sub_q, int(bool(masked)), B, B // k.shape[0], d, v_d, ctypes.byref(body),
-          ctypes.byref(rule_c))
+    _call("fa_window_fwd", code, q_scaled, k, v, o, l, m, starts, seg, band, sub_q,
+          int(bool(masked)), B, B // k.shape[0], d, v_d, ctypes.byref(body), ctypes.byref(rule_c))
     _body("window_fwd", body)
     return o, l, m
 
@@ -1383,10 +1377,8 @@ def banded_bwd(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, seg_t, block_q, 
     dq_acc = torch.zeros((B, q_len, d), dtype=torch.float32,
                          device=q_scaled.device) if with_dq else None
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _call("fa_banded_bwd", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
-          do.data_ptr(), lse2.data_ptr(), delta.data_ptr(), _ptr(dq_acc), dk.data_ptr(),
-          dv.data_ptr(), seg_t.data_ptr(), block_q, block_kv, B, B // k.shape[0], d,
-          v.shape[2], float(dk_scale), ctypes.byref(rule_c))
+    _call("fa_banded_bwd", code, q_scaled, k, v, do, lse2, delta, dq_acc, dk, dv, seg_t, block_q,
+          block_kv, B, B // k.shape[0], d, v.shape[2], float(dk_scale), ctypes.byref(rule_c))
     return dq_acc, dk, dv
 
 
@@ -1405,10 +1397,8 @@ def window_bwd(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, starts_t, seg_t,
     dq_acc = torch.zeros((B, q_len, d), dtype=torch.float32, device=q_scaled.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     body = ctypes.c_int(0)
-    _call("fa_window_bwd", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
-          do.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
-          dv.data_ptr(), starts_t.data_ptr(), seg_t.data_ptr(), band, sub_kv, B,
-          B // k.shape[0], d, v.shape[2], float(dk_scale), ctypes.byref(body),
+    _call("fa_window_bwd", code, q_scaled, k, v, do, lse2, delta, dq_acc, dk, dv, starts_t, seg_t,
+          band, sub_kv, B, B // k.shape[0], d, v.shape[2], float(dk_scale), ctypes.byref(body),
           ctypes.byref(rule_c))
     _body("window_bwd", body)
     return dq_acc, dk, dv
@@ -1429,9 +1419,8 @@ def resident_fwd(q_scaled, k, v, rule_c: FaRule, seg, block_q, block_kv):
     m = torch.empty_like(l)
     next_item = torch.zeros(1, dtype=torch.int32, device=q_scaled.device)
     walk = (ctypes.c_int * 4)()
-    _call("fa_resident_fwd", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
-          o.data_ptr(), l.data_ptr(), m.data_ptr(), seg.data_ptr(), next_item.data_ptr(),
-          block_q, block_kv, B, B // k.shape[0], d, v_d, walk, ctypes.byref(rule_c))
+    _call("fa_resident_fwd", code, q_scaled, k, v, o, l, m, seg, next_item, block_q, block_kv, B,
+          B // k.shape[0], d, v_d, walk, ctypes.byref(rule_c))
     _walk("resident_fwd", walk)
     return o, l, m
 
@@ -1449,10 +1438,9 @@ def flash_bwd_qouter(q_scaled, k, v, do, lse2, delta, rule_c: FaRule, tables, bl
     dk_acc = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv_acc = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
     body = ctypes.c_int(0)
-    _call("fa_flash_bwd_qouter", code, q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
-          do.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk_acc.data_ptr(),
-          dv_acc.data_ptr(), *_sched_args(tables, block_q, block_kv), B, B // k.shape[0], d,
-          v_d, float(scale), ctypes.byref(body), ctypes.byref(rule_c))
+    _call("fa_flash_bwd_qouter", code, q_scaled, k, v, do, lse2, delta, dq, dk_acc, dv_acc,
+          *_sched_args(tables, block_q, block_kv), B, B // k.shape[0], d, v_d, float(scale),
+          ctypes.byref(body), ctypes.byref(rule_c))
     _body("flash_bwd_qouter", body)
     return dq, dk_acc, dv_acc
 
@@ -1514,8 +1502,7 @@ def _exp_groups(name: str, *head, q, k, v, block_kv: int, tail=()):
     o = torch.empty_like(q)
     next_item = torch.zeros(1, dtype=torch.int32, device=q.device)
     walk = (ctypes.c_int * 4)()
-    _call(f"fa_{name}", *head, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-          next_item.data_ptr(), B, S, d, *tail, walk)
+    _call(f"fa_{name}", *head, q, k, v, o, next_item, B, S, d, *tail, walk)
     _walk(name, walk)
     return o
 
@@ -1535,8 +1522,7 @@ def exp_resident_fwd(q_scaled, k, v, block_q: int, block_kv: int):
     o = torch.empty_like(q_scaled)
     next_item = torch.zeros(1, dtype=torch.int32, device=q_scaled.device)
     walk = (ctypes.c_int * 4)()
-    _call("fa_exp_resident_fwd", q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-          next_item.data_ptr(), B, S, d, block_q, block_kv, walk)
+    _call("fa_exp_resident_fwd", q_scaled, k, v, o, next_item, B, S, d, block_q, block_kv, walk)
     _walk("exp_resident_fwd", walk)
     return o
 
@@ -1629,9 +1615,8 @@ def exp_int4_decode(kernel: str, q, k, ks, v, vs, scale_log2e: float):
     ws, tickets = _decode_scratch(q.device, plan["workspace"], plan["tickets"])
     tables, lengths = _identity_table(q.device, B, pages, pack * rows)
     walk = (ctypes.c_int * 3)()
-    _call(f"fa_{kernel}", q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(), vs.data_ptr(),
-          o.data_ptr(), tables.data_ptr(), lengths.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
-          B, n_kv, G, pages, rows, plan["splits"], float(scale_log2e), walk)
+    _call(f"fa_{kernel}", q, k, ks, v, vs, o, tables, lengths, ws, tickets, B, n_kv, G, pages,
+          rows, plan["splits"], float(scale_log2e), walk)
     _dc_report(kernel, walk)
     return o
 
@@ -1693,10 +1678,8 @@ def exp_paged_decode(variant: str, q, k_pages, v_pages, k_scales, v_scales, tabl
     _check_smem(f"exp_paged_decode at G {n_q // n_kv}, page {page}", plan["smem"])
     ws, tickets = _decode_scratch(q.device, plan["workspace"], plan["tickets"])
     walk = (ctypes.c_int * 3)()
-    _call("fa_exp_paged_decode", DECODE_VARIANTS.index(variant), q.data_ptr(),
-          k_pages.data_ptr(), v_pages.data_ptr(), k_scales.data_ptr(), v_scales.data_ptr(),
-          tables.data_ptr(), lengths.data_ptr(), o.data_ptr(), *(_ptr(t) for t in extra),
-          ws.data_ptr(), tickets.data_ptr(), S, n_kv, n_q // n_kv, n_pages, page, max_pages,
-          plan["splits"], float(scale_log2e), walk)
+    _call("fa_exp_paged_decode", DECODE_VARIANTS.index(variant), q, k_pages, v_pages, k_scales,
+          v_scales, tables, lengths, o, *extra, ws, tickets, S, n_kv, n_q // n_kv, n_pages, page,
+          max_pages, plan["splits"], float(scale_log2e), walk)
     _dc_report("exp_paged_decode", walk)
     return (o, *extra) if codes else o

@@ -27,12 +27,18 @@ whole tensor's, and that of the gathered whole is the caller's block of
 it), so the training steps and the attention callables run unchanged in
 form with one block a process.
 ``maybe_init_distributed`` starts the process group where the environment
-configures one, as the JAX package's starts ``jax.distributed``.
+configures one, as the JAX package's starts ``jax.distributed``, and binds
+the process to its card (``cuda:{LOCAL_RANK}``), as ``jax.distributed``
+gives a process its own local devices; ``make_mesh`` over an NCCL group
+runs one collective and one point-to-point exchange on every subgroup the
+caller belongs to, so that each communicator exists before a CUDA graph
+captures its first collective.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -47,13 +53,23 @@ AXIS_MODEL = "model"
 AXIS_CONTEXT = "context"
 
 
+#: how long a process group's rank waits on the others (at the start, and
+#: in a collective) before it fails: a hung collective ends the run
+DIST_TIMEOUT = datetime.timedelta(minutes=5)
+
+
 def maybe_init_distributed() -> bool:
     """Start ``torch.distributed`` when the environment configures a
     process group (the JAX package's ``maybe_init_distributed``, which
     starts ``jax.distributed``): NCCL where CUDA is available, else gloo.
     ``COORDINATOR_ADDRESS`` (``host:port``, the JAX variable) with
     ``WORLD_SIZE`` and ``RANK`` (1 and 0 where unset), or torchrun's
-    ``MASTER_ADDR`` and its companions (``env://``).  Call once at program
+    ``MASTER_ADDR`` and its companions (``env://``).  Where CUDA is
+    available the process is bound to its card first (``_local_device``:
+    ``cuda:{LOCAL_RANK}``, made the current device and the group's
+    ``device_id``), so that NCCL, the object collectives and every kernel
+    launch find it; on the CPU the device is left alone.  The group fails
+    a rank that waits longer than ``DIST_TIMEOUT``.  Call once at program
     start in every process.  Returns True when a process group is up
     (already, or now), False when nothing is configured."""
     import torch.distributed as dist
@@ -63,13 +79,17 @@ def maybe_init_distributed() -> bool:
     coordinator = os.environ.get("COORDINATOR_ADDRESS")
     if not coordinator and not os.environ.get("MASTER_ADDR"):
         return False
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
+    rank = int(os.environ.get("RANK", "0"))
+    cuda = torch.cuda.is_available()
+    kw = dict(backend="nccl" if cuda else "gloo", timeout=DIST_TIMEOUT)
+    if cuda:
+        kw["device_id"] = _local_device(rank)
+        torch.cuda.set_device(kw["device_id"])
     if coordinator:
-        dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
-                                world_size=int(os.environ.get("WORLD_SIZE", "1")),
-                                rank=int(os.environ.get("RANK", "0")))
+        dist.init_process_group(init_method=f"tcp://{coordinator}",
+                                world_size=int(os.environ.get("WORLD_SIZE", "1")), rank=rank, **kw)
     else:
-        dist.init_process_group(backend, init_method="env://")
+        dist.init_process_group(init_method="env://", **kw)
     return True
 
 
@@ -163,16 +183,41 @@ def _world_size() -> Optional[int]:
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else None
 
 
-def _local_device() -> torch.device:
+def _local_device(rank: Optional[int] = None) -> torch.device:
     """This process's device over a process group: ``cuda:{LOCAL_RANK}``
-    where CUDA is present (LOCAL_RANK defaulting to the rank modulo the
-    visible cards), else the CPU."""
-    import torch.distributed as dist
+    where CUDA is present (LOCAL_RANK defaulting to the rank, the group's
+    when None, modulo the visible cards), else the CPU."""
     if not torch.cuda.is_available():
         return torch.device("cpu")
     local = os.environ.get("LOCAL_RANK")
+    if local is None and rank is None:
+        import torch.distributed as dist
+        rank = dist.get_rank()
     return torch.device("cuda", int(local) if local is not None
-                        else dist.get_rank() % torch.cuda.device_count())
+                        else rank % torch.cuda.device_count())
+
+
+def _warm_up(groups, device) -> None:
+    """One ``all_reduce`` and one ring exchange (``batch_isend_irecv``, every
+    rank of the group taking part, as NCCL wants of a group's first
+    point-to-point call) on each of the caller's ``groups``, in axis order,
+    on ``device``: NCCL makes a subgroup's communicator at its first call,
+    which must not come inside a CUDA graph's capture."""
+    import torch.distributed as dist
+
+    for group in groups:
+        x = torch.zeros(1, device=device)
+        dist.all_reduce(x, group=group)
+        n = dist.get_world_size(group)
+        if n > 1:
+            me = dist.get_group_rank(group, dist.get_rank())
+            y = torch.empty_like(x)
+            peer = lambda i: dist.get_global_rank(group, i % n)
+            for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, peer(me + 1), group),
+                                               dist.P2POp(dist.irecv, y, peer(me - 1), group)]):
+                req.wait()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _process_mesh(shape, axis_names, devices, world: int) -> Mesh:
@@ -199,6 +244,8 @@ def _process_mesh(shape, axis_names, devices, world: int) -> Mesh:
             group = dist.new_group(line)
             if me in line:
                 groups[name] = group
+    if dist.get_backend() == "nccl":
+        _warm_up([groups[name] for name in axis_names], devices[me])
     arr = np.empty(world, dtype=object)
     arr[:] = devices
     return Mesh(arr.reshape(tuple(shape)), tuple(axis_names), ranks, groups)

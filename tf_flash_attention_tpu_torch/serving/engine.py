@@ -74,7 +74,8 @@ jit a bucket, ``:268-271``) and ``_sample1_impl`` (JAX's ``_sample1``,
 ``:275``), device work only, and on the card ``_compile`` captures each
 as a CUDA graph (``graphs.py``), one per input shape (a bucket), replayed
 on every later call, for every layout of the engine (flat, window, cp,
-tp, tp x cp, MoE; over a process group, a rank's steps on its card with
+tp, tp x cp, MoE; one process over shards on several cards, one graph a
+step across them; over a process group, a rank's steps on its card with
 their NCCL collectives inside the graph); on the CPU, which a caller asks
 for explicitly, it returns the impl itself.  A step's inputs are the engine's static device
 buffers, filled from host tensors before each call: the tokens, the
@@ -134,7 +135,7 @@ from ..models.transformer import (ModelConfig, Transformer, _inverse_freqs, _rms
                                   inference_weights)
 from ..parallel.collectives import Axis, psum
 from ..parallel.sharded import mha
-from .graphs import GraphedStep
+from .graphs import GraphedStep, capture_devices, capture_streams
 from .kv_cache import (KVCacheConfig, PagedKVCache, _owned_token_count, chunk_write_meta,
                        write_prompt)
 from .prefill import prefill_meta
@@ -424,8 +425,9 @@ class DecodeEngine:
         # the first-token sampler's: the last prompt token's logits, its slot
         self._in_logits1 = torch.zeros((1, model_cfg.vocab), dtype=model_cfg.dtype, device=dev)
         self._in_slot = torch.zeros(1, dtype=torch.long, device=dev)
-        self._devices = {torch.device(d) for row in local for d in row}
-        self._graph_stream = self._graph_pool = None
+        # the devices the steps span, the engine's own first
+        self._devices = [torch.device(d) for row in local for d in row]
+        self._graph_streams = self._graph_pool = None
         self._decode_step = self._compile(self._decode_step_impl, 2)
         self._spec_step = self._compile(self._spec_step_impl, 2)
         self._chunk_prefill = self._compile(self._chunk_prefill_impl, 1)
@@ -484,23 +486,20 @@ class DecodeEngine:
         that captures it as a CUDA graph once per input shape and replays
         it, each replay drawing fresh numbers from ``generators``.  The
         graphs of an engine share one capture stream and one memory pool.
-        On a process-group mesh the rank's steps are captured on its card
-        with their NCCL collectives; a gloo group's cannot be, and the step
-        raises when it would capture (never at construction).  One process
-        driving shards on more than one CUDA device raises: its steps would
-        need one graph a device."""
+        One process driving shards on several cards captures each step as
+        one graph over all of them (``graphs.py``: the engine's device
+        first, a joined stream on each other card; the copies between the
+        cards and the sums in shard order on the engine's device are nodes
+        of it), so there too every step replays or raises.  On a
+        process-group mesh the rank's steps are captured on its card with
+        their NCCL collectives; a gloo group's cannot be, and the step
+        raises when it would capture (never at construction)."""
         if self.device.type != "cuda":
             return impl
-        if len(self._devices) > 1:
-            raise NotImplementedError(
-                f"a compiled step of one process over shards on {len(self._devices)} devices "
-                f"({sorted(map(str, self._devices))}): run one process a device instead "
-                f"(torch.distributed up, then parallel.mesh.make_mesh over the process "
-                f"group: each rank's steps are graphed on its own card)")
-        if self._graph_stream is None:
-            self._graph_stream = torch.cuda.Stream(self.device)
+        if self._graph_streams is None:
+            self._graph_streams = capture_streams(capture_devices(self._devices))
             self._graph_pool = torch.cuda.graph_pool_handle()
-        return GraphedStep(impl, n_out_scalars, self._graph_stream, self._graph_pool,
+        return GraphedStep(impl, n_out_scalars, self._graph_streams, self._graph_pool,
                            generators, self._refuse)
 
     def _upload(self, buf: torch.Tensor, values) -> torch.Tensor:

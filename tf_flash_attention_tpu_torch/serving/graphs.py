@@ -40,13 +40,31 @@ dtypes) each wrapper:
   copies, as JAX returns new arrays).
 
 A capture that fails raises; nothing falls back to the eager function.
-Graphs are made only where every device a process drives is one CUDA
-device (``capture_device``): a single-controller layout on one card, or
-one rank of a process-group mesh on its card, whose NCCL collectives the
-graph captures (a gloo group's cannot be: every wrapper then raises when
-a capture is attempted, never running eagerly in its place, and the caller
-runs its ``eager`` form); on the CPU, and where one process drives several
-CUDA devices, the factories return the eager function.
+Graphs are made wherever every device a process drives is a CUDA device
+(``capture_devices``): a single-controller layout on one card, or one rank
+of a process-group mesh on its card, whose NCCL collectives the graph
+captures (a gloo group's cannot be: every wrapper then raises when a
+capture is attempted, never running eagerly in its place, and the caller
+runs its ``eager`` form); the engine's steps and the serving callables
+also where one process drives several cards.  The training step and the
+attention callables take one card: autograd runs each card's backward in
+a thread of its own, whose current stream is not the capture's, so a
+capture across cards fails; over several cards their factories return the
+eager function.  On the CPU every factory returns the eager function.
+
+One process driving several cards (JAX's single controller over a mesh of
+many devices) captures one graph over all of them: the capture stream is
+on the first device, and a side stream on each other device joins the
+capture (it waits on the capture stream at the start, and the capture
+stream waits on it at the end), so its kernels and the copies between the
+cards are nodes of the same graph, in the order the eager code puts them.
+Each side stream's allocations during the capture go to the graph's pool
+on its device (``_joined``), as the capture stream's do on the first, so no
+tensor the graph reads is freed into the memory that other work takes; the
+pool on a side device is released with the graph.  A replay is launched on
+the first device's current stream, which first waits on every other
+device's current stream, and each of those then waits on the replay, so
+work queued around the call on any card stays in order.
 
 Counts: the kernel wrappers count a captured kernel once in
 ``native.LAUNCHES`` (they ran at capture); each replay adds the graph's
@@ -57,12 +75,13 @@ and memory nodes as libcuda holds them (read once, at capture),
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
 import weakref
 from collections import Counter
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -70,7 +89,8 @@ from torch.autograd.function import once_differentiable
 from .. import native
 
 __all__ = ["Graph", "GraphedStep", "GraphedTrainStep", "GraphedFunction", "GraphedCall",
-           "graph_nodes", "capture_device", "check_capturable", "graph_callable",
+           "graph_nodes", "capture_devices", "capture_streams", "check_capturable",
+           "graph_callable",
            "graph_train_step", "train_once",
            "graph_cache_call", "cache_key"]
 
@@ -111,15 +131,36 @@ def _new_graph() -> Tuple["torch.cuda.CUDAGraph", bool]:
         return torch.cuda.CUDAGraph(), False
 
 
-def capture_device(devices: Iterable) -> Optional[torch.device]:
-    """The CUDA device that every one of ``devices`` is, or None: a layout
-    on one card (a mesh of ``cuda:0`` repeated) is captured as CUDA graphs;
-    the CPU and several CUDA devices run eagerly."""
-    found = {torch.device(d) for d in devices}
-    if len(found) != 1:
-        return None
-    device = found.pop()
-    return device if device.type == "cuda" else None
+def capture_devices(devices: Iterable) -> Optional[Tuple[torch.device, ...]]:
+    """The CUDA devices ``devices`` name, each once, the first named first
+    (where a graph's capture stream lives), or None where any is not a CUDA
+    device: a layout on one card (a mesh of ``cuda:0`` repeated) or on
+    several is captured as CUDA graphs; the CPU runs eagerly."""
+    found = []
+    for d in devices:
+        d = torch.device(d)
+        if d.type != "cuda":
+            return None
+        if d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        if d not in found:
+            found.append(d)
+    return tuple(found) or None
+
+
+def _one_device(devices) -> None:
+    """Refuse more than one device for a graph whose capture runs autograd
+    (see the module's docstring)."""
+    if len(devices) != 1:
+        raise ValueError(f"a graph with a backward is captured on one CUDA device, got "
+                         f"{[str(d) for d in devices]}: autograd runs each card's backward in a "
+                         f"thread of its own, outside the capture's streams")
+
+
+def capture_streams(devices: Sequence[torch.device]) -> Tuple["torch.cuda.Stream", ...]:
+    """A new stream on each of ``devices`` (``capture_devices``' order): the
+    first captures, the others join its captures."""
+    return tuple(torch.cuda.Stream(d) for d in devices)
 
 
 def check_capturable(optimizer: torch.optim.Optimizer) -> None:
@@ -140,8 +181,9 @@ def check_capturable(optimizer: torch.optim.Optimizer) -> None:
 class Graph:
     """One captured signature: the graph, its inputs and outputs, the
     kernels the wrappers launched into it, its nodes, the memory its
-    capture reserved, the tensors it reads that nothing else keeps (held so
-    they are never freed into the pool), and its replays so far."""
+    capture reserved on its devices, the tensors it reads that nothing else
+    keeps (held so they are never freed into the pool), its replays so
+    far, and the devices it spans (the capture stream's first)."""
 
     graph: "torch.cuda.CUDAGraph"
     inputs: tuple
@@ -151,30 +193,68 @@ class Graph:
     pool_bytes: int
     held: list
     replays: int = 0
+    devices: Tuple[torch.device, ...] = ()
 
     def replay(self) -> None:
+        """One replay on the first device's current stream, in order with
+        the work queued on every device's current stream (see the module's
+        docstring)."""
+        others = self.devices[1:]
+        home = torch.cuda.current_stream(self.devices[0]) if others else None
+        for d in others:
+            home.wait_stream(torch.cuda.current_stream(d))
         self.graph.replay()
+        for d in others:
+            torch.cuda.current_stream(d).wait_stream(home)
         self.replays += 1
         for k, n in self.launches.items():
             native.REPLAYED[k] += n
 
 
-def _capture(fn: Callable, stream: "torch.cuda.Stream", pool, generators=(),
+@contextlib.contextmanager
+def _joined(home: "torch.cuda.Stream", others: Sequence["torch.cuda.Stream"], pool):
+    """Inside a capture on ``home``: each of ``others`` (a stream on another
+    device) made its device's current stream and joined to the capture,
+    its allocations going to ``pool`` on its device; the current device is
+    ``home``'s within.  At the end ``home`` waits on each, which ends their
+    part in the capture."""
+    with contextlib.ExitStack() as stack:
+        for s in others:
+            stack.enter_context(torch.cuda.stream(s))
+            s.wait_stream(home)
+            torch._C._cuda_beginAllocateCurrentStreamToPool(s.device.index, pool)
+            stack.callback(torch._C._cuda_endAllocateToPool, s.device.index, pool)
+        stack.enter_context(torch.cuda.device(home.device))
+        try:
+            yield
+        finally:
+            for s in others:
+                home.wait_stream(s)
+
+
+def _capture(fn: Callable, streams: Sequence["torch.cuda.Stream"], pool, generators=(),
              held=(), inputs=()) -> Graph:
-    """``fn()`` (returning a tuple of tensors) captured on ``stream`` into
-    ``pool``, with ``generators`` registered so that each replay draws fresh
-    numbers from them.  Raises if the graph holds fewer kernels than its
-    wrappers launched: a launch left the capture stream."""
+    """``fn()`` (returning a tuple of tensors) captured on ``streams[0]``
+    into ``pool``, the other streams (one a further device) joined
+    (``_joined``), with ``generators`` registered so that each replay draws
+    fresh numbers from them.  Raises if the graph holds fewer kernels than
+    its wrappers launched: a launch left the capture."""
     graph, kept = _new_graph()
     for g in generators:
         graph.register_generator_state(g)
     before = dict(native.LAUNCHES)
+    devices = tuple(s.device for s in streams)
     # the capture empties the allocator's cache first: measure after that
     gc.collect()
     torch.cuda.empty_cache()
-    reserved = torch.cuda.memory_reserved(stream.device)
-    with torch.cuda.graph(graph, pool=pool, stream=stream):
+    reserved = sum(torch.cuda.memory_reserved(d) for d in devices)
+    with torch.cuda.graph(graph, pool=pool, stream=streams[0]), _joined(streams[0], streams[1:],
+                                                                         pool):
         outputs = tuple(fn())
+    for d in devices[1:]:
+        # the graph's own pool on the capture device goes with the graph; so
+        # do the pools its capture took on the other devices
+        weakref.finalize(graph, torch._C._cuda_releasePool, d.index, pool)
     launches = {k: n - before[k] for k, n in native.LAUNCHES.items() if n > before[k]}
     nodes = None
     if kept:
@@ -183,16 +263,19 @@ def _capture(fn: Callable, stream: "torch.cuda.Stream", pool, generators=(),
     if nodes is not None and nodes["kernels"] < sum(launches.values()):
         raise RuntimeError(f"the graph holds {nodes['kernels']} kernels, fewer than the "
                            f"{sum(launches.values())} its wrappers launched: a launch left "
-                           f"the capture stream")
+                           f"the capture")
     return Graph(graph=graph, inputs=tuple(inputs), outputs=outputs, launches=launches,
-                 nodes=nodes, pool_bytes=torch.cuda.memory_reserved(stream.device) - reserved,
-                 held=list(held))
+                 nodes=nodes,
+                 pool_bytes=sum(torch.cuda.memory_reserved(d) for d in devices) - reserved,
+                 held=list(held), devices=devices)
 
 
 class GraphedStep:
     """``impl`` captured once per input signature and replayed (see the
-    module's docstring): a serving engine's step.  ``stream`` is the
-    capture stream and ``pool`` the memory pool the engine's graphs share;
+    module's docstring): a serving engine's step.  ``streams`` are the
+    capture stream and one a further device the step spans
+    (``capture_streams``), and ``pool`` the memory pool the engine's graphs
+    share;
     ``n_out`` is the number of outputs ``impl`` returns, checked at
     capture; ``generators`` are the ``torch.Generator``s ``impl`` draws
     from.  The first call runs ``impl`` on the capture stream; a later call
@@ -204,10 +287,11 @@ class GraphedStep:
     captured (``collectives.capture_refusal``): a call that would capture
     raises it."""
 
-    def __init__(self, impl: Callable, n_out: int, stream: "torch.cuda.Stream", pool,
+    def __init__(self, impl: Callable, n_out: int, streams: Sequence["torch.cuda.Stream"], pool,
                  generators=(), refuse: Optional[str] = None):
         self._impl = weakref.WeakMethod(impl) if hasattr(impl, "__self__") else lambda: impl
-        self.n_out, self.stream, self.pool = n_out, stream, pool
+        self.n_out, self.streams, self.pool = n_out, tuple(streams), pool
+        self.stream = self.streams[0]
         self.generators = tuple(generators)
         self.refuse = refuse
         self.graphs: Dict[tuple, Graph] = {}
@@ -238,7 +322,7 @@ class GraphedStep:
             t.record_stream(cur)
         if len(out) != self.n_out:
             raise ValueError(f"the step returned {len(out)} outputs, {self.n_out} expected")
-        self.graphs[key] = _capture(lambda: self.impl(*inputs), self.stream, self.pool,
+        self.graphs[key] = _capture(lambda: self.impl(*inputs), self.streams, self.pool,
                                     self.generators, native.scratch_in_use(), inputs)
         cur.wait_stream(self.stream)
         return out
@@ -247,7 +331,8 @@ class GraphedStep:
 class GraphedTrainStep:
     """A training step ``step(params, tokens) -> loss`` (``loss_fn(params,
     tokens)`` minimised by ``optimizer`` over ``params``' parameters)
-    captured as one CUDA graph per ``params`` and signature of ``tokens``.
+    captured as one CUDA graph per ``params`` and signature of ``tokens``
+    on the one CUDA device of ``devices``.
 
     The first call runs the eager step (``eager``): that run is the call's
     result, and it creates the optimizer's state.  Then the gradients are
@@ -266,11 +351,13 @@ class GraphedTrainStep:
     where set, is why no graph can be captured (``capture_refusal``): a
     call that would capture raises it, and ``eager`` runs the step."""
 
-    def __init__(self, loss_fn: Callable, optimizer: torch.optim.Optimizer, device,
+    def __init__(self, loss_fn: Callable, optimizer: torch.optim.Optimizer, devices,
                  sync: Optional[Callable] = None, refuse: Optional[str] = None):
         check_capturable(optimizer)
+        _one_device(devices)
         self.loss_fn, self.optimizer, self.sync, self.refuse = loss_fn, optimizer, sync, refuse
-        self.stream = torch.cuda.Stream(device)
+        self.streams = capture_streams(devices)
+        self.stream = self.streams[0]
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: Dict[tuple, Graph] = {}
 
@@ -307,7 +394,7 @@ class GraphedTrainStep:
             return (train_once(self.loss_fn, self.optimizer, params, static, self.sync,
                                zero=False),)
 
-        g = _capture(step, self.stream, self.pool, inputs=(static,))
+        g = _capture(step, self.streams, self.pool, inputs=(static,))
         cur.wait_stream(self.stream)
         grads = [p.grad for p in self._parameters()]
         for mine, eager in zip(grads, eager_grads):
@@ -364,9 +451,10 @@ class GraphedFunction:
     signature (shapes, dtypes, devices, which inputs require grad, and
     whether grad mode is on): a forward graph, and a backward graph (the
     gradients with respect to the inputs that require them) where the call
-    is differentiable.  The first call runs ``fn`` eagerly (the call's
-    result), then one eager forward and backward on copies of the inputs
-    (which uploads the backward kernels' tables), then the captures.  A
+    is differentiable, on the one CUDA device of ``devices``.  The first
+    call runs ``fn`` eagerly (the call's result), then one eager forward
+    and backward on copies of the inputs (which uploads the backward
+    kernels' tables), then the captures.  A
     later call replays the forward graph into a fresh output whose backward
     replays the backward graph into fresh gradients.  A signature's graphs
     hold one call's saved activations: the backward of a call must run
@@ -374,9 +462,11 @@ class GraphedFunction:
     ``fn``; ``refuse``, where set, is why no graph can be captured: a call
     that would capture raises it."""
 
-    def __init__(self, fn: Callable, device, refuse: Optional[str] = None):
+    def __init__(self, fn: Callable, devices, refuse: Optional[str] = None):
+        _one_device(devices)
         self.eager, self.refuse = fn, refuse
-        self.stream = torch.cuda.Stream(device)
+        self.streams = capture_streams(devices)
+        self.stream = self.streams[0]
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: Dict[tuple, _Signature] = {}
 
@@ -402,7 +492,7 @@ class GraphedFunction:
             del warm
         cur = torch.cuda.current_stream(self.stream.device)
         self.stream.wait_stream(cur)
-        fwd = _capture(lambda: (self.eager(*static),), self.stream, self.pool, inputs=static)
+        fwd = _capture(lambda: (self.eager(*static),), self.streams, self.pool, inputs=static)
         bwd = None
         if grad:
             g_out = torch.zeros_like(fwd.outputs[0])
@@ -410,7 +500,7 @@ class GraphedFunction:
             # into the pool between a forward replay and its backward's
             bwd = _capture(lambda: torch.autograd.grad(fwd.outputs[0], wants, g_out,
                                                        retain_graph=True),
-                           self.stream, self.pool, inputs=(g_out,))
+                           self.streams, self.pool, inputs=(g_out,))
         cur.wait_stream(self.stream)
         return _Signature(fwd, bwd, tuple(x.requires_grad for x in static))
 
@@ -434,21 +524,24 @@ def train_once(loss_fn: Callable, optimizer: torch.optim.Optimizer, params,
 def graph_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer, mesh,
                      sync: Optional[Callable] = None) -> Callable:
     """A train step ``step(params, tokens) -> loss`` on ``mesh``
-    (``train_once``): a ``GraphedTrainStep`` where the devices the caller
-    drives are one CUDA device (a single-controller layout on one card, or a
-    process-group rank on its card), else the eager step."""
-    device = capture_device(mesh.local_devices())
-    if device is not None:
-        return GraphedTrainStep(loss_fn, optimizer, device, sync, mesh.capture_refusal())
+    (``train_once``): a ``GraphedTrainStep`` where the caller drives one
+    CUDA device (a single-controller layout on one card, or a process-group
+    rank on its card), else the eager step (the CPU, and one process over
+    several cards: see ``ROADMAP.md``)."""
+    devices = capture_devices(mesh.local_devices())
+    if devices is not None and len(devices) == 1:
+        return GraphedTrainStep(loss_fn, optimizer, devices, sync, mesh.capture_refusal())
     return lambda params, tokens: train_once(loss_fn, optimizer, params, tokens, sync)
 
 
 def graph_callable(fn: Callable, mesh) -> Callable:
-    """``fn`` as a ``GraphedFunction`` where the devices the caller drives
-    on ``mesh`` are one CUDA device (``capture_device``), else ``fn``
-    itself."""
-    device = capture_device(mesh.local_devices())
-    return fn if device is None else GraphedFunction(fn, device, mesh.capture_refusal())
+    """``fn`` as a ``GraphedFunction`` where the caller drives one CUDA
+    device on ``mesh`` (``capture_devices``), else ``fn`` itself (the CPU,
+    and one process over several cards)."""
+    devices = capture_devices(mesh.local_devices())
+    if devices is None or len(devices) > 1:
+        return fn
+    return GraphedFunction(fn, devices, mesh.capture_refusal())
 
 
 def cache_key(caches) -> tuple:
@@ -481,10 +574,11 @@ class GraphedCall:
     ones).  ``eager`` runs ``fn`` without a graph; ``refuse``, where set,
     is why no graph can be captured: a call that would capture raises it."""
 
-    def __init__(self, fn: Callable, device, refuse: Optional[str] = None,
+    def __init__(self, fn: Callable, devices, refuse: Optional[str] = None,
                  prepare: Optional[Callable] = None):
         self.fn, self.refuse, self.prepare = fn, refuse, prepare
-        self.stream = torch.cuda.Stream(device)
+        self.streams = capture_streams(devices)
+        self.stream = self.streams[0]
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: Dict[tuple, Graph] = {}
         self._returns: Dict[tuple, Optional[int]] = {}
@@ -526,7 +620,7 @@ class GraphedCall:
             o = self.fn(*captured)
             return (o,) if tensor_out else ()
 
-        g = _capture(call, self.stream, self.pool, held=[args, *native.scratch_in_use()],
+        g = _capture(call, self.streams, self.pool, held=[args, *native.scratch_in_use()],
                      inputs=static)
         self.graphs[key] = g
         cur.wait_stream(self.stream)
@@ -535,10 +629,11 @@ class GraphedCall:
 
 def graph_cache_call(fn: Callable, mesh, prepare: Optional[Callable] = None):
     """``fn`` (see ``GraphedCall``) as the serving callables return it on
-    ``mesh``: a ``GraphedCall`` where the devices the caller drives are one
-    CUDA device (a single-controller mesh on one card, or a process-group
-    rank on its card), else ``fn`` (after ``prepare``) itself."""
-    device = capture_device(mesh.local_devices())
-    if device is None:
+    ``mesh``: a ``GraphedCall`` where the devices the caller drives are CUDA
+    devices (a single-controller mesh on one card or on several, or a
+    process-group rank on its card), else ``fn`` (after ``prepare``)
+    itself."""
+    devices = capture_devices(mesh.local_devices())
+    if devices is None:
         return fn if prepare is None else lambda *args: fn(*prepare(*args))
-    return GraphedCall(fn, device, mesh.capture_refusal(), prepare)
+    return GraphedCall(fn, devices, mesh.capture_refusal(), prepare)

@@ -28,8 +28,9 @@ test runs in the kernel).
 
 The four callables (``seq_sharded_paged_decode``, ``_prefill``,
 ``seq_sharded_append`` and ``sharded_decode.sharded_paged_decode``) are
-compiled as JAX's ``jit(shard_map)`` is where the caller drives one CUDA
-device: ``graphs.GraphedCall``, one graph a signature and set of caches.
+compiled as JAX's ``jit(shard_map)`` is where the caller drives CUDA
+devices (one card, or several from one process: one graph across them):
+``graphs.GraphedCall``, one graph a signature and set of caches.
 """
 
 from __future__ import annotations
@@ -155,10 +156,12 @@ def prefill_merged(q: torch.Tensor, caches: List[PagedKVCache], cfg: KVCacheConf
     """Context-parallel chunked prefill: every shard scans its own pages for
     the whole chunk, and the partials merge.  ``meta`` holds a row a shard
     of the axis (``prefill.prefill_meta`` with the shards' count as the page
-    stride).  One shard is the plain prefill."""
+    stride), on any device: each row goes to its shard's.  One shard is the
+    plain prefill."""
     ax = _axis(caches, axis)
     if ax.size == 1:
-        return prefill_with_meta(q, caches[0], cfg, meta[0], scale=scale, rule=rule)
+        return prefill_with_meta(q, caches[0], cfg, meta[0].to(q.device), scale=scale,
+                                 rule=rule)
     parts = []
     for r, cache in enumerate(caches, ax.index):
         dev = cache.k_pages.device
@@ -221,8 +224,8 @@ def seq_sharded_paged_decode(mesh: Mesh, cfg: KVCacheConfig, axis: str, *,
     over a process group); ``caches`` from ``create_seq_sharded_cache``/
     ``write_prompt_seq_sharded``.  Window rules work: the kernels mask on
     global positions and each shard skips its pages below the window before
-    any load.  A ``graphs.GraphedCall`` where the caller drives one CUDA
-    device (``graph_cache_call``).
+    any load.  A ``graphs.GraphedCall`` where the caller drives CUDA
+    devices (``graph_cache_call``).
     """
     ax, n = mesh.axis(axis), len(mesh.local_grid(axis))
 

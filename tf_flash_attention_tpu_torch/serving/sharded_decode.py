@@ -70,7 +70,7 @@ def sharded_paged_decode(mesh: Mesh, cfg: KVCacheConfig, model_axis: str = AXIS_
     drives, on the shard's device (``shard_cache_heads``).  Each shard
     decodes its own query heads and the outputs join on the head axis (an
     ``all_gather`` over a process group), on ``q``'s device.  A
-    ``graphs.GraphedCall`` where the caller drives one CUDA device."""
+    ``graphs.GraphedCall`` where the caller drives CUDA devices."""
     ax = mesh.axis(model_axis)
     tp, local_cfg = ax.size, head_shard_config(cfg, ax.size)
     n = len(mesh.local_grid(model_axis))

@@ -400,7 +400,18 @@ Phases (any failure exits non-zero before the final line):
      variables: the engines and callables graphed, bit-equal to (a)'s, and
      phase 14(a)'s layouts and callables graphed within its gates against
      the single process on cuda:0; prints walls, busy shares, graph nodes
-     and collective calls beside (a)'s.
+     and collective calls beside (a)'s; (d) one process drives cuda:0..3
+     in training: phase 14(a)'s four layouts (a slot a card) and phase
+     12(a)'s (data 2, model 4) (two slots a card) take MC_TRAIN_STEPS
+     AdamW (capturable) steps on phase 6's batch, each step one CUDA graph
+     across the four cards (forward, backward in the capturing thread,
+     optimizer), and the ring, Ulysses and sharded callables run a forward
+     and a backward graph each across them; the first loss bit-equal to
+     the eager step's on the same cards, the rest within phase 14(a)'s
+     gates of the eager step and of the single process on cuda:0, the
+     callables within attn_tol of both, each card running its own shard's
+     attention kernels in a profiled replay; prints walls, host ms, spans,
+     busy shares, nodes and pool bytes by card beside (c)'s and 12(a)'s.
 
 The kernels' JSON line gives each kernel's launches from the run of the
 path that takes it by default ("path": the engine, the speculative engine,
@@ -1211,7 +1222,8 @@ def main():
     # ---- 12: the rest of jax.jit: the training steps, the parallel
     # attention callables and the bucketed prefill, graphed against eager ----
     t0 = time.perf_counter()
-    compiled, graphed_12a = compiled_train_phase(mcfg, cpu_model, dev, train_tokens, args.seed)
+    compiled, graphed_12a, figures_12a = compiled_train_phase(mcfg, cpu_model, dev, train_tokens,
+                                                              args.seed)
     del train_tokens
     compiled_callables_phase(dev, args.seed, compiled)
     compiled_bucketed_phase(mcfg, cpu_model, ecfg, prompts, chunked_logits, args.seed, dev)
@@ -1238,9 +1250,10 @@ def main():
 
     # ---- 15: the port across the four cards of one host: (a) one process
     # driving cuda:0..3, its engines graphed across them, (b)
-    # dryrun_multichip(4), (c) four NCCL ranks, a card each, graphed ----
+    # dryrun_multichip(4), (c) four NCCL ranks, a card each, graphed, (d)
+    # one process training across cuda:0..3, graphed ----
     if torch.cuda.device_count() >= CARDS:
-        multicard_phases(mcfg, ecfg, prompts, n_new, args.seed, dev, compiled_11)
+        multicard_phases(mcfg, ecfg, prompts, n_new, args.seed, dev, compiled_11, figures_12a)
     else:
         print(f"phase 15: not run here: it needs {CARDS} cards of one host and this one has "
               f"{torch.cuda.device_count()}; run `python3 chip_smoke.py` on a host with {CARDS} "
@@ -4995,7 +5008,8 @@ def compiled_train_phase(mcfg, cpu_model, dev, tokens, seed):
     and the graph's; the busy share is the graphed replay's event span over
     each kind's median wall (steps 2-3).  Returns ({kernel: {"launches",
     "replayed"}} of the graphed runs, the 1-device mesh's graphed figures:
-    phase 14(b)'s reference)."""
+    phase 14(b)'s reference, {layout: {"eager", "graphed"}: its figures}:
+    phase 15(d)'s one-card yardstick)."""
     from tf_flash_attention_tpu_torch import native
     from tf_flash_attention_tpu_torch.models import pipeline
     from tf_flash_attention_tpu_torch.models import transformer as tf
@@ -5038,9 +5052,9 @@ def compiled_train_phase(mcfg, cpu_model, dev, tokens, seed):
         ("moe (data 2, model 4)", sharded(moe_cfg, moe, (2, 4), ("data", "model"))),
         (f"gpipe (data 2, pipe 4), M {PIPE_MICROBATCHES}", piped),
     ]
-    total = {}
+    total, figures = {}, {}
     for label, make in layouts:
-        runs = {}
+        runs = figures[label] = {}
         for graphed in (False, True):
             model, step = make()
             if not isinstance(step, GraphedTrainStep):
@@ -5089,7 +5103,7 @@ def compiled_train_phase(mcfg, cpu_model, dev, tokens, seed):
     del dense, moe
     torch.cuda.empty_cache()
     print(f"phase 12(a): {time.perf_counter() - t0:.3f} s", flush=True)
-    return total, one_device
+    return total, one_device, figures
 
 
 def compiled_callables_phase(dev, seed, total):
@@ -5857,19 +5871,20 @@ def pg_train_rank(rank, port, dev, mcfg, seed, refdir, ready, out):
             dist.destroy_process_group()
 
 
-def train_pg_references(mcfg, seed, dev, refdir, n_steps):
-    """The single-process references of TRAIN_PG_LAYOUTS and
-    TRAIN_PG_CALLABLES on single-controller meshes of ``dev`` four times,
+def train_pg_references(mcfg, seed, dev, refdir, n_steps, layouts=TRAIN_PG_LAYOUTS,
+                        callables=True):
+    """The single-process references of ``layouts`` (TRAIN_PG_LAYOUTS) and
+    TRAIN_PG_CALLABLES on single-controller meshes of ``dev`` (a slot each),
     eager: each layout's ``n_steps`` steps (losses, walls, the first step's
     gradient norm) and its final parameters (saved in ``refdir`` as
-    ``<label>.pt``), the callables' outputs (``callables.pt``).  Returns
-    ({label: figures}, the callables' launches)."""
+    ``<label>.pt``), the callables' outputs (``callables.pt``; none without
+    ``callables``).  Returns ({label: figures}, the callables' launches)."""
     from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
 
     want = {}
-    for label, shape, axes, extra in TRAIN_PG_LAYOUTS:
+    for label, shape, axes, extra in layouts:
         cfg = dataclasses.replace(mcfg, **extra)
-        mesh = make_mesh(shape, axes, [dev] * PG_WORLD)
+        mesh = make_mesh(shape, axes, [dev] * math.prod(shape))
         tokens = pg_train_tokens(cfg, dev, seed)
         init = pg_train_model(cfg, dev, seed, shape[1] if label == "gpipe" else None)
         step, params = pg_train_step(label, cfg, init, mesh)
@@ -5880,6 +5895,8 @@ def train_pg_references(mcfg, seed, dev, refdir, n_steps):
         del step, params, init
         gc.collect()
         torch.cuda.empty_cache()
+    if not callables:
+        return want, {}
     outs, launches, _ = pg_callables_run(
         lambda shape: make_mesh(shape, RING_AXES, [dev] * PG_WORLD), dev, seed)
     torch.save({k: [x.cpu() for x in v] for k, v in outs.items()},
@@ -6370,7 +6387,8 @@ def multicard_rank(rank, port, mcfg, ecfg, prompts, n_new, seed, refdir, ready, 
             dist.destroy_process_group()
 
 
-def multicard_pg_phase(mcfg, ecfg, prompts, n_new, seed, dev, serving_want, callables_want):
+def multicard_pg_phase(mcfg, ecfg, prompts, n_new, seed, dev, serving_want, callables_want,
+                       refdir):
     """Phase 15(c): CARDS ranks (``torch.multiprocessing`` spawn), rank k on
     cuda:k, joined by NCCL through ``maybe_init_distributed()`` under
     torchrun's environment, every step graphed with its collectives inside:
@@ -6387,9 +6405,11 @@ def multicard_pg_phase(mcfg, ecfg, prompts, n_new, seed, dev, serving_want, call
     process's, the parameters after the steps within TRAIN_PG_UPDATE_RTOL;
     the callables within attn_tol; the ring's and GPipe's point-to-point
     calls ran.  Prints a rank's walls beside the single process's, its
-    graphs' nodes and its collective calls."""
+    graphs' nodes and its collective calls.  The references' parameters
+    and callables' outputs stay in ``refdir`` (phase 15(d) reads them);
+    returns (their figures by layout, rank 0's training figures by
+    layout)."""
     import queue
-    import tempfile
 
     import torch.multiprocessing as mp
 
@@ -6397,33 +6417,32 @@ def multicard_pg_phase(mcfg, ecfg, prompts, n_new, seed, dev, serving_want, call
     ctx = mp.get_context("spawn")
     results, ready = ctx.Queue(), ctx.Event()
     port = free_port()
-    with tempfile.TemporaryDirectory() as refdir:
-        procs = [ctx.Process(target=multicard_rank, args=(r, port, mcfg, ecfg, prompts, n_new,
-                                                          seed, refdir, ready, results))
-                 for r in range(CARDS)]
-        for p in procs:
-            p.start()
-        want, _ = train_pg_references(mcfg, seed, dev, refdir, MC_TRAIN_STEPS)
-        print(f"15(c) single-process training references: {time.perf_counter() - t0:.3f} s",
-              flush=True)
-        ready.set()
-        ranks, errors = {}, []
-        try:
-            for _ in procs:
-                rank, err, value = results.get(timeout=900)
-                if err:
-                    errors.append(f"rank {rank}:\n{err}")
-                ranks[rank] = value
-        except queue.Empty:
-            errors.append(f"ranks {sorted(set(range(CARDS)) - set(ranks))} sent nothing in "
-                          f"900 s")
-        for p in procs:
-            p.join(timeout=60)
-            if p.is_alive():
-                p.kill()
-                p.join()
-            if p.exitcode != 0:
-                errors.append(f"a rank exited with code {p.exitcode}")
+    procs = [ctx.Process(target=multicard_rank, args=(r, port, mcfg, ecfg, prompts, n_new,
+                                                      seed, refdir, ready, results))
+             for r in range(CARDS)]
+    for p in procs:
+        p.start()
+    want, _ = train_pg_references(mcfg, seed, dev, refdir, MC_TRAIN_STEPS)
+    print(f"15(c) single-process training references: {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    ready.set()
+    ranks, errors = {}, []
+    try:
+        for _ in procs:
+            rank, err, value = results.get(timeout=900)
+            if err:
+                errors.append(f"rank {rank}:\n{err}")
+            ranks[rank] = value
+    except queue.Empty:
+        errors.append(f"ranks {sorted(set(range(CARDS)) - set(ranks))} sent nothing in "
+                      f"900 s")
+    for p in procs:
+        p.join(timeout=60)
+        if p.is_alive():
+            p.kill()
+            p.join()
+        if p.exitcode != 0:
+            errors.append(f"a rank exited with code {p.exitcode}")
     if errors:
         fail("15(c): " + "\n".join(errors))
     for label, _, _ in PG_LAYOUTS:
@@ -6500,13 +6519,345 @@ def multicard_pg_phase(mcfg, ecfg, prompts, n_new, seed, dev, serving_want, call
           f"{json.dumps(tc['calls'])}, graphs {json.dumps(tc['graphs'])}; ranks up in "
           f"{[round(ranks[r]['started'], 3) for r in range(CARDS)]} s", flush=True)
     print(f"phase 15(c): {time.perf_counter() - t0:.3f} s", flush=True)
+    return want, {label: ranks[0]["training"][label] for label, _, _, _ in TRAIN_PG_LAYOUTS}
 
 
-def multicard_phases(mcfg, ecfg, prompts, n_new, seed, dev, compiled_11=None):
+# ---- phase 15(d): one process training across the four cards, graphed ----
+
+# the layouts of 15(d): TRAIN_PG_LAYOUTS, a slot a card, and 12(a)'s (data 2,
+# model 4), two slots a card (the mesh's slots on cuda:0..3 in turn)
+MC_GRAPH_LAYOUTS = TRAIN_PG_LAYOUTS + (("dense (2, 4)", (2, 4), ("data", "model"), {}),)
+# the 12(a) layout on one card printed beside each (its nearest: 12(a) has
+# no four-slot layouts)
+MC_NEAR_12A = {"dense sp": "(data 2, model 4)", "cp": "(data 2, model 2, context 2)",
+               "moe": "moe (data 2, model 4)", "gpipe": f"gpipe (data 2, pipe 4), M {PIPE_MICROBATCHES}",
+               "dense (2, 4)": "(data 2, model 4)"}
+# the op kernels' tensor-core bodies as torch.profiler names them, and the
+# wrappers that launch each (bf16 at max(d, v_d) <= 128)
+TC_BODIES = {"fwd_tc_kernel": ("banded_fwd", "flash_fwd", "window_fwd", "resident_fwd"),
+             "bwd_tc_kernel": ("banded_bwd", "flash_bwd_fused", "window_bwd", "flash_bwd_dkv")}
+
+
+def spread(devices_of_slots):
+    """A mesh's slots on cuda:0..CARDS-1 in turn."""
+    return [cards()[i % CARDS] for i in range(devices_of_slots)]
+
+
+def spans_cards(wrapper):
+    """Whether a graph wrapper captures across cuda:0..CARDS-1, cuda:0 first."""
+    return tuple(x.device for x in wrapper.streams) == tuple(cards())
+
+
+def launches_by_card(run):
+    """``run()`` with every wrapper launch tallied: {(kernel, card index):
+    launches}."""
+    from tf_flash_attention_tpu_torch import native
+
+    tally, launch = {}, native._launch
+
+    def spy(source, name, *args):
+        launch(source, name, *args)
+        key = (name[3:], next(a.device for a in args if isinstance(a, torch.Tensor)).index)
+        tally[key] = tally.get(key, 0) + 1
+
+    native._launch = spy
+    try:
+        run()
+    finally:
+        native._launch = launch
+    return tally
+
+
+def tc_kernels_by_card(run, device_ms=None):
+    """``run()`` under torch.profiler: {TC_BODIES name: {card index: the
+    kernels of that body the profiler saw there}}; ``device_ms``, where
+    given, gets each card's device ms (its kernels', copies' and sets'
+    durations summed)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        sync_cards()
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if device_ms is not None:
+            device_ms[e.device_index] = (device_ms.get(e.device_index, 0.0)
+                                         + e.time_range.elapsed_us() / 1e3)
+        for body in TC_BODIES:
+            if body in e.name:
+                c = out.setdefault(body, {})
+                c[e.device_index] = c.get(e.device_index, 0) + 1
+    return out
+
+
+def check_own_shards(name, tally, seen):
+    """Fail unless banded_fwd and banded_bwd launched on every card in the
+    eager run (``tally``) and a profiled replay ran on each card exactly the
+    tensor-core kernels the eager run's wrappers launched there (``seen``):
+    each card its own shard's, none of another's.  Returns the counts by
+    body and card."""
+    for k in ("banded_fwd", "banded_bwd"):
+        if any(not tally.get((k, d)) for d in range(CARDS)):
+            fail(f"{name}: {k} did not launch on every card: {tally}")
+    want = {}
+    for body, kernels in TC_BODIES.items():
+        by = {d: sum(tally.get((k, d), 0) for k in kernels) for d in range(CARDS)}
+        by = {d: n for d, n in by.items() if n}
+        if by:
+            want[body] = by
+    if seen != want:
+        fail(f"{name}: a profiled replay ran the tensor-core kernels {seen} by card, the eager "
+             f"run's wrappers launched {want}")
+    return seen
+
+
+def update_err(got, want, start):
+    """The mean |got - want| over the mean |want - start| of a step's
+    parameters ({name: tensor})."""
+    diff = sum(float((got[n] - want[n].to(got[n].device)).abs().double().sum()) for n in got)
+    moved = sum(float((want[n].to(start[n].device) - start[n]).abs().double().sum())
+                for n in got)
+    return diff / moved
+
+
+def multicard_train_layout(layout, mcfg, seed, dev, refdir, ref, rank_15c, compiled_12a):
+    """One of MC_GRAPH_LAYOUTS in 15(d): MC_TRAIN_STEPS eager and
+    MC_TRAIN_STEPS graphed steps across cuda:0..3 from the same weights,
+    gated against each other and against the single process on ``dev``
+    (``ref``, its parameters in ``refdir``); one more replay profiled.  A
+    second eager run measures how far two eager runs on the same cards
+    part (dQ's accumulation is not bit-reproducible), printed beside the
+    gates.  Returns the launches by (kernel, card) of an eager step."""
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+    from tf_flash_attention_tpu_torch.serving.graphs import GraphedTrainStep
+
+    label, shape, axes, extra = layout
+    cfg = dataclasses.replace(mcfg, **extra)
+    mesh = make_mesh(shape, axes, spread(math.prod(shape)))
+    tokens = pg_train_tokens(cfg, dev, seed)
+    b, s = tokens.shape[0], tokens.shape[1] - 1
+    name = f"15(d) {label} {dict(zip(axes, shape))} on cuda:0..{CARDS - 1}"
+    runs = {}
+    for run in ("eager", "again", "graphed"):
+        init = pg_train_model(cfg, dev, seed, shape[1] if label == "gpipe" else None)
+        if run == "eager":
+            start = {n: p.detach().clone() for n, p in init.named_parameters()}
+        step, params = pg_train_step(label, cfg, init, mesh)
+        if not isinstance(step, GraphedTrainStep) or not spans_cards(step):
+            fail(f"{name}: the factory returned {type(step).__name__} over "
+                 f"{[str(x.device) for x in getattr(step, 'streams', ())]}, not a "
+                 f"GraphedTrainStep over the {CARDS} cards")
+        fn = step if run == "graphed" else step.eager
+        fig = {"losses": [], "gnorms": [], "walls": [], "hosts": [], "spans": []}
+        for i in range(MC_TRAIN_STEPS):
+            a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            sync_cards()
+            a.record()
+            t1 = time.perf_counter()
+            if i == 0 and run == "eager":
+                out = []
+                fig["tally"] = launches_by_card(lambda: out.append(fn(params, tokens)))
+                loss = out[0]
+            else:
+                loss = fn(params, tokens)
+            fig["hosts"].append(time.perf_counter() - t1)
+            z.record()
+            sync_cards()
+            fig["walls"].append(time.perf_counter() - t1)
+            fig["spans"].append(a.elapsed_time(z))
+            fig["losses"].append(float(loss))
+            fig["gnorms"].append(grad_norm(params))
+        fig["after"] = {n: p.detach().clone() for n, p in params.named_parameters()}
+        if run == "graphed":
+            if len(step.graphs) != 1:
+                fail(f"{name}: {len(step.graphs)} graphs, one expected")
+            g = next(iter(step.graphs.values()))
+            if g.replays != MC_TRAIN_STEPS - 1:
+                fail(f"{name}: {MC_TRAIN_STEPS - 1} steps after the capture made {g.replays} "
+                     f"replays")
+            fig["graph"] = dict(graph_report(g), pool_by_card=g.pool_by_device)
+            fig["device_ms"] = {}
+            fig["cards"] = check_own_shards(
+                name, runs["eager"]["tally"],
+                tc_kernels_by_card(lambda: step(params, tokens), fig["device_ms"]))
+        runs[run] = fig
+        del step, params, init
+        gc.collect()
+        torch.cuda.empty_cache()
+    eager, again, graphed = runs["eager"], runs["again"], runs["graphed"]
+    noise = {"loss_diffs": [abs(a - b) for a, b in zip(again["losses"], eager["losses"])],
+              "update_err": update_err(again["after"], eager["after"], start)}
+    if graphed["losses"][0] != eager["losses"][0]:
+        fail(f"{name}: the first loss {graphed['losses'][0]} is not the eager step's "
+             f"{eager['losses'][0]} bit for bit")
+    ref_after = torch.load(os.path.join(refdir, f"{label}.pt"), mmap=True)
+    errs = {}
+    for other, want, want_after in (("eager on the same cards", eager, eager["after"]),
+                                    (f"the single process on {dev}",
+                                     dict(losses=ref["losses"], gnorms=[ref["gnorm"]]),
+                                     ref_after)):
+        for i, (x, w) in enumerate(zip(graphed["losses"], want["losses"])):
+            if not math.isfinite(x) or abs(x - w) > TRAIN_LOSS_ATOL:
+                fail(f"{name}: step {i + 1}'s loss {x} vs {other}'s {w}: > {TRAIN_LOSS_ATOL} "
+                     f"(two eager runs on the same cards part by {json.dumps(noise)})")
+        for i, (x, w) in enumerate(zip(graphed["gnorms"], want["gnorms"])):
+            if abs(x - w) > TRAIN_GNORM_RTOL * w:
+                fail(f"{name}: step {i + 1}'s grad norm {x} vs {other}'s {w}: > "
+                     f"{TRAIN_GNORM_RTOL} relative (two eager runs on the same cards part by "
+                     f"{json.dumps(noise)})")
+        errs[other] = update_err(graphed["after"], want_after, start)
+        if errs[other] > TRAIN_PG_UPDATE_RTOL:
+            fail(f"{name}: the parameters after {MC_TRAIN_STEPS} steps part from {other}'s by "
+                 f"{errs[other]} of its mean update > {TRAIN_PG_UPDATE_RTOL}")
+    if not graphed["losses"][-1] < graphed["losses"][0]:
+        fail(f"{name}: losses {graphed['losses']} do not fall")
+    figs = {}
+    for run, fig in (("eager", eager), ("graphed", graphed)):
+        median = statistics.median(fig["walls"][1:]) * 1e3
+        figs[run] = {"step_ms": [round(w * 1e3, 3) for w in fig["walls"]], "median_ms": median,
+                     "host_ms": statistics.median(fig["hosts"][1:]) * 1e3,
+                     "span_ms": statistics.median(fig["spans"][1:]),
+                     "busy_share": statistics.median(graphed["spans"][1:]) / median,
+                     "tokens_per_s": b * s / median * 1e3}
+    near = MC_NEAR_12A[label]
+    p12 = (compiled_12a or {}).get(near, {}).get(True)
+    p12 = {k: p12[k] for k in ("median_ms", "host_ms", "span_ms", "busy_share", "graph")
+           } if p12 else "n/a"
+    c = {k: rank_15c[k] for k in ("walls", "graph")} if rank_15c else "n/a"
+    print(f"{name}, one process, graphed (one graph a step across the cards): losses "
+          f"{graphed['losses']} (eager on the same cards {eager['losses']}, the first bit-equal;"
+          f" single process on {dev} {ref['losses']}); grad norms {graphed['gnorms']} (eager "
+          f"{eager['gnorms']}, single process's first {ref['gnorm']}); parameters after "
+          f"{MC_TRAIN_STEPS} steps: mean |diff| / mean |update| {json.dumps(errs)} (tol "
+          f"{TRAIN_PG_UPDATE_RTOL}); two eager runs on the same cards part by "
+          f"{json.dumps(noise)}; figures {json.dumps(figs)}; graph "
+          f"{json.dumps(graphed['graph'])}; tensor-core kernels of a profiled replay by card "
+          f"{json.dumps(graphed['cards'])}, its device ms by card (kernels, copies and sets "
+          f"summed) {json.dumps(graphed['device_ms'])}; 15(c)'s NCCL rank 0 {json.dumps(c)}; "
+          f"12(a)'s "
+          f"one-card graphed {near} {json.dumps(p12)}", flush=True)
+    return eager["tally"]
+
+
+def multicard_train_callables(seed, dev, refdir):
+    """15(d)'s callables: each of TRAIN_PG_CALLABLES on cuda:0..3 (a slot a
+    card) at RING_SHAPE bf16, eager and graphed (the first call eager and
+    its captures, then a replay of the forward and of the backward graph),
+    the replay's output and dQ/dK/dV within attn_tol of the eager call's on
+    the same cards and of the single process's on ``dev`` (``refdir``),
+    one more call profiled."""
+    from tf_flash_attention_tpu_torch.mask_rules import CausalRule
+    from tf_flash_attention_tpu_torch.parallel import (ring_flash_attention,
+                                                       sharded_flash_attention,
+                                                       ulysses_flash_attention)
+    from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
+    from tf_flash_attention_tpu_torch.serving.graphs import GraphedFunction
+
+    *qkv, do = pg_callable_inputs(dev, seed)
+    ref = torch.load(os.path.join(refdir, "callables.pt"), mmap=True)
+
+    def run(f):
+        xs = [x.detach().requires_grad_(True) for x in qkv]
+        o = f(*xs)
+        return [o.detach(), *torch.autograd.grad(o, xs, do)]
+
+    def timed(f):
+        sync_cards()
+        t1 = time.perf_counter()
+        out = run(f)
+        sync_cards()
+        return out, (time.perf_counter() - t1) * 1e3
+
+    for label, shape, kind in TRAIN_PG_CALLABLES:
+        mesh = make_mesh(shape, RING_AXES, spread(math.prod(shape)))
+        fn = {"ring": lambda: ring_flash_attention(mesh, rule=CausalRule()),
+              "ulysses": lambda: ulysses_flash_attention(mesh, CausalRule()),
+              "sharded": lambda: sharded_flash_attention(mesh, CausalRule())}[kind]()
+        name = f"15(d) {label} {dict(zip(RING_AXES, shape))} on cuda:0..{CARDS - 1}"
+        if not isinstance(fn, GraphedFunction) or not spans_cards(fn):
+            fail(f"{name}: the factory returned {type(fn).__name__}, not a GraphedFunction "
+                 f"over the {CARDS} cards")
+        tally = launches_by_card(lambda: run(fn.eager))
+        want, eager_ms = timed(fn.eager)
+        run(fn)                                  # the eager first call and the captures
+        got, graphed_ms = timed(fn)              # a replay of each graph
+        errs = []
+        for part, a, w, r in zip(("o", "dq", "dk", "dv"), got, want, ref[label]):
+            for other, x in (("the eager call on the same cards", w),
+                             (f"the single process on {dev}", r.to(dev))):
+                e, tol = float((a.float() - x.float()).abs().max()), attn_tol(x)
+                if not torch.isfinite(a.float()).all() or e > tol:
+                    fail(f"{name}: the replay's {part} differs from {other}'s by {e} > {tol}")
+                errs.append(e)
+        sig = next(iter(fn.graphs.values()))
+        if (sig.fwd.replays, sig.bwd.replays) != (1, 1):
+            fail(f"{name}: the forward and backward graphs replayed "
+                 f"{(sig.fwd.replays, sig.bwd.replays)} times, (1, 1) expected")
+        seen = check_own_shards(name, tally, tc_kernels_by_card(lambda: run(fn)))
+        graphs = {part: dict(graph_report(g), pool_by_card=g.pool_by_device)
+                  for part, g in (("forward", sig.fwd), ("backward", sig.bwd))}
+        print(f"{name}, forward and backward, graphed: max_abs_err against the eager call and "
+              f"the single process {max(errs)} (attn_tol); ms eager {eager_ms:.3f}, replays "
+              f"{graphed_ms:.3f}; graphs {json.dumps(graphs)}; tensor-core kernels of a "
+              f"profiled call by card {json.dumps(seen)}", flush=True)
+        del fn, sig
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def multicard_train_phase(mcfg, seed, dev, refs=None, ranks_15c=None, compiled_12a=None):
+    """Phase 15(d): one process drives cuda:0..3 in training.  Each of
+    MC_GRAPH_LAYOUTS (TRAIN_PG_LAYOUTS a slot a card, and (data 2, model 4)
+    two slots a card) at the 168M configuration on phase 6's batch (8 x
+    2,048 tokens) with phase 6's AdamW (capturable): MC_TRAIN_STEPS eager
+    steps on the four cards and MC_TRAIN_STEPS of the factory's
+    GraphedTrainStep over them (the first eager, then one graph across the
+    cards, its backward in the capturing thread; then replays).  Gates: the
+    factory's step spans the four cards; the first loss bit-equal to the
+    eager step's; every loss, every gradient norm and the parameters after
+    the steps within TRAIN_LOSS_ATOL, TRAIN_GNORM_RTOL and
+    TRAIN_PG_UPDATE_RTOL of the eager steps and of the single process on
+    ``dev`` (``train_pg_references``: ``refs``, 15(c)'s (folder, figures),
+    or made here); every step after the capture a replay; a profiled replay
+    runs on each card the tensor-core kernels the eager step launched there.
+    Then TRAIN_PG_CALLABLES (``multicard_train_callables``).  Prints the
+    walls, host ms, spans, busy shares, graph nodes, pool bytes by card and
+    the profiled replay's device ms by card
+    beside 15(c)'s NCCL rank (``ranks_15c``) and phase 12(a)'s one-card
+    graphs (``compiled_12a``)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        if refs is None:
+            refdir = stack.enter_context(tempfile.TemporaryDirectory())
+            want, _ = train_pg_references(mcfg, seed, dev, refdir, MC_TRAIN_STEPS)
+        else:
+            refdir, want = refs[0], dict(refs[1])
+        more, _ = train_pg_references(mcfg, seed, dev, refdir, MC_TRAIN_STEPS,
+                                      [x for x in MC_GRAPH_LAYOUTS if x[0] not in want],
+                                      callables=False)
+        want.update(more)
+        print(f"15(d) single-process references on {dev}: {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        for layout in MC_GRAPH_LAYOUTS:
+            multicard_train_layout(layout, mcfg, seed, dev, refdir, want[layout[0]],
+                                   (ranks_15c or {}).get(layout[0]), compiled_12a)
+        multicard_train_callables(seed, dev, refdir)
+    print(f"phase 15(d): {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def multicard_phases(mcfg, ecfg, prompts, n_new, seed, dev, compiled_11=None, compiled_12a=None):
     """Phase 15 on a host of CARDS cards or more: (a) the single-controller
     engines and serving callables graphed across cuda:0..3, (b)
     ``dryrun_multichip(4)`` on cuda:0..3, (c) CARDS NCCL ranks, a card each,
-    graphed (``multicard_engines_phase``, ``multicard_pg_phase``)."""
+    graphed, (d) the single-controller training steps and callables graphed
+    across cuda:0..3 (``multicard_engines_phase``, ``multicard_pg_phase``,
+    ``multicard_train_phase``)."""
+    import tempfile
+
     from tf_flash_attention_tpu_torch.graft_entry import dryrun_multichip
 
     t0 = time.perf_counter()
@@ -6519,7 +6870,10 @@ def multicard_phases(mcfg, ecfg, prompts, n_new, seed, dev, compiled_11=None):
     dryrun_multichip(CARDS)
     print(f"phase 15(b) dryrun_multichip({CARDS}) on cuda:0..{CARDS - 1}: "
           f"{time.perf_counter() - t1:.3f} s", flush=True)
-    multicard_pg_phase(mcfg, ecfg, prompts, n_new, seed, dev, serving, callables)
+    with tempfile.TemporaryDirectory() as refdir:
+        want, ranks = multicard_pg_phase(mcfg, ecfg, prompts, n_new, seed, dev, serving,
+                                         callables, refdir)
+        multicard_train_phase(mcfg, seed, dev, (refdir, want), ranks, compiled_12a)
     print(f"phase 15: {time.perf_counter() - t0:.3f} s", flush=True)
 
 

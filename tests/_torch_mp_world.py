@@ -335,9 +335,9 @@ def callable_qkv(name):
     return tuple(rng.uniform(-1, 1, shape).astype(np.float32) for _ in range(4))
 
 
-def train_callables(devices):
-    """Every one of CALLABLES on a mesh of ``devices``: {name: (output,
-    dq, dk, dv)}, whole on every process."""
+def train_callables(devices, names=None):
+    """Every one of CALLABLES (or of ``names``) on a mesh of ``devices``:
+    {name: (output, dq, dk, dv)}, whole on every process."""
     from tf_flash_attention_tpu_torch import mask_rules as rules
     from tf_flash_attention_tpu_torch.parallel import (make_mesh, ring_flash_attention,
                                                        sharded_flash_attention,
@@ -346,7 +346,8 @@ def train_callables(devices):
     pick = {"causal": rules.CausalRule(), "full": rules.FullRule(),
             "local": rules.LocalRule(100, is_causal=True)}
     out = {}
-    for name, (shape, kind, rule) in CALLABLES.items():
+    for name in names or CALLABLES:
+        shape, kind, rule = CALLABLES[name]
         mesh = make_mesh(shape, ("data", "model", "context"), devices)
         fn = {"ring": lambda: ring_flash_attention(mesh, rule=pick[rule]),
               "ulysses": lambda: ulysses_flash_attention(mesh, pick[rule]),

@@ -13,7 +13,8 @@ factories return the eager functions:
   rotation is bit-equal to the uncached formula and to JAX's ``_rope``
   (bf16; float32 within an ulp: XLA's and PyTorch's cos/sin differ in the
   last bit), and after its first call it makes no tensor from host data;
-- (b) the steps of the dense model, (data 2, model 2), context 2, MoE and
+- (b) the steps of the dense model, (data 2, model 2), context 2 and
+  (model 2, context 2), MoE and
   the pipeline, and the bucketed ``_prefill_impl`` and ``_sample1_impl``,
   run no op that syncs with the host or makes a tensor from host data, the
   op kernels' plain versions stood in for by shape-correct stubs: an aten
@@ -154,7 +155,7 @@ def _train_case(layout):
     cfg, devs = TCFG, ["cpu"] * 4
     if layout == "moe":
         cfg = dataclasses.replace(TCFG, n_experts=4)
-    elif layout == "cp2":
+    elif layout in ("cp2", "cp4"):
         cfg = dataclasses.replace(TCFG, context_parallel=True)
     params = ttf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     tokens = torch.randint(0, cfg.vocab, (4, 17), generator=torch.Generator().manual_seed(1))
@@ -167,15 +168,18 @@ def _train_case(layout):
     mesh = {"dense": make_mesh((1, 1), ("data", "model"), devs[:1]),
             "tp2": make_mesh((2, 2), ("data", "model"), devs),
             "cp2": make_mesh((1, 1, 2), ("data", "model", "context"), devs[:2]),
+            "cp4": make_mesh((1, 2, 2), ("data", "model", "context"), devs),
             "moe": make_mesh((2, 2), ("data", "model"), devs)}[layout]
     return ttf.make_sharded_train_step(cfg, mesh, opt), params, tokens
 
 
-@pytest.mark.parametrize("layout", ["dense", "tp2", "cp2", "moe", "pipeline"])
+@pytest.mark.parametrize("layout", ["dense", "tp2", "cp2", "cp4", "moe", "pipeline"])
 def test_train_steps_are_capture_safe(layout, stub_op_kernels, monkeypatch):
     """The second step (the one a graph captures: the first made the
     optimizer's state and filled the caches) under the recorder and the
-    host-data guard: forward, backward and the optimizer's step."""
+    host-data guard: forward, backward and the optimizer's step.  tp2
+    (sp), cp4, moe and pipeline are the layouts of four slots that a graph
+    spans four cards with."""
     step, params, tokens = _train_case(layout)
     assert not isinstance(step, graphs.GraphedTrainStep)      # the CPU runs it eagerly
     before = [p.detach().clone() for p in params.parameters()]

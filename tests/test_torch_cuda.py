@@ -1556,21 +1556,26 @@ TINY = ttf.ModelConfig(vocab=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2
                        d_ff=128, dtype=torch.float32)
 
 
-def _graphed_train_case(dev, layout):
-    """``make() -> (params, step)``: a training layout on one card, from
-    the same initial weights at every call."""
+def _graphed_train_case(dev, layout, cards=None):
+    """``make() -> (params, step)``: a training layout on one card (its
+    slots on ``cards`` in turn, where given), from the same initial weights
+    at every call."""
     from tf_flash_attention_tpu_torch.models import pipeline
     from tf_flash_attention_tpu_torch.parallel.mesh import make_mesh
 
     cfg = {"moe": dataclasses.replace(TINY, n_experts=4),
-           "cp2": dataclasses.replace(TINY, context_parallel=True)}.get(layout, TINY)
+           "cp2": dataclasses.replace(TINY, context_parallel=True),
+           "cp4": dataclasses.replace(TINY, context_parallel=True)}.get(layout, TINY)
     init = ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     opt = lambda params: torch.optim.AdamW(params, lr=1e-2, capturable=True)
     shapes = {"dense": ((1, 1), ("data", "model")), "tp2": ((2, 2), ("data", "model")),
               "cp2": ((1, 1, 2), ("data", "model", "context")),
+              "cp4": ((1, 2, 2), ("data", "model", "context")),
               "moe": ((2, 2), ("data", "model")), "pipeline": ((2, 2), ("data", "pipe"))}
     shape, axes = shapes[layout]
-    mesh = make_mesh(shape, axes, [dev] * int(np.prod(shape)))
+    n = int(np.prod(shape))
+    mesh = make_mesh(shape, axes, [cards[i % len(cards)] for i in range(n)] if cards
+                     else [dev] * n)
 
     def make():
         params = copy.deepcopy(init).to(dev)
@@ -1583,7 +1588,7 @@ def _graphed_train_case(dev, layout):
     return make
 
 
-@pytest.mark.parametrize("layout", ["dense", "tp2", "cp2", "moe", "pipeline"])
+@pytest.mark.parametrize("layout", ["dense", "tp2", "cp2", "cp4", "moe", "pipeline"])
 def test_graphed_train_step_matches_eager(dev, layout):
     """Three steps of the factory's graph (the first eager, then the
     capture; two replays) and three of its eager step from the same
@@ -2002,3 +2007,138 @@ def test_single_controller_engine_graphed_across_cards(layout):
         assert tokens == want_tokens, label
         for a, b in zip(logits, want_logits):
             assert torch.equal(a, b), label
+
+
+def _churn(cards):
+    """A block of NaNs filling a quarter of each of ``cards``' free memory,
+    kept while the caller replays: memory freed into the allocator's cache
+    on those cards is overwritten."""
+    out = []
+    for d in cards:
+        free, _ = torch.cuda.mem_get_info(d)
+        out.append(torch.full((free // 16,), float("nan"), device=d))
+    return out
+
+
+def _kernels_by_card(fn, names):
+    """``fn()`` under the profiler: {kernel name: {device index: count}} of
+    the CUDA kernels whose names hold one of ``names``' entries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in names:
+            if name in e.name:
+                by = out.setdefault(name, {})
+                by[e.device_index] = by.get(e.device_index, 0) + 1
+    return out
+
+
+@pytest.mark.parametrize("n_cards", [2, 4])
+@pytest.mark.parametrize("layout", ["tp2", "cp4", "moe", "pipeline"])
+def test_graphed_train_step_across_cards(layout, n_cards):
+    """One process over ``cuda:0..n_cards-1`` (the mesh's slots on the cards
+    in turn): the factory's step is one graph across the cards, the
+    backward run in the capturing thread.  Three graphed steps (the first
+    eager, then the capture; two replays, the second with the other cards'
+    free memory filled with NaNs) against three eager steps on the same
+    cards from the same weights: the tolerances of the one-card test; the
+    graph holds the wrappers' launches and the copies between the cards,
+    and a profiled replay runs kernels on every card."""
+    from tf_flash_attention_tpu_torch.serving.graphs import GraphedTrainStep
+
+    _needs_cards(n_cards)
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    make = _graphed_train_case(cards[0], layout, cards)
+    tokens = torch.randint(0, 64, (4, 33), generator=torch.Generator().manual_seed(1)
+                           ).to(cards[0])
+    runs = []
+    for graphed in (False, True):
+        params, step = make()
+        assert isinstance(step, GraphedTrainStep)
+        assert tuple(s.device for s in step.streams) == tuple(cards)
+        native.reset_launch_counts()
+        losses = []
+        for i in range(3):
+            junk = _churn(cards[1:]) if graphed and i == 2 else []
+            losses.append((step if graphed else step.eager)(params, tokens))
+            for d in cards:
+                torch.cuda.synchronize(d)
+            del junk
+        grads = [p.grad.clone() for p in params.parameters() if p.grad is not None]
+        runs.append((torch.stack(losses), grads))
+    (want, want_g), (got, got_g) = runs
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert len(got_g) == len(want_g)
+    for a, b in zip(got_g, want_g):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    g = next(iter(step.graphs.values()))
+    assert g.devices == tuple(cards) and g.replays == 2
+    assert g.nodes["kernels"] >= sum(g.launches.values()) > 0 and g.nodes["copies"] > 0
+    assert set(g.pool_by_device) == {str(d) for d in cards}
+    seen = _kernel_devices(lambda: step(params, tokens))
+    assert set(seen) == set(range(n_cards)), seen
+
+
+CARD_CALLABLES = {"ring": ((1, 1, 4), "context"), "ulysses": ((1, 1, 4), "context"),
+                  "sharded": ((2, 2, 1), "model")}
+
+
+@pytest.mark.parametrize("kind", list(CARD_CALLABLES))
+def test_graphed_callables_across_cards(kind):
+    """The ring, Ulysses (context 4) and sharded (data 2 x model 2)
+    callables over ``cuda:0..3``, bf16: a forward and a backward graph each
+    across the four cards, the replays' output and gradients within 2 ulps
+    of the eager call's on the same cards, every card running attention
+    kernels in a profiled forward and backward replay, their count over
+    the cards the graphs' wrapper launches."""
+    from tf_flash_attention_tpu_torch.parallel import (make_mesh, ring_flash_attention,
+                                                       sharded_flash_attention,
+                                                       ulysses_flash_attention)
+    from tf_flash_attention_tpu_torch.serving.graphs import GraphedFunction
+
+    _needs_cards(4)
+    cards = [torch.device("cuda", i) for i in range(4)]
+    shape, _ = CARD_CALLABLES[kind]
+    mesh = make_mesh(shape, ("data", "model", "context"), cards)
+    fn = {"ring": lambda: ring_flash_attention(mesh, rule=CausalRule()),
+          "ulysses": lambda: ulysses_flash_attention(mesh, CausalRule()),
+          "sharded": lambda: sharded_flash_attention(mesh, CausalRule())}[kind]()
+    assert isinstance(fn, GraphedFunction)
+    gen = torch.Generator(device=cards[0]).manual_seed(0)
+    q, k, v, do = (torch.randn((2, 4, 1024, 64), generator=gen, device=cards[0])
+                   .to(torch.bfloat16) for _ in range(4))
+
+    def run(f):
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o = f(*xs)
+        return [o.detach(), *torch.autograd.grad(o, xs, do)]
+
+    want = run(fn.eager)
+    run(fn)
+    junk = _churn(cards[1:])
+    got = run(fn)
+    del junk
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol_low(b))
+    sig = next(iter(fn.graphs.values()))
+    for g in (sig.fwd, sig.bwd):
+        assert g.devices == tuple(cards) and g.replays == 1
+        assert g.nodes["kernels"] >= sum(g.launches.values()) > 0 and g.nodes["copies"] > 0
+    # the tensor-core bodies by their symbols, and every wrapper that
+    # launches each (a ring visit takes the route of its block's schedule)
+    bodies = {"fwd_tc_kernel": ("banded_fwd", "flash_fwd", "window_fwd", "resident_fwd"),
+              "bwd_tc_kernel": ("banded_bwd", "flash_bwd_fused", "window_bwd", "flash_bwd_dkv")}
+    seen = _kernels_by_card(lambda: run(fn), list(bodies))
+    for body, kernels in bodies.items():
+        by = seen.get(body, {})
+        launched = sum(g.launches.get(k, 0) for g in (sig.fwd, sig.bwd) for k in kernels)
+        assert set(by) == {0, 1, 2, 3} and sum(by.values()) == launched > 0, (body, by)
+    assert sig.fwd.launches.get("banded_fwd") and sig.bwd.launches.get("banded_bwd")

@@ -14,8 +14,19 @@
   that on the card runs one graph a step across four cards) for tp = 4,
   cp = 4 and model 2 x seq 2, against the JAX engine on four CPU devices
   with the same mesh: equal float32 greedy tokens.
+- The graphs with a backward (``GraphedTrainStep``, ``GraphedFunction``)
+  span the cards too: over two cards the factories return them holding
+  both, the first named first, and the functions they capture run their
+  backward with autograd's multithreading off (the capturing thread's
+  streams are the capture's), GPipe's nested per-tick backward included.
+  Those functions, run eagerly on ``"cpu"`` four times for the four
+  training layouts of four slots (dense sp, cp, MoE, GPipe) and the ring,
+  Ulysses and sharded callables, equal the default autograd run bit for
+  bit and JAX's jitted steps and ``shard_map`` callables on four CPU
+  devices within the tolerances of ``test_torch_mp_train.py``.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -27,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from tf_flash_attention_tpu.models import pipeline as jpp
 from tf_flash_attention_tpu.models import transformer as jtf
 from tf_flash_attention_tpu.parallel.mesh import make_mesh as jmake_mesh
 from tf_flash_attention_tpu.serving import engine as jeng
@@ -34,8 +46,11 @@ from tf_flash_attention_tpu_torch import native
 from tf_flash_attention_tpu_torch.models.transformer import params_from_jax
 from tf_flash_attention_tpu_torch.parallel import mesh as tmesh
 from tf_flash_attention_tpu_torch.serving.engine import DecodeEngine, EngineConfig
+from tf_flash_attention_tpu_torch.serving import graphs
 
 import _torch_mp_world as mpw
+import test_torch_mp_train as mpt
+from test_torch_sharded_train import STEP_ATOL
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -228,20 +243,193 @@ def test_single_controller_engine_matches_jax_on_four_devices(references, name):
     assert [res[r] for r in rids] == references["tokens"][name]
 
 
-def test_graphs_with_a_backward_take_one_card():
-    """A training step's or an attention callable's graph runs autograd,
-    whose per-card threads leave a capture across cards: both refuse more
-    than one device before touching one, and the factories give the eager
-    function over several cards."""
-    from tf_flash_attention_tpu_torch.serving import graphs
+# ---- the graphs with a backward across the cards ----
 
-    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+class _Stream:
+    """Stands in for a ``torch.cuda.Stream`` of ``device``."""
+
+    def __init__(self, device=None):
+        self.device = torch.device(device) if device is not None else None
+
+    def wait_stream(self, other):
+        pass
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    """The wrappers built and their captures made without a card: streams
+    and the pool handle stood in for, ``_capture`` calling the captured
+    function once, PyTorch's capturable AdamW let onto the CPU."""
+    import torch.optim.adam as torch_adam
+
+    def capture(fn, streams, pool, generators=(), held=(), inputs=()):
+        return graphs.Graph(graph=None, inputs=tuple(inputs), outputs=tuple(fn()), launches={},
+                            nodes=None, pool_bytes=0, held=list(held),
+                            devices=tuple(s.device for s in streams))
+
+    monkeypatch.setattr(graphs, "capture_streams", lambda devices: tuple(map(_Stream, devices)))
+    monkeypatch.setattr(graphs, "_capture", capture)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", _Stream)
+    monkeypatch.setattr(torch_adam, "_get_capturable_supported_devices",
+                        lambda *a, **k: ["cpu", "cuda"])
+
+
+@pytest.mark.parametrize("order", [(0, 1), (1, 0, 1, 0)], ids=["0-1", "1-0-1-0"])
+def test_graphs_with_a_backward_span_the_cards(no_card, order):
+    """Over ``cuda:0`` and ``cuda:1`` (a mesh naming them in ``order``)
+    ``graph_train_step`` and ``graph_callable`` return the graph wrappers,
+    holding a capture stream on each card, the first named first; no card
+    is touched."""
+    cards = [torch.device("cuda", i) for i in order]
+    home = (cards[0], cards[1])
+    mesh = tmesh.make_mesh((len(cards),), ("model",), cards)
     opt = torch.optim.AdamW([torch.nn.Parameter(torch.zeros(2))], capturable=True)
-    with pytest.raises(ValueError, match="one CUDA device"):
-        graphs.GraphedTrainStep(lambda params, tokens: None, opt, cards)
-    with pytest.raises(ValueError, match="one CUDA device"):
-        graphs.GraphedFunction(lambda x: x, cards)
-    mesh = tmesh.make_mesh((2,), ("model",), cards)
-    assert not isinstance(graphs.graph_callable(lambda x: x, mesh), graphs.GraphedFunction)
-    assert not isinstance(graphs.graph_train_step(lambda p, t: None, opt, mesh),
-                          graphs.GraphedTrainStep)
+    step = graphs.graph_train_step(lambda p, t: None, opt, mesh)
+    fn = graphs.graph_callable(lambda x: x, mesh)
+    assert isinstance(step, graphs.GraphedTrainStep) and isinstance(fn, graphs.GraphedFunction)
+    for wrapper in (step, fn):
+        assert tuple(s.device for s in wrapper.streams) == home
+        assert wrapper.stream.device == cards[0] and not wrapper.refuse
+
+
+class _Threads(torch.autograd.Function):
+    """The identity; its backward appends whether autograd's multithreading
+    is on to ``seen``."""
+
+    @staticmethod
+    def forward(ctx, x, seen):
+        ctx.seen = seen
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.seen.append(torch.autograd.is_multithreading_enabled())
+        return g, None
+
+
+def _nested_loss(seen):
+    """``loss(params, tokens)`` shaped as GPipe's over a process group: a
+    value whose backward runs an explicit ``torch.autograd.backward`` of
+    another graph (``pipeline._LoopBackward``), which holds ``_Threads``."""
+    from tf_flash_attention_tpu_torch.models import pipeline as tpp
+
+    def loss(params, tokens):
+        seen.append(torch.autograd.is_multithreading_enabled())
+        inner = (_Threads.apply(params.weight, seen) * tokens).sum()
+
+        def run(grad):
+            torch.autograd.backward(inner, grad)
+
+        return tpp._LoopBackward.apply(run, params.weight, inner.detach())
+
+    return loss
+
+
+@pytest.mark.parametrize("kind", ["train_step", "gpipe_nested", "callable"])
+def test_graphed_backward_runs_in_the_calling_thread(no_card, kind):
+    """Autograd's multithreading is off (thread-local) in the functions a
+    graph captures over two cards, in their eager warm-up and in the
+    capture: a train step's forward and backward, GPipe's nested per-tick
+    backward, a callable's backward; it is on before and after, where the
+    caller's own backward runs."""
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    seen = []
+    x = torch.arange(3.0)
+    if kind == "callable":
+        fn = graphs.GraphedFunction(lambda t: _Threads.apply(t, seen) * 2, cards)
+        leaf = x.clone().requires_grad_(True)
+        out = fn(leaf)                               # the eager call, then the captures
+        assert seen == [False, False]                # the warm-up's backward, the capture's
+        torch.autograd.grad(out.sum(), leaf)         # the caller's own backward
+        assert seen == [False, False, True]
+        return
+    params = torch.nn.Linear(3, 1, bias=False)
+    opt = torch.optim.AdamW(params.parameters(), lr=1e-3, capturable=True)
+    if kind == "gpipe_nested":
+        loss_fn = _nested_loss(seen)
+    else:
+        def loss_fn(p, t):
+            seen.append(torch.autograd.is_multithreading_enabled())
+            return (_Threads.apply(p.weight, seen) * t).sum()
+    step = graphs.GraphedTrainStep(loss_fn, opt, cards)
+    step(params, x)                                  # the eager step, then the capture
+    assert len(step.graphs) == 1 and seen == [False] * 4, seen
+    assert torch.autograd.is_multithreading_enabled()
+    loss_fn(params, x).backward()
+    assert seen[-1] is True
+
+
+# the training layouts and callables that phase 15 of chip_smoke.py graphs
+# across four cards, at mpw's small sizes
+CALLABLES = ["ring-causal", "ulysses", "sharded"]
+
+
+@contextlib.contextmanager
+def _default_autograd():
+    """Autograd's multithreading left as the caller has it (the switch the
+    captured functions throw made a no-op)."""
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(torch.autograd, "set_multithreading_enabled",
+                  lambda mode: contextlib.nullcontext())
+        yield
+
+
+@pytest.fixture(scope="module")
+def captured_functions():
+    """The captured functions on ``"cpu"`` four times, through the calling
+    thread's backward and through autograd's default, and JAX's jitted
+    references on four CPU devices (each once for the module)."""
+    params, tokens = {}, {}
+    for name, (_, _, _, tshape) in mpw.TRAIN.items():
+        p = jtf.init_params(mpt._jcfg(name), jax.random.PRNGKey(0))
+        if name == "pipe":
+            p = jpp.stack_stage_params(mpt._jcfg(name), p, mpw.TRAIN[name][0][1])
+        params[name] = jax.tree.map(np.asarray, p)
+        tokens[name] = np.random.default_rng(1).integers(0, 128, tshape).astype(np.int32)
+    cpus = ["cpu"] * mpw.WORLD
+    with torch.autograd.set_multithreading_enabled(False):
+        callables = mpw.train_callables(cpus, CALLABLES)
+    here = dict(layouts=mpw.train_layouts(params, tokens, cpus), callables=callables)
+    with _default_autograd():
+        default = dict(layouts=mpw.train_layouts(params, tokens, cpus),
+                       callables=mpw.train_callables(cpus, CALLABLES))
+    return dict(here=here, default=default,
+                jax=mpt._jax_refs(params, tokens, list(mpw.TRAIN), CALLABLES))
+
+
+@pytest.mark.parametrize("name", list(mpw.TRAIN))
+def test_captured_steps_match_default_autograd_and_jax(captured_functions, name):
+    """A layout's step (``train_once``: the function a ``GraphedTrainStep``
+    captures) on ``"cpu"`` four times: its losses, gradients and
+    parameters after 2 AdamW steps bit-equal to the same step under
+    autograd's default threading, and against JAX's jitted step on four
+    devices as ``test_torch_mp_train.py`` holds the ranks."""
+    got = captured_functions["here"]["layouts"][name]
+    want = captured_functions["default"]["layouts"][name]
+    assert got["losses"] == want["losses"]
+    for part in ("grads", "params"):
+        assert got[part].keys() == want[part].keys()
+        for k, w in want[part].items():
+            np.testing.assert_array_equal(got[part][k], w, err_msg=f"{part} {k}")
+    losses_j, params_j = captured_functions["jax"]["layouts"][name]
+    np.testing.assert_allclose(got["losses"], losses_j, rtol=1e-5)
+    flat = mpt._port_flat(name, got["params"])
+    assert flat.keys() == params_j.keys()
+    for k, w in params_j.items():
+        np.testing.assert_allclose(flat[k], w, rtol=0,
+                                   atol=STEP_ATOL * max(1.0, float(np.abs(w).max())), err_msg=k)
+    assert got["losses"][-1] < got["losses"][0]
+
+
+@pytest.mark.parametrize("name", CALLABLES)
+def test_captured_callables_match_default_autograd_and_jax(captured_functions, name):
+    """A callable's forward and ``torch.autograd.grad`` (what a
+    ``GraphedFunction`` captures) in the calling thread on ``"cpu"`` four
+    times: bit-equal to autograd's default, and within JAX's ring
+    tolerance of its ``shard_map`` callable on four devices."""
+    got = captured_functions["here"]["callables"][name]
+    for a, b in zip(got, captured_functions["default"]["callables"][name]):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(got, captured_functions["jax"]["callables"][name]):
+        np.testing.assert_allclose(a, b, **mpt.TOL)

@@ -322,12 +322,12 @@ def make_pipeline_train_step(cfg: ModelConfig, mesh: Mesh, optimizer: torch.opti
     embedding and the final norm replicated, every stage leaf over
     ``pipe``.  Over a process group every rank calls ``step`` with its
     ``slot_stages`` (``optimizer`` over them) and the whole ``tokens``.  As
-    ``make_sharded_train_step``: where the caller drives one CUDA device
-    the step is a ``GraphedTrainStep`` (one graph holds all ``M +
-    n_stages - 1`` ticks, whose schedule is static per shape; a gloo
-    group's refuses, and ``step.eager`` runs it) and needs a capturable
-    ``optimizer``; on the CPU and over several CUDA devices it runs
-    eagerly."""
+    ``make_sharded_train_step``: where the devices the caller drives are
+    CUDA devices (one card, or a stage a card across several) the step is a
+    ``GraphedTrainStep`` (one graph holds all ``M + n_stages - 1`` ticks,
+    whose schedule is static per shape, and the hand-offs between the
+    cards; a gloo group's refuses, and ``step.eager`` runs it) and needs a
+    capturable ``optimizer``; on the CPU it runs eagerly."""
     loss_fn = pipeline_loss_fn(cfg, mesh, n_microbatches, data_axis, pipe_axis)
     sync = None
     if mesh.process_group:

@@ -862,16 +862,16 @@ def make_sharded_train_step(cfg: ModelConfig, mesh: Mesh, optimizer: torch.optim
     gets the same loss.
 
     The JAX package jits this step.  Where the devices the caller drives are
-    one CUDA device (every layout on one card, a 1-device mesh, a rank of a
-    process group on its card), the step is a
-    ``serving.graphs.GraphedTrainStep``: its first call with a batch shape
-    runs the eager step and captures it as a CUDA graph (over NCCL, with
-    the rank's collectives), which later calls replay; ``optimizer`` must
-    be built with ``capturable=True``, or this raises a ``ValueError``.  A
-    gloo group's collectives cannot be captured: the step then raises when
-    it would capture, and ``step.eager`` runs it.  On the CPU, and where
-    one process drives several CUDA devices (a graph a device: ROADMAP.md
-    queue 1 item 7), the step runs eagerly with ``optimizer`` as it is."""
+    CUDA devices (every layout on one card, a single-controller layout
+    across several cards, a rank of a process group on its card), the step
+    is a ``serving.graphs.GraphedTrainStep``: its first call with a batch
+    shape runs the eager step and captures it as one CUDA graph (across
+    the cards, with the copies between them; over NCCL, with the rank's
+    collectives), which later calls replay; ``optimizer`` must be built
+    with ``capturable=True``, or this raises a ``ValueError``.  A gloo
+    group's collectives cannot be captured: the step then raises when it
+    would capture, and ``step.eager`` runs it.  On the CPU the step runs
+    eagerly with ``optimizer`` as it is."""
     _mesh_devices(cfg, mesh)
     return graph_train_step(lambda params, tokens: loss_fn(cfg, params, tokens, mesh=mesh),
                             optimizer, mesh, _sync(cfg, mesh))

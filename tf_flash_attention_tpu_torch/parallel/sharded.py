@@ -69,9 +69,11 @@ def sharded_flash_attention(mesh: Mesh, rule: MaskRule, *, sync_mode: str = "non
     and returns whole tensors (the output on q's device) and is
     differentiable; over a process group every rank passes the whole inputs
     (JAX's global arrays), runs its own block and gets the whole output and
-    the whole input gradients.  Where the caller drives one CUDA device it
-    is a ``serving.graphs.GraphedFunction`` (JAX's ``jit``): a forward and
-    a backward CUDA graph per input signature, the first call eager.
+    the whole input gradients.  Where the devices the caller drives are
+    CUDA devices (one card, or several) it is a
+    ``serving.graphs.GraphedFunction`` (JAX's ``jit``): a forward and a
+    backward CUDA graph per input signature, each across the cards, the
+    first call eager.
     """
     spec = (data_axis, model_axis, None, None)
     attend = lambda qb, kb, vb: mha(qb, kb, vb, rule=rule, sync_mode=sync_mode, scale=scale,

@@ -129,9 +129,10 @@ def ulysses_flash_attention(
     device) and is differentiable end to end; over a process group every
     rank passes the whole inputs (JAX's global arrays), runs its own block
     with its ``context`` line, and gets the whole output and the whole input
-    gradients.  Where the caller drives one CUDA device it is a
-    ``serving.graphs.GraphedFunction`` (JAX's ``jit``): a forward and a
-    backward CUDA graph per input signature, the first call eager.
+    gradients.  Where the devices the caller drives are CUDA devices (one
+    card, or several) it is a ``serving.graphs.GraphedFunction`` (JAX's
+    ``jit``): a forward and a backward CUDA graph per input signature, each
+    across the cards, the first call eager.
     """
     spec = (data_axis, model_axis, context_axis, None)
     ax = mesh.axis(context_axis)

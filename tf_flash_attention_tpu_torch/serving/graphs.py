@@ -41,16 +41,12 @@ dtypes) each wrapper:
 
 A capture that fails raises; nothing falls back to the eager function.
 Graphs are made wherever every device a process drives is a CUDA device
-(``capture_devices``): a single-controller layout on one card, or one rank
-of a process-group mesh on its card, whose NCCL collectives the graph
-captures (a gloo group's cannot be: every wrapper then raises when a
-capture is attempted, never running eagerly in its place, and the caller
-runs its ``eager`` form); the engine's steps and the serving callables
-also where one process drives several cards.  The training step and the
-attention callables take one card: autograd runs each card's backward in
-a thread of its own, whose current stream is not the capture's, so a
-capture across cards fails; over several cards their factories return the
-eager function.  On the CPU every factory returns the eager function.
+(``capture_devices``): a single-controller layout on one card or on
+several, or one rank of a process-group mesh on its card, whose NCCL
+collectives the graph captures (a gloo group's cannot be: every wrapper
+then raises when a capture is attempted, never running eagerly in its
+place, and the caller runs its ``eager`` form).  On the CPU every factory
+returns the eager function.
 
 One process driving several cards (JAX's single controller over a mesh of
 many devices) captures one graph over all of them: the capture stream is
@@ -61,16 +57,23 @@ cards are nodes of the same graph, in the order the eager code puts them.
 Each side stream's allocations during the capture go to the graph's pool
 on its device (``_joined``), as the capture stream's do on the first, so no
 tensor the graph reads is freed into the memory that other work takes; the
-pool on a side device is released with the graph.  A replay is launched on
-the first device's current stream, which first waits on every other
-device's current stream, and each of those then waits on the replay, so
-work queued around the call on any card stays in order.
+pool on a side device is released with the graph.  Current streams are
+per thread, and autograd runs each card's part of a backward in a worker
+thread of its own by default, whose current stream is not the capture's:
+a graph with a backward runs it with autograd's multithreading off
+(``torch.autograd.set_multithreading_enabled(False)``, thread-local), so
+that every node, on every card, runs in the capturing thread on the stream
+its forward ran on, the capture's.  A replay is launched on the first
+device's current stream, which first waits on every other device's current
+stream, and each of those then waits on the replay, so work queued around
+the call on any card stays in order.
 
 Counts: the kernel wrappers count a captured kernel once in
 ``native.LAUNCHES`` (they ran at capture); each replay adds the graph's
 kernels to ``native.REPLAYED``.  ``Graph.nodes`` counts the graph's kernel
 and memory nodes as libcuda holds them (read once, at capture),
-``Graph.pool_bytes`` the device memory the capture reserved.
+``Graph.pool_bytes`` the device memory the capture reserved (by device in
+``Graph.pool_by_device``).
 """
 
 from __future__ import annotations
@@ -148,15 +151,6 @@ def capture_devices(devices: Iterable) -> Optional[Tuple[torch.device, ...]]:
     return tuple(found) or None
 
 
-def _one_device(devices) -> None:
-    """Refuse more than one device for a graph whose capture runs autograd
-    (see the module's docstring)."""
-    if len(devices) != 1:
-        raise ValueError(f"a graph with a backward is captured on one CUDA device, got "
-                         f"{[str(d) for d in devices]}: autograd runs each card's backward in a "
-                         f"thread of its own, outside the capture's streams")
-
-
 def capture_streams(devices: Sequence[torch.device]) -> Tuple["torch.cuda.Stream", ...]:
     """A new stream on each of ``devices`` (``capture_devices``' order): the
     first captures, the others join its captures."""
@@ -173,7 +167,7 @@ def check_capturable(optimizer: torch.optim.Optimizer) -> None:
         if not group.get("capturable", False):
             raise ValueError(
                 f"param group {i} of the {type(optimizer).__name__} is not capturable: a train "
-                f"step on one CUDA device is captured as a CUDA graph, so build the optimizer "
+                f"step on CUDA devices is captured as a CUDA graph, so build the optimizer "
                 f"with capturable=True (torch.optim.AdamW(params, ..., capturable=True))")
 
 
@@ -181,9 +175,10 @@ def check_capturable(optimizer: torch.optim.Optimizer) -> None:
 class Graph:
     """One captured signature: the graph, its inputs and outputs, the
     kernels the wrappers launched into it, its nodes, the memory its
-    capture reserved on its devices, the tensors it reads that nothing else
-    keeps (held so they are never freed into the pool), its replays so
-    far, and the devices it spans (the capture stream's first)."""
+    capture reserved on its devices (in all, and by device), the tensors it
+    reads that nothing else keeps (held so they are never freed into the
+    pool), its replays so far, and the devices it spans (the capture
+    stream's first)."""
 
     graph: "torch.cuda.CUDAGraph"
     inputs: tuple
@@ -194,18 +189,19 @@ class Graph:
     held: list
     replays: int = 0
     devices: Tuple[torch.device, ...] = ()
+    pool_by_device: Dict[str, int] = dataclasses.field(default_factory=dict)
 
-    def replay(self) -> None:
+    def replay(self, streams: Optional[Sequence["torch.cuda.Stream"]] = None) -> None:
         """One replay on the first device's current stream, in order with
         the work queued on every device's current stream (see the module's
-        docstring)."""
-        others = self.devices[1:]
-        home = torch.cuda.current_stream(self.devices[0]) if others else None
-        for d in others:
-            home.wait_stream(torch.cuda.current_stream(d))
+        docstring); ``streams``, where given, stand for the current streams
+        of ``devices`` (another thread's)."""
+        home, *others = streams or [torch.cuda.current_stream(d) for d in self.devices]
+        for s in others:
+            home.wait_stream(s)
         self.graph.replay()
-        for d in others:
-            torch.cuda.current_stream(d).wait_stream(home)
+        for s in others:
+            s.wait_stream(home)
         self.replays += 1
         for k, n in self.launches.items():
             native.REPLAYED[k] += n
@@ -247,7 +243,7 @@ def _capture(fn: Callable, streams: Sequence["torch.cuda.Stream"], pool, generat
     # the capture empties the allocator's cache first: measure after that
     gc.collect()
     torch.cuda.empty_cache()
-    reserved = sum(torch.cuda.memory_reserved(d) for d in devices)
+    reserved = [torch.cuda.memory_reserved(d) for d in devices]
     with torch.cuda.graph(graph, pool=pool, stream=streams[0]), _joined(streams[0], streams[1:],
                                                                          pool):
         outputs = tuple(fn())
@@ -264,10 +260,10 @@ def _capture(fn: Callable, streams: Sequence["torch.cuda.Stream"], pool, generat
         raise RuntimeError(f"the graph holds {nodes['kernels']} kernels, fewer than the "
                            f"{sum(launches.values())} its wrappers launched: a launch left "
                            f"the capture")
+    by_device = {str(d): torch.cuda.memory_reserved(d) - r for d, r in zip(devices, reserved)}
     return Graph(graph=graph, inputs=tuple(inputs), outputs=outputs, launches=launches,
-                 nodes=nodes,
-                 pool_bytes=sum(torch.cuda.memory_reserved(d) for d in devices) - reserved,
-                 held=list(held), devices=devices)
+                 nodes=nodes, pool_bytes=sum(by_device.values()), held=list(held),
+                 devices=devices, pool_by_device=by_device)
 
 
 class GraphedStep:
@@ -332,14 +328,16 @@ class GraphedTrainStep:
     """A training step ``step(params, tokens) -> loss`` (``loss_fn(params,
     tokens)`` minimised by ``optimizer`` over ``params``' parameters)
     captured as one CUDA graph per ``params`` and signature of ``tokens``
-    on the one CUDA device of ``devices``.
+    over the CUDA devices of ``devices`` (``capture_devices``' tuple: one
+    card, or one graph across several).
 
     The first call runs the eager step (``eager``): that run is the call's
     result, and it creates the optimizer's state.  Then the gradients are
     set to None and one step is captured on the capture stream: forward,
     ``backward()`` (whose leaves' gradients the capture allocates in the
     pool: every replay writes them anew, where a gradient left in place
-    would accumulate) and ``optimizer.step()``.  The eager step's gradients
+    would accumulate) and ``optimizer.step()``, the backward in the
+    capturing thread (``train_once``).  The eager step's gradients
     are copied into the captured ones, so ``p.grad`` holds the last step's
     gradients after every call.  A later call copies ``tokens`` into the
     captured buffer, replays the graph and returns a fresh copy of the 0-d
@@ -354,7 +352,6 @@ class GraphedTrainStep:
     def __init__(self, loss_fn: Callable, optimizer: torch.optim.Optimizer, devices,
                  sync: Optional[Callable] = None, refuse: Optional[str] = None):
         check_capturable(optimizer)
-        _one_device(devices)
         self.loss_fn, self.optimizer, self.sync, self.refuse = loss_fn, optimizer, sync, refuse
         self.streams = capture_streams(devices)
         self.stream = self.streams[0]
@@ -430,6 +427,9 @@ class _Replayed(torch.autograd.Function):
         sig.fwd.replay()
         sig.generation += 1
         ctx.sig, ctx.generation = sig, sig.generation
+        # the caller's current streams: autograd may call the backward in a
+        # thread of its own, whose current streams on the other cards differ
+        ctx.streams = tuple(torch.cuda.current_stream(d) for d in sig.fwd.devices)
         return sig.fwd.outputs[0].clone()
 
     @staticmethod
@@ -441,7 +441,9 @@ class _Replayed(torch.autograd.Function):
                                "signature: the graph's saved activations are the later call's; "
                                "run each call's backward before the next call")
         sig.bwd.inputs[0].copy_(grad)
-        sig.bwd.replay()
+        # the first card's stream is this thread's (autograd puts the node
+        # on its forward's stream and orders ``grad`` before it)
+        sig.bwd.replay((torch.cuda.current_stream(sig.bwd.devices[0]), *ctx.streams[1:]))
         grads = iter(sig.bwd.outputs)
         return (None, *(next(grads).clone() if r else None for r in sig.requires))
 
@@ -451,10 +453,11 @@ class GraphedFunction:
     signature (shapes, dtypes, devices, which inputs require grad, and
     whether grad mode is on): a forward graph, and a backward graph (the
     gradients with respect to the inputs that require them) where the call
-    is differentiable, on the one CUDA device of ``devices``.  The first
-    call runs ``fn`` eagerly (the call's result), then one eager forward
-    and backward on copies of the inputs (which uploads the backward
-    kernels' tables), then the captures.  A
+    is differentiable, over the CUDA devices of ``devices`` (one card, or
+    one graph each across several).  The first call runs ``fn`` eagerly (the
+    call's result), then one eager forward and backward on copies of the
+    inputs (which uploads the backward kernels' tables), then the captures,
+    each backward in the capturing thread (the module's docstring).  A
     later call replays the forward graph into a fresh output whose backward
     replays the backward graph into fresh gradients.  A signature's graphs
     hold one call's saved activations: the backward of a call must run
@@ -463,7 +466,6 @@ class GraphedFunction:
     that would capture raises it."""
 
     def __init__(self, fn: Callable, devices, refuse: Optional[str] = None):
-        _one_device(devices)
         self.eager, self.refuse = fn, refuse
         self.streams = capture_streams(devices)
         self.stream = self.streams[0]
@@ -486,21 +488,23 @@ class GraphedFunction:
         static = tuple(x.detach().clone().requires_grad_(grad and x.requires_grad)
                        for x in inputs)
         wants = [x for x in static if x.requires_grad]
-        if grad:
-            warm = self.eager(*static)
-            torch.autograd.grad(warm, wants, torch.zeros_like(warm))
-            del warm
-        cur = torch.cuda.current_stream(self.stream.device)
-        self.stream.wait_stream(cur)
-        fwd = _capture(lambda: (self.eager(*static),), self.streams, self.pool, inputs=static)
-        bwd = None
-        if grad:
-            g_out = torch.zeros_like(fwd.outputs[0])
-            # retain_graph: the saved activations stay held, never freed
-            # into the pool between a forward replay and its backward's
-            bwd = _capture(lambda: torch.autograd.grad(fwd.outputs[0], wants, g_out,
-                                                       retain_graph=True),
-                           self.streams, self.pool, inputs=(g_out,))
+        with torch.autograd.set_multithreading_enabled(False):
+            if grad:
+                warm = self.eager(*static)
+                torch.autograd.grad(warm, wants, torch.zeros_like(warm))
+                del warm
+            cur = torch.cuda.current_stream(self.stream.device)
+            self.stream.wait_stream(cur)
+            fwd = _capture(lambda: (self.eager(*static),), self.streams, self.pool,
+                           inputs=static)
+            bwd = None
+            if grad:
+                g_out = torch.zeros_like(fwd.outputs[0])
+                # retain_graph: the saved activations stay held, never freed
+                # into the pool between a forward replay and its backward's
+                bwd = _capture(lambda: torch.autograd.grad(fwd.outputs[0], wants, g_out,
+                                                           retain_graph=True),
+                               self.streams, self.pool, inputs=(g_out,))
         cur.wait_stream(self.stream)
         return _Signature(fwd, bwd, tuple(x.requires_grad for x in static))
 
@@ -510,36 +514,41 @@ def train_once(loss_fn: Callable, optimizer: torch.optim.Optimizer, params,
                zero: bool = True) -> torch.Tensor:
     """One optimizer step on ``params`` in place: the loss, ``backward()``,
     ``sync(params)`` where given, the optimizer's step; returns the loss
-    (before the step).  ``zero`` first sets the gradients to None."""
+    (before the step).  ``zero`` first sets the gradients to None.  The
+    step runs with autograd's multithreading off: the backward's nodes on
+    every card run in the calling thread, on their forwards' streams (a
+    capture's across cards; the module's docstring), as the CPU's always
+    do."""
     if zero:
         optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(params, tokens)
-    loss.backward()
-    if sync is not None:
-        sync(params)
-    optimizer.step()
+    with torch.autograd.set_multithreading_enabled(False):
+        loss = loss_fn(params, tokens)
+        loss.backward()
+        if sync is not None:
+            sync(params)
+        optimizer.step()
     return loss.detach()
 
 
 def graph_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer, mesh,
                      sync: Optional[Callable] = None) -> Callable:
     """A train step ``step(params, tokens) -> loss`` on ``mesh``
-    (``train_once``): a ``GraphedTrainStep`` where the caller drives one
-    CUDA device (a single-controller layout on one card, or a process-group
-    rank on its card), else the eager step (the CPU, and one process over
-    several cards: see ``ROADMAP.md``)."""
+    (``train_once``): a ``GraphedTrainStep`` where the devices the caller
+    drives are CUDA devices (a single-controller layout on one card or
+    across several, one graph over them, or a process-group rank on its
+    card), else the eager step (the CPU)."""
     devices = capture_devices(mesh.local_devices())
-    if devices is not None and len(devices) == 1:
+    if devices is not None:
         return GraphedTrainStep(loss_fn, optimizer, devices, sync, mesh.capture_refusal())
     return lambda params, tokens: train_once(loss_fn, optimizer, params, tokens, sync)
 
 
 def graph_callable(fn: Callable, mesh) -> Callable:
-    """``fn`` as a ``GraphedFunction`` where the caller drives one CUDA
-    device on ``mesh`` (``capture_devices``), else ``fn`` itself (the CPU,
-    and one process over several cards)."""
+    """``fn`` as a ``GraphedFunction`` where the devices the caller drives
+    on ``mesh`` are CUDA devices (``capture_devices``: one card, or one
+    graph across several), else ``fn`` itself (the CPU)."""
     devices = capture_devices(mesh.local_devices())
-    if devices is None or len(devices) > 1:
+    if devices is None:
         return fn
     return GraphedFunction(fn, devices, mesh.capture_refusal())
 
